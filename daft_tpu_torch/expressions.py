@@ -1,0 +1,775 @@
+"""Expression DSL: a lazy, typed expression tree over columns (the port's
+copy of daft_tpu/expressions.py).
+
+Each node knows `to_field(schema)` (static type resolution), `evaluate(table)`
+(host evaluation against a Table through pyarrow kernels) and the rewriting
+hooks (children/with_children). Device-eligible trees are compiled to torch by
+daft_tpu_torch/kernels/device.py.
+
+This slice carries the nodes TPC-H Q1/Q6 use: Column, Literal (with the weak
+typing of plain python numbers), Alias, Cast, BinaryOp (arithmetic,
+comparisons, & | ^), Not and Between, and the aggregations sum, mean, count,
+min and max. Left out until a later slice: the function registry
+(daft_tpu/functions.py) and its Function node with the str/dt/list/float/...
+namespaces, IsNull/FillNull/IsIn/IfElse, python UDFs, intervals and the
+non-decomposable and sketch aggregations.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple, Union
+
+from .errors import DaftValueError
+from .datatypes import DataType, TypeKind, infer_datatype, try_unify
+from .schema import Field, Schema
+from .series import Series
+
+
+def col(name: str) -> "Expression":
+    """Reference a column by name."""
+    return Expression(Column(name))
+
+
+def lit(value: Any, dtype: Optional[DataType] = None) -> "Expression":
+    """A literal value."""
+    return Expression(Literal(value, dtype))
+
+
+# ---------------------------------------------------------------------------
+# IR nodes
+# ---------------------------------------------------------------------------
+
+class ExprNode:
+    """Base IR node. Concrete nodes implement name/to_field/evaluate/children."""
+
+    def name(self) -> str:
+        raise NotImplementedError
+
+    def to_field(self, schema: Schema) -> Field:
+        raise NotImplementedError
+
+    def _eval(self, table) -> Series:
+        raise NotImplementedError
+
+    def evaluate(self, table) -> Series:
+        """Evaluate against a Table, sharing results of structurally identical
+        subtrees within one eval pass (table._eval_memo, scoped by Table's
+        _memo_scope) — e.g. Q1's disc_price feeds two aggregates but runs once."""
+        memo = getattr(table, "_eval_memo", None)
+        if memo is None:
+            return self._eval(table)
+        try:
+            k = self._key()
+            hit = memo.get(k)
+        except TypeError:  # unhashable key component (e.g. list literal)
+            return self._eval(table)
+        if hit is None:
+            hit = self._eval(table)
+            memo[k] = hit
+        return hit
+
+    def children(self) -> List["ExprNode"]:
+        return []
+
+    def with_children(self, children: List["ExprNode"]) -> "ExprNode":
+        if children:
+            raise DaftValueError(f"{type(self).__name__} has no children")
+        return self
+
+    def is_aggregation(self) -> bool:
+        return False
+
+    # structural identity (used for dedup / optimizer)
+    def _key(self) -> Tuple:
+        return (type(self).__name__,) + tuple(c._key() for c in self.children())
+
+    def __repr__(self) -> str:
+        return self.display()
+
+    def display(self) -> str:
+        raise NotImplementedError
+
+
+class Column(ExprNode):
+    def __init__(self, cname: str):
+        self.cname = cname
+
+    def name(self) -> str:
+        return self.cname
+
+    def to_field(self, schema: Schema) -> Field:
+        return schema[self.cname]
+
+    def _eval(self, table) -> Series:
+        return table.get_column(self.cname)
+
+    def _key(self):
+        return ("col", self.cname)
+
+    def display(self) -> str:
+        return f"col({self.cname})"
+
+
+class Literal(ExprNode):
+    def __init__(self, value: Any, dtype: Optional[DataType] = None):
+        if isinstance(value, Expression):
+            raise DaftValueError("lit() of an Expression; pass a plain value")
+        self.value = value
+        self.dtype = dtype or infer_datatype(value)
+        # A plain python int/float with no declared dtype is *weak-typed*
+        # (jax-style): in a binary context it adopts the other operand's
+        # dtype when the value fits, so `col_f32 * 2` stays float32 instead
+        # of promoting through int64 to float64 — which would knock the
+        # expression off the 32-bit device path on real TPUs (x64 off).
+        self.weak = dtype is None and isinstance(value, (int, float)) \
+            and not isinstance(value, bool)
+
+    def name(self) -> str:
+        return "literal"
+
+    def to_field(self, schema: Schema) -> Field:
+        return Field("literal", self.dtype)
+
+    def _eval(self, table) -> Series:
+        s = Series.from_pylist([self.value], "literal", self.dtype)
+        return s
+
+    def _key(self):
+        v = self.value
+        if isinstance(v, (list, dict)):
+            v = repr(v)
+        # `weak` is typing-relevant: a weak lit(2) and a strong lit(2, int64)
+        # evaluate to different dtypes in binary contexts, so they must not
+        # alias in the eval memo / plan cache
+        return ("lit", v, self.dtype, self.weak)
+
+    def display(self) -> str:
+        return f"lit({self.value!r})"
+
+
+class Alias(ExprNode):
+    def __init__(self, child: ExprNode, alias: str):
+        self.child = child
+        self.alias = alias
+
+    def name(self) -> str:
+        return self.alias
+
+    def to_field(self, schema: Schema) -> Field:
+        return Field(self.alias, self.child.to_field(schema).dtype)
+
+    def _eval(self, table) -> Series:
+        return self.child.evaluate(table).rename(self.alias)
+
+    def children(self):
+        return [self.child]
+
+    def with_children(self, c):
+        return Alias(c[0], self.alias)
+
+    def is_aggregation(self):
+        return self.child.is_aggregation()
+
+    def _key(self):
+        return ("alias", self.alias, self.child._key())
+
+    def display(self) -> str:
+        return f"{self.child.display()}.alias({self.alias!r})"
+
+
+class Cast(ExprNode):
+    def __init__(self, child: ExprNode, dtype: DataType):
+        self.child = child
+        self.dtype = dtype
+
+    def name(self) -> str:
+        return self.child.name()
+
+    def to_field(self, schema: Schema) -> Field:
+        self.child.to_field(schema)  # validates child
+        return Field(self.name(), self.dtype)
+
+    def _eval(self, table) -> Series:
+        return self.child.evaluate(table).cast(self.dtype)
+
+    def children(self):
+        return [self.child]
+
+    def with_children(self, c):
+        return Cast(c[0], self.dtype)
+
+    def _key(self):
+        return ("cast", self.dtype, self.child._key())
+
+    def display(self) -> str:
+        return f"{self.child.display()}.cast({self.dtype!r})"
+
+
+_ARITH_OPS = {"+", "-", "*", "/", "//", "%", "**"}
+_CMP_OPS = {"==", "!=", "<", "<=", ">", ">=", "<=>"}
+_LOGIC_OPS = {"&", "|", "^"}
+
+
+class BinaryOp(ExprNode):
+    def __init__(self, op: str, left: ExprNode, right: ExprNode):
+        self.op = op
+        self.left = left
+        self.right = right
+
+    def name(self) -> str:
+        return self.left.name()
+
+    def to_field(self, schema: Schema) -> Field:
+        lf = self.left.to_field(schema)
+        rf = self.right.to_field(schema)
+        _, _, ldt, rdt = effective_operands(self.left, self.right, lf.dtype, rf.dtype)
+        lf, rf = Field(lf.name, ldt), Field(rf.name, rdt)
+        op = self.op
+        nm = self.name()
+        if op in _CMP_OPS:
+            # A string *literal* compares against a temporal column by parsing
+            # at plan time (SQL semantics: WHERE l_shipdate <= '1998-09-02').
+            # String columns vs temporal columns are rejected, matching the
+            # reference which only coerces literals (src/daft-dsl/resolve_expr.rs).
+            str_vs_temporal = (lf.dtype.is_temporal() and rf.dtype.is_string()) or (
+                rf.dtype.is_temporal() and lf.dtype.is_string())
+            if str_vs_temporal:
+                str_node = self.right if rf.dtype.is_string() else self.left
+                temporal_dt = lf.dtype if lf.dtype.is_temporal() else rf.dtype
+                litv = _unwrap_string_literal(str_node)
+                if litv is None:
+                    raise DaftValueError(
+                        f"cannot compare {lf.dtype} with {rf.dtype}: only string "
+                        f"literals coerce to temporal types")
+                try:
+                    import pyarrow as pa
+                    pa.scalar(litv).cast(temporal_dt.to_arrow())
+                except Exception as e:
+                    raise DaftValueError(
+                        f"string literal {litv!r} does not parse as {temporal_dt}: {e}"
+                    ) from e
+                return Field(nm, DataType.bool())
+            if try_unify(lf.dtype, rf.dtype) is None and not (
+                lf.dtype.is_temporal() and rf.dtype.is_temporal()
+            ):
+                raise DaftValueError(f"cannot compare {lf.dtype} with {rf.dtype}")
+            return Field(nm, DataType.bool())
+        if op in _LOGIC_OPS:
+            for f in (lf, rf):
+                if not (f.dtype.is_boolean() or f.dtype.is_null() or f.dtype.is_integer()):
+                    raise DaftValueError(f"logical op {op} needs bool/int, got {f.dtype}")
+            if lf.dtype.is_integer() or rf.dtype.is_integer():
+                # bitwise form: both sides must be integers — mixing a bool
+                # with an int has no kernel (kleene ops are bool-only)
+                if lf.dtype.is_boolean() or rf.dtype.is_boolean():
+                    raise DaftValueError(f"cannot {op} {lf.dtype} with {rf.dtype}")
+                u = try_unify(lf.dtype, rf.dtype)
+                if u is None or not u.is_integer():
+                    # e.g. signed | uint64 unifies to float64 — no bitwise kernel
+                    raise DaftValueError(f"cannot {op} {lf.dtype} with {rf.dtype}")
+                return Field(nm, u)
+            return Field(nm, DataType.bool())
+        # arithmetic
+        if op == "+" and (lf.dtype.is_string() or rf.dtype.is_string()):
+            return Field(nm, DataType.string())
+        # temporal arithmetic (must precede the '/' check: duration / numeric
+        # is legal and resolved by _temporal_arith_type)
+        if lf.dtype.is_temporal() or rf.dtype.is_temporal():
+            return Field(nm, _temporal_arith_type(op, lf.dtype, rf.dtype))
+        if op in ("/", "**"):
+            for f in (lf, rf):
+                if not (f.dtype.is_numeric() or f.dtype.is_boolean() or f.dtype.is_null()):
+                    raise DaftValueError(f"cannot apply {op} to {lf.dtype} and {rf.dtype}")
+            return Field(nm, DataType.float64())
+        u = try_unify(lf.dtype, rf.dtype)
+        if u is None or not (u.is_numeric() or u.is_boolean() or u.is_null()):
+            raise DaftValueError(f"cannot apply {op} to {lf.dtype} and {rf.dtype}")
+        if u.is_boolean():
+            # bool op numeric unifies to the numeric side (handled above by
+            # try_unify); bool op bool arithmetic is rejected like the
+            # reference (binary_ops.rs Add: only (Boolean, numeric) is legal)
+            raise DaftValueError(f"cannot apply {op} to {lf.dtype} and {rf.dtype}")
+        return Field(nm, u)
+
+    def _eval(self, table) -> Series:
+        l = self.left.evaluate(table)
+        r = self.right.evaluate(table)
+        # weak-literal adoption must mirror to_field so planner and kernel agree
+        _, _, ldt, rdt = effective_operands(self.left, self.right, l.dtype, r.dtype)
+        if ldt != l.dtype:
+            l = l.cast(ldt)
+        if rdt != r.dtype:
+            r = r.cast(rdt)
+        fn = {
+            "+": lambda a, b: a + b, "-": lambda a, b: a - b, "*": lambda a, b: a * b,
+            "/": lambda a, b: a / b, "//": lambda a, b: a // b, "%": lambda a, b: a % b,
+            "**": lambda a, b: a ** b,
+            "==": lambda a, b: a == b, "!=": lambda a, b: a != b,
+            "<": lambda a, b: a < b, "<=": lambda a, b: a <= b,
+            ">": lambda a, b: a > b, ">=": lambda a, b: a >= b,
+            "<=>": lambda a, b: a.eq_null_safe(b),
+            "&": lambda a, b: a & b, "|": lambda a, b: a | b, "^": lambda a, b: a ^ b,
+        }[self.op]
+        return fn(l, r).rename(self.name())
+
+    def children(self):
+        return [self.left, self.right]
+
+    def with_children(self, c):
+        return BinaryOp(self.op, c[0], c[1])
+
+    def is_aggregation(self):
+        return self.left.is_aggregation() or self.right.is_aggregation()
+
+    def _key(self):
+        return ("bin", self.op, self.left._key(), self.right._key())
+
+    def display(self) -> str:
+        return f"({self.left.display()} {self.op} {self.right.display()})"
+
+
+def _unwrap_string_literal(node: "ExprNode"):
+    """Return the python string value if node is (an alias or string-cast of)
+    a string Literal, else None. Gates SQL-style string→temporal coercion."""
+    while isinstance(node, Alias) or (
+            isinstance(node, Cast) and node.dtype.is_string()):
+        node = node.child
+    if isinstance(node, Literal) and isinstance(node.value, str):
+        return node.value
+    return None
+
+
+def _weak_literal_node(node: "ExprNode") -> Optional[Literal]:
+    """Unwrap aliases; return the Literal if weak-typed, else None."""
+    while isinstance(node, Alias):
+        node = node.child
+    if isinstance(node, Literal) and getattr(node, "weak", False):
+        return node
+    return None
+
+
+_INT_KIND_RANGE = {
+    TypeKind.INT8: (-128, 127), TypeKind.INT16: (-32768, 32767),
+    TypeKind.INT32: (-2**31, 2**31 - 1), TypeKind.INT64: (-2**63, 2**63 - 1),
+    TypeKind.UINT8: (0, 255), TypeKind.UINT16: (0, 65535),
+    TypeKind.UINT32: (0, 2**32 - 1), TypeKind.UINT64: (0, 2**64 - 1),
+}
+
+
+def adopt_weak_literal_dtype(value, other: DataType) -> Optional[DataType]:
+    """jax-style weak typing: the dtype a plain int/float literal should take
+    next to an operand of dtype `other`, or None when normal supertype
+    promotion applies. int literals adopt any numeric dtype they fit; float
+    literals adopt float dtypes (a float literal next to an int column still
+    promotes to float64 like the host kernels do)."""
+    if not other.is_numeric():
+        return None
+    if isinstance(value, float):
+        return other if other.is_floating() else None
+    if other.is_floating():
+        return other
+    rng = _INT_KIND_RANGE.get(other.kind)
+    if rng is not None and rng[0] <= value <= rng[1]:
+        return other
+    return None
+
+
+def effective_operands(left: "ExprNode", right: "ExprNode",
+                       ldt: DataType, rdt: DataType):
+    """Apply weak-literal adoption to one binary context. Returns
+    (left_node, right_node, ldt, rdt) where an adopted literal is rewritten to
+    a strong Literal of the adopted dtype. Shared by the host planner
+    (BinaryOp.to_field), the host kernel (BinaryOp._eval) and the device
+    compiler (kernels/device.py) so all three agree on result types."""
+    lw, rw = _weak_literal_node(left), _weak_literal_node(right)
+    if lw is not None and rw is None:
+        ad = adopt_weak_literal_dtype(lw.value, rdt)
+        if ad is not None and ad != ldt:
+            return Literal(lw.value, ad), right, ad, rdt
+    elif rw is not None and lw is None:
+        ad = adopt_weak_literal_dtype(rw.value, ldt)
+        if ad is not None and ad != rdt:
+            return left, Literal(rw.value, ad), ldt, ad
+    return left, right, ldt, rdt
+
+
+def normalize_literals(node: "ExprNode", schema) -> "ExprNode":
+    """Rewrite context-dependent literals throughout a tree into strong
+    literals: weak int/float literals adopt their sibling operand's dtype and
+    string literals next to temporal operands are parsed to temporal literals.
+    The device compiler (kernels/device.py) runs this first so every Literal
+    carries the concrete dtype it executes at."""
+    kids = node.children()
+    if kids:
+        new_kids = [normalize_literals(c, schema) for c in kids]
+        if any(n is not o for n, o in zip(new_kids, kids)):
+            node = node.with_children(new_kids)
+    if isinstance(node, BinaryOp):
+        l, r = effective_binop_children(node.left, node.right, schema)
+        if l is not node.left or r is not node.right:
+            node = BinaryOp(node.op, l, r)
+    elif isinstance(node, Between):
+        _, lo = effective_binop_children(node.child, node.lower, schema)
+        _, hi = effective_binop_children(node.child, node.upper, schema)
+        if lo is not node.lower or hi is not node.upper:
+            node = Between(node.child, lo, hi)
+    return node
+
+
+def effective_binop_children(left: "ExprNode", right: "ExprNode", schema):
+    """Resolve context-dependent literals for one BinaryOp against `schema`:
+    weak int/float literals adopt the other operand's dtype, and a string
+    literal next to a temporal column is parsed to a temporal literal at plan
+    time. Used by the device compiler so the staged expression tree carries
+    concrete device dtypes."""
+    import pyarrow as _pa
+
+    ldt = left.to_field(schema).dtype
+    rdt = right.to_field(schema).dtype
+    if ldt.is_temporal() and rdt.is_string():
+        v = _unwrap_string_literal(right)
+        if v is not None:
+            parsed = _pa.scalar(v).cast(ldt.to_arrow()).as_py()
+            return left, Literal(parsed, ldt)
+    if rdt.is_temporal() and ldt.is_string():
+        v = _unwrap_string_literal(left)
+        if v is not None:
+            parsed = _pa.scalar(v).cast(rdt.to_arrow()).as_py()
+            return Literal(parsed, rdt), right
+    l2, r2, _, _ = effective_operands(left, right, ldt, rdt)
+    return l2, r2
+
+
+def _temporal_arith_type(op: str, l: DataType, r: DataType) -> DataType:
+    def unit_of(dt):
+        return dt.params[0] if dt.kind in (TypeKind.TIMESTAMP, TypeKind.DURATION) else "us"
+
+    if op == "-":
+        if l.kind == TypeKind.TIMESTAMP and r.kind == TypeKind.TIMESTAMP:
+            return DataType.duration(unit_of(l))
+        if l.kind == TypeKind.DATE and r.kind == TypeKind.DATE:
+            return DataType.duration("s")
+        if l.kind == TypeKind.TIMESTAMP and r.kind == TypeKind.DURATION:
+            return l
+        if l.kind == TypeKind.DATE and r.kind == TypeKind.DURATION:
+            return DataType.timestamp(unit_of(r))
+        if l.kind == TypeKind.DURATION and r.kind == TypeKind.DURATION:
+            return DataType.duration(unit_of(l))
+    if op == "+":
+        if l.kind == TypeKind.TIMESTAMP and r.kind == TypeKind.DURATION:
+            return l
+        if l.kind == TypeKind.DURATION and r.kind == TypeKind.TIMESTAMP:
+            return r
+        if l.kind == TypeKind.DATE and r.kind == TypeKind.DURATION:
+            return DataType.timestamp(unit_of(r))
+        if l.kind == TypeKind.DURATION and r.kind == TypeKind.DATE:
+            return DataType.timestamp(unit_of(l))
+        if l.kind == TypeKind.DURATION and r.kind == TypeKind.DURATION:
+            return DataType.duration(unit_of(l))
+    if op in ("*", "/", "//") and (l.kind == TypeKind.DURATION) != (r.kind == TypeKind.DURATION):
+        return l if l.kind == TypeKind.DURATION else r
+    raise DaftValueError(f"unsupported temporal arithmetic: {l} {op} {r}")
+
+
+
+class Not(ExprNode):
+    def __init__(self, child: ExprNode):
+        self.child = child
+
+    def name(self):
+        return self.child.name()
+
+    def to_field(self, schema):
+        f = self.child.to_field(schema)
+        if not (f.dtype.is_boolean() or f.dtype.is_null()):
+            raise DaftValueError(f"~ expects bool, got {f.dtype}")
+        return Field(f.name, DataType.bool())
+
+    def _eval(self, table):
+        return (~self.child.evaluate(table)).rename(self.name())
+
+    def children(self):
+        return [self.child]
+
+    def with_children(self, c):
+        return Not(c[0])
+
+    def is_aggregation(self):
+        return self.child.is_aggregation()
+
+    def display(self):
+        return f"~{self.child.display()}"
+
+
+
+
+class Between(ExprNode):
+    def __init__(self, child: ExprNode, lower: ExprNode, upper: ExprNode):
+        self.child = child
+        self.lower = lower
+        self.upper = upper
+
+    def name(self):
+        return self.child.name()
+
+    def to_field(self, schema):
+        f = self.child.to_field(schema)
+        self.lower.to_field(schema)
+        self.upper.to_field(schema)
+        return Field(f.name, DataType.bool())
+
+    def _eval(self, table):
+        s = self.child.evaluate(table)
+        lo = self.lower.evaluate(table)
+        hi = self.upper.evaluate(table)
+        # weak-literal bounds adopt the tested expression's dtype, mirroring
+        # normalize_literals so host and device agree on comparison precision
+        _, _, _, lodt = effective_operands(self.child, self.lower, s.dtype, lo.dtype)
+        _, _, _, hidt = effective_operands(self.child, self.upper, s.dtype, hi.dtype)
+        if lodt != lo.dtype:
+            lo = lo.cast(lodt)
+        if hidt != hi.dtype:
+            hi = hi.cast(hidt)
+        return s.between(lo, hi).rename(self.name())
+
+    def children(self):
+        return [self.child, self.lower, self.upper]
+
+    def with_children(self, c):
+        return Between(c[0], c[1], c[2])
+
+    def is_aggregation(self):
+        return self.child.is_aggregation()
+
+    def display(self):
+        return f"{self.child.display()}.between({self.lower.display()}, {self.upper.display()})"
+
+
+
+
+AGG_KINDS = ("sum", "mean", "min", "max", "count")
+
+
+class AggExpr(ExprNode):
+    """An aggregation over a child expression (reference: AggExpr, expr.rs:72)."""
+
+    def __init__(self, kind: str, child: ExprNode, extra: Optional[Dict[str, Any]] = None):
+        if kind not in AGG_KINDS:
+            raise DaftValueError(f"unknown aggregation {kind!r}")
+        self.kind = kind
+        self.child = child
+        self.extra = extra or {}
+
+    def name(self):
+        return self.child.name()
+
+    def to_field(self, schema):
+        f = self.child.to_field(schema)
+        k = self.kind
+        if k == "count":
+            return Field(f.name, DataType.uint64())
+        if k == "sum":
+            dt = f.dtype
+            if dt.is_signed_integer() or dt.is_boolean():
+                dt = DataType.int64()
+            elif dt.is_unsigned_integer():
+                dt = DataType.uint64()
+            return Field(f.name, dt)
+        if k == "mean":
+            return Field(f.name, DataType.float64())
+        return Field(f.name, f.dtype)  # min / max
+
+    def _eval(self, table) -> Series:
+        # global (ungrouped) aggregation path; grouped agg handled by Table.agg
+        s = self.child.evaluate(table)
+        return _eval_agg_on_series(self, s).rename(self.name())
+
+    def children(self):
+        return [self.child]
+
+    def with_children(self, c):
+        return AggExpr(self.kind, c[0], self.extra)
+
+    def is_aggregation(self):
+        return True
+
+    def _key(self):
+        return ("agg", self.kind, tuple(sorted((k, repr(v)) for k, v in self.extra.items())),
+                self.child._key())
+
+    def display(self):
+        return f"{self.child.display()}.{self.kind}()"
+
+
+def _eval_agg_on_series(agg: AggExpr, s: Series) -> Series:
+    k = agg.kind
+    if k == "count":
+        return s.count(agg.extra.get("mode", "valid"))
+    return getattr(s, k)()
+
+
+# ---------------------------------------------------------------------------
+# Public Expression facade
+# ---------------------------------------------------------------------------
+
+def _as_expr_node(v) -> ExprNode:
+    if isinstance(v, Expression):
+        return v._node
+    if isinstance(v, ExprNode):
+        return v
+    return Literal(v)
+
+
+class Expression:
+    """User-facing expression wrapper with operators and namespaces."""
+
+    __slots__ = ("_node",)
+
+    def __init__(self, node: ExprNode):
+        self._node = node
+
+    # --- naming / typing
+    def name(self) -> str:
+        return self._node.name()
+
+    def alias(self, name: str) -> "Expression":
+        return Expression(Alias(self._node, name))
+
+    def cast(self, dtype: DataType) -> "Expression":
+        return Expression(Cast(self._node, dtype))
+
+    def to_field(self, schema: Schema) -> Field:
+        return self._node.to_field(schema)
+
+    # --- operators
+    def _bin(self, op: str, other, reverse=False) -> "Expression":
+        o = _as_expr_node(other)
+        l, r = (o, self._node) if reverse else (self._node, o)
+        return Expression(BinaryOp(op, l, r))
+
+    def __add__(self, o):
+        return self._bin("+", o)
+
+    def __radd__(self, o):
+        return self._bin("+", o, True)
+
+    def __sub__(self, o):
+        return self._bin("-", o)
+
+    def __rsub__(self, o):
+        return self._bin("-", o, True)
+
+    def __mul__(self, o):
+        return self._bin("*", o)
+
+    def __rmul__(self, o):
+        return self._bin("*", o, True)
+
+    def __truediv__(self, o):
+        return self._bin("/", o)
+
+    def __rtruediv__(self, o):
+        return self._bin("/", o, True)
+
+    def __floordiv__(self, o):
+        return self._bin("//", o)
+
+    def __rfloordiv__(self, o):
+        return self._bin("//", o, True)
+
+    def __mod__(self, o):
+        return self._bin("%", o)
+
+    def __rmod__(self, o):
+        return self._bin("%", o, True)
+
+    def __pow__(self, o):
+        return self._bin("**", o)
+
+    def __eq__(self, o):  # type: ignore[override]
+        return self._bin("==", o)
+
+    def __ne__(self, o):  # type: ignore[override]
+        return self._bin("!=", o)
+
+    def __lt__(self, o):
+        return self._bin("<", o)
+
+    def __le__(self, o):
+        return self._bin("<=", o)
+
+    def __gt__(self, o):
+        return self._bin(">", o)
+
+    def __ge__(self, o):
+        return self._bin(">=", o)
+
+    def eq_null_safe(self, o):
+        return self._bin("<=>", o)
+
+    def __and__(self, o):
+        return self._bin("&", o)
+
+    def __rand__(self, o):
+        return self._bin("&", o, True)
+
+    def __or__(self, o):
+        return self._bin("|", o)
+
+    def __ror__(self, o):
+        return self._bin("|", o, True)
+
+    def __xor__(self, o):
+        return self._bin("^", o)
+
+    def __invert__(self):
+        return Expression(Not(self._node))
+
+    def __hash__(self):
+        return hash(repr(self._node._key()))
+
+    def __bool__(self):
+        raise DaftValueError(
+            "Expressions are lazy and have no truth value; use & | ~ instead of and/or/not"
+        )
+
+
+    def between(self, lower, upper):
+        return Expression(Between(self._node, _as_expr_node(lower), _as_expr_node(upper)))
+
+    # --- aggregations
+    def _agg(self, kind: str, **extra) -> "Expression":
+        return Expression(AggExpr(kind, self._node, extra))
+
+    def sum(self):
+        return self._agg("sum")
+
+    def mean(self):
+        return self._agg("mean")
+
+    def min(self):
+        return self._agg("min")
+
+    def max(self):
+        return self._agg("max")
+
+    def count(self, mode: str = "valid"):
+        return self._agg("count", mode=mode)
+
+    def __repr__(self) -> str:
+        return self._node.display()
+
+
+def required_columns(e: Union[Expression, ExprNode]) -> List[str]:
+    node = e._node if isinstance(e, Expression) else e
+    out: List[str] = []
+
+    def walk(n: ExprNode):
+        if isinstance(n, Column):
+            if n.cname not in out:
+                out.append(n.cname)
+        for c in n.children():
+            walk(c)
+
+    walk(node)
+    return out
