@@ -5,17 +5,29 @@ kernels build for sm_90a):
 
     python3 chip_smoke.py                # every phase, TPC-H SF1 and SF10
     python3 chip_smoke.py --scales 1     # a shorter run: SF1 only
-    python3 chip_smoke.py --profile      # also trace warm Q1/Q6 at the first scale
+    python3 chip_smoke.py --profile      # also trace warm Q1/Q6 and deep Q1 at the first scale
 
 Phases, each of which fails the run:
-  1. build every kernel of the main path from the sources in the checkout;
+  1. build every kernel of the main path from the sources in the checkout,
+     all nvcc runs at once: K1 (csrc/masked_segment_sums.cu) and the K2
+     sources (generated by kernels/fused_expr_sums.py) of every deep plan the
+     script drives and of the phase-2 edge cases. The deep plans' K2 programs
+     are found by running those plans once on a 4096-row frame on the CPU,
+     where K2 takes its plain version and builds nothing;
   2. hold each kernel against its plain PyTorch version on the card, at the
      shapes the main path gives it and at edge cases, and time it (CUDA
-     events) beside its bound, the plain version and one library call;
+     events) beside its bound, the plain version and one library call. K2's
+     operands are the ones the engine hands it for SF1 Q1 and Q6, captured
+     from a run through the engine; K2 must equal its plain version and the
+     composed route (torch derive, stack, K1) bit for bit;
   3. drive TPC-H Q1 and Q6 through daft_tpu_torch.from_arrow(...).collect()
-     on the card, in the 32-bit device mode, and hold the results against the
-     pyarrow oracle of benchmarks/tpch.py at rtol 1e-6; check that the
-     aggregation ran on the card through the kernel.
+     on the card in the 32-bit device mode, through K1 (the composed route)
+     and through K2 (use_deep_fusion_kernel), and Q1 written with
+     with_column through a device-resident plan segment (DeviceSegmentOp),
+     with K2 and with K1; hold every result against the pyarrow oracle of
+     benchmarks/tpch.py at rtol 1e-6; check that each path ran on the card
+     through its kernel (its launch count, set to 0 just before the path and
+     read just after), and time deep against composed back to back.
 
 The last line of standard output is {"ok": true, "device": {...}} when every
 phase passed; the exit code is 0 only then. The line before it is the card's
@@ -37,6 +49,7 @@ import traceback
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12      # fp32 outside the tensor cores, H100 SXM data sheet
 RTOL = 1e-6
+SF1_BUCKET = 8_388_608       # size_bucket of SF1's 6,000,000 lineitem rows
 
 
 def q1(lineitem):
@@ -54,6 +67,31 @@ def q1(lineitem):
             col("l_extendedprice").sum().alias("sum_base_price"),
             disc_price.sum().alias("sum_disc_price"),
             charge.sum().alias("sum_charge"),
+            col("l_quantity").mean().alias("avg_qty"),
+            col("l_extendedprice").mean().alias("avg_price"),
+            col("l_discount").mean().alias("avg_disc"),
+            col("l_quantity").count().alias("count_order"),
+        )
+        .sort(["l_returnflag", "l_linestatus"])
+    )
+
+
+def q1_with_columns(lineitem):
+    """TPC-H Q1 with its derived columns written as with_column steps, as
+    DataFrame users write them: it plans as one DeviceSegmentOp."""
+    from daft_tpu_torch import col
+
+    return (
+        lineitem
+        .with_column("disc_price", col("l_extendedprice") * (1 - col("l_discount")))
+        .with_column("charge", col("disc_price") * (1 + col("l_tax")))
+        .where(col("l_shipdate") <= datetime.date(1998, 9, 2))
+        .groupby("l_returnflag", "l_linestatus")
+        .agg(
+            col("l_quantity").sum().alias("sum_qty"),
+            col("l_extendedprice").sum().alias("sum_base_price"),
+            col("disc_price").sum().alias("sum_disc_price"),
+            col("charge").sum().alias("sum_charge"),
             col("l_quantity").mean().alias("avg_qty"),
             col("l_extendedprice").mean().alias("avg_price"),
             col("l_discount").mean().alias("avg_disc"),
@@ -117,6 +155,22 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: the larger of bytes over the
+    memory rate and fp32 operations over the fp32 rate."""
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    ops_ms = ops / H100_FP32_FLOPS * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def same_bits(a, b) -> bool:
+    """Bit-for-bit equality of two float32 tensors (NaN payloads included)."""
+    import torch
+
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 class Phases:
     def __init__(self):
         self.failures = []
@@ -127,6 +181,110 @@ class Phases:
             self.failures.append(what)
         return ok
 
+
+# ---------------------------------------------------------------------------
+# phase 1: builds
+# ---------------------------------------------------------------------------
+
+DEEP_PLANS = {"q1": q1, "q6": q6, "q1_with_columns": q1_with_columns}
+
+
+def edge_specs():
+    """Phase-2 edge cases of K2 over a synthetic schema: name -> (predicate
+    or None, child expressions)."""
+    from daft_tpu_torch import DataType, col
+
+    derived = [col("x") * col("y"), col("x") - col("y") * 2.5, col("x") / col("y")]
+    return {
+        "nan_nulls_ragged": (col("d") < 50, derived),
+        "k33": (col("d") < 80, [col("x") * (j + 1) + col("y") for j in range(33)]),
+        "rejects_all": (col("d") > 1000, derived),
+        "casts": (None, [col("f").cast(DataType.int8()).cast(DataType.float64()),
+                         col("f").cast(DataType.int16()).cast(DataType.float64()),
+                         col("f").cast(DataType.int32()).cast(DataType.float64()),
+                         col("f") // col("y"), col("f") % col("y"),
+                         (col("d") // 7).cast(DataType.float64()),
+                         ((col("d") % 7) * 3 - 2).cast(DataType.float64())]),
+    }
+
+
+def edge_schema():
+    from daft_tpu_torch import DataType, Field, Schema
+
+    return Schema([Field("x", DataType.float64()), Field("y", DataType.float64()),
+                   Field("d", DataType.int64()), Field("f", DataType.float64())])
+
+
+def edge_programs() -> dict:
+    import torch
+
+    from daft_tpu_torch.kernels import fused_expr_sums as fes
+    from daft_tpu_torch.kernels.device import normalize_and_check
+
+    schema = edge_schema()
+    dtypes = {"x": torch.float32, "y": torch.float32, "d": torch.int32, "f": torch.float32}
+    progs = {}
+    for name, (pred, kids) in edge_specs().items():
+        pnode = normalize_and_check([pred], schema)[0] if pred is not None else None
+        progs[name] = fes.program(pnode, normalize_and_check(kids, schema), schema, dtypes)
+    return progs
+
+
+def enumerate_deep_programs() -> list:
+    """The K2 programs of every deep plan the main path drives: the engine
+    plans each one on a 4096-row frame on the CPU (K2's plain version there),
+    which generates the same programs the card runs at every scale."""
+    import daft_tpu_torch as dtt
+    from benchmarks import tpch
+    from daft_tpu_torch.kernels import fused_expr_sums as fes
+
+    dtt.set_execution_config(dtt.ExecutionConfig(device="cpu", device_min_rows=1,
+                                                 use_deep_fusion_kernel=True))
+    small = dtt.from_arrow(tpch.generate_lineitem_only(
+        scale=4096 / tpch.LINEITEM_ROWS_PER_SF, seed=1)).collect()
+    for plan in DEEP_PLANS.values():
+        plan(small).collect()
+    return fes.programs()
+
+
+def phase_build(ph: Phases) -> dict:
+    """Start nvcc on K1 and every K2 program at once, wait for all, and
+    print each build's time. Returns the edge-case programs."""
+    from daft_tpu_torch.kernels import fused_expr_sums as fes
+    from daft_tpu_torch.kernels import segment_sums as ss
+
+    edges = edge_programs()
+    progs = enumerate_deep_programs()
+    t0 = time.perf_counter()
+    k1_job = ss.start_build()
+    jobs = {"K1 masked_segment_sums": k1_job}
+    for i, prog in enumerate(progs):
+        jobs[f"K2 program {i} (K={prog.k}, columns {','.join(prog.names)})"] = prog.start_build()
+    done = {}
+    while len(done) < len(jobs):
+        for name, job in jobs.items():
+            if name not in done and (job is None or job.done()):
+                done[name] = time.perf_counter() - t0
+        time.sleep(0.05)
+    ss.finish_build(k1_job)
+    for prog in progs:
+        prog.build()
+    for name, secs in done.items():
+        print(f"built {name} in {secs:.2f}s (all builds started together)", flush=True)
+    ph.check(len(progs) >= len(DEEP_PLANS) + len(edges),
+             f"phase 1: {len(progs)} K2 programs and K1 built for sm_90a")
+    logs = [("K1", ss.BUILD_LOG)] + [(f"K2 program {i}", p.build_log) for i, p in enumerate(progs)]
+    for label, log in logs:
+        for line in (log or "").splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                print(f"ptxas {label}: " + line.strip(), flush=True)
+    fes.LAUNCHES = fes.ENTRIES = 0
+    return edges
+
+
+# ---------------------------------------------------------------------------
+# phase 2: K1
+# ---------------------------------------------------------------------------
 
 def k1_operands(n: int, g: int, k: int, seed: int, used_groups: int = 6):
     """Main-path-shaped K1 operands on the card: codes over `used_groups` of
@@ -152,8 +310,9 @@ def exact64(codes, mask, vals, g):
 
 
 def check_k1(ph: Phases, name: str, codes, mask, vals, g: int) -> float:
-    """Kernel vs plain version vs float64 at rtol 1e-6 of the summed
-    magnitudes, and two launches bit for bit. Returns max |kernel - plain|."""
+    """Kernel vs plain version (bit for bit: the plain version adds in the
+    kernel's order) and vs float64 at rtol 1e-6 of the summed magnitudes, and
+    two launches bit for bit. Returns max |kernel - plain|."""
     import torch
 
     from daft_tpu_torch.kernels import segment_sums as ss
@@ -163,27 +322,24 @@ def check_k1(ph: Phases, name: str, codes, mask, vals, g: int) -> float:
     torch.cuda.synchronize()
     plain = ss.masked_segment_sums_plain(codes, mask, vals, g)
     sums, mags = exact64(codes, mask, vals, g)
-    bound = RTOL * mags + 1e-30
+    bnd = RTOL * mags + 1e-30
     ph.check(torch.equal(a, b), f"K1 {name}: two launches agree bit for bit")
-    ok_plain = bool(((a.double() - plain.double()).abs() <= bound).all())
-    ok_exact = bool(((a.double() - sums).abs() <= bound).all())
+    ph.check(same_bits(a, plain), f"K1 {name}: equals its plain version bit for bit")
+    ok_exact = bool(((a.double() - sums).abs() <= bnd).all())
     err = float((a - plain).abs().max())
-    ph.check(ok_plain and ok_exact and bool(torch.isfinite(a).all()),
-             f"K1 {name}: matches plain and float64 at rtol {RTOL} "
-             f"(max |kernel-plain| {err:.6g})")
+    ph.check(ok_exact and bool(torch.isfinite(a).all()),
+             f"K1 {name}: matches float64 at rtol {RTOL} (max |kernel-plain| {err:.6g})")
     return err
 
 
-def phase_kernels(ph: Phases) -> dict:
-    """Phase 2: K1 against its plain version; returns its kernel-table entry."""
+def phase_k1(ph: Phases) -> dict:
+    """Phase 2, K1 against its plain version; returns its kernel-table entry."""
     import numpy as np
     import torch
 
     from daft_tpu_torch.kernels import segment_sums as ss
 
-    torch.backends.cuda.matmul.allow_tf32 = False  # no float sum may round through TF32
-    torch.backends.cudnn.allow_tf32 = False
-    n = 8_388_608  # size_bucket of SF1's 6,000,000 rows
+    n = SF1_BUCKET
     entry = {"name": "masked_segment_sums", "route": "cuda",
              "source": "daft_tpu_torch/csrc/masked_segment_sums.cu",
              "replaces": "daft_tpu/kernels/pallas_ops.py:66"}
@@ -198,13 +354,8 @@ def phase_kernels(ph: Phases) -> dict:
                            iters=2, warmup=1)
         library_ms = cuda_ms(lambda: torch.zeros((16, k), device="cuda").index_add_(0, idx, vk),
                              iters=20)
-        nbytes = n * (4 + 4 + 4 * k) + 16 * k * 4
-        flops = 2 * n * k
-        bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
-        ops_ms = flops / H100_FP32_FLOPS * 1e3
         shapes[k] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": max(bytes_ms, ops_ms),
-                     "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                     **bound(n * (4 + 4 + 4 * k) + 16 * k * 4, 2 * n * k),
                      "library_ms": library_ms}
         print("K1 timing " + json.dumps({"n": n, "G": 16, "K": k, **shapes[k]}), flush=True)
         del codes, mask, vals, vk
@@ -234,6 +385,146 @@ def phase_kernels(ph: Phases) -> dict:
              f"K1 ragged tail n={nr}: numpy-level wrapper matches float64, counts exact")
     return entry
 
+
+# ---------------------------------------------------------------------------
+# phase 2: K2
+# ---------------------------------------------------------------------------
+
+def capture_k2_operands(frame, plan) -> tuple:
+    """Run ``plan`` through the engine on the card with deep fusion and
+    return the (program, codes, env, n, groups) it handed K2."""
+    import daft_tpu_torch as dtt
+    from daft_tpu_torch.kernels import fused_expr_sums as fes
+
+    seen = []
+    wrapped = fes.fused_expr_sums
+
+    def record(prog, codes, env, n, num_groups):
+        seen.append((prog, codes, {k: env[k] for k in prog.names}, n, num_groups))
+        return wrapped(prog, codes, env, n, num_groups)
+
+    dtt.set_execution_config(dtt.ExecutionConfig(use_deep_fusion_kernel=True))
+    fes.fused_expr_sums = record
+    try:
+        plan(frame).collect()
+    finally:
+        fes.fused_expr_sums = wrapped
+    if len(seen) != 1:
+        raise RuntimeError(f"expected one K2 call, the engine made {len(seen)}")
+    return seen[0]
+
+
+def check_k2(ph: Phases, name: str, prog, codes, env, n: int, g: int) -> dict:
+    """K2 against its plain version and the composed route (the same
+    operands through K1), both bit for bit, and two launches bit for bit."""
+    import torch
+
+    from daft_tpu_torch.kernels import fused_expr_sums as fes
+    from daft_tpu_torch.kernels import segment_sums as ss
+
+    a = fes.fused_expr_sums(prog, codes, env, n, g)
+    b = fes.fused_expr_sums(prog, codes, env, n, g)
+    torch.cuda.synchronize()
+    plain = prog.plain(codes, env, n, g)
+    composed = ss.masked_segment_sums_padded(*prog.operands(codes, env, n), g)
+    ph.check(same_bits(a, b), f"K2 {name}: two launches agree bit for bit")
+    ph.check(same_bits(a, plain), f"K2 {name}: equals its plain version bit for bit")
+    ph.check(same_bits(a, composed), f"K2 {name}: equals the composed route (torch derive, "
+                                     f"stack, K1) bit for bit")
+    diff = (a - plain).abs()
+    return {"max_abs_err": float(torch.nan_to_num(diff, nan=float("inf")).max())}
+
+
+def time_k2(prog, codes, env, n: int, g: int) -> dict:
+    import torch
+
+    from daft_tpu_torch.kernels import fused_expr_sums as fes
+    from daft_tpu_torch.kernels import segment_sums as ss
+
+    b = codes.shape[0]
+    _c, _m, vk = prog.operands(codes, env, n)
+    idx = codes.view(-1)
+    out = {
+        "ms": cuda_ms(lambda: fes.fused_expr_sums(prog, codes, env, n, g), iters=20),
+        "composed_ms": cuda_ms(
+            lambda: ss.masked_segment_sums_padded(*prog.operands(codes, env, n), g), iters=20),
+        "plain_ms": cuda_ms(lambda: prog.plain(codes, env, n, g), iters=2, warmup=1),
+        # the library call for the reduction part: no single torch call
+        # evaluates K2's expressions and sums them
+        "library_ms": cuda_ms(
+            lambda: torch.zeros((g, prog.k), device="cuda").index_add_(0, idx, vk), iters=20),
+    }
+    # pass 1 reads the codes of every padded block, and a column's values and
+    # validity only for the n real rows; the row body runs on those rows alone
+    row_bytes = sum(env[nm][0].element_size() + 1 for nm in prog.names)
+    nbytes = b * 4 + n * row_bytes + g * prog.k * 4
+    out.update(bound(nbytes, n * (2 * prog.k + prog.row_ops)))
+    return out
+
+
+def edge_env(n_pad: int, seed: int):
+    """Synthetic columns of edge_schema() on the card: NaN in x wherever
+    d >= 50 (behind Q-shaped predicates), about 10% nulls, f with NaN, +-inf
+    and values outside every int range, and garbage in the padding rows."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    d = torch.randint(0, 100, (n_pad,), generator=gen, device="cuda", dtype=torch.int32)
+    x = torch.rand(n_pad, generator=gen, device="cuda") * 1000 + 1
+    x = torch.where(d >= 50, float("nan"), x)
+    y = torch.rand(n_pad, generator=gen, device="cuda") * 9 - 4.5
+    f = (torch.rand(n_pad, generator=gen, device="cuda") - 0.5) * 2e5
+    specials = torch.tensor([float("nan"), float("inf"), float("-inf"), 1e10, -1e10, 127.9,
+                             -128.9, 128.0, -129.0, 32767.5, -32769.0, 2147483648.0,
+                             -2147483904.0, -0.0, 0.0], device="cuda")
+    f[:len(specials)] = specials
+    valid = {k: torch.rand(n_pad, generator=gen, device="cuda") > 0.1 for k in "xydf"}
+    return {"x": (x, valid["x"]), "y": (y, valid["y"]), "d": (d, valid["d"]),
+            "f": (f, valid["f"])}
+
+
+def phase_k2(ph: Phases, lineitem, edges: dict) -> dict:
+    """Phase 2, K2: the SF1 Q1 and Q6 operands the engine gives it, then the
+    edge cases; returns its kernel-table entry."""
+    import torch
+
+    import daft_tpu_torch as dtt
+
+    entry = {"name": "fused_expr_sums", "route": "cuda",
+             "source": "daft_tpu_torch/kernels/fused_expr_sums.py",
+             "replaces": "daft_tpu/kernels/pallas_ops.py:86"}
+    frame = dtt.from_arrow(lineitem).collect()
+    shapes = {}
+    for qname, plan in (("q1", q1), ("q6", q6)):
+        prog, codes, env, n, g = capture_k2_operands(frame, plan)
+        print(f"K2 {qname} operands: n={n} padded to {codes.shape[0]}, G={g}, K={prog.k}, "
+              "columns " + ", ".join(f"{nm} {env[nm][0].dtype}" for nm in prog.names),
+              flush=True)
+        shapes[qname] = check_k2(ph, f"main path {qname} n={codes.shape[0]} G={g} K={prog.k}",
+                                 prog, codes, env, n, g)
+        shapes[qname].update(time_k2(prog, codes, env, n, g))
+        print(f"K2 timing {qname} " + json.dumps(shapes[qname]), flush=True)
+    entry.update(shapes["q1"])
+    del frame
+    torch.cuda.empty_cache()
+
+    n_pad = 1 << 20
+    for name, n, g in (("nan_nulls_ragged", n_pad - 77, 16), ("nan_nulls_ragged", n_pad, 4096),
+                       ("k33", n_pad, 16), ("rejects_all", n_pad, 16), ("casts", n_pad, 16)):
+        env = edge_env(n_pad, seed=len(name) + g)
+        gen = torch.Generator(device="cuda").manual_seed(g)
+        codes = torch.randint(0, g, (n_pad,), generator=gen, device="cuda", dtype=torch.int32)
+        prog = edges[name]
+        check_k2(ph, f"edge {name} n={n} of {n_pad} G={g} K={prog.k}", prog, codes, env, n, g)
+        if name == "rejects_all":
+            out = prog.plain(codes, env, n, g)
+            ph.check(bool((out == 0).all()), "K2 edge rejects_all: every sum is 0")
+    return entry
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the main path
+# ---------------------------------------------------------------------------
 
 def profile_queries(queries: dict, frame, rows: int, card: str, reps: int = 5) -> None:
     """torch.profiler over `reps` warm runs of each query: wall and device-busy
@@ -266,57 +557,101 @@ def profile_queries(queries: dict, frame, rows: int, card: str, reps: int = 5) -
                     for e in top]}), flush=True)
 
 
-def phase_main_path(ph: Phases, scale: float, card: str, record_launches: bool,
-                    profile: bool = False) -> dict:
-    """Phase 3: Q1 and Q6 through the port on the card at one scale factor."""
+def warm_median(query, frame, runs: int = 5) -> dict:
+    import torch
+
+    warm = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        query(frame).collect().to_pydict()
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+    return {"warm_median_s": statistics.median(warm), "warm_min_s": min(warm),
+            "warm_max_s": max(warm), "warm_runs": len(warm)}
+
+
+def drive(ph: Phases, label: str, query, frame, want: dict, deep: bool, segment: bool,
+          group_codes: bool = False) -> dict:
+    """Drive one path once through the engine (cold), with the kernels'
+    launch counts set to 0 just before and read just after; check the result
+    and that the path ran on the card through its kernel."""
+    import daft_tpu_torch as dtt
+    from daft_tpu_torch.kernels import fused_expr_sums as fes
+    from daft_tpu_torch.kernels import segment_sums as ss
+
+    dtt.set_execution_config(dtt.ExecutionConfig(use_deep_fusion_kernel=deep))
+    ss.LAUNCHES = fes.LAUNCHES = 0
+    t0 = time.perf_counter()
+    df = query(frame).collect()
+    got = df.to_pydict()
+    cold = time.perf_counter() - t0
+    k1, k2 = ss.LAUNCHES, fes.LAUNCHES
+    c = df.stats.snapshot()["counters"]
+    ph.check(parity(got, want, RTOL), f"{label}: matches the pyarrow oracle at rtol {RTOL}")
+    on_card = (c.get("device_aggregations", 0) >= 1 and c.get("device_agg_fallbacks", 0) == 0
+               and (k2, k1) == ((1, 0) if deep else (0, 1)))
+    if segment:
+        on_card = on_card and c.get("device_resident_segments") == 1 \
+            and c.get("segment_fallbacks", 0) == 0
+    if group_codes:  # the first grouped query on a frame computes its codes on the card
+        on_card = on_card and c.get("device_group_codes", 0) >= 1
+    ph.check(on_card, f"{label}: ran on the card through {'K2' if deep else 'K1'} "
+                      f"(K1 launches {k1}, K2 launches {k2}, counters {c})")
+    return {"cold_s": cold, "k1_launches": k1, "k2_launches": k2}
+
+
+def phase_main_path(ph: Phases, scale: float, lineitem, card: str, profile: bool) -> dict:
+    """Phase 3 at one scale factor: Q1/Q6 composed (K1) and deep (K2), then
+    the with_column Q1 through a DeviceSegmentOp with K2 and with K1."""
     import torch
 
     import daft_tpu_torch as dtt
     from benchmarks import tpch
-    from daft_tpu_torch.kernels import segment_sums as ss
 
-    dtt.set_execution_config(dtt.ExecutionConfig())  # the defaults: device="cuda"
-    t0 = time.perf_counter()
-    lineitem = tpch.generate_lineitem_only(scale=scale, seed=42)
     rows = lineitem.num_rows
     want = {"q1": tpch.oracle_q1(lineitem), "q6": {"revenue": [tpch.oracle_q6(lineitem)]}}
-    frame = dtt.from_arrow(lineitem).collect()
-    print(f"SF{scale:g}: {rows} rows generated in {time.perf_counter() - t0:.1f}s", flush=True)
     queries = {"q1": q1, "q6": q6}
-    out = {"rows": rows}
-    launches = 0
-    if record_launches:
-        ss.LAUNCHES = 0  # the main path's own count starts here
-    for name, query in queries.items():
-        before = ss.LAUNCHES
-        t0 = time.perf_counter()
-        df = query(frame).collect()
-        got = df.to_pydict()
-        cold = time.perf_counter() - t0
-        counters = df.stats.snapshot()["counters"]
-        used = ss.LAUNCHES - before
-        launches += used
-        ph.check(parity(got, want[name], RTOL), f"SF{scale:g} {name}: matches the pyarrow oracle at rtol {RTOL}")
-        ph.check(counters.get("device_aggregations", 0) >= 1
-                 and counters.get("device_agg_fallbacks", 0) == 0
-                 and (name == "q6" or counters.get("device_group_codes", 0) >= 1)
-                 and used >= 1,
-                 f"SF{scale:g} {name}: aggregated on the card through K1 "
-                 f"(counters {counters}, K1 launches {used})")
-        warm = []
-        for _ in range(5):
-            t0 = time.perf_counter()
-            query(frame).collect().to_pydict()
-            torch.cuda.synchronize()
-            warm.append(time.perf_counter() - t0)
-        med = statistics.median(warm)
-        out[name] = {"cold_s": cold, "warm_median_s": med, "warm_min_s": min(warm),
-                     "warm_max_s": max(warm), "warm_runs": len(warm),
-                     "warm_rows_per_s": rows / med, "k1_launches": used, "card": card}
-        print(f"SF{scale:g} {name} " + json.dumps(out[name]), flush=True)
-    out["launches"] = launches
+    out = {"rows": rows, "k1_launches": 0, "k2_launches": 0}
+
+    def record(key, res):
+        res.update(rows=rows, card=card)
+        if "warm_median_s" in res:
+            res["warm_rows_per_s"] = rows / res["warm_median_s"]
+        out[key] = res
+        out["k1_launches"] += res.get("k1_launches", 0)
+        out["k2_launches"] += res.get("k2_launches", 0)
+        print(f"SF{scale:g} {key} " + json.dumps(res), flush=True)
+
+    frame = dtt.from_arrow(lineitem).collect()
+    for name, query in queries.items():  # the composed route through K1
+        res = drive(ph, f"SF{scale:g} {name}", query, frame, want[name], deep=False,
+                    segment=False, group_codes=name == "q1")
+        record(name, {**res, **warm_median(query, frame)})
+    for name, query in queries.items():  # the deep route through K2
+        res = drive(ph, f"SF{scale:g} {name} deep", query, frame, want[name], deep=True,
+                    segment=False)
+        # deep against composed, back to back (bench.py's q1_deep_pallas_vs_composed)
+        res.update({f"deep_{k}": v for k, v in warm_median(query, frame).items()})
+        dtt.set_execution_config(dtt.ExecutionConfig(use_deep_fusion_kernel=False))
+        res.update({f"composed_{k}": v for k, v in warm_median(query, frame).items()})
+        res["composed_over_deep"] = res["composed_warm_median_s"] / res["deep_warm_median_s"]
+        record(f"{name}_deep", res)
     if profile:
         profile_queries(queries, frame, rows, card)
+        dtt.set_execution_config(dtt.ExecutionConfig(use_deep_fusion_kernel=True))
+        profile_queries({"q1_deep": q1}, frame, rows, card)
+    del frame
+    torch.cuda.empty_cache()
+
+    # the map chain: a fresh frame, so the first run stages its columns
+    frame = dtt.from_arrow(lineitem).collect()
+    for deep in (True, False):
+        key = "q1_with_columns_" + ("deep" if deep else "composed")
+        res = drive(ph, f"SF{scale:g} {key}", q1_with_columns, frame, want["q1"], deep=deep,
+                    segment=True, group_codes=deep)
+        record(key, {**res, **warm_median(q1_with_columns, frame)})
+    del frame
+    torch.cuda.empty_cache()
     return out
 
 
@@ -325,7 +660,7 @@ def main(argv=None) -> int:
     ap.add_argument("--scales", default="1,10",
                     help="comma-separated TPC-H scale factors for the main path")
     ap.add_argument("--profile", action="store_true",
-                    help="trace warm Q1/Q6 at the first scale with torch.profiler")
+                    help="trace warm Q1/Q6 and deep Q1 at the first scale with torch.profiler")
     args = ap.parse_args(argv)
 
     import torch
@@ -335,26 +670,32 @@ def main(argv=None) -> int:
         return 1
     ph = Phases()
     try:
-        from daft_tpu_torch.kernels import segment_sums as ss
+        from benchmarks import tpch
 
+        torch.backends.cuda.matmul.allow_tf32 = False  # no float sum may round through TF32
+        torch.backends.cudnn.allow_tf32 = False
         card = card_line()
         print(f"card: {card}; torch {torch.__version__} CUDA {torch.version.cuda}", flush=True)
+        edges = phase_build(ph)
+        k1_entry = phase_k1(ph)
+        scales = [float(s) for s in args.scales.split(",")]
+        tables = {}
         t0 = time.perf_counter()
-        ss.build()
-        print(f"K1 built in {time.perf_counter() - t0:.1f}s", flush=True)
-        for line in ss.BUILD_LOG.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                print("ptxas: " + line.strip(), flush=True)
-        entry = phase_kernels(ph)
-        launches = None
-        for i, scale in enumerate(float(s) for s in args.scales.split(",")):
-            res = phase_main_path(ph, scale, card, record_launches=i == 0,
-                                  profile=args.profile and i == 0)
+        tables[1.0] = tpch.generate_lineitem_only(scale=1.0, seed=42)
+        print(f"SF1: {tables[1.0].num_rows} rows generated in {time.perf_counter() - t0:.1f}s",
+              flush=True)
+        k2_entry = phase_k2(ph, tables[1.0], edges)
+        for i, scale in enumerate(scales):
+            if scale not in tables:
+                t0 = time.perf_counter()
+                tables = {scale: tpch.generate_lineitem_only(scale=scale, seed=42)}
+                print(f"SF{scale:g}: {tables[scale].num_rows} rows generated in "
+                      f"{time.perf_counter() - t0:.1f}s", flush=True)
+            res = phase_main_path(ph, scale, tables[scale], card, args.profile and i == 0)
             if i == 0:
-                launches = res["launches"]
-            torch.cuda.empty_cache()
-        entry["launches"] = launches
-        print(json.dumps({"kernels": [entry]}), flush=True)
+                k1_entry["launches"] = res["k1_launches"]
+                k2_entry["launches"] = res["k2_launches"]
+        print(json.dumps({"kernels": [k1_entry, k2_entry]}), flush=True)
     except Exception:
         traceback.print_exc()
         ph.failures.append("uncaught exception")

@@ -6,8 +6,9 @@ is on and ``device`` is ``"cuda"``. A caller that wants the CPU says so with
 ``device="cpu"`` (the tests do); asking for ``cuda`` where there is none
 raises instead of running on the CPU.
 
-Left out of this slice: the planning config, the scan/shuffle/spill/serving
-knobs and runner selection (the port has one runner, NativeRunner).
+Left out of this slice: the planning config (beyond expression fusion and
+device residency), the scan/shuffle/spill/serving knobs and runner selection
+(the port has one runner, NativeRunner).
 """
 
 from __future__ import annotations
@@ -36,6 +37,15 @@ class ExecutionConfig:
     # batch every float sum of a fused aggregation through the masked
     # segment-sums kernel (kernels/segment_sums.py)
     use_segment_sums_kernel: bool = True
+    # evaluate the filter and the derived float-sum columns inside the
+    # segment-sums kernel: the deep-fused kernel K2
+    # (kernels/fused_expr_sums.py), opt-in as in daft_tpu
+    use_deep_fusion_kernel: bool = False
+    # collapse Project/Filter chains into one fused map op (fuse/compile.py)
+    expr_fusion: bool = True
+    # compile project -> filter -> agg segments into device-resident
+    # DeviceSegmentOps (fuse/segment.py); needs use_device_kernels
+    device_residency: bool = True
 
     def __post_init__(self):
         if self.device_x64:
@@ -48,6 +58,9 @@ _FROM_REFERENCE = {
     "use_device_kernels": "use_device_kernels",
     "device_min_rows": "device_min_rows",
     "use_pallas_segment_sums": "use_segment_sums_kernel",
+    "use_pallas_deep_fusion": "use_deep_fusion_kernel",
+    "expr_fusion": "expr_fusion",
+    "device_residency": "device_residency",
     "jax_enable_x64": "device_x64",
 }
 
@@ -60,8 +73,6 @@ def execution_config_from_dict(d: dict, **overrides) -> ExecutionConfig:
 
     The 32-bit device mode always computes float64 as float32, so a reference
     config that turns ``device_reduced_precision`` off has no counterpart."""
-    if d.get("use_pallas_deep_fusion"):
-        raise NotImplementedError("the deep-fused segment-sums kernel is not ported yet")
     if d.get("device_reduced_precision") is False:
         raise NotImplementedError(
             "float64 without reduced precision needs the 64-bit device mode, "

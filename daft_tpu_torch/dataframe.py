@@ -1,10 +1,11 @@
 """DataFrame: the lazy user-facing frame over a logical plan (the port's copy
 of the part of daft_tpu/dataframe.py this slice runs).
 
-Covers where/filter, select, groupby(...).agg, agg, sort, collect, to_pydict,
-to_arrow, explain and the per-query ``stats``. Left out of this slice:
-joins, limit, distinct, sample, repartition, explode/unpivot/pivot, writers,
-profiling, the result cache and the integrations.
+Covers where/filter, select, with_column(s), groupby(...).agg, agg, sort,
+collect, to_pydict, to_arrow, explain and the per-query ``stats``. Left out
+of this slice: joins, limit, distinct, sample, repartition,
+explode/unpivot/pivot, writers, profiling, the result cache and the
+integrations.
 """
 
 from __future__ import annotations
@@ -63,13 +64,28 @@ class DataFrame:
         if show_all:
             from .physical import translate
 
-            out += ["", "== Physical Plan ==", translate(self._plan).display_tree()]
+            out += ["", "== Physical Plan ==",
+                    translate(self._plan, get_context().execution_config).display_tree()]
         text = "\n".join(out)
         print(text)
         return text
 
     def select(self, *columns: ColumnInput) -> "DataFrame":
         return DataFrame(Project(self._plan, [_to_expr(c) for c in columns]))
+
+    def with_column(self, name: str, expr: Expression) -> "DataFrame":
+        return self.with_columns({name: expr})
+
+    def with_columns(self, columns: Dict[str, Expression]) -> "DataFrame":
+        """A Project of every column, each named one replaced by (or, when
+        new, appended as) its expression."""
+        exprs: List[Expression] = []
+        for n in self.column_names:
+            exprs.append(_to_expr(columns[n]).alias(n) if n in columns else col(n))
+        for n, e in columns.items():
+            if n not in self.schema:
+                exprs.append(_to_expr(e).alias(n))
+        return DataFrame(Project(self._plan, exprs))
 
     def where(self, predicate: Expression) -> "DataFrame":
         return DataFrame(Filter(self._plan, predicate))

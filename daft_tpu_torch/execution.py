@@ -3,13 +3,18 @@ port's copy of the part of daft_tpu/execution.py this slice runs).
 
 The device path has no silent fallback. An exception raised on the card
 propagates to the caller. Only the reference's documented declines send a
-partition to the host path, and each is counted as ``device_agg_fallbacks``:
-an ineligible plan or dtype, a partition below ``device_min_rows``, and the
-int32 overflow guard of ``device_agg._finish_agg``.
+partition to the host path: for an aggregation, an ineligible plan or dtype,
+a partition below ``device_min_rows`` and the int32 overflow guard of
+``device_agg._finish_agg``, each counted as ``device_agg_fallbacks``; for a
+fused map chain, a device program that declines the partition
+(``device_fused_map_fallbacks``); for a plan segment, a resident attempt
+that declines (``segment_fallbacks``, then the staged ops).
 
-Left out of this slice: the DeviceHealth breaker and fault injection, the
-profiler, spill, deadlines and cancellation, the worker pool, streaming, the
-device projection/filter/sort/distinct/join hooks and resource accounting.
+Left out of this slice: the DeviceHealth breaker and fault injection (and
+with them the reference's catch of a failure in the fused-map and segment
+resolvers), the profiler, spill, deadlines and cancellation, the worker
+pool, streaming, the device projection/filter/sort/distinct/join hooks of
+single ops and resource accounting.
 """
 
 from __future__ import annotations
@@ -36,6 +41,12 @@ class RuntimeStats:
         with self._lock:
             self.counters[key] = self.counters.get(key, 0) + n
 
+    def bump_max(self, key: str, n: int) -> None:
+        """High-water counter: the stored value only ratchets up to ``n``."""
+        with self._lock:
+            if n > self.counters.get(key, 0):
+                self.counters[key] = n
+
     def record_op(self, name: str, rows: int, wall_ns: int) -> None:
         with self._lock:
             self.op_rows[name] = self.op_rows.get(name, 0) + rows
@@ -56,12 +67,7 @@ class ExecutionContext:
         self.stats = stats
 
     def _device_eligible(self, part: MicroPartition) -> bool:
-        if not self.cfg.use_device_kernels:
-            return False
-        if len(part) < self.cfg.device_min_rows:
-            self.stats.bump("device_agg_fallbacks")  # decline: too few rows
-            return False
-        return True
+        return self.cfg.use_device_kernels and len(part) >= self.cfg.device_min_rows
 
     def eval_sort(self, part: MicroPartition, sort_by, descending=None,
                   nulls_first=None) -> MicroPartition:
@@ -69,6 +75,7 @@ class ExecutionContext:
         self.stats.bump("host_sorts")
         return part.sort(sort_by, descending, nulls_first)
 
+    # ------------------------------------------------------------ aggregation
     def _eval_agg_host(self, part: MicroPartition, aggregations, groupby,
                        predicate=None) -> MicroPartition:
         self.stats.bump("host_aggregations")
@@ -76,12 +83,23 @@ class ExecutionContext:
             part = part.filter([predicate])
         return part.agg(aggregations, groupby or None)
 
+    def eval_agg(self, part: MicroPartition, aggregations, groupby,
+                 predicate=None) -> MicroPartition:
+        """The aggregation on the card when eligible, else on the host."""
+        fin = self.eval_agg_dispatch(part, aggregations, groupby, predicate)
+        if fin is not None:
+            return fin()
+        return self._eval_agg_host(part, aggregations, groupby, predicate)
+
     def eval_agg_dispatch(self, part: MicroPartition, aggregations, groupby,
                           predicate=None):
         """Launch the fused device aggregation now and return a zero-arg
         resolver that fetches its result, or None when the partition is not
         device-eligible (the caller then runs the host path)."""
-        if not self._device_eligible(part):
+        if not self.cfg.use_device_kernels:
+            return None
+        if len(part) < self.cfg.device_min_rows:
+            self.stats.bump("device_agg_fallbacks")  # decline: too few rows
             return None
         from .kernels.device import resolve_device
         from .kernels.device_agg import device_grouped_agg_async
@@ -106,6 +124,102 @@ class ExecutionContext:
             return self._eval_agg_host(part, aggregations, groupby, predicate)
 
         return finish
+
+    # -------------------------------------------------------- fused map chains
+    def _eval_fused_host(self, part: MicroPartition, program) -> MicroPartition:
+        """Host single-pass evaluation of a fused chain. The per-op class
+        counters advance by the chain's op counts."""
+        self.stats.bump("host_fused_maps")
+        g = program.graph
+        if g.n_project_ops:
+            self.stats.bump("host_projections", g.n_project_ops)
+        if g.n_filter_ops:
+            self.stats.bump("host_filters", g.n_filter_ops)
+        return MicroPartition.from_table(program.run_host(part.table()))
+
+    def _bump_fused_device(self, program) -> None:
+        g = program.graph
+        self.stats.bump("device_fused_maps")
+        if g.n_project_ops:
+            self.stats.bump("device_projections", g.n_project_ops)
+        if g.n_filter_ops:
+            self.stats.bump("device_filters", g.n_filter_ops)
+
+    def eval_fused(self, part: MicroPartition, program) -> MicroPartition:
+        """A fused map chain as ONE device program when eligible, else the
+        segmented host pass."""
+        fin = self.eval_fused_dispatch(part, program)
+        return fin() if fin is not None else self._eval_fused_host(part, program)
+
+    def eval_fused_dispatch(self, part: MicroPartition, program):
+        """Launch the fused chain's device program without blocking; returns
+        a zero-arg resolver, or None when the partition is not
+        device-eligible. A partition the program declines (an ineligible
+        expression or column, or the int64 wrap guard) is counted as
+        ``device_fused_map_fallbacks`` and takes the host pass."""
+        if not self._device_eligible(part):
+            return None
+        from .kernels.device import eval_projection_device_async, resolve_device
+
+        resolve = eval_projection_device_async(
+            part.table(), program.device_exprs, stage_cache=part.device_stage_cache(),
+            device=resolve_device(self.cfg))
+        if resolve is None:
+            self.stats.bump("device_fused_map_fallbacks")
+            return None
+        self._bump_fused_device(program)
+        self.stats.bump("device_fused_map_dispatches")
+        return lambda: MicroPartition.from_table(program.assemble_device(resolve()))
+
+    # ------------------------------------------------------------ plan segments
+    def eval_segment_dispatch(self, part: MicroPartition, op):
+        """Launch a compiled plan segment (fuse/segment.py DeviceSegmentOp)
+        through the resident pipeline; returns a zero-arg resolver, or None
+        when the partition is not device-eligible. A resident attempt that
+        declines (or trips the overflow guard) runs the staged ops and is
+        counted as ``segment_fallbacks``. An exception propagates: the
+        reference's catch in this resolver comes with the DeviceHealth
+        breaker, which is not ported yet."""
+        if not self._device_eligible(part):
+            return None
+        from .fuse.segment import _proc_bump, run_segment_async
+        from .kernels.device import resolve_device
+
+        resolve = run_segment_async(part.table(), op.program, part.device_stage_cache(),
+                                    stats=self.stats, cfg=self.cfg,
+                                    device=resolve_device(self.cfg))
+        if resolve is None:
+            return lambda: self._eval_segment_staged(part, op, degraded=True)
+        self.stats.bump("device_aggregations")
+        self.stats.bump("segment_dispatches")
+
+        def finish() -> MicroPartition:
+            out = resolve()
+            if out is not None:
+                # the map -> agg Arrow round trip of the staged plan did not happen
+                self.stats.bump("device_handoffs_elided")
+                op._record_resident(self)
+                _proc_bump("handoffs_elided")
+                return MicroPartition.from_table(out)
+            # the overflow guard declined: the segment did NOT run resident
+            self.stats.bump("device_aggregations", -1)
+            return self._eval_segment_staged(part, op, degraded=True)
+
+        return finish
+
+    def _eval_segment_staged(self, part: MicroPartition, op,
+                             degraded: bool = True) -> MicroPartition:
+        """The segment as its retained staged ops: the fused map chain, Arrow
+        materialization, then the (filter-fused) aggregation, exactly the
+        plan the segment pass collapsed. ``degraded`` marks a resident
+        attempt that declined (counted), against plain routing of an
+        ineligible partition (not counted)."""
+        if degraded:
+            from .fuse.segment import _proc_bump
+
+            self.stats.bump("segment_fallbacks")
+            _proc_bump("segment_fallbacks")
+        return op.staged_agg(op.staged_map(part, self), self)
 
 
 def execute_plan(root: PhysicalOp, ctx: ExecutionContext) -> Iterator[MicroPartition]:

@@ -18,7 +18,7 @@ than dates stay on the host. JAX narrows quietly when x64 is off; torch does
 not, so every narrowing below is an explicit cast.
 
 Left out of this slice: the string comparison, LUT, joint-dictionary and
-transform lanes, the epoch-lane comparisons, device projection/filter, the
+transform lanes, the epoch-lane comparisons, the device filter, the
 device argsort and hashing, fixed-shape tensor columns, and unsigned
 integers (torch's uint16/32/64 support is partial, so those columns decline
 to the host path).
@@ -405,8 +405,12 @@ def _compile_node(node, schema):
                 rv, rm = _r(env)
                 if _op == "&":
                     # Kleene: valid if both valid, or either side is a valid False
-                    return lv & rv, (lm & rm) | (lm & ~lv) | (rm & ~rv)
-                return lv | rv, (lm & rm) | (lm & lv) | (rm & rv)
+                    valid = (lm & rm) | (lm & ~lv) | (rm & ~rv)
+                else:
+                    valid = (lm & rm) | (lm & lv) | (rm & rv)
+                # on int operands (bitwise ops) the terms read bit 0 and come
+                # out as a 0/1 int lane: keep it bool, as every other lane is
+                return (lv & rv if _op == "&" else lv | rv), valid.to(torch.bool)
 
             return run, out_dt
         if op == "^":
@@ -468,6 +472,33 @@ def _compile_node(node, schema):
         return run, out_dt
 
     raise ValueError(f"{type(node).__name__} not device-compilable")
+
+
+def compile_validity(node, schema):
+    """A closure over {name: (values, valid)} returning only ``node``'s valid
+    lane, the same bits as ``_compile_node``'s closure gives. Values are
+    computed only where validity reads them (Kleene ``&``/``|``, Between, the
+    divisor of an integer ``//``/``%``). The deep-fused aggregation uses it
+    for the counts of the columns whose values the kernel computes."""
+    from ..expressions import Alias, BinaryOp, Cast, Column, Literal, Not
+
+    if isinstance(node, Column):
+        name = node.cname
+        return lambda env: env[name][1]
+    if isinstance(node, Literal):
+        fill = torch.zeros if node.value is None else torch.ones
+        return lambda env: fill(_env_nrows(env), dtype=torch.bool, device=_env_device(env))
+    if isinstance(node, (Alias, Cast, Not)):
+        return compile_validity(node.child, schema)
+    if isinstance(node, BinaryOp) and node.op not in ("&", "|", "//", "%"):
+        if node.op == "<=>":
+            return lambda env: torch.ones(_env_nrows(env), dtype=torch.bool,
+                                          device=_env_device(env))
+        lf = compile_validity(node.left, schema)
+        rf = compile_validity(node.right, schema)
+        return lambda env: lf(env) & rf(env)
+    full, _ = _compile_node(node, schema)
+    return lambda env: full(env)[1]
 
 
 _PROJ_CACHE: Dict = {}
@@ -651,6 +682,63 @@ def int64_wrap_safe(nodes, schema, env, stage_cache: Optional[dict], bucket: int
         return all(safe(c) for c in n.children())
 
     return all(safe(n) for n in nodes)
+
+
+def _stage_and_run(table, exprs, stage_cache: Optional[dict], device):
+    """Shared device prologue: normalize and check the expressions, stage the
+    input columns, compile and run ONE projection program. Returns
+    (outs, out_dts, nodes, dcs) with ``outs`` ([(values, valid)], one pair
+    per expression) still on the card, or None when ineligible (an empty
+    table, no input column, an ineligible expression or column, or int64
+    arithmetic that could wrap in int32 lanes)."""
+    schema = table.schema
+    n = len(table)
+    if n == 0:
+        return None
+    nodes = normalize_and_check(exprs, schema)
+    if nodes is None:
+        return None
+    needed = sorted(device_required_columns(nodes, schema))
+    if not needed:
+        return None
+    b = size_bucket(n)
+    staged = stage_table_columns(table, needed, b, stage_cache, device)
+    if staged is None:
+        return None
+    env, dcs = staged
+    if not int64_wrap_safe(nodes, schema, env, stage_cache, b):
+        return None
+    run, out_dts = compile_projection(nodes, schema, tuple(needed))
+    return run(env), out_dts, nodes, dcs
+
+
+def eval_projection_device_async(table, exprs, stage_cache: Optional[dict] = None,
+                                 device="cuda"):
+    """Launch a device projection without blocking: staging and the compute
+    are issued now on the current stream; the returned zero-arg resolver
+    fetches the columns into a host Table. Returns None if ineligible."""
+    from ..schema import Field, Schema
+    from ..table import Table
+
+    n = len(table)
+    staged = _stage_and_run(table, exprs, stage_cache, torch.device(device))
+    if staged is None:
+        return None
+    outs, out_dts, nodes, dcs = staged
+    schema = table.schema
+
+    def resolve():
+        cols, fields = [], []
+        for e, nd, (v, m), dt in zip(exprs, nodes, outs, out_dts):
+            # the only string output the check admits is a bare string column
+            dictionary = (dcs[_plain_string_column(nd, schema)].dictionary
+                          if dt.is_string() else None)
+            s = unstage(DeviceColumn(v, m, n, dt, dictionary=dictionary)).rename(e.name())
+            cols.append(s)
+            fields.append(Field(e.name(), s.dtype))
+        return Table(Schema(fields), cols)
+
+    return resolve
 
 
 # ---------------------------------------------------------------------------

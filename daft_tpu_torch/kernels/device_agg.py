@@ -20,9 +20,14 @@ overflow-guarded: the program also returns max|v|, and the resolver declines
 Launch/resolve: ``device_grouped_agg_async`` stages, launches every kernel
 on the current stream and returns; the resolver fetches the results once.
 
-Left out of this slice: the deep-fused kernel branch, the string-comparison
-and epoch lanes, transformed-string keys, string min/max over anything but a
-plain string column, and ``device_distinct_indices``.
+With ``use_deep_fusion_kernel`` the float sums go to the deep-fused kernel
+K2 instead (fused_expr_sums.py), which evaluates the filter and the derived
+columns itself; a K2 failure raises, it never falls back to K1.
+
+Left out of this slice: the string-comparison and epoch lanes, transformed
+string keys, string min/max over anything but a plain string column, and
+``device_distinct_indices``. The reference's deep branch catches any
+exception and falls back to the batched kernel; that catch is not ported.
 """
 
 from __future__ import annotations
@@ -269,9 +274,10 @@ def device_grouped_agg_async(table, to_agg, group_by, stage_cache: Optional[dict
 
     kinds = tuple(s[1] for s in specs)
     modes = tuple(s[3] for s in specs)
-    use_kernel = bool(get_context().execution_config.use_segment_sums_kernel)
+    cfg = get_context().execution_config
     run = _compile_agg(tuple(child_nodes), pred_nodes[0] if pred_nodes else None,
-                       schema, tuple(sorted(needed)), kinds, modes, gb, use_kernel)
+                       schema, tuple(sorted(needed)), kinds, modes, gb,
+                       bool(cfg.use_segment_sums_kernel), bool(cfg.use_deep_fusion_kernel))
     # the row-count scalar lives on the card with the partition: a warm
     # query makes no upload
     nkey = ("nrows", n, str(device))
@@ -280,7 +286,7 @@ def device_grouped_agg_async(table, to_agg, group_by, stage_cache: Optional[dict
         n_dev = torch.tensor(n, dtype=torch.int32, device=device)
         if stage_cache is not None:
             stage_cache[nkey] = n_dev
-    outs_dev = run(env, codes_dev, n_dev)  # async: the card computes from here
+    outs_dev = run(env, codes_dev, n_dev, n)  # async: the card computes from here
 
     def resolve():
         outs = _fetch(outs_dev)
@@ -322,11 +328,22 @@ def _fetch(x):
 
 
 def _compile_agg(child_nodes, pred_node, schema, input_names, kinds, modes, gb,
-                 use_kernel: bool = True):
+                 use_kernel: bool = True, use_deep: bool = False):
+    """The compiled aggregation program of one plan shape: ``run(env, codes,
+    n_dev, n)`` evaluates every child and its masked segment reduction.
+
+    In the 32-bit mode every float sum rides ONE launch of a segment-sums
+    kernel when the padded row count is a multiple of 1024 and there are at
+    most 4096 group slots. With ``use_deep`` (and every env entry a plain 1-D
+    (values, valid) pair) that kernel is K2 (fused_expr_sums.py): it
+    evaluates the predicate and the float sum columns from the staged
+    columns itself, and torch computes only their validity for the counts.
+    Otherwise torch derives and masks the columns and K1 sums them. A K2
+    build or launch failure raises: there is no fallback to K1."""
     key = (tuple(n._key() for n in child_nodes),
            pred_node._key() if pred_node is not None else None,
            tuple((f.name, f.dtype) for f in schema), input_names, kinds, modes, gb,
-           use_kernel)
+           use_kernel, use_deep)
     if key in _AGG_CACHE:
         return _AGG_CACHE[key]
 
@@ -335,24 +352,58 @@ def _compile_agg(child_nodes, pred_node, schema, input_names, kinds, modes, gb,
     if pred_node is not None:
         pred_run, _ = compile_projection([pred_node], schema, input_names)
 
+    from . import fused_expr_sums as fes
+    from .device import _compile_node, compile_validity
     from .segment_sums import BLOCK_ROWS, masked_segment_sums_padded
 
-    def run(env, codes, n):
+    child_fns = [_compile_node(nd, schema)[0] for nd in child_nodes]
+    valid_fns = [compile_validity(nd, schema) for nd in child_nodes]
+    deep_buckets = set()  # padded row counts this program has run deep at
+    deep_by_dtypes: Dict = {}
+
+    def deep_plan(env):
+        """(indices of the children K2 sums, its program): the float sums and
+        means, by the lane dtype the closure computes over ``env``'s columns;
+        ([], None) when there are none."""
+        dtypes = {name: v.dtype for name, (v, _m) in env.items()}
+        key = tuple(sorted((k, str(v)) for k, v in dtypes.items()))
+        if key not in deep_by_dtypes:
+            slots = [i for i, (nd, kind) in enumerate(zip(child_nodes, kinds))
+                     if kind in ("sum", "mean")
+                     and fes.lane_dtype(nd, schema, dtypes).is_floating_point]
+            prog = (fes.program(pred_node, [child_nodes[i] for i in slots], schema, dtypes)
+                    if slots else None)
+            deep_by_dtypes[key] = slots, prog
+        return deep_by_dtypes[key]
+
+    def run(env, codes, n_dev, n):
         b = codes.shape[0]
         idx = torch.arange(b, dtype=torch.int32, device=codes.device)
-        inbounds = idx < n
+        inbounds = idx < n_dev
         if pred_run is not None:
             (pv, pm), = pred_run(env)
             sel = pv & pm & inbounds  # invalid predicate rows filter out (SQL WHERE)
         else:
             sel = inbounds
-        # every float sum accumulates in float32 in this mode, so ALL of them
-        # ride one launch of the masked segment-sums kernel
         kernel_ok = (use_kernel and b >= BLOCK_ROWS and b % BLOCK_ROWS == 0
                      and gb <= _ONEHOT_MAX_SEGMENTS)
+        deep = (kernel_ok and use_deep
+                and all(isinstance(v, tuple) and v[0].dim() == 1 for v in env.values()))
+        slots, prog = deep_plan(env) if deep else ([], None)
+        # children the kernel does not sum go through their torch closures
+        lanes = ([None if i in slots else fn(env) for i, fn in enumerate(child_fns)]
+                 if slots else child_run(env))
         fused_sums = []  # (slot in outs, pre-masked float32 column, cnt)
+        deep_sums = []  # (slot in outs, cnt), in child order
         outs = []
-        for (v, m), kind, mode in zip(child_run(env), kinds, modes):
+        for i, (lane, kind, mode) in enumerate(zip(lanes, kinds, modes)):
+            if lane is None:
+                m = valid_fns[i](env) & sel
+                cnt, _ = segment_reduce(m, m, codes, gb, "count")
+                deep_sums.append((len(outs), cnt))
+                outs.append(None)  # filled from K2 below
+                continue
+            v, m = lane
             m = m & sel
             if kind == "count":
                 contrib = sel if mode == "all" else (sel & ~m if mode == "null" else m)
@@ -376,6 +427,13 @@ def _compile_agg(child_nodes, pred_node, schema, input_names, kinds, modes, gb,
                     outs.append((vals, valid, cnt, absv.max()))
                 continue
             outs.append(segment_reduce(v, m, codes, gb, kind))  # min / max
+        if deep_sums:
+            sums = fes.fused_expr_sums(prog, codes, env, n, gb)
+            if b not in deep_buckets:
+                deep_buckets.add(b)
+                fes.BUILDS += 1
+            for j, (slot, cnt) in enumerate(deep_sums):
+                outs[slot] = (sums[:, j], cnt > 0, cnt, torch.zeros((), device=codes.device))
         if fused_sums:
             vk = torch.stack([c for _, c, _ in fused_sums], dim=1)
             sums = masked_segment_sums_padded(codes[:, None], sel.to(torch.float32)[:, None],

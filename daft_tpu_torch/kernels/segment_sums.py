@@ -17,34 +17,29 @@ and only when its mask is nonzero, so a NaN behind the mask or in another
 group's row never leaks into a sum (the Pallas kernel's one-hot product lets
 0 * NaN through; the host paths and the callers never rely on that).
 
-Left out of this slice: ``build_fused_expr_sums``, the deep-fused variant that
-evaluates the filter and the derived columns inside the kernel.
+The kernel's two passes are shared with the deep-fused kernel K2
+(fused_expr_sums.py), which evaluates the filter and the derived columns
+itself: csrc/segment_sums_common.cuh.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from .device import _kahan_combine
+from . import nvcc
 
 BLOCK_ROWS = 1024
 MAX_GROUPS = 4096
 _MAX_K = 32            # csrc MAX_K: wider K launches in column chunks
 _OUTS_PER_THREAD = 4   # csrc OUTS_PER_THREAD
 _CTAS_TARGET = 132 * 8  # ~8 CTAs on each of the H100's 132 SMs
-_PLAIN_BATCH_ELEMS = 1 << 26  # rows x groups of one-hot per plain-version batch
+_PLAIN_BATCH_ELEMS = 1 << 22  # blocks x groups x columns per plain-version batch
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "masked_segment_sums.cu"
-_BUILD_DIR = Path(__file__).resolve().parent / "build"
+_SRC = nvcc.CSRC / "masked_segment_sums.cu"
 
 # kernel launches (CUDA only) and wrapper entries (any device): plain ints a
 # run resets and reads to show which path it took
@@ -54,39 +49,31 @@ BUILD_LOG = ""
 _LIB: Optional[ctypes.CDLL] = None
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    nvcc = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found (set CUDA_HOME): the segment-sums kernel "
-                           "builds from csrc/masked_segment_sums.cu on first use")
-    return nvcc
-
-
 def build() -> ctypes.CDLL:
     """Compile csrc/masked_segment_sums.cu for sm_90a (once per source,
     command and nvcc version, into kernels/build/) and load it. Raises if
     nvcc fails."""
+    if _LIB is None:
+        finish_build(start_build())
+    return _LIB
+
+
+def start_build():
+    """Start nvcc on K1's source without waiting (see nvcc.start), so a
+    caller can build several kernels at once."""
+    return nvcc.start(_SRC.read_text(), "masked_segment_sums")
+
+
+def finish_build(pending) -> ctypes.CDLL:
     global _LIB, BUILD_LOG
-    if _LIB is not None:
-        return _LIB
-    nvcc = _nvcc()
-    flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-             "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-    version = subprocess.run([nvcc, "--version"], capture_output=True, text=True, check=True).stdout
-    key = hashlib.sha256(_SRC.read_bytes())
-    key.update("\0".join([nvcc, *flags, version]).encode())
-    so = _BUILD_DIR / f"masked_segment_sums_{key.hexdigest()[:16]}.so"
-    if not so.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *flags, "-o", str(tmp), str(_SRC)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        BUILD_LOG = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {_SRC.name}:\n{BUILD_LOG}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    so = nvcc.finish(pending)
+    if pending.log is not None:
+        BUILD_LOG = pending.log
+    _LIB = _bind(ctypes.CDLL(str(so)))
+    return _LIB
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.masked_segment_sums_f32.argtypes = (
         [ctypes.c_void_p] * 5
         + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -94,7 +81,6 @@ def build() -> ctypes.CDLL:
     lib.masked_segment_sums_f32.restype = ctypes.c_int
     lib.masked_segment_sums_error_string.argtypes = [ctypes.c_int]
     lib.masked_segment_sums_error_string.restype = ctypes.c_char_p
-    _LIB = lib
     return lib
 
 
@@ -173,27 +159,64 @@ def _launch(codes, mask, vals, num_groups: int):
 
 
 def masked_segment_sums_plain(codes, mask, vals, num_groups: int):
-    """The plain PyTorch version: per 1024-row block, the masked one-hot
-    (rows x G) selects each row's values into its group and the block sums
-    them in float32; then a sequential Kahan loop over the blocks in order.
-    No matmul (so TF32 cannot enter); batches of blocks bound the one-hot's
-    memory."""
+    """The plain PyTorch version, in the kernel's own order of operations, so
+    the two agree bit for bit: column chunks of at most 32 as launched; in
+    each 1024-row block the rows are added in row order (a row adds only to
+    its own group, only when its mask is set); each CTA's span of blocks
+    (``launch_shape``) is Kahan-added in block order; then the spans' partials
+    are Kahan-added in span order. No matmul (so TF32 cannot enter)."""
     n, k = vals.shape
+    out = torch.empty((num_groups, k), dtype=torch.float32, device=vals.device)
+    for c0 in range(0, k, _MAX_K):
+        kc = min(_MAX_K, k - c0)
+        out[:, c0:c0 + kc] = _plain_chunk(codes.view(n), mask.view(n), vals[:, c0:c0 + kc],
+                                          num_groups)
+    return out
+
+
+def _kahan_step(acc, comp, x):
+    y = x - comp
+    t = acc + y
+    return t, (t - acc) - y
+
+
+def _plain_chunk(codes, mask, vals, num_groups: int):
+    n, k = vals.shape
+    dev = vals.device
     nblk = n // BLOCK_ROWS
-    groups = torch.arange(num_groups, dtype=torch.int32, device=vals.device)
-    blocks = torch.empty((nblk, num_groups, k), dtype=torch.float32, device=vals.device)
-    step = max(1, _PLAIN_BATCH_ELEMS // (BLOCK_ROWS * num_groups))
+    if nblk == 0:
+        return torch.zeros((num_groups, k), dtype=torch.float32, device=dev)
+    _threads, grid_x, bpc = launch_shape(n, num_groups, k)
+    groups = torch.arange(num_groups, dtype=torch.int32, device=dev)
+    # pass 1a: block sums, the rows of each block added in row order
+    blocks = torch.zeros((grid_x * bpc, num_groups, k), dtype=torch.float32, device=dev)
+    step = max(1, _PLAIN_BATCH_ELEMS // (num_groups * k))
     for b0 in range(0, nblk, step):
         b1 = min(b0 + step, nblk)
         rows = slice(b0 * BLOCK_ROWS, b1 * BLOCK_ROWS)
-        sel = ((codes[rows].view(b1 - b0, BLOCK_ROWS, 1) == groups)
-               & (mask[rows].view(b1 - b0, BLOCK_ROWS, 1) != 0))
-        v = vals[rows].view(b1 - b0, BLOCK_ROWS, k)
-        for j in range(k):
-            blocks[b0:b1, :, j] = torch.where(sel, v[:, :, j:j + 1], 0.0).sum(dim=1)
-    if nblk == 0:
-        return torch.zeros((num_groups, k), dtype=torch.float32, device=vals.device)
-    return _kahan_combine(blocks)
+        cb = codes[rows].view(b1 - b0, BLOCK_ROWS)
+        on = mask[rows].view(b1 - b0, BLOCK_ROWS) != 0
+        vb = vals[rows].view(b1 - b0, BLOCK_ROWS, k)
+        acc = blocks[b0:b1]
+        for r in range(BLOCK_ROWS):
+            hit = (cb[:, r, None] == groups) & on[:, r, None]
+            acc += torch.where(hit[:, :, None], vb[:, r, None, :], 0.0)
+    # pass 1b: each CTA Kahan-adds its span of blocks in block order
+    spans = blocks.view(grid_x, bpc, num_groups, k)
+    acc = torch.zeros((grid_x, num_groups, k), dtype=torch.float32, device=dev)
+    comp = torch.zeros_like(acc)
+    first = torch.arange(grid_x, device=dev) * bpc
+    for j in range(bpc):
+        live = (first + j < nblk)[:, None, None]  # the last span may be short
+        t, c = _kahan_step(acc, comp, spans[:, j])
+        acc, comp = torch.where(live, t, acc), torch.where(live, c, comp)
+    partials = acc - comp
+    # pass 2: Kahan over the spans' partials in span order
+    acc = torch.zeros((num_groups, k), dtype=torch.float32, device=dev)
+    comp = torch.zeros_like(acc)
+    for x in range(grid_x):
+        acc, comp = _kahan_step(acc, comp, partials[x])
+    return acc
 
 
 def masked_segment_sums(codes: np.ndarray, mask: Optional[np.ndarray],

@@ -7,11 +7,15 @@ feeds the masked segment reductions, with no host compaction between them.
 TPC-H Q1 plans as Sort <- FusedFilterAggregate <- InMemory and Q6 as
 FusedFilterAggregate <- InMemory.
 
+``translate`` then collapses Project/Filter chains into FusedMapOps
+(fuse/compile.py) and Aggregate-over-map-chain segments into device-resident
+DeviceSegmentOps (fuse/segment.py), in the reference's order.
+
 Left out of this slice: scans, limit, shuffles (a multi-partition aggregate
 or sort gathers its input into one partition instead of the reference's
-two-stage hash exchange), joins, distinct/explode/pivot/sample/write ops,
-the map-chain fusion (fuse/) and device-resident plan segments
-(fuse/segment.py), the worker pool, streaming and batched UDFs.
+two-stage hash exchange, so a plan segment forms over one partition), joins,
+distinct/explode/pivot/sample/write ops, the optimizer, the worker pool,
+streaming and batched UDFs.
 """
 
 from __future__ import annotations
@@ -26,12 +30,29 @@ from .schema import Schema
 PartStream = Iterator[MicroPartition]
 
 
+def summarize_exprs(exprs, limit: int = 120) -> str:
+    """Compact expression-list rendering for plan dumps: full displays up to
+    ``limit`` chars, then a count of what was elided."""
+    parts = []
+    used = 0
+    for i, e in enumerate(exprs):
+        d = e._node.display()
+        if parts and used + len(d) + 2 > limit:
+            return ", ".join(parts) + f", ... (+{len(exprs) - i} more)"
+        if not parts and len(d) > limit:
+            d = d[:limit] + "…"
+        parts.append(d)
+        used += len(d) + 2
+    return ", ".join(parts)
+
+
 class PhysicalOp:
     """Base: children + a generator-producing execute().
 
     Ops that are pure per-partition maps implement ``map_partition`` (the
     host path, (part, ctx) -> part), optionally ``map_partition_dispatch``
-    (the device path), and run through ``_map_execute``."""
+    (the device path) and ``map_partition_declined`` (what runs when the
+    dispatch declined), and run through ``_map_execute``."""
 
     def __init__(self, children: List["PhysicalOp"], schema: Schema, num_partitions: int):
         self.children = children
@@ -58,7 +79,7 @@ class PhysicalOp:
             if dispatch is not None:
                 pending = dispatch
                 continue
-            yield self.map_partition(part, ctx)
+            yield self.map_partition_declined(part, ctx)
         if pending is not None:
             yield pending()
         if not saw:
@@ -69,8 +90,12 @@ class PhysicalOp:
 
     def map_partition_dispatch(self, part, ctx):
         """Optional non-blocking device launch: return a zero-arg resolver,
-        or None to take the host path (map_partition)."""
+        or None to take map_partition_declined."""
         return None
+
+    def map_partition_declined(self, part, ctx):
+        """Synchronous evaluation after map_partition_dispatch returned None."""
+        return self.map_partition(part, ctx)
 
     def name(self) -> str:
         return type(self).__name__
@@ -250,9 +275,28 @@ def _is_pure_column_selection(exprs) -> bool:
                for e in exprs)
 
 
-def translate(plan: LogicalPlan) -> PhysicalOp:
-    """Public entry: recursive translation, then device-path fusion."""
-    return fuse_for_device(_translate(plan))
+def translate(plan: LogicalPlan, cfg=None, stats=None) -> PhysicalOp:
+    """Public entry: recursive translation, then device-path fusion
+    (``fuse_for_device``), then map-chain fusion (``fuse_map_chains``,
+    behind ``cfg.expr_fusion``), then the plan-segment compiler
+    (``compile_plan_segments``, behind ``cfg.use_device_kernels`` and
+    ``cfg.device_residency``). ``stats`` receives ``segment_compiles``."""
+    if cfg is None:
+        from .context import get_context
+
+        cfg = get_context().execution_config
+    out = fuse_for_device(_translate(plan))
+    if cfg.expr_fusion:
+        from .fuse import fuse_map_chains
+
+        out = fuse_map_chains(out, cfg)
+    if cfg.use_device_kernels and cfg.device_residency:
+        # last: the segment compiler consumes the Aggregate-over-FusedMap
+        # trees the fuse passes built
+        from .fuse import compile_plan_segments
+
+        out = compile_plan_segments(out, cfg, stats)
+    return out
 
 
 def _translate(plan: LogicalPlan) -> PhysicalOp:

@@ -50,4 +50,4 @@ class NativeRunner:
         from .physical import translate
 
         ctx = ExecutionContext(get_context().execution_config, stats or RuntimeStats())
-        return execute_plan(translate(plan), ctx)
+        return execute_plan(translate(plan, ctx.cfg, ctx.stats), ctx)

@@ -117,6 +117,9 @@ class Table:
     def column_names(self) -> List[str]:
         return self.schema.field_names()
 
+    def select_columns(self, names: List[str]) -> "Table":
+        return Table(self.schema.select(names), [self.get_column(n) for n in names])
+
     def get_column(self, name: str) -> Series:
         return self._columns[self.schema.index(name)]
 

@@ -170,9 +170,15 @@ def test_config_maps_reference_knobs():
     cfg = daft_tpu_torch.execution_config_from_dict(d, device="cpu")
     assert (cfg.use_device_kernels, cfg.device_min_rows, cfg.use_segment_sums_kernel,
             cfg.device_x64, cfg.device) == (True, 8, False, False, "cpu")
+    # the fusion knobs map with the reference's defaults and settings
+    assert (cfg.use_deep_fusion_kernel, cfg.expr_fusion, cfg.device_residency) == (
+        False, True, True)
+    cfg = daft_tpu_torch.execution_config_from_dict(
+        {**d, "use_pallas_deep_fusion": True, "expr_fusion": False, "device_residency": False})
+    assert (cfg.use_deep_fusion_kernel, cfg.expr_fusion, cfg.device_residency) == (
+        True, False, False)
     # knobs whose reference setting has no counterpart in the 32-bit port
-    for knob, value in (("jax_enable_x64", True), ("device_reduced_precision", False),
-                        ("use_pallas_deep_fusion", True)):
+    for knob, value in (("jax_enable_x64", True), ("device_reduced_precision", False)):
         with pytest.raises(NotImplementedError):
             daft_tpu_torch.execution_config_from_dict({**d, knob: value})
 
@@ -191,13 +197,19 @@ def test_default_cuda_raises_without_card():
 
 
 def test_import_leaves_jax_and_reference_out():
+    # every module of the port and chip_smoke.py, then a deep-fused query
+    # through a device-resident plan segment
     code = (
-        "import sys, daft_tpu_torch as d\n"
-        "d.set_execution_config(device='cpu', device_min_rows=1)\n"
+        "import importlib, pkgutil, sys, daft_tpu_torch as d, chip_smoke\n"
+        "for m in pkgutil.walk_packages(d.__path__, 'daft_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "d.set_execution_config(device='cpu', device_min_rows=1, use_deep_fusion_kernel=True)\n"
         "r = d.from_pydict({'k': [1, 2, 1], 'v': [1.0, 2.0, 3.0]})"
-        ".groupby('k').agg(d.col('v').sum().alias('s')).collect()\n"
-        "assert r.to_pydict() == {'k': [1, 2], 's': [4.0, 2.0]}, r.to_pydict()\n"
-        "assert r.stats.snapshot()['counters'].get('device_aggregations') == 1\n"
+        ".with_column('w', d.col('v') * 2).where(d.col('w') > 1)"
+        ".groupby('k').agg(d.col('w').sum().alias('s')).collect()\n"
+        "assert r.to_pydict() == {'k': [1, 2], 's': [8.0, 4.0]}, r.to_pydict()\n"
+        "c = r.stats.snapshot()['counters']\n"
+        "assert c.get('device_resident_segments') == 1, c\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'daft_tpu')]\n"
         "assert not bad, bad\n"
     )
@@ -211,8 +223,14 @@ def test_port_sources_import_neither_jax_nor_reference():
     import ast
 
     files = [os.path.join(REPO, "chip_smoke.py")]
-    for root, _dirs, names in os.walk(os.path.join(REPO, "daft_tpu_torch")):
+    for root, dirs, names in os.walk(os.path.join(REPO, "daft_tpu_torch")):
+        # kernels/build/ holds build outputs (and may hold a checkout copy
+        # for a chip run), not sources of the port
+        dirs[:] = [d for d in dirs if os.path.join(root, d) != os.path.join(
+            REPO, "daft_tpu_torch", "kernels", "build")]
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert any(f.endswith(os.path.join("fuse", "segment.py")) for f in files)
+    assert any(f.endswith("fused_expr_sums.py") for f in files)
     for path in files:
         tree = ast.parse(open(path).read(), path)
         for node in ast.walk(tree):

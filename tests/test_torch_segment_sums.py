@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from daft_tpu.kernels.pallas_ops import masked_segment_sums as pallas_sums
-from daft_tpu_torch.kernels import segment_sums
+from daft_tpu_torch.kernels import nvcc, segment_sums
 
 
 def _case_matches_numpy():
@@ -138,10 +138,36 @@ def test_launch_shape_covers_every_block(n, g, k):
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     # no toolchain, no kernel: the build raises instead of falling back
-    monkeypatch.setattr(segment_sums, "_BUILD_DIR", tmp_path)
+    monkeypatch.setattr(nvcc, "BUILD_DIR", tmp_path)
     monkeypatch.setenv("PATH", "")
     monkeypatch.setenv("CUDA_HOME", "/nonexistent-cuda")
     monkeypatch.delenv("CUDA_PATH", raising=False)
     monkeypatch.setattr(segment_sums, "_LIB", None)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         segment_sums.build()
+
+
+def test_builds_keep_their_own_logs(monkeypatch, tmp_path):
+    # a stand-in nvcc that logs the source it compiles: each build reports its
+    # own log, one source shares one run, and a library on disk is reused
+    bindir = tmp_path / "cuda" / "bin"
+    bindir.mkdir(parents=True)
+    fake = bindir / "nvcc"
+    fake.write_text('#!/bin/bash\n[ "$1" = --version ] && { echo stand-in; exit 0; }\n'
+                    'out=""; src=""\nwhile [ $# -gt 0 ]; do case "$1" in\n'
+                    '  -o) out="$2"; shift 2;;\n  *.cu) src="$1"; shift;;\n  *) shift;;\n'
+                    'esac; done\nread -r first < "$src"; echo "ptxas info: $first"\n: > "$out"\n')
+    fake.chmod(0o755)
+    monkeypatch.setattr(nvcc, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setenv("PATH", "")
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    a, b, a2 = (nvcc.start("// source a\n", "k"), nvcc.start("// source b\n", "k"),
+                nvcc.start("// source a\n", "k"))
+    assert a2 is a and a.so != b.so
+    assert nvcc.finish(b) == b.so and b.so.exists()
+    assert nvcc.finish(a) == a.so and nvcc.finish(a2) == a.so
+    assert "source a" in a.log and "source b" not in a.log
+    assert "source b" in b.log
+    again = nvcc.start("// source a\n", "k")
+    assert again is not a and again.done() and nvcc.finish(again) == a.so
+    assert again.log is None  # nothing was built, so no log to report
