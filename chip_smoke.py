@@ -6,6 +6,7 @@ kernels build for sm_90a):
     python3 chip_smoke.py                # every phase, TPC-H SF1 and SF10
     python3 chip_smoke.py --scales 1     # a shorter run: SF1 only
     python3 chip_smoke.py --profile      # also trace warm Q1/Q6 and deep Q1 at the first scale
+    python3 chip_smoke.py --kernels-only # phases 1 and 2 only, for iterating on a kernel
 
 Phases, each of which fails the run:
   1. build every kernel of the main path from the sources in the checkout,
@@ -15,11 +16,15 @@ Phases, each of which fails the run:
      are found by running those plans once on a 4096-row frame on the CPU,
      where K2 takes its plain version and builds nothing;
   2. hold each kernel against its plain PyTorch version on the card, at the
-     shapes the main path gives it and at edge cases, and time it (CUDA
-     events) beside its bound, the plain version and one library call. K2's
-     operands are the ones the engine hands it for SF1 Q1 and Q6, captured
-     from a run through the engine; K2 must equal its plain version and the
-     composed route (torch derive, stack, K1) bit for bit;
+     shapes the main path gives it, at edge cases and on both sides of the
+     crossover between pass 1's two loops (segment_sums.pass1_loop: the
+     largest G that takes the row-parallel loop and the smallest that takes
+     the output-parallel one), and time it (CUDA events) beside its bound,
+     the plain version and one library call; K1 also with sorted codes, each
+     block one group, the longest dependent chain through shared memory.
+     K2's operands are the ones the engine hands it for SF1 Q1 and Q6,
+     captured from a run through the engine; K2 must equal its plain version
+     and the composed route (torch derive, stack, K1) bit for bit;
   3. drive TPC-H Q1 and Q6 through daft_tpu_torch.from_arrow(...).collect()
      on the card in the 32-bit device mode, through K1 (the composed route)
      and through K2 (use_deep_fusion_kernel), and Q1 written with
@@ -32,7 +37,10 @@ Phases, each of which fails the run:
 The last line of standard output is {"ok": true, "device": {...}} when every
 phase passed; the exit code is 0 only then. The line before it is the card's
 name and power limit as nvidia-smi reports them, and the line before that is
-the kernel table as one JSON object. Imports nothing of jax or daft_tpu.
+the kernel table as one JSON object: each kernel's pass-1 loop at the main
+path's shape (`loop`), its time over its bound (`x_bound`) and its launches
+on the main path (null with --kernels-only, which skips phase 3). Every
+check line names the loop it ran. Imports nothing of jax or daft_tpu.
 """
 
 from __future__ import annotations
@@ -162,6 +170,22 @@ def bound(nbytes: float, ops: float) -> dict:
     ops_ms = ops / H100_FP32_FLOPS * 1e3
     return {"bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def loop_name(g: int, k: int) -> str:
+    """Pass 1's loop for G groups and K columns (one launch's chunk)."""
+    from daft_tpu_torch.kernels import segment_sums as ss
+
+    return ss.LOOP_NAMES[ss.pass1_loop(g, min(k, 32))]
+
+
+def crossover(k: int) -> tuple:
+    """(largest G that takes the rows loop, smallest G that takes the
+    outputs loop) for K columns."""
+    from daft_tpu_torch.kernels import segment_sums as ss
+
+    rows = [g for g in range(1, ss.MAX_GROUPS + 1) if ss.pass1_loop(g, k) == ss.LOOP_ROWS]
+    return max(rows), max(rows) + 1
 
 
 def same_bits(a, b) -> bool:
@@ -323,6 +347,7 @@ def check_k1(ph: Phases, name: str, codes, mask, vals, g: int) -> float:
     plain = ss.masked_segment_sums_plain(codes, mask, vals, g)
     sums, mags = exact64(codes, mask, vals, g)
     bnd = RTOL * mags + 1e-30
+    name = f"{name} [{loop_name(g, vals.shape[1])} loop]"
     ph.check(torch.equal(a, b), f"K1 {name}: two launches agree bit for bit")
     ph.check(same_bits(a, plain), f"K1 {name}: equals its plain version bit for bit")
     ok_exact = bool(((a.double() - sums).abs() <= bnd).all())
@@ -354,9 +379,17 @@ def phase_k1(ph: Phases) -> dict:
                            iters=2, warmup=1)
         library_ms = cuda_ms(lambda: torch.zeros((16, k), device="cuda").index_add_(0, idx, vk),
                              iters=20)
-        shapes[k] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        shapes[k] = {"loop": loop_name(16, k), "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms,
                      **bound(n * (4 + 4 + 4 * k) + 16 * k * 4, 2 * n * k),
                      "library_ms": library_ms}
+        shapes[k]["x_bound"] = ms / shapes[k]["bound_ms"]
+        if k == 7:  # each block one group: every row of a chain hits one sum
+            codes_sorted = torch.sort(codes.view(-1)).values.view(n, 1)
+            check_k1(ph, f"sorted codes n={n} G=16 K={k}", codes_sorted, mask, vals, 16)
+            shapes[k]["sorted_codes_ms"] = cuda_ms(
+                lambda: ss.masked_segment_sums_padded(codes_sorted, mask, vals, 16), iters=20)
+            del codes_sorted
         print("K1 timing " + json.dumps({"n": n, "G": 16, "K": k, **shapes[k]}), flush=True)
         del codes, mask, vals, vk
     entry.update(shapes[7])
@@ -365,6 +398,9 @@ def phase_k1(ph: Phases) -> dict:
     # mask, more columns than one launch takes, and a padded ragged tail
     codes, mask, vals = k1_operands(1 << 20, 4096, 2, seed=11, used_groups=4096)
     check_k1(ph, "G=4096", codes, mask, vals, 4096)
+    for g in crossover(7):  # both sides of the loops' crossover at Q1's K
+        codes, mask, vals = k1_operands(1 << 20, g, 7, seed=g, used_groups=g)
+        check_k1(ph, f"crossover G={g} K=7", codes, mask, vals, g)
     codes, mask, vals = k1_operands(1 << 16, 16, 3, seed=12)
     mask[3 * 1024:4 * 1024] = 0  # one whole block masked out
     vals[mask.view(-1) == 0, 1] = float("nan")  # NaN behind the mask
@@ -427,6 +463,7 @@ def check_k2(ph: Phases, name: str, prog, codes, env, n: int, g: int) -> dict:
     torch.cuda.synchronize()
     plain = prog.plain(codes, env, n, g)
     composed = ss.masked_segment_sums_padded(*prog.operands(codes, env, n), g)
+    name = f"{name} [{loop_name(g, prog.k)} loop]"
     ph.check(same_bits(a, b), f"K2 {name}: two launches agree bit for bit")
     ph.check(same_bits(a, plain), f"K2 {name}: equals its plain version bit for bit")
     ph.check(same_bits(a, composed), f"K2 {name}: equals the composed route (torch derive, "
@@ -459,6 +496,7 @@ def time_k2(prog, codes, env, n: int, g: int) -> dict:
     row_bytes = sum(env[nm][0].element_size() + 1 for nm in prog.names)
     nbytes = b * 4 + n * row_bytes + g * prog.k * 4
     out.update(bound(nbytes, n * (2 * prog.k + prog.row_ops)))
+    out["x_bound"] = out["ms"] / out["bound_ms"]
     return out
 
 
@@ -502,14 +540,17 @@ def phase_k2(ph: Phases, lineitem, edges: dict) -> dict:
               flush=True)
         shapes[qname] = check_k2(ph, f"main path {qname} n={codes.shape[0]} G={g} K={prog.k}",
                                  prog, codes, env, n, g)
-        shapes[qname].update(time_k2(prog, codes, env, n, g))
+        shapes[qname].update(loop=loop_name(g, prog.k), **time_k2(prog, codes, env, n, g))
         print(f"K2 timing {qname} " + json.dumps(shapes[qname]), flush=True)
     entry.update(shapes["q1"])
     del frame
     torch.cuda.empty_cache()
 
     n_pad = 1 << 20
+    below, above = crossover(edges["nan_nulls_ragged"].k)
     for name, n, g in (("nan_nulls_ragged", n_pad - 77, 16), ("nan_nulls_ragged", n_pad, 4096),
+                       ("nan_nulls_ragged", n_pad - 77, below),
+                       ("nan_nulls_ragged", n_pad - 77, above),
                        ("k33", n_pad, 16), ("rejects_all", n_pad, 16), ("casts", n_pad, 16)):
         env = edge_env(n_pad, seed=len(name) + g)
         gen = torch.Generator(device="cuda").manual_seed(g)
@@ -661,6 +702,9 @@ def main(argv=None) -> int:
                     help="comma-separated TPC-H scale factors for the main path")
     ap.add_argument("--profile", action="store_true",
                     help="trace warm Q1/Q6 and deep Q1 at the first scale with torch.profiler")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="run phases 1 and 2 only (builds and kernel checks); launches print "
+                         "as null")
     args = ap.parse_args(argv)
 
     import torch
@@ -678,13 +722,14 @@ def main(argv=None) -> int:
         print(f"card: {card}; torch {torch.__version__} CUDA {torch.version.cuda}", flush=True)
         edges = phase_build(ph)
         k1_entry = phase_k1(ph)
-        scales = [float(s) for s in args.scales.split(",")]
+        scales = [] if args.kernels_only else [float(s) for s in args.scales.split(",")]
         tables = {}
         t0 = time.perf_counter()
         tables[1.0] = tpch.generate_lineitem_only(scale=1.0, seed=42)
         print(f"SF1: {tables[1.0].num_rows} rows generated in {time.perf_counter() - t0:.1f}s",
               flush=True)
         k2_entry = phase_k2(ph, tables[1.0], edges)
+        k1_entry["launches"] = k2_entry["launches"] = None  # until phase 3 counts them
         for i, scale in enumerate(scales):
             if scale not in tables:
                 t0 = time.perf_counter()

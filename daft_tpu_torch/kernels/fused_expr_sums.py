@@ -51,7 +51,7 @@ import torch
 
 from . import nvcc
 from .device import _jdt, _literal_to_physical
-from .segment_sums import _MAX_K, BLOCK_ROWS, MAX_GROUPS, launch_shape, masked_segment_sums_plain
+from .segment_sums import _MAX_K, BLOCK_ROWS, MAX_GROUPS, masked_segment_sums_plain, pass1_args
 
 # engagement counters, plain ints a run resets and reads:
 #   BUILDS   - compiled aggregation programs that took the deep route (one per
@@ -413,7 +413,8 @@ class FusedExprSums:
             lib.fused_expr_sums_f32.argtypes = (
                 [ctypes.c_void_p] * 4
                 + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p])
+                   ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p])
             lib.fused_expr_sums_f32.restype = ctypes.c_int
             lib.fused_expr_sums_error_string.argtypes = [ctypes.c_int]
             lib.fused_expr_sums_error_string.restype = ctypes.c_char_p
@@ -479,14 +480,14 @@ class FusedExprSums:
                 kc = min(_MAX_K, self.k - c0)
                 part = out if kc == self.k else torch.empty((num_groups, kc), dtype=torch.float32,
                                                             device=dev)
-                threads, grid_x, bpc = launch_shape(b, num_groups, kc)
+                threads, grid_x, bpc, loop, nb, t = pass1_args(b, num_groups, kc)
                 # scratch and the lanes go back to the caching allocator when
                 # this returns, while the kernel may still run: safe, because
                 # the launch is on their stream, so any reuse is ordered after it
                 scratch = torch.empty(grid_x * num_groups * kc, dtype=torch.float32, device=dev)
                 rc = lib.fused_expr_sums_f32(codes.data_ptr(), ptrs, part.data_ptr(),
                                              scratch.data_ptr(), b, n, c0, kc, num_groups,
-                                             threads, grid_x, bpc, stream)
+                                             threads, grid_x, bpc, loop, nb, t, stream)
                 if rc != 0:
                     raise RuntimeError("fused_expr_sums kernel launch failed: "
                                        + lib.fused_expr_sums_error_string(rc).decode())
@@ -505,17 +506,22 @@ _KERNEL_TEMPLATE = r"""// Generated by daft_tpu_torch/kernels/fused_expr_sums.py
 #define FES_K {k}
 
 // K2's tile-fill step: evaluate the predicate and the K columns of each row
-// of the tile into the shared-memory tile K1 would copy its operands into.
-// Rows at or past n (the bucket's padding) are not selected.
+// of the tiles (t rows of each of nb blocks) into the shared-memory tiles K1
+// would copy its operands into, one row per thread at a time. Rows at or
+// past n (the bucket's padding) are not selected.
 struct FesFill {{
   FesCols c;
   long long n;
   int c0;
   int kc;
 
-  __device__ __forceinline__ void operator()(long long r0, float* s_mask, float* s_vals) const {{
-    for (int r = threadIdx.x; r < TILE_ROWS; r += blockDim.x) {{
-      const long long row = r0 + r;
+  __device__ __forceinline__ void operator()(long long r0, int nb, int t, float* s_mask,
+                                             int mask_stride, float* s_vals,
+                                             int vals_stride) const {{
+    for (int e = threadIdx.x; e < nb * t; e += blockDim.x) {{
+      const int b = e / t;
+      const int r = e - b * t;
+      const long long row = r0 + static_cast<long long>(b) * ROWS_PER_BLOCK + r;
       bool sel = false;
       float v[FES_K];
       if (row < n) {{
@@ -523,8 +529,9 @@ struct FesFill {{
       }} else {{
         for (int j = 0; j < FES_K; ++j) v[j] = 0.0f;
       }}
-      s_mask[r] = sel ? 1.0f : 0.0f;
-      for (int j = 0; j < kc; ++j) s_vals[r * kc + j] = v[c0 + j];
+      s_mask[b * mask_stride + r] = sel ? 1.0f : 0.0f;
+      float* dst = s_vals + b * vals_stride + r * kc;
+      for (int j = 0; j < kc; ++j) dst[j] = v[c0 + j];
     }}
   }}
 }};
@@ -534,18 +541,20 @@ extern "C" {{
 // codes [n_pad] int32; cols: values and validity pointer of each column, in
 // the generator's column order; out [g, kc] float32 gets columns
 // [c0, c0 + kc); partials [grid_x, g, kc] float32 scratch. Rows [n, n_pad)
-// are padding. Launches on `stream`, does not synchronise, returns
-// cudaGetLastError().
+// are padding. threads, grid_x, blocks_per_cta, loop, nb and t as
+// segment_sums.pass1_args gives them. Launches on `stream`, does not
+// synchronise, returns cudaGetLastError().
 int fused_expr_sums_f32(const void* codes, void* const* cols, void* out, void* partials,
                         long long n_pad, long long n, int c0, int kc, int g, int threads,
-                        int grid_x, long long blocks_per_cta, void* stream) {{
+                        int grid_x, long long blocks_per_cta, int loop, int nb, int t,
+                        void* stream) {{
   if (c0 < 0 || c0 + kc > FES_K) return static_cast<int>(cudaErrorInvalidValue);
   FesFill fill;
 {bind}  fill.n = n;
   fill.c0 = c0;
   fill.kc = kc;
   return ss_launch(codes, fill, out, partials, n_pad, kc, g, threads, grid_x, blocks_per_cta,
-                   stream);
+                   loop, nb, t, stream);
 }}
 
 const char* fused_expr_sums_error_string(int code) {{

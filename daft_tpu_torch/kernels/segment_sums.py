@@ -19,7 +19,11 @@ group's row never leaks into a sum (the Pallas kernel's one-hot product lets
 
 The kernel's two passes are shared with the deep-fused kernel K2
 (fused_expr_sums.py), which evaluates the filter and the derived columns
-itself: csrc/segment_sums_common.cuh.
+itself: csrc/segment_sums_common.cuh. Pass 1 has two loops that add in the
+same order (so the plain version below equals both): one thread per
+(block, column) chain with code-indexed sums in shared memory where G such
+sums per chain fit (``pass1_loop``; the main path's G = 16), and one thread
+per output above that.
 """
 
 from __future__ import annotations
@@ -37,6 +41,15 @@ MAX_GROUPS = 4096
 _MAX_K = 32            # csrc MAX_K: wider K launches in column chunks
 _OUTS_PER_THREAD = 4   # csrc OUTS_PER_THREAD
 _CTAS_TARGET = 132 * 8  # ~8 CTAs on each of the H100's 132 SMs
+
+# pass 1's two loops (csrc SS_LOOP_*), which add in one order and so give the
+# same bits; pass1_loop picks one
+LOOP_OUTPUTS = 0  # each thread owns (g, k) outputs and walks every row: O(n G K)
+LOOP_ROWS = 1     # one thread per (block, column) chain, code-indexed sums: O(n K)
+LOOP_NAMES = {LOOP_OUTPUTS: "outputs", LOOP_ROWS: "rows"}
+_ROW_THREADS = 128             # threads of a rows-loop CTA: at most this many chains
+_ROW_STEP_BYTES = 20 * 1024    # one step's tiles of codes, mask and K values
+_ROW_SMEM_BYTES = 48 * 1024    # csrc SS_ROW_SMEM_MAX: no opt-in attribute needed
 _PLAIN_BATCH_ELEMS = 1 << 22  # blocks x groups x columns per plain-version batch
 
 _SRC = nvcc.CSRC / "masked_segment_sums.cu"
@@ -77,7 +90,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.masked_segment_sums_f32.argtypes = (
         [ctypes.c_void_p] * 5
         + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-           ctypes.c_longlong, ctypes.c_void_p])
+           ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     lib.masked_segment_sums_f32.restype = ctypes.c_int
     lib.masked_segment_sums_error_string.argtypes = [ctypes.c_int]
     lib.masked_segment_sums_error_string.restype = ctypes.c_char_p
@@ -95,6 +108,54 @@ def launch_shape(n: int, num_groups: int, k: int) -> Tuple[int, int, int]:
     target = max(1, min(_CTAS_TARGET // tiles_y, (1 << 24) // gk))
     blocks_per_cta = -(-nblocks // target)
     return threads, -(-nblocks // blocks_per_cta), blocks_per_cta
+
+
+def _row_step_rows(k: int) -> int:
+    """Rows one step of the rows loop stages, over all of its blocks: the
+    largest power of two up to 1024 whose codes, mask and k values fit in
+    _ROW_STEP_BYTES (at least 32)."""
+    rows = BLOCK_ROWS
+    while rows > 32 and rows * (k + 2) * 4 > _ROW_STEP_BYTES:
+        rows //= 2
+    return rows
+
+
+def row_tile(k: int, blocks_per_cta: int) -> Tuple[int, int]:
+    """(nb, t) of the rows loop: the CTA walks its span nb blocks at a time
+    (at most one chain per thread, and t >= 32) and stages t rows of each of
+    them per step."""
+    rows = min(_row_step_rows(k), 4 * _ROW_THREADS)  # codes: one vector a thread
+    nb = max(1, min(blocks_per_cta, _ROW_THREADS // k, rows // 32))
+    return nb, rows // (1 << (nb - 1).bit_length())
+
+
+def _row_smem_bytes(num_groups: int, k: int, nb: int, t: int) -> int:
+    """Dynamic shared memory of the rows loop (csrc ss_rows_smem_floats):
+    codes and mask tiles, value tiles, the block sums [G][nb * k rounded up
+    to 32], and the span's Kahan sum and compensation."""
+    astride = -(-nb * k // 32) * 32
+    return 4 * (nb * (t + 1) * (2 + k) + num_groups * astride + 2 * num_groups * k)
+
+
+def pass1_loop(num_groups: int, k: int) -> int:
+    """Pass 1's loop for G groups and k (<= 32) columns, from the shapes
+    alone: LOOP_ROWS where the G accumulators of every chain fit in the CTA's
+    shared memory at the largest tile (num_groups = 16 does, for every k),
+    LOOP_OUTPUTS above that. Both loops add in one order, so the choice
+    changes no bit of the result; a failure never selects a loop."""
+    nb, t = row_tile(k, BLOCK_ROWS)
+    return LOOP_ROWS if _row_smem_bytes(num_groups, k, nb, t) <= _ROW_SMEM_BYTES else LOOP_OUTPUTS
+
+
+def pass1_args(n: int, num_groups: int, k: int) -> Tuple[int, int, int, int, int, int]:
+    """(threads, grid_x, blocks_per_cta, loop, nb, t) of one launch: the span
+    partition of ``launch_shape``, the loop of ``pass1_loop`` and, for the
+    rows loop, its _ROW_THREADS threads and ``row_tile``."""
+    threads, grid_x, bpc = launch_shape(n, num_groups, k)
+    loop = pass1_loop(num_groups, k)
+    if loop == LOOP_ROWS:
+        return (_ROW_THREADS, grid_x, bpc, loop) + row_tile(k, bpc)
+    return threads, grid_x, bpc, loop, 0, 0
 
 
 def _check(codes, mask, vals, num_groups: int) -> None:
@@ -139,7 +200,7 @@ def _launch(codes, mask, vals, num_groups: int):
             part = vals[:, c0:c0 + kc].contiguous()
             part_out = out if kc == k else torch.empty((num_groups, kc), dtype=torch.float32,
                                                        device=vals.device)
-            threads, grid_x, bpc = launch_shape(n, num_groups, kc)
+            threads, grid_x, bpc, loop, nb, t = pass1_args(n, num_groups, kc)
             # scratch (and a column chunk's copy) return to the caching
             # allocator when this function ends, while the kernel may still
             # run: safe, because the launch is on the stream they were
@@ -148,7 +209,8 @@ def _launch(codes, mask, vals, num_groups: int):
                                   device=vals.device)
             rc = lib.masked_segment_sums_f32(
                 codes.data_ptr(), mask.data_ptr(), part.data_ptr(), part_out.data_ptr(),
-                scratch.data_ptr(), n, kc, num_groups, threads, grid_x, bpc, stream)
+                scratch.data_ptr(), n, kc, num_groups, threads, grid_x, bpc, loop, nb, t,
+                stream)
             if rc != 0:
                 raise RuntimeError("masked_segment_sums kernel launch failed: "
                                    + lib.masked_segment_sums_error_string(rc).decode())
