@@ -5,16 +5,17 @@ kernels build for sm_90a):
 
     python3 chip_smoke.py                # every phase, TPC-H SF1 and SF10
     python3 chip_smoke.py --scales 1     # a shorter run: SF1 only
-    python3 chip_smoke.py --profile      # also trace warm Q1/Q6 and deep Q1 at the first scale
+    python3 chip_smoke.py --profile      # also trace warm Q1/Q6, deep Q1, Q3 and Q5 at the first scale
     python3 chip_smoke.py --kernels-only # phases 1 and 2 only, for iterating on a kernel
 
 Phases, each of which fails the run:
   1. build every kernel of the main path from the sources in the checkout,
-     all nvcc runs at once: K1 (csrc/masked_segment_sums.cu) and the K2
-     sources (generated by kernels/fused_expr_sums.py) of every deep plan the
-     script drives and of the phase-2 edge cases. The deep plans' K2 programs
-     are found by running those plans once on a 4096-row frame on the CPU,
-     where K2 takes its plain version and builds nothing;
+     all nvcc runs at once: K1 (csrc/masked_segment_sums.cu), the scatter-sums
+     kernel (csrc/segment_scatter_sums.cu) and the K2 sources (generated by
+     kernels/fused_expr_sums.py) of every deep plan the script drives and of
+     the phase-2 edge cases. The deep plans' K2 programs are found by running
+     those plans once on a 4096-row frame on the CPU, where K2 takes its plain
+     version and builds nothing;
   2. hold each kernel against its plain PyTorch version on the card, at the
      shapes the main path gives it, at edge cases and on both sides of the
      crossover between pass 1's two loops (segment_sums.pass1_loop: the
@@ -24,23 +25,34 @@ Phases, each of which fails the run:
      block one group, the longest dependent chain through shared memory.
      K2's operands are the ones the engine hands it for SF1 Q1 and Q6,
      captured from a run through the engine; K2 must equal its plain version
-     and the composed route (torch derive, stack, K1) bit for bit;
+     and the composed route (torch derive, stack, K1) bit for bit. The
+     scatter kernel must equal its plain version and itself across two
+     launches bit for bit, at G = 4097 and a large shape, with random and
+     sorted codes and masked rows; its library route is index_add_ plus
+     device._kahan_combine;
   3. drive TPC-H Q1 and Q6 through daft_tpu_torch.from_arrow(...).collect()
      on the card in the 32-bit device mode, through K1 (the composed route)
      and through K2 (use_deep_fusion_kernel), and Q1 written with
      with_column through a device-resident plan segment (DeviceSegmentOp),
-     with K2 and with K1; hold every result against the pyarrow oracle of
-     benchmarks/tpch.py at rtol 1e-6; check that each path ran on the card
-     through its kernel (its launch count, set to 0 just before the path and
-     read just after), and time deep against composed back to back.
+     with K2 and with K1; then TPC-H Q3 and Q5 (joins through the device
+     probe, the device argsort, Limit) over generate_tables(scale, seed=42),
+     Q3's aggregate through the scatter kernel and Q5's through K1. Hold every
+     result against the pyarrow oracle of benchmarks/tpch.py at rtol 1e-6
+     (Q3's top 10 by q3_parity); check that each path ran on the card through
+     its kernel (its launch count, set to 0 just before the path and read just
+     after, and the join and sort counters), and time them warm. At every
+     scale the scatter kernel is also held against its plain version and
+     timed at the operands the engine handed it in Q3, and K1 held against
+     its plain version at the operands of Q5.
 
 The last line of standard output is {"ok": true, "device": {...}} when every
 phase passed; the exit code is 0 only then. The line before it is the card's
-name and power limit as nvidia-smi reports them, and the line before that is
-the kernel table as one JSON object: each kernel's pass-1 loop at the main
-path's shape (`loop`), its time over its bound (`x_bound`) and its launches
-on the main path (null with --kernels-only, which skips phase 3). Every
-check line names the loop it ran. Imports nothing of jax or daft_tpu.
+name and power limit as nvidia-smi reports them, the line before that the
+run's total time, and the line before that the kernel table as one JSON
+object: each kernel's time over its bound (`x_bound`), its launches on the
+main path (null with --kernels-only, which skips phase 3) and, for K1 and K2,
+pass 1's loop at the main path's shape (`loop`). Every K1/K2 check line
+names the loop it ran. Imports nothing of jax or daft_tpu.
 """
 
 from __future__ import annotations
@@ -124,6 +136,47 @@ def q6(lineitem):
     )
 
 
+def q3(customer, orders, lineitem):
+    """TPC-H Q3 (shipping priority: 3-way join, aggregate, top 10) over
+    daft_tpu_torch DataFrames, as benchmarks/tpch.py writes it."""
+    from daft_tpu_torch import col
+
+    cutoff = datetime.date(1995, 3, 15)
+    c = customer.where(col("c_mktsegment") == "BUILDING")
+    o = orders.where(col("o_orderdate") < cutoff)
+    l = lineitem.where(col("l_shipdate") > cutoff)
+    return (
+        c.join(o, left_on="c_custkey", right_on="o_custkey")
+        .join(l, left_on="o_orderkey", right_on="l_orderkey")
+        .with_column("revenue", col("l_extendedprice") * (1 - col("l_discount")))
+        .groupby("o_orderkey", "o_orderdate", "o_shippriority")
+        .agg(col("revenue").sum().alias("revenue"))
+        .select("o_orderkey", "revenue", "o_orderdate", "o_shippriority")
+        .sort(["revenue", "o_orderdate"], desc=[True, False])
+        .limit(10)
+    )
+
+
+def q5(customer, orders, lineitem, nation):
+    """The TPC-H-shaped Q5 of benchmarks/tpch.py (revenue by nation for the
+    ASIA region in 1994) over daft_tpu_torch DataFrames."""
+    from daft_tpu_torch import col
+
+    lo = datetime.date(1994, 1, 1)
+    hi = datetime.date(1995, 1, 1)
+    n = nation.where(col("n_regionname") == "ASIA")
+    o = orders.where((col("o_orderdate") >= lo) & (col("o_orderdate") < hi))
+    return (
+        n.join(customer, left_on="n_nationkey", right_on="c_nationkey")
+        .join(o, left_on="c_custkey", right_on="o_custkey")
+        .join(lineitem, left_on="o_orderkey", right_on="l_orderkey")
+        .with_column("revenue", col("l_extendedprice") * (1 - col("l_discount")))
+        .groupby("n_name")
+        .agg(col("revenue").sum().alias("revenue"))
+        .sort("revenue", desc=True)
+    )
+
+
 def parity(got: dict, want: dict, rtol: float) -> bool:
     """bench.py's _parity rule: same keys and lengths, floats within
     max(rtol * |want|, 1e-6), everything else equal."""
@@ -138,6 +191,49 @@ def parity(got: dict, want: dict, rtol: float) -> bool:
                     return False
             elif a != b:
                 return False
+    return True
+
+
+def oracle_q3_groups(customer, orders, lineitem) -> dict:
+    """Q3's groups before its sort and limit, by pyarrow (the joins and the
+    aggregate of benchmarks/tpch.py's oracle_q3): o_orderkey -> (revenue,
+    o_orderdate, o_shippriority). o_orderkey determines the other two keys."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    cutoff = pa.scalar(datetime.date(1995, 3, 15))
+    c = customer.filter(pc.equal(customer["c_mktsegment"], "BUILDING"))
+    o = orders.filter(pc.less(orders["o_orderdate"], cutoff))
+    l = lineitem.filter(pc.greater(lineitem["l_shipdate"], cutoff))
+    j = c.join(o, keys="c_custkey", right_keys="o_custkey", join_type="inner")
+    j = j.join(l, keys="o_orderkey", right_keys="l_orderkey", join_type="inner")
+    j = j.append_column("revenue", pc.multiply(j["l_extendedprice"],
+                                               pc.subtract(pa.scalar(1.0), j["l_discount"])))
+    g = j.group_by(["o_orderkey", "o_orderdate", "o_shippriority"]).aggregate(
+        [("revenue", "sum")]).to_pydict()
+    return {k: (r, d, p) for k, r, d, p in zip(g["o_orderkey"], g["revenue_sum"],
+                                                g["o_orderdate"], g["o_shippriority"])}
+
+
+def q3_parity(got: dict, want: dict, groups: dict, rtol: float) -> bool:
+    """Q3's top 10 follows a float32 sum, so two groups whose float64
+    revenues differ by less than float32 rounding may trade places at the
+    limit. The port's 10 revenues must equal the oracle's 10 at ``rtol`` in
+    order, and each port row (o_orderkey, revenue, o_orderdate,
+    o_shippriority) must be a row of the oracle's result before the limit,
+    at the same tolerance."""
+    if set(got) != set(want) or len(got["revenue"]) != len(want["revenue"]):
+        return False
+    for a, b in zip(got["revenue"], want["revenue"]):
+        if abs(a - b) > max(rtol * abs(b), 1e-6):
+            return False
+    for k, r, d, p in zip(got["o_orderkey"], got["revenue"], got["o_orderdate"],
+                          got["o_shippriority"]):
+        if k not in groups:
+            return False
+        wr, wd, wp = groups[k]
+        if abs(r - wr) > max(rtol * abs(wr), 1e-6) or (d, p) != (wd, wp):
+            return False
     return True
 
 
@@ -275,13 +371,15 @@ def phase_build(ph: Phases) -> dict:
     """Start nvcc on K1 and every K2 program at once, wait for all, and
     print each build's time. Returns the edge-case programs."""
     from daft_tpu_torch.kernels import fused_expr_sums as fes
+    from daft_tpu_torch.kernels import scatter_sums as scs
     from daft_tpu_torch.kernels import segment_sums as ss
 
     edges = edge_programs()
     progs = enumerate_deep_programs()
     t0 = time.perf_counter()
     k1_job = ss.start_build()
-    jobs = {"K1 masked_segment_sums": k1_job}
+    sc_job = scs.start_build()
+    jobs = {"K1 masked_segment_sums": k1_job, "scatter segment_scatter_sums": sc_job}
     for i, prog in enumerate(progs):
         jobs[f"K2 program {i} (K={prog.k}, columns {','.join(prog.names)})"] = prog.start_build()
     done = {}
@@ -291,13 +389,15 @@ def phase_build(ph: Phases) -> dict:
                 done[name] = time.perf_counter() - t0
         time.sleep(0.05)
     ss.finish_build(k1_job)
+    scs.finish_build(sc_job)
     for prog in progs:
         prog.build()
     for name, secs in done.items():
         print(f"built {name} in {secs:.2f}s (all builds started together)", flush=True)
     ph.check(len(progs) >= len(DEEP_PLANS) + len(edges),
-             f"phase 1: {len(progs)} K2 programs and K1 built for sm_90a")
-    logs = [("K1", ss.BUILD_LOG)] + [(f"K2 program {i}", p.build_log) for i, p in enumerate(progs)]
+             f"phase 1: {len(progs)} K2 programs, K1 and the scatter kernel built for sm_90a")
+    logs = ([("K1", ss.BUILD_LOG), ("scatter", scs.BUILD_LOG)]
+            + [(f"K2 program {i}", p.build_log) for i, p in enumerate(progs)])
     for label, log in logs:
         for line in (log or "").splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
@@ -564,13 +664,184 @@ def phase_k2(ph: Phases, lineitem, edges: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 2: the scatter-sums kernel
+# ---------------------------------------------------------------------------
+
+# a large shape: the padded rows and groups stated for TPC-H Q3 at SF1 when
+# this kernel was planned (the main path's own SF1 shape is smaller; phase 3
+# captures it and checks the kernel there too)
+SCATTER_LARGE = (262_144, 148_152)
+
+
+def scatter_operands(b: int, g: int, seed: int, sort_codes: bool = False,
+                     masked: float = 0.2):
+    """Scatter-sum operands on the card: codes over g segments (random or
+    sorted), money-like values, a fraction of the rows masked to 0.0."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    codes = torch.randint(0, g, (b,), generator=gen, device="cuda", dtype=torch.int32)
+    if sort_codes:
+        codes = torch.sort(codes).values
+    vals = torch.rand(b, generator=gen, device="cuda") * 104100.0 + 900.0
+    keep = torch.rand(b, generator=gen, device="cuda") >= masked
+    return torch.where(keep, vals, 0.0), codes
+
+
+def library_scatter(values, codes, g: int):
+    """The library route: torch's index_add_ for the chunk partials (atomics
+    on the card) and device._kahan_combine (4 launches a chunk), the port's
+    route before the kernel. Timed here only."""
+    import torch
+
+    from daft_tpu_torch.kernels.device import _kahan_combine
+
+    b = values.shape[0]
+    chunk = min(8192, b)
+    nch = b // chunk
+    flat = torch.arange(nch, device=codes.device).repeat_interleave(chunk) * g + codes.long()
+    partials = torch.zeros(nch * g, dtype=torch.float32,
+                           device=values.device).index_add_(0, flat, values)
+    return _kahan_combine(partials.view(nch, g))
+
+
+def scatter_bound(vals, codes, g: int) -> dict:
+    """What the function must do: codes and values of the b rows read once
+    and G sums written once; one addition for each row that joins a chain
+    (nonzero value, code in range) and the 4 operations of each of the
+    nch x G Kahan steps. The partials are the two-pass design's own
+    traffic, not the function's."""
+    b = vals.shape[0]
+    nch = b // min(8192, b)
+    adds = int(((vals != 0) & (codes >= 0) & (codes < g)).sum())
+    return bound(b * 8 + g * 4, adds + 4 * nch * g)
+
+
+def scatter_device_ms(vals, codes, g: int, calls: int = 20) -> dict:
+    """Device time per call of the scatter kernel's two passes, from
+    torch.profiler over `calls` calls: the card's own time, apart from
+    the wrapper's host cost that CUDA events around the calls also see.
+    A session whose trace holds no time for either pass is made once more;
+    if the second sees none either, device_ms is None (not measured) and
+    the device events the trace did hold are listed."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from daft_tpu_torch.kernels import scatter_sums as scs
+
+    scs.scatter_sum_kahan(vals, codes, g)
+    torch.cuda.synchronize()
+    for _attempt in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                scs.scatter_sum_kahan(vals, codes, g)
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        out = {f"{name}_device_ms": sum(e.self_device_time_total for e in events
+                                        if f"scatter_{name}" in e.key) / 1e3 / calls
+               for name in ("pass1", "pass2")}
+        if out["pass1_device_ms"] > 0.0 and out["pass2_device_ms"] > 0.0:
+            out["device_ms"] = out["pass1_device_ms"] + out["pass2_device_ms"]
+            return out
+    out["device_ms"] = None
+    out["profiler_device_events"] = [[e.key[:60], e.count] for e in events]
+    return out
+
+
+def check_scatter(ph: Phases, name: str, vals, codes, g: int) -> float:
+    """The kernel against its plain version bit for bit, two launches bit for
+    bit, and float64 sums at rtol 1e-6 of the summed magnitudes. Returns
+    max |kernel - plain|."""
+    import torch
+
+    from daft_tpu_torch.kernels import scatter_sums as scs
+
+    a = scs.scatter_sum_kahan(vals, codes, g)
+    b = scs.scatter_sum_kahan(vals, codes, g)
+    torch.cuda.synchronize()
+    plain = scs.scatter_sum_kahan_plain(vals, codes, g)
+    idx = codes.long()
+    exact = torch.zeros(g, dtype=torch.float64, device=vals.device).index_add_(
+        0, idx, vals.double())
+    mags = torch.zeros_like(exact).index_add_(0, idx, vals.double().abs())
+    ph.check(same_bits(a, b), f"scatter {name}: two launches agree bit for bit")
+    ph.check(same_bits(a, plain), f"scatter {name}: equals its plain version bit for bit")
+    err = float((a - plain).abs().max())
+    ok = bool(((a.double() - exact).abs() <= RTOL * mags + 1e-30).all())
+    ph.check(ok and bool(torch.isfinite(a).all()),
+             f"scatter {name}: matches float64 at rtol {RTOL} (max |kernel-plain| {err:.6g})")
+    return err
+
+
+def time_scatter(vals, codes, g: int) -> dict:
+    """CUDA-event times of the kernel's wrapper, its plain version and the
+    library route at one shape, beside the bound and the profiler's device
+    time of the kernel's two passes; also whether two runs of the library
+    route gave the same bits."""
+    from daft_tpu_torch.kernels import scatter_sums as scs
+
+    b = vals.shape[0]
+    out = {"b": b, "G": g,
+           "ms": cuda_ms(lambda: scs.scatter_sum_kahan(vals, codes, g), iters=20),
+           "plain_ms": cuda_ms(lambda: scs.scatter_sum_kahan_plain(vals, codes, g),
+                               iters=2, warmup=1),
+           "library_ms": cuda_ms(lambda: library_scatter(vals, codes, g), iters=20),
+           "library_runs_same_bits": same_bits(library_scatter(vals, codes, g),
+                                               library_scatter(vals, codes, g))}
+    out.update(scatter_bound(vals, codes, g))
+    out["x_bound"] = out["ms"] / out["bound_ms"]
+    out.update(scatter_device_ms(vals, codes, g))
+    if out["device_ms"] is not None:
+        out["device_x_bound"] = out["device_ms"] / out["bound_ms"]
+    return out
+
+
+def phase_scatter(ph: Phases) -> dict:
+    """Phase 2, the scatter kernel: G = 4097 (just above K1's range), the
+    large shape with random and sorted codes, an all-masked input and the
+    smallest bucket; returns its kernel-table entry (the large shape's
+    numbers until phase 3 measures the main path's shape)."""
+    import torch
+
+    from daft_tpu_torch.kernels import scatter_sums as scs
+
+    entry = {"name": "segment_scatter_sums", "route": "cuda",
+             "source": "daft_tpu_torch/csrc/segment_scatter_sums.cu",
+             "replaces": "daft_tpu/kernels/device.py:2679"}
+    for sort_codes in (False, True):
+        vals, codes = scatter_operands(65_536, 4097, seed=1, sort_codes=sort_codes)
+        check_scatter(ph, f"b=65536 G=4097 {'sorted' if sort_codes else 'random'} codes",
+                      vals, codes, 4097)
+    b, g = SCATTER_LARGE
+    vals, codes = scatter_operands(b, g, seed=2)
+    entry["max_abs_err"] = check_scatter(ph, f"large b={b} G={g} random codes", vals, codes, g)
+    entry.update(time_scatter(vals, codes, g))
+    vals, codes = scatter_operands(b, g, seed=3, sort_codes=True)
+    check_scatter(ph, f"large b={b} G={g} sorted codes", vals, codes, g)
+    entry["sorted_codes_ms"] = cuda_ms(lambda: scs.scatter_sum_kahan(vals, codes, g), iters=20)
+    print("scatter timing " + json.dumps(entry), flush=True)
+    vals, codes = scatter_operands(8192, 5000, seed=4, masked=1.0)
+    out = scs.scatter_sum_kahan(vals, codes, 5000)
+    ph.check(bool((out.view(torch.int32) == 0).all()), "scatter all rows masked: every sum is +0.0")
+    vals, codes = scatter_operands(1024, 5000, seed=5)
+    check_scatter(ph, "smallest bucket b=1024 G=5000", vals, codes, 5000)
+    del vals, codes
+    torch.cuda.empty_cache()
+    return entry
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
 
+PORT_KERNEL_NAMES = ("ss_pass1", "ss_pass2", "scatter_pass1", "scatter_pass2")
+
+
 def profile_queries(queries: dict, frame, rows: int, card: str, reps: int = 5) -> None:
     """torch.profiler over `reps` warm runs of each query: wall and device-busy
-    time per query, the device's idle share, and the top kernels by device
-    time. Prints one JSON line per query."""
+    time per query, the device's idle share, the top kernels by device time
+    and the port's own kernels. Prints one JSON line per query."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -590,12 +861,17 @@ def profile_queries(queries: dict, frame, rows: int, card: str, reps: int = 5) -
                    if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
         busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+        # the port's own kernels (K1/K2 passes, the scatter passes), top 12 or not
+        ours = [e for e in kernels if any(n in e.key for n in PORT_KERNEL_NAMES)]
         print(f"profile {name} " + json.dumps({
             "rows": rows, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms,
             "device_events": sum(e.count for e in kernels) // reps, "card": card,
             "top": [[e.key[:80], e.count // reps, e.self_device_time_total / 1e3 / reps]
-                    for e in top]}), flush=True)
+                    for e in top],
+            "port_kernels": [[e.key[:80], e.count // reps,
+                              e.self_device_time_total / 1e3 / reps] for e in ours]}),
+              flush=True)
 
 
 def warm_median(query, frame, runs: int = 5) -> dict:
@@ -696,16 +972,176 @@ def phase_main_path(ph: Phases, scale: float, lineitem, card: str, profile: bool
     return out
 
 
+JOIN_QUERIES = {
+    "q3": (q3, ("customer", "orders", "lineitem"), 2),
+    "q5": (q5, ("customer", "orders", "lineitem", "nation"), 3),
+}
+
+
+def join_breakdown(run, reps: int = 3) -> dict:
+    """Wall milliseconds per warm query of each phase of a join query,
+    by wrapping the port's functions with timers that synchronise the card
+    before and after each call (so device time lands in its phase):
+    the key staging and probe launch, the probe's resolve (its sync and
+    fetch), the host assembly of the join's output, the host filters, the
+    plan segment (launch and fetch) and the sort."""
+    import torch
+
+    from daft_tpu_torch import execution, physical
+    from daft_tpu_torch.fuse import segment
+    from daft_tpu_torch.kernels import device_join
+
+    acc: dict = {}
+
+    def timed(fn, label, resolve_label=None):
+        """fn timed under label; with resolve_label, the resolver it returns
+        is timed under that label."""
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            acc[label] = acc.get(label, 0.0) + time.perf_counter() - t0
+            if resolve_label is not None and out is not None:
+                return timed(out, resolve_label)
+            return out
+        return call
+
+    patches = [(device_join, "device_join_launch", "probe launch (key staging)",
+                "probe resolve (sync, fetch)"),
+               (segment, "run_segment_async", "segment launch", "segment resolve"),
+               (execution.ExecutionContext, "_assemble_join", "join assembly (host)", None),
+               (execution.ExecutionContext, "eval_sort", "sort", None),
+               (physical.FilterOp, "map_partition", "filters (host)", None)]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _l, _r in patches]
+    try:
+        for obj, name, label, resolve_label in patches:
+            setattr(obj, name, timed(getattr(obj, name), label, resolve_label))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+    out = {k: v * 1e3 / reps for k, v in acc.items()}
+    out["wall_ms"] = wall * 1e3 / reps
+    out["other_ms"] = out["wall_ms"] - sum(v for k, v in out.items() if k != "wall_ms")
+    return out
+
+
+def phase_joins(ph: Phases, scale: float, card: str, profile: bool) -> dict:
+    """Phase 3, the join path at one scale factor: TPC-H Q3 and Q5 over one
+    set of tables (generate_tables(scale, seed=42)), each driven once cold
+    with every kernel's launch count set to 0 just before and read just
+    after, checked against the pyarrow oracle, then timed warm. The
+    operands the engine hands the scatter kernel in Q3 and K1 in Q5 are
+    kept from the cold run; each kernel is then held against its plain
+    version bit for bit at those operands, and the scatter kernel is timed
+    there."""
+    import torch
+
+    import daft_tpu_torch as dtt
+    from benchmarks import tpch
+    from daft_tpu_torch.kernels import fused_expr_sums as fes
+    from daft_tpu_torch.kernels import scatter_sums as scs
+    from daft_tpu_torch.kernels import segment_sums as ss
+
+    t0 = time.perf_counter()
+    tables = tpch.generate_tables(scale=scale, seed=42)
+    print(f"SF{scale:g}: tables generated in {time.perf_counter() - t0:.1f}s ("
+          + ", ".join(f"{k} {v.num_rows}" for k, v in tables.items()) + ")", flush=True)
+    frames = {k: dtt.from_arrow(v).collect() for k, v in tables.items()}
+    want = {"q3": tpch.oracle_q3(*[tables[a] for a in JOIN_QUERIES["q3"][1]]),
+            "q5": tpch.oracle_q5(*[tables[a] for a in JOIN_QUERIES["q5"][1]])}
+    groups3 = oracle_q3_groups(*[tables[a] for a in JOIN_QUERIES["q3"][1]])
+    out = {}
+    # (module, wrapper) whose calls each query's cold run records
+    capture = {"q3": (scs, "scatter_sum_kahan"), "q5": (ss, "masked_segment_sums_padded")}
+    captured = {"q3": [], "q5": []}
+    for name, (query, args, probes) in JOIN_QUERIES.items():
+        def plan(_frame=None, query=query, args=args):
+            return query(*[frames[a] for a in args])
+
+        def run(plan=plan):
+            return plan().collect()
+
+        dtt.set_execution_config(dtt.ExecutionConfig())
+        module, attr = capture[name]
+        real = getattr(module, attr)
+
+        def record(*operands, real=real, seen=captured[name]):
+            seen.append(operands)
+            return real(*operands)
+
+        setattr(module, attr, record)
+        ss.LAUNCHES = fes.LAUNCHES = scs.LAUNCHES = 0
+        try:
+            t0 = time.perf_counter()
+            df = run()
+            got = df.to_pydict()
+            cold = time.perf_counter() - t0
+        finally:
+            setattr(module, attr, real)
+        launches = {"k1": ss.LAUNCHES, "k2": fes.LAUNCHES, "scatter": scs.LAUNCHES}
+        c = df.stats.snapshot()["counters"]
+        label = f"SF{scale:g} {name}"
+        ok = (q3_parity(got, want[name], groups3, RTOL) if name == "q3"
+              else parity(got, want[name], RTOL))
+        ph.check(ok, f"{label}: matches the pyarrow oracle at rtol {RTOL}")
+        on_card = (c.get("device_join_probes") == probes
+                   and c.get("device_resident_segments") == 1
+                   and c.get("device_agg_fallbacks", 0) == 0
+                   and (c.get("device_sorts", 0) >= 1 and launches["scatter"] >= 1
+                        if name == "q3" else launches["k1"] >= 1))
+        ph.check(on_card, f"{label}: joins probed on the card ({probes}), the aggregate "
+                          f"resident, through its kernel (launches {launches}, counters {c})")
+        res = {"cold_s": cold, "launches": launches,
+               "group_codes": "device" if c.get("device_group_codes") else "host",
+               "counters": {k: c.get(k, 0) for k in (
+                   "device_join_probes", "broadcast_joins", "host_joins", "device_sorts",
+                   "host_sorts", "device_group_codes", "device_resident_segments",
+                   "device_agg_fallbacks")},
+               "rows": {k: tables[k].num_rows for k in args}, "card": card}
+        res.update(warm_median(plan, None))
+        if profile:
+            res["breakdown_ms"] = join_breakdown(run)
+            profile_queries({f"{name}_warm": plan}, None, tables["lineitem"].num_rows, card)
+        out[name] = res
+        print(f"SF{scale:g} {name} " + json.dumps(res), flush=True)
+        del df
+    ph.check(len(captured["q3"]) == 1 and len(captured["q5"]) == 1,
+             f"SF{scale:g}: Q3 called the scatter kernel's wrapper once "
+             f"({len(captured['q3'])}), Q5 K1's once ({len(captured['q5'])})")
+    for vals, codes, g in captured["q3"]:
+        name = f"main path SF{scale:g} Q3 b={vals.shape[0]} G={g}"
+        err = check_scatter(ph, name, vals, codes, g)
+        out["scatter_main"] = {"max_abs_err": err, **time_scatter(vals, codes, g)}
+        print(f"scatter timing main path SF{scale:g} " + json.dumps(out["scatter_main"]),
+              flush=True)
+    for codes, mask, vals, g in captured["q5"]:
+        name = f"main path SF{scale:g} Q5 n={codes.shape[0]} G={g} K={vals.shape[1]}"
+        out["k1_q5"] = {"n": codes.shape[0], "G": g, "K": vals.shape[1],
+                        "max_abs_err": check_k1(ph, name, codes, mask, vals, g)}
+    del frames, tables, captured
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scales", default="1,10",
                     help="comma-separated TPC-H scale factors for the main path")
     ap.add_argument("--profile", action="store_true",
-                    help="trace warm Q1/Q6 and deep Q1 at the first scale with torch.profiler")
+                    help="trace warm Q1/Q6, deep Q1, Q3 and Q5 at the first scale with "
+                         "torch.profiler, and time the phases of Q3 and Q5")
     ap.add_argument("--kernels-only", action="store_true",
                     help="run phases 1 and 2 only (builds and kernel checks); launches print "
                          "as null")
     args = ap.parse_args(argv)
+    started = time.perf_counter()
 
     import torch
 
@@ -722,6 +1158,7 @@ def main(argv=None) -> int:
         print(f"card: {card}; torch {torch.__version__} CUDA {torch.version.cuda}", flush=True)
         edges = phase_build(ph)
         k1_entry = phase_k1(ph)
+        sc_entry = phase_scatter(ph)
         scales = [] if args.kernels_only else [float(s) for s in args.scales.split(",")]
         tables = {}
         t0 = time.perf_counter()
@@ -729,7 +1166,8 @@ def main(argv=None) -> int:
         print(f"SF1: {tables[1.0].num_rows} rows generated in {time.perf_counter() - t0:.1f}s",
               flush=True)
         k2_entry = phase_k2(ph, tables[1.0], edges)
-        k1_entry["launches"] = k2_entry["launches"] = None  # until phase 3 counts them
+        # until phase 3 counts them
+        k1_entry["launches"] = k2_entry["launches"] = sc_entry["launches"] = None
         for i, scale in enumerate(scales):
             if scale not in tables:
                 t0 = time.perf_counter()
@@ -737,10 +1175,21 @@ def main(argv=None) -> int:
                 print(f"SF{scale:g}: {tables[scale].num_rows} rows generated in "
                       f"{time.perf_counter() - t0:.1f}s", flush=True)
             res = phase_main_path(ph, scale, tables[scale], card, args.profile and i == 0)
+            tables = {}  # the join tables of this scale take the memory next
+            joins = phase_joins(ph, scale, card, args.profile and i == 0)
             if i == 0:
-                k1_entry["launches"] = res["k1_launches"]
+                k1_entry["launches"] = res["k1_launches"] + joins["q5"]["launches"]["k1"]
                 k2_entry["launches"] = res["k2_launches"]
-        print(json.dumps({"kernels": [k1_entry, k2_entry]}), flush=True)
+                sc_entry["launches"] = joins["q3"]["launches"]["scatter"]
+                keep = ("name", "route", "source", "replaces", "launches")
+                sc_entry["large_shape"] = {k: sc_entry.pop(k) for k in list(sc_entry)
+                                           if k not in keep}
+                sc_entry.update(joins["scatter_main"])
+            else:  # the main path's shape at the later scales, checked and timed
+                sc_entry[f"sf{scale:g}_shape"] = joins["scatter_main"]
+        print(json.dumps({"kernels": [k1_entry, k2_entry, sc_entry]}), flush=True)
+        print(f"chip_smoke: {len(scales)} scale(s) in {time.perf_counter() - started:.1f}s",
+              flush=True)
     except Exception:
         traceback.print_exc()
         ph.failures.append("uncaught exception")

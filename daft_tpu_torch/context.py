@@ -6,9 +6,9 @@ is on and ``device`` is ``"cuda"``. A caller that wants the CPU says so with
 ``device="cpu"`` (the tests do); asking for ``cuda`` where there is none
 raises instead of running on the CPU.
 
-Left out of this slice: the planning config (beyond expression fusion and
-device residency), the scan/shuffle/spill/serving knobs and runner selection
-(the port has one runner, NativeRunner).
+Left out of this slice: the planning config (beyond expression fusion,
+device residency and the broadcast-join threshold), the scan/shuffle/spill/
+serving knobs and runner selection (the port has one runner, NativeRunner).
 """
 
 from __future__ import annotations
@@ -46,6 +46,9 @@ class ExecutionConfig:
     # compile project -> filter -> agg segments into device-resident
     # DeviceSegmentOps (fuse/segment.py); needs use_device_kernels
     device_residency: bool = True
+    # a join side whose estimated size is at most this many bytes is
+    # broadcast (BroadcastJoinOp) instead of hash-joined
+    broadcast_join_size_bytes_threshold: int = 10 * 1024 * 1024
 
     def __post_init__(self):
         if self.device_x64:
@@ -61,6 +64,7 @@ _FROM_REFERENCE = {
     "use_pallas_deep_fusion": "use_deep_fusion_kernel",
     "expr_fusion": "expr_fusion",
     "device_residency": "device_residency",
+    "broadcast_join_size_bytes_threshold": "broadcast_join_size_bytes_threshold",
     "jax_enable_x64": "device_x64",
 }
 

@@ -2,10 +2,10 @@
 of the part of daft_tpu/dataframe.py this slice runs).
 
 Covers where/filter, select, with_column(s), groupby(...).agg, agg, sort,
-collect, to_pydict, to_arrow, explain and the per-query ``stats``. Left out
-of this slice: joins, limit, distinct, sample, repartition,
-explode/unpivot/pivot, writers, profiling, the result cache and the
-integrations.
+join, limit/head, collect, to_pydict, to_arrow, explain and the per-query
+``stats``. Left out of this slice: cross joins, distinct, sample,
+repartition, concat, explode/unpivot/pivot, writers, profiling, the result
+cache and the integrations.
 """
 
 from __future__ import annotations
@@ -15,7 +15,8 @@ from typing import Any, Dict, List, Optional, Union
 from .context import get_context
 from .execution import RuntimeStats
 from .expressions import Expression, col
-from .logical import Aggregate, Filter, InMemorySource, LogicalPlan, Project, Sort
+from .logical import (Aggregate, Filter, InMemorySource, Join, Limit, LogicalPlan, Project,
+                      Sort)
 from .micropartition import MicroPartition
 from .runners import PartitionSet
 from .schema import Schema
@@ -98,6 +99,27 @@ class DataFrame:
         desc = _norm_bools(desc, len(by))
         nf = _norm_bools(nulls_first, len(by), None)
         return DataFrame(Sort(self._plan, by, desc, nf))
+
+    def limit(self, num: int) -> "DataFrame":
+        if num < 0:
+            raise ValueError(f"limit must be non-negative, got {num}")
+        return DataFrame(Limit(self._plan, num))
+
+    head = limit
+
+    def join(self, other: "DataFrame", on=None, left_on=None, right_on=None,
+             how: str = "inner", strategy: Optional[str] = None,
+             suffix: str = "right.") -> "DataFrame":
+        """Equi-join with ``other`` on ``on`` (both sides) or on
+        ``left_on``/``right_on``. Output row order is unspecified, as in the
+        reference: sort after the join where order matters."""
+        if on is not None:
+            left_on = right_on = on
+        if how != "cross" and (left_on is None or right_on is None):
+            raise ValueError("join requires on= or left_on=/right_on=")
+        lo = _to_exprs(left_on) if left_on is not None else []
+        ro = _to_exprs(right_on) if right_on is not None else []
+        return DataFrame(Join(self._plan, other._plan, lo, ro, how, strategy, suffix))
 
     def agg(self, *to_agg) -> "DataFrame":
         return DataFrame(Aggregate(self._plan, _normalize_aggs(to_agg), []))

@@ -8,13 +8,19 @@ a partition below ``device_min_rows`` and the int32 overflow guard of
 ``device_agg._finish_agg``, each counted as ``device_agg_fallbacks``; for a
 fused map chain, a device program that declines the partition
 (``device_fused_map_fallbacks``); for a plan segment, a resident attempt
-that declines (``segment_fallbacks``, then the staged ops).
+that declines (``segment_fallbacks``, then the staged ops); for a join, an
+ineligible pair (a join type other than inner/left/semi/anti, both sides
+below ``device_min_rows``, a key that is not an integer or date expression,
+an overflowing composite key space), counted as ``host_joins``; for a sort,
+a partition below ``device_min_rows`` or an ineligible key, counted as
+``host_sorts``.
 
 Left out of this slice: the DeviceHealth breaker and fault injection (and
 with them the reference's catch of a failure in the fused-map and segment
-resolvers), the profiler, spill, deadlines and cancellation, the worker
-pool, streaming, the device projection/filter/sort/distinct/join hooks of
-single ops and resource accounting.
+resolvers and in the join probe, which sends a failed probe to the host
+join), the profiler, spill, deadlines and cancellation, the worker pool,
+streaming, the mesh hook ``prepare_broadcast``, the device
+projection/filter/distinct hooks of single ops and resource accounting.
 """
 
 from __future__ import annotations
@@ -71,9 +77,97 @@ class ExecutionContext:
 
     def eval_sort(self, part: MicroPartition, sort_by, descending=None,
                   nulls_first=None) -> MicroPartition:
-        # the device argsort is not ported yet: sorts run on the host
+        """A partition's sort through the device argsort when eligible (the
+        keys compile and sort on the card, the payload take runs on the
+        host), the host pyarrow sort otherwise."""
+        if self._device_eligible(part):
+            import numpy as np
+
+            from .kernels.device import device_table_argsort, resolve_device
+            from .series import Series
+
+            idx = device_table_argsort(part.table(), sort_by, descending, nulls_first,
+                                       stage_cache=part.device_stage_cache(),
+                                       device=resolve_device(self.cfg))
+            if idx is not None:
+                self.stats.bump("device_sorts")
+                return MicroPartition.from_table(
+                    part.table().take(Series.from_numpy(idx.astype(np.uint64), "indices")))
         self.stats.bump("host_sorts")
         return part.sort(sort_by, descending, nulls_first)
+
+    # ------------------------------------------------------------------ joins
+    def _join_eligible(self, lpart, rpart, left_on, right_on, how) -> bool:
+        return (self.cfg.use_device_kernels
+                and how in ("inner", "left", "semi", "anti")
+                and 1 <= len(left_on) == len(right_on) <= 4
+                and max(len(lpart), len(rpart)) >= self.cfg.device_min_rows)
+
+    def _assemble_join(self, res, lpart, rpart, left_on, right_on, how,
+                       suffix) -> MicroPartition:
+        """(side, hit, bidx) probe result -> the output partition."""
+        import numpy as np
+
+        from .series import Series
+
+        side, hit, bidx = res
+        ltbl, rtbl = lpart.table(), rpart.table()
+        if side == "expanded":
+            # N:M range join: (lidx, ridx) pairs expanded on the host
+            out = ltbl.join_from_indices(rtbl, hit, bidx, left_on, right_on, suffix)
+        elif side == "right_build":
+            if how == "semi":
+                out = ltbl.filter_with_mask(Series.from_numpy(hit, "m"))
+            elif how == "anti":
+                out = ltbl.filter_with_mask(Series.from_numpy(~hit, "m"))
+            elif how == "inner":
+                lidx = np.nonzero(hit)[0]
+                out = ltbl.join_from_indices(rtbl, lidx, bidx[hit], left_on, right_on, suffix)
+            else:  # left outer: every left row, -1 -> null right
+                ridx = np.where(hit, bidx, -1)
+                out = ltbl.join_from_indices(rtbl, np.arange(len(ltbl), dtype=np.int64), ridx,
+                                             left_on, right_on, suffix)
+        else:  # left_build (inner only): re-sort to the host's (lidx, ridx) order
+            ridx = np.nonzero(hit)[0]
+            lidx = bidx[hit]
+            order = np.argsort(lidx, kind="stable")
+            out = ltbl.join_from_indices(rtbl, lidx[order], ridx[order], left_on, right_on,
+                                         suffix)
+        return MicroPartition.from_table(out)
+
+    def eval_join_dispatch(self, lpart: MicroPartition, rpart: MicroPartition,
+                           left_on, right_on, how: str, suffix: str):
+        """Stage both sides' keys and launch the device probe now; return a
+        zero-arg resolver that fetches the probe and assembles the output,
+        or None when the pair is not device-eligible (the caller joins on
+        the host). A failure on the card propagates: the reference's catch,
+        which sends a failed probe to the host join, comes with the
+        DeviceHealth breaker, which is not ported yet."""
+        if not self._join_eligible(lpart, rpart, left_on, right_on, how):
+            return None
+        from .kernels.device import resolve_device
+        from .kernels.device_join import device_join_launch
+
+        launch = device_join_launch(lpart.table(), rpart.table(), list(left_on),
+                                    list(right_on), lpart.device_stage_cache(),
+                                    rpart.device_stage_cache(), how,
+                                    device=resolve_device(self.cfg))
+        if launch is None:
+            return None
+        self.stats.bump("device_join_dispatches")
+
+        def finish() -> MicroPartition:
+            out = self._assemble_join(launch(), lpart, rpart, left_on, right_on, how, suffix)
+            self.stats.bump("device_join_probes")
+            return out
+
+        return finish
+
+    def eval_join_declined(self, lpart, rpart, left_on, right_on, how,
+                           suffix) -> MicroPartition:
+        """The host join of a pair the dispatch found device-ineligible."""
+        self.stats.bump("host_joins")
+        return lpart.hash_join(rpart, left_on, right_on, how, suffix)
 
     # ------------------------------------------------------------ aggregation
     def _eval_agg_host(self, part: MicroPartition, aggregations, groupby,

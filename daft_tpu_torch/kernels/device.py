@@ -10,6 +10,8 @@ daft_tpu/kernels/device.py this slice runs).
 - An expression tree compiles to one Python closure over
   ``{name: (values, valid)}`` that issues eager torch ops.
 - Aggregations are masked segment reductions over dense group codes.
+- Sorts are a stable multi-key argsort over order-preserving int64 lanes
+  (``device_table_argsort``, the reference's K5).
 
 This slice ports the 32-bit device mode (``ExecutionConfig.device_x64`` is
 False), the one daft_tpu runs on a TPU: int64 columns narrow to int32 when
@@ -18,15 +20,15 @@ than dates stay on the host. JAX narrows quietly when x64 is off; torch does
 not, so every narrowing below is an explicit cast.
 
 Left out of this slice: the string comparison, LUT, joint-dictionary and
-transform lanes, the epoch-lane comparisons, the device filter, the
-device argsort and hashing, fixed-shape tensor columns, and unsigned
-integers (torch's uint16/32/64 support is partial, so those columns decline
-to the host path).
+transform lanes, the epoch lanes (comparisons and sort keys), the device
+filter and hashing, fixed-shape tensor columns, and unsigned integers
+(torch's uint16/32/64 support is partial, so those columns decline to the
+host path).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import pyarrow as pa
@@ -746,7 +748,9 @@ def eval_projection_device_async(table, exprs, stage_cache: Optional[dict] = Non
 # ---------------------------------------------------------------------------
 
 # Up to this many segments the chunked one-hot compare-reduce applies;
-# beyond it, scatter (index_add_ / scatter_reduce_).
+# beyond it, scatter: the deterministic scatter-sums kernel for float sums
+# (scatter_sums.py), index_add_ for counts and integer sums (exact in any
+# order) and scatter_reduce_ for min/max.
 _ONEHOT_MAX_SEGMENTS = 4096
 _REDUCE_CHUNK = 8192
 
@@ -842,12 +846,161 @@ def _segment_agg(values, valid, codes, num_segments: int, kind: str):
 
 
 def _scatter_sum_kahan(values, codes, num_segments: int):
-    """Per-chunk scatter sums combined with compensation across chunks."""
-    b = values.shape[0]
-    chunk = min(_REDUCE_CHUNK, b)
-    nch = b // chunk
-    flat = (torch.arange(nch, device=codes.device).repeat_interleave(chunk) * num_segments
-            + codes.long())
-    partials = torch.zeros(nch * num_segments, dtype=values.dtype,
-                           device=values.device).index_add_(0, flat, values)
-    return _kahan_combine(partials.view(nch, num_segments))
+    """Per-chunk scatter sums combined with compensation across chunks, in a
+    fixed order: the hand-written kernel of scatter_sums.py on the card (no
+    float atomics, so every run gives the same bits), its plain version on
+    the CPU. A build or launch failure raises."""
+    from .scatter_sums import scatter_sum_kahan
+
+    return scatter_sum_kahan(values, codes, num_segments)
+
+
+# ---------------------------------------------------------------------------
+# Device sort (K5): a stable argsort over order-preserving int64 lanes
+# ---------------------------------------------------------------------------
+
+_U32 = (1 << 32) - 1
+
+
+def _sortable_bits(values, valid, descending: bool, nulls_first: bool):
+    """(values, valid) of a 32-bit key -> one int64 lane whose order is the
+    requested total order. It holds the reference's uint32 lanes (torch on
+    the CPU has no uint32 shifts, compares or ``~``, so the lane is int64):
+    the null selector (0 null-first, 1 value, 2 null-last) in bits 32-33
+    above the value's order bits.
+    Floats: NaN canonicalizes to the positive quiet NaN, whose bits sort
+    above +inf, and -0.0 ties +0.0, as arrow orders them."""
+    v = values
+    if v.dtype == torch.bool:
+        bits = v.to(torch.int64)
+    elif v.is_floating_point():
+        f = v.to(torch.float32)
+        f = torch.where(torch.isnan(f), torch.full_like(f, float("nan")), f)
+        f = torch.where(f == 0.0, torch.zeros_like(f), f)
+        b = f.view(torch.int32)
+        # sign-magnitude to unsigned order: negative -> ~b, positive -> b ^ 2^31
+        bits = torch.where(b < 0, (~b).to(torch.int64), b.to(torch.int64) + (1 << 31))
+    else:
+        bits = v.to(torch.int64) + (1 << 31)  # int32 bits ^ 2^31, as unsigned
+    if descending:
+        bits = _U32 - bits
+    sel = torch.where(valid, 1, 0 if nulls_first else 2).to(torch.int64)
+    return (sel << 32) | torch.where(valid, bits, 0)
+
+
+def _stage_f64_sort_lanes(table, node, bucket: int, stage_cache: Optional[dict], device):
+    """EXACT float64 sort key in the 32-bit mode: the order-preserving bit
+    transform of the full 64-bit pattern, on the host (canonical NaN above
+    +inf, -0.0 as +0.0), split into (hi, lo) 32-bit halves as int64 tensors,
+    plus the validity lane. ``node`` may be any float64 expression: the host
+    evaluates it once in exact float64. Cached with the partition under the
+    expression's key."""
+    from ..expressions import Alias, Column
+
+    while isinstance(node, Alias):
+        node = node.child
+    key = ("__f64lanes__", node._key(), bucket, str(device))
+    cached = stage_cache.get(key) if stage_cache is not None else None
+    if cached is not None:
+        return cached
+    if isinstance(node, Column):
+        s = table.get_column(node.cname)
+    else:
+        from ..table import _broadcast_series
+
+        s = _broadcast_series(node.evaluate(table), len(table))
+    if s.is_python():
+        return None
+    n = len(s)
+    arr = s.to_arrow()
+    if isinstance(arr, pa.ChunkedArray):
+        arr = arr.combine_chunks()
+    vals = np.asarray(pc.fill_null(arr, 0.0), dtype=np.float64)
+    vals = np.where(np.isnan(vals), np.float64("nan"), vals)
+    vals = np.where(vals == 0.0, np.float64(0.0), vals)
+    bits = vals.view(np.uint64)
+    flipped = np.where((bits >> np.uint64(63)) == 1, ~bits, bits ^ np.uint64(1 << 63))
+    if bucket > n:
+        flipped = np.concatenate([flipped, np.zeros(bucket - n, dtype=np.uint64)])
+    hi = (flipped >> np.uint64(32)).astype(np.int64)
+    lo = (flipped & np.uint64(_U32)).astype(np.int64)
+    out = (torch.from_numpy(hi).to(device), torch.from_numpy(lo).to(device),
+           torch.from_numpy(_staged_validity(arr, n, bucket)).to(device))
+    if stage_cache is not None:
+        stage_cache[key] = out
+    return out
+
+
+def device_table_argsort(table, sort_keys, descending=None, nulls_first=None,
+                         stage_cache: Optional[dict] = None, device="cuda"):
+    """Argsort indices of a Table computed on the card: the keys stage and
+    compile like a projection, then one stable multi-key argsort over their
+    lanes. Orders exactly as ``Table.argsort`` does, including the default
+    that nulls follow the direction. float64 keys sort on exact 64-bit lanes
+    made on the host (float32 would tie values the host orders). Returns
+    np.ndarray[int64], or None when a key is ineligible (epoch-typed keys and
+    anything the expression compiler declines); the caller then sorts on
+    the host."""
+    from ..datatypes import DataType
+    from ..expressions import normalize_literals
+    from ..table import _norm_flag
+
+    n = len(table)
+    if n == 0:
+        return None
+    device = torch.device(device)
+    keys = list(sort_keys)
+    k = len(keys)
+    desc = _norm_flag(descending, k, False)
+    nf = _norm_flag(nulls_first, k, None)
+    try:
+        pre = [normalize_literals(e._node, table.schema) for e in keys]
+        f64 = {i for i, nd in enumerate(pre)
+               if nd.to_field(table.schema).dtype == DataType.float64()}
+    except (ValueError, KeyError):
+        return None
+    b = size_bucket(n)
+    entries: List = [None] * k
+    # lane keys stage first: cheap host work that can decline
+    for i in f64:
+        entries[i] = _stage_f64_sort_lanes(table, pre[i], b, stage_cache, device)
+        if entries[i] is None:
+            return None
+    rest = [i for i in range(k) if i not in f64]
+    if rest:
+        staged = _stage_and_run(table, [keys[i] for i in rest], stage_cache, device)
+        if staged is None:
+            return None
+        for i, vm in zip(rest, staged[0]):
+            entries[i] = vm
+    nf_resolved = [f if f is not None else d for f, d in zip(nf, desc)]
+    return device_argsort(entries, desc, nf_resolved, n)[:n].cpu().numpy().astype(np.int64)
+
+
+def device_argsort(key_cols: Sequence[Tuple], descending: Sequence[bool],
+                   nulls_first: Sequence[bool], length: int):
+    """Stable multi-key argsort on the card; padding rows (at and past
+    ``length``) sort last. Each key is (values, valid), turned into lanes by
+    ``_sortable_bits``, or an exact (hi, lo, valid) lane triple of a 64-bit
+    key. torch sorts one key at a time, so the lanes sort by chained stable
+    argsorts, least significant lane first; the padding selector rides in
+    bit 34 of the first lane."""
+    b = key_cols[0][0].shape[0]
+    dev = key_cols[0][0].device
+    lanes: List = []
+    for entry, d, nf in zip(key_cols, descending, nulls_first):
+        if len(entry) == 3:
+            hi, lo, m = entry
+            if d:  # the bitwise not of the 64-bit pattern, half by half
+                hi, lo = _U32 - hi, _U32 - lo
+            sel = torch.where(m, 1, 0 if nf else 2).to(torch.int64)
+            lanes += [(sel << 32) | torch.where(m, hi, 0), torch.where(m, lo, 0)]
+        else:
+            lanes.append(_sortable_bits(entry[0], entry[1], d, nf))
+    inbounds = torch.arange(b, device=dev) < length
+    lanes = [torch.where(inbounds, lane, 0) for lane in lanes]
+    lanes[0] = lanes[0] | torch.where(inbounds, 0, 1 << 34)
+    perm = torch.arange(b, device=dev)
+    for lane in reversed(lanes):
+        perm = perm[torch.argsort(lane[perm], stable=True)]
+    return perm

@@ -354,7 +354,8 @@ def _compile_agg(child_nodes, pred_node, schema, input_names, kinds, modes, gb,
 
     from . import fused_expr_sums as fes
     from .device import _compile_node, compile_validity
-    from .segment_sums import BLOCK_ROWS, masked_segment_sums_padded
+    from . import segment_sums
+    from .segment_sums import BLOCK_ROWS
 
     child_fns = [_compile_node(nd, schema)[0] for nd in child_nodes]
     valid_fns = [compile_validity(nd, schema) for nd in child_nodes]
@@ -436,8 +437,8 @@ def _compile_agg(child_nodes, pred_node, schema, input_names, kinds, modes, gb,
                 outs[slot] = (sums[:, j], cnt > 0, cnt, torch.zeros((), device=codes.device))
         if fused_sums:
             vk = torch.stack([c for _, c, _ in fused_sums], dim=1)
-            sums = masked_segment_sums_padded(codes[:, None], sel.to(torch.float32)[:, None],
-                                              vk, gb)
+            sums = segment_sums.masked_segment_sums_padded(
+                codes[:, None], sel.to(torch.float32)[:, None], vk, gb)
             for j, (slot, _col, cnt) in enumerate(fused_sums):
                 outs[slot] = (sums[:, j], cnt > 0, cnt, torch.zeros((), device=codes.device))
         if pred_run is not None:

@@ -2,16 +2,18 @@
 of daft_tpu/logical.py). Every node resolves and validates its output schema
 at construction time, so API misuse fails at build time, not at collect time.
 
-This slice carries InMemorySource, Project, Filter, Sort and Aggregate.
-Left out until a later slice: scans, limit, repartition, distinct, sample,
-joins, concat, explode/unpivot/pivot, monotonic ids and writes, and the
-expression-analysis helpers the optimizer uses.
+This slice carries InMemorySource, Project, Filter, Limit, Sort, Aggregate
+and Join (with the size estimate the join planner reads). Left out until a
+later slice: scans, repartition, distinct, sample, concat,
+explode/unpivot/pivot, monotonic ids and writes, the row-count estimates and
+the expression-analysis helpers the optimizer uses.
 """
 
 from __future__ import annotations
 
 from typing import Any, List, Optional
 
+from .datatypes import try_unify
 from .expressions import Expression
 from .schema import Field, Schema
 
@@ -32,6 +34,14 @@ class LogicalPlan:
 
     def multiline_display(self) -> List[str]:
         return [self.name()]
+
+    def approx_size_bytes(self) -> Optional[int]:
+        """Estimated output bytes (what the join planner compares against
+        the broadcast threshold), or None when unknown."""
+        ch = self.children()
+        if len(ch) == 1:
+            return ch[0].approx_size_bytes()
+        return None
 
     def display_tree(self, indent: str = "") -> str:
         lines = self.multiline_display()
@@ -57,6 +67,9 @@ class InMemorySource(LogicalPlan):
     def with_children(self, children):
         assert not children
         return self
+
+    def approx_size_bytes(self):
+        return sum(p.size_bytes() for p in self.partitions)
 
     def multiline_display(self):
         return [f"InMemorySource: {len(self.partitions)} partitions",
@@ -109,6 +122,19 @@ class Filter(UnaryNode):
         return [f"Filter: {self.predicate._node.display()}"]
 
 
+class Limit(UnaryNode):
+    def __init__(self, input: LogicalPlan, limit: int):
+        super().__init__(input)
+        self.limit = int(limit)
+        self.schema = input.schema
+
+    def with_children(self, c):
+        return Limit(c[0], self.limit)
+
+    def multiline_display(self):
+        return [f"Limit: {self.limit}"]
+
+
 class Sort(UnaryNode):
     def __init__(self, input: LogicalPlan, sort_by: List[Expression],
                  descending: List[bool], nulls_first: List[Optional[bool]]):
@@ -158,3 +184,72 @@ class Aggregate(UnaryNode):
             lines.append("Group by = " + ", ".join(e._node.display() for e in self.groupby))
         return lines
 
+
+
+def join_output_schema(left: Schema, right: Schema, left_on: List[Expression],
+                       right_on: List[Expression], how: str, suffix: str = "right.") -> Schema:
+    """Schema of a join output; must stay in lockstep with Table.hash_join."""
+    if how in ("semi", "anti"):
+        return left
+    lk_names = [e.name() for e in left_on]
+    rk_names = [e.name() for e in right_on]
+    fields: List[Field] = []
+    left_names = set(left.field_names())
+    for i, ln in enumerate(lk_names):
+        lf = left_on[i]._node.to_field(left)
+        rf = right_on[i]._node.to_field(right)
+        u = try_unify(lf.dtype, rf.dtype)
+        if u is None:
+            raise ValueError(f"cannot join on {lf.dtype} vs {rf.dtype}")
+        fields.append(Field(ln, u))
+    for f in left:
+        if f.name not in lk_names:
+            fields.append(f)
+    for f in right:
+        if f.name in rk_names:
+            continue
+        name = f.name if f.name not in left_names else f"{suffix}{f.name}"
+        fields.append(Field(name, f.dtype))
+    return Schema(fields)
+
+
+class Join(LogicalPlan):
+    """An equi-join of two plans. Hows inner, left, right, outer, semi and
+    anti; strategies None (the planner chooses), "hash" and "broadcast".
+    Cross joins and the "sort_merge" strategy are not ported yet."""
+
+    def __init__(self, left: LogicalPlan, right: LogicalPlan,
+                 left_on: List[Expression], right_on: List[Expression],
+                 how: str = "inner", strategy: Optional[str] = None,
+                 suffix: str = "right."):
+        if how not in ("inner", "left", "right", "outer", "semi", "anti", "cross"):
+            raise ValueError(f"unknown join type {how!r}")
+        if strategy not in (None, "hash", "sort_merge", "broadcast"):
+            raise ValueError(f"unknown join strategy {strategy!r}")
+        if how == "cross" or strategy == "sort_merge":
+            raise NotImplementedError(
+                "cross joins and the sort_merge strategy come with a later slice of the "
+                "port (CrossJoinOp, SortMergeJoinOp)")
+        if not left_on or len(left_on) != len(right_on):
+            raise ValueError("join requires equal-length left_on/right_on")
+        self.left = left
+        self.right = right
+        self.left_on = left_on
+        self.right_on = right_on
+        self.how = how
+        self.strategy = strategy
+        self.suffix = suffix
+        self.schema = join_output_schema(left.schema, right.schema, left_on, right_on, how,
+                                         suffix)
+
+    def children(self):
+        return [self.left, self.right]
+
+    def with_children(self, c):
+        return Join(c[0], c[1], self.left_on, self.right_on, self.how, self.strategy,
+                    self.suffix)
+
+    def multiline_display(self):
+        on = ", ".join(f"{l._node.display()}={r._node.display()}"
+                       for l, r in zip(self.left_on, self.right_on))
+        return [f"Join: {self.how} on {on}" + (f" [{self.strategy}]" if self.strategy else "")]

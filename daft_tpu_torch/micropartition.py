@@ -8,7 +8,7 @@ over a collected partition do not copy the same columns again.
 
 Left out of this slice: unloaded partitions backed by scan tasks (with their
 pending-op chains, file statistics and pickling for worker processes), the
-join/explode/pivot/partitioning methods and the writer.
+sort-merge join, the explode/pivot/partitioning methods and the writer.
 """
 
 from __future__ import annotations
@@ -60,6 +60,9 @@ class MicroPartition:
     def __len__(self) -> int:
         return sum(len(t) for t in self._tables)
 
+    def size_bytes(self) -> int:
+        return sum(t.size_bytes() for t in self._tables)
+
     def __repr__(self) -> str:
         return f"MicroPartition(rows={len(self)})"
 
@@ -75,6 +78,20 @@ class MicroPartition:
 
     def agg(self, to_agg, group_by=None) -> "MicroPartition":
         return MicroPartition.from_table(self.table().agg(to_agg, group_by))
+
+    def take(self, indices) -> "MicroPartition":
+        return MicroPartition.from_table(self.table().take(indices))
+
+    def slice(self, start: int, end: int) -> "MicroPartition":
+        return MicroPartition.from_table(self.table().slice(start, end))
+
+    def head(self, n: int) -> "MicroPartition":
+        return MicroPartition.from_table(self.table().head(n))
+
+    def hash_join(self, right: "MicroPartition", left_on, right_on, how="inner",
+                  suffix="right.") -> "MicroPartition":
+        return MicroPartition.from_table(
+            self.table().hash_join(right.table(), left_on, right_on, how, suffix))
 
     @staticmethod
     def concat(parts: List["MicroPartition"]) -> "MicroPartition":

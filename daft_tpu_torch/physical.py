@@ -9,11 +9,22 @@ FusedFilterAggregate <- InMemory.
 
 ``translate`` then collapses Project/Filter chains into FusedMapOps
 (fuse/compile.py) and Aggregate-over-map-chain segments into device-resident
-DeviceSegmentOps (fuse/segment.py), in the reference's order.
+DeviceSegmentOps (fuse/segment.py), in the reference's order. A join plans
+as a BroadcastJoinOp when the side to replicate is estimated at most
+``broadcast_join_size_bytes_threshold`` bytes, a HashJoinOp otherwise; both
+run each partition pair through the device probe
+(``ExecutionContext.eval_join_dispatch``) or the host join. TPC-H Q3 at SF1
+plans as Limit <- Sort <- Project <- DeviceSegment <- HashJoin(
+BroadcastJoin(Filter(orders), Filter(customer)), Filter(lineitem)); with no
+optimizer to prune columns, no Project sits over the filters, so they stay
+single ops (no FusedMap) and run on the host.
 
-Left out of this slice: scans, limit, shuffles (a multi-partition aggregate
-or sort gathers its input into one partition instead of the reference's
-two-stage hash exchange, so a plan segment forms over one partition), joins,
+Left out of this slice: scans, shuffles (a multi-partition aggregate or sort
+gathers its input into one partition instead of the reference's two-stage
+hash exchange, so a plan segment forms over one partition; a hash join whose
+inputs have more than one partition gathers each side into one partition
+instead of the hash exchange that co-partitions them), the sort-merge and
+cross joins, the runtime join filter, feedback-directed join planning,
 distinct/explode/pivot/sample/write ops, the optimizer, the worker pool,
 streaming and batched UDFs.
 """
@@ -23,7 +34,8 @@ from __future__ import annotations
 from typing import Iterator, List
 
 from .expressions import Expression
-from .logical import Aggregate, Filter, InMemorySource, LogicalPlan, Project, Sort
+from .logical import (Aggregate, Filter, InMemorySource, Join, Limit, LogicalPlan, Project,
+                      Sort)
 from .micropartition import MicroPartition
 from .schema import Schema
 
@@ -157,6 +169,30 @@ class FilterOp(PhysicalOp):
         return f"Filter: {self.predicate._node.display()}"
 
 
+class LimitOp(PhysicalOp):
+    """Streaming global limit: takes partitions until ``limit`` rows are out,
+    then stops reading its input."""
+
+    def __init__(self, child: PhysicalOp, limit: int):
+        super().__init__([child], child.schema, child.num_partitions)
+        self.limit = limit
+
+    def execute(self, inputs, ctx) -> PartStream:
+        remaining = self.limit
+        if remaining <= 0:
+            return
+        for part in inputs[0]:
+            if len(part) > remaining:
+                part = part.head(remaining)
+            remaining -= len(part)
+            yield part
+            if remaining <= 0:
+                break
+
+    def describe(self):
+        return f"Limit: {self.limit}"
+
+
 class SortOp(PhysicalOp):
     """Per-partition sort; translate gathers a multi-partition input first."""
 
@@ -242,6 +278,89 @@ class GatherOp(PhysicalOp):
                else MicroPartition.concat(parts))
 
 
+def _pipelined_join(ctx, pairs, how: str, suffix: str):
+    """Join loop shared by the join ops: for each (left, right, left_on,
+    right_on) pair, pair i+1's keys stage and its probe launches before pair
+    i's result is fetched (one pending pair at a time). A pair the dispatch
+    declines goes straight to the host join."""
+    pending = None
+    for l, r, lon, ron in pairs:
+        fin = ctx.eval_join_dispatch(l, r, lon, ron, how, suffix)
+        if pending is not None:
+            yield pending()
+            pending = None
+        if fin is not None:
+            pending = fin
+        else:
+            yield ctx.eval_join_declined(l, r, lon, ron, how, suffix)
+    if pending is not None:
+        yield pending()
+
+
+class HashJoinOp(PhysicalOp):
+    """Partition-aligned join: partition i of the left joins partition i of
+    the right. ``translate`` gathers each side into one partition first when
+    either has several (the port has no shuffle yet)."""
+
+    def __init__(self, left: PhysicalOp, right: PhysicalOp, left_on, right_on,
+                 how: str, schema: Schema, suffix: str = "right."):
+        super().__init__([left, right], schema, max(left.num_partitions, right.num_partitions))
+        self.left_on = left_on
+        self.right_on = right_on
+        self.how = how
+        self.suffix = suffix
+
+    def execute(self, inputs, ctx) -> PartStream:
+        lparts = list(inputs[0])
+        rparts = list(inputs[1])
+        lschema = self.children[0].schema
+        rschema = self.children[1].schema
+
+        def pairs():
+            for i in range(max(len(lparts), len(rparts))):
+                l = lparts[i] if i < len(lparts) else MicroPartition.empty(lschema)
+                r = rparts[i] if i < len(rparts) else MicroPartition.empty(rschema)
+                yield l, r, self.left_on, self.right_on
+
+        yield from _pipelined_join(ctx, pairs(), self.how, self.suffix)
+
+    def describe(self):
+        return f"HashJoin[{self.how}]"
+
+
+class BroadcastJoinOp(PhysicalOp):
+    """Collect the small side whole, stream the big side's partitions
+    against it."""
+
+    def __init__(self, big: PhysicalOp, small: PhysicalOp, big_on, small_on,
+                 how: str, schema: Schema, small_is_left: bool, suffix: str = "right."):
+        super().__init__([big, small], schema, big.num_partitions)
+        self.big_on = big_on
+        self.small_on = small_on
+        self.how = how
+        self.small_is_left = small_is_left
+        self.suffix = suffix
+
+    def execute(self, inputs, ctx) -> PartStream:
+        small_parts = list(inputs[1])
+        small = (MicroPartition.concat(small_parts) if len(small_parts) > 1
+                 else small_parts[0] if small_parts
+                 else MicroPartition.empty(self.children[1].schema))
+        ctx.stats.bump("broadcast_joins")
+
+        def pairs():
+            for part in inputs[0]:
+                if self.small_is_left:
+                    yield small, part, self.small_on, self.big_on
+                else:
+                    yield part, small, self.big_on, self.small_on
+
+        yield from _pipelined_join(ctx, pairs(), self.how, self.suffix)
+
+    def describe(self):
+        return f"BroadcastJoin[{self.how}]"
+
+
 # ---------------------------------------------------------------------------
 # logical -> physical translation
 # ---------------------------------------------------------------------------
@@ -285,7 +404,7 @@ def translate(plan: LogicalPlan, cfg=None, stats=None) -> PhysicalOp:
         from .context import get_context
 
         cfg = get_context().execution_config
-    out = fuse_for_device(_translate(plan))
+    out = fuse_for_device(_translate(plan, cfg))
     if cfg.expr_fusion:
         from .fuse import fuse_map_chains
 
@@ -299,20 +418,71 @@ def translate(plan: LogicalPlan, cfg=None, stats=None) -> PhysicalOp:
     return out
 
 
-def _translate(plan: LogicalPlan) -> PhysicalOp:
+def _translate(plan: LogicalPlan, cfg) -> PhysicalOp:
     if isinstance(plan, InMemorySource):
         return InMemoryOp(plan.partitions, plan.schema)
     if isinstance(plan, Project):
-        return ProjectOp(_translate(plan.input), plan.exprs, plan.schema)
+        return ProjectOp(_translate(plan.input, cfg), plan.exprs, plan.schema)
     if isinstance(plan, Filter):
-        return FilterOp(_translate(plan.input), plan.predicate)
+        return FilterOp(_translate(plan.input, cfg), plan.predicate)
+    if isinstance(plan, Limit):
+        return LimitOp(_translate(plan.input, cfg), plan.limit)
     if isinstance(plan, Sort):
-        return SortOp(_gathered(_translate(plan.input)), plan.sort_by,
+        return SortOp(_gathered(_translate(plan.input, cfg)), plan.sort_by,
                       plan.descending, plan.nulls_first)
     if isinstance(plan, Aggregate):
-        return AggregateOp(_gathered(_translate(plan.input)), plan.aggregations,
+        return AggregateOp(_gathered(_translate(plan.input, cfg)), plan.aggregations,
                            plan.groupby, plan.schema)
+    if isinstance(plan, Join):
+        return _translate_join(plan, cfg)
     raise ValueError(f"cannot translate logical node {plan.name()}")
+
+
+def _translate_join(plan: Join, cfg) -> PhysicalOp:
+    left = _translate(plan.left, cfg)
+    right = _translate(plan.right, cfg)
+    strategy = plan.strategy or _choose_join_strategy(plan, cfg)
+    if strategy == "broadcast" and plan.how == "outer":
+        # an outer join preserves both sides: replaying the replicated side
+        # per big-side partition would duplicate its unmatched rows
+        strategy = "hash"
+    if strategy == "broadcast":
+        lsize = plan.left.approx_size_bytes()
+        rsize = plan.right.approx_size_bytes()
+        if _broadcast_side(plan, lsize, rsize) == "left":
+            return BroadcastJoinOp(right, left, plan.right_on, plan.left_on, plan.how,
+                                   plan.schema, small_is_left=True, suffix=plan.suffix)
+        return BroadcastJoinOp(left, right, plan.left_on, plan.right_on, plan.how,
+                               plan.schema, small_is_left=False, suffix=plan.suffix)
+    if max(left.num_partitions, right.num_partitions) > 1:
+        left, right = GatherOp(left), GatherOp(right)
+    return HashJoinOp(left, right, plan.left_on, plan.right_on, plan.how, plan.schema,
+                      plan.suffix)
+
+
+def _broadcast_side(plan: Join, lsize, rsize) -> str:
+    """Which side to replicate. The preserved side of an outer join cannot
+    be broadcast (its unmatched rows must appear exactly once)."""
+    if plan.how in ("left", "semi", "anti"):
+        return "right"
+    if plan.how == "right":
+        return "left"
+    # inner: the smaller side
+    if lsize is not None and (rsize is None or lsize <= rsize):
+        return "left"
+    return "right"
+
+
+def _choose_join_strategy(plan: Join, cfg) -> str:
+    if plan.how == "outer":
+        return "hash"
+    lsize = plan.left.approx_size_bytes()
+    rsize = plan.right.approx_size_bytes()
+    side = _broadcast_side(plan, lsize, rsize)
+    size = lsize if side == "left" else rsize
+    if size is not None and size <= cfg.broadcast_join_size_bytes_threshold:
+        return "broadcast"
+    return "hash"
 
 
 def _gathered(child: PhysicalOp) -> PhysicalOp:

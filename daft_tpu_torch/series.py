@@ -134,6 +134,11 @@ class Series:
     def __len__(self) -> int:
         return len(self._pyobjs) if self._arrow is None else len(self._arrow)
 
+    def size_bytes(self) -> int:
+        if self._arrow is None:
+            return int(self._pyobjs.nbytes) + 64 * len(self._pyobjs)
+        return self._arrow.nbytes
+
     def is_python(self) -> bool:
         return self._dtype.is_python()
 

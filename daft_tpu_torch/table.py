@@ -1,11 +1,14 @@
 """Table: a schema plus equal-length Series (the port's copy of
 daft_tpu/table.py). Host kernels are pyarrow compute and numpy.
 
-Left out of this slice: joins, explode/unpivot/pivot, distinct, sampling,
-hash/range/random partitioning, the acero fused filter+aggregate plans and
-the optional C++ ``native`` group-code pass (group codes take the numpy route
-here). The grouped aggregation keeps the bincount and arrow hash-agg routes
-for sum, mean, count, min and max.
+The host join is ``hash_join`` (pyarrow acero, every join type), and
+``join_from_indices`` assembles a join's output from the row-index pairs of
+the device probe. Left out of this slice: the sort-merge and cross joins,
+explode/unpivot/pivot, distinct, sampling, hash/range/random partitioning,
+the acero fused filter+aggregate plans and the optional C++ ``native``
+group-code pass (group codes take the numpy route here). The grouped
+aggregation keeps the bincount and arrow hash-agg routes for sum, mean,
+count, min and max.
 """
 
 from __future__ import annotations
@@ -18,10 +21,23 @@ import numpy as np
 import pyarrow as pa
 import pyarrow.compute as pc
 
+from .datatypes import try_unify
 from .errors import DaftValueError
 from .expressions import AggExpr, Alias, Expression, col
 from .schema import Field, Schema
 from .series import Series
+
+
+def _downcast_key_offsets(arr):
+    """large_string/large_binary -> the 32-bit-offset type when the buffer
+    fits (< 2 GiB): acero's hash table is about 3x slower on 64-bit-offset
+    keys."""
+    if arr.nbytes < (1 << 31) - 1:
+        if pa.types.is_large_string(arr.type):
+            return arr.cast(pa.string())
+        if pa.types.is_large_binary(arr.type):
+            return arr.cast(pa.binary())
+    return arr
 
 
 def _as_expressions(exprs) -> List[Expression]:
@@ -123,6 +139,9 @@ class Table:
     def get_column(self, name: str) -> Series:
         return self._columns[self.schema.index(name)]
 
+    def size_bytes(self) -> int:
+        return sum(c.size_bytes() for c in self._columns)
+
     def to_arrow(self) -> pa.Table:
         arrays, fields = [], []
         for f, c in zip(self.schema, self._columns):
@@ -210,6 +229,12 @@ class Table:
     def take(self, indices: Series) -> "Table":
         return Table(self.schema, [c.take(indices) for c in self._columns])
 
+    def slice(self, start: int, end: int) -> "Table":
+        return Table(self.schema, [c.slice(start, end) for c in self._columns])
+
+    def head(self, n: int) -> "Table":
+        return self.slice(0, min(n, len(self)))
+
     @staticmethod
     def concat(tables: List["Table"]) -> "Table":
         if not tables:
@@ -224,6 +249,128 @@ class Table:
             cols.append(Series.concat([t._columns[i] for t in tables]))
         schema = Schema([Field(c.name, c.dtype) for c in cols])
         return Table(schema, cols)
+
+    # ------------------------------------------------------------------ joins
+    def hash_join(self, right: "Table", left_on: Sequence[Expression],
+                  right_on: Sequence[Expression], how: str = "inner",
+                  suffix: str = "right.") -> "Table":
+        """Hash join on pyarrow acero with SQL null semantics (null keys never
+        match). Output row order is unspecified engine-wide (the device
+        probe emits another order); this host join sorts by (left row, right
+        row) so its own output is deterministic."""
+        how_map = {
+            "inner": "inner", "left": "left outer", "right": "right outer",
+            "outer": "full outer", "semi": "left semi", "anti": "left anti",
+        }
+        if how not in how_map:
+            raise DaftValueError(f"unknown join type {how!r}")
+        left_on = _as_expressions(left_on)
+        right_on = _as_expressions(right_on)
+        lk = self.eval_expression_list(left_on)
+        rk = right.eval_expression_list(right_on)
+        lka, rka = [], []
+        for a, b in zip(lk._columns, rk._columns):
+            u = try_unify(a.dtype, b.dtype)
+            if u is None:
+                raise DaftValueError(f"cannot join on {a.dtype} vs {b.dtype}")
+            la, ra = a.cast(u).to_arrow(), b.cast(u).to_arrow()
+            # the downcast is joint per key: acero raises on string vs large_string
+            la2, ra2 = _downcast_key_offsets(la), _downcast_key_offsets(ra)
+            lka.append(la2 if la2.type == ra2.type else la)
+            rka.append(ra2 if la2.type == ra2.type else ra)
+
+        key_names = [f"__k{i}" for i in range(len(lka))]
+        lt = pa.Table.from_arrays(
+            lka + [c.to_arrow() for c in self._columns]
+            + [pa.array(np.arange(len(self), dtype=np.int64))],
+            names=key_names + [f"__l{i}" for i in range(len(self._columns))] + ["__lidx"])
+        rt = pa.Table.from_arrays(
+            rka + [c.to_arrow() for c in right._columns]
+            + [pa.array(np.arange(len(right), dtype=np.int64))],
+            names=key_names + [f"__r{i}" for i in range(len(right._columns))] + ["__ridx"])
+        # acero builds its hash table on the RIGHT operand: keep the build on
+        # the smaller table by swapping operands and flipping the join type
+        # (assembly below is by column name, so orientation stays unchanged)
+        if len(self) < len(right):
+            flip = {"inner": "inner", "left outer": "right outer",
+                    "right outer": "left outer", "full outer": "full outer",
+                    "left semi": "right semi", "left anti": "right anti"}
+            joined = rt.join(lt, keys=key_names, join_type=flip[how_map[how]], use_threads=True)
+        else:
+            joined = lt.join(rt, keys=key_names, join_type=how_map[how], use_threads=True)
+        sort_keys = [(c, "ascending") for c in ("__lidx", "__ridx") if c in joined.column_names]
+        if sort_keys:
+            # nulls (the unmatched rows of an outer join) sort last by default
+            joined = joined.take(pc.sort_indices(joined, sort_keys=sort_keys))
+        joined = joined.combine_chunks()
+
+        if how in ("semi", "anti"):
+            cols = [Series.from_arrow(joined.column(f"__l{i}"), f.name, f.dtype)
+                    for i, f in enumerate(self.schema)]
+            return Table(Schema(list(self.schema)), cols)
+
+        out_cols: List[Series] = []
+        out_fields: List[Field] = []
+        left_names = set(self.column_names)
+        # join keys: one merged column named after the left key
+        lk_names = [e.name() for e in left_on]
+        rk_names = [e.name() for e in right_on]
+        for i, kn in enumerate(key_names):
+            out_cols.append(Series.from_arrow(joined.column(kn), lk_names[i]))
+            out_fields.append(Field(lk_names[i], out_cols[-1].dtype))
+        for i, f in enumerate(self.schema):
+            if f.name in lk_names:
+                continue
+            s = Series.from_arrow(joined.column(f"__l{i}"), f.name, f.dtype)
+            out_cols.append(s)
+            out_fields.append(Field(f.name, s.dtype))
+        for i, f in enumerate(right.schema):
+            if f.name in rk_names:
+                continue
+            name = f.name if f.name not in left_names else f"{suffix}{f.name}"
+            s = Series.from_arrow(joined.column(f"__r{i}"), name, f.dtype)
+            out_cols.append(s)
+            out_fields.append(Field(name, s.dtype))
+        return Table(Schema(out_fields), out_cols)
+
+    def join_from_indices(self, right: "Table", lidx: np.ndarray, ridx: np.ndarray,
+                          left_on, right_on, suffix: str = "right.") -> "Table":
+        """Assemble a join's output from row-index pairs (the device probe,
+        kernels/device_join.py). ``ridx`` entries of -1 emit nulls (left-outer
+        misses). Names and order as ``hash_join``: merged key columns named
+        after the left keys, then the left columns, then the right columns
+        with ``suffix`` on collisions."""
+        left_on = _as_expressions(left_on)
+        right_on = _as_expressions(right_on)
+        lk_names = [e.name() for e in left_on]
+        rk_names = [e.name() for e in right_on]
+        l_take = Series.from_arrow(pa.array(lidx.astype(np.uint64)), "i")
+        miss = ridx < 0
+        r_take = pa.array(np.where(miss, 0, ridx).astype(np.int64),
+                          mask=miss if miss.any() else None)
+        out_cols: List[Series] = []
+        out_fields: List[Field] = []
+        lkeys = self.eval_expression_list(left_on)
+        for i, kn in enumerate(lk_names):
+            s = lkeys._columns[i].take(l_take).rename(kn)
+            out_cols.append(s)
+            out_fields.append(Field(kn, s.dtype))
+        left_names = set(self.column_names)
+        for f in self.schema:
+            if f.name in lk_names:
+                continue
+            s = self.get_column(f.name).take(l_take)
+            out_cols.append(s)
+            out_fields.append(Field(f.name, s.dtype))
+        for f in right.schema:
+            if f.name in rk_names:
+                continue
+            name = f.name if f.name not in left_names else f"{suffix}{f.name}"
+            rc = right.get_column(f.name)
+            s = Series.from_arrow(rc.to_arrow().take(r_take), name, rc.dtype)
+            out_cols.append(s)
+            out_fields.append(Field(name, s.dtype))
+        return Table(Schema(out_fields), out_cols)
 
     # ------------------------------------------------------------------ sort
     def argsort(self, sort_keys: Sequence[Expression], descending=None, nulls_first=None) -> Series:
