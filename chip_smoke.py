@@ -5,7 +5,7 @@ kernels build for sm_90a):
 
     python3 chip_smoke.py                # every phase, TPC-H SF1 and SF10
     python3 chip_smoke.py --scales 1     # a shorter run: SF1 only
-    python3 chip_smoke.py --profile      # also trace warm Q1/Q6, deep Q1, Q3 and Q5 at the first scale
+    python3 chip_smoke.py --profile      # also trace warm Q1/Q6 (1 and 4 partitions), deep Q1, Q3 and Q5 at the first scale
     python3 chip_smoke.py --kernels-only # phases 1 and 2 only, for iterating on a kernel
 
 Phases, each of which fails the run:
@@ -28,14 +28,19 @@ Phases, each of which fails the run:
      and the composed route (torch derive, stack, K1) bit for bit. The
      scatter kernel must equal its plain version and itself across two
      launches bit for bit, at G = 4097 and a large shape, with random and
-     sorted codes and masked rows; its library route is index_add_ plus
-     device._kahan_combine;
+     sorted codes and masked rows, with fewer segments than pass 1 has
+     owners and with codes outside [0, G); its library route is index_add_
+     plus device._kahan_combine;
   3. drive TPC-H Q1 and Q6 through daft_tpu_torch.from_arrow(...).collect()
      on the card in the 32-bit device mode, through K1 (the composed route)
      and through K2 (use_deep_fusion_kernel), and Q1 written with
      with_column through a device-resident plan segment (DeviceSegmentOp),
-     with K2 and with K1; then TPC-H Q3 and Q5 (joins through the device
-     probe, the device argsort, Limit) over generate_tables(scale, seed=42),
+     with K2 and with K1; at SF1, Q1 and Q6 again over the table cut into 4
+     partitions, the two-stage aggregate (stage 1 through K1 on each
+     partition, a hash shuffle of Q1's partials, a gather of Q6's, stage 2),
+     timed warm beside the one-partition run; then TPC-H Q3 and Q5 (joins
+     through the device probe, the device argsort, Limit) over
+     generate_tables(scale, seed=42),
      Q3's aggregate through the scatter kernel and Q5's through K1. Hold every
      result against the pyarrow oracle of benchmarks/tpch.py at rtol 1e-6
      (Q3's top 10 by q3_parity); check that each path ran on the card through
@@ -826,6 +831,20 @@ def phase_scatter(ph: Phases) -> dict:
     ph.check(bool((out.view(torch.int32) == 0).all()), "scatter all rows masked: every sum is +0.0")
     vals, codes = scatter_operands(1024, 5000, seed=5)
     check_scatter(ph, "smallest bucket b=1024 G=5000", vals, codes, 5000)
+    # one chunk spreads over 32 CTAs (R = 1024 owners): G = 1000 leaves the
+    # last CTA no segment at all
+    vals, codes = scatter_operands(8192, 1000, seed=6)
+    check_scatter(ph, "b=8192 G=1000, fewer segments than owners", vals, codes, 1000)
+    vals, codes = scatter_operands(65_536, 4097, seed=7)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    bad = torch.rand(codes.shape[0], generator=gen, device="cuda") < 0.3
+    far = torch.tensor([-1, -5000, 4097, 4128, 1 << 30], device="cuda", dtype=torch.int32)
+    codes = torch.where(bad, far[torch.randint(0, 5, codes.shape, generator=gen,
+                                                device="cuda")], codes)
+    a = scs.scatter_sum_kahan(vals, codes, 4097)
+    ph.check(same_bits(a, scs.scatter_sum_kahan_plain(vals, codes, 4097)),
+             "scatter b=65536 G=4097, 30% of codes outside [0, G): equals its plain version "
+             "bit for bit")
     del vals, codes
     torch.cuda.empty_cache()
     return entry
@@ -967,6 +986,69 @@ def phase_main_path(ph: Phases, scale: float, lineitem, card: str, profile: bool
         res = drive(ph, f"SF{scale:g} {key}", q1_with_columns, frame, want["q1"], deep=deep,
                     segment=True, group_codes=deep)
         record(key, {**res, **warm_median(q1_with_columns, frame)})
+    del frame
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_multi_partition(ph: Phases, lineitem, card: str, single: dict, profile: bool,
+                          nparts: int = 4) -> dict:
+    """Phase 3, the two-stage aggregate: Q1 and Q6 (composed route) over the
+    lineitem table cut into ``nparts`` equal partitions. Stage 1 aggregates
+    each partition through K1, a hash shuffle (Q1) or a gather (Q6) moves the
+    partials, stage 2 merges them. Each query is driven once with K1's
+    launch count set to 0 just before and read just after, held against the
+    pyarrow oracle, and timed warm beside the one-partition warm median of
+    this run (``single``); with ``profile``, traced warm as well."""
+    import torch
+
+    import daft_tpu_torch as dtt
+    from benchmarks import tpch
+    from daft_tpu_torch.kernels import fused_expr_sums as fes
+    from daft_tpu_torch.kernels import segment_sums as ss
+
+    rows = lineitem.num_rows
+    step = -(-rows // nparts)
+    frame = dtt.from_arrow([lineitem.slice(i * step, step) for i in range(nparts)]).collect()
+    want = {"q1": tpch.oracle_q1(lineitem), "q6": {"revenue": [tpch.oracle_q6(lineitem)]}}
+    out = {"k1_launches": 0}
+    for name, query in (("q1", q1), ("q6", q6)):
+        label = f"{nparts}-partition {name}"
+        dtt.set_execution_config(dtt.ExecutionConfig())
+        ss.LAUNCHES = fes.LAUNCHES = 0
+        t0 = time.perf_counter()
+        df = query(frame).collect()
+        got = df.to_pydict()
+        cold = time.perf_counter() - t0
+        k1, k2 = ss.LAUNCHES, fes.LAUNCHES
+        c = df.stats.snapshot()["counters"]
+        ph.check(parity(got, want[name], RTOL),
+                 f"{label}: matches the pyarrow oracle at rtol {RTOL}")
+        # every aggregation on the card (stage 1 on each partition, stage 2
+        # when its partials reach device_min_rows) sums its floats in one K1
+        # launch; stage 2 over a few partial rows runs on the host
+        stage2 = c.get("device_aggregations", 0) - nparts
+        ok = (k1 == nparts + stage2 and stage2 >= 0 and k2 == 0
+              and c.get("shuffles", 0) == (1 if name == "q1" else 0)
+              and c.get("device_agg_fallbacks", 0) == 0)
+        ph.check(ok, f"{label}: {nparts} stage-1 aggregations and {stage2} stage-2 ones on "
+                     f"the card through K1 (launches {k1}), "
+                     f"{'one shuffle' if name == 'q1' else 'a gather'} (counters {c})")
+        res = {"parts": nparts, "cold_s": cold, "k1_launches": k1,
+               "stage2_device_aggregations": stage2,
+               "counters": {k: c.get(k, 0) for k in (
+                   "device_aggregations", "host_aggregations", "shuffles",
+                   "device_group_codes", "device_agg_fallbacks")},
+               **warm_median(query, frame), "rows": rows, "card": card}
+        res["one_partition_warm_median_s"] = single[name]["warm_median_s"]
+        res["over_one_partition"] = res["warm_median_s"] / res["one_partition_warm_median_s"]
+        out[name] = res
+        out["k1_launches"] += k1
+        print(f"SF1 {label} " + json.dumps(res), flush=True)
+        del df
+    if profile:
+        dtt.set_execution_config(dtt.ExecutionConfig())
+        profile_queries({f"q1_{nparts}_parts": q1, f"q6_{nparts}_parts": q6}, frame, rows, card)
     del frame
     torch.cuda.empty_cache()
     return out
@@ -1135,7 +1217,8 @@ def main(argv=None) -> int:
     ap.add_argument("--scales", default="1,10",
                     help="comma-separated TPC-H scale factors for the main path")
     ap.add_argument("--profile", action="store_true",
-                    help="trace warm Q1/Q6, deep Q1, Q3 and Q5 at the first scale with "
+                    help="trace warm Q1/Q6 (1 and 4 partitions), deep Q1, Q3 and Q5 at the "
+                         "first scale with "
                          "torch.profiler, and time the phases of Q3 and Q5")
     ap.add_argument("--kernels-only", action="store_true",
                     help="run phases 1 and 2 only (builds and kernel checks); launches print "
@@ -1175,6 +1258,9 @@ def main(argv=None) -> int:
                 print(f"SF{scale:g}: {tables[scale].num_rows} rows generated in "
                       f"{time.perf_counter() - t0:.1f}s", flush=True)
             res = phase_main_path(ph, scale, tables[scale], card, args.profile and i == 0)
+            if scale == 1.0:  # the two-stage aggregate over 4 partitions
+                res["k1_launches"] += phase_multi_partition(
+                    ph, tables[scale], card, res, args.profile and i == 0)["k1_launches"]
             tables = {}  # the join tables of this scale take the memory next
             joins = phase_joins(ph, scale, card, args.profile and i == 0)
             if i == 0:

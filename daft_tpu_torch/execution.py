@@ -3,9 +3,11 @@ port's copy of the part of daft_tpu/execution.py this slice runs).
 
 The device path has no silent fallback. An exception raised on the card
 propagates to the caller. Only the reference's documented declines send a
-partition to the host path: for an aggregation, an ineligible plan or dtype,
-a partition below ``device_min_rows`` and the int32 overflow guard of
-``device_agg._finish_agg``, each counted as ``device_agg_fallbacks``; for a
+partition to the host path: for an aggregation, a partition below
+``device_min_rows`` (plain routing, not counted, as in the reference: stage
+2 of a two-stage aggregate over a few partial rows takes it), an ineligible
+plan or dtype and the int32 overflow guard of ``device_agg._finish_agg``,
+each of the last two counted as ``device_agg_fallbacks``; for a
 fused map chain, a device program that declines the partition
 (``device_fused_map_fallbacks``); for a plan segment, a resident attempt
 that declines (``segment_fallbacks``, then the staged ops); for a join, an
@@ -193,8 +195,7 @@ class ExecutionContext:
         if not self.cfg.use_device_kernels:
             return None
         if len(part) < self.cfg.device_min_rows:
-            self.stats.bump("device_agg_fallbacks")  # decline: too few rows
-            return None
+            return None  # too few rows: plain routing to the host, not a fallback
         from .kernels.device import resolve_device
         from .kernels.device_agg import device_grouped_agg_async
 

@@ -67,16 +67,23 @@ _TORCH_DTYPES = {
     TypeKind.FLOAT32: torch.float32, TypeKind.FLOAT64: torch.float64,
 }
 
-# 64-bit logical kinds and their 32-bit compute stand-ins
-_NARROW_64 = {TypeKind.INT64: torch.int32, TypeKind.FLOAT64: torch.float32}
-_NARROW_NP = {TypeKind.INT64: np.int32, TypeKind.FLOAT64: np.float32}
+# 64-bit logical kinds and their 32-bit compute stand-ins. uint64 (the
+# count partials a two-stage aggregate merges) takes int32 lanes: the
+# reference's uint32 lanes hold more, but its int32 overflow guard sends any
+# sum of values past the int32 range to the host all the same. A user's
+# uint64 column takes the same lanes: values past 2**31 - 1 decline to the
+# host at staging, and int64_wrap_safe holds uint64 arithmetic to [0, 2**31).
+_NARROW_64 = {TypeKind.INT64: torch.int32, TypeKind.UINT64: torch.int32,
+              TypeKind.FLOAT64: torch.float32}
+_NARROW_NP = {TypeKind.INT64: np.int32, TypeKind.UINT64: np.int32,
+              TypeKind.FLOAT64: np.float32}
 
 
 def is_device_dtype(dt: DataType) -> bool:
-    """Device-representable in the 32-bit device mode: int64 via lossless
-    int32 narrowing (checked per column at stage time), float64 as
+    """Device-representable in the 32-bit device mode: int64 and uint64 via
+    lossless int32 narrowing (checked per column at stage time), float64 as
     float32, dates as int32 days."""
-    return dt.kind in _TORCH_DTYPES or dt.kind == TypeKind.DATE
+    return dt.kind in _TORCH_DTYPES or dt.kind in _NARROW_64 or dt.kind == TypeKind.DATE
 
 
 def _physical_np(arr: pa.Array) -> np.ndarray:
@@ -127,12 +134,13 @@ def _staged_validity(arr: pa.Array, n: int, b: int) -> np.ndarray:
 
 
 def _narrow_staged(vals: np.ndarray, dt: DataType) -> np.ndarray:
-    """int64 narrows to int32 only when every value fits (raises otherwise,
-    so the caller declines to the host path); float64 rounds to float32."""
+    """int64 and uint64 narrow to int32 only when every value fits (raises
+    otherwise, so the caller declines to the host path); float64 rounds to
+    float32."""
     if dt.kind not in _NARROW_NP:
         return vals
     target = _NARROW_NP[dt.kind]
-    if vals.dtype.kind == "i":
+    if vals.dtype.kind in "iu":
         info = np.iinfo(target)
         if len(vals) and (vals.min() < info.min or vals.max() > info.max):
             raise ValueError(f"{dt} values exceed int32 range; host path")
@@ -596,19 +604,19 @@ _INT32_LO, _INT32_HI = -(2 ** 31), 2 ** 31 - 1
 
 
 def int64_wrap_safe(nodes, schema, env, stage_cache: Optional[dict], bucket: int) -> bool:
-    """int64-typed arithmetic computes in int32 lanes and can wrap silently
-    (staging only range-checks the LEAF columns). Prove by interval arithmetic
-    over the staged data's actual min/max that no int64-typed arithmetic node
-    can leave the int32 range; anything unproven declines to the host path.
-    The per-column ranges cost one reduction + sync each, cached with the
-    partition."""
+    """int64- and uint64-typed arithmetic computes in int32 lanes and can
+    wrap silently (staging only range-checks the LEAF columns). Prove by
+    interval arithmetic over the staged data's actual min/max that no such
+    arithmetic node can leave the int32 range (for uint64, [0, 2**31)),
+    anything unproven declines to the host path. The per-column ranges cost one reduction + sync each,
+    cached with the partition."""
     from ..expressions import Alias, BinaryOp, Column, Literal
 
-    risky = DataType.int64()
+    risky = (DataType.int64(), DataType.uint64())
 
     def has_risky(n):
         try:
-            if isinstance(n, BinaryOp) and n.to_field(schema).dtype == risky:
+            if isinstance(n, BinaryOp) and n.to_field(schema).dtype in risky:
                 return True
         except (ValueError, KeyError):
             return True
@@ -677,9 +685,12 @@ def int64_wrap_safe(nodes, schema, env, stage_cache: Optional[dict], bucket: int
                 dt_ = n.to_field(schema).dtype
             except (ValueError, KeyError):
                 return False
-            if dt_ == risky:
+            if dt_ in risky:
+                # a uint64 result below 0 wraps on the host (or raises there,
+                # under checked arithmetic), never in the int32 lanes' way
+                lo = 0 if dt_ == DataType.uint64() else _INT32_LO
                 bd = bounds(n)
-                if bd is None or bd[0] < _INT32_LO or bd[1] > _INT32_HI:
+                if bd is None or bd[0] < lo or bd[1] > _INT32_HI:
                     return False
         return all(safe(c) for c in n.children())
 

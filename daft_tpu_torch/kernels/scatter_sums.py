@@ -14,9 +14,10 @@ On a CUDA tensor the wrapper launches the hand-written kernel
 csrc/segment_scatter_sums.cu (built with nvcc for sm_90a on first use, loaded
 with ctypes) or raises; torch's CUDA ``index_add_`` on float32 adds with
 atomics in an order that changes from run to run, and the kernel uses none.
-Pass 1 gives each segment of a chunk to one warp, which adds that segment's
-rows in row order (see the source); pass 2 is the Kahan walk, one thread a
-segment.
+Pass 1 gives each segment of a chunk to one warp: the chunk's rows are
+bucketed by owning warp, stably, in shared memory, and each warp adds only
+its own bucket, each segment's rows in row order (see the source); pass 2 is
+the Kahan walk, one thread a segment.
 
 On a CPU tensor it runs ``scatter_sum_kahan_plain``, the same function on the
 host: ``np.add.at`` in float32 (unbuffered, in index order) for the chunk

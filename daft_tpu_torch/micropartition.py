@@ -6,9 +6,11 @@ copying them. ``device_stage_cache`` holds the columns already staged on the
 card (DeviceColumns keyed by column, bucket and device), so repeated queries
 over a collected partition do not copy the same columns again.
 
-Left out of this slice: unloaded partitions backed by scan tasks (with their
-pending-op chains, file statistics and pickling for worker processes), the
-sort-merge join, the explode/pivot/partitioning methods and the writer.
+``partition_by_hash`` splits a partition for the hash shuffle chunk by chunk,
+as the reference does. Left out of this slice: unloaded partitions backed by
+scan tasks (with their pending-op chains, file statistics and pickling for
+worker processes), the sort-merge join, the explode/pivot methods, range and
+random partitioning and the writer.
 """
 
 from __future__ import annotations
@@ -87,6 +89,18 @@ class MicroPartition:
 
     def head(self, n: int) -> "MicroPartition":
         return MicroPartition.from_table(self.table().head(n))
+
+    def partition_by_hash(self, exprs, num_partitions: int) -> List["MicroPartition"]:
+        """``num_partitions`` partitions by row hash mod n. A row's bucket
+        depends on its own values alone, so each chained table splits on its
+        own and bucket i chains its pieces in order, with no concat."""
+        buckets: List[List[Table]] = [[] for _ in range(num_partitions)]
+        for t in self._tables:
+            for i, bt in enumerate(t.partition_by_hash(exprs, num_partitions)):
+                if len(bt):
+                    buckets[i].append(bt)
+        return [MicroPartition(self.schema, bs) if bs else MicroPartition.empty(self.schema)
+                for bs in buckets]
 
     def hash_join(self, right: "MicroPartition", left_on, right_on, how="inner",
                   suffix="right.") -> "MicroPartition":

@@ -19,21 +19,33 @@ BroadcastJoin(Filter(orders), Filter(customer)), Filter(lineitem)); with no
 optimizer to prune columns, no Project sits over the filters, so they stay
 single ops (no FusedMap) and run on the host.
 
-Left out of this slice: scans, shuffles (a multi-partition aggregate or sort
-gathers its input into one partition instead of the reference's two-stage
-hash exchange, so a plan segment forms over one partition; a hash join whose
-inputs have more than one partition gathers each side into one partition
-instead of the hash exchange that co-partitions them), the sort-merge and
-cross joins, the runtime join filter, feedback-directed join planning,
-distinct/explode/pivot/sample/write ops, the optimizer, the worker pool,
-streaming and batched UDFs.
+An aggregate over more than one partition plans in two stages, as the
+reference's ``_translate_aggregate`` does: stage 1 aggregates each partition
+into partials (``populate_aggregation_stages``), a hash ShuffleOp on the
+group keys (a GatherOp when there are none) moves the partials, stage 2
+merges them, and a final Project derives each result (mean = sum / count)
+and casts to the plan's schema. Stage 1 over a filter fuses into a
+FusedFilterAggregateOp, and over a map chain into a DeviceSegmentOp, as a
+one-partition aggregate does.
+
+Left out of this slice: scans; the shuffle's mesh, peer-to-peer, spill and
+encode, lineage and join-filter legs, the hierarchical combine
+(exchange/combine.py) and the feedback-directed fan-out resize, each of
+which the reference keeps byte-identical when off; the morsel split of
+in-memory sources, which the reference skips on the device path; range and
+random shuffles (a multi-partition sort gathers its input into one
+partition; a hash join whose inputs have more than one partition gathers
+each side into one partition instead of the hash exchange that
+co-partitions them); the sort-merge and cross joins, the runtime join
+filter, feedback-directed join planning, distinct/explode/pivot/sample/write
+ops, the optimizer, the worker pool, streaming and batched UDFs.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, List
+from typing import Dict, Iterator, List, Tuple
 
-from .expressions import Expression
+from .expressions import AggExpr, Alias, Expression, col
 from .logical import (Aggregate, Filter, InMemorySource, Join, Limit, LogicalPlan, Project,
                       Sort)
 from .micropartition import MicroPartition
@@ -278,6 +290,38 @@ class GatherOp(PhysicalOp):
                else MicroPartition.concat(parts))
 
 
+class ShuffleOp(PhysicalOp):
+    """Hash exchange on the host (the star path of the reference's
+    ShuffleOp): each input partition splits by row hash mod
+    ``num_partitions`` (``MicroPartition.partition_by_hash``), and output
+    partition i chains the i-th pieces in source order, so rows keep their
+    order within a bucket. An empty bucket is an empty partition; an empty
+    input yields nothing. ``shuffles`` counts the exchanges that ran."""
+
+    def __init__(self, child: PhysicalOp, num: int, by: List[Expression]):
+        super().__init__([child], child.schema, num)
+        self.by = by
+
+    def execute(self, inputs, ctx) -> PartStream:
+        n = self.num_partitions
+        buckets: List[List[MicroPartition]] = [[] for _ in range(n)]
+        saw = False
+        for part in inputs[0]:
+            saw = True
+            for i, piece in enumerate(part.partition_by_hash(self.by, n)):
+                if len(piece):
+                    buckets[i].append(piece)
+        if not saw:
+            return
+        ctx.stats.bump("shuffles")
+        for pieces in buckets:
+            yield MicroPartition.concat(pieces) if pieces else MicroPartition.empty(self.schema)
+
+    def describe(self):
+        by = ", ".join(e._node.display() for e in self.by)
+        return f"Shuffle[hash, {self.num_partitions}] by [{by}]"
+
+
 def _pipelined_join(ctx, pairs, how: str, suffix: str):
     """Join loop shared by the join ops: for each (left, right, left_on,
     right_on) pair, pair i+1's keys stage and its probe launches before pair
@@ -431,11 +475,99 @@ def _translate(plan: LogicalPlan, cfg) -> PhysicalOp:
         return SortOp(_gathered(_translate(plan.input, cfg)), plan.sort_by,
                       plan.descending, plan.nulls_first)
     if isinstance(plan, Aggregate):
-        return AggregateOp(_gathered(_translate(plan.input, cfg)), plan.aggregations,
-                           plan.groupby, plan.schema)
+        return _translate_aggregate(plan, cfg)
     if isinstance(plan, Join):
         return _translate_join(plan, cfg)
     raise ValueError(f"cannot translate logical node {plan.name()}")
+
+
+# ---------------------------------------------------------------------------
+# two-stage aggregation (the reference's populate_aggregation_stages and
+# _translate_aggregate, for the aggregation kinds the port has)
+# ---------------------------------------------------------------------------
+
+# stage-1 kind -> the stage-2 kind that merges its partials
+_MERGE_KIND = {"sum": "sum", "count": "sum", "min": "min", "max": "max"}
+
+
+def _strip_alias(e: Expression) -> AggExpr:
+    n = e._node
+    while isinstance(n, Alias):
+        n = n.child
+    if not isinstance(n, AggExpr):
+        raise ValueError(f"expected aggregation expression, got {e!r}")
+    return n
+
+
+def populate_aggregation_stages(
+    aggs: List[Expression],
+) -> Tuple[List[Expression], List[Expression], List[Expression]]:
+    """Split aggregations into (first_stage, second_stage, final_projection).
+
+    first_stage runs per input partition and names its partials
+    ``__s1_{i}_{kind}``; second_stage merges the partials after the
+    exchange; final_projection derives each result (mean = sum / count).
+    A partial is shared by every aggregation that needs it (mean's sum and
+    count with a sum() and a count() of the same child). A kind the port
+    does not have raises NotImplementedError."""
+    stage1: List[Expression] = []
+    stage2: List[Expression] = []
+    final: List[Expression] = []
+    seen_ids: Dict[Tuple, str] = {}
+
+    def s1(kind: str, child_expr: Expression, tag: str, extra=None) -> str:
+        key = (kind, child_expr._node._key(), tag)
+        if key in seen_ids:
+            return seen_ids[key]
+        ident = f"__s1_{len(seen_ids)}_{kind}"
+        seen_ids[key] = ident
+        stage1.append(Expression(AggExpr(kind, child_expr._node, extra)).alias(ident))
+        stage2.append(Expression(AggExpr(_MERGE_KIND[kind], col(ident)._node)).alias(ident))
+        return ident
+
+    for e in aggs:
+        node = _strip_alias(e)
+        alias = e.name()
+        child = Expression(node.child)
+        k = node.kind
+        if k in ("sum", "min", "max"):
+            final.append(col(s1(k, child, "")).alias(alias))
+        elif k == "count":
+            ident = s1("count", child, node.extra.get("mode", "valid"), dict(node.extra))
+            final.append(col(ident).alias(alias))
+        elif k == "mean":
+            sid = s1("sum", child, "")
+            cid = s1("count", child, "valid", {"mode": "valid"})
+            final.append((col(sid) / col(cid)).alias(alias))
+        else:
+            raise NotImplementedError(
+                f"aggregation {k!r} over more than one partition is not ported yet")
+    return stage1, stage2, final
+
+
+def _stage_schema(input_schema: Schema, aggs: List[Expression],
+                  groupby: List[Expression]) -> Schema:
+    from .schema import Field
+
+    return Schema([Field(e.name(), e._node.to_field(input_schema).dtype)
+                   for e in list(groupby) + list(aggs)])
+
+
+def _translate_aggregate(plan: Aggregate, cfg) -> PhysicalOp:
+    """One partition: one AggregateOp. More: stage 1 per partition, the
+    partials exchanged (hash ShuffleOp on the group keys, GatherOp for a
+    global aggregate), stage 2, the final Project with the plan's schema."""
+    child = _translate(plan.input, cfg)
+    nparts = child.num_partitions
+    if nparts == 1:
+        return AggregateOp(child, plan.aggregations, plan.groupby, plan.schema)
+    stage1, stage2, final = populate_aggregation_stages(plan.aggregations)
+    key_cols = [col(e.name()) for e in plan.groupby]
+    p1 = AggregateOp(child, stage1, plan.groupby,
+                     _stage_schema(plan.input.schema, stage1, plan.groupby))
+    exchanged = ShuffleOp(p1, nparts, key_cols) if plan.groupby else GatherOp(p1)
+    p2 = AggregateOp(exchanged, stage2, key_cols, _stage_schema(p1.schema, stage2, key_cols))
+    return ProjectOp(p2, key_cols + final, plan.schema)
 
 
 def _translate_join(plan: Join, cfg) -> PhysicalOp:

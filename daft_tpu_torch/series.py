@@ -4,9 +4,11 @@ Host storage is a single-chunk Arrow array of the logical type's physical arrow
 mapping, or a numpy object array for python-dtype columns. The device path
 stages numeric columns as torch tensors (see daft_tpu_torch/kernels/device.py).
 
-Left out of this slice: hashing (Series.hash/murmur3_32, used by shuffles and
-joins), the multimodal image casts, the sketch-backed approximate aggregations
-and the per-element math functions. Nothing on the TPC-H Q1/Q6 path calls them.
+Left out of this slice: the hash expression (Series.hash/murmur3_32), the
+multimodal image casts, the sketch-backed approximate aggregations and the
+per-element math functions. The row hash of the hash shuffle is
+Table.hash_rows (kernels/host_hash.py), which hashes a table's Arrow columns
+directly and needs none of them.
 """
 
 from __future__ import annotations

@@ -3,10 +3,11 @@ daft_tpu/table.py). Host kernels are pyarrow compute and numpy.
 
 The host join is ``hash_join`` (pyarrow acero, every join type), and
 ``join_from_indices`` assembles a join's output from the row-index pairs of
-the device probe. Left out of this slice: the sort-merge and cross joins,
-explode/unpivot/pivot, distinct, sampling, hash/range/random partitioning,
-the acero fused filter+aggregate plans and the optional C++ ``native``
-group-code pass (group codes take the numpy route here). The grouped
+the device probe. ``partition_by_hash`` splits rows by the reference's
+row hash (kernels/host_hash.py) for the hash shuffle. Left out of this
+slice: the sort-merge and cross joins, explode/unpivot/pivot, distinct,
+sampling, range/random partitioning, the acero fused filter+aggregate plans
+and the optional C++ ``native`` group-code pass (group codes take the numpy route here). The grouped
 aggregation keeps the bincount and arrow hash-agg routes for sum, mean,
 count, min and max.
 """
@@ -21,9 +22,10 @@ import numpy as np
 import pyarrow as pa
 import pyarrow.compute as pc
 
-from .datatypes import try_unify
+from .datatypes import DataType, try_unify
 from .errors import DaftValueError
 from .expressions import AggExpr, Alias, Expression, col
+from .kernels.host_hash import hash_table_columns
 from .schema import Field, Schema
 from .series import Series
 
@@ -401,6 +403,31 @@ class Table:
 
     def sort(self, sort_keys: Sequence[Expression], descending=None, nulls_first=None) -> "Table":
         return self.take(self.argsort(sort_keys, descending, nulls_first))
+
+    # ------------------------------------------------------------------ hashing / partitioning
+    def hash_rows(self, exprs: Sequence[Expression]) -> np.ndarray:
+        """(n,) uint64 row hashes of ``exprs``, the seed chained across the
+        columns: the reference's bits."""
+        cols = []
+        for e in _as_expressions(exprs):
+            s = e._node.evaluate(self)
+            if s.is_python():
+                s = s.cast(DataType.string())
+            cols.append(_broadcast_series(s, len(self)).to_arrow())
+        return hash_table_columns(cols)
+
+    def partition_by_hash(self, exprs: Sequence[Expression], num_partitions: int) -> List["Table"]:
+        """Split the rows into ``num_partitions`` tables by hash mod n, each
+        keeping the rows' order."""
+        if num_partitions <= 0:
+            raise DaftValueError("num_partitions must be positive")
+        if len(self) == 0:
+            return [self] * num_partitions
+        buckets = (self.hash_rows(exprs) % np.uint64(num_partitions)).astype(np.int64)
+        order = np.argsort(buckets, kind="stable")
+        offs = np.concatenate([[0], np.cumsum(np.bincount(buckets, minlength=num_partitions))])
+        sorted_tbl = self.take(Series.from_arrow(pa.array(order.astype(np.uint64)), "idx"))
+        return [sorted_tbl.slice(int(offs[i]), int(offs[i + 1])) for i in range(num_partitions)]
 
     # ------------------------------------------------------------------ aggregation
     def agg(self, to_agg: Sequence[Expression], group_by: Optional[Sequence[Expression]] = None) -> "Table":
