@@ -5,7 +5,7 @@ kernels build for sm_90a):
 
     python3 chip_smoke.py                # every phase, TPC-H SF1 and SF10
     python3 chip_smoke.py --scales 1     # a shorter run: SF1 only
-    python3 chip_smoke.py --profile      # also trace warm Q1/Q6 (1 and 4 partitions), deep Q1, Q3 and Q5 at the first scale
+    python3 chip_smoke.py --profile      # also trace warm Q1/Q6 (1 and 4 partitions), deep Q1, Q3 and Q5 at the first scale, with Q3's and Q5's phases
     python3 chip_smoke.py --kernels-only # phases 1 and 2 only, for iterating on a kernel
 
 Phases, each of which fails the run:
@@ -38,17 +38,21 @@ Phases, each of which fails the run:
      with K2 and with K1; at SF1, Q1 and Q6 again over the table cut into 4
      partitions, the two-stage aggregate (stage 1 through K1 on each
      partition, a hash shuffle of Q1's partials, a gather of Q6's, stage 2),
-     timed warm beside the one-partition run; then TPC-H Q3 and Q5 (joins
-     through the device probe, the device argsort, Limit) over
-     generate_tables(scale, seed=42),
-     Q3's aggregate through the scatter kernel and Q5's through K1. Hold every
-     result against the pyarrow oracle of benchmarks/tpch.py at rtol 1e-6
-     (Q3's top 10 by q3_parity); check that each path ran on the card through
-     its kernel (its launch count, set to 0 just before the path and read just
-     after, and the join and sort counters), and time them warm. At every
-     scale the scatter kernel is also held against its plain version and
-     timed at the operands the engine handed it in Q3, and K1 held against
-     its plain version at the operands of Q5.
+     timed warm beside the one-partition run; at SF1, a lone filter, a
+     one-expression projection and a distinct over lineitem, each on the
+     card through its single-op hook (device_filters, device_projections,
+     device_distincts), held against pyarrow and timed warm; then TPC-H Q3
+     and Q5 (optimized: pruned join sides as fused map chains on the card,
+     joins through the device probe, the device argsort, Limit) over
+     generate_tables(scale, seed=42), Q3's aggregate through the scatter
+     kernel and Q5's through K1. Hold every result against the pyarrow
+     oracle of benchmarks/tpch.py at rtol 1e-6 (Q3's top 10 by q3_parity);
+     check that each path ran on the card through its kernel (its launch
+     count, set to 0 just before the path and read just after, and the
+     join, sort and routing counters of the optimized plan), and time them
+     warm. At every scale the scatter kernel is also held against its plain
+     version and timed at the operands the engine handed it in Q3, and K1
+     held against its plain version at the operands of Q5.
 
 The last line of standard output is {"ok": true, "device": {...}} when every
 phase passed; the exit code is 0 only then. The line before it is the card's
@@ -893,13 +897,15 @@ def profile_queries(queries: dict, frame, rows: int, card: str, reps: int = 5) -
               flush=True)
 
 
-def warm_median(query, frame, runs: int = 5) -> dict:
+def warm_median(query, frame, runs: int = 5, fetch: str = "to_pydict") -> dict:
+    """Warm wall time of ``query(frame)``: collect, then ``fetch`` the
+    result (to_arrow for results of millions of rows)."""
     import torch
 
     warm = []
     for _ in range(runs):
         t0 = time.perf_counter()
-        query(frame).collect().to_pydict()
+        getattr(query(frame).collect(), fetch)()
         torch.cuda.synchronize()
         warm.append(time.perf_counter() - t0)
     return {"warm_median_s": statistics.median(warm), "warm_min_s": min(warm),
@@ -1054,19 +1060,122 @@ def phase_multi_partition(ph: Phases, lineitem, card: str, single: dict, profile
     return out
 
 
+def single_op_oracles(lineitem) -> dict:
+    """pyarrow's answers for phase_single_ops: columns of the filtered rows,
+    the projected column, and the distinct (l_returnflag, l_linestatus) pairs in
+    first-occurrence order."""
+    import numpy as np
+    import pyarrow.compute as pc
+
+    cutoff = datetime.date(1995, 3, 15)
+    kept = lineitem.filter(pc.greater(lineitem["l_shipdate"], cutoff))
+    combined = np.zeros(lineitem.num_rows, dtype=np.int64)
+    for name in ("l_returnflag", "l_linestatus"):
+        enc = lineitem[name].combine_chunks().dictionary_encode()
+        combined = combined * (len(enc.dictionary) + 1) + np.asarray(enc.indices.fill_null(-1)) + 1
+    _, first = np.unique(combined, return_index=True)
+    first = np.sort(first)
+    return {
+        "filter": {c: kept[c].to_numpy() for c in ("l_quantity", "l_extendedprice",
+                                                    "l_shipdate")},
+        "projection": lineitem["l_quantity"].to_numpy() * 2,
+        "distinct": list(zip(*(lineitem[c].take(first).to_pylist()
+                               for c in ("l_returnflag", "l_linestatus")))),
+    }
+
+
+def phase_single_ops(ph: Phases, lineitem, card: str) -> dict:
+    """Phase 3, the single-op hooks at SF1 over lineitem: a lone filter (its
+    mask on the card, the compaction on the host), a one-expression
+    projection and a distinct of two string columns (the group-codes
+    kernel's first rows). Each is driven once with its device counter read
+    from the query's stats, held against pyarrow, and timed warm."""
+    import numpy as np
+    import torch
+
+    import daft_tpu_torch as dtt
+    from daft_tpu_torch import col
+
+    cutoff = datetime.date(1995, 3, 15)
+    queries = {
+        "filter": (lambda f: f.where(col("l_shipdate") > cutoff), "device_filters"),
+        "projection": (lambda f: f.select(col("l_quantity") * 2), "device_projections"),
+        "distinct": (lambda f: f.select("l_returnflag", "l_linestatus").distinct(),
+                     "device_distincts"),
+    }
+    want = single_op_oracles(lineitem)
+    dtt.set_execution_config(dtt.ExecutionConfig())
+    frame = dtt.from_arrow(lineitem).collect()
+    out = {}
+    for name, (query, counter) in queries.items():
+        t0 = time.perf_counter()
+        df = query(frame).collect()
+        got = df.to_arrow()
+        cold = time.perf_counter() - t0
+        c = df.stats.snapshot()["counters"]
+        if name == "filter":
+            ok = all(np.array_equal(got[k].to_numpy(), v) for k, v in want["filter"].items())
+        elif name == "projection":
+            ok = bool(np.allclose(got["l_quantity"].to_numpy(), want["projection"],
+                                  rtol=RTOL, atol=0.0))
+        else:
+            ok = list(zip(*(got[k].to_pylist() for k in ("l_returnflag", "l_linestatus")))) \
+                == want["distinct"]
+        ph.check(ok, f"SF1 single {name}: matches pyarrow ({got.num_rows} rows)")
+        ph.check(c.get(counter) == 1, f"SF1 single {name}: ran on the card ({counter} "
+                                      f"{c.get(counter)}, counters {c})")
+        res = {"cold_s": cold, "out_rows": got.num_rows, "counters": c,
+               **warm_median(query, frame, fetch="to_arrow"),
+               "rows": lineitem.num_rows, "card": card}
+        out[name] = res
+        print(f"SF1 single {name} " + json.dumps(res), flush=True)
+        del df, got
+    del frame
+    torch.cuda.empty_cache()
+    return out
+
+
+# the routing of each optimized join query that phase_joins checks at
+# every scale (the reference's plan and counters): every join side pruned,
+# Q3's three chains fused and on the card (customer's string filter through
+# the string-literal lane), Q5's orders chain on the card, its nation chain
+# (25 rows, under device_min_rows) on the host and its pure-selection
+# Projects over customer and lineitem dispatched to the card
+JOIN_ROUTES = {
+    "q3": {"device_fused_maps": 3, "host_filters": 0},
+    "q5": {"device_fused_maps": 1, "device_projection_dispatches": 2},
+}
+ROUTE_COUNTERS = ("fused_chains", "device_fused_maps", "host_fused_maps", "device_filters",
+                  "host_filters", "device_projections", "device_projection_dispatches",
+                  "host_projections")
+
+
 JOIN_QUERIES = {
     "q3": (q3, ("customer", "orders", "lineitem"), 2),
     "q5": (q5, ("customer", "orders", "lineitem", "nation"), 3),
 }
 
 
+def physical_plan(df) -> str:
+    """The physical plan the port runs for ``df`` (optimized, translated,
+    fused), as one line per operator."""
+    import daft_tpu_torch as dtt
+    from daft_tpu_torch.optimizer import optimize
+    from daft_tpu_torch.physical import translate
+
+    return translate(optimize(df._plan), dtt.get_context().execution_config).display_tree()
+
+
 def join_breakdown(run, reps: int = 3) -> dict:
     """Wall milliseconds per warm query of each phase of a join query,
     by wrapping the port's functions with timers that synchronise the card
     before and after each call (so device time lands in its phase):
-    the key staging and probe launch, the probe's resolve (its sync and
-    fetch), the host assembly of the join's output, the host filters, the
-    plan segment (launch and fetch) and the sort."""
+    the fused map chains (launch: staging and the program; resolve: the
+    fetch and the host compaction), the single projections and filters
+    dispatched to the card (launch and resolve), the key staging and probe
+    launch, the probe's resolve (its sync and fetch), the host assembly of
+    the join's output, the filters and fused chains that run on the host,
+    the plan segment (launch and fetch) and the sort."""
     import torch
 
     from daft_tpu_torch import execution, physical
@@ -1089,12 +1198,18 @@ def join_breakdown(run, reps: int = 3) -> dict:
             return out
         return call
 
-    patches = [(device_join, "device_join_launch", "probe launch (key staging)",
+    ctx = execution.ExecutionContext
+    patches = [(ctx, "eval_fused_dispatch", "fused map launch", "fused map resolve"),
+               (ctx, "eval_projection_dispatch", "projection dispatch",
+                "projection resolve"),
+               (ctx, "eval_filter_dispatch", "filter dispatch", "filter resolve"),
+               (device_join, "device_join_launch", "probe launch (key staging)",
                 "probe resolve (sync, fetch)"),
                (segment, "run_segment_async", "segment launch", "segment resolve"),
-               (execution.ExecutionContext, "_assemble_join", "join assembly (host)", None),
-               (execution.ExecutionContext, "eval_sort", "sort", None),
-               (physical.FilterOp, "map_partition", "filters (host)", None)]
+               (ctx, "_assemble_join", "join assembly (host)", None),
+               (ctx, "eval_sort", "sort", None),
+               (physical.FilterOp, "map_partition_declined", "filters (host)", None),
+               (ctx, "_eval_fused_host", "fused maps (host)", None)]
     saved = [(obj, name, getattr(obj, name)) for obj, name, _l, _r in patches]
     try:
         for obj, name, label, resolve_label in patches:
@@ -1180,12 +1295,16 @@ def phase_joins(ph: Phases, scale: float, card: str, profile: bool) -> dict:
                         if name == "q3" else launches["k1"] >= 1))
         ph.check(on_card, f"{label}: joins probed on the card ({probes}), the aggregate "
                           f"resident, through its kernel (launches {launches}, counters {c})")
+        route = {k: c.get(k, 0) for k in JOIN_ROUTES[name]}
+        ph.check(route == JOIN_ROUTES[name],
+                 f"{label}: the optimized plan's routing {route} (want {JOIN_ROUTES[name]})")
         res = {"cold_s": cold, "launches": launches,
                "group_codes": "device" if c.get("device_group_codes") else "host",
                "counters": {k: c.get(k, 0) for k in (
                    "device_join_probes", "broadcast_joins", "host_joins", "device_sorts",
                    "host_sorts", "device_group_codes", "device_resident_segments",
-                   "device_agg_fallbacks")},
+                   "device_agg_fallbacks") + ROUTE_COUNTERS},
+               "plan": physical_plan(plan()),
                "rows": {k: tables[k].num_rows for k in args}, "card": card}
         res.update(warm_median(plan, None))
         if profile:
@@ -1261,6 +1380,7 @@ def main(argv=None) -> int:
             if scale == 1.0:  # the two-stage aggregate over 4 partitions
                 res["k1_launches"] += phase_multi_partition(
                     ph, tables[scale], card, res, args.profile and i == 0)["k1_launches"]
+                phase_single_ops(ph, tables[scale], card)
             tables = {}  # the join tables of this scale take the memory next
             joins = phase_joins(ph, scale, card, args.profile and i == 0)
             if i == 0:

@@ -2,10 +2,12 @@
 of the part of daft_tpu/dataframe.py this slice runs).
 
 Covers where/filter, select, with_column(s), groupby(...).agg, agg, sort,
-join, limit/head, collect, to_pydict, to_arrow, explain and the per-query
-``stats``. Left out of this slice: cross joins, distinct, sample,
-repartition, concat, explode/unpivot/pivot, writers, profiling, the result
-cache and the integrations.
+join, limit/head, distinct/unique, repartition (by hash), collect,
+to_pydict, to_arrow, explain and the per-query ``stats``. Left out of this
+slice: cross joins, sample, the random, range and into repartitions
+(``repartition`` without keys, ``into_partitions``), concat,
+explode/unpivot/pivot, writers, profiling, the result cache and the
+integrations.
 """
 
 from __future__ import annotations
@@ -15,8 +17,8 @@ from typing import Any, Dict, List, Optional, Union
 from .context import get_context
 from .execution import RuntimeStats
 from .expressions import Expression, col
-from .logical import (Aggregate, Filter, InMemorySource, Join, Limit, LogicalPlan, Project,
-                      Sort)
+from .logical import (Aggregate, Distinct, Filter, InMemorySource, Join, Limit, LogicalPlan,
+                      Project, Repartition, Sort)
 from .micropartition import MicroPartition
 from .runners import PartitionSet
 from .schema import Schema
@@ -60,13 +62,16 @@ class DataFrame:
         return self._plan.schema.field_names()
 
     def explain(self, show_all: bool = False) -> str:
-        """Logical plan (and the physical plan when show_all)."""
-        out = ["== Logical Plan ==", self._plan.display_tree()]
+        """Logical plan (and optimized + physical when show_all)."""
+        out = ["== Unoptimized Logical Plan ==", self._plan.display_tree()]
         if show_all:
+            from .optimizer import optimize
             from .physical import translate
 
+            opt = optimize(self._plan)
+            out += ["", "== Optimized Logical Plan ==", opt.display_tree()]
             out += ["", "== Physical Plan ==",
-                    translate(self._plan, get_context().execution_config).display_tree()]
+                    translate(opt, get_context().execution_config).display_tree()]
         text = "\n".join(out)
         print(text)
         return text
@@ -100,12 +105,25 @@ class DataFrame:
         nf = _norm_bools(nulls_first, len(by), None)
         return DataFrame(Sort(self._plan, by, desc, nf))
 
+    def distinct(self, *subset: ColumnInput) -> "DataFrame":
+        return DataFrame(Distinct(self._plan, _to_exprs(subset) if subset else None))
+
+    unique = distinct
+
     def limit(self, num: int) -> "DataFrame":
         if num < 0:
             raise ValueError(f"limit must be non-negative, got {num}")
         return DataFrame(Limit(self._plan, num))
 
     head = limit
+
+    def repartition(self, num: Optional[int], *partition_by: ColumnInput) -> "DataFrame":
+        """Hash-repartition by ``partition_by`` into ``num`` partitions.
+        Without keys the reference repartitions at random, a scheme the port
+        does not have yet (the Repartition node raises)."""
+        if partition_by:
+            return DataFrame(Repartition(self._plan, "hash", num, _to_exprs(partition_by)))
+        return DataFrame(Repartition(self._plan, "random", num))
 
     def join(self, other: "DataFrame", on=None, left_on=None, right_on=None,
              how: str = "inner", strategy: Optional[str] = None,

@@ -15,14 +15,18 @@ ineligible pair (a join type other than inner/left/semi/anti, both sides
 below ``device_min_rows``, a key that is not an integer or date expression,
 an overflowing composite key space), counted as ``host_joins``; for a sort,
 a partition below ``device_min_rows`` or an ineligible key, counted as
-``host_sorts``.
+``host_sorts``; for a single filter, projection or distinct, a partition
+below ``device_min_rows`` or an expression, key or dtype the device layer
+declines (a missing dictionary, the int64 wrap guard, a nullable multi-key
+distinct), counted as ``host_filters``, ``host_projections`` or
+``host_distincts``.
 
 Left out of this slice: the DeviceHealth breaker and fault injection (and
-with them the reference's catch of a failure in the fused-map and segment
-resolvers and in the join probe, which sends a failed probe to the host
-join), the profiler, spill, deadlines and cancellation, the worker pool,
-streaming, the mesh hook ``prepare_broadcast``, the device
-projection/filter/distinct hooks of single ops and resource accounting.
+with them the reference's catch of a failure in the resolvers of fused
+maps, plan segments, single filters and projections and in the join probe,
+each of which sends the failed partition to the host), the profiler, spill,
+deadlines and cancellation, the worker pool, streaming, the mesh hook
+``prepare_broadcast`` and resource accounting.
 """
 
 from __future__ import annotations
@@ -97,6 +101,88 @@ class ExecutionContext:
                     part.table().take(Series.from_numpy(idx.astype(np.uint64), "indices")))
         self.stats.bump("host_sorts")
         return part.sort(sort_by, descending, nulls_first)
+
+    # ------------------------------------------------- single filters and maps
+    def _launch_projection(self, part: MicroPartition, exprs):
+        """Stage the partition's columns and launch the projection program
+        now; a zero-arg resolver that fetches the output Table, or None when
+        the partition is not device-eligible or the device layer declines
+        it. A failure on the card propagates from the resolver."""
+        if not self._device_eligible(part):
+            return None
+        from .kernels.device import eval_projection_device_async, resolve_device
+
+        return eval_projection_device_async(
+            part.table(), list(exprs), stage_cache=part.device_stage_cache(),
+            device=resolve_device(self.cfg))
+
+    def eval_projection(self, part: MicroPartition, exprs) -> MicroPartition:
+        """A projection on the card when eligible, else on the host."""
+        resolve = self._launch_projection(part, exprs)
+        if resolve is not None:
+            self.stats.bump("device_projections")
+            return MicroPartition.from_table(resolve())
+        self.stats.bump("host_projections")
+        return part.eval_expression_list(exprs)
+
+    def eval_projection_dispatch(self, part: MicroPartition, exprs):
+        """Launch a device projection without blocking; returns a zero-arg
+        resolver that fetches the output partition, or None when it is
+        declined (the caller then projects on the host)."""
+        resolve = self._launch_projection(part, exprs)
+        if resolve is None:
+            return None
+        self.stats.bump("device_projections")
+        self.stats.bump("device_projection_dispatches")
+        return lambda: MicroPartition.from_table(resolve())
+
+    def _compacted(self, part: MicroPartition, resolve) -> MicroPartition:
+        """Fetch a launched filter's mask and compact the partition on the
+        host."""
+        return MicroPartition.from_table(part.table().filter_with_mask(resolve()._columns[0]))
+
+    def eval_filter(self, part: MicroPartition, predicate) -> MicroPartition:
+        """A filter whose mask is computed on the card when eligible (the
+        compaction runs on the host), else a host filter."""
+        resolve = self._launch_projection(part, [predicate])
+        if resolve is not None:
+            self.stats.bump("device_filters")
+            return self._compacted(part, resolve)
+        self.stats.bump("host_filters")
+        return part.filter([predicate])
+
+    def eval_filter_dispatch(self, part: MicroPartition, predicate):
+        """Launch the device filter mask without blocking; the resolver
+        fetches the mask and compacts on the host. Same contract as
+        ``eval_projection_dispatch``."""
+        resolve = self._launch_projection(part, [predicate])
+        if resolve is None:
+            return None
+        self.stats.bump("device_filters")
+        self.stats.bump("device_filter_dispatches")
+        return lambda: self._compacted(part, resolve)
+
+    def eval_distinct(self, part: MicroPartition, subset) -> MicroPartition:
+        """Distinct through the device group-codes kernel when the keys are
+        device-eligible (the first row of each key tuple; the take runs on
+        the host), the host dictionary encode otherwise."""
+        if self._device_eligible(part):
+            import numpy as np
+
+            from .expressions import col
+            from .kernels.device import resolve_device
+            from .kernels.device_agg import device_distinct_indices
+            from .series import Series
+
+            keys = list(subset) if subset else [col(n) for n in part.schema.field_names()]
+            idx = device_distinct_indices(part.table(), keys, part.device_stage_cache(),
+                                          len(part), device=resolve_device(self.cfg))
+            if idx is not None:
+                self.stats.bump("device_distincts")
+                return MicroPartition.from_table(
+                    part.table().take(Series.from_numpy(idx.astype(np.uint64), "idx")))
+        self.stats.bump("host_distincts")
+        return part.distinct(subset)
 
     # ------------------------------------------------------------------ joins
     def _join_eligible(self, lpart, rpart, left_on, right_on, how) -> bool:

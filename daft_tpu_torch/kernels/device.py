@@ -8,7 +8,11 @@ daft_tpu/kernels/device.py this slice runs).
 - String columns stage as int32 codes against a SORTED per-partition
   dictionary, so group codes over string keys run on plain int lanes.
 - An expression tree compiles to one Python closure over
-  ``{name: (values, valid)}`` that issues eager torch ops.
+  ``{name: (values, valid)}`` that issues eager torch ops. A comparison of a
+  string column with a string literal compares dictionary codes: the
+  literal's code bounds, bisected into each partition's dictionary, enter
+  the env as 0-d int32 tensors (``string_literal_env``), so one compiled
+  program serves every partition.
 - Aggregations are masked segment reductions over dense group codes.
 - Sorts are a stable multi-key argsort over order-preserving int64 lanes
   (``device_table_argsort``, the reference's K5).
@@ -19,11 +23,11 @@ every value fits, float64 columns compute as float32, and temporal types other
 than dates stay on the host. JAX narrows quietly when x64 is off; torch does
 not, so every narrowing below is an explicit cast.
 
-Left out of this slice: the string comparison, LUT, joint-dictionary and
-transform lanes, the epoch lanes (comparisons and sort keys), the device
-filter and hashing, fixed-shape tensor columns, and unsigned integers
-(torch's uint16/32/64 support is partial, so those columns decline to the
-host path).
+Left out of this slice: the string LUT, joint-dictionary and transform
+lanes, the epoch lanes (comparisons and sort keys), device hashing,
+fixed-shape tensor columns, and unsigned integers other than uint64
+(torch's uint16/32 support is partial, so those columns decline to the host
+path).
 """
 
 from __future__ import annotations
@@ -101,7 +105,8 @@ class DeviceColumn:
     (valid[n:] is False). String columns carry their sorted dictionary
     (a host pa.Array) and stage their int32 codes."""
 
-    __slots__ = ("values", "valid", "length", "dtype", "dictionary")
+    __slots__ = ("values", "valid", "length", "dtype", "dictionary", "_dict_list",
+                 "_literal_codes")
 
     def __init__(self, values, valid, length: int, dtype: DataType, dictionary=None):
         self.values = values
@@ -109,6 +114,33 @@ class DeviceColumn:
         self.length = length
         self.dtype = dtype
         self.dictionary = dictionary
+        self._dict_list = None
+        self._literal_codes: Dict[str, Tuple] = {}
+
+    def dict_list(self):
+        """Python-list view of the dictionary (cached: literals bisect into
+        it)."""
+        if self._dict_list is None and self.dictionary is not None:
+            self._dict_list = self.dictionary.to_pylist()
+        return self._dict_list
+
+    def literal_codes(self, lit: str) -> Tuple:
+        """(eq, lt, le) of a string literal against the sorted dictionary, as
+        0-d int32 tensors on the column's device, cached with the column:
+        eq is the literal's code (-1 when absent), lt its bisect-left and le
+        its bisect-right position."""
+        import bisect
+
+        got = self._literal_codes.get(lit)
+        if got is None:
+            uniq = self.dict_list()
+            i = bisect.bisect_left(uniq, lit)
+            j = bisect.bisect_right(uniq, lit)
+            eq = i if i < len(uniq) and uniq[i] == lit else -1
+            got = tuple(torch.tensor(x, dtype=torch.int32, device=self.values.device)
+                        for x in (eq, i, j))
+            self._literal_codes[lit] = got
+        return got
 
 
 def stage_np(s, bucket: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray, int]:
@@ -257,6 +289,8 @@ def _literal_fits_device(lit) -> bool:
     return True
 
 
+_CMP_OPS = ("==", "!=", "<", "<=", ">", ">=")
+_CMP_FLIP = {"<": ">", "<=": ">=", ">": "<", ">=": "<=", "==": "==", "!=": "!="}
 _CMP_FNS = {
     "==": lambda a, b: a == b, "!=": lambda a, b: a != b,
     "<": lambda a, b: a < b, "<=": lambda a, b: a <= b,
@@ -277,6 +311,30 @@ def _plain_string_column(node, schema) -> Optional[str]:
     return None
 
 
+def _string_cmp_shape(node, schema):
+    """(colname, literal_value, flipped) when ``node`` is a comparison
+    between a string Column and a string Literal (either side); else None.
+    These compile to dictionary-code comparisons with the literal's code
+    bounds injected per partition at staging time."""
+    from ..expressions import BinaryOp, Literal
+
+    if not (isinstance(node, BinaryOp) and node.op in _CMP_OPS):
+        return None
+
+    def lit_str(n):
+        return (isinstance(n, Literal)
+                and (n.value is None or isinstance(n.value, str))
+                and (n.dtype.is_string() or n.dtype.is_null()))
+
+    lcol = _plain_string_column(node.left, schema)
+    rcol = _plain_string_column(node.right, schema)
+    if lcol is not None and lit_str(node.right):
+        return lcol, node.right.value, False
+    if rcol is not None and lit_str(node.left):
+        return rcol, node.left.value, True
+    return None
+
+
 def expr_is_device_compilable(node, schema, _normalized: bool = False) -> bool:
     """Can this expression tree run fully on the device against ``schema``?"""
     from ..expressions import (Alias, Between, BinaryOp, Cast, Column, Literal,
@@ -294,7 +352,7 @@ def expr_is_device_compilable(node, schema, _normalized: bool = False) -> bool:
 
     def any_string_child(n) -> bool:
         # a string child would reach the device as dictionary codes, which
-        # no comparison or arithmetic of this slice interprets
+        # only the string-literal comparison shape interprets
         for c in n.children():
             try:
                 if c.to_field(schema).dtype.is_string():
@@ -318,17 +376,77 @@ def expr_is_device_compilable(node, schema, _normalized: bool = False) -> bool:
     if isinstance(node, Cast):
         return (not any_string_child(node) and is_device_dtype(node.dtype)
                 and rec(node.child))
+    if isinstance(node, BinaryOp) and _string_cmp_shape(node, schema) is not None:
+        return True
     if isinstance(node, (BinaryOp, Between)):
         return not any_string_child(node) and all(rec(c) for c in node.children())
     return False
 
 
+def _env_column(env):
+    """The first COLUMN entry of an env (it also carries the 0-d code
+    bounds of string literals, which have no row dimension)."""
+    for v in env.values():
+        if isinstance(v, tuple):
+            return v[0]
+    raise AssertionError("projection env has no column entries")
+
+
 def _env_nrows(env) -> int:
-    return next(iter(env.values()))[0].shape[0]
+    return _env_column(env).shape[0]
 
 
 def _env_device(env):
-    return next(iter(env.values()))[0].device
+    return _env_column(env).device
+
+
+def _strlit_keys(colname: str, lit: str) -> Tuple[str, str, str]:
+    """Env keys of a (column, literal) pair's code bounds: eq code (-1 when
+    absent), bisect-left position, bisect-right position."""
+    base = f"__strlit__\x00{colname}\x00{lit}"
+    return base + "\x00eq", base + "\x00lt", base + "\x00le"
+
+
+def collect_string_cmp_literals(nodes, schema):
+    """Every (colname, literal) string comparison in the (normalized) trees;
+    a null literal needs no bounds."""
+    from ..expressions import BinaryOp
+
+    out = []
+
+    def walk(n):
+        if isinstance(n, BinaryOp):
+            shape = _string_cmp_shape(n, schema)
+            if shape is not None and shape[1] is not None:
+                out.append((shape[0], shape[1]))
+        for c in n.children():
+            walk(c)
+
+    for nd in nodes:
+        walk(nd)
+    return out
+
+
+def string_literal_env(nodes, schema, dcs, env) -> Optional[dict]:
+    """Merge the per-partition code bounds of every string-literal
+    comparison into ``env`` ({key: 0-d int32 tensor}). The compiled closure
+    is shared across partitions: the literal's code varies, the program
+    does not. Returns the (possibly unchanged) env, or None when a needed
+    dictionary is missing (the caller declines to the host)."""
+    add: Dict[str, torch.Tensor] = {}
+    for colname, lit in collect_string_cmp_literals(nodes, schema):
+        keq, klt, kle = _strlit_keys(colname, lit)
+        if keq in add:
+            continue
+        dc = dcs.get(colname)
+        if dc is None or dc.dictionary is None:
+            return None
+        add[keq], add[klt], add[kle] = dc.literal_codes(lit)
+    if not add:
+        return env
+    merged = dict(env)
+    merged.update(add)
+    return merged
 
 
 def _compile_node(node, schema):
@@ -406,6 +524,36 @@ def _compile_node(node, schema):
         return run, out_dt
 
     if isinstance(node, BinaryOp):
+        shape = _string_cmp_shape(node, schema)
+        if shape is not None:
+            colname, lit, flipped = shape
+            cop = _CMP_FLIP[node.op] if flipped else node.op
+            if lit is None:
+                # a comparison with a null literal: an all-null result (SQL)
+                def run(env, _c=colname):
+                    z = torch.zeros_like(env[_c][1])
+                    return z, z
+
+                return run, out_dt
+            keq, klt, kle = _strlit_keys(colname, lit)
+
+            def run(env, _c=colname, _op=cop, _keq=keq, _klt=klt, _kle=kle):
+                codes, m = env[_c]
+                if _op == "==":
+                    out = codes == env[_keq]
+                elif _op == "!=":
+                    out = codes != env[_keq]
+                elif _op == "<":
+                    out = codes < env[_klt]
+                elif _op == ">=":
+                    out = codes >= env[_klt]
+                elif _op == "<=":
+                    out = codes < env[_kle]
+                else:  # ">"
+                    out = codes >= env[_kle]
+                return out, m
+
+            return run, out_dt
         lf, _ = _compile_node(node.left, schema)
         rf, _ = _compile_node(node.right, schema)
         op = node.op
@@ -720,6 +868,9 @@ def _stage_and_run(table, exprs, stage_cache: Optional[dict], device):
         return None
     env, dcs = staged
     if not int64_wrap_safe(nodes, schema, env, stage_cache, b):
+        return None
+    env = string_literal_env(nodes, schema, dcs, env)
+    if env is None:
         return None
     run, out_dts = compile_projection(nodes, schema, tuple(needed))
     return run(env), out_dts, nodes, dcs

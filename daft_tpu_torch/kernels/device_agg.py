@@ -24,10 +24,13 @@ With ``use_deep_fusion_kernel`` the float sums go to the deep-fused kernel
 K2 instead (fused_expr_sums.py), which evaluates the filter and the derived
 columns itself; a K2 failure raises, it never falls back to K1.
 
-Left out of this slice: the string-comparison and epoch lanes, transformed
-string keys, string min/max over anything but a plain string column, and
-``device_distinct_indices``. The reference's deep branch catches any
-exception and falls back to the batched kernel; that catch is not ported.
+``device_distinct_indices`` gives the first row of each distinct key tuple
+from the same group-codes kernel.
+
+Left out of this slice: the epoch, LUT, transform and joint-dictionary
+lanes, transformed string keys, and string min/max over anything but a
+plain string column. The reference's deep branch catches any exception and
+falls back to the batched kernel; that catch is not ported.
 """
 
 from __future__ import annotations
@@ -40,7 +43,8 @@ import torch
 from ..datatypes import DataType
 from .device import (_ONEHOT_MAX_SEGMENTS, _np, _plain_string_column, compile_projection,
                      device_required_columns, int64_wrap_safe, normalize_and_check,
-                     segment_reduce, size_bucket, stage_table_columns, unstage)
+                     segment_reduce, size_bucket, stage_table_columns, string_literal_env,
+                     unstage)
 
 # agg kinds with a device segment reduction. mean decomposes to sum+count.
 _DEVICE_AGG_KINDS = {"sum", "count", "min", "max", "mean"}
@@ -161,6 +165,24 @@ def _staged_group_lanes(table, keys, stage_cache, n: int, device):
     return packed[0]
 
 
+def device_distinct_indices(table, keys, stage_cache, n: int, device="cuda"):
+    """First-occurrence row indices of the distinct key tuples, computed on
+    the card by ``_group_codes_kernel`` (row order preserved: the contract
+    of ``Table.distinct``'s host dictionary encode). Several keys pack
+    mixed-radix, which is only null-faithful when every component is
+    null-free (a null component would merge (1, null) and (2, null)), so
+    nullable multi-key inputs decline to the host. Returns np.ndarray or
+    None."""
+    device = torch.device(device)
+    lanes = _staged_group_lanes(table, keys, stage_cache, n, device)
+    if lanes is None:
+        return None
+    vals, valid = lanes
+    _, num_groups, first_rows, _, _ = _group_codes_kernel(
+        vals, valid, torch.tensor(n, dtype=torch.int32, device=device))
+    return first_rows[:int(num_groups)].cpu().numpy()
+
+
 def group_codes_cached(table, group_by, stage_cache: Optional[dict], n: int,
                        b: int, device, stats=None):
     """(codes_dev, uniq Table|None, num_groups) for ``group_by`` over
@@ -271,6 +293,9 @@ def device_grouped_agg_async(table, to_agg, group_by, stage_cache: Optional[dict
     env, dcs = staged
     if not int64_wrap_safe(check_nodes, schema, env, stage_cache, b):
         return None  # int64 arithmetic could wrap in int32 lanes
+    env = string_literal_env(check_nodes, schema, dcs, env)
+    if env is None:
+        return None  # a string comparison lost its dictionary
 
     kinds = tuple(s[1] for s in specs)
     modes = tuple(s[3] for s in specs)
@@ -334,8 +359,10 @@ def _compile_agg(child_nodes, pred_node, schema, input_names, kinds, modes, gb,
 
     In the 32-bit mode every float sum rides ONE launch of a segment-sums
     kernel when the padded row count is a multiple of 1024 and there are at
-    most 4096 group slots. With ``use_deep`` (and every env entry a plain 1-D
-    (values, valid) pair) that kernel is K2 (fused_expr_sums.py): it
+    most 4096 group slots. With ``use_deep`` (every env entry a plain 1-D
+    (values, valid) pair, so no string-literal code bounds, and no
+    string-literal comparison in the program, which K2's emitter does not
+    take) that kernel is K2 (fused_expr_sums.py): it
     evaluates the predicate and the float sum columns from the staged
     columns itself, and torch computes only their validity for the counts.
     Otherwise torch derives and masks the columns and K1 sums them. A K2
@@ -353,13 +380,20 @@ def _compile_agg(child_nodes, pred_node, schema, input_names, kinds, modes, gb,
         pred_run, _ = compile_projection([pred_node], schema, input_names)
 
     from . import fused_expr_sums as fes
-    from .device import _compile_node, compile_validity
+    from .device import _compile_node, _string_cmp_shape, compile_validity
     from . import segment_sums
     from .segment_sums import BLOCK_ROWS
 
     child_fns = [_compile_node(nd, schema)[0] for nd in child_nodes]
     valid_fns = [compile_validity(nd, schema) for nd in child_nodes]
     deep_buckets = set()  # padded row counts this program has run deep at
+
+    def has_string_cmp(nd) -> bool:
+        return (_string_cmp_shape(nd, schema) is not None
+                or any(has_string_cmp(c) for c in nd.children()))
+
+    deep_ok = not any(has_string_cmp(nd) for nd in
+                      list(child_nodes) + ([pred_node] if pred_node is not None else []))
     deep_by_dtypes: Dict = {}
 
     def deep_plan(env):
@@ -388,7 +422,7 @@ def _compile_agg(child_nodes, pred_node, schema, input_names, kinds, modes, gb,
             sel = inbounds
         kernel_ok = (use_kernel and b >= BLOCK_ROWS and b % BLOCK_ROWS == 0
                      and gb <= _ONEHOT_MAX_SEGMENTS)
-        deep = (kernel_ok and use_deep
+        deep = (kernel_ok and use_deep and deep_ok
                 and all(isinstance(v, tuple) and v[0].dim() == 1 for v in env.values()))
         slots, prog = deep_plan(env) if deep else ([], None)
         # children the kernel does not sum go through their torch closures

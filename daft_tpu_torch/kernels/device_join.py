@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from .device import (compile_projection, int64_wrap_safe, normalize_and_check,
-                     size_bucket, stage_table_columns)
+                     size_bucket, stage_table_columns, string_literal_env)
 
 
 def _stage_key(table, key_expr, cache, device) -> Optional[Tuple]:
@@ -57,9 +57,15 @@ def _stage_key(table, key_expr, cache, device) -> Optional[Tuple]:
     staged = stage_table_columns(table, cols, b, cache, device)
     if staged is None:
         return None
-    env, _dcs = staged
+    env, dcs = staged
     if not int64_wrap_safe([node], schema, env, cache, b):
         return None  # a computed int64 key could wrap in int32 lanes
+    # an integer key may embed a string-literal comparison
+    # ((col("s") == "a").cast(int)): its closure reads the literal's code
+    # bounds in this partition's dictionary
+    env = string_literal_env([node], schema, dcs, env)
+    if env is None:
+        return None
     run, _ = compile_projection([node], schema, tuple(sorted(cols)))
     (vals, valid), = run(env)
     if vals.is_floating_point() or vals.dtype == torch.bool:

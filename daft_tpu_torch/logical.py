@@ -2,20 +2,87 @@
 of daft_tpu/logical.py). Every node resolves and validates its output schema
 at construction time, so API misuse fails at build time, not at collect time.
 
-This slice carries InMemorySource, Project, Filter, Limit, Sort, Aggregate
-and Join (with the size estimate the join planner reads). Left out until a
-later slice: scans, repartition, distinct, sample, concat,
-explode/unpivot/pivot, monotonic ids and writes, the row-count estimates and
-the expression-analysis helpers the optimizer uses.
+This slice carries InMemorySource, Project, Filter, Limit, Sort,
+Repartition (the hash scheme), Distinct, Aggregate and Join (with the size
+estimate the join planner reads), and the expression-analysis helpers the
+optimizer (optimizer.py) uses. Left out until a later slice: scans, the
+random, range and into repartition schemes, sample, concat,
+explode/unpivot/pivot, monotonic ids and writes, and the row-count estimates.
 """
 
 from __future__ import annotations
 
-from typing import Any, List, Optional
+from typing import Any, Dict, List, Optional
 
 from .datatypes import try_unify
-from .expressions import Expression
+from .expressions import AggExpr, Alias, Column, Expression
 from .schema import Field, Schema
+
+
+# ---------------------------------------------------------------------------
+# expression analysis
+# ---------------------------------------------------------------------------
+
+def expr_input_columns(e: Expression) -> List[str]:
+    """Column names an expression reads (order of first reference)."""
+    out: List[str] = []
+
+    def walk(n):
+        if isinstance(n, Column):
+            if n.cname not in out:
+                out.append(n.cname)
+        for c in n.children():
+            walk(c)
+
+    walk(e._node)
+    return out
+
+
+def substitute_columns(e: Expression, mapping: Dict[str, Expression]) -> Expression:
+    """Replace col(name) references with the mapped defining expressions."""
+
+    def walk(n):
+        if isinstance(n, Column) and n.cname in mapping:
+            return mapping[n.cname]._node
+        kids = n.children()
+        if not kids:
+            return n
+        return n.with_children([walk(c) for c in kids])
+
+    return Expression(walk(e._node))
+
+
+def expr_has_special(e: Expression) -> bool:
+    """True if the expression contains an aggregation (not freely movable).
+    The reference also counts UDFs, which the port does not have yet."""
+    found = [False]
+
+    def walk(n):
+        if isinstance(n, AggExpr):
+            found[0] = True
+        for c in n.children():
+            walk(c)
+
+    walk(e._node)
+    return found[0]
+
+
+def is_trivial_passthrough(e: Expression) -> Optional[str]:
+    """If the expression is just col(x) (possibly aliased to the same name),
+    return x; else None."""
+    n = e._node
+    alias = None
+    while isinstance(n, Alias):
+        alias = n.alias
+        n = n.child
+    if isinstance(n, Column) and (alias is None or alias == n.cname):
+        return n.cname
+    return None
+
+
+# ---------------------------------------------------------------------------
+# plan nodes
+# ---------------------------------------------------------------------------
 
 
 class LogicalPlan:
@@ -34,6 +101,10 @@ class LogicalPlan:
 
     def multiline_display(self) -> List[str]:
         return [self.name()]
+
+    def num_partitions(self) -> int:
+        ch = self.children()
+        return max((c.num_partitions() for c in ch), default=1)
 
     def approx_size_bytes(self) -> Optional[int]:
         """Estimated output bytes (what the join planner compares against
@@ -67,6 +138,9 @@ class InMemorySource(LogicalPlan):
     def with_children(self, children):
         assert not children
         return self
+
+    def num_partitions(self) -> int:
+        return max(len(self.partitions), 1)
 
     def approx_size_bytes(self):
         return sum(p.size_bytes() for p in self.partitions)
@@ -158,6 +232,51 @@ class Sort(UnaryNode):
         return [f"Sort: {keys}"]
 
 
+class Repartition(UnaryNode):
+    """A hash repartition on ``by`` into ``num`` partitions (None keeps the
+    input's count). The reference's random, range and into schemes come
+    with the shuffles between partitions (ROADMAP Queue 1, item 9)."""
+
+    def __init__(self, input: LogicalPlan, scheme: str, num: Optional[int],
+                 by: Optional[List[Expression]] = None):
+        super().__init__(input)
+        if scheme not in ("hash", "random", "range", "into"):
+            raise ValueError(f"unknown repartition scheme {scheme!r}")
+        if scheme != "hash":
+            raise NotImplementedError(
+                f"the {scheme!r} repartition scheme comes with a later slice of the port "
+                "(ROADMAP Queue 1, item 9: shuffles between partitions)")
+        if not by:
+            raise ValueError("hash repartition requires partition-by expressions")
+        self.scheme = scheme
+        self.num = num
+        self.by = by
+        self.schema = input.schema
+
+    def with_children(self, c):
+        return Repartition(c[0], self.scheme, self.num, self.by)
+
+    def num_partitions(self) -> int:
+        return self.num if self.num is not None else self.input.num_partitions()
+
+    def multiline_display(self):
+        by = ", ".join(e._node.display() for e in self.by)
+        return [f"Repartition: {self.scheme} num={self.num}" + (f" by=[{by}]" if by else "")]
+
+
+class Distinct(UnaryNode):
+    """The first row of each distinct tuple of ``subset`` (every column when
+    None), in input order."""
+
+    def __init__(self, input: LogicalPlan, subset: Optional[List[Expression]] = None):
+        super().__init__(input)
+        self.subset = subset
+        self.schema = input.schema
+
+    def with_children(self, c):
+        return Distinct(c[0], self.subset)
+
+
 class Aggregate(UnaryNode):
     def __init__(self, input: LogicalPlan, aggregations: List[Expression],
                  groupby: List[Expression]):
@@ -244,6 +363,9 @@ class Join(LogicalPlan):
 
     def children(self):
         return [self.left, self.right]
+
+    def num_partitions(self) -> int:
+        return max(self.left.num_partitions(), self.right.num_partitions())
 
     def with_children(self, c):
         return Join(c[0], c[1], self.left_on, self.right_on, self.how, self.strategy,

@@ -81,6 +81,9 @@ class MicroPartition:
     def agg(self, to_agg, group_by=None) -> "MicroPartition":
         return MicroPartition.from_table(self.table().agg(to_agg, group_by))
 
+    def distinct(self, subset=None) -> "MicroPartition":
+        return MicroPartition.from_table(self.table().distinct(subset))
+
     def take(self, indices) -> "MicroPartition":
         return MicroPartition.from_table(self.table().take(indices))
 

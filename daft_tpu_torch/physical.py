@@ -13,11 +13,20 @@ DeviceSegmentOps (fuse/segment.py), in the reference's order. A join plans
 as a BroadcastJoinOp when the side to replicate is estimated at most
 ``broadcast_join_size_bytes_threshold`` bytes, a HashJoinOp otherwise; both
 run each partition pair through the device probe
-(``ExecutionContext.eval_join_dispatch``) or the host join. TPC-H Q3 at SF1
-plans as Limit <- Sort <- Project <- DeviceSegment <- HashJoin(
-BroadcastJoin(Filter(orders), Filter(customer)), Filter(lineitem)); with no
-optimizer to prune columns, no Project sits over the filters, so they stay
-single ops (no FusedMap) and run on the host.
+(``ExecutionContext.eval_join_dispatch``) or the host join. ``translate``
+takes the optimized plan (optimizer.py), whose column pruning puts a
+Project over each join side: TPC-H Q3 plans as Limit <- Sort <- Project <-
+DeviceSegment <- BroadcastJoin(BroadcastJoin(FusedMap(orders),
+FusedMap(customer)), FusedMap(lineitem)) at SF0.01, each FusedMap a
+filter between pruning Projects that runs as one device program.
+
+A lone FilterOp or ProjectOp runs on the card through
+``ExecutionContext.eval_filter_dispatch`` / ``eval_projection_dispatch``
+(the filter's mask computed on the card, the compaction on the host), and
+a DistinctOp through ``eval_distinct`` (the first row of each key tuple
+from the group-codes kernel). A Distinct over several partitions plans as
+DistinctOp per partition, a hash ShuffleOp on the keys, and DistinctOp
+again; a hash Repartition is a ShuffleOp.
 
 An aggregate over more than one partition plans in two stages, as the
 reference's ``_translate_aggregate`` does: stage 1 aggregates each partition
@@ -37,17 +46,17 @@ random shuffles (a multi-partition sort gathers its input into one
 partition; a hash join whose inputs have more than one partition gathers
 each side into one partition instead of the hash exchange that
 co-partitions them); the sort-merge and cross joins, the runtime join
-filter, feedback-directed join planning, distinct/explode/pivot/sample/write
-ops, the optimizer, the worker pool, streaming and batched UDFs.
+filter, feedback-directed join planning, explode/pivot/sample/write ops,
+the worker pool, streaming and batched UDFs.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, List, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 from .expressions import AggExpr, Alias, Expression, col
-from .logical import (Aggregate, Filter, InMemorySource, Join, Limit, LogicalPlan, Project,
-                      Sort)
+from .logical import (Aggregate, Distinct, Filter, InMemorySource, Join, Limit, LogicalPlan,
+                      Project, Repartition, Sort)
 from .micropartition import MicroPartition
 from .schema import Schema
 
@@ -155,6 +164,14 @@ class ProjectOp(PhysicalOp):
         self.exprs = exprs
 
     def map_partition(self, part, ctx):
+        return ctx.eval_projection(part, self.exprs)
+
+    def map_partition_dispatch(self, part, ctx):
+        return ctx.eval_projection_dispatch(part, self.exprs)
+
+    def map_partition_declined(self, part, ctx):
+        # the dispatch already found this partition device-ineligible: go
+        # straight to the host instead of staging it again
         ctx.stats.bump("host_projections")
         return part.eval_expression_list(self.exprs)
 
@@ -171,6 +188,13 @@ class FilterOp(PhysicalOp):
         self.predicate = predicate
 
     def map_partition(self, part, ctx):
+        return ctx.eval_filter(part, self.predicate)
+
+    def map_partition_dispatch(self, part, ctx):
+        return ctx.eval_filter_dispatch(part, self.predicate)
+
+    def map_partition_declined(self, part, ctx):
+        # the dispatch already found this partition device-ineligible
         ctx.stats.bump("host_filters")
         return part.filter([self.predicate])
 
@@ -275,6 +299,18 @@ class FusedFilterAggregateOp(AggregateOp):
         g = ", ".join(e._node.display() for e in self.groupby)
         return (f"FusedFilterAggregate: where {self.predicate._node.display()} agg {a}"
                 + (f" by [{g}]" if g else ""))
+
+
+class DistinctOp(PhysicalOp):
+    """Per-partition distinct over ``subset`` (every column when None)."""
+
+    def __init__(self, child: PhysicalOp, subset: Optional[List[Expression]]):
+        super().__init__([child], child.schema, child.num_partitions)
+        self.subset = subset
+
+    def execute(self, inputs, ctx) -> PartStream:
+        for part in inputs[0]:
+            yield ctx.eval_distinct(part, self.subset)
 
 
 class GatherOp(PhysicalOp):
@@ -474,6 +510,17 @@ def _translate(plan: LogicalPlan, cfg) -> PhysicalOp:
     if isinstance(plan, Sort):
         return SortOp(_gathered(_translate(plan.input, cfg)), plan.sort_by,
                       plan.descending, plan.nulls_first)
+    if isinstance(plan, Repartition):
+        child = _translate(plan.input, cfg)
+        num = plan.num if plan.num is not None else child.num_partitions
+        return ShuffleOp(child, num, plan.by)
+    if isinstance(plan, Distinct):
+        child = _translate(plan.input, cfg)
+        out = DistinctOp(child, plan.subset)
+        if child.num_partitions > 1:
+            keys = plan.subset or [col(c) for c in plan.schema.field_names()]
+            out = DistinctOp(ShuffleOp(out, child.num_partitions, keys), plan.subset)
+        return out
     if isinstance(plan, Aggregate):
         return _translate_aggregate(plan, cfg)
     if isinstance(plan, Join):

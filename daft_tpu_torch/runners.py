@@ -1,8 +1,10 @@
 """Runners: plan a query and execute it (the port's copy of the part of
 daft_tpu/runners.py this slice runs).
 
-Left out of this slice: the plan and result caches, feedback-directed
-planning, adaptive execution, and the mesh and distributed runners.
+Planning is the reference's cold path: ``optimize``, then ``translate``
+(which fuses). Left out of this slice: the plan and result caches,
+feedback-directed planning, adaptive execution, and the mesh and
+distributed runners.
 """
 
 from __future__ import annotations
@@ -38,7 +40,8 @@ class PartitionSet:
 
 
 class NativeRunner:
-    """Single-process runner: translate, then execute sequentially."""
+    """Single-process runner: optimize, translate, then execute
+    sequentially."""
 
     name = "native"
 
@@ -47,7 +50,8 @@ class NativeRunner:
 
     def run_iter(self, plan: LogicalPlan,
                  stats: Optional[RuntimeStats] = None) -> Iterator[MicroPartition]:
+        from .optimizer import optimize
         from .physical import translate
 
         ctx = ExecutionContext(get_context().execution_config, stats or RuntimeStats())
-        return execute_plan(translate(plan, ctx.cfg, ctx.stats), ctx)
+        return execute_plan(translate(optimize(plan), ctx.cfg, ctx.stats), ctx)

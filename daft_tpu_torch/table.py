@@ -228,6 +228,17 @@ class Table:
                 out.append(Series(c._name, c._dtype, arr))
         return Table(self.schema, out)
 
+    def distinct(self, subset: Optional[Sequence[Expression]] = None) -> "Table":
+        """The first row of each distinct tuple of ``subset`` (every column
+        when None), in row order; null keys form one group."""
+        exprs = _as_expressions(subset) if subset else [col(n) for n in self.column_names]
+        codes, _uniq = _group_codes(self.eval_expression_list(exprs))
+        if len(codes) == 0:
+            return self
+        _, first_idx = np.unique(codes, return_index=True)
+        return self.take(Series.from_arrow(pa.array(np.sort(first_idx).astype(np.uint64)),
+                                           "idx"))
+
     def take(self, indices: Series) -> "Table":
         return Table(self.schema, [c.take(indices) for c in self._columns])
 

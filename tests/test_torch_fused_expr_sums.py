@@ -154,8 +154,9 @@ def test_deep_fused_q1_shape_parity_and_engagement():
 
 
 def test_string_literal_predicate_does_not_engage_deep_kernel():
-    # the reference's K2 declines on the string-literal env extras; the port
-    # has no string-literal lanes yet, so the whole plan runs on the host
+    # K2 declines on the string-literal env extras in both packages: the
+    # aggregate runs on the card with its filter's code bounds in the env,
+    # and its float sum takes K1
     table = _q1_shape()
 
     def query(col):
@@ -165,8 +166,9 @@ def test_string_literal_predicate_does_not_engage_deep_kernel():
     ref, got, counters, engaged = _run_both(table, query(daft_tpu.col),
                                             query(daft_tpu_torch.col))
     _assert_same(ref, got)
-    assert engaged == {"ref_traces": 0, "builds": 0, "k2_entries": 0, "k1_entries": 0}
-    assert counters.get("host_aggregations") == 1
+    assert engaged == {"ref_traces": 0, "builds": 0, "k2_entries": 0, "k1_entries": 1}
+    assert counters.get("device_aggregations") == 1
+    assert counters.get("device_agg_fallbacks", 0) == 0
 
 
 # ---------------------------------------------------------------------------

@@ -80,7 +80,11 @@ def _nullable(pkg, values, name, dtype="int64"):
 _SHARED = ("broadcast_joins", "device_join_dispatches", "device_join_probes",
            "device_aggregations", "device_group_codes", "device_resident_segments",
            "device_handoffs_elided", "segment_compiles", "segment_dispatches",
-           "device_sorts", "host_sorts", "host_joins", "device_agg_fallbacks")
+           "device_sorts", "host_sorts", "host_joins", "device_agg_fallbacks",
+           "fused_chains", "fused_ops_eliminated", "device_fused_maps",
+           "device_fused_map_dispatches", "host_fused_maps", "device_filters",
+           "device_filter_dispatches", "host_filters", "device_projections",
+           "device_projection_dispatches", "host_projections")
 
 
 @pytest.fixture(scope="module")
@@ -129,18 +133,21 @@ def test_tpch_join_query_matches_reference(tables, query):
     gc, rc = _counters(got), _counters(ref)
     assert {k: gc.get(k, 0) for k in _SHARED} == {k: rc.get(k, 0) for k in _SHARED}
     assert gc["device_join_probes"] == {"q3": 2, "q5": 3}[query]
-    # Differences, each with its reason:
-    # - the runtime join filter (K10, exchange/joinfilter.py) is not ported:
-    #   the reference prunes probe rows with it, which leaves results as they are
+    # The one difference, with its reason: the runtime join filter (K10,
+    # exchange/joinfilter.py) is not ported; the reference prunes probe rows
+    # with it, which leaves results as they are
     assert rc.get("join_filter_built", 0) >= 1 and "join_filter_built" not in gc
-    # - the optimizer is not ported: its column pruning puts a Project over
-    #   each filtered join side, and the reference fuses that chain into a
-    #   FusedMap that runs on the card (its string filter, c_mktsegment ==
-    #   "BUILDING" in Q3, through the string-literal lanes, which the port
-    #   does not have either). The port's join sides are single filters,
-    #   which run on the host.
-    assert rc.get("device_fused_maps", 0) >= 1 and "device_fused_maps" not in gc
-    assert gc["host_filters"] == {"q3": 3, "q5": 2}[query]
+    # both optimizers prune each join side under a Project; the chains fuse
+    # and run on the card (Q3's c_mktsegment == "BUILDING" through the
+    # string-literal lane; Q5's 25-row nation chain stays on the host)
+    assert {k: gc.get(k, 0) for k in ("fused_chains", "device_fused_maps",
+                                        "device_filters", "host_filters",
+                                        "device_projections", "host_projections")} == {
+        "q3": {"fused_chains": 3, "device_fused_maps": 3, "device_filters": 3,
+               "host_filters": 0, "device_projections": 6, "host_projections": 0},
+        "q5": {"fused_chains": 2, "device_fused_maps": 1, "device_filters": 1,
+               "host_filters": 1, "device_projections": 4, "host_projections": 1},
+    }[query]
     # - the group codes take the device route in both packages at this
     #   scale (Q3's three keys pack into one int32 lane; Q5's key is a string)
     assert gc["device_group_codes"] == 1

@@ -9,10 +9,9 @@ group order, counts and int sums match exactly; float aggregates agree at
 rtol 1e-6, with each other and with the pyarrow oracle; the fusion and
 residency counters are equal, and so is the deep kernel's engagement.
 
-tests/test_segment.py's query shape runs on ONE partition: the port gathers
-a multi-partition input before its aggregate, so a segment forms over a
-single partition. Its fusion counters differ from the reference's, whose
-optimizer (not ported yet) rewrites that plan before fusion.
+tests/test_segment.py's query shape runs on ONE partition. Both packages
+optimize it before fusion (the filter moves below the projection), so its
+fusion counters are equal too.
 """
 
 import dataclasses
@@ -150,10 +149,14 @@ def test_map_chain_fuses_with_masks_and_carries():
     from daft_tpu_torch.physical import translate
 
     table = _data("some")
-    ref, _rc, got, got_c, _t, _b = _run_both(table, _chain)
+    ref, ref_c, got, got_c, _t, _b = _run_both(table, _chain)
     assert got == ref
-    assert got_c.get("fused_chains") == 1 and got_c.get("fused_ops_eliminated") == 4
+    # both optimizers merge the two filters before fusion: four ops, one chain
+    for name in ("fused_chains", "fused_ops_eliminated", "cse_hits"):
+        assert got_c.get(name, 0) == ref_c.get(name, 0), (name, got_c, ref_c)
+    assert got_c.get("fused_chains") == 1 and got_c.get("fused_ops_eliminated") == 3
     assert got_c.get("device_fused_map_dispatches") == 1
+    # the unoptimized five-op chain, translated as written
     fused = translate(_chain(daft_tpu_torch.from_arrow(table), daft_tpu_torch.col)._plan)
     assert isinstance(fused, FusedMapOp)
     assert fused.program.n_masks == 1 and fused.program.graph.carries == 1
@@ -207,11 +210,10 @@ def test_segment_query_matches_reference(nulls):
     _assert_same(ref, got)
     for name in ("device_resident_segments", "device_handoffs_elided", "segment_dispatches"):
         assert got_c.get(name, 0) == ref_c.get(name, 0) == 1, (name, got_c, ref_c)
-    # the fusion counters differ by plan: the reference's optimizer pushes
-    # the filter below the projection (a two-op chain that fuses, with the
-    # shared `w` a CSE hit); the port has no optimizer yet and plans the
-    # segment over the single Project
-    assert (ref_c.get("fused_chains"), got_c.get("fused_chains", 0)) == (1, 0)
+    # both optimizers push the filter below the projection: a two-op chain
+    # that fuses, with the shared `w` a CSE hit
+    assert got_c.get("fused_chains", 0) == ref_c.get("fused_chains") == 1
+    assert got_c.get("cse_hits", 0) == ref_c.get("cse_hits", 0)
 
 
 def _assert_close(a: dict, b: dict):
