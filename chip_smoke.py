@@ -5,7 +5,7 @@ kernels build for sm_90a):
 
     python3 chip_smoke.py                # every phase, TPC-H SF1 and SF10
     python3 chip_smoke.py --scales 1     # a shorter run: SF1 only
-    python3 chip_smoke.py --profile      # also trace warm Q1/Q6 (1 and 4 partitions), deep Q1, Q3 and Q5 at the first scale, with Q3's and Q5's phases
+    python3 chip_smoke.py --profile      # also trace warm Q1/Q6 (1 and 4 partitions), deep Q1, Q3 and Q5 at the first scale, with Q3's and Q5's phases, and the five slowest of the 22 queries
     python3 chip_smoke.py --kernels-only # phases 1 and 2 only, for iterating on a kernel
 
 Phases, each of which fails the run:
@@ -52,7 +52,20 @@ Phases, each of which fails the run:
      join, sort and routing counters of the optimized plan), and time them
      warm. At every scale the scatter kernel is also held against its plain
      version and timed at the operands the engine handed it in Q3, and K1
-     held against its plain version at the operands of Q5.
+     held against its plain version at the operands of Q5;
+  4. the 22 queries of benchmarks/tpch_queries.py (parsed with col and lit
+     bound to daft_tpu_torch, tpch22_module) on the card with
+     device_min_rows=8: at SF0.005 with lineitem, orders, customer and
+     partsupp in 3 partitions (into_partitions) against the SQLite oracle,
+     and at SF1 (one partition per table, tables generated by a background
+     process started at the top of the run) against the port's host path,
+     each under tests/device32/test_tpch_suite32.py's rule; each SF1 query
+     cold and warm (median of 3) with its routing counters and K1's, K2's
+     and the scatter kernel's launches (set to 0 just before the query),
+     device_agg_fallbacks 0, the new lanes' filters on the card, and float
+     sums through K1 or the scatter kernel where the CPU tests put them.
+     With --profile, the phase breakdown and device profile of the five
+     slowest warm queries.
 
 The last line of standard output is {"ok": true, "device": {...}} when every
 phase passed; the exit code is 0 only then. The line before it is the card's
@@ -186,6 +199,27 @@ def q5(customer, orders, lineitem, nation):
     )
 
 
+def tpch22_module(path: str = "benchmarks/tpch_queries.py"):
+    """The 22 TPC-H queries of ``benchmarks/tpch_queries.py`` (``QUERIES``,
+    ``SQL``) with ``col`` and ``lit`` bound to daft_tpu_torch. That file
+    imports them from daft_tpu, which imports jax: its text is parsed, that
+    one import is dropped, and the rest runs in a fresh namespace."""
+    import ast
+    import os
+    import types
+
+    import daft_tpu_torch
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), path)) as f:
+        tree = ast.parse(f.read(), path)
+    tree.body = [st for st in tree.body
+                 if not (isinstance(st, ast.ImportFrom) and st.module == "daft_tpu")]
+    mod = types.ModuleType("tpch_queries_torch")
+    mod.col, mod.lit = daft_tpu_torch.col, daft_tpu_torch.lit
+    exec(compile(tree, path, "exec"), mod.__dict__)
+    return mod
+
+
 def parity(got: dict, want: dict, rtol: float) -> bool:
     """bench.py's _parity rule: same keys and lengths, floats within
     max(rtol * |want|, 1e-6), everything else equal."""
@@ -315,7 +349,22 @@ class Phases:
 # phase 1: builds
 # ---------------------------------------------------------------------------
 
-DEEP_PLANS = {"q1": q1, "q6": q6, "q1_with_columns": q1_with_columns}
+def q1_new_nodes(lineitem):
+    """A deep program at the Q1 shape whose sum holds an if_else under a
+    numeric is_in filter: the nodes K2's emitter took on with the
+    expression function surface."""
+    from daft_tpu_torch import col
+
+    rev = (col("l_discount") > 0.05).if_else(
+        col("l_extendedprice") * (1 - col("l_discount")), 0.0)
+    return (lineitem.where(col("l_quantity").is_in([1, 5, 24]))
+            .groupby("l_returnflag", "l_linestatus")
+            .agg(rev.sum().alias("rev"))
+            .sort(["l_returnflag", "l_linestatus"]))
+
+
+DEEP_PLANS = {"q1": q1, "q6": q6, "q1_with_columns": q1_with_columns,
+              "q1_new_nodes": q1_new_nodes}
 
 
 def edge_specs():
@@ -642,7 +691,7 @@ def phase_k2(ph: Phases, lineitem, edges: dict) -> dict:
              "replaces": "daft_tpu/kernels/pallas_ops.py:86"}
     frame = dtt.from_arrow(lineitem).collect()
     shapes = {}
-    for qname, plan in (("q1", q1), ("q6", q6)):
+    for qname, plan in (("q1", q1), ("q6", q6), ("q1_new_nodes", q1_new_nodes)):
         prog, codes, env, n, g = capture_k2_operands(frame, plan)
         print(f"K2 {qname} operands: n={n} padded to {codes.shape[0]}, G={g}, K={prog.k}, "
               "columns " + ", ".join(f"{nm} {env[nm][0].dtype}" for nm in prog.names),
@@ -652,6 +701,8 @@ def phase_k2(ph: Phases, lineitem, edges: dict) -> dict:
         shapes[qname].update(loop=loop_name(g, prog.k), **time_k2(prog, codes, env, n, g))
         print(f"K2 timing {qname} " + json.dumps(shapes[qname]), flush=True)
     entry.update(shapes["q1"])
+    entry["q6_shape"] = shapes["q6"]
+    entry["q1_new_nodes_shape"] = shapes["q1_new_nodes"]
     del frame
     torch.cuda.empty_cache()
 
@@ -1174,8 +1225,8 @@ def join_breakdown(run, reps: int = 3) -> dict:
     fetch and the host compaction), the single projections and filters
     dispatched to the card (launch and resolve), the key staging and probe
     launch, the probe's resolve (its sync and fetch), the host assembly of
-    the join's output, the filters and fused chains that run on the host,
-    the plan segment (launch and fetch) and the sort."""
+    the join's output, the filters, fused chains and aggregations that run
+    on the host, the plan segment (launch and fetch) and the sort."""
     import torch
 
     from daft_tpu_torch import execution, physical
@@ -1209,7 +1260,8 @@ def join_breakdown(run, reps: int = 3) -> dict:
                (ctx, "_assemble_join", "join assembly (host)", None),
                (ctx, "eval_sort", "sort", None),
                (physical.FilterOp, "map_partition_declined", "filters (host)", None),
-               (ctx, "_eval_fused_host", "fused maps (host)", None)]
+               (ctx, "_eval_fused_host", "fused maps (host)", None),
+               (ctx, "_eval_agg_host", "aggregations (host)", None)]
     saved = [(obj, name, getattr(obj, name)) for obj, name, _l, _r in patches]
     try:
         for obj, name, label, resolve_label in patches:
@@ -1331,6 +1383,252 @@ def phase_joins(ph: Phases, scale: float, card: str, profile: bool) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 4: the 22 TPC-H queries of benchmarks/tpch_queries.py
+# ---------------------------------------------------------------------------
+
+TPCH22_BIG_TABLES = ("lineitem", "orders", "customer", "partsupp")
+# queries whose float sums run on the card in the CPU tests at SF0.005
+# (tests/test_torch_tpch22.py, device_min_rows=8): through K1 there; at SF1
+# an aggregate of more than 4096 groups sums through the scatter kernel
+TPCH22_CARD_SUMS = (1, 3, 5, 6, 7, 8, 9, 10, 11, 14, 15, 17, 18, 19, 22)
+# of those, the ones with a float sum over at most 4096 groups at SF1 (Q3,
+# Q10, Q15 and Q18 group by an order, customer or supplier key; Q17's
+# average groups by part key, and its final sum / 7.0 runs on the host)
+TPCH22_K1 = (1, 5, 6, 7, 8, 9, 11, 14, 19, 22)
+# queries whose filters take the new dictionary and is_in lanes, all of
+# them on the card in the CPU tests: none of their filters may run on the host
+TPCH22_LANE_FILTERS = (9, 12, 13, 14, 16, 19)
+# (device_aggregations, host_aggregations) of each query, one partition per
+# table: tests/test_torch_tpch22.py holds the port's counters at SF0.005 to
+# these and to the reference's; the same routes hold at SF1. Q16's grouped
+# count_distinct, and Q17's, Q21's and Q22's aggregates over a host input,
+# run on the host in both packages
+TPCH22_AGG_ROUTES = {1: (1, 0), 2: (1, 0), 3: (1, 0), 4: (1, 0), 5: (1, 0), 6: (1, 0),
+                     7: (1, 0), 8: (1, 0), 9: (1, 0), 10: (1, 0), 11: (1, 0), 12: (1, 0),
+                     13: (2, 0), 14: (1, 0), 15: (1, 0), 16: (0, 1), 17: (1, 1), 18: (2, 0),
+                     19: (1, 0), 20: (1, 0), 21: (1, 2), 22: (0, 1)}
+# (device_fused_maps, host_fused_maps) of the queries whose chains take the
+# new lanes, held the same way
+TPCH22_LANE_MAPS = {9: (1, 0), 12: (1, 0), 13: (1, 0), 14: (1, 0), 16: (2, 0), 19: (1, 0)}
+TPCH22_COUNTERS = ("device_aggregations", "host_aggregations", "device_agg_fallbacks",
+                   "device_join_probes", "host_joins", "device_sorts", "host_sorts",
+                   "device_group_codes", "device_resident_segments", "segment_fallbacks",
+                   "shuffles") + ROUTE_COUNTERS
+
+
+def _generate_into(queue, scale: float, seed: int) -> None:
+    """Target of the background process that generates the TPC-H tables."""
+    from benchmarks import tpch_full
+
+    queue.put(tpch_full.generate(scale=scale, seed=seed))
+
+
+class BackgroundTables:
+    """``benchmarks.tpch_full.generate`` in a spawned process, so that its
+    per-row Python loops (about two minutes at SF1) overlap the earlier
+    phases on another core; ``get`` waits for the tables and stops the
+    process, ``stop`` stops it in any case."""
+
+    def __init__(self, scale: float, seed: int):
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self.queue = ctx.Queue()
+        self.proc = ctx.Process(target=_generate_into, args=(self.queue, scale, seed),
+                                daemon=True)
+        self.started = time.perf_counter()
+        self.proc.start()
+
+    def get(self, timeout: float = 900.0) -> dict:
+        tables = self.queue.get(timeout=timeout)  # drained before the join
+        self.proc.join(timeout=60)
+        return tables
+
+    def stop(self) -> None:
+        if self.proc.is_alive():
+            self.proc.terminate()
+            self.proc.join(timeout=30)
+
+
+def tpch22_rows(rows) -> list:
+    """tests/device32/test_tpch_suite32.py's normal form of ``rows`` (an
+    iterable of tuples): floats rounded to 2 decimals, dates as ISO text,
+    rows sorted."""
+    def norm(v):
+        if isinstance(v, float):
+            return round(v, 2)
+        if isinstance(v, (datetime.date, datetime.datetime)):
+            return v.isoformat()[:10]
+        return v
+
+    def key(r):
+        return tuple((x is None, repr(type(x)), x if x is not None else 0) for x in r)
+
+    return sorted([tuple(norm(v) for v in row) for row in rows], key=key)
+
+
+def tpch22_match(got: list, want: list) -> bool:
+    """The suite32 rule: the same rows, floats within max(5e-4 relative,
+    0.02) of each other."""
+    if len(got) != len(want):
+        return False
+    for a, b in zip(got, want):
+        for x, y in zip(a, b):
+            if isinstance(x, float) or isinstance(y, float):
+                if x is None or y is None or abs(float(x) - float(y)) > max(
+                        5e-4 * abs(float(y)), 0.02):
+                    return False
+            elif x != y:
+                return False
+    return True
+
+
+def tpch22_frames(data: dict, nparts: int) -> dict:
+    import daft_tpu_torch as dtt
+
+    out = {}
+    for name, tbl in data.items():
+        df = dtt.from_arrow(tbl)
+        if nparts > 1 and name in TPCH22_BIG_TABLES:
+            df = df.into_partitions(nparts)
+        out[name] = df.collect()
+    return out
+
+
+def phase_tpch22(ph: Phases, queries, big: "BackgroundTables", card: str,
+                 profile: bool) -> dict:
+    """Phase 4: the 22 queries of benchmarks/tpch_queries.py through the
+    port on the card, in the 32-bit device mode with device_min_rows=8 (the
+    configuration of tests/device32/test_tpch_suite32.py). At SF0.005 (seed
+    7), with the four large tables cut into 3 partitions by into_partitions
+    (that file's layout), each against the SQLite oracle under that file's
+    rule. At SF1 (seed 7), one partition per table: each driven once
+    cold with K1's, K2's and the scatter kernel's launch counts set to 0
+    just before and read just after, timed warm (median of 3), held to the
+    port's host path on the same tables (use_device_kernels=False,
+    device="cpu", run explicitly) under the same rule, with no aggregate
+    declined after launch, the new lanes' filters on the card, and the
+    float sums through K1 or the scatter kernel where the CPU tests put
+    them on the card, and every aggregate, and the new lanes' fused chains,
+    routed to the card or the host as the CPU tests route them."""
+    import torch
+
+    import daft_tpu_torch as dtt
+    from benchmarks import tpch_full
+    from daft_tpu_torch.kernels import fused_expr_sums as fes
+    from daft_tpu_torch.kernels import scatter_sums as scs
+    from daft_tpu_torch.kernels import segment_sums as ss
+
+    out = {"k1_launches": 0, "scatter_launches": 0, "k2_launches": 0}
+    # --- SF0.005 in three partitions, against the SQLite oracle
+    small = tpch_full.generate(scale=0.005, seed=7)
+    conn = tpch_full.load_sqlite(small)
+    try:
+        dtt.set_execution_config(dtt.ExecutionConfig(device_min_rows=8))
+        frames = tpch22_frames(small, 3)
+        for qn in sorted(queries.QUERIES):
+            t0 = time.perf_counter()
+            got = tpch22_rows(zip(*queries.QUERIES[qn](frames).to_pydict().values()))
+            secs = time.perf_counter() - t0
+            want = tpch22_rows(conn.execute(queries.SQL[qn]).fetchall())
+            ph.check(tpch22_match(got, want),
+                     f"SF0.005 Q{qn} (3 partitions): {len(got)} rows match the SQLite oracle "
+                     f"({secs:.2f}s on the card)")
+    finally:
+        conn.close()
+    del small, frames
+
+    # --- SF1, one partition per table, against the port's host path
+    t0 = time.perf_counter()
+    data = big.get()
+    print(f"SF1: 22-query tables ready {time.perf_counter() - big.started:.1f}s after the "
+          f"generator started (waited {time.perf_counter() - t0:.1f}s; "
+          + ", ".join(f"{k} {v.num_rows}" for k, v in data.items()) + ")", flush=True)
+    host_cfg = dtt.ExecutionConfig(use_device_kernels=False, device="cpu")
+    dtt.set_execution_config(host_cfg)
+    hframes = tpch22_frames(data, 1)
+    host = {}
+    t0 = time.perf_counter()
+    for qn in sorted(queries.QUERIES):
+        host[qn] = tpch22_rows(zip(*queries.QUERIES[qn](hframes).to_pydict().values()))
+    print(f"SF1: the host path ran the 22 queries in {time.perf_counter() - t0:.1f}s", flush=True)
+    del hframes
+
+    # the CPU tests' configuration, so that the routing compares with theirs
+    dtt.set_execution_config(dtt.ExecutionConfig(device_min_rows=8))
+    frames = tpch22_frames(data, 1)
+    rows = {k: v.num_rows for k, v in data.items()}
+    warm_by_query = {}
+    for qn in sorted(queries.QUERIES):
+        def run(qn=qn):
+            return queries.QUERIES[qn](frames).collect()
+
+        ss.LAUNCHES = fes.LAUNCHES = scs.LAUNCHES = 0
+        t0 = time.perf_counter()
+        df = run()
+        got = tpch22_rows(zip(*df.to_pydict().values()))
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        launches = {"k1": ss.LAUNCHES, "k2": fes.LAUNCHES, "scatter": scs.LAUNCHES}
+        c = df.stats.snapshot()["counters"]
+        label = f"SF1 Q{qn}"
+        ph.check(tpch22_match(got, host[qn]),
+                 f"{label}: {len(got)} rows match the port's host path")
+        ph.check(c.get("device_agg_fallbacks", 0) == 0, f"{label}: device_agg_fallbacks 0")
+        aggs = (c.get("device_aggregations", 0), c.get("host_aggregations", 0))
+        ph.check(aggs == TPCH22_AGG_ROUTES[qn],
+                 f"{label}: (device_aggregations, host_aggregations) {aggs}, as the CPU "
+                 f"tests route them ({TPCH22_AGG_ROUTES[qn]})")
+        if qn in TPCH22_LANE_MAPS:
+            maps = (c.get("device_fused_maps", 0), c.get("host_fused_maps", 0))
+            ph.check(maps == TPCH22_LANE_MAPS[qn],
+                     f"{label}: (device_fused_maps, host_fused_maps) {maps}, as the CPU "
+                     f"tests route them ({TPCH22_LANE_MAPS[qn]})")
+        if qn in TPCH22_CARD_SUMS:
+            ph.check(launches["k1"] + launches["scatter"] >= 1,
+                     f"{label}: float sums through K1 or the scatter kernel ({launches})")
+        if qn in TPCH22_K1:
+            ph.check(launches["k1"] >= 1, f"{label}: K1 launched ({launches})")
+        if qn in TPCH22_LANE_FILTERS:
+            ph.check(c.get("host_filters", 0) == 0 and c.get("device_filters", 0) >= 1,
+                     f"{label}: its filters ran on the card through the new lanes "
+                     f"(device_filters {c.get('device_filters', 0)}, host_filters "
+                     f"{c.get('host_filters', 0)})")
+        if qn == 14:  # startswith inside the resident aggregate
+            ph.check(c.get("device_resident_segments", 0) == 1
+                     and c.get("segment_fallbacks", 0) == 0,
+                     f"{label}: the startswith lane ran in the resident plan segment")
+        for k in ("k1", "k2", "scatter"):
+            out[f"{k}_launches"] += launches[k]
+        res = {"cold_s": cold, "launches": launches,
+               "counters": {k: c.get(k, 0) for k in TPCH22_COUNTERS if c.get(k, 0)},
+               **warm_median(lambda _f, run=run: run(), None, runs=3), "card": card}
+        warm_by_query[qn] = res["warm_median_s"]
+        out[f"q{qn}"] = res
+        print(f"SF1 tpch22 Q{qn} " + json.dumps(res), flush=True)
+        del df
+    out["rows"] = rows
+    total = sum(warm_by_query.values())
+    print("SF1 tpch22 summary " + json.dumps({
+        "warm_total_s": total, "cold_total_s": sum(out[f"q{q}"]["cold_s"] for q in warm_by_query),
+        "slowest": sorted(warm_by_query, key=lambda q: -warm_by_query[q])[:5],
+        "launches": {k: out[k] for k in ("k1_launches", "k2_launches", "scatter_launches")},
+        "rows": rows, "card": card}), flush=True)
+    if profile:
+        for qn in sorted(warm_by_query, key=lambda q: -warm_by_query[q])[:5]:
+            def run(qn=qn):
+                return queries.QUERIES[qn](frames).collect()
+
+            print(f"SF1 tpch22 Q{qn} breakdown_ms " + json.dumps(join_breakdown(run)),
+                  flush=True)
+            profile_queries({f"tpch22_q{qn}_warm": lambda _f, run=run: run()}, None,
+                            rows["lineitem"], card, reps=3)
+    del frames, data
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scales", default="1,10",
@@ -1351,6 +1649,7 @@ def main(argv=None) -> int:
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
     ph = Phases()
+    big = None
     try:
         from benchmarks import tpch
 
@@ -1358,6 +1657,9 @@ def main(argv=None) -> int:
         torch.backends.cudnn.allow_tf32 = False
         card = card_line()
         print(f"card: {card}; torch {torch.__version__} CUDA {torch.version.cuda}", flush=True)
+        queries = tpch22_module()
+        if not args.kernels_only:  # phase 4's SF1 tables, generated meanwhile
+            big = BackgroundTables(1.0, 7)
         edges = phase_build(ph)
         k1_entry = phase_k1(ph)
         sc_entry = phase_scatter(ph)
@@ -1393,12 +1695,22 @@ def main(argv=None) -> int:
                 sc_entry.update(joins["scatter_main"])
             else:  # the main path's shape at the later scales, checked and timed
                 sc_entry[f"sf{scale:g}_shape"] = joins["scatter_main"]
+        if scales:
+            t22 = phase_tpch22(ph, queries, big, card, args.profile)
+            k1_entry["launches_tpch22"] = t22["k1_launches"]
+            sc_entry["launches_tpch22"] = t22["scatter_launches"]
+            k1_entry["launches"] += t22["k1_launches"]
+            sc_entry["launches"] += t22["scatter_launches"]
+            k2_entry["launches"] += t22["k2_launches"]
         print(json.dumps({"kernels": [k1_entry, k2_entry, sc_entry]}), flush=True)
         print(f"chip_smoke: {len(scales)} scale(s) in {time.perf_counter() - started:.1f}s",
               flush=True)
     except Exception:
         traceback.print_exc()
         ph.failures.append("uncaught exception")
+    finally:
+        if big is not None:
+            big.stop()
     if ph.failures:
         print("chip_smoke FAILED: " + "; ".join(ph.failures), file=sys.stderr)
         return 1

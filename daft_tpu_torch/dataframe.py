@@ -2,10 +2,10 @@
 of the part of daft_tpu/dataframe.py this slice runs).
 
 Covers where/filter, select, with_column(s), groupby(...).agg, agg, sort,
-join, limit/head, distinct/unique, repartition (by hash), collect,
+join, limit/head, distinct/unique, repartition (by hash), into_partitions, collect,
 to_pydict, to_arrow, explain and the per-query ``stats``. Left out of this
-slice: cross joins, sample, the random, range and into repartitions
-(``repartition`` without keys, ``into_partitions``), concat,
+slice: cross joins, sample, the random and range repartitions
+(``repartition`` without keys), concat,
 explode/unpivot/pivot, writers, profiling, the result cache and the
 integrations.
 """
@@ -124,6 +124,10 @@ class DataFrame:
         if partition_by:
             return DataFrame(Repartition(self._plan, "hash", num, _to_exprs(partition_by)))
         return DataFrame(Repartition(self._plan, "random", num))
+
+    def into_partitions(self, num: int) -> "DataFrame":
+        """Coalesce or split into ``num`` partitions without a shuffle."""
+        return DataFrame(Repartition(self._plan, "into", num))
 
     def join(self, other: "DataFrame", on=None, left_on=None, right_on=None,
              how: str = "inner", strategy: Optional[str] = None,

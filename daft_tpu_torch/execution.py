@@ -4,12 +4,13 @@ port's copy of the part of daft_tpu/execution.py this slice runs).
 The device path has no silent fallback. An exception raised on the card
 propagates to the caller. Only the reference's documented declines send a
 partition to the host path: for an aggregation, a partition below
-``device_min_rows`` (plain routing, not counted, as in the reference: stage
-2 of a two-stage aggregate over a few partial rows takes it), an ineligible
-plan or dtype and the int32 overflow guard of ``device_agg._finish_agg``,
-each of the last two counted as ``device_agg_fallbacks``; for a
-fused map chain, a device program that declines the partition
-(``device_fused_map_fallbacks``); for a plan segment, a resident attempt
+``device_min_rows`` (stage 2 of a two-stage aggregate over a few partial
+rows takes it) or an ineligible plan or dtype (count_distinct among them),
+plain routing that is not counted, as in the reference, and the int32
+overflow guard of ``device_agg._finish_agg``, counted as
+``device_agg_fallbacks``; for a fused map chain, a device program that
+declines the partition (not counted, as in the reference: the chain runs
+on the host, ``host_fused_maps``); for a plan segment, a resident attempt
 that declines (``segment_fallbacks``, then the staged ops); for a join, an
 ineligible pair (a join type other than inner/left/semi/anti, both sides
 below ``device_min_rows``, a key that is not an integer or date expression,
@@ -290,8 +291,7 @@ class ExecutionContext:
             stage_cache=part.device_stage_cache(), predicate=predicate,
             stats=self.stats, device=resolve_device(self.cfg))
         if resolve is None:
-            self.stats.bump("device_agg_fallbacks")  # decline: ineligible plan
-            return None
+            return None  # a decline before launch: plain routing, as in the reference
         self.stats.bump("device_aggregations")
 
         def finish() -> MicroPartition:
@@ -335,9 +335,9 @@ class ExecutionContext:
     def eval_fused_dispatch(self, part: MicroPartition, program):
         """Launch the fused chain's device program without blocking; returns
         a zero-arg resolver, or None when the partition is not
-        device-eligible. A partition the program declines (an ineligible
-        expression or column, or the int64 wrap guard) is counted as
-        ``device_fused_map_fallbacks`` and takes the host pass."""
+        device-eligible or the program declines it (an ineligible expression
+        or column, or the int64 wrap guard): the caller then takes the host
+        pass (``host_fused_maps``)."""
         if not self._device_eligible(part):
             return None
         from .kernels.device import eval_projection_device_async, resolve_device
@@ -346,7 +346,6 @@ class ExecutionContext:
             part.table(), program.device_exprs, stage_cache=part.device_stage_cache(),
             device=resolve_device(self.cfg))
         if resolve is None:
-            self.stats.bump("device_fused_map_fallbacks")
             return None
         self._bump_fused_device(program)
         self.stats.bump("device_fused_map_dispatches")

@@ -6,12 +6,13 @@ Each node knows `to_field(schema)` (static type resolution), `evaluate(table)`
 hooks (children/with_children). Device-eligible trees are compiled to torch by
 daft_tpu_torch/kernels/device.py.
 
-This slice carries the nodes TPC-H Q1/Q6 use: Column, Literal (with the weak
-typing of plain python numbers), Alias, Cast, BinaryOp (arithmetic,
-comparisons, & | ^), Not and Between, and the aggregations sum, mean, count,
-min and max. Left out until a later slice: the function registry
-(daft_tpu/functions.py) and its Function node with the str/dt/list/float/...
-namespaces, IsNull/FillNull/IsIn/IfElse, python UDFs, intervals and the
+The port carries Column, Literal (with the weak typing of plain python
+numbers), Alias, Cast, BinaryOp (arithmetic, comparisons, & | ^), Not,
+Between, IsNull, FillNull, IsIn, IfElse and Function (a call into the
+registry of daft_tpu_torch/functions.py, with the str, dt and float
+namespaces over the functions ported there), and the aggregations sum, mean,
+count, min, max and count_distinct. Left out until a later slice: python
+UDFs, intervals, the list/struct/image/... namespaces and the other
 non-decomposable and sketch aggregations.
 """
 
@@ -21,6 +22,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 
 from .errors import DaftValueError
 from .datatypes import DataType, TypeKind, infer_datatype, try_unify
+from .functions import get_function
 from .schema import Field, Schema
 from .series import Series
 
@@ -413,6 +415,14 @@ def normalize_literals(node: "ExprNode", schema) -> "ExprNode":
         _, hi = effective_binop_children(node.child, node.upper, schema)
         if lo is not node.lower or hi is not node.upper:
             node = Between(node.child, lo, hi)
+    elif isinstance(node, FillNull):
+        _, fill = effective_binop_children(node.child, node.fill, schema)
+        if fill is not node.fill:
+            node = FillNull(node.child, fill)
+    elif isinstance(node, IfElse):
+        t, f = effective_binop_children(node.if_true, node.if_false, schema)
+        if t is not node.if_true or f is not node.if_false:
+            node = IfElse(node.pred, t, f)
     return node
 
 
@@ -501,6 +511,105 @@ class Not(ExprNode):
         return f"~{self.child.display()}"
 
 
+class IsNull(ExprNode):
+    def __init__(self, child: ExprNode, negate: bool = False):
+        self.child = child
+        self.negate = negate
+
+    def name(self):
+        return self.child.name()
+
+    def to_field(self, schema):
+        f = self.child.to_field(schema)
+        return Field(f.name, DataType.bool())
+
+    def _eval(self, table):
+        s = self.child.evaluate(table)
+        out = s.not_null() if self.negate else s.is_null()
+        return out.rename(self.name())
+
+    def children(self):
+        return [self.child]
+
+    def with_children(self, c):
+        return IsNull(c[0], self.negate)
+
+    def is_aggregation(self):
+        return self.child.is_aggregation()
+
+    def _key(self):
+        return ("isnull", self.negate, self.child._key())
+
+    def display(self):
+        return f"{self.child.display()}.{'not_null' if self.negate else 'is_null'}()"
+
+
+class FillNull(ExprNode):
+    def __init__(self, child: ExprNode, fill: ExprNode):
+        self.child = child
+        self.fill = fill
+
+    def name(self):
+        return self.child.name()
+
+    def to_field(self, schema):
+        f = self.child.to_field(schema)
+        g = self.fill.to_field(schema)
+        _, _, cdt, fdt = effective_operands(self.child, self.fill, f.dtype, g.dtype)
+        u = try_unify(cdt, fdt)
+        if u is None:
+            raise DaftValueError(f"fill_null type mismatch: {f.dtype} vs {g.dtype}")
+        return Field(f.name, u)
+
+    def _eval(self, table):
+        f = self.to_field(table.schema)
+        s = self.child.evaluate(table).cast(f.dtype)
+        fill = self.fill.evaluate(table).cast(f.dtype)
+        return s.fill_null(fill).rename(self.name())
+
+    def children(self):
+        return [self.child, self.fill]
+
+    def with_children(self, c):
+        return FillNull(c[0], c[1])
+
+    def is_aggregation(self):
+        return self.child.is_aggregation() or self.fill.is_aggregation()
+
+    def display(self):
+        return f"{self.child.display()}.fill_null({self.fill.display()})"
+
+
+class IsIn(ExprNode):
+    def __init__(self, child: ExprNode, items: ExprNode):
+        self.child = child
+        self.items = items
+
+    def name(self):
+        return self.child.name()
+
+    def to_field(self, schema):
+        f = self.child.to_field(schema)
+        return Field(f.name, DataType.bool())
+
+    def _eval(self, table):
+        s = self.child.evaluate(table)
+        items = self.items.evaluate(table)
+        if items.dtype.is_list() and len(items) == 1:
+            items = Series.from_pylist(items.to_pylist()[0], "items")
+        return s.is_in(items).rename(self.name())
+
+    def children(self):
+        return [self.child, self.items]
+
+    def with_children(self, c):
+        return IsIn(c[0], c[1])
+
+    def is_aggregation(self):
+        return self.child.is_aggregation()
+
+    def display(self):
+        return f"{self.child.display()}.is_in({self.items.display()})"
 
 
 class Between(ExprNode):
@@ -545,9 +654,92 @@ class Between(ExprNode):
         return f"{self.child.display()}.between({self.lower.display()}, {self.upper.display()})"
 
 
+class IfElse(ExprNode):
+    def __init__(self, pred: ExprNode, if_true: ExprNode, if_false: ExprNode):
+        self.pred = pred
+        self.if_true = if_true
+        self.if_false = if_false
+
+    def name(self):
+        return self.if_true.name()
+
+    def to_field(self, schema):
+        p = self.pred.to_field(schema)
+        if not (p.dtype.is_boolean() or p.dtype.is_null()):
+            raise DaftValueError(f"if_else predicate must be bool, got {p.dtype}")
+        t = self.if_true.to_field(schema)
+        f = self.if_false.to_field(schema)
+        _, _, tdt, fdt = effective_operands(self.if_true, self.if_false, t.dtype, f.dtype)
+        u = try_unify(tdt, fdt)
+        if u is None:
+            raise DaftValueError(f"if_else branches incompatible: {t.dtype} vs {f.dtype}")
+        return Field(t.name, u)
+
+    def _eval(self, table):
+        out_dt = self.to_field(table.schema).dtype
+        p = self.pred.evaluate(table)
+        t = self.if_true.evaluate(table)
+        f = self.if_false.evaluate(table)
+        if t.dtype != out_dt:
+            t = t.cast(out_dt)
+        if f.dtype != out_dt:
+            f = f.cast(out_dt)
+        return p.if_else(t, f).rename(self.name())
+
+    def children(self):
+        return [self.pred, self.if_true, self.if_false]
+
+    def with_children(self, c):
+        return IfElse(c[0], c[1], c[2])
+
+    def is_aggregation(self):
+        return any(c.is_aggregation() for c in self.children())
+
+    def display(self):
+        return f"{self.pred.display()}.if_else({self.if_true.display()}, {self.if_false.display()})"
 
 
-AGG_KINDS = ("sum", "mean", "min", "max", "count")
+class Function(ExprNode):
+    """A registered scalar function over expression arguments
+    (daft_tpu_torch/functions.py)."""
+
+    def __init__(self, fname: str, args: List[ExprNode], kwargs: Optional[Dict[str, Any]] = None):
+        self.fname = fname
+        self.args = args
+        self.kwargs = kwargs or {}
+
+    def name(self):
+        return self.args[0].name() if self.args else self.fname
+
+    def to_field(self, schema):
+        spec = get_function(self.fname)
+        arg_dts = [a.to_field(schema).dtype for a in self.args]
+        return Field(self.name(), spec.resolve(*arg_dts, **self.kwargs))
+
+    def _eval(self, table):
+        spec = get_function(self.fname)
+        args = [a.evaluate(table) for a in self.args]
+        return spec.evaluate(*args, **self.kwargs).rename(self.name())
+
+    def children(self):
+        return list(self.args)
+
+    def with_children(self, c):
+        return Function(self.fname, c, self.kwargs)
+
+    def is_aggregation(self):
+        return any(a.is_aggregation() for a in self.args)
+
+    def _key(self):
+        return ("fn", self.fname, tuple(sorted((k, repr(v)) for k, v in self.kwargs.items())),
+                tuple(a._key() for a in self.args))
+
+    def display(self):
+        inner = ", ".join(a.display() for a in self.args)
+        return f"{self.fname}({inner})"
+
+
+AGG_KINDS = ("sum", "mean", "min", "max", "count", "count_distinct")
 
 
 class AggExpr(ExprNode):
@@ -566,7 +758,7 @@ class AggExpr(ExprNode):
     def to_field(self, schema):
         f = self.child.to_field(schema)
         k = self.kind
-        if k == "count":
+        if k in ("count", "count_distinct"):
             return Field(f.name, DataType.uint64())
         if k == "sum":
             dt = f.dtype
@@ -605,6 +797,11 @@ def _eval_agg_on_series(agg: AggExpr, s: Series) -> Series:
     k = agg.kind
     if k == "count":
         return s.count(agg.extra.get("mode", "valid"))
+    if k == "count_distinct":
+        import pyarrow.compute as pc
+
+        return Series.from_pylist([pc.count_distinct(s.to_arrow()).as_py()], s.name,
+                                  DataType.uint64())
     return getattr(s, k)()
 
 
@@ -725,6 +922,12 @@ class Expression:
     def __invert__(self):
         return Expression(Not(self._node))
 
+    def __neg__(self):
+        return self._fn("numeric.negate")
+
+    def __abs__(self):
+        return self.abs()
+
     def __hash__(self):
         return hash(repr(self._node._key()))
 
@@ -733,9 +936,106 @@ class Expression:
             "Expressions are lazy and have no truth value; use & | ~ instead of and/or/not"
         )
 
+    # --- null / membership
+    def is_null(self):
+        return Expression(IsNull(self._node))
+
+    def not_null(self):
+        return Expression(IsNull(self._node, negate=True))
+
+    def fill_null(self, fill):
+        return Expression(FillNull(self._node, _as_expr_node(fill)))
+
+    def is_in(self, items):
+        if isinstance(items, (list, tuple)):
+            items = Literal(list(items), DataType.list(DataType.null()) if not items else None)
+        return Expression(IsIn(self._node, _as_expr_node(items)))
 
     def between(self, lower, upper):
         return Expression(Between(self._node, _as_expr_node(lower), _as_expr_node(upper)))
+
+    def if_else(self, if_true, if_false):
+        return Expression(IfElse(self._node, _as_expr_node(if_true), _as_expr_node(if_false)))
+
+    # --- functions
+    def _fn(self, _fname: str, *args, **kwargs) -> "Expression":
+        return Expression(Function(_fname, [self._node] + [_as_expr_node(a) for a in args],
+                                   kwargs))
+
+    def abs(self):
+        return self._fn("numeric.abs")
+
+    def ceil(self):
+        return self._fn("numeric.ceil")
+
+    def floor(self):
+        return self._fn("numeric.floor")
+
+    def sign(self):
+        return self._fn("numeric.sign")
+
+    def round(self, decimals: int = 0):
+        return self._fn("numeric.round", decimals=decimals)
+
+    def sqrt(self):
+        return self._fn("numeric.sqrt")
+
+    def cbrt(self):
+        return self._fn("numeric.cbrt")
+
+    def exp(self):
+        return self._fn("numeric.exp")
+
+    def log(self, base: Optional[float] = None):
+        return self._fn("numeric.log", base=base)
+
+    def log2(self):
+        return self._fn("numeric.log2")
+
+    def log10(self):
+        return self._fn("numeric.log10")
+
+    def ln(self):
+        return self._fn("numeric.log")
+
+    def sin(self):
+        return self._fn("numeric.sin")
+
+    def cos(self):
+        return self._fn("numeric.cos")
+
+    def tan(self):
+        return self._fn("numeric.tan")
+
+    def arcsin(self):
+        return self._fn("numeric.arcsin")
+
+    def arccos(self):
+        return self._fn("numeric.arccos")
+
+    def arctan(self):
+        return self._fn("numeric.arctan")
+
+    def arctanh(self):
+        return self._fn("numeric.arctanh")
+
+    def arccosh(self):
+        return self._fn("numeric.arccosh")
+
+    def arcsinh(self):
+        return self._fn("numeric.arcsinh")
+
+    def radians(self):
+        return self._fn("numeric.radians")
+
+    def degrees(self):
+        return self._fn("numeric.degrees")
+
+    def shift_left(self, o):
+        return self._fn("numeric.shift_left", o)
+
+    def shift_right(self, o):
+        return self._fn("numeric.shift_right", o)
 
     # --- aggregations
     def _agg(self, kind: str, **extra) -> "Expression":
@@ -756,8 +1056,159 @@ class Expression:
     def count(self, mode: str = "valid"):
         return self._agg("count", mode=mode)
 
+    def count_distinct(self):
+        return self._agg("count_distinct")
+
+    # --- namespaces
+    @property
+    def str(self) -> "ExprStrNamespace":
+        return ExprStrNamespace(self)
+
+    @property
+    def dt(self) -> "ExprDtNamespace":
+        return ExprDtNamespace(self)
+
+    @property
+    def float(self) -> "ExprFloatNamespace":
+        return ExprFloatNamespace(self)
+
     def __repr__(self) -> str:
         return self._node.display()
+
+
+class _Namespace:
+    __slots__ = ("_e",)
+
+    def __init__(self, e: Expression):
+        self._e = e
+
+    def _fn(self, _fname, *args, **kwargs):
+        return self._e._fn(_fname, *args, **kwargs)
+
+
+class ExprStrNamespace(_Namespace):
+    def contains(self, pat):
+        return self._fn("utf8.contains", pat)
+
+    def startswith(self, pat):
+        return self._fn("utf8.startswith", pat)
+
+    def endswith(self, pat):
+        return self._fn("utf8.endswith", pat)
+
+    def match(self, pat):
+        return self._fn("utf8.match", pat)
+
+    def length(self):
+        return self._fn("utf8.length")
+
+    def length_bytes(self):
+        return self._fn("utf8.length_bytes")
+
+    def lower(self):
+        return self._fn("utf8.lower")
+
+    def upper(self):
+        return self._fn("utf8.upper")
+
+    def capitalize(self):
+        return self._fn("utf8.capitalize")
+
+    def reverse(self):
+        return self._fn("utf8.reverse")
+
+    def lstrip(self):
+        return self._fn("utf8.lstrip")
+
+    def rstrip(self):
+        return self._fn("utf8.rstrip")
+
+    def replace(self, pat, replacement, regex: bool = False):
+        return self._fn("utf8.replace", pat, replacement, regex=regex)
+
+    def extract(self, pat, index: int = 0):
+        return self._fn("utf8.extract", pat, index=index)
+
+    def find(self, substr):
+        return self._fn("utf8.find", substr)
+
+    def left(self, n):
+        return self._fn("utf8.left", n)
+
+    def right(self, n):
+        return self._fn("utf8.right", n)
+
+    def substr(self, start, length=None):
+        if length is None:
+            return self._fn("utf8.substr", start)
+        return self._fn("utf8.substr", start, length)
+
+    def concat(self, *others):
+        return self._fn("utf8.concat", *others)
+
+    def like(self, pat):
+        return self._fn("utf8.like", pat)
+
+    def ilike(self, pat):
+        return self._fn("utf8.ilike", pat)
+
+    def rpad(self, length, ch):
+        return self._fn("utf8.rpad", length, ch)
+
+    def lpad(self, length, ch):
+        return self._fn("utf8.lpad", length, ch)
+
+    def repeat(self, n):
+        return self._fn("utf8.repeat", n)
+
+    def count_matches(self, patterns, whole_words: bool = False, case_sensitive: bool = True):
+        return self._fn("utf8.count_matches", patterns, whole_words=whole_words,
+                        case_sensitive=case_sensitive)
+
+    def normalize(self, *, remove_punct: bool = False, lowercase: bool = False,
+                  nfd_unicode: bool = False, white_space: bool = False):
+        return self._fn("utf8.normalize", remove_punct=remove_punct, lowercase=lowercase,
+                        nfd_unicode=nfd_unicode, white_space=white_space)
+
+
+class ExprDtNamespace(_Namespace):
+    def year(self):
+        return self._fn("dt.year")
+
+    def month(self):
+        return self._fn("dt.month")
+
+    def day(self):
+        return self._fn("dt.day")
+
+    def hour(self):
+        return self._fn("dt.hour")
+
+    def minute(self):
+        return self._fn("dt.minute")
+
+    def second(self):
+        return self._fn("dt.second")
+
+    def day_of_week(self):
+        return self._fn("dt.day_of_week")
+
+    def day_of_year(self):
+        return self._fn("dt.day_of_year")
+
+
+class ExprFloatNamespace(_Namespace):
+    def is_nan(self):
+        return self._fn("float.is_nan")
+
+    def is_inf(self):
+        return self._fn("float.is_inf")
+
+    def not_nan(self):
+        return self._fn("float.not_nan")
+
+    def fill_nan(self, fill):
+        return self._fn("float.fill_nan", fill)
 
 
 def required_columns(e: Union[Expression, ExprNode]) -> List[str]:

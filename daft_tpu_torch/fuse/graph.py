@@ -30,14 +30,16 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Set, Tuple
 
 from ..errors import DaftError
-from ..expressions import Alias, Between, BinaryOp, Cast, Column, ExprNode, Literal, Not
+from ..expressions import (Alias, Between, BinaryOp, Cast, Column, ExprNode, FillNull, Function,
+                           IfElse, IsIn, IsNull, Literal, Not)
 from ..schema import Schema
 
 # reserved scratch-column prefixes (declined if the input schema collides)
 CSE_PREFIX = "__fuse_cse_"
 MASK_PREFIX = "__fuse_mask_"
 
-_FUSABLE = (Alias, Between, BinaryOp, Cast, Column, Literal, Not)
+_FUSABLE = (Alias, Between, BinaryOp, Cast, Column, FillNull, Function, IfElse, IsIn, IsNull,
+            Literal, Not)
 
 
 class FuseDecline(DaftError):
@@ -165,7 +167,8 @@ class _Builder:
     def _is_total(self, node: ExprNode, schema: Schema) -> bool:
         if not all(self.is_total(c, schema) for c in node.children()):
             return False
-        if isinstance(node, (Column, Literal, Alias, Not, Between)):
+        if isinstance(node, (Column, Literal, Alias, Not, IsNull, IsIn, Between, FillNull,
+                             IfElse)):
             return True
         if isinstance(node, BinaryOp):
             if node.op in _TOTAL_BINOPS:

@@ -12,7 +12,11 @@ daft_tpu/kernels/device.py this slice runs).
   string column with a string literal compares dictionary codes: the
   literal's code bounds, bisected into each partition's dictionary, enter
   the env as 0-d int32 tensors (``string_literal_env``), so one compiled
-  program serves every partition.
+  program serves every partition. A string predicate (contains,
+  startswith, endswith, like, match, is_in over strings, or any bool
+  row-local expression of one string column) is evaluated on the host over
+  each partition's dictionary, and the card gathers the result by code
+  (``string_lut_env``); a numeric is_in compares against static items.
 - Aggregations are masked segment reductions over dense group codes.
 - Sorts are a stable multi-key argsort over order-preserving int64 lanes
   (``device_table_argsort``, the reference's K5).
@@ -23,8 +27,9 @@ every value fits, float64 columns compute as float32, and temporal types other
 than dates stay on the host. JAX narrows quietly when x64 is off; torch does
 not, so every narrowing below is an explicit cast.
 
-Left out of this slice: the string LUT, joint-dictionary and transform
-lanes, the epoch lanes (comparisons and sort keys), device hashing,
+Left out of this slice: the joint-dictionary lanes (string choices and
+column-to-column string compares), the int-valued and string-valued
+transform lanes, the epoch lanes (comparisons and sort keys), device hashing,
 fixed-shape tensor columns, and unsigned integers other than uint64
 (torch's uint16/32 support is partial, so those columns decline to the host
 path).
@@ -106,7 +111,7 @@ class DeviceColumn:
     (a host pa.Array) and stage their int32 codes."""
 
     __slots__ = ("values", "valid", "length", "dtype", "dictionary", "_dict_list",
-                 "_literal_codes")
+                 "_literal_codes", "luts")
 
     def __init__(self, values, valid, length: int, dtype: DataType, dictionary=None):
         self.values = values
@@ -116,6 +121,9 @@ class DeviceColumn:
         self.dictionary = dictionary
         self._dict_list = None
         self._literal_codes: Dict[str, Tuple] = {}
+        # dictionary lookup tables of this column's predicates, by env key
+        # (string_lut_env): built once per partition, read by every query
+        self.luts: Dict[str, object] = {}
 
     def dict_list(self):
         """Python-list view of the dictionary (cached: literals bisect into
@@ -337,8 +345,8 @@ def _string_cmp_shape(node, schema):
 
 def expr_is_device_compilable(node, schema, _normalized: bool = False) -> bool:
     """Can this expression tree run fully on the device against ``schema``?"""
-    from ..expressions import (Alias, Between, BinaryOp, Cast, Column, Literal,
-                               Not, normalize_literals)
+    from ..expressions import (Alias, Between, BinaryOp, Cast, Column, FillNull, Function, IfElse,
+                               IsIn, IsNull, Literal, Not, normalize_literals)
 
     if not _normalized:
         try:
@@ -365,22 +373,63 @@ def expr_is_device_compilable(node, schema, _normalized: bool = False) -> bool:
         out_dt = node.to_field(schema).dtype
     except (ValueError, KeyError):
         return False
+    if _string_dict_pred_applies(node, schema) is not None:
+        # the whole bool subtree evaluates over the dictionary on the host
+        return True
     if not (is_device_dtype(out_dt) or out_dt.is_null()):
+        # a string output rides dictionary codes only as a bare column; the
+        # reference's joint-dictionary choices (string fill_null/if_else)
+        # and transformed-string values stay on the host here
         return out_dt.is_string() and _plain_string_column(node, schema) is not None
     if isinstance(node, Column):
         return stageable_dtype(schema[node.cname].dtype)
     if isinstance(node, Literal):
         return _literal_fits_device(node)
-    if isinstance(node, (Alias, Not)):
+    if isinstance(node, (Alias, Not, IsNull)):
         return all(rec(c) for c in node.children())
     if isinstance(node, Cast):
         return (not any_string_child(node) and is_device_dtype(node.dtype)
                 and rec(node.child))
-    if isinstance(node, BinaryOp) and _string_cmp_shape(node, schema) is not None:
-        return True
-    if isinstance(node, (BinaryOp, Between)):
+    if isinstance(node, BinaryOp):
+        if _string_cmp_shape(node, schema) is not None:
+            return True
         return not any_string_child(node) and all(rec(c) for c in node.children())
+    if isinstance(node, (FillNull, IfElse, Between)):
+        return not any_string_child(node) and all(rec(c) for c in node.children())
+    if isinstance(node, Function):
+        if _string_lut_shape(node, schema) is not None:
+            return True
+        # numeric.log with a base is the host's alone (the card's is ln)
+        return (node.fname in _DEVICE_FNS and node.kwargs.get("base") is None
+                and all(rec(c) for c in node.children()))
+    if isinstance(node, IsIn):
+        if _string_lut_shape(node, schema) is not None:
+            return True
+        return _numeric_isin_items(node, schema) is not None and rec(node.child)
     return False
+
+
+# the numeric functions the card evaluates (a float function computes in
+# float32, the widest float of the 32-bit mode)
+_DEVICE_FNS = {
+    "numeric.abs": torch.abs,
+    "numeric.negate": torch.neg,
+    "numeric.ceil": torch.ceil,
+    "numeric.floor": torch.floor,
+    "numeric.sign": torch.sign,
+    "numeric.sqrt": lambda v: torch.sqrt(v.to(_wf())),
+    "numeric.exp": lambda v: torch.exp(v.to(_wf())),
+    "numeric.log": lambda v: torch.log(v.to(_wf())),
+    "numeric.log2": lambda v: torch.log2(v.to(_wf())),
+    "numeric.log10": lambda v: torch.log10(v.to(_wf())),
+    "numeric.log1p": lambda v: torch.log1p(v.to(_wf())),
+    "numeric.sin": lambda v: torch.sin(v.to(_wf())),
+    "numeric.cos": lambda v: torch.cos(v.to(_wf())),
+    "numeric.tan": lambda v: torch.tan(v.to(_wf())),
+    "float.is_nan": torch.isnan,
+    "float.is_inf": torch.isinf,
+    "float.not_nan": lambda v: ~torch.isnan(v),
+}
 
 
 def _env_column(env):
@@ -449,12 +498,436 @@ def string_literal_env(nodes, schema, dcs, env) -> Optional[dict]:
     return merged
 
 
+# ---------------------------------------------------------------------------
+# Dictionary lanes: predicates over ONE string column evaluate on the host
+# over the partition's sorted dictionary (O(unique) work, through the
+# registered host kernels, so the answer equals the host path's by
+# construction); the card gathers the result by dictionary code (O(rows)).
+# ---------------------------------------------------------------------------
+
+_EPOCH_KINDS = {TypeKind.TIMESTAMP, TypeKind.DURATION, TypeKind.TIME}
+_CMP_OPS_NULLSAFE = _CMP_OPS + ("<=>",)
+
+
+def _peel_alias(node):
+    from ..expressions import Alias
+
+    while isinstance(node, Alias):
+        node = node.child
+    return node
+
+
+def _epoch_cmp_shape(node, schema):
+    """The reference's epoch-comparison shape (a comparison whose sides are
+    timestamp, duration or time expressions and/or literals, at least one
+    not a literal). The port has no epoch lanes yet (ROADMAP Queue 1, item
+    6): the shape is tested only so that the dictionary lanes claim nodes in
+    the reference's order, and a node it claims runs on the host."""
+    from ..expressions import BinaryOp, Literal
+
+    if not (isinstance(node, BinaryOp) and node.op in _CMP_OPS):
+        return None
+
+    def spec(n):
+        if isinstance(n, Literal):
+            return ("lit",)
+        try:
+            dt = n.to_field(schema).dtype
+        except (ValueError, KeyError):
+            return None
+        return ("lane", dt) if dt.kind in _EPOCH_KINDS else None
+
+    ls, rs = spec(node.left), spec(node.right)
+    if ls is None or rs is None or (ls[0] == "lit" and rs[0] == "lit"):
+        return None
+    if ls[0] == "lane" and rs[0] == "lane" and ls[1] != rs[1]:
+        return None
+    return ls, rs, node.op
+
+
+def _string_choice_shape(node, schema):
+    """(kind, pred, operands) for a string-valued fill_null/if_else whose
+    values are plain string columns and string or null literals; else None.
+    The reference runs it through a joint dictionary (the string-choice
+    lane, ROADMAP Queue 1, item 4); the port declines it to the host."""
+    from ..expressions import FillNull, IfElse, Literal
+
+    node = _peel_alias(node)
+    if isinstance(node, FillNull):
+        kind, pred, vals = "fill_null", None, (node.child, node.fill)
+    elif isinstance(node, IfElse):
+        kind, pred, vals = "if_else", node.pred, (node.if_true, node.if_false)
+    else:
+        return None
+    try:
+        if not node.to_field(schema).dtype.is_string():
+            return None
+    except (ValueError, KeyError):
+        return None
+    operands = []
+    for v in vals:
+        c = _plain_string_column(v, schema)
+        if c is not None:
+            operands.append(("col", c))
+        elif isinstance(v, Literal) and v.value is None:
+            operands.append(("null", None))
+        elif (isinstance(v, Literal) and isinstance(v.value, str)
+              and (v.dtype.is_string() or v.dtype.is_null())):
+            operands.append(("lit", v.value))
+        else:
+            return None
+    return kind, pred, operands
+
+
+def _string_cmp_side(node, schema):
+    from ..expressions import Literal
+
+    c = _plain_string_column(node, schema)
+    if c is not None:
+        return ("col", c)
+    ch = _string_choice_shape(node, schema)
+    if ch is not None:
+        return ("choice", ch)
+    if isinstance(node, Literal):
+        if node.value is None:
+            return ("null", None)
+        if isinstance(node.value, str) and (node.dtype.is_string() or node.dtype.is_null()):
+            return ("lit", node.value)
+    return None
+
+
+def _string_colcol_shape(node, schema):
+    """The reference's joint-dictionary compare shape (a string comparison
+    whose sides are plain columns, string choices or literals, at least one
+    not a literal). Tested for the lanes' precedence alone: the port has no
+    joint-dictionary lane yet, so a node it claims runs on the host."""
+    from ..expressions import BinaryOp
+
+    if not (isinstance(node, BinaryOp) and node.op in _CMP_OPS_NULLSAFE):
+        return None
+    try:
+        ldt = node.left.to_field(schema).dtype
+        rdt = node.right.to_field(schema).dtype
+    except (ValueError, KeyError):
+        return None
+    if not ((ldt.is_string() or ldt.is_null()) and (rdt.is_string() or rdt.is_null())):
+        return None
+    lside = _string_cmp_side(node.left, schema)
+    rside = _string_cmp_side(node.right, schema)
+    if lside is None or rside is None:
+        return None
+    if lside[0] in ("lit", "null") and rside[0] in ("lit", "null"):
+        return None
+    return lside, rside
+
+
+# predicates a lookup table over the dictionary evaluates through the
+# registered host kernel (regex-backed like/ilike/match included)
+_STR_PRED_FNS = ("utf8.contains", "utf8.startswith", "utf8.endswith",
+                 "utf8.like", "utf8.ilike", "utf8.match")
+
+
+def _string_lut_shape(node, schema):
+    """(colname, kind, payload, node_key) for a predicate of one plain
+    string column evaluable over its dictionary: contains / startswith /
+    endswith / like / ilike / match with a literal pattern, and is_in over
+    string literals. Else None."""
+    from ..expressions import Function, IsIn, Literal
+
+    if isinstance(node, Function) and node.fname in _STR_PRED_FNS:
+        if len(node.args) != 2 or node.kwargs:
+            return None
+        colname = _plain_string_column(node.args[0], schema)
+        pat = node.args[1]
+        if colname is None or not isinstance(pat, Literal) or not isinstance(pat.value, str):
+            return None
+        return colname, node.fname, pat.value, node._key()
+    if isinstance(node, IsIn):
+        colname = _plain_string_column(node.child, schema)
+        items = node.items
+        if (colname is None or not isinstance(items, Literal)
+                or not isinstance(items.value, (list, tuple))):
+            return None
+        vals = [v for v in items.value if v is not None]
+        if not all(isinstance(v, str) for v in vals):
+            return None
+        return colname, "is_in", tuple(vals), node._key()
+    return None
+
+
+def _strlut_env_key(node_key) -> str:
+    return f"__strlut__\x00{node_key}"
+
+
+# row-local string functions: a predicate built from these over ONE string
+# column depends only on that row's value, so it can evaluate over the
+# dictionary instead of the rows
+_ROWLOCAL_STR_FNS = frozenset(
+    f"utf8.{n}" for n in (
+        "capitalize", "concat", "contains", "count_matches", "endswith",
+        "extract", "find", "ilike", "left", "length", "length_bytes",
+        "like", "lower", "lpad", "lstrip", "match", "normalize", "repeat",
+        "replace", "reverse", "right", "rpad", "rstrip", "startswith",
+        "substr", "upper",
+    ))
+
+
+def _string_dict_pred_shape(node, schema):
+    """(colname, node, node_key) when ``node`` is a bool-valued, row-local
+    expression whose only column input is one plain string column (for
+    example ``upper(s) == "X"`` or ``s.str.left(2).is_in([...])``): the host
+    evaluates the whole predicate over the dictionary plus one null slot,
+    and the card gathers by code."""
+    try:
+        if not node.to_field(schema).dtype.is_boolean():
+            return None
+    except (ValueError, KeyError):
+        return None
+    colname = _single_string_col_rowlocal(node, schema)
+    if colname is None:
+        return None
+    return colname, node, node._key()
+
+
+def _single_string_col_rowlocal(node, schema) -> Optional[str]:
+    """The one plain string column ``node`` row-locally depends on (every
+    operation per row: the row-local utf8 functions, comparisons, choices,
+    casts), or None."""
+    from ..expressions import (Alias, Between, BinaryOp, Cast, Column, FillNull, Function,
+                               IfElse, IsIn, IsNull, Literal, Not)
+
+    cols: set = set()
+
+    def rowlocal(n):
+        if isinstance(n, (Literal, Column)):
+            if isinstance(n, Column):
+                cols.add(n.cname)
+            return True
+        if isinstance(n, (Alias, Not, IsNull, Cast, Between, FillNull, IfElse, BinaryOp)):
+            return all(rowlocal(c) for c in n.children())
+        if isinstance(n, IsIn):
+            return isinstance(n.items, Literal) and rowlocal(n.child)
+        if isinstance(n, Function):
+            # kwargs are static configuration (regex=, index=), never columns
+            return n.fname in _ROWLOCAL_STR_FNS and all(rowlocal(c) for c in n.args)
+        return False
+
+    if not rowlocal(node) or len(cols) != 1:
+        return None
+    colname = next(iter(cols))
+    try:
+        return colname if schema[colname].dtype.is_string() else None
+    except KeyError:
+        return None
+
+
+def _strdictpred_env_keys(node_key) -> Tuple[str, str, str]:
+    base = f"__strdictpred__\x00{node_key}"
+    return base + "\x00vals", base + "\x00valid", base + "\x00nullslot"
+
+
+def _numeric_isin_items(node, schema):
+    """The static device values of a numeric, date or bool ``is_in``'s items,
+    or None when it is ineligible: a NaN item (arrow's is_in matches NaN,
+    an equality compare cannot), a float item against an integer column
+    (the host compares in float64, the 32-bit lanes cannot), or an integer
+    item outside int32."""
+    import math
+
+    from ..expressions import IsIn, Literal
+
+    if not isinstance(node, IsIn):
+        return None
+    items = node.items
+    if not isinstance(items, Literal) or not isinstance(items.value, (list, tuple)):
+        return None
+    try:
+        child_dt = node.child.to_field(schema).dtype
+    except (ValueError, KeyError):
+        return None
+    if not (child_dt.is_numeric() or child_dt.kind in (TypeKind.DATE, TypeKind.BOOL)):
+        return None
+    int_child = not child_dt.is_floating()
+    out = []
+    for v in items.value:
+        if v is None:
+            continue  # a null item never matches
+        if isinstance(v, float):
+            if math.isnan(v) or int_child:
+                return None
+        try:
+            out.append(_literal_to_physical(v, child_dt))
+        except (ValueError, TypeError, pa.ArrowInvalid):
+            return None
+    if any(isinstance(v, int) and not (_INT32_LO <= v <= _INT32_HI) for v in out):
+        return None
+    return tuple(out)
+
+
+def _string_dict_pred_applies(node, schema):
+    """The general dictionary predicate, only where no cheaper shape claims
+    the node. The precedence equals ``_compile_node``'s dispatch order, or
+    the env builder and the closure would disagree about which lane owns a
+    node. Boolean connectives and pass-throughs are left out: each side
+    below them gets its own best shape."""
+    from ..expressions import Alias, BinaryOp, Column, IsNull, Literal, Not
+
+    if isinstance(node, (Alias, Column, Literal, Not)):
+        return None
+    if isinstance(node, IsNull) and _plain_string_column(node.child, schema) is not None:
+        return None  # a validity lane on the card already
+    if isinstance(node, BinaryOp):
+        if node.op in ("&", "|", "^"):
+            return None
+        if (_string_cmp_shape(node, schema) is not None
+                or _string_colcol_shape(node, schema) is not None
+                or _epoch_cmp_shape(node, schema) is not None):
+            return None
+    if _string_lut_shape(node, schema) is not None:
+        return None
+    return _string_dict_pred_shape(node, schema)
+
+
+def collect_string_luts(nodes, schema):
+    """Every dictionary-lane shape in the trees: the single-function lookup
+    tables, and the general predicates (tagged "hostpred"), whose subtrees
+    evaluate over the dictionary and are not walked further."""
+    out = []
+
+    def walk(n):
+        shape = _string_lut_shape(n, schema)
+        if shape is not None:
+            out.append(shape)
+        else:
+            gshape = _string_dict_pred_applies(n, schema)
+            if gshape is not None:
+                out.append((gshape[0], "hostpred", gshape[1], gshape[2]))
+                return
+        for c in n.children():
+            walk(c)
+
+    for nd in nodes:
+        walk(nd)
+    return out
+
+
+def _eval_over_dictionary(colname: str, node, uniq):
+    """``node`` evaluated on the host over the dictionary values plus one
+    null slot (index len(uniq)): an arrow array of len(uniq) + 1, or None
+    when the host evaluation raises (the caller declines to the host)."""
+    from ..table import Table
+
+    try:
+        with_null = pa.concat_arrays([uniq, pa.array([None], type=uniq.type)])
+        got = node.evaluate(Table.from_arrow(pa.table({colname: with_null})))
+        arr = got.to_arrow()
+        if isinstance(arr, pa.ChunkedArray):
+            arr = arr.combine_chunks()
+        if len(arr) == 1 and len(with_null) > 1:  # a scalar result broadcasts
+            arr = pa.concat_arrays([arr] * len(with_null))
+        return arr
+    except Exception:
+        return None
+
+
+def _padded_bool(arr: np.ndarray, n: int, device) -> torch.Tensor:
+    b = size_bucket(max(n, 1))
+    if b > len(arr):
+        arr = np.concatenate([arr, np.zeros(b - len(arr), dtype=bool)])
+    return torch.from_numpy(arr).to(device)
+
+
+def _dict_pred_tables(dc: "DeviceColumn", colname: str, node, node_key):
+    """(values, valid, null slot) of a general dictionary predicate over
+    ``dc``'s dictionary, cached with the column; None to decline."""
+    vals_k = _strdictpred_env_keys(node_key)[0]
+    got = dc.luts.get(vals_k)
+    if got is None:
+        uniq = dc.dictionary
+        arr = _eval_over_dictionary(colname, node, uniq)
+        if arr is None:
+            return None
+        dev = dc.values.device
+        vals_np = np.asarray(pc.fill_null(arr, False), dtype=bool)
+        valid_np = np.asarray(pc.is_valid(arr), dtype=bool)
+        got = (_padded_bool(vals_np, len(uniq) + 1, dev), _padded_bool(valid_np, len(uniq) + 1, dev),
+               torch.tensor(len(uniq), dtype=torch.int32, device=dev))
+        dc.luts[vals_k] = got
+    return got
+
+
+def _lut_table(dc: "DeviceColumn", kind: str, payload, key: str):
+    """The lookup table of one single-function predicate over ``dc``'s
+    dictionary, through the registered host kernel, cached with the column."""
+    got = dc.luts.get(key)
+    if got is None:
+        uniq = dc.dictionary
+        if kind == "is_in":
+            lut = pc.is_in(uniq, value_set=pa.array(list(payload), type=uniq.type))
+        else:
+            from ..functions import get_function
+            from ..series import Series
+
+            lut = get_function(kind).evaluate(
+                Series.from_arrow(uniq, "u"),
+                Series.from_pylist([payload], "p", DataType.string())).to_arrow()
+        got = _padded_bool(np.asarray(pc.fill_null(lut, False), dtype=bool), len(uniq),
+                           dc.values.device)
+        dc.luts[key] = got
+    return got
+
+
+def string_lut_env(nodes, schema, dcs, env) -> Optional[dict]:
+    """Merge the per-partition dictionary lookup tables of every dictionary
+    lane in the trees into ``env``: a bool tensor on the partition's device,
+    padded to ``size_bucket`` of the dictionary's length (plus the null slot
+    and its index for a general predicate). One compiled program serves
+    every partition, whose dictionaries differ. Returns the (possibly
+    unchanged) env, or None when a dictionary is missing or the host
+    evaluation over it fails (the caller declines to the host)."""
+    shapes = collect_string_luts(nodes, schema)
+    if not shapes:
+        return env
+    merged = dict(env)
+    for colname, kind, payload, node_key in shapes:
+        dc = dcs.get(colname)
+        if dc is None or dc.dictionary is None:
+            return None
+        if kind == "hostpred":
+            keys = _strdictpred_env_keys(node_key)
+            if keys[0] not in merged:
+                got = _dict_pred_tables(dc, colname, payload, node_key)
+                if got is None:
+                    return None
+                merged.update(zip(keys, got))
+            continue
+        key = _strlut_env_key(node_key)
+        if key not in merged:
+            merged[key] = _lut_table(dc, kind, payload, key)
+    return merged
+
+
 def _compile_node(node, schema):
     """Recursively build a closure over {name: (values, valid)} returning
     (values, valid); types are resolved statically via ``schema``."""
-    from ..expressions import Alias, Between, BinaryOp, Cast, Column, Literal, Not
+    from ..expressions import (Alias, Between, BinaryOp, Cast, Column, FillNull, Function, IfElse,
+                               IsIn, IsNull, Literal, Not)
 
     out_dt = node.to_field(schema).dtype
+
+    gshape = _string_dict_pred_applies(node, schema)
+    if gshape is not None:
+        # a general dictionary predicate: the whole subtree was evaluated
+        # over the dictionary plus a null slot; gather (value, valid) by code
+        colname = gshape[0]
+        vals_k, valid_k, null_k = _strdictpred_env_keys(gshape[2])
+
+        def run(env, _c=colname, _vk=vals_k, _mk=valid_k, _nk=null_k):
+            codes, m = env[_c]
+            idx = torch.where(m, codes, env[_nk])
+            return env[_vk].index_select(0, idx), env[_mk].index_select(0, idx)
+
+        return run, out_dt
 
     if isinstance(node, Column):
         name = node.cname
@@ -503,6 +976,80 @@ def _compile_node(node, schema):
         def run(env, _inner=inner):
             v, m = _inner(env)
             return ~v, m
+
+        return run, out_dt
+
+    if isinstance(node, IsNull):
+        inner, _ = _compile_node(node.child, schema)
+
+        def run(env, _inner=inner, _neg=node.negate):
+            _v, m = _inner(env)
+            return (m if _neg else ~m), torch.ones_like(m)
+
+        return run, out_dt
+
+    if isinstance(node, FillNull):
+        a, _ = _compile_node(node.child, schema)
+        b, _ = _compile_node(node.fill, schema)
+        jd = _jdt(out_dt)
+
+        def run(env, _a=a, _b=b, _jd=jd):
+            av, am = _a(env)
+            bv, bm = _b(env)
+            return torch.where(am, av.to(_jd), bv.to(_jd)), am | bm
+
+        return run, out_dt
+
+    if isinstance(node, IfElse):
+        p, _ = _compile_node(node.pred, schema)
+        t, _ = _compile_node(node.if_true, schema)
+        f, _ = _compile_node(node.if_false, schema)
+        jd = _jdt(out_dt)
+
+        def run(env, _p=p, _t=t, _f=f, _jd=jd):
+            pv, pm = _p(env)
+            pv = pv.to(torch.bool)  # a null-literal predicate comes as int32 zeros
+            tv, tm = _t(env)
+            fv, fm = _f(env)
+            return torch.where(pv, tv.to(_jd), fv.to(_jd)), pm & torch.where(pv, tm, fm)
+
+        return run, out_dt
+
+    if isinstance(node, (Function, IsIn)):
+        lshape = _string_lut_shape(node, schema)
+        if lshape is not None:
+            # a lookup table over the dictionary, gathered by code
+            lut_k = _strlut_env_key(lshape[3])
+
+            def run(env, _c=lshape[0], _lk=lut_k):
+                codes, m = env[_c]
+                return env[_lk].index_select(0, codes), m
+
+            return run, out_dt
+
+    if isinstance(node, IsIn):
+        items = _numeric_isin_items(node, schema)
+        if items is None:
+            raise ValueError("is_in not device-compilable here")
+        inner, _ = _compile_node(node.child, schema)
+
+        def run(env, _inner=inner, _items=items):
+            v, m = _inner(env)
+            out = torch.zeros_like(m)
+            for it in _items:  # a short static list: one compare each
+                out = out | (v == it)
+            return out, m
+
+        return run, out_dt
+
+    if isinstance(node, Function):
+        if node.fname not in _DEVICE_FNS:
+            raise ValueError(f"function {node.fname} not device-compilable")
+        inner, _ = _compile_node(node.args[0], schema)
+
+        def run(env, _inner=inner, _fn=_DEVICE_FNS[node.fname]):
+            v, m = _inner(env)
+            return _fn(v), m
 
         return run, out_dt
 
@@ -638,11 +1185,23 @@ def compile_validity(node, schema):
     computed only where validity reads them (Kleene ``&``/``|``, Between, the
     divisor of an integer ``//``/``%``). The deep-fused aggregation uses it
     for the counts of the columns whose values the kernel computes."""
-    from ..expressions import Alias, BinaryOp, Cast, Column, Literal, Not
+    from ..expressions import Alias, BinaryOp, Cast, Column, FillNull, Function, IsNull, Literal, Not
 
+    if (_string_dict_pred_applies(node, schema) is not None
+            or _string_lut_shape(node, schema) is not None):
+        full, _ = _compile_node(node, schema)
+        return lambda env: full(env)[1]
     if isinstance(node, Column):
         name = node.cname
         return lambda env: env[name][1]
+    if isinstance(node, IsNull):
+        return lambda env: torch.ones(_env_nrows(env), dtype=torch.bool, device=_env_device(env))
+    if isinstance(node, FillNull):
+        af = compile_validity(node.child, schema)
+        bf = compile_validity(node.fill, schema)
+        return lambda env: af(env) | bf(env)
+    if isinstance(node, Function):
+        return compile_validity(node.args[0], schema)
     if isinstance(node, Literal):
         fill = torch.zeros if node.value is None else torch.ones
         return lambda env: fill(_env_nrows(env), dtype=torch.bool, device=_env_device(env))
@@ -756,15 +1315,29 @@ def int64_wrap_safe(nodes, schema, env, stage_cache: Optional[dict], bucket: int
     wrap silently (staging only range-checks the LEAF columns). Prove by
     interval arithmetic over the staged data's actual min/max that no such
     arithmetic node can leave the int32 range (for uint64, [0, 2**31)),
-    anything unproven declines to the host path. The per-column ranges cost one reduction + sync each,
-    cached with the partition."""
-    from ..expressions import Alias, BinaryOp, Column, Literal
+    anything unproven declines to the host path. An int64 function counts as
+    arithmetic (``abs`` or ``-`` of -2**31 wraps in int32), and with no
+    bounds of its own it declines. The per-column ranges cost one reduction
+    + sync each, cached with the partition."""
+    from ..expressions import Alias, BinaryOp, Column, Function, Literal
 
     risky = (DataType.int64(), DataType.uint64())
+    lanes_memo: dict = {}
+
+    def rides_lanes(n):
+        # a dictionary-predicate subtree is evaluated on the host over the
+        # dictionary, so no int32 lane computes below it (memoized: has_risky
+        # and safe both probe every node, and each probe walks the subtree)
+        r = lanes_memo.get(id(n))
+        if r is None:
+            r = lanes_memo[id(n)] = _string_dict_pred_applies(n, schema) is not None
+        return r
 
     def has_risky(n):
+        if rides_lanes(n):
+            return False
         try:
-            if isinstance(n, BinaryOp) and n.to_field(schema).dtype in risky:
+            if isinstance(n, (BinaryOp, Function)) and n.to_field(schema).dtype in risky:
                 return True
         except (ValueError, KeyError):
             return True
@@ -828,7 +1401,9 @@ def int64_wrap_safe(nodes, schema, env, stage_cache: Optional[dict], bucket: int
         return None
 
     def safe(n):
-        if isinstance(n, BinaryOp):
+        if rides_lanes(n):
+            return True
+        if isinstance(n, (BinaryOp, Function)):
             try:
                 dt_ = n.to_field(schema).dtype
             except (ValueError, KeyError):
@@ -870,8 +1445,10 @@ def _stage_and_run(table, exprs, stage_cache: Optional[dict], device):
     if not int64_wrap_safe(nodes, schema, env, stage_cache, b):
         return None
     env = string_literal_env(nodes, schema, dcs, env)
+    if env is not None:
+        env = string_lut_env(nodes, schema, dcs, env)
     if env is None:
-        return None
+        return None  # a string lane lost its dictionary
     run, out_dts = compile_projection(nodes, schema, tuple(needed))
     return run(env), out_dts, nodes, dcs
 

@@ -44,6 +44,7 @@ from ..datatypes import DataType
 from .device import (_ONEHOT_MAX_SEGMENTS, _np, _plain_string_column, compile_projection,
                      device_required_columns, int64_wrap_safe, normalize_and_check,
                      segment_reduce, size_bucket, stage_table_columns, string_literal_env,
+                     string_lut_env,
                      unstage)
 
 # agg kinds with a device segment reduction. mean decomposes to sum+count.
@@ -296,6 +297,9 @@ def device_grouped_agg_async(table, to_agg, group_by, stage_cache: Optional[dict
     env = string_literal_env(check_nodes, schema, dcs, env)
     if env is None:
         return None  # a string comparison lost its dictionary
+    env = string_lut_env(check_nodes, schema, dcs, env)
+    if env is None:
+        return None  # a dictionary-lane predicate lost its dictionary
 
     kinds = tuple(s[1] for s in specs)
     modes = tuple(s[3] for s in specs)
@@ -360,9 +364,10 @@ def _compile_agg(child_nodes, pred_node, schema, input_names, kinds, modes, gb,
     In the 32-bit mode every float sum rides ONE launch of a segment-sums
     kernel when the padded row count is a multiple of 1024 and there are at
     most 4096 group slots. With ``use_deep`` (every env entry a plain 1-D
-    (values, valid) pair, so no string-literal code bounds, and no
-    string-literal comparison in the program, which K2's emitter does not
-    take) that kernel is K2 (fused_expr_sums.py): it
+    (values, valid) pair, so no string-literal code bounds and no
+    dictionary lookup table, and no node of a string lane or Function in
+    the program, which K2's emitter does not take) that kernel is K2
+    (fused_expr_sums.py): it
     evaluates the predicate and the float sum columns from the staged
     columns itself, and torch computes only their validity for the counts.
     Otherwise torch derives and masks the columns and K1 sums them. A K2
@@ -380,7 +385,9 @@ def _compile_agg(child_nodes, pred_node, schema, input_names, kinds, modes, gb,
         pred_run, _ = compile_projection([pred_node], schema, input_names)
 
     from . import fused_expr_sums as fes
-    from .device import _compile_node, _string_cmp_shape, compile_validity
+    from .device import (_compile_node, _string_cmp_shape, _string_dict_pred_applies,
+                         _string_lut_shape, compile_validity)
+    from ..expressions import Function
     from . import segment_sums
     from .segment_sums import BLOCK_ROWS
 
@@ -388,11 +395,16 @@ def _compile_agg(child_nodes, pred_node, schema, input_names, kinds, modes, gb,
     valid_fns = [compile_validity(nd, schema) for nd in child_nodes]
     deep_buckets = set()  # padded row counts this program has run deep at
 
-    def has_string_cmp(nd) -> bool:
-        return (_string_cmp_shape(nd, schema) is not None
-                or any(has_string_cmp(c) for c in nd.children()))
+    def not_emitted(nd) -> bool:
+        # a string lane reads env entries K2 is not handed; a Function's
+        # exp/log/sin bits in CUDA are not certain to equal torch's
+        return (isinstance(nd, Function)
+                or _string_cmp_shape(nd, schema) is not None
+                or _string_lut_shape(nd, schema) is not None
+                or _string_dict_pred_applies(nd, schema) is not None
+                or any(not_emitted(c) for c in nd.children()))
 
-    deep_ok = not any(has_string_cmp(nd) for nd in
+    deep_ok = not any(not_emitted(nd) for nd in
                       list(child_nodes) + ([pred_node] if pred_node is not None else []))
     deep_by_dtypes: Dict = {}
 

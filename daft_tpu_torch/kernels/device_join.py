@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from .device import (compile_projection, int64_wrap_safe, normalize_and_check,
-                     size_bucket, stage_table_columns, string_literal_env)
+                     size_bucket, stage_table_columns, string_literal_env, string_lut_env)
 
 
 def _stage_key(table, key_expr, cache, device) -> Optional[Tuple]:
@@ -60,10 +60,12 @@ def _stage_key(table, key_expr, cache, device) -> Optional[Tuple]:
     env, dcs = staged
     if not int64_wrap_safe([node], schema, env, cache, b):
         return None  # a computed int64 key could wrap in int32 lanes
-    # an integer key may embed a string-literal comparison
-    # ((col("s") == "a").cast(int)): its closure reads the literal's code
-    # bounds in this partition's dictionary
+    # an integer key may embed a string lane ((col("s") == "a").cast(int)):
+    # its closure reads the literal's code bounds or a lookup table over this
+    # partition's dictionary
     env = string_literal_env([node], schema, dcs, env)
+    if env is not None:
+        env = string_lut_env([node], schema, dcs, env)
     if env is None:
         return None
     run, _ = compile_projection([node], schema, tuple(sorted(cols)))

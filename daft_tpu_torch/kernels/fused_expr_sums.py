@@ -8,10 +8,11 @@ composed route stacks in device memory for K1 is never written.
 
 The kernel's per-row body is generated from the expression nodes:
 
-- ``_Emitter`` translates every node that ``device._compile_node`` compiles
-  (Column, Literal, Alias, Cast, Not, Between and every BinaryOp op) into
-  C++ that computes the same (value, valid) lanes as the torch closures, bit
-  for bit: the same type promotion (``torch.promote_types``), the same casts
+- ``_Emitter`` translates the nodes that ``device._compile_node`` compiles
+  without a string lane or a Function (Column, Literal, Alias, Cast, Not,
+  Between, every BinaryOp op, IsNull, FillNull, IfElse and a numeric IsIn)
+  into C++ that computes the same (value, valid) lanes as the torch
+  closures, bit for bit: the same type promotion (``torch.promote_types``), the same casts
   (a float-to-int cast is torch's CUDA cast: saturate to int32 with NaN to 0,
   then wrap to a narrower type), Kleene ``&``/``|``, floor-based ``//`` and ``%``, and integer
   division by zero giving null. ``**`` goes through ``powf``, which may
@@ -176,7 +177,9 @@ class _Emitter:
         return self._memo[key]
 
     def _emit(self, nd) -> Tuple[str, str, torch.dtype]:
-        from ..expressions import Alias, Between, BinaryOp, Cast, Column, Literal, Not
+        from ..expressions import (Alias, Between, BinaryOp, Cast, Column, FillNull, IfElse, IsIn,
+                                   IsNull, Literal, Not)
+        from .device import _numeric_isin_items
 
         if isinstance(nd, Column):
             if nd.cname not in self.dtypes:
@@ -213,6 +216,33 @@ class _Emitter:
             valid = self._let(torch.bool,
                               f"({ge_m} && {le_m}) || ({ge_m} && !{ge}) || ({le_m} && !{le})")
             return self._let(torch.bool, f"{ge} && {le}"), valid, torch.bool
+        if isinstance(nd, IsNull):
+            _v, m, _dt = self.node(nd.child)
+            return self._let(torch.bool, m if nd.negate else f"!{m}"), "true", torch.bool
+        if isinstance(nd, FillNull):
+            av, am, ad = self.node(nd.child)
+            bv, bm, bd = self.node(nd.fill)
+            jd = _jdt(nd.to_field(self.schema).dtype)
+            value = f"{am} ? {_cast(av, ad, jd)} : {_cast(bv, bd, jd)}"
+            return self._let(jd, value), self._let(torch.bool, f"{am} || {bm}"), jd
+        if isinstance(nd, IfElse):
+            pv, pm, pd = self.node(nd.pred)
+            tv, tm, td = self.node(nd.if_true)
+            fv, fm, fd = self.node(nd.if_false)
+            jd = _jdt(nd.to_field(self.schema).dtype)
+            p = self._let(torch.bool, _cast(pv, pd, torch.bool))
+            value = f"{p} ? {_cast(tv, td, jd)} : {_cast(fv, fd, jd)}"
+            valid = f"{pm} && ({p} ? {tm} : {fm})"
+            return self._let(jd, value), self._let(torch.bool, valid), jd
+        if isinstance(nd, IsIn):
+            items = _numeric_isin_items(nd, self.schema)
+            if items is None:
+                raise ValueError("is_in not device-compilable here")
+            v, m, dt = self.node(nd.child)
+            # each item as the closure's ``v == item`` converts it: to the
+            # child's lane dtype
+            hits = [f"({v} == {_literal_lane(it, dt)})" for it in items]
+            return self._let(torch.bool, " || ".join(hits) or "false"), m, torch.bool
         if isinstance(nd, BinaryOp):
             return self._binary(nd)
         raise ValueError(f"{type(nd).__name__} not device-compilable")

@@ -3,10 +3,10 @@ of daft_tpu/logical.py). Every node resolves and validates its output schema
 at construction time, so API misuse fails at build time, not at collect time.
 
 This slice carries InMemorySource, Project, Filter, Limit, Sort,
-Repartition (the hash scheme), Distinct, Aggregate and Join (with the size
+Repartition (the hash and into schemes), Distinct, Aggregate and Join (with the size
 estimate the join planner reads), and the expression-analysis helpers the
 optimizer (optimizer.py) uses. Left out until a later slice: scans, the
-random, range and into repartition schemes, sample, concat,
+random and range repartition schemes, sample, concat,
 explode/unpivot/pivot, monotonic ids and writes, and the row-count estimates.
 """
 
@@ -234,7 +234,8 @@ class Sort(UnaryNode):
 
 class Repartition(UnaryNode):
     """A hash repartition on ``by`` into ``num`` partitions (None keeps the
-    input's count). The reference's random, range and into schemes come
+    input's count), or ``into`` ``num`` partitions without a shuffle
+    (coalesce or split). The reference's random and range schemes come
     with the shuffles between partitions (ROADMAP Queue 1, item 9)."""
 
     def __init__(self, input: LogicalPlan, scheme: str, num: Optional[int],
@@ -242,15 +243,15 @@ class Repartition(UnaryNode):
         super().__init__(input)
         if scheme not in ("hash", "random", "range", "into"):
             raise ValueError(f"unknown repartition scheme {scheme!r}")
-        if scheme != "hash":
+        if scheme in ("random", "range"):
             raise NotImplementedError(
                 f"the {scheme!r} repartition scheme comes with a later slice of the port "
                 "(ROADMAP Queue 1, item 9: shuffles between partitions)")
-        if not by:
+        if scheme == "hash" and not by:
             raise ValueError("hash repartition requires partition-by expressions")
         self.scheme = scheme
         self.num = num
-        self.by = by
+        self.by = by or []
         self.schema = input.schema
 
     def with_children(self, c):

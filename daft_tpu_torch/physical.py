@@ -326,6 +326,35 @@ class GatherOp(PhysicalOp):
                else MicroPartition.concat(parts))
 
 
+class CoalesceOp(PhysicalOp):
+    """N partitions -> M partitions without a shuffle (``into_partitions``):
+    fewer partitions than inputs merge adjacent ones; more split the rows
+    evenly, in order."""
+
+    def __init__(self, child: PhysicalOp, num: int):
+        super().__init__([child], child.schema, num)
+        self.num = num
+
+    def execute(self, inputs, ctx) -> PartStream:
+        parts = list(inputs[0])
+        if not parts:
+            return
+        total = sum(len(p) for p in parts)
+        if self.num >= len(parts):
+            big = MicroPartition.concat(parts) if len(parts) > 1 else parts[0]
+            per = (total + self.num - 1) // self.num if self.num else total
+            for i in range(self.num):
+                yield big.slice(min(i * per, total), min((i + 1) * per, total))
+        else:
+            per = (len(parts) + self.num - 1) // self.num
+            for i in range(0, len(parts), per):
+                group = parts[i:i + per]
+                yield MicroPartition.concat(group) if len(group) > 1 else group[0]
+
+    def describe(self):
+        return f"Coalesce[{self.num}]"
+
+
 class ShuffleOp(PhysicalOp):
     """Hash exchange on the host (the star path of the reference's
     ShuffleOp): each input partition splits by row hash mod
@@ -513,6 +542,8 @@ def _translate(plan: LogicalPlan, cfg) -> PhysicalOp:
     if isinstance(plan, Repartition):
         child = _translate(plan.input, cfg)
         num = plan.num if plan.num is not None else child.num_partitions
+        if plan.scheme == "into":
+            return child if num == child.num_partitions else CoalesceOp(child, num)
         return ShuffleOp(child, num, plan.by)
     if isinstance(plan, Distinct):
         child = _translate(plan.input, cfg)
@@ -535,6 +566,9 @@ def _translate(plan: LogicalPlan, cfg) -> PhysicalOp:
 
 # stage-1 kind -> the stage-2 kind that merges its partials
 _MERGE_KIND = {"sum": "sum", "count": "sum", "min": "min", "max": "max"}
+# kinds that split into partials (count_distinct does not: its per-partition
+# counts cannot be merged)
+DECOMPOSABLE = {"sum", "count", "mean", "min", "max"}
 
 
 def _strip_alias(e: Expression) -> AggExpr:
@@ -592,6 +626,13 @@ def populate_aggregation_stages(
     return stage1, stage2, final
 
 
+def aggs_decomposable(aggs: List[Expression]) -> bool:
+    try:
+        return all(_strip_alias(e).kind in DECOMPOSABLE for e in aggs)
+    except ValueError:
+        return False
+
+
 def _stage_schema(input_schema: Schema, aggs: List[Expression],
                   groupby: List[Expression]) -> Schema:
     from .schema import Field
@@ -608,6 +649,16 @@ def _translate_aggregate(plan: Aggregate, cfg) -> PhysicalOp:
     nparts = child.num_partitions
     if nparts == 1:
         return AggregateOp(child, plan.aggregations, plan.groupby, plan.schema)
+    if not aggs_decomposable(plan.aggregations):
+        # count_distinct: shuffle the raw rows by key, then aggregate each
+        # partition in full
+        if plan.groupby:
+            shuffled = ShuffleOp(child, nparts, plan.groupby)
+            return AggregateOp(shuffled, plan.aggregations, plan.groupby, plan.schema)
+        cd = _global_count_distinct_plan(plan, child, nparts)
+        if cd is not None:
+            return cd
+        return AggregateOp(GatherOp(child), plan.aggregations, [], plan.schema)
     stage1, stage2, final = populate_aggregation_stages(plan.aggregations)
     key_cols = [col(e.name()) for e in plan.groupby]
     p1 = AggregateOp(child, stage1, plan.groupby,
@@ -615,6 +666,27 @@ def _translate_aggregate(plan: Aggregate, cfg) -> PhysicalOp:
     exchanged = ShuffleOp(p1, nparts, key_cols) if plan.groupby else GatherOp(p1)
     p2 = AggregateOp(exchanged, stage2, key_cols, _stage_schema(p1.schema, stage2, key_cols))
     return ProjectOp(p2, key_cols + final, plan.schema)
+
+
+def _global_count_distinct_plan(plan: Aggregate, child: PhysicalOp,
+                                nparts: int) -> Optional[PhysicalOp]:
+    """A global count_distinct without gathering the raw rows: hash-shuffle
+    the rows by the counted value (equal values meet in one partition),
+    count distinct per partition, and sum the partitions' counts. Applies
+    when the list is exactly one count_distinct."""
+    if len(plan.aggregations) != 1:
+        return None  # different value columns would need different shuffles
+    e = plan.aggregations[0]
+    node = e._node
+    while isinstance(node, Alias):
+        node = node.child
+    if not (isinstance(node, AggExpr) and node.kind == "count_distinct"):
+        return None
+    alias = e.name()
+    shuffled = ShuffleOp(child, nparts, [Expression(node.child)])
+    p1 = AggregateOp(shuffled, [e], [], _stage_schema(plan.input.schema, [e], []))
+    total = [col(alias).sum().alias(alias)]
+    return AggregateOp(GatherOp(p1), total, [], _stage_schema(p1.schema, total, []))
 
 
 def _translate_join(plan: Join, cfg) -> PhysicalOp:

@@ -5,8 +5,8 @@ mapping, or a numpy object array for python-dtype columns. The device path
 stages numeric columns as torch tensors (see daft_tpu_torch/kernels/device.py).
 
 Left out of this slice: the hash expression (Series.hash/murmur3_32), the
-multimodal image casts, the sketch-backed approximate aggregations and the
-per-element math functions. The row hash of the hash shuffle is
+multimodal image casts and the sketch-backed approximate aggregations. The
+row hash of the hash shuffle is
 Table.hash_rows (kernels/host_hash.py), which hashes a table's Arrow columns
 directly and needs none of them.
 """
@@ -283,6 +283,112 @@ class Series:
     def __abs__(self):
         return Series.from_arrow(pc.abs_checked(self._arrow), self._name)
 
+    def left_shift(self, other):
+        return self._binary_numeric(_as_series(other), pc.shift_left, unify=False)
+
+    def right_shift(self, other):
+        return self._binary_numeric(_as_series(other), pc.shift_right, unify=False)
+
+    # ------------------------------------------------------------------ numeric fns
+    def _unary(self, fn, dtype: Optional[DataType] = None) -> "Series":
+        return Series.from_arrow(fn(self._arrow), self._name, dtype)
+
+    def abs(self):
+        return self._unary(pc.abs_checked)
+
+    def ceil(self):
+        return self._unary(pc.ceil)
+
+    def floor(self):
+        return self._unary(pc.floor)
+
+    def sign(self):
+        return self._unary(pc.sign)
+
+    def round(self, decimals: int = 0):
+        return self._unary(lambda a: pc.round(a, ndigits=decimals))
+
+    def sqrt(self):
+        return self.cast(DataType.float64())._unary(pc.sqrt)
+
+    def cbrt(self):
+        return self._np_unary(np.cbrt)
+
+    def exp(self):
+        return self.cast(DataType.float64())._unary(pc.exp)
+
+    def log(self, base: Optional[float] = None):
+        f = self.cast(DataType.float64())
+        if base is None:
+            return f._unary(pc.ln)
+        return f._unary(lambda a: pc.logb(a, pa.scalar(float(base))))
+
+    def log2(self):
+        return self.cast(DataType.float64())._unary(pc.log2)
+
+    def log10(self):
+        return self.cast(DataType.float64())._unary(pc.log10)
+
+    def log1p(self):
+        return self.cast(DataType.float64())._unary(pc.log1p)
+
+    def sin(self):
+        return self.cast(DataType.float64())._unary(pc.sin)
+
+    def cos(self):
+        return self.cast(DataType.float64())._unary(pc.cos)
+
+    def tan(self):
+        return self.cast(DataType.float64())._unary(pc.tan)
+
+    def arcsin(self):
+        return self.cast(DataType.float64())._unary(pc.asin)
+
+    def arccos(self):
+        return self.cast(DataType.float64())._unary(pc.acos)
+
+    def arctan(self):
+        return self.cast(DataType.float64())._unary(pc.atan)
+
+    def arctanh(self):
+        return self._np_unary(np.arctanh)
+
+    def arccosh(self):
+        return self._np_unary(np.arccosh)
+
+    def arcsinh(self):
+        return self._np_unary(np.arcsinh)
+
+    def radians(self):
+        return self._np_unary(np.radians)
+
+    def degrees(self):
+        return self._np_unary(np.degrees)
+
+    def _np_unary(self, np_fn):
+        f = self.cast(DataType.float64())
+        vals = np.asarray(pc.fill_null(f._arrow, np.nan))
+        with np.errstate(all="ignore"):
+            out = pa.array(np_fn(vals), from_pandas=True)
+        out = pc.if_else(pc.is_valid(f._arrow), out, pa.nulls(len(out), pa.float64()))
+        return Series.from_arrow(out, self._name)
+
+    # float namespace
+    def float_is_nan(self):
+        return self._unary(pc.is_nan, DataType.bool())
+
+    def float_is_inf(self):
+        return self._unary(pc.is_inf, DataType.bool())
+
+    def float_not_nan(self):
+        return Series.from_arrow(pc.invert(pc.is_nan(self._arrow)), self._name, DataType.bool())
+
+    def float_fill_nan(self, fill: "Series"):
+        fill = _as_series(fill).cast(self._dtype)
+        l, r = _broadcast(self, fill)
+        isnan = pc.fill_null(pc.is_nan(l._arrow), False)
+        return Series.from_arrow(pc.if_else(isnan, r._arrow, l._arrow), self._name, self._dtype)
+
     # ------------------------------------------------------------------ comparison
     def _cmp(self, other, fn) -> "Series":
         self._require_arrow("comparison")
@@ -360,6 +466,45 @@ class Series:
         if self._arrow is None:
             return Series.from_arrow(pa.array([v is None for v in self._pyobjs]), self._name)
         return Series.from_arrow(pc.is_null(self._arrow), self._name)
+
+    def not_null(self) -> "Series":
+        if self._arrow is None:
+            return Series.from_arrow(pa.array([v is not None for v in self._pyobjs]), self._name)
+        return Series.from_arrow(pc.is_valid(self._arrow), self._name)
+
+    def fill_null(self, fill: "Series") -> "Series":
+        fill = _as_series(fill)
+        l, r = _broadcast(self, fill)
+        return Series.from_arrow(pc.coalesce(l._arrow, r._arrow), self._name, self._dtype)
+
+    def if_else(self, if_true: "Series", if_false: "Series") -> "Series":
+        t = _as_series(if_true)
+        f = _as_series(if_false)
+        n = max(len(self), len(t), len(f))
+        cond = _broadcast_to(self, n)
+        t = _broadcast_to(t, n)
+        f = _broadcast_to(f, n)
+        sup = try_unify(t._dtype, f._dtype)
+        if sup is None:
+            raise ValueError(f"if_else branches have incompatible types {t._dtype} vs {f._dtype}")
+        if sup.is_python():
+            cm = cond.to_pylist()
+            tv, fv = t.to_pylist(), f.to_pylist()
+            return Series.from_pylist([None if c is None else (tv[i] if c else fv[i])
+                                       for i, c in enumerate(cm)], t._name, sup)
+        out = pc.if_else(cond._arrow, t.cast(sup)._arrow, f.cast(sup)._arrow)
+        return Series.from_arrow(out, t._name, sup)
+
+    def is_in(self, items: "Series") -> "Series":
+        items = _as_series(items)
+        sup = try_unify(self._dtype, items._dtype)
+        if sup is None:
+            return Series.from_arrow(pa.array([False] * len(self)), self._name)
+        lhs = self.cast(sup)
+        out = pc.is_in(lhs._arrow, value_set=items.cast(sup)._arrow)
+        out = pc.fill_null(out, False)
+        out = pc.if_else(pc.is_valid(lhs._arrow), out, pa.nulls(len(out), pa.bool_()))
+        return Series.from_arrow(out, self._name, DataType.bool())
 
     def between(self, lower, upper) -> "Series":
         lo = _as_series(lower)

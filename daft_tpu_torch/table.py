@@ -532,8 +532,8 @@ def _group_codes(key_tbl: Table) -> Tuple[np.ndarray, Table]:
 def _acero_agg_fn(node: AggExpr):
     """AggExpr -> (arrow hash-agg function name, options), or None."""
     k = node.kind
-    if k in ("sum", "mean", "min", "max"):
-        return k, None
+    if k in ("sum", "mean", "min", "max", "count_distinct"):
+        return k, None  # count_distinct counts valid values only (nulls skipped)
     if k == "count":
         mode = node.extra.get("mode", "valid")
         if mode not in ("valid", "null", "all"):

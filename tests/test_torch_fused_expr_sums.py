@@ -8,7 +8,8 @@
   (K2's plain version). Keys, group order, counts and int sums match
   exactly; float aggregates agree at rtol 1e-6, with each other and with the
   pyarrow oracle. K2 engages in the port exactly where it engages in the
-  reference (DEEP_FUSED_TRACES against BUILDS and ENTRIES).
+  reference (DEEP_FUSED_TRACES against BUILDS and ENTRIES), but for a
+  Function, which the port's K2 declines.
 - On the CPU the port's deep and composed (torch derive, stack, K1) results
   are bit-identical: K2's plain version is the composed computation.
 - The generated row function is built with g++ and held against the torch
@@ -167,6 +168,55 @@ def test_string_literal_predicate_does_not_engage_deep_kernel():
                                             query(daft_tpu_torch.col))
     _assert_same(ref, got)
     assert engaged == {"ref_traces": 0, "builds": 0, "k2_entries": 0, "k1_entries": 1}
+    assert counters.get("device_aggregations") == 1
+    assert counters.get("device_agg_fallbacks", 0) == 0
+
+
+def _new_nodes_query(col):
+    # the deep program chip_smoke.py times beside Q1: if_else in the summed
+    # column, a numeric is_in and is_null in the filter
+    return lambda f: (f.where(col("cut").is_in([1, 5, 24, 60]) | col("qty").is_null())
+                      .groupby("g")
+                      .agg((col("disc") > 0.05).if_else(col("price") * (1 - col("disc")), 0.0)
+                           .sum().alias("r"),
+                           col("qty").fill_null(0.0).sum().alias("q"))
+                      .sort("g"))
+
+
+def test_deep_kernel_takes_the_new_nodes():
+    # if_else, is_in, is_null and fill_null run inside K2 in both packages
+    table = _q1_shape()
+    ref, got, counters, engaged = _run_both(table, _new_nodes_query(daft_tpu.col),
+                                            _new_nodes_query(daft_tpu_torch.col))
+    _assert_same(ref, got)
+    assert engaged == {"ref_traces": 1, "builds": 1, "k2_entries": 1, "k1_entries": 0}
+    assert counters.get("device_aggregations") == 1
+    assert _port_only(table, _new_nodes_query(daft_tpu_torch.col), deep=False) == got
+
+
+def _declining_query(col, lane):
+    if lane == "lut":  # a lookup table over the dictionary in the env
+        pred = col("g").is_in(["A", "R"])
+    elif lane == "dictionary_predicate":  # a whole predicate over the dictionary
+        pred = col("g").str.lower() == "n"
+    else:  # a Function: its exp bits in CUDA are not certain to equal torch's
+        pred = col("price").sqrt() > 100.0
+    return lambda f: f.where(pred).groupby("g").agg(col("price").sum().alias("sp")).sort("g")
+
+
+@pytest.mark.parametrize("lane", ["lut", "dictionary_predicate", "function"])
+def test_string_lanes_and_functions_decline_the_deep_kernel(lane):
+    # K2 declines before launch and K1 sums: K2's counters stay at 0
+    table = _q1_shape()
+    launches = fes.LAUNCHES
+    ref, got, counters, engaged = _run_both(table, _declining_query(daft_tpu.col, lane),
+                                            _declining_query(daft_tpu_torch.col, lane))
+    _assert_same(ref, got)
+    # the reference's K2 takes a Function (its Pallas body runs the torch
+    # closures' counterparts); the port's declines it (ROADMAP Queue 2 D)
+    assert engaged == {"ref_traces": int(lane == "function"), "builds": 0, "k2_entries": 0,
+                       "k1_entries": 1}
+    assert fes.LAUNCHES == launches
     assert counters.get("device_aggregations") == 1
     assert counters.get("device_agg_fallbacks", 0) == 0
 
@@ -397,6 +447,23 @@ def _probe_cases():
         "literal_null": col("b") + lit(None, T.int32()),
         "literal_float": col("f") * 0.1,
         "alias": (col("b") * 2).alias("twice"),
+        "is_null": col("a").is_null(),
+        "not_null": col("f").not_null(),
+        "fill_null_int": col("a").fill_null(col("b")),
+        "fill_null_float_literal": col("f").fill_null(0.5),
+        "fill_null_mixed": col("b").fill_null(col("g")),
+        "if_else_float": (col("a") > 0).if_else(col("f"), col("g")),
+        "if_else_nullable_pred": col("p").if_else(col("b"), 0),
+        "if_else_mixed": col("q").if_else(col("c8"), col("h")),
+        "if_else_nested": col("p").if_else(col("f").is_null().if_else(1.0, col("f")), -1.0),
+        "is_in_int": col("b").is_in([1, -3, 5]),
+        "is_in_int8": col("c8").is_in([1, 2, -128]),
+        "is_in_float": col("g").is_in([0.5, 2.0, -3.5]),
+        "is_in_float_int_items": col("h").is_in([1, 2, 3]),
+        "is_in_null_item": col("b").is_in([None, 2]),
+        "is_in_empty": col("b").is_in([]),
+        "is_in_date": col("dt").is_in([datetime.date(1997, 5, 1), datetime.date(1998, 1, 2)]),
+        "is_in_bool": col("p").is_in([True]),
     }
 
 

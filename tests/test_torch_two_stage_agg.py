@@ -409,7 +409,7 @@ def test_uint64_columns_match_the_reference(name, big):
     assert got == ref
     if on_card is not None:
         assert got_c.get("device_fused_maps", 0) == int(on_card[big])
-        assert got_c.get("device_fused_map_fallbacks", 0) == int(not on_card[big])
+        assert got_c.get("host_fused_maps", 0) == int(not on_card[big])
 
 
 @pytest.mark.parametrize("arrow_type", [pa.int64(), pa.uint64()], ids=["int64", "uint64"])
@@ -424,4 +424,23 @@ def test_arithmetic_past_int32_declines_to_the_host(arrow_type):
     (ref, _), (got, got_c) = _both_single(t, query)
     assert got["y"] == [v * 1_000_000 for v in range(4096)]
     assert got == ref
-    assert got_c.get("device_fused_map_fallbacks") == 1 and "device_fused_maps" not in got_c
+    assert got_c.get("host_fused_maps") == 1 and "device_fused_maps" not in got_c
+
+
+@pytest.mark.parametrize("op", ["abs", "negate"])
+def test_int64_function_past_int32_declines_to_the_host(op):
+    # -2**31 fits an int32 lane, but its abs and its negation do not: the
+    # wrap guard treats an int64 function as arithmetic, and with no bounds
+    # for it the chain declines to the host, as in the reference
+    vals = [-2**31, -5, 0, 7, 2**31 - 1] * 8
+    t = pa.table({"v": pa.array(vals, pa.int64())})
+
+    def query(p, f):
+        y = p.col("v").abs() if op == "abs" else -p.col("v")
+        return f.where(p.col("v") >= -2**31).with_column("y", y)
+
+    (ref, ref_c), (got, got_c) = _both_single(t, query)
+    assert got["y"] == [abs(v) if op == "abs" else -v for v in vals]
+    assert got == ref
+    assert got_c.get("host_fused_maps") == 1 and "device_fused_maps" not in got_c
+    assert ref_c.get("device_fused_maps", 0) == 0
