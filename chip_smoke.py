@@ -65,7 +65,22 @@ Phases, each of which fails the run:
      device_agg_fallbacks 0, the new lanes' filters on the card, and float
      sums through K1 or the scatter kernel where the CPU tests put them.
      With --profile, the phase breakdown and device profile of the five
-     slowest warm queries.
+     slowest warm queries;
+  5. the 32-bit lanes at SF1 over phase 4's tables (lane_tables: lineitem
+     and orders with their dates cast to timestamp[us], a 7-row table of
+     the ship modes, a 25-row table of the phone country codes), each query
+     of lane_queries on the card and through the port's host path: a
+     string-key join, a join on c_phone.str.left(2), Q12's lineitem
+     predicate over timestamps (composed through K1, and its two
+     column-to-column compares alone through K2), a timestamp sort with
+     limit, a group by a lowered string, a string if_else then distinct, a
+     column-to-column string filter. Each with its rows, its routing
+     counters (LANE_ROUTES, pinned by the CPU tests) and its kernel
+     launches, timed cold and warm (median of 5) with the device's idle
+     share; the deep query's K2 program held against its plain version and
+     the composed route bit for bit, and timed. The deep program is built in
+     phase 1 beside the others (from a 6,000-row lineitem of the same
+     schema).
 
 The last line of standard output is {"ok": true, "device": {...}} when every
 phase passed; the exit code is 0 only then. The line before it is the card's
@@ -422,6 +437,12 @@ def enumerate_deep_programs() -> list:
         scale=4096 / tpch.LINEITEM_ROWS_PER_SF, seed=1)).collect()
     for plan in DEEP_PLANS.values():
         plan(small).collect()
+    # phase 5's deep plan over its own schema (tables of the 22 queries)
+    from benchmarks import tpch_full
+
+    lanes = {k: dtt.from_arrow(v).collect()
+             for k, v in lane_tables(tpch_full.generate(scale=0.001, seed=7)).items()}
+    lane_queries(dtt)["timestamps_deep"][0](lanes).collect()
     return fes.programs()
 
 
@@ -650,8 +671,11 @@ def time_k2(prog, codes, env, n: int, g: int) -> dict:
             lambda: torch.zeros((g, prog.k), device="cuda").index_add_(0, idx, vk), iters=20),
     }
     # pass 1 reads the codes of every padded block, and a column's values and
-    # validity only for the n real rows; the row body runs on those rows alone
-    row_bytes = sum(env[nm][0].element_size() + 1 for nm in prog.names)
+    # validity only for the n real rows; the row body runs on those rows alone.
+    # A tensor bound under two names (an epoch's hi and lo lanes share one
+    # validity) is read once.
+    lanes = {t.data_ptr(): t for nm in prog.names for t in env[nm]}
+    row_bytes = sum(t.element_size() for t in lanes.values())
     nbytes = b * 4 + n * row_bytes + g * prog.k * 4
     out.update(bound(nbytes, n * (2 * prog.k + prog.row_ops)))
     out["x_bound"] = out["ms"] / out["bound_ms"]
@@ -777,21 +801,42 @@ def scatter_bound(vals, codes, g: int) -> dict:
     return bound(b * 8 + g * 4, adds + 4 * nch * g)
 
 
+def queued_cuda_ms(fn, calls: int = 20) -> float:
+    """Device milliseconds per call of ``fn`` by CUDA events, with the calls
+    queued behind a torch.cuda._sleep of 10**8 cycles (about 50 ms at the
+    H100's clocks): the host enqueues all of them while the card sleeps, so
+    the events see the calls back to back, without the wrapper's host cost
+    between them."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(10 ** 8)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
+
+
 def scatter_device_ms(vals, codes, g: int, calls: int = 20) -> dict:
     """Device time per call of the scatter kernel's two passes, from
     torch.profiler over `calls` calls: the card's own time, apart from
     the wrapper's host cost that CUDA events around the calls also see.
     A session whose trace holds no time for either pass is made once more;
-    if the second sees none either, device_ms is None (not measured) and
-    the device events the trace did hold are listed."""
+    if the second sees none either, the device events it did hold are
+    listed and device_ms comes from queued_cuda_ms (both passes of each call
+    together: they launch inside one C call). ``device_ms_method`` names the
+    method; ``queued_events_ms`` is the second method's number in any case."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from daft_tpu_torch.kernels import scatter_sums as scs
 
-    scs.scatter_sum_kahan(vals, codes, g)
-    torch.cuda.synchronize()
+    queued = queued_cuda_ms(lambda: scs.scatter_sum_kahan(vals, codes, g), calls)
     for _attempt in range(2):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
@@ -801,11 +846,14 @@ def scatter_device_ms(vals, codes, g: int, calls: int = 20) -> dict:
         out = {f"{name}_device_ms": sum(e.self_device_time_total for e in events
                                         if f"scatter_{name}" in e.key) / 1e3 / calls
                for name in ("pass1", "pass2")}
+        out["queued_events_ms"] = queued
         if out["pass1_device_ms"] > 0.0 and out["pass2_device_ms"] > 0.0:
             out["device_ms"] = out["pass1_device_ms"] + out["pass2_device_ms"]
+            out["device_ms_method"] = "profiler"
             return out
-    out["device_ms"] = None
     out["profiler_device_events"] = [[e.key[:60], e.count] for e in events]
+    out["device_ms"] = queued
+    out["device_ms_method"] = "cuda events, calls queued behind a sleep"
     return out
 
 
@@ -916,36 +964,51 @@ def profile_queries(queries: dict, frame, rows: int, card: str, reps: int = 5) -
     """torch.profiler over `reps` warm runs of each query: wall and device-busy
     time per query, the device's idle share, the top kernels by device time
     and the port's own kernels. Prints one JSON line per query."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     for name, query in queries.items():
         query(frame).collect().to_pydict()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                query(frame).collect().to_pydict()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / reps
-        # device-side events only (kernels, memcpys): the aten:: host ops
-        # also carry the device time of the kernels they launched
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
+        res, kernels = device_profile(lambda query=query: query(frame).collect().to_pydict(),
+                                      reps)
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
         # the port's own kernels (K1/K2 passes, the scatter passes), top 12 or not
         ours = [e for e in kernels if any(n in e.key for n in PORT_KERNEL_NAMES)]
         print(f"profile {name} " + json.dumps({
-            "rows": rows, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "device_idle_share": 1.0 - busy_ms / wall_ms,
-            "device_events": sum(e.count for e in kernels) // reps, "card": card,
+            "rows": rows, **res, "card": card,
             "top": [[e.key[:80], e.count // reps, e.self_device_time_total / 1e3 / reps]
                     for e in top],
             "port_kernels": [[e.key[:80], e.count // reps,
                               e.self_device_time_total / 1e3 / reps] for e in ours]}),
               flush=True)
+
+
+def device_profile(run, reps: int) -> tuple:
+    """torch.profiler over ``reps`` calls of ``run`` (warm): ({wall_ms,
+    device_busy_ms, device_idle_share, device_events} per call, the device
+    events). Busy time counts device-side events only (kernels, memcpys):
+    the aten:: host ops also carry the device time of the kernels they
+    launched. A trace that holds no device event (the profiler drops one
+    now and then) is taken once more; if the second holds none either, the
+    busy time and idle share are None (not measured)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _attempt in range(2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        if kernels:
+            busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
+            return ({"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                     "device_idle_share": 1.0 - busy_ms / wall_ms,
+                     "device_events": sum(e.count for e in kernels) // reps}, kernels)
+    return ({"wall_ms": wall_ms, "device_busy_ms": None, "device_idle_share": None,
+             "device_events": 0}, kernels)
 
 
 def warm_median(query, frame, runs: int = 5, fetch: str = "to_pydict") -> dict:
@@ -1398,7 +1461,7 @@ TPCH22_CARD_SUMS = (1, 3, 5, 6, 7, 8, 9, 10, 11, 14, 15, 17, 18, 19, 22)
 TPCH22_K1 = (1, 5, 6, 7, 8, 9, 11, 14, 19, 22)
 # queries whose filters take the new dictionary and is_in lanes, all of
 # them on the card in the CPU tests: none of their filters may run on the host
-TPCH22_LANE_FILTERS = (9, 12, 13, 14, 16, 19)
+TPCH22_LANE_FILTERS = (9, 12, 13, 14, 16, 19, 22)
 # (device_aggregations, host_aggregations) of each query, one partition per
 # table: tests/test_torch_tpch22.py holds the port's counters at SF0.005 to
 # these and to the reference's; the same routes hold at SF1. Q16's grouped
@@ -1410,7 +1473,8 @@ TPCH22_AGG_ROUTES = {1: (1, 0), 2: (1, 0), 3: (1, 0), 4: (1, 0), 5: (1, 0), 6: (
                      19: (1, 0), 20: (1, 0), 21: (1, 2), 22: (0, 1)}
 # (device_fused_maps, host_fused_maps) of the queries whose chains take the
 # new lanes, held the same way
-TPCH22_LANE_MAPS = {9: (1, 0), 12: (1, 0), 13: (1, 0), 14: (1, 0), 16: (2, 0), 19: (1, 0)}
+TPCH22_LANE_MAPS = {9: (1, 0), 12: (1, 0), 13: (1, 0), 14: (1, 0), 16: (2, 0), 19: (1, 0),
+                    22: (1, 0)}
 TPCH22_COUNTERS = ("device_aggregations", "host_aggregations", "device_agg_fallbacks",
                    "device_join_probes", "host_joins", "device_sorts", "host_sorts",
                    "device_group_codes", "device_resident_segments", "segment_fallbacks",
@@ -1451,10 +1515,10 @@ class BackgroundTables:
             self.proc.join(timeout=30)
 
 
-def tpch22_rows(rows) -> list:
+def tpch22_rows(rows, keep_order: bool = False) -> list:
     """tests/device32/test_tpch_suite32.py's normal form of ``rows`` (an
     iterable of tuples): floats rounded to 2 decimals, dates as ISO text,
-    rows sorted."""
+    rows sorted (unless ``keep_order``)."""
     def norm(v):
         if isinstance(v, float):
             return round(v, 2)
@@ -1465,7 +1529,8 @@ def tpch22_rows(rows) -> list:
     def key(r):
         return tuple((x is None, repr(type(x)), x if x is not None else 0) for x in r)
 
-    return sorted([tuple(norm(v) for v in row) for row in rows], key=key)
+    out = [tuple(norm(v) for v in row) for row in rows]
+    return out if keep_order else sorted(out, key=key)
 
 
 def tpch22_match(got: list, want: list) -> bool:
@@ -1496,8 +1561,7 @@ def tpch22_frames(data: dict, nparts: int) -> dict:
     return out
 
 
-def phase_tpch22(ph: Phases, queries, big: "BackgroundTables", card: str,
-                 profile: bool) -> dict:
+def phase_tpch22(ph: Phases, queries, data: dict, card: str, profile: bool) -> dict:
     """Phase 4: the 22 queries of benchmarks/tpch_queries.py through the
     port on the card, in the 32-bit device mode with device_min_rows=8 (the
     configuration of tests/device32/test_tpch_suite32.py). At SF0.005 (seed
@@ -1539,12 +1603,7 @@ def phase_tpch22(ph: Phases, queries, big: "BackgroundTables", card: str,
         conn.close()
     del small, frames
 
-    # --- SF1, one partition per table, against the port's host path
-    t0 = time.perf_counter()
-    data = big.get()
-    print(f"SF1: 22-query tables ready {time.perf_counter() - big.started:.1f}s after the "
-          f"generator started (waited {time.perf_counter() - t0:.1f}s; "
-          + ", ".join(f"{k} {v.num_rows}" for k, v in data.items()) + ")", flush=True)
+    # --- SF1 (``data``), one partition per table, against the port's host path
     host_cfg = dtt.ExecutionConfig(use_device_kernels=False, device="cpu")
     dtt.set_execution_config(host_cfg)
     hframes = tpch22_frames(data, 1)
@@ -1624,7 +1683,212 @@ def phase_tpch22(ph: Phases, queries, big: "BackgroundTables", card: str,
                   flush=True)
             profile_queries({f"tpch22_q{qn}_warm": lambda _f, run=run: run()}, None,
                             rows["lineitem"], card, reps=3)
-    del frames, data
+    del frames
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the 32-bit lanes at SF1 (epoch lanes, string transforms and
+# choices, the joint dictionary, string-key joins)
+# ---------------------------------------------------------------------------
+
+LANE_MODES = ("AIR", "FOB", "MAIL", "RAIL", "REG AIR", "SHIP", "TRUCK")
+LANE_COUNTERS = ("device_join_probes", "host_joins", "device_sorts", "host_sorts",
+                 "device_filters", "host_filters", "device_projections", "host_projections",
+                 "device_fused_maps", "host_fused_maps", "device_aggregations",
+                 "host_aggregations", "device_group_codes", "device_distincts",
+                 "host_distincts", "device_agg_fallbacks")
+# the routing counters of each phase-5 query (device_min_rows=8, one partition
+# per table), the counters LANE_COUNTERS names that are not 0:
+# tests/test_torch_string_joins.py holds the port's and the reference's to
+# these at SF0.005, and phase 5 the port's on the card at SF1
+LANE_ROUTES = {
+    "string_key_join": {"device_join_probes": 1, "device_projections": 1,
+                        "device_aggregations": 1, "device_group_codes": 1, "host_sorts": 1},
+    "transformed_key_join": {"device_join_probes": 1, "device_projections": 1,
+                             "device_aggregations": 1, "device_group_codes": 1,
+                             "device_sorts": 1},
+    "timestamps": {"device_aggregations": 1, "device_group_codes": 1, "host_sorts": 1},
+    "timestamps_deep": {"device_aggregations": 1, "device_group_codes": 1, "host_sorts": 1},
+    "timestamp_sort": {"device_sorts": 1, "host_projections": 2},
+    "lower_group": {"device_aggregations": 1, "device_group_codes": 1, "host_sorts": 1},
+    "choice_distinct": {"device_projections": 1, "device_distincts": 1, "device_sorts": 1},
+    "colcol_filter": {"device_fused_maps": 1, "device_filters": 1, "device_projections": 2},
+}
+# phase-5 queries whose float sums run through K1 (K2 for the deep one)
+LANE_K1 = ("string_key_join", "transformed_key_join", "timestamps", "lower_group")
+
+
+def lane_tables(data: dict) -> dict:
+    """Phase 5's pyarrow tables from the 22 queries' tables: lineitem and
+    orders with their dates cast to timestamp[us], customer, a 7-row table
+    of the l_shipmode values with a rate, and a 25-row table of the country
+    codes c_phone starts with (nation key + 10)."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    def with_timestamps(tbl, names):
+        for name in names:
+            i = tbl.schema.get_field_index(name)
+            tbl = tbl.set_column(i, name, pc.cast(tbl.column(name), pa.timestamp("us")))
+        return tbl
+
+    return {
+        "lineitem": data["lineitem"],
+        "lineitem_ts": with_timestamps(data["lineitem"],
+                                       ("l_shipdate", "l_commitdate", "l_receiptdate")),
+        "orders_ts": with_timestamps(data["orders"], ("o_orderdate",)),
+        "customer": data["customer"],
+        "modes": pa.table({"mode": list(LANE_MODES),
+                           "rate": [1.0 + 0.125 * i for i in range(len(LANE_MODES))]}),
+        "countries": pa.table({"code": [str(k + 10) for k in range(25)],
+                               "cname": [f"country {k}" for k in range(25)]}),
+    }
+
+
+def lane_queries(pkg) -> dict:
+    """Phase 5's queries over the frames of lane_tables, written against the
+    package ``pkg`` (daft_tpu_torch here; the CPU tests also pass daft_tpu):
+    name -> (query, deep). ``deep`` marks the one run with
+    use_deep_fusion_kernel."""
+    col = pkg.col
+    lo, hi = datetime.datetime(1994, 1, 1), datetime.datetime(1995, 1, 1)
+
+    def q12_lineitem(f, literal_range: bool):
+        # tpch_queries.q12's lineitem predicate over timestamp columns
+        pred = ((col("l_commitdate") < col("l_receiptdate"))
+                & (col("l_shipdate") < col("l_commitdate")))
+        if literal_range:
+            pred = (col("l_shipmode").is_in(["MAIL", "SHIP"]) & pred
+                    & (col("l_receiptdate") >= lo) & (col("l_receiptdate") < hi))
+        return (f["lineitem_ts"].where(pred).groupby("l_shipmode")
+                .agg((col("l_extendedprice") * (1 - col("l_discount"))).sum().alias("rev"),
+                     col("l_quantity").sum().alias("qty"), col("l_quantity").count().alias("n"))
+                .sort("l_shipmode"))
+
+    return {
+        "string_key_join": (lambda f: (
+            f["lineitem"].join(f["modes"], left_on="l_shipmode", right_on="mode")
+            .groupby("l_shipmode")
+            .agg((col("l_extendedprice") * col("rate")).sum().alias("charge"),
+                 col("l_quantity").count().alias("n"))
+            .sort("l_shipmode")), False),
+        "transformed_key_join": (lambda f: (
+            f["customer"].join(f["countries"], left_on=col("c_phone").str.left(2),
+                               right_on="code")
+            .groupby("cname").agg(col("c_acctbal").sum().alias("bal"),
+                                  col("c_acctbal").count().alias("n"))
+            .sort("cname")), False),
+        "timestamps": (lambda f: q12_lineitem(f, True), False),
+        "timestamps_deep": (lambda f: q12_lineitem(f, False), True),
+        "timestamp_sort": (lambda f: (
+            f["orders_ts"].sort(["o_orderdate", "o_orderkey"], desc=[True, False]).limit(10)
+            .select(col("o_orderkey"), col("o_orderdate"), col("o_totalprice"))), False),
+        "lower_group": (lambda f: (
+            f["lineitem"].groupby(col("l_shipmode").str.lower().alias("mode"))
+            .agg(col("l_extendedprice").sum().alias("s")).sort("mode")), False),
+        "choice_distinct": (lambda f: (
+            f["lineitem"].select((col("l_quantity") > 25).if_else(
+                col("l_shipmode"), col("l_shipinstruct")).alias("pick"))
+            .distinct().sort("pick")), False),
+        "colcol_filter": (lambda f: (
+            f["lineitem"].where(col("l_shipmode") < col("l_shipinstruct"))
+            .select(col("l_orderkey"), col("l_linenumber"), col("l_shipmode"))), False),
+    }
+
+
+def lane_rows(tbl) -> list:
+    """A phase-5 result's rows in order, in tpch22_rows' normal form."""
+    return tpch22_rows(zip(*tbl.to_pydict().values()), keep_order=True)
+
+
+def phase_lanes(ph: Phases, data: dict, card: str) -> dict:
+    """Phase 5: the lane queries over phase 4's SF1 tables (lane_tables), one
+    partition per table, on the card with device_min_rows=8, each against
+    the port's host path on the same tables (rows in order, floats under
+    tests/device32/test_tpch_suite32.py's rule; a result of more than
+    100,000 rows, with no float, equal as an Arrow table), with K1's, K2's
+    and the scatter kernel's launches set to 0 just before the query and
+    read just after, and every routing counter LANE_COUNTERS names equal to
+    LANE_ROUTES. Each is timed cold and warm (median of 5) with the device's
+    idle share (torch.profiler, 2 warm runs). The deep query's K2 program is
+    then held against its plain version and the composed route at the
+    operands the engine hands it, and timed."""
+    import torch
+
+    import daft_tpu_torch as dtt
+    from daft_tpu_torch.kernels import fused_expr_sums as fes
+    from daft_tpu_torch.kernels import scatter_sums as scs
+    from daft_tpu_torch.kernels import segment_sums as ss
+
+    tables = lane_tables(data)
+    queries = lane_queries(dtt)
+    t0 = time.perf_counter()
+    dtt.set_execution_config(dtt.ExecutionConfig(use_device_kernels=False, device="cpu"))
+    hframes = {k: dtt.from_arrow(v).collect() for k, v in tables.items()}
+    host = {name: q(hframes).collect().to_arrow() for name, (q, _deep) in queries.items()}
+    del hframes
+    print(f"SF1 lanes: the host path ran the {len(queries)} queries in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+
+    out = {"k1_launches": 0, "k2_launches": 0, "scatter_launches": 0}
+    for name, (query, deep) in queries.items():
+        # fresh frames: each query stages its own columns and group codes
+        # cold, as in the CPU tests whose routing it is held to
+        frames = {k: dtt.from_arrow(v).collect() for k, v in tables.items()}
+
+        def run(query=query, frames=frames):
+            return query(frames).collect()
+
+        dtt.set_execution_config(dtt.ExecutionConfig(device_min_rows=8,
+                                                      use_deep_fusion_kernel=deep))
+        ss.LAUNCHES = fes.LAUNCHES = scs.LAUNCHES = 0
+        t0 = time.perf_counter()
+        df = run()
+        got = df.to_arrow()
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        launches = {"k1": ss.LAUNCHES, "k2": fes.LAUNCHES, "scatter": scs.LAUNCHES}
+        c = df.stats.snapshot()["counters"]
+        label = f"SF1 lanes {name}"
+        want = host[name]
+        if want.num_rows > 100_000:
+            ok = got.equals(want)
+        else:
+            ok = tpch22_match(lane_rows(got), lane_rows(want))
+        ph.check(ok, f"{label}: {got.num_rows} rows match the port's host path, in order")
+        routes = {k: c.get(k, 0) for k in LANE_COUNTERS}
+        ph.check(routes == {k: LANE_ROUTES[name].get(k, 0) for k in LANE_COUNTERS},
+                 f"{label}: routing counters {({k: v for k, v in routes.items() if v})} "
+                 f"as the CPU tests pin them")
+        if deep:
+            ph.check(launches["k2"] >= 1 and launches["k1"] == 0,
+                     f"{label}: float sums through K2 ({launches})")
+        elif name in LANE_K1:
+            ph.check(launches["k1"] >= 1, f"{label}: float sums through K1 ({launches})")
+        for k in ("k1", "k2", "scatter"):
+            out[f"{k}_launches"] += launches[k]
+        res = {"cold_s": cold, "launches": launches, "rows": got.num_rows,
+               **warm_median(lambda _f, run=run: run(), None, runs=5, fetch="to_arrow"),
+               **device_profile(lambda run=run: run().to_arrow(), reps=2)[0], "card": card}
+        out[name] = res
+        print(f"SF1 lanes {name} " + json.dumps(res), flush=True)
+        del df, got, frames, run
+        torch.cuda.empty_cache()
+
+    # the deep query's K2 program at the operands the engine hands it
+    frames = {k: dtt.from_arrow(v).collect() for k, v in tables.items()}
+    prog, codes, env, n, g = capture_k2_operands(frames, queries["timestamps_deep"][0])
+    print(f"K2 timestamps_deep operands: n={n} padded to {codes.shape[0]}, G={g}, K={prog.k}, "
+          f"{len(prog.names)} lanes: " + ", ".join(
+              f"{nm.replace(chr(0), '/')} {env[nm][0].dtype}" for nm in prog.names), flush=True)
+    shape = check_k2(ph, f"phase 5 timestamps_deep n={codes.shape[0]} G={g} K={prog.k}",
+                     prog, codes, env, n, g)
+    shape.update(loop=loop_name(g, prog.k), **time_k2(prog, codes, env, n, g))
+    print("K2 timing timestamps_deep " + json.dumps(shape), flush=True)
+    out["k2_shape"] = shape
+    del frames, host, tables
     torch.cuda.empty_cache()
     return out
 
@@ -1696,12 +1960,22 @@ def main(argv=None) -> int:
             else:  # the main path's shape at the later scales, checked and timed
                 sc_entry[f"sf{scale:g}_shape"] = joins["scatter_main"]
         if scales:
-            t22 = phase_tpch22(ph, queries, big, card, args.profile)
-            k1_entry["launches_tpch22"] = t22["k1_launches"]
-            sc_entry["launches_tpch22"] = t22["scatter_launches"]
-            k1_entry["launches"] += t22["k1_launches"]
-            sc_entry["launches"] += t22["scatter_launches"]
-            k2_entry["launches"] += t22["k2_launches"]
+            t0 = time.perf_counter()
+            data = big.get()
+            print(f"SF1: 22-query tables ready {time.perf_counter() - big.started:.1f}s after "
+                  f"the generator started (waited {time.perf_counter() - t0:.1f}s; "
+                  + ", ".join(f"{k} {v.num_rows}" for k, v in data.items()) + ")", flush=True)
+            t22 = phase_tpch22(ph, queries, data, card, args.profile)
+            lanes = phase_lanes(ph, data, card)
+            del data
+            for name, ph_out in (("tpch22", t22), ("lanes", lanes)):
+                k1_entry[f"launches_{name}"] = ph_out["k1_launches"]
+                k2_entry[f"launches_{name}"] = ph_out["k2_launches"]
+                sc_entry[f"launches_{name}"] = ph_out["scatter_launches"]
+                k1_entry["launches"] += ph_out["k1_launches"]
+                sc_entry["launches"] += ph_out["scatter_launches"]
+                k2_entry["launches"] += ph_out["k2_launches"]
+            k2_entry["timestamps_deep_shape"] = lanes["k2_shape"]
         print(json.dumps({"kernels": [k1_entry, k2_entry, sc_entry]}), flush=True)
         print(f"chip_smoke: {len(scales)} scale(s) in {time.perf_counter() - started:.1f}s",
               flush=True)

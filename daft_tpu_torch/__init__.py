@@ -15,7 +15,7 @@ from .api import from_arrow, from_pydict
 from .context import ExecutionConfig, execution_config_from_dict, get_context, set_execution_config
 from .dataframe import DataFrame
 from .datatypes import DataType
-from .expressions import Expression, col, lit
+from .expressions import Expression, col, interval, lit
 from .schema import Field, Schema
 from .series import Series
 from .table import Table
@@ -23,5 +23,5 @@ from .table import Table
 __all__ = [
     "DataFrame", "DataType", "ExecutionConfig", "Expression", "Field", "Schema",
     "Series", "Table", "col", "execution_config_from_dict", "from_arrow",
-    "from_pydict", "get_context", "lit", "set_execution_config",
+    "from_pydict", "get_context", "interval", "lit", "set_execution_config",
 ]

@@ -10,9 +10,9 @@ The port carries Column, Literal (with the weak typing of plain python
 numbers), Alias, Cast, BinaryOp (arithmetic, comparisons, & | ^), Not,
 Between, IsNull, FillNull, IsIn, IfElse and Function (a call into the
 registry of daft_tpu_torch/functions.py, with the str, dt and float
-namespaces over the functions ported there), and the aggregations sum, mean,
-count, min, max and count_distinct. Left out until a later slice: python
-UDFs, intervals, the list/struct/image/... namespaces and the other
+namespaces over the functions ported there), ``interval`` literals, and the
+aggregations sum, mean, count, min, max and count_distinct. Left out until a
+later slice: python UDFs, the list/struct/image/... namespaces and the other
 non-decomposable and sketch aggregations.
 """
 
@@ -35,6 +35,18 @@ def col(name: str) -> "Expression":
 def lit(value: Any, dtype: Optional[DataType] = None) -> "Expression":
     """A literal value."""
     return Expression(Literal(value, dtype))
+
+
+def interval(**kwargs) -> "Expression":
+    """An interval literal for temporal arithmetic, e.g. interval(days=3): a
+    microsecond duration."""
+    import datetime
+
+    allowed = ("weeks", "days", "hours", "minutes", "seconds", "milliseconds", "microseconds")
+    unknown = set(kwargs) - set(allowed)
+    if unknown:
+        raise DaftValueError(f"unsupported interval unit(s) {sorted(unknown)}; allowed: {allowed}")
+    return lit(datetime.timedelta(**kwargs), DataType.duration("us"))
 
 
 # ---------------------------------------------------------------------------

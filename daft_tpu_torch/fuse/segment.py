@@ -133,7 +133,7 @@ def _map_program_for(child: PhysicalOp) -> Optional[FusedProgram]:
 def _try_compile_segment(op, child) -> Optional[SegmentProgram]:
     """One segment compile, or None to keep the staged ops when the segment
     declines. Any other exception is a defect and propagates."""
-    from ..kernels.device import device_required_columns, normalize_and_check
+    from ..kernels.device import collect_epoch_cmps, device_required_columns, normalize_and_check
     from ..kernels.device_agg import _ExprView, _plan_agg_specs
 
     try:
@@ -182,8 +182,11 @@ def _try_compile_segment(op, child) -> Optional[SegmentProgram]:
     pred_node = pred_nodes[0] if pred_nodes else None
 
     # the aggregation env holds only the map program's outputs: no string
-    # dictionaries reach it, so string intermediates decline
+    # dictionaries and no host-evaluated epoch lanes reach it, so epoch
+    # compares and string intermediates decline
     check_nodes = list(child_nodes) + ([pred_node] if pred_node is not None else [])
+    if collect_epoch_cmps(check_nodes, inter_schema):
+        return None
     needed = sorted(device_required_columns(check_nodes, inter_schema))
     if not needed or any(inter_schema[nm].dtype.is_string() for nm in needed):
         return None
@@ -296,7 +299,7 @@ def run_segment_async(table, prog: SegmentProgram, stage_cache: Optional[dict], 
     staged = _stage_and_run(table, prog.seg_exprs, stage_cache, device)
     if staged is None:
         return None
-    outs, _dts, _nodes, _dcs = staged  # the card computes from here
+    outs = staged[0]  # the card computes from here
     env2 = {e.name(): out for e, out in zip(prog.seg_exprs, outs)}
 
     b = size_bucket(n)

@@ -17,22 +17,35 @@ daft_tpu/kernels/device.py this slice runs).
   row-local expression of one string column) is evaluated on the host over
   each partition's dictionary, and the card gathers the result by code
   (``string_lut_env``); a numeric is_in compares against static items.
+- A row-local transform of one string column used as a value (``upper(s)``,
+  ``s.str.left(2)``, a fill_null chain) is evaluated over the dictionary on
+  the host and recoded through its sorted distinct results; the card
+  gathers the ids by code (``string_transform_env``), and they decode
+  through that transformed dictionary. An int-valued transform (``length``,
+  ``find``, ``count_matches``) gathers its values the same way.
+- Column-to-column string compares and string-valued ``if_else`` /
+  ``fill_null`` recode each column's codes through a remap into one sorted
+  joint dictionary per group (``string_joint_env``); a compare of a
+  transform with another column recodes both sides through a pairwise joint
+  dictionary (``transform_cmp_env``).
+- Timestamp, duration and time values compare and sort through exact epoch
+  lanes: the int64 epoch, its sign bit flipped, split into 32-bit halves on
+  the host and each half biased by 2**31 into an int32 lane, so a signed
+  int32 compare is the unsigned order (``epoch_cmp_env``). A computed epoch
+  side is evaluated once on the host in exact int64.
 - Aggregations are masked segment reductions over dense group codes.
 - Sorts are a stable multi-key argsort over order-preserving int64 lanes
   (``device_table_argsort``, the reference's K5).
 
 This slice ports the 32-bit device mode (``ExecutionConfig.device_x64`` is
 False), the one daft_tpu runs on a TPU: int64 columns narrow to int32 when
-every value fits, float64 columns compute as float32, and temporal types other
-than dates stay on the host. JAX narrows quietly when x64 is off; torch does
-not, so every narrowing below is an explicit cast.
+every value fits, float64 columns compute as float32, and epoch temporals
+reach the card only as epoch lanes. JAX narrows quietly when x64 is off;
+torch does not, so every narrowing below is an explicit cast.
 
-Left out of this slice: the joint-dictionary lanes (string choices and
-column-to-column string compares), the int-valued and string-valued
-transform lanes, the epoch lanes (comparisons and sort keys), device hashing,
-fixed-shape tensor columns, and unsigned integers other than uint64
-(torch's uint16/32 support is partial, so those columns decline to the host
-path).
+Left out of this slice: device hashing, fixed-shape tensor columns, and
+unsigned integers other than uint64 (torch's uint16/32 support is partial,
+so those columns decline to the host path).
 """
 
 from __future__ import annotations
@@ -97,8 +110,11 @@ def is_device_dtype(dt: DataType) -> bool:
 
 def _physical_np(arr: pa.Array) -> np.ndarray:
     """Dense physical values of a primitive arrow array (nulls filled with 0)."""
-    if pa.types.is_date32(arr.type):
+    t = arr.type
+    if pa.types.is_date32(t) or pa.types.is_time32(t):
         arr = arr.cast(pa.int32())
+    elif pa.types.is_timestamp(t) or pa.types.is_duration(t) or pa.types.is_time64(t):
+        arr = arr.cast(pa.int64())
     if arr.null_count:
         zero = pa.scalar(0, arr.type) if not pa.types.is_boolean(arr.type) else pa.scalar(False)
         arr = pc.fill_null(arr, zero)
@@ -376,11 +392,20 @@ def expr_is_device_compilable(node, schema, _normalized: bool = False) -> bool:
     if _string_dict_pred_applies(node, schema) is not None:
         # the whole bool subtree evaluates over the dictionary on the host
         return True
+    if _int_transform_applies(node, schema) is not None:
+        return True  # values from the dictionary on the host, gathered by code
     if not (is_device_dtype(out_dt) or out_dt.is_null()):
-        # a string output rides dictionary codes only as a bare column; the
-        # reference's joint-dictionary choices (string fill_null/if_else)
-        # and transformed-string values stay on the host here
-        return out_dt.is_string() and _plain_string_column(node, schema) is not None
+        # a string output rides codes: a bare column's, a choice's joint
+        # codes, or a transform's ids (each decoded at unstage); any other
+        # string-producing compute stays on the host
+        if not out_dt.is_string():
+            return False
+        if _plain_string_column(node, schema) is not None:
+            return True
+        ch = _string_choice_shape(node, schema)
+        if ch is not None:
+            return ch.pred is None or rec(ch.pred)
+        return _string_dict_value_shape(node, schema) is not None
     if isinstance(node, Column):
         return stageable_dtype(schema[node.cname].dtype)
     if isinstance(node, Literal):
@@ -392,6 +417,13 @@ def expr_is_device_compilable(node, schema, _normalized: bool = False) -> bool:
                 and rec(node.child))
     if isinstance(node, BinaryOp):
         if _string_cmp_shape(node, schema) is not None:
+            return True
+        cc = _string_colcol_shape(node, schema)
+        if cc is not None:
+            # a joint-dictionary compare; a choice side's predicate must compile
+            return all(s[0] != "choice" or s[1].pred is None or rec(s[1].pred) for s in cc)
+        if (_epoch_cmp_shape(node, schema) is not None
+                or _transform_cmp_shape(node, schema) is not None):
             return True
         return not any_string_child(node) and all(rec(c) for c in node.children())
     if isinstance(node, (FillNull, IfElse, Between)):
@@ -517,12 +549,53 @@ def _peel_alias(node):
     return node
 
 
+# ---------------------------------------------------------------------------
+# Epoch lanes: timestamp, duration and time values cannot narrow to int32,
+# but they compare and sort exactly as (hi, lo) halves of their
+# order-preserving 64-bit pattern. Each half is biased by 2**31 into an
+# int32 lane (torch on the CPU has no uint32 compares), so a signed compare
+# of the lanes is the reference's unsigned compare of its uint32 lanes.
+# ---------------------------------------------------------------------------
+
+_BIAS32 = 1 << 31
+
+
+def _plain_epoch_column(node, schema) -> Optional[str]:
+    """Bare timestamp, duration or time Column (through Aliases)."""
+    from ..expressions import Column
+
+    node = _peel_alias(node)
+    if isinstance(node, Column) and node.cname in schema \
+            and schema[node.cname].dtype.kind in _EPOCH_KINDS:
+        return node.cname
+    return None
+
+
+def _epoch_lane_side(node, schema):
+    """(ident, dtype, side_node or None) when ``node`` is an epoch-typed
+    expression that rides lanes: a plain column (ident = its name, shared
+    with the column-lane cache; side_node None), or any computed epoch
+    expression (timestamp arithmetic), evaluated once on the host in exact
+    int64 (ident = the expression's key)."""
+    cname = _plain_epoch_column(node, schema)
+    if cname is not None:
+        return cname, schema[cname].dtype, None
+    try:
+        dt = node.to_field(schema).dtype
+    except (ValueError, KeyError):
+        return None
+    if dt.kind not in _EPOCH_KINDS:
+        return None
+    return f"\x00epochexpr\x00{node._key()}", dt, node
+
+
 def _epoch_cmp_shape(node, schema):
-    """The reference's epoch-comparison shape (a comparison whose sides are
-    timestamp, duration or time expressions and/or literals, at least one
-    not a literal). The port has no epoch lanes yet (ROADMAP Queue 1, item
-    6): the shape is tested only so that the dictionary lanes claim nodes in
-    the reference's order, and a node it claims runs on the host."""
+    """(lspec, rspec, op) when ``node`` is a comparison whose sides are epoch
+    lane sides and/or literals, at least one a lane side: it compiles as a
+    two-lane compare over split epoch bits. Each spec is ("lane", ident,
+    dtype, side_node or None) or ("lit", literal node). Lane against lane
+    needs identical dtypes (kind, unit, time zone): the raw int64 epochs of
+    different units do not compare."""
     from ..expressions import BinaryOp, Literal
 
     if not (isinstance(node, BinaryOp) and node.op in _CMP_OPS):
@@ -530,26 +603,219 @@ def _epoch_cmp_shape(node, schema):
 
     def spec(n):
         if isinstance(n, Literal):
-            return ("lit",)
-        try:
-            dt = n.to_field(schema).dtype
-        except (ValueError, KeyError):
-            return None
-        return ("lane", dt) if dt.kind in _EPOCH_KINDS else None
+            return ("lit", n)
+        side = _epoch_lane_side(n, schema)
+        return None if side is None else ("lane", *side)
 
     ls, rs = spec(node.left), spec(node.right)
     if ls is None or rs is None or (ls[0] == "lit" and rs[0] == "lit"):
         return None
-    if ls[0] == "lane" and rs[0] == "lane" and ls[1] != rs[1]:
+    if ls[0] == "lane" and rs[0] == "lane" and ls[2] != rs[2]:
         return None
     return ls, rs, node.op
 
 
+def _epoch_lane_keys(ident: str) -> Tuple[str, str]:
+    return f"__epochlane__\x00{ident}\x00hi", f"__epochlane__\x00{ident}\x00lo"
+
+
+def _epoch_lit_keys(ident: str, node_key) -> Tuple[str, str]:
+    base = f"__epochlit__\x00{ident}\x00{node_key}"
+    return base + "\x00hi", base + "\x00lo"
+
+
+def _two_lane_cmp(op: str, hi, lo, rhi, rlo):
+    """Elementwise compare of (hi, lo) lane pairs: lexicographic over the
+    biased halves, which is the unsigned order of the epoch bits."""
+    eq_hi = hi == rhi
+    if op == "==":
+        return eq_hi & (lo == rlo)
+    if op == "!=":
+        return ~(eq_hi & (lo == rlo))
+    if op == "<":
+        return (hi < rhi) | (eq_hi & (lo < rlo))
+    if op == "<=":
+        return (hi < rhi) | (eq_hi & (lo <= rlo))
+    if op == ">":
+        return (hi > rhi) | (eq_hi & (lo > rlo))
+    return (hi > rhi) | (eq_hi & (lo >= rlo))  # ">="
+
+
+def _epoch_bits_np(vals_i64: np.ndarray) -> np.ndarray:
+    """Order-preserving uint64 view of int64 epochs (the sign bit flipped)."""
+    return vals_i64.astype(np.int64).view(np.uint64) ^ np.uint64(1 << 63)
+
+
+def _biased_halves(bits: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """(hi, lo) int32 halves of uint64 bits, each biased by 2**31."""
+    hi = ((bits >> np.uint64(32)).astype(np.int64) - _BIAS32).astype(np.int32)
+    lo = ((bits & np.uint64(_U32)).astype(np.int64) - _BIAS32).astype(np.int32)
+    return hi, lo
+
+
+def _eval_lane_series(table, node):
+    """Host evaluation of a lane-staged key expression -> Series (broadcast
+    to the table's length), or None when it fails or gives python storage
+    (the caller declines to the host)."""
+    from ..expressions import Column
+
+    try:
+        if isinstance(node, Column):
+            s = table.get_column(node.cname)
+        else:
+            from ..table import _broadcast_series
+
+            s = _broadcast_series(node.evaluate(table), len(table))
+    except Exception:
+        return None
+    return None if s.is_python() else s
+
+
+def _epoch_lanes_of_series(s, bucket: int, device):
+    n = len(s)
+    arr = s.to_arrow()
+    if isinstance(arr, pa.ChunkedArray):
+        arr = arr.combine_chunks()
+    bits = _epoch_bits_np(_physical_np(arr).astype(np.int64))
+    if bucket > n:
+        bits = np.concatenate([bits, np.zeros(bucket - n, dtype=np.uint64)])
+    hi, lo = _biased_halves(bits)
+    return (torch.from_numpy(hi).to(device), torch.from_numpy(lo).to(device),
+            torch.from_numpy(_staged_validity(arr, n, bucket)).to(device))
+
+
+def _stage_epoch_lanes(table, cname: str, bucket: int, stage_cache: Optional[dict], device):
+    """(hi, lo, valid) lanes of an epoch column, cached with the partition."""
+    key = ("__epochlanes__", cname, bucket, str(device))
+    cached = stage_cache.get(key) if stage_cache is not None else None
+    if cached is None:
+        cached = _epoch_lanes_of_series(table.get_column(cname), bucket, device)
+        if stage_cache is not None:
+            stage_cache[key] = cached
+    return cached
+
+
+def _stage_epoch_expr_lanes(table, node, bucket: int, stage_cache: Optional[dict], device):
+    """Lanes of any epoch-typed expression: a plain (aliased) column shares
+    the column's cache entry; a computed one is evaluated once on the host
+    in exact int64 and cached under its key. None to decline."""
+    from ..expressions import Column
+
+    node = _peel_alias(node)
+    if isinstance(node, Column):
+        return _stage_epoch_lanes(table, node.cname, bucket, stage_cache, device)
+    key = ("__epochlanes__", node._key(), bucket, str(device))
+    cached = stage_cache.get(key) if stage_cache is not None else None
+    if cached is None:
+        s = _eval_lane_series(table, node)
+        if s is None:
+            return None
+        cached = _epoch_lanes_of_series(s, bucket, device)
+        if stage_cache is not None:
+            stage_cache[key] = cached
+    return cached
+
+
+def collect_epoch_cmps(nodes, schema):
+    """Every epoch-comparison shape in the trees -> [(lspec, rspec, op)];
+    a matched compare's subtree is not walked further."""
+    from ..expressions import BinaryOp
+
+    out = []
+
+    def walk(n):
+        if isinstance(n, BinaryOp):
+            shape = _epoch_cmp_shape(n, schema)
+            if shape is not None:
+                out.append(shape)
+                return
+        for c in n.children():
+            walk(c)
+
+    for nd in nodes:
+        walk(nd)
+    return out
+
+
+
+def epoch_cmp_env(cmps, schema, table, bucket: int, stage_cache: Optional[dict], env: dict,
+                  device) -> Optional[dict]:
+    """Merge each epoch compare's lanes into ``env``: every lane side's
+    (hi, valid) and (lo, valid) pairs, and each literal's biased halves as
+    0-d int32 tensors keyed against its lane side. ``cmps`` comes from one
+    ``collect_epoch_cmps`` walk. Returns the (possibly unchanged) env, or
+    None when a literal does not convert or a computed side fails on the
+    host (the caller declines)."""
+    if not cmps:
+        return env
+    merged = dict(env)
+    for lspec, rspec, _op in cmps:
+        lane_specs = [s for s in (lspec, rspec) if s[0] == "lane"]
+        for _tag, ident, _dt, side_node in lane_specs:
+            hi_k, lo_k = _epoch_lane_keys(ident)
+            if hi_k in merged:
+                continue
+            if side_node is None:
+                lanes = _stage_epoch_lanes(table, ident, bucket, stage_cache, device)
+            else:
+                lanes = _stage_epoch_expr_lanes(table, side_node, bucket, stage_cache, device)
+            if lanes is None:
+                return None
+            hi, lo, valid = lanes
+            merged[hi_k] = (hi, valid)
+            merged[lo_k] = (lo, valid)
+        lit = lspec[1] if lspec[0] == "lit" else (rspec[1] if rspec[0] == "lit" else None)
+        if lit is None:
+            continue
+        _tag, ident, lane_dt, _sn = lane_specs[0]
+        lhik, llok = _epoch_lit_keys(ident, lit._key())
+        if lhik in merged or lit.value is None:
+            continue
+        ckey = ("__epochlit__", lhik, str(device))
+        halves = stage_cache.get(ckey) if stage_cache is not None else None
+        if halves is None:
+            try:
+                epoch = int(pa.scalar(lit.value, type=lane_dt.to_arrow()).value)
+            except (ValueError, TypeError, KeyError, pa.ArrowInvalid, pa.ArrowTypeError):
+                return None
+            hi, lo = _biased_halves(_epoch_bits_np(np.array([epoch])))
+            halves = (torch.tensor(int(hi[0]), dtype=torch.int32, device=device),
+                      torch.tensor(int(lo[0]), dtype=torch.int32, device=device))
+            if stage_cache is not None:
+                stage_cache[ckey] = halves
+        merged[lhik], merged[llok] = halves
+    return merged
+
+
+# ---------------------------------------------------------------------------
+# Joint-dictionary string groups: column-to-column compares and string
+# if_else / fill_null. Per-column dictionary codes do not compare across
+# columns, so every interacting group of string columns (and literals)
+# merges into ONE sorted joint dictionary at staging time; each column gets
+# a small remap into the joint code space in the env, and the closures
+# compare or select joint codes. Sorted joint codes are order-isomorphic to
+# the strings, so inequalities hold too.
+# ---------------------------------------------------------------------------
+
+class _StringChoice:
+    """Shape of a string-valued FillNull/IfElse over plain string columns and
+    string literals: ``operands`` is [("col", name) | ("lit", value) |
+    ("null", None)] in positional order, (child, fill) or (if_true,
+    if_false); ``pred`` is the IfElse predicate (None for FillNull)."""
+
+    __slots__ = ("kind", "pred", "operands", "cols", "lits")
+
+    def __init__(self, kind, pred, operands):
+        self.kind = kind
+        self.pred = pred
+        self.operands = operands
+        self.cols = tuple(sorted({v for k, v in operands if k == "col"}))
+        self.lits = tuple(sorted({v for k, v in operands if k == "lit"}))
+
+
 def _string_choice_shape(node, schema):
-    """(kind, pred, operands) for a string-valued fill_null/if_else whose
-    values are plain string columns and string or null literals; else None.
-    The reference runs it through a joint dictionary (the string-choice
-    lane, ROADMAP Queue 1, item 4); the port declines it to the host."""
+    """_StringChoice for a string-valued fill_null/if_else whose values are
+    plain string columns and string or null literals; else None."""
     from ..expressions import FillNull, IfElse, Literal
 
     node = _peel_alias(node)
@@ -576,10 +842,12 @@ def _string_choice_shape(node, schema):
             operands.append(("lit", v.value))
         else:
             return None
-    return kind, pred, operands
+    return _StringChoice(kind, pred, operands)
 
 
 def _string_cmp_side(node, schema):
+    """One side of a general string compare: ("col", name), ("choice",
+    _StringChoice), ("lit", value) or ("null", None); else None."""
     from ..expressions import Literal
 
     c = _plain_string_column(node, schema)
@@ -596,11 +864,23 @@ def _string_cmp_side(node, schema):
     return None
 
 
+def _side_group(side):
+    """(cols, lits) a compare side contributes to the joint group."""
+    kind, v = side
+    if kind == "col":
+        return (v,), ()
+    if kind == "choice":
+        return v.cols, v.lits
+    if kind == "lit":
+        return (), (v,)
+    return (), ()
+
+
 def _string_colcol_shape(node, schema):
-    """The reference's joint-dictionary compare shape (a string comparison
-    whose sides are plain columns, string choices or literals, at least one
-    not a literal). Tested for the lanes' precedence alone: the port has no
-    joint-dictionary lane yet, so a node it claims runs on the host."""
+    """(lside, rside) when ``node`` is a string compare whose sides are plain
+    columns, string choices or literals, at least one not a literal (a
+    column against a literal takes the cheaper code-bound lane, tried
+    first)."""
     from ..expressions import BinaryOp
 
     if not (isinstance(node, BinaryOp) and node.op in _CMP_OPS_NULLSAFE):
@@ -619,6 +899,184 @@ def _string_colcol_shape(node, schema):
     if lside[0] in ("lit", "null") and rside[0] in ("lit", "null"):
         return None
     return lside, rside
+
+
+def _cmp_union_group(lside, rside):
+    """A general compare's joint group, the union of both sides. Group
+    registration and closure compilation both call this, so their env keys
+    agree."""
+    lc, ll = _side_group(lside)
+    rc, rl = _side_group(rside)
+    return tuple(sorted(set(lc) | set(rc))), tuple(sorted(set(ll) | set(rl)))
+
+
+def _joint_group_of(node, schema):
+    """(cols, lits) joint-dictionary group of a node, or None. A compare's
+    group unions both sides (a choice side's codes must compare with the
+    other side's), except where the code-bound lane claims the node."""
+    if _string_cmp_shape(node, schema) is None:
+        cc = _string_colcol_shape(node, schema)
+        if cc is not None:
+            return _cmp_union_group(*cc)
+    ch = _string_choice_shape(node, schema)
+    if ch is not None:
+        return ch.cols, ch.lits
+    return None
+
+
+def joint_remap(dictionary, joint, device) -> torch.Tensor:
+    """Remap taking one dictionary's codes into a sorted joint dictionary's
+    code space, an int32 tensor padded to a size bucket. Shared by the
+    in-table string groups and the join's cross-table recoding."""
+    if len(dictionary) == 0:
+        arr = np.zeros(1, dtype=np.int32)  # an all-null side: every code is masked
+    else:
+        arr = np.asarray(pc.index_in(dictionary.cast(pa.large_string()), value_set=joint),
+                         dtype=np.int32)
+    b = size_bucket(len(arr))
+    if b > len(arr):
+        arr = np.concatenate([arr, np.zeros(b - len(arr), np.int32)])
+    return torch.from_numpy(arr).to(device)
+
+
+def _joint_gkey(cols, lits) -> str:
+    # a separator before each literal: no literals and the literal "" differ
+    return "\x1f".join(cols) + "\x1e" + "".join("\x1f" + lit for lit in lits)
+
+
+def _joint_map_key(gkey: str, col: str) -> str:
+    return f"__joint__\x00{gkey}\x00map\x00{col}"
+
+
+def _joint_lit_key(gkey: str, lit: str) -> str:
+    return f"__joint__\x00{gkey}\x00lit\x00{lit}"
+
+
+def _joint_operand_fn(kind, val, gkey):
+    """env -> (joint codes, valid) of a column, literal or null operand of a
+    joint-dictionary group."""
+    if kind == "col":
+        mk = _joint_map_key(gkey, val)
+
+        def get(env, _c=val, _mk=mk):
+            codes, m = env[_c]
+            return env[_mk].index_select(0, codes), m
+    elif kind == "lit":
+        lk = _joint_lit_key(gkey, val)
+
+        def get(env, _lk=lk):
+            n, dev = _env_nrows(env), _env_device(env)
+            return (env[_lk].expand(n).clone(), torch.ones(n, dtype=torch.bool, device=dev))
+    else:  # a null literal
+
+        def get(env):
+            n, dev = _env_nrows(env), _env_device(env)
+            return (torch.zeros(n, dtype=torch.int32, device=dev),
+                    torch.zeros(n, dtype=torch.bool, device=dev))
+    return get
+
+
+def _choice_code_fn(ch, gkey, schema):
+    """env -> (joint codes, valid) of a string fill_null/if_else, in the group
+    keyed by ``gkey``: the node's own group as a projected value, the
+    enclosing compare's larger group as a compare side."""
+    a = _joint_operand_fn(*ch.operands[0], gkey)
+    b = _joint_operand_fn(*ch.operands[1], gkey)
+    if ch.kind == "fill_null":
+        def run(env, _a=a, _b=b):
+            av, am = _a(env)
+            bv, bm = _b(env)
+            return torch.where(am, av, bv), am | bm
+
+        return run
+    p, _pdt = _compile_node(ch.pred, schema)
+
+    def run(env, _p=p, _a=a, _b=b):
+        pv, pm = _p(env)
+        pv = pv.to(torch.bool)  # a null-literal predicate comes as int32 zeros
+        av, am = _a(env)
+        bv, bm = _b(env)
+        return torch.where(pv, av, bv), pm & torch.where(pv, am, bm)
+
+    return run
+
+
+def _side_code_fn(side, gkey, schema):
+    """env -> (joint codes, valid) of one side of a general string compare."""
+    kind, v = side
+    if kind == "choice":
+        return _choice_code_fn(v, gkey, schema)
+    return _joint_operand_fn(kind, v, gkey)
+
+
+def _shape_choice_preds(node, schema):
+    """The choice predicates under a matched joint shape: the only subtrees
+    below it that may hold further string shapes."""
+    ch = _string_choice_shape(node, schema)
+    if ch is not None:
+        return [ch.pred] if ch.pred is not None else []
+    cc = _string_colcol_shape(node, schema)
+    preds = []
+    if cc is not None:
+        for kind, v in cc:
+            if kind == "choice" and v.pred is not None:
+                preds.append(v.pred)
+    return preds
+
+
+def collect_joint_groups(nodes, schema):
+    """Every joint-dictionary group in the trees. A matched shape's string
+    sides are not walked again (a choice under a compare emits codes in the
+    compare's group); only choice predicates are."""
+    out = []
+
+    def walk(n):
+        g = _joint_group_of(n, schema)
+        if g is not None:
+            out.append(g)
+            for p in _shape_choice_preds(n, schema):
+                walk(p)
+            return
+        for c in n.children():
+            walk(c)
+
+    for nd in nodes:
+        walk(nd)
+    return out
+
+
+def string_joint_env(nodes, schema, dcs, env, aux: dict, device) -> Optional[dict]:
+    """Merge each joint group's remaps (int32 tensors) and literal codes
+    (0-d int32 tensors) into ``env``, and record the group's joint
+    dictionary in ``aux[gkey]`` for the decode of string outputs. Returns
+    the env, or None when a needed dictionary is missing (the caller
+    declines)."""
+    groups = collect_joint_groups(nodes, schema)
+    if not groups:
+        return env
+    merged = dict(env)
+    for cols, lits in sorted(set(groups)):
+        gkey = _joint_gkey(cols, lits)
+        if gkey in aux:
+            continue
+        parts = []
+        for c in cols:
+            dc = dcs.get(c)
+            if dc is None or dc.dictionary is None:
+                return None
+            parts.append(dc.dictionary.cast(pa.large_string()))
+        if lits:
+            parts.append(pa.array(list(lits), pa.large_string()))
+        joint = pc.unique(pa.concat_arrays(parts))
+        joint = joint.take(pc.sort_indices(joint))
+        for c in cols:
+            merged[_joint_map_key(gkey, c)] = joint_remap(dcs[c].dictionary, joint, device)
+        for lit in lits:
+            code = pc.index(joint, pa.scalar(lit, pa.large_string())).as_py()
+            merged[_joint_lit_key(gkey, lit)] = torch.tensor(code, dtype=torch.int32,
+                                                             device=device)
+        aux[gkey] = joint
+    return merged
 
 
 # predicates a lookup table over the dictionary evaluates through the
@@ -907,6 +1365,333 @@ def string_lut_env(nodes, schema, dcs, env) -> Optional[dict]:
     return merged
 
 
+# ---------------------------------------------------------------------------
+# Transform lanes: a row-local transform of ONE string column used as a
+# value. Equal source strings give equal results, so the host evaluates the
+# transform over the dictionary plus a null slot and the card gathers by
+# code: sorted-order ids for a string-valued transform (decoded through the
+# transformed dictionary), the values themselves for an int-valued one.
+# ---------------------------------------------------------------------------
+
+def _string_dict_value_shape(node, schema):
+    """(colname, node, node_key) when ``node`` is a row-local computed
+    expression of one plain string column used as a value (group, distinct
+    or sort key, projected value): ``upper(s)``, ``s.str.left(2)``, fill_null
+    chains. A plain column is left to its own dictionary codes."""
+    if _plain_string_column(node, schema) is not None:
+        return None
+    colname = _single_string_col_rowlocal(node, schema)
+    if colname is None:
+        return None
+    return colname, node, node._key()
+
+
+def _string_value_applies(node, schema):
+    """The transformed-string value shape where a node is claimed: string
+    valued, not a plain column (its codes) and not a choice over plain
+    columns and literals (the joint-dictionary lane), in _compile_node's
+    order."""
+    try:
+        if not node.to_field(schema).dtype.is_string():
+            return None
+    except (ValueError, KeyError):
+        return None
+    if _string_choice_shape(node, schema) is not None:
+        return None
+    return _string_dict_value_shape(node, schema)
+
+
+def _int_transform_applies(node, schema):
+    """(colname, node, node_key) when ``node`` is an integer-valued Function
+    that is a row-local expression of one string column (``length(s)``,
+    ``find(s, p)``, ``count_matches``): its values gather by source code.
+    Integer arithmetic above it compiles through the generic closures."""
+    from ..expressions import Function
+
+    if not isinstance(node, Function):
+        return None
+    try:
+        if not node.to_field(schema).dtype.is_integer():
+            return None
+    except (ValueError, KeyError):
+        return None
+    colname = _single_string_col_rowlocal(node, schema)
+    if colname is None:
+        return None
+    return colname, node, node._key()
+
+
+def _inttrans_env_keys(node_key) -> Tuple[str, str]:
+    base = f"__inttransval__\x00{node_key}"
+    return base + "\x00vals", base + "\x00valid"
+
+
+def _strtransval_env_keys(node_key) -> Tuple[str, str]:
+    base = f"__strtransval__\x00{node_key}"
+    return base + "\x00vals", base + "\x00valid"
+
+
+def _stroutdict_aux_key(node_key):
+    return ("__stroutdict__", node_key)
+
+
+def _dict_gather(dc: "DeviceColumn", table_np: np.ndarray) -> torch.Tensor:
+    """``table_np`` (one entry per dictionary value plus the null slot)
+    gathered by each row's code; a null row reads the null slot."""
+    idx = torch.where(dc.valid, dc.values, len(dc.dictionary))
+    return torch.from_numpy(np.array(table_np)).to(dc.values.device).index_select(0, idx)
+
+
+def _transform_source(table, colname, bucket, stage_cache, device):
+    """The staged string column a transform lane reads, or None."""
+    staged = stage_table_columns(table, [colname], bucket, stage_cache, device)
+    if staged is None:
+        return None
+    dc = staged[1].get(colname)
+    return None if dc is None or dc.dictionary is None else dc
+
+
+def dict_int_transform_lane(table, shape, bucket: int, stage_cache: Optional[dict], device):
+    """(vals, valid) int32 lanes of an int-valued string transform: evaluated
+    on the host over the dictionary plus the null slot, range-checked there
+    exactly (a value past int32 declines, the wrap guard at O(unique)
+    cost), gathered by code on the card. Cached with the partition; None
+    to decline."""
+    colname, node, node_key = shape
+    cache_key = ("__inttranslane__", node_key, bucket, str(device))
+    cached = stage_cache.get(cache_key) if stage_cache is not None else None
+    if cached is not None:
+        return cached
+    dc = _transform_source(table, colname, bucket, stage_cache, device)
+    if dc is None:
+        return None
+    arr = _eval_over_dictionary(colname, node, dc.dictionary)
+    if arr is None:
+        return None
+    vals_np = np.asarray(pc.fill_null(arr, 0)).astype(np.int64)
+    tvalid = np.asarray(pc.is_valid(arr), dtype=bool)
+    live = vals_np[tvalid]
+    if live.size and (live.min() < _INT32_LO or live.max() > _INT32_HI):
+        return None
+    out = (_dict_gather(dc, vals_np.astype(np.int32)), _dict_gather(dc, tvalid))
+    if stage_cache is not None:
+        stage_cache[cache_key] = out
+    return out
+
+
+def dict_transform_lane(table, shape, bucket: int, stage_cache: Optional[dict], device):
+    """(ids, valid, transformed dictionary) of a string-valued transform: the
+    host evaluates it over the dictionary plus the null slot (a fill_null
+    can turn the null row into a real value), recodes the results through
+    their sorted distinct values (equal results share an id and id order is
+    value order, so the lane serves group identity and sorts alike), and the
+    card gathers the ids by code. Cached with the partition; None to
+    decline."""
+    colname, node, node_key = shape
+    cache_key = ("__dicttranslane__", node_key, bucket, str(device))
+    cached = stage_cache.get(cache_key) if stage_cache is not None else None
+    if cached is not None:
+        return cached
+    dc = _transform_source(table, colname, bucket, stage_cache, device)
+    if dc is None:
+        return None
+    arr = _eval_over_dictionary(colname, node, dc.dictionary)
+    if arr is None:
+        return None
+    try:
+        distinct = pc.unique(arr.drop_null())
+        tuniq = distinct.take(pc.sort_indices(distinct))
+        ids_arr = pc.index_in(arr, value_set=tuniq)  # null -> null id
+    except pa.ArrowException:
+        return None  # a result type arrow cannot sort or index
+    ids = np.asarray(pc.fill_null(ids_arr, 0), dtype=np.int32)
+    tvalid = np.asarray(pc.is_valid(ids_arr), dtype=bool)
+    out = (_dict_gather(dc, ids), _dict_gather(dc, tvalid), tuniq)
+    if stage_cache is not None:
+        stage_cache[cache_key] = out
+    return out
+
+
+def string_transform_env(nodes, schema, table, bucket: int, stage_cache: Optional[dict],
+                         env: dict, aux: dict, device) -> Optional[dict]:
+    """Stage the transform lanes of the trees into ``env`` (ids or values and
+    validity, as two 1-D tensors each) and each transformed dictionary into
+    ``aux`` for the decode at unstage. Dictionary-predicate subtrees are
+    skipped (string_lut_env owns them) and a claimed subtree is not walked
+    further. Returns the env, or None when a lane does not stage (the
+    caller declines)."""
+    merged = env
+
+    def walk(n):
+        nonlocal merged
+        if (_string_lut_shape(n, schema) is not None
+                or _string_dict_pred_applies(n, schema) is not None):
+            return True
+        vs = _string_value_applies(n, schema)
+        if vs is not None:
+            lane = dict_transform_lane(table, vs, bucket, stage_cache, device)
+            if lane is None:
+                return False
+            if merged is env:
+                merged = dict(env)
+            vk, mk = _strtransval_env_keys(vs[2])
+            merged[vk], merged[mk] = lane[0], lane[1]
+            aux[_stroutdict_aux_key(vs[2])] = lane[2]
+            return True
+        ivs = _int_transform_applies(n, schema)
+        if ivs is not None:
+            lane = dict_int_transform_lane(table, ivs, bucket, stage_cache, device)
+            if lane is None:
+                return False
+            if merged is env:
+                merged = dict(env)
+            vk, mk = _inttrans_env_keys(ivs[2])
+            merged[vk], merged[mk] = lane
+            return True
+        return all(walk(c) for c in n.children())
+
+    for nd in nodes:
+        if not walk(nd):
+            return None
+    return merged
+
+
+def _transform_cmp_shape(node, schema):
+    """(lside, rside, op) of a comparison whose sides are string-valued and
+    read two different columns, at least one side a row-local transform
+    (``upper(s1) == s2``, ``lstrip(a) < rstrip(b)``). Each side is ("col",
+    colname, None) or ("trans", colname, side_node); the sides recode
+    through a pairwise sorted joint dictionary and compare as ints. A plain
+    pair belongs to the joint groups, one column to the dictionary
+    predicate."""
+    from ..expressions import BinaryOp
+
+    if not (isinstance(node, BinaryOp) and node.op in _CMP_OPS):
+        return None
+
+    def side(n):
+        c = _plain_string_column(n, schema)
+        if c is not None:
+            return ("col", c, None)
+        vs = _string_value_applies(n, schema)
+        return None if vs is None else ("trans", vs[0], n)
+
+    ls, rs = side(node.left), side(node.right)
+    if ls is None or rs is None:
+        return None
+    if (ls[0] == "col" and rs[0] == "col") or ls[1] == rs[1]:
+        return None
+    return ls, rs, node.op
+
+
+def _transcmp_env_keys(node_key) -> Tuple[str, str]:
+    base = f"__transcmp__\x00{node_key}"
+    return base + "\x00lremap", base + "\x00rremap"
+
+
+def transform_cmp_env(nodes, schema, table, bucket: int, stage_cache: Optional[dict], dcs,
+                      env: dict, aux: dict, device) -> Optional[dict]:
+    """Merge the pairwise joint remaps of every cross-column transform
+    compare. Runs after string_transform_env: a transform side's lane and
+    dictionary are in env/aux already, a plain side's codes and dictionary
+    in ``dcs``. Returns the env, or None to decline."""
+    from ..expressions import BinaryOp
+
+    merged = env
+
+    def side_dict(s):
+        kind, colname, n = s
+        if kind == "col":
+            dc = dcs.get(colname)
+            return None if dc is None or dc.dictionary is None else dc.dictionary
+        return aux.get(_stroutdict_aux_key(n._key()))
+
+    def walk(n):
+        nonlocal merged
+        if isinstance(n, BinaryOp):
+            shape = _transform_cmp_shape(n, schema)
+            if shape is not None:
+                ls, rs, _op = shape
+                lk, rk = _transcmp_env_keys(n._key())
+                if lk in merged:
+                    return True
+                cache_key = ("__transcmp__", n._key(), bucket, str(device))
+                cached = stage_cache.get(cache_key) if stage_cache is not None else None
+                if cached is None:
+                    ld, rd = side_dict(ls), side_dict(rs)
+                    if ld is None or rd is None:
+                        return False
+                    joint = pc.unique(pa.concat_arrays([ld.cast(pa.large_string()),
+                                                        rd.cast(pa.large_string())]))
+                    joint = joint.take(pc.sort_indices(joint))
+                    cached = (joint_remap(ld, joint, device), joint_remap(rd, joint, device))
+                    if stage_cache is not None:
+                        stage_cache[cache_key] = cached
+                if merged is env:
+                    merged = dict(env)
+                merged[lk], merged[rk] = cached
+                return True
+        return all(walk(c) for c in n.children())
+
+    for nd in nodes:
+        if not walk(nd):
+            return None
+    return merged
+
+
+def string_output_dictionary(node, schema, dcs, aux):
+    """The dictionary a string-valued device output decodes through: the
+    column's own for a bare column, the joint group's for a fill_null /
+    if_else, the transformed dictionary for a transform; None when none
+    resolves. Shared by the projection and the grouped-aggregate
+    resolvers."""
+    cname = _plain_string_column(node, schema)
+    src = dcs.get(cname) if cname else None
+    if src is not None and src.dictionary is not None:
+        return src.dictionary
+    ch = _string_choice_shape(node, schema)
+    if ch is not None:
+        return aux.get(_joint_gkey(ch.cols, ch.lits))
+    vs = _string_dict_value_shape(node, schema)
+    if vs is not None:
+        return aux.get(_stroutdict_aux_key(vs[2]))
+    return None
+
+
+def _epoch_cmp_fn(shape):
+    """The closure of an epoch compare: a two-lane compare of the lane side
+    (put on the left, the op flipped when a literal led) against the other
+    lane side or the literal's halves; a null literal gives all nulls."""
+    lspec, rspec, cop = shape
+    if lspec[0] == "lit":
+        lspec, rspec, cop = rspec, lspec, _CMP_FLIP[cop]
+    ident = lspec[1]
+    hi_k, lo_k = _epoch_lane_keys(ident)
+    if rspec[0] == "lit":
+        lit = rspec[1]
+        if lit.value is None:
+            def run(env, _hk=hi_k):
+                z = torch.zeros_like(env[_hk][1])
+                return z, z
+
+            return run
+        lhik, llok = _epoch_lit_keys(ident, lit._key())
+
+        def run(env, _op=cop, _hk=hi_k, _lk=lo_k, _lh=lhik, _ll=llok):
+            hi, m = env[_hk]
+            return _two_lane_cmp(_op, hi, env[_lk][0], env[_lh], env[_ll]), m
+
+        return run
+    rhi_k, rlo_k = _epoch_lane_keys(rspec[1])
+
+    def run(env, _op=cop, _hk=hi_k, _lk=lo_k, _rhk=rhi_k, _rlk=rlo_k):
+        hi, lm = env[_hk]
+        rhi, rm = env[_rhk]
+        return _two_lane_cmp(_op, hi, env[_lk][0], rhi, env[_rlk][0]), lm & rm
+
+    return run
+
+
 def _compile_node(node, schema):
     """Recursively build a closure over {name: (values, valid)} returning
     (values, valid); types are resolved statically via ``schema``."""
@@ -926,6 +1711,20 @@ def _compile_node(node, schema):
             codes, m = env[_c]
             idx = torch.where(m, codes, env[_nk])
             return env[_vk].index_select(0, idx), env[_mk].index_select(0, idx)
+
+        return run, out_dt
+
+    # a transformed string (its ids, decoded at unstage through the
+    # transformed dictionary) or an int-valued transform (its values): the
+    # lanes were staged by string_transform_env
+    tshape = _string_value_applies(node, schema)
+    keys = (_strtransval_env_keys(tshape[2]) if tshape is not None else None)
+    if keys is None:
+        ishape = _int_transform_applies(node, schema)
+        keys = _inttrans_env_keys(ishape[2]) if ishape is not None else None
+    if keys is not None:
+        def run(env, _vk=keys[0], _mk=keys[1]):
+            return env[_vk], env[_mk]
 
         return run, out_dt
 
@@ -987,6 +1786,12 @@ def _compile_node(node, schema):
             return (m if _neg else ~m), torch.ones_like(m)
 
         return run, out_dt
+
+    if isinstance(node, (FillNull, IfElse)) and out_dt.is_string():
+        ch = _string_choice_shape(node, schema)
+        if ch is None:
+            raise ValueError("string choice not device-compilable here")
+        return _choice_code_fn(ch, _joint_gkey(ch.cols, ch.lits), schema), out_dt
 
     if isinstance(node, FillNull):
         a, _ = _compile_node(node.child, schema)
@@ -1101,6 +1906,45 @@ def _compile_node(node, schema):
                 return out, m
 
             return run, out_dt
+        ccshape = _string_colcol_shape(node, schema)
+        if ccshape is not None:
+            # both sides as codes of one joint dictionary
+            gkey = _joint_gkey(*_cmp_union_group(*ccshape))
+            lf2 = _side_code_fn(ccshape[0], gkey, schema)
+            rf2 = _side_code_fn(ccshape[1], gkey, schema)
+
+            def run(env, _l=lf2, _r=rf2, _op=node.op):
+                lv, lm = _l(env)
+                rv, rm = _r(env)
+                if _op == "<=>":
+                    eq = (lv == rv) & lm & rm
+                    return eq | (~lm & ~rm), torch.ones_like(lm)
+                return _CMP_FNS[_op](lv, rv), lm & rm
+
+            return run, out_dt
+        eshape = _epoch_cmp_shape(node, schema)
+        if eshape is not None:
+            return _epoch_cmp_fn(eshape), out_dt
+        xshape = _transform_cmp_shape(node, schema)
+        if xshape is not None:
+            # each side's codes (a column's, or a transform's ids) through
+            # the pairwise joint remap staged by transform_cmp_env
+            lk, rk = _transcmp_env_keys(node._key())
+
+            def reader(side):
+                kind, colname, n = side
+                if kind == "col":
+                    return lambda env, _c=colname: env[_c]
+                vk, mk = _strtransval_env_keys(n._key())
+                return lambda env, _vk=vk, _mk=mk: (env[_vk], env[_mk])
+
+            def run(env, _lr=reader(xshape[0]), _rr=reader(xshape[1]), _lk=lk, _rk=rk,
+                    _f=_CMP_FNS[xshape[2]]):
+                lv, lm = _lr(env)
+                rv, rm = _rr(env)
+                return _f(env[_lk].index_select(0, lv), env[_rk].index_select(0, rv)), lm & rm
+
+            return run, out_dt
         lf, _ = _compile_node(node.left, schema)
         rf, _ = _compile_node(node.right, schema)
         op = node.op
@@ -1188,7 +2032,8 @@ def compile_validity(node, schema):
     from ..expressions import Alias, BinaryOp, Cast, Column, FillNull, Function, IsNull, Literal, Not
 
     if (_string_dict_pred_applies(node, schema) is not None
-            or _string_lut_shape(node, schema) is not None):
+            or _string_lut_shape(node, schema) is not None
+            or _epoch_cmp_shape(node, schema) is not None):
         full, _ = _compile_node(node, schema)
         return lambda env: full(env)[1]
     if isinstance(node, Column):
@@ -1265,9 +2110,9 @@ def stage_table_columns(table, names, bucket: int, stage_cache: Optional[dict], 
 
 
 def _rewrite_between(node, schema):
-    """Between over string children rewrites to the conjunction of two
-    comparisons, exactly the host's implementation. Numeric Between keeps its
-    fused direct compile."""
+    """Between over string or epoch children rewrites to the conjunction of
+    two comparisons, exactly the host's implementation, so the code-bound
+    and epoch lanes apply. Numeric Between keeps its fused direct compile."""
     from ..expressions import Between, BinaryOp
 
     kids = node.children()
@@ -1278,7 +2123,7 @@ def _rewrite_between(node, schema):
             cdt = node.child.to_field(schema).dtype
         except (ValueError, KeyError):
             return node
-        if cdt.is_string():
+        if cdt.is_string() or cdt.kind in _EPOCH_KINDS:
             return BinaryOp("&", BinaryOp(">=", node.child, node.lower),
                             BinaryOp("<=", node.child, node.upper))
     return node
@@ -1301,10 +2146,36 @@ def normalize_and_check(exprs, schema) -> Optional[list]:
 
 
 def device_required_columns(nodes, schema) -> set:
-    """Columns the compiled nodes read."""
-    from ..expressions import required_columns
+    """Columns that stage as plain columns for the compiled nodes: every
+    column read, minus the subtrees of epoch compares, which read epoch
+    lanes (an epoch column cannot stage as int32). A column read both there
+    and elsewhere still stages."""
+    from ..expressions import BinaryOp, Column
 
-    return {c for nd in nodes for c in required_columns(nd)}
+    out: set = set()
+
+    def walk(n):
+        if isinstance(n, BinaryOp) and _epoch_cmp_shape(n, schema) is not None:
+            return
+        if isinstance(n, Column):
+            out.add(n.cname)
+        for c in n.children():
+            walk(c)
+
+    for nd in nodes:
+        walk(nd)
+    return out
+
+
+def env_inputs(nodes, schema) -> set:
+    """Every env entry the compiled nodes read as a column pair: the staged
+    columns and the epoch lanes (the inputs of the deep kernel)."""
+    out = set(device_required_columns(nodes, schema))
+    for lspec, rspec, _op in collect_epoch_cmps(nodes, schema):
+        for spec in (lspec, rspec):
+            if spec[0] == "lane":
+                out.update(_epoch_lane_keys(spec[1]))
+    return out
 
 
 _INT32_LO, _INT32_HI = -(2 ** 31), 2 ** 31 - 1
@@ -1325,12 +2196,17 @@ def int64_wrap_safe(nodes, schema, env, stage_cache: Optional[dict], bucket: int
     lanes_memo: dict = {}
 
     def rides_lanes(n):
-        # a dictionary-predicate subtree is evaluated on the host over the
-        # dictionary, so no int32 lane computes below it (memoized: has_risky
+        # an epoch compare reads lanes of exact host int64, and a dictionary
+        # predicate or a transform is evaluated on the host over the
+        # dictionary: no int32 lane computes below them (memoized: has_risky
         # and safe both probe every node, and each probe walks the subtree)
         r = lanes_memo.get(id(n))
         if r is None:
-            r = lanes_memo[id(n)] = _string_dict_pred_applies(n, schema) is not None
+            r = lanes_memo[id(n)] = (
+                (isinstance(n, BinaryOp) and _epoch_cmp_shape(n, schema) is not None)
+                or _string_dict_pred_applies(n, schema) is not None
+                or _string_value_applies(n, schema) is not None
+                or _int_transform_applies(n, schema) is not None)
         return r
 
     def has_risky(n):
@@ -1420,13 +2296,38 @@ def int64_wrap_safe(nodes, schema, env, stage_cache: Optional[dict], bucket: int
     return all(safe(n) for n in nodes)
 
 
+def lane_env(nodes, schema, table, bucket: int, stage_cache: Optional[dict], env: dict, dcs,
+             aux: dict, device, epoch_cmps=None) -> Optional[dict]:
+    """``env`` with every lane the nodes read merged in, the lane functions
+    called in the reference's order: string-literal code bounds, epoch
+    lanes, dictionary lookup tables, joint-dictionary remaps, transform
+    lanes, transform-compare remaps. ``aux`` receives the dictionaries that
+    string outputs decode through. None when a lane declines."""
+    env = string_literal_env(nodes, schema, dcs, env)
+    if env is not None:
+        if epoch_cmps is None:
+            epoch_cmps = collect_epoch_cmps(nodes, schema)
+        env = epoch_cmp_env(epoch_cmps, schema, table, bucket, stage_cache, env, device)
+    if env is not None:
+        env = string_lut_env(nodes, schema, dcs, env)
+    if env is not None:
+        env = string_joint_env(nodes, schema, dcs, env, aux, device)
+    if env is not None:
+        env = string_transform_env(nodes, schema, table, bucket, stage_cache, env, aux, device)
+    if env is not None:
+        env = transform_cmp_env(nodes, schema, table, bucket, stage_cache, dcs, env, aux,
+                                device)
+    return env
+
+
 def _stage_and_run(table, exprs, stage_cache: Optional[dict], device):
     """Shared device prologue: normalize and check the expressions, stage the
-    input columns, compile and run ONE projection program. Returns
-    (outs, out_dts, nodes, dcs) with ``outs`` ([(values, valid)], one pair
-    per expression) still on the card, or None when ineligible (an empty
-    table, no input column, an ineligible expression or column, or int64
-    arithmetic that could wrap in int32 lanes)."""
+    input columns and lanes, compile and run ONE projection program. Returns
+    (outs, out_dts, nodes, dcs, aux) with ``outs`` ([(values, valid)], one
+    pair per expression) still on the card and ``aux`` the dictionaries of
+    the string outputs, or None when ineligible (an empty table, no input,
+    an ineligible expression or column, int64 arithmetic that could wrap in
+    int32 lanes, or a lane that does not stage)."""
     schema = table.schema
     n = len(table)
     if n == 0:
@@ -1434,8 +2335,9 @@ def _stage_and_run(table, exprs, stage_cache: Optional[dict], device):
     nodes = normalize_and_check(exprs, schema)
     if nodes is None:
         return None
+    epoch_cmps = collect_epoch_cmps(nodes, schema)
     needed = sorted(device_required_columns(nodes, schema))
-    if not needed:
+    if not needed and not epoch_cmps:
         return None
     b = size_bucket(n)
     staged = stage_table_columns(table, needed, b, stage_cache, device)
@@ -1444,13 +2346,12 @@ def _stage_and_run(table, exprs, stage_cache: Optional[dict], device):
     env, dcs = staged
     if not int64_wrap_safe(nodes, schema, env, stage_cache, b):
         return None
-    env = string_literal_env(nodes, schema, dcs, env)
-    if env is not None:
-        env = string_lut_env(nodes, schema, dcs, env)
+    aux: dict = {}
+    env = lane_env(nodes, schema, table, b, stage_cache, env, dcs, aux, device, epoch_cmps)
     if env is None:
-        return None  # a string lane lost its dictionary
+        return None
     run, out_dts = compile_projection(nodes, schema, tuple(needed))
-    return run(env), out_dts, nodes, dcs
+    return run(env), out_dts, nodes, dcs, aux
 
 
 def eval_projection_device_async(table, exprs, stage_cache: Optional[dict] = None,
@@ -1465,15 +2366,19 @@ def eval_projection_device_async(table, exprs, stage_cache: Optional[dict] = Non
     staged = _stage_and_run(table, exprs, stage_cache, torch.device(device))
     if staged is None:
         return None
-    outs, out_dts, nodes, dcs = staged
+    outs, out_dts, nodes, dcs, aux = staged
     schema = table.schema
 
     def resolve():
         cols, fields = [], []
         for e, nd, (v, m), dt in zip(exprs, nodes, outs, out_dts):
-            # the only string output the check admits is a bare string column
-            dictionary = (dcs[_plain_string_column(nd, schema)].dictionary
-                          if dt.is_string() else None)
+            dictionary = None
+            if dt.is_string():
+                # a bare column's codes, a choice's joint codes or a
+                # transform's ids
+                dictionary = string_output_dictionary(nd, schema, dcs, aux)
+                if dictionary is None:
+                    raise RuntimeError(f"string projection {e.name()!r} lost its dictionary")
             s = unstage(DeviceColumn(v, m, n, dt, dictionary=dictionary)).rename(e.name())
             cols.append(s)
             fields.append(Field(e.name(), s.dtype))
@@ -1634,21 +2539,13 @@ def _stage_f64_sort_lanes(table, node, bucket: int, stage_cache: Optional[dict],
     plus the validity lane. ``node`` may be any float64 expression: the host
     evaluates it once in exact float64. Cached with the partition under the
     expression's key."""
-    from ..expressions import Alias, Column
-
-    while isinstance(node, Alias):
-        node = node.child
+    node = _peel_alias(node)
     key = ("__f64lanes__", node._key(), bucket, str(device))
     cached = stage_cache.get(key) if stage_cache is not None else None
     if cached is not None:
         return cached
-    if isinstance(node, Column):
-        s = table.get_column(node.cname)
-    else:
-        from ..table import _broadcast_series
-
-        s = _broadcast_series(node.evaluate(table), len(table))
-    if s.is_python():
+    s = _eval_lane_series(table, node)
+    if s is None:
         return None
     n = len(s)
     arr = s.to_arrow()
@@ -1676,9 +2573,10 @@ def device_table_argsort(table, sort_keys, descending=None, nulls_first=None,
     compile like a projection, then one stable multi-key argsort over their
     lanes. Orders exactly as ``Table.argsort`` does, including the default
     that nulls follow the direction. float64 keys sort on exact 64-bit lanes
-    made on the host (float32 would tie values the host orders). Returns
-    np.ndarray[int64], or None when a key is ineligible (epoch-typed keys and
-    anything the expression compiler declines); the caller then sorts on
+    made on the host (float32 would tie values the host orders), and epoch
+    keys (timestamp, duration, time, computed ones included) on their exact
+    epoch lanes. Returns np.ndarray[int64], or None when a key is ineligible
+    (anything the expression compiler declines); the caller then sorts on
     the host."""
     from ..datatypes import DataType
     from ..expressions import normalize_literals
@@ -1692,20 +2590,31 @@ def device_table_argsort(table, sort_keys, descending=None, nulls_first=None,
     k = len(keys)
     desc = _norm_flag(descending, k, False)
     nf = _norm_flag(nulls_first, k, None)
+    lane_keys = {}  # key index -> "f64" or "epoch"
     try:
         pre = [normalize_literals(e._node, table.schema) for e in keys]
-        f64 = {i for i, nd in enumerate(pre)
-               if nd.to_field(table.schema).dtype == DataType.float64()}
+        for i, nd in enumerate(pre):
+            dt = nd.to_field(table.schema).dtype
+            if dt == DataType.float64():
+                lane_keys[i] = "f64"
+            elif dt.kind in _EPOCH_KINDS:
+                lane_keys[i] = "epoch"
     except (ValueError, KeyError):
         return None
     b = size_bucket(n)
     entries: List = [None] * k
     # lane keys stage first: cheap host work that can decline
-    for i in f64:
-        entries[i] = _stage_f64_sort_lanes(table, pre[i], b, stage_cache, device)
+    for i, kind in lane_keys.items():
+        if kind == "f64":
+            entries[i] = _stage_f64_sort_lanes(table, pre[i], b, stage_cache, device)
+        else:
+            lanes = _stage_epoch_expr_lanes(table, pre[i], b, stage_cache, device)
+            if lanes is not None:  # the biased int32 halves back to unsigned values
+                entries[i] = (lanes[0].to(torch.int64) + _BIAS32,
+                              lanes[1].to(torch.int64) + _BIAS32, lanes[2])
         if entries[i] is None:
             return None
-    rest = [i for i in range(k) if i not in f64]
+    rest = [i for i in range(k) if i not in lane_keys]
     if rest:
         staged = _stage_and_run(table, [keys[i] for i in rest], stage_cache, device)
         if staged is None:

@@ -27,10 +27,15 @@ columns itself; a K2 failure raises, it never falls back to K1.
 ``device_distinct_indices`` gives the first row of each distinct key tuple
 from the same group-codes kernel.
 
-Left out of this slice: the epoch, LUT, transform and joint-dictionary
-lanes, transformed string keys, and string min/max over anything but a
-plain string column. The reference's deep branch catches any exception and
-falls back to the batched kernel; that catch is not ported.
+Group keys may also be transformed strings (``upper(s)``, ``s.str.left(2)``,
+fill_null chains over one string column): their sorted-order ids from the
+transform lane (device.dict_transform_lane) are the key lane. The aggregate
+children and the predicate read every lane of device.lane_env, and a string
+min/max decodes through the dictionary its child's codes come from
+(device.string_output_dictionary).
+
+The reference's deep branch catches any exception and falls back to the
+batched kernel; that catch is not ported.
 """
 
 from __future__ import annotations
@@ -42,10 +47,9 @@ import torch
 
 from ..datatypes import DataType
 from .device import (_ONEHOT_MAX_SEGMENTS, _np, _plain_string_column, compile_projection,
-                     device_required_columns, int64_wrap_safe, normalize_and_check,
-                     segment_reduce, size_bucket, stage_table_columns, string_literal_env,
-                     string_lut_env,
-                     unstage)
+                     device_required_columns, int64_wrap_safe, lane_env, normalize_and_check,
+                     segment_reduce, size_bucket, stage_table_columns,
+                     string_output_dictionary, unstage)
 
 # agg kinds with a device segment reduction. mean decomposes to sum+count.
 _DEVICE_AGG_KINDS = {"sum", "count", "min", "max", "mean"}
@@ -101,27 +105,33 @@ def _group_codes_kernel(vals, valid, n):
 
 
 def _stage_group_key(table, key_expr, cache, device):
-    """(vals, valid) int lanes for ONE group key: integer/date expressions via
-    the join-key stager; plain STRING columns via their sorted dictionary
-    codes (dense ints already)."""
+    """(vals, valid) int lanes for ONE group key: integer/date expressions
+    (int-valued string transforms included) via the join-key stager; plain
+    STRING columns via their sorted dictionary codes (dense ints already);
+    transformed-string keys via the ids of their transform lane."""
     from ..expressions import normalize_literals
-    from .device import _rewrite_between
+    from .device import _rewrite_between, _string_dict_value_shape, dict_transform_lane
     from .device_join import _stage_key
 
     staged = _stage_key(table, key_expr, cache, device)
     if staged is not None:
         return staged
+    # normalized with normalize_and_check's own rewrites, so that the lane is
+    # cached under the key string_transform_env gives it
     try:
         node = _rewrite_between(normalize_literals(key_expr._node, table.schema), table.schema)
     except (ValueError, KeyError):
         return None
+    b = size_bucket(len(table))
     cname = _plain_string_column(node, table.schema)
-    if cname is None:
+    if cname is not None:
+        staged_cols = stage_table_columns(table, [cname], b, cache, device)
+        return None if staged_cols is None else staged_cols[0][cname]
+    shape = _string_dict_value_shape(node, table.schema)
+    if shape is None:
         return None
-    staged_cols = stage_table_columns(table, [cname], size_bucket(len(table)), cache, device)
-    if staged_cols is None:
-        return None
-    return staged_cols[0][cname]
+    lane = dict_transform_lane(table, shape, b, cache, device)
+    return None if lane is None else (lane[0], lane[1])
 
 
 def _try_device_group_codes(table, group_by, stage_cache, n: int, device):
@@ -294,12 +304,10 @@ def device_grouped_agg_async(table, to_agg, group_by, stage_cache: Optional[dict
     env, dcs = staged
     if not int64_wrap_safe(check_nodes, schema, env, stage_cache, b):
         return None  # int64 arithmetic could wrap in int32 lanes
-    env = string_literal_env(check_nodes, schema, dcs, env)
+    aux: dict = {}
+    env = lane_env(check_nodes, schema, table, b, stage_cache, env, dcs, aux, device)
     if env is None:
-        return None  # a string comparison lost its dictionary
-    env = string_lut_env(check_nodes, schema, dcs, env)
-    if env is None:
-        return None  # a dictionary-lane predicate lost its dictionary
+        return None  # a lane declined (a lost dictionary, a literal that does not convert)
 
     kinds = tuple(s[1] for s in specs)
     modes = tuple(s[3] for s in specs)
@@ -325,8 +333,11 @@ def device_grouped_agg_async(table, to_agg, group_by, stage_cache: Optional[dict
             expected_dt = agg_node.to_field(schema).dtype
             dictionary = None
             if expected_dt.is_string():
-                # string min/max reduce over sorted-dictionary codes
-                dictionary = dcs[_plain_string_column(child_nd, schema)].dictionary
+                # string min/max reduce over order-isomorphic codes: decode
+                # through the dictionary they index
+                dictionary = string_output_dictionary(child_nd, schema, dcs, aux)
+                if dictionary is None:
+                    return None  # cannot decode: the host path recomputes
             merged = _finish_agg(kind, out, num_groups, expected_dt, n, dictionary=dictionary)
             if merged is None:
                 return None  # overflow guard tripped: the host path recomputes
@@ -364,12 +375,12 @@ def _compile_agg(child_nodes, pred_node, schema, input_names, kinds, modes, gb,
     In the 32-bit mode every float sum rides ONE launch of a segment-sums
     kernel when the padded row count is a multiple of 1024 and there are at
     most 4096 group slots. With ``use_deep`` (every env entry a plain 1-D
-    (values, valid) pair, so no string-literal code bounds and no
-    dictionary lookup table, and no node of a string lane or Function in
-    the program, which K2's emitter does not take) that kernel is K2
-    (fused_expr_sums.py): it
-    evaluates the predicate and the float sum columns from the staged
-    columns itself, and torch computes only their validity for the counts.
+    (values, valid) pair, as the reference's deep kernel requires: no
+    string-literal code bound, epoch literal, lookup table, joint remap or
+    transform lane; and no Function, which K2's emitter does not take) that
+    kernel is K2 (fused_expr_sums.py): it evaluates the predicate and the
+    float sum columns from the staged columns and epoch lanes itself, and
+    torch computes only their validity for the counts.
     Otherwise torch derives and masks the columns and K1 sums them. A K2
     build or launch failure raises: there is no fallback to K1."""
     key = (tuple(n._key() for n in child_nodes),
@@ -384,24 +395,27 @@ def _compile_agg(child_nodes, pred_node, schema, input_names, kinds, modes, gb,
     if pred_node is not None:
         pred_run, _ = compile_projection([pred_node], schema, input_names)
 
+    from . import device as dv
     from . import fused_expr_sums as fes
-    from .device import (_compile_node, _string_cmp_shape, _string_dict_pred_applies,
-                         _string_lut_shape, compile_validity)
-    from ..expressions import Function
+    from ..expressions import BinaryOp, Function
     from . import segment_sums
     from .segment_sums import BLOCK_ROWS
 
-    child_fns = [_compile_node(nd, schema)[0] for nd in child_nodes]
-    valid_fns = [compile_validity(nd, schema) for nd in child_nodes]
+    child_fns = [dv._compile_node(nd, schema)[0] for nd in child_nodes]
+    valid_fns = [dv.compile_validity(nd, schema) for nd in child_nodes]
     deep_buckets = set()  # padded row counts this program has run deep at
+    string_lanes = (dv._string_cmp_shape, dv._string_lut_shape, dv._string_dict_pred_applies,
+                    dv._string_value_applies, dv._int_transform_applies,
+                    dv._string_colcol_shape, dv._string_choice_shape, dv._transform_cmp_shape)
 
     def not_emitted(nd) -> bool:
         # a string lane reads env entries K2 is not handed; a Function's
-        # exp/log/sin bits in CUDA are not certain to equal torch's
+        # exp/log/sin bits in CUDA are not certain to equal torch's. An epoch
+        # compare is emitted over its lanes, its sides are not walked
+        if isinstance(nd, BinaryOp) and dv._epoch_cmp_shape(nd, schema) is not None:
+            return False
         return (isinstance(nd, Function)
-                or _string_cmp_shape(nd, schema) is not None
-                or _string_lut_shape(nd, schema) is not None
-                or _string_dict_pred_applies(nd, schema) is not None
+                or any(shape(nd, schema) is not None for shape in string_lanes)
                 or any(not_emitted(c) for c in nd.children()))
 
     deep_ok = not any(not_emitted(nd) for nd in

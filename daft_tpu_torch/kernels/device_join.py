@@ -15,14 +15,18 @@ direction adapts:
   row's span of matches on the card; the data-dependent expansion to
   (left row, right row) pairs runs on the host (side "expanded").
 
-Join keys: 1-4 integer or date expressions; several keys pack into one
-surrogate lane by exact mixed-radix packing (``_pack_composite_keys``, also
-used by the grouped aggregation). A composite key space that overflows int32
-declines to the host join. Left out of this slice, and declined to the host
-join by the reference's own eligibility rule: string keys through the joint
-dictionary (``_string_code_side``, ``_joint_remaps``, ``_recode``) and the
-mesh replicas of a broadcast build side (``replicate_join_key``,
-``join_key_replicas``).
+Join keys: 1-4 integer or date expressions, or string keys: a plain string
+column or a row-local transform of one (``upper(s)``, a fill_null chain).
+A string key's codes, each side's own dictionary codes or transform ids,
+are recoded through a remap into the sorted JOINT dictionary of both sides
+(``_stage_key_pair``), so equal strings get equal ints across tables and
+the int probe applies unchanged. An int-valued transform (``length(s)``)
+joins as an int, never through the joint dictionary. Several keys pack
+into one surrogate lane by exact mixed-radix packing
+(``_pack_composite_keys``, also used by the grouped aggregation). A
+composite key space that overflows int32 declines to the host join. Left
+out of this slice: the mesh replicas of a broadcast build side
+(``replicate_join_key``, ``join_key_replicas``).
 """
 
 from __future__ import annotations
@@ -32,8 +36,9 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from .device import (compile_projection, int64_wrap_safe, normalize_and_check,
-                     size_bucket, stage_table_columns, string_literal_env, string_lut_env)
+from .device import (compile_projection, int64_wrap_safe, normalize_and_check, size_bucket,
+                     stage_table_columns, string_literal_env, string_lut_env,
+                     string_transform_env, transform_cmp_env)
 
 
 def _stage_key(table, key_expr, cache, device) -> Optional[Tuple]:
@@ -60,23 +65,143 @@ def _stage_key(table, key_expr, cache, device) -> Optional[Tuple]:
     env, dcs = staged
     if not int64_wrap_safe([node], schema, env, cache, b):
         return None  # a computed int64 key could wrap in int32 lanes
-    # an integer key may embed a string lane ((col("s") == "a").cast(int)):
-    # its closure reads the literal's code bounds or a lookup table over this
-    # partition's dictionary
+    # an integer key may embed a string lane ((col("s") == "a").cast(int),
+    # length(s), (upper(a) == b).if_else(1, 0)): its closure reads the
+    # literal's code bounds, a lookup table, a transform lane or the pairwise
+    # remaps of a transform compare (aux is shared, so the compare sees the
+    # transform sides' dictionaries)
+    aux: dict = {}
     env = string_literal_env([node], schema, dcs, env)
     if env is not None:
         env = string_lut_env([node], schema, dcs, env)
+    if env is not None:
+        env = string_transform_env([node], schema, table, b, cache, env, aux, device)
+    if env is not None:
+        env = transform_cmp_env([node], schema, table, b, cache, dcs, env, aux, device)
     if env is None:
         return None
     run, _ = compile_projection([node], schema, tuple(sorted(cols)))
     (vals, valid), = run(env)
     if vals.is_floating_point() or vals.dtype == torch.bool:
         return None
-    # padding lanes stay invalid whatever the key expression does
-    n = len(table)
+    return vals, _real_rows(valid, len(table))
+
+
+def _real_rows(valid, n: int):
+    """``valid`` with the size-bucket padding lanes forced invalid: a
+    null-reviving key (a fill_null chain, a transform through the null slot)
+    marks them valid, and the probe masks by validity, so phantom build rows
+    would match."""
     if valid.shape[0] > n:
         valid = valid & (torch.arange(valid.shape[0], device=valid.device) < n)
-    return vals, valid
+    return valid
+
+
+def _normalized_key_node(table, key_expr):
+    """The key node with literals normalized and Between rewritten (the
+    normalization every dictionary cache key uses), or None."""
+    from ..expressions import normalize_literals
+    from .device import _rewrite_between
+
+    try:
+        return _rewrite_between(normalize_literals(key_expr._node, table.schema), table.schema)
+    except (ValueError, KeyError):
+        return None
+
+
+def _string_valued_transform_shape(node, schema):
+    """The transform shape only for a string-VALUED key: an int key such as
+    length(s) must never reach the joint dictionary, whose merge casts to
+    large_string and would join 4 against "4"."""
+    from .device import _string_dict_value_shape
+
+    try:
+        if not node.to_field(schema).dtype.is_string():
+            return None
+    except (ValueError, KeyError):
+        return None
+    return _string_dict_value_shape(node, schema)
+
+
+def _is_plain_string_key(table, key_expr) -> bool:
+    """Shape check without staging: the key is a bare string column or a
+    row-local transform of one, so the joint-dictionary path may apply."""
+    from .device import _plain_string_column
+
+    node = _normalized_key_node(table, key_expr)
+    return node is not None and (
+        _plain_string_column(node, table.schema) is not None
+        or _string_valued_transform_shape(node, table.schema) is not None)
+
+
+class _CodeSide:
+    """(values, valid, dictionary) of one string key side: a plain column's
+    dictionary codes, or a transformed key's ids with their dictionary."""
+
+    __slots__ = ("values", "valid", "dictionary")
+
+    def __init__(self, values, valid, dictionary):
+        self.values = values
+        self.valid = valid
+        self.dictionary = dictionary
+
+
+def _string_code_side(table, key_expr, cache, device) -> Optional[_CodeSide]:
+    """One string key side in code space, or None: a plain column through
+    its sorted dictionary, a row-local transform through its transform
+    lane."""
+    from .device import _plain_string_column, dict_transform_lane
+
+    node = _normalized_key_node(table, key_expr)
+    if node is None:
+        return None
+    b = size_bucket(len(table))
+    cname = _plain_string_column(node, table.schema)
+    if cname is not None:
+        staged = stage_table_columns(table, [cname], b, cache, device)
+        if staged is None or staged[1][cname].dictionary is None:
+            return None
+        dc = staged[1][cname]
+        return _CodeSide(dc.values, dc.valid, dc.dictionary)
+    shape = _string_valued_transform_shape(node, table.schema)
+    if shape is None:
+        return None
+    lane = dict_transform_lane(table, shape, b, cache, device)
+    if lane is None:
+        return None
+    return _CodeSide(lane[0], _real_rows(lane[1], len(table)), lane[2])
+
+
+def _recode(codes, remap):
+    """Codes gathered into the joint dictionary's code space."""
+    return remap.index_select(0, codes)
+
+
+def _joint_remaps(ldc, rdc, lcache, rcache, device):
+    """(lremap, rremap) taking each side's codes into their sorted JOINT
+    dictionary's code space. Cached per dictionary pair in BOTH sides'
+    caches by the dictionaries' ids; the entry holds both dictionaries, so
+    neither id can be reused while it lives. A build side joined against
+    many probe partitions merges its dictionary once per partition pair."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    from .device import joint_remap
+
+    key = ("__jointremap__", id(ldc.dictionary), id(rdc.dictionary), str(device))
+    for cache in (lcache, rcache):
+        cached = cache.get(key) if cache is not None else None
+        if cached is not None:
+            return cached[2], cached[3]
+    joint = pc.unique(pa.concat_arrays([ldc.dictionary.cast(pa.large_string()),
+                                        rdc.dictionary.cast(pa.large_string())]))
+    joint = joint.take(pc.sort_indices(joint))
+    entry = (ldc.dictionary, rdc.dictionary, joint_remap(ldc.dictionary, joint, device),
+             joint_remap(rdc.dictionary, joint, device))
+    for cache in (lcache, rcache):
+        if cache is not None:
+            cache[key] = entry
+    return entry[2], entry[3]
 
 
 def _masked_min_max_multi(vs, ms):
@@ -196,17 +321,25 @@ def _range_join(lo_d, counts_d, perm_d, ln: int, how: str):
     return "expanded", lidx, ridx
 
 
-def _stage_key_pair(ltable, rtable, lkey, rkey, lcache, rcache, device):
-    """((lv, lm), (rv, rm)) int lanes for ONE key pair, or None when either
-    side is not an integer or date key the device compiles. String keys
-    (which the reference recodes through a joint dictionary) decline."""
-    ls = _stage_key(ltable, lkey, lcache, device)
+def _stage_key_pair(ltable, rtable, lkey, rkey, lcache, rcache, device, ls=None, rs=None):
+    """((lv, lm), (rv, rm)) aligned int lanes for ONE key pair, or None.
+    Integer and date keys stage on their own (``ls``/``rs`` pass sides
+    staged already). String keys cannot: per-partition codes do not compare
+    across tables, so both sides' sorted dictionaries merge into one sorted
+    joint dictionary (host, cached per pair) and each side's codes gather
+    through a small remap on the card."""
     if ls is None:
-        return None
-    rs = _stage_key(rtable, rkey, rcache, device)
+        ls = _stage_key(ltable, lkey, lcache, device)
     if rs is None:
+        rs = _stage_key(rtable, rkey, rcache, device)
+    if ls is not None and rs is not None:
+        return ls, rs
+    ldc = _string_code_side(ltable, lkey, lcache, device)
+    rdc = _string_code_side(rtable, rkey, rcache, device)
+    if ldc is None or rdc is None:
         return None
-    return ls, rs
+    lremap, rremap = _joint_remaps(ldc, rdc, lcache, rcache, device)
+    return ((_recode(ldc.values, lremap), ldc.valid), (_recode(rdc.values, rremap), rdc.valid))
 
 
 def device_join_launch(left_table, right_table, left_keys, right_keys,
@@ -223,8 +356,8 @@ def device_join_launch(left_table, right_table, left_keys, right_keys,
       (ridx == -1 marks a left-outer miss).
 
     Returns None when ineligible: no key, unequal key counts, an empty side,
-    a key that is not an integer or date expression, unequal lane dtypes, or
-    a composite key space that overflows int32."""
+    a key that is neither an integer or date expression nor a string key,
+    unequal lane dtypes, or a composite key space that overflows int32."""
     if not isinstance(left_keys, (list, tuple)):
         left_keys = [left_keys]
     if not isinstance(right_keys, (list, tuple)):
@@ -235,21 +368,34 @@ def device_join_launch(left_table, right_table, left_keys, right_keys,
     if ln == 0 or rn == 0:
         return None
     device = torch.device(device)
-    pairs: List = []
-    for lk, rk in zip(left_keys, right_keys):
-        pair = _stage_key_pair(left_table, right_table, lk, rk, left_cache, right_cache, device)
-        if pair is None:
-            return None
-        pairs.append(pair)
-    if len(pairs) > 1:
+    if len(left_keys) > 1:
+        pairs: List = []
+        for lk, rk in zip(left_keys, right_keys):
+            pair = _stage_key_pair(left_table, right_table, lk, rk, left_cache, right_cache,
+                                   device)
+            if pair is None:
+                return None
+            pairs.append(pair)
         packed = _pack_composite_keys([[p[0] for p in pairs], [p[1] for p in pairs]])
         if packed is None:
             return None
         (lv, lm), (rv, rm) = packed
-    else:
-        (lv, lm), (rv, rm) = pairs[0]
-        if lv.dtype != rv.dtype:
+        return _launch_probe(lv, lm, rv, rm, ln, rn, how)
+    left_key, right_key = left_keys[0], right_keys[0]
+    lk = _stage_key(left_table, left_key, left_cache, device)
+    if lk is None and not _is_plain_string_key(left_table, left_key):
+        return None  # an ineligible left key: the right side is not staged
+    rk = _stage_key(right_table, right_key, right_cache, device)
+    if lk is None or rk is None:
+        # a string key (or one string side): through the joint dictionary
+        pair = _stage_key_pair(left_table, right_table, left_key, right_key, left_cache,
+                               right_cache, device, ls=lk, rs=rk)
+        if pair is None:
             return None
+        lk, rk = pair
+    (lv, lm), (rv, rm) = lk, rk
+    if lv.dtype != rv.dtype:
+        return None
     return _launch_probe(lv, lm, rv, rm, ln, rn, how)
 
 

@@ -10,7 +10,9 @@ The kernel's per-row body is generated from the expression nodes:
 
 - ``_Emitter`` translates the nodes that ``device._compile_node`` compiles
   without a string lane or a Function (Column, Literal, Alias, Cast, Not,
-  Between, every BinaryOp op, IsNull, FillNull, IfElse and a numeric IsIn)
+  Between, every BinaryOp op, IsNull, FillNull, IfElse, a numeric IsIn, and
+  an epoch compare of two lane sides or of a lane side and a null literal,
+  over the biased int32 halves of the epoch lanes)
   into C++ that computes the same (value, valid) lanes as the torch
   closures, bit for bit: the same type promotion (``torch.promote_types``), the same casts
   (a float-to-int cast is torch's CUDA cast: saturate to int32 with NaN to 0,
@@ -156,7 +158,9 @@ class _Emitter:
     function. ``node`` returns (value, valid, torch dtype) of a node's lanes
     as ``device._compile_node``'s closure computes them; shared subtrees
     (by ``_key()``) are computed once. Columns read ``c.v<i>[r]`` and
-    ``c.m<i>[r]``, where i is the column's index in ``names``."""
+    ``c.m<i>[r]``, where i is the env entry's index in ``names``: operands
+    bind by position, never by their names (an epoch lane's env key holds
+    NUL bytes and expression text)."""
 
     def __init__(self, schema, dtypes: Dict[str, torch.dtype]):
         self.schema = schema
@@ -182,13 +186,7 @@ class _Emitter:
         from .device import _numeric_isin_items
 
         if isinstance(nd, Column):
-            if nd.cname not in self.dtypes:
-                raise ValueError(f"column {nd.cname!r} is not staged for the deep kernel")
-            i = self.names.index(nd.cname)
-            dt = self.dtypes[nd.cname]
-            raw = f"c.v{i}[r]"
-            v = self._let(dt, f"({raw} != 0)" if dt == torch.bool else raw)
-            return v, self._let(torch.bool, f"(c.m{i}[r] != 0)"), dt
+            return self._entry(nd.cname)
         if isinstance(nd, Literal):
             if nd.value is None:
                 return self._let(torch.int32, "0"), "false", torch.int32
@@ -247,11 +245,55 @@ class _Emitter:
             return self._binary(nd)
         raise ValueError(f"{type(nd).__name__} not device-compilable")
 
+    def _entry(self, name: str) -> Tuple[str, str, torch.dtype]:
+        """(value, valid, dtype) of the env entry ``name`` at row r."""
+        if name not in self.dtypes:
+            raise ValueError(f"env entry {name!r} is not staged for the deep kernel")
+        i = self.names.index(name)
+        dt = self.dtypes[name]
+        raw = f"c.v{i}[r]"
+        v = self._let(dt, f"({raw} != 0)" if dt == torch.bool else raw)
+        return v, self._let(torch.bool, f"(c.m{i}[r] != 0)"), dt
+
+    def _epoch_compare(self, shape) -> Tuple[str, str, torch.dtype]:
+        """device._epoch_cmp_fn's two-lane compare: lexicographic over the
+        (hi, lo) int32 halves, each biased so that the signed compare is the
+        unsigned order. A literal with a value reaches the env as 0-d
+        tensors, which K2 is not handed, so only a null one is emitted."""
+        from .device import _CMP_FLIP, _epoch_lane_keys
+
+        lspec, rspec, op = shape
+        if lspec[0] == "lit":
+            lspec, rspec, op = rspec, lspec, _CMP_FLIP[op]
+        hi_k, lo_k = _epoch_lane_keys(lspec[1])
+        if rspec[0] == "lit":
+            if rspec[1].value is not None:
+                raise ValueError("an epoch literal is an env scalar, not a deep-kernel lane")
+            return self._let(torch.bool, "false"), "false", torch.bool
+        hi, lm, _ = self._entry(hi_k)
+        lo, _, _ = self._entry(lo_k)
+        rk_hi, rk_lo = _epoch_lane_keys(rspec[1])
+        rhi, rm, _ = self._entry(rk_hi)
+        rlo, _, _ = self._entry(rk_lo)
+        eq_hi = self._let(torch.bool, f"{hi} == {rhi}")
+        if op in ("==", "!="):
+            eq = f"{eq_hi} && ({lo} == {rlo})"
+            value = eq if op == "==" else f"!({eq})"
+        else:
+            strict = op[0]  # "<" or ">"
+            value = f"({hi} {strict} {rhi}) || ({eq_hi} && ({lo} {op} {rlo}))"
+        return self._let(torch.bool, value), self._let(torch.bool, f"{lm} && {rm}"), torch.bool
+
     def _compare(self, op: str, a: str, ad, b: str, bd) -> str:
         p = torch.promote_types(ad, bd)
         return self._let(torch.bool, f"{_cast(a, ad, p)} {op} {_cast(b, bd, p)}")
 
     def _binary(self, nd):
+        from .device import _epoch_cmp_shape
+
+        eshape = _epoch_cmp_shape(nd, self.schema)
+        if eshape is not None:
+            return self._epoch_compare(eshape)
         lv, lm, ld = self.node(nd.left)
         rv, rm, rd = self.node(nd.right)
         op = nd.op
@@ -370,12 +412,10 @@ class FusedExprSums:
     Holds the generated source, its build and its plain version."""
 
     def __init__(self, pred_node, child_nodes, schema, dtypes: Dict[str, torch.dtype]):
-        from ..expressions import required_columns
-        from .device import _compile_node
+        from .device import _compile_node, env_inputs
 
-        need = set()
-        for nd in ([pred_node] if pred_node is not None else []) + list(child_nodes):
-            need.update(required_columns(nd))
+        need = env_inputs(([pred_node] if pred_node is not None else []) + list(child_nodes),
+                          schema)
         for name in need:
             if dtypes.get(name) not in _CTYPES:
                 raise ValueError(f"column {name!r} has no deep-kernel lane "

@@ -13,8 +13,11 @@ predicates on the device path.
   predicate), and a numeric is_in as static compares. Results and routing
   counters must equal the reference's, at 1 partition and at 3 partitions
   whose dictionaries differ.
+- A string-valued if_else or fill_null runs on the card through the joint
+  dictionary of its columns and literals, as in the reference.
 - The declines stay declines, with no error: a NaN item, a float item on an
-  integer column, an integer item outside int32, and an if_else over strings.
+  integer column, an integer item outside int32, timestamp arithmetic, and
+  the concatenation of two string columns (new strings, no dictionary).
 """
 
 import dataclasses
@@ -275,6 +278,10 @@ def _device_cases():
             c("f").fill_null(c("p")).sum().alias("c")).sort("k"),
         "lut_in_agg_filter": lambda c, f: f.where(c("s").str.startswith("b") | c("b")).groupby(
             "k").agg(c("p").sum().alias("sp"), c("p").count().alias("n")).sort("k"),
+        # string choices through the joint dictionary of their columns and literals
+        "string_if_else": lambda c, f: f.select(
+            (c("u") > 3).if_else(c("s"), daft_lit(c)("small")).alias("o")),
+        "string_fill_null": lambda c, f: f.select(c("s").fill_null("x").alias("o")),
     }
 
 
@@ -351,10 +358,13 @@ def _decline_cases():
         "nan_item": lambda c, f: f.where(c("f").is_in([float("nan"), 1.0])),
         "float_item_on_int": lambda c, f: f.where(c("i").is_in([1.5, 2.0])),
         "item_past_int32": lambda c, f: f.where(c("i").is_in([2 ** 40, 3])),
-        "string_if_else": lambda c, f: f.select(
-            (c("u") > 3).if_else(c("s"), daft_lit(c)("small")).alias("o")),
-        "string_fill_null": lambda c, f: f.select(c("s").fill_null("x").alias("o")),
         "log_with_base": lambda c, f: f.select(c("p").log(2.0).alias("o")),
+        # epoch arithmetic stays on the host in both packages (only compares
+        # and sort keys ride the epoch lanes)
+        "timestamp_arithmetic": lambda c, f: f.select(
+            (c("ts") + daft_interval(c)(days=1)).alias("o")),
+        # concatenation makes new strings, which no dictionary holds
+        "string_concat_two_columns": lambda c, f: f.select((c("s") + c("s2")).alias("o")),
     }
 
 
@@ -362,11 +372,16 @@ def daft_lit(c):
     return daft_tpu.lit if c is daft_tpu.col else daft_tpu_torch.lit
 
 
+def daft_interval(c):
+    return daft_tpu.interval if c is daft_tpu.col else daft_tpu_torch.interval
+
+
 @pytest.mark.parametrize("case", sorted(_decline_cases()))
 def test_ineligible_nodes_decline_to_the_host(case):
     from daft_tpu_torch.kernels.device import expr_is_device_compilable
 
-    tables = [_with_nan(_table(n=100))]
+    t = _with_nan(_table(n=100))
+    tables = [t.append_column("s2", pa.array(t.column("s").to_pylist()[::-1], pa.large_string()))]
     fn = _decline_cases()[case]
     with real_tpu_mode_cfg(device_min_rows=1) as cfg:
         d = dataclasses.asdict(cfg)

@@ -373,13 +373,13 @@ def test_random_int_key_joins_match_reference(seed, how):
 
 
 # ---------------------------------------------------------------------------
-# the host join: string keys, right and outer joins
+# string keys through the joint dictionary; the host join: right and outer joins
 # ---------------------------------------------------------------------------
 
 def test_string_key_join_takes_the_host_join():
-    """String keys need the joint dictionary, which the port does not have
-    yet: the pair declines to the host join, which gives the reference's
-    rows (the reference probes on the card)."""
+    """A string key recodes both sides' dictionary codes into their sorted
+    joint dictionary and probes on the card, not through the host join, as
+    the reference does, with the reference's rows and routing."""
     rng = np.random.RandomState(29)
     codes = [f"n{i:03d}" for i in range(40)]
     lvals = np.array(codes)[rng.randint(0, 40, 4000)].tolist()
@@ -392,9 +392,10 @@ def test_string_key_join_takes_the_host_join():
         return left.join(pkg.from_pydict(rdata), left_on="nk", right_on="nk2").collect()
 
     ref, got = _both(build)
-    c = _counters(got)
-    assert c.get("host_joins", 0) >= 1 and c.get("device_join_probes", 0) == 0
-    assert _counters(ref).get("device_join_probes", 0) >= 1
+    c, rc = _counters(got), _counters(ref)
+    assert c.get("device_join_probes", 0) >= 1 and c.get("host_joins", 0) == 0
+    assert {k: c.get(k, 0) for k in ("device_join_probes", "host_joins")} == \
+        {k: rc.get(k, 0) for k in ("device_join_probes", "host_joins")}
     assert _sorted_rows(got) == _sorted_rows(ref)
 
 
@@ -516,14 +517,16 @@ def test_sort_keys_match_reference(key):
 
 
 def test_epoch_sort_key_takes_the_host_sort():
-    """Epoch sort lanes are not ported yet: a timestamp key declines to the
-    host sort (counted as host_sorts), with the host's order."""
+    """A timestamp key sorts on the card over its exact epoch lanes, not
+    through the host sort: counted as device_sorts as in the reference, with
+    the reference's order."""
     rng = np.random.RandomState(12)
     ts = (rng.randint(0, 10**6, 3000).astype("datetime64[s]")).astype("datetime64[us]")
     tbl = pa.table({"ts": pa.array(ts), "v": np.arange(3000)})
     ref, got = _both(lambda pkg: pkg.from_arrow(tbl).sort("ts").collect())
     c = _counters(got)
-    assert c.get("host_sorts", 0) == 1 and "device_sorts" not in c
+    assert c.get("device_sorts", 0) == 1 and "host_sorts" not in c
+    assert c.get("device_sorts") == _counters(ref).get("device_sorts")
     assert got.to_pydict() == ref.to_pydict()
 
 

@@ -63,13 +63,6 @@ PINNED = {
     # codes narrow it to int32 lanes on the card, where the reference's uint32
     # lanes overflow its sentinel and it catches the error and encodes on the host
     13: {"device_group_codes": (2, 1)},
-    # c_phone.str.left(2) as a projected value needs the transformed-string
-    # value lane (ROADMAP Queue 1, item 4), which the port lacks: its fused
-    # chain (the filter through the dictionary predicate and that projection)
-    # runs on the host
-    22: {"device_filters": (0, 1), "host_filters": (1, 0), "device_fused_maps": (0, 1),
-         "device_fused_map_dispatches": (0, 1), "host_fused_maps": (1, 0),
-         "device_projections": (1, 3), "host_projections": (2, 0)},
 }
 
 
