@@ -105,7 +105,9 @@ import traceback
 
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12      # fp32 outside the tensor cores, H100 SXM data sheet
+H100_FP64_FLOPS = 34e12      # fp64 outside the tensor cores, H100 SXM data sheet
 RTOL = 1e-6
+RTOL_X64 = 1e-9              # phase 6, the 64-bit mode, against the pyarrow oracle
 SF1_BUCKET = 8_388_608       # size_bucket of SF1's 6,000,000 lineitem rows
 
 
@@ -317,11 +319,12 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, ops: float) -> dict:
+def bound(nbytes: float, ops: float, flops: float = H100_FP32_FLOPS) -> dict:
     """The least time the card could take: the larger of bytes over the
-    memory rate and fp32 operations over the fp32 rate."""
+    memory rate and operations over their type's rate (fp32 unless
+    ``flops`` says otherwise)."""
     bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
-    ops_ms = ops / H100_FP32_FLOPS * 1e3
+    ops_ms = ops / flops * 1e3
     return {"bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
@@ -343,10 +346,13 @@ def crossover(k: int) -> tuple:
 
 
 def same_bits(a, b) -> bool:
-    """Bit-for-bit equality of two float32 tensors (NaN payloads included)."""
+    """Bit-for-bit equality of two float32 or float64 tensors (NaN payloads
+    included)."""
     import torch
 
-    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+    ints = torch.int64 if a.element_size() == 8 else torch.int32
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.view(ints), b.view(ints)))
 
 
 class Phases:
@@ -473,8 +479,10 @@ def phase_build(ph: Phases) -> dict:
         prog.build()
     for name, secs in done.items():
         print(f"built {name} in {secs:.2f}s (all builds started together)", flush=True)
-    ph.check(len(progs) >= len(DEEP_PLANS) + len(edges),
-             f"phase 1: {len(progs)} K2 programs, K1 and the scatter kernel built for sm_90a")
+    ph.check(len(progs) >= len(DEEP_PLANS) + len(edges)
+             and all(hasattr(scs.build(), f"segment_scatter_sums_{t}") for t in ("f32", "f64")),
+             f"phase 1: {len(progs)} K2 programs, K1 and the scatter kernel (its float32 and "
+             f"float64 instantiations) built for sm_90a")
     logs = ([("K1", ss.BUILD_LOG), ("scatter", scs.BUILD_LOG)]
             + [(f"K2 program {i}", p.build_log) for i, p in enumerate(progs)])
     for label, log in logs:
@@ -758,16 +766,18 @@ SCATTER_LARGE = (262_144, 148_152)
 
 
 def scatter_operands(b: int, g: int, seed: int, sort_codes: bool = False,
-                     masked: float = 0.2):
+                     masked: float = 0.2, dtype=None):
     """Scatter-sum operands on the card: codes over g segments (random or
-    sorted), money-like values, a fraction of the rows masked to 0.0."""
+    sorted), money-like values (float32, or float64 with every bit of the
+    mantissa drawn), a fraction of the rows masked to 0.0."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     codes = torch.randint(0, g, (b,), generator=gen, device="cuda", dtype=torch.int32)
     if sort_codes:
         codes = torch.sort(codes).values
-    vals = torch.rand(b, generator=gen, device="cuda") * 104100.0 + 900.0
+    vals = torch.rand(b, generator=gen, device="cuda",
+                      dtype=dtype or torch.float32) * 104100.0 + 900.0
     keep = torch.rand(b, generator=gen, device="cuda") >= masked
     return torch.where(keep, vals, 0.0), codes
 
@@ -784,7 +794,7 @@ def library_scatter(values, codes, g: int):
     chunk = min(8192, b)
     nch = b // chunk
     flat = torch.arange(nch, device=codes.device).repeat_interleave(chunk) * g + codes.long()
-    partials = torch.zeros(nch * g, dtype=torch.float32,
+    partials = torch.zeros(nch * g, dtype=values.dtype,
                            device=values.device).index_add_(0, flat, values)
     return _kahan_combine(partials.view(nch, g))
 
@@ -793,12 +803,14 @@ def scatter_bound(vals, codes, g: int) -> dict:
     """What the function must do: codes and values of the b rows read once
     and G sums written once; one addition for each row that joins a chain
     (nonzero value, code in range) and the 4 operations of each of the
-    nch x G Kahan steps. The partials are the two-pass design's own
-    traffic, not the function's."""
+    nch x G Kahan steps, at the fp32 or the fp64 rate. The partials are the
+    two-pass design's own traffic, not the function's."""
     b = vals.shape[0]
     nch = b // min(8192, b)
     adds = int(((vals != 0) & (codes >= 0) & (codes < g)).sum())
-    return bound(b * 8 + g * 4, adds + 4 * nch * g)
+    width = vals.element_size()
+    return bound(b * (4 + width) + g * width, adds + 4 * nch * g,
+                 H100_FP64_FLOPS if width == 8 else H100_FP32_FLOPS)
 
 
 def queued_cuda_ms(fn, calls: int = 20) -> float:
@@ -823,8 +835,9 @@ def queued_cuda_ms(fn, calls: int = 20) -> float:
 
 def scatter_device_ms(vals, codes, g: int, calls: int = 20) -> dict:
     """Device time per call of the scatter kernel's two passes, from
-    torch.profiler over `calls` calls: the card's own time, apart from
-    the wrapper's host cost that CUDA events around the calls also see.
+    torch.profiler over `calls` calls (the mean over the launches the trace
+    holds): the card's own time, apart from the wrapper's host cost that
+    CUDA events around the calls also see.
     A session whose trace holds no time for either pass is made once more;
     if the second sees none either, the device events it did hold are
     listed and device_ms comes from queued_cuda_ms (both passes of each call
@@ -843,9 +856,15 @@ def scatter_device_ms(vals, codes, g: int, calls: int = 20) -> dict:
                 scs.scatter_sum_kahan(vals, codes, g)
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        out = {f"{name}_device_ms": sum(e.self_device_time_total for e in events
-                                        if f"scatter_{name}" in e.key) / 1e3 / calls
-               for name in ("pass1", "pass2")}
+        out = {}
+        for name in ("pass1", "pass2"):
+            # per traced launch: a trace that drops some launches (it
+            # happens) must not read as a faster kernel
+            seen = [e for e in events if f"scatter_{name}" in e.key]
+            count = sum(e.count for e in seen)
+            out[f"{name}_device_ms"] = (sum(e.self_device_time_total for e in seen) / 1e3 / count
+                                        if count else 0.0)
+            out[f"{name}_launches_traced"] = count
         out["queued_events_ms"] = queued
         if out["pass1_device_ms"] > 0.0 and out["pass2_device_ms"] > 0.0:
             out["device_ms"] = out["pass1_device_ms"] + out["pass2_device_ms"]
@@ -859,8 +878,8 @@ def scatter_device_ms(vals, codes, g: int, calls: int = 20) -> dict:
 
 def check_scatter(ph: Phases, name: str, vals, codes, g: int) -> float:
     """The kernel against its plain version bit for bit, two launches bit for
-    bit, and float64 sums at rtol 1e-6 of the summed magnitudes. Returns
-    max |kernel - plain|."""
+    bit, and float64 sums at rtol 1e-6 (1e-12 for float64 values) of the
+    summed magnitudes. Returns max |kernel - plain|."""
     import torch
 
     from daft_tpu_torch.kernels import scatter_sums as scs
@@ -873,12 +892,13 @@ def check_scatter(ph: Phases, name: str, vals, codes, g: int) -> float:
     exact = torch.zeros(g, dtype=torch.float64, device=vals.device).index_add_(
         0, idx, vals.double())
     mags = torch.zeros_like(exact).index_add_(0, idx, vals.double().abs())
+    rtol = 1e-12 if vals.dtype == torch.float64 else RTOL
     ph.check(same_bits(a, b), f"scatter {name}: two launches agree bit for bit")
     ph.check(same_bits(a, plain), f"scatter {name}: equals its plain version bit for bit")
     err = float((a - plain).abs().max())
-    ok = bool(((a.double() - exact).abs() <= RTOL * mags + 1e-30).all())
+    ok = bool(((a.double() - exact).abs() <= rtol * mags + 1e-30).all())
     ph.check(ok and bool(torch.isfinite(a).all()),
-             f"scatter {name}: matches float64 at rtol {RTOL} (max |kernel-plain| {err:.6g})")
+             f"scatter {name}: matches float64 at rtol {rtol} (max |kernel-plain| {err:.6g})")
     return err
 
 
@@ -905,40 +925,52 @@ def time_scatter(vals, codes, g: int) -> dict:
     return out
 
 
-def phase_scatter(ph: Phases) -> dict:
-    """Phase 2, the scatter kernel: G = 4097 (just above K1's range), the
-    large shape with random and sorted codes, an all-masked input and the
+def phase_scatter(ph: Phases, dtype=None) -> dict:
+    """Phase 2, the scatter kernel (phase 6 for its float64 instantiation,
+    ``dtype=torch.float64``): G = 4097 (just above K1's range), the large
+    shape with random and sorted codes, an all-masked input and the
     smallest bucket; returns its kernel-table entry (the large shape's
-    numbers until phase 3 measures the main path's shape)."""
+    numbers until phase 3, or 6, measures the main path's shape)."""
     import torch
 
     from daft_tpu_torch.kernels import scatter_sums as scs
 
-    entry = {"name": "segment_scatter_sums", "route": "cuda",
-             "source": "daft_tpu_torch/csrc/segment_scatter_sums.cu",
+    f64 = dtype == torch.float64
+    tag = "f64 " if f64 else ""
+    entry = {"name": "segment_scatter_sums_f64" if f64 else "segment_scatter_sums",
+             "route": "cuda", "source": "daft_tpu_torch/csrc/segment_scatter_sums.cu",
              "replaces": "daft_tpu/kernels/device.py:2679"}
     for sort_codes in (False, True):
-        vals, codes = scatter_operands(65_536, 4097, seed=1, sort_codes=sort_codes)
-        check_scatter(ph, f"b=65536 G=4097 {'sorted' if sort_codes else 'random'} codes",
+        vals, codes = scatter_operands(65_536, 4097, seed=1, sort_codes=sort_codes, dtype=dtype)
+        check_scatter(ph, f"{tag}b=65536 G=4097 {'sorted' if sort_codes else 'random'} codes",
                       vals, codes, 4097)
     b, g = SCATTER_LARGE
-    vals, codes = scatter_operands(b, g, seed=2)
-    entry["max_abs_err"] = check_scatter(ph, f"large b={b} G={g} random codes", vals, codes, g)
+    vals, codes = scatter_operands(b, g, seed=2, dtype=dtype)
+    entry["max_abs_err"] = check_scatter(ph, f"{tag}large b={b} G={g} random codes", vals,
+                                         codes, g)
     entry.update(time_scatter(vals, codes, g))
-    vals, codes = scatter_operands(b, g, seed=3, sort_codes=True)
-    check_scatter(ph, f"large b={b} G={g} sorted codes", vals, codes, g)
+    vals, codes = scatter_operands(b, g, seed=3, sort_codes=True, dtype=dtype)
+    check_scatter(ph, f"{tag}large b={b} G={g} sorted codes", vals, codes, g)
     entry["sorted_codes_ms"] = cuda_ms(lambda: scs.scatter_sum_kahan(vals, codes, g), iters=20)
-    print("scatter timing " + json.dumps(entry), flush=True)
-    vals, codes = scatter_operands(8192, 5000, seed=4, masked=1.0)
+    print(f"scatter {tag}timing " + json.dumps(entry), flush=True)
+    vals, codes = scatter_operands(8192, 5000, seed=4, masked=1.0, dtype=dtype)
     out = scs.scatter_sum_kahan(vals, codes, 5000)
-    ph.check(bool((out.view(torch.int32) == 0).all()), "scatter all rows masked: every sum is +0.0")
-    vals, codes = scatter_operands(1024, 5000, seed=5)
-    check_scatter(ph, "smallest bucket b=1024 G=5000", vals, codes, 5000)
+    ph.check(bool((out.view(torch.int32) == 0).all()),
+             f"scatter {tag}all rows masked: every sum is +0.0")
+    vals, codes = scatter_operands(1024, 5000, seed=5, dtype=dtype)
+    check_scatter(ph, f"{tag}smallest bucket b=1024 G=5000", vals, codes, 5000)
     # one chunk spreads over 32 CTAs (R = 1024 owners): G = 1000 leaves the
     # last CTA no segment at all
-    vals, codes = scatter_operands(8192, 1000, seed=6)
-    check_scatter(ph, "b=8192 G=1000, fewer segments than owners", vals, codes, 1000)
-    vals, codes = scatter_operands(65_536, 4097, seed=7)
+    vals, codes = scatter_operands(8192, 1000, seed=6, dtype=dtype)
+    check_scatter(ph, f"{tag}b=8192 G=1000, fewer segments than owners", vals, codes, 1000)
+    if f64:  # the +-0.0 rows, which pass 1 leaves out of every chain
+        vals, codes = scatter_operands(65_536, 4097, seed=8, dtype=dtype)
+        gen = torch.Generator(device="cuda").manual_seed(8)
+        pick = torch.rand(codes.shape[0], generator=gen, device="cuda", dtype=dtype)
+        vals = torch.where(pick < 0.2, -0.0, torch.where(pick < 0.3, -vals, vals))
+        check_scatter(ph, f"{tag}b=65536 G=4097, 20% of rows -0.0, 10% negative", vals,
+                      codes, 4097)
+    vals, codes = scatter_operands(65_536, 4097, seed=7, dtype=dtype)
     gen = torch.Generator(device="cuda").manual_seed(7)
     bad = torch.rand(codes.shape[0], generator=gen, device="cuda") < 0.3
     far = torch.tensor([-1, -5000, 4097, 4128, 1 << 30], device="cuda", dtype=torch.int32)
@@ -946,8 +978,8 @@ def phase_scatter(ph: Phases) -> dict:
                                                 device="cuda")], codes)
     a = scs.scatter_sum_kahan(vals, codes, 4097)
     ph.check(same_bits(a, scs.scatter_sum_kahan_plain(vals, codes, 4097)),
-             "scatter b=65536 G=4097, 30% of codes outside [0, G): equals its plain version "
-             "bit for bit")
+             f"scatter {tag}b=65536 G=4097, 30% of codes outside [0, G): equals its plain "
+             "version bit for bit")
     del vals, codes
     torch.cuda.empty_cache()
     return entry
@@ -1344,7 +1376,8 @@ def join_breakdown(run, reps: int = 3) -> dict:
     return out
 
 
-def phase_joins(ph: Phases, scale: float, card: str, profile: bool) -> dict:
+def phase_joins(ph: Phases, scale: float, card: str, profile: bool,
+                keep_tables: bool = False) -> dict:
     """Phase 3, the join path at one scale factor: TPC-H Q3 and Q5 over one
     set of tables (generate_tables(scale, seed=42)), each driven once cold
     with every kernel's launch count set to 0 just before and read just
@@ -1352,7 +1385,8 @@ def phase_joins(ph: Phases, scale: float, card: str, profile: bool) -> dict:
     operands the engine hands the scatter kernel in Q3 and K1 in Q5 are
     kept from the cold run; each kernel is then held against its plain
     version bit for bit at those operands, and the scatter kernel is timed
-    there."""
+    there. With ``keep_tables`` the host tables come back as
+    ``out["tables"]`` (phase 6 runs Q3 and Q5 over them)."""
     import torch
 
     import daft_tpu_torch as dtt
@@ -1441,6 +1475,8 @@ def phase_joins(ph: Phases, scale: float, card: str, profile: bool) -> dict:
         name = f"main path SF{scale:g} Q5 n={codes.shape[0]} G={g} K={vals.shape[1]}"
         out["k1_q5"] = {"n": codes.shape[0], "G": g, "K": vals.shape[1],
                         "max_abs_err": check_k1(ph, name, codes, mask, vals, g)}
+    if keep_tables:
+        out["tables"] = tables
     del frames, tables, captured
     torch.cuda.empty_cache()
     return out
@@ -1471,6 +1507,10 @@ TPCH22_AGG_ROUTES = {1: (1, 0), 2: (1, 0), 3: (1, 0), 4: (1, 0), 5: (1, 0), 6: (
                      7: (1, 0), 8: (1, 0), 9: (1, 0), 10: (1, 0), 11: (1, 0), 12: (1, 0),
                      13: (2, 0), 14: (1, 0), 15: (1, 0), 16: (0, 1), 17: (1, 1), 18: (2, 0),
                      19: (1, 0), 20: (1, 0), 21: (1, 2), 22: (0, 1)}
+# the same routes in the 64-bit device mode (device_x64=True): phase 6 holds
+# the card to them, tests/test_torch_tpch22_x64.py the port and the reference
+# at SF0.005
+TPCH22_X64_AGG_ROUTES = TPCH22_AGG_ROUTES
 # (device_fused_maps, host_fused_maps) of the queries whose chains take the
 # new lanes, held the same way
 TPCH22_LANE_MAPS = {9: (1, 0), 12: (1, 0), 13: (1, 0), 14: (1, 0), 16: (2, 0), 19: (1, 0),
@@ -1668,6 +1708,7 @@ def phase_tpch22(ph: Phases, queries, data: dict, card: str, profile: bool) -> d
         print(f"SF1 tpch22 Q{qn} " + json.dumps(res), flush=True)
         del df
     out["rows"] = rows
+    out["host_rows"] = host  # phase 6 holds the 64-bit mode to them
     total = sum(warm_by_query.values())
     print("SF1 tpch22 summary " + json.dumps({
         "warm_total_s": total, "cold_total_s": sum(out[f"q{q}"]["cold_s"] for q in warm_by_query),
@@ -1893,6 +1934,261 @@ def phase_lanes(ph: Phases, data: dict, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the 64-bit device mode (device_x64=True)
+# ---------------------------------------------------------------------------
+
+# phase 6's main-path queries: (query, the tables it reads, device join probes)
+X64_QUERIES = {
+    "q1": (q1, ("lineitem",), 0),
+    "q6": (q6, ("lineitem",), 0),
+    "q3": (q3, ("customer", "orders", "lineitem"), 2),
+    "q5": (q5, ("customer", "orders", "lineitem", "nation"), 3),
+}
+
+
+def rel_gap(got: dict, want: dict) -> float:
+    """The largest relative gap between the float values of ``got`` and
+    ``want``, column by column and row by row (the rows in order)."""
+    gap = 0.0
+    for k, col in want.items():
+        for a, b in zip(got.get(k, []), col):
+            if isinstance(b, float) and isinstance(a, float):
+                gap = max(gap, abs(a - b) / max(abs(b), 1e-300))
+    return gap
+
+
+def float_bits(d: dict) -> dict:
+    """The bits of every float value of a result (a float64 view of each)."""
+    import struct
+
+    return {k: [struct.pack("<d", v) if isinstance(v, float) else v for v in col]
+            for k, col in d.items()}
+
+
+def x64_oracles(lineitem, tables) -> dict:
+    from benchmarks import tpch
+
+    return {"q1": tpch.oracle_q1(lineitem), "q6": {"revenue": [tpch.oracle_q6(lineitem)]},
+            "q3": tpch.oracle_q3(*[tables[a] for a in X64_QUERIES["q3"][1]]),
+            "q5": tpch.oracle_q5(*[tables[a] for a in X64_QUERIES["q5"][1]])}
+
+
+def x64_drive(ph: Phases, name: str, x64: bool, source: dict, want: dict, groups3: dict,
+              card: str, captured: list) -> dict:
+    """One query of phase 6 in one mode over fresh frames: cold (every
+    kernel's launch count set to 0 just before and read just after; in the
+    64-bit mode the operands of the float64 scatter kernel's wrapper are
+    kept), checked against the pyarrow oracle, then warm (median of 5)."""
+    import torch
+
+    import daft_tpu_torch as dtt
+    from daft_tpu_torch.kernels import fused_expr_sums as fes
+    from daft_tpu_torch.kernels import scatter_sums as scs
+    from daft_tpu_torch.kernels import segment_sums as ss
+
+    query, args, probes = X64_QUERIES[name]
+    dtt.set_execution_config(dtt.ExecutionConfig(device_x64=x64))
+    frames = [dtt.from_arrow(source[a]).collect() for a in args]
+    real = scs.scatter_sum_kahan
+
+    def record(values, codes, g):
+        if values.dtype == torch.float64:
+            captured.append((values, codes, g))
+        return real(values, codes, g)
+
+    scs.scatter_sum_kahan = record
+    ss.LAUNCHES = fes.LAUNCHES = scs.LAUNCHES = scs.LAUNCHES_F64 = 0
+    try:
+        t0 = time.perf_counter()
+        df = query(*frames).collect()
+        got = df.to_pydict()
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+    finally:
+        scs.scatter_sum_kahan = real
+    launches = {"k1": ss.LAUNCHES, "k2": fes.LAUNCHES, "scatter": scs.LAUNCHES,
+                "scatter_f64": scs.LAUNCHES_F64}
+    c = df.stats.snapshot()["counters"]
+    mode = "x64" if x64 else "32-bit"
+    label = f"SF1 {name} ({mode})"
+    rtol = RTOL_X64 if x64 else RTOL
+    ok = (q3_parity(got, want, groups3, rtol) if name == "q3" else parity(got, want, rtol))
+    gap = rel_gap(got, want)
+    ph.check(ok, f"{label}: matches the pyarrow oracle at rtol {rtol} (largest relative gap "
+                 f"{gap:.3g})")
+    on_card = (c.get("device_aggregations", 0) >= 1 and c.get("device_agg_fallbacks", 0) == 0
+               and c.get("device_join_probes", 0) == probes)
+    if name in JOIN_ROUTES:
+        on_card = on_card and {k: c.get(k, 0) for k in JOIN_ROUTES[name]} == JOIN_ROUTES[name]
+    if x64:  # K1 and K2 never launch in this mode; Q3's sums take the float64 scatter
+        on_card = on_card and (launches["k1"], launches["k2"], launches["scatter"]) == (0, 0, 0)
+        if name == "q3":
+            on_card = on_card and launches["scatter_f64"] >= 1 and c.get("device_sorts", 0) >= 1
+    ph.check(on_card, f"{label}: ran on the card (launches {launches}, counters "
+                      f"{ {k: v for k, v in c.items() if v} })")
+    res = {"mode": mode, "cold_s": cold, "launches": launches, "max_rel_gap": gap,
+           **warm_median(lambda _f: query(*frames), None), "card": card}
+    if x64 and name == "q3":  # a second run gives every float the same bits
+        again = query(*frames).collect().to_pydict()
+        ph.check(float_bits(again) == float_bits(got),
+                 f"{label}: a second run gives every float output the same bits")
+    del df, frames
+    torch.cuda.empty_cache()
+    return res
+
+
+def onehot_f64_breakdown(card: str) -> dict:
+    """Where a float64 sum of the 64-bit mode's one-hot route spends its
+    time at the SF1 Q1 shape (b = 8,388,608 rows, 16 group slots), by CUDA
+    events: the whole ``segment_reduce(..., "sum")`` (with its count), the
+    chunk partials alone (the (chunks, 8192, 16) compare, select and sum)
+    and the Kahan walk over the 1024 chunk partials alone (4 small launches
+    a chunk)."""
+    import torch
+
+    from daft_tpu_torch.kernels import device as dv
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    b, g = SF1_BUCKET, 16
+    vals = torch.rand(b, generator=gen, device="cuda", dtype=torch.float64) * 1e5
+    codes = torch.randint(0, 4, (b,), generator=gen, device="cuda", dtype=torch.int32)
+    valid = torch.rand(b, generator=gen, device="cuda") < 0.98
+    sel = dv._onehot(valid, codes, g)
+    partials = torch.where(sel, vals.view(sel.shape[0], sel.shape[1], 1), 0).sum(dim=1)
+    out = {"b": b, "G": g, "chunks": partials.shape[0],
+           "segment_reduce_sum_ms": cuda_ms(
+               lambda: dv.segment_reduce(vals, valid, codes, g, "sum"), iters=5),
+           "chunk_partials_ms": cuda_ms(lambda: torch.where(
+               dv._onehot(valid, codes, g), vals.view(sel.shape[0], sel.shape[1], 1),
+               0).sum(dim=1), iters=5),
+           "kahan_walk_ms": cuda_ms(lambda: dv._kahan_combine(partials), iters=5),
+           "card": card}
+    del vals, codes, valid, sel, partials
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_x64(ph: Phases, lineitem, tables: dict, queries, data: dict, host_rows: dict,
+              scatter32: dict, card: str) -> dict:
+    """Phase 6, the 64-bit device mode on the card: the float64 scatter
+    kernel at phase 2's shapes; Q1, Q6 (lineitem, SF1) and Q3, Q5
+    (generate_tables(1, seed=42)) in the 32-bit mode and then in the 64-bit
+    one, cold and warm, each mode over fresh frames, the 64-bit runs at
+    rtol 1e-9 of the pyarrow oracle, with K1 and K2 at 0 launches and Q3's
+    sums through the float64 scatter kernel, which is then held against its
+    plain version at the operands the engine handed it and timed there;
+    the 22 queries in the 64-bit mode at SF0.005 (3 partitions) against
+    SQLite and at SF1 against phase 4's host-path rows, each query's
+    aggregate routes held to TPCH22_X64_AGG_ROUTES and its float64 scatter
+    launches to phase 4's float32 ones."""
+    import torch
+
+    import daft_tpu_torch as dtt
+    from benchmarks import tpch_full
+    from daft_tpu_torch.kernels import fused_expr_sums as fes
+    from daft_tpu_torch.kernels import scatter_sums as scs
+    from daft_tpu_torch.kernels import segment_sums as ss
+
+    entry = phase_scatter(ph, torch.float64)
+    out = {"scatter_f64_launches": 0, "k1_launches": 0, "k2_launches": 0}
+    source = dict(tables, lineitem=lineitem)
+    want = x64_oracles(lineitem, tables)
+    groups3 = oracle_q3_groups(*[tables[a] for a in X64_QUERIES["q3"][1]])
+    captured: list = []
+    for name in X64_QUERIES:
+        if name == "q3":  # the join queries read the join tables' lineitem
+            source["lineitem"] = tables["lineitem"]
+        pair = {}
+        for x64 in (False, True):
+            pair["x64" if x64 else "32"] = x64_drive(ph, name, x64, source, want[name],
+                                                   groups3, card, captured)
+        res = pair["x64"]
+        res["warm_32bit_s"] = pair["32"]["warm_median_s"]
+        res["cold_32bit_s"] = pair["32"]["cold_s"]
+        res["warm_x64_over_32bit"] = res["warm_median_s"] / res["warm_32bit_s"]
+        for k in ("k1", "k2"):
+            out[f"{k}_launches"] += res["launches"][k]
+        out["scatter_f64_launches"] += res["launches"]["scatter_f64"]
+        out[name] = res
+        print(f"SF1 x64 {name} " + json.dumps(res), flush=True)
+    dtt.set_execution_config(dtt.ExecutionConfig(device_x64=True))
+    out["onehot_f64"] = onehot_f64_breakdown(card)
+    print("SF1 x64 one-hot float64 sum " + json.dumps(out["onehot_f64"]), flush=True)
+    ph.check(len(captured) == 1, f"SF1 x64: Q3 called the float64 scatter wrapper once "
+                                 f"({len(captured)})")
+    for vals, codes, g in captured[:1]:
+        name = f"f64 main path SF1 x64 Q3 b={vals.shape[0]} G={g}"
+        err = check_scatter(ph, name, vals, codes, g)
+        keep = ("name", "route", "source", "replaces")
+        entry["large_shape"] = {k: entry.pop(k) for k in list(entry) if k not in keep}
+        entry.update({"max_abs_err": err, **time_scatter(vals, codes, g)})
+        print("scatter f64 timing main path SF1 x64 " + json.dumps(entry), flush=True)
+    del captured
+    torch.cuda.empty_cache()
+
+    # --- the 22 queries: SF0.005 in three partitions against SQLite
+    small = tpch_full.generate(scale=0.005, seed=7)
+    conn = tpch_full.load_sqlite(small)
+    try:
+        dtt.set_execution_config(dtt.ExecutionConfig(device_min_rows=8, device_x64=True))
+        frames = tpch22_frames(small, 3)
+        for qn in sorted(queries.QUERIES):
+            got = tpch22_rows(zip(*queries.QUERIES[qn](frames).to_pydict().values()))
+            want22 = tpch22_rows(conn.execute(queries.SQL[qn]).fetchall())
+            ph.check(tpch22_match(got, want22),
+                     f"SF0.005 x64 Q{qn} (3 partitions): {len(got)} rows match the SQLite "
+                     f"oracle")
+    finally:
+        conn.close()
+    del small, frames
+
+    # --- SF1, one partition per table, against phase 4's host-path rows
+    dtt.set_execution_config(dtt.ExecutionConfig(device_min_rows=8, device_x64=True))
+    frames = tpch22_frames(data, 1)
+    warm, cold = {}, {}
+    for qn in sorted(queries.QUERIES):
+        def run(qn=qn):
+            return queries.QUERIES[qn](frames).collect()
+
+        ss.LAUNCHES = fes.LAUNCHES = scs.LAUNCHES = scs.LAUNCHES_F64 = 0
+        t0 = time.perf_counter()
+        df = run()
+        got = tpch22_rows(zip(*df.to_pydict().values()))
+        torch.cuda.synchronize()
+        cold[qn] = time.perf_counter() - t0
+        launches = {"k1": ss.LAUNCHES, "k2": fes.LAUNCHES, "scatter": scs.LAUNCHES,
+                    "scatter_f64": scs.LAUNCHES_F64}
+        c = df.stats.snapshot()["counters"]
+        label = f"SF1 x64 Q{qn}"
+        ph.check(tpch22_match(got, host_rows[qn]),
+                 f"{label}: {len(got)} rows match the port's host path")
+        aggs = (c.get("device_aggregations", 0), c.get("host_aggregations", 0))
+        ph.check(aggs == TPCH22_X64_AGG_ROUTES[qn] and c.get("device_agg_fallbacks", 0) == 0,
+                 f"{label}: (device_aggregations, host_aggregations) {aggs}, as the CPU "
+                 f"tests route them ({TPCH22_X64_AGG_ROUTES[qn]}), no fallback")
+        ph.check((launches["k1"], launches["k2"], launches["scatter"]) == (0, 0, 0)
+                 and launches["scatter_f64"] == scatter32.get(qn, 0),
+                 f"{label}: K1, K2 and the float32 scatter kernel not launched, the float64 "
+                 f"one as often as phase 4's float32 one ({launches}; phase 4 "
+                 f"{scatter32.get(qn, 0)})")
+        out["scatter_f64_launches"] += launches["scatter_f64"]
+        out["k1_launches"] += launches["k1"]
+        out["k2_launches"] += launches["k2"]
+        res = {"cold_s": cold[qn], "launches": launches,
+               **warm_median(lambda _f, run=run: run(), None, runs=3), "card": card}
+        warm[qn] = res["warm_median_s"]
+        print(f"SF1 tpch22 x64 Q{qn} " + json.dumps(res), flush=True)
+        del df
+    print("SF1 tpch22 x64 summary " + json.dumps({
+        "warm_total_s": sum(warm.values()), "cold_total_s": sum(cold.values()),
+        "slowest": sorted(warm, key=lambda q: -warm[q])[:5], "card": card}), flush=True)
+    del frames
+    torch.cuda.empty_cache()
+    out["entry"] = entry
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scales", default="1,10",
@@ -1927,10 +2223,12 @@ def main(argv=None) -> int:
         edges = phase_build(ph)
         k1_entry = phase_k1(ph)
         sc_entry = phase_scatter(ph)
+        sc64_entry = phase_scatter(ph, torch.float64) if args.kernels_only else None
         scales = [] if args.kernels_only else [float(s) for s in args.scales.split(",")]
         tables = {}
         t0 = time.perf_counter()
         tables[1.0] = tpch.generate_lineitem_only(scale=1.0, seed=42)
+        sf1_lineitem = tables[1.0]  # phase 6 runs Q1 and Q6 over it again
         print(f"SF1: {tables[1.0].num_rows} rows generated in {time.perf_counter() - t0:.1f}s",
               flush=True)
         k2_entry = phase_k2(ph, tables[1.0], edges)
@@ -1948,7 +2246,10 @@ def main(argv=None) -> int:
                     ph, tables[scale], card, res, args.profile and i == 0)["k1_launches"]
                 phase_single_ops(ph, tables[scale], card)
             tables = {}  # the join tables of this scale take the memory next
-            joins = phase_joins(ph, scale, card, args.profile and i == 0)
+            joins = phase_joins(ph, scale, card, args.profile and i == 0,
+                                keep_tables=scale == 1.0)
+            if scale == 1.0:
+                join_tables = joins.pop("tables")
             if i == 0:
                 k1_entry["launches"] = res["k1_launches"] + joins["q5"]["launches"]["k1"]
                 k2_entry["launches"] = res["k2_launches"]
@@ -1967,7 +2268,16 @@ def main(argv=None) -> int:
                   + ", ".join(f"{k} {v.num_rows}" for k, v in data.items()) + ")", flush=True)
             t22 = phase_tpch22(ph, queries, data, card, args.profile)
             lanes = phase_lanes(ph, data, card)
-            del data
+            if 1.0 in scales:  # phase 6, the 64-bit device mode
+                scatter32 = {qn: t22[f"q{qn}"]["launches"]["scatter"] for qn in queries.QUERIES}
+                x64 = phase_x64(ph, sf1_lineitem, join_tables, queries, data,
+                                t22.pop("host_rows"), scatter32, card)
+                sc64_entry = x64["entry"]
+                sc64_entry["launches"] = x64["scatter_f64_launches"]
+                k1_entry["launches_x64"] = x64["k1_launches"]  # 0: the mode never runs K1
+                k2_entry["launches_x64"] = x64["k2_launches"]
+                del join_tables
+            del data, sf1_lineitem
             for name, ph_out in (("tpch22", t22), ("lanes", lanes)):
                 k1_entry[f"launches_{name}"] = ph_out["k1_launches"]
                 k2_entry[f"launches_{name}"] = ph_out["k2_launches"]
@@ -1976,7 +2286,10 @@ def main(argv=None) -> int:
                 sc_entry["launches"] += ph_out["scatter_launches"]
                 k2_entry["launches"] += ph_out["k2_launches"]
             k2_entry["timestamps_deep_shape"] = lanes["k2_shape"]
-        print(json.dumps({"kernels": [k1_entry, k2_entry, sc_entry]}), flush=True)
+        if sc64_entry is not None and args.kernels_only:
+            sc64_entry["launches"] = None
+        kernels = [k1_entry, k2_entry, sc_entry] + ([sc64_entry] if sc64_entry else [])
+        print(json.dumps({"kernels": kernels}), flush=True)
         print(f"chip_smoke: {len(scales)} scale(s) in {time.perf_counter() - started:.1f}s",
               flush=True)
     except Exception:

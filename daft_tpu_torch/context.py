@@ -32,7 +32,9 @@ class ExecutionConfig:
     device: str = "cuda"
     # the counterpart of jax_enable_x64 in daft_tpu: False is the 32-bit
     # device mode a TPU runs (int64 narrows to int32 when it fits, float64
-    # always computes as float32). Only the 32-bit mode is ported so far.
+    # always computes as float32); True is the 64-bit mode (int64 and
+    # float64 stage and compute at full width, epoch temporals as int64,
+    # counts in int64), daft_tpu's default where x64 is on
     device_x64: bool = False
     # batch every float sum of a fused aggregation through the masked
     # segment-sums kernel (kernels/segment_sums.py)
@@ -49,11 +51,6 @@ class ExecutionConfig:
     # a join side whose estimated size is at most this many bytes is
     # broadcast (BroadcastJoinOp) instead of hash-joined
     broadcast_join_size_bytes_threshold: int = 10 * 1024 * 1024
-
-    def __post_init__(self):
-        if self.device_x64:
-            raise NotImplementedError(
-                "the 64-bit device mode is not ported yet; use device_x64=False")
 
 
 # daft_tpu ExecutionConfig field (or "jax_enable_x64") -> port field
@@ -76,11 +73,12 @@ def execution_config_from_dict(d: dict, **overrides) -> ExecutionConfig:
     yet are ignored; ``overrides`` (for example ``device="cpu"``) win.
 
     The 32-bit device mode always computes float64 as float32, so a reference
-    config that turns ``device_reduced_precision`` off has no counterpart."""
-    if d.get("device_reduced_precision") is False:
+    config that turns ``device_reduced_precision`` off maps only with
+    ``jax_enable_x64`` on, where float64 computes at full width."""
+    if d.get("device_reduced_precision") is False and not d.get("jax_enable_x64"):
         raise NotImplementedError(
-            "float64 without reduced precision needs the 64-bit device mode, "
-            "which is not ported yet")
+            "the 32-bit device mode always computes float64 as float32: float64 "
+            "without reduced precision needs jax_enable_x64 (device_x64=True)")
     kw = {ours: d[theirs] for theirs, ours in _FROM_REFERENCE.items() if theirs in d}
     kw.update(overrides)
     return ExecutionConfig(**kw)
@@ -113,6 +111,11 @@ class DaftContext:
 
 def get_context() -> DaftContext:
     return DaftContext.get()
+
+
+def x64_enabled() -> bool:
+    """The current config's device mode: True for the 64-bit one."""
+    return bool(get_context().execution_config.device_x64)
 
 
 def set_execution_config(config: Optional[ExecutionConfig] = None, **kwargs) -> DaftContext:

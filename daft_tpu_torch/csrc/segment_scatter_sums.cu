@@ -4,15 +4,17 @@
 // plain version this kernel is checked against.
 //
 // It computes exactly what the reference's `_scatter_sum_kahan`
-// (daft_tpu/kernels/device.py, an XLA scatter, not a Pallas kernel) computes
-// in its 32-bit mode: the b padded rows (masked rows already 0.0) split into
-// chunks of `chunk` rows; for chunk c and segment g, partials[c][g] is the
-// sum of the chunk's rows with code g, added in row order starting at +0.0;
-// then out[g] Kahan-adds partials[0..nch)[g] in chunk order with the
-// operations of `_kahan_combine` (y = p - comp; t = s + y; comp = (t - s) - y;
-// s = t). torch's CUDA index_add_ on float32 adds with atomics, in an order
-// that changes from run to run; this kernel uses no float atomics, so two
-// launches give the same bits.
+// (daft_tpu/kernels/device.py, an XLA scatter, not a Pallas kernel) computes:
+// the b padded rows (masked rows already 0.0) split into chunks of `chunk`
+// rows; for chunk c and segment g, partials[c][g] is the sum of the chunk's
+// rows with code g, added in row order starting at +0.0; then out[g]
+// Kahan-adds partials[0..nch)[g] in chunk order with the operations of
+// `_kahan_combine` (y = p - comp; t = s + y; comp = (t - s) - y; s = t).
+// Both passes are templates on the value type T: float for the reference's
+// 32-bit mode (segment_scatter_sums_f32), double for its 64-bit mode
+// (segment_scatter_sums_f64), with every addition in T. torch's CUDA
+// index_add_ adds with atomics, in an order that changes from run to run;
+// this kernel uses no float atomics, so two launches give the same bits.
 //
 //   pass 1: grid (nch, S). CTA (c, y) serves chunk c for the owners
 //           W = 32 y + w (w its warp) of R = 32 S; owner W holds the segments
@@ -50,11 +52,11 @@
 //           under a shim that relies on it).
 //   pass 2: one thread per segment runs the Kahan walk over the chunks.
 //
-// Bound on an H100: the bytes the function must move, b * 8 (codes and
-// values read once) + G * 4 (out written once); at b = 262,144 rows and
-// G = 148,152 that is about 2.7 MB, 0.8 us at 3.35 TB/s. What the design
-// adds: the partials (nch * G * 4 bytes written, then read again: about
-// 38 MB at that shape), every CTA of a chunk staging the chunk (S times in
+// Bound on an H100: the bytes the function must move, b * (4 + sizeof(T))
+// (codes and values read once) + G * sizeof(T) (out written once); in
+// float32 at b = 262,144 rows and G = 148,152 that is about 2.7 MB, 0.8 us
+// at 3.35 TB/s. What the design adds: the partials (nch * G * sizeof(T)
+// bytes written, then read again: about 38 MB at that shape in float32), every CTA of a chunk staging the chunk (S times in
 // all, from L2 after the first), the count and scatter steps (chunk / 1024
 // steps of each per warp, shared memory only), and the walk, which is
 // serial within an owner (a step waits on a load of partials from L2, and
@@ -78,18 +80,29 @@ constexpr unsigned kAll = 0xffffffffu;
 // fall in 32 different banks
 constexpr int kTableStride = kWarps + 1;
 
-// pass 1's shared memory: the staged chunk (codes and values of `chunk`
-// rows), the bucket (the same, plus one word of padding per owner), the
-// (owner, slice) table, the owners' bucket bounds and the scan's warp totals
+// pass 1's shared memory for values of type T: the staged chunk (codes and
+// values of `chunk` rows), the bucket (the same, plus one slot of padding
+// per owner), the (owner, slice) table, the owners' bucket bounds and the
+// scan's warp totals. 16 bytes a row in float (132 KB at 8192 rows), 24 in
+// double (196 KB plus the bucket's padding and the tables, about 201 KB),
+// both under the H100's 227 KB opt-in. Every array starts on a multiple of
+// its element size: chunk is a multiple of 128 and kWarps is 32.
+template <typename T>
 __host__ __device__ constexpr size_t pass1_smem_bytes(int chunk) {
-  return static_cast<size_t>(chunk) * 8 + (static_cast<size_t>(chunk) + kWarps) * 8 +
+  return static_cast<size_t>(chunk) * (4 + sizeof(T)) +
+         (static_cast<size_t>(chunk) + kWarps) * (4 + sizeof(T)) +
          (kWarps * kTableStride + (kWarps + 1) + kWarps) * 4;
 }
 
-// per device: the pass-1 shared-memory limit has been raised to
-// pass1_smem_bytes(kMaxChunk) (a race between two first launches sets the
-// same value twice)
-bool g_smem_set[kMaxDevices];
+// per value type and device: the pass-1 shared-memory limit of that
+// instantiation has been raised to pass1_smem_bytes<T>(kMaxChunk) (a race
+// between two first launches sets the same value twice)
+template <typename T>
+struct SmemSet {
+  static bool done[kMaxDevices];
+};
+template <typename T>
+bool SmemSet<T>::done[kMaxDevices];
 
 // the local owner (0..31) of a staged code in CTA row y, or -1 when the code
 // is outside [0, G) (the +-0.0 rows' -1 included) or another CTA owns it
@@ -99,14 +112,43 @@ __device__ __forceinline__ int local_owner(int cd, unsigned ug, unsigned owner_m
   return uc < ug && ((uc & owner_mask) >> 5) == y ? static_cast<int>(uc & 31u) : -1;
 }
 
+// four rows of values, loaded at once: one float4, or two double2
+template <typename T>
+struct Four;
+template <>
+struct Four<float> {
+  float v[4];
+  __device__ __forceinline__ static Four load(const float* p, int i) {
+    const float4 x = reinterpret_cast<const float4*>(p)[i];
+    return Four{{x.x, x.y, x.z, x.w}};
+  }
+  __device__ __forceinline__ void store(float* p, int i) const {
+    reinterpret_cast<float4*>(p)[i] = make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+template <>
+struct Four<double> {
+  double v[4];
+  __device__ __forceinline__ static Four load(const double* p, int i) {
+    const double2 a = reinterpret_cast<const double2*>(p)[2 * i];
+    const double2 b = reinterpret_cast<const double2*>(p)[2 * i + 1];
+    return Four{{a.x, a.y, b.x, b.y}};
+  }
+  __device__ __forceinline__ void store(double* p, int i) const {
+    reinterpret_cast<double2*>(p)[2 * i] = make_double2(v[0], v[1]);
+    reinterpret_cast<double2*>(p)[2 * i + 1] = make_double2(v[2], v[3]);
+  }
+};
+
+template <typename T>
 __global__ void __launch_bounds__(kPass1Threads)
-scatter_pass1(const float* __restrict__ vals, const int* __restrict__ codes,
-              float* __restrict__ partials, int chunk, int g, int s_log2) {
+scatter_pass1(const T* __restrict__ vals, const int* __restrict__ codes,
+              T* __restrict__ partials, int chunk, int g, int s_log2) {
   extern __shared__ int4 smem4[];
   int* s_codes = reinterpret_cast<int*>(smem4);
-  float* s_vals = reinterpret_cast<float*>(s_codes + chunk);
+  T* s_vals = reinterpret_cast<T*>(s_codes + chunk);
   int* b_codes = reinterpret_cast<int*>(s_vals + chunk);
-  float* b_vals = reinterpret_cast<float*>(b_codes + chunk + kWarps);
+  T* b_vals = reinterpret_cast<T*>(b_codes + chunk + kWarps);
   int* s_table = reinterpret_cast<int*>(b_vals + chunk + kWarps);  // [owner][slice]
   // owner o's bucket is [s_bound[o], s_bound[o + 1] - 1): owner o's rows
   // start o words further on, so with codes in order, where each slice's
@@ -122,30 +164,31 @@ scatter_pass1(const float* __restrict__ vals, const int* __restrict__ codes,
   const unsigned ug = static_cast<unsigned>(g);
   const unsigned y = blockIdx.y;
   const long long row0 = static_cast<long long>(blockIdx.x) * chunk;
-  float* part = partials + static_cast<long long>(blockIdx.x) * g;
+  T* part = partials + static_cast<long long>(blockIdx.x) * g;
 
   // stage the chunk, four rows a thread per load, coalesced. A row whose
   // value is +-0.0 stages with code -1 and so joins no chain: every chain
   // starts at +0.0 and round-to-nearest gives -0.0 only as (-0.0) + (-0.0),
-  // so no chain is ever -0.0, and adding +-0.0 to it changes no bit. The
-  // masked rows and the padding of a size bucket (all of one code) drop out.
+  // in float and in double alike, so no chain is ever -0.0, and adding
+  // +-0.0 to it changes no bit. The masked rows and the padding of a size
+  // bucket (all of one code) drop out.
   const int4* c4 = reinterpret_cast<const int4*>(codes + row0);
-  const float4* v4 = reinterpret_cast<const float4*>(vals + row0);
+  const T* v0 = vals + row0;
   for (int i = tid; i < chunk / 4; i += kPass1Threads) {
     int4 c = c4[i];
-    const float4 v = v4[i];
-    c.x = v.x == 0.0f ? -1 : c.x;
-    c.y = v.y == 0.0f ? -1 : c.y;
-    c.z = v.z == 0.0f ? -1 : c.z;
-    c.w = v.w == 0.0f ? -1 : c.w;
+    const Four<T> v = Four<T>::load(v0, i);
+    c.x = v.v[0] == T(0) ? -1 : c.x;
+    c.y = v.v[1] == T(0) ? -1 : c.y;
+    c.z = v.v[2] == T(0) ? -1 : c.z;
+    c.w = v.v[3] == T(0) ? -1 : c.w;
     reinterpret_cast<int4*>(s_codes)[i] = c;
-    reinterpret_cast<float4*>(s_vals)[i] = v;
+    v.store(s_vals, i);
   }
   // this CTA's slots start at +0.0: in each period of R segments, the 32
   // consecutive ones of owners 32 y .. 32 y + 31 (one warp per period)
   for (long long q = warp; q * owners < g; q += kWarps) {
     const long long s = q * owners + y * 32LL + lane;
-    if (s < g) part[s] = 0.0f;
+    if (s < g) part[s] = T(0);
   }
   s_table[warp * kTableStride + lane] = 0;
   __syncthreads();  // the chunk, the table's zeros and the slots' zeros
@@ -217,7 +260,7 @@ scatter_pass1(const float* __restrict__ vals, const int* __restrict__ codes,
     const int cd = i < hi ? b_codes[i] : -1;
     const unsigned peers = __match_any_sync(kAll, cd);
     if (cd >= 0 && lane == __ffs(peers) - 1) {
-      float p = part[cd];
+      T p = part[cd];
       for (unsigned m = peers; m != 0u; m &= m - 1u) p = p + b_vals[base + __ffs(m) - 1];
       part[cd] = p;
     }
@@ -225,20 +268,59 @@ scatter_pass1(const float* __restrict__ vals, const int* __restrict__ codes,
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kPass2Threads)
-scatter_pass2(const float* __restrict__ partials, float* __restrict__ out, int nch, int g) {
+scatter_pass2(const T* __restrict__ partials, T* __restrict__ out, int nch, int g) {
   const long long s = static_cast<long long>(blockIdx.x) * kPass2Threads + threadIdx.x;
   if (s >= g) return;
-  float sum = 0.0f;
-  float comp = 0.0f;
+  T sum = T(0);
+  T comp = T(0);
   for (int c = 0; c < nch; ++c) {
-    const float p = partials[static_cast<long long>(c) * g + s];
-    const float y = p - comp;
-    const float t = sum + y;
+    const T p = partials[static_cast<long long>(c) * g + s];
+    const T y = p - comp;
+    const T t = sum + y;
     comp = (t - sum) - y;
     sum = t;
   }
   out[s] = sum;
+}
+
+}  // namespace
+
+// host side: the launches (nvcc only; the host-run test of the passes
+// stops above this line)
+namespace {
+
+// both passes of one value type T on `stream` (see the C entry points)
+template <typename T>
+int launch(const void* vals, const void* codes, void* partials, void* out, long long b,
+           int chunk, int g, int s_log2, void* stream) {
+  if (chunk > kMaxChunk || chunk % 128 != 0 || s_log2 < 0 || s_log2 > 5)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nch = static_cast<int>(b / chunk);
+  const size_t smem = pass1_smem_bytes<T>(chunk);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!SmemSet<T>::done[dev]) {
+    err = cudaFuncSetAttribute(scatter_pass1<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(pass1_smem_bytes<T>(kMaxChunk)));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    SmemSet<T>::done[dev] = true;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid1(static_cast<unsigned>(nch), 1u << s_log2);
+  scatter_pass1<T><<<grid1, kPass1Threads, smem, st>>>(static_cast<const T*>(vals),
+                                                       static_cast<const int*>(codes),
+                                                       static_cast<T*>(partials), chunk, g,
+                                                       s_log2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (g + kPass2Threads - 1) / kPass2Threads;
+  scatter_pass2<T><<<blocks, kPass2Threads, 0, st>>>(static_cast<const T*>(partials),
+                                                     static_cast<T*>(out), nch, g);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -256,32 +338,16 @@ extern "C" {
 // launch.
 int segment_scatter_sums_f32(const void* vals, const void* codes, void* partials, void* out,
                              long long b, int chunk, int g, int s_log2, void* stream) {
-  if (chunk > kMaxChunk || chunk % 128 != 0 || s_log2 < 0 || s_log2 > 5)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int nch = static_cast<int>(b / chunk);
-  const size_t smem = pass1_smem_bytes(chunk);
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
-  if (!g_smem_set[dev]) {
-    err = cudaFuncSetAttribute(scatter_pass1, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(pass1_smem_bytes(kMaxChunk)));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    g_smem_set[dev] = true;
-  }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid1(static_cast<unsigned>(nch), 1u << s_log2);
-  scatter_pass1<<<grid1, kPass1Threads, smem, st>>>(static_cast<const float*>(vals),
-                                                    static_cast<const int*>(codes),
-                                                    static_cast<float*>(partials), chunk, g,
-                                                    s_log2);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (g + kPass2Threads - 1) / kPass2Threads;
-  scatter_pass2<<<blocks, kPass2Threads, 0, st>>>(static_cast<const float*>(partials),
-                                                  static_cast<float*>(out), nch, g);
-  return static_cast<int>(cudaGetLastError());
+  return launch<float>(vals, codes, partials, out, b, chunk, g, s_log2, stream);
+}
+
+// The same contract in float64: vals, partials and out are float64 (pass 1
+// takes 24 bytes of shared memory a row, about 201 KB at 8192), and the
+// shared-memory limit is raised for this instantiation on its own first
+// launch on a device.
+int segment_scatter_sums_f64(const void* vals, const void* codes, void* partials, void* out,
+                             long long b, int chunk, int g, int s_log2, void* stream) {
+  return launch<double>(vals, codes, partials, out, b, chunk, g, s_log2, stream);
 }
 
 const char* segment_scatter_sums_error_string(int code) {

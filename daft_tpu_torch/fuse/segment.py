@@ -27,8 +27,9 @@ overflow guard; counted as ``segment_fallbacks``). A **failure** (an
 exception from staging, the map program or a kernel) propagates to the
 caller: the reference's catch in its resolver and the DeviceHealth breaker
 are not ported yet. Results equal the staged plan's: exactly for keys,
-counts and integer sums; float sums within float32 rounding, because the
-staged plan rounds derived float64 columns to float32 at another point.
+counts and integer sums; float sums within float32 rounding in the 32-bit
+mode, because the staged plan rounds derived float64 columns to float32 at
+another point (the 64-bit mode rounds nowhere).
 
 Left out: buffer donation (torch has none), the ``fuse.segment`` fault site,
 the plan cache and the profiler spans. A multi-partition input gathers
@@ -95,7 +96,12 @@ class SegmentProgram:
     - ``gb_inputs``: group keys remapped to the INPUT table's columns. Group
       codes compute over the unfiltered input (rows stay aligned with the
       mask lanes); the pruning output restores the filtered first-occurrence
-      group order, as the staged FusedFilterAggregate does."""
+      group order, as the staged FusedFilterAggregate does.
+
+    The program a segment runs is ``_compile_agg``'s, cached on (nodes,
+    inter_schema, input_names, kinds, modes, segment bucket, device mode,
+    kernel knobs), so a segment run in the 64-bit mode never reuses the
+    32-bit mode's program, and repeat traffic of one shape reuses one."""
 
     __slots__ = ("seg_exprs", "inter_schema", "specs", "child_nodes", "pred_node",
                  "input_names", "kinds", "modes", "gb_inputs", "has_groupby", "n_masks")

@@ -28,20 +28,36 @@ daft_tpu/kernels/device.py this slice runs).
   joint dictionary per group (``string_joint_env``); a compare of a
   transform with another column recodes both sides through a pairwise joint
   dictionary (``transform_cmp_env``).
-- Timestamp, duration and time values compare and sort through exact epoch
-  lanes: the int64 epoch, its sign bit flipped, split into 32-bit halves on
-  the host and each half biased by 2**31 into an int32 lane, so a signed
-  int32 compare is the unsigned order (``epoch_cmp_env``). A computed epoch
-  side is evaluated once on the host in exact int64.
+- In the 32-bit mode, timestamp, duration and time values compare and sort
+  through exact epoch lanes: the int64 epoch, its sign bit flipped, split
+  into 32-bit halves on the host and each half biased by 2**31 into an
+  int32 lane, so a signed int32 compare is the unsigned order
+  (``epoch_cmp_env``). A computed epoch side is evaluated once on the host
+  in exact int64.
 - Aggregations are masked segment reductions over dense group codes.
 - Sorts are a stable multi-key argsort over order-preserving int64 lanes
   (``device_table_argsort``, the reference's K5).
 
-This slice ports the 32-bit device mode (``ExecutionConfig.device_x64`` is
-False), the one daft_tpu runs on a TPU: int64 columns narrow to int32 when
-every value fits, float64 columns compute as float32, and epoch temporals
-reach the card only as epoch lanes. JAX narrows quietly when x64 is off;
-torch does not, so every narrowing below is an explicit cast.
+Two device modes, as daft_tpu has (``ExecutionConfig.device_x64``, read
+through ``x64_enabled``):
+
+- the 32-bit mode (False), the one daft_tpu runs on a TPU: int64 columns
+  narrow to int32 when every value fits, float64 columns compute as
+  float32, and epoch temporals reach the card only as epoch lanes. JAX
+  narrows quietly when x64 is off; torch does not, so every narrowing below
+  is an explicit cast;
+- the 64-bit mode (True), daft_tpu's own default where x64 is on: int64,
+  float64 and epoch columns stage and compute at full width (epochs as
+  int64, so their compares and arithmetic take the generic closures),
+  counts are int64, and a 64-bit sort key splits into (hi, lo) lanes on the
+  card. A uint64 column stages as its int64 bits: every uint64 value on the
+  card lies in [0, 2**63), so the signed order is the unsigned one (a
+  column past it declines at staging, an arithmetic node that could leave
+  it declines in ``int64_wrap_safe``), and a sum wraps modulo 2**64 with
+  the bits the host reads back as uint64.
+
+Every cache of staged lanes and compiled programs keys on the mode: a
+column staged narrow in one mode is never served in the other.
 
 Left out of this slice: device hashing, fixed-shape tensor columns, and
 unsigned integers other than uint64 (torch's uint16/32 support is partial,
@@ -57,6 +73,7 @@ import pyarrow as pa
 import pyarrow.compute as pc
 import torch
 
+from ..context import x64_enabled
 from ..datatypes import DataType, TypeKind
 
 # Pad row counts up to a power-of-two bucket of at least this size (a
@@ -101,10 +118,16 @@ _NARROW_NP = {TypeKind.INT64: np.int32, TypeKind.UINT64: np.int32,
               TypeKind.FLOAT64: np.float32}
 
 
+_EPOCH_KINDS = {TypeKind.TIMESTAMP, TypeKind.DURATION, TypeKind.TIME}
+
+
 def is_device_dtype(dt: DataType) -> bool:
-    """Device-representable in the 32-bit device mode: int64 and uint64 via
-    lossless int32 narrowing (checked per column at stage time), float64 as
-    float32, dates as int32 days."""
+    """Device-representable in the current mode. Both modes: int64 and
+    uint64 (in the 32-bit mode through lossless int32 narrowing, checked per
+    column at stage time), float64 (as float32 in the 32-bit mode), dates as
+    int32 days. The 64-bit mode adds the epoch temporals as int64."""
+    if dt.kind in _EPOCH_KINDS:
+        return x64_enabled()
     return dt.kind in _TORCH_DTYPES or dt.kind in _NARROW_64 or dt.kind == TypeKind.DATE
 
 
@@ -190,9 +213,17 @@ def _staged_validity(arr: pa.Array, n: int, b: int) -> np.ndarray:
 
 
 def _narrow_staged(vals: np.ndarray, dt: DataType) -> np.ndarray:
-    """int64 and uint64 narrow to int32 only when every value fits (raises
-    otherwise, so the caller declines to the host path); float64 rounds to
-    float32."""
+    """32-bit mode: int64 and uint64 narrow to int32 only when every value
+    fits (raises otherwise, so the caller declines to the host path);
+    float64 rounds to float32. 64-bit mode: no narrowing; a uint64 column
+    stages as its int64 bits when every value is below 2**63 (raises
+    otherwise)."""
+    if x64_enabled():
+        if vals.dtype == np.uint64:
+            if len(vals) and vals.max() >= np.uint64(1 << 63):
+                raise ValueError(f"{dt} values reach 2**63; host path")
+            return vals.view(np.int64)
+        return vals
     if dt.kind not in _NARROW_NP:
         return vals
     target = _NARROW_NP[dt.kind]
@@ -256,9 +287,15 @@ def unstage(col: DeviceColumn):
                 out = pc.if_else(pa.array(valid), out, pa.nulls(col.length, out.type))
         return Series.from_arrow(out, "device", dt)
     storage = dt.to_arrow()
+    if pa.types.is_uint64(storage) and vals.dtype == np.int64:
+        vals = vals.view(np.uint64)  # the 64-bit mode's uint64 lanes hold the bits
     out = pa.array(vals)
     if out.type != storage:
-        if pa.types.is_date32(storage):
+        if pa.types.is_timestamp(storage) or pa.types.is_duration(storage) \
+                or pa.types.is_time64(storage):
+            out = (out.cast(pa.int64()).view(storage) if out.type.bit_width == 64
+                   else out.cast(storage))
+        elif pa.types.is_date32(storage):
             out = out.cast(pa.int32()).view(storage)
         else:
             out = out.cast(storage)
@@ -276,36 +313,51 @@ def _np(x) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 def _literal_to_physical(value, dt: DataType):
-    """A python literal's device value (a date becomes its epoch day)."""
-    if dt.kind == TypeKind.DATE:
-        return int(pa.scalar(value, type=dt.to_arrow()).cast(pa.int32()).as_py())
+    """A python literal's device value (a temporal becomes its epoch int)."""
+    if dt.is_temporal():
+        scalar = pa.scalar(value, type=dt.to_arrow())
+        if dt.kind == TypeKind.DATE:
+            return int(scalar.cast(pa.int32()).as_py())
+        return int(scalar.value)
     return value
 
 
 def _jdt(dt: DataType) -> torch.dtype:
-    """COMPUTE dtype of a logical dtype: 64-bit kinds narrow to 32 bits."""
+    """COMPUTE dtype of a logical dtype in the current mode: 64-bit kinds
+    narrow to 32 bits in the 32-bit mode; in the 64-bit mode epochs compute
+    as int64 and uint64 as its int64 bits."""
     if dt.kind in _NARROW_64:
-        return _NARROW_64[dt.kind]
+        if not x64_enabled():
+            return _NARROW_64[dt.kind]
+        return torch.float64 if dt.kind == TypeKind.FLOAT64 else torch.int64
     if dt.kind in _TORCH_DTYPES:
         return _TORCH_DTYPES[dt.kind]
     if dt.kind == TypeKind.DATE:
         return torch.int32
+    if dt.kind in _EPOCH_KINDS:
+        if not x64_enabled():
+            raise ValueError(f"{dt} needs 64-bit epochs; host path in the 32-bit mode")
+        return torch.int64
     raise ValueError(f"{dt} has no device dtype")
 
 
 def _wf() -> torch.dtype:
-    """Widest float compute dtype of the 32-bit mode."""
-    return torch.float32
+    """Widest float compute dtype of the current mode."""
+    return torch.float64 if x64_enabled() else torch.float32
 
 
 def _literal_fits_device(lit) -> bool:
     """A literal is device-usable if its dtype has a compute dtype and, for
-    int literals that narrow to int32, the value fits."""
+    int literals, the value fits it (int32 where it narrows; int64, which
+    also holds the 64-bit mode's uint64 lanes, otherwise)."""
     if lit.value is None or lit.dtype.is_null():
         return True
     if not is_device_dtype(lit.dtype):
         return False
-    jd = _jdt(lit.dtype)
+    try:
+        jd = _jdt(lit.dtype)
+    except ValueError:
+        return False
     if isinstance(lit.value, int) and not isinstance(lit.value, bool) \
             and not jd.is_floating_point and jd != torch.bool:
         info = torch.iinfo(jd)
@@ -413,6 +465,8 @@ def expr_is_device_compilable(node, schema, _normalized: bool = False) -> bool:
     if isinstance(node, (Alias, Not, IsNull)):
         return all(rec(c) for c in node.children())
     if isinstance(node, Cast):
+        if _temporal_recast(node, schema):
+            return False
         return (not any_string_child(node) and is_device_dtype(node.dtype)
                 and rec(node.child))
     if isinstance(node, BinaryOp):
@@ -441,8 +495,22 @@ def expr_is_device_compilable(node, schema, _normalized: bool = False) -> bool:
     return False
 
 
+def _temporal_recast(node, schema) -> bool:
+    """A cast between two different temporal types (date to timestamp, one
+    timestamp unit to another, ...): the host rescales the epoch, a lane
+    cast would only reinterpret it, so it stays on the host. It arises in
+    the 64-bit mode, where epochs are device types; the reference's card
+    reinterprets (a date cast to timestamp[us] gives microseconds after
+    1970), and the port declines instead."""
+    try:
+        src = node.child.to_field(schema).dtype
+    except (ValueError, KeyError):
+        return False
+    return src.is_temporal() and node.dtype.is_temporal() and src != node.dtype
+
+
 # the numeric functions the card evaluates (a float function computes in
-# float32, the widest float of the 32-bit mode)
+# the widest float of the mode)
 _DEVICE_FNS = {
     "numeric.abs": torch.abs,
     "numeric.negate": torch.neg,
@@ -537,7 +605,6 @@ def string_literal_env(nodes, schema, dcs, env) -> Optional[dict]:
 # construction); the card gathers the result by dictionary code (O(rows)).
 # ---------------------------------------------------------------------------
 
-_EPOCH_KINDS = {TypeKind.TIMESTAMP, TypeKind.DURATION, TypeKind.TIME}
 _CMP_OPS_NULLSAFE = _CMP_OPS + ("<=>",)
 
 
@@ -591,14 +658,16 @@ def _epoch_lane_side(node, schema):
 
 def _epoch_cmp_shape(node, schema):
     """(lspec, rspec, op) when ``node`` is a comparison whose sides are epoch
-    lane sides and/or literals, at least one a lane side: it compiles as a
-    two-lane compare over split epoch bits. Each spec is ("lane", ident,
-    dtype, side_node or None) or ("lit", literal node). Lane against lane
-    needs identical dtypes (kind, unit, time zone): the raw int64 epochs of
-    different units do not compare."""
+    lane sides and/or literals, at least one a lane side: in the 32-bit mode
+    it compiles as a two-lane compare over split epoch bits. Each spec is
+    ("lane", ident, dtype, side_node or None) or ("lit", literal node). Lane
+    against lane needs identical dtypes (kind, unit, time zone): the raw
+    int64 epochs of different units do not compare. None in the 64-bit
+    mode, where epochs stage as int64 and the generic closures compare
+    them."""
     from ..expressions import BinaryOp, Literal
 
-    if not (isinstance(node, BinaryOp) and node.op in _CMP_OPS):
+    if x64_enabled() or not (isinstance(node, BinaryOp) and node.op in _CMP_OPS):
         return None
 
     def spec(n):
@@ -1188,7 +1257,8 @@ def _numeric_isin_items(node, schema):
     """The static device values of a numeric, date or bool ``is_in``'s items,
     or None when it is ineligible: a NaN item (arrow's is_in matches NaN,
     an equality compare cannot), a float item against an integer column
-    (the host compares in float64, the 32-bit lanes cannot), or an integer
+    (the host compares in float64, the 32-bit lanes cannot; declined in
+    both modes, as the reference does), or in the 32-bit mode an integer
     item outside int32."""
     import math
 
@@ -1217,7 +1287,8 @@ def _numeric_isin_items(node, schema):
             out.append(_literal_to_physical(v, child_dt))
         except (ValueError, TypeError, pa.ArrowInvalid):
             return None
-    if any(isinstance(v, int) and not (_INT32_LO <= v <= _INT32_HI) for v in out):
+    if not x64_enabled() and any(isinstance(v, int) and not (_INT32_LO <= v <= _INT32_HI)
+                                 for v in out):
         return None
     return tuple(out)
 
@@ -1452,13 +1523,14 @@ def _transform_source(table, colname, bucket, stage_cache, device):
 
 
 def dict_int_transform_lane(table, shape, bucket: int, stage_cache: Optional[dict], device):
-    """(vals, valid) int32 lanes of an int-valued string transform: evaluated
-    on the host over the dictionary plus the null slot, range-checked there
-    exactly (a value past int32 declines, the wrap guard at O(unique)
-    cost), gathered by code on the card. Cached with the partition; None
-    to decline."""
+    """(vals, valid) int lanes of an int-valued string transform: evaluated
+    on the host over the dictionary plus the null slot, gathered by code on
+    the card. In the 32-bit mode the values are range-checked there exactly
+    (a value past int32 declines, the wrap guard at O(unique) cost) and
+    narrow to int32; the 64-bit mode keeps them int64. Cached with the
+    partition; None to decline."""
     colname, node, node_key = shape
-    cache_key = ("__inttranslane__", node_key, bucket, str(device))
+    cache_key = ("__inttranslane__", node_key, bucket, str(device), x64_enabled())
     cached = stage_cache.get(cache_key) if stage_cache is not None else None
     if cached is not None:
         return cached
@@ -1470,10 +1542,12 @@ def dict_int_transform_lane(table, shape, bucket: int, stage_cache: Optional[dic
         return None
     vals_np = np.asarray(pc.fill_null(arr, 0)).astype(np.int64)
     tvalid = np.asarray(pc.is_valid(arr), dtype=bool)
-    live = vals_np[tvalid]
-    if live.size and (live.min() < _INT32_LO or live.max() > _INT32_HI):
-        return None
-    out = (_dict_gather(dc, vals_np.astype(np.int32)), _dict_gather(dc, tvalid))
+    if not x64_enabled():
+        live = vals_np[tvalid]
+        if live.size and (live.min() < _INT32_LO or live.max() > _INT32_HI):
+            return None
+        vals_np = vals_np.astype(np.int32)
+    out = (_dict_gather(dc, vals_np), _dict_gather(dc, tvalid))
     if stage_cache is not None:
         stage_cache[cache_key] = out
     return out
@@ -2068,9 +2142,10 @@ _PROJ_CACHE: Dict = {}
 
 def compile_projection(nodes, schema, input_names: Tuple[str, ...]):
     """Compile a list of NORMALIZED expression nodes to one function:
-    env dict -> list[(values, valid)]. Cached on (node keys, schema, inputs)."""
+    env dict -> list[(values, valid)]. Cached on (node keys, schema, inputs,
+    mode): the closures bake the mode's compute dtypes in."""
     key = (tuple(n._key() for n in nodes), tuple((f.name, f.dtype) for f in schema),
-           input_names)
+           input_names, x64_enabled())
     if key in _PROJ_CACHE:
         return _PROJ_CACHE[key]
     compiled = [_compile_node(n, schema) for n in nodes]
@@ -2087,12 +2162,13 @@ def stage_table_columns(table, names, bucket: int, stage_cache: Optional[dict], 
     """Stage the named columns of a host Table: returns (env, dcs) where env
     is {name: (values, valid)} and dcs the backing DeviceColumns (string
     dictionaries live there). Columns already on the device are reused from
-    ``stage_cache`` (the partition's residency cache). Returns None if any
-    column is ineligible."""
+    ``stage_cache`` (the partition's residency cache, keyed on the mode too).
+    Returns None if any column is ineligible."""
     env = {}
     dcs = {}
+    x64 = x64_enabled()
     for name in names:
-        ckey = (name, bucket, str(device))
+        ckey = (name, bucket, str(device), x64)
         dc = stage_cache.get(ckey) if stage_cache is not None else None
         if dc is None:
             s = table.get_column(name)
@@ -2101,7 +2177,7 @@ def stage_table_columns(table, names, bucket: int, stage_cache: Optional[dict], 
             try:
                 dc = stage_series(s, bucket, device)
             except ValueError:
-                return None  # an int64 column that does not fit int32
+                return None  # an int64 column past int32 (32-bit mode), a uint64 past 2**63
             if stage_cache is not None:
                 stage_cache[ckey] = dc
         env[name] = (dc.values, dc.valid)
@@ -2182,17 +2258,24 @@ _INT32_LO, _INT32_HI = -(2 ** 31), 2 ** 31 - 1
 
 
 def int64_wrap_safe(nodes, schema, env, stage_cache: Optional[dict], bucket: int) -> bool:
-    """int64- and uint64-typed arithmetic computes in int32 lanes and can
-    wrap silently (staging only range-checks the LEAF columns). Prove by
-    interval arithmetic over the staged data's actual min/max that no such
-    arithmetic node can leave the int32 range (for uint64, [0, 2**31)),
-    anything unproven declines to the host path. An int64 function counts as
-    arithmetic (``abs`` or ``-`` of -2**31 wraps in int32), and with no
-    bounds of its own it declines. The per-column ranges cost one reduction
-    + sync each, cached with the partition."""
+    """32-bit mode: int64- and uint64-typed arithmetic computes in int32
+    lanes and can wrap silently (staging only range-checks the LEAF
+    columns). Prove by interval arithmetic over the staged data's actual
+    min/max that no such arithmetic node can leave the int32 range (for
+    uint64, [0, 2**31)), anything unproven declines to the host path. An
+    int64 function counts as arithmetic (``abs`` or ``-`` of -2**31 wraps in
+    int32), and with no bounds of its own it declines. The per-column ranges
+    cost one reduction + sync each, cached with the partition.
+
+    64-bit mode: int64 computes at full width, as the reference's does, so
+    only uint64 arithmetic is checked: its int64 lanes keep the unsigned
+    order only below 2**63, so a node that could leave [0, 2**63) declines
+    (a wrapped result would compare, cast and divide as a negative)."""
     from ..expressions import Alias, BinaryOp, Column, Function, Literal
 
-    risky = (DataType.int64(), DataType.uint64())
+    x64 = x64_enabled()
+    risky = (DataType.uint64(),) if x64 else (DataType.int64(), DataType.uint64())
+    top = 2 ** 63 - 1 if x64 else _INT32_HI
     lanes_memo: dict = {}
 
     def rides_lanes(n):
@@ -2223,7 +2306,7 @@ def int64_wrap_safe(nodes, schema, env, stage_cache: Optional[dict], bucket: int
         return True
 
     def col_range(name):
-        key = ("__int_range__", name, bucket)
+        key = ("__int_range__", name, bucket, x64)
         r = stage_cache.get(key) if stage_cache is not None else None
         if r is None:
             if name not in env:
@@ -2289,7 +2372,7 @@ def int64_wrap_safe(nodes, schema, env, stage_cache: Optional[dict], bucket: int
                 # under checked arithmetic), never in the int32 lanes' way
                 lo = 0 if dt_ == DataType.uint64() else _INT32_LO
                 bd = bounds(n)
-                if bd is None or bd[0] < lo or bd[1] > _INT32_HI:
+                if bd is None or bd[0] < lo or bd[1] > top:
                     return False
         return all(safe(c) for c in n.children())
 
@@ -2393,8 +2476,8 @@ def eval_projection_device_async(table, exprs, stage_cache: Optional[dict] = Non
 
 # Up to this many segments the chunked one-hot compare-reduce applies;
 # beyond it, scatter: the deterministic scatter-sums kernel for float sums
-# (scatter_sums.py), index_add_ for counts and integer sums (exact in any
-# order) and scatter_reduce_ for min/max.
+# (scatter_sums.py, float32 or float64 by the mode), index_add_ for counts
+# and integer sums (exact in any order) and scatter_reduce_ for min/max.
 _ONEHOT_MAX_SEGMENTS = 4096
 _REDUCE_CHUNK = 8192
 
@@ -2413,7 +2496,9 @@ def segment_reduce(values, valid, codes, num_segments: int, kind: str):
     Up to _ONEHOT_MAX_SEGMENTS groups: a chunked one-hot compare-reduce with
     a Kahan-compensated cross-chunk combine for float sums. Beyond that,
     scatter ops (chunked and compensated for float sums). Eager torch
-    materializes each (rows, groups) one-hot compare in device memory."""
+    materializes each (rows, groups) one-hot compare in device memory.
+    Counts are int32 in the 32-bit mode and int64 in the 64-bit one; sums
+    accumulate in the dtype they are handed (the caller widens)."""
     if kind == "count":
         cnt = _segment_count(valid, codes, num_segments)
         return cnt, torch.ones(num_segments, dtype=torch.bool, device=codes.device)
@@ -2427,11 +2512,12 @@ def segment_reduce(values, valid, codes, num_segments: int, kind: str):
 
 
 def _segment_count(valid, codes, num_segments: int):
+    cdt = torch.int64 if x64_enabled() else torch.int32
     if num_segments <= _ONEHOT_MAX_SEGMENTS:
         sel = _onehot(valid, codes, num_segments)
-        return sel.sum(dim=1, dtype=torch.int32).sum(dim=0, dtype=torch.int32)
-    return torch.zeros(num_segments, dtype=torch.int32, device=codes.device).index_add_(
-        0, codes.long(), valid.to(torch.int32))
+        return sel.sum(dim=1, dtype=cdt).sum(dim=0, dtype=cdt)
+    return torch.zeros(num_segments, dtype=cdt, device=codes.device).index_add_(
+        0, codes.long(), valid.to(cdt))
 
 
 def _onehot(valid, codes, num_segments: int):
@@ -2532,13 +2618,36 @@ def _sortable_bits(values, valid, descending: bool, nulls_first: bool):
     return (sel << 32) | torch.where(valid, bits, 0)
 
 
+_SIGN64 = -(1 << 63)  # int64 with only the sign bit set
+
+
+def _sortable_halves(values):
+    """(hi, lo) int64 lanes, each holding 32 bits, of a 64-bit key (int64,
+    float64, an epoch, or the 64-bit mode's uint64 bits, all below 2**63),
+    computed on the card: the order-preserving 64-bit pattern of the
+    reference's uint64 lanes split into halves. Signed ints flip the sign
+    bit; floats canonicalize NaN to the positive quiet NaN (above +inf) and
+    -0.0 to +0.0, then negative patterns invert and positive ones flip the
+    sign bit."""
+    v = values
+    if v.is_floating_point():
+        f = torch.where(torch.isnan(v), torch.full_like(v, float("nan")), v)
+        f = torch.where(f == 0.0, torch.zeros_like(f), f)
+        b = f.view(torch.int64)
+        bits = torch.where(b < 0, ~b, b ^ _SIGN64)
+    else:
+        bits = v.to(torch.int64) ^ _SIGN64
+    return (bits >> 32) & _U32, bits & _U32
+
+
 def _stage_f64_sort_lanes(table, node, bucket: int, stage_cache: Optional[dict], device):
     """EXACT float64 sort key in the 32-bit mode: the order-preserving bit
     transform of the full 64-bit pattern, on the host (canonical NaN above
     +inf, -0.0 as +0.0), split into (hi, lo) 32-bit halves as int64 tensors,
     plus the validity lane. ``node`` may be any float64 expression: the host
     evaluates it once in exact float64. Cached with the partition under the
-    expression's key."""
+    expression's key. The 64-bit mode stages float64 as it is and splits it
+    on the card (``_sortable_halves``)."""
     node = _peel_alias(node)
     key = ("__f64lanes__", node._key(), bucket, str(device))
     cached = stage_cache.get(key) if stage_cache is not None else None
@@ -2572,12 +2681,14 @@ def device_table_argsort(table, sort_keys, descending=None, nulls_first=None,
     """Argsort indices of a Table computed on the card: the keys stage and
     compile like a projection, then one stable multi-key argsort over their
     lanes. Orders exactly as ``Table.argsort`` does, including the default
-    that nulls follow the direction. float64 keys sort on exact 64-bit lanes
-    made on the host (float32 would tie values the host orders), and epoch
-    keys (timestamp, duration, time, computed ones included) on their exact
-    epoch lanes. Returns np.ndarray[int64], or None when a key is ineligible
-    (anything the expression compiler declines); the caller then sorts on
-    the host."""
+    that nulls follow the direction. In the 32-bit mode float64 keys sort on
+    exact 64-bit lanes made on the host (float32 would tie values the host
+    orders), and epoch keys (timestamp, duration, time, computed ones
+    included) on their exact epoch lanes; in the 64-bit mode every key
+    stages and compiles like a projection, and ``device_argsort`` splits
+    the 64-bit ones on the card. Returns np.ndarray[int64], or None when a
+    key is ineligible (anything the expression compiler declines); the
+    caller then sorts on the host."""
     from ..datatypes import DataType
     from ..expressions import normalize_literals
     from ..table import _norm_flag
@@ -2590,11 +2701,13 @@ def device_table_argsort(table, sort_keys, descending=None, nulls_first=None,
     k = len(keys)
     desc = _norm_flag(descending, k, False)
     nf = _norm_flag(nulls_first, k, None)
-    lane_keys = {}  # key index -> "f64" or "epoch"
+    lane_keys = {}  # key index -> "f64" or "epoch" (32-bit mode)
     try:
         pre = [normalize_literals(e._node, table.schema) for e in keys]
         for i, nd in enumerate(pre):
             dt = nd.to_field(table.schema).dtype
+            if x64_enabled():
+                continue
             if dt == DataType.float64():
                 lane_keys[i] = "f64"
             elif dt.kind in _EPOCH_KINDS:
@@ -2629,14 +2742,17 @@ def device_argsort(key_cols: Sequence[Tuple], descending: Sequence[bool],
                    nulls_first: Sequence[bool], length: int):
     """Stable multi-key argsort on the card; padding rows (at and past
     ``length``) sort last. Each key is (values, valid), turned into lanes by
-    ``_sortable_bits``, or an exact (hi, lo, valid) lane triple of a 64-bit
-    key. torch sorts one key at a time, so the lanes sort by chained stable
-    argsorts, least significant lane first; the padding selector rides in
-    bit 34 of the first lane."""
+    ``_sortable_bits`` (a 32-bit key) or ``_sortable_halves`` (a 64-bit one),
+    or an exact (hi, lo, valid) lane triple made on the host. torch sorts
+    one key at a time, so the lanes sort by chained stable argsorts, least
+    significant lane first; the padding selector rides in bit 34 of the
+    first lane."""
     b = key_cols[0][0].shape[0]
     dev = key_cols[0][0].device
     lanes: List = []
     for entry, d, nf in zip(key_cols, descending, nulls_first):
+        if len(entry) == 2 and entry[0].dtype in (torch.int64, torch.float64):
+            entry = (*_sortable_halves(entry[0]), entry[1])
         if len(entry) == 3:
             hi, lo, m = entry
             if d:  # the bitwise not of the 64-bit pattern, half by half

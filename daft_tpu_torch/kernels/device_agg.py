@@ -17,6 +17,14 @@ are at most 4096 group slots. Integer sums narrow to int32 and are
 overflow-guarded: the program also returns max|v|, and the resolver declines
 (the host path recomputes) if n * max|v| could exceed int32.
 
+64-bit device mode (``device_x64``): float sums accumulate in float64
+through the masked segment reductions (the one-hot compare-reduce up to
+4096 groups, the float64 scatter-sums kernel above), integer sums in int64
+and counts in int64, with no overflow guard. K1 and K2 never launch in this
+mode, whatever ``use_segment_sums_kernel`` and ``use_deep_fusion_kernel``
+say: the reference's Pallas route requires x64 off, so its float64 sums
+and routing counters are the segment reductions'.
+
 Launch/resolve: ``device_grouped_agg_async`` stages, launches every kernel
 on the current stream and returns; the resolver fetches the results once.
 
@@ -45,6 +53,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..context import x64_enabled
 from ..datatypes import DataType
 from .device import (_ONEHOT_MAX_SEGMENTS, _np, _plain_string_column, compile_projection,
                      device_required_columns, int64_wrap_safe, lane_env, normalize_and_check,
@@ -202,7 +211,8 @@ def group_codes_cached(table, group_by, stage_cache: Optional[dict], n: int,
     degenerates to one group. An error on the card propagates."""
     from ..table import _group_codes
 
-    codes_key = ("groupcodes", tuple(e._node._key() for e in group_by), b, str(device))
+    codes_key = ("groupcodes", tuple(e._node._key() for e in group_by), b, str(device),
+                 x64_enabled())
     cached = stage_cache.get(codes_key) if stage_cache is not None else None
     if cached is None:
         if 1 <= len(group_by) <= 4:
@@ -382,11 +392,15 @@ def _compile_agg(child_nodes, pred_node, schema, input_names, kinds, modes, gb,
     float sum columns from the staged columns and epoch lanes itself, and
     torch computes only their validity for the counts.
     Otherwise torch derives and masks the columns and K1 sums them. A K2
-    build or launch failure raises: there is no fallback to K1."""
+    build or launch failure raises: there is no fallback to K1.
+
+    In the 64-bit mode neither kernel runs: sums accumulate at full width
+    through ``segment_reduce`` (cached apart from the 32-bit program)."""
+    x64 = x64_enabled()
     key = (tuple(n._key() for n in child_nodes),
            pred_node._key() if pred_node is not None else None,
            tuple((f.name, f.dtype) for f in schema), input_names, kinds, modes, gb,
-           use_kernel, use_deep)
+           x64, use_kernel, use_deep)
     if key in _AGG_CACHE:
         return _AGG_CACHE[key]
 
@@ -446,7 +460,7 @@ def _compile_agg(child_nodes, pred_node, schema, input_names, kinds, modes, gb,
             sel = pv & pm & inbounds  # invalid predicate rows filter out (SQL WHERE)
         else:
             sel = inbounds
-        kernel_ok = (use_kernel and b >= BLOCK_ROWS and b % BLOCK_ROWS == 0
+        kernel_ok = (use_kernel and not x64 and b >= BLOCK_ROWS and b % BLOCK_ROWS == 0
                      and gb <= _ONEHOT_MAX_SEGMENTS)
         deep = (kernel_ok and use_deep and deep_ok
                 and all(isinstance(v, tuple) and v[0].dim() == 1 for v in env.values()))
@@ -472,15 +486,19 @@ def _compile_agg(child_nodes, pred_node, schema, input_names, kinds, modes, gb,
                 outs.append(cnt)
                 continue
             if kind in ("sum", "mean"):
-                # accumulate in the widest same-class 32-bit dtype
-                acc = v.to(torch.float32) if v.is_floating_point() else v.to(torch.int32)
+                # accumulate in the widest same-class dtype of the mode (a
+                # uint64 lane holds its int64 bits: the sum wraps alike)
+                if v.is_floating_point():
+                    acc = v.to(torch.float64 if x64 else torch.float32)
+                else:
+                    acc = v.to(torch.int64 if x64 else torch.int32)
                 cnt, _ = segment_reduce(m, m, codes, gb, "count")
                 if kernel_ok and acc.is_floating_point():
                     fused_sums.append((len(outs), torch.where(m, acc, 0.0), cnt))
                     outs.append(None)  # filled from the kernel below
                     continue
                 vals, valid = segment_reduce(acc, m, codes, gb, "sum")
-                if acc.is_floating_point():
+                if acc.is_floating_point() or x64:
                     outs.append((vals, valid, cnt, torch.zeros((), device=codes.device)))
                 else:
                     # overflow guard operand: masked max|v| for the host check
@@ -514,7 +532,8 @@ def _compile_agg(child_nodes, pred_node, schema, input_names, kinds, modes, gb,
 
 def _finish_agg(kind, out, num_groups, expected_dt: DataType, n, dictionary=None):
     """Fetched partials -> host Series of the expected dtype, or None when the
-    int32 overflow guard fired and the host must recompute. ``dictionary``
+    int32 overflow guard fired and the host must recompute (only the 32-bit
+    mode's integer sums carry a nonzero guard operand). ``dictionary``
     decodes string min/max code results."""
     import pyarrow as pa
     import pyarrow.compute as pc

@@ -3,8 +3,8 @@ daft_tpu/kernels/device_join.py), as torch code.
 
 The build side is SORTED once and every probe row is a vectorized
 ``torch.searchsorted`` over the sorted build keys: no hash table. The probe
-keeps the reference's exact-int contract (int32 lanes in the 32-bit mode),
-so no hand-written kernel is needed. Null keys never match. The probe
+keeps the reference's exact-int contract (int32 lanes in the 32-bit mode,
+int64 lanes in the 64-bit one), so no hand-written kernel is needed. Null keys never match. The probe
 direction adapts:
 
 - build = RIGHT side (right keys unique): inner/left/semi/anti with the probe
@@ -24,7 +24,8 @@ the int probe applies unchanged. An int-valued transform (``length(s)``)
 joins as an int, never through the joint dictionary. Several keys pack
 into one surrogate lane by exact mixed-radix packing
 (``_pack_composite_keys``, also used by the grouped aggregation). A
-composite key space that overflows int32 declines to the host join. Left
+composite key space that overflows the mode's lane (int32, or int64 in the
+64-bit mode) declines to the host join. Left
 out of this slice: the mesh replicas of a broadcast build side
 (``replicate_join_key``, ``join_key_replicas``).
 """
@@ -64,7 +65,7 @@ def _stage_key(table, key_expr, cache, device) -> Optional[Tuple]:
         return None
     env, dcs = staged
     if not int64_wrap_safe([node], schema, env, cache, b):
-        return None  # a computed int64 key could wrap in int32 lanes
+        return None  # a computed int64 key could wrap in int32 lanes (32-bit mode)
     # an integer key may embed a string lane ((col("s") == "a").cast(int),
     # length(s), (upper(a) == b).if_else(1, 0)): its closure reads the
     # literal's code bounds, a lookup table, a transform lane or the pairwise
@@ -215,12 +216,14 @@ def _masked_min_max_multi(vs, ms):
     return both[0], both[1]
 
 
-def _pack_kernel(vs, ms, mins, strides):
-    """Mixed-radix composite-key packing into int32 lanes (the 32-bit mode)."""
-    packed = torch.zeros(vs[0].shape, dtype=torch.int32, device=vs[0].device)
+def _pack_kernel(vs, ms, mins, strides, wide: bool):
+    """Mixed-radix composite-key packing into int32 lanes, or int64 lanes
+    when ``wide`` (the 64-bit mode)."""
+    out_dt = torch.int64 if wide else torch.int32
+    packed = torch.zeros(vs[0].shape, dtype=out_dt, device=vs[0].device)
     valid = torch.ones(ms[0].shape, dtype=torch.bool, device=ms[0].device)
     for v, m, lo, st in zip(vs, ms, mins, strides):
-        packed = packed + (v.to(torch.int32) - int(lo)) * int(st)
+        packed = packed + (v.to(out_dt) - int(lo)) * int(st)
         valid = valid & m
     # clamp invalid lanes so padding garbage stays in range
     return torch.where(valid, packed, 0), valid
@@ -233,8 +236,11 @@ def _pack_composite_keys(sides):
     ``sides`` is a list of [(vals, valid), ...] per side, all with the same
     key count. Offsets and strides come from the min/max over every side, so
     equal keys pack identically. Returns [(packed, valid), ...] per side, or
-    None when the combined key space overflows int32. A row's composite key
-    is valid only if every component is."""
+    None when the combined key space overflows the mode's lane (int32, or
+    int64 in the 64-bit mode). A row's composite key is valid only if every
+    component is."""
+    from ..context import x64_enabled
+
     nkeys = len(sides[0])
     per_side = [_masked_min_max_multi(tuple(v for v, _ in side), tuple(m for _, m in side))
                 for side in sides]
@@ -247,7 +253,8 @@ def _pack_composite_keys(sides):
             lo, hi = 0, 0
         mins.append(lo)
         spans.append(hi - lo + 1)
-    if int(np.prod(spans, dtype=object)) > 2 ** 31 - 1:
+    wide = x64_enabled()
+    if int(np.prod(spans, dtype=object)) > (2 ** 63 - 1 if wide else 2 ** 31 - 1):
         return None
     strides = []
     acc = 1
@@ -256,7 +263,7 @@ def _pack_composite_keys(sides):
         acc *= s
     strides = tuple(reversed(strides))
     return [_pack_kernel(tuple(v for v, _ in side), tuple(m for _, m in side),
-                         mins, strides) for side in sides]
+                         mins, strides, wide) for side in sides]
 
 
 def _range_probe_kernel(build_vals, build_valid, probe_vals, probe_valid):
@@ -357,7 +364,8 @@ def device_join_launch(left_table, right_table, left_keys, right_keys,
 
     Returns None when ineligible: no key, unequal key counts, an empty side,
     a key that is neither an integer or date expression nor a string key,
-    unequal lane dtypes, or a composite key space that overflows int32."""
+    unequal lane dtypes, or a composite key space that overflows the mode's
+    lane."""
     if not isinstance(left_keys, (list, tuple)):
         left_keys = [left_keys]
     if not isinstance(right_keys, (list, tuple)):

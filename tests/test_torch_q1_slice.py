@@ -183,10 +183,14 @@ def test_config_maps_reference_knobs():
         {**d, "use_pallas_deep_fusion": True, "expr_fusion": False, "device_residency": False})
     assert (cfg.use_deep_fusion_kernel, cfg.expr_fusion, cfg.device_residency) == (
         True, False, False)
-    # knobs whose reference setting has no counterpart in the 32-bit port
-    for knob, value in (("jax_enable_x64", True), ("device_reduced_precision", False)):
-        with pytest.raises(NotImplementedError):
-            daft_tpu_torch.execution_config_from_dict({**d, knob: value})
+    # jax_enable_x64 maps onto the 64-bit device mode; full-width float64
+    # (device_reduced_precision off) has a counterpart only there
+    assert daft_tpu_torch.execution_config_from_dict({**d, "jax_enable_x64": True}).device_x64
+    cfg = daft_tpu_torch.execution_config_from_dict(
+        {**d, "jax_enable_x64": True, "device_reduced_precision": False})
+    assert cfg.device_x64
+    with pytest.raises(NotImplementedError):
+        daft_tpu_torch.execution_config_from_dict({**d, "device_reduced_precision": False})
 
 
 def test_default_cuda_raises_without_card():

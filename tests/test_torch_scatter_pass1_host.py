@@ -45,6 +45,11 @@ struct int4 {
 struct float4 {
   float x, y, z, w;
 };
+struct double2 {
+  double x, y;
+};
+inline float4 make_float4(float x, float y, float z, float w) { return float4{x, y, z, w}; }
+inline double2 make_double2(double x, double y) { return double2{x, y}; }
 thread_local dim3 threadIdx;
 dim3 blockIdx, blockDim;
 std::barrier<>* emu_barrier;
@@ -89,13 +94,14 @@ inline int __shfl_up_sync(unsigned, int v, unsigned d) {
 }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __ffs(unsigned x) { return __builtin_ffs(static_cast<int>(x)); }
-int4 smem4[(8192 * 16 + 16384) / 16];
+int4 smem4[(8192 * 24 + 16384) / 16];
 """
 
 _LAUNCHER = r"""
-extern "C" int emu_scatter(const float* vals, const int* codes, float* partials, float* out,
-                           long long b, int chunk, int g, int s_log2) {
-  if (pass1_smem_bytes(chunk) > sizeof(smem4) || chunk % 128 != 0) return 1;
+template <typename T>
+int emu_run(const T* vals, const int* codes, T* partials, T* out, long long b, int chunk, int g,
+            int s_log2) {
+  if (pass1_smem_bytes<T>(chunk) > sizeof(smem4) || chunk % 128 != 0) return 1;
   const int nch = static_cast<int>(b / chunk);
   blockDim = dim3(kPass1Threads);
   for (int x = 0; x < nch; ++x) {
@@ -128,15 +134,23 @@ extern "C" int emu_scatter(const float* vals, const int* codes, float* partials,
   }
   return 0;
 }
+extern "C" int emu_scatter(const float* vals, const int* codes, float* partials, float* out,
+                           long long b, int chunk, int g, int s_log2) {
+  return emu_run(vals, codes, partials, out, b, chunk, g, s_log2);
+}
+extern "C" int emu_scatter_f64(const double* vals, const int* codes, double* partials,
+                               double* out, long long b, int chunk, int g, int s_log2) {
+  return emu_run(vals, codes, partials, out, b, chunk, g, s_log2);
+}
 """
 
 
 def _kernel_source() -> str:
     """The .cu's two passes, without its include, its anonymous namespace
-    (so its ``extern __shared__`` array is the shim's) and its C launcher
+    (so its ``extern __shared__`` array is the shim's) and its host side
     (which needs nvcc's <<<>>>)."""
     src = (nvcc.CSRC / "segment_scatter_sums.cu").read_text()
-    body = src.split("#include <cuda_runtime.h>")[1].split('extern "C" {')[0]
+    body = src.split("#include <cuda_runtime.h>")[1].split("// host side")[0]
     return body.replace("namespace {", "").replace("}  // namespace", "")
 
 
@@ -154,20 +168,22 @@ def emulate(tmp_path_factory):
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     lib = ctypes.CDLL(str(so))
-    lib.emu_scatter.argtypes = ([ctypes.c_void_p] * 4
-                                + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int])
-    lib.emu_scatter.restype = ctypes.c_int
+    for fn in (lib.emu_scatter, lib.emu_scatter_f64):
+        fn.argtypes = ([ctypes.c_void_p] * 4
+                       + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int])
+        fn.restype = ctypes.c_int
 
-    def run(vals, codes, g, s_log2):
+    def run(vals, codes, g, s_log2, dtype=np.float32):
         b = len(vals)
         chunk = scatter_sums.chunk_rows(b)
-        vals = np.ascontiguousarray(vals, np.float32)
+        vals = np.ascontiguousarray(vals, dtype)
         codes = np.ascontiguousarray(codes, np.int32)
         # NaN in every slot: a slot pass 1 does not zero shows in the result
-        partials = np.full((b // chunk) * g, np.nan, np.float32)
-        out = np.zeros(g, np.float32)
-        assert lib.emu_scatter(vals.ctypes.data, codes.ctypes.data, partials.ctypes.data,
-                               out.ctypes.data, b, chunk, g, s_log2) == 0
+        partials = np.full((b // chunk) * g, np.nan, dtype)
+        out = np.zeros(g, dtype)
+        fn = lib.emu_scatter_f64 if dtype == np.float64 else lib.emu_scatter
+        assert fn(vals.ctypes.data, codes.ctypes.data, partials.ctypes.data, out.ctypes.data,
+                  b, chunk, g, s_log2) == 0
         return out
 
     return run
@@ -225,3 +241,34 @@ def test_pass1_run_on_host_equals_plain_version(case, emulate):
     # S changes who adds, not the order of the additions
     np.testing.assert_array_equal(_bits(emulate(vals, codes, g, 0 if s_log2 else 1)),
                                   _bits(want))
+
+
+def _operands64(b, g, kind, seed):
+    """The float32 cases' codes, with float64 values whose sums need every
+    bit of a double (each a float32 value plus a small odd fraction)."""
+    codes, vals = _operands(b, g, kind, seed)
+    rng = np.random.RandomState(seed + 1)
+    v64 = vals.astype(np.float64) + rng.rand(b) * 1e-9
+    v64[vals == 0] = vals[vals == 0]  # the +-0.0 rows stay as they are
+    return codes, v64
+
+
+@pytest.mark.parametrize("case", ["b4096_g100_s4_fewer_segments_than_owners",
+                                  "b16384_g20000_s1_random", "b16384_g4097_s4_sorted",
+                                  "b8192_g20000_s4_few_codes", "b2048_g4097_s4_out_of_range",
+                                  "b8192_g5000_s1_zero_rows"])
+def test_pass1_run_on_host_equals_plain_version_f64(case, emulate):
+    """The float64 instantiation of both passes (the 64-bit mode's sums)
+    against the plain version's float64 route, bit for bit."""
+    b, g, s_log2, kind = CASES[case]
+    codes, vals = _operands64(b, g, kind, seed=b + g + s_log2)
+    want = scatter_sums.scatter_sum_kahan_plain(torch.from_numpy(vals),
+                                                torch.from_numpy(codes), g).numpy()
+    assert want.dtype == np.float64
+    got = emulate(vals, codes, g, s_log2, np.float64)
+    np.testing.assert_array_equal(got.view(np.int64), want.view(np.int64))
+    if kind == "zero_rows":
+        assert (got.view(np.int64) == 0).all()
+    np.testing.assert_array_equal(
+        emulate(vals, codes, g, 0 if s_log2 else 1, np.float64).view(np.int64),
+        want.view(np.int64))
