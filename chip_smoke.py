@@ -80,7 +80,27 @@ Phases, each of which fails the run:
      share; the deep query's K2 program held against its plain version and
      the composed route bit for bit, and timed. The deep program is built in
      phase 1 beside the others (from a 6,000-row lineitem of the same
-     schema).
+     schema);
+  6. the 64-bit device mode (device_x64=True), see phase_x64;
+  7. the exchange between partitions on the card, in the 32-bit mode, over
+     each scale's generate_tables(scale, seed=42) right after phase 3's
+     joins, with lineitem, orders and customer cut into 4 partitions: a
+     grouped aggregate by l_suppkey (count, max, min) whose shuffle folds
+     its stage-1 pieces, and again with hierarchical_exchange_combine off
+     (more exchange_rows, equal rows); a sort on (l_shipdate desc,
+     l_orderkey, l_linenumber), range-shuffled and sorted per partition on
+     the card; TPC-H Q3 with broadcast_join_size_bytes_threshold=0, so both
+     joins co-partition by hash shuffles (8 probes on the card) with the
+     runtime join filter's Bloom probe on the card; repartition(4) then Q6;
+     and at SF1 the unsigned lanes (l_linenumber as uint8, l_quantity as
+     uint16, l_partkey as uint32: a wrapping projection, a filter, a sort, a
+     group by, float sums over wrapping uint arithmetic through K2, and a
+     uint32-key join in the 64-bit mode). Each against its
+     oracle (pyarrow, numpy's wrapping arithmetic, q3_parity) with its
+     routing and launches read around it, timed cold and warm with the
+     exchange's host share and the device's idle share. Phase 4's SF0.005
+     run in 3 partitions also holds each query's routing to
+     TPCH22_ROUTES_3P.
 
 The last line of standard output is {"ok": true, "device": {...}} when every
 phase passed; the exit code is 0 only then. The line before it is the card's
@@ -386,6 +406,52 @@ def q1_new_nodes(lineitem):
 
 DEEP_PLANS = {"q1": q1, "q6": q6, "q1_with_columns": q1_with_columns,
               "q1_new_nodes": q1_new_nodes}
+
+
+def unsigned_deep_table(lineitem):
+    """Unsigned columns from either lineitem generator: l_quantity as uint8
+    and as uint16, the floor of l_extendedprice as uint32, and
+    l_extendedprice itself."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    price = lineitem["l_extendedprice"]
+    return pa.table({"u8": lineitem["l_quantity"].cast(pa.uint8()),
+                     "u16": lineitem["l_quantity"].cast(pa.uint16()),
+                     "u32": pc.floor(price).cast(pa.uint32()), "p": price})
+
+
+def unsigned_deep(frame):
+    """A deep program over the unsigned lanes of ``unsigned_deep_table``: a
+    predicate and float sums over uint arithmetic that wraps at each width
+    (quantity**4 past 65535, price**2 past 2**32, quantity**2 past 255
+    under a subtraction)."""
+    from daft_tpu_torch import DataType, col
+
+    q4 = col("u16") * col("u16") * col("u16") * col("u16")
+    f64 = DataType.float64()
+    return (frame.where(q4 > 30000).groupby("u8")
+            .agg((col("u32") * col("u32")).cast(f64).sum().alias("sq"),
+                 q4.cast(DataType.float32()).sum().alias("q4"),
+                 (col("u8") - col("u8") * col("u8")).cast(f64).sum().alias("d8"),
+                 (col("u32") // 7 + col("u32") % 5).cast(f64).sum().alias("dm"),
+                 col("p").sum().alias("p"), col("p").count().alias("n")))
+
+
+def unsigned_deep_oracle(ut) -> dict:
+    """``unsigned_deep`` in numpy's wrapping uint arithmetic and float64
+    sums: {u8 key -> (sq, q4, d8, dm, p, n)}."""
+    import numpy as np
+
+    u8, u16, u32 = (ut[c].to_numpy() for c in ("u8", "u16", "u32"))
+    price = ut["p"].to_numpy()
+    q4 = u16 * u16 * u16 * u16
+    sel = q4 > 30000
+    keys = u8[sel]
+    cols = [(u32 * u32), q4, (u8 - u8 * u8), (u32 // 7 + u32 % 5), price]
+    sums = [np.bincount(keys, weights=c[sel].astype(np.float64), minlength=256) for c in cols]
+    n = np.bincount(keys, minlength=256)
+    return {int(k): tuple(float(s[k]) for s in sums) + (int(n[k]),) for k in np.unique(keys)}
 
 
 def edge_specs():
@@ -735,7 +801,15 @@ def phase_k2(ph: Phases, lineitem, edges: dict) -> dict:
     entry.update(shapes["q1"])
     entry["q6_shape"] = shapes["q6"]
     entry["q1_new_nodes_shape"] = shapes["q1_new_nodes"]
-    del frame
+    # the unsigned lanes (uint8, uint16 in int32, uint32 in int64), each
+    # masked to its width in the generated row function
+    prog, codes, env, n, g = capture_k2_operands(
+        dtt.from_arrow(unsigned_deep_table(lineitem)).collect(), unsigned_deep)
+    print(f"K2 unsigned operands: n={n} padded to {codes.shape[0]}, G={g}, K={prog.k}, columns "
+          + ", ".join(f"{nm} {env[nm][0].dtype}" for nm in prog.names), flush=True)
+    entry["unsigned_shape"] = check_k2(ph, f"unsigned lanes n={codes.shape[0]} G={g} "
+                                           f"K={prog.k}", prog, codes, env, n, g)
+    del frame, prog, codes, env
     torch.cuda.empty_cache()
 
     n_pad = 1 << 20
@@ -1180,12 +1254,13 @@ def phase_multi_partition(ph: Phases, lineitem, card: str, single: dict, profile
         # when its partials reach device_min_rows) sums its floats in one K1
         # launch; stage 2 over a few partial rows runs on the host
         stage2 = c.get("device_aggregations", 0) - nparts
+        # Q1: the partials' hash shuffle, then its sort's range shuffle
         ok = (k1 == nparts + stage2 and stage2 >= 0 and k2 == 0
-              and c.get("shuffles", 0) == (1 if name == "q1" else 0)
+              and c.get("shuffles", 0) == (2 if name == "q1" else 0)
               and c.get("device_agg_fallbacks", 0) == 0)
         ph.check(ok, f"{label}: {nparts} stage-1 aggregations and {stage2} stage-2 ones on "
                      f"the card through K1 (launches {k1}), "
-                     f"{'one shuffle' if name == 'q1' else 'a gather'} (counters {c})")
+                     f"{'two shuffles' if name == 'q1' else 'a gather'} (counters {c})")
         res = {"parts": nparts, "cold_s": cold, "k1_launches": k1,
                "stage2_device_aggregations": stage2,
                "counters": {k: c.get(k, 0) for k in (
@@ -1386,7 +1461,8 @@ def phase_joins(ph: Phases, scale: float, card: str, profile: bool,
     kept from the cold run; each kernel is then held against its plain
     version bit for bit at those operands, and the scatter kernel is timed
     there. With ``keep_tables`` the host tables come back as
-    ``out["tables"]`` (phase 6 runs Q3 and Q5 over them)."""
+    ``out["tables"]`` (phases 6 and 7 run Q3 over them) and Q3's oracle as
+    ``out["q3_oracle"]``."""
     import torch
 
     import daft_tpu_torch as dtt
@@ -1477,6 +1553,7 @@ def phase_joins(ph: Phases, scale: float, card: str, profile: bool,
                         "max_abs_err": check_k1(ph, name, codes, mask, vals, g)}
     if keep_tables:
         out["tables"] = tables
+        out["q3_oracle"] = (want["q3"], groups3)  # phase 7 runs Q3 over them again
     del frames, tables, captured
     torch.cuda.empty_cache()
     return out
@@ -1507,6 +1584,35 @@ TPCH22_AGG_ROUTES = {1: (1, 0), 2: (1, 0), 3: (1, 0), 4: (1, 0), 5: (1, 0), 6: (
                      7: (1, 0), 8: (1, 0), 9: (1, 0), 10: (1, 0), 11: (1, 0), 12: (1, 0),
                      13: (2, 0), 14: (1, 0), 15: (1, 0), 16: (0, 1), 17: (1, 1), 18: (2, 0),
                      19: (1, 0), 20: (1, 0), 21: (1, 2), 22: (0, 1)}
+# the routing of each query at SF0.005 with the four large tables in 3
+# partitions (device_min_rows=8): tests/test_torch_tpch22_partitions.py holds
+# the port's counters to these and to the reference's, and phase 4 the card's
+_ROUTES_3P = ("device_aggregations", "host_aggregations", "device_sorts", "host_sorts",
+              "device_join_probes", "host_joins", "shuffles")
+TPCH22_ROUTES_3P = {
+    1: dict(zip(_ROUTES_3P, (4, 2, 0, 3, 0, 0, 2))),
+    2: dict(zip(_ROUTES_3P, (1, 0, 0, 1, 6, 2, 0))),
+    3: dict(zip(_ROUTES_3P, (6, 0, 1, 0, 6, 0, 2))),
+    4: dict(zip(_ROUTES_3P, (3, 3, 0, 3, 3, 0, 2))),
+    5: dict(zip(_ROUTES_3P, (3, 3, 0, 3, 15, 0, 2))),
+    6: dict(zip(_ROUTES_3P, (3, 1, 0, 0, 0, 0, 0))),
+    7: dict(zip(_ROUTES_3P, (3, 3, 0, 3, 15, 0, 2))),
+    8: dict(zip(_ROUTES_3P, (1, 5, 0, 3, 19, 2, 2))),
+    9: dict(zip(_ROUTES_3P, (6, 0, 3, 0, 15, 0, 2))),
+    10: dict(zip(_ROUTES_3P, (6, 0, 1, 0, 9, 0, 2))),
+    11: dict(zip(_ROUTES_3P, (6, 0, 3, 0, 6, 0, 2))),
+    12: dict(zip(_ROUTES_3P, (3, 3, 0, 3, 3, 0, 2))),
+    13: dict(zip(_ROUTES_3P, (9, 3, 0, 3, 3, 0, 3))),
+    14: dict(zip(_ROUTES_3P, (3, 1, 0, 0, 3, 0, 0))),
+    15: dict(zip(_ROUTES_3P, (6, 0, 0, 3, 1, 2, 2))),
+    16: dict(zip(_ROUTES_3P, (0, 3, 3, 0, 6, 0, 2))),
+    17: dict(zip(_ROUTES_3P, (6, 1, 0, 0, 0, 6, 1))),
+    18: dict(zip(_ROUTES_3P, (10, 2, 0, 3, 9, 0, 3))),
+    19: dict(zip(_ROUTES_3P, (3, 1, 0, 0, 3, 0, 0))),
+    20: dict(zip(_ROUTES_3P, (6, 0, 0, 3, 8, 4, 4))),
+    21: dict(zip(_ROUTES_3P, (1, 11, 0, 3, 13, 2, 4))),
+    22: dict(zip(_ROUTES_3P, (0, 6, 0, 3, 3, 0, 2))),
+}
 # the same routes in the 64-bit device mode (device_x64=True): phase 6 holds
 # the card to them, tests/test_torch_tpch22_x64.py the port and the reference
 # at SF0.005
@@ -1607,7 +1713,8 @@ def phase_tpch22(ph: Phases, queries, data: dict, card: str, profile: bool) -> d
     configuration of tests/device32/test_tpch_suite32.py). At SF0.005 (seed
     7), with the four large tables cut into 3 partitions by into_partitions
     (that file's layout), each against the SQLite oracle under that file's
-    rule. At SF1 (seed 7), one partition per table: each driven once
+    rule, with its sorts, joins and aggregates exchanged and routed as
+    TPCH22_ROUTES_3P says (the CPU tests hold the port to it). At SF1 (seed 7), one partition per table: each driven once
     cold with K1's, K2's and the scatter kernel's launch counts set to 0
     just before and read just after, timed warm (median of 3), held to the
     port's host path on the same tables (use_device_kernels=False,
@@ -1633,12 +1740,18 @@ def phase_tpch22(ph: Phases, queries, data: dict, card: str, profile: bool) -> d
         frames = tpch22_frames(small, 3)
         for qn in sorted(queries.QUERIES):
             t0 = time.perf_counter()
-            got = tpch22_rows(zip(*queries.QUERIES[qn](frames).to_pydict().values()))
+            df = queries.QUERIES[qn](frames).collect()
+            got = tpch22_rows(zip(*df.to_pydict().values()))
             secs = time.perf_counter() - t0
             want = tpch22_rows(conn.execute(queries.SQL[qn]).fetchall())
             ph.check(tpch22_match(got, want),
                      f"SF0.005 Q{qn} (3 partitions): {len(got)} rows match the SQLite oracle "
                      f"({secs:.2f}s on the card)")
+            c = df.stats.snapshot()["counters"]
+            routes = {k: c.get(k, 0) for k in TPCH22_ROUTES_3P[qn]}
+            ph.check(routes == TPCH22_ROUTES_3P[qn],
+                     f"SF0.005 Q{qn} (3 partitions): routing {routes}, as the CPU tests route "
+                     f"it (TPCH22_ROUTES_3P)")
     finally:
         conn.close()
     del small, frames
@@ -2189,6 +2302,402 @@ def phase_x64(ph: Phases, lineitem, tables: dict, queries, data: dict, host_rows
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the exchange between partitions on the card
+# ---------------------------------------------------------------------------
+
+EXCHANGE_PARTS = 4
+# the counters every phase-7 line reports
+EXCHANGE_COUNTERS = ("device_aggregations", "host_aggregations", "device_agg_fallbacks",
+                     "device_sorts", "host_sorts", "device_join_probes", "host_joins",
+                     "device_group_codes", "device_filters", "host_filters",
+                     "device_projections", "host_projections", "shuffles", "exchange_rows",
+                     "exchange_bytes", "exchange_precombined_rows", "join_filter_built",
+                     "join_filter_probe_rows", "join_filter_rows_pruned",
+                     "join_filter_device_probes")
+
+
+class ExchangeClock:
+    """Host nanoseconds spent inside ShuffleOp.execute's own work (the
+    split, the fold, the prune with its Bloom probe on the card, the bucket
+    concat), not counting the pulls from its input: installed for the
+    phase, read per query."""
+
+    def __init__(self):
+        from daft_tpu_torch import physical
+
+        self.ns = 0
+        self._physical = physical
+        self._real = physical.ShuffleOp.execute
+        clock, real = self, self._real
+
+        def execute(op, inputs, ctx):
+            upstream = [0]
+
+            def timed(stream):
+                it = iter(stream)
+                while True:
+                    t0 = time.perf_counter_ns()
+                    p = next(it, None)
+                    upstream[0] += time.perf_counter_ns() - t0
+                    if p is None:
+                        return
+                    yield p
+
+            gen = real(op, [timed(inputs[0])], ctx)
+            while True:
+                t0, up0 = time.perf_counter_ns(), upstream[0]
+                p = next(gen, None)
+                clock.ns += time.perf_counter_ns() - t0 - (upstream[0] - up0)
+                if p is None:
+                    return
+                yield p
+
+        physical.ShuffleOp.execute = execute
+
+    def close(self) -> None:
+        self._physical.ShuffleOp.execute = self._real
+
+
+def _exchange_agg_items(li) -> dict:
+    """Phase 7's item 1: the grouped aggregate by l_suppkey whose stage-2
+    shuffle folds the stage-1 pieces (exact kinds), and the same query with
+    the fold off, against pyarrow."""
+    from daft_tpu_torch import col
+
+    g = li.group_by("l_suppkey").aggregate([("l_orderkey", "count"), ("l_extendedprice", "max"),
+                                            ("l_shipdate", "min")])
+    want1 = {k: (c, m, d) for k, c, m, d in zip(*[g[x].to_pylist() for x in (
+        "l_suppkey", "l_orderkey_count", "l_extendedprice_max", "l_shipdate_min")])}
+
+    def agg_check(got):
+        d = got.to_pydict()
+        rows = dict(zip(d["l_suppkey"], zip(d["n"], d["hi"], d["first"])))
+        ok = len(rows) == len(want1) == got.num_rows and all(
+            k in rows and rows[k][0] == c and rows[k][2] == dd
+            and abs(rows[k][1] - m) <= RTOL * abs(m) for k, (c, m, dd) in want1.items())
+        return ok, f"{got.num_rows} groups against pyarrow's {len(want1)}"
+
+    def agg(frames):
+        return frames["lineitem"].groupby("l_suppkey").agg(
+            col("l_orderkey").count().alias("n"), col("l_extendedprice").max().alias("hi"),
+            col("l_shipdate").min().alias("first"))
+
+    routes = {"shuffles": 1, "device_agg_fallbacks": 0}
+    return {"grouped_agg_combine": (agg, {}, agg_check, routes),
+            "grouped_agg_no_combine": (agg, {"hierarchical_exchange_combine": False},
+                                       agg_check, routes)}
+
+
+def exchange_items(tables: dict, scale: float, q3_oracle: tuple) -> tuple:
+    """Phase 7's queries over generate_tables(scale, seed=42): ({name ->
+    (build(frames) -> DataFrame, the config's overrides, the oracle's check
+    (got pyarrow table) -> (ok, detail), the routing each must show)}, the
+    extra tables they read). ``q3_oracle`` is phase 3's (oracle_q3,
+    oracle_q3_groups) over the same tables."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    from benchmarks import tpch
+    from daft_tpu_torch import col
+
+    li = tables["lineitem"]
+    n = li.num_rows
+    p = EXCHANGE_PARTS
+    # 1. the grouped aggregate (SF1 only, as items 4 and 5)
+    items = _exchange_agg_items(li) if scale == 1.0 else {}
+
+    # 2. the sort over 4 partitions: range shuffle, one device sort each.
+    # Rows with equal keys share a range partition and keep their input
+    # order there, and each partition's sort is stable, so the result is
+    # pyarrow's stable sort of the whole table, row for row: the same key
+    # order and the same multiset of rows
+    keys = ["l_shipdate", "l_orderkey", "l_linenumber"]
+    want2 = li.take(pc.sort_indices(li, sort_keys=[("l_shipdate", "descending"),
+                                                   ("l_orderkey", "ascending"),
+                                                   ("l_linenumber", "ascending")]))
+    # the port's strings are large_string, its canonical string storage
+    want2 = want2.cast(pa.schema([pa.field(f.name, pa.large_string()) if f.type == pa.string()
+                                  else f for f in want2.schema]))
+
+    def sort_check(got):
+        same_keys = got.select(keys).equals(want2.select(keys))
+        same_rows = got.num_rows == n and got.equals(want2)
+        return same_keys and same_rows, (f"key order equal {same_keys}, the {n} rows equal "
+                                         f"pyarrow's stable sort {same_rows}")
+
+    items["sort"] = (lambda frames: frames["lineitem"].sort(keys, desc=[True, False, False]),
+                     {}, sort_check, {"device_sorts": p, "host_sorts": 0, "shuffles": 1})
+
+    # 3. Q3 over co-partitioned hash joins with the runtime join filter
+    want3, groups3 = q3_oracle
+    items["q3_hash_joins"] = (
+        lambda frames: q3(frames["customer"], frames["orders"], frames["lineitem"]),
+        {"broadcast_join_size_bytes_threshold": 0},
+        lambda got: (q3_parity(got.to_pydict(), want3, groups3, RTOL), "q3_parity at rtol 1e-6"),
+        {"device_join_probes": 2 * p, "host_joins": 0, "broadcast_joins": 0,
+         "device_agg_fallbacks": 0})
+
+    if scale != 1.0:
+        return items, {}
+    # 4. a random repartition, then Q6
+    want6 = {"revenue": [tpch.oracle_q6(li)]}
+    items["random_repartition_q6"] = (
+        lambda frames: q6(frames["lineitem_1"].repartition(p)), {},
+        lambda got: (parity(got.to_pydict(), want6, RTOL), "the pyarrow oracle at rtol 1e-6"),
+        {"shuffles": 1, "device_agg_fallbacks": 0})
+
+    # 5. unsigned lanes (one partition): numpy's wrapping arithmetic, pyarrow
+    u = pa.table({"u8": li["l_linenumber"].cast(pa.uint8()),
+                  "u16": li["l_quantity"].cast(pa.uint16()),
+                  "u32": li["l_partkey"].cast(pa.uint32()),
+                  "k": li["l_orderkey"]})
+    u8 = u["u8"].to_numpy()
+    u32 = u["u32"].to_numpy()
+    want_proj = {"a": (u8 + u8).astype(np.uint8), "m": (u32 * u32).astype(np.uint32)}
+
+    def proj_check(got):
+        ok = all(np.array_equal(got[k].to_numpy(), v) for k, v in want_proj.items())
+        return ok, "u8 + u8 and u32 * u32 equal numpy's wrapping arithmetic"
+
+    def table_check(want):
+        return lambda got: (got.equals(want), f"{got.num_rows} rows equal pyarrow's, in order")
+
+    want_filter = u.filter(pc.greater(u["u16"], 25))
+    want_sort = u.take(pc.sort_indices(u, sort_keys=[("u32", "ascending"),
+                                                     ("k", "ascending")]))
+    gu = u.group_by("u8").aggregate([("k", "count"), ("u16", "min")])
+    want_group = {a: (b, c) for a, b, c in zip(*[gu[x].to_pylist()
+                                                 for x in ("u8", "k_count", "u16_min")])}
+
+    def group_check(got):
+        d = got.to_pydict()
+        rows = dict(zip(d["u8"], zip(d["n"], d["lo"])))
+        return rows == want_group, f"{len(rows)} groups equal pyarrow's"
+
+    pick = np.unique(u32)[::20]
+    right = pa.table({"pk": pa.array(pick, pa.uint32()), "w": np.arange(len(pick))})
+    j = u.join(right, keys="u32", right_keys="pk", join_type="inner")
+    want_join = (j.num_rows, pc.sum(j["w"]).as_py(), pc.sum(j["k"]).as_py())
+
+    def join_check(got):
+        have = (got.num_rows, pc.sum(got["w"]).as_py(), pc.sum(got["k"]).as_py())
+        return have == want_join, f"(rows, sum w, sum k) {have} against pyarrow's {want_join}"
+
+    items["unsigned_projection"] = (
+        lambda frames: frames["unsigned"].select((col("u8") + col("u8")).alias("a"),
+                                                 (col("u32") * col("u32")).alias("m")),
+        {}, proj_check, {"device_projections": 1, "host_projections": 0})
+    items["unsigned_filter"] = (lambda frames: frames["unsigned"].where(col("u16") > 25), {},
+                                table_check(want_filter), {"device_filters": 1, "host_filters": 0})
+    items["unsigned_sort"] = (lambda frames: frames["unsigned"].sort(["u32", "k"]), {},
+                              table_check(want_sort), {"device_sorts": 1, "host_sorts": 0})
+    items["unsigned_group"] = (
+        lambda frames: frames["unsigned"].groupby("u8").agg(col("k").count().alias("n"),
+                                                           col("u16").min().alias("lo")),
+        {}, group_check, {"device_aggregations": 1, "host_aggregations": 0,
+                          "device_group_codes": 1})
+    ud = unsigned_deep_table(li)
+    want_deep = unsigned_deep_oracle(ud)
+
+    def deep_check(got):
+        d = got.to_pydict()
+        names = ("sq", "q4", "d8", "dm", "p")
+        rows = {k: tuple(d[c][i] for c in names) + (d["n"][i],) for i, k in enumerate(d["u8"])}
+        ok = rows.keys() == want_deep.keys() and all(
+            rows[k][-1] == w[-1] and all(abs(a - b) <= RTOL * abs(b) for a, b in zip(rows[k], w))
+            for k, w in want_deep.items())
+        return ok, (f"{len(rows)} groups, float sums over wrapped uint values against numpy's at "
+                    f"rtol 1e-6, counts exact")
+
+    items["unsigned_deep_sums"] = (
+        lambda frames: unsigned_deep(frames["unsigned_deep"]), {"use_deep_fusion_kernel": True},
+        deep_check, {"device_aggregations": 1, "host_aggregations": 0,
+                     "device_agg_fallbacks": 0})
+    items["unsigned_join_x64"] = (
+        lambda frames: frames["unsigned"].join(frames["unsigned_right"], left_on="u32",
+                                               right_on="pk"),
+        {"device_x64": True}, join_check, {"device_join_probes": 1, "host_joins": 0})
+    return items, {"unsigned": u, "unsigned_right": right, "unsigned_deep": ud}
+
+
+def k10_probe_times(ph: Phases, label: str, seen: list) -> list:
+    """Each Bloom probe the engine made on the card in one query, again:
+    K10 (``probe_bits_device``: the probe indices to the card, the gather
+    and min there, the mask back) against the host's numpy probe over the
+    same indices, equal masks, each the median wall time of 5 calls."""
+    import numpy as np
+
+    from daft_tpu_torch.exchange.joinfilter import probe_bits_device
+
+    def median_ms(fn):
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    out = []
+    for bits, idx in seen:
+        table = bits.cpu().numpy().astype(bool)
+
+        def host(table=table, idx=idx):
+            hit = table[idx[0]]
+            for row in idx[1:]:
+                hit &= table[row]
+            return hit
+
+        same = np.array_equal(probe_bits_device(bits, idx), host())
+        ph.check(same, f"{label}: K10 over {idx.shape[1]} rows equals the host's Bloom probe")
+        out.append({"rows": int(idx.shape[1]), "bits": int(bits.numel()),
+                    "device_ms": median_ms(lambda: probe_bits_device(bits, idx)),
+                    "host_ms": median_ms(host)})
+    return out
+
+
+def phase_exchange(ph: Phases, scale: float, tables: dict, q3_oracle: tuple,
+                   card: str) -> dict:
+    """Phase 7: the exchange between partitions on the card, in the 32-bit
+    device mode (the default config), over generate_tables(scale, seed=42)
+    with lineitem, orders and customer cut into 4 partitions
+    (into_partitions): a sort over the 4 partitions and TPC-H Q3 through
+    co-partitioned hash joins with the runtime join filter (K10 on the
+    card) at every scale; at SF1 also a grouped aggregate whose shuffle
+    folds its stage-1 pieces (and again with the fold off), a random
+    repartition then Q6, and the unsigned lanes (one partition; the uint32
+    join in the 64-bit mode).
+    Each query is driven once cold with K1's, K2's and the scatter kernel's
+    launches set to 0 just before and read just after, checked against its
+    oracle and its routing, then timed warm outside the profiler (3 runs at
+    SF1, 1 at SF10), each run with the exchange's host share of its own
+    wall (the median share is reported), then once under torch.profiler
+    for the device's idle share. In Q3 each Bloom probe the engine made on
+    the card is timed again against the host's numpy probe of the same
+    indices (``k10_probe_times``)."""
+    import torch
+
+    import daft_tpu_torch as dtt
+    from daft_tpu_torch.kernels import fused_expr_sums as fes
+    from daft_tpu_torch.kernels import scatter_sums as scs
+    from daft_tpu_torch.kernels import segment_sums as ss
+
+    from daft_tpu_torch.exchange import joinfilter as jfm
+
+    real_probe = jfm.probe_bits_device
+    t0 = time.perf_counter()
+    items, extra = exchange_items(tables, scale, q3_oracle)
+    tables = {**tables, **extra}
+    print(f"SF{scale:g} exchange: oracles in {time.perf_counter() - t0:.1f}s", flush=True)
+    clock = ExchangeClock()
+    out = {"k1_launches": 0, "k2_launches": 0, "scatter_launches": 0}
+    try:
+        for name, (build, overrides, check, routes) in items.items():
+            dtt.set_execution_config(dtt.ExecutionConfig(**overrides))
+            frames = {}
+            for k, v in tables.items():
+                df = dtt.from_arrow(v)
+                if k in ("lineitem", "orders", "customer"):
+                    df = df.into_partitions(EXCHANGE_PARTS)
+                frames[k] = df.collect()
+            frames["lineitem_1"] = dtt.from_arrow(tables["lineitem"]).collect()
+
+            def run(build=build, frames=frames):
+                return build(frames).collect()
+
+            k10_seen = []  # the (bit table, probe indices) of each Bloom probe on the card
+            if name == "q3_hash_joins":
+                def record(bits, idx, seen=k10_seen):
+                    seen.append((bits, idx))
+                    return real_probe(bits, idx)
+
+                jfm.probe_bits_device = record
+            ss.LAUNCHES = fes.LAUNCHES = scs.LAUNCHES = 0
+            clock.ns = 0
+            t0 = time.perf_counter()
+            try:
+                df = run()
+                got = df.to_arrow()
+                torch.cuda.synchronize()
+            finally:
+                jfm.probe_bits_device = real_probe
+            cold = time.perf_counter() - t0
+            cold_exchange = clock.ns / 1e9
+            launches = {"k1": ss.LAUNCHES, "k2": fes.LAUNCHES, "scatter": scs.LAUNCHES}
+            c = df.stats.snapshot()["counters"]
+            label = f"SF{scale:g} exchange {name}"
+            ok, detail = check(got)
+            ph.check(ok, f"{label}: matches its oracle ({detail})")
+            seen = {k: c.get(k, 0) for k in routes}
+            ph.check(seen == routes, f"{label}: routing {seen} (want {routes})")
+            sizes = [len(p) for p in df._result.partitions]
+            if name == "sort":
+                ph.check(max(sizes) <= got.num_rows // 2,
+                         f"{label}: no output partition holds more than half the rows {sizes}")
+            if name == "grouped_agg_combine":
+                ph.check(c.get("exchange_precombined_rows", 0) > 0,
+                         f"{label}: the shuffle folded {c.get('exchange_precombined_rows', 0)} "
+                         f"stage-1 rows")
+            if name == "grouped_agg_no_combine":
+                on = out["grouped_agg_combine"]["counters"]["exchange_rows"]
+                ph.check(on < c.get("exchange_rows", 0) and got.equals(out["_agg_rows"]),
+                         f"{label}: exchange_rows {c.get('exchange_rows', 0)} with the fold off "
+                         f"against {on} with it on, equal rows")
+            if name == "q3_hash_joins":
+                ph.check(c.get("join_filter_rows_pruned", 0) > 0
+                         and c.get("join_filter_device_probes", 0) > 0,
+                         f"{label}: the join filter pruned {c.get('join_filter_rows_pruned', 0)} "
+                         f"rows, {c.get('join_filter_device_probes', 0)} Bloom probes on the card")
+                ph.check(launches["k1"] + launches["scatter"] >= 1,
+                         f"{label}: float sums through K1 or the scatter kernel ({launches})")
+                k10 = k10_probe_times(ph, label, k10_seen)
+            del k10_seen
+            if name == "unsigned_deep_sums":
+                ph.check(launches["k2"] >= 1 and launches["k1"] == 0,
+                         f"{label}: the float sums through K2 ({launches})")
+            if name == "random_repartition_q6":
+                one = q6(frames["lineitem_1"]).collect().to_pydict()
+                ph.check(parity(got.to_pydict(), one, RTOL) and launches["k1"] >= 1,
+                         f"{label}: equals the one-partition Q6 at rtol 1e-6, K1 launched "
+                         f"({launches})")
+            for k in ("k1", "k2", "scatter"):
+                out[f"{k}_launches"] += launches[k]
+            # warm runs outside the profiler, each with its own exchange
+            # share; then one run under torch.profiler for the idle share
+            walls, shares, exchange_s = [], [], []
+            for _ in range(3 if scale == 1.0 else 1):
+                clock.ns = 0
+                t0 = time.perf_counter()
+                run().to_arrow()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                exchange_s.append(clock.ns / 1e9)
+                shares.append(exchange_s[-1] / walls[-1])
+            prof = device_profile(lambda run=run: run().to_arrow(), reps=1)[0]
+            res = {"cold_s": cold, "cold_exchange_s": cold_exchange,
+                   "cold_exchange_share": cold_exchange / cold,
+                   "warm_median_s": statistics.median(walls), "warm_runs": walls,
+                   "warm_exchange_s": exchange_s, "warm_exchange_shares": shares,
+                   "warm_exchange_share": statistics.median(shares),
+                   "profiled_wall_ms": prof.pop("wall_ms"), **prof,
+                   "launches": launches, "partition_rows": sizes,
+                   "counters": {k: c.get(k, 0) for k in EXCHANGE_COUNTERS if c.get(k, 0)},
+                   "plan": physical_plan(build(frames)), "card": card}
+            if name == "q3_hash_joins":
+                res["k10_probes"] = k10
+            out[name] = res
+            if name == "grouped_agg_combine":
+                out["_agg_rows"] = got
+            print(f"SF{scale:g} exchange {name} " + json.dumps(res), flush=True)
+            del df, got, frames, run
+            torch.cuda.empty_cache()
+    finally:
+        clock.close()
+    out.pop("_agg_rows", None)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scales", default="1,10",
@@ -2232,6 +2741,7 @@ def main(argv=None) -> int:
         print(f"SF1: {tables[1.0].num_rows} rows generated in {time.perf_counter() - t0:.1f}s",
               flush=True)
         k2_entry = phase_k2(ph, tables[1.0], edges)
+        exchange = {}  # phase 7's results by scale
         # until phase 3 counts them
         k1_entry["launches"] = k2_entry["launches"] = sc_entry["launches"] = None
         for i, scale in enumerate(scales):
@@ -2240,16 +2750,23 @@ def main(argv=None) -> int:
                 tables = {scale: tpch.generate_lineitem_only(scale=scale, seed=42)}
                 print(f"SF{scale:g}: {tables[scale].num_rows} rows generated in "
                       f"{time.perf_counter() - t0:.1f}s", flush=True)
+            print(f"elapsed {time.perf_counter() - started:.1f}s: phase 3 at SF{scale:g}",
+                  flush=True)
             res = phase_main_path(ph, scale, tables[scale], card, args.profile and i == 0)
             if scale == 1.0:  # the two-stage aggregate over 4 partitions
                 res["k1_launches"] += phase_multi_partition(
                     ph, tables[scale], card, res, args.profile and i == 0)["k1_launches"]
                 phase_single_ops(ph, tables[scale], card)
             tables = {}  # the join tables of this scale take the memory next
-            joins = phase_joins(ph, scale, card, args.profile and i == 0,
-                                keep_tables=scale == 1.0)
+            joins = phase_joins(ph, scale, card, args.profile and i == 0, keep_tables=True)
+            xtables = joins.pop("tables")
+            # phase 7 over the same tables, at every scale
+            print(f"elapsed {time.perf_counter() - started:.1f}s: phase 7 at SF{scale:g}",
+                  flush=True)
+            exchange[scale] = phase_exchange(ph, scale, xtables, joins.pop("q3_oracle"), card)
             if scale == 1.0:
-                join_tables = joins.pop("tables")
+                join_tables = xtables
+            del xtables
             if i == 0:
                 k1_entry["launches"] = res["k1_launches"] + joins["q5"]["launches"]["k1"]
                 k2_entry["launches"] = res["k2_launches"]
@@ -2266,8 +2783,11 @@ def main(argv=None) -> int:
             print(f"SF1: 22-query tables ready {time.perf_counter() - big.started:.1f}s after "
                   f"the generator started (waited {time.perf_counter() - t0:.1f}s; "
                   + ", ".join(f"{k} {v.num_rows}" for k, v in data.items()) + ")", flush=True)
+            print(f"elapsed {time.perf_counter() - started:.1f}s: phase 4", flush=True)
             t22 = phase_tpch22(ph, queries, data, card, args.profile)
+            print(f"elapsed {time.perf_counter() - started:.1f}s: phase 5", flush=True)
             lanes = phase_lanes(ph, data, card)
+            print(f"elapsed {time.perf_counter() - started:.1f}s: phase 6", flush=True)
             if 1.0 in scales:  # phase 6, the 64-bit device mode
                 scatter32 = {qn: t22[f"q{qn}"]["launches"]["scatter"] for qn in queries.QUERIES}
                 x64 = phase_x64(ph, sf1_lineitem, join_tables, queries, data,
@@ -2278,7 +2798,9 @@ def main(argv=None) -> int:
                 k2_entry["launches_x64"] = x64["k2_launches"]
                 del join_tables
             del data, sf1_lineitem
-            for name, ph_out in (("tpch22", t22), ("lanes", lanes)):
+            phase_outs = [("tpch22", t22), ("lanes", lanes)] + [
+                (f"exchange_sf{sc:g}", ex) for sc, ex in exchange.items()]
+            for name, ph_out in phase_outs:
                 k1_entry[f"launches_{name}"] = ph_out["k1_launches"]
                 k2_entry[f"launches_{name}"] = ph_out["k2_launches"]
                 sc_entry[f"launches_{name}"] = ph_out["scatter_launches"]

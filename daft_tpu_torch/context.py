@@ -7,8 +7,10 @@ is on and ``device`` is ``"cuda"``. A caller that wants the CPU says so with
 raises instead of running on the CPU.
 
 Left out of this slice: the planning config (beyond expression fusion,
-device residency and the broadcast-join threshold), the scan/shuffle/spill/
-serving knobs and runner selection (the port has one runner, NativeRunner).
+device residency, the broadcast-join threshold and the exchange's three
+knobs), the scan/spill/serving knobs, the exchange's payload encoding
+(which engages only under a memory budget the port does not have) and
+runner selection (the port has one runner, NativeRunner).
 """
 
 from __future__ import annotations
@@ -51,6 +53,17 @@ class ExecutionConfig:
     # a join side whose estimated size is at most this many bytes is
     # broadcast (BroadcastJoinOp) instead of hash-joined
     broadcast_join_size_bytes_threshold: int = 10 * 1024 * 1024
+    # key rows sampled per output partition of a range shuffle (the
+    # boundaries of a sort over several partitions)
+    sample_size_for_sort: int = 20
+    # runtime join filters (exchange/joinfilter.py): the build side's keys
+    # make a Bloom + min-max filter that prunes the probe side before its
+    # exchange or its broadcast probe; the join re-checks every row kept
+    runtime_join_filters: bool = True
+    # fold the stage-1 pieces bound for one bucket of a two-stage
+    # aggregate's shuffle through the stage-2 merge as they arrive
+    # (exchange/combine.py); only exact merges fold
+    hierarchical_exchange_combine: bool = True
 
 
 # daft_tpu ExecutionConfig field (or "jax_enable_x64") -> port field
@@ -62,6 +75,9 @@ _FROM_REFERENCE = {
     "expr_fusion": "expr_fusion",
     "device_residency": "device_residency",
     "broadcast_join_size_bytes_threshold": "broadcast_join_size_bytes_threshold",
+    "sample_size_for_sort": "sample_size_for_sort",
+    "runtime_join_filters": "runtime_join_filters",
+    "hierarchical_exchange_combine": "hierarchical_exchange_combine",
     "jax_enable_x64": "device_x64",
 }
 

@@ -118,9 +118,8 @@ class DataFrame:
     head = limit
 
     def repartition(self, num: Optional[int], *partition_by: ColumnInput) -> "DataFrame":
-        """Hash-repartition by ``partition_by`` into ``num`` partitions.
-        Without keys the reference repartitions at random, a scheme the port
-        does not have yet (the Repartition node raises)."""
+        """Hash-repartition by ``partition_by`` into ``num`` partitions, or,
+        without keys, repartition at random."""
         if partition_by:
             return DataFrame(Repartition(self._plan, "hash", num, _to_exprs(partition_by)))
         return DataFrame(Repartition(self._plan, "random", num))

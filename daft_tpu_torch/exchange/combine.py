@@ -1,0 +1,141 @@
+"""The hierarchical exchange: the stage-2 merge applied before the
+exchange (the port's copy of daft_tpu/exchange/combine.py).
+
+A two-stage aggregation ships one stage-1 partial row per (source partition
+x group) through the hash exchange, so every bucket holds P pieces that
+stage 2 merges. Folding the pieces bound for one bucket with the stage-2
+merge as they arrive shrinks what the exchange holds and merges from
+P x groups rows to about groups rows per bucket.
+
+The fold keeps ONE running partial per bucket and always re-aggregates
+``[running_partial, new pieces...]`` with the partial's rows first, so the
+groups keep their first-occurrence order: the results equal those with
+``hierarchical_exchange_combine`` off. Only merges that are exact under any
+regrouping fold: integer and count sums, min and max. A float sum declines,
+since folding early changes its order of additions.
+
+Left out: the reference's memory-ledger charges and its budget gate (the
+port has no ledger, so that gate could never engage), and the kinds the port
+has not ported yet (concat and the sketch merges).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+from ..micropartition import MicroPartition
+
+# pieces staged per bucket before a re-aggregation pass (the running partial
+# always rides first, so the cadence trades fold work against staged pieces
+# and cannot change results)
+FOLD_EVERY = 16
+
+# stage-2 kinds the fold may apply early: order-insensitive exact merges
+# (min, max) and exact accumulations (integer sums; float sums are gated by
+# dtype in combine_spec_applicable)
+COMBINABLE_KINDS = {"sum", "min", "max"}
+
+# a fold that keeps more than this share of its input rows is not reducing
+# (near-unique keys): the combiner abandons and hands every piece on raw
+ABANDON_MIN_SHRINK = 0.75
+
+
+def combine_spec_applicable(stage2, key_cols, exchanged_schema) -> bool:
+    """Translate-time gate: True when folding ``stage2`` early over pieces
+    of ``exchanged_schema`` is closed (its output schema is its input
+    schema) and every aggregation kind is a merge that is exact under
+    regrouping (a float sum declines)."""
+    from ..expressions import AggExpr, Alias
+    from ..physical import _stage_schema
+
+    for e in stage2:
+        node = e._node
+        while isinstance(node, Alias):
+            node = node.child
+        if not (isinstance(node, AggExpr) and node.kind in COMBINABLE_KINDS):
+            return False
+        if node.kind == "sum":
+            try:
+                dt = node.to_field(exchanged_schema).dtype
+            except (ValueError, KeyError):
+                return False
+            if not dt.is_integer():
+                return False
+    try:
+        out_schema = _stage_schema(exchanged_schema, stage2, key_cols)
+    except (ValueError, KeyError):
+        return False
+    return out_schema == exchanged_schema
+
+
+class BucketCombiner:
+    """Per-bucket running partials for one shuffle's fanout.
+
+    ``add(bucket, piece)`` stages a piece; every FOLD_EVERY staged pieces
+    the bucket re-aggregates ``[partial] + staged`` into one new partial.
+    ``finish()`` folds the remainders and yields ``(bucket, partial)`` for
+    every touched bucket: the only rows that enter the exchange. A fold
+    that does not shrink past ABANDON_MIN_SHRINK abandons the combiner for
+    the whole shuffle: every staged piece (the partials among them, which
+    are valid partial aggregates of their inputs) is handed back unfolded,
+    and stage 2 merges partials of any granularity."""
+
+    def __init__(self, aggs, keys, stats=None):
+        self.aggs = list(aggs)
+        self.keys = list(keys)
+        self.stats = stats
+        self._staged: Dict[int, List[MicroPartition]] = {}
+        self._failed = False
+
+    @property
+    def failed(self) -> bool:
+        return self._failed
+
+    def _abandon(self) -> List[Tuple[int, MicroPartition]]:
+        self._failed = True
+        out = [(b, p) for b in sorted(self._staged) for p in self._staged[b]]
+        self._staged = {}
+        return out
+
+    def add(self, bucket: int, piece: MicroPartition
+            ) -> Optional[List[Tuple[int, MicroPartition]]]:
+        """Stage one fanout piece. Returns None, or, when a fold declines,
+        every staged ``(bucket, partition)`` for the caller to append raw
+        (the combiner then stops)."""
+        staged = self._staged.setdefault(bucket, [])
+        staged.append(piece)
+        if len(staged) >= FOLD_EVERY + 1:
+            folded = self._fold(staged)
+            if folded is None:
+                return self._abandon()
+            self._staged[bucket] = [folded]
+        return None
+
+    def finish(self):
+        """Fold the remainders; yields (bucket, partial) in bucket order."""
+        for b in sorted(self._staged):
+            staged = self._staged[b]
+            if len(staged) == 1:
+                yield b, staged[0]
+                continue
+            folded = self._fold(staged)
+            if folded is None:
+                for p in staged:
+                    yield b, p
+                continue
+            yield b, folded
+        self._staged = {}
+
+    def _fold(self, staged: List[MicroPartition]) -> Optional[MicroPartition]:
+        """One host aggregate of the staged pieces, or None when it is not
+        schema-closed or barely shrinks."""
+        in_rows = sum(len(p) for p in staged)
+        merged = MicroPartition.concat(staged) if len(staged) > 1 else staged[0]
+        out = merged.agg(self.aggs, self.keys)
+        if out.schema != merged.schema:
+            return None  # not schema-closed at run time
+        if len(out) > ABANDON_MIN_SHRINK * in_rows:
+            return None  # near-unique keys: the partial would hold the whole bucket
+        if self.stats is not None:
+            self.stats.bump("exchange_precombined_rows", max(0, in_rows - len(out)))
+        return out

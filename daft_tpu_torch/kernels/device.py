@@ -59,9 +59,21 @@ through ``x64_enabled``):
 Every cache of staged lanes and compiled programs keys on the mode: a
 column staged narrow in one mode is never served in the other.
 
-Left out of this slice: device hashing, fixed-shape tensor columns, and
-unsigned integers other than uint64 (torch's uint16/32 support is partial,
-so those columns decline to the host path).
+Unsigned columns run on the card in both modes, as the reference's
+uint8/16/32 lanes do. uint8 stages as ``torch.uint8``, whose arithmetic
+wraps as the reference's does. torch's uint16 and uint32 support is
+partial, so uint16 stages in an int32 lane and uint32 in an int64 lane
+(``_UNSIGNED_LANES``), and every node that computes such a type masks its
+result back to the width (``_wrap_unsigned``): the low bits of a
+two's-complement sum, difference or product are exact, so the masked lane
+holds the unsigned wrap, and order and equality are those of the wider
+signed lane. The reference's declines on these types stay: a uint32 lane
+in the 32-bit mode groups and joins on the host (``uint32_key_declines``),
+where its sentinel overflows the reference's int32 scalars.
+
+Left out of this slice: fixed-shape tensor columns. ``hash_buckets`` (K6)
+is here as a function held against the reference; as in the reference,
+nothing on the query path calls it.
 """
 
 from __future__ import annotations
@@ -103,8 +115,31 @@ _TORCH_DTYPES = {
     TypeKind.BOOL: torch.bool,
     TypeKind.INT8: torch.int8, TypeKind.INT16: torch.int16,
     TypeKind.INT32: torch.int32, TypeKind.INT64: torch.int64,
+    TypeKind.UINT8: torch.uint8,
     TypeKind.FLOAT32: torch.float32, TypeKind.FLOAT64: torch.float64,
 }
+
+# uint16 and uint32 compute in the next wider signed lane, masked back to
+# their width after each node that can wrap: kind -> (lane, numpy lane, mask)
+_UNSIGNED_LANES = {TypeKind.UINT16: (torch.int32, np.int32, 0xFFFF),
+                   TypeKind.UINT32: (torch.int64, np.int64, 0xFFFFFFFF)}
+
+
+def _wrap_unsigned(v, dt: DataType):
+    """``v`` masked to the width of ``dt`` when ``dt`` is uint16 or uint32
+    (the unsigned wrap of its wider lane); any other ``v`` as it is."""
+    lane = _UNSIGNED_LANES.get(dt.kind)
+    if lane is None or v.is_floating_point() or v.dtype == torch.bool:
+        return v
+    return v.to(lane[0]) & lane[2]
+
+
+def uint32_key_declines(dt: DataType) -> bool:
+    """The reference's 32-bit mode cannot pass a uint32 lane's sentinel
+    (its maximum) as an int32 scalar, so its group codes and join probe
+    raise on such a key and run on the host: the port declines the same
+    keys."""
+    return dt.kind == TypeKind.UINT32 and not x64_enabled()
 
 # 64-bit logical kinds and their 32-bit compute stand-ins. uint64 (the
 # count partials a two-stage aggregate merges) takes int32 lanes: the
@@ -128,7 +163,8 @@ def is_device_dtype(dt: DataType) -> bool:
     int32 days. The 64-bit mode adds the epoch temporals as int64."""
     if dt.kind in _EPOCH_KINDS:
         return x64_enabled()
-    return dt.kind in _TORCH_DTYPES or dt.kind in _NARROW_64 or dt.kind == TypeKind.DATE
+    return (dt.kind in _TORCH_DTYPES or dt.kind in _NARROW_64 or dt.kind in _UNSIGNED_LANES
+            or dt.kind == TypeKind.DATE)
 
 
 def _physical_np(arr: pa.Array) -> np.ndarray:
@@ -217,7 +253,10 @@ def _narrow_staged(vals: np.ndarray, dt: DataType) -> np.ndarray:
     fits (raises otherwise, so the caller declines to the host path);
     float64 rounds to float32. 64-bit mode: no narrowing; a uint64 column
     stages as its int64 bits when every value is below 2**63 (raises
-    otherwise)."""
+    otherwise). uint16 and uint32 widen to their signed lanes in both
+    modes."""
+    if dt.kind in _UNSIGNED_LANES:
+        return vals.astype(_UNSIGNED_LANES[dt.kind][1], copy=False)
     if x64_enabled():
         if vals.dtype == np.uint64:
             if len(vals) and vals.max() >= np.uint64(1 << 63):
@@ -289,6 +328,8 @@ def unstage(col: DeviceColumn):
     storage = dt.to_arrow()
     if pa.types.is_uint64(storage) and vals.dtype == np.int64:
         vals = vals.view(np.uint64)  # the 64-bit mode's uint64 lanes hold the bits
+    if dt.kind in _UNSIGNED_LANES and not valid.all():
+        vals = np.where(valid, vals, 0)  # a reduction's identity in a null slot
     out = pa.array(vals)
     if out.type != storage:
         if pa.types.is_timestamp(storage) or pa.types.is_duration(storage) \
@@ -332,6 +373,8 @@ def _jdt(dt: DataType) -> torch.dtype:
         return torch.float64 if dt.kind == TypeKind.FLOAT64 else torch.int64
     if dt.kind in _TORCH_DTYPES:
         return _TORCH_DTYPES[dt.kind]
+    if dt.kind in _UNSIGNED_LANES:
+        return _UNSIGNED_LANES[dt.kind][0]
     if dt.kind == TypeKind.DATE:
         return torch.int32
     if dt.kind in _EPOCH_KINDS:
@@ -360,6 +403,8 @@ def _literal_fits_device(lit) -> bool:
         return False
     if isinstance(lit.value, int) and not isinstance(lit.value, bool) \
             and not jd.is_floating_point and jd != torch.bool:
+        if lit.dtype.kind in _UNSIGNED_LANES:
+            return 0 <= lit.value <= _UNSIGNED_LANES[lit.dtype.kind][2]
         info = torch.iinfo(jd)
         return info.min <= lit.value <= info.max
     return True
@@ -1837,9 +1882,9 @@ def _compile_node(node, schema):
         inner, _ = _compile_node(node.child, schema)
         jd = _jdt(node.dtype)
 
-        def run(env, _inner=inner, _jd=jd):
+        def run(env, _inner=inner, _jd=jd, _dt=node.dtype):
             v, m = _inner(env)
-            return v.to(_jd), m
+            return _wrap_unsigned(v.to(_jd), _dt), m
 
         return run, out_dt
 
@@ -1926,9 +1971,9 @@ def _compile_node(node, schema):
             raise ValueError(f"function {node.fname} not device-compilable")
         inner, _ = _compile_node(node.args[0], schema)
 
-        def run(env, _inner=inner, _fn=_DEVICE_FNS[node.fname]):
+        def run(env, _inner=inner, _fn=_DEVICE_FNS[node.fname], _dt=out_dt):
             v, m = _inner(env)
-            return _fn(v), m
+            return _wrap_unsigned(_fn(v), _dt), m
 
         return run, out_dt
 
@@ -2082,15 +2127,15 @@ def _compile_node(node, schema):
                 return torch.pow(lv.to(_wf()), rv.to(_wf()))
             raise AssertionError(_op)
 
-        def run(env, _l=lf, _r=rf, _arith=arith, _op=op):
+        def run(env, _l=lf, _r=rf, _arith=arith, _op=op, _dt=out_dt):
             lv, lm = _l(env)
             rv, rm = _r(env)
             if _op in ("//", "%") and not (lv.is_floating_point() or rv.is_floating_point()):
                 # INT division by zero: null (the host kernel raises; the
                 # device masks instead). Float operands keep inf/nan.
                 safe = torch.where(rv == 0, torch.ones_like(rv), rv)
-                return _arith(lv, safe), lm & rm & (rv != 0)
-            return _arith(lv, rv), lm & rm
+                return _wrap_unsigned(_arith(lv, safe), _dt), lm & rm & (rv != 0)
+            return _wrap_unsigned(_arith(lv, rv), _dt), lm & rm
 
         return run, out_dt
 
@@ -2768,3 +2813,53 @@ def device_argsort(key_cols: Sequence[Tuple], descending: Sequence[bool],
     for lane in reversed(lanes):
         perm = perm[torch.argsort(lane[perm], stable=True)]
     return perm
+
+
+# ---------------------------------------------------------------------------
+# Device hash (K6): a bucket id per row, murmur-style 32-bit mixing
+# ---------------------------------------------------------------------------
+
+_NULL_HASH32 = 0x9E3779B9
+
+
+def hash_buckets(columns: Sequence[torch.Tensor], valids: Sequence[torch.Tensor],
+                 num_buckets: int) -> torch.Tensor:
+    """The bucket id of each row (int32) from its key columns, with the
+    reference's bits: each column's 32-bit hash (``_hash32``; a null row
+    hashes as 0x9E3779B9) is xor-ed into the running hash and mixed
+    (``_mix32``), and the result taken mod ``num_buckets``. torch has no
+    uint32 shifts or compares on the CPU, so the uint32 lanes live in int64
+    tensors, masked to 32 bits. A lane's width decides its hash, as in the
+    reference: pass a uint32 column's int64 lane as ``.to(torch.int32)`` to
+    hash the reference's uint32 lane. As in the reference, nothing on the
+    query path calls it: the shuffle buckets rows by the host hash."""
+    h = torch.zeros(columns[0].shape[0], dtype=torch.int64, device=columns[0].device)
+    for v, m in zip(columns, valids):
+        h = _mix32(h ^ torch.where(m, _hash32(v), _NULL_HASH32))
+    return (h % num_buckets).to(torch.int32)
+
+
+def _hash32(v: torch.Tensor) -> torch.Tensor:
+    """The 32-bit hash of each value (an int64 lane in [0, 2**32)): floats
+    by their float32 bits with -0.0 as 0.0, 64-bit ints as mix(lo) ^ hi."""
+    if v.is_floating_point():
+        f = v.to(torch.float32)
+        f = torch.where(f == 0.0, torch.zeros_like(f), f)
+        x = f.view(torch.int32).to(torch.int64) & _U32
+    elif v.dtype == torch.bool:
+        x = v.to(torch.int64)
+    elif v.element_size() == 8:
+        x64 = v.to(torch.int64)
+        x = _mix32(x64 & _U32) ^ ((x64 >> 32) & _U32)
+    else:
+        x = v.to(torch.int32).to(torch.int64) & _U32
+    return _mix32(x)
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """The murmur3 finalizer over uint32 values held in an int64 lane (the
+    low 32 bits of each product are the uint32 product's)."""
+    x = x & _U32
+    x = ((x ^ (x >> 16)) * 0x85EBCA6B) & _U32
+    x = ((x ^ (x >> 13)) * 0xC2B2AE35) & _U32
+    return x ^ (x >> 16)

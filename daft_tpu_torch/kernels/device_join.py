@@ -39,7 +39,7 @@ import torch
 
 from .device import (compile_projection, int64_wrap_safe, normalize_and_check, size_bucket,
                      stage_table_columns, string_literal_env, string_lut_env,
-                     string_transform_env, transform_cmp_env)
+                     string_transform_env, transform_cmp_env, uint32_key_declines)
 
 
 def _stage_key(table, key_expr, cache, device) -> Optional[Tuple]:
@@ -54,7 +54,7 @@ def _stage_key(table, key_expr, cache, device) -> Optional[Tuple]:
         return None
     node = nodes[0]
     dt = node.to_field(schema).dtype
-    if not (dt.is_integer() or dt.kind == TypeKind.DATE):
+    if not (dt.is_integer() or dt.kind == TypeKind.DATE) or uint32_key_declines(dt):
         return None
     cols = required_columns(node)
     if not cols:

@@ -16,9 +16,14 @@ The kernel's per-row body is generated from the expression nodes:
   into C++ that computes the same (value, valid) lanes as the torch
   closures, bit for bit: the same type promotion (``torch.promote_types``), the same casts
   (a float-to-int cast is torch's CUDA cast: saturate to int32 with NaN to 0,
-  then wrap to a narrower type), Kleene ``&``/``|``, floor-based ``//`` and ``%``, and integer
+  then wrap to a narrower type; to int64 and to uint8 through a saturating
+  int64), Kleene ``&``/``|``, floor-based ``//`` and ``%``, and integer
   division by zero giving null. ``**`` goes through ``powf``, which may
   differ from torch's CPU ``pow`` by 1 ulp.
+- The unsigned lanes are the closures' (``device._UNSIGNED_LANES``): uint8
+  as ``uint8_t``, uint16 in an int32 lane and uint32 in an int64 lane, each
+  masked back to its width after every Cast and arithmetic node of that
+  type, as ``device._wrap_unsigned`` masks the torch lanes.
 - The generated row function is ``__host__ __device__``, so the CPU tests
   build it with g++ and hold it against the closures.
 - The generated kernel's tile-fill step evaluates the row function into the
@@ -66,11 +71,14 @@ BUILDS = 0
 ENTRIES = 0
 LAUNCHES = 0
 
+# lane types: uint8 stages as torch.uint8, uint16 in an int32 lane and uint32
+# in an int64 lane (device._UNSIGNED_LANES); in the 32-bit mode nothing else
+# computes in int64
 _CTYPES = {torch.bool: "bool", torch.int8: "int8_t", torch.int16: "int16_t",
-           torch.int32: "int32_t", torch.float32: "float"}
+           torch.int32: "int32_t", torch.int64: "int64_t", torch.uint8: "uint8_t",
+           torch.float32: "float"}
 # pointer type of a staged lane in device memory (torch.bool is one byte)
-_PTR_TYPES = {torch.bool: "unsigned char", torch.int8: "int8_t", torch.int16: "int16_t",
-              torch.int32: "int32_t", torch.float32: "float"}
+_PTR_TYPES = {**_CTYPES, torch.bool: "unsigned char"}
 
 _PRELUDE = r"""#include <math.h>
 #include <stdint.h>
@@ -90,16 +98,26 @@ __host__ __device__ inline int32_t fes_f2i(float x) {
   if (x <= -2147483648.0f) return -2147483647 - 1;
   return static_cast<int32_t>(x);
 }
+// float -> int64 likewise (cvt.rzi.s64.f32); torch casts float to uint8
+// through int64
+__host__ __device__ inline int64_t fes_f2l(float x) {
+  if (x != x) return 0;
+  if (x >= 9223372036854775808.0f) return 9223372036854775807LL;
+  if (x <= -9223372036854775808.0f) return -9223372036854775807LL - 1;
+  return static_cast<int64_t>(x);
+}
 // torch.floor_divide / torch.remainder on integers (b != 0); a / -1 wraps
-__host__ __device__ inline int32_t fes_floordiv(int32_t a, int32_t b) {
-  if (b == -1) return static_cast<int32_t>(0u - static_cast<uint32_t>(a));
-  const int32_t q = a / b;
-  const int32_t r = a % b;
+template <typename T, typename U>
+__host__ __device__ inline T fes_floordiv(T a, T b) {
+  if (b == -1) return static_cast<T>(U(0) - static_cast<U>(a));
+  const T q = a / b;
+  const T r = a % b;
   return (r != 0 && ((r < 0) != (b < 0))) ? q - 1 : q;
 }
-__host__ __device__ inline int32_t fes_floormod(int32_t a, int32_t b) {
+template <typename T>
+__host__ __device__ inline T fes_floormod(T a, T b) {
   if (b == -1) return 0;
-  const int32_t r = a % b;
+  const T r = a % b;
   return (r != 0 && ((r < 0) != (b < 0))) ? r + b : r;
 }
 // torch.remainder on floats: fmod, then shifted into the divisor's sign
@@ -122,7 +140,7 @@ def _literal_lane(value, dtype: torch.dtype) -> str:
     if dtype == torch.bool:
         return "true" if bool(t.item()) else "false"
     v = int(t.item())
-    text = "(-2147483647 - 1)" if v == -2 ** 31 else str(v)
+    text = "(-2147483647 - 1)" if v == -2 ** 31 else f"{v}LL"
     return f"static_cast<{_CTYPES[dtype]}>({text})"
 
 
@@ -138,19 +156,31 @@ def _cast(v: str, src: torch.dtype, dst: torch.dtype) -> str:
     if dst == torch.float32:
         return f"static_cast<float>({v})"
     if src == torch.float32:
-        v = f"fes_f2i({v})"
-        if dst == torch.int32:
+        v = f"fes_f2l({v})" if dst in (torch.int64, torch.uint8) else f"fes_f2i({v})"
+        if dst in (torch.int32, torch.int64):
             return v
     return f"static_cast<{_CTYPES[dst]}>({v})"  # int -> narrower int wraps, as torch does
 
 
 def _int_arith(op: str, a: str, b: str, dt: torch.dtype) -> str:
     """Wrapping integer + - * in ``dt`` (signed overflow is undefined in C++:
-    int32 goes through uint32; narrower types widen, then truncate)."""
-    if dt == torch.int32:
-        return (f"static_cast<int32_t>(static_cast<uint32_t>({a}) {op} "
-                f"static_cast<uint32_t>({b}))")
+    int32 goes through uint32 and int64 through uint64; narrower types
+    widen, then truncate)."""
+    if dt in (torch.int32, torch.int64):
+        u = "uint32_t" if dt == torch.int32 else "uint64_t"
+        return f"static_cast<{_CTYPES[dt]}>(static_cast<{u}>({a}) {op} static_cast<{u}>({b}))"
     return f"static_cast<{_CTYPES[dt]}>(static_cast<int32_t>({a}) {op} static_cast<int32_t>({b}))"
+
+
+def _wrap_unsigned(v: str, dt: torch.dtype, logical) -> str:
+    """device._wrap_unsigned of one element: an int lane of a uint16 or
+    uint32 node masked back to its width; any other lane as it is."""
+    from .device import _UNSIGNED_LANES
+
+    lane = _UNSIGNED_LANES.get(logical.kind)
+    if lane is None or dt == torch.bool or dt.is_floating_point:
+        return v
+    return f"static_cast<{_CTYPES[dt]}>({v} & {lane[2]}LL)"
 
 
 class _Emitter:
@@ -198,7 +228,7 @@ class _Emitter:
         if isinstance(nd, Cast):
             v, m, dt = self.node(nd.child)
             jd = _jdt(nd.dtype)
-            return self._let(jd, _cast(v, dt, jd)), m, jd
+            return self._let(jd, _wrap_unsigned(_cast(v, dt, jd), jd, nd.dtype)), m, jd
         if isinstance(nd, Not):
             v, m, dt = self.node(nd.child)
             return self._let(dt, f"!{v}" if dt == torch.bool else f"~{v}"), m, dt
@@ -322,13 +352,14 @@ class _Emitter:
             value = f"({eq} && {lm} && {rm}) || (!{lm} && !{rm})"
             return self._let(torch.bool, value), "true", torch.bool
 
-        jd = _jdt(nd.to_field(self.schema).dtype)
+        out_dt = nd.to_field(self.schema).dtype
+        jd = _jdt(out_dt)
         f32 = torch.float32
         valid = self._let(torch.bool, both)
         if op in ("+", "-", "*"):
             a, b = _cast(lv, ld, jd), _cast(rv, rd, jd)
             expr = f"{a} {op} {b}" if jd == f32 else _int_arith(op, a, b, jd)
-            return self._let(jd, expr), valid, jd
+            return self._let(jd, _wrap_unsigned(expr, jd, out_dt)), valid, jd
         if op == "/":
             return self._let(f32, f"{_cast(lv, ld, f32)} / {_cast(rv, rd, f32)}"), valid, f32
         if op == "**":
@@ -339,14 +370,18 @@ class _Emitter:
         if p == f32:
             a, b = _cast(lv, ld, f32), _cast(rv, rd, f32)
             r = f"floorf({a} / {b})" if op == "//" else f"fes_fremainder({a}, {b})"
-            return self._let(jd, _cast(self._let(f32, r), f32, jd)), valid, jd
-        # integer // and % by zero: null (the divisor 0 is replaced by 1)
+            q = _cast(self._let(f32, r), f32, jd)
+            return self._let(jd, _wrap_unsigned(q, jd, out_dt)), valid, jd
+        # integer // and % by zero: null (the divisor 0 is replaced by 1);
+        # narrower types compute in int32, an int64 lane in int64
         safe = self._let(rd, f"({rv} == 0) ? {_cast('1', torch.int32, rd)} : {rv}")
-        fn = "fes_floordiv" if op == "//" else "fes_floormod"
-        q = self._let(p, _cast(f"{fn}({_cast(lv, ld, torch.int32)}, "
-                                f"{_cast(safe, rd, torch.int32)})", torch.int32, p))
+        wide = torch.int64 if p == torch.int64 else torch.int32
+        fn = ("fes_floordiv<int64_t, uint64_t>" if wide == torch.int64
+              else "fes_floordiv<int32_t, uint32_t>") if op == "//" else \
+            f"fes_floormod<{_CTYPES[wide]}>"
+        q = self._let(p, _cast(f"{fn}({_cast(lv, ld, wide)}, {_cast(safe, rd, wide)})", wide, p))
         valid = self._let(torch.bool, f"{both} && ({rv} != 0)")
-        return self._let(jd, _cast(q, p, jd)), valid, jd
+        return self._let(jd, _wrap_unsigned(_cast(q, p, jd), jd, out_dt)), valid, jd
 
 
 def _memo_key(nd):

@@ -3,10 +3,9 @@ of daft_tpu/logical.py). Every node resolves and validates its output schema
 at construction time, so API misuse fails at build time, not at collect time.
 
 This slice carries InMemorySource, Project, Filter, Limit, Sort,
-Repartition (the hash and into schemes), Distinct, Aggregate and Join (with the size
-estimate the join planner reads), and the expression-analysis helpers the
-optimizer (optimizer.py) uses. Left out until a later slice: scans, the
-random and range repartition schemes, sample, concat,
+Repartition (hash, range, random and into), Distinct, Aggregate and Join (with the
+size estimate the join planner reads), and the expression-analysis helpers the
+optimizer (optimizer.py) uses. Left out until a later slice: scans, sample, concat,
 explode/unpivot/pivot, monotonic ids and writes, and the row-count estimates.
 """
 
@@ -233,29 +232,27 @@ class Sort(UnaryNode):
 
 
 class Repartition(UnaryNode):
-    """A hash repartition on ``by`` into ``num`` partitions (None keeps the
-    input's count), or ``into`` ``num`` partitions without a shuffle
-    (coalesce or split). The reference's random and range schemes come
-    with the shuffles between partitions (ROADMAP Queue 1, item 9)."""
+    """A repartition into ``num`` partitions (None keeps the input's
+    count): ``hash`` on ``by``, ``range`` on ``by`` (each key ascending
+    unless ``descending`` says otherwise), ``random``, or ``into`` without
+    a shuffle (coalesce or split)."""
 
     def __init__(self, input: LogicalPlan, scheme: str, num: Optional[int],
-                 by: Optional[List[Expression]] = None):
+                 by: Optional[List[Expression]] = None,
+                 descending: Optional[List[bool]] = None):
         super().__init__(input)
         if scheme not in ("hash", "random", "range", "into"):
             raise ValueError(f"unknown repartition scheme {scheme!r}")
-        if scheme in ("random", "range"):
-            raise NotImplementedError(
-                f"the {scheme!r} repartition scheme comes with a later slice of the port "
-                "(ROADMAP Queue 1, item 9: shuffles between partitions)")
         if scheme == "hash" and not by:
             raise ValueError("hash repartition requires partition-by expressions")
         self.scheme = scheme
         self.num = num
         self.by = by or []
+        self.descending = descending or [False] * len(self.by)
         self.schema = input.schema
 
     def with_children(self, c):
-        return Repartition(c[0], self.scheme, self.num, self.by)
+        return Repartition(c[0], self.scheme, self.num, self.by, self.descending)
 
     def num_partitions(self) -> int:
         return self.num if self.num is not None else self.input.num_partitions()

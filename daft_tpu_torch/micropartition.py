@@ -6,11 +6,12 @@ copying them. ``device_stage_cache`` holds the columns already staged on the
 card (DeviceColumns keyed by column, bucket and device), so repeated queries
 over a collected partition do not copy the same columns again.
 
-``partition_by_hash`` splits a partition for the hash shuffle chunk by chunk,
-as the reference does. Left out of this slice: unloaded partitions backed by
-scan tasks (with their pending-op chains, file statistics and pickling for
-worker processes), the sort-merge join, the explode/pivot methods, range and
-random partitioning and the writer.
+``partition_by_hash`` and ``partition_by_range`` split a partition for the
+hash and range shuffles chunk by chunk, as the reference does;
+``partition_by_random`` splits the whole partition, since its draw is over
+row positions. Left out of this slice: unloaded partitions backed by scan
+tasks (with their pending-op chains, file statistics and pickling for worker
+processes), the sort-merge join, the explode/pivot methods and the writer.
 """
 
 from __future__ import annotations
@@ -93,13 +94,39 @@ class MicroPartition:
     def head(self, n: int) -> "MicroPartition":
         return MicroPartition.from_table(self.table().head(n))
 
+    def chunk_tables(self) -> List[Table]:
+        """The partition's chained tables, without concatenating them."""
+        return list(self._tables)
+
     def partition_by_hash(self, exprs, num_partitions: int) -> List["MicroPartition"]:
-        """``num_partitions`` partitions by row hash mod n. A row's bucket
-        depends on its own values alone, so each chained table splits on its
-        own and bucket i chains its pieces in order, with no concat."""
-        buckets: List[List[Table]] = [[] for _ in range(num_partitions)]
+        """``num_partitions`` partitions by row hash mod n."""
+        return self._partition_chunkwise(
+            lambda t: t.partition_by_hash(exprs, num_partitions), num_partitions)
+
+    def partition_by_random(self, num_partitions: int, seed: int = 0) -> List["MicroPartition"]:
+        """``num_partitions`` partitions by a seeded draw over the rows of the
+        whole partition: per chunk, one seed would repeat its draw in every
+        chunk."""
+        return [MicroPartition.from_table(t)
+                for t in self.table().partition_by_random(num_partitions, seed)]
+
+    def partition_by_range(self, exprs, boundaries: Table, descending=None,
+                           nulls_first=None) -> List["MicroPartition"]:
+        """``len(boundaries) + 1`` partitions by the sort keys' position
+        among the boundary rows."""
+        return self._partition_chunkwise(
+            lambda t: t.partition_by_range(exprs, boundaries, descending, nulls_first),
+            len(boundaries) + 1)
+
+    def _partition_chunkwise(self, split, num: int) -> List["MicroPartition"]:
+        """A row-local split (a row's bucket depends on its own values alone)
+        of each chained table on its own: bucket i chains its pieces in
+        order, with no concat."""
+        if len(self._tables) == 1:
+            return [MicroPartition.from_table(t) for t in split(self._tables[0])]
+        buckets: List[List[Table]] = [[] for _ in range(num)]
         for t in self._tables:
-            for i, bt in enumerate(t.partition_by_hash(exprs, num_partitions)):
+            for i, bt in enumerate(split(t)):
                 if len(bt):
                     buckets[i].append(bt)
         return [MicroPartition(self.schema, bs) if bs else MicroPartition.empty(self.schema)

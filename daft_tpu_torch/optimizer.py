@@ -220,7 +220,7 @@ def _drop_repartition(p: LogicalPlan) -> Optional[LogicalPlan]:
         return None
     child = p.input
     if isinstance(child, Repartition):
-        return Repartition(child.input, p.scheme, p.num, p.by)
+        return Repartition(child.input, p.scheme, p.num, p.by, p.descending)
     if p.num == 1 and child.num_partitions() == 1:
         return child
     return None

@@ -26,28 +26,34 @@ A lone FilterOp or ProjectOp runs on the card through
 a DistinctOp through ``eval_distinct`` (the first row of each key tuple
 from the group-codes kernel). A Distinct over several partitions plans as
 DistinctOp per partition, a hash ShuffleOp on the keys, and DistinctOp
-again; a hash Repartition is a ShuffleOp.
+again; a hash, range or random Repartition is a ShuffleOp of that scheme.
+
+The exchange between partitions is the ShuffleOp (the reference's star
+path). A Sort over several partitions range-shuffles its input and sorts
+each range partition (SortOp, through the device argsort). A HashJoin over
+several partitions hash-shuffles both sides to the larger partition count
+and joins each co-partitioned pair; the left exchange builds the runtime
+join filter (exchange/joinfilter.py) that prunes the right one, and a
+BroadcastJoinOp prunes its streamed side with a filter over its
+replicated side.
 
 An aggregate over more than one partition plans in two stages, as the
 reference's ``_translate_aggregate`` does: stage 1 aggregates each partition
 into partials (``populate_aggregation_stages``), a hash ShuffleOp on the
 group keys (a GatherOp when there are none) moves the partials, stage 2
 merges them, and a final Project derives each result (mean = sum / count)
-and casts to the plan's schema. Stage 1 over a filter fuses into a
-FusedFilterAggregateOp, and over a map chain into a DeviceSegmentOp, as a
-one-partition aggregate does.
+and casts to the plan's schema. The stage-2 shuffle folds the stage-1
+pieces bound for one bucket (exchange/combine.py) when every merge is
+exact. Stage 1 over a filter fuses into a FusedFilterAggregateOp, and over
+a map chain into a DeviceSegmentOp, as a one-partition aggregate does.
 
-Left out of this slice: scans; the shuffle's mesh, peer-to-peer, spill and
-encode, lineage and join-filter legs, the hierarchical combine
-(exchange/combine.py) and the feedback-directed fan-out resize, each of
+Left out of this slice: scans; the shuffle's mesh, peer-to-peer, spill,
+encode and lineage legs and the feedback-directed fan-out resize, each of
 which the reference keeps byte-identical when off; the morsel split of
-in-memory sources, which the reference skips on the device path; range and
-random shuffles (a multi-partition sort gathers its input into one
-partition; a hash join whose inputs have more than one partition gathers
-each side into one partition instead of the hash exchange that
-co-partitions them); the sort-merge and cross joins, the runtime join
-filter, feedback-directed join planning, explode/pivot/sample/write ops,
-the worker pool, streaming and batched UDFs.
+in-memory sources, which the reference skips on the device path; the
+sort-merge and cross joins, feedback-directed join planning,
+explode/pivot/sample/write ops, the worker pool, streaming and batched
+UDFs.
 """
 
 from __future__ import annotations
@@ -230,7 +236,9 @@ class LimitOp(PhysicalOp):
 
 
 class SortOp(PhysicalOp):
-    """Per-partition sort; translate gathers a multi-partition input first."""
+    """Per-partition sort; an upstream range ShuffleOp makes it a global
+    sort (each range partition sorts on its own, through the device
+    argsort when it clears ``device_min_rows``)."""
 
     def __init__(self, child: PhysicalOp, sort_by, descending, nulls_first):
         super().__init__([child], child.schema, child.num_partitions)
@@ -314,16 +322,34 @@ class DistinctOp(PhysicalOp):
 
 
 class GatherOp(PhysicalOp):
-    """All partitions -> one."""
+    """All partitions -> one (a global aggregate's stage 2). The rows and
+    bytes gathered count as ``exchange_rows`` and ``exchange_bytes``."""
 
     def __init__(self, child: PhysicalOp):
         super().__init__([child], child.schema, 1)
 
     def execute(self, inputs, ctx) -> PartStream:
-        parts = list(inputs[0])
+        parts = list(_counted(inputs[0], ctx))
         yield (MicroPartition.empty(self.schema) if not parts
                else parts[0] if len(parts) == 1
                else MicroPartition.concat(parts))
+
+
+def _count_exchanged(part: MicroPartition, ctx) -> None:
+    """Count ``part``'s rows and bytes as ``exchange_rows`` and
+    ``exchange_bytes``: what enters an exchange."""
+    if len(part):
+        ctx.stats.bump("exchange_rows", len(part))
+    nbytes = part.size_bytes()
+    if nbytes:
+        ctx.stats.bump("exchange_bytes", nbytes)
+
+
+def _counted(stream: PartStream, ctx) -> PartStream:
+    """Pass-through that counts the rows and bytes entering an exchange."""
+    for p in stream:
+        _count_exchanged(p, ctx)
+        yield p
 
 
 class CoalesceOp(PhysicalOp):
@@ -351,31 +377,125 @@ class CoalesceOp(PhysicalOp):
                 group = parts[i:i + per]
                 yield MicroPartition.concat(group) if len(group) > 1 else group[0]
 
-    def describe(self):
-        return f"Coalesce[{self.num}]"
-
 
 class ShuffleOp(PhysicalOp):
-    """Hash exchange on the host (the star path of the reference's
-    ShuffleOp): each input partition splits by row hash mod
-    ``num_partitions`` (``MicroPartition.partition_by_hash``), and output
-    partition i chains the i-th pieces in source order, so rows keep their
-    order within a bucket. An empty bucket is an empty partition; an empty
-    input yields nothing. ``shuffles`` counts the exchanges that ran."""
+    """The exchange between partitions on the host (the star path of the
+    reference's ShuffleOp). ``scheme``: ``hash`` (each partition splits by
+    row hash mod ``num_partitions``, ``MicroPartition.partition_by_hash``),
+    ``random`` (a draw seeded by the source partition's index) or ``range``
+    (the partitions are buffered while their sort keys are sampled, the
+    samples give ``num_partitions - 1`` boundary rows, and each partition
+    splits by them). Output partition i chains the i-th pieces in source
+    order, so rows keep their order within a bucket; an empty bucket is an
+    empty partition and an empty input yields nothing.
 
-    def __init__(self, child: PhysicalOp, num: int, by: List[Expression]):
+    Translate may attach a join-filter slot that this exchange feeds
+    (``filter_feed``, the build side) or prunes with (``probe_filter``, the
+    probe side), and a stage-2 merge (``combine``, ``(stage2_aggs,
+    key_cols)``) that folds the pieces bound for one bucket as they arrive
+    (exchange/combine.py). Each leg is behind its knob, and the results
+    equal those with the knob off. ``exchange_rows`` and ``exchange_bytes``
+    count what crosses the exchange, after the prune and the fold;
+    ``shuffles`` counts the exchanges that ran."""
+
+    filter_feed = None    # JoinFilterSlot this build-side exchange populates
+    probe_filter = None   # JoinFilterSlot whose sealed filter prunes here
+    combine = None        # (stage2_aggs, key_cols) of the pre-exchange fold
+
+    def __init__(self, child: PhysicalOp, scheme: str, num: int,
+                 by: Optional[List[Expression]] = None,
+                 descending: Optional[List[bool]] = None,
+                 nulls_first: Optional[List[Optional[bool]]] = None):
         super().__init__([child], child.schema, num)
-        self.by = by
+        self.scheme = scheme
+        self.by = by or []
+        self.descending = descending or [False] * len(self.by)
+        self.nulls_first = nulls_first if nulls_first is not None else [None] * len(self.by)
+
+    def _feed_filter(self, stream, ctx) -> PartStream:
+        """Build-side pass-through: every streamed partition's join keys go
+        into the slot's builder, sealed when the stream ends (the join op
+        drains this side before the probe side's exchange runs)."""
+        slot = self.filter_feed
+        if not ctx.cfg.runtime_join_filters or not slot.eligible:
+            slot.abandon()
+            yield from stream
+            return
+        slot.begin()
+        for p in stream:
+            for t in p.chunk_tables():
+                slot.feed(t)
+            yield p
+        slot.seal()
+        if slot.filter() is not None:
+            ctx.stats.bump("join_filter_built")
+
+    def _prune_stream(self, stream, ctx) -> PartStream:
+        """Probe-side pass-through: each partition pruned by the sealed
+        build-side filter before it is bucketed (no filter: untouched)."""
+        from .exchange.joinfilter import prune_partition
+
+        slot = self.probe_filter
+        for p in stream:
+            jf = slot.filter()
+            yield p if jf is None else prune_partition(p, jf, self.by, ctx)
 
     def execute(self, inputs, ctx) -> PartStream:
         n = self.num_partitions
+        src = inputs[0]
+        if self.filter_feed is not None:
+            src = self._feed_filter(src, ctx)
+        if self.probe_filter is not None and ctx.cfg.runtime_join_filters:
+            src = self._prune_stream(src, ctx)
+        comb = None
+        if self.combine is not None and ctx.cfg.hierarchical_exchange_combine:
+            from .exchange.combine import BucketCombiner
+
+            comb = BucketCombiner(self.combine[0], self.combine[1], ctx.stats)
         buckets: List[List[MicroPartition]] = [[] for _ in range(n)]
+
+        def exchange_append(i: int, piece: MicroPartition) -> None:
+            _count_exchanged(piece, ctx)
+            buckets[i].append(piece)
+
         saw = False
-        for part in inputs[0]:
-            saw = True
-            for i, piece in enumerate(part.partition_by_hash(self.by, n)):
-                if len(piece):
-                    buckets[i].append(piece)
+        if self.scheme == "range":
+            # the boundaries need every input, so the partitions are buffered
+            # and their keys sampled as they stream in
+            parts: List[MicroPartition] = []
+            samples = []
+            for p in src:
+                samples.append(sample_partition_keys(p, self.by, n, ctx.cfg.sample_size_for_sort))
+                parts.append(p)
+            saw = bool(parts)
+            if saw:
+                boundaries = boundaries_from_samples(samples, self.by, n, self.descending,
+                                                     self.nulls_first)
+            while parts:
+                p = parts.pop(0)
+                pieces = p.partition_by_range(self.by, boundaries, self.descending,
+                                              self.nulls_first)
+                for i, piece in enumerate(pieces):
+                    exchange_append(min(i, n - 1), piece)
+        else:
+            for pi, p in enumerate(src):
+                saw = True
+                pieces = (p.partition_by_hash(self.by, n) if self.scheme == "hash"
+                          else p.partition_by_random(n, seed=pi))
+                for i, piece in enumerate(pieces):
+                    if comb is None or comb.failed:
+                        exchange_append(i, piece)
+                        continue
+                    flushed = comb.add(i, piece)
+                    if flushed is not None:
+                        # the fold declined: what was staged goes on raw, and
+                        # combining stops (stage 2 merges partials of any
+                        # granularity)
+                        for b, part in flushed:
+                            exchange_append(b, part)
+            if comb is not None:
+                for b, part in comb.finish():
+                    exchange_append(b, part)
         if not saw:
             return
         ctx.stats.bump("shuffles")
@@ -384,7 +504,57 @@ class ShuffleOp(PhysicalOp):
 
     def describe(self):
         by = ", ".join(e._node.display() for e in self.by)
-        return f"Shuffle[hash, {self.num_partitions}] by [{by}]"
+        tags = []
+        if self.filter_feed is not None:
+            tags.append("join-filter-feed")
+        if self.probe_filter is not None:
+            tags.append("join-filter-probe")
+        if self.combine is not None:
+            tags.append("combine")
+        tag = f" <{'+'.join(tags)}>" if tags else ""
+        return (f"Shuffle[{self.scheme}] -> {self.num_partitions}" + (f" by [{by}]" if by else "")
+                + tag)
+
+
+def sample_partition_keys(p: MicroPartition, by: List[Expression], num: int,
+                          sample_size: int = 20):
+    """The sampled sort-key rows of one partition (an empty Table for an
+    empty one): ``max(sample_size, sample_size * num)`` rows, or all."""
+    keys = p.table().eval_expression_list(by)
+    if len(keys) == 0:
+        return keys
+    k = min(len(keys), max(sample_size, sample_size * num))
+    return keys.sample(size=k, seed=0) if k < len(keys) else keys
+
+
+def boundaries_from_samples(samples, by: List[Expression], num: int,
+                            descending: List[bool],
+                            nulls_first: Optional[List[Optional[bool]]] = None):
+    """``num - 1`` quantile boundary rows of the partitions' key samples."""
+    import numpy as np
+    import pyarrow as pa
+
+    from .series import Series
+    from .table import Table
+
+    key_tables = [s for s in samples if s is not None and len(s) > 0]
+    if not key_tables:
+        return next(s for s in samples if s is not None).slice(0, 0)
+    allk = Table.concat(key_tables)
+    allk = allk.sort([col(n) for n in allk.column_names], descending=descending,
+                     nulls_first=nulls_first)
+    m = len(allk)
+    idxs = [min(max(int(np.floor(m * (i + 1) / num)), 0), m - 1) for i in range(num - 1)]
+    return allk.take(Series.from_arrow(pa.array(np.asarray(idxs, dtype=np.uint64)), "i"))
+
+
+def sample_boundaries(parts: List[MicroPartition], by: List[Expression], num: int,
+                      descending: List[bool],
+                      nulls_first: Optional[List[Optional[bool]]] = None,
+                      sample_size: int = 20):
+    """Boundary rows of partitions already in memory."""
+    samples = [sample_partition_keys(p, by, num, sample_size) for p in parts]
+    return boundaries_from_samples(samples, by, num, descending, nulls_first)
 
 
 def _pipelined_join(ctx, pairs, how: str, suffix: str):
@@ -408,8 +578,10 @@ def _pipelined_join(ctx, pairs, how: str, suffix: str):
 
 class HashJoinOp(PhysicalOp):
     """Partition-aligned join: partition i of the left joins partition i of
-    the right. ``translate`` gathers each side into one partition first when
-    either has several (the port has no shuffle yet)."""
+    the right. When either side has several partitions, ``translate`` puts
+    a hash ShuffleOp under each side, which co-partitions them. The left
+    side is drained first, so its exchange seals the runtime join filter
+    before the right side's exchange prunes with it."""
 
     def __init__(self, left: PhysicalOp, right: PhysicalOp, left_on, right_on,
                  how: str, schema: Schema, suffix: str = "right."):
@@ -450,15 +622,51 @@ class BroadcastJoinOp(PhysicalOp):
         self.small_is_left = small_is_left
         self.suffix = suffix
 
+    def _filter_prunable(self) -> bool:
+        """Whether the streamed (big) side may be pruned by a filter built
+        from the replicated side's keys: the big side is the right side
+        exactly when the small side is the left."""
+        from .exchange.joinfilter import prunable
+
+        return prunable(self.how, probe_is_right=self.small_is_left)
+
+    def _build_small_filter(self, small: MicroPartition, ctx):
+        """The Bloom + min-max filter over the collected small side's keys,
+        or None (knob off, not prunable, ineligible key dtypes, or too many
+        build rows)."""
+        if not ctx.cfg.runtime_join_filters or not self._filter_prunable():
+            return None
+        from .exchange.joinfilter import JoinFilterSlot
+
+        slot = JoinFilterSlot(self.small_on, self.big_on, self.children[1].schema,
+                              self.children[0].schema, self.how)
+        if not slot.eligible:
+            return None
+        slot.begin()
+        for t in small.chunk_tables():
+            slot.feed(t)
+        slot.seal()
+        jf = slot.filter()
+        if jf is not None:
+            ctx.stats.bump("join_filter_built")
+        return jf
+
     def execute(self, inputs, ctx) -> PartStream:
         small_parts = list(inputs[1])
         small = (MicroPartition.concat(small_parts) if len(small_parts) > 1
                  else small_parts[0] if small_parts
                  else MicroPartition.empty(self.children[1].schema))
+        # the small side is the build side: each streamed big partition is
+        # pruned by its filter before the probe
+        jf = self._build_small_filter(small, ctx)
         ctx.stats.bump("broadcast_joins")
 
         def pairs():
+            from .exchange.joinfilter import prune_partition
+
             for part in inputs[0]:
+                if jf is not None:
+                    part = prune_partition(part, jf, self.big_on, ctx)
                 if self.small_is_left:
                     yield small, part, self.small_on, self.big_on
                 else:
@@ -537,20 +745,27 @@ def _translate(plan: LogicalPlan, cfg) -> PhysicalOp:
     if isinstance(plan, Limit):
         return LimitOp(_translate(plan.input, cfg), plan.limit)
     if isinstance(plan, Sort):
-        return SortOp(_gathered(_translate(plan.input, cfg)), plan.sort_by,
-                      plan.descending, plan.nulls_first)
+        child = _translate(plan.input, cfg)
+        if child.num_partitions > 1:
+            child = ShuffleOp(child, "range", child.num_partitions, plan.sort_by,
+                              plan.descending, plan.nulls_first)
+        return SortOp(child, plan.sort_by, plan.descending, plan.nulls_first)
     if isinstance(plan, Repartition):
         child = _translate(plan.input, cfg)
         num = plan.num if plan.num is not None else child.num_partitions
         if plan.scheme == "into":
             return child if num == child.num_partitions else CoalesceOp(child, num)
-        return ShuffleOp(child, num, plan.by)
+        if plan.scheme == "hash":
+            return ShuffleOp(child, "hash", num, plan.by)
+        if plan.scheme == "range":
+            return ShuffleOp(child, "range", num, plan.by, plan.descending)
+        return ShuffleOp(child, "random", num)
     if isinstance(plan, Distinct):
         child = _translate(plan.input, cfg)
         out = DistinctOp(child, plan.subset)
         if child.num_partitions > 1:
             keys = plan.subset or [col(c) for c in plan.schema.field_names()]
-            out = DistinctOp(ShuffleOp(out, child.num_partitions, keys), plan.subset)
+            out = DistinctOp(ShuffleOp(out, "hash", child.num_partitions, keys), plan.subset)
         return out
     if isinstance(plan, Aggregate):
         return _translate_aggregate(plan, cfg)
@@ -653,7 +868,7 @@ def _translate_aggregate(plan: Aggregate, cfg) -> PhysicalOp:
         # count_distinct: shuffle the raw rows by key, then aggregate each
         # partition in full
         if plan.groupby:
-            shuffled = ShuffleOp(child, nparts, plan.groupby)
+            shuffled = ShuffleOp(child, "hash", nparts, plan.groupby)
             return AggregateOp(shuffled, plan.aggregations, plan.groupby, plan.schema)
         cd = _global_count_distinct_plan(plan, child, nparts)
         if cd is not None:
@@ -663,7 +878,17 @@ def _translate_aggregate(plan: Aggregate, cfg) -> PhysicalOp:
     key_cols = [col(e.name()) for e in plan.groupby]
     p1 = AggregateOp(child, stage1, plan.groupby,
                      _stage_schema(plan.input.schema, stage1, plan.groupby))
-    exchanged = ShuffleOp(p1, nparts, key_cols) if plan.groupby else GatherOp(p1)
+    if plan.groupby:
+        exchanged = ShuffleOp(p1, "hash", nparts, key_cols)
+        if cfg.hierarchical_exchange_combine:
+            # fold the stage-1 pieces bound for one bucket through stage 2
+            # before they are held (only schema-closed exact merges)
+            from .exchange.combine import combine_spec_applicable
+
+            if combine_spec_applicable(stage2, key_cols, p1.schema):
+                exchanged.combine = (stage2, key_cols)
+    else:
+        exchanged = GatherOp(p1)
     p2 = AggregateOp(exchanged, stage2, key_cols, _stage_schema(p1.schema, stage2, key_cols))
     return ProjectOp(p2, key_cols + final, plan.schema)
 
@@ -683,7 +908,7 @@ def _global_count_distinct_plan(plan: Aggregate, child: PhysicalOp,
     if not (isinstance(node, AggExpr) and node.kind == "count_distinct"):
         return None
     alias = e.name()
-    shuffled = ShuffleOp(child, nparts, [Expression(node.child)])
+    shuffled = ShuffleOp(child, "hash", nparts, [Expression(node.child)])
     p1 = AggregateOp(shuffled, [e], [], _stage_schema(plan.input.schema, [e], []))
     total = [col(alias).sum().alias(alias)]
     return AggregateOp(GatherOp(p1), total, [], _stage_schema(p1.schema, total, []))
@@ -705,8 +930,22 @@ def _translate_join(plan: Join, cfg) -> PhysicalOp:
                                    plan.schema, small_is_left=True, suffix=plan.suffix)
         return BroadcastJoinOp(left, right, plan.left_on, plan.right_on, plan.how,
                                plan.schema, small_is_left=False, suffix=plan.suffix)
-    if max(left.num_partitions, right.num_partitions) > 1:
-        left, right = GatherOp(left), GatherOp(right)
+    nparts = max(left.num_partitions, right.num_partitions)
+    if nparts > 1:
+        # co-partition both sides; the left exchange (drained first) builds
+        # the runtime join filter from its keys and the right one prunes
+        # with it, where the join type allows pruning the right side
+        from .exchange.joinfilter import JoinFilterSlot, prunable
+
+        lshuf = ShuffleOp(left, "hash", nparts, plan.left_on)
+        rshuf = ShuffleOp(right, "hash", nparts, plan.right_on)
+        if cfg.runtime_join_filters and prunable(plan.how, probe_is_right=True):
+            slot = JoinFilterSlot(plan.left_on, plan.right_on, left.schema, right.schema,
+                                  plan.how)
+            if slot.eligible:
+                lshuf.filter_feed = slot
+                rshuf.probe_filter = slot
+        left, right = lshuf, rshuf
     return HashJoinOp(left, right, plan.left_on, plan.right_on, plan.how, plan.schema,
                       plan.suffix)
 
@@ -734,7 +973,3 @@ def _choose_join_strategy(plan: Join, cfg) -> str:
     if size is not None and size <= cfg.broadcast_join_size_bytes_threshold:
         return "broadcast"
     return "hash"
-
-
-def _gathered(child: PhysicalOp) -> PhysicalOp:
-    return GatherOp(child) if child.num_partitions > 1 else child

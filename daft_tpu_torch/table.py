@@ -4,9 +4,10 @@ daft_tpu/table.py). Host kernels are pyarrow compute and numpy.
 The host join is ``hash_join`` (pyarrow acero, every join type), and
 ``join_from_indices`` assembles a join's output from the row-index pairs of
 the device probe. ``partition_by_hash`` splits rows by the reference's
-row hash (kernels/host_hash.py) for the hash shuffle. Left out of this
-slice: the sort-merge and cross joins, explode/unpivot/pivot, distinct,
-sampling, range/random partitioning, the acero fused filter+aggregate plans
+row hash (kernels/host_hash.py) for the hash shuffle, ``partition_by_range``
+by sampled boundary rows for the range shuffle, ``partition_by_random`` by
+a seeded draw. Left out of this slice: the sort-merge and cross joins,
+explode/unpivot/pivot, distinct, the acero fused filter+aggregate plans
 and the optional C++ ``native`` group-code pass (group codes take the numpy route here). The grouped
 aggregation keeps the bincount and arrow hash-agg routes for sum, mean,
 count, min and max.
@@ -435,10 +436,50 @@ class Table:
         if len(self) == 0:
             return [self] * num_partitions
         buckets = (self.hash_rows(exprs) % np.uint64(num_partitions)).astype(np.int64)
+        return self._split_by_buckets(buckets, num_partitions)
+
+    def partition_by_random(self, num_partitions: int, seed: int = 0) -> List["Table"]:
+        """Split the rows into ``num_partitions`` tables by a seeded draw of
+        a bucket per row (the reference's RandomState stream, so equal
+        seeds give equal buckets in both packages)."""
+        rng = np.random.RandomState(seed & 0x7FFFFFFF)
+        buckets = rng.randint(0, num_partitions, size=len(self))
+        return self._split_by_buckets(buckets, num_partitions)
+
+    def partition_by_range(self, exprs: Sequence[Expression], boundaries: "Table",
+                           descending: Optional[List[bool]] = None,
+                           nulls_first: Optional[List[Optional[bool]]] = None) -> List["Table"]:
+        """Split the rows by comparing their sort keys with the boundary
+        rows: bucket i holds the rows with i boundaries at or below them in
+        the sort order (``descending`` and ``nulls_first`` per key; a
+        ``nulls_first`` of None means the sort's default, nulls last
+        ascending and first descending)."""
+        exprs = _as_expressions(exprs)
+        k = len(exprs)
+        descending = _norm_flag(descending, k, False)
+        nulls_first = list(nulls_first) if nulls_first is not None else [None] * k
+        nb = len(boundaries)
+        if nb == 0:
+            return [self]
+        keys = [_broadcast_series(e._node.evaluate(self), len(self)) for e in exprs]
+        ranks = _composite_rank(keys, list(boundaries._columns), descending, nulls_first)
+        return self._split_by_buckets(ranks, nb + 1)
+
+    def _split_by_buckets(self, buckets: np.ndarray, num: int) -> List["Table"]:
+        """Tables 0..num-1 of the rows of each bucket, in row order."""
+        if len(self) == 0:
+            return [self.slice(0, 0) for _ in range(num)]
         order = np.argsort(buckets, kind="stable")
-        offs = np.concatenate([[0], np.cumsum(np.bincount(buckets, minlength=num_partitions))])
+        offs = np.concatenate([[0], np.cumsum(np.bincount(buckets, minlength=num))])
         sorted_tbl = self.take(Series.from_arrow(pa.array(order.astype(np.uint64)), "idx"))
-        return [sorted_tbl.slice(int(offs[i]), int(offs[i + 1])) for i in range(num_partitions)]
+        return [sorted_tbl.slice(int(offs[i]), int(offs[i + 1])) for i in range(num)]
+
+    def sample(self, size: int, seed: int) -> "Table":
+        """``size`` rows (all, when there are fewer) drawn without
+        replacement as the reference draws them: the first ``size`` of a
+        RandomState(``seed``) permutation."""
+        idx = np.random.RandomState(seed).permutation(len(self))[:size]
+        return self.take(Series.from_arrow(pa.array(idx.astype(np.uint64)), "idx"))
 
     # ------------------------------------------------------------------ aggregation
     def agg(self, to_agg: Sequence[Expression], group_by: Optional[Sequence[Expression]] = None) -> "Table":
@@ -491,6 +532,42 @@ def _norm_flag(v, k: int, default):
     if len(out) != k:
         raise DaftValueError(f"expected {k} flags, got {len(out)}")
     return out
+
+
+def _composite_rank(keys: List[Series], bounds: List[Series], descending: List[bool],
+                    nulls_first: List[Optional[bool]]) -> np.ndarray:
+    """For each row, the number of boundary rows at or below it in the
+    lexicographic sort order, with each key's direction and null placement
+    as ``Table.argsort`` orders them, so range partitions align with the
+    sort."""
+    n = len(keys[0])
+    nb = len(bounds[0])
+    ge_all = np.zeros((nb, n), dtype=bool)
+    for bi in range(nb):
+        cmp_state = np.zeros(n, dtype=np.int8)  # -1 lt, 0 eq, +1 gt (in sort order)
+        for s, b, d, nf in zip(keys, bounds, descending, nulls_first):
+            eq_mask = cmp_state == 0
+            if not eq_mask.any():
+                break
+            sv = s.to_arrow()
+            bscalar = b.slice(bi, bi + 1).to_arrow()[0]
+            lt = np.asarray(pc.fill_null(pc.less(sv, bscalar), False))
+            gt = np.asarray(pc.fill_null(pc.greater(sv, bscalar), False))
+            if d:
+                lt, gt = gt, lt
+            isnull = np.asarray(pc.is_null(sv))
+            nulls_at_start = nf if nf is not None else d
+            if not bscalar.is_valid:  # non-null rows against a null boundary
+                none = np.zeros(n, dtype=bool)
+                lt2, gt2 = (none, ~isnull) if nulls_at_start else (~isnull, none)
+            elif nulls_at_start:
+                lt2, gt2 = np.where(isnull, True, lt), np.where(isnull, False, gt)
+            else:
+                lt2, gt2 = np.where(isnull, False, lt), np.where(isnull, True, gt)
+            cmp_state = np.where(eq_mask & lt2, -1, cmp_state)
+            cmp_state = np.where(eq_mask & gt2, 1, cmp_state)
+        ge_all[bi] = cmp_state >= 0
+    return ge_all.sum(axis=0).astype(np.int64)
 
 
 def _group_codes(key_tbl: Table) -> Tuple[np.ndarray, Table]:

@@ -487,10 +487,31 @@ def test_into_partitions_matches_reference(sizes, num):
 
 
 def test_random_and_range_repartitions_still_raise():
+    """The random and range schemes are ported now: each gives the
+    reference's partitions, row for row, and its plan text. The name dates
+    from before their port and is kept, so that test reports stay
+    comparable across versions."""
+    from daft_tpu.logical import Repartition as RefRepartition
+    from daft_tpu.physical import translate as ref_translate
     from daft_tpu_torch.logical import Repartition
+    from daft_tpu_torch.physical import translate as port_translate
 
-    f = daft_tpu_torch.from_pydict({"a": [1, 2, 3]})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        f.repartition(2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Repartition(f._plan, "range", 2, [daft_tpu_torch.col("a")])
+    data = {"a": [5, 1, 4, 2, 3, 9, 7, 8, 6, 0] * 3}
+    daft_tpu_torch.set_execution_config(device="cpu")
+
+    def parts(pkg, plan_of):
+        df = pkg.DataFrame(plan_of(pkg, pkg.from_pydict(data).into_partitions(3)))
+        plan = df._plan
+        out = [(p.to_arrow() if pkg is daft_tpu else p.table().to_arrow()).column("a").to_pylist()
+               for p in df.collect()._result.partitions]
+        return out, plan
+
+    for plan_of in (lambda pkg, f: f.repartition(2)._plan,
+                    lambda pkg, f: (RefRepartition if pkg is daft_tpu else Repartition)(
+                        f._plan, "range", 2, [pkg.col("a")], [True])):
+        ref, rplan = parts(daft_tpu, plan_of)
+        got, gplan = parts(daft_tpu_torch, plan_of)
+        assert got == ref and len(got) == 2
+        assert (port_translate(gplan).display_tree()
+                == ref_translate(rplan, daft_tpu.context.get_context().execution_config)
+                .display_tree())

@@ -133,10 +133,12 @@ def test_tpch_join_query_matches_reference(tables, query):
     gc, rc = _counters(got), _counters(ref)
     assert {k: gc.get(k, 0) for k in _SHARED} == {k: rc.get(k, 0) for k in _SHARED}
     assert gc["device_join_probes"] == {"q3": 2, "q5": 3}[query]
-    # The one difference, with its reason: the runtime join filter (K10,
-    # exchange/joinfilter.py) is not ported; the reference prunes probe rows
-    # with it, which leaves results as they are
-    assert rc.get("join_filter_built", 0) >= 1 and "join_filter_built" not in gc
+    # each broadcast join builds the runtime join filter over its replicated
+    # side and prunes the streamed side with it, as the reference does
+    jf = ("join_filter_built", "join_filter_probe_rows", "join_filter_rows_pruned",
+          "join_filter_device_probes")
+    assert {k: gc.get(k, 0) for k in jf} == {k: rc.get(k, 0) for k in jf}
+    assert gc.get("join_filter_built", 0) >= 1
     # both optimizers prune each join side under a Project; the chains fuse
     # and run on the card (Q3's c_mktsegment == "BUILDING" through the
     # string-literal lane; Q5's 25-row nation chain stays on the host)
@@ -414,22 +416,27 @@ def test_right_and_outer_joins_match_reference(how, strategy):
 
 
 def test_multi_partition_hash_join_gathers():
-    """The port has no shuffle: a hash join over several partitions gathers
-    each side into one partition and joins once."""
+    """A hash join over several partitions no longer gathers them: both
+    sides hash-shuffle to the larger partition count (3), each
+    co-partitioned pair probes on the card, and the left exchange's join
+    filter prunes the right side, as in the reference. The name dates from
+    when such a join gathered both sides and is kept, so that test reports
+    stay comparable across versions."""
     rng = np.random.RandomState(3)
     parts = [pa.table({"k": rng.randint(0, 200, 500), "v": rng.rand(500)}) for _ in range(3)]
     right = pa.table({"k": np.arange(200), "w": rng.rand(200)})
 
     def build(pkg):
-        left = pkg.from_arrow(pa.concat_tables(parts)).collect() if pkg is daft_tpu else \
-            daft_tpu_torch.dataframe.from_partitions(
-                [daft_tpu_torch.micropartition.MicroPartition.from_arrow(p) for p in parts],
-                daft_tpu_torch.from_arrow(parts[0]).schema)
+        left = pkg.from_arrow(parts)
         return left.join(pkg.from_arrow(right), on="k", strategy="hash").collect()
 
     ref, got = _both(build)
-    c = _counters(got)
-    assert c.get("device_join_probes", 0) == 1 and "broadcast_joins" not in c
+    c, rc = _counters(got), _counters(ref)
+    shared = ("device_join_probes", "host_joins", "shuffles", "exchange_rows",
+              "join_filter_built", "join_filter_probe_rows", "join_filter_rows_pruned")
+    assert {k: c.get(k, 0) for k in shared} == {k: rc.get(k, 0) for k in shared}
+    assert c.get("device_join_probes", 0) == 3 and "broadcast_joins" not in c
+    assert c["shuffles"] == 2 and c["join_filter_built"] == 1
     assert _sorted_rows(got) == _sorted_rows(ref)
 
 

@@ -237,9 +237,17 @@ def test_hash_repartition_matches_reference(num):
 
 
 def test_random_repartition_is_not_ported():
-    frame = daft_tpu_torch.from_pydict({"a": [1, 2, 3]})
-    with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
-        frame.repartition(2)
+    """The random repartition is ported now: without keys, repartition(n)
+    draws each row's partition as the reference does (a RandomState seeded
+    by the source partition's index), partition for partition. The name
+    dates from before its port and is kept, so that test reports stay
+    comparable across versions."""
+    def query(pkg, f):
+        return f.repartition(4)
+
+    (ref, rc), (got, gc) = _both(_parts(3, n=100), query)
+    assert got == ref
+    assert gc.get("shuffles") == rc.get("shuffles") == 1
 
 
 @pytest.mark.parametrize("hook", ["filter", "projection", "distinct"])

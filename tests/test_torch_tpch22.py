@@ -17,9 +17,8 @@ reference's expressions.
   equals the reference's, but for the pinned differences below, each with
   its reason, and the aggregate and lane routes equal the tables that
   chip_smoke.py holds the card's run to at SF1.
-  The multi-partition layout is left out of that comparison: a sort or a
-  hash join over several partitions gathers them in the port, where the
-  reference exchanges them (ROADMAP Queue 1, item 9).
+  tests/test_torch_tpch22_partitions.py compares the routing in the
+  multi-partition layout.
 """
 
 import dataclasses
@@ -54,11 +53,6 @@ PORT_COUNTERS = (
 
 # (port, reference) values of the counters that differ, with the reason
 PINNED = {
-    # the reference's runtime join filter (K10, exchange/joinfilter.py, not
-    # ported) prunes probe rows: region's one row leaves 9 of supplier-nation's
-    # 50 rows, and part's one row none of partsupp's, so that pair has fewer
-    # than device_min_rows rows on both sides and joins on the host
-    2: {"device_join_dispatches": (7, 6), "device_join_probes": (7, 6), "host_joins": (1, 2)},
     # the second aggregate groups by c_count, a uint64 count: the port's group
     # codes narrow it to int32 lanes on the card, where the reference's uint32
     # lanes overflow its sentinel and it catches the error and encodes on the host

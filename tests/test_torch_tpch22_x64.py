@@ -41,10 +41,6 @@ __all__ = ["_restore_port_config", "data", "port_queries"]  # fixtures used by n
 
 # (port, reference) values of the counters that differ, with the reason
 PINNED_X64 = {
-    # the reference's runtime join filter (K10, exchange/joinfilter.py, not
-    # ported) prunes probe rows, as in the 32-bit mode: that pair has fewer
-    # than device_min_rows rows on both sides and joins on the host
-    2: {"device_join_dispatches": (7, 6), "device_join_probes": (7, 6), "host_joins": (1, 2)},
     # the second aggregate groups by c_count, a uint64 count: the port's
     # group codes run over its int64 bits on the card, where the
     # reference's group-codes kernel takes the uint64 maximum as its

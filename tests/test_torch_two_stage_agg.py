@@ -227,12 +227,14 @@ def test_tpch_query_in_three_partitions(lineitem, query):
     oracle = (tpch.oracle_q1(lineitem) if query == "q1"
               else {"revenue": [tpch.oracle_q6(lineitem)]})
     assert parity(got, oracle, RTOL) and parity(ref, oracle, RTOL)
-    # Q1's sort gathers in the port and range-shuffles in the reference, so
-    # only the aggregate's counters compare: three stage-1 aggregations on
-    # the card side, and stage 2 over the few partials
+    # three stage-1 aggregations on the card side and stage 2 over the few
+    # partials; Q1's sort range-shuffles its three partitions in both
+    # packages (its second shuffle) and sorts each of them
     assert got_c["device_aggregations"] == ref_c["device_aggregations"] >= 3
     assert got_c.get("host_aggregations", 0) == ref_c.get("host_aggregations", 0)
-    assert got_c.get("shuffles", 0) == int(query == "q1")
+    assert got_c.get("shuffles", 0) == ref_c.get("shuffles", 0) == 2 * int(query == "q1")
+    for k in ("device_sorts", "host_sorts"):
+        assert got_c.get(k, 0) == ref_c.get(k, 0), k
     assert got_c.get("device_agg_fallbacks", 0) == 0
 
 

@@ -488,6 +488,22 @@ def test_composite_key_past_int32_joins_on_the_card():
     assert len(got.to_pydict()["x"]) == len(ref.to_pydict()["x"]) >= 700
 
 
+def test_uint64_key_join_probes_on_the_card_where_the_reference_joins_on_the_host():
+    """A uint64-key self join (keys 2**40 + 0..7). Pinned: the reference's
+    probe passes the uint64 maximum to jnp.where as its sentinel
+    (daft_tpu/kernels/device_join.py:58-59), jax raises OverflowError, and
+    the pair joins on the host (host_joins 1). The port's uint64 lanes hold
+    int64 bits below 2**63 and probe on the card (device_join_probes 1).
+    The rows are equal."""
+    tbl = pa.table({"u": pa.array(2 ** 40 + np.arange(8), pa.uint64()),
+                    "x": pa.array(np.arange(8), pa.int64())})
+    ref, got = run_both(lambda pkg, l, r: l.join(r, on="u"), [tbl, tbl])
+    r, g = ref.to_pydict(), got.to_pydict()
+    assert sorted(zip(*g.values())) == sorted(zip(*r.values())) and len(g["u"]) == 8
+    assert (routes(got)["device_join_probes"], routes(ref)["host_joins"]) == (1, 1)
+    assert (routes(got)["host_joins"], routes(ref)["device_join_probes"]) == (0, 0)
+
+
 # ---------------------------------------------------------------------------
 # The float64 scatter kernel's plain version
 # ---------------------------------------------------------------------------
