@@ -7,6 +7,7 @@ kernels build for sm_90a):
     python3 chip_smoke.py --scales 1     # a shorter run: SF1 only
     python3 chip_smoke.py --profile      # also trace warm Q1/Q6 (1 and 4 partitions), deep Q1, Q3 and Q5 at the first scale, with Q3's and Q5's phases, and the five slowest of the 22 queries
     python3 chip_smoke.py --kernels-only # phases 1 and 2 only, for iterating on a kernel
+    python3 chip_smoke.py --ab TREE      # no phase: warm SF1 times through TREE's port (ab_times)
 
 Phases, each of which fails the run:
   1. build every kernel of the main path from the sources in the checkout,
@@ -100,7 +101,30 @@ Phases, each of which fails the run:
      routing and launches read around it, timed cold and warm with the
      exchange's host share and the device's idle share. Phase 4's SF0.005
      run in 3 partitions also holds each query's routing to
-     TPCH22_ROUTES_3P.
+     TPCH22_ROUTES_3P;
+  8. faults on the card (needs SF1 in --scales), in the 32-bit mode over
+     phase 3's SF1 lineitem and phase 7's SF1 tables, each in 4 partitions
+     (phase_faults): composed Q1 with the device.kernel fault site armed
+     always (threshold 2: one trip, two injected faults, two degraded
+     partitions, K1 never launched) and first_n 1 (threshold 1, cooldown 0:
+     one trip, one recovery, K1 on the other 3 partitions); deep Q1 as a
+     DeviceSegmentOp with fuse.segment armed nth 2 (the first resident
+     handoff fails, its partition runs the staged ops, K2 launches on all
+     4); the hash-join Q3 with join.filter armed always (nothing pruned,
+     equal rows by q3_parity, the probes and float sums still on the
+     card); each beside its unarmed run, its counters pinned by
+     FAULT_PINS, which tests/test_torch_faults.py pins for both packages on
+     the CPU. Then K1's wrapper replaced by one that raises DaftKernelError
+     (collect() raises it and the breaker stays closed), a deadline of 1e-6
+     s (DaftTimeoutError with deadline_expired), and, with nothing armed,
+     warm Q1 and Q6 beside phase 3's runs of the same call.
+
+Every query of phases 1-7 is held to 0 device_attempt_failures,
+device_breaker_trips, degraded_completions, faults_injected,
+join_filter_errors and every
+*_fallbacks counter (Phases.watch reads them as collect() returns, and each
+phase's line says how many queries it read), so that no failure the device
+path caught can hide behind a passing route.
 
 The last line of standard output is {"ok": true, "device": {...}} when every
 phase passed; the exit code is 0 only then. The line before it is the card's
@@ -375,15 +399,61 @@ def same_bits(a, b) -> bool:
             and torch.equal(a.view(ints), b.view(ints)))
 
 
+# counters every query of phases 1-7 must leave at 0, with every counter
+# named *_fallbacks: a failure the device path caught (a device attempt that
+# failed, a breaker trip, a degraded partition, an injected fault, a join
+# filter that failed open) must not hide behind a passing route
+HEALTH_COUNTERS = ("device_attempt_failures", "device_breaker_trips", "degraded_completions",
+                   "faults_injected", "join_filter_errors")
+
+
 class Phases:
     def __init__(self):
         self.failures = []
+        self.phase = None     # the phase whose queries are held to HEALTH_COUNTERS
+        self.queries = 0      # ... how many of them collected so far
+        self.unhealthy = 0    # ... and how many of those caught a failure
 
     def check(self, ok: bool, what: str) -> bool:
         print(("PASS " if ok else "FAIL ") + what, flush=True)
         if not ok:
             self.failures.append(what)
         return ok
+
+    def watch(self) -> None:
+        """Hold every query collected from now on to 0 in HEALTH_COUNTERS
+        and in every *_fallbacks counter while a phase is open (``begin``):
+        DataFrame.collect checks the query's counters as it returns."""
+        from daft_tpu_torch.dataframe import DataFrame
+
+        real, ph = DataFrame.collect, self
+
+        def collect(df):
+            fresh = df._result is None
+            out = real(df)
+            if fresh and ph.phase is not None:
+                ph.queries += 1
+                c = df.stats.snapshot()["counters"]
+                bad = {k: v for k, v in c.items()
+                       if v and (k in HEALTH_COUNTERS or k.endswith("_fallbacks"))}
+                if bad:
+                    ph.unhealthy += 1
+                    print(f"{ph.phase}: query {ph.queries} caught a failure on the device "
+                          f"path: {bad}", flush=True)
+            return out
+
+        DataFrame.collect = collect
+
+    def begin(self, phase) -> None:
+        """Close the open phase, failing it if a query of it caught a
+        failure, and open ``phase`` (None: no phase, as in phase 8, which
+        arms faults)."""
+        if self.phase is not None:
+            self.check(self.unhealthy == 0,
+                       f"{self.phase}: {self.queries - self.unhealthy} of its {self.queries} "
+                       f"queries with 0 failed attempts, trips, degraded completions, "
+                       f"injected faults, join-filter errors and fallbacks")
+        self.phase, self.queries, self.unhealthy = phase, 0, 0
 
 
 # ---------------------------------------------------------------------------
@@ -515,6 +585,18 @@ def enumerate_deep_programs() -> list:
     lanes = {k: dtt.from_arrow(v).collect()
              for k, v in lane_tables(tpch_full.generate(scale=0.001, seed=7)).items()}
     lane_queries(dtt)["timestamps_deep"][0](lanes).collect()
+    # phase 8's deep segment over 4 partitions: its stage-1 program, and the
+    # staged ops' program (the plan with residency off) that a failed
+    # resident handoff runs; stage 2 stays on the host, under
+    # device_min_rows, as at SF1
+    build = fault_cases()["q1_segment_handoff"][0]
+    li = small.to_arrow()
+    four = dtt.from_arrow([li.slice(i * 1024, 1024) for i in range(FAULT_PARTS)]).collect()
+    for residency in (True, False):
+        dtt.set_execution_config(dtt.ExecutionConfig(
+            device="cpu", device_min_rows=64, use_deep_fusion_kernel=True,
+            device_residency=residency))
+        build({"lineitem_4": four}).collect()
     return fes.programs()
 
 
@@ -1117,19 +1199,29 @@ def device_profile(run, reps: int) -> tuple:
              "device_events": 0}, kernels)
 
 
-def warm_median(query, frame, runs: int = 5, fetch: str = "to_pydict") -> dict:
+def warm_median(query, frame, runs: int = 5, fetch: str = "to_pydict",
+                keep: bool = False) -> dict:
     """Warm wall time of ``query(frame)``: collect, then ``fetch`` the
-    result (to_arrow for results of millions of rows)."""
+    result (to_arrow for results of millions of rows). ``keep`` adds every
+    run's time (``warm_s``) and the median of each operator's wall time
+    over the runs (``op_ms``, from the query's RuntimeStats)."""
     import torch
 
-    warm = []
+    warm, ops = [], {}
     for _ in range(runs):
         t0 = time.perf_counter()
-        getattr(query(frame).collect(), fetch)()
+        df = query(frame).collect()
+        getattr(df, fetch)()
         torch.cuda.synchronize()
         warm.append(time.perf_counter() - t0)
-    return {"warm_median_s": statistics.median(warm), "warm_min_s": min(warm),
-            "warm_max_s": max(warm), "warm_runs": len(warm)}
+        if keep:
+            for op, ns in df.stats.snapshot()["op_wall_ns"].items():
+                ops.setdefault(op, []).append(ns / 1e6)
+    out = {"warm_median_s": statistics.median(warm), "warm_min_s": min(warm),
+           "warm_max_s": max(warm), "warm_runs": len(warm)}
+    if keep:
+        out.update(warm_s=warm, op_ms={k: statistics.median(v) for k, v in ops.items()})
+    return out
 
 
 def drive(ph: Phases, label: str, query, frame, want: dict, deep: bool, segment: bool,
@@ -2698,6 +2790,257 @@ def phase_exchange(ph: Phases, scale: float, tables: dict, q3_oracle: tuple,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8: faults on the card
+# ---------------------------------------------------------------------------
+
+FAULT_PARTS = 4
+FAULT_COUNTERS = HEALTH_COUNTERS + (
+    "device_breaker_probes", "device_breaker_recoveries", "device_breaker_reopens",
+    "device_aggregations", "host_aggregations", "device_agg_fallbacks", "segment_fallbacks",
+    "device_resident_segments", "device_join_probes", "host_joins", "join_filter_built",
+    "join_filter_rows_pruned", "join_filter_device_probes", "deadline_expired")
+# what each armed case of phase 8 must count: the CPU test
+# (tests/test_torch_faults.py, the same plans over 4 partitions of a small
+# table) pins the same numbers for daft_tpu and the port. Launches are K1's,
+# K2's (on the CPU: their wrappers' entries)
+FAULT_PINS = {
+    # device.kernel always, threshold 2: stage 1's first two partitions fail
+    # and trip the breaker, the other two are degraded; stage 2 and the sort
+    # take the host below device_min_rows (plain routing)
+    "q1_kernel_always": {"device_breaker_trips": 1, "faults_injected": 2,
+                         "device_attempt_failures": 2, "degraded_completions": 2,
+                         "device_aggregations": 0, "k1": 0},
+    # device.kernel first_n 1, threshold 1, cooldown 0: the first partition
+    # trips the breaker, the second probes and closes it again
+    "q1_kernel_first": {"device_breaker_trips": 1, "device_breaker_recoveries": 1,
+                        "faults_injected": 1, "device_attempt_failures": 1,
+                        "degraded_completions": 0,
+                        "device_aggregations": 3, "k1": 3},
+    # fuse.segment nth 2 (call 1 is the segment's compile at planning, call 2
+    # the first resident handoff): the first partition runs the staged ops
+    "q1_segment_handoff": {"faults_injected": 1, "device_attempt_failures": 1,
+                           "segment_fallbacks": 1,
+                           "device_resident_segments": 1, "device_breaker_trips": 0, "k2": 4},
+    # join.filter always: every build feed fails, nothing is pruned (the
+    # filter's own fail-open takes it: no device attempt fails)
+    "q3_join_filter": {"join_filter_rows_pruned": 0, "join_filter_built": 0,
+                       "device_attempt_failures": 0,
+                       "device_join_probes": 2 * FAULT_PARTS, "host_joins": 0,
+                       "device_breaker_trips": 0},
+}
+
+
+def fault_cases():
+    """Phase 8's armed cases: name -> (the query over the frames, config
+    overrides, the fault plan (site, mode, kwargs))."""
+    return {
+        "q1_kernel_always": (lambda f: q1(f["lineitem_4"]), {"device_breaker_threshold": 2},
+                             ("device.kernel", "always", {})),
+        "q1_kernel_first": (lambda f: q1(f["lineitem_4"]),
+                            {"device_breaker_threshold": 1, "device_breaker_cooldown_s": 0.0},
+                            ("device.kernel", "first_n", {"n": 1})),
+        "q1_segment_handoff": (lambda f: q1_with_columns(f["lineitem_4"]),
+                               {"use_deep_fusion_kernel": True},
+                               ("fuse.segment", "nth", {"n": 2})),
+        "q3_join_filter": (lambda f: q3(f["customer"], f["orders"], f["lineitem"]),
+                           {"broadcast_join_size_bytes_threshold": 0},
+                           ("join.filter", "always", {})),
+    }
+
+
+def phase_faults(ph: Phases, lineitem, tables: dict, q3_oracle: tuple, main_sf1: dict,
+                 card: str) -> dict:
+    """Phase 8: faults on the card, in the 32-bit mode, over phase 3's SF1
+    lineitem and phase 7's SF1 tables, each in 4 partitions. The armed cases
+    of ``fault_cases`` (each with its unarmed run first, its rows held to
+    that run's at rtol 1e-6, Q3's by q3_parity, and its counters and
+    launches to FAULT_PINS); K1's wrapper replaced by one that raises
+    DaftKernelError (collect() raises it, the breaker stays closed); a
+    deadline of 1e-6 s (DaftTimeoutError carrying deadline_expired); and,
+    with nothing armed, warm Q1 and Q6 over one partition (median of 5)
+    beside phase 3's runs of this call: the cost of the disarmed registry
+    and the breaker's gate."""
+    import torch
+
+    import daft_tpu_torch as dtt
+    from daft_tpu_torch import faults
+    from daft_tpu_torch.errors import DaftKernelError, DaftTimeoutError
+    from daft_tpu_torch.kernels import fused_expr_sums as fes
+    from daft_tpu_torch.kernels import scatter_sums as scs
+    from daft_tpu_torch.kernels import segment_sums as ss
+
+    step = -(-lineitem.num_rows // FAULT_PARTS)
+    frames = {"lineitem_4": dtt.from_arrow(
+        [lineitem.slice(i * step, step) for i in range(FAULT_PARTS)]).collect()}
+    for k in ("lineitem", "orders", "customer"):
+        frames[k] = dtt.from_arrow(tables[k]).into_partitions(FAULT_PARTS).collect()
+    want3, groups3 = q3_oracle
+    out = {"k1_launches": 0, "k2_launches": 0, "scatter_launches": 0}
+
+    def drive_case(name, build, overrides, plan=None):
+        dtt.set_execution_config(dtt.ExecutionConfig(**overrides))
+        if plan is not None:
+            faults.arm(plan[0], plan[1], **plan[2])
+        ss.LAUNCHES = fes.LAUNCHES = scs.LAUNCHES = 0
+        t0 = time.perf_counter()
+        try:
+            df = build(frames).collect()
+            got = df.to_pydict()
+            torch.cuda.synchronize()
+        finally:
+            faults.disarm()
+        wall = time.perf_counter() - t0
+        launches = {"k1": ss.LAUNCHES, "k2": fes.LAUNCHES, "scatter": scs.LAUNCHES}
+        for k in launches:
+            out[f"{k}_launches"] += launches[k]
+        c = df.stats.snapshot()["counters"]
+        res = {"wall_s": wall, "launches": launches,
+               "counters": {k: c.get(k, 0) for k in FAULT_COUNTERS if c.get(k, 0)},
+               "plan": None if plan is None else list(plan[:2]) + [plan[2]], "card": card}
+        print(f"SF1 faults {name} " + json.dumps(res), flush=True)
+        return got, c, launches
+
+    for name, (build, overrides, plan) in fault_cases().items():
+        want, c0, _ = drive_case(name + " unarmed", build, overrides)
+        ph.check(all(c0.get(k, 0) == 0 for k in HEALTH_COUNTERS),
+                 f"phase 8 {name}: unarmed, no trip, degraded completion or injected fault")
+        got, c, launches = drive_case(name, build, overrides, plan)
+        same = (q3_parity(got, want3, groups3, RTOL) if name == "q3_join_filter"
+                else parity(got, want, RTOL))
+        ph.check(same, f"phase 8 {name}: rows equal the unarmed run's "
+                       + ("by q3_parity" if name == "q3_join_filter" else f"at rtol {RTOL}"))
+        pins = FAULT_PINS[name]
+        seen = {k: (launches[k] if k in launches else c.get(k, 0)) for k in pins}
+        ph.check(seen == pins, f"phase 8 {name}: counters and launches {seen} (want {pins})")
+        if name == "q3_join_filter":
+            ph.check(c.get("join_filter_errors", 0) > 0
+                     and launches["k1"] + launches["scatter"] >= 1,
+                     f"phase 8 {name}: {c.get('join_filter_errors', 0)} join-filter errors, "
+                     f"float sums through K1 or the scatter kernel ({launches}), the probes "
+                     f"through K7 ({c.get('device_join_probes', 0)})")
+
+    # a failure of the port itself: K1's wrapper raises DaftKernelError
+    real = ss.masked_segment_sums_padded
+
+    def broken(*a, **kw):
+        raise DaftKernelError("masked_segment_sums kernel launch failed: replaced wrapper")
+
+    dtt.set_execution_config(dtt.ExecutionConfig())
+    df = q1(frames["lineitem_4"])
+    ss.masked_segment_sums_padded = broken
+    try:
+        df.collect()
+        raised = None
+    except DaftKernelError as e:
+        raised = e
+    finally:
+        ss.masked_segment_sums_padded = real
+    c = df.stats.snapshot()["counters"]
+    ph.check(raised is not None and c.get("device_breaker_trips", 0) == 0
+             and c.get("degraded_completions", 0) == 0,
+             f"phase 8 kernel_error: collect() raised {type(raised).__name__} ({raised}), "
+             f"the breaker closed (counters {dict((k, c.get(k, 0)) for k in HEALTH_COUNTERS)})")
+
+    # a deadline
+    dtt.set_execution_config(dtt.ExecutionConfig(execution_timeout_s=1e-6))
+    try:
+        q1(frames["lineitem_4"]).collect()
+        err = None
+    except DaftTimeoutError as e:
+        err = e
+    expired = (err.stats.get("counters", {}).get("deadline_expired", 0)
+               if err is not None else 0)
+    ph.check(err is not None and expired >= 1,
+             f"phase 8 deadline: DaftTimeoutError ({err}), deadline_expired {expired}")
+
+    # nothing armed: warm Q1 and Q6 over one partition beside phase 3's runs
+    dtt.set_execution_config(dtt.ExecutionConfig())
+    frame = dtt.from_arrow(lineitem).collect()
+    for name, query in (("q1", q1), ("q6", q6)):
+        ss.LAUNCHES = 0
+        query(frame).collect()
+        out["k1_launches"] += ss.LAUNCHES
+        res = warm_median(query, frame)
+        res.update(phase3_warm_median_s=main_sf1[name]["warm_median_s"],
+                   over_phase3=res["warm_median_s"] / main_sf1[name]["warm_median_s"],
+                   card=card)
+        out[f"{name}_disarmed"] = res
+        print(f"SF1 faults {name}_disarmed " + json.dumps(res), flush=True)
+    del frame, frames
+    torch.cuda.empty_cache()
+    return out
+
+
+def ab_times(tree: str, runs: int = 15) -> dict:
+    """Warm SF1 times through the daft_tpu_torch of ``tree`` (a checkout or
+    a ``git archive`` unpack of the repository), to compare two versions of
+    the port inside one call to the card: run this once per tree, in turns
+    (parent, change, change, parent), one process each. Phase 3's queries
+    in the 32-bit mode: Q1 and Q6 over lineitem (seed 42) in one partition
+    and in 4, and Q3 over generate_tables(1, seed=42) through its broadcast
+    joins, each cold once, then ``runs`` times warm (``warm_median`` with
+    every run and each operator's median wall time); then a cProfile of 5
+    warm runs each of Q1 and Q6 over 4 partitions: the calls and own time
+    of all functions, the 10 of the most own time, and every function of
+    the executor and the fault registry."""
+    import cProfile
+    import os
+    import pstats
+
+    import torch
+
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    import daft_tpu_torch as dtt
+    from benchmarks import tpch
+
+    came_from = os.path.dirname(os.path.dirname(os.path.abspath(dtt.__file__)))
+    if came_from != tree:
+        raise RuntimeError(f"daft_tpu_torch came from {came_from}, not from {tree}")
+    li = tpch.generate_lineitem_only(scale=1.0, seed=42)
+    tables = tpch.generate_tables(scale=1.0, seed=42)
+    step = -(-li.num_rows // 4)
+    one = dtt.from_arrow(li).collect()
+    four = dtt.from_arrow([li.slice(i * step, step) for i in range(4)]).collect()
+    t3 = {k: dtt.from_arrow(v).collect() for k, v in tables.items()}
+    queries = {"q1": (q1, one), "q6": (q6, one), "q1_4_parts": (q1, four),
+               "q6_4_parts": (q6, four),
+               "q3": (lambda t: q3(t["customer"], t["orders"], t["lineitem"]), t3)}
+    dtt.set_execution_config(dtt.ExecutionConfig())
+    out = {"tree": tree, "card": card_line(), "torch": torch.__version__}
+    for name, (query, frame) in queries.items():
+        query(frame).collect().to_pydict()  # cold
+        out[name] = warm_median(query, frame, runs, keep=True)
+    for name in ("q1_4_parts", "q6_4_parts"):
+        query, frame = queries[name]
+        prof = cProfile.Profile()
+        prof.enable()
+        for _ in range(5):
+            query(frame).collect().to_pydict()
+            torch.cuda.synchronize()
+        prof.disable()
+
+        def entry(key, val):
+            (f, line, fn), (_, nc, tt, ct, _) = key, val
+            where = os.path.relpath(f, tree) if f.startswith(tree) else f
+            return {"fn": f"{where}:{line}({fn})", "calls_per_run": nc / 5,
+                    "own_ms_per_run": tt * 200, "cum_ms_per_run": ct * 200}
+
+        stats = pstats.Stats(prof).stats
+        top = sorted(stats.items(), key=lambda kv: -kv[1][2])
+        out[f"{name}_cprofile"] = {
+            "calls_per_run": sum(v[1] for v in stats.values()) / 5,
+            "own_ms_per_run": sum(v[2] for v in stats.values()) * 200,
+            "top": [entry(k, v) for k, v in top[:10]],
+            # the executor and the fault registry, where the breaker, the
+            # fault check and the deadline check live
+            "executor": [entry(k, v) for k, v in top
+                         if k[0].endswith(("daft_tpu_torch/execution.py",
+                                           "daft_tpu_torch/faults.py"))]}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scales", default="1,10",
@@ -2709,6 +3052,9 @@ def main(argv=None) -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="run phases 1 and 2 only (builds and kernel checks); launches print "
                          "as null")
+    ap.add_argument("--ab", metavar="TREE",
+                    help="run no phase: print one JSON line of warm SF1 times through the "
+                         "daft_tpu_torch of TREE (ab_times) and exit")
     args = ap.parse_args(argv)
     started = time.perf_counter()
 
@@ -2717,10 +3063,15 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
+    if args.ab:
+        print(json.dumps(ab_times(args.ab)), flush=True)
+        return 0
     ph = Phases()
     big = None
     try:
         from benchmarks import tpch
+
+        ph.watch()
 
         torch.backends.cuda.matmul.allow_tf32 = False  # no float sum may round through TF32
         torch.backends.cudnn.allow_tf32 = False
@@ -2729,7 +3080,9 @@ def main(argv=None) -> int:
         queries = tpch22_module()
         if not args.kernels_only:  # phase 4's SF1 tables, generated meanwhile
             big = BackgroundTables(1.0, 7)
+        ph.begin("phase 1")
         edges = phase_build(ph)
+        ph.begin("phase 2")
         k1_entry = phase_k1(ph)
         sc_entry = phase_scatter(ph)
         sc64_entry = phase_scatter(ph, torch.float64) if args.kernels_only else None
@@ -2752,6 +3105,7 @@ def main(argv=None) -> int:
                       f"{time.perf_counter() - t0:.1f}s", flush=True)
             print(f"elapsed {time.perf_counter() - started:.1f}s: phase 3 at SF{scale:g}",
                   flush=True)
+            ph.begin(f"phase 3 at SF{scale:g}")
             res = phase_main_path(ph, scale, tables[scale], card, args.profile and i == 0)
             if scale == 1.0:  # the two-stage aggregate over 4 partitions
                 res["k1_launches"] += phase_multi_partition(
@@ -2763,9 +3117,13 @@ def main(argv=None) -> int:
             # phase 7 over the same tables, at every scale
             print(f"elapsed {time.perf_counter() - started:.1f}s: phase 7 at SF{scale:g}",
                   flush=True)
-            exchange[scale] = phase_exchange(ph, scale, xtables, joins.pop("q3_oracle"), card)
+            ph.begin(f"phase 7 at SF{scale:g}")
+            q3_oracle = joins.pop("q3_oracle")
+            exchange[scale] = phase_exchange(ph, scale, xtables, q3_oracle, card)
             if scale == 1.0:
                 join_tables = xtables
+                main_sf1, q3_oracle_sf1 = res, q3_oracle  # phase 8 reads them
+            del q3_oracle
             del xtables
             if i == 0:
                 k1_entry["launches"] = res["k1_launches"] + joins["q5"]["launches"]["k1"]
@@ -2784,10 +3142,14 @@ def main(argv=None) -> int:
                   f"the generator started (waited {time.perf_counter() - t0:.1f}s; "
                   + ", ".join(f"{k} {v.num_rows}" for k, v in data.items()) + ")", flush=True)
             print(f"elapsed {time.perf_counter() - started:.1f}s: phase 4", flush=True)
+            ph.begin("phase 4")
             t22 = phase_tpch22(ph, queries, data, card, args.profile)
             print(f"elapsed {time.perf_counter() - started:.1f}s: phase 5", flush=True)
+            ph.begin("phase 5")
             lanes = phase_lanes(ph, data, card)
             print(f"elapsed {time.perf_counter() - started:.1f}s: phase 6", flush=True)
+            ph.begin("phase 6")
+            faults_out = None
             if 1.0 in scales:  # phase 6, the 64-bit device mode
                 scatter32 = {qn: t22[f"q{qn}"]["launches"]["scatter"] for qn in queries.QUERIES}
                 x64 = phase_x64(ph, sf1_lineitem, join_tables, queries, data,
@@ -2796,10 +3158,15 @@ def main(argv=None) -> int:
                 sc64_entry["launches"] = x64["scatter_f64_launches"]
                 k1_entry["launches_x64"] = x64["k1_launches"]  # 0: the mode never runs K1
                 k2_entry["launches_x64"] = x64["k2_launches"]
+                print(f"elapsed {time.perf_counter() - started:.1f}s: phase 8", flush=True)
+                ph.begin(None)  # phase 8 arms faults: its own checks read its counters
+                faults_out = phase_faults(ph, sf1_lineitem, join_tables, q3_oracle_sf1, main_sf1,
+                                          card)
                 del join_tables
             del data, sf1_lineitem
             phase_outs = [("tpch22", t22), ("lanes", lanes)] + [
-                (f"exchange_sf{sc:g}", ex) for sc, ex in exchange.items()]
+                (f"exchange_sf{sc:g}", ex) for sc, ex in exchange.items()] + (
+                [("faults", faults_out)] if faults_out is not None else [])
             for name, ph_out in phase_outs:
                 k1_entry[f"launches_{name}"] = ph_out["k1_launches"]
                 k2_entry[f"launches_{name}"] = ph_out["k2_launches"]
@@ -2810,6 +3177,7 @@ def main(argv=None) -> int:
             k2_entry["timestamps_deep_shape"] = lanes["k2_shape"]
         if sc64_entry is not None and args.kernels_only:
             sc64_entry["launches"] = None
+        ph.begin(None)
         kernels = [k1_entry, k2_entry, sc_entry] + ([sc64_entry] if sc64_entry else [])
         print(json.dumps({"kernels": kernels}), flush=True)
         print(f"chip_smoke: {len(scales)} scale(s) in {time.perf_counter() - started:.1f}s",

@@ -7,8 +7,9 @@ is on and ``device`` is ``"cuda"``. A caller that wants the CPU says so with
 raises instead of running on the CPU.
 
 Left out of this slice: the planning config (beyond expression fusion,
-device residency, the broadcast-join threshold and the exchange's three
-knobs), the scan/spill/serving knobs, the exchange's payload encoding
+device residency, the broadcast-join threshold, the exchange's three
+knobs, the query deadline and the device breaker), the scan/spill/serving
+knobs, the exchange's payload encoding
 (which engages only under a memory budget the port does not have) and
 runner selection (the port has one runner, NativeRunner).
 """
@@ -64,6 +65,18 @@ class ExecutionConfig:
     # aggregate's shuffle through the stage-2 merge as they arrive
     # (exchange/combine.py); only exact merges fold
     hierarchical_exchange_combine: bool = True
+    # query deadline: the runner turns it into one absolute deadline at run
+    # start, checked on every partition pull and before a pipeline breaker
+    # buffers its input; expiry raises DaftTimeoutError with the partial
+    # stats. None is no limit; 0 is a limit
+    execution_timeout_s: Optional[float] = None
+    # device circuit breaker (execution.DeviceHealth): after this many
+    # consecutive failures of device attempts the breaker opens and every
+    # device-eligible partition of the query takes the host path ...
+    device_breaker_threshold: int = 3
+    # ... until the cooldown has passed; then one probe tries the card
+    # again: success closes the breaker, failure opens it again
+    device_breaker_cooldown_s: float = 30.0
 
 
 # daft_tpu ExecutionConfig field (or "jax_enable_x64") -> port field
@@ -78,6 +91,9 @@ _FROM_REFERENCE = {
     "sample_size_for_sort": "sample_size_for_sort",
     "runtime_join_filters": "runtime_join_filters",
     "hierarchical_exchange_combine": "hierarchical_exchange_combine",
+    "execution_timeout_s": "execution_timeout_s",
+    "device_breaker_threshold": "device_breaker_threshold",
+    "device_breaker_cooldown_s": "device_breaker_cooldown_s",
     "jax_enable_x64": "device_x64",
 }
 

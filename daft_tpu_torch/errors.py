@@ -8,6 +8,8 @@ public contract is the hierarchy itself."""
 
 from __future__ import annotations
 
+import torch
+
 
 class DaftError(Exception):
     """Base of every engine-raised error (reference: DaftError enum)."""
@@ -68,6 +70,13 @@ class DaftCorruptionError(DaftTransientError):
     recovery, and only when both are exhausted does the query fail."""
 
 
+class DaftStagingError(DaftValueError):
+    """The device layer cannot stage a column it was given: the 32-bit
+    mode's int32 range guard on an int64 column. A device attempt counts it
+    as a DeviceHealth breaker failure and the partition completes on the
+    host, as the reference's staging ``ValueError`` does."""
+
+
 class DaftTimeoutError(DaftError, TimeoutError):
     """Query exceeded ExecutionConfig.execution_timeout_s. Carries the
     partial RuntimeStats snapshot accumulated before the deadline so
@@ -76,3 +85,17 @@ class DaftTimeoutError(DaftError, TimeoutError):
     def __init__(self, message: str, stats: "dict | None" = None):
         super().__init__(message)
         self.stats = stats or {}
+
+
+class DaftKernelError(DaftInternalError):
+    """A hand-written kernel or the card it runs on is unavailable: nvcc is
+    missing or fails on a source, a built library does not load, a launch
+    returns an error, or the config asks for the card where torch sees
+    none. The device path never catches it (nor ``torch.AcceleratorError``,
+    a CUDA error): the DeviceHealth breaker takes failures of the device
+    layer, and a broken port is not one of them."""
+
+
+# failures of the port itself: the broader catches around the device path
+# (the fuse compile, the join filter's fail-open) re-raise them first
+PORT_FAILURES = (DaftKernelError, torch.AcceleratorError)

@@ -20,10 +20,11 @@ rows that cannot match before bucketing.
   rows: a gather of the k bit positions of each row and a min over them,
   exact in torch, so no hand-written kernel is needed. Otherwise numpy
   probes on the host.
-
-Left out: the reference's fault site and its catches around the build and
-the probe (they come with the DeviceHealth breaker): an error, on the card
-or on the host, reaches the caller.
+- Fail-open: a failed build feed or seal abandons the filter and a failed
+  prune ships its partition unpruned (``join_filter_errors``; the
+  ``join.filter`` fault site fires at each feed and each prune), so the
+  exchange runs unfiltered and the rows are unchanged. A
+  ``DaftKernelError`` or a CUDA error reaches the caller.
 """
 
 from __future__ import annotations
@@ -33,7 +34,8 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..errors import DaftInternalError
+from .. import faults
+from ..errors import PORT_FAILURES, DaftInternalError
 
 # Bloom geometry: bits = next_pow2(rows * BITS_PER_KEY) clamped to
 # [MIN_BITS, MAX_BITS]; PROBES probes per key by Kirsch-Mitzenmacher double
@@ -180,18 +182,23 @@ class RuntimeJoinFilter:
         return out
 
     def _bloom_hits_device(self, idx: np.ndarray, ctx) -> Optional[np.ndarray]:
-        """The Bloom probe on the card (``probe_bits_device``), or None when
-        device kernels are off or the partition is under
-        ``device_min_rows`` (the host probes then). An error on the card
-        reaches the caller."""
+        """The Bloom probe on the card (``probe_bits_device``) as one device
+        attempt (``ExecutionContext._device_attempt``), or None when device
+        kernels are off, the partition is under ``device_min_rows`` or the
+        attempt failed (one of ``execution.DEVICE_FAILURES``, counted
+        against the breaker): the host probes then. Any other exception
+        reaches ``prune_partition``'s fail-open, which re-raises a
+        ``DaftKernelError`` or CUDA error."""
         if ctx is None or not ctx.cfg.use_device_kernels:
             return None
         if idx.shape[1] < ctx.cfg.device_min_rows:
             return None
         from ..kernels.device import resolve_device
 
-        out = probe_bits_device(self._staged_bits(resolve_device(ctx.cfg)), idx)
-        ctx.stats.bump("join_filter_device_probes")
+        out = ctx._device_attempt(
+            lambda: probe_bits_device(self._staged_bits(resolve_device(ctx.cfg)), idx))
+        if out is not None:
+            ctx.stats.bump("join_filter_device_probes")
         return out
 
     def _staged_bits(self, device) -> torch.Tensor:
@@ -211,26 +218,36 @@ def probe_bits_device(bits: torch.Tensor, idx: np.ndarray) -> np.ndarray:
 
 def prune_partition(part, jf: RuntimeJoinFilter, key_exprs, ctx):
     """One probe-side partition pruned by a sealed filter (the partition
-    itself when nothing is pruned). Counters: ``join_filter_probe_rows``
-    (rows inspected) and ``join_filter_rows_pruned`` (rows dropped)."""
+    itself when nothing is pruned). Fail-open: on a failure (the
+    ``join.filter`` fault site among them) the input partition itself,
+    counted as ``join_filter_errors``; a ``DaftKernelError`` or CUDA error
+    from K10 reaches the caller. Counters: ``join_filter_probe_rows`` (rows
+    inspected) and ``join_filter_rows_pruned`` (rows dropped)."""
     from ..micropartition import MicroPartition
     from ..series import Series
 
-    kept, before, after = [], 0, 0
-    for t in part.chunk_tables():
-        nt = len(t)
-        before += nt
-        if nt == 0:
-            continue
-        mask = jf.keep_mask(t, key_exprs, ctx)
-        if mask.all():
-            kept.append(t)
-            after += nt
-            continue
-        ft = t.filter_with_mask(Series.from_numpy(mask, "keep"))
-        after += len(ft)
-        if len(ft):
-            kept.append(ft)
+    try:
+        faults.check("join.filter", ctx.stats)
+        kept, before, after = [], 0, 0
+        for t in part.chunk_tables():
+            nt = len(t)
+            before += nt
+            if nt == 0:
+                continue
+            mask = jf.keep_mask(t, key_exprs, ctx)
+            if mask.all():
+                kept.append(t)
+                after += nt
+                continue
+            ft = t.filter_with_mask(Series.from_numpy(mask, "keep"))
+            after += len(ft)
+            if len(ft):
+                kept.append(ft)
+    except PORT_FAILURES:
+        raise
+    except Exception:
+        ctx.stats.bump("join_filter_errors")
+        return part
     ctx.stats.bump("join_filter_probe_rows", before)
     if before != after:
         ctx.stats.bump("join_filter_rows_pruned", before - after)

@@ -1,44 +1,69 @@
 """Executor: runs a physical plan as a tree of partition generators (the
 port's copy of the part of daft_tpu/execution.py this slice runs).
 
-The device path has no silent fallback. An exception raised on the card
-propagates to the caller. Only the reference's documented declines send a
-partition to the host path: for an aggregation, a partition below
-``device_min_rows`` (stage 2 of a two-stage aggregate over a few partial
-rows takes it) or an ineligible plan or dtype (count_distinct among them),
-plain routing that is not counted, as in the reference, and the int32
-overflow guard of ``device_agg._finish_agg``, counted as
-``device_agg_fallbacks``; for a fused map chain, a device program that
-declines the partition (not counted, as in the reference: the chain runs
-on the host, ``host_fused_maps``); for a plan segment, a resident attempt
-that declines (``segment_fallbacks``, then the staged ops); for a join, an
-ineligible pair (a join type other than inner/left/semi/anti, both sides
-below ``device_min_rows``, a key that is not an integer or date expression,
-an overflowing composite key space), counted as ``host_joins``; for a sort,
-a partition below ``device_min_rows`` or an ineligible key, counted as
-``host_sorts``; for a single filter, projection or distinct, a partition
-below ``device_min_rows`` or an expression, key or dtype the device layer
-declines (a missing dictionary, the int64 wrap guard, a nullable multi-key
-distinct), counted as ``host_filters``, ``host_projections`` or
-``host_distincts``.
+Routing. The reference's documented declines send a partition to the host
+path as plain routing: a partition below ``device_min_rows``, an
+ineligible plan, expression, key or dtype (count_distinct among them), a
+device program that returns None (a lost dictionary, the int64 wrap guard,
+a nullable multi-key distinct, an overflowing composite key space, a join
+type other than inner/left/semi/anti), counted as ``host_*``; the int32
+overflow guard of an aggregate's resolver (``device_agg_fallbacks``); a
+resident plan segment that declines (``segment_fallbacks``, then the
+staged ops).
 
-Left out of this slice: the DeviceHealth breaker and fault injection (and
-with them the reference's catch of a failure in the resolvers of fused
-maps, plan segments, single filters and projections and in the join probe,
-each of which sends the failed partition to the host), the profiler, spill,
-deadlines and cancellation, the worker pool, streaming, the mesh hook
-``prepare_broadcast`` and resource accounting.
+Failures. Every device attempt runs under the query's ``DeviceHealth``
+breaker and the ``device.kernel`` fault site (``_device_attempt``), and
+the resolver of a launched attempt fetches under the same catch
+(``_resolve``). The catch takes what the reference's breaker exists for,
+failures of the device layer and nothing else (``DEVICE_FAILURES``): a
+staging decline by exception (``DaftStagingError``, the 32-bit mode's
+int32 range guard), an injected fault (``faults.InjectedFault``) and
+``torch.cuda.OutOfMemoryError``. Each counts as a breaker failure and as
+``device_attempt_failures``, and the partition completes on the host,
+with the device counter taken back and a ``*_fallbacks`` counter bumped
+where the reference bumps them. After ``device_breaker_threshold``
+consecutive failures the breaker opens: every device-eligible partition
+of the query goes to the host (``degraded_completions``) until one probe
+after the cooldown succeeds. ``device_breaker_trips`` shows a trip.
+
+Every other exception reaches the caller. The reference's breaker takes
+any exception of its device layer; in the port that would take a defect
+of the port's own code (a KeyError in K2's emitter, a torch op that
+rejects its inputs) and finish on the host behind rows that look right.
+Above all, ``DaftKernelError`` (a hand-written kernel or the card is
+unavailable: nvcc missing or failing, a library that does not load, a
+launch error, a config asking for the card where there is none) and
+``torch.AcceleratorError`` (a CUDA error) mean the port itself is broken;
+the broader catches of the fuse compile and the join filter's fail-open
+re-raise them first (``errors.PORT_FAILURES``).
+
+Deadlines. ``execution_timeout_s`` becomes one absolute deadline per query
+(``runners.NativeRunner``); ``check_deadline`` raises ``DaftTimeoutError``
+with the partial stats on every partition pull (``_traced``) and before a
+pipeline breaker buffers its input (the sort, a gather, ``ShuffleOp``, the
+join build).
+
+Left out of this slice: the profiler and the breaker's log lines and
+events, spill, cancellation, the worker pool, streaming, the mesh hook
+``prepare_broadcast``, the mesh breaker and resource accounting.
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
+import torch
+
+from . import faults
 from .context import ExecutionConfig
+from .errors import DaftStagingError, DaftTimeoutError
 from .micropartition import MicroPartition
 from .physical import PhysicalOp
+
+# what a device attempt takes as a breaker failure (see above)
+DEVICE_FAILURES = (DaftStagingError, faults.InjectedFault, torch.cuda.OutOfMemoryError)
 
 
 class RuntimeStats:
@@ -74,29 +99,195 @@ class RuntimeStats:
             }
 
 
+class DeviceHealth:
+    """Circuit breaker for the card. Closed is normal; after ``threshold``
+    consecutive failures it opens and ``allow()`` answers False, so callers
+    go straight to the host path instead of paying the failure again per
+    partition. After ``cooldown_s`` it goes half-open and lets exactly one
+    probe through: success closes it, failure opens it for another
+    cooldown. Counters: ``device_breaker_trips``, ``_probes``,
+    ``_recoveries`` and ``_reopens``."""
+
+    CLOSED, OPEN, HALF_OPEN = "closed", "open", "half_open"
+
+    def __init__(self, threshold: int = 3, cooldown_s: float = 30.0):
+        self.threshold = max(1, int(threshold))
+        self.cooldown_s = float(cooldown_s)
+        self._lock = threading.Lock()
+        self._state = self.CLOSED
+        self._consecutive = 0
+        self._opened_at = 0.0
+        self._probe_inflight = False
+        self._probe_started = 0.0
+
+    @property
+    def state(self) -> str:
+        with self._lock:
+            return self._state
+
+    def allow(self, stats: Optional[RuntimeStats] = None) -> bool:
+        """May an attempt use the card now? Open: no; open past the
+        cooldown: half-open, admitting one probe."""
+        with self._lock:
+            if self._state == self.CLOSED:
+                return True
+            now = time.monotonic()
+            if self._state == self.OPEN and now - self._opened_at >= self.cooldown_s:
+                self._state = self.HALF_OPEN
+            if self._state == self.HALF_OPEN and (
+                    not self._probe_inflight
+                    # a probe whose resolver was abandoned (a limit closed
+                    # the stream first) must not hold the breaker open for
+                    # good: its slot is reclaimed after one cooldown
+                    or now - self._probe_started >= self.cooldown_s):
+                self._probe_inflight = True
+                self._probe_started = now
+                if stats is not None:
+                    stats.bump("device_breaker_probes")
+                return True
+            return False
+
+    def record_success(self, stats: Optional[RuntimeStats] = None) -> None:
+        with self._lock:
+            self._consecutive = 0
+            if self._state == self.HALF_OPEN:
+                # only the probe closes the breaker: a late success of an
+                # attempt launched before the trip leaves it open
+                self._state = self.CLOSED
+                self._probe_inflight = False
+                if stats is not None:
+                    stats.bump("device_breaker_recoveries")
+
+    def record_failure(self, stats: Optional[RuntimeStats] = None) -> None:
+        with self._lock:
+            self._consecutive += 1
+            if self._state == self.HALF_OPEN:
+                # the probe failed: open again for another cooldown
+                self._state = self.OPEN
+                self._opened_at = time.monotonic()
+                self._probe_inflight = False
+                if stats is not None:
+                    stats.bump("device_breaker_reopens")
+            elif self._state == self.CLOSED and self._consecutive >= self.threshold:
+                self._state = self.OPEN
+                self._opened_at = time.monotonic()
+                if stats is not None:
+                    stats.bump("device_breaker_trips")
+
+    def release_probe(self) -> None:
+        """An admitted attempt declined (neither failure nor success): free
+        the probe slot, so a half-open breaker does not wait for a result
+        that never comes."""
+        with self._lock:
+            self._probe_inflight = False
+
+
 class ExecutionContext:
-    def __init__(self, cfg: ExecutionConfig, stats: RuntimeStats):
+    """One query's execution state: the config, the stats, the breaker and
+    the absolute deadline. The runner builds the breaker and the deadline
+    once per query; a context built without them (tests) makes its own
+    from ``cfg``."""
+
+    def __init__(self, cfg: ExecutionConfig, stats: Optional[RuntimeStats] = None,
+                 deadline: Optional[float] = None,
+                 device_health: Optional[DeviceHealth] = None):
         self.cfg = cfg
-        self.stats = stats
+        self.stats = stats if stats is not None else RuntimeStats()
+        if deadline is None and cfg.execution_timeout_s is not None:
+            deadline = time.monotonic() + cfg.execution_timeout_s
+        self.deadline = deadline
+        self.device_health = device_health if device_health is not None else DeviceHealth(
+            cfg.device_breaker_threshold, cfg.device_breaker_cooldown_s)
+
+    def check_deadline(self) -> None:
+        """Raise DaftTimeoutError, carrying the stats so far, once the
+        query's deadline has passed."""
+        if self.deadline is not None and time.monotonic() > self.deadline:
+            self.stats.bump("deadline_expired")
+            raise DaftTimeoutError(
+                f"query exceeded execution_timeout_s={self.cfg.execution_timeout_s}",
+                stats=self.stats.snapshot())
+
+    # ------------------------------------------------------- breaker gates
+    def _device_allowed(self) -> bool:
+        """The breaker's gate for work that is device-eligible: an open
+        breaker sends it to the host and counts a degraded completion."""
+        if self.device_health.allow(self.stats):
+            return True
+        self.stats.bump("degraded_completions")
+        return False
 
     def _device_eligible(self, part: MicroPartition) -> bool:
-        return self.cfg.use_device_kernels and len(part) >= self.cfg.device_min_rows
+        return (self.cfg.use_device_kernels and len(part) >= self.cfg.device_min_rows
+                and self._device_allowed())
 
+    def _attempt_failed(self) -> None:
+        """A device attempt or its fetch raised one of ``DEVICE_FAILURES``."""
+        self.stats.bump("device_attempt_failures")
+        self.device_health.record_failure(self.stats)
+
+    def _device_attempt(self, fn, launch: bool = False):
+        """Run one device attempt under the fault registry and the breaker.
+        One of ``DEVICE_FAILURES`` counts as a breaker failure and gives
+        None (the device layer's decline); a None result is a decline (the
+        probe slot is freed, the breaker untouched); any other result counts
+        as a success unless ``launch`` is set, where the caller's resolver
+        (``_resolve``) records the outcome. Any other exception propagates
+        and counts as nothing."""
+        try:
+            faults.check("device.kernel", self.stats)
+            out = fn()
+        except DEVICE_FAILURES:
+            self._attempt_failed()
+            return None
+        if out is None:
+            self.device_health.release_probe()
+        elif not launch:
+            self.device_health.record_success(self.stats)
+        return out
+
+    def _resolve(self, fetch, on_host, done=None):
+        """A launched attempt's resolver: ``fetch()`` under the breaker.
+        Its result counts as a success and gives ``done(result)`` (the
+        result itself without ``done``); a None (a decline at the fetch,
+        the overflow guard) frees the probe slot, and one of
+        ``DEVICE_FAILURES`` counts as a failure: both give ``on_host()``,
+        which takes back the device counters and completes the partition on
+        the host. ``done`` runs outside the catch, so a defect there reaches
+        the caller."""
+        try:
+            out = fetch()
+        except DEVICE_FAILURES:
+            self._attempt_failed()
+            return on_host()
+        if out is None:
+            self.device_health.release_probe()
+            return on_host()
+        self.device_health.record_success(self.stats)
+        return out if done is None else done(out)
+
+    def _device(self):
+        from .kernels.device import resolve_device
+
+        return resolve_device(self.cfg)
+
+    # ------------------------------------------------------------------ sorts
     def eval_sort(self, part: MicroPartition, sort_by, descending=None,
                   nulls_first=None) -> MicroPartition:
         """A partition's sort through the device argsort when eligible (the
         keys compile and sort on the card, the payload take runs on the
         host), the host pyarrow sort otherwise."""
         if self._device_eligible(part):
-            import numpy as np
+            from .kernels.device import device_table_argsort
 
-            from .kernels.device import device_table_argsort, resolve_device
-            from .series import Series
-
-            idx = device_table_argsort(part.table(), sort_by, descending, nulls_first,
-                                       stage_cache=part.device_stage_cache(),
-                                       device=resolve_device(self.cfg))
+            idx = self._device_attempt(lambda: device_table_argsort(
+                part.table(), sort_by, descending, nulls_first,
+                stage_cache=part.device_stage_cache(), device=self._device()))
             if idx is not None:
+                import numpy as np
+
+                from .series import Series
+
                 self.stats.bump("device_sorts")
                 return MicroPartition.from_table(
                     part.table().take(Series.from_numpy(idx.astype(np.uint64), "indices")))
@@ -106,49 +297,63 @@ class ExecutionContext:
     # ------------------------------------------------- single filters and maps
     def _launch_projection(self, part: MicroPartition, exprs):
         """Stage the partition's columns and launch the projection program
-        now; a zero-arg resolver that fetches the output Table, or None when
-        the partition is not device-eligible or the device layer declines
-        it. A failure on the card propagates from the resolver."""
-        if not self._device_eligible(part):
-            return None
-        from .kernels.device import eval_projection_device_async, resolve_device
+        now: a zero-arg resolver that fetches the output Table, or None when
+        the device layer declines the partition."""
+        from .kernels.device import eval_projection_device_async
 
-        return eval_projection_device_async(
-            part.table(), list(exprs), stage_cache=part.device_stage_cache(),
-            device=resolve_device(self.cfg))
+        return eval_projection_device_async(part.table(), list(exprs),
+                                            stage_cache=part.device_stage_cache(),
+                                            device=self._device())
+
+    def _run_projection(self, part: MicroPartition, exprs):
+        """The projection launched and fetched: a Table, or None."""
+        resolve = self._launch_projection(part, exprs)
+        return None if resolve is None else resolve()
 
     def eval_projection(self, part: MicroPartition, exprs) -> MicroPartition:
         """A projection on the card when eligible, else on the host."""
-        resolve = self._launch_projection(part, exprs)
-        if resolve is not None:
-            self.stats.bump("device_projections")
-            return MicroPartition.from_table(resolve())
+        if self._device_eligible(part):
+            out = self._device_attempt(lambda: self._run_projection(part, exprs))
+            if out is not None:
+                self.stats.bump("device_projections")
+                return MicroPartition.from_table(out)
         self.stats.bump("host_projections")
         return part.eval_expression_list(exprs)
 
     def eval_projection_dispatch(self, part: MicroPartition, exprs):
         """Launch a device projection without blocking; returns a zero-arg
         resolver that fetches the output partition, or None when it is
-        declined (the caller then projects on the host)."""
-        resolve = self._launch_projection(part, exprs)
+        declined (the caller then projects on the host). A failure at the
+        fetch completes the partition on the host."""
+        if not self._device_eligible(part):
+            return None
+        resolve = self._device_attempt(lambda: self._launch_projection(part, exprs), launch=True)
         if resolve is None:
             return None
         self.stats.bump("device_projections")
         self.stats.bump("device_projection_dispatches")
-        return lambda: MicroPartition.from_table(resolve())
 
-    def _compacted(self, part: MicroPartition, resolve) -> MicroPartition:
-        """Fetch a launched filter's mask and compact the partition on the
-        host."""
-        return MicroPartition.from_table(part.table().filter_with_mask(resolve()._columns[0]))
+        def on_host() -> MicroPartition:
+            self.stats.bump("device_projections", -1)
+            self.stats.bump("device_projection_fallbacks")
+            self.stats.bump("host_projections")
+            return part.eval_expression_list(exprs)
+
+        return lambda: self._resolve(lambda: MicroPartition.from_table(resolve()), on_host)
+
+    @staticmethod
+    def _compacted(part: MicroPartition, mask_table) -> MicroPartition:
+        """Compact the partition on the host by a fetched filter mask."""
+        return MicroPartition.from_table(part.table().filter_with_mask(mask_table._columns[0]))
 
     def eval_filter(self, part: MicroPartition, predicate) -> MicroPartition:
         """A filter whose mask is computed on the card when eligible (the
         compaction runs on the host), else a host filter."""
-        resolve = self._launch_projection(part, [predicate])
-        if resolve is not None:
-            self.stats.bump("device_filters")
-            return self._compacted(part, resolve)
+        if self._device_eligible(part):
+            out = self._device_attempt(lambda: self._run_projection(part, [predicate]))
+            if out is not None:
+                self.stats.bump("device_filters")
+                return self._compacted(part, out)
         self.stats.bump("host_filters")
         return part.filter([predicate])
 
@@ -156,29 +361,40 @@ class ExecutionContext:
         """Launch the device filter mask without blocking; the resolver
         fetches the mask and compacts on the host. Same contract as
         ``eval_projection_dispatch``."""
-        resolve = self._launch_projection(part, [predicate])
+        if not self._device_eligible(part):
+            return None
+        resolve = self._device_attempt(lambda: self._launch_projection(part, [predicate]),
+                                       launch=True)
         if resolve is None:
             return None
         self.stats.bump("device_filters")
         self.stats.bump("device_filter_dispatches")
-        return lambda: self._compacted(part, resolve)
+
+        def on_host() -> MicroPartition:
+            self.stats.bump("device_filters", -1)
+            self.stats.bump("device_filter_fallbacks")
+            self.stats.bump("host_filters")
+            return part.filter([predicate])
+
+        return lambda: self._resolve(lambda: self._compacted(part, resolve()), on_host)
 
     def eval_distinct(self, part: MicroPartition, subset) -> MicroPartition:
         """Distinct through the device group-codes kernel when the keys are
         device-eligible (the first row of each key tuple; the take runs on
         the host), the host dictionary encode otherwise."""
         if self._device_eligible(part):
-            import numpy as np
-
             from .expressions import col
-            from .kernels.device import resolve_device
             from .kernels.device_agg import device_distinct_indices
-            from .series import Series
 
             keys = list(subset) if subset else [col(n) for n in part.schema.field_names()]
-            idx = device_distinct_indices(part.table(), keys, part.device_stage_cache(),
-                                          len(part), device=resolve_device(self.cfg))
+            idx = self._device_attempt(lambda: device_distinct_indices(
+                part.table(), keys, part.device_stage_cache(), len(part),
+                device=self._device()))
             if idx is not None:
+                import numpy as np
+
+                from .series import Series
+
                 self.stats.bump("device_distincts")
                 return MicroPartition.from_table(
                     part.table().take(Series.from_numpy(idx.astype(np.uint64), "idx")))
@@ -190,7 +406,8 @@ class ExecutionContext:
         return (self.cfg.use_device_kernels
                 and how in ("inner", "left", "semi", "anti")
                 and 1 <= len(left_on) == len(right_on) <= 4
-                and max(len(lpart), len(rpart)) >= self.cfg.device_min_rows)
+                and max(len(lpart), len(rpart)) >= self.cfg.device_min_rows
+                and self._device_allowed())
 
     def _assemble_join(self, res, lpart, rpart, left_on, right_on, how,
                        suffix) -> MicroPartition:
@@ -229,28 +446,32 @@ class ExecutionContext:
         """Stage both sides' keys and launch the device probe now; return a
         zero-arg resolver that fetches the probe and assembles the output,
         or None when the pair is not device-eligible (the caller joins on
-        the host). A failure on the card propagates: the reference's catch,
-        which sends a failed probe to the host join, comes with the
-        DeviceHealth breaker, which is not ported yet."""
+        the host). A probe that fails at the fetch takes the host join
+        (``device_join_fallbacks``); the assembly runs outside that catch,
+        so a defect there reaches the caller."""
         if not self._join_eligible(lpart, rpart, left_on, right_on, how):
             return None
-        from .kernels.device import resolve_device
         from .kernels.device_join import device_join_launch
 
-        launch = device_join_launch(lpart.table(), rpart.table(), list(left_on),
-                                    list(right_on), lpart.device_stage_cache(),
-                                    rpart.device_stage_cache(), how,
-                                    device=resolve_device(self.cfg))
+        launch = self._device_attempt(lambda: device_join_launch(
+            lpart.table(), rpart.table(), list(left_on), list(right_on),
+            lpart.device_stage_cache(), rpart.device_stage_cache(), how,
+            device=self._device()), launch=True)
         if launch is None:
             return None
         self.stats.bump("device_join_dispatches")
 
-        def finish() -> MicroPartition:
-            out = self._assemble_join(launch(), lpart, rpart, left_on, right_on, how, suffix)
+        def on_host() -> MicroPartition:
+            self.stats.bump("device_join_fallbacks")
+            self.stats.bump("host_joins")
+            return lpart.hash_join(rpart, left_on, right_on, how, suffix)
+
+        def assemble(res) -> MicroPartition:
+            out = self._assemble_join(res, lpart, rpart, left_on, right_on, how, suffix)
             self.stats.bump("device_join_probes")
             return out
 
-        return finish
+        return lambda: self._resolve(launch, on_host, assemble)
 
     def eval_join_declined(self, lpart, rpart, left_on, right_on, how,
                            suffix) -> MicroPartition:
@@ -266,45 +487,57 @@ class ExecutionContext:
             part = part.filter([predicate])
         return part.agg(aggregations, groupby or None)
 
+    def _launch_agg(self, part: MicroPartition, aggregations, groupby, predicate):
+        """Stage the partition and launch the fused device aggregation now:
+        a zero-arg resolver that fetches the result Table (None when the
+        int32 overflow guard declines), or None when the plan declines."""
+        from .kernels.device_agg import device_grouped_agg_async
+
+        return device_grouped_agg_async(
+            part.table(), list(aggregations), list(groupby or []),
+            stage_cache=part.device_stage_cache(), predicate=predicate,
+            stats=self.stats, device=self._device())
+
     def eval_agg(self, part: MicroPartition, aggregations, groupby,
                  predicate=None) -> MicroPartition:
-        """The aggregation on the card when eligible, else on the host."""
-        fin = self.eval_agg_dispatch(part, aggregations, groupby, predicate)
-        if fin is not None:
-            return fin()
+        """The aggregation on the card when eligible, else on the host (a
+        decline of the overflow guard included)."""
+        if self._device_eligible(part):
+            def run():
+                resolve = self._launch_agg(part, aggregations, groupby, predicate)
+                return None if resolve is None else resolve()
+
+            out = self._device_attempt(run)
+            if out is not None:
+                self.stats.bump("device_aggregations")
+                return MicroPartition.from_table(out)
         return self._eval_agg_host(part, aggregations, groupby, predicate)
 
     def eval_agg_dispatch(self, part: MicroPartition, aggregations, groupby,
                           predicate=None):
         """Launch the fused device aggregation now and return a zero-arg
         resolver that fetches its result, or None when the partition is not
-        device-eligible (the caller then runs the host path)."""
-        if not self.cfg.use_device_kernels:
+        device-eligible or the plan declines (the caller then runs the host
+        path). The resolver completes on the host when the overflow guard
+        declines or the fetch fails (``device_agg_fallbacks``)."""
+        if not self._device_eligible(part):
             return None
-        if len(part) < self.cfg.device_min_rows:
-            return None  # too few rows: plain routing to the host, not a fallback
-        from .kernels.device import resolve_device
-        from .kernels.device_agg import device_grouped_agg_async
-
-        resolve = device_grouped_agg_async(
-            part.table(), list(aggregations), list(groupby or []),
-            stage_cache=part.device_stage_cache(), predicate=predicate,
-            stats=self.stats, device=resolve_device(self.cfg))
+        resolve = self._device_attempt(
+            lambda: self._launch_agg(part, aggregations, groupby, predicate), launch=True)
         if resolve is None:
-            return None  # a decline before launch: plain routing, as in the reference
+            return None
         self.stats.bump("device_aggregations")
 
-        def finish() -> MicroPartition:
-            out = resolve()
-            if out is not None:
-                return MicroPartition.from_table(out)
-            # the int32 overflow guard declined at materialization: the
-            # partition was NOT aggregated on the card
+        def on_host() -> MicroPartition:
+            # the overflow guard (a decline) or a failure at the fetch: the
+            # partition was not aggregated on the card (the probe slot is
+            # freed after a failure too, as the reference's resolver does)
+            self.device_health.release_probe()
             self.stats.bump("device_aggregations", -1)
             self.stats.bump("device_agg_fallbacks")
             return self._eval_agg_host(part, aggregations, groupby, predicate)
 
-        return finish
+        return lambda: self._resolve(resolve, on_host, MicroPartition.from_table)
 
     # -------------------------------------------------------- fused map chains
     def _eval_fused_host(self, part: MicroPartition, program) -> MicroPartition:
@@ -318,82 +551,95 @@ class ExecutionContext:
             self.stats.bump("host_filters", g.n_filter_ops)
         return MicroPartition.from_table(program.run_host(part.table()))
 
-    def _bump_fused_device(self, program) -> None:
+    def _bump_fused_device(self, program, n: int = 1) -> None:
         g = program.graph
-        self.stats.bump("device_fused_maps")
+        self.stats.bump("device_fused_maps", n)
         if g.n_project_ops:
-            self.stats.bump("device_projections", g.n_project_ops)
+            self.stats.bump("device_projections", n * g.n_project_ops)
         if g.n_filter_ops:
-            self.stats.bump("device_filters", g.n_filter_ops)
+            self.stats.bump("device_filters", n * g.n_filter_ops)
 
     def eval_fused(self, part: MicroPartition, program) -> MicroPartition:
         """A fused map chain as ONE device program when eligible, else the
         segmented host pass."""
-        fin = self.eval_fused_dispatch(part, program)
-        return fin() if fin is not None else self._eval_fused_host(part, program)
+        if self._device_eligible(part):
+            def run():
+                out = self._run_projection(part, program.device_exprs)
+                return None if out is None else program.assemble_device(out)
+
+            out = self._device_attempt(run)
+            if out is not None:
+                self._bump_fused_device(program)
+                return MicroPartition.from_table(out)
+        return self._eval_fused_host(part, program)
 
     def eval_fused_dispatch(self, part: MicroPartition, program):
         """Launch the fused chain's device program without blocking; returns
         a zero-arg resolver, or None when the partition is not
         device-eligible or the program declines it (an ineligible expression
         or column, or the int64 wrap guard): the caller then takes the host
-        pass (``host_fused_maps``)."""
+        pass (``host_fused_maps``). A failure at the fetch takes the host
+        pass too (``device_fused_map_fallbacks``)."""
         if not self._device_eligible(part):
             return None
-        from .kernels.device import eval_projection_device_async, resolve_device
-
-        resolve = eval_projection_device_async(
-            part.table(), program.device_exprs, stage_cache=part.device_stage_cache(),
-            device=resolve_device(self.cfg))
+        resolve = self._device_attempt(
+            lambda: self._launch_projection(part, program.device_exprs), launch=True)
         if resolve is None:
             return None
         self._bump_fused_device(program)
         self.stats.bump("device_fused_map_dispatches")
-        return lambda: MicroPartition.from_table(program.assemble_device(resolve()))
+
+        def on_host() -> MicroPartition:
+            self._bump_fused_device(program, -1)
+            self.stats.bump("device_fused_map_fallbacks")
+            return self._eval_fused_host(part, program)
+
+        return lambda: self._resolve(lambda: program.assemble_device(resolve()), on_host,
+                                     MicroPartition.from_table)
 
     # ------------------------------------------------------------ plan segments
     def eval_segment_dispatch(self, part: MicroPartition, op):
         """Launch a compiled plan segment (fuse/segment.py DeviceSegmentOp)
         through the resident pipeline; returns a zero-arg resolver, or None
         when the partition is not device-eligible. A resident attempt that
-        declines (or trips the overflow guard) runs the staged ops and is
-        counted as ``segment_fallbacks``. An exception propagates: the
-        reference's catch in this resolver comes with the DeviceHealth
-        breaker, which is not ported yet."""
+        declines, trips the overflow guard or fails (an armed
+        ``fuse.segment`` fault among the failures) runs the staged ops and
+        is counted as ``segment_fallbacks``."""
         if not self._device_eligible(part):
             return None
         from .fuse.segment import _proc_bump, run_segment_async
-        from .kernels.device import resolve_device
 
-        resolve = run_segment_async(part.table(), op.program, part.device_stage_cache(),
-                                    stats=self.stats, cfg=self.cfg,
-                                    device=resolve_device(self.cfg))
+        resolve = self._device_attempt(lambda: run_segment_async(
+            part.table(), op.program, part.device_stage_cache(), stats=self.stats,
+            cfg=self.cfg, device=self._device()), launch=True)
         if resolve is None:
             return lambda: self._eval_segment_staged(part, op, degraded=True)
         self.stats.bump("device_aggregations")
         self.stats.bump("segment_dispatches")
 
-        def finish() -> MicroPartition:
-            out = resolve()
-            if out is not None:
-                # the map -> agg Arrow round trip of the staged plan did not happen
-                self.stats.bump("device_handoffs_elided")
-                op._record_resident(self)
-                _proc_bump("handoffs_elided")
-                return MicroPartition.from_table(out)
-            # the overflow guard declined: the segment did NOT run resident
+        def on_host() -> MicroPartition:
+            # the overflow guard or a failure at the fetch: the segment did
+            # NOT run resident (the probe slot is freed as above)
+            self.device_health.release_probe()
             self.stats.bump("device_aggregations", -1)
             return self._eval_segment_staged(part, op, degraded=True)
 
-        return finish
+        def resident(out) -> MicroPartition:
+            # the map -> agg Arrow round trip of the staged plan did not happen
+            self.stats.bump("device_handoffs_elided")
+            op._record_resident(self)
+            _proc_bump("handoffs_elided")
+            return MicroPartition.from_table(out)
+
+        return lambda: self._resolve(resolve, on_host, resident)
 
     def _eval_segment_staged(self, part: MicroPartition, op,
                              degraded: bool = True) -> MicroPartition:
         """The segment as its retained staged ops: the fused map chain, Arrow
         materialization, then the (filter-fused) aggregation, exactly the
         plan the segment pass collapsed. ``degraded`` marks a resident
-        attempt that declined (counted), against plain routing of an
-        ineligible partition (not counted)."""
+        attempt that declined or failed (counted), against plain routing of
+        an ineligible partition (not counted)."""
         if degraded:
             from .fuse.segment import _proc_bump
 
@@ -417,6 +663,7 @@ def _traced(op: PhysicalOp, stream: Iterator[MicroPartition],
     name = op.name()
     it = iter(stream)
     while True:
+        ctx.check_deadline()
         t0 = time.perf_counter_ns()
         part = next(it, None)
         if part is None:

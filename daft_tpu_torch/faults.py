@@ -1,0 +1,183 @@
+"""Deterministic, seeded fault injection for resilience testing (the port's
+copy of daft_tpu/faults.py).
+
+The recovery paths of the engine (the device path's fallback to the host,
+the DeviceHealth breaker, the fusion compilers' declines, the join filter's
+fail-open) guard real behaviour, yet none of them runs under healthy tests.
+This registry makes them run on demand: code at a fault *site* calls
+``check(site)``, and a test arms a plan that decides, per call, whether to
+raise.
+
+``SITES`` lists the sites the port wires; each has a ``check()`` caller in
+the port (a registered site with no caller is dead surface). Arbitrary
+names stay legal at run time: tests arm synthetic sites to exercise the
+plans.
+
+Plans are deterministic: ``always`` / ``first_n`` / ``nth`` fire by call
+count; ``rate`` hashes (seed, site, call#), so one seed gives one failure
+sequence on every run.
+
+The disarmed path is one module-global boolean test, so the engine pays
+nothing when no plan is armed.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import threading
+from contextlib import contextmanager
+from typing import Dict, Optional
+
+from .errors import DaftTransientError, DaftValueError
+
+SITES = {
+    "device.kernel": "each device attempt (ExecutionContext._device_attempt: the "
+                     "synchronous ones and each asynchronous launch); a failure "
+                     "counts against the DeviceHealth breaker and the partition "
+                     "takes the host path",
+    "fuse.compile": "each map-chain fusion compile (fuse/compile.py; a failure "
+                    "leaves the unfused op chain, never a query failure)",
+    "fuse.segment": "each plan-segment compile and each resident handoff "
+                    "(fuse/segment.py; either failure degrades to the staged "
+                    "ops, never a query failure)",
+    "join.filter": "each runtime-join-filter build feed and probe prune "
+                   "(physical.py, exchange/joinfilter.py; a failure ships the "
+                   "exchange unfiltered, never a query failure)",
+}
+
+
+class InjectedFault(DaftTransientError):
+    """Raised by an armed fault plan. A transient engine error (an OSError),
+    so the device path's catches treat it as a real transient failure."""
+
+
+class FaultPlan:
+    """Decides, per call, whether an armed site fires.
+
+    Modes:
+      - ``always``:  every call fails
+      - ``first_n``: calls 1..n fail, then the site heals (n=1 is
+                     fail-once-then-heal)
+      - ``nth``:     exactly call #n fails (1-based)
+      - ``rate``:    each call fails with probability ``rate``, decided by
+                     sha256(seed, site, call#), deterministically
+    """
+
+    __slots__ = ("mode", "n", "rate", "seed", "exc", "message", "delay_s")
+
+    def __init__(self, mode: str = "always", n: int = 1, rate: float = 0.0,
+                 seed: int = 0, exc: type = InjectedFault,
+                 message: str = "", delay_s: float = 0.0):
+        if mode not in ("always", "first_n", "nth", "rate"):
+            # a misconfigured plan is a caller bug, never a retryable fault
+            raise DaftValueError(f"unknown fault mode {mode!r}")
+        self.mode = mode
+        self.n = n
+        self.rate = rate
+        self.seed = seed
+        self.exc = exc
+        self.message = message
+        # a delay plan slows the site instead of failing it: a firing call
+        # sleeps delay_s and returns
+        self.delay_s = float(delay_s)
+
+    def should_fire(self, site: str, call_no: int) -> bool:
+        """call_no is 1-based: the first check() at an armed site is #1."""
+        if self.mode == "always":
+            return True
+        if self.mode == "first_n":
+            return call_no <= self.n
+        if self.mode == "nth":
+            return call_no == self.n
+        digest = hashlib.sha256(f"{self.seed}:{site}:{call_no}".encode()).digest()
+        return int.from_bytes(digest[:8], "big") / float(1 << 64) < self.rate
+
+    def __repr__(self) -> str:
+        return f"FaultPlan({self.mode}, n={self.n}, rate={self.rate}, seed={self.seed})"
+
+
+_lock = threading.Lock()
+_plans: Dict[str, FaultPlan] = {}
+_calls: Dict[str, int] = {}
+_injected: Dict[str, int] = {}
+# check() returns at once when nothing is armed
+_armed = False
+
+
+def arm(site: str, mode: str = "always", **kwargs) -> FaultPlan:
+    """Arm a plan at a site, replacing any plan there and resetting the
+    site's call and injection counts. Returns the plan."""
+    global _armed
+    plan = FaultPlan(mode, **kwargs)
+    with _lock:
+        _plans[site] = plan
+        _calls[site] = 0
+        _injected[site] = 0
+        _armed = True
+    return plan
+
+
+def any_armed() -> bool:
+    """True while any fault plan is armed."""
+    return _armed
+
+
+def disarm(site: Optional[str] = None) -> None:
+    """Disarm one site, or every site (and clear all counts) when None."""
+    global _armed
+    with _lock:
+        if site is None:
+            _plans.clear()
+            _calls.clear()
+            _injected.clear()
+        else:
+            _plans.pop(site, None)
+        _armed = bool(_plans)
+
+
+@contextmanager
+def inject(site: str, mode: str = "always", **kwargs):
+    """Scoped arming: ``with faults.inject("device.kernel", "first_n", n=2): ...``"""
+    arm(site, mode, **kwargs)
+    try:
+        yield
+    finally:
+        disarm(site)
+
+
+def check(site: str, stats=None) -> None:
+    """Call at a fault site. Raises the armed plan's exception when the plan
+    decides this call fails, else does nothing. ``stats`` (a RuntimeStats)
+    gets a ``faults_injected`` bump per fired fault; a site without a
+    per-query stats handle passes None and is still counted in
+    ``snapshot()['injected']``."""
+    if not _armed:
+        return
+    with _lock:
+        plan = _plans.get(site)
+        if plan is None:
+            return
+        _calls[site] = call_no = _calls.get(site, 0) + 1
+        fire = plan.should_fire(site, call_no)
+        if fire:
+            _injected[site] = _injected.get(site, 0) + 1
+    if not fire:
+        return
+    if stats is not None:
+        stats.bump("faults_injected")
+    if plan.delay_s > 0:
+        import time
+
+        time.sleep(plan.delay_s)
+        return
+    raise plan.exc(plan.message or f"injected fault at {site} (call #{call_no})")
+
+
+def snapshot() -> dict:
+    """The armed plans and each site's call and injection counts."""
+    with _lock:
+        return {
+            "armed": {site: repr(p) for site, p in _plans.items()},
+            "calls": dict(_calls),
+            "injected": dict(_injected),
+        }

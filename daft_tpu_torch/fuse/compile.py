@@ -15,18 +15,19 @@ port's copy of daft_tpu/fuse/compile.py).
 
 The planner pass ``fuse_map_chains`` (called from ``physical.translate``
 behind ``cfg.expr_fusion``) replaces each maximal chain of two or more ops
-with a ``FusedMapOp``. A chain that declines (``FuseDecline``, or an
-expression that does not type) stays unfused. Results are byte-identical
-with fusion on or off.
+with a ``FusedMapOp``. A chain that declines (``FuseDecline``, an
+expression that does not type, or an armed ``fuse.compile`` fault) stays
+unfused. Results are byte-identical with fusion on or off.
 
-Left out: the ``fuse.compile`` fault site and the profiler events.
+Left out: the profiler events.
 """
 
 from __future__ import annotations
 
 from typing import List, Optional, Tuple
 
-from ..errors import DaftError
+from .. import faults
+from ..errors import PORT_FAILURES, DaftError
 from ..expressions import Alias, Expression, col, required_columns
 from ..physical import PhysicalOp, summarize_exprs
 from ..schema import Field, Schema
@@ -203,13 +204,19 @@ def fuse_map_chains(op: PhysicalOp, cfg) -> PhysicalOp:
 
 def _try_fuse_chain(chain: List[PhysicalOp], base: PhysicalOp) -> Optional[FusedMapOp]:
     """Compile one top-down chain, or None to keep it unfused when fusion
-    declines. Any other exception is a defect and propagates."""
+    declines or the ``fuse.compile`` fault site fires. Any other exception
+    is a defect and propagates."""
     from ..physical import ProjectOp
 
     stages = [("project", list(op.exprs)) if isinstance(op, ProjectOp)
               else ("filter", op.predicate) for op in reversed(chain)]
     try:
+        faults.check("fuse.compile")
         program = compile_chain(stages, base.schema, chain[0].schema)
+    except PORT_FAILURES:
+        raise  # DaftKernelError is a DaftError, and never a decline
     except (DaftError, ValueError, KeyError):
-        return None  # FuseDecline, or an expression that does not type fused
+        # FuseDecline, an expression that does not type fused, or an armed
+        # ``fuse.compile`` fault
+        return None
     return FusedMapOp(base, program, chain[0].schema)

@@ -21,19 +21,23 @@ does not happen (``device_handoffs_elided``).
 
 A **decline** sends a partition to the retained staged ops
 (``ExecutionContext._eval_segment_staged``): a partition below
-``device_min_rows`` (not counted), or a resident attempt that is ineligible
-(an empty table, an ineligible column, the int64 wrap guard or the int32
-overflow guard; counted as ``segment_fallbacks``). A **failure** (an
-exception from staging, the map program or a kernel) propagates to the
-caller: the reference's catch in its resolver and the DeviceHealth breaker
-are not ported yet. Results equal the staged plan's: exactly for keys,
-counts and integer sums; float sums within float32 rounding in the 32-bit
-mode, because the staged plan rounds derived float64 columns to float32 at
-another point (the 64-bit mode rounds nowhere).
+``device_min_rows`` or under an open breaker (not counted), or a resident
+attempt that is ineligible (an empty table, an ineligible column, the int64
+wrap guard or the int32 overflow guard; counted as ``segment_fallbacks``).
+A **failure** of the device layer (``execution.DEVICE_FAILURES``: the int32
+staging guard, the ``fuse.segment`` fault site at the handoff, an
+out-of-memory error) counts against the DeviceHealth breaker and takes the
+staged ops too (``segment_fallbacks``); any other exception, a
+``DaftKernelError`` or CUDA error above all, reaches the caller. The same site fires
+at compile time, where it keeps the staged ops in the plan. Results equal
+the staged plan's: exactly for keys, counts and integer sums; float sums
+within float32 rounding in the 32-bit mode, because the staged plan rounds
+derived float64 columns to float32 at another point (the 64-bit mode
+rounds nowhere).
 
-Left out: buffer donation (torch has none), the ``fuse.segment`` fault site,
-the plan cache and the profiler spans. A multi-partition input gathers
-before its aggregate, so a segment forms over a single partition.
+Over several partitions a segment is the two-stage aggregate's stage 1,
+run on each partition. Left out: buffer donation (torch has none), the
+plan cache and the profiler spans.
 """
 
 from __future__ import annotations
@@ -41,8 +45,9 @@ from __future__ import annotations
 import threading
 from typing import List, Optional, Tuple
 
+from .. import faults
 from ..datatypes import DataType
-from ..errors import DaftError
+from ..errors import PORT_FAILURES, DaftError
 from ..expressions import Alias, BinaryOp, Column, Expression
 from ..micropartition import MicroPartition
 from ..physical import AggregateOp, FilterOp, FusedFilterAggregateOp, PhysicalOp, ProjectOp
@@ -138,14 +143,20 @@ def _map_program_for(child: PhysicalOp) -> Optional[FusedProgram]:
 
 def _try_compile_segment(op, child) -> Optional[SegmentProgram]:
     """One segment compile, or None to keep the staged ops when the segment
-    declines. Any other exception is a defect and propagates."""
+    declines or the ``fuse.segment`` fault site fires. Any other exception
+    is a defect and propagates."""
     from ..kernels.device import collect_epoch_cmps, device_required_columns, normalize_and_check
     from ..kernels.device_agg import _ExprView, _plan_agg_specs
 
     try:
+        faults.check("fuse.segment")
         program = _map_program_for(child)
+    except PORT_FAILURES:
+        raise  # DaftKernelError is a DaftError, and never a decline
     except (DaftError, ValueError, KeyError):
-        return None  # FuseDecline, or an expression that does not type fused
+        # FuseDecline, an expression that does not type fused, or an armed
+        # ``fuse.segment`` fault
+        return None
     if program is None:
         return None
     input_schema = child.children[0].schema
@@ -289,7 +300,10 @@ def run_segment_async(table, prog: SegmentProgram, stage_cache: Optional[dict], 
     the inputs, run the map program, feed its outputs on the card straight
     into the fused aggregation program, and return a zero-arg resolver for
     the ONE result fetch. Returns None when this partition is ineligible
-    (the caller takes the staged ops); an exception propagates."""
+    (the caller takes the staged ops); an exception propagates to the
+    caller's device attempt, which counts one of ``DEVICE_FAILURES`` (an
+    armed ``fuse.segment`` fault among them) against the breaker and takes
+    the staged ops."""
     import numpy as np
     import torch
 
@@ -298,6 +312,9 @@ def run_segment_async(table, prog: SegmentProgram, stage_cache: Optional[dict], 
     from ..kernels.device import _stage_and_run, int64_wrap_safe, size_bucket
     from ..kernels.device_agg import _compile_agg, _fetch, _finish_agg, group_codes_cached
 
+    # the fuse.segment site's run-time firing point, the resident handoff
+    # (its compile-time one is _try_compile_segment)
+    faults.check("fuse.segment", stats)
     n = len(table)
     if n == 0:
         return None

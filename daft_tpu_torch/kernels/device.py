@@ -87,6 +87,7 @@ import torch
 
 from ..context import x64_enabled
 from ..datatypes import DataType, TypeKind
+from ..errors import DaftKernelError, DaftStagingError
 
 # Pad row counts up to a power-of-two bucket of at least this size (a
 # multiple of the segment-sums kernel's 1024-row blocks).
@@ -102,10 +103,11 @@ def size_bucket(n: int) -> int:
 
 def resolve_device(cfg) -> torch.device:
     """The torch device the config asks for. A request for the card where
-    there is none raises: the device path never carries on on the CPU."""
+    there is none raises ``DaftKernelError``: the device path never carries
+    on on the CPU."""
     dev = torch.device(cfg.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
+        raise DaftKernelError(
             "ExecutionConfig.device is 'cuda' but torch sees no CUDA device; "
             "set device='cpu' to run the device path on the CPU")
     return dev
@@ -248,19 +250,26 @@ def _staged_validity(arr: pa.Array, n: int, b: int) -> np.ndarray:
     return valid
 
 
+class _HostStaged(ValueError):
+    """A column the port declines at staging where the reference's card
+    takes it (a uint64 value of 2**63 or more in the 64-bit mode):
+    ``stage_table_columns`` turns it into a decline, not a failure."""
+
+
 def _narrow_staged(vals: np.ndarray, dt: DataType) -> np.ndarray:
     """32-bit mode: int64 and uint64 narrow to int32 only when every value
-    fits (raises otherwise, so the caller declines to the host path);
-    float64 rounds to float32. 64-bit mode: no narrowing; a uint64 column
-    stages as its int64 bits when every value is below 2**63 (raises
-    otherwise). uint16 and uint32 widen to their signed lanes in both
-    modes."""
+    fits; otherwise ``DaftStagingError`` (a ValueError) reaches the device
+    attempt, which counts it as a breaker failure, as the reference's
+    staging does. float64 rounds to float32. 64-bit mode: no narrowing; a
+    uint64 column stages as its int64 bits when every value is below 2**63
+    (``_HostStaged`` otherwise). uint16 and uint32 widen to their signed
+    lanes in both modes."""
     if dt.kind in _UNSIGNED_LANES:
         return vals.astype(_UNSIGNED_LANES[dt.kind][1], copy=False)
     if x64_enabled():
         if vals.dtype == np.uint64:
             if len(vals) and vals.max() >= np.uint64(1 << 63):
-                raise ValueError(f"{dt} values reach 2**63; host path")
+                raise _HostStaged(f"{dt} values reach 2**63; host path")
             return vals.view(np.int64)
         return vals
     if dt.kind not in _NARROW_NP:
@@ -269,7 +278,7 @@ def _narrow_staged(vals: np.ndarray, dt: DataType) -> np.ndarray:
     if vals.dtype.kind in "iu":
         info = np.iinfo(target)
         if len(vals) and (vals.min() < info.min or vals.max() > info.max):
-            raise ValueError(f"{dt} values exceed int32 range; host path")
+            raise DaftStagingError(f"{dt} values exceed int32 range; host path")
     return vals.astype(target, copy=False)
 
 
@@ -2208,7 +2217,8 @@ def stage_table_columns(table, names, bucket: int, stage_cache: Optional[dict], 
     is {name: (values, valid)} and dcs the backing DeviceColumns (string
     dictionaries live there). Columns already on the device are reused from
     ``stage_cache`` (the partition's residency cache, keyed on the mode too).
-    Returns None if any column is ineligible."""
+    Returns None if any column is ineligible; an int64 column past int32 in
+    the 32-bit mode raises (see ``_narrow_staged``)."""
     env = {}
     dcs = {}
     x64 = x64_enabled()
@@ -2221,8 +2231,8 @@ def stage_table_columns(table, names, bucket: int, stage_cache: Optional[dict], 
                 return None
             try:
                 dc = stage_series(s, bucket, device)
-            except ValueError:
-                return None  # an int64 column past int32 (32-bit mode), a uint64 past 2**63
+            except _HostStaged:
+                return None
             if stage_cache is not None:
                 stage_cache[ckey] = dc
         env[name] = (dc.values, dc.valid)

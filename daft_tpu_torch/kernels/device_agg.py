@@ -43,7 +43,8 @@ min/max decodes through the dictionary its child's codes come from
 (device.string_output_dictionary).
 
 The reference's deep branch catches any exception and falls back to the
-batched kernel; that catch is not ported.
+batched kernel; that catch is not ported: K2's pre-launch declines go to
+K1, and a ``DaftKernelError`` from K2's build or launch reaches the caller.
 """
 
 from __future__ import annotations

@@ -57,6 +57,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from ..errors import DaftKernelError
 from . import nvcc
 from .device import _jdt, _literal_to_physical
 from .segment_sums import _MAX_K, BLOCK_ROWS, MAX_GROUPS, masked_segment_sums_plain, pass1_args
@@ -512,7 +513,7 @@ class FusedExprSums:
         """Build (once, cached on disk by source) and load the kernel."""
         if self._lib is None:
             self.start_build()
-            lib = ctypes.CDLL(str(nvcc.finish(self._pending)))
+            lib = nvcc.load(nvcc.finish(self._pending))
             self.build_log = self._pending.log
             self._pending = None
             lib.fused_expr_sums_f32.argtypes = (
@@ -594,7 +595,7 @@ class FusedExprSums:
                                              scratch.data_ptr(), b, n, c0, kc, num_groups,
                                              threads, grid_x, bpc, loop, nb, t, stream)
                 if rc != 0:
-                    raise RuntimeError("fused_expr_sums kernel launch failed: "
+                    raise DaftKernelError("fused_expr_sums kernel launch failed: "
                                        + lib.fused_expr_sums_error_string(rc).decode())
                 LAUNCHES += 1
                 if part is not out:

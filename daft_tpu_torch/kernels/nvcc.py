@@ -6,8 +6,9 @@ nvcc on it (so several sources build at once); ``finish`` waits for it,
 keeps nvcc's log on that build and returns the library's path. A build is
 keyed on the source, the shared headers of ``csrc/``, the nvcc command and
 ``nvcc --version``, so a changed source, flag or toolkit builds anew and
-anything else reuses the library already on disk. A failed build raises
-with nvcc's log.
+anything else reuses the library already on disk. A missing nvcc, a failed
+build (with nvcc's log) and a library that does not load raise
+``DaftKernelError``, which the device path never catches.
 
 All kernels build with ``-fmad=false``: nvcc would otherwise contract
 ``a * b + c`` into one fused multiply-add, which eager torch never does (each
@@ -16,12 +17,15 @@ op is its own rounded kernel). ``--use_fast_math`` is never used.
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict, Optional
+
+from ..errors import DaftKernelError
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -38,7 +42,7 @@ def nvcc() -> str:
     cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
     path = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
     if not os.path.exists(path):
-        raise RuntimeError("nvcc not found (set CUDA_HOME): the port's kernels build "
+        raise DaftKernelError("nvcc not found (set CUDA_HOME): the port's kernels build "
                            "from daft_tpu_torch/csrc/ on first use")
     return path
 
@@ -102,7 +106,7 @@ def finish(p: Pending) -> Path:
     failed. Returns the library's path."""
     if p.proc is None:
         if not p.so.exists():  # a shared build that failed
-            raise RuntimeError(f"nvcc failed on {p.name}:\n{p.log}")
+            raise DaftKernelError(f"nvcc failed on {p.name}:\n{p.log}")
         return p.so
     rc = p.proc.wait()
     log = p.log_path.read_text()
@@ -112,6 +116,14 @@ def finish(p: Pending) -> Path:
     _RUNNING.pop(p.so.stem, None)
     if rc != 0:
         p.tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed on {p.name}:\n{log}")
+        raise DaftKernelError(f"nvcc failed on {p.name}:\n{log}")
     os.replace(p.tmp, p.so)
     return p.so
+
+
+def load(so: Path) -> ctypes.CDLL:
+    """Load a built kernel library."""
+    try:
+        return ctypes.CDLL(str(so))
+    except OSError as e:
+        raise DaftKernelError(f"cannot load {so.name}: {e}") from e

@@ -37,6 +37,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..errors import DaftKernelError
 from . import nvcc
 
 CHUNK_ROWS = 8192  # device._REDUCE_CHUNK
@@ -73,7 +74,7 @@ def finish_build(pending) -> ctypes.CDLL:
     so = nvcc.finish(pending)
     if pending.log is not None:
         BUILD_LOG = pending.log
-    lib = ctypes.CDLL(str(so))
+    lib = nvcc.load(so)
     for fn in (lib.segment_scatter_sums_f32, lib.segment_scatter_sums_f64):
         fn.argtypes = ([ctypes.c_void_p] * 4
                        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -157,7 +158,7 @@ def _launch(values, codes, num_segments: int):
         rc = entry(values.data_ptr(), codes.data_ptr(), partials.data_ptr(), out.data_ptr(), b,
                    chunk, num_segments, ctas_per_chunk_log2(b // chunk), stream)
     if rc != 0:
-        raise RuntimeError("segment_scatter_sums kernel launch failed: "
+        raise DaftKernelError("segment_scatter_sums kernel launch failed: "
                            + lib.segment_scatter_sums_error_string(rc).decode())
     if values.dtype == torch.float64:
         LAUNCHES_F64 += 1

@@ -34,6 +34,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..errors import DaftKernelError
 from . import nvcc
 
 BLOCK_ROWS = 1024
@@ -82,7 +83,7 @@ def finish_build(pending) -> ctypes.CDLL:
     so = nvcc.finish(pending)
     if pending.log is not None:
         BUILD_LOG = pending.log
-    _LIB = _bind(ctypes.CDLL(str(so)))
+    _LIB = _bind(nvcc.load(so))
     return _LIB
 
 
@@ -212,7 +213,7 @@ def _launch(codes, mask, vals, num_groups: int):
                 scratch.data_ptr(), n, kc, num_groups, threads, grid_x, bpc, loop, nb, t,
                 stream)
             if rc != 0:
-                raise RuntimeError("masked_segment_sums kernel launch failed: "
+                raise DaftKernelError("masked_segment_sums kernel launch failed: "
                                    + lib.masked_segment_sums_error_string(rc).decode())
             LAUNCHES += 1
             if part_out is not out:

@@ -60,6 +60,8 @@ from __future__ import annotations
 
 from typing import Dict, Iterator, List, Optional, Tuple
 
+from . import faults
+from .errors import PORT_FAILURES
 from .expressions import AggExpr, Alias, Expression, col
 from .logical import (Aggregate, Distinct, Filter, InMemorySource, Join, Limit, LogicalPlan,
                       Project, Repartition, Sort)
@@ -247,6 +249,7 @@ class SortOp(PhysicalOp):
         self.nulls_first = nulls_first
 
     def execute(self, inputs, ctx) -> PartStream:
+        ctx.check_deadline()  # a pipeline breaker: the deadline first
         for part in inputs[0]:
             yield ctx.eval_sort(part, self.sort_by, self.descending, self.nulls_first)
 
@@ -329,6 +332,7 @@ class GatherOp(PhysicalOp):
         super().__init__([child], child.schema, 1)
 
     def execute(self, inputs, ctx) -> PartStream:
+        ctx.check_deadline()  # a pipeline breaker: the deadline first
         parts = list(_counted(inputs[0], ctx))
         yield (MicroPartition.empty(self.schema) if not parts
                else parts[0] if len(parts) == 1
@@ -415,7 +419,10 @@ class ShuffleOp(PhysicalOp):
     def _feed_filter(self, stream, ctx) -> PartStream:
         """Build-side pass-through: every streamed partition's join keys go
         into the slot's builder, sealed when the stream ends (the join op
-        drains this side before the probe side's exchange runs)."""
+        drains this side before the probe side's exchange runs). A failure
+        of the feed or the seal (the ``join.filter`` fault site among them)
+        abandons the filter and counts ``join_filter_errors``; the exchange
+        itself goes on unfiltered."""
         slot = self.filter_feed
         if not ctx.cfg.runtime_join_filters or not slot.eligible:
             slot.abandon()
@@ -423,10 +430,23 @@ class ShuffleOp(PhysicalOp):
             return
         slot.begin()
         for p in stream:
-            for t in p.chunk_tables():
-                slot.feed(t)
+            try:
+                faults.check("join.filter", ctx.stats)
+                for t in p.chunk_tables():
+                    slot.feed(t)
+            except PORT_FAILURES:
+                raise
+            except Exception:
+                slot.abandon()
+                ctx.stats.bump("join_filter_errors")
             yield p
-        slot.seal()
+        try:
+            slot.seal()
+        except PORT_FAILURES:
+            raise
+        except Exception:
+            slot.abandon()
+            ctx.stats.bump("join_filter_errors")
         if slot.filter() is not None:
             ctx.stats.bump("join_filter_built")
 
@@ -441,6 +461,7 @@ class ShuffleOp(PhysicalOp):
             yield p if jf is None else prune_partition(p, jf, self.by, ctx)
 
     def execute(self, inputs, ctx) -> PartStream:
+        ctx.check_deadline()  # a pipeline breaker: the deadline first
         n = self.num_partitions
         src = inputs[0]
         if self.filter_feed is not None:
@@ -592,6 +613,7 @@ class HashJoinOp(PhysicalOp):
         self.suffix = suffix
 
     def execute(self, inputs, ctx) -> PartStream:
+        ctx.check_deadline()  # the join build buffers both sides
         lparts = list(inputs[0])
         rparts = list(inputs[1])
         lschema = self.children[0].schema
@@ -632,8 +654,9 @@ class BroadcastJoinOp(PhysicalOp):
 
     def _build_small_filter(self, small: MicroPartition, ctx):
         """The Bloom + min-max filter over the collected small side's keys,
-        or None (knob off, not prunable, ineligible key dtypes, or too many
-        build rows)."""
+        or None (knob off, not prunable, ineligible key dtypes, too many
+        build rows, or a failure of the build, the ``join.filter`` fault site
+        among them, counted as ``join_filter_errors``)."""
         if not ctx.cfg.runtime_join_filters or not self._filter_prunable():
             return None
         from .exchange.joinfilter import JoinFilterSlot
@@ -642,16 +665,24 @@ class BroadcastJoinOp(PhysicalOp):
                               self.children[0].schema, self.how)
         if not slot.eligible:
             return None
-        slot.begin()
-        for t in small.chunk_tables():
-            slot.feed(t)
-        slot.seal()
+        try:
+            faults.check("join.filter", ctx.stats)
+            slot.begin()
+            for t in small.chunk_tables():
+                slot.feed(t)
+            slot.seal()
+        except PORT_FAILURES:
+            raise
+        except Exception:
+            ctx.stats.bump("join_filter_errors")
+            return None
         jf = slot.filter()
         if jf is not None:
             ctx.stats.bump("join_filter_built")
         return jf
 
     def execute(self, inputs, ctx) -> PartStream:
+        ctx.check_deadline()  # the join build collects the small side
         small_parts = list(inputs[1])
         small = (MicroPartition.concat(small_parts) if len(small_parts) > 1
                  else small_parts[0] if small_parts

@@ -2,9 +2,12 @@
 daft_tpu/runners.py this slice runs).
 
 Planning is the reference's cold path: ``optimize``, then ``translate``
-(which fuses). Left out of this slice: the plan and result caches,
-feedback-directed planning, adaptive execution, and the mesh and
-distributed runners.
+(which fuses). A query runs under one ExecutionContext, which holds the
+query's one DeviceHealth breaker and its one absolute deadline
+(``execution_timeout_s`` from the start of the run), shared by every
+operator: a dead card does not pay the failure threshold again per stage.
+Left out of this slice: the plan and result caches, feedback-directed
+planning, adaptive execution, and the mesh and distributed runners.
 """
 
 from __future__ import annotations
@@ -53,5 +56,6 @@ class NativeRunner:
         from .optimizer import optimize
         from .physical import translate
 
+        # the query's breaker and deadline are built here, once
         ctx = ExecutionContext(get_context().execution_config, stats or RuntimeStats())
         return execute_plan(translate(optimize(plan), ctx.cfg, ctx.stats), ctx)

@@ -560,18 +560,44 @@ def test_bloom_probe_on_the_card_equals_the_host_probe():
 
 
 def test_a_failure_of_the_device_bloom_probe_reaches_the_caller(monkeypatch):
-    """No catch around the Bloom probe on the card: when the staged bit
-    table fails, collect() raises (the reference's fail-open comes with the
-    DeviceHealth breaker)."""
+    """A failure of the port itself around the Bloom probe on the card (a
+    ``DaftKernelError`` while the bit table stages) is caught neither by the
+    device attempt nor by the prune's fail-open: collect() raises."""
+    from daft_tpu_torch.errors import DaftKernelError
     from daft_tpu_torch.exchange import joinfilter
 
     def broken(self, device):
-        raise RuntimeError("bit table staging failed")
+        raise DaftKernelError("bit table staging failed")
 
     monkeypatch.setattr(joinfilter.RuntimeJoinFilter, "_staged_bits", broken)
     build, probe = _selective()
     daft_tpu_torch.set_execution_config(device="cpu", device_min_rows=8)
     q = frame(daft_tpu_torch, build, 3).join(frame(daft_tpu_torch, probe, 3), on="k",
                                              strategy="hash")
-    with pytest.raises(RuntimeError, match="bit table staging failed"):
+    with pytest.raises(DaftKernelError, match="bit table staging failed"):
         q.collect()
+
+
+def test_a_device_error_of_the_bloom_probe_probes_on_the_host(monkeypatch):
+    """A failure of the device layer the breaker takes (an out-of-memory
+    error on the card) while the bit table stages is a device attempt's
+    failure, in both packages: each probe partition probes on the host
+    instead (no ``join_filter_device_probes``), the third failure trips the
+    breaker, and the rows and counters equal the reference's."""
+    import torch
+
+    from daft_tpu.exchange import joinfilter as ref_jf
+    from daft_tpu_torch.exchange import joinfilter
+
+    def broken(self, *a):
+        raise torch.cuda.OutOfMemoryError("bit table staging failed")
+
+    monkeypatch.setattr(ref_jf.RuntimeJoinFilter, "_staged_bits", broken)
+    monkeypatch.setattr(joinfilter.RuntimeJoinFilter, "_staged_bits", broken)
+    build, probe = _selective()
+    (ref, rc), (got, gc) = run_both(lambda pkg: frame(pkg, build, 3).join(
+        frame(pkg, probe, 3), on="k", strategy="hash"))
+    assert_rows_close(got, ref, 0.0)
+    assert counters(gc) == counters(rc)
+    assert gc.get("join_filter_device_probes", 0) == 0 and gc["join_filter_rows_pruned"] > 3000
+    assert gc.get("device_breaker_trips") == rc.get("device_breaker_trips") == 1

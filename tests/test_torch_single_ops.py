@@ -250,27 +250,87 @@ def test_random_repartition_is_not_ported():
     assert gc.get("shuffles") == rc.get("shuffles") == 1
 
 
-@pytest.mark.parametrize("hook", ["filter", "projection", "distinct"])
-def test_a_failure_on_the_card_reaches_the_caller(monkeypatch, hook):
-    """No resolver of the single-op hooks catches a device failure and
-    carries on on the host: the error reaches collect()."""
-    from daft_tpu_torch.kernels import device, device_agg
+HOOKS = ("filter", "projection", "distinct")
+BREAKER = ("device_breaker_trips", "degraded_completions", "device_filter_fallbacks",
+           "device_projection_fallbacks", "device_distincts", "host_distincts")
+
+
+def _break_hook(monkeypatch, pkg, hook: str, exc: type, raised=None):
+    """Make ``pkg``'s device layer raise ``exc`` at ``hook``: the group-codes
+    kernel of a distinct, or the resolver of a launched filter or
+    projection; each raise appends to ``raised`` when given. Returns the
+    query."""
+    import importlib
+
+    device = importlib.import_module(pkg.__name__ + ".kernels.device")
+    device_agg = importlib.import_module(pkg.__name__ + ".kernels.device_agg")
 
     def broken(*a, **kw):
-        raise RuntimeError("device failure")
+        if raised is not None:
+            raised.append(hook)
+        raise exc("device failure")
 
     if hook == "distinct":
         monkeypatch.setattr(device_agg, "_group_codes_kernel", broken)
-        query = SINGLE["distinct_one_key"][0]
-    else:
-        real = device.eval_projection_device_async
+        return SINGLE["distinct_one_key"][0]
+    real = device.eval_projection_device_async
 
-        def launch_then_fail(*a, **kw):
-            resolve = real(*a, **kw)
-            return None if resolve is None else broken
+    def launch_then_fail(*a, **kw):
+        resolve = real(*a, **kw)
+        return None if resolve is None else broken
 
-        monkeypatch.setattr(device, "eval_projection_device_async", launch_then_fail)
-        query = SINGLE["filter_numeric" if hook == "filter" else "projection"][0]
+    monkeypatch.setattr(device, "eval_projection_device_async", launch_then_fail)
+    return SINGLE["filter_numeric" if hook == "filter" else "projection"][0]
+
+
+@pytest.mark.parametrize("hook", HOOKS)
+def test_a_failure_on_the_card_reaches_the_caller(monkeypatch, hook):
+    """A failure of the port itself (``DaftKernelError``: a kernel that does
+    not build, load or launch, or a missing card) is caught by no resolver
+    and no device attempt: it reaches collect(), and the breaker counts
+    nothing."""
+    from daft_tpu_torch.errors import DaftKernelError
+
+    query = _break_hook(monkeypatch, daft_tpu_torch, hook, DaftKernelError)
     daft_tpu_torch.set_execution_config(device="cpu", device_min_rows=MIN_ROWS)
+    df = query(daft_tpu_torch, daft_tpu_torch.from_arrow(_parts(1)))
+    with pytest.raises(DaftKernelError, match="device failure"):
+        df.collect()
+    assert df.stats.snapshot()["counters"].get("device_breaker_trips", 0) == 0
+
+
+@pytest.mark.parametrize("hook", HOOKS)
+def test_a_device_error_completes_on_the_host(monkeypatch, hook):
+    """A failure of the device layer the breaker takes (here an
+    out-of-memory error on the card) at the same hooks is a breaker failure,
+    as in the reference: each partition completes on the host (the filter's
+    and projection's resolvers take back their device count and bump
+    ``*_fallbacks``), the third failure trips the breaker, and the rows and
+    counters equal the reference's under the same patch. Each failure
+    raised shows in ``device_attempt_failures``."""
+    import torch
+
+    query = _break_hook(monkeypatch, daft_tpu, hook, torch.cuda.OutOfMemoryError)
+    raised = []
+    _break_hook(monkeypatch, daft_tpu_torch, hook, torch.cuda.OutOfMemoryError, raised)
+    (ref, rc), (got, gc) = _both(_parts(3), query)
+    _assert_same(got, ref)
+    assert _route(gc) == _route(rc)
+    assert {k: gc.get(k, 0) for k in BREAKER} == {k: rc.get(k, 0) for k in BREAKER}
+    assert gc.get("device_breaker_trips", 0) == 1, gc
+    assert gc.get("device_attempt_failures", 0) == len(raised) >= 3, gc
+
+
+@pytest.mark.parametrize("hook", HOOKS)
+def test_any_other_device_error_reaches_the_caller(monkeypatch, hook):
+    """An exception the breaker does not take (a RuntimeError, as a defect
+    of the port's own code would raise) at the same hooks is caught by no
+    resolver and no device attempt, unlike the reference's catch-all: it
+    reaches collect(), and nothing counts a failure."""
+    query = _break_hook(monkeypatch, daft_tpu_torch, hook, RuntimeError)
+    daft_tpu_torch.set_execution_config(device="cpu", device_min_rows=MIN_ROWS)
+    df = query(daft_tpu_torch, daft_tpu_torch.from_arrow(_parts(3)))
     with pytest.raises(RuntimeError, match="device failure"):
-        query(daft_tpu_torch, daft_tpu_torch.from_arrow(_parts(1))).collect()
+        df.collect()
+    c = df.stats.snapshot()["counters"]
+    assert c.get("device_breaker_trips", 0) == c.get("device_attempt_failures", 0) == 0, c

@@ -11,7 +11,9 @@ the exchange. Every routing counter the port counts, the exchange's
 (``exchange_rows``, ``exchange_precombined_rows``) and the join filter's,
 equals the reference's, but for the differences pinned in ``PINNED_3P``,
 each with its reason; the aggregate routes equal ``TPCH22_ROUTES_3P``,
-the table chip_smoke.py holds the card's run to at SF0.005. The rows equal
+the table chip_smoke.py holds the card's run to at SF0.005, with the
+DeviceHealth breaker closed in both packages (no trip, no degraded
+partition). The rows equal
 the reference's under tests/test_torch_tpch22.py's rule.
 """
 
@@ -76,3 +78,7 @@ def test_routing_counters_match_reference_in_three_partitions(qn, data, port_que
     assert {k: (gc.get(k, 0), rc.get(k, 0)) for k in pinned} == pinned
     assert gc.get("device_agg_fallbacks", 0) == 0
     assert {k: gc.get(k, 0) for k in TPCH22_ROUTES_3P[qn]} == TPCH22_ROUTES_3P[qn]
+    # the routes hold with the breaker closed, in both packages
+    health = ("device_breaker_trips", "degraded_completions")
+    assert {k: gc.get(k, 0) for k in health} == {k: rc.get(k, 0) for k in health} == {
+        k: 0 for k in health}

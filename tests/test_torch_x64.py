@@ -262,10 +262,13 @@ def test_staging_is_full_width_and_the_32bit_mode_declines():
     assert env["big"][0][1] == 2 ** 40 and env["f"][0][1] == 1e300
     assert env["u"][0][1] == 2 ** 62
     assert port_device.stage_table_columns(tbl, ["uhuge"], 1024, {}, dev) is None
-    # the 32-bit mode declines the wide int and the epoch column (epochs ride
-    # split lanes there), and rounds float64 to float32
+    # the 32-bit mode declines the wide int (by raising, as the reference's
+    # staging does: the device attempt counts it against the breaker) and
+    # the epoch column (epochs ride split lanes there), and rounds float64
+    # to float32
     daft_tpu_torch.set_execution_config(device="cpu", device_x64=False)
-    assert port_device.stage_table_columns(tbl, ["big"], 1024, {}, dev) is None
+    with pytest.raises(ValueError, match="exceed int32 range"):
+        port_device.stage_table_columns(tbl, ["big"], 1024, {}, dev)
     assert port_device.stage_table_columns(tbl, ["t"], 1024, {}, dev) is None
     env32, _ = port_device.stage_table_columns(tbl, ["f"], 1024, {}, dev)
     assert env32["f"][0].dtype == torch.float32
