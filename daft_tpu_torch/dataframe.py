@@ -1,13 +1,14 @@
 """DataFrame: the lazy user-facing frame over a logical plan (the port's copy
 of the part of daft_tpu/dataframe.py this slice runs).
 
-Covers where/filter, select, with_column(s), groupby(...).agg, agg, sort,
-join, limit/head, distinct/unique, repartition (by hash), into_partitions, collect,
-to_pydict, to_arrow, explain and the per-query ``stats``. Left out of this
-slice: cross joins, sample, the random and range repartitions
-(``repartition`` without keys), concat,
-explode/unpivot/pivot, writers, profiling, the result cache and the
-integrations.
+Covers where/filter, drop_null, drop_nan, select, exclude, with_column(s),
+with_column(s)_renamed, groupby(...).agg, agg, count_rows/len, sort, join
+(every join type, cross joins among them, and the hash, broadcast and
+sort-merge strategies), concat, limit/head, distinct/unique, sample,
+repartition, into_partitions, explode, unpivot/melt, pivot,
+with_monotonically_increasing_id, collect, to_pydict, to_arrow, explain and
+the per-query ``stats``. Left out of this slice: scans and writers, SQL
+predicates, profiling, the result cache and the integrations.
 """
 
 from __future__ import annotations
@@ -16,9 +17,10 @@ from typing import Any, Dict, List, Optional, Union
 
 from .context import get_context
 from .execution import RuntimeStats
-from .expressions import Expression, col
-from .logical import (Aggregate, Distinct, Filter, InMemorySource, Join, Limit, LogicalPlan,
-                      Project, Repartition, Sort)
+from .expressions import AggExpr, Expression, col
+from .logical import (Aggregate, Concat, Distinct, Explode, Filter, InMemorySource, Join, Limit,
+                      LogicalPlan, MonotonicallyIncreasingId, Pivot, Project, Repartition,
+                      Sample, Sort, Unpivot)
 from .micropartition import MicroPartition
 from .runners import PartitionSet
 from .schema import Schema
@@ -79,6 +81,11 @@ class DataFrame:
     def select(self, *columns: ColumnInput) -> "DataFrame":
         return DataFrame(Project(self._plan, [_to_expr(c) for c in columns]))
 
+    def exclude(self, *names: str) -> "DataFrame":
+        drop = set(names)
+        return DataFrame(Project(self._plan, [col(n) for n in self.column_names
+                                              if n not in drop]))
+
     def with_column(self, name: str, expr: Expression) -> "DataFrame":
         return self.with_columns({name: expr})
 
@@ -93,10 +100,38 @@ class DataFrame:
                 exprs.append(_to_expr(e).alias(n))
         return DataFrame(Project(self._plan, exprs))
 
+    def with_column_renamed(self, existing: str, new: str) -> "DataFrame":
+        return self.with_columns_renamed({existing: new})
+
+    def with_columns_renamed(self, mapping: Dict[str, str]) -> "DataFrame":
+        return DataFrame(Project(self._plan, [col(n).alias(mapping.get(n, n))
+                                              for n in self.column_names]))
+
     def where(self, predicate: Expression) -> "DataFrame":
         return DataFrame(Filter(self._plan, predicate))
 
     filter = where
+
+    def drop_null(self, *columns: ColumnInput) -> "DataFrame":
+        """The rows with no null in ``columns`` (every column when none)."""
+        exprs = _to_exprs(columns) if columns else [col(n) for n in self.column_names]
+        pred = exprs[0].not_null()
+        for e in exprs[1:]:
+            pred = pred & e.not_null()
+        return self.where(pred)
+
+    def drop_nan(self, *columns: ColumnInput) -> "DataFrame":
+        """The rows with no NaN in ``columns`` (every float column when
+        none); nulls stay."""
+        exprs = (_to_exprs(columns) if columns
+                 else [col(f.name) for f in self.schema if f.dtype.is_floating()])
+        if not exprs:
+            return self
+        pred = None
+        for e in exprs:
+            p = e.is_null() | e.float.not_nan()
+            pred = p if pred is None else (pred & p)
+        return self.where(pred)
 
     def sort(self, by, desc: Union[bool, List[bool]] = False,
              nulls_first=None) -> "DataFrame":
@@ -109,6 +144,14 @@ class DataFrame:
         return DataFrame(Distinct(self._plan, _to_exprs(subset) if subset else None))
 
     unique = distinct
+
+    def sample(self, fraction: float, with_replacement: bool = False,
+               seed: Optional[int] = None) -> "DataFrame":
+        """``round(fraction * n)`` rows of each partition of n rows, drawn
+        with seed ``seed`` plus the partition's index."""
+        if fraction < 0.0 or fraction > 1.0:
+            raise ValueError(f"fraction must be in [0, 1], got {fraction}")
+        return DataFrame(Sample(self._plan, fraction, with_replacement, seed))
 
     def limit(self, num: int) -> "DataFrame":
         if num < 0:
@@ -142,6 +185,43 @@ class DataFrame:
         ro = _to_exprs(right_on) if right_on is not None else []
         return DataFrame(Join(self._plan, other._plan, lo, ro, how, strategy, suffix))
 
+    def concat(self, other: "DataFrame") -> "DataFrame":
+        """This frame's rows, then ``other``'s (equal column names)."""
+        return DataFrame(Concat(self._plan, other._plan))
+
+    def explode(self, *columns: ColumnInput) -> "DataFrame":
+        return DataFrame(Explode(self._plan, _to_exprs(columns)))
+
+    def unpivot(self, ids, values=None, variable_name: str = "variable",
+                value_name: str = "value") -> "DataFrame":
+        """Wide to long; ``values`` defaults to every column not in ``ids``."""
+        ids = _to_exprs(ids)
+        if values is None:
+            id_names = {e.name() for e in ids}
+            values = [col(n) for n in self.column_names if n not in id_names]
+        else:
+            values = _to_exprs(values)
+        return DataFrame(Unpivot(self._plan, ids, values, variable_name, value_name))
+
+    melt = unpivot
+
+    def pivot(self, group_by, pivot_col: ColumnInput, value_col: ColumnInput,
+              agg_fn: str, names: Optional[List[str]] = None) -> "DataFrame":
+        """One column per value of ``pivot_col`` (``names``; when None, the
+        column's distinct values but null, found by running a query now)."""
+        group_by = _to_exprs(group_by)
+        pivot_e = _to_expr(pivot_col)
+        value_e = _to_expr(value_col)
+        if names is None:
+            names_df = DataFrame(self._plan).select(pivot_e).distinct().collect()
+            names = [v for v in names_df.to_pydict()[pivot_e.name()] if v is not None]
+        return DataFrame(Pivot(self._plan, group_by, pivot_e, value_e, agg_fn, names))
+
+    def _add_monotonic_id(self, column_name: str = "id") -> "DataFrame":
+        return DataFrame(MonotonicallyIncreasingId(self._plan, column_name))
+
+    with_monotonically_increasing_id = _add_monotonic_id
+
     def agg(self, *to_agg) -> "DataFrame":
         return DataFrame(Aggregate(self._plan, _normalize_aggs(to_agg), []))
 
@@ -152,6 +232,18 @@ class DataFrame:
         if not exprs:
             raise ValueError("groupby requires at least one column")
         return GroupedDataFrame(self, exprs)
+
+    def count_rows(self) -> int:
+        """The number of rows (a count of every row, nulls included)."""
+        if not self.column_names:
+            return 0
+        cnt = DataFrame(Aggregate(
+            self._plan, [Expression(AggExpr("count", col(self.column_names[0])._node,
+                                            {"mode": "all"})).alias("count")], []))
+        return cnt.to_pydict()["count"][0]
+
+    def __len__(self) -> int:
+        return self.count_rows()
 
     def collect(self) -> "DataFrame":
         """Materialize the plan; ``stats`` then holds the query's counters."""

@@ -3,17 +3,19 @@ of daft_tpu/logical.py). Every node resolves and validates its output schema
 at construction time, so API misuse fails at build time, not at collect time.
 
 This slice carries InMemorySource, Project, Filter, Limit, Sort,
-Repartition (hash, range, random and into), Distinct, Aggregate and Join (with the
-size estimate the join planner reads), and the expression-analysis helpers the
-optimizer (optimizer.py) uses. Left out until a later slice: scans, sample, concat,
-explode/unpivot/pivot, monotonic ids and writes, and the row-count estimates.
+Repartition (hash, range, random and into), Distinct, Sample, Aggregate,
+Pivot, Join (every join type, the cross join among them, with the size
+estimate the join planner reads), Concat, Explode, Unpivot and
+MonotonicallyIncreasingId, and the expression-analysis helpers the
+optimizer (optimizer.py) uses. Left out until a later slice: scans and
+writes, and the row-count estimates.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional
 
-from .datatypes import try_unify
+from .datatypes import DataType, try_unify
 from .expressions import AggExpr, Alias, Column, Expression
 from .schema import Field, Schema
 
@@ -275,6 +277,22 @@ class Distinct(UnaryNode):
         return Distinct(c[0], self.subset)
 
 
+class Sample(UnaryNode):
+    """A draw of ``fraction`` of each partition's rows, with or without
+    replacement, seeded by ``seed`` plus the partition's index."""
+
+    def __init__(self, input: LogicalPlan, fraction: float, with_replacement: bool,
+                 seed: Optional[int]):
+        super().__init__(input)
+        self.fraction = fraction
+        self.with_replacement = with_replacement
+        self.seed = seed
+        self.schema = input.schema
+
+    def with_children(self, c):
+        return Sample(c[0], self.fraction, self.with_replacement, self.seed)
+
+
 class Aggregate(UnaryNode):
     def __init__(self, input: LogicalPlan, aggregations: List[Expression],
                  groupby: List[Expression]):
@@ -301,6 +319,28 @@ class Aggregate(UnaryNode):
             lines.append("Group by = " + ", ".join(e._node.display() for e in self.groupby))
         return lines
 
+
+class Pivot(UnaryNode):
+    """One row per ``groupby`` tuple and one column per name in ``names``:
+    ``agg_fn`` of ``value_col`` over the rows whose ``pivot_col`` is that
+    name (null where there are none)."""
+
+    def __init__(self, input: LogicalPlan, groupby: List[Expression], pivot_col: Expression,
+                 value_col: Expression, agg_fn: str, names: List[str]):
+        super().__init__(input)
+        self.groupby = groupby
+        self.pivot_col = pivot_col
+        self.value_col = value_col
+        self.agg_fn = agg_fn
+        self.names = names
+        vf = AggExpr(agg_fn, value_col._node).to_field(input.schema)
+        fields = [Field(e.name(), e._node.to_field(input.schema).dtype) for e in groupby]
+        fields += [Field(str(n), vf.dtype) for n in names]
+        self.schema = Schema(fields)
+
+    def with_children(self, c):
+        return Pivot(c[0], self.groupby, self.pivot_col, self.value_col, self.agg_fn,
+                     self.names)
 
 
 def join_output_schema(left: Schema, right: Schema, left_on: List[Expression],
@@ -331,9 +371,10 @@ def join_output_schema(left: Schema, right: Schema, left_on: List[Expression],
 
 
 class Join(LogicalPlan):
-    """An equi-join of two plans. Hows inner, left, right, outer, semi and
-    anti; strategies None (the planner chooses), "hash" and "broadcast".
-    Cross joins and the "sort_merge" strategy are not ported yet."""
+    """An equi-join of two plans (hows inner, left, right, outer, semi and
+    anti) or a cross join (``how="cross"``, no keys; the left fields, then
+    the right ones, ``suffix`` on a clash). Strategies None (the planner
+    chooses), "hash", "sort_merge" and "broadcast"."""
 
     def __init__(self, left: LogicalPlan, right: LogicalPlan,
                  left_on: List[Expression], right_on: List[Expression],
@@ -343,11 +384,10 @@ class Join(LogicalPlan):
             raise ValueError(f"unknown join type {how!r}")
         if strategy not in (None, "hash", "sort_merge", "broadcast"):
             raise ValueError(f"unknown join strategy {strategy!r}")
-        if how == "cross" or strategy == "sort_merge":
-            raise NotImplementedError(
-                "cross joins and the sort_merge strategy come with a later slice of the "
-                "port (CrossJoinOp, SortMergeJoinOp)")
-        if not left_on or len(left_on) != len(right_on):
+        if how == "cross":
+            if left_on or right_on:
+                raise ValueError("cross join takes no keys")
+        elif not left_on or len(left_on) != len(right_on):
             raise ValueError("join requires equal-length left_on/right_on")
         self.left = left
         self.right = right
@@ -356,8 +396,14 @@ class Join(LogicalPlan):
         self.how = how
         self.strategy = strategy
         self.suffix = suffix
-        self.schema = join_output_schema(left.schema, right.schema, left_on, right_on, how,
-                                         suffix)
+        if how == "cross":
+            lnames = set(left.schema.field_names())
+            self.schema = Schema(list(left.schema) + [
+                Field(f.name if f.name not in lnames else f"{suffix}{f.name}", f.dtype)
+                for f in right.schema])
+        else:
+            self.schema = join_output_schema(left.schema, right.schema, left_on, right_on,
+                                             how, suffix)
 
     def children(self):
         return [self.left, self.right]
@@ -372,4 +418,97 @@ class Join(LogicalPlan):
     def multiline_display(self):
         on = ", ".join(f"{l._node.display()}={r._node.display()}"
                        for l, r in zip(self.left_on, self.right_on))
-        return [f"Join: {self.how} on {on}" + (f" [{self.strategy}]" if self.strategy else "")]
+        return [f"Join: {self.how}" + (f" on {on}" if on else "")
+                + (f" [{self.strategy}]" if self.strategy else "")]
+
+
+class Concat(LogicalPlan):
+    """The rows of ``input``, then those of ``other``: equal column names,
+    each column's type the unification of the two sides'."""
+
+    def __init__(self, input: LogicalPlan, other: LogicalPlan):
+        if input.schema.field_names() != other.schema.field_names():
+            raise ValueError(f"concat schema mismatch: {input.schema.field_names()} vs "
+                             f"{other.schema.field_names()}")
+        fields = []
+        for a, b in zip(input.schema, other.schema):
+            u = try_unify(a.dtype, b.dtype)
+            if u is None:
+                raise ValueError(f"concat column {a.name!r}: {a.dtype} vs {b.dtype}")
+            fields.append(Field(a.name, u))
+        self.input = input
+        self.other = other
+        self.schema = Schema(fields)
+
+    def children(self):
+        return [self.input, self.other]
+
+    def with_children(self, c):
+        return Concat(c[0], c[1])
+
+    def num_partitions(self) -> int:
+        return self.input.num_partitions() + self.other.num_partitions()
+
+
+class Explode(UnaryNode):
+    """One row per element of the list columns ``to_explode`` (equal list
+    lengths per row; an empty or null list gives one null row)."""
+
+    def __init__(self, input: LogicalPlan, to_explode: List[Expression]):
+        super().__init__(input)
+        self.to_explode = to_explode
+        names = {e.name() for e in to_explode}
+        fields = []
+        for f in input.schema:
+            if f.name in names:
+                if not f.dtype.is_list():
+                    raise ValueError(f"cannot explode non-list column {f.name!r} ({f.dtype})")
+                fields.append(Field(f.name, f.dtype.inner))
+            else:
+                fields.append(f)
+        self.schema = Schema(fields)
+
+    def with_children(self, c):
+        return Explode(c[0], self.to_explode)
+
+
+class Unpivot(UnaryNode):
+    """Wide to long: the ``ids`` columns, then ``variable_name`` (the name
+    of a value column) and ``value_name`` (its value, the value columns'
+    unified type), one row per input row and value column."""
+
+    def __init__(self, input: LogicalPlan, ids: List[Expression], values: List[Expression],
+                 variable_name: str, value_name: str):
+        super().__init__(input)
+        if not values:
+            raise ValueError("unpivot requires at least one value column")
+        self.ids = ids
+        self.values = values
+        self.variable_name = variable_name
+        self.value_name = value_name
+        vdt = None
+        for e in values:
+            dt = e._node.to_field(input.schema).dtype
+            vdt = dt if vdt is None else try_unify(vdt, dt)
+            if vdt is None:
+                raise ValueError("unpivot value columns have incompatible types")
+        fields = [Field(e.name(), e._node.to_field(input.schema).dtype) for e in ids]
+        fields.append(Field(variable_name, DataType.string()))
+        fields.append(Field(value_name, vdt))
+        self.schema = Schema(fields)
+
+    def with_children(self, c):
+        return Unpivot(c[0], self.ids, self.values, self.variable_name, self.value_name)
+
+
+class MonotonicallyIncreasingId(UnaryNode):
+    """A uint64 id column first: partition i numbers its rows from
+    ``i << 36``."""
+
+    def __init__(self, input: LogicalPlan, column_name: str = "id"):
+        super().__init__(input)
+        self.column_name = column_name
+        self.schema = Schema([Field(column_name, DataType.uint64())] + list(input.schema))
+
+    def with_children(self, c):
+        return MonotonicallyIncreasingId(c[0], self.column_name)

@@ -11,7 +11,7 @@ hash and range shuffles chunk by chunk, as the reference does;
 ``partition_by_random`` splits the whole partition, since its draw is over
 row positions. Left out of this slice: unloaded partitions backed by scan
 tasks (with their pending-op chains, file statistics and pickling for worker
-processes), the sort-merge join, the explode/pivot methods and the writer.
+processes) and the writer.
 """
 
 from __future__ import annotations
@@ -85,6 +85,34 @@ class MicroPartition:
     def distinct(self, subset=None) -> "MicroPartition":
         return MicroPartition.from_table(self.table().distinct(subset))
 
+    def sample(self, fraction=None, size=None, with_replacement=False,
+               seed=None) -> "MicroPartition":
+        return MicroPartition.from_table(
+            self.table().sample(fraction, size, with_replacement, seed))
+
+    def explode(self, exprs) -> "MicroPartition":
+        return MicroPartition.from_table(self.table().explode(exprs))
+
+    def unpivot(self, ids, values, variable_name="variable",
+                value_name="value") -> "MicroPartition":
+        return MicroPartition.from_table(
+            self.table().unpivot(ids, values, variable_name, value_name))
+
+    def pivot(self, group_by, pivot_col, value_col, names, agg_fn="sum") -> "MicroPartition":
+        return MicroPartition.from_table(
+            self.table().pivot(group_by, pivot_col, value_col, names, agg_fn))
+
+    def add_monotonic_id(self, partition_offset: int = 0,
+                         column_name: str = "id") -> "MicroPartition":
+        return MicroPartition.from_table(
+            self.table().add_monotonic_id(partition_offset, column_name))
+
+    def select_columns(self, names: List[str]) -> "MicroPartition":
+        return MicroPartition.from_table(self.table().select_columns(names))
+
+    def cast_to_schema(self, schema: Schema) -> "MicroPartition":
+        return MicroPartition.from_table(self.table().cast_to_schema(schema))
+
     def take(self, indices) -> "MicroPartition":
         return MicroPartition.from_table(self.table().take(indices))
 
@@ -136,6 +164,11 @@ class MicroPartition:
                   suffix="right.") -> "MicroPartition":
         return MicroPartition.from_table(
             self.table().hash_join(right.table(), left_on, right_on, how, suffix))
+
+    def sort_merge_join(self, right: "MicroPartition", left_on, right_on, how="inner",
+                        suffix="right.", is_sorted=False) -> "MicroPartition":
+        return MicroPartition.from_table(self.table().sort_merge_join(
+            right.table(), left_on, right_on, how, suffix, is_sorted))
 
     @staticmethod
     def concat(parts: List["MicroPartition"]) -> "MicroPartition":

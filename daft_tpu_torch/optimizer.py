@@ -2,16 +2,17 @@
 over the plan nodes the port has).
 
 The rules rewrite the logical tree to a fixed point (bounded passes):
-filter pushdown (across projections, sorts, repartitions and distincts,
-and into the sides of a join), limit pushdown, repartition elision and
-projection folding. Then one column-pruning pass pushes the set of needed
-columns toward the sources, where a pruning Project over an in-memory
-source keeps only what later operators read, and the rules run to a fixed
-point again.
+filter pushdown (across projections, sorts, repartitions, distincts and
+monotonic ids, into both sides of a concat, and into the sides of an equi
+join), limit pushdown (across projections and into both sides of a
+concat), repartition elision and projection folding. Then one
+column-pruning pass pushes the set of needed columns toward the sources
+(through pivots, explodes, unpivots, concats, samples and monotonic ids
+too), where a pruning Project over an in-memory source keeps only what
+later operators read, and the rules run to a fixed point again.
 
 Left out until their nodes are ported: the scan pushdowns (filters, limits
-and columns installed in a ScanSource) and the pivot, explode, unpivot,
-concat, sample, write and monotonic-id branches.
+and columns installed in a ScanSource) and the write branch.
 """
 
 from __future__ import annotations
@@ -19,8 +20,9 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Tuple
 
 from .expressions import BinaryOp, Expression, col
-from .logical import (Aggregate, Distinct, Filter, InMemorySource, Join, Limit, LogicalPlan,
-                      Project, Repartition, Sort, expr_has_special, expr_input_columns,
+from .logical import (Aggregate, Concat, Distinct, Explode, Filter, InMemorySource, Join, Limit,
+                      LogicalPlan, MonotonicallyIncreasingId, Pivot, Project, Repartition,
+                      Sample, Sort, Unpivot, expr_has_special, expr_input_columns,
                       is_trivial_passthrough, substitute_columns)
 
 
@@ -120,8 +122,14 @@ def _push_down_filter(p: LogicalPlan) -> Optional[LogicalPlan]:
         subst = substitute_columns(pred, {k: v for k, v in defs.items() if v is not None})
         return Project(Filter(child.input, subst), child.exprs)
 
-    if isinstance(child, (Sort, Repartition, Distinct)):
+    if isinstance(child, (Sort, Repartition, MonotonicallyIncreasingId, Distinct)):
+        if (isinstance(child, MonotonicallyIncreasingId)
+                and child.column_name in expr_input_columns(pred)):
+            return None
         return child.with_children([Filter(child.input, pred)])
+
+    if isinstance(child, Concat):
+        return Concat(Filter(child.input, pred), Filter(child.other, pred))
 
     if isinstance(child, Join):
         return _filter_into_join(p, child)
@@ -208,6 +216,12 @@ def _push_down_limit(p: LogicalPlan) -> Optional[LogicalPlan]:
         if any(expr_has_special(e) for e in child.exprs):
             return None
         return Project(Limit(child.input, p.limit), child.exprs)
+    if isinstance(child, Concat):
+        a, b = child.input, child.other
+        if (isinstance(a, Limit) and a.limit <= p.limit
+                and isinstance(b, Limit) and b.limit <= p.limit):
+            return None
+        return Limit(Concat(Limit(a, p.limit), Limit(b, p.limit)), p.limit)
     return None
 
 
@@ -313,6 +327,13 @@ def _prune_columns(p: LogicalPlan, required: Optional[List[str]]) -> LogicalPlan
                 or p.input.schema.field_names()[:1])
         return Aggregate(_prune_columns(p.input, need), p.aggregations, p.groupby)
 
+    if isinstance(p, Pivot):
+        need = []
+        _add_inputs(need, p.groupby + [p.pivot_col, p.value_col])
+        need = [c for c in p.input.schema.field_names() if c in need]
+        return Pivot(_prune_columns(p.input, need), p.groupby, p.pivot_col, p.value_col,
+                     p.agg_fn, p.names)
+
     if isinstance(p, Join):
         lneed: Optional[List[str]] = None
         rneed: Optional[List[str]] = None
@@ -331,6 +352,11 @@ def _prune_columns(p: LogicalPlan, required: Optional[List[str]]) -> LogicalPlan
                     if fld.name in rk and out_name not in required:
                         continue
                     rneed.append(fld.name)
+                if out_name != fld.name and out_name in required and fld.name not in lneed:
+                    # the left column the suffix comes from stays, or the
+                    # right column would lose its suffixed name (the
+                    # reference prunes it, and its plan then fails to build)
+                    lneed.append(fld.name)
             lneed = [c for c in p.left.schema.field_names() if c in lneed]
             rneed = [c for c in p.right.schema.field_names() if c in rneed]
         return Join(_prune_columns(p.left, lneed), _prune_columns(p.right, rneed),
@@ -343,11 +369,39 @@ def _prune_columns(p: LogicalPlan, required: Optional[List[str]]) -> LogicalPlan
             need = [c for c in p.input.schema.field_names() if c in need]
         return p.with_children([_prune_columns(p.input, need)])
 
+    if isinstance(p, Explode):
+        need = None if required is None else list(required)
+        if need is not None:
+            _add_inputs(need, p.to_explode)
+            need = [c for c in p.input.schema.field_names() if c in need]
+        return Explode(_prune_columns(p.input, need), p.to_explode)
+
+    if isinstance(p, Unpivot):
+        need = []
+        _add_inputs(need, p.ids + p.values)
+        need = [c for c in p.input.schema.field_names() if c in need]
+        return Unpivot(_prune_columns(p.input, need), p.ids, p.values, p.variable_name,
+                       p.value_name)
+
     if isinstance(p, Distinct):
         # distinct semantics depend on every visible column: no pruning below
         return p.with_children([_prune_columns(p.input, None)])
 
-    if isinstance(p, Limit):
+    if isinstance(p, Concat):
+        # both sides keep one layout
+        need = None if required is None else _restrict(required, p.schema.field_names())
+        a = _prune_columns(p.input, need)
+        b = _prune_columns(p.other, need)
+        if a.schema.field_names() != b.schema.field_names():
+            a = _prune_columns(p.input, None)
+            b = _prune_columns(p.other, None)
+        return Concat(a, b)
+
+    if isinstance(p, (Limit, Sample)):
         return p.with_children([_prune_columns(p.input, required)])
+
+    if isinstance(p, MonotonicallyIncreasingId):
+        # the ids number every row: the full requirement passes through
+        return p.with_children([_prune_columns(p.input, None)])
 
     raise ValueError(f"column pruning has no rule for logical node {p.name()}")

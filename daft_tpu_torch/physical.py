@@ -51,9 +51,16 @@ Left out of this slice: scans; the shuffle's mesh, peer-to-peer, spill,
 encode and lineage legs and the feedback-directed fan-out resize, each of
 which the reference keeps byte-identical when off; the morsel split of
 in-memory sources, which the reference skips on the device path; the
-sort-merge and cross joins, feedback-directed join planning,
-explode/pivot/sample/write ops, the worker pool, streaming and batched
-UDFs.
+mesh exchange of the sort-merge join, feedback-directed join planning, the
+write op, the worker pool, streaming and batched UDFs.
+
+A sort-merge join (``SortMergeJoinOp``) samples both sides' keys as they
+stream in, range-splits both by the same boundaries and sorts and joins
+bucket i of the left with bucket i of the right on the host; a cross join
+(``CrossJoinOp``) joins each left partition with the whole right side on
+a literal key, on the host. Explode, unpivot, sample, monotonic ids and
+concat are per-partition host ops; a pivot gathers its input into one
+partition and pivots it on the host.
 """
 
 from __future__ import annotations
@@ -62,9 +69,10 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 from . import faults
 from .errors import PORT_FAILURES
-from .expressions import AggExpr, Alias, Expression, col
-from .logical import (Aggregate, Distinct, Filter, InMemorySource, Join, Limit, LogicalPlan,
-                      Project, Repartition, Sort)
+from .expressions import AggExpr, Alias, Expression, col, lit
+from .logical import (Aggregate, Concat, Distinct, Explode, Filter, InMemorySource, Join, Limit,
+                      LogicalPlan, MonotonicallyIncreasingId, Pivot, Project, Repartition,
+                      Sample, Sort, Unpivot)
 from .micropartition import MicroPartition
 from .schema import Schema
 
@@ -237,6 +245,66 @@ class LimitOp(PhysicalOp):
         return f"Limit: {self.limit}"
 
 
+class ExplodeOp(PhysicalOp):
+    """Per-partition explode of the list columns ``exprs`` (host)."""
+
+    def __init__(self, child: PhysicalOp, exprs: List[Expression], schema: Schema):
+        super().__init__([child], schema, child.num_partitions)
+        self.exprs = exprs
+
+    def map_partition(self, part, ctx):
+        return part.explode(self.exprs)
+
+    def execute(self, inputs, ctx) -> PartStream:
+        return self._map_execute(inputs, ctx)
+
+
+class UnpivotOp(PhysicalOp):
+    """Per-partition unpivot (host)."""
+
+    def __init__(self, child: PhysicalOp, ids, values, variable_name, value_name,
+                 schema: Schema):
+        super().__init__([child], schema, child.num_partitions)
+        self.ids = ids
+        self.values = values
+        self.variable_name = variable_name
+        self.value_name = value_name
+
+    def map_partition(self, part, ctx):
+        return part.unpivot(self.ids, self.values, self.variable_name, self.value_name)
+
+    def execute(self, inputs, ctx) -> PartStream:
+        return self._map_execute(inputs, ctx)
+
+
+class SampleOp(PhysicalOp):
+    """Per-partition sample: partition i draws with seed ``seed + i``."""
+
+    def __init__(self, child: PhysicalOp, fraction: float, with_replacement: bool, seed):
+        super().__init__([child], child.schema, child.num_partitions)
+        self.fraction = fraction
+        self.with_replacement = with_replacement
+        self.seed = seed
+
+    def execute(self, inputs, ctx) -> PartStream:
+        for i, part in enumerate(inputs[0]):
+            seed = None if self.seed is None else self.seed + i
+            yield part.sample(fraction=self.fraction, with_replacement=self.with_replacement,
+                              seed=seed)
+
+
+class MonotonicIdOp(PhysicalOp):
+    """Per-partition ids: partition i numbers its rows from ``i << 36``."""
+
+    def __init__(self, child: PhysicalOp, column_name: str, schema: Schema):
+        super().__init__([child], schema, child.num_partitions)
+        self.column_name = column_name
+
+    def execute(self, inputs, ctx) -> PartStream:
+        for i, part in enumerate(inputs[0]):
+            yield part.add_monotonic_id(i << 36, self.column_name)
+
+
 class SortOp(PhysicalOp):
     """Per-partition sort; an upstream range ShuffleOp makes it a global
     sort (each range partition sorts on its own, through the device
@@ -324,6 +392,43 @@ class DistinctOp(PhysicalOp):
             yield ctx.eval_distinct(part, self.subset)
 
 
+def _one_partition(parts: List[MicroPartition], schema: Schema) -> MicroPartition:
+    """``parts`` as one partition (an empty one of ``schema`` when none)."""
+    return (MicroPartition.concat(parts) if len(parts) > 1 else parts[0] if parts
+            else MicroPartition.empty(schema))
+
+
+class PivotOp(PhysicalOp):
+    """Gathers its input into one partition and pivots it (host)."""
+
+    def __init__(self, child: PhysicalOp, groupby, pivot_col, value_col, agg_fn, names,
+                 schema: Schema):
+        super().__init__([child], schema, 1)
+        self.groupby = groupby
+        self.pivot_col = pivot_col
+        self.value_col = value_col
+        self.agg_fn = agg_fn
+        self.names = names
+
+    def execute(self, inputs, ctx) -> PartStream:
+        part = _one_partition(list(inputs[0]), self.children[0].schema)
+        out = part.pivot(self.groupby, self.pivot_col, self.value_col, self.names, self.agg_fn)
+        yield out.cast_to_schema(self.schema)
+
+
+class ConcatOp(PhysicalOp):
+    """The left input's partitions, then the right's, each cast to the
+    unified schema."""
+
+    def __init__(self, left: PhysicalOp, right: PhysicalOp, schema: Schema):
+        super().__init__([left, right], schema, left.num_partitions + right.num_partitions)
+
+    def execute(self, inputs, ctx) -> PartStream:
+        for stream in inputs:
+            for part in stream:
+                yield part.cast_to_schema(self.schema)
+
+
 class GatherOp(PhysicalOp):
     """All partitions -> one (a global aggregate's stage 2). The rows and
     bytes gathered count as ``exchange_rows`` and ``exchange_bytes``."""
@@ -333,10 +438,7 @@ class GatherOp(PhysicalOp):
 
     def execute(self, inputs, ctx) -> PartStream:
         ctx.check_deadline()  # a pipeline breaker: the deadline first
-        parts = list(_counted(inputs[0], ctx))
-        yield (MicroPartition.empty(self.schema) if not parts
-               else parts[0] if len(parts) == 1
-               else MicroPartition.concat(parts))
+        yield _one_partition(list(_counted(inputs[0], ctx)), self.schema)
 
 
 def _count_exchanged(part: MicroPartition, ctx) -> None:
@@ -578,6 +680,42 @@ def sample_boundaries(parts: List[MicroPartition], by: List[Expression], num: in
     return boundaries_from_samples(samples, by, num, descending, nulls_first)
 
 
+def aligned_boundaries_from_samples(sides_samples, num: int):
+    """``num - 1`` quantile boundary rows over the combined key samples of
+    several inputs (each a list of per-partition samples), so that every
+    side range-splits by the same boundaries: bucket i covers the same key
+    interval on each side. Samples are cast to the first side's names and
+    types, so that they concatenate."""
+    import numpy as np
+    import pyarrow as pa
+
+    from .series import Series
+    from .table import Table
+
+    key_tables = []
+    first_empty = None
+    for samples in sides_samples:
+        for keys in samples:
+            if keys is None:
+                continue
+            if first_empty is None:
+                first_empty = keys.slice(0, 0)
+            if len(keys) == 0:
+                continue
+            if keys.schema != first_empty.schema:
+                keys = Table(first_empty.schema,
+                             [c.cast(f.dtype).rename(f.name)
+                              for c, f in zip(keys._columns, first_empty.schema)])
+            key_tables.append(keys)
+    if not key_tables:
+        return first_empty
+    allk = Table.concat(key_tables)
+    allk = allk.sort([col(n) for n in allk.column_names])
+    m = len(allk)
+    idxs = [min(max(int(np.floor(m * (i + 1) / num)), 0), m - 1) for i in range(num - 1)]
+    return allk.take(Series.from_arrow(pa.array(np.asarray(idxs, dtype=np.uint64)), "i"))
+
+
 def _pipelined_join(ctx, pairs, how: str, suffix: str):
     """Join loop shared by the join ops: for each (left, right, left_on,
     right_on) pair, pair i+1's keys stage and its probe launches before pair
@@ -683,10 +821,7 @@ class BroadcastJoinOp(PhysicalOp):
 
     def execute(self, inputs, ctx) -> PartStream:
         ctx.check_deadline()  # the join build collects the small side
-        small_parts = list(inputs[1])
-        small = (MicroPartition.concat(small_parts) if len(small_parts) > 1
-                 else small_parts[0] if small_parts
-                 else MicroPartition.empty(self.children[1].schema))
+        small = _one_partition(list(inputs[1]), self.children[1].schema)
         # the small side is the build side: each streamed big partition is
         # pruned by its filter before the probe
         jf = self._build_small_filter(small, ctx)
@@ -707,6 +842,83 @@ class BroadcastJoinOp(PhysicalOp):
 
     def describe(self):
         return f"BroadcastJoin[{self.how}]"
+
+
+class SortMergeJoinOp(PhysicalOp):
+    """A sort-merge join over aligned range boundaries: both sides' keys are
+    sampled as their partitions stream in, the combined samples give one
+    set of boundaries (``aligned_boundaries_from_samples``), both sides
+    split by them (bucket i of the left covers the keys of bucket i of the
+    right), and each bucket pair is sorted and joined on the host. Each
+    bucket's output is sorted by the left keys, so the partitions
+    concatenate to a key-sorted result. With one partition, or at most one
+    partition a side, the sides merge once, unsplit."""
+
+    def __init__(self, left: PhysicalOp, right: PhysicalOp, left_on, right_on,
+                 how: str, schema: Schema, suffix: str = "right."):
+        super().__init__([left, right], schema, max(left.num_partitions, right.num_partitions))
+        self.left_on = left_on
+        self.right_on = right_on
+        self.how = how
+        self.suffix = suffix
+
+    def execute(self, inputs, ctx) -> PartStream:
+        ctx.check_deadline()  # the join buffers both sides
+        n = self.num_partitions
+        ssize = ctx.cfg.sample_size_for_sort
+        sides = []
+        for stream, on in ((inputs[0], self.left_on), (inputs[1], self.right_on)):
+            parts, samples = [], []
+            for p in stream:
+                samples.append(sample_partition_keys(p, on, n, ssize))
+                parts.append(p)
+            sides.append((parts, samples))
+        (lparts, lsamples), (rparts, rsamples) = sides
+        lschema = self.children[0].schema
+        rschema = self.children[1].schema
+        if n <= 1 or (len(lparts) <= 1 and len(rparts) <= 1):
+            yield _one_partition(lparts, lschema).sort_merge_join(
+                _one_partition(rparts, rschema), self.left_on, self.right_on, self.how,
+                self.suffix)
+            return
+        k = len(self.left_on)
+        bnds = aligned_boundaries_from_samples([lsamples, rsamples], n)
+        ctx.stats.bump("aligned_boundary_shuffles")
+        buckets = []
+        for parts, on in ((lparts, self.left_on), (rparts, self.right_on)):
+            side: List[List[MicroPartition]] = [[] for _ in range(n)]
+            while parts:
+                for i, piece in enumerate(parts.pop(0).partition_by_range(
+                        on, bnds, [False] * k, [None] * k)):
+                    if len(piece):
+                        _count_exchanged(piece, ctx)
+                    side[min(i, n - 1)].append(piece)
+            buckets.append(side)
+        for lb, rb in zip(*buckets):
+            yield _one_partition(lb, lschema).sort_merge_join(
+                _one_partition(rb, rschema), self.left_on, self.right_on, self.how, self.suffix)
+
+
+class CrossJoinOp(PhysicalOp):
+    """Every left row with every right row: the right side is gathered, a
+    literal key is added to both sides, and each left partition joins the
+    whole right side on it (host)."""
+
+    def __init__(self, left: PhysicalOp, right: PhysicalOp, schema: Schema, suffix: str):
+        super().__init__([left, right], schema, left.num_partitions)
+        self.suffix = suffix
+
+    def execute(self, inputs, ctx) -> PartStream:
+        right = _one_partition(list(inputs[1]), self.children[1].schema)
+        key = "__cross_key"
+        rk = right.eval_expression_list(
+            [col(c) for c in right.schema.field_names()] + [lit(1).alias(key)])
+        for part in inputs[0]:
+            lk = part.eval_expression_list(
+                [col(c) for c in part.schema.field_names()] + [lit(1).alias(key)])
+            joined = lk.hash_join(rk, [col(key)], [col(key)], "inner", self.suffix)
+            keep = [c for c in joined.schema.field_names() if c != key]
+            yield joined.select_columns(keep).cast_to_schema(self.schema)
 
 
 # ---------------------------------------------------------------------------
@@ -775,6 +987,16 @@ def _translate(plan: LogicalPlan, cfg) -> PhysicalOp:
         return FilterOp(_translate(plan.input, cfg), plan.predicate)
     if isinstance(plan, Limit):
         return LimitOp(_translate(plan.input, cfg), plan.limit)
+    if isinstance(plan, Explode):
+        return ExplodeOp(_translate(plan.input, cfg), plan.to_explode, plan.schema)
+    if isinstance(plan, Unpivot):
+        return UnpivotOp(_translate(plan.input, cfg), plan.ids, plan.values,
+                         plan.variable_name, plan.value_name, plan.schema)
+    if isinstance(plan, Sample):
+        return SampleOp(_translate(plan.input, cfg), plan.fraction, plan.with_replacement,
+                        plan.seed)
+    if isinstance(plan, MonotonicallyIncreasingId):
+        return MonotonicIdOp(_translate(plan.input, cfg), plan.column_name, plan.schema)
     if isinstance(plan, Sort):
         child = _translate(plan.input, cfg)
         if child.num_partitions > 1:
@@ -800,6 +1022,11 @@ def _translate(plan: LogicalPlan, cfg) -> PhysicalOp:
         return out
     if isinstance(plan, Aggregate):
         return _translate_aggregate(plan, cfg)
+    if isinstance(plan, Pivot):
+        return PivotOp(_translate(plan.input, cfg), plan.groupby, plan.pivot_col,
+                       plan.value_col, plan.agg_fn, plan.names, plan.schema)
+    if isinstance(plan, Concat):
+        return ConcatOp(_translate(plan.input, cfg), _translate(plan.other, cfg), plan.schema)
     if isinstance(plan, Join):
         return _translate_join(plan, cfg)
     raise ValueError(f"cannot translate logical node {plan.name()}")
@@ -948,6 +1175,8 @@ def _global_count_distinct_plan(plan: Aggregate, child: PhysicalOp,
 def _translate_join(plan: Join, cfg) -> PhysicalOp:
     left = _translate(plan.left, cfg)
     right = _translate(plan.right, cfg)
+    if plan.how == "cross":
+        return CrossJoinOp(left, right, plan.schema, plan.suffix)
     strategy = plan.strategy or _choose_join_strategy(plan, cfg)
     if strategy == "broadcast" and plan.how == "outer":
         # an outer join preserves both sides: replaying the replicated side
@@ -961,6 +1190,9 @@ def _translate_join(plan: Join, cfg) -> PhysicalOp:
                                    plan.schema, small_is_left=True, suffix=plan.suffix)
         return BroadcastJoinOp(left, right, plan.left_on, plan.right_on, plan.how,
                                plan.schema, small_is_left=False, suffix=plan.suffix)
+    if strategy == "sort_merge":
+        return SortMergeJoinOp(left, right, plan.left_on, plan.right_on, plan.how,
+                               plan.schema, plan.suffix)
     nparts = max(left.num_partitions, right.num_partitions)
     if nparts > 1:
         # co-partition both sides; the left exchange (drained first) builds

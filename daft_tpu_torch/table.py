@@ -6,11 +6,13 @@ The host join is ``hash_join`` (pyarrow acero, every join type), and
 the device probe. ``partition_by_hash`` splits rows by the reference's
 row hash (kernels/host_hash.py) for the hash shuffle, ``partition_by_range``
 by sampled boundary rows for the range shuffle, ``partition_by_random`` by
-a seeded draw. Left out of this slice: the sort-merge and cross joins,
-explode/unpivot/pivot, distinct, the acero fused filter+aggregate plans
-and the optional C++ ``native`` group-code pass (group codes take the numpy route here). The grouped
-aggregation keeps the bincount and arrow hash-agg routes for sum, mean,
-count, min and max.
+a seeded draw. ``sort_merge_join`` sorts both sides and joins them on
+the host; ``explode``, ``unpivot``, ``pivot``, ``add_monotonic_id`` and
+``sample`` are the host kernels of the reshaping plan nodes. Left out of
+this slice: the acero fused filter+aggregate plans and the optional C++
+``native`` group-code pass (group codes take the numpy route here). The
+grouped aggregation keeps the bincount and arrow hash-agg routes for sum,
+mean, count, min and max.
 """
 
 from __future__ import annotations
@@ -141,6 +143,10 @@ class Table:
 
     def get_column(self, name: str) -> Series:
         return self._columns[self.schema.index(name)]
+
+    def rename_columns(self, mapping: Dict[str, str]) -> "Table":
+        return Table(self.schema.rename(mapping),
+                     [c.rename(mapping.get(c.name, c.name)) for c in self._columns])
 
     def size_bytes(self) -> int:
         return sum(c.size_bytes() for c in self._columns)
@@ -347,6 +353,17 @@ class Table:
             out_fields.append(Field(name, s.dtype))
         return Table(Schema(out_fields), out_cols)
 
+    def sort_merge_join(self, right: "Table", left_on, right_on, how: str = "inner",
+                        suffix: str = "right.", is_sorted: bool = False) -> "Table":
+        """Each side sorted by its keys (unless ``is_sorted``), joined on the
+        host (``hash_join``), and the output sorted by the left keys."""
+        left_on = _as_expressions(left_on)
+        right_on = _as_expressions(right_on)
+        lt = self if is_sorted else self.sort(left_on)
+        rt = right if is_sorted else right.sort(right_on)
+        out = lt.hash_join(rt, left_on, right_on, how=how, suffix=suffix)
+        return out.sort([col(e.name()) for e in left_on])
+
     def join_from_indices(self, right: "Table", lidx: np.ndarray, ridx: np.ndarray,
                           left_on, right_on, suffix: str = "right.") -> "Table":
         """Assemble a join's output from row-index pairs (the device probe,
@@ -474,12 +491,119 @@ class Table:
         sorted_tbl = self.take(Series.from_arrow(pa.array(order.astype(np.uint64)), "idx"))
         return [sorted_tbl.slice(int(offs[i]), int(offs[i + 1])) for i in range(num)]
 
-    def sample(self, size: int, seed: int) -> "Table":
-        """``size`` rows (all, when there are fewer) drawn without
-        replacement as the reference draws them: the first ``size`` of a
-        RandomState(``seed``) permutation."""
-        idx = np.random.RandomState(seed).permutation(len(self))[:size]
+    def sample(self, fraction: Optional[float] = None, size: Optional[int] = None,
+               with_replacement: bool = False, seed: Optional[int] = None) -> "Table":
+        """``round(fraction * n)`` rows, or ``size``, drawn from a
+        RandomState(``seed``) (unseeded when None): with replacement
+        ``randint`` draws, without it the first rows of a permutation (all
+        rows when there are fewer)."""
+        if fraction is None and size is None:
+            raise DaftValueError("sample requires either fraction or size")
+        n = len(self)
+        k = int(round(n * fraction)) if fraction is not None else int(size)
+        rng = np.random.RandomState(seed)
+        if with_replacement:
+            idx = rng.randint(0, max(n, 1), size=k) if n else np.empty(0, np.int64)
+        else:
+            idx = rng.permutation(n)[:min(k, n)]
         return self.take(Series.from_arrow(pa.array(idx.astype(np.uint64)), "idx"))
+
+    # ------------------------------------------------------------------ reshaping
+    def explode(self, exprs: Sequence[Expression]) -> "Table":
+        """One row per list element of the ``exprs`` columns (equal list
+        lengths per row); an empty or null list gives one null row. The
+        other columns repeat."""
+        exprs = _as_expressions(exprs)
+        list_cols: Dict[str, Series] = {}
+        for e in exprs:
+            s = e._node.evaluate(self)
+            if not s.dtype.is_list():
+                raise DaftValueError(
+                    f"explode requires list column, got {s.dtype} for {e.name()!r}")
+            list_cols[e.name()] = _broadcast_series(s, len(self))
+        lens = None
+        for s in list_cols.values():
+            ln = np.asarray(pc.fill_null(pc.list_value_length(s.to_arrow()), 0), dtype=np.int64)
+            if lens is not None and not np.array_equal(ln, lens):
+                raise DaftValueError("exploded columns must have equal list lengths per row")
+            lens = ln
+        out_lens = np.maximum(lens, 1)
+        repeat_idx = Series.from_arrow(
+            pa.array(np.repeat(np.arange(len(self), dtype=np.int64), out_lens)), "i")
+        out_cols: List[Series] = []
+        out_fields: List[Field] = []
+        for f, c in zip(self.schema, self._columns):
+            if f.name in list_cols:
+                flat = _explode_series(list_cols[f.name], out_lens).rename(f.name)
+                out_cols.append(flat)
+                out_fields.append(Field(f.name, flat.dtype))
+            else:
+                out_cols.append(c.take(repeat_idx))
+                out_fields.append(f)
+        return Table(Schema(out_fields), out_cols)
+
+    def unpivot(self, ids: Sequence[Expression], values: Sequence[Expression],
+                variable_name: str = "variable", value_name: str = "value") -> "Table":
+        """Wide to long: for each value column in turn, every row's ``ids``,
+        the column's name and its value (cast to the value columns' unified
+        type)."""
+        ids = _as_expressions(ids)
+        values = _as_expressions(values)
+        if not values:
+            raise DaftValueError("unpivot requires at least one value column")
+        n = len(self)
+        m = len(values)
+        val_series = [e._node.evaluate(self) for e in values]
+        vdt = val_series[0].dtype
+        for s in val_series[1:]:
+            u = try_unify(vdt, s.dtype)
+            if u is None:
+                raise DaftValueError(
+                    f"unpivot value columns have incompatible types {vdt} vs {s.dtype}")
+            vdt = u
+        out_cols: List[Series] = []
+        out_fields: List[Field] = []
+        if ids:
+            id_tbl = self.eval_expression_list(ids)
+            tile_idx = Series.from_arrow(pa.array(np.tile(np.arange(n, dtype=np.int64), m)), "i")
+            for f, c in zip(id_tbl.schema, id_tbl._columns):
+                out_cols.append(c.take(tile_idx))
+                out_fields.append(f)
+        names = pa.array([e.name() for e in values], DataType.string().to_arrow())
+        variable = names.take(pa.array(np.repeat(np.arange(m, dtype=np.int64), n)))
+        out_cols.append(Series.from_arrow(variable, variable_name, DataType.string()))
+        out_fields.append(Field(variable_name, DataType.string()))
+        out_cols.append(Series.concat([s.cast(vdt) for s in val_series]).rename(value_name))
+        out_fields.append(Field(value_name, vdt))
+        return Table(Schema(out_fields), out_cols)
+
+    def pivot(self, group_by: Sequence[Expression], pivot_col: Expression,
+              value_col: Expression, names: List[str], agg_fn: str = "sum") -> "Table":
+        """One row per ``group_by`` tuple, then one column per name:
+        ``agg_fn`` of ``value_col`` over the rows whose ``pivot_col`` equals
+        the name (null where there are none)."""
+        group_by = _as_expressions(group_by)
+        pivot_e = _as_expressions(pivot_col)[0]
+        value_e = _as_expressions(value_col)[0]
+        agg_e = Expression(AggExpr(agg_fn, value_e._node))
+        grouped = self.agg([agg_e.alias("__v")], group_by + [pivot_e])
+        key_names = [e.name() for e in group_by]
+        keys = [col(n) for n in key_names]
+        piv = col(pivot_e.name())
+        out = grouped.distinct(keys).select_columns(key_names)
+        for nm in names:
+            sub = grouped.filter(piv == nm if nm is not None else piv.is_null())
+            sub = sub.select_columns(key_names + ["__v"]).rename_columns({"__v": str(nm)})
+            out = out.hash_join(sub, keys, keys, how="left")
+        return out
+
+    def add_monotonic_id(self, partition_offset: int = 0, column_name: str = "id") -> "Table":
+        """A uint64 column ``column_name`` first: ``partition_offset`` plus
+        the row's index."""
+        ids = np.arange(len(self), dtype=np.uint64) + np.uint64(partition_offset)
+        s = Series.from_arrow(pa.array(ids), column_name)
+        return Table(Schema([Field(column_name, s.dtype)] + list(self.schema)),
+                     [s] + self._columns)
 
     # ------------------------------------------------------------------ aggregation
     def agg(self, to_agg: Sequence[Expression], group_by: Optional[Sequence[Expression]] = None) -> "Table":
@@ -521,6 +645,29 @@ def _broadcast_series(s: Series, n: int) -> Series:
     from .series import _broadcast_to
 
     return _broadcast_to(s, n)
+
+
+def _explode_series(s: Series, out_lens: np.ndarray) -> Series:
+    """The elements of list series ``s`` in row order, with one null for
+    each empty or null list (``out_lens``: each row's output count)."""
+    arr = s.to_arrow()
+    if pa.types.is_fixed_size_list(arr.type):
+        arr = arr.cast(pa.large_list(arr.type.value_type))
+    offs = np.asarray(arr.offsets).astype(np.int64)
+    lo = int(offs[0])
+    starts = offs[:-1] - lo
+    child = arr.values.slice(lo, int(offs[-1]) - lo)
+    real = np.where(np.asarray(pc.is_valid(arr)), offs[1:] - offs[:-1], 0)
+    rows = np.repeat(np.arange(len(arr), dtype=np.int64), out_lens)
+    first = np.repeat(np.cumsum(out_lens) - out_lens, out_lens)
+    idx = starts[rows] + (np.arange(len(rows), dtype=np.int64) - first)
+    valid = real[rows] > 0
+    if len(child) == 0:
+        out = pa.nulls(len(idx), arr.type.value_type)
+    else:
+        taken = child.take(pa.array(np.clip(idx, 0, len(child) - 1)))
+        out = pc.if_else(pa.array(valid), taken, pa.nulls(len(idx), taken.type))
+    return Series.from_arrow(out, s.name)
 
 
 def _norm_flag(v, k: int, default):

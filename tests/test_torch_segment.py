@@ -9,7 +9,9 @@ group order, counts and int sums match exactly; float aggregates agree at
 rtol 1e-6, with each other and with the pyarrow oracle; the fusion and
 residency counters are equal, and so is the deep kernel's engagement.
 
-tests/test_segment.py's query shape runs on ONE partition. Both packages
+The with_column Q1 runs over 3 partitions too (stage 1 a DeviceSegmentOp
+dispatched per partition). tests/test_segment.py's query shape runs on ONE
+partition. Both packages
 optimize it before fusion (the filter moves below the projection), so its
 fusion counters are equal too.
 """
@@ -97,6 +99,29 @@ def _run_both(table, query, deep=False, **ref_knobs):
 @pytest.fixture(scope="module")
 def lineitem():
     return tpch.generate_lineitem_only(scale=20_000 / tpch.LINEITEM_ROWS_PER_SF, seed=7)
+
+
+@pytest.mark.parametrize("deep", [False, True], ids=["composed", "deep"])
+def test_with_column_q1_over_three_partitions_matches_reference(lineitem, deep):
+    """The same query over 3 partitions (into_partitions): stage 1 runs as
+    one DeviceSegmentOp, dispatched once per partition, in both packages,
+    with equal segment, fusion and residency counters and equal rows."""
+    def query(frame, col):
+        return q1_with_columns(frame.into_partitions(3).collect(), col)
+
+    ref, ref_c, got, got_c, traces, builds = _run_both(lineitem, query, deep=deep)
+    _assert_same(ref, got)
+    oracle = tpch.oracle_q1(lineitem)
+    assert parity(ref, oracle, RTOL) and parity(got, oracle, RTOL)
+    for name in _SEGMENT_COUNTERS + ("segment_compiles", "segment_dispatches",
+                                     "segment_fallbacks", "device_aggregations",
+                                     "host_aggregations", "shuffles"):
+        assert got_c.get(name, 0) == ref_c.get(name, 0), (name, got_c, ref_c)
+    # one segment op (compiled once), dispatched once per partition
+    assert got_c["device_resident_segments"] == 1 and got_c["fused_chains"] == 1
+    assert got_c["segment_compiles"] == 1 and got_c["segment_dispatches"] == 3
+    # deep: stage 1's program and stage 2's (18 partial rows, on the card)
+    assert builds == traces == 2 * int(deep)
 
 
 @pytest.mark.parametrize("deep", [False, True], ids=["composed", "deep"])

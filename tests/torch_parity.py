@@ -1,0 +1,102 @@
+"""One query through daft_tpu and through daft_tpu_torch on the CPU under one
+configuration, for the parity tests of the port's relational surface
+(tests/test_torch_join_strategies.py, tests/test_torch_reshape.py).
+
+The 32-bit mode is the reference's real-TPU recipe (tests/device_mode.py,
+``device_min_rows=8`` unless a case says otherwise) with the port's config
+mapped from it; the 64-bit mode is the reference's default x64 mode with
+device kernels on, as tests/test_torch_x64.py runs it.
+"""
+
+import dataclasses
+
+import pytest
+
+import daft_tpu
+import daft_tpu_torch
+from device_mode import real_tpu_mode_cfg
+
+# the routing and exchange counters each case holds equal in both packages
+COUNTERS = ("device_filters", "host_filters", "device_projections", "host_projections",
+            "device_fused_maps", "host_fused_maps", "device_aggregations", "host_aggregations",
+            "device_agg_fallbacks", "device_sorts", "host_sorts", "device_group_codes",
+            "device_join_probes", "host_joins", "broadcast_joins", "device_distincts",
+            "host_distincts", "shuffles", "exchange_rows", "exchange_precombined_rows",
+            "aligned_boundary_shuffles", "join_filter_built", "join_filter_rows_pruned",
+            "device_breaker_trips", "degraded_completions")
+
+
+def run_both(build, min_rows: int = 8, x64: bool = False):
+    """``build(pkg)`` (a DataFrame) through both packages, each collected.
+    Returns (reference frame, port frame)."""
+    if x64:
+        from daft_tpu.context import get_context
+
+        cfg = get_context().execution_config
+        knobs = dict(use_device_kernels=True, device_min_rows=min_rows,
+                     enable_result_cache=False)
+        saved = {k: getattr(cfg, k) for k in knobs}
+        for k, v in knobs.items():
+            setattr(cfg, k, v)
+        try:
+            ref = build(daft_tpu).collect()
+            d = dataclasses.asdict(cfg)
+        finally:
+            for k, v in saved.items():
+                setattr(cfg, k, v)
+    else:
+        with real_tpu_mode_cfg(device_min_rows=min_rows) as cfg:
+            cfg.enable_result_cache, saved = False, cfg.enable_result_cache
+            try:
+                ref = build(daft_tpu).collect()
+                d = dataclasses.asdict(cfg)
+            finally:
+                cfg.enable_result_cache = saved
+    d["jax_enable_x64"] = x64
+    daft_tpu_torch.set_execution_config(
+        daft_tpu_torch.execution_config_from_dict(d, device="cpu"))
+    return ref, build(daft_tpu_torch).collect()
+
+
+def counters(df) -> dict:
+    c = df.stats.snapshot()["counters"]
+    return {k: c.get(k, 0) for k in COUNTERS}
+
+
+def rows(d: dict) -> list:
+    """The rows of a column dict as a sorted multiset."""
+    return sorted(zip(*d.values()), key=lambda r: tuple((v is None, repr(v)) for v in r))
+
+
+def assert_same_rows(got: dict, ref: dict, rtol: float = 0.0, ordered: bool = False):
+    """Equal column names and rows (as multisets unless ``ordered``),
+    floats within ``rtol``, everything else exactly."""
+    assert list(got) == list(ref)
+    g = list(zip(*got.values())) if ordered else rows(got)
+    r = list(zip(*ref.values())) if ordered else rows(ref)
+    assert len(g) == len(r)
+    for a, b in zip(g, r):
+        for x, y in zip(a, b):
+            if isinstance(x, float) and isinstance(y, float):
+                assert x == pytest.approx(y, rel=rtol, nan_ok=True), (a, b)
+            else:
+                assert x == y, (a, b)
+
+
+def check(build, rtol: float = 0.0, ordered: bool = False, min_rows: int = 8,
+          x64: bool = False):
+    """The query through both packages: equal rows and equal counters.
+    Returns (reference frame, port frame)."""
+    ref, got = run_both(build, min_rows, x64)
+    assert_same_rows(got.to_pydict(), ref.to_pydict(), rtol, ordered)
+    assert counters(got) == counters(ref)
+    return ref, got
+
+
+@pytest.fixture(autouse=True)
+def restore_port_config():
+    """Gives the next case the port's config back as it found it."""
+    ctx = daft_tpu_torch.get_context()
+    saved = ctx.execution_config
+    yield
+    ctx.execution_config = saved
