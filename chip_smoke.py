@@ -98,8 +98,8 @@ Phases, each of which fails the run:
      group by, float sums over wrapping uint arithmetic through K2, and a
      uint32-key join in the 64-bit mode). Each against its
      oracle (pyarrow, numpy's wrapping arithmetic, q3_parity) with its
-     routing and launches read around it, timed cold and warm with the
-     exchange's host share and the device's idle share. Phase 4's SF0.005
+     routing and launches read around it, timed cold (and at SF1 warm) with
+     the exchange's host share, and at SF1 the device's idle share. Phase 4's SF0.005
      run in 3 partitions also holds each query's routing to
      TPCH22_ROUTES_3P;
   8. faults on the card (needs SF1 in --scales), in the 32-bit mode over
@@ -136,9 +136,29 @@ Phases, each of which fails the run:
      (partition i from i << 36), then Q6 and the largest id, whose
      counters are held to ID_PINS (tests/test_torch_reshape.py pins them
      for both packages). Each case cold with its launches counted from 0,
-     against its oracle, then warm (median of 3).
+     against its oracle, then warm (median of 3);
+ 10. the bounded-memory exchange on the card (needs SF1 in --scales), in the
+     32-bit mode over phase 7's SF1 tables with lineitem, orders and
+     customer in 4 partitions each (phase_spill, spill_cases): the sort
+     (async spill writes and readahead on, then off), hash-join Q3, the
+     grouped aggregate by l_suppkey with the fold on, the sort-merge join
+     of lineitem and orders with its grouped aggregate, and
+     repartition(4, "l_returnflag") then Q1 (its low-cardinality columns
+     dictionary-encoded; again with encoding off), each unbudgeted and
+     under a budget of a quarter of the bytes its exchange moved (for the
+     sort, a quarter of lineitem's bytes), cold then 3 times warm. The
+     budgeted run gives the unbudgeted rows, the same kernel launches and
+     device sorts, probes and Bloom probes, spills, and
+     leaves the ledger at 0 and no spill directory; it prints the spill
+     write and read MB/s. Then each fault site of the slice armed always:
+     spill.write (rows equal, spill_write_failures), spill.readback
+     (DaftTransientError reaches the caller), spill.corrupt with
+     synchronous writes (DaftCorruptionError, lineage truncated) on the
+     sort, and
+     exchange.encode (rows equal, nothing encoded) on the repartition.
 
-Every query of phases 1-7 and 9 (but the ids' Q6 and largest id) is held
+Every query of phases 1-7, 9 and 10 (but the ids' Q6 and largest id and
+phase 10's fault cases) is held
 to 0 device_attempt_failures, device_breaker_trips, degraded_completions,
 faults_injected, join_filter_errors and every *_fallbacks counter (Phases.watch reads them as collect() returns, and each
 phase's line says how many queries it read), so that no failure the device
@@ -2779,7 +2799,7 @@ def phase_exchange(ph: Phases, scale: float, tables: dict, q3_oracle: tuple,
             # warm runs outside the profiler, each with its own exchange
             # share; then one run under torch.profiler for the idle share
             walls, shares, exchange_s = [], [], []
-            for _ in range(3 if scale == 1.0 else 1):
+            for _ in range(3 if scale == 1.0 else 0):
                 clock.ns = 0
                 t0 = time.perf_counter()
                 run().to_arrow()
@@ -2787,12 +2807,15 @@ def phase_exchange(ph: Phases, scale: float, tables: dict, q3_oracle: tuple,
                 walls.append(time.perf_counter() - t0)
                 exchange_s.append(clock.ns / 1e9)
                 shares.append(exchange_s[-1] / walls[-1])
-            prof = device_profile(lambda run=run: run().to_arrow(), reps=1)[0]
+            # past SF1 the cold run alone (the phase's depth, cut for phase 10)
+            prof = (device_profile(lambda run=run: run().to_arrow(), reps=1)[0]
+                    if scale == 1.0 else {"wall_ms": None})
             res = {"cold_s": cold, "cold_exchange_s": cold_exchange,
                    "cold_exchange_share": cold_exchange / cold,
-                   "warm_median_s": statistics.median(walls), "warm_runs": walls,
-                   "warm_exchange_s": exchange_s, "warm_exchange_shares": shares,
-                   "warm_exchange_share": statistics.median(shares),
+                   "warm_median_s": statistics.median(walls) if walls else None,
+                   "warm_runs": walls, "warm_exchange_s": exchange_s,
+                   "warm_exchange_shares": shares,
+                   "warm_exchange_share": statistics.median(shares) if shares else None,
                    "profiled_wall_ms": prof.pop("wall_ms"), **prof,
                    "launches": launches, "partition_rows": sizes,
                    "counters": {k: c.get(k, 0) for k in EXCHANGE_COUNTERS if c.get(k, 0)},
@@ -3383,6 +3406,270 @@ def phase_relational(ph: Phases, tables: dict, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the bounded-memory exchange on the card
+# ---------------------------------------------------------------------------
+
+SPILL_PARTS = 4
+SPILL_WARM = 3
+# the counters each phase-10 line reports
+SPILL_COUNTERS = ("spilled_partitions", "spill_write_bytes", "spill_read_bytes",
+                  "spill_write_failures", "unspill_readahead_submitted", "unspill_readahead_hits",
+                  "exchange_rows", "exchange_bytes", "exchange_pieces_encoded",
+                  "exchange_bytes_encodable", "exchange_bytes_encoded", "exchange_encode_failures",
+                  "exchange_precombined_rows", "corruption_detected", "lineage_truncated",
+                  "shuffles", "aligned_boundary_shuffles", "device_sorts", "device_join_probes",
+                  "join_filter_device_probes", "device_aggregations", "host_aggregations")
+# the device work a budget must leave as it is: the kernels' launches and the
+# device counters of the sort (K5), the probe (K7) and the Bloom probe (K10).
+# Not the aggregations: past half the budget the combine abandons its fold,
+# so stage 2 of (c) merges four times the rows and may clear device_min_rows
+SPILL_SAME = ("k1", "k2", "scatter", "device_sorts", "device_join_probes",
+              "join_filter_device_probes")
+
+
+def spill_dirs() -> set:
+    """The port's spill directories in the temp directory."""
+    import glob
+    import os
+    import tempfile
+
+    from daft_tpu_torch.spill import SPILL_DIR_PREFIX
+
+    return set(glob.glob(os.path.join(tempfile.gettempdir(), SPILL_DIR_PREFIX + "*")))
+
+
+def same_rows(got, want, ordered: bool) -> tuple:
+    """(equal, detail) of two pyarrow tables: equal names and types, and
+    equal rows, in order when ``ordered``, else as multisets; float values
+    within 1e-12 relative, everything else exactly (the reference's own
+    rule for an exchange knob, tests/test_exchange.py: the host's threaded
+    float sums may differ in the last ulp between runs)."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    if got.schema != want.schema or got.num_rows != want.num_rows:
+        return False, f"schema or rows differ ({got.num_rows} rows against {want.num_rows})"
+    if not ordered:
+        floats = [f.name for f in want.schema if pa.types.is_floating(f.type)]
+        keys = [(f.name, "ascending") for f in want.schema if f.name not in floats]
+        keys += [(name, "ascending") for name in floats]
+        got = got.take(pc.sort_indices(got, sort_keys=keys))
+        want = want.take(pc.sort_indices(want, sort_keys=keys))
+    for f in want.schema:
+        a, b = got[f.name], want[f.name]
+        if pa.types.is_floating(f.type):
+            x, y = a.to_numpy(zero_copy_only=False), b.to_numpy(zero_copy_only=False)
+            ok = bool(np.allclose(x, y, rtol=1e-12, atol=0.0, equal_nan=True))
+        else:
+            ok = a.equals(b)
+        if not ok:
+            return False, f"column {f.name} differs"
+    return True, f"{want.num_rows} rows equal" + (", in order" if ordered else "")
+
+
+def spill_cases(frames: dict, tables: dict) -> dict:
+    """Phase 10's cases: name -> (build() -> DataFrame, the config's
+    overrides, ordered rows, the unbudgeted case it shares, the fault plan
+    (site, kind of result) or None)."""
+    from daft_tpu_torch import col
+
+    L, O = frames["lineitem"], frames["orders"]
+    keys = ["l_shipdate", "l_orderkey", "l_linenumber"]
+
+    def sort():
+        return L.sort(keys, desc=[True, False, False])
+
+    def smj_agg():
+        return (L.join(O, left_on="l_orderkey", right_on="o_orderkey", strategy="sort_merge")
+                .groupby("o_orderstatus")
+                .agg(col("l_extendedprice").sum().alias("revenue"),
+                     col("l_orderkey").count().alias("n")))
+
+    def repartition_q1():
+        return q1(L.repartition(SPILL_PARTS, "l_returnflag"))
+
+    agg = _exchange_agg_items(tables["lineitem"])["grouped_agg_combine"][0]
+    return {
+        # (a) the sort, async writes and readahead on, then both off
+        "sort": (sort, {}, True, None, None),
+        "sort_sync": (sort, {"async_spill_writes": False, "unspill_readahead": False}, True,
+                      "sort", None),
+        # (b) Q3 through co-partitioned hash joins
+        "q3_hash_joins": (lambda: q3(frames["customer"], O, L),
+                          {"broadcast_join_size_bytes_threshold": 0}, True, None, None),
+        # (c) the grouped aggregate whose shuffle folds its stage-1 pieces
+        "grouped_agg_combine": (lambda: agg(frames), {}, False, None, None),
+        # (d) the sort-merge join and its grouped aggregate
+        "sort_merge_join_agg": (smj_agg, {}, False, None, None),
+        # (e) a hash repartition by a flag, then Q1; again with encoding off
+        "repartition_q1": (repartition_q1, {}, False, None, None),
+        "repartition_q1_raw": (repartition_q1, {"exchange_payload_encoding": False}, False,
+                               "repartition_q1", None),
+        # (f) each fault site armed always
+        "fault_spill_write": (sort, {}, True, "sort", ("spill.write", "rows")),
+        "fault_spill_readback": (sort, {}, True, "sort", ("spill.readback", "transient")),
+        # synchronous writes: an async write's bits flip when the writer
+        # thread gets to it, and a read before that is served from memory
+        "fault_spill_corrupt": (sort, {"async_spill_writes": False}, True, "sort",
+                                ("spill.corrupt", "corruption")),
+        "fault_exchange_encode": (repartition_q1, {}, False, "repartition_q1",
+                                  ("exchange.encode", "rows")),
+    }
+
+
+def phase_spill(ph: Phases, tables: dict, card: str) -> dict:
+    """Phase 10: the bounded-memory exchange on the card, in the 32-bit
+    mode, over phase 7's SF1 tables (generate_tables(1.0, seed=42)) with
+    lineitem, orders and customer in 4 partitions each (spill_cases): (a)
+    the sort (async spill writes and readahead on, then both off), (b)
+    hash-join Q3, (c) the grouped aggregate by l_suppkey with the fold on,
+    (d) the sort-merge join of lineitem and orders with its grouped
+    aggregate, (e) repartition(4, "l_returnflag") then Q1 (and with
+    encoding off), (f) each fault site of the slice armed always on (a) or
+    (e). Each case runs unbudgeted, cold then 3 times warm, and then under
+    a budget of a quarter of the bytes its unbudgeted exchange moved
+    (``exchange_bytes``; for the sort, a quarter of lineitem's bytes), cold
+    with K1's, K2's and the scatter kernel's launches set to 0 just before
+    and read just after, then 3 times warm. The budgeted cold run must give
+    the unbudgeted rows (same_rows), the same launches and device counters
+    (SPILL_SAME), spilled_partitions > 0, and leave the ledger at 0 with no
+    spill directory; (f) as its fault site says."""
+    import torch
+
+    import daft_tpu_torch as dtt
+    from daft_tpu_torch.errors import DaftCorruptionError, DaftTransientError
+    from daft_tpu_torch.kernels import fused_expr_sums as fes
+    from daft_tpu_torch.kernels import scatter_sums as scs
+    from daft_tpu_torch.kernels import segment_sums as ss
+    from daft_tpu_torch.spill import MEMORY_LEDGER
+
+    t0 = time.perf_counter()
+    dtt.set_execution_config(dtt.ExecutionConfig())
+    frames = {k: dtt.from_arrow(tables[k]).into_partitions(SPILL_PARTS).collect()
+              for k in ("lineitem", "orders", "customer")}
+    cases = spill_cases(frames, tables)
+    print(f"SF1 spill: frames in {time.perf_counter() - t0:.1f}s; lineitem "
+          f"{tables['lineitem'].nbytes} arrow bytes", flush=True)
+    dirs0 = spill_dirs()
+    out = {"k1_launches": 0, "k2_launches": 0, "scatter_launches": 0}
+    plain = {}  # name -> (rows, counters, launches, exchange bytes, times)
+
+    def timed(build, fault=None):
+        """One collect and fetch: (DataFrame, arrow table or the exception,
+        seconds, launches)."""
+        ss.LAUNCHES = fes.LAUNCHES = scs.LAUNCHES = 0
+        df = build()
+        t = time.perf_counter()
+        try:
+            if fault is not None:
+                from daft_tpu_torch import faults
+
+                faults.arm(fault, "always")
+            got = df.collect().to_arrow()
+        except DaftTransientError as e:
+            got = e
+        finally:
+            if fault is not None:
+                faults.disarm()
+        torch.cuda.synchronize()
+        return (df, got, time.perf_counter() - t,
+                {"k1": ss.LAUNCHES, "k2": fes.LAUNCHES, "scatter": scs.LAUNCHES})
+
+    def warm(build) -> list:
+        walls = []
+        for _ in range(SPILL_WARM):
+            walls.append(timed(build)[2])
+        return walls
+
+    for name, (build, overrides, ordered, shares, fault) in cases.items():
+        label = f"SF1 spill {name}"
+        if fault is not None and ph.phase is not None:
+            ph.begin(None)  # the fault cases read their own counters
+        base = shares or name
+        dtt.set_execution_config(dtt.ExecutionConfig(**overrides))
+        if base not in plain:
+            df, rows, cold, launches = timed(build)
+            c = df.stats.snapshot()["counters"]
+            plain[base] = {"rows": rows, "counters": c, "launches": launches,
+                           "budget": max(1, c.get("exchange_bytes", 0) // 4),
+                           "cold_s": cold, "warm_s": warm(build)}
+            del df
+        ref = plain[base]
+        budget = ref["budget"]
+        dtt.set_execution_config(dtt.ExecutionConfig(memory_budget_bytes=budget, **overrides))
+        MEMORY_LEDGER.reset()
+        df, got, cold, launches = timed(build, fault[0] if fault else None)
+        c = df.stats.snapshot()["counters"]
+        led = MEMORY_LEDGER.snapshot()
+        left = spill_dirs() - dirs0
+        ph.check(led["current"] == 0 and led["async_spill_inflight"] == 0 and not left,
+                 f"{label}: ledger current {led['current']}, async in flight "
+                 f"{led['async_spill_inflight']}, spill directories left {sorted(left)}")
+        seen = {k: (launches[k] if k in launches else c.get(k, 0)) for k in SPILL_SAME}
+        want = {k: (ref["launches"][k] if k in ref["launches"] else ref["counters"].get(k, 0))
+                for k in SPILL_SAME}
+        kind = fault[1] if fault else "rows"
+        if kind == "rows":
+            ok, detail = ((False, repr(got)) if isinstance(got, Exception)
+                          else same_rows(got, ref["rows"], ordered))
+            ph.check(ok, f"{label}: the unbudgeted run's rows ({detail})")
+            ph.check(seen == want, f"{label}: launches and device counters {seen} "
+                                   f"(unbudgeted: {want})")
+        elif kind == "transient":
+            ph.check(isinstance(got, DaftTransientError)
+                     and not isinstance(got, DaftCorruptionError),
+                     f"{label}: DaftTransientError reached the caller ({got!r:.120})")
+        else:
+            ph.check(isinstance(got, DaftCorruptionError) and c.get("lineage_truncated", 0) > 0,
+                     f"{label}: DaftCorruptionError reached the caller ({got!r:.120}), "
+                     f"lineage_truncated {c.get('lineage_truncated', 0)}")
+        if fault is None:
+            ph.check(c.get("spilled_partitions", 0) > 0,
+                     f"{label}: {c.get('spilled_partitions', 0)} partitions spilled under a "
+                     f"budget of {budget} bytes")
+            for k in ("k1", "k2", "scatter"):
+                out[f"{k}_launches"] += launches[k]
+        elif fault[0] == "spill.write":
+            ph.check(c.get("spill_write_failures", 0) > 0 and c.get("spilled_partitions", 0) == 0,
+                     f"{label}: spill_write_failures {c.get('spill_write_failures', 0)}, "
+                     f"spilled_partitions {c.get('spilled_partitions', 0)}")
+        elif fault[0] == "exchange.encode":
+            ph.check(c.get("exchange_pieces_encoded", 0) == 0
+                     and c.get("exchange_encode_failures", 0) > 0,
+                     f"{label}: exchange_pieces_encoded {c.get('exchange_pieces_encoded', 0)}, "
+                     f"exchange_encode_failures {c.get('exchange_encode_failures', 0)}")
+        if name == "repartition_q1":
+            ph.check(0 < c.get("exchange_bytes_encoded", 0) < c.get("exchange_bytes", 0),
+                     f"{label}: exchange_bytes_encoded {c.get('exchange_bytes_encoded', 0)} < "
+                     f"exchange_bytes {c.get('exchange_bytes', 0)}")
+        if name == "repartition_q1_raw":
+            enc = out["repartition_q1"]["counters"].get("spill_write_bytes", 0)
+            ph.check(0 < enc < c.get("spill_write_bytes", 0),
+                     f"{label}: spill written with encoding on {enc} < off "
+                     f"{c.get('spill_write_bytes', 0)}")
+        io = df.stats.io_breakdown()
+        del df, got
+        res = {"budget_bytes": budget, "cold_s": cold,
+               "warm_s": warm(build) if fault is None else None,
+               "unbudgeted_cold_s": ref["cold_s"], "unbudgeted_warm_s": ref["warm_s"],
+               "spill_write_mbps": io["spill_write_mbps"], "spill_read_mbps": io["spill_read_mbps"],
+               "io_wait_share": io["io_wait_share"], "launches": launches,
+               "counters": {k: c.get(k, 0) for k in SPILL_COUNTERS if c.get(k, 0)},
+               "ledger_high_water": led["high_water"], "card": card}
+        if fault is None:
+            res["warm_median_s"] = statistics.median(res["warm_s"])
+            res["unbudgeted_warm_median_s"] = statistics.median(ref["warm_s"])
+        out[name] = res
+        print(f"{label} " + json.dumps(res), flush=True)
+        torch.cuda.empty_cache()
+    dtt.set_execution_config(dtt.ExecutionConfig())
+    del frames, cases, plain
+    torch.cuda.empty_cache()
+    return out
+
+
 def ab_times(tree: str, runs: int = 15) -> dict:
     """Warm SF1 times through the daft_tpu_torch of ``tree`` (a checkout or
     a ``git archive`` unpack of the repository), to compare two versions of
@@ -3560,7 +3847,7 @@ def main(argv=None) -> int:
             lanes = phase_lanes(ph, data, card)
             print(f"elapsed {time.perf_counter() - started:.1f}s: phase 6", flush=True)
             ph.begin("phase 6")
-            faults_out = relational = None
+            faults_out = relational = spill = None
             if 1.0 in scales:  # phase 6, the 64-bit device mode
                 scatter32 = {qn: t22[f"q{qn}"]["launches"]["scatter"] for qn in queries.QUERIES}
                 x64 = phase_x64(ph, sf1_lineitem, join_tables, queries, data,
@@ -3576,11 +3863,14 @@ def main(argv=None) -> int:
                 print(f"elapsed {time.perf_counter() - started:.1f}s: phase 9", flush=True)
                 ph.begin("phase 9")
                 relational = phase_relational(ph, join_tables, card)
+                print(f"elapsed {time.perf_counter() - started:.1f}s: phase 10", flush=True)
+                ph.begin("phase 10")
+                spill = phase_spill(ph, join_tables, card)
                 del join_tables
             del data, sf1_lineitem
             phase_outs = [("tpch22", t22), ("lanes", lanes)] + [
                 (f"exchange_sf{sc:g}", ex) for sc, ex in exchange.items()] + (
-                [("faults", faults_out), ("relational", relational)]
+                [("faults", faults_out), ("relational", relational), ("spill", spill)]
                 if faults_out is not None else [])
             for name, ph_out in phase_outs:
                 k1_entry[f"launches_{name}"] = ph_out["k1_launches"]

@@ -7,11 +7,10 @@ is on and ``device`` is ``"cuda"``. A caller that wants the CPU says so with
 raises instead of running on the CPU.
 
 Left out of this slice: the planning config (beyond expression fusion,
-device residency, the broadcast-join threshold, the exchange's three
-knobs, the query deadline and the device breaker), the scan/spill/serving
-knobs, the exchange's payload encoding
-(which engages only under a memory budget the port does not have) and
-runner selection (the port has one runner, NativeRunner).
+device residency, the broadcast-join threshold, the exchange's knobs, the
+query deadline, the device breaker, and the memory budget with its spill and
+integrity knobs), the scan and serving knobs and runner selection (the port
+has one runner, NativeRunner).
 """
 
 from __future__ import annotations
@@ -77,6 +76,28 @@ class ExecutionConfig:
     # ... until the cooldown has passed; then one probe tries the card
     # again: success closes the breaker, failure opens it again
     device_breaker_cooldown_s: float = 30.0
+    # bounded-memory execution (spill.py): past this many engine-held bytes
+    # the pipeline breakers' partition buffers (the shuffle's buckets, the
+    # join sides, the sort-merge buckets) spill partitions to arrow IPC
+    # files and read them back lazily; None is no budget
+    memory_budget_bytes: Optional[int] = None
+    # spill writes run on a bounded writer thread per query; a failed write
+    # holds the partition in memory, as a synchronous one does
+    async_spill_writes: bool = True
+    # draining a spilled buffer reads the next spilled partition back on a
+    # background thread; the shuffle preloads bucket i+1 while bucket i merges
+    unspill_readahead: bool = True
+    # dictionary-encode the low-cardinality columns of the shuffle's pieces
+    # before they enter the buckets (exchange/encode.py); engages only under
+    # a memory budget
+    exchange_payload_encoding: bool = True
+    # a crc32 of each spill file and encoded piece, verified when it is read
+    # back; a mismatch raises DaftCorruptionError
+    partition_integrity: bool = True
+    # a spilled partition with a recipe (integrity/lineage.py) is recomputed
+    # when its file is corrupt or missing; the recipes a query keeps
+    lineage_recomputation: bool = True
+    lineage_log_depth: int = 4096
 
 
 # daft_tpu ExecutionConfig field (or "jax_enable_x64") -> port field
@@ -94,6 +115,13 @@ _FROM_REFERENCE = {
     "execution_timeout_s": "execution_timeout_s",
     "device_breaker_threshold": "device_breaker_threshold",
     "device_breaker_cooldown_s": "device_breaker_cooldown_s",
+    "memory_budget_bytes": "memory_budget_bytes",
+    "async_spill_writes": "async_spill_writes",
+    "unspill_readahead": "unspill_readahead",
+    "exchange_payload_encoding": "exchange_payload_encoding",
+    "partition_integrity": "partition_integrity",
+    "lineage_recomputation": "lineage_recomputation",
+    "lineage_log_depth": "lineage_log_depth",
     "jax_enable_x64": "device_x64",
 }
 

@@ -1,5 +1,5 @@
 """The exchange between partitions (the port's copy of the part of
-daft_tpu/exchange/ this slice runs): two legs of the reference's exchange,
+daft_tpu/exchange/ this slice runs): the three legs of the reference's exchange,
 each behind its own ``ExecutionConfig`` knob (default on), each leaving the
 results as they are with the knob off.
 
@@ -9,11 +9,11 @@ results as they are with the knob off.
   (K10) when the partition clears ``device_min_rows``.
 - :mod:`combine`: the hierarchical combine. A two-stage aggregate's stage-1
   pieces bound for one bucket fold through the stage-2 merge as they arrive
-  (``hierarchical_exchange_combine``).
-
-Left out: the reference's third leg, the dictionary-encoded payload
-(``exchange/encode.py``), which engages only under a memory budget, and the
-port has no memory ledger.
+  (``hierarchical_exchange_combine``); under a memory budget it charges
+  the ledger and abandons past half the budget.
+- :mod:`encode`: the dictionary-encoded payload. Under a memory budget the
+  shuffle's pieces encode their low-cardinality columns before they enter
+  the spillable buckets (``exchange_payload_encoding``).
 """
 
 from .combine import BucketCombiner, combine_spec_applicable

@@ -14,9 +14,13 @@ groups keep their first-occurrence order: the results equal those with
 regrouping fold: integer and count sums, min and max. A float sum declines,
 since folding early changes its order of additions.
 
-Left out: the reference's memory-ledger charges and its budget gate (the
-port has no ledger, so that gate could never engage), and the kinds the port
-has not ported yet (concat and the sketch merges).
+The staged pieces live outside the spillable bucket buffers, so they are
+charged to the query's MemoryLedger while staged, and under a byte budget the
+combiner abandons once they pass half the budget (the rest of the budget
+belongs to the buffers, which can spill).
+
+Left out: the kinds the port has not ported yet (concat and the sketch
+merges).
 """
 
 from __future__ import annotations
@@ -78,43 +82,74 @@ class BucketCombiner:
     that does not shrink past ABANDON_MIN_SHRINK abandons the combiner for
     the whole shuffle: every staged piece (the partials among them, which
     are valid partial aggregates of their inputs) is handed back unfolded,
-    and stage 2 merges partials of any granularity."""
+    and stage 2 merges partials of any granularity. So does passing half of
+    ``budget`` in staged bytes; the staged bytes are charged to ``ledger``
+    while staged."""
 
-    def __init__(self, aggs, keys, stats=None):
+    def __init__(self, aggs, keys, stats=None, ledger=None, budget=None):
         self.aggs = list(aggs)
         self.keys = list(keys)
         self.stats = stats
+        self.ledger = ledger
+        self.budget = budget
         self._staged: Dict[int, List[MicroPartition]] = {}
+        self._staged_bytes: Dict[int, int] = {}
+        self._held = 0
         self._failed = False
 
     @property
     def failed(self) -> bool:
         return self._failed
 
+    def _charge(self, bucket: int, piece: MicroPartition) -> None:
+        b = piece.size_bytes() or 0
+        if b:
+            self._staged_bytes[bucket] = self._staged_bytes.get(bucket, 0) + b
+            self._held += b
+            if self.ledger is not None:
+                self.ledger.add(b)
+
+    def _release(self, bucket: int) -> None:
+        b = self._staged_bytes.pop(bucket, 0)
+        if b:
+            self._held -= b
+            if self.ledger is not None:
+                self.ledger.sub(b)
+
     def _abandon(self) -> List[Tuple[int, MicroPartition]]:
         self._failed = True
         out = [(b, p) for b in sorted(self._staged) for p in self._staged[b]]
         self._staged = {}
+        for b in list(self._staged_bytes):
+            self._release(b)
         return out
 
     def add(self, bucket: int, piece: MicroPartition
             ) -> Optional[List[Tuple[int, MicroPartition]]]:
-        """Stage one fanout piece. Returns None, or, when a fold declines,
-        every staged ``(bucket, partition)`` for the caller to append raw
-        (the combiner then stops)."""
+        """Stage one fanout piece. Returns None, or, when a fold declines or
+        the staged bytes pass half the budget, every staged ``(bucket,
+        partition)`` for the caller to append raw (the combiner then stops)."""
         staged = self._staged.setdefault(bucket, [])
         staged.append(piece)
+        self._charge(bucket, piece)
         if len(staged) >= FOLD_EVERY + 1:
             folded = self._fold(staged)
             if folded is None:
                 return self._abandon()
+            self._release(bucket)
             self._staged[bucket] = [folded]
+            self._charge(bucket, folded)
+        if self.budget is not None and self._held > self.budget // 2:
+            # staged partials cannot spill: past half the budget they go to
+            # the spillable buffers instead
+            return self._abandon()
         return None
 
     def finish(self):
         """Fold the remainders; yields (bucket, partial) in bucket order."""
         for b in sorted(self._staged):
             staged = self._staged[b]
+            self._release(b)
             if len(staged) == 1:
                 yield b, staged[0]
                 continue

@@ -43,16 +43,25 @@ with the partial stats on every partition pull (``_traced``) and before a
 pipeline breaker buffers its input (the sort, a gather, ``ShuffleOp``, the
 join build).
 
+Memory. Each query holds its ledger (``spill.MEMORY_LEDGER``), its byte
+budget (``memory_budget_bytes``), a spill directory made on first use and a
+lineage log. ``partition_buffer()`` hands a pipeline breaker a spillable
+buffer bound to them, after a deadline check, and tracks it; unspill
+readahead runs on a small background pool (``_bg_submit``). When the root
+stream ends, is closed early (a limit, an abandoned join) or raises,
+``execute_plan``'s teardown shuts the pool and ``finish_query`` releases
+every buffer and removes the spill directory, so the ledger reads 0 again.
+
 Left out of this slice: the profiler and the breaker's log lines and
-events, spill, cancellation, the worker pool, streaming, the mesh hook
-``prepare_broadcast``, the mesh breaker and resource accounting.
+events, cancellation, the worker pool of parallel maps, streaming, the
+mesh hook ``prepare_broadcast``, the mesh breaker and resource accounting.
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, List, Optional
 
 import torch
 
@@ -89,6 +98,41 @@ class RuntimeStats:
         with self._lock:
             self.op_rows[name] = self.op_rows.get(name, 0) + rows
             self.op_wall_ns[name] = self.op_wall_ns.get(name, 0) + wall_ns
+
+    def io_wait(self, ns: int) -> None:
+        """Time the query's own thread waited on IO (a synchronous spill
+        write, a spill read it made itself, a full writer queue, a readahead
+        it had to wait for)."""
+        self.bump("io_wait_ns", ns)
+
+    def io_wait_share(self) -> float:
+        """The share of the operators' wall time spent waiting on IO."""
+        with self._lock:
+            wait = self.counters.get("io_wait_ns", 0)
+            total = sum(self.op_wall_ns.values())
+        if wait <= 0:
+            return 0.0
+        return min(1.0, wait / max(total, wait))
+
+    def io_breakdown(self) -> Dict[str, float]:
+        """The IO wait against compute, the readahead hits and the spill
+        write and read rates (MiB/s of wall time in the write and read).
+        The reference's scan-prefetch keys come with io/prefetch."""
+        with self._lock:
+            c = dict(self.counters)
+
+        def mbps(b, ns):
+            return (b / 2**20) / (ns / 1e9) if ns > 0 else 0.0
+
+        return {
+            "io_wait_share": round(self.io_wait_share(), 4),
+            "io_wait_ms": round(c.get("io_wait_ns", 0) / 1e6, 1),
+            "unspill_readahead_hits": c.get("unspill_readahead_hits", 0),
+            "spill_write_mbps": round(mbps(c.get("spill_write_bytes", 0),
+                                           c.get("spill_write_ns", 0)), 1),
+            "spill_read_mbps": round(mbps(c.get("spill_read_bytes", 0),
+                                          c.get("spill_read_ns", 0)), 1),
+        }
 
     def snapshot(self) -> dict:
         with self._lock:
@@ -182,11 +226,17 @@ class DeviceHealth:
             self._probe_inflight = False
 
 
+# background threads for unspill readahead (one drain reads one partition
+# ahead; the shuffle preloads a bucket's spilled pieces)
+_READAHEAD_THREADS = 2
+
+
 class ExecutionContext:
-    """One query's execution state: the config, the stats, the breaker and
-    the absolute deadline. The runner builds the breaker and the deadline
-    once per query; a context built without them (tests) makes its own
-    from ``cfg``."""
+    """One query's execution state: the config, the stats, the breaker, the
+    absolute deadline and the memory state (the ledger, the budget, the
+    spill scope, the lineage log and the tracked buffers). The runner builds
+    the breaker and the deadline once per query; a context built without
+    them (tests) makes its own from ``cfg``."""
 
     def __init__(self, cfg: ExecutionConfig, stats: Optional[RuntimeStats] = None,
                  deadline: Optional[float] = None,
@@ -198,15 +248,95 @@ class ExecutionContext:
         self.deadline = deadline
         self.device_health = device_health if device_health is not None else DeviceHealth(
             cfg.device_breaker_threshold, cfg.device_breaker_cooldown_s)
+        from .spill import MEMORY_LEDGER
+
+        # every buffer of the query charges and reads this ledger
+        self.ledger = MEMORY_LEDGER
+        self.memory_budget = cfg.memory_budget_bytes
+        self._pool = None
+        self._pool_finished = False
+        self._spill_scope = None
+        self._lineage = None
+        self._buffers: List = []
 
     def check_deadline(self) -> None:
         """Raise DaftTimeoutError, carrying the stats so far, once the
-        query's deadline has passed."""
+        query's deadline has passed. The async spill writer's recorded
+        errors surface here first."""
+        if self._spill_scope is not None:
+            self._spill_scope.raise_async_errors()
         if self.deadline is not None and time.monotonic() > self.deadline:
             self.stats.bump("deadline_expired")
             raise DaftTimeoutError(
                 f"query exceeded execution_timeout_s={self.cfg.execution_timeout_s}",
                 stats=self.stats.snapshot())
+
+    # ------------------------------------------------------------ memory state
+    @property
+    def spill_scope(self):
+        """The query's spill directory (made on first use, removed by
+        ``finish_query``)."""
+        if self._spill_scope is None:
+            from .spill import SpillScope
+
+            self._spill_scope = SpillScope()
+        return self._spill_scope
+
+    @property
+    def lineage(self):
+        """The query's bounded LineageLog, or None with
+        ``lineage_recomputation`` off."""
+        if not self.cfg.lineage_recomputation:
+            return None
+        if self._lineage is None:
+            from .integrity.lineage import LineageLog
+
+            self._lineage = LineageLog(self.cfg.lineage_log_depth)
+        return self._lineage
+
+    def partition_buffer(self):
+        """A spillable PartitionBuffer bound to this query's budget, stats,
+        ledger and spill directory, after a deadline check (a breaker about
+        to buffer its input proves the query still has time). Tracked, so
+        that an abandoned or failed query still returns its bytes."""
+        self.check_deadline()
+        from .spill import PartitionBuffer
+
+        buf = PartitionBuffer(
+            self.memory_budget, self.stats, scope=self.spill_scope,
+            async_spill=self.cfg.async_spill_writes,
+            readahead=self._bg_submit if self.cfg.unspill_readahead else None,
+            ledger=self.ledger, integrity=self.cfg.partition_integrity,
+            lineage=self.lineage)
+        self._buffers.append(buf)
+        return buf
+
+    def _bg_submit(self, fn):
+        """Submit an unspill read to the query's background pool; raises
+        RuntimeError after shutdown (the consumer then reads itself)."""
+        if self._pool_finished:
+            raise RuntimeError("the readahead pool is shut down")
+        if self._pool is None:
+            from concurrent.futures import ThreadPoolExecutor
+
+            self._pool = ThreadPoolExecutor(max_workers=_READAHEAD_THREADS,
+                                            thread_name_prefix="daft-torch-readahead")
+        return self._pool.submit(fn)
+
+    def shutdown_pool(self) -> None:
+        self._pool_finished = True
+        if self._pool is not None:
+            self._pool.shutdown(wait=True, cancel_futures=True)
+            self._pool = None
+
+    def finish_query(self) -> None:
+        """Release every buffer's bytes and remove the spill directory."""
+        for b in self._buffers:
+            b.release()
+        self._buffers.clear()
+        if self._spill_scope is not None:
+            self._spill_scope.cleanup()
+            self._spill_scope = None
 
     # ------------------------------------------------------- breaker gates
     def _device_allowed(self) -> bool:
@@ -650,12 +780,32 @@ class ExecutionContext:
 
 def execute_plan(root: PhysicalOp, ctx: ExecutionContext) -> Iterator[MicroPartition]:
     """Wire up the generator tree and return the root partition stream. Every
-    op is wrapped with per-partition accounting (rows and wall time)."""
+    op is wrapped with per-partition accounting (rows and wall time). When
+    the stream ends, is closed early or raises, the tree is closed, the
+    readahead pool shut down and the query's buffers and spill directory
+    released (``finish_query``)."""
 
     def build(op: PhysicalOp) -> Iterator[MicroPartition]:
         return _traced(op, op.execute([build(c) for c in op.children], ctx), ctx)
 
-    return build(root)
+    return _rooted(build(root), ctx)
+
+
+def _rooted(stream: Iterator[MicroPartition],
+            ctx: ExecutionContext) -> Iterator[MicroPartition]:
+    it = iter(stream)
+    try:
+        yield from it
+    finally:
+        try:
+            # close the tree before the pool goes: an op suspended at a
+            # yield releases its partitions now, not at garbage collection
+            close = getattr(it, "close", None)
+            if close is not None:
+                close()
+        finally:
+            ctx.shutdown_pool()
+            ctx.finish_query()
 
 
 def _traced(op: PhysicalOp, stream: Iterator[MicroPartition],

@@ -43,6 +43,19 @@ SITES = {
     "join.filter": "each runtime-join-filter build feed and probe prune "
                    "(physical.py, exchange/joinfilter.py; a failure ships the "
                    "exchange unfiltered, never a query failure)",
+    "spill.write": "each partition spill write (spill.py, synchronous or on the "
+                   "async writer thread; a failure holds the partition in "
+                   "memory)",
+    "spill.readback": "each spilled-partition re-materialization (spill.py, a "
+                      "consumer-thread read or an unspill readahead; errors "
+                      "propagate to the drain consumer)",
+    "spill.corrupt": "each landed spill IPC write (spill.py, synchronous or on "
+                     "the async writer thread; an injected fault flips a real "
+                     "bit in the written file after its checksum was recorded, "
+                     "the disk-corruption hook behind detection and lineage "
+                     "recompute)",
+    "exchange.encode": "each exchange-payload encode attempt (exchange/encode.py; "
+                       "a failure ships the piece raw, never a query failure)",
 }
 
 

@@ -144,7 +144,9 @@ class InMemorySource(LogicalPlan):
         return max(len(self.partitions), 1)
 
     def approx_size_bytes(self):
-        return sum(p.size_bytes() for p in self.partitions)
+        # an unloaded partition whose size is unknown counts as 0, as in
+        # the reference
+        return sum(p.size_bytes() or 0 for p in self.partitions)
 
     def multiline_display(self):
         return [f"InMemorySource: {len(self.partitions)} partitions",

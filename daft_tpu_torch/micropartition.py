@@ -1,17 +1,24 @@
 """MicroPartition: the unit of execution (the port's copy of
 daft_tpu/micropartition.py).
 
-A partition holds one or more loaded Tables; concat chains tables instead of
-copying them. ``device_stage_cache`` holds the columns already staged on the
-card (DeviceColumns keyed by column, bucket and device), so repeated queries
-over a collected partition do not copy the same columns again.
+A partition is either loaded (one or more Tables; concat chains tables
+instead of copying them) or unloaded: a scan task (a spilled partition's
+file slot, an encoded exchange piece) that materializes on first use, under
+the partition's lock. Metadata (``len``, ``num_rows_or_none``,
+``size_bytes``, the schema) answers from the task without reading it, so
+routing decisions never force a spilled partition back in. ``head`` and
+``select_columns`` narrow an unloaded task through its pushdowns.
+``device_stage_cache`` holds the columns already staged on the card
+(DeviceColumns keyed by column, bucket and device), so repeated queries
+over a collected partition do not copy the same columns again; a task
+loads on the thread that asks for its table, and staging happens there.
 
 ``partition_by_hash`` and ``partition_by_range`` split a partition for the
 hash and range shuffles chunk by chunk, as the reference does;
 ``partition_by_random`` splits the whole partition, since its draw is over
-row positions. Left out of this slice: unloaded partitions backed by scan
-tasks (with their pending-op chains, file statistics and pickling for worker
-processes) and the writer.
+row positions. Left out of this slice: the deferred op chains and owner
+process of multi-host scans, file statistics, pickling for worker processes
+and the writer.
 """
 
 from __future__ import annotations
@@ -24,13 +31,22 @@ from .table import Table
 
 
 class MicroPartition:
-    __slots__ = ("schema", "_tables", "_lock", "_device_cache")
+    __slots__ = ("schema", "_tables", "_scan_task", "_lock", "_device_cache",
+                 "lineage_recipe")
 
-    def __init__(self, schema: Schema, tables: List[Table]):
+    def __init__(self, schema: Schema, tables: Optional[List[Table]] = None,
+                 scan_task=None):
+        if (tables is None) == (scan_task is None):
+            raise ValueError("MicroPartition needs exactly one of tables / scan_task")
         self.schema = schema
         self._tables = tables
+        self._scan_task = scan_task
         self._lock = threading.Lock()
         self._device_cache: Dict[Any, Any] = {}
+        # a zero-arg closure that re-derives this partition's tables from
+        # stable storage (integrity/lineage.py), or None: the spill layer
+        # records it so that a corrupt spill file recomputes
+        self.lineage_recipe = None
 
     def device_stage_cache(self) -> Dict[Any, Any]:
         return self._device_cache
@@ -39,6 +55,11 @@ class MicroPartition:
     @staticmethod
     def from_table(tbl: Table) -> "MicroPartition":
         return MicroPartition(tbl.schema, [tbl])
+
+    @staticmethod
+    def from_scan_task(task) -> "MicroPartition":
+        """An unloaded partition: ``task.read()`` materializes it."""
+        return MicroPartition(task.materialized_schema, scan_task=task)
 
     @staticmethod
     def empty(schema: Optional[Schema] = None) -> "MicroPartition":
@@ -53,20 +74,58 @@ class MicroPartition:
     def from_arrow(tbl) -> "MicroPartition":
         return MicroPartition.from_table(Table.from_arrow(tbl))
 
+    # ------------------------------------------------------------------ state
+    def is_loaded(self) -> bool:
+        return self._scan_task is None
+
+    def scan_task(self):
+        """The task of an unloaded partition (None once loaded)."""
+        return self._scan_task
+
     def table(self) -> Table:
-        """The partition as ONE table (chained pieces concatenate once)."""
+        """The partition as ONE table: an unloaded one reads its task, and
+        chained pieces concatenate once."""
         with self._lock:
+            if self._scan_task is not None:
+                self._tables = [self._scan_task.read()]
+                self._scan_task = None
             if len(self._tables) > 1:
                 self._tables = [Table.concat(self._tables)]
             return self._tables[0]
 
-    def __len__(self) -> int:
-        return sum(len(t) for t in self._tables)
+    def chunk_tables(self) -> List[Table]:
+        """The partition's chained tables, without concatenating them (an
+        unloaded one reads its task's chunks)."""
+        with self._lock:
+            task = self._scan_task
+            if task is not None:
+                read_chunks = getattr(task, "read_chunks", None)
+                tbls = list(read_chunks()) if read_chunks is not None else [task.read()]
+                self._tables = [t for t in tbls if len(t)] or [Table.empty(self.schema)]
+                self._scan_task = None
+            return list(self._tables)
 
-    def size_bytes(self) -> int:
-        return sum(t.size_bytes() for t in self._tables)
+    def __len__(self) -> int:
+        n = self.num_rows_or_none()
+        return len(self.table()) if n is None else n
+
+    def num_rows_or_none(self) -> Optional[int]:
+        """The row count without reading an unloaded task, where it is known."""
+        task = self._scan_task
+        if task is None:
+            return sum(len(t) for t in self._tables)
+        return task.num_rows()
+
+    def size_bytes(self) -> Optional[int]:
+        """The bytes held (an unloaded task's estimate; None when unknown)."""
+        task = self._scan_task
+        if task is None:
+            return sum(t.size_bytes() for t in self._tables)
+        return task.size_bytes()
 
     def __repr__(self) -> str:
+        if self._scan_task is not None:
+            return f"MicroPartition(Unloaded {self._scan_task!r})"
         return f"MicroPartition(rows={len(self)})"
 
     # ------------------------------------------------------------------ compute
@@ -108,6 +167,11 @@ class MicroPartition:
             self.table().add_monotonic_id(partition_offset, column_name))
 
     def select_columns(self, names: List[str]) -> "MicroPartition":
+        task = self._scan_task
+        if task is not None:
+            # narrow the task's columns instead of reading every column
+            return MicroPartition.from_scan_task(
+                task.with_pushdowns(task.pushdowns.with_columns(list(names))))
         return MicroPartition.from_table(self.table().select_columns(names))
 
     def cast_to_schema(self, schema: Schema) -> "MicroPartition":
@@ -120,11 +184,13 @@ class MicroPartition:
         return MicroPartition.from_table(self.table().slice(start, end))
 
     def head(self, n: int) -> "MicroPartition":
+        task = self._scan_task
+        if task is not None:
+            # narrow the task's limit instead of reading every row
+            pd = task.pushdowns
+            limit = n if pd.limit is None else min(pd.limit, n)
+            return MicroPartition.from_scan_task(task.with_pushdowns(pd.with_limit(limit)))
         return MicroPartition.from_table(self.table().head(n))
-
-    def chunk_tables(self) -> List[Table]:
-        """The partition's chained tables, without concatenating them."""
-        return list(self._tables)
 
     def partition_by_hash(self, exprs, num_partitions: int) -> List["MicroPartition"]:
         """``num_partitions`` partitions by row hash mod n."""
@@ -150,10 +216,11 @@ class MicroPartition:
         """A row-local split (a row's bucket depends on its own values alone)
         of each chained table on its own: bucket i chains its pieces in
         order, with no concat."""
-        if len(self._tables) == 1:
-            return [MicroPartition.from_table(t) for t in split(self._tables[0])]
+        tabs = self.chunk_tables()
+        if len(tabs) == 1:
+            return [MicroPartition.from_table(t) for t in split(tabs[0])]
         buckets: List[List[Table]] = [[] for _ in range(num)]
-        for t in self._tables:
+        for t in tabs:
             for i, bt in enumerate(split(t)):
                 if len(bt):
                     buckets[i].append(bt)
@@ -172,9 +239,9 @@ class MicroPartition:
 
     @staticmethod
     def concat(parts: List["MicroPartition"]) -> "MicroPartition":
-        """O(1) concat: chains the loaded tables."""
+        """O(1) concat: chains the loaded tables; an unloaded input loads."""
         if not parts:
             raise ValueError("concat of zero partitions")
-        tables = [t for p in parts for t in p._tables]
+        tables = [t for p in parts for t in p.chunk_tables()]
         tables = [t for t in tables if len(t) > 0] or [tables[0]]
         return MicroPartition(parts[0].schema, tables)

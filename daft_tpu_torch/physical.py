@@ -47,9 +47,17 @@ pieces bound for one bucket (exchange/combine.py) when every merge is
 exact. Stage 1 over a filter fuses into a FusedFilterAggregateOp, and over
 a map chain into a DeviceSegmentOp, as a one-partition aggregate does.
 
-Left out of this slice: scans; the shuffle's mesh, peer-to-peer, spill,
-encode and lineage legs and the feedback-directed fan-out resize, each of
-which the reference keeps byte-identical when off; the morsel split of
+The pipeline breakers that hold many partitions buffer them in the query's
+spillable ``ctx.partition_buffer()``s (spill.py): the shuffle's buckets and
+its range input, the hash join's two sides and the sort-merge join's inputs
+and buckets. Under ``memory_budget_bytes`` they spill past the budget and
+read back lazily, and the shuffle dictionary-encodes its pieces
+(exchange/encode.py).
+
+Left out of this slice: scans; the shuffle's mesh and peer-to-peer legs,
+its pieces' lineage recipes (they engage only over scan-backed sources)
+and the feedback-directed fan-out resize, each of which the reference keeps
+byte-identical when off; the morsel split of
 in-memory sources, which the reference skips on the device path; the
 mesh exchange of the sort-merge join, feedback-directed join planning, the
 write op, the worker pool, streaming and batched UDFs.
@@ -501,8 +509,15 @@ class ShuffleOp(PhysicalOp):
     key_cols)``) that folds the pieces bound for one bucket as they arrive
     (exchange/combine.py). Each leg is behind its knob, and the results
     equal those with the knob off. ``exchange_rows`` and ``exchange_bytes``
-    count what crosses the exchange, after the prune and the fold;
-    ``shuffles`` counts the exchanges that ran."""
+    count what crosses the exchange, after the prune and the fold and before
+    the encode; ``shuffles`` counts the exchanges that ran.
+
+    The buckets and the range input are ``ctx.partition_buffer()``s. Under a
+    memory budget each piece is dictionary-encoded before it enters its
+    bucket (``exchange_payload_encoding``; ``exchange_pieces_encoded``,
+    ``exchange_bytes_encodable``, ``exchange_bytes_encoded``), bucket i+1
+    preloads its spilled pieces while bucket i merges, and each bucket is
+    released once yielded."""
 
     filter_feed = None    # JoinFilterSlot this build-side exchange populates
     probe_filter = None   # JoinFilterSlot whose sealed filter prunes here
@@ -563,39 +578,47 @@ class ShuffleOp(PhysicalOp):
             yield p if jf is None else prune_partition(p, jf, self.by, ctx)
 
     def execute(self, inputs, ctx) -> PartStream:
-        ctx.check_deadline()  # a pipeline breaker: the deadline first
         n = self.num_partitions
         src = inputs[0]
         if self.filter_feed is not None:
             src = self._feed_filter(src, ctx)
         if self.probe_filter is not None and ctx.cfg.runtime_join_filters:
             src = self._prune_stream(src, ctx)
+        # partition_buffer() checks the deadline: a pipeline breaker first
+        # proves the query still has time
+        buckets = [ctx.partition_buffer() for _ in range(n)]
+        # payload encoding engages under a budget only: there the exchanged
+        # bytes are what the ledger holds and the spill writes
+        encode = ctx.cfg.exchange_payload_encoding and ctx.memory_budget is not None
         comb = None
         if self.combine is not None and ctx.cfg.hierarchical_exchange_combine:
             from .exchange.combine import BucketCombiner
 
-            comb = BucketCombiner(self.combine[0], self.combine[1], ctx.stats)
-        buckets: List[List[MicroPartition]] = [[] for _ in range(n)]
+            comb = BucketCombiner(self.combine[0], self.combine[1], ctx.stats,
+                                  ledger=ctx.ledger, budget=ctx.memory_budget)
 
         def exchange_append(i: int, piece: MicroPartition) -> None:
+            # counted on the raw piece, after the prune and the fold
             _count_exchanged(piece, ctx)
+            if encode:
+                piece = self._encoded(piece, ctx)
             buckets[i].append(piece)
 
         saw = False
         if self.scheme == "range":
             # the boundaries need every input, so the partitions are buffered
-            # and their keys sampled as they stream in
-            parts: List[MicroPartition] = []
+            # (spillable) and their keys sampled as they stream in: a spilled
+            # partition is never read back for sampling
+            in_buf = ctx.partition_buffer()
             samples = []
             for p in src:
                 samples.append(sample_partition_keys(p, self.by, n, ctx.cfg.sample_size_for_sort))
-                parts.append(p)
-            saw = bool(parts)
+                in_buf.append(p)
+            saw = len(in_buf) > 0
             if saw:
                 boundaries = boundaries_from_samples(samples, self.by, n, self.descending,
                                                      self.nulls_first)
-            while parts:
-                p = parts.pop(0)
+            for p in in_buf.drain():
                 pieces = p.partition_by_range(self.by, boundaries, self.descending,
                                               self.nulls_first)
                 for i, piece in enumerate(pieces):
@@ -622,8 +645,40 @@ class ShuffleOp(PhysicalOp):
         if not saw:
             return
         ctx.stats.bump("shuffles")
-        for pieces in buckets:
-            yield MicroPartition.concat(pieces) if pieces else MicroPartition.empty(self.schema)
+        for i in range(n):
+            if i + 1 < n:
+                # bucket i+1's spilled pieces read back while bucket i merges
+                buckets[i + 1].preload()
+            # concat loads every spilled or encoded piece of the bucket
+            yield (MicroPartition.concat(buckets[i].parts()) if len(buckets[i])
+                   else MicroPartition.empty(self.schema))
+            buckets[i].release()
+
+    @staticmethod
+    def _encoded(piece: MicroPartition, ctx) -> MicroPartition:
+        """``piece`` with its low-cardinality columns dictionary-encoded
+        (exchange/encode.py), or as it is when no column wins. A failure of
+        the encode (the ``exchange.encode`` fault site, an arrow error)
+        ships the piece raw and counts ``exchange_encode_failures``."""
+        from .exchange.encode import ENCODE_FAILURES, encode_exchange_partition
+
+        raw = piece.size_bytes() or 0
+        try:
+            enc = encode_exchange_partition(piece, ctx.stats,
+                                            integrity=ctx.cfg.partition_integrity)
+        except ENCODE_FAILURES:
+            enc = None
+            ctx.stats.bump("exchange_encode_failures")
+        if enc is not None:
+            piece = enc
+            ctx.stats.bump("exchange_pieces_encoded")
+        # the encoded-to-raw ratio's denominator covers the same pieces
+        enc_bytes = (piece.size_bytes() or raw) if enc is not None else raw
+        if raw:
+            ctx.stats.bump("exchange_bytes_encodable", raw)
+        if enc_bytes:
+            ctx.stats.bump("exchange_bytes_encoded", enc_bytes)
+        return piece
 
     def describe(self):
         by = ", ".join(e._node.display() for e in self.by)
@@ -751,16 +806,30 @@ class HashJoinOp(PhysicalOp):
         self.suffix = suffix
 
     def execute(self, inputs, ctx) -> PartStream:
-        ctx.check_deadline()  # the join build buffers both sides
-        lparts = list(inputs[0])
-        rparts = list(inputs[1])
+        # the join build buffers both sides (partition_buffer() checks the
+        # deadline first)
+        lbuf = ctx.partition_buffer()
+        rbuf = ctx.partition_buffer()
+        for p in inputs[0]:
+            lbuf.append(p)
+        for p in inputs[1]:
+            rbuf.append(p)
+        n = max(len(lbuf), len(rbuf))
         lschema = self.children[0].schema
         rschema = self.children[1].schema
+        # drain() is lazy: a partition's bytes leave the ledger when its pair
+        # is consumed, and its reference drops right after the join
+        liter = lbuf.drain()
+        riter = rbuf.drain()
 
         def pairs():
-            for i in range(max(len(lparts), len(rparts))):
-                l = lparts[i] if i < len(lparts) else MicroPartition.empty(lschema)
-                r = rparts[i] if i < len(rparts) else MicroPartition.empty(rschema)
+            for _ in range(n):
+                l = next(liter, None)
+                r = next(riter, None)
+                if l is None:
+                    l = MicroPartition.empty(lschema)
+                if r is None:
+                    r = MicroPartition.empty(rschema)
                 yield l, r, self.left_on, self.right_on
 
         yield from _pipelined_join(ctx, pairs(), self.how, self.suffix)
@@ -863,40 +932,48 @@ class SortMergeJoinOp(PhysicalOp):
         self.suffix = suffix
 
     def execute(self, inputs, ctx) -> PartStream:
-        ctx.check_deadline()  # the join buffers both sides
+        # the join buffers both sides (partition_buffer() checks the deadline
+        # first); keys are sampled as the partitions stream in, so a spilled
+        # input is never read back for the boundaries
         n = self.num_partitions
         ssize = ctx.cfg.sample_size_for_sort
-        sides = []
-        for stream, on in ((inputs[0], self.left_on), (inputs[1], self.right_on)):
-            parts, samples = [], []
+        lbuf = ctx.partition_buffer()
+        rbuf = ctx.partition_buffer()
+        lsamples, rsamples = [], []
+        for stream, on, buf, samples in ((inputs[0], self.left_on, lbuf, lsamples),
+                                         (inputs[1], self.right_on, rbuf, rsamples)):
             for p in stream:
                 samples.append(sample_partition_keys(p, on, n, ssize))
-                parts.append(p)
-            sides.append((parts, samples))
-        (lparts, lsamples), (rparts, rsamples) = sides
+                buf.append(p)
         lschema = self.children[0].schema
         rschema = self.children[1].schema
-        if n <= 1 or (len(lparts) <= 1 and len(rparts) <= 1):
-            yield _one_partition(lparts, lschema).sort_merge_join(
-                _one_partition(rparts, rschema), self.left_on, self.right_on, self.how,
-                self.suffix)
+        if n <= 1 or (len(lbuf) <= 1 and len(rbuf) <= 1):
+            # one merge of every partition, held in the ledger until then
+            l = _one_partition(lbuf.parts(), lschema)
+            r = _one_partition(rbuf.parts(), rschema)
+            lbuf.release()
+            rbuf.release()
+            yield l.sort_merge_join(r, self.left_on, self.right_on, self.how, self.suffix)
             return
         k = len(self.left_on)
         bnds = aligned_boundaries_from_samples([lsamples, rsamples], n)
         ctx.stats.bump("aligned_boundary_shuffles")
-        buckets = []
-        for parts, on in ((lparts, self.left_on), (rparts, self.right_on)):
-            side: List[List[MicroPartition]] = [[] for _ in range(n)]
-            while parts:
-                for i, piece in enumerate(parts.pop(0).partition_by_range(
-                        on, bnds, [False] * k, [None] * k)):
+        lbuckets = [ctx.partition_buffer() for _ in range(n)]
+        rbuckets = [ctx.partition_buffer() for _ in range(n)]
+        for buf, on, buckets in ((lbuf, self.left_on, lbuckets),
+                                 (rbuf, self.right_on, rbuckets)):
+            for p in buf.drain():
+                for i, piece in enumerate(p.partition_by_range(on, bnds, [False] * k,
+                                                               [None] * k)):
                     if len(piece):
                         _count_exchanged(piece, ctx)
-                    side[min(i, n - 1)].append(piece)
-            buckets.append(side)
-        for lb, rb in zip(*buckets):
-            yield _one_partition(lb, lschema).sort_merge_join(
-                _one_partition(rb, rschema), self.left_on, self.right_on, self.how, self.suffix)
+                    buckets[min(i, n - 1)].append(piece)
+        for lb, rb in zip(lbuckets, rbuckets):
+            yield _one_partition(lb.parts(), lschema).sort_merge_join(
+                _one_partition(rb.parts(), rschema), self.left_on, self.right_on, self.how,
+                self.suffix)
+            lb.release()
+            rb.release()
 
 
 class CrossJoinOp(PhysicalOp):

@@ -26,9 +26,40 @@ COUNTERS = ("device_filters", "host_filters", "device_projections", "host_projec
             "device_breaker_trips", "degraded_completions")
 
 
-def run_both(build, min_rows: int = 8, x64: bool = False):
-    """``build(pkg)`` (a DataFrame) through both packages, each collected.
-    Returns (reference frame, port frame)."""
+# the spill and integrity counters the budgeted cases hold equal
+# (tests/test_torch_spill.py, tests/test_torch_encoded_exchange.py)
+SPILL_COUNTERS = ("spilled_partitions", "spill_write_failures", "unspill_readahead_submitted",
+                  "corruption_detected", "lineage_truncated", "exchange_pieces_encoded",
+                  "exchange_precombined_rows")
+
+# the budgeted cases run the reference on one executor thread (its pool would
+# otherwise charge parked task outputs against the budget in an order that
+# depends on timing), and both packages with synchronous spill writes unless
+# a case says otherwise: an async write changes its partition's size
+# estimate from the memory bytes to the file bytes when it lands, and the
+# readahead's budget throttle reads that estimate, so with async writes
+# ``unspill_readahead_submitted`` follows the writer thread's timing
+SPILL_BASE = {"executor_threads": 1, "async_spill_writes": False}
+
+
+def spill_dirs() -> set:
+    """The port's spill directories in the temp directory."""
+    import glob
+    import os
+    import tempfile
+
+    return set(glob.glob(os.path.join(tempfile.gettempdir(), "daft_tpu_torch_spill_*")))
+
+
+def spill_counters(df) -> dict:
+    c = df.stats.snapshot()["counters"]
+    return {k: c.get(k, 0) for k in COUNTERS + SPILL_COUNTERS}
+
+
+def run_both(build, min_rows: int = 8, x64: bool = False, knobs=None):
+    """``build(pkg)`` (a DataFrame) through both packages, each collected;
+    ``knobs`` (32-bit mode only) are set on the reference's config for its
+    run and mapped onto the port's. Returns (reference frame, port frame)."""
     if x64:
         from daft_tpu.context import get_context
 
@@ -46,12 +77,16 @@ def run_both(build, min_rows: int = 8, x64: bool = False):
                 setattr(cfg, k, v)
     else:
         with real_tpu_mode_cfg(device_min_rows=min_rows) as cfg:
-            cfg.enable_result_cache, saved = False, cfg.enable_result_cache
+            knobs = {"enable_result_cache": False, **(knobs or {})}
+            saved = {k: getattr(cfg, k) for k in knobs}
+            for k, v in knobs.items():
+                setattr(cfg, k, v)
             try:
                 ref = build(daft_tpu).collect()
                 d = dataclasses.asdict(cfg)
             finally:
-                cfg.enable_result_cache = saved
+                for k, v in saved.items():
+                    setattr(cfg, k, v)
     d["jax_enable_x64"] = x64
     daft_tpu_torch.set_execution_config(
         daft_tpu_torch.execution_config_from_dict(d, device="cpu"))
@@ -84,10 +119,10 @@ def assert_same_rows(got: dict, ref: dict, rtol: float = 0.0, ordered: bool = Fa
 
 
 def check(build, rtol: float = 0.0, ordered: bool = False, min_rows: int = 8,
-          x64: bool = False):
+          x64: bool = False, knobs=None):
     """The query through both packages: equal rows and equal counters.
     Returns (reference frame, port frame)."""
-    ref, got = run_both(build, min_rows, x64)
+    ref, got = run_both(build, min_rows, x64, knobs)
     assert_same_rows(got.to_pydict(), ref.to_pydict(), rtol, ordered)
     assert counters(got) == counters(ref)
     return ref, got
