@@ -77,7 +77,7 @@ Phases, each of which fails the run:
      limit, a group by a lowered string, a string if_else then distinct, a
      column-to-column string filter. Each with its rows, its routing
      counters (LANE_ROUTES, pinned by the CPU tests) and its kernel
-     launches, timed cold and warm (median of 5) with the device's idle
+     launches, timed cold and warm (median of 3) with the device's idle
      share; the deep query's K2 program held against its plain version and
      the composed route bit for bit, and timed. The deep program is built in
      phase 1 beside the others (from a 6,000-row lineitem of the same
@@ -136,7 +136,7 @@ Phases, each of which fails the run:
      (partition i from i << 36), then Q6 and the largest id, whose
      counters are held to ID_PINS (tests/test_torch_reshape.py pins them
      for both packages). Each case cold with its launches counted from 0,
-     against its oracle, then warm (median of 3);
+     against its oracle, then warm (median of 2);
  10. the bounded-memory exchange on the card (needs SF1 in --scales), in the
      32-bit mode over phase 7's SF1 tables with lineitem, orders and
      customer in 4 partitions each (phase_spill, spill_cases): the sort
@@ -146,7 +146,7 @@ Phases, each of which fails the run:
      repartition(4, "l_returnflag") then Q1 (its low-cardinality columns
      dictionary-encoded; again with encoding off), each unbudgeted and
      under a budget of a quarter of the bytes its exchange moved (for the
-     sort, a quarter of lineitem's bytes), cold then 3 times warm. The
+     sort, a quarter of lineitem's bytes), cold then twice warm. The
      budgeted run gives the unbudgeted rows, the same kernel launches and
      device sorts, probes and Bloom probes, spills, and
      leaves the ledger at 0 and no spill directory; it prints the spill
@@ -155,10 +155,27 @@ Phases, each of which fails the run:
      (DaftTransientError reaches the caller), spill.corrupt with
      synchronous writes (DaftCorruptionError, lineage truncated) on the
      sort, and
-     exchange.encode (rows equal, nothing encoded) on the repartition.
+     exchange.encode (rows equal, nothing encoded) on the repartition;
+ 11. planning for repeated queries on the card (needs SF1 in --scales), in
+     the 32-bit mode with the default knobs but a 4 GiB plan-cache cap, over
+     phase 7's SF1 tables in 4 partitions (phase_adapt): Q6 twice under the
+     default cap (its frame is beyond it: no hit); composed Q1, deep Q1,
+     Q6 and hash-join Q3 cold, 3 times warm with the plan cache on and 3
+     with it off (the last warm run a hit with no optimize, translate or
+     compile call, its rows byte-identical to and its launches equal to
+     the run that planned it), and Q6 with other discounts as a second
+     binding; float sums by l_suppkey over 8 partitions, whose second run
+     resizes the exchange; lineitem joined with January 1992's orders,
+     whose second run flips to a broadcast join and third hits it; the
+     same shape over 85 % of orders (the flip mispredicts and is demoted);
+     the flip's query under enable_aqe; plancache.lookup armed always; the
+     card's allocated bytes with the frames dropped and their plans cached,
+     then with the cache cleared. Each run against a pyarrow oracle.
 
-Every query of phases 1-7, 9 and 10 (but the ids' Q6 and largest id and
-phase 10's fault cases) is held
+Phases 1-10 turn feedback-directed planning and the whole-plan result
+cache off (PLAN_PINS): each times its plans as written. Every query of
+phases 1-7, 9, 10 and 11 (but the ids' Q6 and largest id and the fault
+cases of phases 10 and 11) is held
 to 0 device_attempt_failures, device_breaker_trips, degraded_completions,
 faults_injected, join_filter_errors and every *_fallbacks counter (Phases.watch reads them as collect() returns, and each
 phase's line says how many queries it read), so that no failure the device
@@ -177,6 +194,7 @@ names the loop it ran. Imports nothing of jax or daft_tpu.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import datetime
 import json
 import statistics
@@ -377,6 +395,23 @@ def q3_parity(got: dict, want: dict, groups: dict, rtol: float) -> bool:
         if abs(r - wr) > max(rtol * abs(wr), 1e-6) or (d, p) != (wd, wp):
             return False
     return True
+
+
+# Phases 1-10 time each plan as it is written: with the whole-plan result
+# cache on, a repeated collect would be served the result of the DataFrame
+# still held from the run before, and with feedback-directed planning on, a
+# repeated shape would flip its joins and resize its exchanges between a
+# phase's cold and warm runs. Phase 11 measures both under the defaults; the
+# plan cache stays on everywhere (a warm run that skips planning is what a
+# user's repeated query gets).
+PLAN_PINS = {"enable_result_cache": False, "history_fdo": False}
+
+
+def config(**kw):
+    """The ExecutionConfig of phases 1-10: ``kw`` over PLAN_PINS."""
+    import daft_tpu_torch as dtt
+
+    return dtt.ExecutionConfig(**{**PLAN_PINS, **kw})
 
 
 def card_line() -> str:
@@ -614,8 +649,8 @@ def enumerate_deep_programs() -> list:
     from benchmarks import tpch
     from daft_tpu_torch.kernels import fused_expr_sums as fes
 
-    dtt.set_execution_config(dtt.ExecutionConfig(device="cpu", device_min_rows=1,
-                                                 use_deep_fusion_kernel=True))
+    dtt.set_execution_config(config(device="cpu", device_min_rows=1,
+                                    use_deep_fusion_kernel=True))
     small = dtt.from_arrow(tpch.generate_lineitem_only(
         scale=4096 / tpch.LINEITEM_ROWS_PER_SF, seed=1)).collect()
     for plan in DEEP_PLANS.values():
@@ -634,7 +669,7 @@ def enumerate_deep_programs() -> list:
     li = small.to_arrow()
     four = dtt.from_arrow([li.slice(i * 1024, 1024) for i in range(FAULT_PARTS)]).collect()
     for residency in (True, False):
-        dtt.set_execution_config(dtt.ExecutionConfig(
+        dtt.set_execution_config(config(
             device="cpu", device_min_rows=64, use_deep_fusion_kernel=True,
             device_residency=residency))
         build({"lineitem_4": four}).collect()
@@ -815,7 +850,7 @@ def capture_k2_operands(frame, plan) -> tuple:
         seen.append((prog, codes, {k: env[k] for k in prog.names}, n, num_groups))
         return wrapped(prog, codes, env, n, num_groups)
 
-    dtt.set_execution_config(dtt.ExecutionConfig(use_deep_fusion_kernel=True))
+    dtt.set_execution_config(config(use_deep_fusion_kernel=True))
     fes.fused_expr_sums = record
     try:
         plan(frame).collect()
@@ -1274,7 +1309,7 @@ def drive(ph: Phases, label: str, query, frame, want: dict, deep: bool, segment:
     from daft_tpu_torch.kernels import fused_expr_sums as fes
     from daft_tpu_torch.kernels import segment_sums as ss
 
-    dtt.set_execution_config(dtt.ExecutionConfig(use_deep_fusion_kernel=deep))
+    dtt.set_execution_config(config(use_deep_fusion_kernel=deep))
     ss.LAUNCHES = fes.LAUNCHES = 0
     t0 = time.perf_counter()
     df = query(frame).collect()
@@ -1327,13 +1362,13 @@ def phase_main_path(ph: Phases, scale: float, lineitem, card: str, profile: bool
                     segment=False)
         # deep against composed, back to back (bench.py's q1_deep_pallas_vs_composed)
         res.update({f"deep_{k}": v for k, v in warm_median(query, frame).items()})
-        dtt.set_execution_config(dtt.ExecutionConfig(use_deep_fusion_kernel=False))
+        dtt.set_execution_config(config(use_deep_fusion_kernel=False))
         res.update({f"composed_{k}": v for k, v in warm_median(query, frame).items()})
         res["composed_over_deep"] = res["composed_warm_median_s"] / res["deep_warm_median_s"]
         record(f"{name}_deep", res)
     if profile:
         profile_queries(queries, frame, rows, card)
-        dtt.set_execution_config(dtt.ExecutionConfig(use_deep_fusion_kernel=True))
+        dtt.set_execution_config(config(use_deep_fusion_kernel=True))
         profile_queries({"q1_deep": q1}, frame, rows, card)
     del frame
     torch.cuda.empty_cache()
@@ -1373,7 +1408,7 @@ def phase_multi_partition(ph: Phases, lineitem, card: str, single: dict, profile
     out = {"k1_launches": 0}
     for name, query in (("q1", q1), ("q6", q6)):
         label = f"{nparts}-partition {name}"
-        dtt.set_execution_config(dtt.ExecutionConfig())
+        dtt.set_execution_config(config())
         ss.LAUNCHES = fes.LAUNCHES = 0
         t0 = time.perf_counter()
         df = query(frame).collect()
@@ -1407,7 +1442,7 @@ def phase_multi_partition(ph: Phases, lineitem, card: str, single: dict, profile
         print(f"SF1 {label} " + json.dumps(res), flush=True)
         del df
     if profile:
-        dtt.set_execution_config(dtt.ExecutionConfig())
+        dtt.set_execution_config(config())
         profile_queries({f"q1_{nparts}_parts": q1, f"q6_{nparts}_parts": q6}, frame, rows, card)
     del frame
     torch.cuda.empty_cache()
@@ -1458,7 +1493,7 @@ def phase_single_ops(ph: Phases, lineitem, card: str) -> dict:
                      "device_distincts"),
     }
     want = single_op_oracles(lineitem)
-    dtt.set_execution_config(dtt.ExecutionConfig())
+    dtt.set_execution_config(config())
     frame = dtt.from_arrow(lineitem).collect()
     out = {}
     for name, (query, counter) in queries.items():
@@ -1623,7 +1658,7 @@ def phase_joins(ph: Phases, scale: float, card: str, profile: bool,
         def run(plan=plan):
             return plan().collect()
 
-        dtt.set_execution_config(dtt.ExecutionConfig())
+        dtt.set_execution_config(config())
         module, attr = capture[name]
         real = getattr(module, attr)
 
@@ -1869,7 +1904,7 @@ def phase_tpch22(ph: Phases, queries, data: dict, card: str, profile: bool) -> d
     small = tpch_full.generate(scale=0.005, seed=7)
     conn = tpch_full.load_sqlite(small)
     try:
-        dtt.set_execution_config(dtt.ExecutionConfig(device_min_rows=8))
+        dtt.set_execution_config(config(device_min_rows=8))
         frames = tpch22_frames(small, 3)
         for qn in sorted(queries.QUERIES):
             t0 = time.perf_counter()
@@ -1890,7 +1925,7 @@ def phase_tpch22(ph: Phases, queries, data: dict, card: str, profile: bool) -> d
     del small, frames
 
     # --- SF1 (``data``), one partition per table, against the port's host path
-    host_cfg = dtt.ExecutionConfig(use_device_kernels=False, device="cpu")
+    host_cfg = config(use_device_kernels=False, device="cpu")
     dtt.set_execution_config(host_cfg)
     hframes = tpch22_frames(data, 1)
     host = {}
@@ -1901,7 +1936,7 @@ def phase_tpch22(ph: Phases, queries, data: dict, card: str, profile: bool) -> d
     del hframes
 
     # the CPU tests' configuration, so that the routing compares with theirs
-    dtt.set_execution_config(dtt.ExecutionConfig(device_min_rows=8))
+    dtt.set_execution_config(config(device_min_rows=8))
     frames = tpch22_frames(data, 1)
     rows = {k: v.num_rows for k, v in data.items()}
     warm_by_query = {}
@@ -2098,7 +2133,7 @@ def phase_lanes(ph: Phases, data: dict, card: str) -> dict:
     100,000 rows, with no float, equal as an Arrow table), with K1's, K2's
     and the scatter kernel's launches set to 0 just before the query and
     read just after, and every routing counter LANE_COUNTERS names equal to
-    LANE_ROUTES. Each is timed cold and warm (median of 5) with the device's
+    LANE_ROUTES. Each is timed cold and warm (median of 3) with the device's
     idle share (torch.profiler, 2 warm runs). The deep query's K2 program is
     then held against its plain version and the composed route at the
     operands the engine hands it, and timed."""
@@ -2112,7 +2147,7 @@ def phase_lanes(ph: Phases, data: dict, card: str) -> dict:
     tables = lane_tables(data)
     queries = lane_queries(dtt)
     t0 = time.perf_counter()
-    dtt.set_execution_config(dtt.ExecutionConfig(use_device_kernels=False, device="cpu"))
+    dtt.set_execution_config(config(use_device_kernels=False, device="cpu"))
     hframes = {k: dtt.from_arrow(v).collect() for k, v in tables.items()}
     host = {name: q(hframes).collect().to_arrow() for name, (q, _deep) in queries.items()}
     del hframes
@@ -2128,8 +2163,8 @@ def phase_lanes(ph: Phases, data: dict, card: str) -> dict:
         def run(query=query, frames=frames):
             return query(frames).collect()
 
-        dtt.set_execution_config(dtt.ExecutionConfig(device_min_rows=8,
-                                                      use_deep_fusion_kernel=deep))
+        dtt.set_execution_config(config(device_min_rows=8,
+                                        use_deep_fusion_kernel=deep))
         ss.LAUNCHES = fes.LAUNCHES = scs.LAUNCHES = 0
         t0 = time.perf_counter()
         df = run()
@@ -2157,7 +2192,7 @@ def phase_lanes(ph: Phases, data: dict, card: str) -> dict:
         for k in ("k1", "k2", "scatter"):
             out[f"{k}_launches"] += launches[k]
         res = {"cold_s": cold, "launches": launches, "rows": got.num_rows,
-               **warm_median(lambda _f, run=run: run(), None, runs=5, fetch="to_arrow"),
+               **warm_median(lambda _f, run=run: run(), None, runs=3, fetch="to_arrow"),
                **device_profile(lambda run=run: run().to_arrow(), reps=2)[0], "card": card}
         out[name] = res
         print(f"SF1 lanes {name} " + json.dumps(res), flush=True)
@@ -2234,7 +2269,7 @@ def x64_drive(ph: Phases, name: str, x64: bool, source: dict, want: dict, groups
     from daft_tpu_torch.kernels import segment_sums as ss
 
     query, args, probes = X64_QUERIES[name]
-    dtt.set_execution_config(dtt.ExecutionConfig(device_x64=x64))
+    dtt.set_execution_config(config(device_x64=x64))
     frames = [dtt.from_arrow(source[a]).collect() for a in args]
     real = scs.scatter_sum_kahan
 
@@ -2358,7 +2393,7 @@ def phase_x64(ph: Phases, lineitem, tables: dict, queries, data: dict, host_rows
         out["scatter_f64_launches"] += res["launches"]["scatter_f64"]
         out[name] = res
         print(f"SF1 x64 {name} " + json.dumps(res), flush=True)
-    dtt.set_execution_config(dtt.ExecutionConfig(device_x64=True))
+    dtt.set_execution_config(config(device_x64=True))
     out["onehot_f64"] = onehot_f64_breakdown(card)
     print("SF1 x64 one-hot float64 sum " + json.dumps(out["onehot_f64"]), flush=True)
     ph.check(len(captured) == 1, f"SF1 x64: Q3 called the float64 scatter wrapper once "
@@ -2377,7 +2412,7 @@ def phase_x64(ph: Phases, lineitem, tables: dict, queries, data: dict, host_rows
     small = tpch_full.generate(scale=0.005, seed=7)
     conn = tpch_full.load_sqlite(small)
     try:
-        dtt.set_execution_config(dtt.ExecutionConfig(device_min_rows=8, device_x64=True))
+        dtt.set_execution_config(config(device_min_rows=8, device_x64=True))
         frames = tpch22_frames(small, 3)
         for qn in sorted(queries.QUERIES):
             got = tpch22_rows(zip(*queries.QUERIES[qn](frames).to_pydict().values()))
@@ -2390,7 +2425,7 @@ def phase_x64(ph: Phases, lineitem, tables: dict, queries, data: dict, host_rows
     del small, frames
 
     # --- SF1, one partition per table, against phase 4's host-path rows
-    dtt.set_execution_config(dtt.ExecutionConfig(device_min_rows=8, device_x64=True))
+    dtt.set_execution_config(config(device_min_rows=8, device_x64=True))
     frames = tpch22_frames(data, 1)
     warm, cold = {}, {}
     for qn in sorted(queries.QUERIES):
@@ -2727,7 +2762,7 @@ def phase_exchange(ph: Phases, scale: float, tables: dict, q3_oracle: tuple,
     out = {"k1_launches": 0, "k2_launches": 0, "scatter_launches": 0}
     try:
         for name, (build, overrides, check, routes) in items.items():
-            dtt.set_execution_config(dtt.ExecutionConfig(**overrides))
+            dtt.set_execution_config(config(**overrides))
             frames = {}
             for k, v in tables.items():
                 df = dtt.from_arrow(v)
@@ -2923,7 +2958,7 @@ def phase_faults(ph: Phases, lineitem, tables: dict, q3_oracle: tuple, main_sf1:
     out = {"k1_launches": 0, "k2_launches": 0, "scatter_launches": 0}
 
     def drive_case(name, build, overrides, plan=None):
-        dtt.set_execution_config(dtt.ExecutionConfig(**overrides))
+        dtt.set_execution_config(config(**overrides))
         if plan is not None:
             faults.arm(plan[0], plan[1], **plan[2])
         ss.LAUNCHES = fes.LAUNCHES = scs.LAUNCHES = 0
@@ -2970,7 +3005,7 @@ def phase_faults(ph: Phases, lineitem, tables: dict, q3_oracle: tuple, main_sf1:
     def broken(*a, **kw):
         raise DaftKernelError("masked_segment_sums kernel launch failed: replaced wrapper")
 
-    dtt.set_execution_config(dtt.ExecutionConfig())
+    dtt.set_execution_config(config())
     df = q1(frames["lineitem_4"])
     ss.masked_segment_sums_padded = broken
     try:
@@ -2987,7 +3022,7 @@ def phase_faults(ph: Phases, lineitem, tables: dict, q3_oracle: tuple, main_sf1:
              f"the breaker closed (counters {dict((k, c.get(k, 0)) for k in HEALTH_COUNTERS)})")
 
     # a deadline
-    dtt.set_execution_config(dtt.ExecutionConfig(execution_timeout_s=1e-6))
+    dtt.set_execution_config(config(execution_timeout_s=1e-6))
     try:
         q1(frames["lineitem_4"]).collect()
         err = None
@@ -2999,7 +3034,7 @@ def phase_faults(ph: Phases, lineitem, tables: dict, q3_oracle: tuple, main_sf1:
              f"phase 8 deadline: DaftTimeoutError ({err}), deadline_expired {expired}")
 
     # nothing armed: warm Q1 and Q6 over one partition beside phase 3's runs
-    dtt.set_execution_config(dtt.ExecutionConfig())
+    dtt.set_execution_config(config())
     frame = dtt.from_arrow(lineitem).collect()
     for name, query in (("q1", q1), ("q6", q6)):
         ss.LAUNCHES = 0
@@ -3021,6 +3056,7 @@ def phase_faults(ph: Phases, lineitem, tables: dict, q3_oracle: tuple, main_sf1:
 # ---------------------------------------------------------------------------
 
 REL_PARTS = 4
+REL_WARM = 2  # warm runs a case: few, so the whole run stays well inside its time limit
 ID_PARTS = 4
 
 
@@ -3360,7 +3396,7 @@ def phase_relational(ph: Phases, tables: dict, card: str) -> dict:
     Q6, and the largest id, whose counters are held to ID_PINS instead of
     HEALTH_COUNTERS). Each case is driven once cold with K1's, K2's and the
     scatter kernel's launches set to 0 just before and read just after,
-    checked against its oracle, then timed warm (median of 3)."""
+    checked against its oracle, then timed warm (median of 2)."""
     import torch
 
     import daft_tpu_torch as dtt
@@ -3368,7 +3404,7 @@ def phase_relational(ph: Phases, tables: dict, card: str) -> dict:
     from daft_tpu_torch.kernels import scatter_sums as scs
     from daft_tpu_torch.kernels import segment_sums as ss
 
-    dtt.set_execution_config(dtt.ExecutionConfig())
+    dtt.set_execution_config(config())
     t0 = time.perf_counter()
     frames = {k: dtt.from_arrow(tables[k]).into_partitions(REL_PARTS).collect()
               for k in ("lineitem", "orders", "customer", "nation")}
@@ -3391,7 +3427,7 @@ def phase_relational(ph: Phases, tables: dict, card: str) -> dict:
             ph.check(ok, f"phase 9 {name}: {what}")
         del df
         warm = []
-        for _ in range(3):
+        for _ in range(REL_WARM):
             t0 = time.perf_counter()
             build().collect()
             torch.cuda.synchronize()
@@ -3411,7 +3447,7 @@ def phase_relational(ph: Phases, tables: dict, card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 SPILL_PARTS = 4
-SPILL_WARM = 3
+SPILL_WARM = 2  # warm runs a case: few, so the whole run stays well inside its time limit
 # the counters each phase-10 line reports
 SPILL_COUNTERS = ("spilled_partitions", "spill_write_bytes", "spill_read_bytes",
                   "spill_write_failures", "unspill_readahead_submitted", "unspill_readahead_hits",
@@ -3528,11 +3564,11 @@ def phase_spill(ph: Phases, tables: dict, card: str) -> dict:
     (d) the sort-merge join of lineitem and orders with its grouped
     aggregate, (e) repartition(4, "l_returnflag") then Q1 (and with
     encoding off), (f) each fault site of the slice armed always on (a) or
-    (e). Each case runs unbudgeted, cold then 3 times warm, and then under
+    (e). Each case runs unbudgeted, cold then twice warm, and then under
     a budget of a quarter of the bytes its unbudgeted exchange moved
     (``exchange_bytes``; for the sort, a quarter of lineitem's bytes), cold
     with K1's, K2's and the scatter kernel's launches set to 0 just before
-    and read just after, then 3 times warm. The budgeted cold run must give
+    and read just after, then twice warm. The budgeted cold run must give
     the unbudgeted rows (same_rows), the same launches and device counters
     (SPILL_SAME), spilled_partitions > 0, and leave the ledger at 0 with no
     spill directory; (f) as its fault site says."""
@@ -3546,7 +3582,7 @@ def phase_spill(ph: Phases, tables: dict, card: str) -> dict:
     from daft_tpu_torch.spill import MEMORY_LEDGER
 
     t0 = time.perf_counter()
-    dtt.set_execution_config(dtt.ExecutionConfig())
+    dtt.set_execution_config(config())
     frames = {k: dtt.from_arrow(tables[k]).into_partitions(SPILL_PARTS).collect()
               for k in ("lineitem", "orders", "customer")}
     cases = spill_cases(frames, tables)
@@ -3588,7 +3624,7 @@ def phase_spill(ph: Phases, tables: dict, card: str) -> dict:
         if fault is not None and ph.phase is not None:
             ph.begin(None)  # the fault cases read their own counters
         base = shares or name
-        dtt.set_execution_config(dtt.ExecutionConfig(**overrides))
+        dtt.set_execution_config(config(**overrides))
         if base not in plain:
             df, rows, cold, launches = timed(build)
             c = df.stats.snapshot()["counters"]
@@ -3598,7 +3634,7 @@ def phase_spill(ph: Phases, tables: dict, card: str) -> dict:
             del df
         ref = plain[base]
         budget = ref["budget"]
-        dtt.set_execution_config(dtt.ExecutionConfig(memory_budget_bytes=budget, **overrides))
+        dtt.set_execution_config(config(memory_budget_bytes=budget, **overrides))
         MEMORY_LEDGER.reset()
         df, got, cold, launches = timed(build, fault[0] if fault else None)
         c = df.stats.snapshot()["counters"]
@@ -3664,10 +3700,397 @@ def phase_spill(ph: Phases, tables: dict, card: str) -> dict:
         out[name] = res
         print(f"{label} " + json.dumps(res), flush=True)
         torch.cuda.empty_cache()
-    dtt.set_execution_config(dtt.ExecutionConfig())
+    dtt.set_execution_config(config())
     del frames, cases, plain
     torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 11: planning for repeated queries (the plan cache, feedback-directed
+# planning, adaptive execution, the whole-plan result cache)
+# ---------------------------------------------------------------------------
+
+ADAPT_PARTS = 4
+ADAPT_FANOUT_PARTS = 8
+ADAPT_WARM = 3
+# phase 11's plan-cache cap: a plan pins its frames' partitions, and SF1
+# lineitem alone holds 517,711,792 arrow bytes, so the default cap (64 MiB)
+# keeps every plan over it out of the cache, as (a0) shows
+ADAPT_CACHE_BYTES = 4 << 30
+ADAPT_FLIP_DATE = datetime.date(1992, 2, 1)        # keeps about 1 % of orders
+ADAPT_MISPREDICT_DATE = datetime.date(1998, 1, 1)  # keeps about 85 % of orders
+# the counters each phase-11 line reports
+ADAPT_COUNTERS = ("plan_cache_hits", "plan_cache_misses", "plan_cache_errors",
+                  "result_cache_hits", "fdo_join_flips", "fdo_shuffle_resizes",
+                  "fdo_reduced_partitions", "fdo_mispredicts", "aqe_stages",
+                  "aqe_shuffle_resizes", "broadcast_joins", "device_join_probes",
+                  "join_filter_device_probes", "device_aggregations", "host_aggregations",
+                  "shuffles", "planning_wall_ns", "compile_wall_ns")
+
+
+def q6_discounts(lineitem, lo: float, hi: float):
+    """TPC-H Q6 with its discount range as parameters (q6 is (0.05, 0.07))."""
+    from daft_tpu_torch import col
+
+    return (
+        lineitem
+        .where((col("l_shipdate") >= datetime.date(1994, 1, 1))
+               & (col("l_shipdate") < datetime.date(1995, 1, 1))
+               & (col("l_discount") >= lo)
+               & (col("l_discount") <= hi)
+               & (col("l_quantity") < 24))
+        .agg((col("l_extendedprice") * col("l_discount")).sum().alias("revenue"))
+    )
+
+
+def oracle_q6_discounts(li, lo: float, hi: float) -> dict:
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    m = pc.and_(pc.and_(pc.greater_equal(li["l_shipdate"], pa.scalar(datetime.date(1994, 1, 1))),
+                        pc.less(li["l_shipdate"], pa.scalar(datetime.date(1995, 1, 1)))),
+                pc.and_(pc.and_(pc.greater_equal(li["l_discount"], lo),
+                                pc.less_equal(li["l_discount"], hi)),
+                        pc.less(li["l_quantity"], 24)))
+    t = li.filter(m)
+    return {"revenue": [pc.sum(pc.multiply(t["l_extendedprice"], t["l_discount"])).as_py()]}
+
+
+def suppkey_agg(lineitem):
+    """Float sums by l_suppkey (10,000 groups at SF1): no merge of it is
+    exact, so its exchange does not fold, and stage 2 reads the partials."""
+    from daft_tpu_torch import col
+
+    return (lineitem.groupby("l_suppkey")
+            .agg(col("l_extendedprice").sum().alias("revenue"),
+                 col("l_discount").mean().alias("avg_disc"))
+            .sort("l_suppkey"))
+
+
+def oracle_suppkey_agg(li) -> dict:
+    g = li.group_by("l_suppkey").aggregate([("l_extendedprice", "sum"), ("l_discount", "mean")])
+    g = g.sort_by("l_suppkey")
+    return {"l_suppkey": g["l_suppkey"].to_pylist(),
+            "revenue": g["l_extendedprice_sum"].to_pylist(),
+            "avg_disc": g["l_discount_mean"].to_pylist()}
+
+
+def flip_query(lineitem, orders, before: datetime.date):
+    """lineitem joined with the orders placed before ``before``, then the
+    revenue by order priority: the join's orders side shrinks behind its
+    filter, which its static estimate (all of orders) does not see."""
+    from daft_tpu_torch import col
+
+    o = orders.where(col("o_orderdate") < before)
+    return (lineitem.join(o, left_on="l_orderkey", right_on="o_orderkey")
+            .groupby("o_orderstatus").agg(col("l_extendedprice").sum().alias("revenue"))
+            .sort("o_orderstatus"))
+
+
+def oracle_flip(li, orders, before: datetime.date) -> dict:
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    o = orders.filter(pc.less(orders["o_orderdate"], pa.scalar(before)))
+    j = li.join(o, keys="l_orderkey", right_keys="o_orderkey", join_type="inner")
+    g = j.group_by("o_orderstatus").aggregate([("l_extendedprice", "sum")])
+    g = g.sort_by("o_orderstatus")
+    return {"o_orderstatus": g["o_orderstatus"].to_pylist(),
+            "revenue": g["l_extendedprice_sum"].to_pylist()}
+
+
+class PlanningCalls:
+    """Counts the port's optimize, translate, map-chain compile and
+    plan-segment compile calls while it is entered: what a warm plan-cache
+    hit must not pay."""
+
+    TARGETS = (("daft_tpu_torch.optimizer", "optimize"), ("daft_tpu_torch.physical", "translate"),
+               ("daft_tpu_torch.fuse.compile", "compile_chain"),
+               ("daft_tpu_torch.fuse", "compile_plan_segments"))
+
+    def __enter__(self) -> dict:
+        import importlib
+
+        self.calls = {name: 0 for _, name in self.TARGETS}
+        self.real = []
+        for mod, name in self.TARGETS:
+            m = importlib.import_module(mod)
+            fn = getattr(m, name)
+            self.real.append((m, name, fn))
+
+            def counted(*a, _fn=fn, _name=name, **k):
+                self.calls[_name] += 1
+                return _fn(*a, **k)
+
+            setattr(m, name, counted)
+        return self.calls
+
+    def __exit__(self, *exc) -> None:
+        for m, name, fn in self.real:
+            setattr(m, name, fn)
+
+
+def adapt_run(build) -> dict:
+    """One collect and fetch of ``build()`` with the kernels' launches set to
+    0 just before and read just after, and the planning calls counted. The
+    DataFrame is dropped before this returns, so that the next run is not
+    served from its result (the whole-plan result cache is on)."""
+    import torch
+
+    from daft_tpu_torch.kernels import fused_expr_sums as fes
+    from daft_tpu_torch.kernels import scatter_sums as scs
+    from daft_tpu_torch.kernels import segment_sums as ss
+
+    ss.LAUNCHES = fes.LAUNCHES = scs.LAUNCHES = 0
+    with PlanningCalls() as calls:
+        t0 = time.perf_counter()
+        df = build().collect()
+        rows = df.to_arrow()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    c = df.stats.snapshot()["counters"]
+    del df
+    return {"rows": rows, "s": wall, "calls": dict(calls),
+            "launches": {"k1": ss.LAUNCHES, "k2": fes.LAUNCHES, "scatter": scs.LAUNCHES,
+                         "probes": c.get("device_join_probes", 0)},
+            "counters": {k: c.get(k, 0) for k in ADAPT_COUNTERS if c.get(k, 0)}}
+
+
+def phase_adapt(ph: Phases, tables: dict, q3_oracle: tuple, card: str) -> dict:
+    """Phase 11: planning for repeated queries on the card, in the 32-bit
+    mode with the default knobs (the plan cache, feedback-directed planning
+    and the whole-plan result cache on) but the plan cache's cap
+    (ADAPT_CACHE_BYTES), over phase 7's SF1 tables with lineitem, orders and
+    customer in 4 partitions. (a0) Q6 twice under the default cap: no hit,
+    its frames are beyond the cap. (a) composed Q1, deep Q1 (K2), Q6 and
+    hash-join Q3 (broadcast threshold 0): cold, 3 warm runs with the plan
+    cache on, 3 with it off; the last warm run is a hit with no optimize,
+    translate or compile call, its rows byte-identical to the run that
+    planned its binding and its K1, K2, scatter and probe launches equal;
+    Q6 with another discount range shares the entry as a second binding.
+    (b) float sums by l_suppkey over lineitem in 8 partitions: the second
+    run resizes the exchange to k partitions, each reduced partition
+    aggregated on the card. (c) lineitem joined with the orders of January
+    1992, then a grouped sum: the second run flips to a broadcast join
+    (probes through K7), the third is a plan hit. (d) the same shape keeping
+    85 % of orders: the flip mispredicts, the shape's plans are demoted, the
+    next run joins by hash. (e) (c) under enable_aqe. (f) the
+    plancache.lookup fault armed always. (g) the card's allocated bytes with
+    the frames dropped and their plans cached, then after the cache is
+    cleared. Every run's rows are held against a pyarrow oracle."""
+    import gc
+
+    import torch
+
+    import daft_tpu_torch as dtt
+    from benchmarks import tpch
+    from daft_tpu_torch import faults
+    from daft_tpu_torch.adapt import HISTORY, PLAN_CACHE
+    from daft_tpu_torch.adapt.fingerprint import canonical_site_fp
+    from daft_tpu_torch.logical import Join
+    from daft_tpu_torch.optimizer import optimize
+
+    t0 = time.perf_counter()
+    PLAN_CACHE.clear()
+    HISTORY.clear()
+    li, orders = tables["lineitem"], tables["orders"]
+    frames = {k: dtt.from_arrow(tables[k]).into_partitions(ADAPT_PARTS).collect()
+              for k in ("lineitem", "orders", "customer")}
+    L, O, C = frames["lineitem"], frames["orders"], frames["customer"]
+    L8 = dtt.from_arrow(li).into_partitions(ADAPT_FANOUT_PARTS).collect()
+    want = {"q1": tpch.oracle_q1(li), "q6": oracle_q6_discounts(li, 0.05, 0.07),
+            "q6_other": oracle_q6_discounts(li, 0.02, 0.04),
+            "suppkey": oracle_suppkey_agg(li),
+            "flip": oracle_flip(li, orders, ADAPT_FLIP_DATE),
+            "mispredict": oracle_flip(li, orders, ADAPT_MISPREDICT_DATE)}
+    q3_want, q3_groups = q3_oracle
+    print(f"SF1 adapt: frames and oracles in {time.perf_counter() - t0:.1f}s", flush=True)
+    out = {"k1_launches": 0, "k2_launches": 0, "scatter_launches": 0, "card": card}
+
+    def run(build) -> dict:
+        r = adapt_run(build)
+        for k in ("k1", "k2", "scatter"):
+            out[f"{k}_launches"] += r["launches"][k]
+        return r
+
+    def holds(r, name) -> bool:
+        got = r["rows"].to_pydict()
+        if name == "q3":
+            return q3_parity(got, q3_want, q3_groups, RTOL)
+        return parity(got, want[name], RTOL)
+
+    def line(label, res) -> None:
+        print(f"SF1 adapt {label} " + json.dumps(res), flush=True)
+
+    def cfg(**kw):
+        return dtt.ExecutionConfig(plan_cache_bytes=ADAPT_CACHE_BYTES, **kw)
+
+    def brief(r) -> dict:
+        return {"s": r["s"], "counters": r["counters"], "launches": r["launches"]}
+
+    # (a0) the default cap: a plan over SF1 lineitem is never cached
+    dtt.set_execution_config(dtt.ExecutionConfig())
+    runs = [run(lambda: q6_discounts(L, 0.05, 0.07)) for _ in range(2)]
+    pinned = sum(p.size_bytes() or 0 for p in L._result.partitions)
+    ph.check(runs[1]["counters"].get("plan_cache_hits", 0) == 0
+             and runs[1]["counters"].get("plan_cache_misses", 0) == 1
+             and pinned > dtt.ExecutionConfig().plan_cache_bytes,
+             f"SF1 adapt (a0): under the default cap a second Q6 plans again "
+             f"({runs[1]['counters']}): its frame pins {pinned} arrow bytes > "
+             f"{dtt.ExecutionConfig().plan_cache_bytes}")
+
+    # (a) the warm path
+    cases = {"q1": (lambda: q1(L), {}, "q1"),
+             "q1_deep": (lambda: q1(L), {"use_deep_fusion_kernel": True}, "q1"),
+             "q6": (lambda: q6_discounts(L, 0.05, 0.07), {}, "q6"),
+             "q3_hash_joins": (lambda: q3(C, O, L), {"broadcast_join_size_bytes_threshold": 0},
+                               "q3")}
+    q6_rows = None
+    for name, (build, over, oracle) in cases.items():
+        dtt.set_execution_config(cfg(**over))
+        on = [run(build) for _ in range(1 + ADAPT_WARM)]
+        dtt.set_execution_config(cfg(plan_cache=False, **over))
+        off = [run(build) for _ in range(ADAPT_WARM)]
+        label = f"(a) {name}"
+        ph.check(all(holds(r, oracle) for r in on + off),
+                 f"SF1 adapt {label}: all {len(on) + len(off)} runs match the pyarrow oracle "
+                 f"at rtol {RTOL}")
+        hit = on[-1]
+        planned = [r for r in on[:-1] if r["counters"].get("plan_cache_misses")][-1]
+        ph.check(hit["counters"].get("plan_cache_hits") == 1
+                 and not any(hit["calls"].values()),
+                 f"SF1 adapt {label}: the last warm run hits with no planning call "
+                 f"({hit['calls']})")
+        ph.check(hit["rows"].equals(planned["rows"]) and hit["launches"] == planned["launches"],
+                 f"SF1 adapt {label}: the hit's rows byte-identical to the run that planned "
+                 f"its binding (run {on.index(planned)}), launches {hit['launches']} equal "
+                 f"to its {planned['launches']}")
+        ph.check(all(not r["counters"].get("plan_cache_hits") for r in off),
+                 f"SF1 adapt {label}: plan_cache off plans every run")
+        if name == "q6":
+            q6_rows = on[0]["rows"]
+        line(label, {"cold_s": on[0]["s"], "warm_s": [r["s"] for r in on[1:]],
+                     "warm_cache_off_s": [r["s"] for r in off],
+                     "planning_wall_ns_cold": on[0]["counters"].get("planning_wall_ns", 0),
+                     "planning_wall_ns_hit": hit["counters"].get("planning_wall_ns", 0),
+                     "planning_wall_ns_off": [r["counters"].get("planning_wall_ns", 0)
+                                              for r in off],
+                     "compile_wall_ns_cold": on[0]["counters"].get("compile_wall_ns", 0),
+                     "planned_by_run": on.index(planned),
+                     "runs": [brief(r) for r in on], "card": card})
+    # a second binding of Q6's entry
+    dtt.set_execution_config(cfg())
+    before = PLAN_CACHE.snapshot()
+    r = run(lambda: q6_discounts(L, 0.02, 0.04))
+    after = PLAN_CACHE.snapshot()
+    ph.check(holds(r, "q6_other") and r["counters"].get("plan_cache_misses") == 1
+             and after["entries"] == before["entries"]
+             and after["bindings"] == before["bindings"] + 1,
+             f"SF1 adapt (a) q6 discounts 0.02-0.04: a second binding of Q6's entry "
+             f"(entries {before['entries']} -> {after['entries']}, bindings "
+             f"{before['bindings']} -> {after['bindings']}), rows equal to its oracle")
+
+    # (b) the fan-out resize
+    runs = [run(lambda: suppkey_agg(L8)) for _ in range(2)]
+    cold, resized = (r["counters"] for r in runs)
+    k = ADAPT_FANOUT_PARTS - resized.get("fdo_reduced_partitions", 0)
+    ph.check(all(holds(r, "suppkey") for r in runs)
+             and not cold.get("fdo_shuffle_resizes") and resized.get("fdo_shuffle_resizes") == 1
+             and resized.get("device_aggregations") == ADAPT_FANOUT_PARTS + k
+             and not resized.get("host_aggregations"),
+             f"SF1 adapt (b) by l_suppkey over {ADAPT_FANOUT_PARTS} partitions: the second run "
+             f"resizes the exchange to {k} partitions, each aggregated on the card "
+             f"(device_aggregations {resized.get('device_aggregations')}), rows equal")
+    line("(b) resize", {"k": k, "runs": [brief(r) for r in runs], "card": card})
+
+    # (c) the join flip
+    def flip(before=ADAPT_FLIP_DATE):
+        return flip_query(L, O, before)
+
+    join = [p for p in _walk(optimize(flip()._plan)) if isinstance(p, Join)][0]
+    site, static = canonical_site_fp(join.right), join.right.approx_size_bytes()
+    del join  # it holds the frames' partitions, which (g) counts
+    threshold = dtt.ExecutionConfig().broadcast_join_size_bytes_threshold
+    runs = [run(flip)]
+    observed = (HISTORY.size(site) or (0, 0, 0))[1]
+    runs += [run(flip), run(flip)]
+    c1, c2, c3 = (r["counters"] for r in runs)
+    ph.check(2 * observed < threshold < static,
+             f"SF1 adapt (c): the side's observed bytes {observed} (twice: {2 * observed}) < "
+             f"threshold {threshold} < its static estimate {static}")
+    ph.check(all(holds(r, "flip") for r in runs) and not c1.get("broadcast_joins")
+             and c2.get("fdo_join_flips") == 1 and c2.get("broadcast_joins", 0) >= 1
+             and c2.get("device_join_probes", 0) >= 1
+             and c3.get("plan_cache_hits") == 1 and c3.get("broadcast_joins", 0) >= 1,
+             f"SF1 adapt (c): cold hash join, the second run flips to broadcast with "
+             f"{c2.get('device_join_probes')} probes on the card, the third hits the flipped "
+             f"plan; rows equal")
+    line("(c) flip", {"observed_bytes": observed, "threshold": threshold,
+                      "static_bytes": static, "runs": [brief(r) for r in runs], "card": card})
+    flip_rows = runs[0]["rows"].to_pydict()
+
+    # (d) the mispredict
+    demotions = PLAN_CACHE.snapshot()["demotions"]
+    runs = [run(lambda: flip(ADAPT_MISPREDICT_DATE)) for _ in range(2)]
+    d1, d2 = (r["counters"] for r in runs)
+    demoted = PLAN_CACHE.snapshot()["demotions"]
+    ph.check(all(holds(r, "mispredict") for r in runs) and d1.get("fdo_join_flips") == 1
+             and d1.get("fdo_mispredicts", 0) >= 1 and demoted > demotions
+             and not d2.get("fdo_join_flips") and not d2.get("broadcast_joins"),
+             f"SF1 adapt (d): the flip mispredicts ({d1.get('fdo_mispredicts')}), demotions "
+             f"{demotions} -> {demoted}, the next run joins by hash; rows equal")
+    line("(d) mispredict", {"runs": [brief(r) for r in runs], "card": card})
+
+    # (e) adaptive execution
+    dtt.set_execution_config(cfg(enable_aqe=True))
+    r = run(flip)
+    c = r["counters"]
+    ph.check(c.get("aqe_stages", 0) >= 1 and c.get("broadcast_joins", 0) >= 1
+             and parity(r["rows"].to_pydict(), flip_rows, RTOL),
+             f"SF1 adapt (e) enable_aqe: {c.get('aqe_stages')} stage(s), a broadcast join, "
+             f"rows equal to the static plan's")
+    line("(e) aqe", brief(r))
+
+    # (f) the lookup fault (it counts faults_injected: no health check)
+    ph.begin(None)
+    dtt.set_execution_config(cfg())
+    with faults.inject("plancache.lookup", "always"):
+        r = run(lambda: q6_discounts(L, 0.05, 0.07))
+    ph.check(r["rows"].equals(q6_rows) and r["counters"].get("plan_cache_errors", 0) >= 1,
+             f"SF1 adapt (f) plancache.lookup armed always: rows equal, plan_cache_errors "
+             f"{r['counters'].get('plan_cache_errors')}")
+
+    # (g) the device memory a cached plan pins
+    torch.cuda.synchronize()
+    with_frames = torch.cuda.memory_allocated()
+    del L, O, C, L8, frames
+    gc.collect()
+    cached = torch.cuda.memory_allocated()
+    snap = PLAN_CACHE.snapshot()
+    PLAN_CACHE.clear()
+    gc.collect()
+    cleared = torch.cuda.memory_allocated()
+    ph.check(cleared <= cached,
+             f"SF1 adapt (g): allocated on the card {with_frames} B with the frames, {cached} B "
+             f"with them dropped and their {snap['bindings']} plans cached "
+             f"({snap['bytes']} B in the cache's estimate), {cleared} B after the cache is "
+             f"cleared")
+    out["memory"] = {"with_frames": with_frames, "frames_dropped_plans_cached": cached,
+                     "cache_cleared": cleared, "plan_cache_estimate": snap["bytes"],
+                     "bindings": snap["bindings"]}
+    line("(g) memory", out["memory"])
+    HISTORY.clear()
+    dtt.set_execution_config(dtt.ExecutionConfig())
+    torch.cuda.empty_cache()
+    print(f"SF1 adapt: phase 11 in {time.perf_counter() - t0:.1f}s", flush=True)
+    return out
+
+
+def _walk(p):
+    yield p
+    for c in p.children():
+        yield from _walk(c)
 
 
 def ab_times(tree: str, runs: int = 15) -> dict:
@@ -3705,7 +4128,10 @@ def ab_times(tree: str, runs: int = 15) -> dict:
     queries = {"q1": (q1, one), "q6": (q6, one), "q1_4_parts": (q1, four),
                "q6_4_parts": (q6, four),
                "q3": (lambda t: q3(t["customer"], t["orders"], t["lineitem"]), t3)}
-    dtt.set_execution_config(dtt.ExecutionConfig())
+    # the pins of phases 1-10 (PLAN_PINS), where the tree has those knobs
+    fields = {f.name for f in dataclasses.fields(dtt.ExecutionConfig)}
+    dtt.set_execution_config(dtt.ExecutionConfig(
+        **{k: v for k, v in PLAN_PINS.items() if k in fields}))
     out = {"tree": tree, "card": card_line(), "torch": torch.__version__}
     for name, (query, frame) in queries.items():
         query(frame).collect().to_pydict()  # cold
@@ -3847,7 +4273,7 @@ def main(argv=None) -> int:
             lanes = phase_lanes(ph, data, card)
             print(f"elapsed {time.perf_counter() - started:.1f}s: phase 6", flush=True)
             ph.begin("phase 6")
-            faults_out = relational = spill = None
+            faults_out = relational = spill = adapt = None
             if 1.0 in scales:  # phase 6, the 64-bit device mode
                 scatter32 = {qn: t22[f"q{qn}"]["launches"]["scatter"] for qn in queries.QUERIES}
                 x64 = phase_x64(ph, sf1_lineitem, join_tables, queries, data,
@@ -3866,11 +4292,15 @@ def main(argv=None) -> int:
                 print(f"elapsed {time.perf_counter() - started:.1f}s: phase 10", flush=True)
                 ph.begin("phase 10")
                 spill = phase_spill(ph, join_tables, card)
+                print(f"elapsed {time.perf_counter() - started:.1f}s: phase 11", flush=True)
+                ph.begin("phase 11")
+                adapt = phase_adapt(ph, join_tables, q3_oracle_sf1, card)
                 del join_tables
             del data, sf1_lineitem
             phase_outs = [("tpch22", t22), ("lanes", lanes)] + [
                 (f"exchange_sf{sc:g}", ex) for sc, ex in exchange.items()] + (
-                [("faults", faults_out), ("relational", relational), ("spill", spill)]
+                [("faults", faults_out), ("relational", relational), ("spill", spill),
+                 ("adapt", adapt)]
                 if faults_out is not None else [])
             for name, ph_out in phase_outs:
                 k1_entry[f"launches_{name}"] = ph_out["k1_launches"]

@@ -6,11 +6,16 @@ is on and ``device`` is ``"cuda"``. A caller that wants the CPU says so with
 ``device="cpu"`` (the tests do); asking for ``cuda`` where there is none
 raises instead of running on the CPU.
 
-Left out of this slice: the planning config (beyond expression fusion,
-device residency, the broadcast-join threshold, the exchange's knobs, the
-query deadline, the device breaker, and the memory budget with its spill and
-integrity knobs), the scan and serving knobs and runner selection (the port
-has one runner, NativeRunner).
+The planning knobs take the reference's defaults: the plan cache
+(``plan_cache``, capped at ``plan_cache_bytes``), feedback-directed planning
+(``history_fdo``) and the whole-plan result cache of ``collect``
+(``enable_result_cache``) are on; adaptive execution (``enable_aqe``, with
+``shuffle_target_partition_bytes``) is off.
+
+Left out of this slice: the rest of the planning config (the sub-plan result
+cache, morsels, streaming, batching and the artifact directory), the scan
+and serving knobs and runner selection (the port has one runner,
+NativeRunner).
 """
 
 from __future__ import annotations
@@ -98,6 +103,26 @@ class ExecutionConfig:
     # when its file is corrupt or missing; the recipes a query keeps
     lineage_recomputation: bool = True
     lineage_log_depth: int = 4096
+    # adaptive execution (adaptive.py): run the stages under joins first and
+    # plan the rest from their real sizes
+    enable_aqe: bool = False
+    # the bytes one exchange partition should hold: adaptive execution
+    # shrinks a repartition of a known size, and feedback-directed planning
+    # an aggregate's exchange, to ceil(bytes / this) partitions
+    shuffle_target_partition_bytes: int = 64 * 1024 * 1024
+    # DataFrame.collect serves a plan it has materialized for a DataFrame
+    # that is still alive (runners.PartitionSetCache)
+    enable_result_cache: bool = True
+    # the plan cache (adapt/plancache.py): a repeated query shape reuses its
+    # optimized and translated plan, skipping optimize, translate and the
+    # fuse and segment compiles ...
+    plan_cache: bool = True
+    # ... up to this many bytes of plans and the partitions they pin
+    plan_cache_bytes: int = 64 * 1024 * 1024
+    # feedback-directed planning (adapt/fdo.py): the sizes recorded for a
+    # repeated shape flip a join to broadcast and shrink an aggregate's
+    # exchange
+    history_fdo: bool = True
 
 
 # daft_tpu ExecutionConfig field (or "jax_enable_x64") -> port field
@@ -122,6 +147,12 @@ _FROM_REFERENCE = {
     "partition_integrity": "partition_integrity",
     "lineage_recomputation": "lineage_recomputation",
     "lineage_log_depth": "lineage_log_depth",
+    "enable_aqe": "enable_aqe",
+    "shuffle_target_partition_bytes": "shuffle_target_partition_bytes",
+    "enable_result_cache": "enable_result_cache",
+    "plan_cache": "plan_cache",
+    "plan_cache_bytes": "plan_cache_bytes",
+    "history_fdo": "history_fdo",
     "jax_enable_x64": "device_x64",
 }
 

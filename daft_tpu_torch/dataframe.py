@@ -8,7 +8,7 @@ sort-merge strategies), concat, limit/head, distinct/unique, sample,
 repartition, into_partitions, explode, unpivot/melt, pivot,
 with_monotonically_increasing_id, collect, to_pydict, to_arrow, explain and
 the per-query ``stats``. Left out of this slice: scans and writers, SQL
-predicates, profiling, the result cache and the integrations.
+predicates, profiling and the integrations.
 """
 
 from __future__ import annotations
@@ -246,10 +246,38 @@ class DataFrame:
         return self.count_rows()
 
     def collect(self) -> "DataFrame":
-        """Materialize the plan; ``stats`` then holds the query's counters."""
+        """Materialize the plan; ``stats`` then holds the query's counters.
+
+        Under ``enable_result_cache`` a plan whose structural key
+        (``runners.plan_cache_key``) another live DataFrame has collected
+        under the same config is served from that result
+        (``result_cache_hits``); the entry goes when the last DataFrame that
+        owns it goes. The reference keys on the plan alone; the port's
+        config holds the device and the 32- or 64-bit mode, whose results
+        differ, so its key holds the config too."""
         if self._result is not None:
             return self
-        self._result = get_context().runner().run(self._plan, stats=self.stats)
+        from .runners import partition_set_cache, plan_cache_key
+
+        cache = partition_set_cache()
+        cfg = get_context().execution_config
+        key = plan_cache_key(self._plan) if cfg.enable_result_cache else None
+        if key is not None:
+            from .adapt.plancache import _cfg_key
+
+            key += "|" + _cfg_key(cfg)
+        hit = cache.get(key) if key is not None else None
+        if hit is not None:
+            self.stats.bump("result_cache_hits")
+            self._result = hit
+        else:
+            self._result = get_context().runner().run(self._plan, stats=self.stats)
+            if key is not None:
+                import weakref
+
+                cache.put(key, self._result)
+                # the entry lives exactly as long as some DataFrame owns it
+                weakref.finalize(self, cache.release, key)
         self._plan = InMemorySource(self._result.schema, self._result.partitions)
         return self
 

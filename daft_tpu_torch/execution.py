@@ -53,8 +53,9 @@ stream ends, is closed early (a limit, an abandoned join) or raises,
 every buffer and removes the spill directory, so the ledger reads 0 again.
 
 Left out of this slice: the profiler and the breaker's log lines and
-events, cancellation, the worker pool of parallel maps, streaming, the
-mesh hook ``prepare_broadcast``, the mesh breaker and resource accounting.
+events, the query log and its records, cancellation, the worker pool of
+parallel maps, streaming, the mesh hook ``prepare_broadcast``, the mesh
+breaker and resource accounting.
 """
 
 from __future__ import annotations
@@ -67,7 +68,7 @@ import torch
 
 from . import faults
 from .context import ExecutionConfig
-from .errors import DaftStagingError, DaftTimeoutError
+from .errors import PORT_FAILURES, DaftStagingError, DaftTimeoutError
 from .micropartition import MicroPartition
 from .physical import PhysicalOp
 
@@ -83,10 +84,33 @@ class RuntimeStats:
         self.counters: Dict[str, int] = {}
         self.op_rows: Dict[str, int] = {}
         self.op_wall_ns: Dict[str, int] = {}
+        # feedback observations (adapt/): canonical subtree fingerprint ->
+        # [rows, bytes] accumulated by the tagged exchanges and joins, folded
+        # into the process history when the query ends
+        self.fdo_obs: Dict[str, list] = {}
 
     def bump(self, key: str, n: int = 1) -> None:
         with self._lock:
             self.counters[key] = self.counters.get(key, 0) + n
+
+    def fdo_observe(self, site_fp: str, rows: int, nbytes: int) -> None:
+        """Accumulate one site observation: what flowed through a tagged
+        plan subtree in this query."""
+        with self._lock:
+            cur = self.fdo_obs.get(site_fp)
+            if cur is None:
+                self.fdo_obs[site_fp] = [rows, nbytes]
+            else:
+                cur[0] += rows
+                cur[1] += nbytes
+
+    def take_fdo_obs(self) -> Dict[str, tuple]:
+        """Drain the accumulated observations (the history folds them once
+        per execution)."""
+        with self._lock:
+            out = {k: (v[0], v[1]) for k, v in self.fdo_obs.items()}
+            self.fdo_obs.clear()
+        return out
 
     def bump_max(self, key: str, n: int) -> None:
         """High-water counter: the stored value only ratchets up to ``n``."""
@@ -258,6 +282,9 @@ class ExecutionContext:
         self._spill_scope = None
         self._lineage = None
         self._buffers: List = []
+        # the plan's canonical fingerprint (execute_plan stamps it): the key
+        # a broadcast mispredict demotes the plan cache's entries under
+        self.canonical_fp = ""
 
     def check_deadline(self) -> None:
         """Raise DaftTimeoutError, carrying the stats so far, once the
@@ -782,8 +809,10 @@ def execute_plan(root: PhysicalOp, ctx: ExecutionContext) -> Iterator[MicroParti
     """Wire up the generator tree and return the root partition stream. Every
     op is wrapped with per-partition accounting (rows and wall time). When
     the stream ends, is closed early or raises, the tree is closed, the
-    readahead pool shut down and the query's buffers and spill directory
-    released (``finish_query``)."""
+    readahead pool shut down, the query's buffers and spill directory
+    released (``finish_query``) and, under ``history_fdo``, the query's
+    feedback observations folded into the history (``_rooted``)."""
+    ctx.canonical_fp = getattr(root, "_canonical_fp", "")
 
     def build(op: PhysicalOp) -> Iterator[MicroPartition]:
         return _traced(op, op.execute([build(c) for c in op.children], ctx), ctx)
@@ -793,9 +822,25 @@ def execute_plan(root: PhysicalOp, ctx: ExecutionContext) -> Iterator[MicroParti
 
 def _rooted(stream: Iterator[MicroPartition],
             ctx: ExecutionContext) -> Iterator[MicroPartition]:
+    """The root stream with its teardown. The outcome is recorded as the
+    reference records it: ``ok``, ``abandoned`` when the consumer closed the
+    stream early, or the error's (``timeout`` for a deadline). Only an
+    ``ok`` run's observations reach the history (``HISTORY.fold``, the
+    fallback record of the reference's completion hook: the port has no
+    query log yet)."""
+    t0 = time.perf_counter_ns()
+    outcome = "ok"
     it = iter(stream)
     try:
         yield from it
+    except GeneratorExit:
+        # the consumer closed the stream early (a limit, an abandoned
+        # iterator): not a failure, but the plan never finished
+        outcome = "abandoned"
+        raise
+    except BaseException as e:
+        outcome = "timeout" if isinstance(e, DaftTimeoutError) else "error"
+        raise
     finally:
         try:
             # close the tree before the pool goes: an op suspended at a
@@ -806,6 +851,19 @@ def _rooted(stream: Iterator[MicroPartition],
         finally:
             ctx.shutdown_pool()
             ctx.finish_query()
+            if ctx.cfg.history_fdo:
+                # a defect of the history never fails the query (the
+                # reference logs it; the port's log lines come with obs/)
+                try:
+                    from .adapt.history import HISTORY
+
+                    HISTORY.fold(ctx.canonical_fp, ctx.stats, {
+                        "outcome": outcome, "wall_s": (time.perf_counter_ns() - t0) / 1e9,
+                        "counters": ctx.stats.snapshot()["counters"]})
+                except PORT_FAILURES:
+                    raise
+                except Exception:
+                    pass
 
 
 def _traced(op: PhysicalOp, stream: Iterator[MicroPartition],

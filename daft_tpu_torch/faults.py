@@ -56,6 +56,9 @@ SITES = {
                      "recompute)",
     "exchange.encode": "each exchange-payload encode attempt (exchange/encode.py; "
                        "a failure ships the piece raw, never a query failure)",
+    "plancache.lookup": "each plan-cache consult (adapt/plancache.py; a failure "
+                        "degrades to uncached planning: the warm path fails open, "
+                        "never a query failure)",
 }
 
 

@@ -133,8 +133,14 @@ class InMemorySource(LogicalPlan):
     Reference: logical_ops/source.rs InMemoryInfo."""
 
     def __init__(self, schema: Schema, partitions: List[Any]):
+        import uuid
+
         self.schema = schema
         self.partitions = partitions
+        # the data's identity for the plan and result caches and the site
+        # keys of feedback-directed planning: a uuid is never reused, where
+        # an id() is after garbage collection
+        self._cache_token = uuid.uuid4().hex
 
     def with_children(self, children):
         assert not children

@@ -54,13 +54,20 @@ and buckets. Under ``memory_budget_bytes`` they spill past the budget and
 read back lazily, and the shuffle dictionary-encodes its pieces
 (exchange/encode.py).
 
-Left out of this slice: scans; the shuffle's mesh and peer-to-peer legs,
-its pieces' lineage recipes (they engage only over scan-backed sources)
-and the feedback-directed fan-out resize, each of which the reference keeps
-byte-identical when off; the morsel split of
-in-memory sources, which the reference skips on the device path; the
-mesh exchange of the sort-merge join, feedback-directed join planning, the
-write op, the worker pool, streaming and batched UDFs.
+Feedback-directed planning (adapt/fdo.py) hooks into translation inside
+``plan_query``'s collecting scope: a hash join's exchanges and a grouped
+two-stage aggregate's exchange carry ``fdo_obs_key`` and record what
+crossed them; ``_translate_join`` flips a join whose side history calls
+small to a BroadcastJoinOp (with a mispredict guard), and
+``_translate_aggregate`` shrinks an aggregate's exchange to ``reduce_to``
+partitions, merging adjacent hash buckets at the reduce side.
+
+Left out of this slice: scans; the shuffle's mesh and peer-to-peer legs and
+its pieces' lineage recipes (they engage only over scan-backed sources),
+each of which the reference keeps byte-identical when off; the morsel split
+of in-memory sources, which the reference skips on the device path; the
+mesh exchange of the sort-merge join, the write op, the worker pool,
+streaming and batched UDFs.
 
 A sort-merge join (``SortMergeJoinOp``) samples both sides' keys as they
 stream in, range-splits both by the same boundaries and sorts and joins
@@ -522,6 +529,15 @@ class ShuffleOp(PhysicalOp):
     filter_feed = None    # JoinFilterSlot this build-side exchange populates
     probe_filter = None   # JoinFilterSlot whose sealed filter prunes here
     combine = None        # (stage2_aggs, key_cols) of the pre-exchange fold
+    # the site key (adapt/fdo.py) the rows and bytes that crossed this
+    # exchange are recorded under once its input has drained: the history
+    # the next plan of the shape reads
+    fdo_obs_key = None
+    # the fan-out resize (adapt/fdo.py): emit this many partitions by merging
+    # adjacent buckets at the reduce side. Hashing stays modulo ``num``, so
+    # the groups' placement, the combine's folds and the rows' order equal
+    # the unresized exchange's; only the partition count shrinks
+    reduce_to = None
 
     def __init__(self, child: PhysicalOp, scheme: str, num: int,
                  by: Optional[List[Expression]] = None,
@@ -529,6 +545,7 @@ class ShuffleOp(PhysicalOp):
                  nulls_first: Optional[List[Optional[bool]]] = None):
         super().__init__([child], child.schema, num)
         self.scheme = scheme
+        self.num = num
         self.by = by or []
         self.descending = descending or [False] * len(self.by)
         self.nulls_first = nulls_first if nulls_first is not None else [None] * len(self.by)
@@ -567,23 +584,36 @@ class ShuffleOp(PhysicalOp):
         if slot.filter() is not None:
             ctx.stats.bump("join_filter_built")
 
-    def _prune_stream(self, stream, ctx) -> PartStream:
+    def _prune_stream(self, stream, ctx, obs=None) -> PartStream:
         """Probe-side pass-through: each partition pruned by the sealed
-        build-side filter before it is bucketed (no filter: untouched)."""
+        build-side filter before it is bucketed (no filter: untouched).
+
+        ``obs`` is the exchange's feedback accumulator: the rows and bytes
+        the prune removed are added back there, so that the side is recorded
+        at its true size (a broadcast flip seeded from the pruned bytes
+        would materialize the side unpruned and mispredict)."""
         from .exchange.joinfilter import prune_partition
 
         slot = self.probe_filter
         for p in stream:
             jf = slot.filter()
-            yield p if jf is None else prune_partition(p, jf, self.by, ctx)
+            if jf is None:
+                yield p
+                continue
+            out = prune_partition(p, jf, self.by, ctx)
+            if obs is not None and p.is_loaded():
+                obs[0] += max(0, (p.num_rows_or_none() or 0) - (out.num_rows_or_none() or 0))
+                obs[1] += max(0, (p.size_bytes() or 0) - (out.size_bytes() or 0))
+            yield out
 
     def execute(self, inputs, ctx) -> PartStream:
-        n = self.num_partitions
+        n = self.num
         src = inputs[0]
+        fdo_obs = [0, 0] if self.fdo_obs_key is not None else None
         if self.filter_feed is not None:
             src = self._feed_filter(src, ctx)
         if self.probe_filter is not None and ctx.cfg.runtime_join_filters:
-            src = self._prune_stream(src, ctx)
+            src = self._prune_stream(src, ctx, obs=fdo_obs)
         # partition_buffer() checks the deadline: a pipeline breaker first
         # proves the query still has time
         buckets = [ctx.partition_buffer() for _ in range(n)]
@@ -600,6 +630,9 @@ class ShuffleOp(PhysicalOp):
         def exchange_append(i: int, piece: MicroPartition) -> None:
             # counted on the raw piece, after the prune and the fold
             _count_exchanged(piece, ctx)
+            if fdo_obs is not None:
+                fdo_obs[0] += piece.num_rows_or_none() or 0
+                fdo_obs[1] += piece.size_bytes() or 0
             if encode:
                 piece = self._encoded(piece, ctx)
             buckets[i].append(piece)
@@ -642,17 +675,32 @@ class ShuffleOp(PhysicalOp):
             if comb is not None:
                 for b, part in comb.finish():
                     exchange_append(b, part)
+        if fdo_obs is not None and saw:
+            # recorded only once the input has drained: a teardown half way
+            # through the fan-out never reaches here
+            ctx.stats.fdo_observe(self.fdo_obs_key, fdo_obs[0], fdo_obs[1])
         if not saw:
             return
         ctx.stats.bump("shuffles")
-        for i in range(n):
-            if i + 1 < n:
-                # bucket i+1's spilled pieces read back while bucket i merges
-                buckets[i + 1].preload()
-            # concat loads every spilled or encoded piece of the bucket
-            yield (MicroPartition.concat(buckets[i].parts()) if len(buckets[i])
-                   else MicroPartition.empty(self.schema))
-            buckets[i].release()
+        k = self.reduce_to if self.reduce_to is not None and 0 < self.reduce_to < n else None
+        # bucket i goes to output i * k // n: adjacent buckets merge, in
+        # bucket order (the rows and their order equal the unresized
+        # exchange's outputs concatenated)
+        groups = [[i] for i in range(n)] if k is None else [[] for _ in range(k)]
+        if k is not None:
+            for i in range(n):
+                groups[i * k // n].append(i)
+            ctx.stats.bump("fdo_reduced_partitions", n - k)
+        for g, idxs in enumerate(groups):
+            if g + 1 < len(groups):
+                # the next group's spilled pieces read back while this one merges
+                for j in groups[g + 1]:
+                    buckets[j].preload()
+            # concat loads every spilled or encoded piece of the group
+            parts = [q for i in idxs if len(buckets[i]) for q in buckets[i].parts()]
+            yield MicroPartition.concat(parts) if parts else MicroPartition.empty(self.schema)
+            for i in idxs:
+                buckets[i].release()
 
     @staticmethod
     def _encoded(piece: MicroPartition, ctx) -> MicroPartition:
@@ -689,9 +737,10 @@ class ShuffleOp(PhysicalOp):
             tags.append("join-filter-probe")
         if self.combine is not None:
             tags.append("combine")
+        if self.reduce_to is not None:
+            tags.append(f"fdo-reduce {self.reduce_to}")
         tag = f" <{'+'.join(tags)}>" if tags else ""
-        return (f"Shuffle[{self.scheme}] -> {self.num_partitions}" + (f" by [{by}]" if by else "")
-                + tag)
+        return f"Shuffle[{self.scheme}] -> {self.num}" + (f" by [{by}]" if by else "") + tag
 
 
 def sample_partition_keys(p: MicroPartition, by: List[Expression], num: int,
@@ -842,6 +891,12 @@ class BroadcastJoinOp(PhysicalOp):
     """Collect the small side whole, stream the big side's partitions
     against it."""
 
+    # set by _translate_join when history (not a static estimate) chose the
+    # broadcast: the mispredict guard (site key, most bytes) and the site key
+    # that keeps the side's history current
+    fdo_guard = None
+    fdo_obs_key = None
+
     def __init__(self, big: PhysicalOp, small: PhysicalOp, big_on, small_on,
                  how: str, schema: Schema, small_is_left: bool, suffix: str = "right."):
         super().__init__([big, small], schema, big.num_partitions)
@@ -895,6 +950,18 @@ class BroadcastJoinOp(PhysicalOp):
         # pruned by its filter before the probe
         jf = self._build_small_filter(small, ctx)
         ctx.stats.bump("broadcast_joins")
+        small_bytes = small.size_bytes() or 0
+        if self.fdo_obs_key is not None:
+            # the side's history stays current while the broadcast plan
+            # serves: a grown side reverts the decision at the next plan
+            ctx.stats.fdo_observe(self.fdo_obs_key, len(small), small_bytes)
+        if self.fdo_guard is not None and small_bytes > self.fdo_guard[1]:
+            # history said broadcast and the side arrived big: the query
+            # completes on this plan (correct, only slower), and the shape's
+            # cached plans are demoted
+            from .adapt.fdo import note_broadcast_mispredict
+
+            note_broadcast_mispredict(self.fdo_guard, small_bytes, ctx, ctx.canonical_fp)
 
         def pairs():
             from .exchange.joinfilter import prune_partition
@@ -1036,7 +1103,11 @@ def translate(plan: LogicalPlan, cfg=None, stats=None) -> PhysicalOp:
     (``fuse_for_device``), then map-chain fusion (``fuse_map_chains``,
     behind ``cfg.expr_fusion``), then the plan-segment compiler
     (``compile_plan_segments``, behind ``cfg.use_device_kernels`` and
-    ``cfg.device_residency``). ``stats`` receives ``segment_compiles``."""
+    ``cfg.device_residency``). ``stats`` receives ``segment_compiles`` and
+    ``compile_wall_ns``, the compile share of planning that the plan
+    cache's warm path skips."""
+    import time
+
     if cfg is None:
         from .context import get_context
 
@@ -1045,13 +1116,19 @@ def translate(plan: LogicalPlan, cfg=None, stats=None) -> PhysicalOp:
     if cfg.expr_fusion:
         from .fuse import fuse_map_chains
 
+        t0 = time.perf_counter_ns()
         out = fuse_map_chains(out, cfg)
+        if stats is not None:
+            stats.bump("compile_wall_ns", time.perf_counter_ns() - t0)
     if cfg.use_device_kernels and cfg.device_residency:
         # last: the segment compiler consumes the Aggregate-over-FusedMap
         # trees the fuse passes built
         from .fuse import compile_plan_segments
 
+        t0 = time.perf_counter_ns()
         out = compile_plan_segments(out, cfg, stats)
+        if stats is not None:
+            stats.bump("compile_wall_ns", time.perf_counter_ns() - t0)
     return out
 
 
@@ -1214,7 +1291,18 @@ def _translate_aggregate(plan: Aggregate, cfg) -> PhysicalOp:
     p1 = AggregateOp(child, stage1, plan.groupby,
                      _stage_schema(plan.input.schema, stage1, plan.groupby))
     if plan.groupby:
+        from .adapt import fdo
+
         exchanged = ShuffleOp(p1, "hash", nparts, key_cols)
+        # the fan-out resize: a repeated shape's exchange emits only the
+        # partitions its recorded payload needs (hashing stays modulo nparts)
+        resized = fdo.agg_shuffle_fanout(plan, nparts)
+        if resized:
+            exchanged.reduce_to = resized
+            exchanged.num_partitions = resized
+        okey = fdo.agg_observation_key(plan)
+        if okey:
+            exchanged.fdo_obs_key = okey
         if cfg.hierarchical_exchange_combine:
             # fold the stage-1 pieces bound for one bucket through stage 2
             # before they are held (only schema-closed exact merges)
@@ -1250,23 +1338,43 @@ def _global_count_distinct_plan(plan: Aggregate, child: PhysicalOp,
 
 
 def _translate_join(plan: Join, cfg) -> PhysicalOp:
+    from .adapt import fdo
+
     left = _translate(plan.left, cfg)
     right = _translate(plan.right, cfg)
     if plan.how == "cross":
         return CrossJoinOp(left, right, plan.schema, plan.suffix)
-    strategy = plan.strategy or _choose_join_strategy(plan, cfg)
+    strategy = plan.strategy
+    fdo_side = None
+    if strategy is None:
+        # the feedback flip: a side whose recorded size sits well under the
+        # broadcast threshold flips the join on the first run of a repeated
+        # shape (live only inside plan_query's collecting scope)
+        fdo_side = fdo.join_strategy_hint(plan)
+        strategy = "broadcast" if fdo_side is not None else _choose_join_strategy(plan, cfg)
     if strategy == "broadcast" and plan.how == "outer":
         # an outer join preserves both sides: replaying the replicated side
         # per big-side partition would duplicate its unmatched rows
         strategy = "hash"
     if strategy == "broadcast":
-        lsize = plan.left.approx_size_bytes()
-        rsize = plan.right.approx_size_bytes()
-        if _broadcast_side(plan, lsize, rsize) == "left":
-            return BroadcastJoinOp(right, left, plan.right_on, plan.left_on, plan.how,
-                                   plan.schema, small_is_left=True, suffix=plan.suffix)
-        return BroadcastJoinOp(left, right, plan.left_on, plan.right_on, plan.how,
-                               plan.schema, small_is_left=False, suffix=plan.suffix)
+        if fdo_side is not None:
+            broadcast_left = fdo_side == "left"
+        else:
+            broadcast_left = _broadcast_side(plan, plan.left.approx_size_bytes(),
+                                             plan.right.approx_size_bytes()) == "left"
+        if broadcast_left:
+            op = BroadcastJoinOp(right, left, plan.right_on, plan.left_on, plan.how,
+                                 plan.schema, small_is_left=True, suffix=plan.suffix)
+        else:
+            op = BroadcastJoinOp(left, right, plan.left_on, plan.right_on, plan.how,
+                                 plan.schema, small_is_left=False, suffix=plan.suffix)
+        if fdo_side is not None:
+            # the runtime mispredict guard, and the observation that keeps
+            # the side's history current
+            op.fdo_guard = fdo.broadcast_guard(plan, fdo_side)
+            op.fdo_obs_key = fdo.observation_key(plan.left if fdo_side == "left"
+                                                 else plan.right)
+        return op
     if strategy == "sort_merge":
         return SortMergeJoinOp(left, right, plan.left_on, plan.right_on, plan.how,
                                plan.schema, plan.suffix)
@@ -1279,6 +1387,10 @@ def _translate_join(plan: Join, cfg) -> PhysicalOp:
 
         lshuf = ShuffleOp(left, "hash", nparts, plan.left_on)
         rshuf = ShuffleOp(right, "hash", nparts, plan.right_on)
+        # each side's exchange records the rows and bytes that crossed it,
+        # the history a later plan's broadcast flip reads
+        lshuf.fdo_obs_key = fdo.observation_key(plan.left)
+        rshuf.fdo_obs_key = fdo.observation_key(plan.right)
         if cfg.runtime_join_filters and prunable(plan.how, probe_is_right=True):
             slot = JoinFilterSlot(plan.left_on, plan.right_on, left.schema, right.schema,
                                   plan.how)

@@ -1,21 +1,32 @@
 """Runners: plan a query and execute it (the port's copy of the part of
 daft_tpu/runners.py this slice runs).
 
-Planning is the reference's cold path: ``optimize``, then ``translate``
-(which fuses). A query runs under one ExecutionContext, which holds the
-query's one DeviceHealth breaker and its one absolute deadline
-(``execution_timeout_s`` from the start of the run), shared by every
-operator: a dead card does not pay the failure threshold again per stage.
-Left out of this slice: the plan and result caches, feedback-directed
-planning, adaptive execution, and the mesh and distributed runners.
+Planning goes through ``plan_query`` (adapt/plancache.py): a repeated query
+shape is served from the plan cache; a cold one is optimized and
+translated (which fuses) with feedback-directed planning live. Under
+``enable_aqe`` the AdaptivePlanner (adaptive.py) runs the stages under
+joins first and plans the rest from their real sizes.
+
+A query runs under one DeviceHealth breaker and one absolute deadline
+(``execution_timeout_s`` from the start of the run), built once in
+``run_iter`` and handed to every ExecutionContext of the query, each
+adaptive stage's among them: a dead card does not pay the failure
+threshold again per stage, and the stages share one time budget.
+
+``plan_cache_key`` is the exact structural key of a plan: the plan
+cache's binding and the key of ``DataFrame.collect``'s whole-plan result
+cache (``PartitionSetCache``). Left out of this slice: the scan and
+factory branches of the key, and the mesh and distributed runners.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, List, Optional
+import threading
+import time
+from typing import Dict, Iterator, List, Optional
 
 from .context import get_context
-from .execution import ExecutionContext, RuntimeStats, execute_plan
+from .execution import DeviceHealth, ExecutionContext, RuntimeStats, execute_plan
 from .logical import LogicalPlan
 from .micropartition import MicroPartition
 from .schema import Schema
@@ -42,8 +53,107 @@ class PartitionSet:
         return self.to_micropartition().table().cast_to_schema(self.schema)
 
 
+class PartitionSetCache:
+    """Process-wide cache of materialized results keyed by an entry id, with
+    explicit refcounts: it keeps ``collect()`` results alive so that a later
+    collect of the same plan reuses them instead of executing again."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._entries: Dict[str, PartitionSet] = {}
+        self._refs: Dict[str, int] = {}
+
+    def put(self, key: str, pset: PartitionSet) -> str:
+        with self._lock:
+            self._entries[key] = pset
+            self._refs[key] = self._refs.get(key, 0) + 1
+        return key
+
+    def get(self, key: str) -> Optional[PartitionSet]:
+        with self._lock:
+            return self._entries.get(key)
+
+    def release(self, key: str) -> None:
+        with self._lock:
+            n = self._refs.get(key, 0) - 1
+            if n <= 0:
+                self._entries.pop(key, None)
+                self._refs.pop(key, None)
+            else:
+                self._refs[key] = n
+
+    def clear(self) -> None:
+        with self._lock:
+            self._entries.clear()
+            self._refs.clear()
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._entries)
+
+
+_PARTITION_SET_CACHE = PartitionSetCache()
+
+
+def partition_set_cache() -> PartitionSetCache:
+    return _PARTITION_SET_CACHE
+
+
+class _Uncacheable(Exception):
+    pass
+
+
+def plan_cache_key(plan: LogicalPlan) -> Optional[str]:
+    """The structural key of a plan, or None where caching would be unsound:
+    a seedless sample, or an attribute this walk cannot prove free of
+    collisions. The reference also refuses writes and UDFs, which the port
+    does not have yet."""
+    try:
+        return _plan_key(plan)
+    except _Uncacheable:
+        return None
+
+
+_SCALARS = (str, int, float, bool, bytes, type(None))
+
+
+def _plan_key(p: LogicalPlan) -> str:
+    from .expressions import Expression
+    from .logical import InMemorySource, Sample
+
+    if isinstance(p, Sample) and p.seed is None:
+        raise _Uncacheable
+    if isinstance(p, InMemorySource):
+        # a uuid minted with the source: unlike id(), never reused after the
+        # source is collected
+        tok = getattr(p, "_cache_token", None)
+        if tok is None:
+            raise _Uncacheable
+        return f"mem#{tok}"
+    items = []
+    for k, v in sorted(vars(p).items()):
+        # schemas derive from the children and the expressions, covered here
+        if k.startswith("_") or isinstance(v, (LogicalPlan, Schema)):
+            continue
+        if isinstance(v, Expression):
+            items.append(f"{k}={v._node._key()!r}")
+        elif isinstance(v, (list, tuple)):
+            if all(isinstance(e, Expression) for e in v):
+                items.append(f"{k}=[{','.join(repr(e._node._key()) for e in v)}]")
+            elif all(isinstance(e, _SCALARS) for e in v):
+                items.append(f"{k}={v!r}")
+            else:
+                raise _Uncacheable
+        elif isinstance(v, _SCALARS):
+            items.append(f"{k}={v!r}")
+        else:
+            raise _Uncacheable  # an attribute of unknown type: refuse, never collide
+    kids = ",".join(_plan_key(c) for c in p.children())
+    return f"{type(p).__name__}({';'.join(items)})[{kids}]"
+
+
 class NativeRunner:
-    """Single-process runner: optimize, translate, then execute
+    """Single-process runner: plan (through the plan cache), then execute
     sequentially."""
 
     name = "native"
@@ -53,9 +163,37 @@ class NativeRunner:
 
     def run_iter(self, plan: LogicalPlan,
                  stats: Optional[RuntimeStats] = None) -> Iterator[MicroPartition]:
-        from .optimizer import optimize
-        from .physical import translate
+        """Builds the query's breaker and deadline once, then runs the plan,
+        stage by stage under ``enable_aqe``."""
+        cfg = get_context().execution_config
+        stats = stats if stats is not None else RuntimeStats()
+        health = DeviceHealth(cfg.device_breaker_threshold, cfg.device_breaker_cooldown_s)
+        deadline = (None if cfg.execution_timeout_s is None
+                    else time.monotonic() + cfg.execution_timeout_s)
 
-        # the query's breaker and deadline are built here, once
-        ctx = ExecutionContext(get_context().execution_config, stats or RuntimeStats())
-        return execute_plan(translate(optimize(plan), ctx.cfg, ctx.stats), ctx)
+        def run_plain(p: LogicalPlan, optimized: bool = False) -> Iterator[MicroPartition]:
+            _, phys, run_cfg = self.plan_query(p, optimized, stats)
+            ctx = ExecutionContext(run_cfg, stats, deadline=deadline, device_health=health)
+            return execute_plan(phys, ctx)
+
+        if cfg.enable_aqe:
+            from .adaptive import AdaptivePlanner
+
+            # the planner hands over plans it has already optimized
+            return AdaptivePlanner(lambda p: run_plain(p, optimized=True), stats,
+                                   cfg=cfg).run(plan)
+        return run_plain(plan)
+
+    def plan_query(self, plan: LogicalPlan, optimized: bool = False, stats=None):
+        """Feedback-informed planning, served from the process plan cache
+        where it can be (adapt/plancache.py): ``(optimized plan, physical
+        plan, run config)``. The planning wall time and its compile share
+        land in ``stats`` as ``planning_wall_ns`` / ``compile_wall_ns``."""
+        from .adapt.plancache import plan_query
+
+        return plan_query(plan, get_context().execution_config, stats=stats,
+                          optimized=optimized, runner=self.name)
+
+    def optimize_and_translate(self, plan: LogicalPlan, optimized: bool = False, stats=None):
+        opt, phys, _ = self.plan_query(plan, optimized=optimized, stats=stats)
+        return opt, phys

@@ -27,10 +27,13 @@ The writer thread and the readahead read and write host arrow only: no
 CUDA call runs on them. A spilled partition loads on the thread that asks
 for its table, and its columns stage on the card there.
 
+The ledger also carries the plan cache's resident bytes
+(``cache_account("plan_cache_bytes")``), outside ``current``.
+
 Left out: the ledger's accounts for producers the port does not have yet
 (scan prefetch, streaming channels, batching, the scheduler's parked
-outputs, distributed workers, the plan and result caches), the child
-ledgers of the serving runtime, and the profiler spans and log lines.
+outputs, distributed workers, the sub-plan result and model caches), the
+child ledgers of the serving runtime, and the profiler spans and log lines.
 """
 
 from __future__ import annotations
@@ -88,6 +91,20 @@ class MemoryLedger:
         # spill writes that failed with ENOSPC: a full spill device turns a
         # bounded-memory engine back into an in-memory one
         self.disk_full_events = 0
+        # the plan cache's resident bytes (adapt/plancache.py): not in
+        # `current`, since they are process-lifetime state shed by the cache's
+        # own cap, not a query's working set the spill reacts to
+        self.plan_cache_bytes = 0
+
+    def cache_account(self, account: str, delta: int) -> None:
+        """Charge or release a process cache account (``plan_cache_bytes``);
+        clamped at 0."""
+        if account not in ("plan_cache_bytes",):
+            from .errors import DaftValueError
+
+            raise DaftValueError(f"unknown cache account {account!r}")
+        with self._lock:
+            setattr(self, account, max(0, getattr(self, account) + delta))
 
     def disk_full(self) -> None:
         with self._lock:
@@ -149,7 +166,8 @@ class MemoryLedger:
 
     _ACCOUNTS = ("current", "high_water", "spilled_bytes", "spilled_partitions",
                  "negative_releases", "async_spill_inflight", "spill_write_bytes",
-                 "spill_write_ns", "unspill_bytes", "unspill_ns", "disk_full_events")
+                 "spill_write_ns", "unspill_bytes", "unspill_ns", "disk_full_events",
+                 "plan_cache_bytes")
 
     def reset(self) -> None:
         with self._lock:

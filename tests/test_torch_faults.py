@@ -107,10 +107,11 @@ def pick(c: dict, keys) -> dict:
 
 def test_sites_are_the_four_the_port_wires():
     # the name is from the eleventh slice's four sites; the thirteenth added
-    # the spill and encode sites, each wired as the reference wires it
+    # the spill and encode sites and the fourteenth the plan cache's, each
+    # wired as the reference wires it
     assert set(faults.SITES) == {"device.kernel", "fuse.compile", "fuse.segment", "join.filter",
                                  "spill.write", "spill.readback", "spill.corrupt",
-                                 "exchange.encode"}
+                                 "exchange.encode", "plancache.lookup"}
     assert set(faults.SITES) <= set(ref_faults.SITES)
 
 

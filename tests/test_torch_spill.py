@@ -413,8 +413,7 @@ def test_snapshot_covers_the_reference_accounts():
     later = {"prefetch_inflight", "stream_inflight", "stream_inflight_high_water",
              "batch_inflight", "batch_inflight_high_water", "exec_inflight",
              "exec_inflight_high_water", "dist_inflight", "dist_inflight_high_water",
-             "working_set_high_water", "plan_cache_bytes", "subplan_cache_bytes",
-             "model_cache_bytes"}
+             "working_set_high_water", "subplan_cache_bytes", "model_cache_bytes"}
     assert mine == ref - later
 
 

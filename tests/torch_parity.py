@@ -135,3 +135,75 @@ def restore_port_config():
     saved = ctx.execution_config
     yield
     ctx.execution_config = saved
+
+
+# ---------------------------------------------------------------------------
+# planning for repeat-shaped traffic (tests/test_torch_adapt.py,
+# tests/test_torch_adaptive.py)
+# ---------------------------------------------------------------------------
+
+# the plan cache's, feedback planning's, adaptive execution's and the result
+# cache's counters, held equal in both packages beside COUNTERS
+ADAPT_COUNTERS = ("plan_cache_hits", "plan_cache_misses", "plan_cache_errors",
+                  "result_cache_hits", "fdo_join_flips", "fdo_shuffle_resizes",
+                  "fdo_reduced_partitions", "fdo_mispredicts", "aqe_stages",
+                  "aqe_shuffle_resizes")
+
+
+def clear_adapt() -> None:
+    """Both packages' plan caches, histories and result caches emptied (and
+    the reference's sub-plan result cache)."""
+    from daft_tpu.adapt import HISTORY as REF_HISTORY
+    from daft_tpu.adapt import PLAN_CACHE as REF_PLAN_CACHE
+    from daft_tpu.adapt import RESULT_CACHE as REF_RESULT_CACHE
+    from daft_tpu.runners import partition_set_cache as ref_psets
+    from daft_tpu_torch.adapt import HISTORY, PLAN_CACHE
+    from daft_tpu_torch.runners import partition_set_cache
+
+    for c in (REF_PLAN_CACHE, REF_HISTORY, REF_RESULT_CACHE, PLAN_CACHE, HISTORY,
+              ref_psets(), partition_set_cache()):
+        c.clear()
+
+
+def adapt_counters(df) -> dict:
+    c = df.stats.snapshot()["counters"]
+    return {k: c.get(k, 0) for k in COUNTERS + ADAPT_COUNTERS}
+
+
+def run_seq(seq, knobs=None, min_rows: int = 8):
+    """``seq(pkg, set_knobs)`` through the reference, then through the port,
+    each from emptied caches: the reference in the 32-bit device mode with
+    ``knobs`` set on its config, the port under that config mapped
+    (``device="cpu"``). ``set_knobs(**reference fields)`` changes the running
+    package's config between the steps of a sequence. Returns [what the
+    reference's seq returned, what the port's did]."""
+    from daft_tpu_torch.context import _FROM_REFERENCE
+
+    out = []
+    clear_adapt()
+    with real_tpu_mode_cfg(device_min_rows=min_rows) as cfg:
+        saved = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+        try:
+            for k, v in (knobs or {}).items():
+                setattr(cfg, k, v)
+            d = dataclasses.asdict(cfg)
+
+            def ref_set(**kw):
+                for k, v in kw.items():
+                    setattr(cfg, k, v)
+
+            out.append(seq(daft_tpu, ref_set))
+        finally:
+            for k, v in saved.items():
+                setattr(cfg, k, v)
+    d["jax_enable_x64"] = False
+    daft_tpu_torch.set_execution_config(
+        daft_tpu_torch.execution_config_from_dict(d, device="cpu"))
+
+    def port_set(**kw):
+        daft_tpu_torch.set_execution_config(**{_FROM_REFERENCE[k]: v for k, v in kw.items()})
+
+    clear_adapt()
+    out.append(seq(daft_tpu_torch, port_set))
+    clear_adapt()
+    return out
