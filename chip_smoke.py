@@ -61,7 +61,7 @@ Phases, each of which fails the run:
      and at SF1 (one partition per table, tables generated by a background
      process started at the top of the run) against the port's host path,
      each under tests/device32/test_tpch_suite32.py's rule; each SF1 query
-     cold and warm (median of 3) with its routing counters and K1's, K2's
+     cold and warm (median of 2) with its routing counters and K1's, K2's
      and the scatter kernel's launches (set to 0 just before the query),
      device_agg_fallbacks 0, the new lanes' filters on the card, and float
      sums through K1 or the scatter kernel where the CPU tests put them.
@@ -136,7 +136,7 @@ Phases, each of which fails the run:
      (partition i from i << 36), then Q6 and the largest id, whose
      counters are held to ID_PINS (tests/test_torch_reshape.py pins them
      for both packages). Each case cold with its launches counted from 0,
-     against its oracle, then warm (median of 2);
+     against its oracle, then warm (one run);
  10. the bounded-memory exchange on the card (needs SF1 in --scales), in the
      32-bit mode over phase 7's SF1 tables with lineitem, orders and
      customer in 4 partitions each (phase_spill, spill_cases): the sort
@@ -146,7 +146,7 @@ Phases, each of which fails the run:
      repartition(4, "l_returnflag") then Q1 (its low-cardinality columns
      dictionary-encoded; again with encoding off), each unbudgeted and
      under a budget of a quarter of the bytes its exchange moved (for the
-     sort, a quarter of lineitem's bytes), cold then twice warm. The
+     sort, a quarter of lineitem's bytes), cold then once warm. The
      budgeted run gives the unbudgeted rows, the same kernel launches and
      device sorts, probes and Bloom probes, spills, and
      leaves the ledger at 0 and no spill directory; it prints the spill
@@ -170,12 +170,33 @@ Phases, each of which fails the run:
      same shape over 85 % of orders (the flip mispredicts and is demoted);
      the flip's query under enable_aqe; plancache.lookup armed always; the
      card's allocated bytes with the frames dropped and their plans cached,
-     then with the cache cleared. Each run against a pyarrow oracle.
+     then with the cache cleared. Each run against a pyarrow oracle;
+ 12. scans on the card (needs SF1 in --scales), in the 32-bit mode, over
+     parquet files that a background thread writes into a temporary
+     directory while the earlier phases run, removed at the end
+     (ParquetFiles, phase_scans): the 22 queries over phase 4's SF1 tables,
+     each file in 8 row groups, through read_parquet(...,
+     _split_row_groups=True), once each with the sub-plan result cache off,
+     against phase 4's rows in memory, with each query's wall, scan tasks
+     and launches; Q1 and Q6 over phase 3's SF1 lineitem sorted by
+     l_shipdate in 16 row groups (one scan task), composed (K1) and deep
+     (K2), cold and twice warm, against the pyarrow oracle, with the
+     columns read and Q6's row groups pruned by their statistics as
+     pyarrow's metadata counts them; Q6's filter and derived revenue under
+     two aggregates, the second a sub-plan result-cache hit with the same
+     revenue and K1 launches; the float-to-int cast on the card in both
+     modes, with the reference's saturated values; then, outside the
+     zero-failure checks, scan.read armed first_n 2 (2 retries, the same
+     rows) and always (the reader's error after scan_retry_attempts), and a
+     hash repartition of the lineitem scan under a 32 MiB budget with its
+     first spill file damaged (spill.corrupt): the piece recomputes from the
+     parquet file and the rows are the undamaged run's.
 
-Phases 1-10 turn feedback-directed planning and the whole-plan result
-cache off (PLAN_PINS): each times its plans as written. Every query of
-phases 1-7, 9, 10 and 11 (but the ids' Q6 and largest id and the fault
-cases of phases 10 and 11) is held
+Phases 8-11 run after phase 7 and before phase 4, while the 22-query
+tables are still being generated. Phases 1-10 turn feedback-directed
+planning and the whole-plan result cache off (PLAN_PINS): each times its
+plans as written. Every query of phases 1-7, 9, 10, 11 and 12 (but the
+ids' Q6 and largest id and the fault cases of phases 10, 11 and 12) is held
 to 0 device_attempt_failures, device_breaker_trips, degraded_completions,
 faults_injected, join_filter_errors and every *_fallbacks counter (Phases.watch reads them as collect() returns, and each
 phase's line says how many queries it read), so that no failure the device
@@ -661,6 +682,20 @@ def enumerate_deep_programs() -> list:
     lanes = {k: dtt.from_arrow(v).collect()
              for k, v in lane_tables(tpch_full.generate(scale=0.001, seed=7)).items()}
     lane_queries(dtt)["timestamps_deep"][0](lanes).collect()
+    # phase 12's deep Q1 and Q6 over a parquet file: the filter is read in
+    # the scan, so their programs hold no predicate
+    import tempfile
+
+    import pyarrow.parquet as papq
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_deep_") as tmp:
+        path = f"{tmp}/lineitem.parquet"
+        papq.write_table(small.to_arrow(), path, row_group_size=1024)
+        dtt.set_execution_config(config(device="cpu", device_min_rows=1,
+                                        use_deep_fusion_kernel=True,
+                                        scan_tasks_min_size_bytes=1 << 40))
+        for plan in (q1, q6):
+            plan(dtt.read_parquet(path, _split_row_groups=True)).collect()
     # phase 8's deep segment over 4 partitions: its stage-1 program, and the
     # staged ops' program (the plan with residency off) that a failed
     # resident handoff runs; stage 2 stays on the host, under
@@ -1789,6 +1824,9 @@ TPCH22_X64_AGG_ROUTES = TPCH22_AGG_ROUTES
 # new lanes, held the same way
 TPCH22_LANE_MAPS = {9: (1, 0), 12: (1, 0), 13: (1, 0), 14: (1, 0), 16: (2, 0), 19: (1, 0),
                     22: (1, 0)}
+# warm runs of each of the 22 queries at SF1 (phases 4 and 6): few, so the
+# whole run stays well inside its time limit
+TPCH22_WARM = 2
 TPCH22_COUNTERS = ("device_aggregations", "host_aggregations", "device_agg_fallbacks",
                    "device_join_probes", "host_joins", "device_sorts", "host_sorts",
                    "device_group_codes", "device_resident_segments", "segment_fallbacks",
@@ -1884,7 +1922,7 @@ def phase_tpch22(ph: Phases, queries, data: dict, card: str, profile: bool) -> d
     rule, with its sorts, joins and aggregates exchanged and routed as
     TPCH22_ROUTES_3P says (the CPU tests hold the port to it). At SF1 (seed 7), one partition per table: each driven once
     cold with K1's, K2's and the scatter kernel's launch counts set to 0
-    just before and read just after, timed warm (median of 3), held to the
+    just before and read just after, timed warm (median of 2), held to the
     port's host path on the same tables (use_device_kernels=False,
     device="cpu", run explicitly) under the same rule, with no aggregate
     declined after launch, the new lanes' filters on the card, and the
@@ -1940,6 +1978,7 @@ def phase_tpch22(ph: Phases, queries, data: dict, card: str, profile: bool) -> d
     frames = tpch22_frames(data, 1)
     rows = {k: v.num_rows for k, v in data.items()}
     warm_by_query = {}
+    out["card_rows"] = {}  # phase 12 holds the same queries over parquet to them
     for qn in sorted(queries.QUERIES):
         def run(qn=qn):
             return queries.QUERIES[qn](frames).collect()
@@ -1953,6 +1992,7 @@ def phase_tpch22(ph: Phases, queries, data: dict, card: str, profile: bool) -> d
         launches = {"k1": ss.LAUNCHES, "k2": fes.LAUNCHES, "scatter": scs.LAUNCHES}
         c = df.stats.snapshot()["counters"]
         label = f"SF1 Q{qn}"
+        out["card_rows"][qn] = got
         ph.check(tpch22_match(got, host[qn]),
                  f"{label}: {len(got)} rows match the port's host path")
         ph.check(c.get("device_agg_fallbacks", 0) == 0, f"{label}: device_agg_fallbacks 0")
@@ -1983,7 +2023,7 @@ def phase_tpch22(ph: Phases, queries, data: dict, card: str, profile: bool) -> d
             out[f"{k}_launches"] += launches[k]
         res = {"cold_s": cold, "launches": launches,
                "counters": {k: c.get(k, 0) for k in TPCH22_COUNTERS if c.get(k, 0)},
-               **warm_median(lambda _f, run=run: run(), None, runs=3), "card": card}
+               **warm_median(lambda _f, run=run: run(), None, runs=TPCH22_WARM), "card": card}
         warm_by_query[qn] = res["warm_median_s"]
         out[f"q{qn}"] = res
         print(f"SF1 tpch22 Q{qn} " + json.dumps(res), flush=True)
@@ -2220,6 +2260,7 @@ def phase_lanes(ph: Phases, data: dict, card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 # phase 6's main-path queries: (query, the tables it reads, device join probes)
+X64_WARM = 3  # warm runs of Q1, Q6, Q3 and Q5 in each mode: few, for the time limit
 X64_QUERIES = {
     "q1": (q1, ("lineitem",), 0),
     "q6": (q6, ("lineitem",), 0),
@@ -2260,7 +2301,7 @@ def x64_drive(ph: Phases, name: str, x64: bool, source: dict, want: dict, groups
     """One query of phase 6 in one mode over fresh frames: cold (every
     kernel's launch count set to 0 just before and read just after; in the
     64-bit mode the operands of the float64 scatter kernel's wrapper are
-    kept), checked against the pyarrow oracle, then warm (median of 5)."""
+    kept), checked against the pyarrow oracle, then warm (median of 3)."""
     import torch
 
     import daft_tpu_torch as dtt
@@ -2309,7 +2350,7 @@ def x64_drive(ph: Phases, name: str, x64: bool, source: dict, want: dict, groups
     ph.check(on_card, f"{label}: ran on the card (launches {launches}, counters "
                       f"{ {k: v for k, v in c.items() if v} })")
     res = {"mode": mode, "cold_s": cold, "launches": launches, "max_rel_gap": gap,
-           **warm_median(lambda _f: query(*frames), None), "card": card}
+           **warm_median(lambda _f: query(*frames), None, runs=X64_WARM), "card": card}
     if x64 and name == "q3":  # a second run gives every float the same bits
         again = query(*frames).collect().to_pydict()
         ph.check(float_bits(again) == float_bits(got),
@@ -2457,7 +2498,7 @@ def phase_x64(ph: Phases, lineitem, tables: dict, queries, data: dict, host_rows
         out["k1_launches"] += launches["k1"]
         out["k2_launches"] += launches["k2"]
         res = {"cold_s": cold[qn], "launches": launches,
-               **warm_median(lambda _f, run=run: run(), None, runs=3), "card": card}
+               **warm_median(lambda _f, run=run: run(), None, runs=TPCH22_WARM), "card": card}
         warm[qn] = res["warm_median_s"]
         print(f"SF1 tpch22 x64 Q{qn} " + json.dumps(res), flush=True)
         del df
@@ -3056,7 +3097,7 @@ def phase_faults(ph: Phases, lineitem, tables: dict, q3_oracle: tuple, main_sf1:
 # ---------------------------------------------------------------------------
 
 REL_PARTS = 4
-REL_WARM = 2  # warm runs a case: few, so the whole run stays well inside its time limit
+REL_WARM = 1  # warm runs a case: few, so the whole run stays well inside its time limit
 ID_PARTS = 4
 
 
@@ -3396,7 +3437,7 @@ def phase_relational(ph: Phases, tables: dict, card: str) -> dict:
     Q6, and the largest id, whose counters are held to ID_PINS instead of
     HEALTH_COUNTERS). Each case is driven once cold with K1's, K2's and the
     scatter kernel's launches set to 0 just before and read just after,
-    checked against its oracle, then timed warm (median of 2)."""
+    checked against its oracle, then timed warm (one run)."""
     import torch
 
     import daft_tpu_torch as dtt
@@ -3447,7 +3488,7 @@ def phase_relational(ph: Phases, tables: dict, card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 SPILL_PARTS = 4
-SPILL_WARM = 2  # warm runs a case: few, so the whole run stays well inside its time limit
+SPILL_WARM = 1  # warm runs a case: few, so the whole run stays well inside its time limit
 # the counters each phase-10 line reports
 SPILL_COUNTERS = ("spilled_partitions", "spill_write_bytes", "spill_read_bytes",
                   "spill_write_failures", "unspill_readahead_submitted", "unspill_readahead_hits",
@@ -3564,11 +3605,11 @@ def phase_spill(ph: Phases, tables: dict, card: str) -> dict:
     (d) the sort-merge join of lineitem and orders with its grouped
     aggregate, (e) repartition(4, "l_returnflag") then Q1 (and with
     encoding off), (f) each fault site of the slice armed always on (a) or
-    (e). Each case runs unbudgeted, cold then twice warm, and then under
+    (e). Each case runs unbudgeted, cold then once warm, and then under
     a budget of a quarter of the bytes its unbudgeted exchange moved
     (``exchange_bytes``; for the sort, a quarter of lineitem's bytes), cold
     with K1's, K2's and the scatter kernel's launches set to 0 just before
-    and read just after, then twice warm. The budgeted cold run must give
+    and read just after, then once warm. The budgeted cold run must give
     the unbudgeted rows (same_rows), the same launches and device counters
     (SPILL_SAME), spilled_partitions > 0, and leave the ledger at 0 with no
     spill directory; (f) as its fault site says."""
@@ -4087,6 +4128,324 @@ def phase_adapt(ph: Phases, tables: dict, q3_oracle: tuple, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: scans, the TPC-H tables read back from parquet files
+# ---------------------------------------------------------------------------
+
+SCAN_TPCH_GROUPS = 8   # row groups of each 22-query table's file
+SCAN_LI_GROUPS = 16    # row groups of the l_shipdate-sorted lineitem's file
+SCAN_WARM = 2
+# the lineitem columns each query reads (IO_STATS.columns_read of one task)
+SCAN_COLUMNS = {"q1": 7, "q6": 4}
+CAST_INPUT = [1.5, float("nan"), float("inf"), float("-inf"), 3e10, -2.5]
+# the reference's device cast of CAST_INPUT (XLA saturates), by (x64, target)
+CAST_WANT = {
+    (False, "int32"): [1, 0, 2**31 - 1, -2**31, 2**31 - 1, -2],
+    (False, "int64"): [1, 0, 2**31 - 1, -2**31, 2**31 - 1, -2],
+    (True, "int32"): [1, 0, 2**31 - 1, -2**31, 2**31 - 1, -2],
+    (True, "int64"): [1, 0, 2**63 - 1, -2**63, 30000000000, -2],
+}
+
+
+class ParquetFiles:
+    """Tables written as parquet in a background thread, into a temporary
+    directory that ``remove`` deletes: pyarrow's writer releases the GIL, so
+    the writes overlap the phases that run meanwhile. ``path`` waits for
+    one file."""
+
+    def __init__(self):
+        import tempfile
+        from concurrent.futures import ThreadPoolExecutor
+
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_scan_")
+        self._pool = ThreadPoolExecutor(max_workers=1)
+        self._jobs = {}
+
+    def write(self, name: str, table, groups: int, sort_by=None) -> None:
+        import os
+
+        path = os.path.join(self.dir, f"{name}.parquet")
+        self._jobs[name] = self._pool.submit(self._write, path, table, groups, sort_by)
+
+    @staticmethod
+    def _write(path, table, groups, sort_by):
+        import pyarrow.parquet as papq
+
+        t0 = time.perf_counter()
+        if sort_by is not None:
+            table = table.sort_by(sort_by)
+        papq.write_table(table, path, row_group_size=max(1, -(-table.num_rows // groups)))
+        return path, time.perf_counter() - t0
+
+    def path(self, name: str) -> str:
+        return self._jobs[name].result()[0]
+
+    def write_s(self) -> dict:
+        return {k: round(j.result()[1], 2) for k, j in self._jobs.items() if j.done()}
+
+    def remove(self) -> None:
+        import shutil
+
+        self._pool.shutdown(wait=True, cancel_futures=True)
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def scan_q6_revenue_sum(lineitem, extra: bool):
+    """Q6's filter and derived revenue, then a sum (and a count and a max
+    when ``extra``): two aggregates over one Project/Filter prefix."""
+    from daft_tpu_torch import col
+
+    pre = (lineitem
+           .where((col("l_shipdate") >= datetime.date(1994, 1, 1))
+                  & (col("l_shipdate") < datetime.date(1995, 1, 1))
+                  & (col("l_discount") >= 0.05)
+                  & (col("l_discount") <= 0.07)
+                  & (col("l_quantity") < 24))
+           .with_column("rev", col("l_extendedprice") * col("l_discount")))
+    aggs = [col("rev").sum().alias("revenue")]
+    if extra:
+        aggs += [col("rev").count().alias("n"), col("rev").max().alias("top")]
+    return pre.agg(*aggs)
+
+
+def q6_groups_missing_the_year(path: str) -> int:
+    """The row groups whose l_shipdate range misses Q6's year, from
+    pyarrow's own row-group statistics."""
+    import pyarrow.parquet as papq
+
+    pf = papq.ParquetFile(path)
+    idx = pf.schema_arrow.get_field_index("l_shipdate")
+    lo, hi = datetime.date(1994, 1, 1), datetime.date(1995, 1, 1)
+    n = 0
+    for rg in range(pf.metadata.num_row_groups):
+        st = pf.metadata.row_group(rg).column(idx).statistics
+        n += st.max < lo or st.min >= hi
+    return n
+
+
+def phase_scans(ph: Phases, files: ParquetFiles, data: dict, card_rows: dict, lineitem,
+                queries, card: str) -> dict:
+    """Phase 12: scans on the card, in the 32-bit mode, over parquet files
+    written meanwhile (ParquetFiles): (a) the 22 queries over phase 4's SF1
+    tables, each in 8 row groups, through read_parquet(...,
+    _split_row_groups=True), each once with the sub-plan result cache off,
+    against phase 4's rows of the same data in memory; (b) Q1 and Q6 over
+    phase 3's SF1 lineitem sorted by l_shipdate in 16 row groups, as one
+    scan task, composed (K1) and deep (K2), cold and twice warm, against
+    the pyarrow oracle, with the columns read and, for Q6, the row groups
+    pruned by their l_shipdate statistics (pyarrow's own count); (c) Q6's
+    filter and derived revenue under two aggregates with resident segments
+    off: the second is a sub-plan result-cache hit with the first's revenue
+    and its K1 launches; (f) the float-to-int cast on the card in both
+    modes. Then, outside the zero-failure checks: (d) scan.read armed
+    first_n 2 (Q6 completes with 2 retries) and always (the reader's error
+    after scan_retry_attempts); (e) a hash repartition of the lineitem scan
+    under a memory budget that spills, with the first spill file damaged
+    (spill.corrupt nth 1): the piece recomputes from the file
+    (partitions_recomputed) and the rows are the undamaged run's. Each
+    driven query counts K1's, K2's and the scatter kernel's launches from 0
+    just before it."""
+    import torch
+
+    import daft_tpu_torch as dtt
+    from benchmarks import tpch
+    from daft_tpu_torch import col, faults
+    from daft_tpu_torch.adapt import RESULT_CACHE
+    from daft_tpu_torch.errors import DaftTransientError
+    from daft_tpu_torch.io import IO_STATS
+    from daft_tpu_torch.kernels import fused_expr_sums as fes
+    from daft_tpu_torch.kernels import scatter_sums as scs
+    from daft_tpu_torch.kernels import segment_sums as ss
+    from daft_tpu_torch.spill import MEMORY_LEDGER
+
+    out = {"k1_launches": 0, "k2_launches": 0, "scatter_launches": 0}
+
+    def driven(build):
+        """One driven query: (DataFrame, seconds, launches, IO_STATS)."""
+        ss.LAUNCHES = fes.LAUNCHES = scs.LAUNCHES = 0
+        IO_STATS.reset()
+        t0 = time.perf_counter()
+        df = build().collect()
+        df.to_pydict()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {"k1": ss.LAUNCHES, "k2": fes.LAUNCHES, "scatter": scs.LAUNCHES}
+        for k, v in launches.items():
+            out[f"{k}_launches"] += v
+        return df, secs, launches, IO_STATS.snapshot()
+
+    # --- (a) the 22 queries over parquet
+    t0 = time.perf_counter()
+    paths = {n: files.path(n) for n in data}
+    print(f"SF1 scan: files ready (waited {time.perf_counter() - t0:.1f}s; written in "
+          f"{json.dumps(files.write_s())} s)", flush=True)
+    dtt.set_execution_config(config(device_min_rows=8, subplan_result_cache=False))
+    frames = {n: dtt.read_parquet(p, _split_row_groups=True) for n, p in paths.items()}
+    walls = {}
+    for qn in sorted(queries.QUERIES):
+        df, secs, launches, io = driven(lambda qn=qn: queries.QUERIES[qn](frames))
+        got = tpch22_rows(zip(*df.to_pydict().values()))
+        c = df.stats.snapshot()["counters"]
+        label = f"SF1 scan Q{qn}"
+        ph.check(tpch22_match(got, card_rows[qn]),
+                 f"{label}: {len(got)} rows over parquet match phase 4's rows in memory")
+        walls[qn] = secs
+        res = {"wall_s": secs, "scan_tasks": c.get("scan_tasks_emitted", 0),
+               "scan_tasks_pruned": c.get("scan_tasks_pruned", 0), "launches": launches,
+               "rows_read": io["rows_read"], "bytes_read": io["bytes_read"], "card": card}
+        print(f"{label} " + json.dumps(res), flush=True)
+        del df
+    out["tpch22_wall_s"] = sum(walls.values())
+    print("SF1 scan tpch22 summary " + json.dumps({
+        "wall_total_s": out["tpch22_wall_s"],
+        "slowest": sorted(walls, key=lambda q: -walls[q])[:5], "card": card}), flush=True)
+    del frames
+
+    # --- (b) Q1 and Q6 over lineitem sorted by l_shipdate, one scan task
+    li_path = files.path("lineitem_by_shipdate")
+    want = {"q1": tpch.oracle_q1(lineitem), "q6": {"revenue": [tpch.oracle_q6(lineitem)]}}
+    pruned_want = q6_groups_missing_the_year(li_path)
+    one_task = 1 << 40  # scan_tasks_min_size_bytes: the 16 row groups in one task
+    for deep in (False, True):
+        route = "deep" if deep else "composed"
+        dtt.set_execution_config(config(use_deep_fusion_kernel=deep,
+                                        scan_tasks_min_size_bytes=one_task))
+        for name, query in (("q1", q1), ("q6", q6)):
+            def build(query=query):
+                return query(dtt.read_parquet(li_path, _split_row_groups=True))
+
+            label = f"SF1 scan {name} {route}"
+            df, cold, launches, io = driven(build)
+            c = df.stats.snapshot()["counters"]
+            ph.check(parity(df.to_pydict(), want[name], RTOL),
+                     f"{label}: matches the pyarrow oracle at rtol {RTOL}")
+            ph.check(c.get("scan_tasks_emitted", 0) == 1
+                     and io["columns_read"] == SCAN_COLUMNS[name],
+                     f"{label}: one scan task, {io['columns_read']} columns read (the query "
+                     f"reads {SCAN_COLUMNS[name]})")
+            if name == "q6":
+                ph.check(io["row_groups_pruned"] == pruned_want > 0
+                         and io["row_groups_read"] + io["row_groups_pruned"] == SCAN_LI_GROUPS,
+                         f"{label}: {io['row_groups_pruned']} row groups pruned by their "
+                         f"statistics, as pyarrow's metadata counts ({pruned_want}), "
+                         f"{io['row_groups_read']} read")
+            kernel = launches["k2"] if deep else launches["k1"]
+            ph.check(kernel >= 1 and c.get("device_aggregations", 0) >= 1,
+                     f"{label}: aggregated on the card through {'K2' if deep else 'K1'} "
+                     f"({launches})")
+            res = {"cold_s": cold, "launches": launches, "io": io,
+                   **warm_median(lambda _f: build(), None, runs=SCAN_WARM), "card": card}
+            out[f"{name}_{route}"] = res
+            print(f"{label} " + json.dumps(res), flush=True)
+            del df
+
+    # --- (c) the sub-plan result cache: one prefix under two aggregates
+    RESULT_CACHE.clear()
+    dtt.set_execution_config(config(device_residency=False))
+    runs = []
+    for extra in (False, True):
+        df, secs, launches, _ = driven(
+            lambda extra=extra: scan_q6_revenue_sum(dtt.read_parquet(li_path), extra))
+        c = df.stats.snapshot()["counters"]
+        runs.append((df.to_pydict(), c, launches, secs))
+    (r1, c1, l1, s1), (r2, c2, l2, s2) = runs
+    ph.check(c1.get("subplan_cache_misses", 0) == 1 and c2.get("subplan_cache_hits", 0) == 1
+             and r2["revenue"] == r1["revenue"]
+             and parity({"revenue": r1["revenue"]}, want["q6"], RTOL),
+             f"SF1 scan subplan cache: the second aggregate hit the prefix (misses "
+             f"{c1.get('subplan_cache_misses', 0)}, hits {c2.get('subplan_cache_hits', 0)}), "
+             f"revenue {r2['revenue']} as the first's and the oracle's")
+    ph.check(l1["k1"] >= 1 and l2["k1"] == l1["k1"],
+             f"SF1 scan subplan cache: K1 launches {l1['k1']} then {l2['k1']}")
+    out["subplan_cache"] = {"miss_s": s1, "hit_s": s2, "launches": [l1, l2],
+                            "cached_bytes": MEMORY_LEDGER.subplan_cache_bytes, "card": card}
+    print("SF1 scan subplan cache " + json.dumps(out["subplan_cache"]), flush=True)
+    RESULT_CACHE.clear()
+
+    # --- (f) the repaired float-to-int cast on the card
+    for x64 in (False, True):
+        dtt.set_execution_config(config(device_min_rows=8, device_x64=x64))
+        for tgt in ("int32", "int64"):
+            df = dtt.from_pydict({"v": CAST_INPUT * 4}).select(
+                col("v").cast(getattr(dtt.DataType, tgt)())).collect()
+            got = df.to_pydict()["v"][:6]
+            c = df.stats.snapshot()["counters"]
+            want_cast = CAST_WANT[(x64, tgt)]
+            ph.check(got == want_cast and c.get("device_projections", 0) == 1,
+                     f"SF1 scan cast to {tgt} ({'x64' if x64 else '32-bit'} mode): {got} on "
+                     f"the card (device_projections {c.get('device_projections', 0)}), the "
+                     f"reference's {want_cast}")
+
+    # --- outside the zero-failure checks: the fault sites
+    ph.begin(None)
+    # (d) scan.read
+    dtt.set_execution_config(config(scan_tasks_min_size_bytes=one_task,
+                                    scan_retry_backoff_s=0.0))
+
+    def q6_file():
+        return q6(dtt.read_parquet(li_path, _split_row_groups=True))
+
+    try:
+        faults.arm("scan.read", "first_n", n=2)
+        df, secs, launches, io = driven(q6_file)
+        ph.check(io["retries"] == 2 and parity(df.to_pydict(), want["q6"], RTOL),
+                 f"SF1 scan scan.read first_n 2: Q6 completes after {io['retries']} retries "
+                 f"with the oracle's rows ({secs:.2f}s)")
+        faults.arm("scan.read", "always")
+        IO_STATS.reset()
+        try:
+            q6_file().collect()
+            raised = None
+        except DaftTransientError as e:
+            raised = e
+        attempts = dtt.get_context().execution_config.scan_retry_attempts
+        ph.check(raised is not None and IO_STATS.retries == attempts,
+                 f"SF1 scan scan.read always: the reader's error reaches the caller "
+                 f"({type(raised).__name__}) after {IO_STATS.retries} attempts "
+                 f"(scan_retry_attempts {attempts})")
+    finally:
+        faults.disarm()
+
+    # (e) a spilled shuffle piece over the scan recomputes from its file
+    dirs0 = spill_dirs()
+
+    def repartitioned():
+        # no select: a Project over the scan would load each partition before
+        # the shuffle, whose pieces then have no file to recompute from (the
+        # aggregate's columns reach the scan as its column pushdown)
+        return (dtt.read_parquet(li_path, _split_row_groups=True)
+                .repartition(4, "l_returnflag")
+                .groupby("l_returnflag")
+                .agg(col("l_quantity").sum().alias("q"), col("l_extendedprice").sum().alias("p"),
+                     col("l_quantity").count().alias("n"))
+                .sort("l_returnflag"))
+
+    dtt.set_execution_config(config(memory_budget_bytes=32 << 20, async_spill_writes=False))
+    clean, secs_clean, _, _ = driven(repartitioned)
+    try:
+        faults.arm("spill.corrupt", "nth", n=1)
+        damaged, secs_damaged, _, _ = driven(repartitioned)
+    finally:
+        faults.disarm()
+    c = damaged.stats.snapshot()["counters"]
+    ph.check(c.get("spilled_partitions", 0) > 0 and c.get("partitions_recomputed", 0) >= 1
+             and c.get("lineage_truncated", 0) == 0
+             and damaged.to_pydict() == clean.to_pydict(),
+             f"SF1 scan lineage: a damaged spill file of the repartition recomputed from the "
+             f"parquet file (spilled_partitions {c.get('spilled_partitions', 0)}, "
+             f"partitions_recomputed {c.get('partitions_recomputed', 0)}, corruption_detected "
+             f"{c.get('corruption_detected', 0)}), the undamaged run's rows")
+    ph.check(MEMORY_LEDGER.current == 0 and spill_dirs() == dirs0,
+             "SF1 scan lineage: the ledger back at 0, no spill directory left")
+    out["lineage"] = {"clean_s": secs_clean, "damaged_s": secs_damaged, "card": card,
+                      "counters": {k: c.get(k, 0) for k in (
+                          "spilled_partitions", "partitions_recomputed",
+                          "corruption_detected", "spill_write_bytes")}}
+    print("SF1 scan lineage " + json.dumps(out["lineage"]), flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
 def _walk(p):
     yield p
     for c in p.children():
@@ -4191,7 +4550,7 @@ def main(argv=None) -> int:
         print(json.dumps(ab_times(args.ab)), flush=True)
         return 0
     ph = Phases()
-    big = None
+    big = files = None
     try:
         from benchmarks import tpch
 
@@ -4214,9 +4573,13 @@ def main(argv=None) -> int:
         tables = {}
         t0 = time.perf_counter()
         tables[1.0] = tpch.generate_lineitem_only(scale=1.0, seed=42)
-        sf1_lineitem = tables[1.0]  # phase 6 runs Q1 and Q6 over it again
+        sf1_lineitem = tables[1.0]  # phases 6 and 12 run Q1 and Q6 over it again
         print(f"SF1: {tables[1.0].num_rows} rows generated in {time.perf_counter() - t0:.1f}s",
               flush=True)
+        if 1.0 in scales:  # phase 12's sorted lineitem, written while phases 2-11 run
+            files = ParquetFiles()
+            files.write("lineitem_by_shipdate", sf1_lineitem, SCAN_LI_GROUPS,
+                        sort_by="l_shipdate")
         k2_entry = phase_k2(ph, tables[1.0], edges)
         exchange = {}  # phase 7's results by scale
         # until phase 3 counts them
@@ -4260,28 +4623,10 @@ def main(argv=None) -> int:
             else:  # the main path's shape at the later scales, checked and timed
                 sc_entry[f"sf{scale:g}_shape"] = joins["scatter_main"]
         if scales:
-            t0 = time.perf_counter()
-            data = big.get()
-            print(f"SF1: 22-query tables ready {time.perf_counter() - big.started:.1f}s after "
-                  f"the generator started (waited {time.perf_counter() - t0:.1f}s; "
-                  + ", ".join(f"{k} {v.num_rows}" for k, v in data.items()) + ")", flush=True)
-            print(f"elapsed {time.perf_counter() - started:.1f}s: phase 4", flush=True)
-            ph.begin("phase 4")
-            t22 = phase_tpch22(ph, queries, data, card, args.profile)
-            print(f"elapsed {time.perf_counter() - started:.1f}s: phase 5", flush=True)
-            ph.begin("phase 5")
-            lanes = phase_lanes(ph, data, card)
-            print(f"elapsed {time.perf_counter() - started:.1f}s: phase 6", flush=True)
-            ph.begin("phase 6")
-            faults_out = relational = spill = adapt = None
-            if 1.0 in scales:  # phase 6, the 64-bit device mode
-                scatter32 = {qn: t22[f"q{qn}"]["launches"]["scatter"] for qn in queries.QUERIES}
-                x64 = phase_x64(ph, sf1_lineitem, join_tables, queries, data,
-                                t22.pop("host_rows"), scatter32, card)
-                sc64_entry = x64["entry"]
-                sc64_entry["launches"] = x64["scatter_f64_launches"]
-                k1_entry["launches_x64"] = x64["k1_launches"]  # 0: the mode never runs K1
-                k2_entry["launches_x64"] = x64["k2_launches"]
+            faults_out = relational = spill = adapt = scans = None
+            if 1.0 in scales:
+                # phases 8-11 read phase 3's and phase 7's SF1 tables alone, so
+                # they run while the 22-query tables are still being generated
                 print(f"elapsed {time.perf_counter() - started:.1f}s: phase 8", flush=True)
                 ph.begin(None)  # phase 8 arms faults: its own checks read its counters
                 faults_out = phase_faults(ph, sf1_lineitem, join_tables, q3_oracle_sf1, main_sf1,
@@ -4295,12 +4640,40 @@ def main(argv=None) -> int:
                 print(f"elapsed {time.perf_counter() - started:.1f}s: phase 11", flush=True)
                 ph.begin("phase 11")
                 adapt = phase_adapt(ph, join_tables, q3_oracle_sf1, card)
+            t0 = time.perf_counter()
+            data = big.get()
+            print(f"SF1: 22-query tables ready {time.perf_counter() - big.started:.1f}s after "
+                  f"the generator started (waited {time.perf_counter() - t0:.1f}s; "
+                  + ", ".join(f"{k} {v.num_rows}" for k, v in data.items()) + ")", flush=True)
+            if files is not None:  # phase 12's files, written while phases 4-6 run
+                for name, tbl in data.items():
+                    files.write(name, tbl, SCAN_TPCH_GROUPS)
+            print(f"elapsed {time.perf_counter() - started:.1f}s: phase 4", flush=True)
+            ph.begin("phase 4")
+            t22 = phase_tpch22(ph, queries, data, card, args.profile)
+            print(f"elapsed {time.perf_counter() - started:.1f}s: phase 5", flush=True)
+            ph.begin("phase 5")
+            lanes = phase_lanes(ph, data, card)
+            print(f"elapsed {time.perf_counter() - started:.1f}s: phase 6", flush=True)
+            ph.begin("phase 6")
+            if 1.0 in scales:  # phase 6, the 64-bit device mode
+                scatter32 = {qn: t22[f"q{qn}"]["launches"]["scatter"] for qn in queries.QUERIES}
+                x64 = phase_x64(ph, sf1_lineitem, join_tables, queries, data,
+                                t22.pop("host_rows"), scatter32, card)
+                sc64_entry = x64["entry"]
+                sc64_entry["launches"] = x64["scatter_f64_launches"]
+                k1_entry["launches_x64"] = x64["k1_launches"]  # 0: the mode never runs K1
+                k2_entry["launches_x64"] = x64["k2_launches"]
                 del join_tables
+                print(f"elapsed {time.perf_counter() - started:.1f}s: phase 12", flush=True)
+                ph.begin("phase 12")
+                scans = phase_scans(ph, files, data, t22.pop("card_rows"), sf1_lineitem,
+                                    queries, card)
             del data, sf1_lineitem
             phase_outs = [("tpch22", t22), ("lanes", lanes)] + [
                 (f"exchange_sf{sc:g}", ex) for sc, ex in exchange.items()] + (
                 [("faults", faults_out), ("relational", relational), ("spill", spill),
-                 ("adapt", adapt)]
+                 ("adapt", adapt), ("scan", scans)]
                 if faults_out is not None else [])
             for name, ph_out in phase_outs:
                 k1_entry[f"launches_{name}"] = ph_out["k1_launches"]
@@ -4323,6 +4696,8 @@ def main(argv=None) -> int:
     finally:
         if big is not None:
             big.stop()
+        if files is not None:
+            files.remove()
     if ph.failures:
         print("chip_smoke FAILED: " + "; ".join(ph.failures), file=sys.stderr)
         return 1

@@ -7,11 +7,15 @@ the aggregation on the card in the 32-bit device mode. Its float sums go
 through a hand-written CUDA kernel (kernels/segment_sums.py,
 csrc/masked_segment_sums.cu).
 
+``read_parquet``, ``read_csv`` and ``read_json`` scan local files: the
+optimizer pushes columns, filters and limits into the scan tasks, and each
+partition is read when the first operator needs it.
+
 Entry points run on the card (``ExecutionConfig.device == "cuda"``) unless
 the caller asks for the CPU with ``set_execution_config(device="cpu")``.
 """
 
-from .api import from_arrow, from_pydict
+from .api import from_arrow, from_glob_path, from_pydict, read_csv, read_json, read_parquet
 from .context import ExecutionConfig, execution_config_from_dict, get_context, set_execution_config
 from .dataframe import DataFrame
 from .datatypes import DataType
@@ -23,5 +27,6 @@ from .table import Table
 __all__ = [
     "DataFrame", "DataType", "ExecutionConfig", "Expression", "Field", "Schema",
     "Series", "Table", "col", "execution_config_from_dict", "from_arrow",
-    "from_pydict", "get_context", "interval", "lit", "set_execution_config",
+    "from_glob_path", "from_pydict", "get_context", "interval", "lit", "read_csv",
+    "read_json", "read_parquet", "set_execution_config",
 ]

@@ -117,11 +117,22 @@ def _bump(coll, counter: str) -> None:
 
 def _shrinkable(side) -> bool:
     """Whether the side's static size estimate can overestimate: an op in
-    its subtree that can drop rows (the reference also counts a filter or
-    limit pushed into a scan, which comes with the port's scans)."""
+    its subtree that can drop rows, or a filter or limit pushed into a scan
+    (the optimizer removes the Filter node, but the scan's estimate still
+    charges the whole file)."""
     from ..adaptive import _subtree_can_shrink
+    from ..logical import ScanSource
 
-    return _subtree_can_shrink(side)
+    if _subtree_can_shrink(side):
+        return True
+
+    def scan_pushed(p) -> bool:
+        if isinstance(p, ScanSource):
+            pd = p.pushdowns()
+            return pd.filters is not None or pd.limit is not None
+        return any(scan_pushed(c) for c in p.children())
+
+    return scan_pushed(side)
 
 
 def join_strategy_hint(plan) -> Optional[str]:

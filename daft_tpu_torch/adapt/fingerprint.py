@@ -18,7 +18,9 @@ Two scopes:
 
 The serialization is deterministic: no ``id()``, no ``hash()``, default
 object reprs scrubbed of their addresses, callables by ``__qualname__``.
-The scan sources' branch comes with the port's scans.
+A scan contributes each task's path, format, options, row groups, schema
+and pushdowns (the filter's literals masked), not its file's mtime or size:
+a rewritten file keeps its shape, and exactness is the binding key's job.
 """
 
 from __future__ import annotations
@@ -100,9 +102,36 @@ def _schema_canon(schema) -> str:
     return ",".join(f"{f.name}:{f.dtype!r}" for f in schema)
 
 
+def _scan_task_canon(t, out: List[str], params) -> None:
+    """The shape of one scan task: path, format, options and pushdowns,
+    not its file's mtime or size."""
+    out.append(f"scan:{getattr(t, 'path', '?')}|{getattr(t, 'format', '?')}")
+    # a merged task folds in its children
+    for c in getattr(t, "children", ()) or ():
+        _scan_task_canon(c, out, params)
+    opts = getattr(t, "storage_options", None)
+    if opts:
+        out.append(";".join(f"{k}={_scalar(v)}" for k, v in sorted(
+            opts.items(), key=lambda kv: kv[0])))
+    out.append(f"rg={getattr(t, 'row_group_ids', None)!r}"
+               f"|pv={_scrub(repr(getattr(t, 'partition_values', None)))}")
+    sch = getattr(t, "schema", None)
+    if sch is not None:
+        out.append(_schema_canon(sch))
+    pd = getattr(t, "pushdowns", None)
+    if pd is not None:
+        out.append(f"cols={getattr(pd, 'columns', None)!r}"
+                   f"|limit={getattr(pd, 'limit', None)!r}")
+        filt = getattr(pd, "filters", None)
+        if filt is not None:
+            out.append("filt=(")
+            _expr_canon(filt, out, params)
+            out.append(")")
+
+
 def _plan_canon(p, out: List[str], params, scope: str) -> None:
     from ..expressions import Expression
-    from ..logical import InMemorySource
+    from ..logical import InMemorySource, ScanSource
 
     out.append(type(p).__name__)
     if isinstance(p, InMemorySource):
@@ -111,6 +140,10 @@ def _plan_canon(p, out: List[str], params, scope: str) -> None:
             # data identity: observations never cross frames that merely
             # share a schema (process-local by design)
             out.append(f"tok={p._cache_token}")
+        return
+    if isinstance(p, ScanSource):
+        for t in p.tasks:
+            _scan_task_canon(t, out, params)
         return
     kids = p.children()
     kid_ids = {id(k) for k in kids}

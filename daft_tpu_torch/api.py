@@ -1,13 +1,23 @@
 """Public constructors (the port's copy of the part of daft_tpu/api.py this
-slice runs). Left out of this slice: file readers, catalogs, SQL, UDFs, the
-serving runtime and the health/metrics endpoints."""
+slice runs): ``from_pydict`` and ``from_arrow`` over memory, and the file
+readers ``read_parquet``, ``read_csv``, ``read_json`` and ``from_glob_path``
+over local paths. A reader builds a ScanSource of scan tasks (io/scan.py)
+and reads nothing but the first file's schema (and parquet footers) until
+a query runs. Left out of this slice: the remote and lake readers,
+catalogs, SQL, UDFs, the serving runtime and the health/metrics endpoints.
+"""
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List, Optional
 
+from .context import get_context
 from .dataframe import DataFrame, from_partitions
+from .datatypes import DataType
+from .io.scan import FileFormat, Pushdowns, ScanTask, glob_paths, merge_scan_tasks_by_size
+from .logical import ScanSource
 from .micropartition import MicroPartition
+from .schema import Field, Schema
 
 
 def from_pydict(data: Dict[str, Any]) -> DataFrame:
@@ -29,3 +39,107 @@ def from_arrow(data) -> DataFrame:
             raise ValueError("from_arrow of empty list")
         return from_partitions(parts, parts[0].schema)
     raise TypeError(f"from_arrow expects pyarrow Table/RecordBatch, got {type(data)}")
+
+
+def from_glob_path(path: str) -> DataFrame:
+    """A DataFrame of the file metadata (path, size, num_rows) of a glob."""
+    from .io.readers import file_size
+
+    paths = glob_paths(path)
+    return from_pydict({"path": paths, "size": [file_size(p) for p in paths],
+                        "num_rows": [None] * len(paths)})
+
+
+def _hinted(schema: Schema, schema_hints: Optional[Dict[str, DataType]]) -> Schema:
+    if not schema_hints:
+        return schema
+    return schema.apply_hints(Schema([Field(k, v) for k, v in schema_hints.items()]))
+
+
+def _scan_frame(schema: Schema, tasks: List[ScanTask]) -> DataFrame:
+    cfg = get_context().execution_config
+    tasks = merge_scan_tasks_by_size(tasks, cfg.scan_tasks_min_size_bytes,
+                                     cfg.scan_tasks_max_size_bytes)
+    return DataFrame(ScanSource(schema, tasks))
+
+
+def read_parquet(path, schema_hints: Optional[Dict[str, DataType]] = None,
+                 _split_row_groups: Optional[bool] = None) -> DataFrame:
+    """A lazy scan of parquet files. A file larger than
+    ``scan_tasks_max_size_bytes`` with several row groups (or any file, with
+    ``_split_row_groups=True``) splits into one task per run of row groups
+    of about ``scan_tasks_min_size_bytes``; each task carries its row
+    groups' statistics, for pruning."""
+    from .io.readers import file_size, open_parquet_file, row_group_stats
+
+    paths = glob_paths(path)
+    if not paths:
+        raise FileNotFoundError(f"no files for {path!r}")
+    pf0 = open_parquet_file(paths[0])
+    schema = _hinted(Schema.from_arrow(pf0.schema_arrow), schema_hints)
+    cfg = get_context().execution_config
+    tasks: List[ScanTask] = []
+    for p in paths:
+        md = pf0.metadata if p == paths[0] else open_parquet_file(p).metadata
+        fsize = file_size(p)
+        split = _split_row_groups
+        if split is None:
+            split = fsize > cfg.scan_tasks_max_size_bytes and md.num_row_groups > 1
+        if split:
+            runs: List[List[int]] = []
+            cur: List[int] = []
+            cur_bytes = 0
+            for rg in range(md.num_row_groups):
+                cur.append(rg)
+                cur_bytes += md.row_group(rg).total_byte_size
+                if cur_bytes >= cfg.scan_tasks_min_size_bytes:
+                    runs.append(cur)
+                    cur, cur_bytes = [], 0
+            if cur:
+                runs.append(cur)
+            for run in runs:
+                st = row_group_stats(md, run[0], schema)
+                for rg in run[1:]:
+                    st = st.merge(row_group_stats(md, rg, schema))
+                tasks.append(ScanTask(
+                    p, FileFormat.PARQUET, schema, Pushdowns(),
+                    num_rows=sum(md.row_group(rg).num_rows for rg in run),
+                    size_bytes=sum(md.row_group(rg).total_byte_size for rg in run),
+                    stats=st, row_group_ids=run))
+        else:
+            st = None
+            if md.num_row_groups:
+                st = row_group_stats(md, 0, schema)
+                for rg in range(1, md.num_row_groups):
+                    st = st.merge(row_group_stats(md, rg, schema))
+            tasks.append(ScanTask(p, FileFormat.PARQUET, schema, Pushdowns(),
+                                  num_rows=md.num_rows, size_bytes=fsize, stats=st))
+    return _scan_frame(schema, tasks)
+
+
+def read_csv(path, delimiter: str = ",", has_headers: bool = True,
+             column_names: Optional[List[str]] = None,
+             schema_hints: Optional[Dict[str, DataType]] = None, **kw) -> DataFrame:
+    """A lazy scan of CSV files, one task per file (small files merged); the
+    schema is inferred from the first block of the first file."""
+    from .io.readers import file_size, infer_csv_schema
+
+    paths = glob_paths(path)
+    schema = _hinted(infer_csv_schema(paths[0], delimiter=delimiter, has_headers=has_headers,
+                                      column_names=column_names), schema_hints)
+    opts = {"delimiter": delimiter, "has_headers": has_headers,
+            "column_names": column_names, **kw}
+    return _scan_frame(schema, [ScanTask(p, FileFormat.CSV, schema, Pushdowns(),
+                                         storage_options=opts, size_bytes=file_size(p))
+                                for p in paths])
+
+
+def read_json(path, schema_hints: Optional[Dict[str, DataType]] = None) -> DataFrame:
+    """A lazy scan of newline-delimited JSON files, one task per file (small
+    files merged); the schema is inferred from the first block."""
+    from .io.readers import file_size, infer_json_schema
+
+    paths = glob_paths(path)
+    schema = _hinted(infer_json_schema(paths[0]), schema_hints)
+    return _scan_frame(schema, [ScanTask(p, FileFormat.JSON, schema, Pushdowns(),
+                                         size_bytes=file_size(p)) for p in paths])

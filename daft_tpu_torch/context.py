@@ -12,10 +12,14 @@ The planning knobs take the reference's defaults: the plan cache
 (``enable_result_cache``) are on; adaptive execution (``enable_aqe``, with
 ``shuffle_target_partition_bytes``) is off.
 
-Left out of this slice: the rest of the planning config (the sub-plan result
-cache, morsels, streaming, batching and the artifact directory), the scan
-and serving knobs and runner selection (the port has one runner,
-NativeRunner).
+The scan knobs size and merge scan tasks and retry their reads; the
+sub-plan result cache (``subplan_result_cache``, capped at
+``subplan_cache_bytes``) is on, as in the reference.
+
+Left out of this slice: the rest of the planning config (morsels,
+streaming, batching and the artifact directory), scan prefetch
+(``scan_prefetch_depth``, with io/prefetch), the serving knobs and runner
+selection (the port has one runner, NativeRunner).
 """
 
 from __future__ import annotations
@@ -123,6 +127,22 @@ class ExecutionConfig:
     # repeated shape flip a join to broadcast and shrink an aggregate's
     # exchange
     history_fdo: bool = True
+    # read_parquet/read_csv/read_json merge files smaller than the minimum
+    # into one scan task up to the maximum; a parquet file past the maximum
+    # splits into runs of row groups of about the minimum
+    scan_tasks_min_size_bytes: int = 96 * 1024 * 1024
+    scan_tasks_max_size_bytes: int = 384 * 1024 * 1024
+    # a scan task's read retries a transient error (an OSError that is not a
+    # missing file, a permission or a directory) this many attempts in all,
+    # with jittered exponential backoff from this many seconds
+    scan_retry_attempts: int = 3
+    scan_retry_backoff_s: float = 0.1
+    # the sub-plan result cache (adapt/resultcache.py): the partitions of a
+    # Project/Filter chain over a scan replay in a later query that plans
+    # the same prefix, up to this many bytes, charged to the memory
+    # ledger's subplan_cache_bytes account
+    subplan_result_cache: bool = True
+    subplan_cache_bytes: int = 64 * 1024 * 1024
 
 
 # daft_tpu ExecutionConfig field (or "jax_enable_x64") -> port field
@@ -153,6 +173,12 @@ _FROM_REFERENCE = {
     "plan_cache": "plan_cache",
     "plan_cache_bytes": "plan_cache_bytes",
     "history_fdo": "history_fdo",
+    "scan_tasks_min_size_bytes": "scan_tasks_min_size_bytes",
+    "scan_tasks_max_size_bytes": "scan_tasks_max_size_bytes",
+    "scan_retry_attempts": "scan_retry_attempts",
+    "scan_retry_backoff_s": "scan_retry_backoff_s",
+    "subplan_result_cache": "subplan_result_cache",
+    "subplan_cache_bytes": "subplan_cache_bytes",
     "jax_enable_x64": "device_x64",
 }
 

@@ -7,8 +7,9 @@ with_column(s)_renamed, groupby(...).agg, agg, count_rows/len, sort, join
 sort-merge strategies), concat, limit/head, distinct/unique, sample,
 repartition, into_partitions, explode, unpivot/melt, pivot,
 with_monotonically_increasing_id, collect, to_pydict, to_arrow, explain and
-the per-query ``stats``. Left out of this slice: scans and writers, SQL
-predicates, profiling and the integrations.
+the per-query ``stats``, over in-memory frames and over the file scans of
+api.py (read_parquet, read_csv, read_json). Left out of this slice: the
+writers, SQL predicates, profiling and the integrations.
 """
 
 from __future__ import annotations

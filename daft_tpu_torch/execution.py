@@ -815,6 +815,14 @@ def execute_plan(root: PhysicalOp, ctx: ExecutionContext) -> Iterator[MicroParti
     ctx.canonical_fp = getattr(root, "_canonical_fp", "")
 
     def build(op: PhysicalOp) -> Iterator[MicroPartition]:
+        # the sub-plan result cache (adapt/resultcache.py): a Project/Filter
+        # chain over a scan that an earlier query materialized replays its
+        # partitions, or tees them in on this first run; it fails open
+        from .adapt.resultcache import try_result_cache
+
+        served = try_result_cache(op, ctx, build)
+        if served is not None:
+            return served
         return _traced(op, op.execute([build(c) for c in op.children], ctx), ctx)
 
     return _rooted(build(root), ctx)

@@ -31,6 +31,9 @@ from typing import Dict, Optional
 from .errors import DaftTransientError, DaftValueError
 
 SITES = {
+    "scan.read": "each scan-task read attempt (io/scan.py, inside the retry "
+                 "loop: a failure retries up to scan_retry_attempts, then the "
+                 "reader's error reaches the caller)",
     "device.kernel": "each device attempt (ExecutionContext._device_attempt: the "
                      "synchronous ones and each asynchronous launch); a failure "
                      "counts against the DeviceHealth breaker and the partition "
@@ -59,6 +62,9 @@ SITES = {
     "plancache.lookup": "each plan-cache consult (adapt/plancache.py; a failure "
                         "degrades to uncached planning: the warm path fails open, "
                         "never a query failure)",
+    "resultcache.lookup": "each sub-plan result-cache consult "
+                          "(adapt/resultcache.py; a failure runs the prefix "
+                          "plainly: fails open, never a query failure)",
 }
 
 

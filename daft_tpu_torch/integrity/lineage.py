@@ -1,7 +1,5 @@
 """Lineage-based recomputation for spilled partitions (the port's copy of
-daft_tpu/integrity/lineage.py, without the shuffle-piece recipes
-``range_piece_recipe`` and ``fanout_piece_recipe``, which engage only over
-scan-backed sources and come with the scan slice).
+daft_tpu/integrity/lineage.py).
 
 Restarting a whole query because one spill file rotted is the
 coarse-grained failure mode operator frameworks avoid by recovering
@@ -18,8 +16,12 @@ Recipes must never pin partition memory (that would defeat the spill),
 so only partitions re-derivable from stable sources get one:
 
 - a spilled partition still backed by a re-readable scan task (the file
-  is the source of truth — re-read it). The port has no scans yet, so
-  only a caller's scan-task-shaped source engages this.
+  is the source of truth: re-read it);
+- a piece of a hash, random or range shuffle whose source partition was an
+  unloaded scan partition (``fanout_piece_recipe``, ``range_piece_recipe``:
+  re-read the source and split it again, deterministically), and the
+  buffered input of a range shuffle, which its key sampling loaded
+  (``task_recipe`` of the task captured before the sampling).
 
 Everything else — loaded in-memory sources, pruned/combined exchange
 pieces — is *truncated* lineage: corruption there raises
@@ -117,5 +119,40 @@ def task_recipe(task) -> Recipe:
         if hasattr(task, "read_chunks"):
             return list(task.read_chunks())
         return [task.read()]
+
+    return recompute
+
+
+def range_piece_recipe(src_task, by, boundaries, descending, nulls_first,
+                       idx: int) -> Recipe:
+    """Recipe for one range-shuffle piece: re-read the SOURCE partition
+    and re-run the deterministic boundary split (the boundaries are a few
+    sampled key rows, cheap to capture), keeping piece ``idx``."""
+
+    def recompute() -> List:
+        from ..micropartition import MicroPartition
+
+        mp = MicroPartition.from_scan_task(src_task)
+        pieces = mp.partition_by_range(by, boundaries, descending, nulls_first)
+        return [pieces[idx].table()]
+
+    return recompute
+
+
+def fanout_piece_recipe(src_task, by, scheme: str, num: int, seed: int,
+                        idx: int) -> Recipe:
+    """Recipe for one shuffle fan-out piece: re-read the SOURCE partition
+    and re-run the deterministic split (hash bucketing or the seeded random
+    split), keeping bucket ``idx``."""
+
+    def recompute() -> List:
+        from ..micropartition import MicroPartition
+
+        mp = MicroPartition.from_scan_task(src_task)
+        if scheme == "hash":
+            pieces = mp.partition_by_hash(by, num)
+        else:
+            pieces = mp.partition_by_random(num, seed=seed)
+        return [pieces[idx].table()]
 
     return recompute

@@ -1,3 +1,11 @@
-"""Input and output (the port's copy of the part of daft_tpu/io/ this slice
-reads): the scan pushdowns alone, which the lazy partitions of the spill
-layer narrow through. The readers and scan tasks come with the scan slice."""
+"""Input (the port's copy of the part of daft_tpu/io/ this slice reads):
+scan tasks and their pushdowns, the parquet, CSV, JSON and arrow IPC
+readers over local paths, and the IO counters. The decoded arrow tables are
+what the device layer stages. Left out: the writers, the object-store
+client, catalogs and the lake formats."""
+
+from .readers import read_csv_table, read_json_table, read_parquet_table
+from .scan import IO_STATS, FileFormat, IOStats, Pushdowns, ScanTask, glob_paths
+
+__all__ = ["FileFormat", "IOStats", "IO_STATS", "Pushdowns", "ScanTask", "glob_paths",
+           "read_csv_table", "read_json_table", "read_parquet_table"]

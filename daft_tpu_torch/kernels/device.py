@@ -157,6 +157,44 @@ _NARROW_NP = {TypeKind.INT64: np.int32, TypeKind.UINT64: np.int32,
 
 _EPOCH_KINDS = {TypeKind.TIMESTAMP, TypeKind.DURATION, TypeKind.TIME}
 
+# the range of each integer kind: a float cast into it saturates here
+_INT_RANGES = {
+    TypeKind.INT8: (-2**7, 2**7 - 1), TypeKind.INT16: (-2**15, 2**15 - 1),
+    TypeKind.INT32: (-2**31, 2**31 - 1), TypeKind.INT64: (-2**63, 2**63 - 1),
+    TypeKind.UINT8: (0, 2**8 - 1), TypeKind.UINT16: (0, 2**16 - 1),
+    TypeKind.UINT32: (0, 2**32 - 1), TypeKind.UINT64: (0, 2**64 - 1),
+}
+
+
+def float_cast_bounds(dt: DataType, lane: torch.dtype) -> Tuple[int, int]:
+    """``(lo, hi)``: the values a float cast to the integer kind ``dt``
+    saturates at in its compute lane ``lane``. The lane narrows the kind's
+    range (int64 and uint64 in the 32-bit mode's int32 lanes); the 64-bit
+    mode's uint64 lane holds the kind's bits, so its whole range."""
+    lo, hi = _INT_RANGES[dt.kind]
+    if dt.kind == TypeKind.UINT64 and lane == torch.int64:
+        return lo, hi
+    info = torch.iinfo(lane)
+    return max(lo, info.min), min(hi, info.max)
+
+
+def float_to_int(v: torch.Tensor, lane: torch.dtype, lo: int, hi: int) -> torch.Tensor:
+    """A float tensor cast to the integer ``lane`` as XLA casts: toward zero,
+    NaN to 0, saturating at ``lo`` and ``hi``. torch's own conversion of NaN,
+    an infinity or an out-of-range value is undefined (the CPU gives the
+    lane's minimum), so every such value is replaced before the conversion.
+    The bounds compare in the float domain: ``lo`` and ``hi + 1`` are 0 or
+    powers of two, exact in float32 and float64, where ``hi`` itself is not."""
+    over = v >= float(hi + 1)
+    under = v < float(lo)
+    t = torch.where(over | under | torch.isnan(v), torch.zeros_like(v), v)
+    if hi >= 2**63:
+        # the 64-bit mode's uint64 lane: values past the int64 range convert
+        # as their two's-complement bits (t - 2**64 is exact there)
+        t = torch.where(t >= float(2**63), t - float(2**64), t)
+        hi -= 2**64
+    return t.to(lane).masked_fill(over, hi).masked_fill(under, lo)
+
 
 def is_device_dtype(dt: DataType) -> bool:
     """Device-representable in the current mode. Both modes: int64 and
@@ -1891,9 +1929,18 @@ def _compile_node(node, schema):
         inner, _ = _compile_node(node.child, schema)
         jd = _jdt(node.dtype)
 
-        def run(env, _inner=inner, _jd=jd, _dt=node.dtype):
-            v, m = _inner(env)
-            return _wrap_unsigned(v.to(_jd), _dt), m
+        if node.dtype.kind in _INT_RANGES:
+            lo, hi = float_cast_bounds(node.dtype, jd)
+
+            def run(env, _inner=inner, _jd=jd, _dt=node.dtype, _lo=lo, _hi=hi):
+                v, m = _inner(env)
+                if v.is_floating_point():
+                    return float_to_int(v, _jd, _lo, _hi), m
+                return _wrap_unsigned(v.to(_jd), _dt), m
+        else:
+            def run(env, _inner=inner, _jd=jd, _dt=node.dtype):
+                v, m = _inner(env)
+                return _wrap_unsigned(v.to(_jd), _dt), m
 
         return run, out_dt
 

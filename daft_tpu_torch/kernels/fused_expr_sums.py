@@ -15,7 +15,9 @@ The kernel's per-row body is generated from the expression nodes:
   over the biased int32 halves of the epoch lanes)
   into C++ that computes the same (value, valid) lanes as the torch
   closures, bit for bit: the same type promotion (``torch.promote_types``), the same casts
-  (a float-to-int cast is torch's CUDA cast: saturate to int32 with NaN to 0,
+  (a Cast of a float to an integer kind is device.float_to_int: toward zero,
+  NaN to 0, saturating at the lane's bounds; an implicit float-to-int
+  conversion is torch's CUDA cast: saturate to int32 with NaN to 0,
   then wrap to a narrower type; to int64 and to uint8 through a saturating
   int64), Kleene ``&``/``|``, floor-based ``//`` and ``%``, and integer
   division by zero giving null. ``**`` goes through ``powf``, which may
@@ -59,7 +61,7 @@ import torch
 
 from ..errors import DaftKernelError
 from . import nvcc
-from .device import _jdt, _literal_to_physical
+from .device import _INT_RANGES, _jdt, _literal_to_physical, float_cast_bounds
 from .segment_sums import _MAX_K, BLOCK_ROWS, MAX_GROUPS, masked_segment_sums_plain, pass1_args
 
 # engagement counters, plain ints a run resets and reads:
@@ -105,6 +107,16 @@ __host__ __device__ inline int64_t fes_f2l(float x) {
   if (x != x) return 0;
   if (x >= 9223372036854775808.0f) return 9223372036854775807LL;
   if (x <= -9223372036854775808.0f) return -9223372036854775807LL - 1;
+  return static_cast<int64_t>(x);
+}
+// a Cast of a float to an integer kind (device.float_to_int): toward zero,
+// NaN -> 0, saturating at [lo_i, hi_i]; lo and hi1 (hi_i + 1) are those
+// bounds as floats, 0 or powers of two, so exact
+__host__ __device__ inline int64_t fes_f2sat(float x, float lo, float hi1,
+                                             int64_t lo_i, int64_t hi_i) {
+  if (x != x) return 0;
+  if (x >= hi1) return hi_i;
+  if (x < lo) return lo_i;
   return static_cast<int64_t>(x);
 }
 // torch.floor_divide / torch.remainder on integers (b != 0); a / -1 wraps
@@ -161,6 +173,11 @@ def _cast(v: str, src: torch.dtype, dst: torch.dtype) -> str:
         if dst in (torch.int32, torch.int64):
             return v
     return f"static_cast<{_CTYPES[dst]}>({v})"  # int -> narrower int wraps, as torch does
+
+
+def _int64_literal(x: int) -> str:
+    """An int64 C++ literal (the minimum has no literal of its own)."""
+    return "(-9223372036854775807LL - 1)" if x == -2**63 else f"{x}LL"
 
 
 def _int_arith(op: str, a: str, b: str, dt: torch.dtype) -> str:
@@ -229,6 +246,11 @@ class _Emitter:
         if isinstance(nd, Cast):
             v, m, dt = self.node(nd.child)
             jd = _jdt(nd.dtype)
+            if dt.is_floating_point and nd.dtype.kind in _INT_RANGES:
+                lo, hi = float_cast_bounds(nd.dtype, jd)
+                sat = (f"fes_f2sat({v}, {float(lo)!r}f, {float(hi + 1)!r}f, "
+                       f"{_int64_literal(lo)}, {_int64_literal(hi)})")
+                return self._let(jd, f"static_cast<{_CTYPES[jd]}>({sat})"), m, jd
             return self._let(jd, _wrap_unsigned(_cast(v, dt, jd), jd, nd.dtype)), m, jd
         if isinstance(nd, Not):
             v, m, dt = self.node(nd.child)

@@ -2,13 +2,14 @@
 of daft_tpu/logical.py). Every node resolves and validates its output schema
 at construction time, so API misuse fails at build time, not at collect time.
 
-This slice carries InMemorySource, Project, Filter, Limit, Sort,
+This slice carries InMemorySource, ScanSource (files through scan tasks),
+Project, Filter, Limit, Sort,
 Repartition (hash, range, random and into), Distinct, Sample, Aggregate,
 Pivot, Join (every join type, the cross join among them, with the size
 estimate the join planner reads), Concat, Explode, Unpivot and
 MonotonicallyIncreasingId, and the expression-analysis helpers the
-optimizer (optimizer.py) uses. Left out until a later slice: scans and
-writes, and the row-count estimates.
+optimizer (optimizer.py) uses. Left out until a later slice: writes, and
+the row-count estimates of the nodes above a source.
 """
 
 from __future__ import annotations
@@ -157,6 +158,64 @@ class InMemorySource(LogicalPlan):
     def multiline_display(self):
         return [f"InMemorySource: {len(self.partitions)} partitions",
                 f"Schema = {self.schema.short_repr()}"]
+
+
+class ScanSource(LogicalPlan):
+    """Scan over files through ScanTasks (io/scan.py). The optimizer installs
+    the pushdowns (columns, a filter, a limit) on the tasks; the visible
+    schema follows the column pushdown, which every task shares."""
+
+    def __init__(self, schema: Schema, tasks: List[Any]):
+        self.file_schema = schema
+        self.tasks = tasks
+        self.schema = tasks[0].materialized_schema if tasks else schema
+
+    def with_children(self, children):
+        assert not children
+        return self
+
+    def with_pushdowns(self, pushdowns) -> "ScanSource":
+        return ScanSource(self.file_schema, [t.with_pushdowns(pushdowns) for t in self.tasks])
+
+    def pushdowns(self):
+        from .io.scan import Pushdowns
+
+        return self.tasks[0].pushdowns if self.tasks else Pushdowns()
+
+    def num_partitions(self) -> int:
+        return max(len(self.tasks), 1)
+
+    def approx_num_rows(self) -> Optional[int]:
+        """The rows after pushdowns, from file metadata (None under a
+        pushed filter, or where a task does not know)."""
+        total = 0
+        for t in self.tasks:
+            n = t.num_rows()
+            if n is None:
+                return None
+            total += n
+        return total
+
+    def approx_size_bytes(self) -> Optional[int]:
+        """The tasks' bytes: the file's size, or its row groups' from the
+        footer, whatever the pushdowns read of it."""
+        total = 0
+        for t in self.tasks:
+            n = t.size_bytes()
+            if n is None:
+                return None
+            total += n
+        return total
+
+    def multiline_display(self):
+        lines = [f"ScanSource: {len(self.tasks)} tasks"]
+        if self.tasks:
+            lines.append(f"Format = {self.tasks[0].format}")
+            pd = self.pushdowns()
+            if not pd.is_empty():
+                lines.append(f"Pushdowns = {pd!r}")
+        lines.append(f"Schema = {self.schema.short_repr()}")
+        return lines
 
 
 class UnaryNode(LogicalPlan):

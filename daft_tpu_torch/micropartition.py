@@ -2,11 +2,14 @@
 daft_tpu/micropartition.py).
 
 A partition is either loaded (one or more Tables; concat chains tables
-instead of copying them) or unloaded: a scan task (a spilled partition's
-file slot, an encoded exchange piece) that materializes on first use, under
-the partition's lock. Metadata (``len``, ``num_rows_or_none``,
-``size_bytes``, the schema) answers from the task without reading it, so
-routing decisions never force a spilled partition back in. ``head`` and
+instead of copying them) or unloaded: a scan task (a file's, a spilled
+partition's slot, an encoded exchange piece) that materializes on first
+use, under the partition's lock. Metadata (``len``, ``num_rows_or_none``,
+``size_bytes``, the schema, and ``statistics``, the task's file statistics)
+answers from the task without reading it, so routing decisions never force
+a file or a spilled partition in. ``iter_chunk_tables`` reads an unloaded
+file task chunk by chunk (``ScanTask.iter_chunks``: parquet one row group
+at a time) without changing the partition's state. ``head`` and
 ``select_columns`` narrow an unloaded task through its pushdowns.
 ``device_stage_cache`` holds the columns already staged on the card
 (DeviceColumns keyed by column, bucket and device), so repeated queries
@@ -17,30 +20,31 @@ loads on the thread that asks for its table, and staging happens there.
 hash and range shuffles chunk by chunk, as the reference does;
 ``partition_by_random`` splits the whole partition, since its draw is over
 row positions. Left out of this slice: the deferred op chains and owner
-process of multi-host scans, file statistics, pickling for worker processes
-and the writer.
+process of multi-host scans, pickling for worker processes and the writer.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, Iterator, List, Optional
 
 from .schema import Schema
+from .stats import TableStats
 from .table import Table
 
 
 class MicroPartition:
-    __slots__ = ("schema", "_tables", "_scan_task", "_lock", "_device_cache",
+    __slots__ = ("schema", "_tables", "_scan_task", "_stats", "_lock", "_device_cache",
                  "lineage_recipe")
 
     def __init__(self, schema: Schema, tables: Optional[List[Table]] = None,
-                 scan_task=None):
+                 scan_task=None, stats: Optional[TableStats] = None):
         if (tables is None) == (scan_task is None):
             raise ValueError("MicroPartition needs exactly one of tables / scan_task")
         self.schema = schema
         self._tables = tables
         self._scan_task = scan_task
+        self._stats = stats
         self._lock = threading.Lock()
         self._device_cache: Dict[Any, Any] = {}
         # a zero-arg closure that re-derives this partition's tables from
@@ -58,8 +62,10 @@ class MicroPartition:
 
     @staticmethod
     def from_scan_task(task) -> "MicroPartition":
-        """An unloaded partition: ``task.read()`` materializes it."""
-        return MicroPartition(task.materialized_schema, scan_task=task)
+        """An unloaded partition: ``task.read()`` materializes it. A file
+        task's statistics (None for other tasks) become the partition's."""
+        return MicroPartition(task.materialized_schema, scan_task=task,
+                              stats=getattr(task, "stats", None))
 
     @staticmethod
     def empty(schema: Optional[Schema] = None) -> "MicroPartition":
@@ -104,6 +110,23 @@ class MicroPartition:
                 self._tables = [t for t in tbls if len(t)] or [Table.empty(self.schema)]
                 self._scan_task = None
             return list(self._tables)
+
+    def iter_chunk_tables(self) -> Iterator[Table]:
+        """The partition's tables, lazily: a loaded one yields its chained
+        tables; an unloaded one decodes through its task's ``iter_chunks``
+        (parquet one row group at a time) where it has one, without loading
+        the partition (a second iteration reads again)."""
+        with self._lock:
+            if self._scan_task is None:
+                return iter(list(self._tables))
+            task = self._scan_task
+        if not hasattr(task, "iter_chunks"):
+            return iter(self.chunk_tables())
+        return (t for t in task.iter_chunks() if len(t))
+
+    def statistics(self) -> Optional[TableStats]:
+        """The file statistics of the scan task the partition came from."""
+        return self._stats
 
     def __len__(self) -> int:
         n = self.num_rows_or_none()

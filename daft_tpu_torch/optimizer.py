@@ -3,16 +3,17 @@ over the plan nodes the port has).
 
 The rules rewrite the logical tree to a fixed point (bounded passes):
 filter pushdown (across projections, sorts, repartitions, distincts and
-monotonic ids, into both sides of a concat, and into the sides of an equi
-join), limit pushdown (across projections and into both sides of a
-concat), repartition elision and projection folding. Then one
+monotonic ids, into both sides of a concat, into the sides of an equi
+join, and into a scan's tasks), limit pushdown (across projections, into
+both sides of a concat, and into a scan's tasks under the Limit that stays
+above), repartition elision and projection folding. Then one
 column-pruning pass pushes the set of needed columns toward the sources
 (through pivots, explodes, unpivots, concats, samples and monotonic ids
-too), where a pruning Project over an in-memory source keeps only what
-later operators read, and the rules run to a fixed point again.
+too): a scan reads only those columns (its column pushdown), and a pruning
+Project over an in-memory source keeps only what later operators read.
+The rules then run to a fixed point again.
 
-Left out until their nodes are ported: the scan pushdowns (filters, limits
-and columns installed in a ScanSource) and the write branch.
+Left out until its node is ported: the write branch.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from typing import Dict, List, Optional, Tuple
 from .expressions import BinaryOp, Expression, col
 from .logical import (Aggregate, Concat, Distinct, Explode, Filter, InMemorySource, Join, Limit,
                       LogicalPlan, MonotonicallyIncreasingId, Pivot, Project, Repartition,
-                      Sample, Sort, Unpivot, expr_has_special, expr_input_columns,
+                      Sample, ScanSource, Sort, Unpivot, expr_has_special, expr_input_columns,
                       is_trivial_passthrough, substitute_columns)
 
 
@@ -134,6 +135,15 @@ def _push_down_filter(p: LogicalPlan) -> Optional[LogicalPlan]:
     if isinstance(child, Join):
         return _filter_into_join(p, child)
 
+    if isinstance(child, ScanSource):
+        pd = child.pushdowns()
+        if pd.limit is not None:
+            return None  # a limit already applies at the scan: the filter stays above it
+        if expr_has_special(pred):
+            return None
+        new_filter = pred._node if pd.filters is None else (Expression(pd.filters) & pred)._node
+        return child.with_pushdowns(pd.with_filters(new_filter))
+
     return None
 
 
@@ -216,6 +226,13 @@ def _push_down_limit(p: LogicalPlan) -> Optional[LogicalPlan]:
         if any(expr_has_special(e) for e in child.exprs):
             return None
         return Project(Limit(child.input, p.limit), child.exprs)
+    if isinstance(child, ScanSource):
+        pd = child.pushdowns()
+        if pd.limit is not None and pd.limit <= p.limit:
+            return None
+        new_limit = p.limit if pd.limit is None else min(pd.limit, p.limit)
+        # the Limit node stays: each task's limit still needs a global cap
+        return Limit(child.with_pushdowns(pd.with_limit(new_limit)), p.limit)
     if isinstance(child, Concat):
         a, b = child.input, child.other
         if (isinstance(a, Limit) and a.limit <= p.limit
@@ -293,7 +310,15 @@ def _add_inputs(need: List[str], exprs) -> None:
 
 def _prune_columns(p: LogicalPlan, required: Optional[List[str]]) -> LogicalPlan:
     """Push the set of needed columns toward the sources. required=None
-    means every column is needed."""
+    means every column is needed; a scan takes them as its column
+    pushdown."""
+    if isinstance(p, ScanSource):
+        pd = p.pushdowns()
+        want = _restrict(required, p.schema.field_names())
+        if required is not None and want != p.schema.field_names():
+            return p.with_pushdowns(pd.with_columns(want))
+        return p
+
     if isinstance(p, InMemorySource):
         want = _restrict(required, p.schema.field_names())
         if required is not None and want != p.schema.field_names():

@@ -62,9 +62,16 @@ small to a BroadcastJoinOp (with a mispredict guard), and
 ``_translate_aggregate`` shrinks an aggregate's exchange to ``reduce_to``
 partitions, merging adjacent hash buckets at the reduce side.
 
-Left out of this slice: scans; the shuffle's mesh and peer-to-peer legs and
-its pieces' lineage recipes (they engage only over scan-backed sources),
-each of which the reference keeps byte-identical when off; the morsel split
+A ScanSource translates to a ScanOp: one unloaded partition per scan task
+its statistics do not prune, each read by the operator above it. The
+shuffle gives each piece of such a partition a lineage recipe
+(integrity/lineage.py) that re-reads the file and splits it again.
+
+Left out of this slice: scan prefetch (io/prefetch); the shuffle's mesh and
+peer-to-peer legs and its parallel fan-out (so the reference's
+``_subtree_may_yield_unloaded``, which sizes that fan-out's window, has no
+caller here), each of which the reference keeps byte-identical when off;
+the morsel split
 of in-memory sources, which the reference skips on the device path; the
 mesh exchange of the sort-merge join, the write op, the worker pool,
 streaming and batched UDFs.
@@ -85,9 +92,11 @@ from typing import Dict, Iterator, List, Optional, Tuple
 from . import faults
 from .errors import PORT_FAILURES
 from .expressions import AggExpr, Alias, Expression, col, lit
+from .integrity.lineage import (fanout_piece_recipe, range_piece_recipe, task_recipe,
+                                unwrap_source_task)
 from .logical import (Aggregate, Concat, Distinct, Explode, Filter, InMemorySource, Join, Limit,
                       LogicalPlan, MonotonicallyIncreasingId, Pivot, Project, Repartition,
-                      Sample, Sort, Unpivot)
+                      Sample, ScanSource, Sort, Unpivot)
 from .micropartition import MicroPartition
 from .schema import Schema
 
@@ -178,6 +187,36 @@ class PhysicalOp:
 
     def __repr__(self) -> str:
         return self.display_tree()
+
+
+class ScanOp(PhysicalOp):
+    """The source over files: one unloaded partition per scan task whose
+    statistics do not prove its pushed filter matches nothing. Each reads
+    its file when the first operator above asks for its table."""
+
+    def __init__(self, tasks: List, schema: Schema):
+        super().__init__([], schema, max(len(tasks), 1))
+        self.tasks = tasks
+
+    def plan_parts(self, ctx) -> List[MicroPartition]:
+        """The scan's unloaded partitions, the pruned tasks counted
+        (``scan_tasks_pruned``) and the rest emitted (``scan_tasks_emitted``)."""
+        parts = []
+        for task in self.tasks:
+            if task.can_prune():
+                ctx.stats.bump("scan_tasks_pruned")
+                continue
+            ctx.stats.bump("scan_tasks_emitted")
+            parts.append(MicroPartition.from_scan_task(task))
+        return parts
+
+    def execute(self, inputs, ctx) -> PartStream:
+        # in order, each read by its consumer: the reference's path with
+        # scan_prefetch_depth 0 (scan prefetch comes with io/prefetch)
+        yield from self.plan_parts(ctx)
+
+    def describe(self):
+        return f"Scan [{len(self.tasks)} tasks]"
 
 
 class InMemoryOp(PhysicalOp):
@@ -638,29 +677,49 @@ class ShuffleOp(PhysicalOp):
             buckets[i].append(piece)
 
         saw = False
+        # lineage (integrity/lineage.py): the pieces of an unloaded partition
+        # over a file re-derive from the file, so a spilled piece whose file
+        # is corrupt or gone recomputes. The task is captured before the
+        # split (or the sampling) loads the partition
+        lineage_on = ctx.cfg.lineage_recomputation
         if self.scheme == "range":
             # the boundaries need every input, so the partitions are buffered
             # (spillable) and their keys sampled as they stream in: a spilled
             # partition is never read back for sampling
             in_buf = ctx.partition_buffer()
             samples = []
+            src_tasks = []
             for p in src:
+                src_task = unwrap_source_task(p) if lineage_on else None
+                src_tasks.append(src_task)
                 samples.append(sample_partition_keys(p, self.by, n, ctx.cfg.sample_size_for_sort))
+                if src_task is not None:
+                    # the sampling loaded it: buffered, it re-reads its file
+                    p.lineage_recipe = task_recipe(src_task)
                 in_buf.append(p)
             saw = len(in_buf) > 0
             if saw:
                 boundaries = boundaries_from_samples(samples, self.by, n, self.descending,
                                                      self.nulls_first)
-            for p in in_buf.drain():
+            for pi, p in enumerate(in_buf.drain()):
                 pieces = p.partition_by_range(self.by, boundaries, self.descending,
                                               self.nulls_first)
                 for i, piece in enumerate(pieces):
+                    if src_tasks[pi] is not None:
+                        piece.lineage_recipe = range_piece_recipe(
+                            src_tasks[pi], self.by, boundaries, self.descending,
+                            self.nulls_first, i)
                     exchange_append(min(i, n - 1), piece)
         else:
             for pi, p in enumerate(src):
                 saw = True
+                src_task = unwrap_source_task(p) if lineage_on else None
                 pieces = (p.partition_by_hash(self.by, n) if self.scheme == "hash"
                           else p.partition_by_random(n, seed=pi))
+                if src_task is not None:
+                    for i, piece in enumerate(pieces):
+                        piece.lineage_recipe = fanout_piece_recipe(
+                            src_task, self.by, self.scheme, n, pi, i)
                 for i, piece in enumerate(pieces):
                     if comb is None or comb.failed:
                         exchange_append(i, piece)
@@ -1135,6 +1194,8 @@ def translate(plan: LogicalPlan, cfg=None, stats=None) -> PhysicalOp:
 def _translate(plan: LogicalPlan, cfg) -> PhysicalOp:
     if isinstance(plan, InMemorySource):
         return InMemoryOp(plan.partitions, plan.schema)
+    if isinstance(plan, ScanSource):
+        return ScanOp(plan.tasks, plan.schema)
     if isinstance(plan, Project):
         return ProjectOp(_translate(plan.input, cfg), plan.exprs, plan.schema)
     if isinstance(plan, Filter):

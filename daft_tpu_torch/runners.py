@@ -15,8 +15,11 @@ threshold again per stage, and the stages share one time budget.
 
 ``plan_cache_key`` is the exact structural key of a plan: the plan
 cache's binding and the key of ``DataFrame.collect``'s whole-plan result
-cache (``PartitionSetCache``). Left out of this slice: the scan and
-factory branches of the key, and the mesh and distributed runners.
+cache (``PartitionSetCache``). A scan keys on each task's file, its mtime
+and size, format, pushdowns, schema and options (``_scan_task_key``, also
+the sub-plan result cache's key), so an overwritten file never serves a
+cached plan or result. Left out of this slice: the factory-scan branch of
+the key (io/pyscan), and the mesh and distributed runners.
 """
 
 from __future__ import annotations
@@ -117,9 +120,36 @@ def plan_cache_key(plan: LogicalPlan) -> Optional[str]:
 _SCALARS = (str, int, float, bool, bytes, type(None))
 
 
+def _file_fingerprint(path: str) -> str:
+    """The file's mtime and size, so that an overwritten file never serves a
+    cached plan or result; a file that cannot be stat'ed is uncacheable."""
+    import os
+
+    try:
+        st = os.stat(path)
+    except OSError:
+        raise _Uncacheable from None
+    return f"{st.st_mtime_ns}:{st.st_size}"
+
+
+def _scan_task_key(t) -> str:
+    """The exact key of one scan task: path, mtime and size, format,
+    pushdowns, row groups, partition values, reader options and schema (the
+    same file read with another delimiter or schema hint is another key)."""
+    from .io.scan import MergedScanTask
+
+    if isinstance(t, MergedScanTask):
+        # every child's file: the merged task's path is its first child's
+        return "+".join(_scan_task_key(c) for c in t.children)
+    opts = sorted((k, repr(v)) for k, v in t.storage_options.items())
+    sch = [(f.name, str(f.dtype)) for f in t.schema]
+    return (f"{t.path}|{_file_fingerprint(t.path)}|{t.format}|{t.pushdowns!r}"
+            f"|{t.row_group_ids}|{t.partition_values}|{opts}|{sch}")
+
+
 def _plan_key(p: LogicalPlan) -> str:
     from .expressions import Expression
-    from .logical import InMemorySource, Sample
+    from .logical import InMemorySource, Sample, ScanSource
 
     if isinstance(p, Sample) and p.seed is None:
         raise _Uncacheable
@@ -130,6 +160,8 @@ def _plan_key(p: LogicalPlan) -> str:
         if tok is None:
             raise _Uncacheable
         return f"mem#{tok}"
+    if isinstance(p, ScanSource):
+        return "scan#" + ";".join(_scan_task_key(t) for t in p.tasks)
     items = []
     for k, v in sorted(vars(p).items()):
         # schemas derive from the children and the expressions, covered here

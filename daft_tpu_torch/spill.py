@@ -27,12 +27,13 @@ The writer thread and the readahead read and write host arrow only: no
 CUDA call runs on them. A spilled partition loads on the thread that asks
 for its table, and its columns stage on the card there.
 
-The ledger also carries the plan cache's resident bytes
-(``cache_account("plan_cache_bytes")``), outside ``current``.
+The ledger also carries the plan cache's and the sub-plan result cache's
+resident bytes (``cache_account("plan_cache_bytes")``,
+``cache_account("subplan_cache_bytes")``), outside ``current``.
 
 Left out: the ledger's accounts for producers the port does not have yet
 (scan prefetch, streaming channels, batching, the scheduler's parked
-outputs, distributed workers, the sub-plan result and model caches), the
+outputs, distributed workers, the model cache), the
 child ledgers of the serving runtime, and the profiler spans and log lines.
 """
 
@@ -95,11 +96,14 @@ class MemoryLedger:
         # `current`, since they are process-lifetime state shed by the cache's
         # own cap, not a query's working set the spill reacts to
         self.plan_cache_bytes = 0
+        # the sub-plan result cache's resident bytes (adapt/resultcache.py),
+        # outside `current` for the same reason
+        self.subplan_cache_bytes = 0
 
     def cache_account(self, account: str, delta: int) -> None:
-        """Charge or release a process cache account (``plan_cache_bytes``);
-        clamped at 0."""
-        if account not in ("plan_cache_bytes",):
+        """Charge or release a process cache account (``plan_cache_bytes``,
+        ``subplan_cache_bytes``); clamped at 0."""
+        if account not in ("plan_cache_bytes", "subplan_cache_bytes"):
             from .errors import DaftValueError
 
             raise DaftValueError(f"unknown cache account {account!r}")
@@ -167,7 +171,7 @@ class MemoryLedger:
     _ACCOUNTS = ("current", "high_water", "spilled_bytes", "spilled_partitions",
                  "negative_releases", "async_spill_inflight", "spill_write_bytes",
                  "spill_write_ns", "unspill_bytes", "unspill_ns", "disk_full_events",
-                 "plan_cache_bytes")
+                 "plan_cache_bytes", "subplan_cache_bytes")
 
     def reset(self) -> None:
         with self._lock:
