@@ -190,13 +190,24 @@ Phases, each of which fails the run:
      rows) and always (the reader's error after scan_retry_attempts), and a
      hash repartition of the lineitem scan under a 32 MiB budget with its
      first spill file damaged (spill.corrupt): the piece recomputes from the
-     parquet file and the rows are the undamaged run's.
+     parquet file and the rows are the undamaged run's;
+ 13. the scan's readahead and the write path on the card (needs SF1 in
+     --scales; phase_prefetch_write): phase 3's SF1 lineitem written by the
+     port's own write_parquet over into_partitions(8) into a temporary
+     directory the phase removes; composed Q1 (K1), deep Q1 (K2) and Q6 over
+     the 8 files, one scan task each, at scan_prefetch_depth 0 and 2, cold
+     and then warm once, against the pyarrow oracle at rtol 1e-6, with
+     equal rows and launches at both depths, the readahead engaged at depth
+     2 and the ledger's prefetch_inflight and current at 0 after each
+     query; Q1's result written hive-partitioned by l_returnflag and read
+     back equal; then, outside the zero-failure checks, prefetch.fetch
+     armed first_n 1, whose error reaches the caller.
 
 Phases 8-11 run after phase 7 and before phase 4, while the 22-query
 tables are still being generated. Phases 1-10 turn feedback-directed
 planning and the whole-plan result cache off (PLAN_PINS): each times its
-plans as written. Every query of phases 1-7, 9, 10, 11 and 12 (but the
-ids' Q6 and largest id and the fault cases of phases 10, 11 and 12) is held
+plans as written. Every query of phases 1-7 and 9-13 (but the ids' Q6
+and largest id and the fault cases of phases 10-13) is held
 to 0 device_attempt_failures, device_breaker_trips, degraded_completions,
 faults_injected, join_filter_errors and every *_fallbacks counter (Phases.watch reads them as collect() returns, and each
 phase's line says how many queries it read), so that no failure the device
@@ -4446,6 +4457,194 @@ def phase_scans(ph: Phases, files: ParquetFiles, data: dict, card_rows: dict, li
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the scan's readahead and the write path
+# ---------------------------------------------------------------------------
+
+WRITE_PARTS = 8  # phase 13 writes SF1 lineitem as this many parquet files
+PREFETCH_DEPTHS = (0, 2)
+
+
+def phase_prefetch_write(ph: Phases, lineitem, card: str) -> dict:
+    """Phase 13: the scan's readahead and the write path on the card, in the
+    32-bit mode: (a) phase 3's SF1 lineitem written by the port's own
+    write_parquet over into_partitions(8), 8 files in a temporary directory
+    that the phase removes; (b) Q1 composed (K1), Q1 deep (K2) and Q6 over
+    those files, one scan task a file (scan_tasks_min_size_bytes 1), each
+    at scan_prefetch_depth 0 and 2, cold and then warm once, against the
+    pyarrow oracle at rtol 1e-6, with equal rows and launches at both
+    depths, the readahead engaged at depth 2 (prefetch_submitted, hits and
+    misses) and the ledger's prefetch_inflight and current at 0 after each
+    query; (c) Q1's result written hive-partitioned by l_returnflag and read
+    back equal. Then, outside the zero-failure checks: (d) prefetch.fetch
+    armed first_n 1, whose error reaches the caller. Each driven query
+    counts K1's, K2's and the scatter kernel's launches from 0 just before
+    it."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+
+    import pyarrow.parquet as papq
+    import torch
+
+    import daft_tpu_torch as dtt
+    from benchmarks import tpch
+    from daft_tpu_torch import faults
+    from daft_tpu_torch.errors import DaftTransientError
+    from daft_tpu_torch.kernels import fused_expr_sums as fes
+    from daft_tpu_torch.kernels import scatter_sums as scs
+    from daft_tpu_torch.kernels import segment_sums as ss
+    from daft_tpu_torch.spill import MEMORY_LEDGER
+
+    out = {"k1_launches": 0, "k2_launches": 0, "scatter_launches": 0}
+
+    def count_launches() -> dict:
+        """The launches since the counts were last set to 0, added to the
+        phase's; the counts start again from 0."""
+        launches = {"k1": ss.LAUNCHES, "k2": fes.LAUNCHES, "scatter": scs.LAUNCHES}
+        for k, v in launches.items():
+            out[f"{k}_launches"] += v
+        ss.LAUNCHES = fes.LAUNCHES = scs.LAUNCHES = 0
+        return launches
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_write_")
+    try:
+        # --- (a) the write
+        dtt.set_execution_config(config())
+        t0 = time.perf_counter()
+        manifest = dtt.from_arrow(lineitem).into_partitions(WRITE_PARTS).write_parquet(
+            os.path.join(root, "lineitem"))
+        write_s = time.perf_counter() - t0
+        paths = manifest.to_pydict()["path"]
+        nrows = sum(papq.ParquetFile(p).metadata.num_rows for p in paths)
+        nbytes = sum(os.path.getsize(p) for p in paths)
+        ph.check(len(paths) == WRITE_PARTS and nrows == lineitem.num_rows,
+                 f"SF1 write: write_parquet over into_partitions({WRITE_PARTS}) wrote "
+                 f"{len(paths)} files of {nrows} rows in all ({nbytes} bytes, {write_s:.2f}s)")
+        out["write"] = {"write_s": write_s, "files": len(paths), "bytes": nbytes, "card": card}
+        print("SF1 write " + json.dumps(out["write"]), flush=True)
+
+        # --- (b) Q1 composed, Q1 deep and Q6 over the files at depths 0 and 2
+        want = {"q1": tpch.oracle_q1(lineitem), "q6": {"revenue": [tpch.oracle_q6(lineitem)]}}
+        summary = {}
+        for name, query, deep in (("q1", q1, False), ("q1", q1, True), ("q6", q6, False)):
+            route = "deep" if deep else "composed"
+            kernel = "k2" if deep else "k1"
+            runs = {}
+            for depth in PREFETCH_DEPTHS:
+                dtt.set_execution_config(config(use_deep_fusion_kernel=deep,
+                                                scan_tasks_min_size_bytes=1,
+                                                scan_prefetch_depth=depth))
+                label = f"SF1 prefetch {name} {route} depth {depth}"
+                walls, seen = [], []
+                for rep in ("cold", "warm"):
+                    ss.LAUNCHES = fes.LAUNCHES = scs.LAUNCHES = 0
+                    t0 = time.perf_counter()
+                    df = query(dtt.read_parquet(paths)).collect()
+                    rows = df.to_pydict()
+                    torch.cuda.synchronize()
+                    walls.append(time.perf_counter() - t0)
+                    launches = count_launches()
+                    c = df.stats.snapshot()["counters"]
+                    seen.append((rows, launches, c))
+                    ph.check(parity(rows, want[name], RTOL),
+                             f"{label} {rep}: matches the pyarrow oracle at rtol {RTOL}")
+                    ph.check(c.get("scan_tasks_emitted", 0) == WRITE_PARTS
+                             and launches[kernel] >= 1 and c.get("device_aggregations", 0) >= 1,
+                             f"{label} {rep}: {c.get('scan_tasks_emitted', 0)} scan tasks, "
+                             f"aggregated on the card through {kernel.upper()} ({launches})")
+                    ph.check(MEMORY_LEDGER.prefetch_inflight == 0 and MEMORY_LEDGER.current == 0,
+                             f"{label} {rep}: the ledger's prefetch_inflight "
+                             f"{MEMORY_LEDGER.prefetch_inflight} and current "
+                             f"{MEMORY_LEDGER.current} after the query")
+                    del df
+                (rows0, l0, c0), (rows1, l1, _) = seen
+                ph.check(rows1 == rows0 and l1 == l0,
+                         f"{label}: the warm run's rows and launches are the cold run's")
+                if depth:
+                    ph.check(c0.get("prefetch_submitted", 0) > 0
+                             and c0.get("prefetch_hits", 0) + c0.get("prefetch_misses", 0) > 0,
+                             f"{label}: the readahead engaged (prefetch_submitted "
+                             f"{c0.get('prefetch_submitted', 0)}, hits "
+                             f"{c0.get('prefetch_hits', 0)}, misses "
+                             f"{c0.get('prefetch_misses', 0)})")
+                res = {"cold_s": walls[0], "warm_s": walls[1], "launches": l0,
+                       "io_wait_ms": c0.get("io_wait_ns", 0) / 1e6,
+                       "prefetch_read_ms": c0.get("prefetch_read_ns", 0) / 1e6,
+                       **{k: c0.get(k, 0) for k in ("prefetch_submitted", "prefetch_hits",
+                                                    "prefetch_misses", "prefetch_throttled")},
+                       "card": card}
+                print(f"{label} " + json.dumps(res), flush=True)
+                runs[depth] = (rows0, l0, res)
+            (r0, l0, res0), (r2, l2, res2) = runs[0], runs[2]
+            ph.check(r2 == r0 and l2 == l0,
+                     f"SF1 prefetch {name} {route}: equal rows and launches ({l0}) at depths 0 "
+                     f"and 2")
+            summary[f"{name}_{route}"] = {f"depth{d}": {"cold_s": runs[d][2]["cold_s"],
+                                                        "warm_s": runs[d][2]["warm_s"]}
+                                          for d in PREFETCH_DEPTHS}
+        out["prefetch"] = summary
+        print("SF1 prefetch summary " + json.dumps({**summary, "card": card}), flush=True)
+
+        # --- (c) Q1's result written hive-partitioned, read back
+        dtt.set_execution_config(config(scan_tasks_min_size_bytes=1))
+        ss.LAUNCHES = fes.LAUNCHES = scs.LAUNCHES = 0
+        q1_rows = q1(dtt.read_parquet(paths)).to_pydict()
+        q1_launches = count_launches()
+        t0 = time.perf_counter()
+        m = q1(dtt.read_parquet(paths)).write_parquet(
+            os.path.join(root, "q1"), partition_cols=["l_returnflag"]).to_pydict()
+        hive_s = time.perf_counter() - t0
+        write_launches = count_launches()
+        ph.check(write_launches == q1_launches and write_launches["k1"] >= 1,
+                 f"SF1 write Q1 by l_returnflag: the written query launched as Q1 did "
+                 f"({write_launches})")
+        back = []
+        for path, flag in zip(m["path"], m["l_returnflag"]):
+            d = dtt.read_parquet(path).to_pydict()
+            d["l_returnflag"] = [flag] * len(next(iter(d.values())))
+            back += [{k: d[k][i] for k in q1_rows} for i in range(len(d["l_returnflag"]))]
+        key = (lambda r: (r["l_returnflag"], r["l_linestatus"]))
+        want_rows = sorted(dtt.from_pydict(q1_rows).to_pylist(), key=key)
+        dirs = sorted({os.path.basename(os.path.dirname(p)) for p in m["path"]})
+        ph.check(sorted(back, key=key) == want_rows
+                 and dirs == sorted(f"l_returnflag={f}" for f in set(q1_rows["l_returnflag"])),
+                 f"SF1 write Q1 by l_returnflag: {len(m['path'])} files in {dirs}, read back "
+                 f"equal to the {len(want_rows)} rows written ({hive_s:.2f}s)")
+        out["hive_write_s"] = hive_s
+
+        # --- (d) outside the zero-failure checks: prefetch.fetch
+        ph.begin(None)
+        dtt.set_execution_config(config(scan_tasks_min_size_bytes=1, scan_prefetch_depth=2))
+        raised = None
+        ss.LAUNCHES = fes.LAUNCHES = scs.LAUNCHES = 0
+        try:
+            faults.arm("prefetch.fetch", "first_n", n=1)
+            try:
+                q6(dtt.read_parquet(paths)).collect()
+            except DaftTransientError as e:
+                # the name only: the error's traceback holds the query's
+                # partitions, and with them their fetches' charges
+                raised = type(e).__name__
+            injected = faults.snapshot()["injected"].get("prefetch.fetch", 0)
+        finally:
+            faults.disarm()
+        count_launches()
+        gc.collect()  # what the failed query left (its partitions) before the ledger is read
+        ph.check(raised is not None and injected == 1,
+                 f"SF1 prefetch prefetch.fetch first_n 1: the fetch's error reaches the caller "
+                 f"({raised}, {injected} injected)")
+        ph.check(MEMORY_LEDGER.prefetch_inflight == 0 and MEMORY_LEDGER.current == 0,
+                 f"SF1 prefetch prefetch.fetch first_n 1: the ledger's prefetch_inflight "
+                 f"{MEMORY_LEDGER.prefetch_inflight} and current {MEMORY_LEDGER.current} after "
+                 f"the failed query")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
 def _walk(p):
     yield p
     for c in p.children():
@@ -4623,7 +4822,7 @@ def main(argv=None) -> int:
             else:  # the main path's shape at the later scales, checked and timed
                 sc_entry[f"sf{scale:g}_shape"] = joins["scatter_main"]
         if scales:
-            faults_out = relational = spill = adapt = scans = None
+            faults_out = relational = spill = adapt = scans = prefetch_write = None
             if 1.0 in scales:
                 # phases 8-11 read phase 3's and phase 7's SF1 tables alone, so
                 # they run while the 22-query tables are still being generated
@@ -4669,11 +4868,14 @@ def main(argv=None) -> int:
                 ph.begin("phase 12")
                 scans = phase_scans(ph, files, data, t22.pop("card_rows"), sf1_lineitem,
                                     queries, card)
+                print(f"elapsed {time.perf_counter() - started:.1f}s: phase 13", flush=True)
+                ph.begin("phase 13")
+                prefetch_write = phase_prefetch_write(ph, sf1_lineitem, card)
             del data, sf1_lineitem
             phase_outs = [("tpch22", t22), ("lanes", lanes)] + [
                 (f"exchange_sf{sc:g}", ex) for sc, ex in exchange.items()] + (
                 [("faults", faults_out), ("relational", relational), ("spill", spill),
-                 ("adapt", adapt), ("scan", scans)]
+                 ("adapt", adapt), ("scan", scans), ("prefetch_write", prefetch_write)]
                 if faults_out is not None else [])
             for name, ph_out in phase_outs:
                 k1_entry[f"launches_{name}"] = ph_out["k1_launches"]

@@ -9,13 +9,17 @@ csrc/masked_segment_sums.cu).
 
 ``read_parquet``, ``read_csv`` and ``read_json`` scan local files: the
 optimizer pushes columns, filters and limits into the scan tasks, and each
-partition is read when the first operator needs it.
+partition is read when the first operator needs it, with the reads of the
+next ``scan_prefetch_depth`` partitions running ahead in the background.
+``write_parquet``, ``write_csv`` and ``write_json`` write a frame's
+partitions as files and return the manifest of the written paths.
 
 Entry points run on the card (``ExecutionConfig.device == "cuda"``) unless
 the caller asks for the CPU with ``set_execution_config(device="cpu")``.
 """
 
-from .api import from_arrow, from_glob_path, from_pydict, read_csv, read_json, read_parquet
+from .api import (from_arrow, from_glob_path, from_pandas, from_pydict, from_pylist, read_csv,
+                  read_json, read_parquet)
 from .context import ExecutionConfig, execution_config_from_dict, get_context, set_execution_config
 from .dataframe import DataFrame
 from .datatypes import DataType
@@ -27,6 +31,7 @@ from .table import Table
 __all__ = [
     "DataFrame", "DataType", "ExecutionConfig", "Expression", "Field", "Schema",
     "Series", "Table", "col", "execution_config_from_dict", "from_arrow",
-    "from_glob_path", "from_pydict", "get_context", "interval", "lit", "read_csv",
+    "from_glob_path", "from_pandas", "from_pydict", "from_pylist", "get_context",
+    "interval", "lit", "read_csv",
     "read_json", "read_parquet", "set_execution_config",
 ]

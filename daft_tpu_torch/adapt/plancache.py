@@ -371,6 +371,12 @@ def _error(stats) -> None:
         stats.bump("plan_cache_errors")
 
 
+def _has_write(plan) -> bool:
+    from ..logical import Write
+
+    return isinstance(plan, Write) or any(_has_write(c) for c in plan.children())
+
+
 def plan_query(plan, cfg, stats=None, optimized: bool = False, runner: str = "native"):
     """The runner's one planning entry point: feedback-informed optimize and
     translate, served from the plan cache where it can be.
@@ -404,11 +410,13 @@ def plan_query(plan, cfg, stats=None, optimized: bool = False, runner: str = "na
         from ..optimizer import optimize
         from ..physical import translate
 
-        # the mesh runner declines fan-out resizes: its collective yields its
-        # own partition count, which a reduce-side fan-in would desynchronize
-        # (write plans decline too, once the port has them)
+        # fan-out resizes decline for mesh plans (the collective yields its
+        # own partition count, which a reduce-side fan-in would
+        # desynchronize) and for plans that write (one file per partition:
+        # a repeated write must not change its file count with history)
+        fanout_ok = runner != "mesh" and not _has_write(plan)
         with fdo.collecting(cfg, stats, enabled=record_fdo,
-                            fanout_ok=runner != "mesh") as coll:
+                            fanout_ok=fanout_ok) as coll:
             opt = plan if optimized else optimize(plan)
             phys = translate(opt, cfg, stats)
         return opt, phys, coll

@@ -1,5 +1,6 @@
 """Public constructors (the port's copy of the part of daft_tpu/api.py this
-slice runs): ``from_pydict`` and ``from_arrow`` over memory, and the file
+slice runs): ``from_pydict``, ``from_pylist``, ``from_arrow`` and
+``from_pandas`` over memory, and the file
 readers ``read_parquet``, ``read_csv``, ``read_json`` and ``from_glob_path``
 over local paths. A reader builds a ScanSource of scan tasks (io/scan.py)
 and reads nothing but the first file's schema (and parquet footers) until
@@ -18,10 +19,17 @@ from .io.scan import FileFormat, Pushdowns, ScanTask, glob_paths, merge_scan_tas
 from .logical import ScanSource
 from .micropartition import MicroPartition
 from .schema import Field, Schema
+from .table import Table
 
 
 def from_pydict(data: Dict[str, Any]) -> DataFrame:
     mp = MicroPartition.from_pydict(data)
+    return from_partitions([mp], mp.schema)
+
+
+def from_pylist(rows: List[dict]) -> DataFrame:
+    """A DataFrame of one partition, one row per dict."""
+    mp = MicroPartition.from_table(Table.from_pylist(rows))
     return from_partitions([mp], mp.schema)
 
 
@@ -39,6 +47,12 @@ def from_arrow(data) -> DataFrame:
             raise ValueError("from_arrow of empty list")
         return from_partitions(parts, parts[0].schema)
     raise TypeError(f"from_arrow expects pyarrow Table/RecordBatch, got {type(data)}")
+
+
+def from_pandas(df) -> DataFrame:
+    import pyarrow as pa
+
+    return from_arrow(pa.Table.from_pandas(df))
 
 
 def from_glob_path(path: str) -> DataFrame:

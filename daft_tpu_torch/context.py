@@ -12,13 +12,14 @@ The planning knobs take the reference's defaults: the plan cache
 (``enable_result_cache``) are on; adaptive execution (``enable_aqe``, with
 ``shuffle_target_partition_bytes``) is off.
 
-The scan knobs size and merge scan tasks and retry their reads; the
+The scan knobs size and merge scan tasks, retry their reads and read
+ahead of the consumer (``scan_prefetch_depth``, 2 as in the reference); the
 sub-plan result cache (``subplan_result_cache``, capped at
-``subplan_cache_bytes``) is on, as in the reference.
+``subplan_cache_bytes``) is on, as in the reference. ``num_preview_rows``
+is the row count of a collected DataFrame's ``repr``.
 
-Left out of this slice: the rest of the planning config (morsels,
-streaming, batching and the artifact directory), scan prefetch
-(``scan_prefetch_depth``, with io/prefetch), the serving knobs and runner
+Left out: the rest of the planning config (morsels, streaming, batching,
+executor threads and the artifact directory), the serving knobs and runner
 selection (the port has one runner, NativeRunner).
 """
 
@@ -137,12 +138,18 @@ class ExecutionConfig:
     # with jittered exponential backoff from this many seconds
     scan_retry_attempts: int = 3
     scan_retry_backoff_s: float = 0.1
+    # reading scan partition i submits the reads of partitions
+    # i+1..i+depth to the query's pool (io/prefetch.py); 0 reads each
+    # partition on the consumer's thread when it is asked for
+    scan_prefetch_depth: int = 2
     # the sub-plan result cache (adapt/resultcache.py): the partitions of a
     # Project/Filter chain over a scan replay in a later query that plans
     # the same prefix, up to this many bytes, charged to the memory
     # ledger's subplan_cache_bytes account
     subplan_result_cache: bool = True
     subplan_cache_bytes: int = 64 * 1024 * 1024
+    # rows a collected DataFrame's repr previews
+    num_preview_rows: int = 8
 
 
 # daft_tpu ExecutionConfig field (or "jax_enable_x64") -> port field
@@ -179,6 +186,8 @@ _FROM_REFERENCE = {
     "scan_retry_backoff_s": "scan_retry_backoff_s",
     "subplan_result_cache": "subplan_result_cache",
     "subplan_cache_bytes": "subplan_cache_bytes",
+    "scan_prefetch_depth": "scan_prefetch_depth",
+    "num_preview_rows": "num_preview_rows",
     "jax_enable_x64": "device_x64",
 }
 

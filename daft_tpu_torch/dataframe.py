@@ -6,22 +6,28 @@ with_column(s)_renamed, groupby(...).agg, agg, count_rows/len, sort, join
 (every join type, cross joins among them, and the hash, broadcast and
 sort-merge strategies), concat, limit/head, distinct/unique, sample,
 repartition, into_partitions, explode, unpivot/melt, pivot,
-with_monotonically_increasing_id, collect, to_pydict, to_arrow, explain and
-the per-query ``stats``, over in-memory frames and over the file scans of
-api.py (read_parquet, read_csv, read_json). Left out of this slice: the
-writers, SQL predicates, profiling and the integrations.
+with_monotonically_increasing_id, collect, explain and the per-query
+``stats``, over in-memory frames and over the file scans of api.py
+(read_parquet, read_csv, read_json), and the output surface: the writers
+(write_parquet, write_csv, write_json, each returning the manifest of the
+written files), num_partitions, iter_partitions, iter_rows, to_arrow_iter,
+to_pydict, to_pylist, to_arrow, to_pandas, to_table, show and a ``repr``
+that previews a collected frame (``num_preview_rows``) and never runs the
+plan. Left out of this slice: the lake writers and the Ray and Dask
+conversions (ROADMAP, Queue 1, item 9), the torch datasets and the HTML
+preview (item 10), SQL predicates, profiling and the integrations.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Dict, Iterator, List, Optional, Union
 
 from .context import get_context
 from .execution import RuntimeStats
 from .expressions import AggExpr, Expression, col
 from .logical import (Aggregate, Concat, Distinct, Explode, Filter, InMemorySource, Join, Limit,
                       LogicalPlan, MonotonicallyIncreasingId, Pivot, Project, Repartition,
-                      Sample, Sort, Unpivot)
+                      Sample, Sort, Unpivot, Write)
 from .micropartition import MicroPartition
 from .runners import PartitionSet
 from .schema import Schema
@@ -63,6 +69,9 @@ class DataFrame:
     @property
     def column_names(self) -> List[str]:
         return self._plan.schema.field_names()
+
+    def num_partitions(self) -> int:
+        return self._plan.num_partitions()
 
     def explain(self, show_all: bool = False) -> str:
         """Logical plan (and optimized + physical when show_all)."""
@@ -246,6 +255,26 @@ class DataFrame:
     def __len__(self) -> int:
         return self.count_rows()
 
+    # ------------------------------------------------------------------ writes
+    def _write(self, root_dir: str, format: str, compression, partition_cols) -> "DataFrame":
+        from .io.object_store import check_local_path
+
+        check_local_path(root_dir)
+        pc = _to_exprs(partition_cols) if partition_cols else None
+        return DataFrame(Write(self._plan, root_dir, format, compression, pc)).collect()
+
+    def write_parquet(self, root_dir: str, compression: str = "snappy",
+                      partition_cols=None) -> "DataFrame":
+        """Write the frame as parquet files under ``root_dir`` (hive
+        directories by ``partition_cols``); returns the manifest."""
+        return self._write(root_dir, "parquet", compression, partition_cols)
+
+    def write_csv(self, root_dir: str, partition_cols=None) -> "DataFrame":
+        return self._write(root_dir, "csv", None, partition_cols)
+
+    def write_json(self, root_dir: str, partition_cols=None) -> "DataFrame":
+        return self._write(root_dir, "json", None, partition_cols)
+
     def collect(self) -> "DataFrame":
         """Materialize the plan; ``stats`` then holds the query's counters.
 
@@ -282,14 +311,83 @@ class DataFrame:
         self._plan = InMemorySource(self._result.schema, self._result.partitions)
         return self
 
+    def iter_partitions(self) -> Iterator[MicroPartition]:
+        """The result's partitions: a collected frame's, else streamed from a
+        run of the plan."""
+        if self._result is not None:
+            yield from self._result.partitions
+            return
+        yield from get_context().runner().run_iter(self._plan, stats=self.stats)
+
+    def to_arrow_iter(self):
+        for part in self.iter_partitions():
+            if len(part):
+                yield from part.to_arrow().to_batches()
+
+    def iter_rows(self) -> Iterator[dict]:
+        for part in self.iter_partitions():
+            yield from part.to_pylist()
+
+    def to_table(self):
+        return self.collect()._result.to_table()
+
     def to_pydict(self) -> Dict[str, list]:
-        return self.collect()._result.to_table().to_pydict()
+        return self.to_table().to_pydict()
+
+    def to_pylist(self) -> List[dict]:
+        return self.to_table().to_pylist()
 
     def to_arrow(self):
-        return self.collect()._result.to_table().to_arrow()
+        return self.to_table().to_arrow()
+
+    def to_pandas(self):
+        return self.to_table().to_pandas()
+
+    # ------------------------------------------------------------------ display
+    def show(self, n: int = 8) -> None:
+        print(self.limit(n)._preview_str(n))
+
+    def _preview_str(self, n: int) -> str:
+        tbl = self.limit(n).to_table()
+        d = tbl.to_pydict()
+        names = list(d)
+        widths = {}
+        dtypes = {f.name: repr(f.dtype) for f in tbl.schema}
+        for nm in names:
+            vals = [_cell(v) for v in d[nm]]
+            widths[nm] = min(30, max([len(nm), len(dtypes[nm])] + [len(v) for v in vals] + [4]))
+            d[nm] = vals
+
+        def row(cells):
+            return "| " + " | ".join(c[:widths[nm]].ljust(widths[nm])
+                                     for nm, c in zip(names, cells)) + " |"
+
+        sep = "+" + "+".join("-" * (widths[nm] + 2) for nm in names) + "+"
+        lines = [sep, row(names), row([dtypes[nm] for nm in names]), sep]
+        for i in range(len(d[names[0]]) if names else 0):
+            lines.append(row([d[nm][i] for nm in names]))
+        lines.append(sep)
+        return "\n".join(lines)
 
     def __repr__(self) -> str:
+        # a preview of a collected frame only: a repr never runs the plan
+        if self._result is not None:
+            from .errors import PORT_FAILURES
+
+            try:
+                return self._preview_str(get_context().execution_config.num_preview_rows)
+            except PORT_FAILURES:
+                raise
+            except Exception:
+                pass  # a frame that cannot preview (a python column) shows its schema
         return f"DataFrame({self.schema!r})"
+
+
+def _cell(v) -> str:
+    if v is None:
+        return "None"
+    s = str(v)
+    return s if len(s) <= 30 else s[:27] + "..."
 
 
 class GroupedDataFrame:

@@ -46,11 +46,18 @@ join build).
 Memory. Each query holds its ledger (``spill.MEMORY_LEDGER``), its byte
 budget (``memory_budget_bytes``), a spill directory made on first use and a
 lineage log. ``partition_buffer()`` hands a pipeline breaker a spillable
-buffer bound to them, after a deadline check, and tracks it; unspill
-readahead runs on a small background pool (``_bg_submit``). When the root
-stream ends, is closed early (a limit, an abandoned join) or raises,
-``execute_plan``'s teardown shuts the pool and ``finish_query`` releases
-every buffer and removes the spill directory, so the ledger reads 0 again.
+buffer bound to them, after a deadline check, and tracks it. One lazy
+pool per query (``pool()``) runs the background IO: the scan readahead's
+fetches (io/prefetch.py) and the unspill readahead (``_bg_submit``). When
+the root stream ends, is closed early (a limit, an abandoned join) or
+raises, ``execute_plan``'s teardown shuts the pool (queued work is
+cancelled, running work finishes) and ``finish_query`` releases every
+buffer and removes the spill directory, so the ledger reads 0 again. After
+that the unspill readahead submits nothing, while the scan readahead may
+still serve a late read (``to_pydict`` over a collected scan reads its
+partitions after the query) from a private pool that ``pool()`` makes
+again, which the garbage collector releases with the last partition that
+holds the prefetcher.
 
 Left out of this slice: the profiler and the breaker's log lines and
 events, the query log and its records, cancellation, the worker pool of
@@ -139,9 +146,9 @@ class RuntimeStats:
         return min(1.0, wait / max(total, wait))
 
     def io_breakdown(self) -> Dict[str, float]:
-        """The IO wait against compute, the readahead hits and the spill
-        write and read rates (MiB/s of wall time in the write and read).
-        The reference's scan-prefetch keys come with io/prefetch."""
+        """The IO wait against compute, the scan readahead's hits, misses
+        and throttles, the unspill readahead's hits and the spill write and
+        read rates (MiB/s of wall time in the write and read)."""
         with self._lock:
             c = dict(self.counters)
 
@@ -151,6 +158,9 @@ class RuntimeStats:
         return {
             "io_wait_share": round(self.io_wait_share(), 4),
             "io_wait_ms": round(c.get("io_wait_ns", 0) / 1e6, 1),
+            "prefetch_hits": c.get("prefetch_hits", 0),
+            "prefetch_misses": c.get("prefetch_misses", 0),
+            "prefetch_throttled": c.get("prefetch_throttled", 0),
             "unspill_readahead_hits": c.get("unspill_readahead_hits", 0),
             "spill_write_mbps": round(mbps(c.get("spill_write_bytes", 0),
                                            c.get("spill_write_ns", 0)), 1),
@@ -250,9 +260,10 @@ class DeviceHealth:
             self._probe_inflight = False
 
 
-# background threads for unspill readahead (one drain reads one partition
-# ahead; the shuffle preloads a bucket's spilled pieces)
-_READAHEAD_THREADS = 2
+# the least threads of a query's pool: one drain reads one spilled
+# partition ahead while the shuffle preloads a bucket; the scan readahead
+# asks for scan_prefetch_depth fetches at once
+_POOL_MIN_THREADS = 2
 
 
 class ExecutionContext:
@@ -338,23 +349,43 @@ class ExecutionContext:
         self._buffers.append(buf)
         return buf
 
-    def _bg_submit(self, fn):
-        """Submit an unspill read to the query's background pool; raises
-        RuntimeError after shutdown (the consumer then reads itself)."""
-        if self._pool_finished:
-            raise RuntimeError("the readahead pool is shut down")
+    @property
+    def num_workers(self) -> int:
+        import os
+
+        return max(_POOL_MIN_THREADS, min(self.cfg.scan_prefetch_depth, os.cpu_count() or 1))
+
+    def pool(self):
+        """The query's worker pool, made on first use. A call after
+        ``shutdown_pool`` (the scan readahead serving a late read) makes a
+        private pool again; the garbage collector releases it with the last
+        partition that holds the prefetcher, and its idle threads exit."""
         if self._pool is None:
             from concurrent.futures import ThreadPoolExecutor
 
-            self._pool = ThreadPoolExecutor(max_workers=_READAHEAD_THREADS,
-                                            thread_name_prefix="daft-torch-readahead")
-        return self._pool.submit(fn)
+            self._pool = ThreadPoolExecutor(max_workers=self.num_workers,
+                                            thread_name_prefix="daft-torch-exec")
+        return self._pool
+
+    def _bg_submit(self, fn):
+        """Submit an unspill read to the query's pool; raises RuntimeError
+        after shutdown (the consumer then reads itself)."""
+        if self._pool_finished:
+            raise RuntimeError("the query's pool is shut down")
+        return self.pool().submit(fn)
 
     def shutdown_pool(self) -> None:
+        """Cancel the queued work and wait for the running work (so that no
+        background read races the spill directory's removal)."""
         self._pool_finished = True
         if self._pool is not None:
             self._pool.shutdown(wait=True, cancel_futures=True)
             self._pool = None
+
+    def foreign_owned(self, part: MicroPartition) -> bool:
+        """True where another process must read ``part`` (the scan
+        locality of a multi-process run). One process: never."""
+        return False
 
     def finish_query(self) -> None:
         """Release every buffer's bytes and remove the spill directory."""

@@ -62,6 +62,10 @@ SITES = {
     "plancache.lookup": "each plan-cache consult (adapt/plancache.py; a failure "
                         "degrades to uncached planning: the warm path fails open, "
                         "never a query failure)",
+    "prefetch.fetch": "each background scan-prefetch fetch (io/prefetch.py; "
+                      "the error re-raises from the partition's read on the "
+                      "consumer's thread, never retried: the scan's retry "
+                      "policy runs inside the read, below this site)",
     "resultcache.lookup": "each sub-plan result-cache consult "
                           "(adapt/resultcache.py; a failure runs the prefix "
                           "plainly: fails open, never a query failure)",

@@ -107,8 +107,13 @@ def rereadable_task(task) -> bool:
 
 
 def unwrap_source_task(part):
-    """The re-readable scan task behind an UNLOADED partition, or None."""
+    """The re-readable scan task behind an UNLOADED partition, or None.
+
+    A readahead wrapper (io/prefetch.py) holds its query's fetch state, so
+    the recipe captures the task it wraps: a recompute re-reads the file,
+    never a consumed fetch."""
     task = part.scan_task()
+    task = getattr(task, "_task", task)
     return task if rereadable_task(task) else None
 
 

@@ -7,9 +7,11 @@ Project, Filter, Limit, Sort,
 Repartition (hash, range, random and into), Distinct, Sample, Aggregate,
 Pivot, Join (every join type, the cross join among them, with the size
 estimate the join planner reads), Concat, Explode, Unpivot and
-MonotonicallyIncreasingId, and the expression-analysis helpers the
-optimizer (optimizer.py) uses. Left out until a later slice: writes, and
-the row-count estimates of the nodes above a source.
+MonotonicallyIncreasingId, Write (parquet, CSV or JSON files, optionally
+hive-partitioned; its schema is the manifest's), and the
+expression-analysis helpers the optimizer (optimizer.py) uses. Left out
+until a later slice: the lake writers' nodes, and the row-count estimates
+of the nodes above a source.
 """
 
 from __future__ import annotations
@@ -579,3 +581,28 @@ class MonotonicallyIncreasingId(UnaryNode):
 
     def with_children(self, c):
         return MonotonicallyIncreasingId(c[0], self.column_name)
+
+
+class Write(UnaryNode):
+    """Writes its input under ``root_dir``; its rows are the manifest: a
+    ``path`` per written file, plus the key columns of a hive-partitioned
+    write."""
+
+    def __init__(self, input: LogicalPlan, root_dir: str, format: str = "parquet",
+                 compression: Optional[str] = None,
+                 partition_cols: Optional[List[Expression]] = None):
+        super().__init__(input)
+        self.root_dir = root_dir
+        self.format = format
+        self.compression = compression
+        self.partition_cols = partition_cols
+        fields = [Field("path", DataType.string())]
+        for e in partition_cols or []:
+            fields.append(Field(e.name(), e._node.to_field(input.schema).dtype))
+        self.schema = Schema(fields)
+
+    def with_children(self, c):
+        return Write(c[0], self.root_dir, self.format, self.compression, self.partition_cols)
+
+    def multiline_display(self):
+        return [f"Write: {self.format} -> {self.root_dir}"]

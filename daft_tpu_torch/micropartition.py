@@ -19,14 +19,22 @@ loads on the thread that asks for its table, and staging happens there.
 ``partition_by_hash`` and ``partition_by_range`` split a partition for the
 hash and range shuffles chunk by chunk, as the reference does;
 ``partition_by_random`` splits the whole partition, since its draw is over
-row positions. Left out of this slice: the deferred op chains and owner
-process of multi-host scans, pickling for worker processes and the writer.
+row positions; ``partition_by_value`` by exact key values.
+``write_tabular`` writes the partition through io/writer.py and returns
+its manifest.
+
+An unloaded partition's task may be a ``PrefetchedScanTask``
+(io/prefetch.py): its read is served from a background fetch where one
+finished, its metadata answers from the wrapped task, and narrowing it
+(``head``, ``select_columns``) narrows the wrapped task and abandons the
+full fetch. Left out of this slice: the deferred op chains and owner
+process of multi-host scans and pickling for worker processes.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Any, Dict, Iterator, List, Optional
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 from .schema import Schema
 from .stats import TableStats
@@ -151,6 +159,19 @@ class MicroPartition:
             return f"MicroPartition(Unloaded {self._scan_task!r})"
         return f"MicroPartition(rows={len(self)})"
 
+    # ------------------------------------------------------------------ conversions
+    def to_arrow(self):
+        return self.table().to_arrow()
+
+    def to_pydict(self) -> Dict[str, list]:
+        return self.table().to_pydict()
+
+    def to_pylist(self) -> List[dict]:
+        return self.table().to_pylist()
+
+    def to_pandas(self):
+        return self.table().to_pandas()
+
     # ------------------------------------------------------------------ compute
     def eval_expression_list(self, exprs) -> "MicroPartition":
         return MicroPartition.from_table(self.table().eval_expression_list(exprs))
@@ -249,6 +270,19 @@ class MicroPartition:
                     buckets[i].append(bt)
         return [MicroPartition(self.schema, bs) if bs else MicroPartition.empty(self.schema)
                 for bs in buckets]
+
+    def partition_by_value(self, exprs) -> Tuple[List["MicroPartition"], Table]:
+        """The rows grouped by exact key values, with the unique keys."""
+        parts, uniq = self.table().partition_by_value(exprs)
+        return [MicroPartition.from_table(t) for t in parts], uniq
+
+    def write_tabular(self, root_dir: str, format: str = "parquet", compression=None,
+                      partition_cols=None) -> "MicroPartition":
+        """Write the partition under ``root_dir``; returns the manifest."""
+        from .io.writer import write_tabular
+
+        return MicroPartition.from_table(
+            write_tabular(self.table(), root_dir, format, compression, partition_cols))
 
     def hash_join(self, right: "MicroPartition", left_on, right_on, how="inner",
                   suffix="right.") -> "MicroPartition":

@@ -23,8 +23,8 @@ from typing import Dict, List, Optional, Tuple
 from .expressions import BinaryOp, Expression, col
 from .logical import (Aggregate, Concat, Distinct, Explode, Filter, InMemorySource, Join, Limit,
                       LogicalPlan, MonotonicallyIncreasingId, Pivot, Project, Repartition,
-                      Sample, ScanSource, Sort, Unpivot, expr_has_special, expr_input_columns,
-                      is_trivial_passthrough, substitute_columns)
+                      Sample, ScanSource, Sort, Unpivot, Write, expr_has_special,
+                      expr_input_columns, is_trivial_passthrough, substitute_columns)
 
 
 def optimize(plan: LogicalPlan, max_passes: int = 8) -> LogicalPlan:
@@ -425,8 +425,9 @@ def _prune_columns(p: LogicalPlan, required: Optional[List[str]]) -> LogicalPlan
     if isinstance(p, (Limit, Sample)):
         return p.with_children([_prune_columns(p.input, required)])
 
-    if isinstance(p, MonotonicallyIncreasingId):
-        # the ids number every row: the full requirement passes through
+    if isinstance(p, (MonotonicallyIncreasingId, Write)):
+        # the ids number every row, and a write writes every column: the
+        # full requirement passes through
         return p.with_children([_prune_columns(p.input, None)])
 
     raise ValueError(f"column pruning has no rule for logical node {p.name()}")

@@ -63,17 +63,20 @@ small to a BroadcastJoinOp (with a mispredict guard), and
 partitions, merging adjacent hash buckets at the reduce side.
 
 A ScanSource translates to a ScanOp: one unloaded partition per scan task
-its statistics do not prune, each read by the operator above it. The
-shuffle gives each piece of such a partition a lineage recipe
-(integrity/lineage.py) that re-reads the file and splits it again.
+its statistics do not prune, each read by the operator above it, with the
+reads of the next ``scan_prefetch_depth`` partitions running ahead on the
+query's pool (io/prefetch.py). The shuffle gives each piece of such a
+partition a lineage recipe (integrity/lineage.py) that re-reads the file
+and splits it again. A Write translates to a WriteOp, which writes each
+partition of its input through io/writer.py and yields the manifest of
+the files it wrote.
 
-Left out of this slice: scan prefetch (io/prefetch); the shuffle's mesh and
-peer-to-peer legs and its parallel fan-out (so the reference's
+Left out of this slice: the shuffle's mesh and peer-to-peer legs and its parallel fan-out (so the reference's
 ``_subtree_may_yield_unloaded``, which sizes that fan-out's window, has no
 caller here), each of which the reference keeps byte-identical when off;
 the morsel split
 of in-memory sources, which the reference skips on the device path; the
-mesh exchange of the sort-merge join, the write op, the worker pool,
+mesh exchange of the sort-merge join, the worker pool of parallel maps,
 streaming and batched UDFs.
 
 A sort-merge join (``SortMergeJoinOp``) samples both sides' keys as they
@@ -96,7 +99,7 @@ from .integrity.lineage import (fanout_piece_recipe, range_piece_recipe, task_re
                                 unwrap_source_task)
 from .logical import (Aggregate, Concat, Distinct, Explode, Filter, InMemorySource, Join, Limit,
                       LogicalPlan, MonotonicallyIncreasingId, Pivot, Project, Repartition,
-                      Sample, ScanSource, Sort, Unpivot)
+                      Sample, ScanSource, Sort, Unpivot, Write)
 from .micropartition import MicroPartition
 from .schema import Schema
 
@@ -211,9 +214,11 @@ class ScanOp(PhysicalOp):
         return parts
 
     def execute(self, inputs, ctx) -> PartStream:
-        # in order, each read by its consumer: the reference's path with
-        # scan_prefetch_depth 0 (scan prefetch comes with io/prefetch)
-        yield from self.plan_parts(ctx)
+        from .io.prefetch import pipeline_scan_parts
+
+        # bounded readahead: reading partition i submits the fetches of
+        # i+1..i+depth; in task order, and the same rows at every depth
+        yield from pipeline_scan_parts(self.plan_parts(ctx), ctx)
 
     def describe(self):
         return f"Scan [{len(self.tasks)} tasks]"
@@ -357,6 +362,32 @@ class MonotonicIdOp(PhysicalOp):
     def execute(self, inputs, ctx) -> PartStream:
         for i, part in enumerate(inputs[0]):
             yield part.add_monotonic_id(i << 36, self.column_name)
+
+
+class WriteOp(PhysicalOp):
+    """Writes each partition of its input as files under ``root_dir``
+    (io/writer.py) and yields each one's manifest; an input with no
+    partitions yields an empty manifest."""
+
+    def __init__(self, child: PhysicalOp, root_dir: str, format: str, compression,
+                 partition_cols, schema: Schema):
+        super().__init__([child], schema, child.num_partitions)
+        self.root_dir = root_dir
+        self.format = format
+        self.compression = compression
+        self.partition_cols = partition_cols
+
+    def execute(self, inputs, ctx) -> PartStream:
+        wrote = False
+        for part in inputs[0]:
+            wrote = True
+            yield part.write_tabular(self.root_dir, self.format, self.compression,
+                                     self.partition_cols)
+        if not wrote:
+            yield MicroPartition.empty(self.schema)
+
+    def describe(self):
+        return f"Write: {self.format} -> {self.root_dir}"
 
 
 class SortOp(PhysicalOp):
@@ -1212,6 +1243,9 @@ def _translate(plan: LogicalPlan, cfg) -> PhysicalOp:
                         plan.seed)
     if isinstance(plan, MonotonicallyIncreasingId):
         return MonotonicIdOp(_translate(plan.input, cfg), plan.column_name, plan.schema)
+    if isinstance(plan, Write):
+        return WriteOp(_translate(plan.input, cfg), plan.root_dir, plan.format,
+                       plan.compression, plan.partition_cols, plan.schema)
     if isinstance(plan, Sort):
         child = _translate(plan.input, cfg)
         if child.num_partitions > 1:

@@ -108,9 +108,9 @@ class _Uncacheable(Exception):
 
 def plan_cache_key(plan: LogicalPlan) -> Optional[str]:
     """The structural key of a plan, or None where caching would be unsound:
-    a seedless sample, or an attribute this walk cannot prove free of
-    collisions. The reference also refuses writes and UDFs, which the port
-    does not have yet."""
+    a write (a repeated write must write again), a seedless sample, or an
+    attribute this walk cannot prove free of collisions. The reference also
+    refuses UDFs, which the port does not have yet."""
     try:
         return _plan_key(plan)
     except _Uncacheable:
@@ -149,8 +149,10 @@ def _scan_task_key(t) -> str:
 
 def _plan_key(p: LogicalPlan) -> str:
     from .expressions import Expression
-    from .logical import InMemorySource, Sample, ScanSource
+    from .logical import InMemorySource, Sample, ScanSource, Write
 
+    if isinstance(p, Write):
+        raise _Uncacheable
     if isinstance(p, Sample) and p.seed is None:
         raise _Uncacheable
     if isinstance(p, InMemorySource):

@@ -29,12 +29,15 @@ for its table, and its columns stage on the card there.
 
 The ledger also carries the plan cache's and the sub-plan result cache's
 resident bytes (``cache_account("plan_cache_bytes")``,
-``cache_account("subplan_cache_bytes")``), outside ``current``.
+``cache_account("subplan_cache_bytes")``) and the scan readahead's
+in-flight fetches (``prefetch_inflight``, io/prefetch.py), all outside
+``current``. A buffer's spill decision charges ``current`` plus
+``prefetch_inflight`` against the budget, as the reference does.
 
 Left out: the ledger's accounts for producers the port does not have yet
-(scan prefetch, streaming channels, batching, the scheduler's parked
-outputs, distributed workers, the model cache), the
-child ledgers of the serving runtime, and the profiler spans and log lines.
+(streaming channels, batching, the scheduler's parked outputs, distributed
+workers, the model cache), the child ledgers of the serving runtime, and
+the profiler spans and log lines.
 """
 
 from __future__ import annotations
@@ -99,6 +102,14 @@ class MemoryLedger:
         # the sub-plan result cache's resident bytes (adapt/resultcache.py),
         # outside `current` for the same reason
         self.subplan_cache_bytes = 0
+        # the scan readahead's fetches in flight (io/prefetch.py). Not in
+        # `current`: the prefetcher caps itself against current + this, but
+        # a charge in `current` would make every pipeline breaker's append
+        # see a full ledger and spill its whole input
+        self.prefetch_inflight = 0
+        # peak of current + prefetch_inflight: the working set the ledger
+        # sees, which the spill decision holds to the budget
+        self.working_set_high_water = 0
 
     def cache_account(self, account: str, delta: int) -> None:
         """Charge or release a process cache account (``plan_cache_bytes``,
@@ -114,10 +125,15 @@ class MemoryLedger:
         with self._lock:
             self.disk_full_events += 1
 
+    def _note_working_set_locked(self) -> None:
+        self.working_set_high_water = max(self.working_set_high_water,
+                                          self.current + self.prefetch_inflight)
+
     def add(self, n: int) -> None:
         with self._lock:
             self.current += n
             self.high_water = max(self.high_water, self.current)
+            self._note_working_set_locked()
 
     def sub(self, n: int) -> None:
         with self._lock:
@@ -133,6 +149,15 @@ class MemoryLedger:
         with self._lock:
             self.spilled_bytes += n
             self.spilled_partitions += 1
+
+    def prefetch_started(self, n: int) -> None:
+        with self._lock:
+            self.prefetch_inflight += n
+            self._note_working_set_locked()
+
+    def prefetch_done(self, n: int) -> None:
+        with self._lock:
+            self.prefetch_inflight -= min(n, self.prefetch_inflight)
 
     def async_spill_started(self, n: int) -> None:
         with self._lock:
@@ -157,6 +182,7 @@ class MemoryLedger:
             self.async_spill_inflight = max(0, self.async_spill_inflight - n)
             self.current += n
             self.high_water = max(self.high_water, self.current)
+            self._note_working_set_locked()
 
     def record_spill_write(self, nbytes: int, ns: int) -> None:
         with self._lock:
@@ -171,7 +197,8 @@ class MemoryLedger:
     _ACCOUNTS = ("current", "high_water", "spilled_bytes", "spilled_partitions",
                  "negative_releases", "async_spill_inflight", "spill_write_bytes",
                  "spill_write_ns", "unspill_bytes", "unspill_ns", "disk_full_events",
-                 "plan_cache_bytes", "subplan_cache_bytes")
+                 "plan_cache_bytes", "subplan_cache_bytes", "prefetch_inflight",
+                 "working_set_high_water")
 
     def reset(self) -> None:
         with self._lock:
@@ -685,8 +712,11 @@ class PartitionBuffer:
 
     def append(self, part: MicroPartition) -> None:
         size = part.size_bytes() or 0
+        # the query's working set: buffered bytes and the scan readahead's
+        # fetches in flight eat the same budget
         if (self.budget is not None and len(part)
-                and self.ledger.current + size > self.budget):
+                and (self.ledger.current + self.ledger.prefetch_inflight
+                     + size > self.budget)):
             spilled = self._try_spill(part, size)
             if spilled is not None:
                 self._items.append(spilled)

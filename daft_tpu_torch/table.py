@@ -6,7 +6,8 @@ The host join is ``hash_join`` (pyarrow acero, every join type), and
 the device probe. ``partition_by_hash`` splits rows by the reference's
 row hash (kernels/host_hash.py) for the hash shuffle, ``partition_by_range``
 by sampled boundary rows for the range shuffle, ``partition_by_random`` by
-a seeded draw. ``sort_merge_join`` sorts both sides and joins them on
+a seeded draw, ``partition_by_value`` by exact key values for a
+hive-partitioned write. ``sort_merge_join`` sorts both sides and joins them on
 the host; ``explode``, ``unpivot``, ``pivot``, ``add_monotonic_id`` and
 ``sample`` are the host kernels of the reshaping plan nodes. Left out of
 this slice: the acero fused filter+aggregate plans and the optional C++
@@ -129,6 +130,16 @@ class Table:
         schema = Schema([Field(c.name, c.dtype) for c in cols])
         return Table(schema, cols)
 
+    @staticmethod
+    def from_pylist(rows: List[dict]) -> "Table":
+        """One row per dict; the columns are every key, in order of first
+        appearance, with None where a row lacks one."""
+        keys: List[str] = []
+        for r in rows:
+            for k in r:
+                if k not in keys:
+                    keys.append(k)
+        return Table.from_pydict({k: [r.get(k) for r in rows] for k in keys})
 
     # ------------------------------------------------------------------ basics
     def __len__(self) -> int:
@@ -162,6 +173,14 @@ class Table:
 
     def to_pydict(self) -> Dict[str, list]:
         return {f.name: c.to_pylist() for f, c in zip(self.schema, self._columns)}
+
+    def to_pylist(self) -> List[dict]:
+        d = self.to_pydict()
+        names = list(d)
+        return [dict(zip(names, vals)) for vals in zip(*d.values())] if names else []
+
+    def to_pandas(self):
+        return self.to_arrow().to_pandas()
 
     def __repr__(self) -> str:
         return f"Table({self.schema!r}, rows={len(self)})"
@@ -481,6 +500,14 @@ class Table:
         keys = [_broadcast_series(e._node.evaluate(self), len(self)) for e in exprs]
         ranks = _composite_rank(keys, list(boundaries._columns), descending, nulls_first)
         return self._split_by_buckets(ranks, nb + 1)
+
+    def partition_by_value(self, exprs: Sequence[Expression]) -> Tuple[List["Table"], "Table"]:
+        """The rows grouped by their exact key values (nulls form a group):
+        (one table per key, the table of unique keys), in order of first
+        appearance."""
+        keyed = self.eval_expression_list(_as_expressions(exprs))
+        codes, uniq = _group_codes(keyed)
+        return self._split_by_buckets(codes, len(uniq)), uniq
 
     def _split_by_buckets(self, buckets: np.ndarray, num: int) -> List["Table"]:
         """Tables 0..num-1 of the rows of each bucket, in row order."""

@@ -108,12 +108,12 @@ def pick(c: dict, keys) -> dict:
 def test_sites_are_the_four_the_port_wires():
     # the name is from the eleventh slice's four sites; the thirteenth added
     # the spill and encode sites, the fourteenth the plan cache's and the
-    # fifteenth the scan's and the sub-plan result cache's, each wired as
-    # the reference wires it
+    # fifteenth the scan's and the sub-plan result cache's, the sixteenth the
+    # scan readahead's, each wired as the reference wires it
     assert set(faults.SITES) == {"device.kernel", "fuse.compile", "fuse.segment", "join.filter",
                                  "spill.write", "spill.readback", "spill.corrupt",
                                  "exchange.encode", "plancache.lookup", "scan.read",
-                                 "resultcache.lookup"}
+                                 "resultcache.lookup", "prefetch.fetch"}
     assert set(faults.SITES) <= set(ref_faults.SITES)
 
 

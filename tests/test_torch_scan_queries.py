@@ -34,7 +34,8 @@ from daft_tpu_torch.optimizer import optimize as port_optimize
 from device_mode import real_tpu_mode_cfg
 from test_torch_tpch22 import PINNED, PORT_COUNTERS, _assert_rows_match
 from torch_parity import (SPILL_BASE, adapt_counters, assert_same_rows, clear_adapt, counters,
-                          restore_port_config, run_both, run_seq)  # noqa: F401
+                          fresh_ledgers_and_faults, restore_port_config, run_both,
+                          run_seq)  # noqa: F401
 
 SCALE = 0.005
 
@@ -483,6 +484,9 @@ def test_corrupt_spilled_piece_over_a_scan_recomputes(tmp_path, monkeypatch):
     from daft_tpu_torch.spill import MEMORY_LEDGER
 
     monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    # the spill counts follow the ledgers, which earlier tests in the
+    # process may have left charged
+    fresh_ledgers_and_faults()
     rng = np.random.RandomState(11)
     path = _write(pa.table({"k": rng.randint(0, 50, 20_000).astype(np.int64),
                             "v": rng.rand(20_000)}), str(tmp_path / "kv.parquet"), 8)

@@ -42,6 +42,24 @@ SPILL_COUNTERS = ("spilled_partitions", "spill_write_failures", "unspill_readahe
 SPILL_BASE = {"executor_threads": 1, "async_spill_writes": False}
 
 
+def fresh_ledgers_and_faults() -> None:
+    """Both packages' process-wide memory ledgers at 0 and both fault
+    registries disarmed. A budgeted case's spill decisions read the ledger,
+    which holds what earlier queries in the process left there: a reference
+    query that fails under an injected fault can leave its buffers' bytes
+    charged (tests/test_sketch_aggs.py's fault cases leave 15280), and the
+    reference then spills more than the port over the same data."""
+    from daft_tpu import faults as ref_faults
+    from daft_tpu.spill import MEMORY_LEDGER as REF_LEDGER
+    from daft_tpu_torch import faults
+    from daft_tpu_torch.spill import MEMORY_LEDGER
+
+    for led in (REF_LEDGER, MEMORY_LEDGER):
+        led.reset()
+    ref_faults.disarm()
+    faults.disarm()
+
+
 def spill_dirs() -> set:
     """The port's spill directories in the temp directory."""
     import glob
@@ -91,6 +109,27 @@ def run_both(build, min_rows: int = 8, x64: bool = False, knobs=None):
     daft_tpu_torch.set_execution_config(
         daft_tpu_torch.execution_config_from_dict(d, device="cpu"))
     return ref, build(daft_tpu_torch).collect()
+
+
+def under_both(fn, knobs: dict, min_rows: int = 8):
+    """``fn(pkg)`` under the reference's 32-bit config with ``knobs`` set,
+    then under the port's config mapped from it (``device="cpu"``); for
+    cases that do more than collect one frame (a write, a late read, a
+    failure). Returns (the reference's result, the port's)."""
+    with real_tpu_mode_cfg(device_min_rows=min_rows) as cfg:
+        saved = {k: getattr(cfg, k) for k in knobs}
+        for k, v in knobs.items():
+            setattr(cfg, k, v)
+        try:
+            ref = fn(daft_tpu)
+            d = dataclasses.asdict(cfg)
+        finally:
+            for k, v in saved.items():
+                setattr(cfg, k, v)
+    d["jax_enable_x64"] = False
+    daft_tpu_torch.set_execution_config(
+        daft_tpu_torch.execution_config_from_dict(d, device="cpu"))
+    return ref, fn(daft_tpu_torch)
 
 
 def counters(df) -> dict:
