@@ -202,11 +202,21 @@ Phases, each of which fails the run:
      query; Q1's result written hive-partitioned by l_returnflag and read
      back equal; then, outside the zero-failure checks, prefetch.fetch
      armed first_n 1, whose error reaches the caller.
+ 14. the rest of the columnar core on the card (needs SF1 in --scales;
+     phase_columnar), over phase 3's SF1 lineitem: Q1's groups with the
+     sum, mean and stddev of l_quantity, l_extendedprice, l_discount and the
+     discounted price over into_partitions(4), composed (stage 1 through K1,
+     4 launches) and deep (K2), against the float64 pyarrow oracle (stddevs
+     at rtol 1e-5), and over one partition on the host; revenue by
+     dt.truncate("1 month") and by partitioning.months() of l_shipdate, and
+     by l_extendedprice.hash() % 64 (sums through K1); agg_list, agg_concat,
+     any_value and skew over the first 200,000 rows in 4 partitions, on the
+     host, against pyarrow and numpy. One cold run each.
 
 Phases 8-11 run after phase 7 and before phase 4, while the 22-query
 tables are still being generated. Phases 1-10 turn feedback-directed
 planning and the whole-plan result cache off (PLAN_PINS): each times its
-plans as written. Every query of phases 1-7 and 9-13 (but the ids' Q6
+plans as written. Every query of phases 1-7 and 9-14 (but the ids' Q6
 and largest id and the fault cases of phases 10-13) is held
 to 0 device_attempt_failures, device_breaker_trips, degraded_completions,
 faults_injected, join_filter_errors and every *_fallbacks counter (Phases.watch reads them as collect() returns, and each
@@ -719,6 +729,11 @@ def enumerate_deep_programs() -> list:
             device="cpu", device_min_rows=64, use_deep_fusion_kernel=True,
             device_residency=residency))
         build({"lineitem_4": four}).collect()
+    # phase 14's deep stddev over 4 partitions: its stage-1 program (the
+    # sums of x and x * x); stage 2 stays on the host, as at SF1
+    dtt.set_execution_config(config(device="cpu", device_min_rows=64,
+                                    use_deep_fusion_kernel=True))
+    q1_stddev(dtt.from_arrow([li.slice(i * 1024, 1024) for i in range(COLUMNAR_PARTS)])).collect()
     return fes.programs()
 
 
@@ -4645,6 +4660,261 @@ def phase_prefetch_write(ph: Phases, lineitem, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the rest of the columnar core
+# ---------------------------------------------------------------------------
+
+COLUMNAR_PARTS = 4         # phase 14 (a) and (d) cut lineitem into this many partitions
+COLUMNAR_ROWS = 200_000    # (d) runs over the first rows of SF1 lineitem
+RTOL_STDDEV = 1e-5         # tests/test_pallas.py's tolerance, for a float32-summed stddev
+STDDEV_COLUMNS = ("l_quantity", "l_extendedprice", "l_discount", "disc_price")
+Q1_GROUPS = ["l_returnflag", "l_linestatus"]
+
+
+def q1_stddev(lineitem):
+    """Q1's filter and groups with the sum, mean and population stddev of
+    l_quantity, l_extendedprice, l_discount and the discounted price. Over
+    several partitions each stddev splits into the sums of x and x * x and
+    the count (stage 1 on the card), shared with the sum and the mean."""
+    from daft_tpu_torch import col
+
+    vals = {"l_quantity": col("l_quantity"), "l_extendedprice": col("l_extendedprice"),
+            "l_discount": col("l_discount"),
+            "disc_price": col("l_extendedprice") * (1 - col("l_discount"))}
+    aggs = []
+    for name, e in vals.items():
+        aggs += [e.sum().alias(f"sum_{name}"), e.mean().alias(f"avg_{name}"),
+                 e.stddev().alias(f"sd_{name}")]
+    return (lineitem.where(col("l_shipdate") <= datetime.date(1998, 9, 2))
+            .groupby(*Q1_GROUPS).agg(*aggs).sort(Q1_GROUPS))
+
+
+def oracle_q1_stddev(lineitem) -> dict:
+    """q1_stddev by pyarrow in float64 (stddev with ddof 0), one thread."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    t = lineitem.filter(pc.less_equal(lineitem["l_shipdate"],
+                                      pa.scalar(datetime.date(1998, 9, 2))))
+    t = t.append_column("disc_price", pc.multiply(
+        t["l_extendedprice"], pc.subtract(pa.scalar(1.0), t["l_discount"])))
+    specs = []
+    for c in STDDEV_COLUMNS:
+        specs += [(c, "sum"), (c, "mean"), (c, "stddev", pc.VarianceOptions(ddof=0))]
+    g = t.group_by(Q1_GROUPS, use_threads=False).aggregate(specs)
+    g = g.sort_by([(k, "ascending") for k in Q1_GROUPS])
+    out = {k: g[k].to_pylist() for k in Q1_GROUPS}
+    for c in STDDEV_COLUMNS:
+        out[f"sum_{c}"] = g[f"{c}_sum"].to_pylist()
+        out[f"avg_{c}"] = g[f"{c}_mean"].to_pylist()
+        out[f"sd_{c}"] = g[f"{c}_stddev"].to_pylist()
+    return out
+
+
+def revenue_by(lineitem, key):
+    """The discounted revenue and the line count of each ``key`` group."""
+    from daft_tpu_torch import col
+
+    return (lineitem.groupby(key.alias("g"))
+            .agg((col("l_extendedprice") * (1 - col("l_discount"))).sum().alias("revenue"),
+                 col("l_quantity").count().alias("n"))
+            .sort("g"))
+
+
+def oracle_revenue_by(lineitem, keys) -> dict:
+    """revenue_by by pyarrow in float64 over the key column ``keys``."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    t = pa.table({"g": keys, "r": pc.multiply(lineitem["l_extendedprice"], pc.subtract(
+        pa.scalar(1.0), lineitem["l_discount"])), "q": lineitem["l_quantity"]})
+    g = t.group_by("g", use_threads=False).aggregate([("r", "sum"), ("q", "count")])
+    g = g.sort_by("g")
+    return {"g": g["g"].to_pylist(), "revenue": g["r_sum"].to_pylist(),
+            "n": g["q_count"].to_pylist()}
+
+
+def order_dependent(lineitem):
+    """The order-dependent and whole-group kinds by Q1's groups:
+    agg_list, agg_concat (of each row's flag as a one-element list),
+    any_value and skew. None of them has a device reduction."""
+    from daft_tpu_torch import col
+
+    return (lineitem.groupby(*Q1_GROUPS).agg(
+        col("l_quantity").agg_list().alias("quantities"),
+        col("l_returnflag").str.split(",").agg_concat().alias("flags"),
+        col("l_extendedprice").any_value().alias("first_price"),
+        col("l_extendedprice").skew().alias("skew_price"))
+        .sort(Q1_GROUPS))
+
+
+def oracle_order_dependent(lineitem) -> dict:
+    """order_dependent by pyarrow (lists and first values in row order, one
+    thread) and numpy (skew's population moments in float64). In the 32-bit
+    mode the projection under the exchange runs on the card, which hands
+    l_extendedprice back rounded to float32 (as in the reference), so the
+    oracle rounds it the same way first."""
+    import numpy as np
+    import pyarrow as pa
+
+    price = lineitem["l_extendedprice"].cast(pa.float32()).cast(pa.float64())
+    lineitem = lineitem.set_column(lineitem.schema.get_field_index("l_extendedprice"),
+                                   "l_extendedprice", price)
+    g = lineitem.group_by(Q1_GROUPS, use_threads=False).aggregate(
+        [("l_quantity", "list"), ("l_returnflag", "list"), ("l_extendedprice", "first"),
+         ("l_extendedprice", "list")])
+    g = g.sort_by([(k, "ascending") for k in Q1_GROUPS])
+    skews = []
+    for prices in g["l_extendedprice_list"].to_pylist():
+        v = np.asarray(prices, dtype=np.float64)
+        sd = v.std()
+        skews.append(0.0 if sd == 0 else float(((v - v.mean()) ** 3).mean() / sd ** 3))
+    return {**{k: g[k].to_pylist() for k in Q1_GROUPS},
+            "quantities": g["l_quantity_list"].to_pylist(),
+            "flags": g["l_returnflag_list"].to_pylist(),
+            "first_price": g["l_extendedprice_first"].to_pylist(), "skew_price": skews}
+
+
+def max_rel_gaps(got: dict, want: dict, columns) -> dict:
+    """The largest relative gap of each float column against its oracle."""
+    return {c: max(abs(a - b) / abs(b) if b else abs(a - b) for a, b in zip(got[c], want[c]))
+            for c in columns}
+
+
+def phase_columnar(ph: Phases, lineitem, card: str) -> dict:
+    """Phase 14: the rest of the columnar core on the card, in the 32-bit
+    mode, over phase 3's SF1 lineitem (generate_lineitem_only(1.0, seed=42)):
+    (a) q1_stddev over into_partitions(4), composed (stage 1 through K1, 4
+    launches a run) and deep (K2, 4 launches, ``child * child`` in the
+    kernel), against the float64 pyarrow oracle (sums and means at rtol
+    1e-6, stddevs at 1e-5, each column's largest gap printed), and over one
+    partition, where a stddev keeps the whole aggregate on the host (0
+    launches); (b) revenue by l_shipdate.dt.truncate("1 month") and by
+    partitioning.months() over one partition (the keys on the host, the
+    sums through K1); (c) sums by l_extendedprice.hash() % 64 against
+    pyarrow grouping the port's host hash column; (d) order_dependent over
+    the first 200,000 rows in 4 partitions, on the host (no device
+    reduction for any of its kinds), against pyarrow and numpy. One cold
+    run each; each counts K1's, K2's and the scatter kernel's launches from
+    0 just before it."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import torch
+
+    import daft_tpu_torch as dtt
+    from daft_tpu_torch import col
+    from daft_tpu_torch.kernels import fused_expr_sums as fes
+    from daft_tpu_torch.kernels import scatter_sums as scs
+    from daft_tpu_torch.kernels import segment_sums as ss
+
+    out = {"k1_launches": 0, "k2_launches": 0, "scatter_launches": 0, "card": card}
+
+    def run(label: str, build, frame, **knobs):
+        """One cold run of ``build(frame)``: (rows, launches, counters, wall)."""
+        dtt.set_execution_config(config(**knobs))
+        ss.LAUNCHES = fes.LAUNCHES = scs.LAUNCHES = 0
+        t0 = time.perf_counter()
+        df = build(frame).collect()
+        rows = df.to_pydict()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"k1": ss.LAUNCHES, "k2": fes.LAUNCHES, "scatter": scs.LAUNCHES}
+        for k, v in launches.items():
+            out[f"{k}_launches"] += v
+        c = df.stats.snapshot()["counters"]
+        out[label] = {"wall_s": wall, "launches": launches,
+                      **{k: c.get(k, 0) for k in ("device_aggregations", "host_aggregations",
+                                                  "device_group_codes", "shuffles")}}
+        print(f"SF1 columnar {label} " + json.dumps(out[label]), flush=True)
+        return rows, launches, c
+
+    t_phase = time.perf_counter()
+    # --- (a) stddev beside sum and mean, over 4 partitions and over one
+    four = dtt.from_arrow(lineitem).into_partitions(COLUMNAR_PARTS).collect()
+    one = dtt.from_arrow(lineitem).collect()
+    want = oracle_q1_stddev(lineitem)
+    sd_cols = [f"sd_{c}" for c in STDDEV_COLUMNS]
+    other_cols = [k for k in want if k.startswith(("sum_", "avg_"))]
+    for label, frame, deep in (("stddev 4 partitions composed", four, False),
+                               ("stddev 4 partitions deep", four, True),
+                               ("stddev 1 partition", one, False)):
+        rows, launches, c = run(label, q1_stddev, frame, use_deep_fusion_kernel=deep)
+        gaps = max_rel_gaps(rows, want, sd_cols + other_cols) if set(rows) == set(want) else {}
+        out[label]["stddev_gaps"] = {k: gaps.get(k) for k in sd_cols}
+        ph.check(bool(gaps) and rows["l_returnflag"] == want["l_returnflag"]
+                 and rows["l_linestatus"] == want["l_linestatus"]
+                 and all(gaps[k] <= RTOL_STDDEV for k in sd_cols)
+                 and parity({k: rows[k] for k in other_cols},
+                            {k: want[k] for k in other_cols}, RTOL),
+                 f"SF1 columnar {label}: sums and means at rtol {RTOL}, stddevs at "
+                 f"{RTOL_STDDEV} of the float64 pyarrow oracle (largest stddev gaps "
+                 f"{json.dumps(out[label]['stddev_gaps'])})")
+        if frame is one:
+            ok = (launches == {"k1": 0, "k2": 0, "scatter": 0}
+                  and c.get("device_aggregations", 0) == 0 and c.get("host_aggregations", 0) == 1)
+            what = "the whole aggregate on the host (0 launches, host_aggregations 1)"
+        else:
+            kernel = "k2" if deep else "k1"
+            ok = (launches[kernel] == COLUMNAR_PARTS
+                  and launches["k1" if deep else "k2"] == 0
+                  and c.get("device_aggregations", 0) == COLUMNAR_PARTS
+                  and c.get("shuffles", 0) == 2)
+            what = (f"stage 1 on the card through {kernel.upper()}, {COLUMNAR_PARTS} launches "
+                    f"and device_aggregations, two shuffles (the partials', the sort's)")
+        ph.check(ok, f"SF1 columnar {label}: {what} ({launches}, device_aggregations "
+                     f"{c.get('device_aggregations', 0)}, host_aggregations "
+                     f"{c.get('host_aggregations', 0)})")
+    del four
+
+    # --- (b) the month of each ship date as a group key, two ways
+    ship = lineitem["l_shipdate"]
+    months = pc.floor_temporal(ship, multiple=1, unit="month")
+    epoch_months = pc.add(pc.multiply(pc.subtract(pc.year(ship), 1970), 12),
+                          pc.subtract(pc.month(ship).cast(pa.int32()), 1)).cast(pa.int32())
+    # --- (c) and a hash bucket, against the port's own host hash column
+    hashes = dtt.Series.from_arrow(lineitem["l_extendedprice"]).hash().to_arrow()
+    buckets = pc.bit_wise_and(hashes, pa.scalar(63, pa.uint64()))
+    for label, key, keys in (
+            ("revenue by dt.truncate month", col("l_shipdate").dt.truncate("1 month"), months),
+            ("revenue by partitioning.months", col("l_shipdate").partitioning.months(),
+             epoch_months),
+            ("revenue by hash % 64", col("l_extendedprice").hash() % 64, buckets)):
+        rows, launches, c = run(label, lambda f, key=key: revenue_by(f, key), one)
+        want = oracle_revenue_by(lineitem, keys)
+        ph.check(rows["g"] == want["g"] and rows["n"] == want["n"]
+                 and parity({"revenue": rows["revenue"]}, {"revenue": want["revenue"]}, RTOL),
+                 f"SF1 columnar {label}: {len(rows['g'])} groups equal to pyarrow's (revenue at "
+                 f"rtol {RTOL})")
+        ph.check(launches["k1"] == 1 and c.get("device_aggregations", 0) == 1
+                 and c.get("device_group_codes", 0) == 0,
+                 f"SF1 columnar {label}: the key on the host (device_group_codes 0, as in the "
+                 f"reference), the sums on the card through K1 ({launches})")
+    del one
+
+    # --- (d) the order-dependent kinds and skew, on the host
+    head = lineitem.slice(0, COLUMNAR_ROWS)
+    step = -(-COLUMNAR_ROWS // COLUMNAR_PARTS)
+    parts = dtt.from_arrow([head.slice(i * step, step) for i in range(COLUMNAR_PARTS)]).collect()
+    rows, launches, c = run("list concat any_value skew", order_dependent, parts)
+    want = oracle_order_dependent(head)
+    same = all(rows[k] == want[k] for k in want if k != "skew_price")
+    skew_gap = max_rel_gaps(rows, want, ["skew_price"])["skew_price"] if same else None
+    out["list concat any_value skew"]["skew_gap"] = skew_gap
+    ph.check(same and skew_gap <= RTOL_X64,
+             f"SF1 columnar list concat any_value skew: {COLUMNAR_ROWS} rows in "
+             f"{COLUMNAR_PARTS} partitions, lists and first values equal to pyarrow's in row "
+             f"order, skew within {RTOL_X64} of numpy's over the float32-rounded prices "
+             f"(gap {skew_gap})")
+    ph.check(launches == {"k1": 0, "k2": 0, "scatter": 0}
+             and c.get("device_aggregations", 0) == 0 and c.get("host_aggregations", 0) >= 1,
+             f"SF1 columnar list concat any_value skew: on the host, as in the reference "
+             f"({launches}, host_aggregations {c.get('host_aggregations', 0)})")
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"SF1 columnar phase 14 wall {out['wall_s']:.1f}s ({card})", flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
 def _walk(p):
     yield p
     for c in p.children():
@@ -4822,7 +5092,7 @@ def main(argv=None) -> int:
             else:  # the main path's shape at the later scales, checked and timed
                 sc_entry[f"sf{scale:g}_shape"] = joins["scatter_main"]
         if scales:
-            faults_out = relational = spill = adapt = scans = prefetch_write = None
+            faults_out = relational = spill = adapt = scans = prefetch_write = columnar = None
             if 1.0 in scales:
                 # phases 8-11 read phase 3's and phase 7's SF1 tables alone, so
                 # they run while the 22-query tables are still being generated
@@ -4871,11 +5141,15 @@ def main(argv=None) -> int:
                 print(f"elapsed {time.perf_counter() - started:.1f}s: phase 13", flush=True)
                 ph.begin("phase 13")
                 prefetch_write = phase_prefetch_write(ph, sf1_lineitem, card)
+                print(f"elapsed {time.perf_counter() - started:.1f}s: phase 14", flush=True)
+                ph.begin("phase 14")
+                columnar = phase_columnar(ph, sf1_lineitem, card)
             del data, sf1_lineitem
             phase_outs = [("tpch22", t22), ("lanes", lanes)] + [
                 (f"exchange_sf{sc:g}", ex) for sc, ex in exchange.items()] + (
                 [("faults", faults_out), ("relational", relational), ("spill", spill),
-                 ("adapt", adapt), ("scan", scans), ("prefetch_write", prefetch_write)]
+                 ("adapt", adapt), ("scan", scans), ("prefetch_write", prefetch_write),
+                 ("columnar", columnar)]
                 if faults_out is not None else [])
             for name, ph_out in phase_outs:
                 k1_entry[f"launches_{name}"] = ph_out["k1_launches"]

@@ -6,7 +6,9 @@ with_column(s)_renamed, groupby(...).agg, agg, count_rows/len, sort, join
 (every join type, cross joins among them, and the hash, broadcast and
 sort-merge strategies), concat, limit/head, distinct/unique, sample,
 repartition, into_partitions, explode, unpivot/melt, pivot,
-with_monotonically_increasing_id, collect, explain and the per-query
+with_monotonically_increasing_id, the aggregation shorthands of DataFrame
+and GroupedDataFrame (sum, mean, min, max, stddev, any_value, count,
+agg_list, agg_concat), collect, explain and the per-query
 ``stats``, over in-memory frames and over the file scans of api.py
 (read_parquet, read_csv, read_json), and the output surface: the writers
 (write_parquet, write_csv, write_json, each returning the manifest of the
@@ -15,7 +17,8 @@ to_pydict, to_pylist, to_arrow, to_pandas, to_table, show and a ``repr``
 that previews a collected frame (``num_preview_rows``) and never runs the
 plan. Left out of this slice: the lake writers and the Ray and Dask
 conversions (ROADMAP, Queue 1, item 9), the torch datasets and the HTML
-preview (item 10), SQL predicates, profiling and the integrations.
+preview (item 10), GroupedDataFrame.map_groups (it runs a python UDF, item
+5), SQL predicates, profiling and the integrations.
 """
 
 from __future__ import annotations
@@ -232,6 +235,48 @@ class DataFrame:
 
     with_monotonically_increasing_id = _add_monotonic_id
 
+    # ------------------------------------------------------------------ aggregation
+    def _agg_all(self, kind: str, cols, **extra) -> "DataFrame":
+        """``kind`` over ``cols``, or over every numeric column."""
+        exprs = _to_exprs(cols) if cols else [
+            col(f.name) for f in self.schema if f.dtype.is_numeric()]
+        aggs = [Expression(AggExpr(kind, e._node, extra or None)).alias(e.name()) for e in exprs]
+        return DataFrame(Aggregate(self._plan, aggs, []))
+
+    def sum(self, *cols: ColumnInput) -> "DataFrame":
+        return self._agg_all("sum", cols)
+
+    def mean(self, *cols: ColumnInput) -> "DataFrame":
+        return self._agg_all("mean", cols)
+
+    def min(self, *cols: ColumnInput) -> "DataFrame":
+        return self._agg_all("min", cols)
+
+    def max(self, *cols: ColumnInput) -> "DataFrame":
+        return self._agg_all("max", cols)
+
+    def stddev(self, *cols: ColumnInput) -> "DataFrame":
+        return self._agg_all("stddev", cols)
+
+    def any_value(self, *cols: ColumnInput) -> "DataFrame":
+        return self._agg_all("any_value", cols)
+
+    def _agg_each(self, kind: str, cols) -> "DataFrame":
+        """``kind`` over ``cols``, or over every column."""
+        exprs = _to_exprs(cols) if cols else [col(n) for n in self.column_names]
+        aggs = [Expression(AggExpr(kind, e._node)).alias(e.name()) for e in exprs]
+        return DataFrame(Aggregate(self._plan, aggs, []))
+
+    def count(self, *cols: ColumnInput) -> "DataFrame":
+        return self._agg_each("count", cols)
+
+    def agg_list(self, *cols: ColumnInput) -> "DataFrame":
+        return self._agg_each("list", cols)
+
+    def agg_concat(self, *cols: ColumnInput) -> "DataFrame":
+        aggs = [Expression(AggExpr("concat", e._node)).alias(e.name()) for e in _to_exprs(cols)]
+        return DataFrame(Aggregate(self._plan, aggs, []))
+
     def agg(self, *to_agg) -> "DataFrame":
         return DataFrame(Aggregate(self._plan, _normalize_aggs(to_agg), []))
 
@@ -396,6 +441,45 @@ class GroupedDataFrame:
     def __init__(self, df: DataFrame, group_by: List[Expression]):
         self.df = df
         self.group_by = group_by
+
+    def _agg_all(self, kind: str, cols, **extra) -> DataFrame:
+        """``kind`` over ``cols``, or over every column that is not a key
+        (the numeric ones only, except for count and any_value)."""
+        keys = {e.name() for e in self.group_by}
+        if cols:
+            exprs = _to_exprs(cols)
+        else:
+            exprs = [col(f.name) for f in self.df.schema
+                     if f.name not in keys and (f.dtype.is_numeric() or kind in ("count", "any_value"))]
+        aggs = [Expression(AggExpr(kind, e._node, extra or None)).alias(e.name()) for e in exprs]
+        return DataFrame(Aggregate(self.df._plan, aggs, self.group_by))
+
+    def sum(self, *cols: ColumnInput) -> DataFrame:
+        return self._agg_all("sum", cols)
+
+    def mean(self, *cols: ColumnInput) -> DataFrame:
+        return self._agg_all("mean", cols)
+
+    def min(self, *cols: ColumnInput) -> DataFrame:
+        return self._agg_all("min", cols)
+
+    def max(self, *cols: ColumnInput) -> DataFrame:
+        return self._agg_all("max", cols)
+
+    def stddev(self, *cols: ColumnInput) -> DataFrame:
+        return self._agg_all("stddev", cols)
+
+    def any_value(self, *cols: ColumnInput) -> DataFrame:
+        return self._agg_all("any_value", cols)
+
+    def count(self, *cols: ColumnInput) -> DataFrame:
+        return self._agg_all("count", cols)
+
+    def agg_list(self, *cols: ColumnInput) -> DataFrame:
+        return self._agg_all("list", cols)
+
+    def agg_concat(self, *cols: ColumnInput) -> DataFrame:
+        return self._agg_all("concat", cols)
 
     def agg(self, *to_agg) -> DataFrame:
         return DataFrame(Aggregate(self.df._plan, _normalize_aggs(to_agg), self.group_by))

@@ -11,16 +11,17 @@ The fold keeps ONE running partial per bucket and always re-aggregates
 ``[running_partial, new pieces...]`` with the partial's rows first, so the
 groups keep their first-occurrence order: the results equal those with
 ``hierarchical_exchange_combine`` off. Only merges that are exact under any
-regrouping fold: integer and count sums, min and max. A float sum declines,
-since folding early changes its order of additions.
+regrouping fold: integer and count sums, min, max, and the order-keeping
+concat of list partials. A float sum declines, since folding early changes
+its order of additions.
 
 The staged pieces live outside the spillable bucket buffers, so they are
 charged to the query's MemoryLedger while staged, and under a byte budget the
 combiner abandons once they pass half the budget (the rest of the budget
 belongs to the buffers, which can spill).
 
-Left out: the kinds the port has not ported yet (concat and the sketch
-merges).
+Left out: the sketch merges, which come with ``sketch/`` (ROADMAP.md, Queue
+1, item 10).
 """
 
 from __future__ import annotations
@@ -35,9 +36,11 @@ from ..micropartition import MicroPartition
 FOLD_EVERY = 16
 
 # stage-2 kinds the fold may apply early: order-insensitive exact merges
-# (min, max) and exact accumulations (integer sums; float sums are gated by
-# dtype in combine_spec_applicable)
-COMBINABLE_KINDS = {"sum", "min", "max"}
+# (min, max), exact accumulations (integer sums; float sums are gated by
+# dtype in combine_spec_applicable) and order-keeping concatenations
+# (concat). any_value declines: which value it picks depends on the shape of
+# its input, so a fold could change the value that survives.
+COMBINABLE_KINDS = {"sum", "min", "max", "concat"}
 
 # a fold that keeps more than this share of its input rows is not reducing
 # (near-unique keys): the combiner abandons and hands every piece on raw

@@ -9,11 +9,13 @@ daft_tpu_torch/kernels/device.py.
 The port carries Column, Literal (with the weak typing of plain python
 numbers), Alias, Cast, BinaryOp (arithmetic, comparisons, & | ^), Not,
 Between, IsNull, FillNull, IsIn, IfElse and Function (a call into the
-registry of daft_tpu_torch/functions.py, with the str, dt and float
-namespaces over the functions ported there), ``interval`` literals, and the
-aggregations sum, mean, count, min, max and count_distinct. Left out until a
-later slice: python UDFs, the list/struct/image/... namespaces and the other
-non-decomposable and sketch aggregations.
+registry of daft_tpu_torch/functions.py, with the str, dt, float, list,
+struct, map, partitioning and json namespaces and the hash functions),
+``interval`` literals, and the aggregations sum, mean, count, min, max,
+count_distinct, stddev, skew, any_value, list (``agg_list``) and concat
+(``agg_concat``). Left out until a later slice: python UDFs (ROADMAP.md,
+Queue 1, item 5), the image, url and embedding namespaces and the
+approximate (sketch) aggregations (item 10).
 """
 
 from __future__ import annotations
@@ -721,6 +723,8 @@ class Function(ExprNode):
         self.kwargs = kwargs or {}
 
     def name(self):
+        if self.fname == "struct.get":  # named after the field it extracts
+            return self.kwargs.get("name", "")
         return self.args[0].name() if self.args else self.fname
 
     def to_field(self, schema):
@@ -751,7 +755,8 @@ class Function(ExprNode):
         return f"{self.fname}({inner})"
 
 
-AGG_KINDS = ("sum", "mean", "min", "max", "count", "count_distinct")
+AGG_KINDS = ("sum", "mean", "min", "max", "count", "count_distinct", "any_value", "list",
+             "concat", "stddev", "skew")
 
 
 class AggExpr(ExprNode):
@@ -779,9 +784,13 @@ class AggExpr(ExprNode):
             elif dt.is_unsigned_integer():
                 dt = DataType.uint64()
             return Field(f.name, dt)
-        if k == "mean":
+        if k in ("mean", "stddev", "skew"):
             return Field(f.name, DataType.float64())
-        return Field(f.name, f.dtype)  # min / max
+        if k == "list":
+            return Field(f.name, DataType.list(f.dtype))
+        if k == "concat" and not (f.dtype.is_list() or f.dtype.is_string()):
+            raise DaftValueError(f"agg_concat needs list/string, got {f.dtype}")
+        return Field(f.name, f.dtype)  # min / max / any_value / concat
 
     def _eval(self, table) -> Series:
         # global (ungrouped) aggregation path; grouped agg handled by Table.agg
@@ -814,7 +823,25 @@ def _eval_agg_on_series(agg: AggExpr, s: Series) -> Series:
 
         return Series.from_pylist([pc.count_distinct(s.to_arrow()).as_py()], s.name,
                                   DataType.uint64())
-    return getattr(s, k)()
+    if k == "any_value":
+        return s.any_value(agg.extra.get("ignore_nulls", False))
+    if k == "list":
+        return s.agg_list()
+    if k == "concat":
+        return s.agg_concat()
+    if k == "skew":
+        # numpy's population moments over the non-null values; a constant
+        # input gives 0.0, an empty one null
+        import numpy as np
+
+        v = np.asarray(s.cast(DataType.float64()).to_arrow().drop_null(), dtype=np.float64)
+        if len(v) == 0:
+            return Series.from_pylist([None], s.name, DataType.float64())
+        m = v.mean()
+        sd = v.std()
+        out = 0.0 if sd == 0 else float(((v - m) ** 3).mean() / sd ** 3)
+        return Series.from_pylist([out], s.name, DataType.float64())
+    return getattr(s, k)()  # sum / mean / stddev / min / max
 
 
 # ---------------------------------------------------------------------------
@@ -1049,6 +1076,14 @@ class Expression:
     def shift_right(self, o):
         return self._fn("numeric.shift_right", o)
 
+    def hash(self, seed=None):
+        if seed is None:
+            return self._fn("hash")
+        return self._fn("hash", seed)
+
+    def minhash(self, num_hashes: int = 64, ngram_size: int = 1, seed: int = 1):
+        return self._fn("minhash", num_hashes=num_hashes, ngram_size=ngram_size, seed=seed)
+
     # --- aggregations
     def _agg(self, kind: str, **extra) -> "Expression":
         return Expression(AggExpr(kind, self._node, extra))
@@ -1071,6 +1106,21 @@ class Expression:
     def count_distinct(self):
         return self._agg("count_distinct")
 
+    def stddev(self):
+        return self._agg("stddev")
+
+    def skew(self):
+        return self._agg("skew")
+
+    def any_value(self, ignore_nulls: bool = False):
+        return self._agg("any_value", ignore_nulls=ignore_nulls)
+
+    def agg_list(self):
+        return self._agg("list")
+
+    def agg_concat(self):
+        return self._agg("concat")
+
     # --- namespaces
     @property
     def str(self) -> "ExprStrNamespace":
@@ -1081,8 +1131,28 @@ class Expression:
         return ExprDtNamespace(self)
 
     @property
+    def list(self) -> "ExprListNamespace":
+        return ExprListNamespace(self)
+
+    @property
+    def struct(self) -> "ExprStructNamespace":
+        return ExprStructNamespace(self)
+
+    @property
+    def map(self) -> "ExprMapNamespace":
+        return ExprMapNamespace(self)
+
+    @property
     def float(self) -> "ExprFloatNamespace":
         return ExprFloatNamespace(self)
+
+    @property
+    def partitioning(self) -> "ExprPartitioningNamespace":
+        return ExprPartitioningNamespace(self)
+
+    @property
+    def json(self) -> "ExprJsonNamespace":
+        return ExprJsonNamespace(self)
 
     def __repr__(self) -> str:
         return self._node.display()
@@ -1110,6 +1180,9 @@ class ExprStrNamespace(_Namespace):
 
     def match(self, pat):
         return self._fn("utf8.match", pat)
+
+    def split(self, pat, regex: bool = False):
+        return self._fn("utf8.split", pat, regex=regex)
 
     def length(self):
         return self._fn("utf8.length")
@@ -1140,6 +1213,9 @@ class ExprStrNamespace(_Namespace):
 
     def extract(self, pat, index: int = 0):
         return self._fn("utf8.extract", pat, index=index)
+
+    def extract_all(self, pat, index: int = 0):
+        return self._fn("utf8.extract_all", pat, index=index)
 
     def find(self, substr):
         return self._fn("utf8.find", substr)
@@ -1208,6 +1284,84 @@ class ExprDtNamespace(_Namespace):
     def day_of_year(self):
         return self._fn("dt.day_of_year")
 
+    def date(self):
+        return self._fn("dt.date")
+
+    def time(self):
+        return self._fn("dt.time")
+
+    def truncate(self, interval: str, relative_to=None):
+        return self._fn("dt.truncate", interval=interval, relative_to=relative_to)
+
+    def strftime(self, format: Optional[str] = None):
+        return self._fn("dt.strftime", fmt=format)
+
+    def to_unix_epoch(self, unit: str = "s"):
+        return self._fn("dt.to_unix_epoch", unit=unit)
+
+
+class ExprListNamespace(_Namespace):
+    def lengths(self):
+        return self._fn("list.lengths")
+
+    def length(self):
+        return self._fn("list.lengths")
+
+    def get(self, idx, default=None):
+        if default is None:
+            return self._fn("list.get", idx)
+        return self._fn("list.get", idx, default)
+
+    def slice(self, start, end=None):
+        if end is None:
+            return self._fn("list.slice", start)
+        return self._fn("list.slice", start, end)
+
+    def chunk(self, size: int):
+        return self._fn("list.chunk", size=size)
+
+    def join(self, sep):
+        return self._fn("list.join", sep)
+
+    def sum(self):
+        return self._fn("list.sum")
+
+    def mean(self):
+        return self._fn("list.mean")
+
+    def min(self):
+        return self._fn("list.min")
+
+    def max(self):
+        return self._fn("list.max")
+
+    def count(self, mode: str = "valid"):
+        return self._fn("list.count", mode=mode)
+
+    def sort(self, desc=None):
+        if desc is None:
+            return self._fn("list.sort")
+        return self._fn("list.sort", desc)
+
+    def unique(self):
+        return self._fn("list.unique")
+
+    def distinct(self):
+        return self._fn("list.unique")
+
+    def contains(self, item):
+        return self._fn("list.contains", item)
+
+
+class ExprStructNamespace(_Namespace):
+    def get(self, name: str):
+        return self._fn("struct.get", name=name)
+
+
+class ExprMapNamespace(_Namespace):
+    def get(self, key):
+        return self._fn("map.get", key)
+
 
 class ExprFloatNamespace(_Namespace):
     def is_nan(self):
@@ -1221,6 +1375,31 @@ class ExprFloatNamespace(_Namespace):
 
     def fill_nan(self, fill):
         return self._fn("float.fill_nan", fill)
+
+
+class ExprPartitioningNamespace(_Namespace):
+    def days(self):
+        return self._fn("partitioning.days")
+
+    def hours(self):
+        return self._fn("partitioning.hours")
+
+    def months(self):
+        return self._fn("partitioning.months")
+
+    def years(self):
+        return self._fn("partitioning.years")
+
+    def iceberg_bucket(self, n: int):
+        return self._fn("partitioning.iceberg_bucket", n=n)
+
+    def iceberg_truncate(self, w: int):
+        return self._fn("partitioning.iceberg_truncate", w=w)
+
+
+class ExprJsonNamespace(_Namespace):
+    def query(self, q: str):
+        return self._fn("json.query", query=q)
 
 
 def required_columns(e: Union[Expression, ExprNode]) -> List[str]:

@@ -41,8 +41,10 @@ An aggregate over more than one partition plans in two stages, as the
 reference's ``_translate_aggregate`` does: stage 1 aggregates each partition
 into partials (``populate_aggregation_stages``), a hash ShuffleOp on the
 group keys (a GatherOp when there are none) moves the partials, stage 2
-merges them, and a final Project derives each result (mean = sum / count)
-and casts to the plan's schema. The stage-2 shuffle folds the stage-1
+merges them, and a final Project derives each result (mean = sum / count,
+stddev from the sums of x and x * x and the count) and casts to the plan's
+schema. count_distinct and skew do not split: their raw rows shuffle by
+key, or gather for a global aggregate. The stage-2 shuffle folds the stage-1
 pieces bound for one bucket (exchange/combine.py) when every merge is
 exact. Stage 1 over a filter fuses into a FusedFilterAggregateOp, and over
 a map chain into a DeviceSegmentOp, as a one-partition aggregate does.
@@ -1287,10 +1289,11 @@ def _translate(plan: LogicalPlan, cfg) -> PhysicalOp:
 # ---------------------------------------------------------------------------
 
 # stage-1 kind -> the stage-2 kind that merges its partials
-_MERGE_KIND = {"sum": "sum", "count": "sum", "min": "min", "max": "max"}
-# kinds that split into partials (count_distinct does not: its per-partition
-# counts cannot be merged)
-DECOMPOSABLE = {"sum", "count", "mean", "min", "max"}
+_MERGE_KIND = {"sum": "sum", "count": "sum", "min": "min", "max": "max", "list": "concat",
+               "concat": "concat", "any_value": "any_value"}
+# kinds that split into partials (count_distinct and skew do not: their
+# per-partition results cannot be merged)
+DECOMPOSABLE = {"sum", "count", "mean", "min", "max", "list", "concat", "any_value", "stddev"}
 
 
 def _strip_alias(e: Expression) -> AggExpr:
@@ -1309,10 +1312,11 @@ def populate_aggregation_stages(
 
     first_stage runs per input partition and names its partials
     ``__s1_{i}_{kind}``; second_stage merges the partials after the
-    exchange; final_projection derives each result (mean = sum / count).
-    A partial is shared by every aggregation that needs it (mean's sum and
-    count with a sum() and a count() of the same child). A kind the port
-    does not have raises NotImplementedError."""
+    exchange; final_projection derives each result (mean = sum / count,
+    stddev from the sums of the child and of its square and the count). A
+    partial is shared by every aggregation that needs it (mean's and
+    stddev's sum and count with a sum() and a count() of the same child). A
+    kind that does not decompose raises ValueError."""
     stage1: List[Expression] = []
     stage2: List[Expression] = []
     final: List[Expression] = []
@@ -1325,7 +1329,8 @@ def populate_aggregation_stages(
         ident = f"__s1_{len(seen_ids)}_{kind}"
         seen_ids[key] = ident
         stage1.append(Expression(AggExpr(kind, child_expr._node, extra)).alias(ident))
-        stage2.append(Expression(AggExpr(_MERGE_KIND[kind], col(ident)._node)).alias(ident))
+        stage2.append(Expression(AggExpr(_MERGE_KIND[kind], col(ident)._node,
+                                         extra if kind == "any_value" else None)).alias(ident))
         return ident
 
     for e in aggs:
@@ -1342,9 +1347,21 @@ def populate_aggregation_stages(
             sid = s1("sum", child, "")
             cid = s1("count", child, "valid", {"mode": "valid"})
             final.append((col(sid) / col(cid)).alias(alias))
+        elif k == "stddev":
+            # population stddev from E[x^2] - E[x]^2, the variance clamped at 0
+            # against rounding before the square root
+            sid = s1("sum", child, "")
+            qid = s1("sum", child * child, "")
+            cid = s1("count", child, "valid", {"mode": "valid"})
+            mean = col(sid) / col(cid)
+            var = (col(qid) / col(cid)) - (mean * mean)
+            final.append((((var + abs(var)) / lit(2.0)) ** lit(0.5)).alias(alias))
+        elif k in ("list", "concat"):
+            final.append(col(s1(k, child, k)).alias(alias))
+        elif k == "any_value":
+            final.append(col(s1("any_value", child, "any", dict(node.extra))).alias(alias))
         else:
-            raise NotImplementedError(
-                f"aggregation {k!r} over more than one partition is not ported yet")
+            raise ValueError(f"aggregation {k!r} is not decomposable")
     return stage1, stage2, final
 
 
@@ -1372,8 +1389,8 @@ def _translate_aggregate(plan: Aggregate, cfg) -> PhysicalOp:
     if nparts == 1:
         return AggregateOp(child, plan.aggregations, plan.groupby, plan.schema)
     if not aggs_decomposable(plan.aggregations):
-        # count_distinct: shuffle the raw rows by key, then aggregate each
-        # partition in full
+        # count_distinct, skew: shuffle the raw rows by key (gather them for
+        # a global aggregate), then aggregate each partition in full
         if plan.groupby:
             shuffled = ShuffleOp(child, "hash", nparts, plan.groupby)
             return AggregateOp(shuffled, plan.aggregations, plan.groupby, plan.schema)

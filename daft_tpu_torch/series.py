@@ -4,11 +4,12 @@ Host storage is a single-chunk Arrow array of the logical type's physical arrow
 mapping, or a numpy object array for python-dtype columns. The device path
 stages numeric columns as torch tensors (see daft_tpu_torch/kernels/device.py).
 
-Left out of this slice: the hash expression (Series.hash/murmur3_32), the
-multimodal image casts and the sketch-backed approximate aggregations. The
-row hash of the hash shuffle is
-Table.hash_rows (kernels/host_hash.py), which hashes a table's Arrow columns
-directly and needs none of them.
+``Series.hash`` (kernels/host_hash.py, with a stable byte form for python
+objects) and ``murmur3_32`` (kernels/murmur.py) back the hash functions and
+the Iceberg bucket transform; the row hash of the hash shuffle is
+Table.hash_rows, which hashes a table's Arrow columns directly. Left out of
+this slice: the multimodal image casts and the sketch-backed approximate
+aggregations (ROADMAP.md, Queue 1, item 10).
 """
 
 from __future__ import annotations
@@ -20,6 +21,27 @@ import pyarrow as pa
 import pyarrow.compute as pc
 
 from .datatypes import DataType, TypeKind, infer_datatype, try_unify
+from .kernels.host_hash import hash_array
+
+
+def _stable_value_bytes(v) -> bytes:
+    """A byte form of a python value that is the same in every process, for
+    hashing. A plain pickle is not enough: a set iterates in an order that
+    follows the process's string hash seed, and two equal dicts can differ
+    in insertion order. Containers canonicalize recursively (set members and
+    dict items sorted by their own bytes); other values pickle at a fixed
+    protocol. Raises for a value that does not pickle."""
+    import pickle
+
+    if isinstance(v, (set, frozenset)):
+        return b"S(" + b",".join(sorted(_stable_value_bytes(x) for x in v)) + b")"
+    if isinstance(v, dict):
+        items = sorted((_stable_value_bytes(k), _stable_value_bytes(x)) for k, x in v.items())
+        return b"D(" + b",".join(k + b":" + x for k, x in items) + b")"
+    if isinstance(v, (list, tuple)):
+        tag = b"L(" if isinstance(v, list) else b"T("
+        return tag + b",".join(_stable_value_bytes(x) for x in v) + b")"
+    return pickle.dumps(v, protocol=4)
 
 
 class Series:
@@ -561,6 +583,43 @@ class Series:
     def sort(self, descending: bool = False, nulls_first: Optional[bool] = None) -> "Series":
         return self.take(self.argsort(descending, nulls_first))
 
+    # ------------------------------------------------------------------ hashing
+    def hash(self, seed: Optional["Series"] = None) -> "Series":
+        """uint64 hash of every value (nulls hash too), chained from ``seed``
+        row by row when given."""
+        seeds = None
+        if seed is not None:
+            seeds = np.asarray(seed.cast(DataType.uint64())._arrow).astype(np.uint64)
+        if self._arrow is None:
+            # a python object hashes the crc32 of its stable bytes, never its
+            # repr, which holds a memory address for most objects
+            import zlib
+
+            from .errors import DaftValueError
+
+            vals = []
+            for v in self._pyobjs:
+                if v is None:
+                    vals.append(None)
+                    continue
+                try:
+                    buf = _stable_value_bytes(v)
+                except Exception as e:
+                    raise DaftValueError(
+                        f"cannot hash unpicklable python object of type "
+                        f"{type(v).__name__} in column {self._name!r}: a "
+                        "cross-process-stable hash needs a stable byte "
+                        f"representation ({e})") from e
+                vals.append(zlib.crc32(buf))
+            return Series.from_pylist(vals, self._name, DataType.uint64())
+        return Series.from_arrow(pa.array(hash_array(self._arrow, seed=seeds)), self._name,
+                                 DataType.uint64())
+
+    def murmur3_32(self) -> "Series":
+        from .kernels.murmur import murmur3_32_arrow
+
+        return Series.from_arrow(murmur3_32_arrow(self._arrow), self._name, DataType.int32())
+
     # ------------------------------------------------------------------ aggregations
     def count(self, mode: str = "valid") -> "Series":
         if self._arrow is None:
@@ -580,6 +639,10 @@ class Series:
         v = pc.mean(self._arrow)
         return Series.from_pylist([v.as_py()], self._name, DataType.float64())
 
+    def stddev(self) -> "Series":
+        v = pc.stddev(self._arrow, ddof=0)
+        return Series.from_pylist([v.as_py()], self._name, DataType.float64())
+
     def min(self) -> "Series":
         v = pc.min(self._arrow)
         return Series.from_pylist([v.as_py()], self._name, self._dtype)
@@ -587,6 +650,33 @@ class Series:
     def max(self) -> "Series":
         v = pc.max(self._arrow)
         return Series.from_pylist([v.as_py()], self._name, self._dtype)
+
+    def any_value(self, ignore_nulls: bool = False) -> "Series":
+        """The first value (the first non-null one with ``ignore_nulls``)."""
+        vals = self._arrow
+        if vals is None:
+            lst = [v for v in self._pyobjs if v is not None] if ignore_nulls else list(self._pyobjs)
+            return Series.from_pylist(lst[:1] or [None], self._name, self._dtype)
+        if ignore_nulls and vals.null_count:
+            vals = vals.drop_null()
+        out = vals.slice(0, 1) if len(vals) else pa.nulls(1, type=self._arrow.type)
+        return Series(self._name, self._dtype, out)
+
+    def agg_list(self) -> "Series":
+        """One row: the list of every value, in order."""
+        if self._arrow is None:
+            return Series.from_pylist([list(self._pyobjs)], self._name, DataType.list(DataType.python()))
+        offsets = pa.array([0, len(self._arrow)], type=pa.int64())
+        return Series(self._name, DataType.list(self._dtype),
+                      pa.LargeListArray.from_arrays(offsets, self._arrow))
+
+    def agg_concat(self) -> "Series":
+        """One row: the lists of every row concatenated, in order."""
+        if self._dtype.kind != TypeKind.LIST:
+            raise ValueError(f"agg_concat requires list type, got {self._dtype}")
+        flat = self._arrow.flatten()
+        offsets = pa.array([0, len(flat)], type=pa.int64())
+        return Series(self._name, self._dtype, pa.LargeListArray.from_arrays(offsets, flat))
 
 
 def _python_object_series(name: str, data) -> "Series":

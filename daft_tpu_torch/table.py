@@ -12,8 +12,10 @@ the host; ``explode``, ``unpivot``, ``pivot``, ``add_monotonic_id`` and
 ``sample`` are the host kernels of the reshaping plan nodes. Left out of
 this slice: the acero fused filter+aggregate plans and the optional C++
 ``native`` group-code pass (group codes take the numpy route here). The
-grouped aggregation keeps the bincount and arrow hash-agg routes for sum,
-mean, count, min and max.
+grouped aggregation keeps the bincount route (float sums and means, counts)
+and the arrow hash-agg route (sum, mean, count, min, max, count_distinct,
+stddev, list, any_value), and runs the rest (skew, concat, and a kind over a
+column arrow does not take) group by group over its rows sorted by group.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import pyarrow.compute as pc
 
 from .datatypes import DataType, try_unify
 from .errors import DaftValueError
-from .expressions import AggExpr, Alias, Expression, col
+from .expressions import AggExpr, Alias, Expression, _eval_agg_on_series, col
 from .kernels.host_hash import hash_table_columns
 from .schema import Field, Schema
 from .series import Series
@@ -645,6 +647,18 @@ class Table:
             num_groups = len(uniq)
             out_cols: List[Series] = list(uniq._columns)
             out_fields: List[Field] = list(uniq.schema)
+            seg: Dict[str, Any] = {}
+
+            def segments():
+                """Each group's rows contiguous (a stable sort by code) and
+                the groups' offsets, made on first use."""
+                if not seg:
+                    seg["order"] = Series.from_arrow(
+                        pa.array(np.argsort(codes, kind="stable").astype(np.uint64)), "o")
+                    seg["offs"] = np.concatenate(
+                        [[0], np.cumsum(np.bincount(codes, minlength=num_groups))])
+                return seg["order"], seg["offs"]
+
             for e in to_agg:
                 node = e._node
                 while isinstance(node, Alias):
@@ -656,11 +670,12 @@ class Table:
                 merged = _bincount_agg_fast(node, child_s, codes, num_groups)
                 if merged is None:
                     merged = _hash_agg_fast(node, child_s, codes, num_groups)
-                if merged is None:
-                    if num_groups:
-                        raise DaftValueError(
-                            f"cannot {node.kind} a {child_s.dtype} column")
-                    merged = Series.empty(child_s.name, expected_dt)
+                if merged is None:  # group by group
+                    order, offs = segments()
+                    rows = child_s.take(order)
+                    outs = [_eval_agg_on_series(node, rows.slice(int(offs[g]), int(offs[g + 1])))
+                            for g in range(num_groups)]
+                    merged = Series.concat(outs) if outs else _empty_agg_series(node, child_s)
                 if merged.dtype != expected_dt:
                     merged = merged.cast(expected_dt)
                 out_cols.append(merged.rename(e.name()))
@@ -781,9 +796,14 @@ def _group_codes(key_tbl: Table) -> Tuple[np.ndarray, Table]:
 
 
 def _acero_agg_fn(node: AggExpr):
-    """AggExpr -> (arrow hash-agg function name, options), or None."""
+    """AggExpr -> (arrow hash-agg function name, options), or None.
+
+    ``list`` and ``any_value`` (arrow's ``first``) depend on row order. The
+    reference declines both under a threaded arrow plan, which orders rows
+    by thread timing; every grouped aggregate of the port runs arrow on one
+    thread (``_hash_agg_fast``), which keeps the input order, so both map."""
     k = node.kind
-    if k in ("sum", "mean", "min", "max", "count_distinct"):
+    if k in ("sum", "mean", "min", "max", "count_distinct", "list"):
         return k, None  # count_distinct counts valid values only (nulls skipped)
     if k == "count":
         mode = node.extra.get("mode", "valid")
@@ -791,8 +811,12 @@ def _acero_agg_fn(node: AggExpr):
             return None
         return "count", pc.CountOptions(
             mode={"valid": "only_valid", "null": "only_null", "all": "all"}[mode])
+    if k == "stddev":
+        return "stddev", pc.VarianceOptions(ddof=0)
+    if k == "any_value":
+        return "first", pc.ScalarAggregateOptions(
+            skip_nulls=bool(node.extra.get("ignore_nulls", False)))
     return None
-
 
 
 def _bincount_agg_fast(node: AggExpr, child: Series, codes: np.ndarray,
@@ -850,7 +874,8 @@ def _hash_agg_fast(node: AggExpr, child: Series, codes: np.ndarray, num_groups: 
         return None
     fname, opts = spec
     arr = child.to_arrow()
-    if pa.types.is_nested(arr.type):
+    if pa.types.is_nested(arr.type) and k in ("sum", "mean", "min", "max", "stddev",
+                                              "count_distinct", "list"):
         return None
     try:
         tbl = pa.table({"g": pa.array(codes), "v": arr})
@@ -869,3 +894,21 @@ def _hash_agg_fast(node: AggExpr, child: Series, codes: np.ndarray, num_groups: 
     v = v.take(pa.array(inv))
     return Series.from_arrow(v, child.name)
 
+
+def _empty_agg_series(node: AggExpr, child: Series) -> Series:
+    """An empty result column of the dtype ``node`` gives over ``child``."""
+    out_field = AggExpr(node.kind, _ConstNode(child.dtype), node.extra).to_field(Schema([]))
+    return Series.empty(child.name, out_field.dtype)
+
+
+class _ConstNode:
+    """An ExprNode-like of a fixed dtype, for typing an empty aggregate."""
+
+    def __init__(self, dtype: DataType):
+        self._dtype = dtype
+
+    def to_field(self, _schema):
+        return Field("x", self._dtype)
+
+    def name(self):
+        return "x"

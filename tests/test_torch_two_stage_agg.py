@@ -259,12 +259,12 @@ def test_empty_partitions(grouped):
 
 
 def test_kind_the_port_lacks_raises():
+    # stddev splits into stages since the columnar-core slice; a kind that
+    # does not split (skew, count_distinct) raises as in the reference
     from daft_tpu_torch.physical import populate_aggregation_stages
 
-    e = daft_tpu_torch.col("v").sum()
-    e._node.kind = "stddev"  # AggExpr accepts only the ported kinds
-    with pytest.raises(NotImplementedError, match="stddev"):
-        populate_aggregation_stages([e.alias("x")])
+    with pytest.raises(ValueError, match="'skew' is not decomposable"):
+        populate_aggregation_stages([daft_tpu_torch.col("v").skew().alias("x")])
 
 
 def test_stages_share_partials_with_reference_names():
