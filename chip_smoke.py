@@ -734,6 +734,13 @@ def enumerate_deep_programs() -> list:
     dtt.set_execution_config(config(device="cpu", device_min_rows=64,
                                     use_deep_fusion_kernel=True))
     q1_stddev(dtt.from_arrow([li.slice(i * 1024, 1024) for i in range(COLUMNAR_PARTS)])).collect()
+    # phase 15's deep Q1 over a host-run UDF chain, in 1 and 4 partitions:
+    # stage 1's program, and stage 2's over the partials at device_min_rows=8
+    dtt.set_execution_config(config(device="cpu", device_min_rows=8,
+                                    use_deep_fusion_kernel=True))
+    for parts in UDF_PARTS:
+        q1_udf(dtt, dtt.from_arrow([li.slice(i * (4096 // parts), 4096 // parts)
+                                    for i in range(parts)]), []).collect()
     return fes.programs()
 
 
@@ -1336,6 +1343,16 @@ def device_profile(run, reps: int) -> tuple:
              "device_events": 0}, kernels)
 
 
+# warm runs of phase 3's timings at SF1; past SF1 they are 2 (phase 15 took
+# the time of the other 3 at SF10, where each Q3 run takes seconds)
+WARM_RUNS_SF1 = 5
+WARM_RUNS_PAST_SF1 = 2
+
+
+def warm_runs(scale: float) -> int:
+    return WARM_RUNS_SF1 if scale <= 1.0 else WARM_RUNS_PAST_SF1
+
+
 def warm_median(query, frame, runs: int = 5, fetch: str = "to_pydict",
                 keep: bool = False) -> dict:
     """Warm wall time of ``query(frame)``: collect, then ``fetch`` the
@@ -1414,17 +1431,18 @@ def phase_main_path(ph: Phases, scale: float, lineitem, card: str, profile: bool
         print(f"SF{scale:g} {key} " + json.dumps(res), flush=True)
 
     frame = dtt.from_arrow(lineitem).collect()
+    runs = warm_runs(scale)
     for name, query in queries.items():  # the composed route through K1
         res = drive(ph, f"SF{scale:g} {name}", query, frame, want[name], deep=False,
                     segment=False, group_codes=name == "q1")
-        record(name, {**res, **warm_median(query, frame)})
+        record(name, {**res, **warm_median(query, frame, runs)})
     for name, query in queries.items():  # the deep route through K2
         res = drive(ph, f"SF{scale:g} {name} deep", query, frame, want[name], deep=True,
                     segment=False)
         # deep against composed, back to back (bench.py's q1_deep_pallas_vs_composed)
-        res.update({f"deep_{k}": v for k, v in warm_median(query, frame).items()})
+        res.update({f"deep_{k}": v for k, v in warm_median(query, frame, runs).items()})
         dtt.set_execution_config(config(use_deep_fusion_kernel=False))
-        res.update({f"composed_{k}": v for k, v in warm_median(query, frame).items()})
+        res.update({f"composed_{k}": v for k, v in warm_median(query, frame, runs).items()})
         res["composed_over_deep"] = res["composed_warm_median_s"] / res["deep_warm_median_s"]
         record(f"{name}_deep", res)
     if profile:
@@ -1440,7 +1458,7 @@ def phase_main_path(ph: Phases, scale: float, lineitem, card: str, profile: bool
         key = "q1_with_columns_" + ("deep" if deep else "composed")
         res = drive(ph, f"SF{scale:g} {key}", q1_with_columns, frame, want["q1"], deep=deep,
                     segment=True, group_codes=deep)
-        record(key, {**res, **warm_median(q1_with_columns, frame)})
+        record(key, {**res, **warm_median(q1_with_columns, frame, runs)})
     del frame
     torch.cuda.empty_cache()
     return out
@@ -1760,7 +1778,7 @@ def phase_joins(ph: Phases, scale: float, card: str, profile: bool,
                    "device_agg_fallbacks") + ROUTE_COUNTERS},
                "plan": physical_plan(plan()),
                "rows": {k: tables[k].num_rows for k in args}, "card": card}
-        res.update(warm_median(plan, None))
+        res.update(warm_median(plan, None, warm_runs(scale)))
         if profile:
             res["breakdown_ms"] = join_breakdown(run)
             profile_queries({f"{name}_warm": plan}, None, tables["lineitem"].num_rows, card)
@@ -1850,9 +1868,9 @@ TPCH22_X64_AGG_ROUTES = TPCH22_AGG_ROUTES
 # new lanes, held the same way
 TPCH22_LANE_MAPS = {9: (1, 0), 12: (1, 0), 13: (1, 0), 14: (1, 0), 16: (2, 0), 19: (1, 0),
                     22: (1, 0)}
-# warm runs of each of the 22 queries at SF1 (phases 4 and 6): few, so the
-# whole run stays well inside its time limit
-TPCH22_WARM = 2
+# warm runs of each of the 22 queries at SF1 (phases 4 and 6): one, so the
+# whole run stays well inside its time limit (two until phase 15 came)
+TPCH22_WARM = 1
 TPCH22_COUNTERS = ("device_aggregations", "host_aggregations", "device_agg_fallbacks",
                    "device_join_probes", "host_joins", "device_sorts", "host_sorts",
                    "device_group_codes", "device_resident_segments", "segment_fallbacks",
@@ -4915,6 +4933,432 @@ def phase_columnar(ph: Phases, lineitem, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the SQL front end and python UDFs
+# ---------------------------------------------------------------------------
+
+# the texts of benchmarks/tpch_queries.SQL that the SQL front end plans (the
+# other 14 are tests/test_sql_tpch_parse.py's strict xfails)
+SQL_PLANNING = (1, 3, 5, 6, 10, 12, 14, 19)
+# the texts over one table; the others join their tables with a comma list,
+# which the front end (the reference's, copied) plans as cross joins under
+# the WHERE filter: at SF0.005 Q3 alone would make 750 x 7500 x 30000 rows,
+# so those texts run over SQL_TOY_ROWS rows of their key table instead
+SQL_SINGLE_TABLE = (1, 6)
+# comma-join text -> (the key it draws by, rows that satisfy the text drawn,
+# rows that do not): the cross products stay under about 75,000 rows
+SQL_TOY_ROWS = {3: ("order", 10, 10), 5: ("order", 1, 1), 10: ("order", 4, 4),
+                12: ("order", 50, 50), 14: ("line", 100, 100), 19: ("line", 100, 100)}
+
+
+def sql_toy_catalogs(data: dict, seed: int = 7) -> dict:
+    """Each comma-join text's tables (SQL_TOY_ROWS) cut to a few joined rows
+    of ``data``: the orders (or lineitems) that satisfy the text's FROM and
+    WHERE, found by SQLite, and as many drawn from the rest (numpy seed
+    ``seed``), with every lineitem of the chosen orders and the customers,
+    suppliers and parts they reference; nation and region whole. Both
+    packages and the oracle run over the same rows. Returns {text: {table:
+    pyarrow table}}."""
+    import re
+
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    from benchmarks import tpch_full, tpch_queries
+
+    li = data["lineitem"]
+    conn = tpch_full.load_sqlite(data)
+    out = {}
+    try:
+        for col, tbl in (("o_orderkey", "orders"), ("c_custkey", "customer"),
+                         ("s_suppkey", "supplier"), ("p_partkey", "part")):
+            conn.execute(f"CREATE INDEX {col}_idx ON {tbl} ({col})")
+        for qn, (kind, n_hit, n_miss) in SQL_TOY_ROWS.items():
+            text = tpch_queries.SQL[qn]
+            body = re.search(r"\bFROM\b(.*?)(?:\bGROUP BY\b|\bORDER BY\b|$)", text,
+                             re.S).group(1)
+            tables, cond = body.split("WHERE", 1)
+            names = [t.strip().split()[0] for t in tables.split(",")]
+            key = "o_orderkey" if kind == "order" else "l_orderkey * 8 + l_linenumber"
+            # a conjunct the text already implies, so that SQLite joins part by key
+            extra = " AND l_partkey = p_partkey" if kind == "line" else ""
+            hits = sorted(r[0] for r in conn.execute(
+                f"SELECT DISTINCT {key} FROM {tables} WHERE ({cond}){extra}"))
+            rng = np.random.default_rng(seed)
+            if kind == "order":
+                every = data["orders"].column("o_orderkey").to_numpy()
+            else:
+                every = li.column("l_orderkey").to_numpy() * 8 + li.column("l_linenumber").to_numpy()
+            rest = np.setdiff1d(every, np.asarray(hits, dtype=every.dtype))
+            chosen = pa.array(np.concatenate([
+                np.asarray(hits[:n_hit], dtype=every.dtype),
+                rng.choice(rest, size=min(n_miss, len(rest)), replace=False)]))
+            if kind == "order":
+                orders = data["orders"].filter(pc.is_in(data["orders"].column("o_orderkey"),
+                                                        chosen))
+                lines = li.filter(pc.is_in(li.column("l_orderkey"), orders.column("o_orderkey")))
+            else:
+                lines = li.filter(pc.is_in(pc.add(pc.multiply(li.column("l_orderkey"), 8),
+                                                  li.column("l_linenumber")), chosen))
+                orders = data["orders"].filter(pc.is_in(data["orders"].column("o_orderkey"),
+                                                        lines.column("l_orderkey")))
+            cut = {"lineitem": lines, "orders": orders,
+                   "customer": data["customer"].filter(pc.is_in(
+                       data["customer"].column("c_custkey"), orders.column("o_custkey"))),
+                   "supplier": data["supplier"].filter(pc.is_in(
+                       data["supplier"].column("s_suppkey"), lines.column("l_suppkey"))),
+                   "part": data["part"].filter(pc.is_in(
+                       data["part"].column("p_partkey"), lines.column("l_partkey"))),
+                   "nation": data["nation"], "region": data["region"]}
+            out[qn] = {n: cut[n] for n in names}
+    finally:
+        conn.close()
+    return out
+
+
+# the SQL texts' routing at SF0.005 in 3 partitions (device_min_rows=8;
+# Q1 and Q6 over the whole tables, the others over sql_toy_catalogs):
+# (device_aggregations, host_aggregations) as tests/test_torch_sql.py pins
+# them, equal to the reference's there
+SQL_ROUTES_3P = {1: (4, 2), 3: (3, 3), 5: (2, 4), 6: (3, 1), 10: (3, 3), 12: (3, 3),
+                 14: (3, 1), 19: (3, 1)}
+SQL_WARM = 1        # warm runs of each SQL text, after its cold one
+UDF_PARTS = (1, 4)  # phase 15 (b) runs over SF1 lineitem in 1 and in 4 partitions
+# (b)'s launches of K1 and K2 a run, composed and deep, at device_min_rows=8:
+# tests/test_torch_udf.py holds the port's entries to these and its counters
+# to the reference's (stage 1 on each partition, stage 2 over the 4 buckets)
+UDF_Q1_ROUTES = {(1, False): {"k1": 1, "k2": 0}, (1, True): {"k1": 0, "k2": 1},
+                 (4, False): {"k1": 6, "k2": 0}, (4, True): {"k1": 0, "k2": 6}}
+K13_MAX_ROWS = 1 << 20  # (c)'s batch budget: each 1,500,000-row partition flushes alone
+K13_PARTS = 4
+K13_WEIGHT_BYTES = 1 << 20
+
+
+def q1_udf(pkg, lineitem, calls: list):
+    """TPC-H Q1 with disc_price computed by a row-local numpy UDF of ``pkg``
+    (each call's row count appended to ``calls``) in the map chain before
+    the aggregate."""
+    import numpy as np
+
+    col = pkg.col
+
+    @pkg.udf(return_dtype=pkg.DataType.float64())
+    def disc_price(price, discount):
+        calls.append(len(price))
+        return np.asarray(price.to_numpy()) * (1.0 - np.asarray(discount.to_numpy()))
+
+    return (
+        lineitem
+        .with_column("disc_price", disc_price(col("l_extendedprice"), col("l_discount")))
+        .with_column("charge", col("disc_price") * (1 + col("l_tax")))
+        .where(col("l_shipdate") <= datetime.date(1998, 9, 2))
+        .groupby("l_returnflag", "l_linestatus")
+        .agg(
+            col("l_quantity").sum().alias("sum_qty"),
+            col("l_extendedprice").sum().alias("sum_base_price"),
+            col("disc_price").sum().alias("sum_disc_price"),
+            col("charge").sum().alias("sum_charge"),
+            col("l_quantity").mean().alias("avg_qty"),
+            col("l_extendedprice").mean().alias("avg_price"),
+            col("l_discount").mean().alias("avg_disc"),
+            col("l_quantity").count().alias("count_order"),
+        )
+        .sort(["l_returnflag", "l_linestatus"])
+    )
+
+
+class PriceScorer:
+    """tests/test_batch.py's scorer as a pinned model: ``__call__`` on the
+    host in float64, ``apply_torch`` (K13) on the card."""
+
+    weight_bytes = K13_WEIGHT_BYTES
+
+    def __call__(self, v):
+        import numpy as np
+
+        return np.asarray(v.to_numpy(), dtype=np.float64) * 2.0 - 3.0
+
+    @staticmethod
+    def apply_torch(v):
+        return v * 2.0 - 3.0
+
+
+def sql_udf_runner(out: dict):
+    """``run(build, warm_runs=SQL_WARM, fetch="to_pydict", **knobs)``: one
+    cold run and ``warm_runs`` warm runs of ``build()`` under
+    ``config(**knobs)``, K1's, K2's and the scatter kernel's launches
+    counted from 0 just before the cold run and added to ``out``'s
+    ``*_launches``; returns (the cold run's rows by ``fetch``, its counters
+    and launches, cold s, warm s)."""
+    import torch
+
+    import daft_tpu_torch as dtt
+    from daft_tpu_torch.kernels import fused_expr_sums as fes
+    from daft_tpu_torch.kernels import scatter_sums as scs
+    from daft_tpu_torch.kernels import segment_sums as ss
+
+    def run(build, warm_runs: int = SQL_WARM, fetch: str = "to_pydict", **knobs):
+        dtt.set_execution_config(config(**knobs))
+        ss.LAUNCHES = fes.LAUNCHES = scs.LAUNCHES = 0
+        t0 = time.perf_counter()
+        df = build().collect()
+        rows = getattr(df, fetch)()
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        launches = {"k1": ss.LAUNCHES, "k2": fes.LAUNCHES, "scatter": scs.LAUNCHES}
+        warm = []
+        for _ in range(warm_runs):
+            t0 = time.perf_counter()
+            getattr(build().collect(), fetch)()
+            torch.cuda.synchronize()
+            warm.append(time.perf_counter() - t0)
+        out["k1_launches"] += ss.LAUNCHES
+        out["k2_launches"] += fes.LAUNCHES
+        out["scatter_launches"] += scs.LAUNCHES
+        return rows, df.stats.snapshot()["counters"], launches, cold, warm
+
+    return run
+
+
+def phase_sql_udf(ph: Phases, lineitem, card: str) -> dict:
+    """Phase 15 (but its SF1 SQL leg, phase_sql_sf1): the SQL front end and
+    python UDFs on the card, in the 32-bit mode. It reads phase 3's SF1
+    lineitem and its own SF0.005 tables, so it runs while the 22-query
+    tables are generated.
+    (a) The 8 TPC-H texts that plan, through daft_tpu_torch.sql, cold and
+    warm, at SF0.005 in 3 partitions against SQLite over the same tables
+    (Q1 and Q6 over the whole tables, the six comma-join texts over
+    sql_toy_catalogs, since the front end plans a comma list as cross
+    joins), routed as SQL_ROUTES_3P.
+    (b) q1_udf over ``lineitem`` (SF1, seed 42) in 1 and 4 partitions,
+    composed and deep: the UDF pinned in one host-run fused chain, one call
+    a partition, the sums through K1 or K2 as UDF_Q1_ROUTES, the rows
+    against pyarrow's Q1 at RTOL.
+    (c) K13: PriceScorer with device=True over l_extendedprice in 4
+    partitions: every batch applied on the card, the output bit for bit
+    apply_torch over the float32 CPU tensors and within RTOL of the host
+    instance, the ledger settled, model_cache_bytes pinned and released.
+    (d) Admission of num_gpus=1, refusal of num_gpus=2.
+    (e) The batch.coalesce and actor.load fault sites (outside the health
+    window: they inject faults)."""
+    import numpy as np
+    import pyarrow as pa
+    import torch
+
+    import daft_tpu_torch as dtt
+    from benchmarks import tpch, tpch_full, tpch_queries
+    from daft_tpu_torch import faults
+    from daft_tpu_torch.batch.actors import pinned_model_count, shutdown_all_models
+    from daft_tpu_torch.errors import DaftResourceError
+    from daft_tpu_torch.spill import MEMORY_LEDGER
+
+    out = {"k1_launches": 0, "k2_launches": 0, "scatter_launches": 0, "card": card}
+    t_phase = time.perf_counter()
+    run = sql_udf_runner(out)
+
+    # --- (a) SQL at SF0.005, 3 partitions, against SQLite
+    small = tpch_full.generate(scale=0.005, seed=7)
+    toys = sql_toy_catalogs(small)
+    conn = tpch_full.load_sqlite({"lineitem": small["lineitem"]})
+    try:
+        wants = {qn: tpch22_rows(conn.execute(tpch_queries.SQL[qn]).fetchall())
+                 for qn in SQL_SINGLE_TABLE}
+    finally:
+        conn.close()
+    for qn in SQL_PLANNING:
+        tables = small if qn in SQL_SINGLE_TABLE else toys[qn]
+        if qn in SQL_SINGLE_TABLE:
+            want = wants[qn]
+        else:
+            conn = tpch_full.load_sqlite(tables)
+            try:
+                want = tpch22_rows(conn.execute(tpch_queries.SQL[qn]).fetchall())
+            finally:
+                conn.close()
+        frames = tpch22_frames({"lineitem": small["lineitem"]} if qn in SQL_SINGLE_TABLE
+                               else tables, 3)
+        rows, c, launches, cold, warm = run(
+            lambda: dtt.sql(tpch_queries.SQL[qn], **frames), device_min_rows=8)
+        got = tpch22_rows(zip(*rows.values()))
+        routes = (c.get("device_aggregations", 0), c.get("host_aggregations", 0))
+        label = f"SF0.005 SQL Q{qn} (3 partitions{'' if qn in SQL_SINGLE_TABLE else ', toy'})"
+        out[f"sql_q{qn}_sf0.005"] = {"cold_s": cold, "warm_s": warm, "launches": launches,
+                                     "rows": len(got), "counters": {
+                                         k: c.get(k, 0) for k in TPCH22_COUNTERS}}
+        print(f"{label} " + json.dumps(out[f"sql_q{qn}_sf0.005"]), flush=True)
+        ph.check(tpch22_match(got, want),
+                 f"{label}: {len(got)} rows match the SQLite oracle under the suite's rule")
+        ph.check(routes == SQL_ROUTES_3P[qn] and c.get("device_agg_fallbacks", 0) == 0,
+                 f"{label}: (device, host) aggregations {routes}, as the CPU tests route them "
+                 f"(SQL_ROUTES_3P {SQL_ROUTES_3P[qn]}), device_agg_fallbacks "
+                 f"{c.get('device_agg_fallbacks', 0)} (launches {launches})")
+    del small, toys, frames
+
+    out["wall_sf0.005_s"] = time.perf_counter() - t_phase
+
+    # --- (b) a row-local numpy UDF pinned in Q1's map chain
+    want = tpch.oracle_q1(lineitem)
+    frames = {1: dtt.from_arrow(lineitem).collect(),
+              4: dtt.from_arrow(lineitem).into_partitions(UDF_PARTS[-1]).collect()}
+    for parts in UDF_PARTS:
+        for deep in (False, True):
+            calls = []
+            rows, c, launches, cold, _ = run(
+                lambda: q1_udf(dtt, frames[parts], calls), warm_runs=0, device_min_rows=8,
+                use_deep_fusion_kernel=deep)
+            label = f"SF1 udf q1 {parts} partition(s) {'deep' if deep else 'composed'}"
+            out[f"udf_q1_{parts}_{'deep' if deep else 'composed'}"] = {
+                "cold_s": cold, "launches": launches, "calls": calls[:parts]}
+            print(f"{label} cold {cold:.3f}s launches {launches}", flush=True)
+            ph.check(parity(rows, want, RTOL),
+                     f"{label}: matches pyarrow's Q1 at rtol {RTOL}")
+            want_launches = dict(UDF_Q1_ROUTES[(parts, deep)], scatter=0)
+            ph.check(len(calls) == parts and c.get("fused_chains", 0) >= 1
+                     and c.get("host_fused_maps", 0) >= parts and launches == want_launches,
+                     f"{label}: the UDF pinned in a host-run fused chain, {len(calls)} "
+                     f"call(s), one a partition, the sums through "
+                     f"{'K2' if deep else 'K1'} (launches {launches}, want {want_launches})")
+    del frames
+
+    out["wall_udf_s"] = time.perf_counter() - t_phase
+
+    # --- (c) K13: the batched apply on the card
+    price = lineitem["l_extendedprice"]
+    frame = dtt.from_arrow(pa.table({"v": price})).into_partitions(K13_PARTS).collect()
+    scorer = dtt.batch_udf(return_dtype=dtt.DataType.float64(), max_rows=K13_MAX_ROWS,
+                           flush_ms=10_000.0, device=True)(PriceScorer)
+    rows, c, launches, cold, warm = run(lambda: frame.select(scorer(dtt.col("v")).alias("s")),
+                                        fetch="to_arrow", device_min_rows=8)
+    got = rows.column("s").to_numpy()
+    with torch.inference_mode():
+        plain = PriceScorer.apply_torch(torch.from_numpy(
+            price.to_numpy().astype(np.float32))).numpy().astype(np.float64)
+    host = price.to_numpy() * 2.0 - 3.0
+    pinned = MEMORY_LEDGER.snapshot()["model_cache_bytes"]
+    out["k13"] = {"cold_s": cold, "warm_s": warm, "rows": len(got),
+                  **{k: c.get(k, 0) for k in ("batches_formed", "batch_device_applies",
+                                              "batch_device_fallbacks", "batch_flushes_budget",
+                                              "batch_flushes_end")}}
+    print(f"SF1 k13 " + json.dumps(out["k13"]), flush=True)
+    ph.check(c.get("batches_formed", 0) >= K13_PARTS
+             and c.get("batch_device_applies", 0) == c.get("batches_formed", 0)
+             and c.get("batch_device_fallbacks", 0) == 0,
+             f"SF1 k13: batch_device_applies {c.get('batch_device_applies', 0)} of "
+             f"{c.get('batches_formed', 0)} batches formed, 0 fallbacks "
+             f"({c.get('batch_device_fallbacks', 0)})")
+    ph.check(got.view(np.int64).tolist() == plain.view(np.int64).tolist(),
+             "SF1 k13: the output equals apply_torch over the float32 CPU tensors bit for bit")
+    ph.check(bool(np.all(np.abs(got - host) <= RTOL * np.abs(host) + 1e-12)),
+             f"SF1 k13: the output within rtol {RTOL} of the host instance (float64)")
+    ph.check(MEMORY_LEDGER.snapshot()["batch_inflight"] == 0 and pinned == K13_WEIGHT_BYTES,
+             f"SF1 k13: batch_inflight {MEMORY_LEDGER.snapshot()['batch_inflight']} after the "
+             f"query, model_cache_bytes {pinned} while pinned (weight_bytes {K13_WEIGHT_BYTES})")
+    shutdown_all_models()
+    ph.check(MEMORY_LEDGER.snapshot()["model_cache_bytes"] == 0 and pinned_model_count() == 0,
+             "SF1 k13: model_cache_bytes 0 and no pinned model after shutdown_all_models()")
+    del frame
+
+    out["wall_k13_s"] = time.perf_counter() - t_phase
+
+    # --- (d) admission of a card request
+    small_frame = dtt.from_pydict({"x": [1, 2, 3]})
+
+    def gpu_udf(n):
+        @dtt.udf(return_dtype=dtt.DataType.int64(), num_gpus=n)
+        def f(x):
+            return x
+        return f
+
+    dtt.set_execution_config(config())
+    one = small_frame.select(gpu_udf(1)(dtt.col("x"))).to_pydict()
+    ph.check(one == {"x": [1, 2, 3]}, f"admission: a num_gpus=1 UDF is admitted ({one})")
+    try:
+        small_frame.select(gpu_udf(2)(dtt.col("x"))).collect()
+        raised = None
+    except DaftResourceError as e:
+        raised = str(e)
+    ph.check(raised is not None and "accelerator" in raised,
+             f"admission: a num_gpus=2 UDF raises DaftResourceError ({raised})")
+    out["wall_s"] = time.perf_counter() - t_phase
+
+    # --- (e) the fault sites: they inject faults, so the health window closes first
+    ph.begin(None)
+    head = dtt.from_arrow(pa.table({"v": price.slice(0, 400_000)})).into_partitions(4).collect()
+    host_scorer = dtt.batch_udf(return_dtype=dtt.DataType.float64(), max_rows=250_000,
+                                flush_ms=10_000.0)(PriceScorer)
+    dtt.set_execution_config(config(dynamic_batching=False))
+    unarmed = head.select(host_scorer(dtt.col("v")).alias("s")).to_arrow()
+    dtt.set_execution_config(config())
+    faults.arm("batch.coalesce", "always")
+    try:
+        df = head.select(host_scorer(dtt.col("v")).alias("s")).collect()
+    finally:
+        faults.disarm()
+    c = df.stats.snapshot()["counters"]
+    ph.check(df.to_arrow().equals(unarmed) and c.get("batch_coalesce_faults", 0) >= 1
+             and c.get("batches_formed", 0) == 0
+             and MEMORY_LEDGER.snapshot()["batch_inflight"] == 0,
+             f"batch.coalesce always: byte-identical to the unbatched run through the degrade "
+             f"path (batch_coalesce_faults {c.get('batch_coalesce_faults', 0)}, batches_formed "
+             f"{c.get('batches_formed', 0)}, batch_inflight 0)")
+    shutdown_all_models()
+    faults.arm("actor.load", "always")
+    try:
+        head.select(host_scorer(dtt.col("v")).alias("s")).collect()
+        raised = None
+    except DaftResourceError as e:
+        raised = str(e)
+    finally:
+        faults.disarm()
+    ph.check(raised is not None and "PriceScorer" in raised and pinned_model_count() == 0
+             and MEMORY_LEDGER.snapshot()["batch_inflight"] == 0,
+             f"actor.load always: DaftResourceError naming the model, no pool left "
+             f"({pinned_model_count()} pinned), batch_inflight 0")
+    shutdown_all_models()
+    print(f"SF1 sql/udf phase 15 wall {out['wall_s']:.1f}s before the fault sites, "
+          f"{time.perf_counter() - t_phase:.1f}s in all; by the end of SF0.005 SQL "
+          f"{out['wall_sf0.005_s']:.1f}s, the UDF {out['wall_udf_s']:.1f}s, K13 "
+          f"{out['wall_k13_s']:.1f}s ({card})", flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_sql_sf1(ph: Phases, data: dict, card: str) -> dict:
+    """Phase 15's SF1 SQL leg, after phase 14: TPC-H Q1 and Q6 through
+    daft_tpu_torch.sql over phase 4's SF1 tables (``data``), cold and warm,
+    against the port's host path of the same text, the aggregate on the
+    card through K1."""
+    import daft_tpu_torch as dtt
+    from benchmarks import tpch_queries
+
+    out = {"k1_launches": 0, "k2_launches": 0, "scatter_launches": 0, "card": card}
+    t_phase = time.perf_counter()
+    run = sql_udf_runner(out)
+    # --- (a) SQL Q1 and Q6 at SF1, one partition a table, against the host path
+    li_frame = dtt.from_arrow(data["lineitem"]).collect()
+    for qn in SQL_SINGLE_TABLE:
+        text = tpch_queries.SQL[qn]
+        dtt.set_execution_config(config(use_deep_fusion_kernel=False, use_device_kernels=False,
+                                        device="cpu"))
+        want = tpch22_rows(zip(*dtt.sql(text, lineitem=li_frame).to_pydict().values()))
+        rows, c, launches, cold, warm = run(lambda: dtt.sql(text, lineitem=li_frame))
+        got = tpch22_rows(zip(*rows.values()))
+        label = f"SF1 SQL Q{qn}"
+        out[f"sql_q{qn}_sf1"] = {"cold_s": cold, "warm_s": warm, "launches": launches,
+                                 "counters": {k: c.get(k, 0) for k in TPCH22_COUNTERS}}
+        print(f"{label} " + json.dumps(out[f"sql_q{qn}_sf1"]), flush=True)
+        ph.check(tpch22_match(got, want),
+                 f"{label}: {len(got)} rows match the port's host path of the same text")
+        ph.check(c.get("device_aggregations", 0) == 1 and c.get("device_agg_fallbacks", 0) == 0
+                 and launches["k1"] == 1,
+                 f"{label}: the aggregate on the card through K1 (launches {launches})")
+    del li_frame
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"SF1 SQL phase 15 SF1 leg wall {out['wall_s']:.1f}s ({card})", flush=True)
+    return out
+
+
 def _walk(p):
     yield p
     for c in p.children():
@@ -5093,6 +5537,7 @@ def main(argv=None) -> int:
                 sc_entry[f"sf{scale:g}_shape"] = joins["scatter_main"]
         if scales:
             faults_out = relational = spill = adapt = scans = prefetch_write = columnar = None
+            sql_udf = None
             if 1.0 in scales:
                 # phases 8-11 read phase 3's and phase 7's SF1 tables alone, so
                 # they run while the 22-query tables are still being generated
@@ -5109,6 +5554,11 @@ def main(argv=None) -> int:
                 print(f"elapsed {time.perf_counter() - started:.1f}s: phase 11", flush=True)
                 ph.begin("phase 11")
                 adapt = phase_adapt(ph, join_tables, q3_oracle_sf1, card)
+                # phase 15 but its SF1 SQL leg: phase 3's SF1 lineitem and its
+                # own SF0.005 tables, also while the 22-query tables generate
+                print(f"elapsed {time.perf_counter() - started:.1f}s: phase 15", flush=True)
+                ph.begin("phase 15")
+                sql_udf = phase_sql_udf(ph, sf1_lineitem, card)
             t0 = time.perf_counter()
             data = big.get()
             print(f"SF1: 22-query tables ready {time.perf_counter() - big.started:.1f}s after "
@@ -5144,12 +5594,18 @@ def main(argv=None) -> int:
                 print(f"elapsed {time.perf_counter() - started:.1f}s: phase 14", flush=True)
                 ph.begin("phase 14")
                 columnar = phase_columnar(ph, sf1_lineitem, card)
+                print(f"elapsed {time.perf_counter() - started:.1f}s: phase 15, SF1 SQL",
+                      flush=True)
+                ph.begin("phase 15, SF1 SQL")
+                sql_sf1 = phase_sql_sf1(ph, data, card)
+                for k in ("k1_launches", "k2_launches", "scatter_launches"):
+                    sql_udf[k] += sql_sf1[k]
             del data, sf1_lineitem
             phase_outs = [("tpch22", t22), ("lanes", lanes)] + [
                 (f"exchange_sf{sc:g}", ex) for sc, ex in exchange.items()] + (
                 [("faults", faults_out), ("relational", relational), ("spill", spill),
                  ("adapt", adapt), ("scan", scans), ("prefetch_write", prefetch_write),
-                 ("columnar", columnar)]
+                 ("columnar", columnar), ("sql_udf", sql_udf)]
                 if faults_out is not None else [])
             for name, ph_out in phase_outs:
                 k1_entry[f"launches_{name}"] = ph_out["k1_launches"]

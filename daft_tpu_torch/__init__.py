@@ -14,12 +14,16 @@ next ``scan_prefetch_depth`` partitions running ahead in the background.
 ``write_parquet``, ``write_csv`` and ``write_json`` write a frame's
 partitions as files and return the manifest of the written paths.
 
+``sql`` plans a SQL text onto the DataFrame API; ``udf`` and ``batch_udf``
+make python UDFs, and a batch-declared model class with ``apply_torch``
+runs its batches on the card.
+
 Entry points run on the card (``ExecutionConfig.device == "cuda"``) unless
 the caller asks for the CPU with ``set_execution_config(device="cpu")``.
 """
 
-from .api import (from_arrow, from_glob_path, from_pandas, from_pydict, from_pylist, read_csv,
-                  read_json, read_parquet)
+from .api import (UDF, batch_udf, from_arrow, from_glob_path, from_pandas, from_pydict,
+                  from_pylist, read_csv, read_json, read_parquet, sql_expr, udf)
 from .context import ExecutionConfig, execution_config_from_dict, get_context, set_execution_config
 from .dataframe import DataFrame
 from .datatypes import DataType
@@ -30,8 +34,21 @@ from .table import Table
 
 __all__ = [
     "DataFrame", "DataType", "ExecutionConfig", "Expression", "Field", "Schema",
-    "Series", "Table", "col", "execution_config_from_dict", "from_arrow",
+    "Series", "Table", "UDF", "batch_udf", "col", "execution_config_from_dict", "from_arrow",
     "from_glob_path", "from_pandas", "from_pydict", "from_pylist", "get_context",
     "interval", "lit", "read_csv",
-    "read_json", "read_parquet", "set_execution_config",
+    "read_json", "read_parquet", "set_execution_config", "sql", "sql_expr", "udf",
 ]
+
+# The sql SUBMODULE shares its name with the sql() entry point: the first
+# real import of the submodule would rebind the package attribute to the
+# module, so a second daft_tpu_torch.sql("SELECT ...") would raise
+# TypeError. `from . import sql` cannot force that import here (the package
+# already has a `sql` attribute, so the from-list machinery skips the
+# submodule); importlib imports it for real, and pinning the function
+# afterwards keeps the attribute stable, since later imports of the
+# submodule find it in sys.modules and never set the attribute again.
+import importlib as _importlib  # noqa: E402
+
+_importlib.import_module(f"{__name__}.sql")
+from .api import sql  # noqa: E402,F401

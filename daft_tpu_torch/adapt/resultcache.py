@@ -14,7 +14,8 @@ plans the same prefix (``subplan_cache_hits``; ``subplan_cache_misses``).
 The key is each scan task's exact key (``runners._scan_task_key``: path,
 mtime and size, format, pushdowns, schema and options), so an overwritten
 file never serves stale rows, plus each chain op's expressions with their
-literals, plus the config fields results depend on: ``use_device_kernels``,
+literals (a chain that calls a UDF declines: a UDF may not be
+deterministic), plus the config fields results depend on: ``use_device_kernels``,
 the device, the 32- or 64-bit mode and the kernel knobs (the reference keys
 on its float-affecting knobs; the port's config holds the device and the
 mode, whose results differ, as the whole-plan key does).
@@ -146,16 +147,17 @@ def _chain_over_scan(op) -> Optional[Tuple[list, object]]:
 
 
 def _op_key(op) -> str:
+    from ..expressions import expr_has_udf
     from ..fuse.compile import FusedMapOp
     from ..physical import FilterOp
 
-    if isinstance(op, FusedMapOp):
-        # the chain's own expressions, as the unfused ops declared them
-        kind, exprs = "fused", op.program.graph.source_exprs
-    elif isinstance(op, FilterOp):
-        kind, exprs = "filter", [op.predicate]
-    else:
-        kind, exprs = "project", op.exprs
+    # a FusedMapOp's are the chain's own expressions, as the unfused ops
+    # declared them
+    exprs = list(op._map_exprs())
+    if any(expr_has_udf(e) for e in exprs):
+        raise _Decline  # a UDF may not be deterministic: never replayed
+    kind = ("fused" if isinstance(op, FusedMapOp)
+            else "filter" if isinstance(op, FilterOp) else "project")
     return f"{kind}[{';'.join(repr(e._node._key()) for e in exprs)}]"
 
 

@@ -1,11 +1,13 @@
-"""Public constructors (the port's copy of the part of daft_tpu/api.py this
-slice runs): ``from_pydict``, ``from_pylist``, ``from_arrow`` and
-``from_pandas`` over memory, and the file
-readers ``read_parquet``, ``read_csv``, ``read_json`` and ``from_glob_path``
-over local paths. A reader builds a ScanSource of scan tasks (io/scan.py)
-and reads nothing but the first file's schema (and parquet footers) until
-a query runs. Left out of this slice: the remote and lake readers,
-catalogs, SQL, UDFs, the serving runtime and the health/metrics endpoints.
+"""Public constructors and entry points (the port's copy of the part of
+daft_tpu/api.py this slice runs): ``from_pydict``, ``from_pylist``,
+``from_arrow`` and ``from_pandas`` over memory, the file readers
+``read_parquet``, ``read_csv``, ``read_json`` and ``from_glob_path`` over
+local paths, the SQL front end (``sql``, ``sql_expr``) and the python UDF
+decorators (``udf``, ``batch_udf``, and the ``UDF`` class they make). A
+reader builds a ScanSource of scan tasks (io/scan.py) and reads nothing but
+the first file's schema (and parquet footers) until a query runs. Left out
+of this slice: the remote and lake readers, catalogs, the serving runtime
+and the health/metrics endpoints.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from .logical import ScanSource
 from .micropartition import MicroPartition
 from .schema import Field, Schema
 from .table import Table
+from .udf import UDF
 
 
 def from_pydict(data: Dict[str, Any]) -> DataFrame:
@@ -157,3 +160,46 @@ def read_json(path, schema_hints: Optional[Dict[str, DataType]] = None) -> DataF
     schema = _hinted(infer_json_schema(paths[0]), schema_hints)
     return _scan_frame(schema, [ScanTask(p, FileFormat.JSON, schema, Pushdowns(),
                                          size_bytes=file_size(p)) for p in paths])
+
+
+def udf(return_dtype: DataType, num_cpus=None, num_gpus=None, memory_bytes=None,
+        batch_size=None, concurrency=None, batching=None):
+    """Decorator: make a batch UDF (udf.py). ``batching=True`` (or a dict of
+    overrides) opts into dynamic batching, as ``batch_udf`` does."""
+    from .udf import _normalize_batching
+
+    def deco(fn):
+        return UDF(fn, return_dtype, num_cpus=num_cpus, num_gpus=num_gpus,
+                   memory_bytes=memory_bytes, batch_size=batch_size, concurrency=concurrency,
+                   batching=_normalize_batching(batching))
+
+    return deco
+
+
+def batch_udf(*, return_dtype: DataType, max_rows=None, max_bytes=None, flush_ms=None,
+              mode=None, device=False, concurrency=None, num_cpus=None, num_gpus=None,
+              memory_bytes=None):
+    """Decorator: declare a dynamically-batched UDF (batch/). The declaration
+    is a contract that the fn is row-local; the engine may then coalesce
+    partitions into batches and re-split the outputs. Class targets become
+    pinned model actors; ``device=True`` runs their ``apply_torch`` on the
+    card (batch/device.py)."""
+    from .udf import batch_udf as _batch_udf
+
+    return _batch_udf(return_dtype=return_dtype, max_rows=max_rows, max_bytes=max_bytes,
+                      flush_ms=flush_ms, mode=mode, device=device, concurrency=concurrency,
+                      num_cpus=num_cpus, num_gpus=num_gpus, memory_bytes=memory_bytes)
+
+
+def sql(query: str, **catalog: DataFrame) -> DataFrame:
+    """A DataFrame planned from a SQL text over the named frames."""
+    from .sql import sql as _sql
+
+    return _sql(query, **catalog)
+
+
+def sql_expr(text: str):
+    """An Expression parsed from a SQL expression text."""
+    from .sql import sql_expr as _sql_expr
+
+    return _sql_expr(text)

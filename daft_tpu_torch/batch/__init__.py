@@ -1,0 +1,35 @@
+"""Dynamic-batching UDF executor (the port's copy of daft_tpu/batch/).
+
+Decouples a UDF's batch size from the partition size: whole partitions are
+coalesced across their boundaries into batches under a byte/row budget
+with a max-latency flush timer, applied once, and re-split to the exact
+source boundaries, so outputs equal the per-partition path's.
+
+Modules:
+  coalesce.py  the budget/timer flush machine (fault site batch.coalesce)
+  actors.py    ModelActorPool: pinned per-process model instances, LRU
+               under the ledger's model_cache_bytes account (actor.load)
+  executor.py  BatchingExecutor: coalesce, pad, apply, re-split
+  device.py    K13: the model's apply_torch on the card, behind the breaker
+
+Left out: the stream adapter (the port has no streaming executor yet,
+ROADMAP Queue 1 item 7), the ``batch.coalesce`` and ``actor.apply`` spans
+and the degrade log line (item 6).
+"""
+
+from .actors import (ModelActorPool, get_model_pool, model_pools_snapshot, pinned_model_count,
+                     shutdown_all_models)
+from .coalesce import Coalescer, Flush
+from .executor import BatchingExecutor, BatchSettings
+
+__all__ = [
+    "BatchSettings",
+    "BatchingExecutor",
+    "Coalescer",
+    "Flush",
+    "ModelActorPool",
+    "get_model_pool",
+    "model_pools_snapshot",
+    "pinned_model_count",
+    "shutdown_all_models",
+]

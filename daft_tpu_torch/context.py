@@ -18,8 +18,13 @@ sub-plan result cache (``subplan_result_cache``, capped at
 ``subplan_cache_bytes``) is on, as in the reference. ``num_preview_rows``
 is the row count of a collected DataFrame's ``repr``.
 
-Left out: the rest of the planning config (morsels, streaming, batching,
-executor threads and the artifact directory), the serving knobs and runner
+The batching knobs (``dynamic_batching``, ``batch_max_rows``,
+``batch_max_bytes``, ``batch_flush_ms``, ``batch_padding``) shape the
+batches of batch-declared UDFs (batch/), and ``model_cache_bytes`` caps the
+pinned model actors' resident weights.
+
+Left out: the rest of the planning config (morsels, streaming, executor
+threads and the artifact directory), the serving knobs and runner
 selection (the port has one runner, NativeRunner).
 """
 
@@ -150,6 +155,26 @@ class ExecutionConfig:
     subplan_cache_bytes: int = 64 * 1024 * 1024
     # rows a collected DataFrame's repr previews
     num_preview_rows: int = 8
+    # batch-declared UDFs (udf.batch_udf, udf(..., batching=...)) run through
+    # the BatchingExecutor (batch/): partitions coalesce across their
+    # boundaries into batches under the row/byte budget below, and results
+    # re-split to the exact source boundaries. The results equal those with
+    # this off (the per-partition UDF path)
+    dynamic_batching: bool = True
+    # a batch closes when EITHER bound is reached (a declaration's values
+    # override these per UDF)
+    batch_max_rows: int = 4096
+    batch_max_bytes: int = 32 * 1024 * 1024
+    # a batch older than this flushes when the next partition arrives, even
+    # under budget
+    batch_flush_ms: float = 25.0
+    # "ragged" concatenates as is; "padded" pads to the next power-of-two
+    # bucket (repeating the last row, sliced away after the apply)
+    batch_padding: str = "ragged"
+    # resident weight bytes across the pinned model actors
+    # (batch/actors.ModelActorPool), charged to the ledger's
+    # model_cache_bytes account; the least recently used evict past it
+    model_cache_bytes: int = 512 * 1024 * 1024
 
 
 # daft_tpu ExecutionConfig field (or "jax_enable_x64") -> port field
@@ -188,6 +213,12 @@ _FROM_REFERENCE = {
     "subplan_cache_bytes": "subplan_cache_bytes",
     "scan_prefetch_depth": "scan_prefetch_depth",
     "num_preview_rows": "num_preview_rows",
+    "dynamic_batching": "dynamic_batching",
+    "batch_max_rows": "batch_max_rows",
+    "batch_max_bytes": "batch_max_bytes",
+    "batch_flush_ms": "batch_flush_ms",
+    "batch_padding": "batch_padding",
+    "model_cache_bytes": "model_cache_bytes",
     "jax_enable_x64": "device_x64",
 }
 

@@ -17,8 +17,10 @@ to_pydict, to_pylist, to_arrow, to_pandas, to_table, show and a ``repr``
 that previews a collected frame (``num_preview_rows``) and never runs the
 plan. Left out of this slice: the lake writers and the Ray and Dask
 conversions (ROADMAP, Queue 1, item 9), the torch datasets and the HTML
-preview (item 10), GroupedDataFrame.map_groups (it runs a python UDF, item
-5), SQL predicates, profiling and the integrations.
+preview (item 10), profiling and the integrations.
+GroupedDataFrame.map_groups runs a python UDF once per group, and a
+python UDF (udf.py) may appear in any expression; SQL texts plan through
+sql.py onto this API, and ``where`` takes a SQL predicate too.
 """
 
 from __future__ import annotations
@@ -120,7 +122,12 @@ class DataFrame:
         return DataFrame(Project(self._plan, [col(n).alias(mapping.get(n, n))
                                               for n in self.column_names]))
 
-    def where(self, predicate: Expression) -> "DataFrame":
+    def where(self, predicate: Union[Expression, str]) -> "DataFrame":
+        """The rows where ``predicate`` holds (an Expression or a SQL text)."""
+        if isinstance(predicate, str):
+            from .sql import sql_expr
+
+            predicate = sql_expr(predicate)
         return DataFrame(Filter(self._plan, predicate))
 
     filter = where
@@ -483,6 +490,25 @@ class GroupedDataFrame:
 
     def agg(self, *to_agg) -> DataFrame:
         return DataFrame(Aggregate(self.df._plan, _normalize_aggs(to_agg), self.group_by))
+
+    def map_groups(self, udf_expr: Expression) -> DataFrame:
+        """Run a UDF once per group: the input is collected and split by the
+        group keys, and the UDF sees each group's rows as whole columns. The
+        result holds the group keys (repeated) and the UDF's column."""
+        from .table import Table
+
+        mp = self.df.collect()._result.to_micropartition()
+        parts, uniq = mp.partition_by_value(self.group_by)
+        outs = []
+        key_names = uniq.column_names
+        for i, part in enumerate(parts):
+            res = part.table().eval_expression_list([udf_expr])
+            key_row = uniq.slice(i, i + 1)
+            n = len(res)
+            key_cols = {kn: [key_row.get_column(kn).to_pylist()[0]] * n for kn in key_names}
+            outs.append(Table.from_pydict({**key_cols, **res.to_pydict()}))
+        out_tbl = Table.concat(outs) if outs else Table.empty(Schema(list(uniq.schema)))
+        return from_partitions([MicroPartition.from_table(out_tbl)], out_tbl.schema)
 
 
 def _normalize_aggs(to_agg) -> List[Expression]:

@@ -59,10 +59,17 @@ partitions after the query) from a private pool that ``pool()`` makes
 again, which the garbage collector releases with the last partition that
 holds the prefetcher.
 
+Admission. A map op whose expressions call UDFs with a resource request
+(``num_cpus``, ``num_gpus``, ``memory_bytes``) admits each partition
+through the query's ``ResourceAccountant`` (``accountant``), sized from the
+host's cores, the cards of ``cfg.device`` (``torch.cuda.device_count()``
+for ``"cuda"``, none for ``"cpu"``) and the memory budget; a request that
+can never fit raises ``DaftResourceError`` at once.
+
 Left out of this slice: the profiler and the breaker's log lines and
 events, the query log and its records, cancellation, the worker pool of
-parallel maps, streaming, the mesh hook ``prepare_broadcast``, the mesh
-breaker and resource accounting.
+parallel maps (so admission never has two partitions in flight),
+streaming, the mesh hook ``prepare_broadcast`` and the mesh breaker.
 """
 
 from __future__ import annotations
@@ -81,6 +88,116 @@ from .physical import PhysicalOp
 
 # what a device attempt takes as a breaker failure (see above)
 DEVICE_FAILURES = (DaftStagingError, faults.InjectedFault, torch.cuda.OutOfMemoryError)
+
+
+class ResourceRequest:
+    """What one task needs while it runs: CPUs, cards and memory bytes."""
+
+    __slots__ = ("num_cpus", "num_gpus", "memory_bytes")
+
+    def __init__(self, num_cpus: float = 0.0, num_gpus: float = 0.0, memory_bytes: int = 0):
+        self.num_cpus = num_cpus or 0.0
+        self.num_gpus = num_gpus or 0.0
+        self.memory_bytes = memory_bytes or 0
+
+    def __bool__(self) -> bool:
+        return bool(self.num_cpus or self.num_gpus or self.memory_bytes)
+
+    def __repr__(self):
+        return (f"ResourceRequest(cpus={self.num_cpus}, gpus={self.num_gpus}, "
+                f"memory={self.memory_bytes})")
+
+
+def op_resource_request(op) -> ResourceRequest:
+    """The sum of the resource requests of every UDF an op evaluates (the
+    UDFs of one projection all run for the same task)."""
+    from .expressions import PyUdf
+
+    cpus = gpus = mem = 0
+
+    def walk(node):
+        nonlocal cpus, gpus, mem
+        if isinstance(node, PyUdf) and node.resource_request:
+            c, g, m = node.resource_request
+            cpus += c or 0
+            gpus += g or 0
+            mem += m or 0
+        for ch in node.children():
+            walk(ch)
+
+    for e in op._map_exprs():
+        walk(e._node)
+    return ResourceRequest(cpus, gpus, mem)
+
+
+class ResourceAccountant:
+    """Admission control for in-flight tasks: a task runs only when its
+    declared CPUs, cards and memory fit the remaining capacity; a request
+    that can never fit fails at once instead of waiting for good."""
+
+    def __init__(self, cpus: float, gpus, memory_bytes: Optional[int]):
+        """``gpus`` is a number or a zero-argument callable resolved on first
+        use, so a query without a card request never asks torch for one."""
+        self.total_cpus = cpus
+        self._gpu_src = gpus
+        self._gpus_resolved: Optional[float] = float(gpus) if not callable(gpus) else None
+        self.total_memory = memory_bytes
+        self._cpus = cpus
+        self._gpus_used = 0.0
+        self._memory = memory_bytes
+        self._cond = threading.Condition()
+
+    @property
+    def total_gpus(self) -> float:
+        if self._gpus_resolved is None:
+            self._gpus_resolved = float(self._gpu_src())
+        return self._gpus_resolved
+
+    def check(self, req: ResourceRequest) -> None:
+        """Raise if the request can NEVER be admitted on this host."""
+        from .errors import DaftResourceError
+
+        if req.num_cpus > self.total_cpus:
+            raise DaftResourceError(
+                f"task requests {req.num_cpus} CPUs but only {self.total_cpus} exist")
+        if req.num_gpus and req.num_gpus > self.total_gpus:
+            raise DaftResourceError(
+                f"task requests {req.num_gpus} accelerator(s) but only "
+                f"{self.total_gpus} exist")
+        if self.total_memory is not None and req.memory_bytes > self.total_memory:
+            raise DaftResourceError(
+                f"task requests {req.memory_bytes} bytes but the memory "
+                f"budget is {self.total_memory}")
+
+    def _fits(self, req: ResourceRequest) -> bool:
+        gpu_ok = not req.num_gpus or req.num_gpus <= self.total_gpus - self._gpus_used + 1e-9
+        return (req.num_cpus <= self._cpus + 1e-9 and gpu_ok
+                and (self._memory is None or req.memory_bytes <= self._memory))
+
+    def admit(self, req: ResourceRequest) -> None:
+        """Block until the request fits, then reserve it."""
+        self.check(req)
+        with self._cond:
+            while not self._fits(req):
+                self._cond.wait()
+            self._cpus -= req.num_cpus
+            self._gpus_used += req.num_gpus
+            if self._memory is not None:
+                self._memory -= req.memory_bytes
+
+    def release(self, req: ResourceRequest) -> None:
+        with self._cond:
+            self._cpus += req.num_cpus
+            self._gpus_used -= req.num_gpus
+            if self._memory is not None:
+                self._memory += req.memory_bytes
+            self._cond.notify_all()
+
+
+def _accelerator_count(cfg: ExecutionConfig) -> int:
+    """The cards a task may ask for: torch's CUDA devices when the config
+    runs on the card, none when it runs on the CPU."""
+    return torch.cuda.device_count() if torch.device(cfg.device).type == "cuda" else 0
 
 
 class RuntimeStats:
@@ -293,6 +410,7 @@ class ExecutionContext:
         self._spill_scope = None
         self._lineage = None
         self._buffers: List = []
+        self._accountant: Optional[ResourceAccountant] = None
         # the plan's canonical fingerprint (execute_plan stamps it): the key
         # a broadcast mispredict demotes the plan cache's entries under
         self.canonical_fp = ""
@@ -354,6 +472,23 @@ class ExecutionContext:
         import os
 
         return max(_POOL_MIN_THREADS, min(self.cfg.scan_prefetch_depth, os.cpu_count() or 1))
+
+    @property
+    def accountant(self) -> ResourceAccountant:
+        """The query's admission control, sized from the host's cores, the
+        card count of ``cfg.device`` and the memory budget."""
+        if self._accountant is None:
+            import os
+
+            try:
+                cores = len(os.sched_getaffinity(0))
+            except AttributeError:
+                cores = os.cpu_count() or 1
+            self._accountant = ResourceAccountant(
+                cpus=float(max(cores, self.num_workers)),
+                gpus=lambda: _accelerator_count(self.cfg),  # resolved only if a task asks
+                memory_bytes=self.memory_budget)
+        return self._accountant
 
     def pool(self):
         """The query's worker pool, made on first use. A call after
@@ -749,8 +884,8 @@ class ExecutionContext:
 
     def eval_fused(self, part: MicroPartition, program) -> MicroPartition:
         """A fused map chain as ONE device program when eligible, else the
-        segmented host pass."""
-        if self._device_eligible(part):
+        segmented host pass (a chain with a pinned UDF has no device program)."""
+        if program.device_exprs is not None and self._device_eligible(part):
             def run():
                 out = self._run_projection(part, program.device_exprs)
                 return None if out is None else program.assemble_device(out)
@@ -767,8 +902,9 @@ class ExecutionContext:
         device-eligible or the program declines it (an ineligible expression
         or column, or the int64 wrap guard): the caller then takes the host
         pass (``host_fused_maps``). A failure at the fetch takes the host
-        pass too (``device_fused_map_fallbacks``)."""
-        if not self._device_eligible(part):
+        pass too (``device_fused_map_fallbacks``). A chain with a pinned UDF
+        has no device program and takes the host pass."""
+        if program.device_exprs is None or not self._device_eligible(part):
             return None
         resolve = self._device_attempt(
             lambda: self._launch_projection(part, program.device_exprs), launch=True)

@@ -13,14 +13,18 @@ registry of daft_tpu_torch/functions.py, with the str, dt, float, list,
 struct, map, partitioning and json namespaces and the hash functions),
 ``interval`` literals, and the aggregations sum, mean, count, min, max,
 count_distinct, stddev, skew, any_value, list (``agg_list``) and concat
-(``agg_concat``). Left out until a later slice: python UDFs (ROADMAP.md,
-Queue 1, item 5), the image, url and embedding namespaces and the
-approximate (sketch) aggregations (item 10).
+(``agg_concat``), and python UDF calls (``PyUdf``, made by udf.py's
+``UDF``, by ``Expression.apply`` and by ``batch_udf``), which are never
+memoized and carry their resource request and batching declaration to the
+planner (``expr_has_udf``, ``expr_has_batch_udf``, ``expr_batch_udfs``,
+``expr_udfs_parallel_safe``). Left out until a later slice: the image, url
+and embedding namespaces and the approximate (sketch) aggregations
+(ROADMAP.md, Queue 1, item 10).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 from .errors import DaftValueError
 from .datatypes import DataType, TypeKind, infer_datatype, try_unify
@@ -67,12 +71,22 @@ class ExprNode:
     def _eval(self, table) -> Series:
         raise NotImplementedError
 
+    def _memoizable(self) -> bool:
+        """Subtrees containing a user function are never cached (UDFs may be
+        non-deterministic, and their _key uses id(fn) which can be reused)."""
+        cached = getattr(self, "_memoizable_cache", None)
+        if cached is None:
+            cached = not isinstance(self, PyUdf) and all(
+                c._memoizable() for c in self.children())
+            self._memoizable_cache = cached
+        return cached
+
     def evaluate(self, table) -> Series:
         """Evaluate against a Table, sharing results of structurally identical
         subtrees within one eval pass (table._eval_memo, scoped by Table's
         _memo_scope) — e.g. Q1's disc_price feeds two aggregates but runs once."""
         memo = getattr(table, "_eval_memo", None)
-        if memo is None:
+        if memo is None or not self._memoizable():
             return self._eval(table)
         try:
             k = self._key()
@@ -755,6 +769,65 @@ class Function(ExprNode):
         return f"{self.fname}({inner})"
 
 
+class PyUdf(ExprNode):
+    """A python UDF call (udf.py's batch trampoline)."""
+
+    def __init__(self, fn: Callable, return_dtype: DataType, args: List[ExprNode],
+                 fn_name: Optional[str] = None, batch_size: Optional[int] = None,
+                 concurrency: Optional[int] = None, init_args: Optional[tuple] = None,
+                 resource_request: Optional[tuple] = None,
+                 batching: Optional[dict] = None):
+        self.fn = fn
+        self.return_dtype = return_dtype
+        self.args = args
+        self.fn_name = fn_name or getattr(fn, "__name__", "udf")
+        self.batch_size = batch_size
+        self.concurrency = concurrency
+        self.init_args = init_args
+        # (num_cpus, num_gpus, memory_bytes): the executor admits each
+        # partition of an op that evaluates it (execution.ResourceAccountant)
+        self.resource_request = resource_request
+        # the dynamic-batching declaration (batch/): the user's contract that
+        # the fn is ROW-LOCAL, so the engine may coalesce partitions into
+        # batches and re-split the output. None is undeclared (the
+        # per-partition UDF path). Keys: max_rows, max_bytes, flush_ms, mode
+        # ("ragged" | "padded"), device, all optional; the config fills the gaps
+        self.batching = batching
+
+    def name(self):
+        return self.args[0].name() if self.args else self.fn_name
+
+    def to_field(self, schema):
+        for a in self.args:
+            a.to_field(schema)
+        return Field(self.name(), self.return_dtype)
+
+    # user functions may be non-deterministic: never memoize the udf call itself
+    def evaluate(self, table):
+        return self._eval(table)
+
+    def _eval(self, table):
+        from .udf import run_udf
+
+        args = [a.evaluate(table) for a in self.args]
+        return run_udf(self.fn, args, self.return_dtype, len(table), self.batch_size,
+                       self.init_args, self.concurrency,
+                       batching=self.batching).rename(self.name())
+
+    def children(self):
+        return list(self.args)
+
+    def with_children(self, c):
+        return PyUdf(self.fn, self.return_dtype, c, self.fn_name, self.batch_size,
+                     self.concurrency, self.init_args, self.resource_request, self.batching)
+
+    def _key(self):
+        return ("udf", id(self.fn), tuple(a._key() for a in self.args))
+
+    def display(self):
+        return f"udf:{self.fn_name}({', '.join(a.display() for a in self.args)})"
+
+
 AGG_KINDS = ("sum", "mean", "min", "max", "count", "count_distinct", "any_value", "list",
              "concat", "stddev", "skew")
 
@@ -854,6 +927,55 @@ def _as_expr_node(v) -> ExprNode:
     if isinstance(v, ExprNode):
         return v
     return Literal(v)
+
+
+def expr_has_udf(e: "Expression") -> bool:
+    """True if any node of the expression tree is a user function call."""
+    def rec(n):
+        return isinstance(n, PyUdf) or any(rec(c) for c in n.children())
+
+    return rec(e._node)
+
+
+def expr_has_batch_udf(e: "Expression") -> bool:
+    """True if any UDF node carries a dynamic-batching declaration (batch/).
+    The planner routes such projections through BatchedUdfOp."""
+    def rec(n):
+        if isinstance(n, PyUdf) and n.batching is not None:
+            return True
+        return any(rec(c) for c in n.children())
+
+    return rec(e._node)
+
+
+def expr_batch_udfs(e: "Expression") -> list:
+    """All batch-declared PyUdf nodes in the expression tree, in eval order."""
+    out = []
+
+    def rec(n):
+        if isinstance(n, PyUdf) and n.batching is not None:
+            out.append(n)
+        for c in n.children():
+            rec(c)
+
+    rec(e._node)
+    return out
+
+
+def expr_udfs_parallel_safe(e: "Expression") -> bool:
+    """Whether partitions of this expression may evaluate concurrently. Plain
+    function UDFs (and bare class UDFs sharing one cached instance) carry
+    user state with no thread-safety contract; class UDFs on an actor pool
+    (concurrency > 1) serialize calls per instance and are safe."""
+    import inspect
+
+    def rec(n):
+        if isinstance(n, PyUdf):
+            if not (inspect.isclass(n.fn) and (n.concurrency or 0) > 1):
+                return False
+        return all(rec(c) for c in n.children())
+
+    return rec(e._node)
 
 
 class Expression:
@@ -1153,6 +1275,14 @@ class Expression:
     @property
     def json(self) -> "ExprJsonNamespace":
         return ExprJsonNamespace(self)
+
+    def apply(self, fn: Callable, return_dtype: DataType) -> "Expression":
+        """Apply a row-wise python function (a convenience UDF)."""
+        def batch_fn(s: Series):
+            return [fn(v) for v in s.to_pylist()]
+
+        return Expression(PyUdf(batch_fn, return_dtype, [self._node],
+                                fn_name=getattr(fn, "__name__", "apply")))
 
     def __repr__(self) -> str:
         return self._node.display()

@@ -69,6 +69,13 @@ SITES = {
     "resultcache.lookup": "each sub-plan result-cache consult "
                           "(adapt/resultcache.py; a failure runs the prefix "
                           "plainly: fails open, never a query failure)",
+    "batch.coalesce": "each dynamic-batching coalesce step (batch/executor.py; "
+                      "a failure settles the buffered charge and degrades the "
+                      "op to the per-partition UDF path, the same rows, never "
+                      "a query failure)",
+    "actor.load": "each pinned-model actor-pool construction (batch/actors.py; "
+                  "a failed model load surfaces as a DaftResourceError naming "
+                  "the model, with no half-initialized pool left)",
 }
 
 

@@ -4,14 +4,17 @@ port's copy of daft_tpu/fuse/compile.py).
 ``compile_chain`` turns a Project/Filter op chain into a ``FusedProgram``:
 
 - **host path** (``run_host``): one pass per partition. Per segment, scratch
-  columns (cross-segment CSE carries) append to the working set, the
+  columns (pinned UDFs and cross-segment CSE carries) append to the working
+  set, the
   segment mask compacts it, and the final projection evaluates every output
   in ONE ``eval_expression_list`` (the table-level structural memo makes the
   hash-consed shared subtrees evaluate once). No intermediate partition is
   materialized.
 - **device path**: the WHOLE DAG, every mask and every output, runs as ONE
   projection program on the card (``ExecutionContext.eval_fused_dispatch``);
-  the host then ANDs the mask columns and compacts once.
+  the host then ANDs the mask columns and compacts once. A chain with a
+  pinned UDF has no device program (``device_exprs`` is None): it runs the
+  host pass, and its UDF once per partition.
 
 The planner pass ``fuse_map_chains`` (called from ``physical.translate``
 behind ``cfg.expr_fusion``) replaces each maximal chain of two or more ops
@@ -81,8 +84,9 @@ class FusedProgram:
         self.required_input_columns = req & set(graph.input_schema.field_names())
 
         # one-program device plan: masks first, then outputs (the pre-carry
-        # roots: the device program evaluates the shared DAG itself)
-        self.device_exprs = (
+        # roots: the device program evaluates the shared DAG itself). Pinned
+        # UDFs never run on the card, so a chain with one has no device plan
+        self.device_exprs = None if graph.has_pins else (
             [Expression(Alias(m, f"{MASK_PREFIX}{i}")) for i, m in enumerate(graph.device_masks)]
             + [Expression(Alias(node, name)) for name, node in graph.device_outputs])
 
@@ -148,6 +152,11 @@ class FusedMapOp(PhysicalOp):
     def map_partition_declined(self, part, ctx):
         # dispatch already proved this partition device-ineligible
         return ctx._eval_fused_host(part, self.program)
+
+    def _map_exprs(self):
+        # the ORIGINAL chain expressions: UDF parallel-safety and resource
+        # requests see exactly what the unfused chain declared
+        return self.program.graph.source_exprs
 
     def execute(self, inputs, ctx):
         self._record(ctx)

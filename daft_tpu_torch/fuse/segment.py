@@ -157,8 +157,8 @@ def _try_compile_segment(op, child) -> Optional[SegmentProgram]:
         # FuseDecline, an expression that does not type fused, or an armed
         # ``fuse.segment`` fault
         return None
-    if program is None:
-        return None
+    if program is None or program.device_exprs is None:
+        return None  # a pinned UDF keeps the chain on the host
     input_schema = child.children[0].schema
     if normalize_and_check(program.device_exprs, input_schema) is None:
         return None
@@ -283,6 +283,9 @@ class DeviceSegmentOp(PhysicalOp):
         # a global agg over zero partitions still yields one row
         if not self.agg_op.groupby:
             yield MicroPartition.empty(self.map_op.schema).agg(self.agg_op.aggregations, None)
+
+    def _map_exprs(self):
+        return list(self.map_op._map_exprs()) + list(self.agg_op._map_exprs())
 
     def execute(self, inputs, ctx):
         self._record(ctx)

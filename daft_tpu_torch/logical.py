@@ -57,12 +57,15 @@ def substitute_columns(e: Expression, mapping: Dict[str, Expression]) -> Express
 
 
 def expr_has_special(e: Expression) -> bool:
-    """True if the expression contains an aggregation (not freely movable).
-    The reference also counts UDFs, which the port does not have yet."""
+    """True if the expression contains an aggregation or a UDF (not freely
+    movable: the optimizer never pushes a filter through such a projection,
+    nor merges or reorders it)."""
+    from .expressions import PyUdf
+
     found = [False]
 
     def walk(n):
-        if isinstance(n, AggExpr):
+        if isinstance(n, (AggExpr, PyUdf)):
             found[0] = True
         for c in n.children():
             walk(c)

@@ -78,8 +78,17 @@ Left out of this slice: the shuffle's mesh and peer-to-peer legs and its paralle
 caller here), each of which the reference keeps byte-identical when off;
 the morsel split
 of in-memory sources, which the reference skips on the device path; the
-mesh exchange of the sort-merge join, the worker pool of parallel maps,
-streaming and batched UDFs.
+mesh exchange of the sort-merge join, the worker pool of parallel maps and
+streaming (with the stream adapter of ``BatchedUdfOp``).
+
+UDFs. A map op whose expressions call UDFs with a resource request admits
+each partition through the query's accountant and never defers a device
+resolver past it (``_map_execute``); ``parallel_safe`` says whether its
+partitions could run concurrently (the port runs them in order). A
+projection holding a batch-declared UDF becomes a ``BatchedUdfOp``
+(``_route_batched_udfs``, before the fuse passes): a fusion barrier whose
+execute coalesces partitions through batch/executor.py and re-splits the
+output to the source boundaries.
 
 A sort-merge join (``SortMergeJoinOp``) samples both sides' keys as they
 stream in, range-splits both by the same boundaries and sorts and joins
@@ -141,23 +150,52 @@ class PhysicalOp:
         """Partitions to emit when the mapped input is empty."""
         return iter(())
 
+    def parallel_safe(self) -> bool:
+        """Whether map_partition may run concurrently across partitions.
+        Function UDFs (and bare class UDFs sharing one instance) carry user
+        state with no thread-safety contract; class UDFs on an actor pool
+        (concurrency > 1) serialize per instance and stay safe."""
+        from .expressions import expr_udfs_parallel_safe
+
+        return all(expr_udfs_parallel_safe(e) for e in self._map_exprs())
+
+    def _map_exprs(self):
+        """The expressions a map op evaluates (UDF parallel-safety, resource
+        requests and the result cache read them)."""
+        return ()
+
     def _map_execute(self, inputs, ctx):
         """Sequential loop over map_partition with device double-buffering:
         ops that implement map_partition_dispatch launch partition i+1 on the
         card BEFORE partition i's result is fetched back. Output order is
-        preserved; a host-path partition first drains the pending one."""
+        preserved; a host-path partition first drains the pending one. An op
+        whose UDFs request resources admits each partition through the
+        query's accountant (an impossible request raises first) and never
+        defers a resolver outside its admission."""
+        from .execution import op_resource_request
+
+        req = op_resource_request(self)
+        if req:
+            ctx.accountant.check(req)
         saw = False
         pending = None  # deferred resolver of the previous device partition
         for part in inputs[0]:
             saw = True
-            dispatch = self.map_partition_dispatch(part, ctx)
-            if pending is not None:
-                yield pending()
-                pending = None
-            if dispatch is not None:
-                pending = dispatch
-                continue
-            yield self.map_partition_declined(part, ctx)
+            if req:
+                ctx.accountant.admit(req)
+            try:
+                dispatch = None if req else self.map_partition_dispatch(part, ctx)
+                if pending is not None:
+                    yield pending()
+                    pending = None
+                if dispatch is not None:
+                    pending = dispatch
+                    continue
+                out = self.map_partition_declined(part, ctx)
+            finally:
+                if req:
+                    ctx.accountant.release(req)
+            yield out
         if pending is not None:
             yield pending()
         if not saw:
@@ -252,11 +290,89 @@ class ProjectOp(PhysicalOp):
         ctx.stats.bump("host_projections")
         return part.eval_expression_list(self.exprs)
 
+    def _map_exprs(self):
+        return self.exprs
+
     def execute(self, inputs, ctx) -> PartStream:
         return self._map_execute(inputs, ctx)
 
     def describe(self):
         return "Project: " + ", ".join(e._node.display() for e in self.exprs)
+
+
+class BatchedUdfOp(PhysicalOp):
+    """A projection holding batch-declared UDFs (batch/), run through the
+    dynamic-batching executor instead of the per-partition UDF path.
+
+    Not a ProjectOp subclass: both fuse passes match ``isinstance(op,
+    (ProjectOp, FilterOp))``, so this op is a fusion barrier by construction
+    (the batching executor owns the evaluation of its UDFs), while the chains
+    above and below still fuse.
+
+    ``execute`` coalesces whole partitions under the budget and re-splits to
+    the source partition boundaries; ``map_partition`` is the one-partition
+    apply. Both give the rows of the unbatched path."""
+
+    def __init__(self, child: PhysicalOp, exprs: List[Expression], schema: Schema):
+        super().__init__([child], schema, child.num_partitions)
+        self.exprs = exprs
+
+    def _map_exprs(self):
+        return self.exprs
+
+    def _settings(self, ctx):
+        from .batch.executor import BatchSettings
+        from .expressions import expr_batch_udfs
+
+        decl = None
+        for e in self.exprs:
+            udfs = expr_batch_udfs(e)
+            if udfs:
+                decl = udfs[0].batching  # the first declaration wins
+                break
+        return BatchSettings.resolve(decl, ctx.cfg)
+
+    def map_partition(self, part, ctx):
+        from .batch.device import exec_ctx_scope
+
+        ctx.stats.bump("host_projections")
+        with exec_ctx_scope(ctx):
+            return part.eval_expression_list(self.exprs)
+
+    def execute(self, inputs, ctx) -> PartStream:
+        from .execution import op_resource_request
+
+        if op_resource_request(self):
+            # admission is per partition: such UDFs skip the cross-partition
+            # coalescing rather than hold an admission across a batch
+            yield from self._map_execute(inputs, ctx)
+            return
+        from .batch.executor import BatchingExecutor
+
+        bx = BatchingExecutor(self.name(), self.exprs, ctx, settings=self._settings(ctx))
+        try:
+            for part in inputs[0]:
+                yield from bx.feed(part)
+            yield from bx.finish()
+        finally:
+            # an abandoned stream (a limit or an error above): settle the
+            # buffered charges
+            bx.abort()
+
+    def describe(self):
+        return "BatchedUdf: " + summarize_exprs(self.exprs)
+
+
+def _route_batched_udfs(op: PhysicalOp) -> PhysicalOp:
+    """Pre-fusion pass: ProjectOps whose expressions carry a batching
+    declaration become BatchedUdfOps. Runs BEFORE the fuse passes, which
+    would otherwise fold the projection into a fused map."""
+    from .expressions import expr_has_batch_udf
+
+    op.children = [_route_batched_udfs(c) for c in op.children]
+    if type(op) is ProjectOp and any(expr_has_batch_udf(e) for e in op.exprs):
+        return BatchedUdfOp(op.children[0], op.exprs, op.schema)
+    return op
 
 
 class FilterOp(PhysicalOp):
@@ -274,6 +390,9 @@ class FilterOp(PhysicalOp):
         # the dispatch already found this partition device-ineligible
         ctx.stats.bump("host_filters")
         return part.filter([self.predicate])
+
+    def _map_exprs(self):
+        return (self.predicate,)
 
     def execute(self, inputs, ctx) -> PartStream:
         return self._map_execute(inputs, ctx)
@@ -316,6 +435,9 @@ class ExplodeOp(PhysicalOp):
     def map_partition(self, part, ctx):
         return part.explode(self.exprs)
 
+    def _map_exprs(self):
+        return list(self.exprs)
+
     def execute(self, inputs, ctx) -> PartStream:
         return self._map_execute(inputs, ctx)
 
@@ -333,6 +455,9 @@ class UnpivotOp(PhysicalOp):
 
     def map_partition(self, part, ctx):
         return part.unpivot(self.ids, self.values, self.variable_name, self.value_name)
+
+    def _map_exprs(self):
+        return list(self.ids) + list(self.values)
 
     def execute(self, inputs, ctx) -> PartStream:
         return self._map_execute(inputs, ctx)
@@ -432,6 +557,9 @@ class AggregateOp(PhysicalOp):
         if not self.groupby:
             yield MicroPartition.empty(self.children[0].schema).agg(self.aggregations, None)
 
+    def _map_exprs(self):
+        return list(self.aggregations) + list(self.groupby)
+
     def execute(self, inputs, ctx) -> PartStream:
         return self._map_execute(inputs, ctx)
 
@@ -459,6 +587,9 @@ class FusedFilterAggregateOp(AggregateOp):
     def map_partition_dispatch(self, part, ctx):
         return ctx.eval_agg_dispatch(part, self.aggregations, self.groupby or None,
                                      predicate=self.predicate)
+
+    def _map_exprs(self):
+        return [self.predicate] + list(self.aggregations) + list(self.groupby)
 
     def describe(self):
         a = ", ".join(e._node.display() for e in self.aggregations)
@@ -1191,7 +1322,9 @@ def _is_pure_column_selection(exprs) -> bool:
 
 
 def translate(plan: LogicalPlan, cfg=None, stats=None) -> PhysicalOp:
-    """Public entry: recursive translation, then device-path fusion
+    """Public entry: recursive translation, then the routing of
+    batch-declared UDF projections to BatchedUdfOp (behind
+    ``cfg.dynamic_batching``), then device-path fusion
     (``fuse_for_device``), then map-chain fusion (``fuse_map_chains``,
     behind ``cfg.expr_fusion``), then the plan-segment compiler
     (``compile_plan_segments``, behind ``cfg.use_device_kernels`` and
@@ -1204,7 +1337,12 @@ def translate(plan: LogicalPlan, cfg=None, stats=None) -> PhysicalOp:
         from .context import get_context
 
         cfg = get_context().execution_config
-    out = fuse_for_device(_translate(plan, cfg))
+    out = _translate(plan, cfg)
+    if cfg.dynamic_batching:
+        # before the fuse passes: a batch-declared projection becomes its own
+        # op (and a fusion barrier), not a piece of a fused map
+        out = _route_batched_udfs(out)
+    out = fuse_for_device(out)
     if cfg.expr_fusion:
         from .fuse import fuse_map_chains
 

@@ -108,9 +108,9 @@ class _Uncacheable(Exception):
 
 def plan_cache_key(plan: LogicalPlan) -> Optional[str]:
     """The structural key of a plan, or None where caching would be unsound:
-    a write (a repeated write must write again), a seedless sample, or an
-    attribute this walk cannot prove free of collisions. The reference also
-    refuses UDFs, which the port does not have yet."""
+    a write (a repeated write must write again), a seedless sample, a UDF (it
+    may not be deterministic, and its key holds ``id(fn)``, which can be
+    reused), or an attribute this walk cannot prove free of collisions."""
     try:
         return _plan_key(plan)
     except _Uncacheable:
@@ -148,7 +148,7 @@ def _scan_task_key(t) -> str:
 
 
 def _plan_key(p: LogicalPlan) -> str:
-    from .expressions import Expression
+    from .expressions import Expression, expr_has_udf
     from .logical import InMemorySource, Sample, ScanSource, Write
 
     if isinstance(p, Write):
@@ -170,9 +170,13 @@ def _plan_key(p: LogicalPlan) -> str:
         if k.startswith("_") or isinstance(v, (LogicalPlan, Schema)):
             continue
         if isinstance(v, Expression):
+            if expr_has_udf(v):
+                raise _Uncacheable
             items.append(f"{k}={v._node._key()!r}")
         elif isinstance(v, (list, tuple)):
             if all(isinstance(e, Expression) for e in v):
+                if any(expr_has_udf(e) for e in v):
+                    raise _Uncacheable
                 items.append(f"{k}=[{','.join(repr(e._node._key()) for e in v)}]")
             elif all(isinstance(e, _SCALARS) for e in v):
                 items.append(f"{k}={v!r}")

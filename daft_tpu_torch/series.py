@@ -176,6 +176,18 @@ class Series:
             return list(self._pyobjs)
         return self._arrow.to_pylist()
 
+    def to_numpy(self) -> np.ndarray:
+        """The values as a numpy array (nulls as NaN in a float column, an
+        object array where arrow cannot convert; the object array itself for a
+        python column). The tensor and embedding layouts come with their
+        types (ROADMAP, Queue 1, item 10)."""
+        if self._arrow is None:
+            return self._pyobjs
+        try:
+            return self._arrow.to_numpy(zero_copy_only=False)
+        except pa.ArrowInvalid:
+            return np.array(self._arrow.to_pylist(), dtype=object)
+
     def __repr__(self) -> str:
         vals = self.to_pylist()
         preview = ", ".join(repr(v) for v in vals[:8]) + (", …" if len(vals) > 8 else "")

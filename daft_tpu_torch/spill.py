@@ -27,17 +27,19 @@ The writer thread and the readahead read and write host arrow only: no
 CUDA call runs on them. A spilled partition loads on the thread that asks
 for its table, and its columns stage on the card there.
 
-The ledger also carries the plan cache's and the sub-plan result cache's
-resident bytes (``cache_account("plan_cache_bytes")``,
-``cache_account("subplan_cache_bytes")``) and the scan readahead's
-in-flight fetches (``prefetch_inflight``, io/prefetch.py), all outside
-``current``. A buffer's spill decision charges ``current`` plus
-``prefetch_inflight`` against the budget, as the reference does.
+The ledger also carries the plan cache's, the sub-plan result cache's and
+the pinned model actors' resident bytes (``cache_account`` of
+``plan_cache_bytes``, ``subplan_cache_bytes`` and ``model_cache_bytes``),
+the scan readahead's in-flight fetches (``prefetch_inflight``,
+io/prefetch.py) and the batching executor's buffered partitions
+(``batch_inflight``, batch/coalesce.py), all outside ``current``. A
+buffer's spill decision charges ``current``, ``prefetch_inflight`` and
+``batch_inflight`` against the budget, as the reference does.
 
 Left out: the ledger's accounts for producers the port does not have yet
-(streaming channels, batching, the scheduler's parked outputs, distributed
-workers, the model cache), the child ledgers of the serving runtime, and
-the profiler spans and log lines.
+(streaming channels, the scheduler's parked outputs, distributed workers),
+the child ledgers of the serving runtime, and the profiler spans and log
+lines.
 """
 
 from __future__ import annotations
@@ -107,14 +109,23 @@ class MemoryLedger:
         # a charge in `current` would make every pipeline breaker's append
         # see a full ledger and spill its whole input
         self.prefetch_inflight = 0
-        # peak of current + prefetch_inflight: the working set the ledger
-        # sees, which the spill decision holds to the budget
+        # the bytes of partitions the dynamic-batching executor buffers
+        # between feed and flush (batch/coalesce.py). Not in `current`, for
+        # the prefetch_inflight reason; settled at every flush, so a nonzero
+        # balance after a query is a leak
+        self.batch_inflight = 0
+        self.batch_inflight_high_water = 0
+        # the pinned model actors' resident weight bytes (batch/actors.py),
+        # a process cache account like plan_cache_bytes
+        self.model_cache_bytes = 0
+        # peak of current + prefetch_inflight + batch_inflight: the working
+        # set the ledger sees, which the spill decision holds to the budget
         self.working_set_high_water = 0
 
     def cache_account(self, account: str, delta: int) -> None:
         """Charge or release a process cache account (``plan_cache_bytes``,
-        ``subplan_cache_bytes``); clamped at 0."""
-        if account not in ("plan_cache_bytes", "subplan_cache_bytes"):
+        ``subplan_cache_bytes``, ``model_cache_bytes``); clamped at 0."""
+        if account not in ("plan_cache_bytes", "subplan_cache_bytes", "model_cache_bytes"):
             from .errors import DaftValueError
 
             raise DaftValueError(f"unknown cache account {account!r}")
@@ -126,8 +137,9 @@ class MemoryLedger:
             self.disk_full_events += 1
 
     def _note_working_set_locked(self) -> None:
-        self.working_set_high_water = max(self.working_set_high_water,
-                                          self.current + self.prefetch_inflight)
+        self.working_set_high_water = max(
+            self.working_set_high_water,
+            self.current + self.prefetch_inflight + self.batch_inflight)
 
     def add(self, n: int) -> None:
         with self._lock:
@@ -158,6 +170,17 @@ class MemoryLedger:
     def prefetch_done(self, n: int) -> None:
         with self._lock:
             self.prefetch_inflight -= min(n, self.prefetch_inflight)
+
+    def batch_started(self, n: int) -> None:
+        with self._lock:
+            self.batch_inflight += n
+            self.batch_inflight_high_water = max(self.batch_inflight_high_water,
+                                                 self.batch_inflight)
+            self._note_working_set_locked()
+
+    def batch_done(self, n: int) -> None:
+        with self._lock:
+            self.batch_inflight -= min(n, self.batch_inflight)
 
     def async_spill_started(self, n: int) -> None:
         with self._lock:
@@ -198,6 +221,7 @@ class MemoryLedger:
                  "negative_releases", "async_spill_inflight", "spill_write_bytes",
                  "spill_write_ns", "unspill_bytes", "unspill_ns", "disk_full_events",
                  "plan_cache_bytes", "subplan_cache_bytes", "prefetch_inflight",
+                 "batch_inflight", "batch_inflight_high_water", "model_cache_bytes",
                  "working_set_high_water")
 
     def reset(self) -> None:
@@ -712,11 +736,12 @@ class PartitionBuffer:
 
     def append(self, part: MicroPartition) -> None:
         size = part.size_bytes() or 0
-        # the query's working set: buffered bytes and the scan readahead's
-        # fetches in flight eat the same budget
+        # the query's working set: buffered bytes, the scan readahead's
+        # fetches in flight and the batching executor's buffered partitions
+        # eat the same budget
         if (self.budget is not None and len(part)
                 and (self.ledger.current + self.ledger.prefetch_inflight
-                     + size > self.budget)):
+                     + self.ledger.batch_inflight + size > self.budget)):
             spilled = self._try_spill(part, size)
             if spilled is not None:
                 self._items.append(spilled)
