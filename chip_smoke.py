@@ -4946,15 +4946,18 @@ SQL_PLANNING = (1, 3, 5, 6, 10, 12, 14, 19)
 # so those texts run over SQL_TOY_ROWS rows of their key table instead
 SQL_SINGLE_TABLE = (1, 6)
 # comma-join text -> (the key it draws by, rows that satisfy the text drawn,
-# rows that do not): the cross products stay under about 75,000 rows
-SQL_TOY_ROWS = {3: ("order", 10, 10), 5: ("order", 1, 1), 10: ("order", 4, 4),
-                12: ("order", 50, 50), 14: ("line", 100, 100), 19: ("line", 100, 100)}
+# rows that do not): as many rows that satisfy the text as the cross
+# products allow, under about 75,000 rows (Q5 takes its two orders that
+# match and no other: with a third its product is 162,000 rows; Q19 has no
+# matching row at SF0.005, so all 100 of its draws miss)
+SQL_TOY_ROWS = {3: ("order", 16, 8), 5: ("order", 2, 0), 10: ("order", 6, 3),
+                12: ("order", 80, 40), 14: ("line", 120, 60), 19: ("line", 100, 100)}
 
 
-def sql_toy_catalogs(data: dict, seed: int = 7) -> dict:
+def sql_toy_catalogs(data: dict, texts: dict, seed: int = 7) -> dict:
     """Each comma-join text's tables (SQL_TOY_ROWS) cut to a few joined rows
-    of ``data``: the orders (or lineitems) that satisfy the text's FROM and
-    WHERE, found by SQLite, and as many drawn from the rest (numpy seed
+    of ``data``: the orders (or lineitems) that satisfy the text (of
+    ``texts``, by query number) in its FROM and WHERE, found by SQLite, and as many drawn from the rest (numpy seed
     ``seed``), with every lineitem of the chosen orders and the customers,
     suppliers and parts they reference; nation and region whole. Both
     packages and the oracle run over the same rows. Returns {text: {table:
@@ -4965,7 +4968,7 @@ def sql_toy_catalogs(data: dict, seed: int = 7) -> dict:
     import pyarrow as pa
     import pyarrow.compute as pc
 
-    from benchmarks import tpch_full, tpch_queries
+    from benchmarks import tpch_full
 
     li = data["lineitem"]
     conn = tpch_full.load_sqlite(data)
@@ -4975,7 +4978,7 @@ def sql_toy_catalogs(data: dict, seed: int = 7) -> dict:
                          ("s_suppkey", "supplier"), ("p_partkey", "part")):
             conn.execute(f"CREATE INDEX {col}_idx ON {tbl} ({col})")
         for qn, (kind, n_hit, n_miss) in SQL_TOY_ROWS.items():
-            text = tpch_queries.SQL[qn]
+            text = texts[qn]
             body = re.search(r"\bFROM\b(.*?)(?:\bGROUP BY\b|\bORDER BY\b|$)", text,
                              re.S).group(1)
             tables, cond = body.split("WHERE", 1)
@@ -5021,7 +5024,7 @@ def sql_toy_catalogs(data: dict, seed: int = 7) -> dict:
 # Q1 and Q6 over the whole tables, the others over sql_toy_catalogs):
 # (device_aggregations, host_aggregations) as tests/test_torch_sql.py pins
 # them, equal to the reference's there
-SQL_ROUTES_3P = {1: (4, 2), 3: (3, 3), 5: (2, 4), 6: (3, 1), 10: (3, 3), 12: (3, 3),
+SQL_ROUTES_3P = {1: (4, 2), 3: (4, 2), 5: (2, 4), 6: (3, 1), 10: (3, 3), 12: (3, 3),
                  14: (3, 1), 19: (3, 1)}
 SQL_WARM = 1        # warm runs of each SQL text, after its cold one
 UDF_PARTS = (1, 4)  # phase 15 (b) runs over SF1 lineitem in 1 and in 4 partitions
@@ -5121,12 +5124,13 @@ def sql_udf_runner(out: dict):
     return run
 
 
-def phase_sql_udf(ph: Phases, lineitem, card: str) -> dict:
+def phase_sql_udf(ph: Phases, lineitem, texts: dict, card: str) -> dict:
     """Phase 15 (but its SF1 SQL leg, phase_sql_sf1): the SQL front end and
     python UDFs on the card, in the 32-bit mode. It reads phase 3's SF1
     lineitem and its own SF0.005 tables, so it runs while the 22-query
     tables are generated.
-    (a) The 8 TPC-H texts that plan, through daft_tpu_torch.sql, cold and
+    (a) The 8 TPC-H texts that plan (``texts``: tpch22_module's SQL, by
+    query number), through daft_tpu_torch.sql, cold and
     warm, at SF0.005 in 3 partitions against SQLite over the same tables
     (Q1 and Q6 over the whole tables, the six comma-join texts over
     sql_toy_catalogs, since the front end plans a comma list as cross
@@ -5147,7 +5151,7 @@ def phase_sql_udf(ph: Phases, lineitem, card: str) -> dict:
     import torch
 
     import daft_tpu_torch as dtt
-    from benchmarks import tpch, tpch_full, tpch_queries
+    from benchmarks import tpch, tpch_full
     from daft_tpu_torch import faults
     from daft_tpu_torch.batch.actors import pinned_model_count, shutdown_all_models
     from daft_tpu_torch.errors import DaftResourceError
@@ -5159,10 +5163,10 @@ def phase_sql_udf(ph: Phases, lineitem, card: str) -> dict:
 
     # --- (a) SQL at SF0.005, 3 partitions, against SQLite
     small = tpch_full.generate(scale=0.005, seed=7)
-    toys = sql_toy_catalogs(small)
+    toys = sql_toy_catalogs(small, texts)
     conn = tpch_full.load_sqlite({"lineitem": small["lineitem"]})
     try:
-        wants = {qn: tpch22_rows(conn.execute(tpch_queries.SQL[qn]).fetchall())
+        wants = {qn: tpch22_rows(conn.execute(texts[qn]).fetchall())
                  for qn in SQL_SINGLE_TABLE}
     finally:
         conn.close()
@@ -5173,13 +5177,13 @@ def phase_sql_udf(ph: Phases, lineitem, card: str) -> dict:
         else:
             conn = tpch_full.load_sqlite(tables)
             try:
-                want = tpch22_rows(conn.execute(tpch_queries.SQL[qn]).fetchall())
+                want = tpch22_rows(conn.execute(texts[qn]).fetchall())
             finally:
                 conn.close()
         frames = tpch22_frames({"lineitem": small["lineitem"]} if qn in SQL_SINGLE_TABLE
                                else tables, 3)
         rows, c, launches, cold, warm = run(
-            lambda: dtt.sql(tpch_queries.SQL[qn], **frames), device_min_rows=8)
+            lambda: dtt.sql(texts[qn], **frames), device_min_rows=8)
         got = tpch22_rows(zip(*rows.values()))
         routes = (c.get("device_aggregations", 0), c.get("host_aggregations", 0))
         label = f"SF0.005 SQL Q{qn} (3 partitions{'' if qn in SQL_SINGLE_TABLE else ', toy'})"
@@ -5324,21 +5328,26 @@ def phase_sql_udf(ph: Phases, lineitem, card: str) -> dict:
     return out
 
 
-def phase_sql_sf1(ph: Phases, data: dict, card: str) -> dict:
-    """Phase 15's SF1 SQL leg, after phase 14: TPC-H Q1 and Q6 through
-    daft_tpu_torch.sql over phase 4's SF1 tables (``data``), cold and warm,
-    against the port's host path of the same text, the aggregate on the
-    card through K1."""
+def phase_sql_sf1(ph: Phases, data: dict, texts: dict, card: str) -> dict:
+    """Phase 15's SF1 SQL leg, after phase 14: TPC-H Q1 and Q6 (of
+    ``texts``) through daft_tpu_torch.sql over phase 4's SF1 tables
+    (``data``), cold and warm, against pyarrow's Q1 and Q6 and against the
+    port's host path of the same text, the aggregate on the card through
+    K1."""
     import daft_tpu_torch as dtt
-    from benchmarks import tpch_queries
+    from benchmarks import tpch
 
     out = {"k1_launches": 0, "k2_launches": 0, "scatter_launches": 0, "card": card}
     t_phase = time.perf_counter()
     run = sql_udf_runner(out)
-    # --- (a) SQL Q1 and Q6 at SF1, one partition a table, against the host path
+    # --- (a) SQL Q1 and Q6 at SF1, one partition a table, against pyarrow
+    # and the host path
     li_frame = dtt.from_arrow(data["lineitem"]).collect()
+    oracles = {1: tpch.oracle_q1(data["lineitem"]),
+               6: {"revenue": [tpch.oracle_q6(data["lineitem"])]}}
     for qn in SQL_SINGLE_TABLE:
-        text = tpch_queries.SQL[qn]
+        text = texts[qn]
+        oracle = tpch22_rows(zip(*oracles[qn].values()))
         dtt.set_execution_config(config(use_deep_fusion_kernel=False, use_device_kernels=False,
                                         device="cpu"))
         want = tpch22_rows(zip(*dtt.sql(text, lineitem=li_frame).to_pydict().values()))
@@ -5348,6 +5357,8 @@ def phase_sql_sf1(ph: Phases, data: dict, card: str) -> dict:
         out[f"sql_q{qn}_sf1"] = {"cold_s": cold, "warm_s": warm, "launches": launches,
                                  "counters": {k: c.get(k, 0) for k in TPCH22_COUNTERS}}
         print(f"{label} " + json.dumps(out[f"sql_q{qn}_sf1"]), flush=True)
+        ph.check(tpch22_match(got, oracle),
+                 f"{label}: {len(got)} rows match pyarrow's Q{qn} under the suite's rule")
         ph.check(tpch22_match(got, want),
                  f"{label}: {len(got)} rows match the port's host path of the same text")
         ph.check(c.get("device_aggregations", 0) == 1 and c.get("device_agg_fallbacks", 0) == 0
@@ -5558,7 +5569,7 @@ def main(argv=None) -> int:
                 # own SF0.005 tables, also while the 22-query tables generate
                 print(f"elapsed {time.perf_counter() - started:.1f}s: phase 15", flush=True)
                 ph.begin("phase 15")
-                sql_udf = phase_sql_udf(ph, sf1_lineitem, card)
+                sql_udf = phase_sql_udf(ph, sf1_lineitem, queries.SQL, card)
             t0 = time.perf_counter()
             data = big.get()
             print(f"SF1: 22-query tables ready {time.perf_counter() - big.started:.1f}s after "
@@ -5597,7 +5608,7 @@ def main(argv=None) -> int:
                 print(f"elapsed {time.perf_counter() - started:.1f}s: phase 15, SF1 SQL",
                       flush=True)
                 ph.begin("phase 15, SF1 SQL")
-                sql_sf1 = phase_sql_sf1(ph, data, card)
+                sql_sf1 = phase_sql_sf1(ph, data, queries.SQL, card)
                 for k in ("k1_launches", "k2_launches", "scatter_launches"):
                     sql_udf[k] += sql_sf1[k]
             del data, sf1_lineitem
@@ -5618,6 +5629,9 @@ def main(argv=None) -> int:
         if sc64_entry is not None and args.kernels_only:
             sc64_entry["launches"] = None
         ph.begin(None)
+        loaded = sorted(m for m in ("jax", "jaxlib", "flax", "daft_tpu") if m in sys.modules)
+        ph.check(not loaded, "no module of JAX or of the JAX package was loaded in this "
+                             f"process (loaded: {', '.join(loaded) or 'none'})")
         kernels = [k1_entry, k2_entry, sc_entry] + ([sc64_entry] if sc64_entry else [])
         print(json.dumps({"kernels": kernels}), flush=True)
         print(f"chip_smoke: {len(scales)} scale(s) in {time.perf_counter() - started:.1f}s",

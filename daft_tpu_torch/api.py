@@ -22,7 +22,7 @@ from .logical import ScanSource
 from .micropartition import MicroPartition
 from .schema import Field, Schema
 from .table import Table
-from .udf import UDF
+from .udf import UDF, batch_udf, udf  # noqa: F401  (re-exported)
 
 
 def from_pydict(data: Dict[str, Any]) -> DataFrame:
@@ -160,35 +160,6 @@ def read_json(path, schema_hints: Optional[Dict[str, DataType]] = None) -> DataF
     schema = _hinted(infer_json_schema(paths[0]), schema_hints)
     return _scan_frame(schema, [ScanTask(p, FileFormat.JSON, schema, Pushdowns(),
                                          size_bytes=file_size(p)) for p in paths])
-
-
-def udf(return_dtype: DataType, num_cpus=None, num_gpus=None, memory_bytes=None,
-        batch_size=None, concurrency=None, batching=None):
-    """Decorator: make a batch UDF (udf.py). ``batching=True`` (or a dict of
-    overrides) opts into dynamic batching, as ``batch_udf`` does."""
-    from .udf import _normalize_batching
-
-    def deco(fn):
-        return UDF(fn, return_dtype, num_cpus=num_cpus, num_gpus=num_gpus,
-                   memory_bytes=memory_bytes, batch_size=batch_size, concurrency=concurrency,
-                   batching=_normalize_batching(batching))
-
-    return deco
-
-
-def batch_udf(*, return_dtype: DataType, max_rows=None, max_bytes=None, flush_ms=None,
-              mode=None, device=False, concurrency=None, num_cpus=None, num_gpus=None,
-              memory_bytes=None):
-    """Decorator: declare a dynamically-batched UDF (batch/). The declaration
-    is a contract that the fn is row-local; the engine may then coalesce
-    partitions into batches and re-split the outputs. Class targets become
-    pinned model actors; ``device=True`` runs their ``apply_torch`` on the
-    card (batch/device.py)."""
-    from .udf import batch_udf as _batch_udf
-
-    return _batch_udf(return_dtype=return_dtype, max_rows=max_rows, max_bytes=max_bytes,
-                      flush_ms=flush_ms, mode=mode, device=device, concurrency=concurrency,
-                      num_cpus=num_cpus, num_gpus=num_gpus, memory_bytes=memory_bytes)
 
 
 def sql(query: str, **catalog: DataFrame) -> DataFrame:

@@ -14,9 +14,11 @@ exception, the user's own among them, reaches the caller (the reference
 takes every exception of ``apply_jax`` and applies on the host).
 
 In the 32-bit device mode the columns narrow as the reference's jitted
-apply narrows them with x64 off (float64 to float32, int64 to int32, the
-mode's ``_NARROW_64`` rule), so the result has the reference's bits; in
-the 64-bit mode nothing narrows. ``_coerce_result`` casts the result back
+apply narrows them with x64 off: by the dtype of the numpy array staged
+(float64 to float32, int64 to int32, uint64 to uint32), not by the
+column's kind, since an int64 column with nulls stages as float64 with
+NaN. So the result has the reference's bits; in the 64-bit mode nothing
+narrows. ``_coerce_result`` casts the result back
 to the UDF's return type.
 
 Without ``apply_torch``, with device kernels off, or without an execution
@@ -35,6 +37,10 @@ from typing import Any, List, Optional
 import numpy as np
 
 _tl = threading.local()
+
+# jax's canonical dtypes with x64 off: each 64-bit array narrows to 32 bits
+_NARROW_STAGED = {np.dtype(np.float64): np.float32, np.dtype(np.int64): np.int32,
+                  np.dtype(np.uint64): np.uint32}
 
 
 class exec_ctx_scope:
@@ -62,17 +68,15 @@ def current_exec_ctx():
 
 def apply_torch(fn, args: List[Any], device, x64: bool) -> np.ndarray:
     """``fn`` under inference mode over the batch's columns as tensors on
-    ``device`` (each through ``to_numpy``, narrowed by the 32-bit mode's
-    rule), fetched to numpy."""
+    ``device`` (each through ``to_numpy``, narrowed as jax narrows it with
+    x64 off unless ``x64``), fetched to numpy."""
     import torch
-
-    from ..kernels.device import _NARROW_NP
 
     staged = []
     for a in args:
         arr = np.asarray(a.to_numpy())
-        if not x64 and a.dtype.kind in _NARROW_NP:
-            arr = arr.astype(_NARROW_NP[a.dtype.kind])
+        if not x64 and arr.dtype in _NARROW_STAGED:
+            arr = arr.astype(_NARROW_STAGED[arr.dtype])
         staged.append(torch.from_numpy(np.ascontiguousarray(arr)).to(device))
     with torch.inference_mode():
         out = fn(*staged)

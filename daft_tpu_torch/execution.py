@@ -60,16 +60,19 @@ again, which the garbage collector releases with the last partition that
 holds the prefetcher.
 
 Admission. A map op whose expressions call UDFs with a resource request
-(``num_cpus``, ``num_gpus``, ``memory_bytes``) admits each partition
-through the query's ``ResourceAccountant`` (``accountant``), sized from the
-host's cores, the cards of ``cfg.device`` (``torch.cuda.device_count()``
-for ``"cuda"``, none for ``"cpu"``) and the memory budget; a request that
-can never fit raises ``DaftResourceError`` at once.
+(``num_cpus``, ``num_gpus``, ``memory_bytes``) has it checked by the
+query's ``ResourceAccountant`` (``accountant``), sized from the host's
+cores, the cards of ``cfg.device`` (``torch.cuda.device_count()`` for
+``"cuda"``, none for ``"cpu"``) and the memory budget: a request that can
+never fit raises ``DaftResourceError`` before the op runs. Maps run one
+partition at a time, so a request that fits the host always fits; the
+reference's blocking ``admit``/``release`` comes with the worker pool of
+parallel maps.
 
 Left out of this slice: the profiler and the breaker's log lines and
 events, the query log and its records, cancellation, the worker pool of
-parallel maps (so admission never has two partitions in flight),
-streaming, the mesh hook ``prepare_broadcast`` and the mesh breaker.
+parallel maps (with the accountant's blocking admission), streaming, the
+mesh hook ``prepare_broadcast`` and the mesh breaker.
 """
 
 from __future__ import annotations
@@ -131,9 +134,9 @@ def op_resource_request(op) -> ResourceRequest:
 
 
 class ResourceAccountant:
-    """Admission control for in-flight tasks: a task runs only when its
-    declared CPUs, cards and memory fit the remaining capacity; a request
-    that can never fit fails at once instead of waiting for good."""
+    """Admission control for tasks: a request that can never fit the
+    host's CPUs, cards and memory fails at once instead of waiting for
+    good."""
 
     def __init__(self, cpus: float, gpus, memory_bytes: Optional[int]):
         """``gpus`` is a number or a zero-argument callable resolved on first
@@ -142,10 +145,6 @@ class ResourceAccountant:
         self._gpu_src = gpus
         self._gpus_resolved: Optional[float] = float(gpus) if not callable(gpus) else None
         self.total_memory = memory_bytes
-        self._cpus = cpus
-        self._gpus_used = 0.0
-        self._memory = memory_bytes
-        self._cond = threading.Condition()
 
     @property
     def total_gpus(self) -> float:
@@ -168,30 +167,6 @@ class ResourceAccountant:
             raise DaftResourceError(
                 f"task requests {req.memory_bytes} bytes but the memory "
                 f"budget is {self.total_memory}")
-
-    def _fits(self, req: ResourceRequest) -> bool:
-        gpu_ok = not req.num_gpus or req.num_gpus <= self.total_gpus - self._gpus_used + 1e-9
-        return (req.num_cpus <= self._cpus + 1e-9 and gpu_ok
-                and (self._memory is None or req.memory_bytes <= self._memory))
-
-    def admit(self, req: ResourceRequest) -> None:
-        """Block until the request fits, then reserve it."""
-        self.check(req)
-        with self._cond:
-            while not self._fits(req):
-                self._cond.wait()
-            self._cpus -= req.num_cpus
-            self._gpus_used += req.num_gpus
-            if self._memory is not None:
-                self._memory -= req.memory_bytes
-
-    def release(self, req: ResourceRequest) -> None:
-        with self._cond:
-            self._cpus += req.num_cpus
-            self._gpus_used -= req.num_gpus
-            if self._memory is not None:
-                self._memory += req.memory_bytes
-            self._cond.notify_all()
 
 
 def _accelerator_count(cfg: ExecutionConfig) -> int:

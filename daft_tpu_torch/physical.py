@@ -81,9 +81,9 @@ of in-memory sources, which the reference skips on the device path; the
 mesh exchange of the sort-merge join, the worker pool of parallel maps and
 streaming (with the stream adapter of ``BatchedUdfOp``).
 
-UDFs. A map op whose expressions call UDFs with a resource request admits
-each partition through the query's accountant and never defers a device
-resolver past it (``_map_execute``); ``parallel_safe`` says whether its
+UDFs. A map op whose expressions call UDFs with a resource request has it
+checked by the query's accountant and never defers a device resolver
+(``_map_execute``); ``parallel_safe`` says whether its
 partitions could run concurrently (the port runs them in order). A
 projection holding a batch-declared UDF becomes a ``BatchedUdfOp``
 (``_route_batched_udfs``, before the fuse passes): a fusion barrier whose
@@ -169,9 +169,9 @@ class PhysicalOp:
         ops that implement map_partition_dispatch launch partition i+1 on the
         card BEFORE partition i's result is fetched back. Output order is
         preserved; a host-path partition first drains the pending one. An op
-        whose UDFs request resources admits each partition through the
-        query's accountant (an impossible request raises first) and never
-        defers a resolver outside its admission."""
+        whose UDFs request resources has the request checked by the query's
+        accountant (an impossible one raises before any partition runs) and
+        runs each partition to its end before the next."""
         from .execution import op_resource_request
 
         req = op_resource_request(self)
@@ -181,21 +181,14 @@ class PhysicalOp:
         pending = None  # deferred resolver of the previous device partition
         for part in inputs[0]:
             saw = True
-            if req:
-                ctx.accountant.admit(req)
-            try:
-                dispatch = None if req else self.map_partition_dispatch(part, ctx)
-                if pending is not None:
-                    yield pending()
-                    pending = None
-                if dispatch is not None:
-                    pending = dispatch
-                    continue
-                out = self.map_partition_declined(part, ctx)
-            finally:
-                if req:
-                    ctx.accountant.release(req)
-            yield out
+            dispatch = None if req else self.map_partition_dispatch(part, ctx)
+            if pending is not None:
+                yield pending()
+                pending = None
+            if dispatch is not None:
+                pending = dispatch
+                continue
+            yield self.map_partition_declined(part, ctx)
         if pending is not None:
             yield pending()
         if not saw:

@@ -181,11 +181,12 @@ class UDF:
                    memory_bytes or self.memory_bytes, self.batching)
 
 
-def udf(*, return_dtype: DataType, batch_size: Optional[int] = None,
-        concurrency: Optional[int] = None, num_cpus: Optional[float] = None,
+def udf(return_dtype: DataType, num_cpus: Optional[float] = None,
         num_gpus: Optional[float] = None, memory_bytes: Optional[int] = None,
+        batch_size: Optional[int] = None, concurrency: Optional[int] = None,
         batching: Any = None):
-    """Decorator creating a UDF. def and class targets both work; class
+    """Decorator creating a UDF (``return_dtype`` positional or by name, as
+    the reference's api takes it). def and class targets both work; class
     targets are stateful (one instance per process, or per worker of an
     actor pool with ``concurrency``). ``batching=True`` (or a dict of
     overrides) opts into dynamic batching, as ``batch_udf`` does."""

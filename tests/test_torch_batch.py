@@ -22,6 +22,7 @@ its device apply K13, held against daft_tpu on the CPU.
 import threading
 
 import numpy as np
+import pyarrow as pa
 import pytest
 
 import daft_tpu
@@ -480,6 +481,39 @@ def test_k13_narrows_as_the_reference(x64):
         narrowed = (np.asarray(NARROW_VALUES, np.float32) * np.float32(2.0)
                     - np.float32(3.0)).astype(np.float64)
         assert bits(g) == bits(narrowed.tolist()) and bits(g) != bits(host)
+
+
+# columns whose staged numpy dtype is not their kind's: an int64 column with
+# nulls stages as float64 with NaN (to float32), a uint64 one as uint64 (to
+# uint32, wrapping 2**32 + 7); 16777217 and 2**31 + 5 float32 cannot hold
+NARROW_STAGED = {
+    "nullable_int64": pa.array([1, None, 2**31 + 5, 16777217, -7], pa.int64()),
+    "uint64": pa.array([0, 1, 2**32 - 1, 2**31 + 3, 16777217, 2**32 + 7], pa.uint64()),
+}
+
+
+@pytest.mark.parametrize("case", sorted(NARROW_STAGED))
+def test_k13_narrows_by_the_staged_dtype(case):
+    """In the 32-bit mode K13 narrows each column as jax narrows the array
+    it is handed, by its numpy dtype, so the output has the reference's
+    bits (nulls where the reference has them)."""
+    import struct
+
+    from torch_parity import run_both
+
+    def build(pkg):
+        scorer = _declare(pkg, DeviceScorer, max_rows=100_000, device=True)
+        frame = pkg.from_arrow(pa.table({"v": NARROW_STAGED[case]}))
+        return frame.select(scorer(pkg.col("v")).alias("s"))
+
+    ref, got = run_both(build, min_rows=8, knobs={"dynamic_batching": True})
+
+    def bits(vals):
+        return [None if v is None else struct.pack("<d", v) for v in vals]
+
+    g, r = got.to_pydict()["s"], ref.to_pydict()["s"]
+    assert bits(g) == bits(r)
+    assert got.stats.snapshot()["counters"].get("batch_device_applies", 0) == 1
 
 
 def test_user_apply_error_reaches_the_caller_where_the_reference_applies_on_the_host():

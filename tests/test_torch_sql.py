@@ -283,7 +283,7 @@ def test_repeated_sql_calls_stay_callable():
 @pytest.fixture(scope="module")
 def sf0005():
     data = tpch_full.generate(scale=0.005, seed=7)
-    return data, sql_toy_catalogs(data)
+    return data, sql_toy_catalogs(data, tpch_queries.SQL)
 
 
 def _norm(v):

@@ -8,9 +8,10 @@ GroupedDataFrame.map_groups), held against daft_tpu on the CPU.
 - tests/test_actor_pool.py's cases and tests/test_admission.py's UDF cases
   in both packages. One difference is pinned: the port runs a map op's
   partitions one at a time (its pooled fan-out comes with scheduler.py,
-  ROADMAP Queue 1 item 7), so a task's resource request is admitted per
-  partition with at most one in flight, where the reference's worker pool
-  admits two at once (``test_cpu_request_limits_task_concurrency``).
+  ROADMAP Queue 1 item 7), so a task's resource request is checked once
+  against the host and the partitions run with at most one in flight,
+  where the reference's worker pool admits two at once
+  (``test_cpu_request_limits_task_concurrency``).
 - tests/test_fuse.py's TestUdfBarriers in both packages (one call per
   partition, never merged, never moved across a filter; a resource request
   declines fusion), and a pinned UDF whose column feeds an aggregate on the
@@ -284,45 +285,28 @@ def test_shutdown_all_tears_every_pool_down():
 # ---------------------------------------------------------------------------
 
 def _accountant_cycle(pkg):
+    """The accountant's check: requests that fit pass, and each that can
+    never fit raises the same error as the reference's."""
     from importlib import import_module
 
     ex = import_module(f"{pkg.__name__}.execution")
-    acc = ex.ResourceAccountant(cpus=2.0, gpus=0.0, memory_bytes=1000)
-    r = ex.ResourceRequest(num_cpus=1.0, memory_bytes=400)
-    acc.admit(r)
-    acc.admit(r)
-    full = acc._fits(r)
-    acc.release(r)
-    errors = []
     acc = ex.ResourceAccountant(cpus=4.0, gpus=1.0, memory_bytes=1000)
+    for req in (ex.ResourceRequest(num_cpus=4.0), ex.ResourceRequest(num_gpus=1.0),
+                ex.ResourceRequest(memory_bytes=1000)):
+        acc.check(req)
+    errors = []
     for req in (ex.ResourceRequest(num_cpus=5.0), ex.ResourceRequest(num_gpus=2.0),
                 ex.ResourceRequest(memory_bytes=2000)):
         with pytest.raises(RuntimeError) as ei:
-            acc.admit(req)
+            acc.check(req)
         errors.append(str(ei.value))
-    return full, errors
+    return errors
 
 
 def test_accountant_as_the_reference():
     ref, got = both(_accountant_cycle)
     assert got == ref
-    assert got[0] is False
-
-
-def test_blocking_admission_unblocks_on_release():
-    from daft_tpu_torch.execution import ResourceAccountant, ResourceRequest
-
-    acc = ResourceAccountant(cpus=1.0, gpus=0.0, memory_bytes=None)
-    r = ResourceRequest(num_cpus=1.0)
-    acc.admit(r)
-    admitted = threading.Event()
-    t = threading.Thread(target=lambda: (acc.admit(r), admitted.set()), daemon=True)
-    t.start()
-    time.sleep(0.05)
-    assert not admitted.is_set()  # still blocked
-    acc.release(r)
-    assert admitted.wait(timeout=2.0)
-    t.join(timeout=2.0)
+    assert len(got) == 3
 
 
 def _requests(pkg):
@@ -412,26 +396,36 @@ def test_satisfiable_request_runs_as_the_reference():
 
 def test_cpu_request_admits_each_partition_one_at_a_time(monkeypatch):
     """tests/test_admission.py::test_cpu_request_limits_task_concurrency with
-    the difference pinned: every one of the 20 partitions passes the
-    accountant, and the port never has two in flight (no pooled fan-out
+    the difference pinned: the accountant checks the op's request once,
+    and the port runs the 20 partitions one at a time (no pooled fan-out
     yet), where the reference's pool admits two at once."""
+    from daft_tpu_torch import physical
     from daft_tpu_torch.execution import ResourceAccountant
 
-    inflight, peak, admits = [0], [0], [0]
-    orig_admit, orig_release = ResourceAccountant.admit, ResourceAccountant.release
+    checks, inflight, peak, parts = [0], [0], [0], [0]
+    orig_check = ResourceAccountant.check
+    lock = threading.Lock()
 
-    def admit(self, req):
-        orig_admit(self, req)
-        admits[0] += 1
-        inflight[0] += 1
-        peak[0] = max(peak[0], inflight[0])
+    def check(self, req):
+        checks[0] += 1
+        orig_check(self, req)
 
-    def release(self, req):
-        inflight[0] -= 1
-        orig_release(self, req)
+    def counted(orig):
+        def run(self, part, ctx):
+            with lock:
+                parts[0] += 1
+                inflight[0] += 1
+                peak[0] = max(peak[0], inflight[0])
+            try:
+                return orig(self, part, ctx)
+            finally:
+                with lock:
+                    inflight[0] -= 1
+        return run
 
-    monkeypatch.setattr(ResourceAccountant, "admit", admit)
-    monkeypatch.setattr(ResourceAccountant, "release", release)
+    monkeypatch.setattr(ResourceAccountant, "check", check)
+    for cls in (physical.PhysicalOp, physical.ProjectOp):
+        monkeypatch.setattr(cls, "map_partition_declined", counted(cls.map_partition_declined))
 
     @daft_tpu_torch.udf(return_dtype=daft_tpu_torch.DataType.int64(), num_cpus=1,
                         concurrency=4)
@@ -442,7 +436,7 @@ def test_cpu_request_admits_each_partition_one_at_a_time(monkeypatch):
     df = (daft_tpu_torch.from_pydict({"x": list(range(200))}).repartition(20)
           .select(Track(daft_tpu_torch.col("x"))))
     assert sorted(df.to_pydict()["x"]) == list(range(200))
-    assert admits[0] == 20 and peak[0] == 1
+    assert checks[0] == 1 and parts[0] == 20 and peak[0] == 1
 
 
 def test_card_request_on_the_card_config_is_admitted(monkeypatch):
@@ -456,7 +450,7 @@ def test_card_request_on_the_card_config_is_admitted(monkeypatch):
     assert execution._accelerator_count(cfg) == 1
     assert execution._accelerator_count(daft_tpu_torch.ExecutionConfig(device="cpu")) == 0
     ctx = execution.ExecutionContext(cfg)
-    ctx.accountant.admit(execution.ResourceRequest(num_gpus=1))
+    ctx.accountant.check(execution.ResourceRequest(num_gpus=1))
     with pytest.raises(DaftResourceError, match="accelerator"):
         ctx.accountant.check(execution.ResourceRequest(num_gpus=2))
 
