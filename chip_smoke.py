@@ -212,12 +212,24 @@ Phases, each of which fails the run:
      by l_extendedprice.hash() % 64 (sums through K1); agg_list, agg_concat,
      any_value and skew over the first 200,000 rows in 4 partitions, on the
      host, against pyarrow and numpy. One cold run each.
+ 15. the SQL front end and python UDFs on the card (phase_sql_udf and
+     phase_sql_sf1).
+ 16. observability around K1 and K2 (needs SF1 in --scales;
+     phase_observability), over phase 3's SF1 lineitem and phase 7's SF1
+     tables: Q1 composed and deep over 1 and 4 partitions, profiled and
+     unprofiled in turns (the same rows bit for bit and the same launches,
+     valid profiles without orphan spans, device_dispatch phases, self time
+     against op_wall_ns), Q3 with hash joins profiled into a chrome trace
+     and again spilling under a budget, composed Q1 with device.kernel
+     armed three times (its fault and breaker events and log line), the
+     query log, health() during and after a query, metrics_text() and a
+     slow query's diagnostics bundle.
 
-Phases 8-11 run after phase 7 and before phase 4, while the 22-query
-tables are still being generated. Phases 1-10 turn feedback-directed
+Phases 8-11, phase 15 but its SF1 SQL leg, and phase 16 run after phase 7
+and before phase 4, while the 22-query tables are still being generated. Phases 1-10 turn feedback-directed
 planning and the whole-plan result cache off (PLAN_PINS): each times its
-plans as written. Every query of phases 1-7 and 9-14 (but the ids' Q6
-and largest id and the fault cases of phases 10-13) is held
+plans as written. Every query of phases 1-7 and 9-16 (but the ids' Q6
+and largest id and the fault cases of phases 10-13 and 16) is held
 to 0 device_attempt_failures, device_breaker_trips, degraded_completions,
 faults_injected, join_filter_errors and every *_fallbacks counter (Phases.watch reads them as collect() returns, and each
 phase's line says how many queries it read), so that no failure the device
@@ -236,6 +248,7 @@ names the loop it ran. Imports nothing of jax or daft_tpu.
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import datetime
 import json
@@ -544,9 +557,9 @@ class Phases:
 
         real, ph = DataFrame.collect, self
 
-        def collect(df):
+        def collect(df, *args, **kwargs):
             fresh = df._result is None
-            out = real(df)
+            out = real(df, *args, **kwargs)
             if fresh:
                 ph.collects.append(df.stats.snapshot()["counters"])
             if fresh and ph.phase is not None:
@@ -741,6 +754,11 @@ def enumerate_deep_programs() -> list:
     for parts in UDF_PARTS:
         q1_udf(dtt, dtt.from_arrow([li.slice(i * (4096 // parts), 4096 // parts)
                                     for i in range(parts)]), []).collect()
+    # phase 16's deep Q1 over 4 partitions: stage 1's program; stage 2 stays
+    # on the host, under device_min_rows, as at SF1
+    dtt.set_execution_config(config(device="cpu", device_min_rows=64,
+                                    use_deep_fusion_kernel=True))
+    q1(dtt.from_arrow([li.slice(i * 1024, 1024) for i in range(OBS_PARTS)])).collect()
     return fes.programs()
 
 
@@ -5370,6 +5388,333 @@ def phase_sql_sf1(ph: Phases, data: dict, texts: dict, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: observability around K1 and K2
+# ---------------------------------------------------------------------------
+
+OBS_PARTS = 4     # phase 16 cuts lineitem (and Q3's tables) into this many partitions
+OBS_TURNS = 3     # profiled and unprofiled warm runs of each Q1, taken in turns
+# the process metrics one phase-16 query at least folds (metrics_text)
+OBS_METRICS = ("daft_tpu_queries_total", "daft_tpu_query_seconds_count",
+               "daft_tpu_spilled_partitions_total", "daft_tpu_spill_write_bytes_total",
+               "daft_tpu_faults_injected_total", "daft_tpu_device_breaker_trips_total",
+               "daft_tpu_degraded_completions_total", "daft_tpu_rows_emitted_total")
+
+
+def dispatch_phases_ok(qp, counters: dict) -> tuple:
+    """Whether every device aggregate of a profiled query records its host
+    staging and launch as a device_dispatch phase of its aggregate op's
+    spans. The double-buffered map driver launches partition i + 1 in the
+    pull that returns partition i, so each pull of an aggregate op but the
+    last carries the phase (the one pull of a one-partition op carries it),
+    and no device_dispatch lands outside a span. Returns (ok, detail)."""
+    by_op = {}
+    for s in qp.spans():
+        if s.kind == "op" and ("Aggregate" in s.name or "DeviceSegment" in s.name):
+            by_op.setdefault(s.name, []).append(s)
+    launched = {}
+    for name, spans in by_op.items():
+        spans.sort(key=lambda s: s.part)
+        flags = ["device_dispatch" in (s.phases or {}) for s in spans]
+        if any(flags):
+            launched[name] = flags
+    stray = qp.to_dict()["unattributed_phases"].get("device_dispatch", 0)
+    ok = (bool(launched) and counters.get("device_aggregations", 0) >= 1 and stray == 0
+          and all(all(f[:-1]) and (f[-1] == (len(f) == 1)) for f in launched.values()))
+    return ok, {"spans_with_dispatch": launched, "unattributed_ns": stray}
+
+
+def self_time_ok(qp, stats) -> tuple:
+    """The profile's per-op self time against RuntimeStats' op_wall_ns:
+    within 5 % or 2 ms (tests/test_profile.py's rule)."""
+    walls = stats.snapshot()["op_wall_ns"]
+    gaps = {n: qp.ops.get(n, {}).get("self_ns", 0) - ns for n, ns in walls.items()}
+    ok = bool(walls) and all(abs(g) <= max(0.05 * walls[n], 2_000_000) for n, g in gaps.items())
+    return ok, gaps
+
+
+def phase_observability(ph: Phases, lineitem, tables: dict, q3_oracle: tuple,
+                        card: str) -> dict:
+    """Phase 16: the observability layer (profile/, obs/, tracing.py) around
+    K1 and K2 on the card, in the 32-bit mode, over phase 3's SF1 lineitem
+    (6,000,000 rows, seed 42) and phase 7's SF1 tables.
+    (a) Q1 composed (K1) and deep (K2), over 1 and 4 partitions: one cold
+    unprofiled run, then OBS_TURNS profiled and OBS_TURNS unprofiled warm
+    runs in turns. Every run gives the first run's rows bit for bit
+    (pyarrow Table.equals) and its K1 and K2 launches; each profile
+    validates, has no orphan span, records every device aggregate's
+    staging and launch as device_dispatch (dispatch_phases_ok), and its
+    per-op self time reconciles with op_wall_ns (self_time_ok). The warm
+    walls, profiled and not, are printed (a finding, not a claim).
+    (b) Q3 with hash joins over 4 partitions (broadcast threshold 0),
+    profiled, inside tracing.chrome_trace: q3_parity against the oracle,
+    join.build, shuffle.fanout and shuffle.merge spans, and the trace file
+    parsed back with those spans in it.
+    (c) the same Q3 under a memory budget of a quarter of (b)'s exchange
+    bytes, profiled: it spills (spill events, spill.write or spill.read bg
+    spans, none an orphan), q3_parity, and the ledger back at 0.
+    (d) composed Q1 over 4 partitions with device.kernel armed first_n 3
+    and a breaker threshold of 3, profiled: the rows of (a), three
+    fault_injected events, one breaker event of transition trip into state
+    open, the breaker_trip log line under the query's id, K1 never
+    launched.
+    (e) query_log(): one valid record per execution of the phase, each
+    outcome ok or error (one UDF that raises makes the error).
+    (f) health() validates while a query runs (the query listed) and after
+    it ends (none listed).
+    (g) metrics_text() carries OBS_METRICS, and daft_tpu_queries_total and
+    daft_tpu_spilled_partitions_total moved by the phase's executions and
+    spills.
+    (h) Q6 with slow_query_threshold_s 0 and a temporary diagnostics_dir
+    writes one valid bundle and arms the profiler for the next run of its
+    plan."""
+    import os
+    import tempfile
+
+    import torch
+
+    import daft_tpu_torch as dtt
+    from daft_tpu_torch import faults, tracing
+    from daft_tpu_torch.kernels import fused_expr_sums as fes
+    from daft_tpu_torch.kernels import scatter_sums as scs
+    from daft_tpu_torch.kernels import segment_sums as ss
+    from daft_tpu_torch.obs import capture as obs_capture
+    from daft_tpu_torch.obs import log as obs_log
+    from daft_tpu_torch.obs.health import validate_health
+    from daft_tpu_torch.obs.querylog import QUERY_LOG, validate_record
+    from daft_tpu_torch.profile import METRICS, validate_profile
+    from daft_tpu_torch.spill import MEMORY_LEDGER
+
+    t_phase = time.perf_counter()
+    out = {"k1_launches": 0, "k2_launches": 0, "scatter_launches": 0}
+    dtt.set_execution_config(config())
+    recs = []  # the QueryRecord of every execution of the phase
+    log0, metrics0 = QUERY_LOG.total, METRICS.snapshot()
+
+    def materialized(df):
+        """A source frame, collected: an execution of the phase, unless the
+        frame was born materialized (from_arrow)."""
+        df = df.collect()
+        if df.last_query_record() is not None:
+            recs.append(df.last_query_record())
+        return df
+
+    def run(df, profile: bool):
+        """One collect and fetch with the launches counted from 0: (frame,
+        arrow result, seconds, launches)."""
+        ss.LAUNCHES = fes.LAUNCHES = scs.LAUNCHES = 0
+        t = time.perf_counter()
+        df = df.collect(profile=profile)
+        got = df.to_arrow()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        launches = {"k1": ss.LAUNCHES, "k2": fes.LAUNCHES, "scatter": scs.LAUNCHES}
+        for k, n in launches.items():
+            out[f"{k}_launches"] += n
+        recs.append(df.last_query_record())
+        return df, got, secs, launches
+
+    def check_profile(label, df):
+        qp = df.profile()
+        errs = validate_profile(qp.to_dict())
+        ph.check(not errs and qp.orphan_spans == 0 and qp.to_dict()["dropped_spans"] == 0,
+                 f"{label}: the profile validates ({errs[:3]}), {qp.orphan_spans} orphan spans, "
+                 f"{len(qp.spans())} spans")
+        return qp
+
+    step = -(-lineitem.num_rows // OBS_PARTS)
+    frames = {1: materialized(dtt.from_arrow(lineitem)),
+              OBS_PARTS: materialized(dtt.from_arrow([lineitem.slice(i * step, step)
+                                                      for i in range(OBS_PARTS)]))}
+
+    # (a) Q1 composed and deep, over 1 and 4 partitions, profiled and not
+    q1_rows = {}
+    for deep in (False, True):
+        for parts in (1, OBS_PARTS):
+            label = f"SF1 obs q1 {'deep' if deep else 'composed'} {parts}p"
+            dtt.set_execution_config(config(use_deep_fusion_kernel=deep))
+            _, want, cold, want_l = run(q1(frames[parts]), False)
+            q1_rows[(deep, parts)] = want
+            walls = {False: [], True: []}
+            same_rows = same_launches = True
+            for _ in range(OBS_TURNS):
+                for profile in (True, False):
+                    df, got, secs, launches = run(q1(frames[parts]), profile)
+                    walls[profile].append(secs)
+                    same_rows = same_rows and got.equals(want)
+                    same_launches = same_launches and launches == want_l
+                    if profile:
+                        qp = check_profile(label, df)
+                        c = df.stats.snapshot()["counters"]
+                        ok, detail = dispatch_phases_ok(qp, c)
+                        ph.check(ok, f"{label}: device_dispatch phases of every device "
+                                     f"aggregate ({detail})")
+                        ok, gaps = self_time_ok(qp, df.stats)
+                        ph.check(ok, f"{label}: self time reconciles with op_wall_ns "
+                                     f"(gaps ns {gaps})")
+            kernel = "k2" if deep else "k1"
+            ph.check(same_rows and same_launches and want_l[kernel] >= parts,
+                     f"{label}: {2 * OBS_TURNS} warm runs, profiled and not, give the cold "
+                     f"run's rows bit for bit and its launches {want_l}")
+            res = {"cold_s": cold, "launches": want_l,
+                   "profiled_warm_median_s": statistics.median(walls[True]),
+                   "unprofiled_warm_median_s": statistics.median(walls[False]),
+                   "profiled_warm_s": walls[True], "unprofiled_warm_s": walls[False],
+                   "card": card}
+            res["profiled_over_unprofiled"] = (res["profiled_warm_median_s"]
+                                               / res["unprofiled_warm_median_s"])
+            out[f"q1_{'deep' if deep else 'composed'}_{parts}p"] = res
+            print(f"{label} " + json.dumps(res), flush=True)
+
+    # (b) Q3 with hash joins over 4 partitions, profiled, into a chrome trace
+    want3, groups3 = q3_oracle
+    q3f = {k: materialized(dtt.from_arrow(tables[k]).into_partitions(OBS_PARTS))
+           for k in ("customer", "orders", "lineitem")}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    try:
+        trace_path = os.path.join(tmp, "q3_trace.json")
+        dtt.set_execution_config(config(broadcast_join_size_bytes_threshold=0))
+        with tracing.chrome_trace(trace_path):
+            df, got, secs, launches = run(q3(q3f["customer"], q3f["orders"], q3f["lineitem"]),
+                                          True)
+        qp = check_profile("SF1 obs q3", df)
+        names = collections.Counter(s.name for s in qp.spans())
+        ph.check(q3_parity(got.to_pydict(), want3, groups3, RTOL)
+                 and all(names[n] >= 1 for n in ("join.build", "shuffle.fanout",
+                                                 "shuffle.merge")),
+                 f"SF1 obs q3: q3_parity, join.build {names['join.build']}, shuffle.fanout "
+                 f"{names['shuffle.fanout']}, shuffle.merge {names['shuffle.merge']} spans")
+        with open(trace_path) as f:
+            trace = json.load(f)
+        tnames = collections.Counter(e["name"] for e in trace["traceEvents"] if e["ph"] == "X")
+        ph.check(tnames["join.build"] == names["join.build"]
+                 and tnames["shuffle.merge"] == names["shuffle.merge"]
+                 and sum(tnames.values()) == len(qp.spans()),
+                 f"SF1 obs q3: the chrome trace parses back with {sum(tnames.values())} span "
+                 f"events ({len(qp.spans())} spans) and {len(trace['traceEvents'])} events")
+        exch = df.stats.snapshot()["counters"].get("exchange_bytes", 0)
+        out["q3"] = {"wall_s": secs, "launches": launches, "spans": len(qp.spans()),
+                     "trace_events": len(trace["traceEvents"]), "exchange_bytes": exch,
+                     "card": card}
+        print("SF1 obs q3 " + json.dumps(out["q3"]), flush=True)
+
+        # (c) the same Q3 spilling under a quarter of its exchange bytes
+        dtt.set_execution_config(config(broadcast_join_size_bytes_threshold=0,
+                                        memory_budget_bytes=max(1, exch // 4)))
+        MEMORY_LEDGER.reset()
+        df, got, secs, launches = run(q3(q3f["customer"], q3f["orders"], q3f["lineitem"]), True)
+        qp = check_profile("SF1 obs q3 budgeted", df)
+        c = df.stats.snapshot()["counters"]
+        kinds = collections.Counter(e["kind"] for e in qp.events)
+        bg = collections.Counter(s.name for s in qp.spans() if s.kind == "bg")
+        led = MEMORY_LEDGER.snapshot()
+        ph.check(q3_parity(got.to_pydict(), want3, groups3, RTOL)
+                 and c.get("spilled_partitions", 0) > 0 and kinds["spill"] >= 1
+                 and bg["spill.write"] + bg["spill.read"] >= 1
+                 and led["current"] == 0 and led["async_spill_inflight"] == 0,
+                 f"SF1 obs q3 budgeted: q3_parity, {c.get('spilled_partitions', 0)} spilled "
+                 f"partitions, {kinds['spill']} spill events, bg spans {dict(bg)}, the ledger "
+                 f"at {led['current']} (async {led['async_spill_inflight']})")
+        out["q3_budgeted"] = {"wall_s": secs, "budget": exch // 4, "events": dict(kinds),
+                              "bg_spans": dict(bg), "card": card}
+        print("SF1 obs q3 budgeted " + json.dumps(out["q3_budgeted"]), flush=True)
+        del q3f
+
+        # (h) a slow query's bundle, and the profiler armed for its next run
+        diag = os.path.join(tmp, "diagnostics")
+        dtt.set_execution_config(config(slow_query_threshold_s=0.0, diagnostics_dir=diag))
+        df, _, _, _ = run(q6(frames[1]), False)
+        bundles = obs_capture.list_bundles(diag)
+        rec = df.last_query_record()
+        files = set(os.listdir(os.path.join(diag, bundles[0]))) if bundles else set()
+        loaded = (json.load(open(os.path.join(diag, bundles[0], "record.json")))
+                  if bundles else {})
+        armed = obs_capture.take_arm(rec["plan_fingerprint"])
+        ph.check(len(bundles) == 1 and {"record.json", "stats.txt", "log_tail.jsonl"} <= files
+                 and validate_record(loaded) == [] and armed,
+                 f"SF1 obs slow query: bundles {bundles} with {sorted(files)}, the next run "
+                 f"armed: {armed}")
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (f) health while a query runs and after
+    dtt.set_execution_config(config())
+    it = q1(frames[OBS_PARTS]).iter_partitions()
+    next(it)
+    during = dtt.health()
+    for _ in it:
+        pass
+    after = dtt.health()
+    recs.append(QUERY_LOG.last())
+    ph.check(validate_health(during) == [] and validate_health(after) == []
+             and len(during["queries"]) == 1 and after["queries"] == [],
+             f"SF1 obs health: validates during ({len(during['queries'])} query running) and "
+             f"after ({len(after['queries'])}); breakers {after['breakers']}")
+
+    # (d) device.kernel armed three times; the health checks stand down
+    ph.begin(None)
+    dtt.set_execution_config(config(device_breaker_threshold=3))
+    faults.arm("device.kernel", "first_n", n=3)
+    try:
+        df, got, _, launches = run(q1(frames[OBS_PARTS]), True)
+    finally:
+        faults.disarm()
+    qp = check_profile("SF1 obs q1 device.kernel", df)
+    kinds = collections.Counter(e["kind"] for e in qp.events)
+    trips = [e["attrs"] for e in qp.events if e["kind"] == "breaker"]
+    qid = df.last_query_record()["query_id"]
+    lines = [r["event"] for r in obs_log.tail(500, query_id=qid) if r["logger"] == "breaker"]
+    ph.check(parity(got.to_pydict(), q1_rows[(False, OBS_PARTS)].to_pydict(), RTOL)
+             and kinds["fault_injected"] == 3 and launches["k1"] == 0
+             and [(t["transition"], t["state"]) for t in trips] == [("trip", "open")]
+             and lines == ["breaker_trip"],
+             f"SF1 obs q1 device.kernel first_n 3: rows at rtol {RTOL}, events {dict(kinds)}, "
+             f"breaker events {trips}, breaker log lines {lines}, launches {launches}")
+
+    # (e) the query log: one valid record per execution, ok or error
+    @dtt.udf(return_dtype=dtt.DataType.float64())
+    def fails(c):
+        raise ValueError("phase 16's failing UDF")
+
+    bad = frames[1].limit(10).select(fails(dtt.col("l_quantity")))
+    try:
+        bad.collect()
+        raised = False
+    except ValueError:
+        raised = True
+    recs.append(bad.last_query_record())
+    logged = QUERY_LOG.records()[-len(recs):]
+    outcomes = collections.Counter(r["outcome"] for r in logged)
+    ph.check(raised and QUERY_LOG.total - log0 == len(recs)
+             and [r["query_id"] for r in logged] == [r["query_id"] for r in recs]
+             and all(validate_record(r) == [] for r in logged)
+             and outcomes == {"ok": len(recs) - 1, "error": 1},
+             f"SF1 obs query log: {QUERY_LOG.total - log0} records for {len(recs)} executions, "
+             f"outcomes {dict(outcomes)}")
+
+    # (g) the phase's metrics
+    text = dtt.metrics_text()
+    snap = METRICS.snapshot()
+
+    def moved(name):
+        return snap.get(name, 0) - metrics0.get(name, 0)
+
+    spilled = sum(r["counters"].get("spilled_partitions", 0) for r in recs)
+    missing = [m for m in OBS_METRICS if m not in text]
+    ph.check(not missing and moved("daft_tpu_queries_total") == len(recs)
+             and moved("daft_tpu_spilled_partitions_total") == spilled > 0,
+             f"SF1 obs metrics_text: missing {missing}, queries_total moved "
+             f"{moved('daft_tpu_queries_total')} ({len(recs)} executions), spilled partitions "
+             f"moved {moved('daft_tpu_spilled_partitions_total')} ({spilled})")
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"SF1 obs phase 16 wall {out['wall_s']:.1f}s ({card})", flush=True)
+    del frames
+    torch.cuda.empty_cache()
+    return out
+
+
 def _walk(p):
     yield p
     for c in p.children():
@@ -5548,7 +5893,7 @@ def main(argv=None) -> int:
                 sc_entry[f"sf{scale:g}_shape"] = joins["scatter_main"]
         if scales:
             faults_out = relational = spill = adapt = scans = prefetch_write = columnar = None
-            sql_udf = None
+            sql_udf = observability = None
             if 1.0 in scales:
                 # phases 8-11 read phase 3's and phase 7's SF1 tables alone, so
                 # they run while the 22-query tables are still being generated
@@ -5570,6 +5915,12 @@ def main(argv=None) -> int:
                 print(f"elapsed {time.perf_counter() - started:.1f}s: phase 15", flush=True)
                 ph.begin("phase 15")
                 sql_udf = phase_sql_udf(ph, sf1_lineitem, queries.SQL, card)
+                # phase 16 reads phase 3's SF1 lineitem and phase 7's SF1
+                # tables, so it also runs before the wait for the generator
+                print(f"elapsed {time.perf_counter() - started:.1f}s: phase 16", flush=True)
+                ph.begin("phase 16")
+                observability = phase_observability(ph, sf1_lineitem, join_tables,
+                                                    q3_oracle_sf1, card)
             t0 = time.perf_counter()
             data = big.get()
             print(f"SF1: 22-query tables ready {time.perf_counter() - big.started:.1f}s after "
@@ -5616,7 +5967,8 @@ def main(argv=None) -> int:
                 (f"exchange_sf{sc:g}", ex) for sc, ex in exchange.items()] + (
                 [("faults", faults_out), ("relational", relational), ("spill", spill),
                  ("adapt", adapt), ("scan", scans), ("prefetch_write", prefetch_write),
-                 ("columnar", columnar), ("sql_udf", sql_udf)]
+                 ("columnar", columnar), ("sql_udf", sql_udf),
+                 ("observability", observability)]
                 if faults_out is not None else [])
             for name, ph_out in phase_outs:
                 k1_entry[f"launches_{name}"] = ph_out["k1_launches"]

@@ -18,12 +18,18 @@ partitions as files and return the manifest of the written paths.
 make python UDFs, and a batch-declared model class with ``apply_torch``
 runs its batches on the card.
 
+``collect(profile=True)``, ``explain_analyze()``, ``tracing.chrome_trace``
+(or DAFT_TPU_TORCH_CHROME_TRACE), ``query_log()``, ``health()``,
+``metrics_text()`` and ``engine_log_tail()`` say where a query spent its
+time and how the engine is doing (profile/, obs/, tracing.py).
+
 Entry points run on the card (``ExecutionConfig.device == "cuda"``) unless
 the caller asks for the CPU with ``set_execution_config(device="cpu")``.
 """
 
-from .api import (UDF, batch_udf, from_arrow, from_glob_path, from_pandas, from_pydict,
-                  from_pylist, read_csv, read_json, read_parquet, sql_expr, udf)
+from .api import (UDF, batch_udf, engine_log_tail, from_arrow, from_glob_path, from_pandas,
+                  from_pydict, from_pylist, health, last_profile, metrics_text, query_log,
+                  query_progress, read_csv, read_json, read_parquet, sql_expr, udf)
 from .context import ExecutionConfig, execution_config_from_dict, get_context, set_execution_config
 from .dataframe import DataFrame
 from .datatypes import DataType
@@ -34,10 +40,11 @@ from .table import Table
 
 __all__ = [
     "DataFrame", "DataType", "ExecutionConfig", "Expression", "Field", "Schema",
-    "Series", "Table", "UDF", "batch_udf", "col", "execution_config_from_dict", "from_arrow",
-    "from_glob_path", "from_pandas", "from_pydict", "from_pylist", "get_context",
-    "interval", "lit", "read_csv",
-    "read_json", "read_parquet", "set_execution_config", "sql", "sql_expr", "udf",
+    "Series", "Table", "UDF", "batch_udf", "col", "engine_log_tail",
+    "execution_config_from_dict", "from_arrow", "from_glob_path", "from_pandas", "from_pydict",
+    "from_pylist", "get_context", "health", "interval", "last_profile", "lit", "metrics_text",
+    "query_log", "query_progress", "read_csv", "read_json", "read_parquet",
+    "set_execution_config", "sql", "sql_expr", "udf",
 ]
 
 # The sql SUBMODULE shares its name with the sql() entry point: the first

@@ -12,9 +12,12 @@ their time in torch, numpy or IO, which release the GIL.
 Pools are keyed by (class, init args, concurrency) and persist across
 queries. ``shutdown_all()`` tears them down, with the pinned model actors
 of batch/actors.py. A worker that outlives its pool's shutdown window is
-counted (``leaked_thread_count``). Left out: the reference's log lines
-(the leak warning, the query id carried into the actor), which come with
-the observability layer (ROADMAP, Queue 1, item 6).
+counted (``leaked_thread_count``) and logged (``actor_pool_leak``).
+
+Each batch carries the dispatching thread's query id and, inside a
+BatchedUdfOp (batch/device.py ``exec_ctx_scope``), its profiler's captured
+span: the worker binds both while it runs the batch, so its log lines and
+any span it opens stay attributed to the query and the op.
 """
 
 from __future__ import annotations
@@ -23,6 +26,10 @@ import atexit
 import queue
 import threading
 from typing import Any, Dict, List, Optional, Tuple
+
+from .obs.log import current_query_id, get_logger, query_context
+
+logger = get_logger("actor_pool")
 
 _pools: Dict[Tuple, "ActorPool"] = {}
 _pools_lock = threading.Lock()
@@ -78,9 +85,10 @@ class ActorPool:
             item = self._tasks.get()
             if item is None:
                 return
-            idx, fn_args, results, errors, done = item
+            idx, fn_args, results, errors, done, qid, prof, token = item
             try:
-                results[idx] = instance(*fn_args)
+                with query_context(qid), prof.activate(token):
+                    results[idx] = instance(*fn_args)
             except BaseException as e:  # noqa: BLE001
                 errors[idx] = e
             finally:
@@ -92,8 +100,14 @@ class ActorPool:
         results: List[Any] = [None] * k
         errors: List[Optional[BaseException]] = [None] * k
         done = threading.Semaphore(0)
+        from .batch.device import current_exec_ctx
+        from .profile.spans import DISARMED
+
+        ctx = current_exec_ctx()
+        prof = ctx.stats.profiler if ctx is not None else DISARMED
+        qid, token = current_query_id(), prof.capture()
         for i, b in enumerate(batches):
-            self._tasks.put((i, b, results, errors, done))
+            self._tasks.put((i, b, results, errors, done, qid, prof, token))
         for _ in range(k):
             done.acquire()
         for e in errors:
@@ -115,6 +129,8 @@ class ActorPool:
             # not block on it, but the count keeps the leak visible
             with _leak_lock:
                 _leaked_threads += leaked
+            logger.warning("actor_pool_leak", actor=self._cls.__name__,
+                           leaked=leaked, join_timeout_s=join_timeout_s)
 
 
 def get_pool(cls: type, init_args: Optional[tuple], concurrency: int) -> ActorPool:

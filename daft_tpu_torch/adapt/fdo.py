@@ -29,10 +29,12 @@ Decisions run only inside a ``collecting`` scope, which the cold path of
 ``plancache.plan_query`` opens: adaptive stages and a bare ``translate``
 plan statically.
 
-A failure in a decision plans statically, as the reference's catch does;
-a failure of the port itself (``errors.PORT_FAILURES``) reaches the caller.
-The reference logs each such failure; the port's log lines come with
-``obs/``.
+A failure in a decision plans statically, as the reference's catch does,
+and logs its line (``fdo_join_hint_failed``, ``fdo_fanout_hint_failed``,
+``fdo_demote_failed``); a failure of the port itself
+(``errors.PORT_FAILURES``) reaches the caller. Each decision is counted,
+logged (``fdo_join_flips``, ``fdo_shuffle_resizes``, ``fdo_mispredict``)
+and, in a profiled query, recorded as an ``fdo`` event.
 """
 
 from __future__ import annotations
@@ -42,6 +44,9 @@ import threading
 from typing import List, Optional
 
 from ..errors import PORT_FAILURES
+from ..obs.log import get_logger
+
+logger = get_logger("fdo")
 
 __all__ = ["collecting", "active", "join_strategy_hint", "broadcast_guard",
            "agg_shuffle_fanout", "agg_observation_key", "observation_key", "still_valid",
@@ -108,9 +113,13 @@ def observation_key(subplan) -> Optional[str]:
         return None
 
 
-def _bump(coll, counter: str) -> None:
+def _bump(coll, counter: str, **log_fields) -> None:
     if coll.stats is not None:
         coll.stats.bump(counter)
+        p = coll.stats.profiler
+        if p.armed:
+            p.event("fdo", kind=counter, **log_fields)
+    logger.info(counter, **log_fields)
 
 
 # ------------------------------------------------------------------- decisions
@@ -173,12 +182,14 @@ def join_strategy_hint(plan) -> Optional[str]:
             coll.expects.append({"kind": "join", "site": site, "threshold": threshold,
                                  "decided": "broadcast" if flip else "none"})
             if flip:
-                _bump(coll, "fdo_join_flips")
+                _bump(coll, "fdo_join_flips", site=site, side=side_name,
+                      observed_bytes=hist[1], threshold=threshold)
                 return side_name
         return None
     except PORT_FAILURES:
         raise
-    except Exception:
+    except Exception as e:
+        logger.warning("fdo_join_hint_failed", error=repr(e))
         return None
 
 
@@ -209,6 +220,10 @@ def note_broadcast_mispredict(guard, actual_bytes: int, ctx, canonical_fp: str) 
     observed."""
     site_fp, _max = guard
     ctx.stats.bump("fdo_mispredicts")
+    p = ctx.stats.profiler
+    if p.armed:
+        p.event("fdo", kind="fdo_mispredict", site=site_fp, actual_bytes=actual_bytes)
+    logger.warning("fdo_mispredict", site=site_fp, actual_bytes=actual_bytes)
     try:
         from .history import HISTORY
         from .plancache import PLAN_CACHE
@@ -218,8 +233,8 @@ def note_broadcast_mispredict(guard, actual_bytes: int, ctx, canonical_fp: str) 
             PLAN_CACHE.demote(canonical_fp)
     except PORT_FAILURES:
         raise
-    except Exception:
-        pass
+    except Exception as e:
+        logger.warning("fdo_demote_failed", error=repr(e))
 
 
 def agg_shuffle_fanout(plan, nparts: int) -> Optional[int]:
@@ -245,11 +260,13 @@ def agg_shuffle_fanout(plan, nparts: int) -> Optional[int]:
                              "nparts": nparts, "decided": decided or 0})
         if decided is None:
             return None
-        _bump(coll, "fdo_shuffle_resizes")
+        _bump(coll, "fdo_shuffle_resizes", site=site, from_parts=nparts, to_parts=decided,
+              observed_bytes=hist[1])
         return decided
     except PORT_FAILURES:
         raise
-    except Exception:
+    except Exception as e:
+        logger.warning("fdo_fanout_hint_failed", error=repr(e))
         return None
 
 

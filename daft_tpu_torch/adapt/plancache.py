@@ -31,8 +31,13 @@ Guarantees:
   fault site among them) plans uncached and counts ``plan_cache_errors``;
   a failure of the port itself (``errors.PORT_FAILURES``) reaches the
   caller. Concurrent misses of one binding build once (single flight);
-  a waiter that times out plans uncached. The reference logs each
-  fail-open; the port's log lines come with ``obs/``.
+  a waiter that times out plans uncached. Each fail-open logs its line
+  (``canonical_fingerprint_failed``, ``plan_cache_lookup_failed``,
+  ``plan_cache_rehydrate_failed``, ``plan_cache_store_failed``).
+
+A profiled query records a ``plancache`` event (``hit`` or ``miss``); a
+demotion logs ``plan_cache_demoted`` and a revalidation that drops bindings
+``plan_cache_revalidated``.
 """
 
 from __future__ import annotations
@@ -43,6 +48,9 @@ from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
 
 from ..errors import PORT_FAILURES
+from ..obs.log import get_logger
+
+logger = get_logger("plancache")
 
 __all__ = ["PlanCache", "PLAN_CACHE", "CACHE_VERSION", "plan_query", "clone_plan"]
 
@@ -261,6 +269,7 @@ class PlanCache:
                 self.demotions += 1
         if freed:
             self._charge(-freed)
+            logger.info("plan_cache_demoted", fingerprint=canonical_fp, freed_bytes=freed)
 
     def revalidate(self, site_fps) -> None:
         """Drop the bindings whose recorded decisions consulted one of the
@@ -306,6 +315,7 @@ class PlanCache:
                     self._entries.pop(key, None)
         if freed:
             self._charge(-freed)
+            logger.info("plan_cache_revalidated", dropped=len(stale))
 
     def bump_generation(self) -> None:
         """Invalidate everything (the runtime counterpart of a
@@ -365,10 +375,18 @@ class PlanCache:
 PLAN_CACHE = PlanCache()
 
 
-def _error(stats) -> None:
+def _error(stats, event: str, e: BaseException) -> None:
+    """A fail-open of the cache layer: counted and logged."""
     PLAN_CACHE.errors += 1
     if stats is not None:
         stats.bump("plan_cache_errors")
+    logger.warning(event, error=repr(e))
+
+
+def _event(stats, kind: str, **fields) -> None:
+    p = stats.profiler
+    if p.armed:
+        p.event("plancache", kind=kind, **fields)
 
 
 def _has_write(plan) -> bool:
@@ -396,8 +414,9 @@ def plan_query(plan, cfg, stats=None, optimized: bool = False, runner: str = "na
         canonical = canonical_fingerprint(plan)
     except PORT_FAILURES:
         raise
-    except Exception:
-        pass  # a plan without a fingerprint only loses the cache and feedback
+    except Exception as e:
+        # a plan without a fingerprint only loses the cache and feedback
+        logger.warning("canonical_fingerprint_failed", error=repr(e))
 
     def _finish(opt, phys):
         if canonical:
@@ -438,8 +457,8 @@ def plan_query(plan, cfg, stats=None, optimized: bool = False, runner: str = "na
                        f"|r{runner}")
         except PORT_FAILURES:
             raise
-        except Exception:
-            _error(stats)
+        except Exception as e:
+            _error(stats, "plan_cache_lookup_failed", e)
             binding = None
     if not use_cache or binding is None:
         opt, phys, _ = _cold(record_fdo=not optimized)
@@ -458,12 +477,14 @@ def plan_query(plan, cfg, stats=None, optimized: bool = False, runner: str = "na
         if cp is not None:
             if stats is not None:
                 stats.bump("plan_cache_hits")
+                _event(stats, "hit", fingerprint=canonical)
             try:
                 phys = clone_plan(cp.physical)
             except PORT_FAILURES:
                 raise
-            except Exception:
-                _error(stats)  # a defect of the clone: plan afresh
+            except Exception as e:
+                # a defect of the clone: plan afresh
+                _error(stats, "plan_cache_rehydrate_failed", e)
                 break
             return _finish(cp.optimized, phys)
         if waited:
@@ -479,14 +500,15 @@ def plan_query(plan, cfg, stats=None, optimized: bool = False, runner: str = "na
             opt, phys, coll = _cold(record_fdo=True)
             if stats is not None:
                 stats.bump("plan_cache_misses")
+                _event(stats, "miss", fingerprint=canonical)
             try:
                 cp = CompiledPlan(opt, phys, _estimate_plan_bytes(opt, phys),
                                   fdo_expect=coll.expects)
                 PLAN_CACHE.store(canonical, cfg_key, binding, cp, cfg.plan_cache_bytes)
             except PORT_FAILURES:
                 raise
-            except Exception:
-                _error(stats)
+            except Exception as e:
+                _error(stats, "plan_cache_store_failed", e)
             return _finish(opt, phys)
         finally:
             PLAN_CACHE.end_build(full_key)

@@ -28,8 +28,10 @@ memory ledger's ``subplan_cache_bytes`` account. The cache stands aside
 under a memory budget, while any fault plan is armed (a replay would hide
 an armed ``scan.read``), and fails open: a failure of the key or the store
 (the ``resultcache.lookup`` fault site among them) counts
-``subplan_cache_errors`` and runs the prefix plainly. Left out: the
-persistent tier (persist/resultstore) and the log lines.
+``subplan_cache_errors``, logs ``subplan_cache_key_failed`` or
+``subplan_cache_store_failed`` and runs the prefix plainly. A profiled
+query records a ``resultcache`` event for a hit and for an insert. Left
+out: the persistent tier (persist/resultstore).
 """
 
 from __future__ import annotations
@@ -39,6 +41,9 @@ from collections import OrderedDict
 from typing import Iterator, List, Optional, Tuple
 
 from ..errors import PORT_FAILURES
+from ..obs.log import get_logger
+
+logger = get_logger("resultcache")
 
 __all__ = ["SubplanResultCache", "RESULT_CACHE", "try_result_cache"]
 
@@ -206,13 +211,17 @@ def try_result_cache(op, ctx, build) -> Optional[Iterator]:
         return None
     except PORT_FAILURES:
         raise
-    except Exception:
+    except Exception as e:
         RESULT_CACHE.errors += 1
         ctx.stats.bump("subplan_cache_errors")
+        logger.warning("subplan_cache_key_failed", error=repr(e))
         return None
     tables = RESULT_CACHE.get(key)
     if tables is not None:
         ctx.stats.bump("subplan_cache_hits")
+        p = ctx.stats.profiler
+        if p.armed:
+            p.event("resultcache", kind="hit", parts=len(tables))
         return _replay(tables)
     ctx.stats.bump("subplan_cache_misses")
     # the real stream: the whole chain (op itself included, since build()
@@ -262,8 +271,12 @@ def _teeing(inner, key: str, cap_bytes: int, ctx) -> Iterator:
         tables = [p.table() for p in acc]
         nbytes = sum(p.size_bytes() or 0 for p in acc)
         RESULT_CACHE.put(key, tables, nbytes, cap_bytes)
+        p = ctx.stats.profiler
+        if p.armed:
+            p.event("resultcache", kind="insert", parts=len(tables), nbytes=nbytes)
     except PORT_FAILURES:
         raise
-    except Exception:
+    except Exception as e:
         RESULT_CACHE.errors += 1
         ctx.stats.bump("subplan_cache_errors")
+        logger.warning("subplan_cache_store_failed", error=repr(e))

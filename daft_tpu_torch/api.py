@@ -5,9 +5,17 @@ daft_tpu/api.py this slice runs): ``from_pydict``, ``from_pylist``,
 local paths, the SQL front end (``sql``, ``sql_expr``) and the python UDF
 decorators (``udf``, ``batch_udf``, and the ``UDF`` class they make). A
 reader builds a ScanSource of scan tasks (io/scan.py) and reads nothing but
-the first file's schema (and parquet footers) until a query runs. Left out
-of this slice: the remote and lake readers, catalogs, the serving runtime
-and the health/metrics endpoints.
+the first file's schema (and parquet footers) until a query runs.
+
+The observability surface: ``last_profile`` (the latest profiled query's
+QueryProfile), ``metrics_text`` (the Prometheus text of the process
+metrics, the health gauges refreshed first), ``query_log`` (the QueryRecords
+of completed executions), ``health`` (the engine-health snapshot),
+``query_progress`` (running queries) and ``engine_log_tail`` (the structured
+log's newest records).
+
+Left out of this slice: the remote and lake readers, catalogs and the
+serving runtime with its ``shutdown``.
 """
 
 from __future__ import annotations
@@ -174,3 +182,60 @@ def sql_expr(text: str):
     from .sql import sql_expr as _sql_expr
 
     return _sql_expr(text)
+
+
+def last_profile():
+    """The QueryProfile of the latest profiled query
+    (``df.collect(profile=True)``, ``enable_profiling``), or None."""
+    return get_context().last_profile()
+
+
+def metrics_text() -> str:
+    """The Prometheus text of the process metrics registry
+    (profile/metrics.py). The health and ledger gauges are refreshed first,
+    so the text carries the current memory pressure and breaker state."""
+    from .obs.health import refresh_health_gauges
+    from .profile import METRICS
+
+    refresh_health_gauges()
+    return METRICS.render_prometheus()
+
+
+def query_log(limit: Optional[int] = None) -> List[dict]:
+    """The query log's QueryRecords, oldest first (the newest ``limit`` when
+    given): one per completed plan execution, whatever its outcome
+    (``ExecutionConfig.enable_query_log``)."""
+    from .obs.querylog import QUERY_LOG
+
+    return QUERY_LOG.records(limit)
+
+
+def health() -> dict:
+    """One engine-health snapshot: breaker states, the memory ledger, actor
+    pools and leaked threads, the plan cache, batching and residency counts,
+    running queries (``"queries"``) and the query log's depth. Mirrored as
+    gauges in ``metrics_text()``."""
+    from .obs.health import engine_health
+
+    return engine_health()
+
+
+def query_progress(query_id: Optional[str] = None):
+    """Live progress of running queries (obs/cluster.py): operators done of
+    the total, rows and bytes that flowed, rows emitted. With ``query_id``,
+    that query's snapshot (None when it is not running); without, the list
+    of all running queries, as ``health()["queries"]`` holds it."""
+    from .obs.cluster import queries_snapshot
+    from .obs.cluster import query_progress as _one
+
+    if query_id is not None:
+        return _one(query_id)
+    return queries_snapshot()
+
+
+def engine_log_tail(n: int = 200, query_id: Optional[str] = None) -> List[dict]:
+    """The newest structured engine-log records (obs/log.py), optionally of
+    one query id."""
+    from .obs.log import tail
+
+    return tail(n, query_id=query_id)

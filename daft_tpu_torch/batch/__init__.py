@@ -12,9 +12,10 @@ Modules:
   executor.py  BatchingExecutor: coalesce, pad, apply, re-split
   device.py    K13: the model's apply_torch on the card, behind the breaker
 
-Left out: the stream adapter (the port has no streaming executor yet,
-ROADMAP Queue 1 item 7), the ``batch.coalesce`` and ``actor.apply`` spans
-and the degrade log line (item 6).
+A flush records the ``batch.coalesce`` and ``actor.apply`` phase spans, a
+degraded coalesce logs ``batch_coalesce_degraded``, and the process-wide
+flush counts feed ``health()["batching"]``. Left out: the stream adapter
+(the port has no streaming executor yet, ROADMAP Queue 1 item 7).
 """
 
 from .actors import (ModelActorPool, get_model_pool, model_pools_snapshot, pinned_model_count,

@@ -15,7 +15,8 @@ needs:
     (injected or real) surfaces as a DaftResourceError naming the model,
     with no half-initialized pool left registered.
 
-Left out: the eviction log line (ROADMAP Queue 1, item 6).
+An eviction logs ``model_pool_evicted``; ``pinned_model_count`` and
+``resident_weight_bytes`` feed ``health()["batching"]``.
 """
 
 from __future__ import annotations
@@ -27,6 +28,9 @@ from typing import Any, List, Optional
 
 from ..actor_pool import ActorPool
 from ..errors import DaftResourceError
+from ..obs.log import get_logger
+
+logger = get_logger("batch.actors")
 
 _lock = threading.Lock()
 # fingerprint -> ModelActorPool, oldest use first (move_to_end on use)
@@ -105,6 +109,8 @@ def get_model_pool(cls: type, init_args: Optional[tuple], device: int = 0) -> Mo
             _, lru = _model_pools.popitem(last=False)
             evicted.append(lru)
     for lru in evicted:
+        logger.info("model_pool_evicted", fingerprint=lru.fingerprint,
+                    weight_bytes=lru.weight_bytes)
         lru.shutdown()
         _charge(-lru.weight_bytes)
     return pool
@@ -113,6 +119,11 @@ def get_model_pool(cls: type, init_args: Optional[tuple], device: int = 0) -> Mo
 def pinned_model_count() -> int:
     with _lock:
         return len(_model_pools)
+
+
+def resident_weight_bytes() -> int:
+    with _lock:
+        return sum(p.weight_bytes for p in _model_pools.values())
 
 
 def model_pools_snapshot() -> List[dict]:

@@ -9,13 +9,18 @@ which is what keeps batching invisible in the results.
 A fault at ``batch.coalesce`` degrades THIS executor for good to the
 per-piece UDF path (each source piece evaluated alone: still correct, just
 unbatched), after settling the buffered ledger charge; it never fails the
-query. A model-load failure surfaces from the apply as the typed error of
-batch/actors.py. Left out: the process-wide flush counts that the
-reference's health endpoint reads (ROADMAP Queue 1, item 6).
+query; it logs ``batch_coalesce_degraded``. A model-load failure surfaces
+from the apply as the typed error of batch/actors.py.
+
+A flush records a ``batch.coalesce`` phase span (the concat and padding)
+and an ``actor.apply`` phase span (the apply, K13 on the card among it)
+under the op, and bumps the process-wide flush counts that
+``health()["batching"]`` reads (``process_counters``).
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import List, Optional
 
@@ -25,6 +30,23 @@ from ..micropartition import MicroPartition
 from ..series import Series
 from .coalesce import Coalescer, Flush
 from .device import exec_ctx_scope
+
+# the process-wide flush counts of health()["batching"] (the per-query
+# counts live on RuntimeStats)
+_proc_lock = threading.Lock()
+_proc_counts = {"batches_formed": 0, "flushes_budget": 0, "flushes_timer": 0,
+                "flushes_end": 0, "coalesce_faults": 0}
+
+
+def _proc_bump(key: str, n: int = 1) -> None:
+    with _proc_lock:
+        _proc_counts[key] += n
+
+
+def process_counters() -> dict:
+    with _proc_lock:
+        return dict(_proc_counts)
+
 
 def _next_bucket(n: int, floor: int = 8) -> int:
     """The next power-of-two batch bucket >= n (at least ``floor``): few
@@ -91,20 +113,28 @@ class BatchingExecutor:
         from .. import faults
 
         stats = self.ctx.stats
+        prof = stats.profiler
         try:
-            faults.check("batch.coalesce", stats)
-            batch = f.parts[0] if len(f.parts) == 1 else MicroPartition.concat(f.parts)
-            pad_n = 0
-            capacity = max(self.settings.max_rows, f.rows)
-            if self.settings.mode == "padded" and f.rows:
-                batch, pad_n = self._pad(batch, f.rows)
-                capacity = f.rows + pad_n
-        except Exception:
+            with prof.span("batch.coalesce", op=self.op_name, kind="phase",
+                           rows=f.rows, pieces=len(f.parts)):
+                faults.check("batch.coalesce", stats)
+                batch = f.parts[0] if len(f.parts) == 1 else MicroPartition.concat(f.parts)
+                pad_n = 0
+                capacity = max(self.settings.max_rows, f.rows)
+                if self.settings.mode == "padded" and f.rows:
+                    batch, pad_n = self._pad(batch, f.rows)
+                    capacity = f.rows + pad_n
+        except Exception as e:
             # the coalesce failed (injected or real): this executor degrades
             # to the per-piece UDF path, the same rows, never a query failure
             stats.bump("batch_coalesce_faults")
+            _proc_bump("coalesce_faults")
             self._degraded = True
             self._coalescer.settle(f)
+            from ..obs.log import get_logger
+
+            get_logger("batch").warning("batch_coalesce_degraded", op=self.op_name,
+                                        error=repr(e))
             return [self._apply_one(p) for p in f.parts]
 
         stats.bump("batches_formed")
@@ -113,10 +143,13 @@ class BatchingExecutor:
         if pad_n:
             stats.bump("batch_rows_padded", pad_n)
         stats.bump(f"batch_flushes_{f.reason}")
+        _proc_bump("batches_formed")
+        _proc_bump(f"flushes_{f.reason}")
 
         try:
-            with exec_ctx_scope(self.ctx):
-                out = batch.eval_expression_list(self.exprs)
+            with prof.span("actor.apply", op=self.op_name, kind="phase", rows=f.rows):
+                with exec_ctx_scope(self.ctx):
+                    out = batch.eval_expression_list(self.exprs)
             if pad_n:
                 out = out.slice(0, f.rows)
             # re-split to the EXACT source boundaries (prefix sums in feed order)

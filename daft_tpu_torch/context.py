@@ -23,6 +23,14 @@ The batching knobs (``dynamic_batching``, ``batch_max_rows``,
 batches of batch-declared UDFs (batch/), and ``model_cache_bytes`` caps the
 pinned model actors' resident weights.
 
+The observability knobs (``enable_profiling``, ``enable_query_log``,
+``query_log_depth``, ``slow_query_threshold_s``, ``diagnostics_dir``,
+``diagnostics_keep_last``) arm the profiler for every query, keep the
+query log and write diagnostics bundles (profile/, obs/);
+``DaftContext.last_profile()`` is the latest profiled query's
+QueryProfile. DAFT_TPU_TORCH_PROGRESS=1 turns on the terminal progress
+bars (tracing.py).
+
 Left out: the rest of the planning config (morsels, streaming, executor
 threads and the artifact directory), the serving knobs and runner
 selection (the port has one runner, NativeRunner).
@@ -31,6 +39,7 @@ selection (the port has one runner, NativeRunner).
 from __future__ import annotations
 
 import dataclasses
+import os
 import threading
 from typing import Optional
 
@@ -175,6 +184,25 @@ class ExecutionConfig:
     # (batch/actors.ModelActorPool), charged to the ledger's
     # model_cache_bytes account; the least recently used evict past it
     model_cache_bytes: int = 512 * 1024 * 1024
+    # the structured query profiler (profile/) for every query, without
+    # collect(profile=True) each time. Off: the disarmed hot path is one
+    # flag check that allocates nothing (guard-tested)
+    enable_profiling: bool = False
+    # the always-on query log (obs/querylog.py): every completed plan
+    # execution appends a QueryRecord to the bounded process ring
+    # (query_log(), df.last_query_record()). False turns off only the ring
+    # and last_query_record; the diagnostics capture below keeps working
+    enable_query_log: bool = True
+    query_log_depth: int = 256
+    # the slow and failed query capture (obs/capture.py): a query at least
+    # this slow (seconds) arms the profiler for the NEXT run of the same
+    # plan and, with diagnostics_dir set, writes a bundle. None: no slow
+    # path; a failed or timed-out query always bundles with diagnostics_dir
+    slow_query_threshold_s: Optional[float] = None
+    # where the bundles go (None: none); only the newest
+    # diagnostics_keep_last stay
+    diagnostics_dir: Optional[str] = None
+    diagnostics_keep_last: int = 20
 
 
 # daft_tpu ExecutionConfig field (or "jax_enable_x64") -> port field
@@ -219,6 +247,12 @@ _FROM_REFERENCE = {
     "batch_flush_ms": "batch_flush_ms",
     "batch_padding": "batch_padding",
     "model_cache_bytes": "model_cache_bytes",
+    "enable_profiling": "enable_profiling",
+    "enable_query_log": "enable_query_log",
+    "query_log_depth": "query_log_depth",
+    "slow_query_threshold_s": "slow_query_threshold_s",
+    "diagnostics_dir": "diagnostics_dir",
+    "diagnostics_keep_last": "diagnostics_keep_last",
     "jax_enable_x64": "device_x64",
 }
 
@@ -250,6 +284,12 @@ class DaftContext:
     def __init__(self):
         self.execution_config = ExecutionConfig()
         self._runner = None
+        # the QueryProfile of the latest profiled collect()
+        self._last_profile = None
+        if os.environ.get("DAFT_TPU_TORCH_PROGRESS") == "1":
+            from . import tracing
+
+            tracing.progress_bars(True)
 
     @classmethod
     def get(cls) -> "DaftContext":
@@ -264,6 +304,11 @@ class DaftContext:
 
             self._runner = NativeRunner()
         return self._runner
+
+    def last_profile(self):
+        """The QueryProfile of the latest profiled query in this process
+        (``df.collect(profile=True)``, ``enable_profiling``), or None."""
+        return self._last_profile
 
 
 def get_context() -> DaftContext:

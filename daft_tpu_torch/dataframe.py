@@ -15,9 +15,13 @@ agg_list, agg_concat), collect, explain and the per-query
 written files), num_partitions, iter_partitions, iter_rows, to_arrow_iter,
 to_pydict, to_pylist, to_arrow, to_pandas, to_table, show and a ``repr``
 that previews a collected frame (``num_preview_rows``) and never runs the
-plan. Left out of this slice: the lake writers and the Ray and Dask
-conversions (ROADMAP, Queue 1, item 9), the torch datasets and the HTML
-preview (item 10), profiling and the integrations.
+plan. ``collect(profile=...)`` records a QueryProfile (``profile()``, and
+to a JSON file given a path), ``explain_analyze`` renders the runtime
+stats and the profile's timeline, and ``last_query_record`` is the query
+log's record of the latest execution. Left out of this slice: the lake
+writers and the Ray and Dask conversions (ROADMAP, Queue 1, item 9), the
+torch datasets and the HTML preview with its viz hooks (item 10),
+``cancel`` (item 7) and the integrations.
 GroupedDataFrame.map_groups runs a python UDF once per group, and a
 python UDF (udf.py) may appear in any expression; SQL texts plan through
 sql.py onto this API, and ``where`` takes a SQL predicate too.
@@ -66,6 +70,7 @@ class DataFrame:
         self._plan = plan
         self._result = result
         self.stats = RuntimeStats()
+        self._profile = None  # the QueryProfile of a profiled collect()
 
     @property
     def schema(self) -> Schema:
@@ -90,6 +95,22 @@ class DataFrame:
             out += ["", "== Physical Plan ==",
                     translate(opt, get_context().execution_config).display_tree()]
         text = "\n".join(out)
+        print(text)
+        return text
+
+    def explain_analyze(self) -> str:
+        """Execute (if not collected yet, with the profiler armed) and render
+        each operator's rows, wall time and throughput, the IO, fusion,
+        planning, batching, exchange and residency lines and the counters,
+        then the profile's per-op timeline and critical path."""
+        from .obs.capture import render_runtime_stats
+
+        self.collect(profile=True)
+        lines = [render_runtime_stats(self.stats)]
+        if self._profile is not None and self._profile.ops:
+            lines.append("")
+            lines.append(self._profile.render_timeline())
+        text = "\n".join(lines)
         print(text)
         return text
 
@@ -327,22 +348,36 @@ class DataFrame:
     def write_json(self, root_dir: str, partition_cols=None) -> "DataFrame":
         return self._write(root_dir, "json", None, partition_cols)
 
-    def collect(self) -> "DataFrame":
+    def collect(self, profile: Union[bool, str, None] = None) -> "DataFrame":
         """Materialize the plan; ``stats`` then holds the query's counters.
+
+        ``profile`` arms the query profiler for this execution: ``True``
+        records a QueryProfile (``profile()``, ``last_profile()``), a path
+        also writes its JSON there, ``None`` follows ``enable_profiling``.
+        A collected DataFrame does not run again: its profile, if any, is
+        served (and written to a path given).
 
         Under ``enable_result_cache`` a plan whose structural key
         (``runners.plan_cache_key``) another live DataFrame has collected
         under the same config is served from that result
-        (``result_cache_hits``); the entry goes when the last DataFrame that
-        owns it goes. The reference keys on the plan alone; the port's
-        config holds the device and the 32- or 64-bit mode, whose results
-        differ, so its key holds the config too."""
+        (``result_cache_hits``, and a ``result_cache_hit`` event when
+        profiled); the entry goes when the last DataFrame that owns it goes.
+        The reference keys on the plan alone; the port's config holds the
+        device and the 32- or 64-bit mode, whose results differ, so its key
+        holds the config too."""
         if self._result is not None:
+            if isinstance(profile, str) and self._profile is not None:
+                self._profile.to_json(profile)
             return self
         from .runners import partition_set_cache, plan_cache_key
 
         cache = partition_set_cache()
         cfg = get_context().execution_config
+        want = profile if profile is not None else cfg.enable_profiling
+        if want:
+            from .profile import Profiler
+
+            self.stats.profiler = Profiler(query_id=f"q-{id(self._plan):x}")
         key = plan_cache_key(self._plan) if cfg.enable_result_cache else None
         if key is not None:
             from .adapt.plancache import _cfg_key
@@ -351,6 +386,8 @@ class DataFrame:
         hit = cache.get(key) if key is not None else None
         if hit is not None:
             self.stats.bump("result_cache_hits")
+            if self.stats.profiler.armed:
+                self.stats.profiler.event("result_cache_hit")
             self._result = hit
         else:
             self._result = get_context().runner().run(self._plan, stats=self.stats)
@@ -360,8 +397,26 @@ class DataFrame:
                 cache.put(key, self._result)
                 # the entry lives exactly as long as some DataFrame owns it
                 weakref.finalize(self, cache.release, key)
+        if want:
+            from .profile import build_profile
+
+            qp = build_profile(self.stats.profiler, self.stats)
+            self._profile = qp
+            get_context()._last_profile = qp
+            if isinstance(want, str):
+                qp.to_json(want)
         self._plan = InMemorySource(self._result.schema, self._result.partitions)
         return self
+
+    def profile(self):
+        """The QueryProfile recorded by a profiled collect(), or None."""
+        return self._profile
+
+    def last_query_record(self):
+        """The query log's QueryRecord of this DataFrame's latest plan
+        execution (None before any execution, or when the result was served
+        from the result cache). The same record is in ``query_log()``."""
+        return self.stats.last_record
 
     def iter_partitions(self) -> Iterator[MicroPartition]:
         """The result's partitions: a collected frame's, else streamed from a

@@ -69,14 +69,35 @@ partition at a time, so a request that fits the host always fits; the
 reference's blocking ``admit``/``release`` comes with the worker pool of
 parallel maps.
 
-Left out of this slice: the profiler and the breaker's log lines and
-events, the query log and its records, cancellation, the worker pool of
-parallel maps (with the accountant's blocking admission), streaming, the
-mesh hook ``prepare_broadcast`` and the mesh breaker.
+Observability. Each query's RuntimeStats carries a profiler
+(``stats.profiler``): the shared DISARMED no-op unless ``collect(profile=...)``,
+``enable_profiling``, an armed chrome trace or the slow-query capture arms
+one. Armed, every partition an op emits is an ``op`` span (``_traced``,
+whose self time is what ``op_wall_ns`` records), a device attempt adds its
+host time to the ``device_dispatch`` phase of the innermost span (staging
+and launching; an asynchronous launch's kernels run after it, see
+profile/spans.py), a resident segment's fetch is a ``fuse.segment`` span,
+and blocked IO is the ``io_wait`` phase. The breaker logs each transition
+(``breaker_trip``, ``_probe``, ``_recovery``, ``_reopen``) and records it as
+a ``breaker`` event; an expired deadline logs ``deadline_expired``.
+``execute_plan`` gives each execution a query id, bound to the consumer's
+thread for each pull; registers its live progress (obs/cluster.py); and at
+the end, whatever the outcome, renders the span tree into an armed chrome
+trace, folds the query into the process metrics, appends its QueryRecord to
+the query log and hands it to the slow and failed query capture
+(``_record_query``). No observability defect fails the query: each
+degrades to an error log line.
+
+Left out of this slice: cancellation (``RuntimeStats.cancel`` and the
+``cancelled`` outcome) and the worker pool of parallel maps with its
+``queue_wait`` phase (ROADMAP Queue 1, item 7, ``scheduler.py``), the
+accountant's blocking admission, streaming, the mesh hook
+``prepare_broadcast`` and the mesh breaker.
 """
 
 from __future__ import annotations
 
+import itertools
 import threading
 import time
 from typing import Dict, Iterator, List, Optional
@@ -176,19 +197,32 @@ def _accelerator_count(cfg: ExecutionConfig) -> int:
 
 
 class RuntimeStats:
-    """Per-query counters plus per-operator rows and wall time."""
+    """Per-query counters, per-operator rows, wall time and bytes, and the
+    query's profiler."""
 
     def __init__(self):
+        from .profile.spans import DISARMED
+
         self._lock = threading.Lock()
         self.counters: Dict[str, int] = {}
         self.op_rows: Dict[str, int] = {}
         self.op_wall_ns: Dict[str, int] = {}
+        self.op_bytes: Dict[str, int] = {}
+        # the query's span and event recorder (profile/spans.py): the shared
+        # no-op until collect(profile=...), enable_profiling, an armed chrome
+        # trace or the slow-query capture swaps in a live one
+        self.profiler = DISARMED
+        # the QueryRecord of this handle's latest plan execution
+        # (execute_plan's completion hook; df.last_query_record())
+        self.last_record = None
         # feedback observations (adapt/): canonical subtree fingerprint ->
         # [rows, bytes] accumulated by the tagged exchanges and joins, folded
         # into the process history when the query ends
         self.fdo_obs: Dict[str, list] = {}
 
     def bump(self, key: str, n: int = 1) -> None:
+        # counters arrive concurrently from the query's pool, the async spill
+        # writer and the prefetch threads: the lock is load-bearing
         with self._lock:
             self.counters[key] = self.counters.get(key, 0) + n
 
@@ -217,16 +251,23 @@ class RuntimeStats:
             if n > self.counters.get(key, 0):
                 self.counters[key] = n
 
-    def record_op(self, name: str, rows: int, wall_ns: int) -> None:
+    def record_op(self, name: str, rows: int, wall_ns: int, bytes_out: int = 0) -> None:
         with self._lock:
             self.op_rows[name] = self.op_rows.get(name, 0) + rows
             self.op_wall_ns[name] = self.op_wall_ns.get(name, 0) + wall_ns
+            if bytes_out:
+                self.op_bytes[name] = self.op_bytes.get(name, 0) + bytes_out
 
     def io_wait(self, ns: int) -> None:
         """Time the query's own thread waited on IO (a synchronous spill
         write, a spill read it made itself, a full writer queue, a readahead
-        it had to wait for)."""
+        it had to wait for): the counter and the io_wait phase of the
+        innermost open span, so a profile's io_wait reconciles with
+        io_wait_ns."""
         self.bump("io_wait_ns", ns)
+        p = self.profiler
+        if p.armed:
+            p.phase("io_wait", ns)
 
     def io_wait_share(self) -> float:
         """The share of the operators' wall time spent waiting on IO."""
@@ -260,12 +301,25 @@ class RuntimeStats:
                                           c.get("spill_read_ns", 0)), 1),
         }
 
+    def op_throughput(self) -> Dict[str, Dict[str, float]]:
+        """Per operator, rows/s and bytes/s over its accumulated wall time."""
+        with self._lock:
+            out: Dict[str, Dict[str, float]] = {}
+            for name, ns in self.op_wall_ns.items():
+                secs = ns / 1e9
+                if secs <= 0:
+                    continue
+                out[name] = {"rows_per_sec": self.op_rows.get(name, 0) / secs,
+                             "bytes_per_sec": self.op_bytes.get(name, 0) / secs}
+            return out
+
     def snapshot(self) -> dict:
         with self._lock:
             return {
                 "counters": dict(self.counters),
                 "op_rows": dict(self.op_rows),
                 "op_wall_ns": dict(self.op_wall_ns),
+                "op_bytes": dict(self.op_bytes),
             }
 
 
@@ -280,9 +334,10 @@ class DeviceHealth:
 
     CLOSED, OPEN, HALF_OPEN = "closed", "open", "half_open"
 
-    def __init__(self, threshold: int = 3, cooldown_s: float = 30.0):
+    def __init__(self, threshold: int = 3, cooldown_s: float = 30.0, kind: str = "device"):
         self.threshold = max(1, int(threshold))
         self.cooldown_s = float(cooldown_s)
+        self.kind = kind
         self._lock = threading.Lock()
         self._state = self.CLOSED
         self._consecutive = 0
@@ -313,9 +368,22 @@ class DeviceHealth:
                 self._probe_inflight = True
                 self._probe_started = now
                 if stats is not None:
-                    stats.bump("device_breaker_probes")
+                    stats.bump(f"{self.kind}_breaker_probes")
+                    self._emit(stats, "probe")
                 return True
             return False
+
+    def _emit(self, stats: Optional[RuntimeStats], transition: str) -> None:
+        """A transition is a log line and, in a profiled query, a typed
+        ``breaker`` event on the timeline, so a trace and the always-on log
+        both show when the device path opened or recovered."""
+        from .obs.log import get_logger
+
+        get_logger("breaker").info(f"breaker_{transition}", breaker=self.kind,
+                                   state=self._state)
+        if stats is not None and stats.profiler.armed:
+            stats.profiler.event("breaker", kind=self.kind, transition=transition,
+                                 state=self._state)
 
     def record_success(self, stats: Optional[RuntimeStats] = None) -> None:
         with self._lock:
@@ -326,7 +394,8 @@ class DeviceHealth:
                 self._state = self.CLOSED
                 self._probe_inflight = False
                 if stats is not None:
-                    stats.bump("device_breaker_recoveries")
+                    stats.bump(f"{self.kind}_breaker_recoveries")
+                    self._emit(stats, "recovery")
 
     def record_failure(self, stats: Optional[RuntimeStats] = None) -> None:
         with self._lock:
@@ -337,12 +406,14 @@ class DeviceHealth:
                 self._opened_at = time.monotonic()
                 self._probe_inflight = False
                 if stats is not None:
-                    stats.bump("device_breaker_reopens")
+                    stats.bump(f"{self.kind}_breaker_reopens")
+                    self._emit(stats, "reopen")
             elif self._state == self.CLOSED and self._consecutive >= self.threshold:
                 self._state = self.OPEN
                 self._opened_at = time.monotonic()
                 if stats is not None:
-                    stats.bump("device_breaker_trips")
+                    stats.bump(f"{self.kind}_breaker_trips")
+                    self._emit(stats, "trip")
 
     def release_probe(self) -> None:
         """An admitted attempt declined (neither failure nor success): free
@@ -389,6 +460,8 @@ class ExecutionContext:
         # the plan's canonical fingerprint (execute_plan stamps it): the key
         # a broadcast mispredict demotes the plan cache's entries under
         self.canonical_fp = ""
+        # the live progress of the running execution (obs/cluster.py)
+        self.progress = None
 
     def check_deadline(self) -> None:
         """Raise DaftTimeoutError, carrying the stats so far, once the
@@ -397,7 +470,11 @@ class ExecutionContext:
         if self._spill_scope is not None:
             self._spill_scope.raise_async_errors()
         if self.deadline is not None and time.monotonic() > self.deadline:
+            from .obs.log import get_logger
+
             self.stats.bump("deadline_expired")
+            get_logger("scheduler").warning("deadline_expired",
+                                            timeout_s=self.cfg.execution_timeout_s)
             raise DaftTimeoutError(
                 f"query exceeded execution_timeout_s={self.cfg.execution_timeout_s}",
                 stats=self.stats.snapshot())
@@ -531,13 +608,23 @@ class ExecutionContext:
         probe slot is freed, the breaker untouched); any other result counts
         as a success unless ``launch`` is set, where the caller's resolver
         (``_resolve``) records the outcome. Any other exception propagates
-        and counts as nothing."""
+        and counts as nothing.
+
+        In a profiled query the attempt's host time is the device_dispatch
+        phase: staging and launching, and for a synchronous attempt the wait
+        for its result. An asynchronous launch's kernels run after it (no
+        synchronize here: it would serialize the pipeline)."""
+        prof = self.stats.profiler
+        t0 = time.perf_counter_ns() if prof.armed else 0
         try:
             faults.check("device.kernel", self.stats)
             out = fn()
         except DEVICE_FAILURES:
             self._attempt_failed()
             return None
+        finally:
+            if prof.armed:
+                prof.phase("device_dispatch", time.perf_counter_ns() - t0)
         if out is None:
             self.device_health.release_probe()
         elif not launch:
@@ -825,6 +912,7 @@ class ExecutionContext:
         if resolve is None:
             return None
         self.stats.bump("device_aggregations")
+        self.stats.bump("device_agg_dispatches")
 
         def on_host() -> MicroPartition:
             # the overflow guard (a decline) or a failure at the fetch: the
@@ -930,7 +1018,11 @@ class ExecutionContext:
             _proc_bump("handoffs_elided")
             return MicroPartition.from_table(out)
 
-        return lambda: self._resolve(resolve, on_host, resident)
+        def finish() -> MicroPartition:
+            with self.stats.profiler.span("fuse.segment", kind="phase"):
+                return self._resolve(resolve, on_host, resident)
+
+        return finish
 
     def _eval_segment_staged(self, part: MicroPartition, op,
                              degraded: bool = True) -> MicroPartition:
@@ -947,14 +1039,91 @@ class ExecutionContext:
         return op.staged_agg(op.staged_map(part, self), self)
 
 
+_QUERY_SEQ = itertools.count(1)
+_DONE = object()  # the end of the stream, for the per-pull query-id binding
+
+
+def _record_query(root: PhysicalOp, ctx: ExecutionContext, query_id: str, fingerprint: str,
+                  plan_ops: Dict[str, int], wall_ns: int, outcome: str, error,
+                  rows_emitted: int) -> None:
+    """The completion hook, on every outcome: append the QueryRecord, hand
+    it to the slow and failed query capture and fold the execution into the
+    FDO history. ``enable_query_log`` gates only the ring and
+    ``last_query_record``: a failed query still writes its bundle when
+    ``diagnostics_dir`` is set. Observability never fails the query: a
+    defect here degrades to an error log line (a port failure still
+    propagates)."""
+    from .obs.log import get_logger
+
+    cfg = ctx.cfg
+    want_log = cfg.enable_query_log
+    want_capture = cfg.diagnostics_dir or cfg.slow_query_threshold_s is not None
+    rec = None
+    if want_log or want_capture:
+        try:
+            from .obs import capture as obs_capture
+            from .obs.querylog import QUERY_LOG, build_record
+
+            prof = ctx.stats.profiler
+            rec = build_record(query_id, fingerprint, plan_ops, cfg, ctx.stats, wall_ns,
+                               outcome, error=error, profiled=prof.armed,
+                               rows_emitted=rows_emitted, canonical=ctx.canonical_fp)
+            if want_log:
+                QUERY_LOG.resize(cfg.query_log_depth)
+                QUERY_LOG.append(rec)
+                ctx.stats.last_record = rec
+            obs_capture.maybe_capture(rec, cfg, ctx.stats, prof)
+        except PORT_FAILURES:
+            raise
+        except Exception as e:
+            get_logger("obs").error("query_record_failed", error=repr(e))
+    if cfg.history_fdo:
+        # fold the execution's FDO observations into the process history,
+        # the input of the next plan of this shape
+        try:
+            from .adapt.history import HISTORY
+
+            HISTORY.fold(ctx.canonical_fp, ctx.stats, rec if rec is not None else {
+                "outcome": outcome, "wall_s": wall_ns / 1e9,
+                "counters": ctx.stats.snapshot()["counters"]})
+        except PORT_FAILURES:
+            raise
+        except Exception as e:
+            get_logger("obs").error("history_fold_failed", error=repr(e))
+
+
 def execute_plan(root: PhysicalOp, ctx: ExecutionContext) -> Iterator[MicroPartition]:
     """Wire up the generator tree and return the root partition stream. Every
-    op is wrapped with per-partition accounting (rows and wall time). When
-    the stream ends, is closed early or raises, the tree is closed, the
-    readahead pool shut down, the query's buffers and spill directory
-    released (``finish_query``) and, under ``history_fdo``, the query's
-    feedback observations folded into the history (``_rooted``)."""
+    op is wrapped with per-partition accounting (rows, self wall time and
+    bytes) and, when the query's profiler is armed, with op spans. An armed
+    chrome trace (tracing.chrome_trace, DAFT_TPU_TORCH_CHROME_TRACE) arms a
+    profiler here when none is, as does the slow-query capture when an
+    earlier run of this plan took at least ``slow_query_threshold_s``: the
+    trace is rendered FROM the span tree at the query's end. When the stream
+    ends, is closed early or raises, the tree is closed, the pool shut down,
+    the query's buffers and spill directory released (``finish_query``), the
+    query folded into the metrics and recorded (``_record_query``)."""
+    from . import tracing
+    from .obs.querylog import plan_signature
+
+    fingerprint, plan_ops = plan_signature(root)
+    # the canonical shape fingerprint the planner stamped (adapt/plancache):
+    # the key a broadcast mispredict demotes under, and the record's
     ctx.canonical_fp = getattr(root, "_canonical_fp", "")
+    prof = ctx.stats.profiler
+    if prof.armed:
+        query_id = prof.query_id
+    else:
+        query_id = f"q-{next(_QUERY_SEQ)}"
+        arm = tracing.active()
+        if not arm:
+            from .obs import capture as obs_capture
+
+            arm = obs_capture.take_arm(fingerprint)
+        if arm:
+            from .profile.spans import Profiler
+
+            ctx.stats.profiler = Profiler(query_id=query_id)
 
     def build(op: PhysicalOp) -> Iterator[MicroPartition]:
         # the sub-plan result cache (adapt/resultcache.py): a Project/Filter
@@ -967,22 +1136,43 @@ def execute_plan(root: PhysicalOp, ctx: ExecutionContext) -> Iterator[MicroParti
             return served
         return _traced(op, op.execute([build(c) for c in op.children], ctx), ctx)
 
-    return _rooted(build(root), ctx)
+    return _rooted(build(root), ctx, root, query_id, fingerprint, plan_ops)
 
 
-def _rooted(stream: Iterator[MicroPartition],
-            ctx: ExecutionContext) -> Iterator[MicroPartition]:
-    """The root stream with its teardown. The outcome is recorded as the
-    reference records it: ``ok``, ``abandoned`` when the consumer closed the
-    stream early, or the error's (``timeout`` for a deadline). Only an
-    ``ok`` run's observations reach the history (``HISTORY.fold``, the
-    fallback record of the reference's completion hook: the port has no
-    query log yet)."""
+def _rooted(stream: Iterator[MicroPartition], ctx: ExecutionContext, root: PhysicalOp,
+            query_id: str, fingerprint: str,
+            plan_ops: Dict[str, int]) -> Iterator[MicroPartition]:
+    """The root stream with its teardown. The outcome is ``ok``,
+    ``abandoned`` when the consumer closed the stream early, ``timeout`` for
+    a deadline, else ``error``. The query id is bound for each pull, never
+    across a yield: two lazily interleaved streams on one thread would
+    otherwise attribute each other's log lines."""
+    from . import tracing
+    from .obs import log as obs_log
+    from .obs.cluster import QueryProgress, register_progress, unregister_progress
+
     t0 = time.perf_counter_ns()
-    outcome = "ok"
+    outcome, error = "ok", None
+    rows_out = 0
     it = iter(stream)
+    progress = QueryProgress(query_id, ctx.stats, plan_ops)
+    ctx.progress = progress
+    register_progress(progress)
     try:
-        yield from it
+        while True:
+            with obs_log.query_context(query_id):
+                part = next(it, _DONE)
+            if part is _DONE:
+                break
+            n = len(part)
+            if n:
+                rows_out += n
+                progress.add_rows(n)
+                if rows_out == n:
+                    # time to the first row: how long the first non-empty
+                    # partition took to surface
+                    ctx.stats.bump("time_to_first_row_ns", time.perf_counter_ns() - t0)
+            yield part
     except GeneratorExit:
         # the consumer closed the stream early (a limit, an abandoned
         # iterator): not a failure, but the plan never finished
@@ -990,41 +1180,104 @@ def _rooted(stream: Iterator[MicroPartition],
         raise
     except BaseException as e:
         outcome = "timeout" if isinstance(e, DaftTimeoutError) else "error"
+        error = e
         raise
     finally:
         try:
-            # close the tree before the pool goes: an op suspended at a
-            # yield releases its partitions now, not at garbage collection
-            close = getattr(it, "close", None)
-            if close is not None:
-                close()
-        finally:
-            ctx.shutdown_pool()
-            ctx.finish_query()
-            if ctx.cfg.history_fdo:
-                # a defect of the history never fails the query (the
-                # reference logs it; the port's log lines come with obs/)
+            with obs_log.query_context(query_id):
                 try:
-                    from .adapt.history import HISTORY
+                    # close the tree before the pool goes: an op suspended at
+                    # a yield releases its partitions now, not at garbage
+                    # collection
+                    close = getattr(it, "close", None)
+                    if close is not None:
+                        close()
+                finally:
+                    ctx.shutdown_pool()
+                    ctx.finish_query()
+                    prof = ctx.stats.profiler
+                    prof.finish()
+                    if tracing.active() and prof.armed:
+                        # the span tree into chrome events, then the armed
+                        # file rewritten (the buffer kept: the next query
+                        # appends to the same writer); a file that cannot
+                        # be written never fails the query
+                        try:
+                            tracing.add_span_events(prof)
+                            tracing.flush_query()
+                        except OSError as e:
+                            obs_log.get_logger("obs").error("chrome_trace_flush_failed",
+                                                            error=repr(e))
+                    from .profile.metrics import record_query_metrics
 
-                    HISTORY.fold(ctx.canonical_fp, ctx.stats, {
-                        "outcome": outcome, "wall_s": (time.perf_counter_ns() - t0) / 1e9,
-                        "counters": ctx.stats.snapshot()["counters"]})
-                except PORT_FAILURES:
-                    raise
-                except Exception:
-                    pass
+                    wall_ns = time.perf_counter_ns() - t0
+                    record_query_metrics(ctx.stats, wall_ns)
+                    _record_query(root, ctx, query_id, fingerprint, plan_ops, wall_ns,
+                                  outcome, error, rows_out)
+                    tracing.query_finished()
+        finally:
+            unregister_progress(progress)
+            ctx.progress = None
+
+
+def _part_bytes(part: MicroPartition) -> int:
+    """Output bytes for the throughput view: loaded partitions only, so that
+    the accounting never reads a file."""
+    if not part.is_loaded():
+        return 0
+    b = part.size_bytes()
+    return b if b is not None else 0
+
+
+_tl = threading.local()
 
 
 def _traced(op: PhysicalOp, stream: Iterator[MicroPartition],
             ctx: ExecutionContext) -> Iterator[MicroPartition]:
+    """Per-partition accounting of one op. Pulling ``next(stream)`` runs the
+    child wrappers on this same thread, so each wrapper pushes a frame,
+    adds its INCLUSIVE time to its parent's frame and records inclusive
+    minus children as its own wall time: ``op_wall_ns`` ranks operators by
+    where the time is spent, not by depth. An armed profiler's op span
+    covers the same interval, and the profile's self time subtracts the
+    same child op spans, so the two reconcile by construction."""
+    from . import tracing
+
     name = op.name()
+    stats = ctx.stats
     it = iter(stream)
+    seq = 0
     while True:
         ctx.check_deadline()
+        stack = getattr(_tl, "stack", None)
+        if stack is None:
+            stack = _tl.stack = []
+        stack.append(0)
+        prof = stats.profiler
+        sp = prof.begin(name, op=name, part=seq) if prof.armed else None
         t0 = time.perf_counter_ns()
-        part = next(it, None)
-        if part is None:
+        pulled = False
+        try:
+            part = next(it)
+            pulled = True
+        except StopIteration:
+            progress = getattr(ctx, "progress", None)
+            if progress is not None:
+                progress.op_done(name)
             return
-        ctx.stats.record_op(name, len(part), time.perf_counter_ns() - t0)
+        finally:
+            dt = time.perf_counter_ns() - t0
+            child_ns = stack.pop()
+            if stack:
+                stack[-1] += dt
+            if sp is not None:
+                # the final StopIteration pull is not a partition: its span
+                # closes unrecorded, so per-op partition counts stay exact
+                (prof.end if pulled else prof.cancel)(sp)
+        rows = len(part)
+        stats.record_op(name, rows, max(dt - child_ns, 0), _part_bytes(part))
+        if sp is not None:
+            sp.set_attr("rows", rows)
+        seq += 1
+        tracing.report_progress(name, rows)
         yield part

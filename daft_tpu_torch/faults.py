@@ -17,6 +17,10 @@ Plans are deterministic: ``always`` / ``first_n`` / ``nth`` fire by call
 count; ``rate`` hashes (seed, site, call#), so one seed gives one failure
 sequence on every run.
 
+A fired fault counts as ``faults_injected`` on the query's stats, records a
+``fault_injected`` event in a profiled query and a ``fault:<site>`` instant
+in an armed chrome trace.
+
 The disarmed path is one module-global boolean test, so the engine pays
 nothing when no plan is armed.
 """
@@ -198,6 +202,11 @@ def check(site: str, stats=None) -> None:
         return
     if stats is not None:
         stats.bump("faults_injected")
+        if stats.profiler.armed:
+            stats.profiler.event("fault_injected", site=site, call=call_no)
+    from . import tracing
+
+    tracing.add_instant(f"fault:{site}", {"call": call_no})
     if plan.delay_s > 0:
         import time
 

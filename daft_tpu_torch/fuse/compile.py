@@ -22,7 +22,8 @@ with a ``FusedMapOp``. A chain that declines (``FuseDecline``, an
 expression that does not type, or an armed ``fuse.compile`` fault) stays
 unfused. Results are byte-identical with fusion on or off.
 
-Left out: the profiler events.
+A profiled query records one ``fusion`` event per fused chain (its op
+count, its CSE hits and whether it has one device program).
 """
 
 from __future__ import annotations
@@ -143,7 +144,8 @@ class FusedMapOp(PhysicalOp):
         if self._recorded_for is ctx.stats:
             return
         self._recorded_for = ctx.stats
-        record_fusion(ctx.stats, self.program.graph)
+        record_fusion(ctx.stats, self.program.graph,
+                      device_program=self.program.device_exprs is not None)
 
     def map_partition_dispatch(self, part, ctx):
         self._record(ctx)
@@ -177,12 +179,16 @@ class FusedMapOp(PhysicalOp):
                 f"{summarize_exprs(self.program.output_exprs)}{tail}")
 
 
-def record_fusion(stats, g: FusedGraph) -> None:
-    """The chain-level counters of one fused chain, once per query."""
+def record_fusion(stats, g: FusedGraph, device_program: bool) -> None:
+    """The chain-level counters of one fused chain, once per query, and its
+    ``fusion`` event when the query is profiled."""
     stats.bump("fused_chains")
     stats.bump("fused_ops_eliminated", g.n_ops - 1)
     if g.cse_hits:
         stats.bump("cse_hits", g.cse_hits)
+    if stats.profiler.armed:
+        stats.profiler.event("fusion", ops=g.n_ops, cse_hits=g.cse_hits,
+                             device_program=device_program)
 
 
 def fuse_map_chains(op: PhysicalOp, cfg) -> PhysicalOp:

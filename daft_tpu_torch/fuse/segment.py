@@ -36,8 +36,9 @@ derived float64 columns to float32 at another point (the 64-bit mode
 rounds nowhere).
 
 Over several partitions a segment is the two-stage aggregate's stage 1,
-run on each partition. Left out: buffer donation (torch has none), the
-plan cache and the profiler spans.
+run on each partition. A profiled query records a ``fuse.segment`` phase
+span around each resident partition's fetch and a ``fusion`` event for the
+segment's chain. Left out: buffer donation (torch has none).
 """
 
 from __future__ import annotations
@@ -250,7 +251,7 @@ class DeviceSegmentOp(PhysicalOp):
             return
         self._recorded_for = ctx.stats
         if isinstance(self.map_op, FusedMapOp):
-            record_fusion(ctx.stats, self.map_op.program.graph)
+            record_fusion(ctx.stats, self.map_op.program.graph, device_program=True)
 
     def _record_resident(self, ctx) -> None:
         """Once per query, on the first resident execution."""

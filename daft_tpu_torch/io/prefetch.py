@@ -34,10 +34,13 @@ Counters: ``prefetch_submitted``, ``prefetch_hits``, ``prefetch_misses``,
 ``prefetch_throttled``, ``prefetch_read_ns`` (the background read time) and
 ``io_wait_ns`` (the time the consumer's thread waited on a read).
 
-Left out: the profiler spans (``prefetch.fetch``, the ``throttle`` event),
-the query-log context of a fetch and the ``prefetch_degraded_sync`` log
-line, which come with observability (ROADMAP, Queue 1, item 6), and the
-cancellation of a query's stats handle, which the port does not have.
+Observability: a fetch runs as a ``prefetch.fetch`` bg span parented to
+the scan read that submitted it (the profiler's ``capture()``/``activate()``)
+and under that thread's query id; a throttle records a ``throttle`` event;
+a pool shut down under the prefetcher logs ``prefetch_degraded_sync``.
+
+Left out: the cancellation of a query's stats handle (ROADMAP Queue 1,
+item 7).
 """
 
 from __future__ import annotations
@@ -46,6 +49,10 @@ import threading
 import time
 import weakref
 from typing import Any, List, Optional
+
+from ..obs.log import current_query_id, get_logger, query_context
+
+logger = get_logger("prefetch")
 
 _IDLE, _SUBMITTED, _TAKEN, _ABANDONED = "idle", "submitted", "taken", "abandoned"
 
@@ -108,11 +115,18 @@ class ScanPrefetcher:
                         and self._ledger.current + self._ledger.prefetch_inflight
                         + s.est_bytes > self._budget):
                     self._stats.bump("prefetch_throttled")
+                    if self._stats.profiler.armed:
+                        self._stats.profiler.event("throttle", what="scan_prefetch",
+                                                   bytes=s.est_bytes)
                     return  # retried at the next read
+                prof = self._stats.profiler
+                token = prof.capture() if prof.armed else None
+                qid = current_query_id()
                 try:
-                    fut = self._ctx.pool().submit(self._fetch, j)
+                    fut = self._ctx.pool().submit(self._fetch, j, token, qid)
                 except RuntimeError:
                     # the pool was shut down under us: read synchronously
+                    logger.debug("prefetch_degraded_sync", task=j)
                     self._closed = True
                     return
                 s.state = _SUBMITTED
@@ -127,15 +141,30 @@ class ScanPrefetcher:
                     lambda f, s=s: (f.cancelled() or f.exception() is not None)
                     and self._settle(s))
 
-    def _fetch(self, idx: int) -> List[Any]:
-        """The background fetch (runs on a pool thread)."""
+    def _fetch(self, idx: int, span_token=None, qid=None) -> List[Any]:
+        """The background fetch (runs on a pool thread). ``span_token`` is
+        the submitting thread's captured span and ``qid`` its query id, so
+        the fetch and any line it logs are attributed to the scan read that
+        triggered it."""
         from .. import faults
 
-        faults.check("prefetch.fetch", self._stats)
-        t0 = time.perf_counter_ns()
-        chunks = _read_task_chunks(self._slots[idx].task)
-        self._stats.bump("prefetch_read_ns", time.perf_counter_ns() - t0)
-        return chunks
+        prof = self._stats.profiler
+        with query_context(qid):
+            sp = None
+            if span_token is not None and prof.armed:
+                act = prof.activate(span_token)
+                act.__enter__()
+                sp = prof.begin("prefetch.fetch", part=idx, kind="bg")
+            try:
+                faults.check("prefetch.fetch", self._stats)
+                t0 = time.perf_counter_ns()
+                chunks = _read_task_chunks(self._slots[idx].task)
+                self._stats.bump("prefetch_read_ns", time.perf_counter_ns() - t0)
+                return chunks
+            finally:
+                if sp is not None:
+                    prof.end(sp)
+                    act.__exit__(None, None, None)
 
     # ------------------------------------------------------------ consumption
     def _release_locked(self, s: _Slot) -> None:

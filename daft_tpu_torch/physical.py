@@ -56,6 +56,13 @@ and buckets. Under ``memory_budget_bytes`` they spill past the budget and
 read back lazily, and the shuffle dictionary-encodes its pieces
 (exchange/encode.py).
 
+In a profiled query the blocking parts of the ops are phase spans under
+their op's span, named as the reference names them: ``scan.plan``,
+``write.sink``, ``coalesce.gather``, ``shuffle.fanout`` and
+``shuffle.merge``, ``sort.partition``, ``gather.merge``,
+``distinct.partition``, ``pivot.gather`` and ``join.build`` (the hash,
+broadcast and sort-merge joins).
+
 Feedback-directed planning (adapt/fdo.py) hooks into translation inside
 ``plan_query``'s collecting scope: a hash join's exchanges and a grouped
 two-stage aggregate's exchange carry ``fdo_obs_key`` and record what
@@ -249,9 +256,11 @@ class ScanOp(PhysicalOp):
     def execute(self, inputs, ctx) -> PartStream:
         from .io.prefetch import pipeline_scan_parts
 
+        with ctx.stats.profiler.span("scan.plan", kind="phase"):
+            parts = self.plan_parts(ctx)
         # bounded readahead: reading partition i submits the fetches of
         # i+1..i+depth; in task order, and the same rows at every depth
-        yield from pipeline_scan_parts(self.plan_parts(ctx), ctx)
+        yield from pipeline_scan_parts(parts, ctx)
 
     def describe(self):
         return f"Scan [{len(self.tasks)} tasks]"
@@ -501,8 +510,10 @@ class WriteOp(PhysicalOp):
         wrote = False
         for part in inputs[0]:
             wrote = True
-            yield part.write_tabular(self.root_dir, self.format, self.compression,
-                                     self.partition_cols)
+            with ctx.stats.profiler.span("write.sink", kind="phase"):
+                out = part.write_tabular(self.root_dir, self.format, self.compression,
+                                         self.partition_cols)
+            yield out
         if not wrote:
             yield MicroPartition.empty(self.schema)
 
@@ -523,8 +534,13 @@ class SortOp(PhysicalOp):
 
     def execute(self, inputs, ctx) -> PartStream:
         ctx.check_deadline()  # a pipeline breaker: the deadline first
+        prof = ctx.stats.profiler
         for part in inputs[0]:
-            yield ctx.eval_sort(part, self.sort_by, self.descending, self.nulls_first)
+            # the per-partition sort (the device argsort when eligible) is a
+            # phase span: a profile splits sort time from pull time
+            with prof.span("sort.partition", kind="phase"):
+                out = ctx.eval_sort(part, self.sort_by, self.descending, self.nulls_first)
+            yield out
 
     def describe(self):
         return "Sort: " + ", ".join(e._node.display() for e in self.sort_by)
@@ -599,8 +615,11 @@ class DistinctOp(PhysicalOp):
         self.subset = subset
 
     def execute(self, inputs, ctx) -> PartStream:
+        prof = ctx.stats.profiler
         for part in inputs[0]:
-            yield ctx.eval_distinct(part, self.subset)
+            with prof.span("distinct.partition", kind="phase"):
+                out = ctx.eval_distinct(part, self.subset)
+            yield out
 
 
 def _one_partition(parts: List[MicroPartition], schema: Schema) -> MicroPartition:
@@ -622,7 +641,9 @@ class PivotOp(PhysicalOp):
         self.names = names
 
     def execute(self, inputs, ctx) -> PartStream:
-        part = _one_partition(list(inputs[0]), self.children[0].schema)
+        # the gather that buffers the whole input is this op's blocking phase
+        with ctx.stats.profiler.span("pivot.gather", kind="phase"):
+            part = _one_partition(list(inputs[0]), self.children[0].schema)
         out = part.pivot(self.groupby, self.pivot_col, self.value_col, self.names, self.agg_fn)
         yield out.cast_to_schema(self.schema)
 
@@ -649,7 +670,9 @@ class GatherOp(PhysicalOp):
 
     def execute(self, inputs, ctx) -> PartStream:
         ctx.check_deadline()  # a pipeline breaker: the deadline first
-        yield _one_partition(list(_counted(inputs[0], ctx)), self.schema)
+        with ctx.stats.profiler.span("gather.merge", kind="phase"):
+            out = _one_partition(list(_counted(inputs[0], ctx)), self.schema)
+        yield out
 
 
 def _count_exchanged(part: MicroPartition, ctx) -> None:
@@ -679,7 +702,8 @@ class CoalesceOp(PhysicalOp):
         self.num = num
 
     def execute(self, inputs, ctx) -> PartStream:
-        parts = list(inputs[0])
+        with ctx.stats.profiler.span("coalesce.gather", kind="phase"):
+            parts = list(inputs[0])
         if not parts:
             return
         total = sum(len(p) for p in parts)
@@ -839,58 +863,62 @@ class ShuffleOp(PhysicalOp):
         # is corrupt or gone recomputes. The task is captured before the
         # split (or the sampling) loads the partition
         lineage_on = ctx.cfg.lineage_recomputation
-        if self.scheme == "range":
-            # the boundaries need every input, so the partitions are buffered
-            # (spillable) and their keys sampled as they stream in: a spilled
-            # partition is never read back for sampling
-            in_buf = ctx.partition_buffer()
-            samples = []
-            src_tasks = []
-            for p in src:
-                src_task = unwrap_source_task(p) if lineage_on else None
-                src_tasks.append(src_task)
-                samples.append(sample_partition_keys(p, self.by, n, ctx.cfg.sample_size_for_sort))
-                if src_task is not None:
-                    # the sampling loaded it: buffered, it re-reads its file
-                    p.lineage_recipe = task_recipe(src_task)
-                in_buf.append(p)
-            saw = len(in_buf) > 0
-            if saw:
-                boundaries = boundaries_from_samples(samples, self.by, n, self.descending,
-                                                     self.nulls_first)
-            for pi, p in enumerate(in_buf.drain()):
-                pieces = p.partition_by_range(self.by, boundaries, self.descending,
-                                              self.nulls_first)
-                for i, piece in enumerate(pieces):
-                    if src_tasks[pi] is not None:
-                        piece.lineage_recipe = range_piece_recipe(
-                            src_tasks[pi], self.by, boundaries, self.descending,
-                            self.nulls_first, i)
-                    exchange_append(min(i, n - 1), piece)
-        else:
-            for pi, p in enumerate(src):
-                saw = True
-                src_task = unwrap_source_task(p) if lineage_on else None
-                pieces = (p.partition_by_hash(self.by, n) if self.scheme == "hash"
-                          else p.partition_by_random(n, seed=pi))
-                if src_task is not None:
+        # the whole map side (the pull of the input, the split, the bucket
+        # appends) runs inside this op's FIRST pull: a named phase, so the
+        # exchange's two halves are separable on the timeline
+        with ctx.stats.profiler.span("shuffle.fanout", kind="phase"):
+            if self.scheme == "range":
+                # the boundaries need every input, so the partitions are buffered
+                # (spillable) and their keys sampled as they stream in: a spilled
+                # partition is never read back for sampling
+                in_buf = ctx.partition_buffer()
+                samples = []
+                src_tasks = []
+                for p in src:
+                    src_task = unwrap_source_task(p) if lineage_on else None
+                    src_tasks.append(src_task)
+                    samples.append(sample_partition_keys(p, self.by, n, ctx.cfg.sample_size_for_sort))
+                    if src_task is not None:
+                        # the sampling loaded it: buffered, it re-reads its file
+                        p.lineage_recipe = task_recipe(src_task)
+                    in_buf.append(p)
+                saw = len(in_buf) > 0
+                if saw:
+                    boundaries = boundaries_from_samples(samples, self.by, n, self.descending,
+                                                         self.nulls_first)
+                for pi, p in enumerate(in_buf.drain()):
+                    pieces = p.partition_by_range(self.by, boundaries, self.descending,
+                                                  self.nulls_first)
                     for i, piece in enumerate(pieces):
-                        piece.lineage_recipe = fanout_piece_recipe(
-                            src_task, self.by, self.scheme, n, pi, i)
-                for i, piece in enumerate(pieces):
-                    if comb is None or comb.failed:
-                        exchange_append(i, piece)
-                        continue
-                    flushed = comb.add(i, piece)
-                    if flushed is not None:
-                        # the fold declined: what was staged goes on raw, and
-                        # combining stops (stage 2 merges partials of any
-                        # granularity)
-                        for b, part in flushed:
-                            exchange_append(b, part)
-            if comb is not None:
-                for b, part in comb.finish():
-                    exchange_append(b, part)
+                        if src_tasks[pi] is not None:
+                            piece.lineage_recipe = range_piece_recipe(
+                                src_tasks[pi], self.by, boundaries, self.descending,
+                                self.nulls_first, i)
+                        exchange_append(min(i, n - 1), piece)
+            else:
+                for pi, p in enumerate(src):
+                    saw = True
+                    src_task = unwrap_source_task(p) if lineage_on else None
+                    pieces = (p.partition_by_hash(self.by, n) if self.scheme == "hash"
+                              else p.partition_by_random(n, seed=pi))
+                    if src_task is not None:
+                        for i, piece in enumerate(pieces):
+                            piece.lineage_recipe = fanout_piece_recipe(
+                                src_task, self.by, self.scheme, n, pi, i)
+                    for i, piece in enumerate(pieces):
+                        if comb is None or comb.failed:
+                            exchange_append(i, piece)
+                            continue
+                        flushed = comb.add(i, piece)
+                        if flushed is not None:
+                            # the fold declined: what was staged goes on raw, and
+                            # combining stops (stage 2 merges partials of any
+                            # granularity)
+                            for b, part in flushed:
+                                exchange_append(b, part)
+                if comb is not None:
+                    for b, part in comb.finish():
+                        exchange_append(b, part)
         if fdo_obs is not None and saw:
             # recorded only once the input has drained: a teardown half way
             # through the fan-out never reaches here
@@ -912,9 +940,14 @@ class ShuffleOp(PhysicalOp):
                 # the next group's spilled pieces read back while this one merges
                 for j in groups[g + 1]:
                     buckets[j].preload()
-            # concat loads every spilled or encoded piece of the group
-            parts = [q for i in idxs if len(buckets[i]) for q in buckets[i].parts()]
-            yield MicroPartition.concat(parts) if parts else MicroPartition.empty(self.schema)
+            if any(len(buckets[i]) for i in idxs):
+                with ctx.stats.profiler.span("shuffle.merge", kind="phase"):
+                    # concat loads every spilled or encoded piece of the group
+                    merged = MicroPartition.concat(
+                        [q for i in idxs if len(buckets[i]) for q in buckets[i].parts()])
+            else:
+                merged = MicroPartition.empty(self.schema)
+            yield merged
             for i in idxs:
                 buckets[i].release()
 
@@ -1075,10 +1108,11 @@ class HashJoinOp(PhysicalOp):
         # deadline first)
         lbuf = ctx.partition_buffer()
         rbuf = ctx.partition_buffer()
-        for p in inputs[0]:
-            lbuf.append(p)
-        for p in inputs[1]:
-            rbuf.append(p)
+        with ctx.stats.profiler.span("join.build", kind="phase"):
+            for p in inputs[0]:
+                lbuf.append(p)
+            for p in inputs[1]:
+                rbuf.append(p)
         n = max(len(lbuf), len(rbuf))
         lschema = self.children[0].schema
         rschema = self.children[1].schema
@@ -1161,10 +1195,11 @@ class BroadcastJoinOp(PhysicalOp):
 
     def execute(self, inputs, ctx) -> PartStream:
         ctx.check_deadline()  # the join build collects the small side
-        small = _one_partition(list(inputs[1]), self.children[1].schema)
-        # the small side is the build side: each streamed big partition is
-        # pruned by its filter before the probe
-        jf = self._build_small_filter(small, ctx)
+        with ctx.stats.profiler.span("join.build", kind="phase"):
+            small = _one_partition(list(inputs[1]), self.children[1].schema)
+            # the small side is the build side: each streamed big partition
+            # is pruned by its filter before the probe
+            jf = self._build_small_filter(small, ctx)
         ctx.stats.bump("broadcast_joins")
         small_bytes = small.size_bytes() or 0
         if self.fdo_obs_key is not None:
@@ -1223,11 +1258,12 @@ class SortMergeJoinOp(PhysicalOp):
         lbuf = ctx.partition_buffer()
         rbuf = ctx.partition_buffer()
         lsamples, rsamples = [], []
-        for stream, on, buf, samples in ((inputs[0], self.left_on, lbuf, lsamples),
-                                         (inputs[1], self.right_on, rbuf, rsamples)):
-            for p in stream:
-                samples.append(sample_partition_keys(p, on, n, ssize))
-                buf.append(p)
+        with ctx.stats.profiler.span("join.build", kind="phase"):
+            for stream, on, buf, samples in ((inputs[0], self.left_on, lbuf, lsamples),
+                                             (inputs[1], self.right_on, rbuf, rsamples)):
+                for p in stream:
+                    samples.append(sample_partition_keys(p, on, n, ssize))
+                    buf.append(p)
         lschema = self.children[0].schema
         rschema = self.children[1].schema
         if n <= 1 or (len(lbuf) <= 1 and len(rbuf) <= 1):

@@ -11,7 +11,8 @@ A query runs under one DeviceHealth breaker and one absolute deadline
 (``execution_timeout_s`` from the start of the run), built once in
 ``run_iter`` and handed to every ExecutionContext of the query, each
 adaptive stage's among them: a dead card does not pay the failure
-threshold again per stage, and the stages share one time budget.
+threshold again per stage, and the stages share one time budget. The
+breaker is registered with ``health()`` (obs/health.py).
 
 ``plan_cache_key`` is the exact structural key of a plan: the plan
 cache's binding and the key of ``DataFrame.collect``'s whole-plan result
@@ -206,6 +207,11 @@ class NativeRunner:
         cfg = get_context().execution_config
         stats = stats if stats is not None else RuntimeStats()
         health = DeviceHealth(cfg.device_breaker_threshold, cfg.device_breaker_cooldown_s)
+        # health() reads the latest query's breaker (weakly held: a finished
+        # query's breaker reads as idle)
+        from .obs.health import register_breaker
+
+        register_breaker(health)
         deadline = (None if cfg.execution_timeout_s is None
                     else time.monotonic() + cfg.execution_timeout_s)
 

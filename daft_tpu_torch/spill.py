@@ -36,10 +36,19 @@ io/prefetch.py) and the batching executor's buffered partitions
 buffer's spill decision charges ``current``, ``prefetch_inflight`` and
 ``batch_inflight`` against the budget, as the reference does.
 
+Observability: a spill records a ``spill`` event (``mode`` sync or async)
+and a throttled unspill preload a ``throttle`` event; the async write runs
+as a ``spill.write`` bg span and a readahead load as a ``spill.read`` bg
+span, each parented to the op that caused it through the profiler's
+``capture()``/``activate()`` and run under the query id of the thread that
+submitted it. A failed write logs ``spill_write_failed`` (or
+``spill_disk_full``), a double release ``ledger_negative_release``, and a
+recompute ``partition_recomputed`` (or ``spill_lineage_truncated``,
+``lineage_recompute_failed``), with a ``partition_recomputed`` event.
+
 Left out: the ledger's accounts for producers the port does not have yet
-(streaming channels, the scheduler's parked outputs, distributed workers),
-the child ledgers of the serving runtime, and the profiler spans and log
-lines.
+(streaming channels, the scheduler's parked outputs, distributed workers)
+and the child ledgers of the serving runtime.
 """
 
 from __future__ import annotations
@@ -58,6 +67,9 @@ import pyarrow as pa
 from . import faults
 from .errors import DaftCorruptionError, DaftInternalError, DaftTransientError
 from .micropartition import MicroPartition
+from .obs.log import current_query_id, get_logger, query_context
+
+logger = get_logger("spill")
 from .table import Table
 
 # marks threads running background IO (unspill readahead): a spill read on
@@ -153,6 +165,7 @@ class MemoryLedger:
                 # double release: clamp rather than poison every later
                 # budget decision with a negative balance, and count it
                 self.negative_releases += 1
+                logger.warning("ledger_negative_release", released=n, current=self.current)
                 self.current = 0
             else:
                 self.current -= n
@@ -493,14 +506,22 @@ class _SpillSlotTask:
         if recipe is None:
             if self._rt_stats is not None:
                 self._rt_stats.bump("lineage_truncated")
+            logger.warning("spill_lineage_truncated", path=self.path, cause=repr(cause))
             return None
         try:
             tbl = _concat_chunk_tables(recipe())
-        except (OSError, pa.ArrowException):
+        except (OSError, pa.ArrowException) as e:
             # the source's own read failed: the original corruption stands
+            logger.warning("lineage_recompute_failed", path=self.path, error=repr(e),
+                           cause=repr(cause))
             return None
         if self._rt_stats is not None:
             self._rt_stats.bump("partitions_recomputed")
+            if self._rt_stats.profiler.armed:
+                self._rt_stats.profiler.event("partition_recomputed", path=self.path,
+                                              rows=len(tbl))
+        logger.warning("partition_recomputed", path=self.path, rows=len(tbl),
+                       cause=repr(cause))
         return tbl
 
     # head() and select_columns() on an unloaded partition narrow its task:
@@ -653,7 +674,7 @@ def _is_disk_full(e: BaseException) -> bool:
     return isinstance(e, OSError) and e.errno == errno.ENOSPC
 
 
-def _classify_spill_failure(e: BaseException, path: str, ledger: "MemoryLedger",
+def _classify_spill_failure(e: BaseException, path: str, mode: str, ledger: "MemoryLedger",
                             stats) -> None:
     """Count a failed spill write (synchronous or async). A full disk
     (ENOSPC) is counted apart (``spill_disk_full``, the ledger's
@@ -667,6 +688,9 @@ def _classify_spill_failure(e: BaseException, path: str, ledger: "MemoryLedger",
             os.remove(path)
         except FileNotFoundError:
             pass
+        logger.warning("spill_disk_full", mode=mode, path=path, error=repr(e))
+    else:
+        logger.warning("spill_write_failed", mode=mode, path=path, error=repr(e))
     if stats is not None:
         stats.bump("spill_write_failures")
 
@@ -692,6 +716,31 @@ def _write_spill_ipc(path: str, tbls) -> int:
                 at = at.cast(schema)
             w.write_table(at)
     return os.path.getsize(path)
+
+
+class _bg_span:
+    """``with _bg_span(prof, token, name) as sp``: a ``bg`` span on a
+    background thread, parented to the captured ``token`` (None, and no
+    span, when the query is not profiled)."""
+
+    __slots__ = ("_prof", "_token", "_name", "_act", "_sp")
+
+    def __init__(self, prof, token, name: str):
+        self._prof, self._token, self._name = prof, token, name
+        self._act = self._sp = None
+
+    def __enter__(self):
+        if self._token is not None:
+            self._act = self._prof.activate(self._token)
+            self._act.__enter__()
+            self._sp = self._prof.begin(self._name, kind="bg")
+        return self._sp
+
+    def __exit__(self, *exc):
+        if self._sp is not None:
+            self._prof.end(self._sp)
+            self._act.__exit__(None, None, None)
+        return False
 
 
 def _corrupt_if_armed(path: str, stats) -> None:
@@ -812,7 +861,7 @@ class PartitionBuffer:
             dt = time.perf_counter_ns() - t0
         except SPILL_WRITE_FAILURES as e:
             # hold the partition in memory; the slot goes back on the list
-            _classify_spill_failure(e, path, self.ledger, self.stats)
+            _classify_spill_failure(e, path, "sync", self.ledger, self.stats)
             self.scope.recycle(path)
             if lineage_key is not None:
                 self.lineage.forget(lineage_key)
@@ -831,6 +880,8 @@ class PartitionBuffer:
             self.stats.bump("spill_write_ns", dt)
             # a synchronous spill stalls the breaker for the whole write
             self.stats.io_wait(dt)
+            if self.stats.profiler.armed:
+                self.stats.profiler.event("spill", mode="sync", rows=nrows, bytes=file_bytes)
         task = _SpillSlotTask(path, schema, nrows, file_bytes, self.scope,
                               rt_stats=self.stats, ledger=self.ledger, expected_crc=crc,
                               lineage=self.lineage, lineage_key=lineage_key)
@@ -850,33 +901,42 @@ class PartitionBuffer:
                                    rt_stats=self.stats, ledger=self.ledger, reader=reader,
                                    lineage=self.lineage, lineage_key=lineage_key)
         stats, ledger, integrity = self.stats, self.ledger, self.integrity
+        # the submitting thread's span and query id: the write, on the
+        # writer thread, is attributed to the op and query that spilled
+        prof = stats.profiler if stats is not None else None
+        token = prof.capture() if prof is not None and prof.armed else None
+        qid = current_query_id()
 
         def job():
             # host arrow only: no CUDA call runs on the writer thread
-            try:
-                faults.check("spill.write", stats)
-                t0 = time.perf_counter_ns()
-                file_bytes = _write_spill_ipc(path, tbls)
-                dt = time.perf_counter_ns() - t0
-            except SPILL_WRITE_FAILURES as e:
-                # as the synchronous path, found late: hold in memory
-                _classify_spill_failure(e, path, ledger, stats)
-                ledger.async_spill_failed(size)
-                task._write_failed(size)
-                return
-            crc = None
-            if integrity:
-                from .integrity.checksum import crc32_file
+            with query_context(qid), _bg_span(prof, token, "spill.write") as sp:
+                try:
+                    faults.check("spill.write", stats)
+                    t0 = time.perf_counter_ns()
+                    file_bytes = _write_spill_ipc(path, tbls)
+                    dt = time.perf_counter_ns() - t0
+                except SPILL_WRITE_FAILURES as e:
+                    # as the synchronous path, found late: hold in memory
+                    _classify_spill_failure(e, path, "async", ledger, stats)
+                    ledger.async_spill_failed(size)
+                    task._write_failed(size)
+                    return
+                crc = None
+                if integrity:
+                    from .integrity.checksum import crc32_file
 
-                crc = crc32_file(path)
-            _corrupt_if_armed(path, stats)
-            ledger.async_spill_done(size)
-            ledger.record_spill_write(file_bytes, dt)
-            task._write_done(file_bytes, crc)
-            if stats is not None:
-                stats.bump("spilled_partitions")
-                stats.bump("spill_write_bytes", file_bytes)
-                stats.bump("spill_write_ns", dt)
+                    crc = crc32_file(path)
+                _corrupt_if_armed(path, stats)
+                ledger.async_spill_done(size)
+                ledger.record_spill_write(file_bytes, dt)
+                task._write_done(file_bytes, crc)
+                if stats is not None:
+                    stats.bump("spilled_partitions")
+                    stats.bump("spill_write_bytes", file_bytes)
+                    stats.bump("spill_write_ns", dt)
+                if sp is not None:
+                    sp.set_attr("bytes", file_bytes)
+                    prof.event("spill", mode="async", rows=nrows, bytes=file_bytes)
 
         ledger.async_spill_started(size)
         t0 = time.perf_counter_ns()
@@ -916,16 +976,23 @@ class PartitionBuffer:
                     and submitted_bytes + est > self.budget):
                 if self.stats is not None:
                     self.stats.bump("preload_throttled")
+                    if self.stats.profiler.armed:
+                        self.stats.profiler.event("throttle", what="unspill_preload", bytes=est)
                 return
             self._submit_load(p)
             submitted_bytes += est
 
     def _submit_load(self, part: MicroPartition):
+        prof = self.stats.profiler if self.stats is not None else None
+        token = prof.capture() if prof is not None and prof.armed else None
+        qid = current_query_id()
+
         def job():
             # host arrow only: the columns stage on the consumer thread
             _BG_IO.active = True
             try:
-                return part.table()
+                with query_context(qid), _bg_span(prof, token, "spill.read"):
+                    return part.table()
             finally:
                 _BG_IO.active = False
 

@@ -43,21 +43,31 @@ SPILL_BASE = {"executor_threads": 1, "async_spill_writes": False}
 
 
 def fresh_ledgers_and_faults() -> None:
-    """Both packages' process-wide memory ledgers at 0 and both fault
-    registries disarmed. A budgeted case's spill decisions read the ledger,
-    which holds what earlier queries in the process left there: a reference
-    query that fails under an injected fault can leave its buffers' bytes
-    charged (tests/test_sketch_aggs.py's fault cases leave 15280), and the
-    reference then spills more than the port over the same data."""
+    """Both packages' process-wide memory ledgers at 0, both fault
+    registries disarmed, and both query logs and structured-log rings
+    empty. A budgeted case's spill decisions read the ledger, which holds
+    what earlier queries in the process left there: a reference query that
+    fails under an injected fault can leave its buffers' bytes charged
+    (tests/test_sketch_aggs.py's fault cases leave 15280), and the
+    reference then spills more than the port over the same data. The
+    observability cases read the query logs and the log rings."""
     from daft_tpu import faults as ref_faults
+    from daft_tpu.obs import log as ref_log
+    from daft_tpu.obs.querylog import QUERY_LOG as REF_QUERY_LOG
     from daft_tpu.spill import MEMORY_LEDGER as REF_LEDGER
     from daft_tpu_torch import faults
+    from daft_tpu_torch.obs import log as obs_log
+    from daft_tpu_torch.obs.querylog import QUERY_LOG
     from daft_tpu_torch.spill import MEMORY_LEDGER
 
     for led in (REF_LEDGER, MEMORY_LEDGER):
         led.reset()
     ref_faults.disarm()
     faults.disarm()
+    for qlog in (REF_QUERY_LOG, QUERY_LOG):
+        qlog.clear()
+    for ring in (ref_log, obs_log):
+        ring.clear()
 
 
 def spill_dirs() -> set:
