@@ -5404,7 +5404,7 @@ OBS_METRICS = ("daft_tpu_queries_total", "daft_tpu_query_seconds_count",
 def dispatch_phases_ok(qp, counters: dict) -> tuple:
     """Whether every device aggregate of a profiled query records its host
     staging and launch as a device_dispatch phase of its aggregate op's
-    spans. The double-buffered map driver launches partition i + 1 in the
+    spans. The double-buffered map loop launches partition i + 1 in the
     pull that returns partition i, so each pull of an aggregate op but the
     last carries the phase (the one pull of a one-partition op carries it),
     and no device_dispatch lands outside a span. Returns (ok, detail)."""

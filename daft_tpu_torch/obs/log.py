@@ -19,8 +19,8 @@ through ``query_context``. A line emitted from any of those threads
 carries the query that caused the work.
 
 Left out: ``inject``, which relays a worker process's records into the
-driver's ring; its one caller is the telemetry merge of the distributed
-runner (ROADMAP Queue 1, item 10, ``dist/``).
+coordinating process's ring; its one caller is the telemetry merge of the
+distributed runner (ROADMAP Queue 1, item 10, ``dist/``).
 """
 
 from __future__ import annotations

@@ -12,7 +12,7 @@ Rollup semantics (kept deliberately reconcilable with RuntimeStats):
 
 - ``wall_ns``  sum of the op's span durations (inclusive)
 - ``self_ns``  wall minus SAME-THREAD child op spans, the quantity
-  ``RuntimeStats.op_wall_ns`` accumulates in the sequential driver, so the
+  ``RuntimeStats.op_wall_ns`` accumulates in the sequential executor, so the
   two agree by construction (within 5 %)
 - ``io_wait_ns``/``queue_wait_ns``  phase buckets recorded where the wait
   happened, aggregated to the nearest enclosing op
@@ -160,7 +160,7 @@ def build_profile(profiler: Profiler, stats=None) -> QueryProfile:
     by_id = {s.sid: s for s in spans}
 
     # same-thread child-op durations (for self time, mirroring the
-    # driver's thread-local stack accounting)
+    # executor's thread-local stack accounting)
     child_op_ns: Dict[int, int] = {}
     for s in spans:
         if s.kind != "op":

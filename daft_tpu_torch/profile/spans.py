@@ -225,7 +225,7 @@ class Profiler:
 
     def begin(self, name: str, op: Optional[str] = None,
               part: Optional[int] = None, kind: str = "op") -> Optional[Span]:
-        """Open a span on this thread (explicit begin/end for driver loops
+        """Open a span on this thread (explicit begin/end for executor loops
         where a ``with`` block cannot wrap the measured region)."""
         if not self.armed:
             return None
@@ -258,7 +258,7 @@ class Profiler:
                 self._spans.append(sp)
 
     def cancel(self, sp: Optional[Span]) -> None:
-        """Close a begun span WITHOUT recording it (the driver's final empty
+        """Close a begun span WITHOUT recording it (the executor's final empty
         pull, a StopIteration, is not a partition)."""
         if sp is None:
             return
