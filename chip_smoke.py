@@ -224,11 +224,35 @@ Phases, each of which fails the run:
      armed three times (its fault and breaker events and log line), the
      query log, health() during and after a query, metrics_text() and a
      slow query's diagnostics bundle.
+ 17. the partition scheduler and the morsel pipeline around K1, K2 and the
+     scatter kernel (needs SF1 in --scales; phase_scheduling), over phase
+     3's SF1 lineitem and phase 7's SF1 tables: Q1 composed and deep over 8
+     partitions whose first declines the card, so the pool's threads launch
+     K1 (and build one new K2 program once, under concurrent first use),
+     bit for bit against one thread; Q1 over 4 even partitions on the
+     double-buffered driver; hash-join Q3 with streaming on and off; a
+     limit over a streamed chain (short-circuits, time to the first row);
+     DataFrame.cancel() from a second thread during Q3; the ledger's window
+     accounts at 0 after every query.
 
-Phases 8-11, phase 15 but its SF1 SQL leg, and phase 16 run after phase 7
-and before phase 4, while the 22-query tables are still being generated. Phases 1-10 turn feedback-directed
+Every phase runs under the port's defaults: one worker thread per core
+(executor_threads 0) and the morsel pipeline on. The legs whose held counts
+follow the order in which pool threads finish (phase 8, phase 10's
+budgeted counts, phase 16 (c) and (d)) run on one thread (ONE_THREAD), as
+the reference's tests pin them, and so does phase 16 (a), whose checks read
+the sequential driver's spans. The legs that hold a map op's route counters
+to the CPU tests' one-unit-a-partition pins run with streaming off
+(PARTITION_ROUTES: phase 3's single ops and joins, phase 4 at SF1, phase
+5, phase 6's Q1/Q6/Q3/Q5 and phase 7's unsigned projection and filter),
+since in device-morsel mode a chain over an SF1 partition counts a unit a
+morsel; phase 17 holds the streamed runs to the partition path's rows and
+launches.
+
+Phases 8-11, phase 15 but its SF1 SQL leg, and phases 16 and 17 run after
+phase 7 and before phase 4, while the 22-query tables are still being
+generated. Phases 1-10 turn feedback-directed
 planning and the whole-plan result cache off (PLAN_PINS): each times its
-plans as written. Every query of phases 1-7 and 9-16 (but the ids' Q6
+plans as written. Every query of phases 1-7 and 9-17 (but the ids' Q6
 and largest id and the fault cases of phases 10-13 and 16) is held
 to 0 device_attempt_failures, device_breaker_trips, degraded_completions,
 faults_injected, join_filter_errors and every *_fallbacks counter (Phases.watch reads them as collect() returns, and each
@@ -266,15 +290,17 @@ RTOL_X64 = 1e-9              # phase 6, the 64-bit mode, against the pyarrow ora
 SF1_BUCKET = 8_388_608       # size_bucket of SF1's 6,000,000 lineitem rows
 
 
-def q1(lineitem):
-    """TPC-H Q1 (pricing summary report) over a daft_tpu_torch DataFrame."""
+def q1(lineitem, shipdate: datetime.date = datetime.date(1998, 9, 2)):
+    """TPC-H Q1 (pricing summary report) over a daft_tpu_torch DataFrame
+    (``shipdate`` is the predicate's literal; phase 17 changes it to make a
+    new deep program)."""
     from daft_tpu_torch import col
 
     disc_price = col("l_extendedprice") * (1 - col("l_discount"))
     charge = disc_price * (1 + col("l_tax"))
     return (
         lineitem
-        .where(col("l_shipdate") <= datetime.date(1998, 9, 2))
+        .where(col("l_shipdate") <= shipdate)
         .groupby("l_returnflag", "l_linestatus")
         .agg(
             col("l_quantity").sum().alias("sum_qty"),
@@ -460,6 +486,19 @@ def q3_parity(got: dict, want: dict, groups: dict, rtol: float) -> bool:
 # plan cache stays on everywhere (a warm run that skips planning is what a
 # user's repeated query gets).
 PLAN_PINS = {"enable_result_cache": False, "history_fdo": False}
+# the legs whose held counts follow the order in which pool threads finish
+# (phase 8's armed faults and breaker, phase 10's budgeted spill counts,
+# phase 16 (c) and (d)) run on one executor thread, as the reference's own
+# tests pin them (tests/test_faults.py, tests/torch_parity.py SPILL_BASE),
+# and so does phase 16 (a), whose checks read the sequential driver's spans
+ONE_THREAD = {"executor_threads": 1}
+# the legs that hold a map op's route counters to the CPU tests' pins, one
+# unit a partition (device_fused_maps, device_filters, device_projections,
+# ..., where no CPU test's partition exceeds the morsel size), run with
+# streaming off: in device-morsel mode a chain over an SF1 partition counts
+# one unit a morsel (46 over SF1 lineitem). Phase 17 holds the streamed
+# runs' rows and launches to the partition path's
+PARTITION_ROUTES = {"streaming_execution": False}
 
 
 def config(**kw):
@@ -1590,7 +1629,7 @@ def phase_single_ops(ph: Phases, lineitem, card: str) -> dict:
                      "device_distincts"),
     }
     want = single_op_oracles(lineitem)
-    dtt.set_execution_config(config())
+    dtt.set_execution_config(config(**PARTITION_ROUTES))
     frame = dtt.from_arrow(lineitem).collect()
     out = {}
     for name, (query, counter) in queries.items():
@@ -1755,7 +1794,7 @@ def phase_joins(ph: Phases, scale: float, card: str, profile: bool,
         def run(plan=plan):
             return plan().collect()
 
-        dtt.set_execution_config(config())
+        dtt.set_execution_config(config(**PARTITION_ROUTES))
         module, attr = capture[name]
         real = getattr(module, attr)
 
@@ -2036,7 +2075,7 @@ def phase_tpch22(ph: Phases, queries, data: dict, card: str, profile: bool) -> d
     del hframes
 
     # the CPU tests' configuration, so that the routing compares with theirs
-    dtt.set_execution_config(config(device_min_rows=8))
+    dtt.set_execution_config(config(device_min_rows=8, **PARTITION_ROUTES))
     frames = tpch22_frames(data, 1)
     rows = {k: v.num_rows for k, v in data.items()}
     warm_by_query = {}
@@ -2265,8 +2304,8 @@ def phase_lanes(ph: Phases, data: dict, card: str) -> dict:
         def run(query=query, frames=frames):
             return query(frames).collect()
 
-        dtt.set_execution_config(config(device_min_rows=8,
-                                        use_deep_fusion_kernel=deep))
+        dtt.set_execution_config(config(device_min_rows=8, use_deep_fusion_kernel=deep,
+                                        **PARTITION_ROUTES))
         ss.LAUNCHES = fes.LAUNCHES = scs.LAUNCHES = 0
         t0 = time.perf_counter()
         df = run()
@@ -2372,7 +2411,7 @@ def x64_drive(ph: Phases, name: str, x64: bool, source: dict, want: dict, groups
     from daft_tpu_torch.kernels import segment_sums as ss
 
     query, args, probes = X64_QUERIES[name]
-    dtt.set_execution_config(config(device_x64=x64))
+    dtt.set_execution_config(config(device_x64=x64, **PARTITION_ROUTES))
     frames = [dtt.from_arrow(source[a]).collect() for a in args]
     real = scs.scatter_sum_kahan
 
@@ -2759,9 +2798,10 @@ def exchange_items(tables: dict, scale: float, q3_oracle: tuple) -> tuple:
     items["unsigned_projection"] = (
         lambda frames: frames["unsigned"].select((col("u8") + col("u8")).alias("a"),
                                                  (col("u32") * col("u32")).alias("m")),
-        {}, proj_check, {"device_projections": 1, "host_projections": 0})
-    items["unsigned_filter"] = (lambda frames: frames["unsigned"].where(col("u16") > 25), {},
-                                table_check(want_filter), {"device_filters": 1, "host_filters": 0})
+        PARTITION_ROUTES, proj_check, {"device_projections": 1, "host_projections": 0})
+    items["unsigned_filter"] = (lambda frames: frames["unsigned"].where(col("u16") > 25),
+                                PARTITION_ROUTES, table_check(want_filter),
+                                {"device_filters": 1, "host_filters": 0})
     items["unsigned_sort"] = (lambda frames: frames["unsigned"].sort(["u32", "k"]), {},
                               table_check(want_sort), {"device_sorts": 1, "host_sorts": 0})
     items["unsigned_group"] = (
@@ -3061,7 +3101,7 @@ def phase_faults(ph: Phases, lineitem, tables: dict, q3_oracle: tuple, main_sf1:
     out = {"k1_launches": 0, "k2_launches": 0, "scatter_launches": 0}
 
     def drive_case(name, build, overrides, plan=None):
-        dtt.set_execution_config(config(**overrides))
+        dtt.set_execution_config(config(**ONE_THREAD, **overrides))
         if plan is not None:
             faults.arm(plan[0], plan[1], **plan[2])
         ss.LAUNCHES = fes.LAUNCHES = scs.LAUNCHES = 0
@@ -3108,7 +3148,7 @@ def phase_faults(ph: Phases, lineitem, tables: dict, q3_oracle: tuple, main_sf1:
     def broken(*a, **kw):
         raise DaftKernelError("masked_segment_sums kernel launch failed: replaced wrapper")
 
-    dtt.set_execution_config(config())
+    dtt.set_execution_config(config(**ONE_THREAD))
     df = q1(frames["lineitem_4"])
     ss.masked_segment_sums_padded = broken
     try:
@@ -3125,7 +3165,7 @@ def phase_faults(ph: Phases, lineitem, tables: dict, q3_oracle: tuple, main_sf1:
              f"the breaker closed (counters {dict((k, c.get(k, 0)) for k in HEALTH_COUNTERS)})")
 
     # a deadline
-    dtt.set_execution_config(config(execution_timeout_s=1e-6))
+    dtt.set_execution_config(config(execution_timeout_s=1e-6, **ONE_THREAD))
     try:
         q1(frames["lineitem_4"]).collect()
         err = None
@@ -3137,7 +3177,7 @@ def phase_faults(ph: Phases, lineitem, tables: dict, q3_oracle: tuple, main_sf1:
              f"phase 8 deadline: DaftTimeoutError ({err}), deadline_expired {expired}")
 
     # nothing armed: warm Q1 and Q6 over one partition beside phase 3's runs
-    dtt.set_execution_config(config())
+    dtt.set_execution_config(config(**ONE_THREAD))
     frame = dtt.from_arrow(lineitem).collect()
     for name, query in (("q1", q1), ("q6", q6)):
         ss.LAUNCHES = 0
@@ -3685,7 +3725,7 @@ def phase_spill(ph: Phases, tables: dict, card: str) -> dict:
     from daft_tpu_torch.spill import MEMORY_LEDGER
 
     t0 = time.perf_counter()
-    dtt.set_execution_config(config())
+    dtt.set_execution_config(config(**ONE_THREAD))
     frames = {k: dtt.from_arrow(tables[k]).into_partitions(SPILL_PARTS).collect()
               for k in ("lineitem", "orders", "customer")}
     cases = spill_cases(frames, tables)
@@ -3727,7 +3767,7 @@ def phase_spill(ph: Phases, tables: dict, card: str) -> dict:
         if fault is not None and ph.phase is not None:
             ph.begin(None)  # the fault cases read their own counters
         base = shares or name
-        dtt.set_execution_config(config(**overrides))
+        dtt.set_execution_config(config(**ONE_THREAD, **overrides))
         if base not in plain:
             df, rows, cold, launches = timed(build)
             c = df.stats.snapshot()["counters"]
@@ -3737,7 +3777,7 @@ def phase_spill(ph: Phases, tables: dict, card: str) -> dict:
             del df
         ref = plain[base]
         budget = ref["budget"]
-        dtt.set_execution_config(config(memory_budget_bytes=budget, **overrides))
+        dtt.set_execution_config(config(memory_budget_bytes=budget, **ONE_THREAD, **overrides))
         MEMORY_LEDGER.reset()
         df, got, cold, launches = timed(build, fault[0] if fault else None)
         c = df.stats.snapshot()["counters"]
@@ -3803,7 +3843,7 @@ def phase_spill(ph: Phases, tables: dict, card: str) -> dict:
         out[name] = res
         print(f"{label} " + json.dumps(res), flush=True)
         torch.cuda.empty_cache()
-    dtt.set_execution_config(config())
+    dtt.set_execution_config(config(**ONE_THREAD))
     del frames, cases, plain
     torch.cuda.empty_cache()
     return out
@@ -4460,11 +4500,15 @@ def phase_scans(ph: Phases, files: ParquetFiles, data: dict, card_rows: dict, li
             raised = None
         except DaftTransientError as e:
             raised = e
-        attempts = dtt.get_context().execution_config.scan_retry_attempts
-        ph.check(raised is not None and IO_STATS.retries == attempts,
+        cfg = dtt.get_context().execution_config
+        attempts, runs = cfg.scan_retry_attempts, cfg.task_retry_attempts + 1
+        # the partition's task runs `runs` times (the scheduler's retries, each
+        # counted as a retry too), each read `attempts` times
+        want_retries = attempts * runs + (runs if runs > 1 else 0)
+        ph.check(raised is not None and IO_STATS.retries == want_retries,
                  f"SF1 scan scan.read always: the reader's error reaches the caller "
-                 f"({type(raised).__name__}) after {IO_STATS.retries} attempts "
-                 f"(scan_retry_attempts {attempts})")
+                 f"({type(raised).__name__}) after {IO_STATS.retries} retries counted "
+                 f"({runs} runs of the task, scan_retry_attempts {attempts})")
     finally:
         faults.disarm()
 
@@ -5532,7 +5576,11 @@ def phase_observability(ph: Phases, lineitem, tables: dict, q3_oracle: tuple,
     for deep in (False, True):
         for parts in (1, OBS_PARTS):
             label = f"SF1 obs q1 {'deep' if deep else 'composed'} {parts}p"
-            dtt.set_execution_config(config(use_deep_fusion_kernel=deep))
+            # one thread: the double-buffered driver whose dispatch phases
+            # the checks read (on the pool a declining first partition's
+            # probe lands on the enclosing span, as in the reference, and
+            # the workers' spans cover more than their map's own time)
+            dtt.set_execution_config(config(use_deep_fusion_kernel=deep, **ONE_THREAD))
             _, want, cold, want_l = run(q1(frames[parts]), False)
             q1_rows[(deep, parts)] = want
             walls = {False: [], True: []}
@@ -5600,7 +5648,7 @@ def phase_observability(ph: Phases, lineitem, tables: dict, q3_oracle: tuple,
 
         # (c) the same Q3 spilling under a quarter of its exchange bytes
         dtt.set_execution_config(config(broadcast_join_size_bytes_threshold=0,
-                                        memory_budget_bytes=max(1, exch // 4)))
+                                        memory_budget_bytes=max(1, exch // 4), **ONE_THREAD))
         MEMORY_LEDGER.reset()
         df, got, secs, launches = run(q3(q3f["customer"], q3f["orders"], q3f["lineitem"]), True)
         qp = check_profile("SF1 obs q3 budgeted", df)
@@ -5655,7 +5703,7 @@ def phase_observability(ph: Phases, lineitem, tables: dict, q3_oracle: tuple,
 
     # (d) device.kernel armed three times; the health checks stand down
     ph.begin(None)
-    dtt.set_execution_config(config(device_breaker_threshold=3))
+    dtt.set_execution_config(config(device_breaker_threshold=3, **ONE_THREAD))
     faults.arm("device.kernel", "first_n", n=3)
     try:
         df, got, _, launches = run(q1(frames[OBS_PARTS]), True)
@@ -5711,6 +5759,297 @@ def phase_observability(ph: Phases, lineitem, tables: dict, q3_oracle: tuple,
     out["wall_s"] = time.perf_counter() - t_phase
     print(f"SF1 obs phase 16 wall {out['wall_s']:.1f}s ({card})", flush=True)
     del frames
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the scheduler and the morsel pipeline
+# ---------------------------------------------------------------------------
+
+SCHED_PARTS = 8           # (a) and (b): Q1 over this many partitions, the first ...
+SCHED_FIRST_ROWS = 100    # ... of this many rows, under device_min_rows
+SCHED_EVEN_PARTS = 4      # (c), (d) and (f): this many even partitions
+SCHED_DEEP_DATE = datetime.date(1998, 8, 17)  # (b)'s literal, used by no earlier phase
+SCHED_LIMIT = 10          # (e)
+
+
+def phase_scheduling(ph: Phases, lineitem, tables: dict, q3_oracle: tuple, card: str) -> dict:
+    """Phase 17: the partition scheduler (scheduler.py) and the morsel
+    pipeline (stream/) around K1, K2 and the scatter kernel on the card, in
+    the 32-bit mode, over phase 3's SF1 lineitem (seed 42) and phase 7's SF1
+    tables, under the port's defaults (executor_threads 0: one worker per
+    core; streaming on).
+    (a) composed Q1 over SCHED_PARTS partitions whose first holds
+    SCHED_FIRST_ROWS rows: the first declines the card, so the stream goes
+    to the pool and the other partitions launch K1 from its threads (at
+    least 2 distinct thread ids). The rows equal executor_threads=1's bit
+    for bit (pyarrow Table.equals) and the oracle's at RTOL; K1 launches,
+    device_aggregations and host_aggregations are equal both ways.
+    (b) the same deep (K2) with a predicate literal no earlier phase used:
+    the pool's threads ask for one new program at once, and exactly one
+    nvcc build happens (one new library, one new program); the rows equal
+    one thread's bit for bit.
+    (c) Q1 over SCHED_EVEN_PARTS even partitions: the first accepts, the
+    double-buffered driver keeps the stream on the consumer's thread, K1
+    launches SCHED_EVEN_PARTS times.
+    (d) Q3 with hash joins over SCHED_EVEN_PARTS partitions (its stages
+    through K1) and with broadcast joins over one partition (its groups
+    through the scatter kernel), each with streaming on and off: its filters
+    stream in device-morsel mode (stream_morsels > 0 on), q3_parity both
+    ways, equal K1 and scatter launches.
+    (e) a Limit of SCHED_LIMIT over a Filter/Project chain on the card over
+    the one-partition lineitem: morsels_short_circuited > 0, the time to the
+    first row printed.
+    (f) DataFrame.cancel() from a second thread during (d)'s Q3: it raises
+    QueryCancelledError, the query log records cancelled, the ledger's
+    current, exec_inflight and stream_inflight and the scheduler's window
+    read 0, and the next Q1 gives (a)'s rows.
+    (g) after every query of the phase, exec_inflight and stream_inflight
+    read 0.
+    The warm walls of (a) at one thread and at the default, and of (d) with
+    streaming on and off, are printed (findings, not claims)."""
+    import threading
+
+    import torch
+
+    import daft_tpu_torch as dtt
+    from benchmarks import tpch
+    from daft_tpu_torch.execution import QueryCancelledError
+    from daft_tpu_torch.kernels import fused_expr_sums as fes
+    from daft_tpu_torch.kernels import nvcc
+    from daft_tpu_torch.kernels import scatter_sums as scs
+    from daft_tpu_torch.kernels import segment_sums as ss
+    from daft_tpu_torch.obs.querylog import QUERY_LOG
+    from daft_tpu_torch.scheduler import inflight_tasks
+    from daft_tpu_torch.spill import MEMORY_LEDGER
+
+    t_phase = time.perf_counter()
+    out = {"k1_launches": 0, "k2_launches": 0, "scatter_launches": 0, "card": card}
+    windows_ok = []  # (g): (label, exec_inflight, stream_inflight) after each query
+
+    def run(label, df):
+        """Collect and fetch with the launches counted from 0: (frame, arrow
+        result, seconds, launches, counters)."""
+        ss.LAUNCHES = fes.LAUNCHES = scs.LAUNCHES = 0
+        t = time.perf_counter()
+        df = df.collect()
+        got = df.to_arrow()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        launches = {"k1": ss.LAUNCHES, "k2": fes.LAUNCHES, "scatter": scs.LAUNCHES}
+        for k, n in launches.items():
+            out[f"{k}_launches"] += n
+        led = MEMORY_LEDGER.snapshot()
+        windows_ok.append((label, led["exec_inflight"], led["stream_inflight"]))
+        return df, got, secs, launches, df.stats.snapshot()["counters"]
+
+    # the threads that call K1's and K2's wrappers on the config's device
+    callers = []
+    real_k1, real_k2 = ss.masked_segment_sums_padded, fes.fused_expr_sums
+    dev_type = torch.device(config().device).type
+
+    def k1_watch(codes, *a, **k):
+        if codes.device.type == dev_type:
+            callers.append((threading.get_ident(), threading.current_thread().name))
+        return real_k1(codes, *a, **k)
+
+    def k2_watch(prog, codes, *a, **k):
+        if codes.device.type == dev_type:
+            callers.append((threading.get_ident(), threading.current_thread().name))
+        return real_k2(prog, codes, *a, **k)
+
+    rest = lineitem.num_rows - SCHED_FIRST_ROWS
+    step = -(-rest // (SCHED_PARTS - 1))
+    skewed = dtt.from_arrow([lineitem.slice(0, SCHED_FIRST_ROWS)] + [
+        lineitem.slice(SCHED_FIRST_ROWS + i * step, step) for i in range(SCHED_PARTS - 1)])
+    even_step = -(-lineitem.num_rows // SCHED_EVEN_PARTS)
+    even = dtt.from_arrow([lineitem.slice(i * even_step, even_step)
+                           for i in range(SCHED_EVEN_PARTS)])
+    oracle = tpch.oracle_q1(lineitem)
+    ss.masked_segment_sums_padded, fes.fused_expr_sums = k1_watch, k2_watch
+    try:
+        # (a) and (b): the pool's threads launch K1, then a new K2 program
+        for deep in (False, True):
+            kind = "deep" if deep else "composed"
+            date = SCHED_DEEP_DATE if deep else datetime.date(1998, 9, 2)
+            res = {}
+            for threads in (1, 0):
+                dtt.set_execution_config(config(use_deep_fusion_kernel=deep,
+                                                executor_threads=threads))
+                if deep and threads == 1:
+                    # one thread goes second for the deep program: the pool
+                    # builds it first, under concurrent first use
+                    continue
+                callers.clear()
+                sos = set(nvcc.BUILD_DIR.glob("*.so"))
+                nprog = len(fes.programs())
+                df, got, cold, launches, c = run(f"(a/b) q1 {kind} {threads}t",
+                                                 q1(skewed, date))
+                cold_callers = list(callers)
+                warm = [run(f"(a/b) q1 {kind} {threads}t warm", q1(skewed, date))[2]
+                        for _ in range(2)]
+                res[threads] = {"rows": got, "launches": launches, "cold_s": cold,
+                                "warm_s": warm, "callers": cold_callers,
+                                "new_libraries": len(set(nvcc.BUILD_DIR.glob("*.so")) - sos),
+                                "new_programs": len(fes.programs()) - nprog,
+                                "routes": (c.get("device_aggregations", 0),
+                                           c.get("host_aggregations", 0))}
+            if deep:
+                dtt.set_execution_config(config(use_deep_fusion_kernel=True, executor_threads=1))
+                callers.clear()
+                df, got, cold, launches, c = run("(b) q1 deep 1t", q1(skewed, date))
+                res[1] = {"rows": got, "launches": launches, "cold_s": cold, "warm_s": [],
+                          "callers": list(callers), "routes": (
+                              c.get("device_aggregations", 0), c.get("host_aggregations", 0))}
+            pool, one = res[0], res[1]
+            pool_ids = {i for i, name in pool["callers"] if name.startswith("daft-torch-exec")}
+            kernel = "k2" if deep else "k1"
+            label = f"SF1 sched q1 {kind} {SCHED_PARTS}p (first {SCHED_FIRST_ROWS} rows)"
+            ok = (pool["rows"].equals(one["rows"]) and pool["routes"] == one["routes"]
+                  and pool["launches"][kernel] == one["launches"][kernel] == SCHED_PARTS - 1
+                  and len(pool_ids) >= 2
+                  and len(pool["callers"]) == SCHED_PARTS - 1
+                  and all(name.startswith("daft-torch-exec") for _, name in pool["callers"]))
+            if not deep:
+                ok = ok and parity(pool["rows"].to_pydict(), oracle, RTOL)
+                out["q1_rows"] = pool["rows"]
+            else:
+                ok = ok and pool["new_libraries"] == 1 and pool["new_programs"] == 1 \
+                    and not nvcc._RUNNING
+            ph.check(ok, f"{label}: the pool's rows equal one thread's bit for bit"
+                         + ("" if deep else f" and the oracle's at rtol {RTOL}")
+                         + f", {kernel} launches {pool['launches'][kernel]} and "
+                         f"{one['launches'][kernel]}, (device, host) aggregations "
+                         f"{pool['routes']} and {one['routes']}, {kernel} called from "
+                         f"{len(pool_ids)} pool threads"
+                         + (f", {pool['new_libraries']} new library and "
+                            f"{pool['new_programs']} new program" if deep else ""))
+            walls = {"one_thread_warm_s": one["warm_s"], "default_warm_s": pool["warm_s"],
+                     "one_thread_cold_s": one["cold_s"], "default_cold_s": pool["cold_s"],
+                     "pool_threads": len(pool_ids), "launches": pool["launches"], "card": card}
+            out[f"q1_{kind}"] = walls
+            print(f"{label} " + json.dumps(walls), flush=True)
+
+        # (c) the first of 4 even partitions accepts: the sequential driver
+        dtt.set_execution_config(config())
+        callers.clear()
+        df, got, secs, launches, c = run("(c) q1 4p", q1(even))
+        on_pool = [name for _, name in callers if name.startswith("daft-torch-exec")]
+        ph.check(launches["k1"] == SCHED_EVEN_PARTS and not on_pool
+                 and c.get("device_agg_dispatches", 0) == SCHED_EVEN_PARTS
+                 and parity(got.to_pydict(), oracle, RTOL),
+                 f"SF1 sched q1 {SCHED_EVEN_PARTS}p even: K1 launches {launches['k1']}, "
+                 f"{c.get('device_agg_dispatches', 0)} dispatches, {len(on_pool)} calls on pool "
+                 f"threads (the double-buffered driver), rows at rtol {RTOL}")
+    finally:
+        ss.masked_segment_sums_padded, fes.fused_expr_sums = real_k1, real_k2
+
+    # (d) Q3 with hash joins over 4 partitions (stage 1 and 2 through K1),
+    # and with broadcast joins over one (its ~11,600 groups through the
+    # scatter kernel), streaming on and off
+    want3, groups3 = q3_oracle
+    q3f = {k: dtt.from_arrow(tables[k]).into_partitions(SCHED_EVEN_PARTS).collect()
+           for k in ("customer", "orders", "lineitem")}
+    q3one = {k: dtt.from_arrow(tables[k]).collect() for k in ("customer", "orders", "lineitem")}
+    for shape, frames3, threshold in (("hash joins 4p", q3f, 0), ("broadcast joins 1p", q3one,
+                                                                  None)):
+        runs3 = {}
+        for streaming in (True, False):
+            kw = {} if threshold is None else {"broadcast_join_size_bytes_threshold": threshold}
+            dtt.set_execution_config(config(streaming_execution=streaming, **kw))
+            walls = []
+            for i in range(3):
+                df, got, secs, launches, c = run(
+                    f"(d) q3 {shape} stream {streaming}",
+                    q3(frames3["customer"], frames3["orders"], frames3["lineitem"]))
+                walls.append(secs)
+            runs3[streaming] = {"rows": got, "launches": launches, "walls": walls,
+                                "morsels": c.get("stream_morsels", 0)}
+        on, off = runs3[True], runs3[False]
+        kernel = "k1" if threshold == 0 else "scatter"
+        ph.check(q3_parity(on["rows"].to_pydict(), want3, groups3, RTOL)
+                 and q3_parity(off["rows"].to_pydict(), want3, groups3, RTOL)
+                 and on["morsels"] > 0 and off["morsels"] == 0
+                 and on["launches"]["k1"] == off["launches"]["k1"]
+                 and on["launches"]["scatter"] == off["launches"]["scatter"]
+                 and on["launches"][kernel] >= 1,
+                 f"SF1 sched q3 {shape}: q3_parity with streaming on and off, "
+                 f"{on['morsels']} morsels streamed on, launches {on['launches']} and "
+                 f"{off['launches']}")
+        key = "q3_" + shape.replace(" ", "_")
+        out[key] = {"streaming_cold_s": on["walls"][0], "streaming_warm_s": on["walls"][1:],
+                    "partition_cold_s": off["walls"][0], "partition_warm_s": off["walls"][1:],
+                    "stream_morsels": on["morsels"], "launches": on["launches"], "card": card}
+        print(f"SF1 sched q3 {shape} " + json.dumps(out[key]), flush=True)
+    del q3one
+
+    # (e) a limit over a chain on the card: the morsel sink stops early
+    one_frame = dtt.from_arrow(lineitem)
+    dtt.set_execution_config(config())
+    from daft_tpu_torch import col
+
+    df, got, secs, launches, c = run("(e) limit", one_frame.where(col("l_quantity") > 10)
+                                     .with_column("x", col("l_extendedprice") * 2.0)
+                                     .limit(SCHED_LIMIT))
+    short = c.get("morsels_short_circuited", 0)
+    ttfr = c.get("time_to_first_row_ns", 0)
+    want_e = [q > 10 for q in got.column("l_quantity").to_pylist()]
+    ph.check(got.num_rows == SCHED_LIMIT and all(want_e) and short > 0
+             and c.get("stream_morsels", 0) > 0 and ttfr > 0,
+             f"SF1 sched limit {SCHED_LIMIT}: {got.num_rows} rows, "
+             f"{c.get('stream_morsels', 0)} morsels streamed, {short} short-circuited, first "
+             f"row after {ttfr / 1e6:.2f} ms")
+    out["limit"] = {"wall_s": secs, "time_to_first_row_ms": ttfr / 1e6,
+                    "morsels_short_circuited": short, "card": card}
+
+    # (f) cancel from a second thread during Q3: once its first probe launches
+    dtt.set_execution_config(config(broadcast_join_size_bytes_threshold=0))
+    from daft_tpu_torch.execution import ExecutionContext
+
+    real_probe = ExecutionContext.eval_join_dispatch
+    holder = {}
+
+    def probe_then_cancel(self, *a, **k):
+        res = real_probe(self, *a, **k)
+        if "cancelled_by" not in holder:
+            t = threading.Thread(target=holder["df"].cancel)
+            t.start()
+            t.join()
+            holder["cancelled_by"] = t.name
+        return res
+
+    df = holder["df"] = q3(q3f["customer"], q3f["orders"], q3f["lineitem"])
+    ExecutionContext.eval_join_dispatch = probe_then_cancel
+    raised = None
+    try:
+        df.collect()
+    except QueryCancelledError as e:
+        raised = e
+    finally:
+        ExecutionContext.eval_join_dispatch = real_probe
+    torch.cuda.synchronize()
+    rec = QUERY_LOG.last()
+    led = MEMORY_LEDGER.snapshot()
+    window = inflight_tasks()
+    dtt.set_execution_config(config())
+    _, again, _, _, _ = run("(f) q1 after the cancel", q1(skewed))
+    ph.check(raised is not None and rec["outcome"] == "cancelled" and led["current"] == 0
+             and led["exec_inflight"] == 0 and led["stream_inflight"] == 0 and window == 0
+             and again.equals(out["q1_rows"]),
+             f"SF1 sched cancel: {type(raised).__name__} from "
+             f"{holder.get('cancelled_by')}, record {rec['outcome']}, ledger current "
+             f"{led['current']} exec {led['exec_inflight']} stream {led['stream_inflight']}, "
+             f"window {window}, the next Q1 gives (a)'s rows: {again.equals(out['q1_rows'])}")
+    del q3f
+
+    # (g) every query of the phase left the window accounts at 0
+    bad = [w for w in windows_ok if w[1] or w[2]]
+    ph.check(not bad, f"SF1 sched: {len(windows_ok)} queries left exec_inflight and "
+                      f"stream_inflight at 0 ({bad[:3]})")
+    del out["q1_rows"]
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"SF1 sched phase 17 wall {out['wall_s']:.1f}s ({card})", flush=True)
     torch.cuda.empty_cache()
     return out
 
@@ -5893,7 +6232,7 @@ def main(argv=None) -> int:
                 sc_entry[f"sf{scale:g}_shape"] = joins["scatter_main"]
         if scales:
             faults_out = relational = spill = adapt = scans = prefetch_write = columnar = None
-            sql_udf = observability = None
+            sql_udf = observability = scheduling = None
             if 1.0 in scales:
                 # phases 8-11 read phase 3's and phase 7's SF1 tables alone, so
                 # they run while the 22-query tables are still being generated
@@ -5921,6 +6260,11 @@ def main(argv=None) -> int:
                 ph.begin("phase 16")
                 observability = phase_observability(ph, sf1_lineitem, join_tables,
                                                     q3_oracle_sf1, card)
+                # phase 17 too: phase 3's SF1 lineitem and phase 7's SF1 tables
+                print(f"elapsed {time.perf_counter() - started:.1f}s: phase 17", flush=True)
+                ph.begin("phase 17")
+                scheduling = phase_scheduling(ph, sf1_lineitem, join_tables, q3_oracle_sf1,
+                                              card)
             t0 = time.perf_counter()
             data = big.get()
             print(f"SF1: 22-query tables ready {time.perf_counter() - big.started:.1f}s after "
@@ -5968,7 +6312,7 @@ def main(argv=None) -> int:
                 [("faults", faults_out), ("relational", relational), ("spill", spill),
                  ("adapt", adapt), ("scan", scans), ("prefetch_write", prefetch_write),
                  ("columnar", columnar), ("sql_udf", sql_udf),
-                 ("observability", observability)]
+                 ("observability", observability), ("scheduling", scheduling)]
                 if faults_out is not None else [])
             for name, ph_out in phase_outs:
                 k1_entry[f"launches_{name}"] = ph_out["k1_launches"]

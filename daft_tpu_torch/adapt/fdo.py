@@ -1,5 +1,5 @@
 """Feedback-directed planning: planner decisions from recorded sizes (the
-port's copy of daft_tpu/adapt/fdo.py, without the streaming hint).
+port's copy of daft_tpu/adapt/fdo.py).
 
 Adaptive execution (adaptive.py) learns a side's true size by running the
 stage under it first. This module learns it from history: the executor
@@ -18,6 +18,12 @@ Both decisions are behind ``cfg.history_fdo`` and give the same rows:
   aggregate emits ``ceil(observed bytes / shuffle_target_partition_bytes)``
   partitions; shrink-only, at least ``_FANOUT_MIN_PARTS`` partitions before
   and at most half of them after.
+
+A third decision is per query (``apply_query_hints``, called when
+``plancache.plan_query`` hands the plan over): a shape whose recorded runs
+(at least two) spent more than half their wall time with producers
+stalled on full stream channels runs with ``streaming_execution`` off
+(``fdo_stream_hints``).
 
 Each decision records its expectation with the cached plan, where
 ``still_valid`` derives it again as history moves, and the runtime guard
@@ -50,7 +56,7 @@ logger = get_logger("fdo")
 
 __all__ = ["collecting", "active", "join_strategy_hint", "broadcast_guard",
            "agg_shuffle_fanout", "agg_observation_key", "observation_key", "still_valid",
-           "note_broadcast_mispredict"]
+           "note_broadcast_mispredict", "apply_query_hints"]
 
 # flip to broadcast only when the observed bytes sit at half the threshold or
 # less: hysteresis against shapes oscillating around the boundary
@@ -301,3 +307,37 @@ def still_valid(exp: dict) -> bool:
         decided = ideal if ideal is not None and ideal <= exp["nparts"] // 2 else 0
         return decided == exp["decided"]
     return True  # an unknown kind never invalidates
+
+
+# ------------------------------------------------------------ query hints
+
+# streaming stands down only where stalls dominated: more than half the wall
+# time over at least two recorded runs
+_STREAM_STALL_SHARE = 0.5
+_STREAM_MIN_RUNS = 2
+
+
+def apply_query_hints(canonical_fp: str, cfg, stats):
+    """The query's config adjusted from its shape's recorded profile: the
+    morsel pipeline off where its producers mostly stalled. Returns ``cfg``
+    or a replaced copy."""
+    if not canonical_fp or not cfg.history_fdo or not cfg.streaming_execution:
+        return cfg
+    from .history import HISTORY
+
+    prof = HISTORY.query_profile(canonical_fp)
+    if prof is None or prof["runs"] < _STREAM_MIN_RUNS or not prof["stream_morsels"]:
+        return cfg
+    if prof["backpressure_ms"] <= _STREAM_STALL_SHARE * prof["wall_s"] * 1000.0:
+        return cfg
+    import dataclasses
+
+    if stats is not None:
+        stats.bump("fdo_stream_hints")
+        p = stats.profiler
+        if p.armed:
+            p.event("fdo", kind="fdo_stream_hint", fingerprint=canonical_fp)
+    logger.info("fdo_stream_hint", fingerprint=canonical_fp,
+                backpressure_ms=round(prof["backpressure_ms"], 1),
+                wall_s=round(prof["wall_s"], 3))
+    return dataclasses.replace(cfg, streaming_execution=False)

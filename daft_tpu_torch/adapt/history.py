@@ -117,12 +117,16 @@ class QueryHistory:
             counters = rec.get("counters", {})
             prof = {"wall_s": rec.get("wall_s", 0.0),
                     "ttfr_ms": counters.get("time_to_first_row_ns", 0) / 1e6,
+                    "stream_morsels": counters.get("stream_morsels", 0),
+                    "backpressure_ms": counters.get("stream_backpressure_ns", 0) / 1e6,
                     "runs": 1}
             with self._lock:
                 prev = self._queries.get(canonical_fp)
                 if prev is not None:
-                    for k in ("wall_s", "ttfr_ms"):
+                    for k in ("wall_s", "ttfr_ms", "backpressure_ms"):
                         prof[k] = (1 - _ALPHA) * prev[k] + _ALPHA * prof[k]
+                    prof["stream_morsels"] = max(prev["stream_morsels"],
+                                                 prof["stream_morsels"])
                     prof["runs"] = prev["runs"] + 1
                 self._queries[canonical_fp] = prof
                 self._mutations += 1

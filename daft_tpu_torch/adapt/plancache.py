@@ -145,10 +145,10 @@ def clone_plan(op, _memo: Optional[dict] = None):
         _memo = {}
     new = copy.copy(op)
     new.children = [clone_plan(c, _memo) for c in op.children]
-    if isinstance(new, FusedMapOp):
+    if isinstance(new, (FusedMapOp, DeviceSegmentOp)):
         new._recorded_for = None
+        new._record_lock = threading.Lock()
     if isinstance(new, DeviceSegmentOp):
-        new._recorded_for = None
         new._resident_for = None
     ff = getattr(new, "filter_feed", None)
     if ff is not None:
@@ -423,7 +423,7 @@ def plan_query(plan, cfg, stats=None, optimized: bool = False, runner: str = "na
             phys._canonical_fp = canonical
         if stats is not None:
             stats.bump("planning_wall_ns", time.perf_counter_ns() - t0)
-        return opt, phys, cfg
+        return opt, phys, fdo.apply_query_hints(canonical, cfg, stats)
 
     def _cold(record_fdo: bool):
         from ..optimizer import optimize

@@ -14,8 +14,10 @@ Modules:
 
 A flush records the ``batch.coalesce`` and ``actor.apply`` phase spans, a
 degraded coalesce logs ``batch_coalesce_degraded``, and the process-wide
-flush counts feed ``health()["batching"]``. Left out: the stream adapter
-(the port has no streaming executor yet, ROADMAP Queue 1 item 7).
+flush counts feed ``health()["batching"]``. In a morsel pipeline
+(stream/pipeline.py) each producer gives a batch-declared op a
+BatchingExecutor of its own, and the outputs re-split to the morsel
+boundaries.
 """
 
 from .actors import (ModelActorPool, get_model_pool, model_pools_snapshot, pinned_model_count,

@@ -31,9 +31,20 @@ query log and write diagnostics bundles (profile/, obs/);
 QueryProfile. DAFT_TPU_TORCH_PROGRESS=1 turns on the terminal progress
 bars (tracing.py).
 
-Left out: the rest of the planning config (morsels, streaming, executor
-threads and the artifact directory), the serving knobs and runner
-selection (the port has one runner, NativeRunner).
+The scheduling knobs take the reference's defaults: ``executor_threads``
+(0: one worker thread per core on a host of 4 or more cores, else one;
+``resolve_executor_threads``) and ``max_task_backlog`` (-1: one queued task
+per worker) size the query's pool and its dispatch window;
+``parallel_shuffle_fanout`` splits a shuffle's input partitions on that
+pool; ``task_retry_attempts`` and ``task_retry_backoff_s`` re-run a
+partition task that raised a transient error. ``default_morsel_size``
+splits a large in-memory source into morsels on the host path. The
+streaming knobs (``streaming_execution``, ``morsel_size_rows``,
+``stream_channel_capacity``, ``stream_producer_window``) shape the morsel
+pipeline (stream/).
+
+Left out: the rest of the planning config (the artifact directory), the
+serving knobs and runner selection (the port has one runner, NativeRunner).
 """
 
 from __future__ import annotations
@@ -164,6 +175,35 @@ class ExecutionConfig:
     subplan_cache_bytes: int = 64 * 1024 * 1024
     # rows a collected DataFrame's repr previews
     num_preview_rows: int = 8
+    # rows of a morsel of a large in-memory source under an aggregate on the
+    # host path: a partition of more than twice this many rows splits at
+    # plan time into at most 4 * executor threads morsels
+    default_morsel_size: int = 128 * 1024
+    # worker threads of a query's pool, which runs map partitions, shuffle
+    # fan-outs and stream producers: 0 is one per core on a host of at least
+    # 4 cores (one below that), 1 runs maps in order on the consumer's thread
+    executor_threads: int = 0
+    # tasks queued beyond the workers in the dispatch window; -1 is one per
+    # worker
+    max_task_backlog: int = -1
+    # the map side of a hash or random shuffle (read, hash, split) runs as
+    # ordered partition tasks on the pool; off splits on the consumer's thread
+    parallel_shuffle_fanout: bool = True
+    # a partition task that raises a transient error re-runs this many extra
+    # times (0: none), after this many seconds of backoff
+    task_retry_attempts: int = 2
+    task_retry_backoff_s: float = 0.05
+    # the morsel pipeline (stream/): a chain of Project/Filter/FusedMap ops
+    # (and a Limit above it) over a scan or in-memory source pulls morsels of
+    # morsel_size_rows through bounded channels; results equal those with it
+    # off. On the device path it engages only in device-morsel mode (every
+    # map device-pipelinable, an in-memory partition above the morsel size)
+    streaming_execution: bool = True
+    morsel_size_rows: int = 128 * 1024
+    # morsels a source partition's channel holds before its producer waits
+    stream_channel_capacity: int = 4
+    # producers in flight; 0 is one per worker
+    stream_producer_window: int = 0
     # batch-declared UDFs (udf.batch_udf, udf(..., batching=...)) run through
     # the BatchingExecutor (batch/): partitions coalesce across their
     # boundaries into batches under the row/byte budget below, and results
@@ -241,6 +281,16 @@ _FROM_REFERENCE = {
     "subplan_cache_bytes": "subplan_cache_bytes",
     "scan_prefetch_depth": "scan_prefetch_depth",
     "num_preview_rows": "num_preview_rows",
+    "default_morsel_size": "default_morsel_size",
+    "executor_threads": "executor_threads",
+    "max_task_backlog": "max_task_backlog",
+    "parallel_shuffle_fanout": "parallel_shuffle_fanout",
+    "task_retry_attempts": "task_retry_attempts",
+    "task_retry_backoff_s": "task_retry_backoff_s",
+    "streaming_execution": "streaming_execution",
+    "morsel_size_rows": "morsel_size_rows",
+    "stream_channel_capacity": "stream_channel_capacity",
+    "stream_producer_window": "stream_producer_window",
     "dynamic_batching": "dynamic_batching",
     "batch_max_rows": "batch_max_rows",
     "batch_max_bytes": "batch_max_bytes",
@@ -273,6 +323,19 @@ def execution_config_from_dict(d: dict, **overrides) -> ExecutionConfig:
     kw = {ours: d[theirs] for theirs, ours in _FROM_REFERENCE.items() if theirs in d}
     kw.update(overrides)
     return ExecutionConfig(**kw)
+
+
+def resolve_executor_threads(cfg: ExecutionConfig) -> int:
+    """The worker threads of a query's pool: ``executor_threads``, or with 0
+    the cores this process may run on when there are at least 4 (else 1)."""
+    n = cfg.executor_threads
+    if n == 0:
+        try:
+            cores = len(os.sched_getaffinity(0))
+        except AttributeError:
+            cores = os.cpu_count() or 1
+        n = cores if cores >= 4 else 1
+    return max(1, n)
 
 
 class DaftContext:

@@ -18,10 +18,12 @@ that previews a collected frame (``num_preview_rows``) and never runs the
 plan. ``collect(profile=...)`` records a QueryProfile (``profile()``, and
 to a JSON file given a path), ``explain_analyze`` renders the runtime
 stats and the profile's timeline, and ``last_query_record`` is the query
-log's record of the latest execution. Left out of this slice: the lake
+log's record of the latest execution. ``cancel()`` stops a running
+execution from another thread (``QueryCancelledError``, a ``cancelled``
+record); ``collect`` re-arms the handle. Left out of this slice: the lake
 writers and the Ray and Dask conversions (ROADMAP, Queue 1, item 9), the
-torch datasets and the HTML preview with its viz hooks (item 10),
-``cancel`` (item 7) and the integrations.
+torch datasets and the HTML preview with its viz hooks (item 10) and the
+integrations.
 GroupedDataFrame.map_groups runs a python UDF once per group, and a
 python UDF (udf.py) may appear in any expression; SQL texts plan through
 sql.py onto this API, and ``where`` takes a SQL predicate too.
@@ -348,6 +350,12 @@ class DataFrame:
     def write_json(self, root_dir: str, partition_cols=None) -> "DataFrame":
         return self._write(root_dir, "json", None, partition_cols)
 
+    def cancel(self) -> None:
+        """Stop this DataFrame's running execution at its next partition
+        boundary (safe from any thread): the execution raises
+        ``QueryCancelledError`` and its record says ``cancelled``."""
+        self.stats.cancel()
+
     def collect(self, profile: Union[bool, str, None] = None) -> "DataFrame":
         """Materialize the plan; ``stats`` then holds the query's counters.
 
@@ -369,6 +377,7 @@ class DataFrame:
             if isinstance(profile, str) and self._profile is not None:
                 self._profile.to_json(profile)
             return self
+        self.stats.reset_cancel()  # a cancelled DataFrame may run again
         from .runners import partition_set_cache, plan_cache_key
 
         cache = partition_set_cache()
@@ -424,6 +433,7 @@ class DataFrame:
         if self._result is not None:
             yield from self._result.partitions
             return
+        self.stats.reset_cancel()
         yield from get_context().runner().run_iter(self._plan, stats=self.stats)
 
     def to_arrow_iter(self):

@@ -43,16 +43,39 @@ with the partial stats on every partition pull (``_traced``) and before a
 pipeline breaker buffers its input (the sort, a gather, ``ShuffleOp``, the
 join build).
 
+Scheduling. ``execute_plan``'s ``build`` sends each op down one of four
+paths, as the reference's does: a streamable chain (a Project/Filter/
+FusedMap/BatchedUdf chain, maybe under a Limit, over a scan or in-memory
+source) becomes one morsel pipeline (``stream.try_stream``); a
+batch-declared UDF op runs its own coalescing ``execute``; a map op whose
+UDFs are parallel-safe runs through ``_adaptive_device_map`` when it is
+device-pipelinable and requests no resources (the first partition's
+dispatch decides: accepted, the double-buffered sequential driver; declined,
+``_parallel_map``), and through ``_parallel_map`` otherwise, whose
+partitions run as tasks on the query's pool (scheduler.dispatch, results in
+order); every other op runs its ``execute`` on the consumer's thread. With
+one worker (``executor_threads=1``, or a host of fewer than 4 cores) no map
+runs on the pool. Pool threads launch the kernels on the card as the
+consumer's thread does, on the default stream of the device.
+
+Cancellation. ``RuntimeStats.cancel()`` (``DataFrame.cancel()``, from any
+thread) stops the query at the next partition pull (``_traced``), task
+dispatch or stream pull with ``QueryCancelledError``; the query's record
+says ``cancelled``. ``reset_cancel()`` re-arms the handle for a new run.
+
 Memory. Each query holds its ledger (``spill.MEMORY_LEDGER``), its byte
 budget (``memory_budget_bytes``), a spill directory made on first use and a
 lineage log. ``partition_buffer()`` hands a pipeline breaker a spillable
 buffer bound to them, after a deadline check, and tracks it. One lazy
-pool per query (``pool()``) runs the background IO: the scan readahead's
-fetches (io/prefetch.py) and the unspill readahead (``_bg_submit``). When
-the root stream ends, is closed early (a limit, an abandoned join) or
-raises, ``execute_plan``'s teardown shuts the pool (queued work is
-cancelled, running work finishes) and ``finish_query`` releases every
-buffer and removes the spill directory, so the ledger reads 0 again. After
+pool per query (``pool()``, ``num_workers`` threads and at least two) runs
+the map tasks, the shuffle's fan-out, the stream producers and the
+background IO: the scan readahead's fetches (io/prefetch.py) and the
+unspill readahead (``_bg_submit``). When the root stream ends, is closed
+early (a limit, an abandoned join) or raises, ``execute_plan``'s teardown
+closes the stream tree, shuts every stream segment still registered
+(``close_streams``), shuts the pool (queued work is cancelled, running work
+finishes) and ``finish_query`` releases every buffer and removes the spill
+directory, so the ledger reads 0 again. After
 that the unspill readahead submits nothing, while the scan readahead may
 still serve a late read (``to_pydict`` over a collected scan reads its
 partitions after the query) from a private pool that ``pool()`` makes
@@ -64,10 +87,9 @@ Admission. A map op whose expressions call UDFs with a resource request
 query's ``ResourceAccountant`` (``accountant``), sized from the host's
 cores, the cards of ``cfg.device`` (``torch.cuda.device_count()`` for
 ``"cuda"``, none for ``"cpu"``) and the memory budget: a request that can
-never fit raises ``DaftResourceError`` before the op runs. Maps run one
-partition at a time, so a request that fits the host always fits; the
-reference's blocking ``admit``/``release`` comes with the worker pool of
-parallel maps.
+never fit raises ``DaftResourceError`` before the op runs; each partition
+task then waits in ``admit`` until its request fits what the running tasks
+leave, and ``release`` returns it when the task ends.
 
 Observability. Each query's RuntimeStats carries a profiler
 (``stats.profiler``): the shared DISARMED no-op unless ``collect(profile=...)``,
@@ -77,7 +99,10 @@ whose self time is what ``op_wall_ns`` records), a device attempt adds its
 host time to the ``device_dispatch`` phase of the innermost span (staging
 and launching; an asynchronous launch's kernels run after it, see
 profile/spans.py), a resident segment's fetch is a ``fuse.segment`` span,
-and blocked IO is the ``io_wait`` phase. The breaker logs each transition
+blocked IO is the ``io_wait`` phase and a wait for a dispatched task or a
+stream channel the ``queue_wait`` phase (``dispatch_wait_ns``); a task's
+worker-side span and a stream producer's ``morsel`` spans parent to the op
+that submitted them. The breaker logs each transition
 (``breaker_trip``, ``_probe``, ``_recovery``, ``_reopen``) and records it as
 a ``breaker`` event; an expired deadline logs ``deadline_expired``.
 ``execute_plan`` gives each execution a query id, bound to the consumer's
@@ -88,11 +113,9 @@ the query log and hands it to the slow and failed query capture
 (``_record_query``). No observability defect fails the query: each
 degrades to an error log line.
 
-Left out of this slice: cancellation (``RuntimeStats.cancel`` and the
-``cancelled`` outcome) and the worker pool of parallel maps with its
-``queue_wait`` phase (ROADMAP Queue 1, item 7, ``scheduler.py``), the
-accountant's blocking admission, streaming, the mesh hook
-``prepare_broadcast`` and the mesh breaker.
+Left out: the dispatch backend of worker processes and its peer
+shuffles (ROADMAP Queue 1, item 10), the mesh hook ``prepare_broadcast``
+and the mesh breaker (item 8).
 """
 
 from __future__ import annotations
@@ -112,6 +135,10 @@ from .physical import PhysicalOp
 
 # what a device attempt takes as a breaker failure (see above)
 DEVICE_FAILURES = (DaftStagingError, faults.InjectedFault, torch.cuda.OutOfMemoryError)
+
+
+class QueryCancelledError(RuntimeError):
+    """Raised inside a running query after RuntimeStats.cancel()."""
 
 
 class ResourceRequest:
@@ -155,9 +182,9 @@ def op_resource_request(op) -> ResourceRequest:
 
 
 class ResourceAccountant:
-    """Admission control for tasks: a request that can never fit the
-    host's CPUs, cards and memory fails at once instead of waiting for
-    good."""
+    """Admission control for tasks: a task dispatches only when its CPUs,
+    cards and memory fit what is left; a request that can never fit the host
+    fails at once instead of waiting for good."""
 
     def __init__(self, cpus: float, gpus, memory_bytes: Optional[int]):
         """``gpus`` is a number or a zero-argument callable resolved on first
@@ -166,6 +193,10 @@ class ResourceAccountant:
         self._gpu_src = gpus
         self._gpus_resolved: Optional[float] = float(gpus) if not callable(gpus) else None
         self.total_memory = memory_bytes
+        self._cpus = cpus
+        self._gpus_used = 0.0
+        self._memory = memory_bytes
+        self._cond = threading.Condition()
 
     @property
     def total_gpus(self) -> float:
@@ -189,6 +220,30 @@ class ResourceAccountant:
                 f"task requests {req.memory_bytes} bytes but the memory "
                 f"budget is {self.total_memory}")
 
+    def _fits(self, req: ResourceRequest) -> bool:
+        gpu_ok = not req.num_gpus or req.num_gpus <= self.total_gpus - self._gpus_used + 1e-9
+        return (req.num_cpus <= self._cpus + 1e-9 and gpu_ok
+                and (self._memory is None or req.memory_bytes <= self._memory))
+
+    def admit(self, req: ResourceRequest) -> None:
+        """Wait until the request fits, then reserve it."""
+        self.check(req)
+        with self._cond:
+            while not self._fits(req):
+                self._cond.wait()
+            self._cpus -= req.num_cpus
+            self._gpus_used += req.num_gpus
+            if self._memory is not None:
+                self._memory -= req.memory_bytes
+
+    def release(self, req: ResourceRequest) -> None:
+        with self._cond:
+            self._cpus += req.num_cpus
+            self._gpus_used -= req.num_gpus
+            if self._memory is not None:
+                self._memory += req.memory_bytes
+            self._cond.notify_all()
+
 
 def _accelerator_count(cfg: ExecutionConfig) -> int:
     """The cards a task may ask for: torch's CUDA devices when the config
@@ -197,8 +252,8 @@ def _accelerator_count(cfg: ExecutionConfig) -> int:
 
 
 class RuntimeStats:
-    """Per-query counters, per-operator rows, wall time and bytes, and the
-    query's profiler."""
+    """Per-query counters, per-operator rows, wall time and bytes, the
+    query's profiler and its cancellation handle."""
 
     def __init__(self):
         from .profile.spans import DISARMED
@@ -219,6 +274,20 @@ class RuntimeStats:
         # [rows, bytes] accumulated by the tagged exchanges and joins, folded
         # into the process history when the query ends
         self.fdo_obs: Dict[str, list] = {}
+        self._cancelled = threading.Event()
+
+    def cancel(self) -> None:
+        """Stop the query this handle is attached to at its next partition
+        boundary (safe from any thread)."""
+        self._cancelled.set()
+
+    def reset_cancel(self) -> None:
+        """Re-arm the handle for a new run (a cancelled query's DataFrame
+        stays usable)."""
+        self._cancelled.clear()
+
+    def is_cancelled(self) -> bool:
+        return self._cancelled.is_set()
 
     def bump(self, key: str, n: int = 1) -> None:
         # counters arrive concurrently from the query's pool, the async spill
@@ -268,6 +337,14 @@ class RuntimeStats:
         p = self.profiler
         if p.armed:
             p.phase("io_wait", ns)
+
+    def dispatch_wait(self, ns: int) -> None:
+        """Time the consumer waited on a dispatched task or a stream channel:
+        the counter and the queue_wait phase of the innermost open span."""
+        self.bump("dispatch_wait_ns", ns)
+        p = self.profiler
+        if p.armed:
+            p.phase("queue_wait", ns)
 
     def io_wait_share(self) -> float:
         """The share of the operators' wall time spent waiting on IO."""
@@ -424,8 +501,7 @@ class DeviceHealth:
 
 
 # the least threads of a query's pool: one drain reads one spilled
-# partition ahead while the shuffle preloads a bucket; the scan readahead
-# asks for scan_prefetch_depth fetches at once
+# partition ahead while the shuffle preloads a bucket
 _POOL_MIN_THREADS = 2
 
 
@@ -462,6 +538,11 @@ class ExecutionContext:
         self.canonical_fp = ""
         # the live progress of the running execution (obs/cluster.py)
         self.progress = None
+        # the running stream segments (stream/pipeline.py), each by its
+        # shutdown: the teardown closes them even where the segment's
+        # generator is out of reach (an op above it raised, and the
+        # traceback keeps its suspended frame and its producers alive)
+        self._active_streams: dict = {}
 
     def check_deadline(self) -> None:
         """Raise DaftTimeoutError, carrying the stats so far, once the
@@ -521,9 +602,38 @@ class ExecutionContext:
 
     @property
     def num_workers(self) -> int:
-        import os
+        """The query's worker count (``resolve_executor_threads``): more than
+        one runs map partitions, shuffle fan-outs and stream producers at
+        once."""
+        from .context import resolve_executor_threads
 
-        return max(_POOL_MIN_THREADS, min(self.cfg.scan_prefetch_depth, os.cpu_count() or 1))
+        return resolve_executor_threads(self.cfg)
+
+    def register_stream(self, shutdown) -> object:
+        """Track a running stream segment's shutdown for the teardown; the
+        token unregisters it."""
+        token = object()
+        self._active_streams[token] = shutdown
+        return token
+
+    def unregister_stream(self, token) -> None:
+        self._active_streams.pop(token, None)
+
+    def close_streams(self, short_circuit: bool) -> None:
+        """Shut every stream segment still registered. ``short_circuit``
+        says whether abandoned work counts as ``morsels_short_circuited`` (a
+        deliberate early stop) or not (the teardown after an error, a
+        cancellation or the deadline)."""
+        while self._active_streams:
+            _, shutdown = self._active_streams.popitem()
+            try:
+                shutdown(short_circuit=short_circuit)
+            except PORT_FAILURES:
+                raise
+            except Exception as e:
+                from .obs.log import get_logger
+
+                get_logger("execution").warning("stream_shutdown_failed", error=repr(e))
 
     @property
     def accountant(self) -> ResourceAccountant:
@@ -550,8 +660,9 @@ class ExecutionContext:
         if self._pool is None:
             from concurrent.futures import ThreadPoolExecutor
 
-            self._pool = ThreadPoolExecutor(max_workers=self.num_workers,
-                                            thread_name_prefix="daft-torch-exec")
+            self._pool = ThreadPoolExecutor(
+                max_workers=max(_POOL_MIN_THREADS, self.num_workers),
+                thread_name_prefix="daft-torch-exec")
         return self._pool
 
     def _bg_submit(self, fn):
@@ -1024,6 +1135,14 @@ class ExecutionContext:
 
         return finish
 
+    def eval_segment(self, part: MicroPartition, op) -> MicroPartition:
+        """A plan segment's partition through the resident pipeline when it
+        is device-eligible, else through the staged ops (plain routing)."""
+        fin = self.eval_segment_dispatch(part, op)
+        if fin is not None:
+            return fin()
+        return self._eval_segment_staged(part, op, degraded=False)
+
     def _eval_segment_staged(self, part: MicroPartition, op,
                              degraded: bool = True) -> MicroPartition:
         """The segment as its retained staged ops: the fused map chain, Arrow
@@ -1041,6 +1160,14 @@ class ExecutionContext:
 
 _QUERY_SEQ = itertools.count(1)
 _DONE = object()  # the end of the stream, for the per-pull query-id binding
+
+
+def _classify_outcome(e: BaseException) -> str:
+    if isinstance(e, DaftTimeoutError):
+        return "timeout"
+    if isinstance(e, QueryCancelledError):
+        return "cancelled"
+    return "error"
 
 
 def _record_query(root: PhysicalOp, ctx: ExecutionContext, query_id: str, fingerprint: str,
@@ -1099,10 +1226,12 @@ def execute_plan(root: PhysicalOp, ctx: ExecutionContext) -> Iterator[MicroParti
     chrome trace (tracing.chrome_trace, DAFT_TPU_TORCH_CHROME_TRACE) arms a
     profiler here when none is, as does the slow-query capture when an
     earlier run of this plan took at least ``slow_query_threshold_s``: the
-    trace is rendered FROM the span tree at the query's end. When the stream
-    ends, is closed early or raises, the tree is closed, the pool shut down,
-    the query's buffers and spill directory released (``finish_query``), the
-    query folded into the metrics and recorded (``_record_query``)."""
+    trace is rendered FROM the span tree at the query's end. Each op takes
+    one of the paths of the module docstring's Scheduling. When the stream
+    ends, is closed early or raises, the tree is closed, the stream segments
+    still registered shut, the pool shut down, the query's buffers and spill
+    directory released (``finish_query``), the query folded into the metrics
+    and recorded (``_record_query``)."""
     from . import tracing
     from .obs.querylog import plan_signature
 
@@ -1124,6 +1253,7 @@ def execute_plan(root: PhysicalOp, ctx: ExecutionContext) -> Iterator[MicroParti
             from .profile.spans import Profiler
 
             ctx.stats.profiler = Profiler(query_id=query_id)
+    parallel = ctx.num_workers > 1
 
     def build(op: PhysicalOp) -> Iterator[MicroPartition]:
         # the sub-plan result cache (adapt/resultcache.py): a Project/Filter
@@ -1134,7 +1264,29 @@ def execute_plan(root: PhysicalOp, ctx: ExecutionContext) -> Iterator[MicroParti
         served = try_result_cache(op, ctx, build)
         if served is not None:
             return served
-        return _traced(op, op.execute([build(c) for c in op.children], ctx), ctx)
+        # the morsel pipeline (stream/): a streamable segment rooted here
+        # becomes one pipelined stream
+        from .stream.pipeline import try_stream
+
+        pipe = try_stream(op, ctx, build)
+        if pipe is not None:
+            return pipe
+        child_streams = [build(c) for c in op.children]
+        if getattr(op, "batch_declared", False):
+            # a batch-declared UDF op coalesces across partitions itself: a
+            # fan-out would pin each batch to one partition
+            return _traced(op, op.execute(child_streams, ctx), ctx)
+        if (parallel and op.map_partition is not None and len(child_streams) == 1
+                and op.parallel_safe()):
+            if op.device_pipelinable(ctx) and not op_resource_request(op):
+                # the card runs one partition after another: the first
+                # partition's dispatch picks the double-buffered driver, or
+                # the fan-out when it declines
+                return _adaptive_device_map(op, child_streams[0], ctx)
+            # instrumented inside the workers (the consumer would see only
+            # its waits)
+            return _parallel_map(op, child_streams[0], ctx)
+        return _traced(op, op.execute(child_streams, ctx), ctx)
 
     return _rooted(build(root), ctx, root, query_id, fingerprint, plan_ops)
 
@@ -1179,8 +1331,7 @@ def _rooted(stream: Iterator[MicroPartition], ctx: ExecutionContext, root: Physi
         outcome = "abandoned"
         raise
     except BaseException as e:
-        outcome = "timeout" if isinstance(e, DaftTimeoutError) else "error"
-        error = e
+        outcome, error = _classify_outcome(e), e
         raise
     finally:
         try:
@@ -1193,6 +1344,10 @@ def _rooted(stream: Iterator[MicroPartition], ctx: ExecutionContext, root: Physi
                     if close is not None:
                         close()
                 finally:
+                    # a segment suspended below an op whose raise ended the
+                    # chain is out of close()'s reach: shut it directly. Only
+                    # a deliberate early stop counts short-circuits
+                    ctx.close_streams(short_circuit=outcome in ("ok", "abandoned"))
                     ctx.shutdown_pool()
                     ctx.finish_query()
                     prof = ctx.stats.profiler
@@ -1218,6 +1373,78 @@ def _rooted(stream: Iterator[MicroPartition], ctx: ExecutionContext, root: Physi
         finally:
             unregister_progress(progress)
             ctx.progress = None
+
+
+def _adaptive_device_map(op: PhysicalOp, child: Iterator[MicroPartition],
+                         ctx: ExecutionContext) -> Iterator[MicroPartition]:
+    """Dispatch the first partition: accepted, the whole stream runs through
+    the double-buffered sequential driver (the launched resolver handed over
+    as ``_primed``, nothing recomputes); declined (fewer rows than
+    ``device_min_rows``, an ineligible plan), the stream, first partition
+    included, goes to the worker pool (``_parallel_map``).
+
+    An unloaded scan partition whose row count is unknown (a pushed filter)
+    is read by this dispatch to route it by its rows, where the reference
+    routes it to the pool unread; the read then runs under the task retry
+    contract the pool's task would give it (``scheduler.run_retrying``)."""
+    from .scheduler import run_retrying
+
+    it = iter(child)
+    first = next(it, None)
+    if first is None:
+        yield from _traced(op, op.execute([iter(())], ctx), ctx)
+        return
+    if first.num_rows_or_none() is None:
+        dispatch = run_retrying(lambda: op.map_partition_dispatch(first, ctx), ctx,
+                                op.name(), 0)
+    else:
+        dispatch = op.map_partition_dispatch(first, ctx)
+    if dispatch is None:
+        yield from _parallel_map(op, itertools.chain([first], it), ctx)
+        return
+    yield from _traced(op, op._map_execute([it], ctx, _primed=dispatch), ctx)
+
+
+def _parallel_map(op: PhysicalOp, child: Iterator[MicroPartition],
+                  ctx: ExecutionContext) -> Iterator[MicroPartition]:
+    """A map op's partitions as tasks on the query's pool, a bounded window
+    of them in flight and the outputs in order. Each task records its op's
+    rows and wall time on its worker (``dispatch`` opens its op span there,
+    parented to the consumer's span)."""
+    from . import tracing
+    from .scheduler import PartitionTask, dispatch, run_map_task
+
+    name = op.name()
+    req = op_resource_request(op)
+
+    def run_one(part):
+        out, dt = run_map_task(op, part, ctx)
+        n = out.num_rows_or_none()
+        rows = n if n is not None else 0
+        ctx.stats.record_op(name, rows, dt, _part_bytes(out))
+        prof = ctx.stats.profiler
+        if prof.armed:
+            sp = prof.current()  # the task's span, opened by dispatch
+            if sp is not None:
+                sp.set_attr("rows", rows)
+        return out
+
+    saw_any = False
+
+    def tasks():
+        nonlocal saw_any
+        for i, part in enumerate(child):
+            saw_any = True
+            yield PartitionTask(part, run_one, req, name, i)
+
+    for out in dispatch(tasks(), ctx):
+        n = out.num_rows_or_none()
+        tracing.report_progress(name, n if n is not None else 0)
+        yield out
+    if not saw_any:
+        yield from op.map_empty(ctx)
+    if ctx.progress is not None:
+        ctx.progress.op_done(name)
 
 
 def _part_bytes(part: MicroPartition) -> int:
@@ -1248,6 +1475,8 @@ def _traced(op: PhysicalOp, stream: Iterator[MicroPartition],
     it = iter(stream)
     seq = 0
     while True:
+        if stats.is_cancelled():
+            raise QueryCancelledError(f"query cancelled (at {name})")
         ctx.check_deadline()
         stack = getattr(_tl, "stack", None)
         if stack is None:
@@ -1274,7 +1503,10 @@ def _traced(op: PhysicalOp, stream: Iterator[MicroPartition],
                 # the final StopIteration pull is not a partition: its span
                 # closes unrecorded, so per-op partition counts stay exact
                 (prof.end if pulled else prof.cancel)(sp)
-        rows = len(part)
+        # an unloaded partition's rows without reading it (0 when unknown):
+        # the accounting never moves a read off the op that needs the rows
+        n = part.num_rows_or_none()
+        rows = n if n is not None else 0
         stats.record_op(name, rows, max(dt - child_ns, 0), _part_bytes(part))
         if sp is not None:
             sp.set_attr("rows", rows)

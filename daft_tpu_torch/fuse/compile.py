@@ -28,6 +28,7 @@ count, its CSE hits and whether it has one device program).
 
 from __future__ import annotations
 
+import threading
 from typing import List, Optional, Tuple
 
 from .. import faults
@@ -133,19 +134,30 @@ class FusedMapOp(PhysicalOp):
     device path) or, when that declines, the segmented host pass.
     Byte-identical to the chain it replaced; the ``fused_chains``,
     ``fused_ops_eliminated`` and ``cse_hits`` counters record the collapse
-    once per query."""
+    once per query (under a lock: pool threads run its partitions at
+    once)."""
+
+    # a composition of row-local projections and filters streams per morsel
+    # as its ops would (a chain with a UDF declines through _map_exprs)
+    morsel_streamable = True
 
     def __init__(self, child: PhysicalOp, program: FusedProgram, schema: Schema):
         super().__init__([child], schema, child.num_partitions)
         self.program = program
         self._recorded_for = None  # the RuntimeStats of the query that recorded
+        self._record_lock = threading.Lock()
 
     def _record(self, ctx) -> None:
-        if self._recorded_for is ctx.stats:
-            return
-        self._recorded_for = ctx.stats
+        with self._record_lock:
+            if self._recorded_for is ctx.stats:
+                return
+            self._recorded_for = ctx.stats
         record_fusion(ctx.stats, self.program.graph,
                       device_program=self.program.device_exprs is not None)
+
+    def map_partition(self, part, ctx):
+        self._record(ctx)
+        return ctx.eval_fused(part, self.program)
 
     def map_partition_dispatch(self, part, ctx):
         self._record(ctx)
@@ -154,6 +166,13 @@ class FusedMapOp(PhysicalOp):
     def map_partition_declined(self, part, ctx):
         # dispatch already proved this partition device-ineligible
         return ctx._eval_fused_host(part, self.program)
+
+    def device_pipelinable(self, ctx) -> bool:
+        if self.program.device_exprs is None:
+            return False
+        from ..physical import _device_compiles
+
+        return _device_compiles(self.program.device_exprs, self.children[0].schema, ctx)
 
     def _map_exprs(self):
         # the ORIGINAL chain expressions: UDF parallel-safety and resource

@@ -234,7 +234,9 @@ def compile_plan_segments(op: PhysicalOp, cfg, stats=None) -> PhysicalOp:
 class DeviceSegmentOp(PhysicalOp):
     """A project -> filter -> agg plan segment compiled for device residency.
     Executes the resident pipeline when the partition is device-eligible and
-    the retained staged ops (``map_op`` then ``agg_op``) otherwise."""
+    the retained staged ops (``map_op`` then ``agg_op``) otherwise. Not
+    morsel-streamable (the aggregate is a pipeline breaker): a morsel stream
+    runs below it and re-chunks at its input."""
 
     def __init__(self, map_op: PhysicalOp, agg_op: PhysicalOp, program: SegmentProgram):
         super().__init__([map_op.children[0]], agg_op.schema, map_op.children[0].num_partitions)
@@ -243,23 +245,30 @@ class DeviceSegmentOp(PhysicalOp):
         self.program = program
         self._recorded_for = None  # RuntimeStats of the query that recorded fusion
         self._resident_for = None  # ... and residency
+        self._record_lock = threading.Lock()  # pool threads run partitions at once
 
     def _record(self, ctx) -> None:
         """Once per query: the fusion counters the staged plan would have
         bumped, so counters read the same with residency on or off."""
-        if self._recorded_for is ctx.stats:
-            return
-        self._recorded_for = ctx.stats
+        with self._record_lock:
+            if self._recorded_for is ctx.stats:
+                return
+            self._recorded_for = ctx.stats
         if isinstance(self.map_op, FusedMapOp):
             record_fusion(ctx.stats, self.map_op.program.graph, device_program=True)
 
     def _record_resident(self, ctx) -> None:
         """Once per query, on the first resident execution."""
-        if self._resident_for is ctx.stats:
-            return
-        self._resident_for = ctx.stats
+        with self._record_lock:
+            if self._resident_for is ctx.stats:
+                return
+            self._resident_for = ctx.stats
         ctx.stats.bump("device_resident_segments")
         _proc_bump("resident_segments")
+
+    def map_partition(self, part, ctx):
+        self._record(ctx)
+        return ctx.eval_segment(part, self)
 
     def map_partition_dispatch(self, part, ctx):
         self._record(ctx)

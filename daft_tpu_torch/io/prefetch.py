@@ -21,7 +21,12 @@ host while the current partition is staged and reduced on the card.
   ``memory_budget_bytes``. Every charge is settled when its partition is
   consumed, abandoned (narrowed, or garbage-collected unread), or its
   fetch is cancelled or fails.
-- Deadline-aware. No fetch is submitted after the query's deadline.
+- Deadline- and cancel-aware. No fetch is submitted after the query's
+  deadline or once its stats handle is cancelled.
+- Stands down on the pool. A partition read on a pool worker (a map task
+  or a stream producer, ``scheduler.on_pool_worker()``) submits no
+  readahead, since the dispatch window already overlaps the workers'
+  reads, and its wait stays out of ``io_wait_ns``.
 - Free of deadlock on the pool. A consumer never waits for a fetch that is
   still queued: it cancels it and reads itself (``prefetch_misses``); only
   a running fetch is awaited.
@@ -38,9 +43,6 @@ Observability: a fetch runs as a ``prefetch.fetch`` bg span parented to
 the scan read that submitted it (the profiler's ``capture()``/``activate()``)
 and under that thread's query id; a throttle records a ``throttle`` event;
 a pool shut down under the prefetcher logs ``prefetch_degraded_sync``.
-
-Left out: the cancellation of a query's stats handle (ROADMAP Queue 1,
-item 7).
 """
 
 from __future__ import annotations
@@ -92,7 +94,7 @@ class ScanPrefetcher:
 
     # ------------------------------------------------------------- submission
     def _may_submit(self) -> bool:
-        if self._closed:
+        if self._closed or self._stats.is_cancelled():
             return False
         return self._deadline is None or time.monotonic() <= self._deadline
 

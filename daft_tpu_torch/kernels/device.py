@@ -78,6 +78,7 @@ nothing on the query path calls it.
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -2239,6 +2240,8 @@ def compile_validity(node, schema):
 
 
 _PROJ_CACHE: Dict = {}
+# one compile per key, whichever pool thread asks first
+_PROJ_LOCK = threading.Lock()
 
 
 def compile_projection(nodes, schema, input_names: Tuple[str, ...]):
@@ -2247,16 +2250,18 @@ def compile_projection(nodes, schema, input_names: Tuple[str, ...]):
     mode): the closures bake the mode's compute dtypes in."""
     key = (tuple(n._key() for n in nodes), tuple((f.name, f.dtype) for f in schema),
            input_names, x64_enabled())
-    if key in _PROJ_CACHE:
-        return _PROJ_CACHE[key]
-    compiled = [_compile_node(n, schema) for n in nodes]
-    fns = [c[0] for c in compiled]
+    with _PROJ_LOCK:
+        hit = _PROJ_CACHE.get(key)
+        if hit is not None:
+            return hit
+        compiled = [_compile_node(n, schema) for n in nodes]
+        fns = [c[0] for c in compiled]
 
-    def run(env):
-        return [f(env) for f in fns]
+        def run(env):
+            return [f(env) for f in fns]
 
-    _PROJ_CACHE[key] = (run, [c[1] for c in compiled])
-    return _PROJ_CACHE[key]
+        hit = _PROJ_CACHE[key] = (run, [c[1] for c in compiled])
+        return hit
 
 
 def stage_table_columns(table, names, bucket: int, stage_cache: Optional[dict], device):

@@ -49,6 +49,7 @@ K1, and a ``DaftKernelError`` from K2's build or launch reaches the caller.
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -65,6 +66,8 @@ from .device import (_ONEHOT_MAX_SEGMENTS, _np, _plain_string_column, compile_pr
 _DEVICE_AGG_KINDS = {"sum", "count", "min", "max", "mean"}
 
 _AGG_CACHE: Dict = {}
+# one compile per plan shape, whichever pool thread asks first
+_AGG_LOCK = threading.Lock()
 
 
 def _unwrap(expr):
@@ -249,6 +252,19 @@ class _ExprView:
         return self._node.name()
 
 
+def agg_plan_device_compilable(to_agg, schema, predicate=None) -> bool:
+    """The static shape check (no data, no staging) the executor uses to
+    pick the double-buffered driver before any partition exists."""
+    from ..errors import PORT_FAILURES
+
+    try:
+        return _plan_agg_specs(to_agg, schema, predicate) is not None
+    except PORT_FAILURES:
+        raise
+    except Exception:
+        return False
+
+
 def _plan_agg_specs(to_agg, schema, predicate=None):
     """Shared eligibility prologue for the launch and the static check.
     Returns (specs, child_nodes, pred_nodes) or None when any aggregation
@@ -402,9 +418,17 @@ def _compile_agg(child_nodes, pred_node, schema, input_names, kinds, modes, gb,
            pred_node._key() if pred_node is not None else None,
            tuple((f.name, f.dtype) for f in schema), input_names, kinds, modes, gb,
            x64, use_kernel, use_deep)
-    if key in _AGG_CACHE:
-        return _AGG_CACHE[key]
+    with _AGG_LOCK:
+        run = _AGG_CACHE.get(key)
+        if run is None:
+            run = _AGG_CACHE[key] = _build_agg(child_nodes, pred_node, schema, input_names,
+                                               kinds, modes, gb, x64, use_kernel, use_deep)
+    return run
 
+
+def _build_agg(child_nodes, pred_node, schema, input_names, kinds, modes, gb, x64: bool,
+               use_kernel: bool, use_deep: bool):
+    """``_compile_agg``'s program, built once per key under its lock."""
     child_run, _ = compile_projection(list(child_nodes), schema, input_names)
     pred_run = None
     if pred_node is not None:
@@ -436,6 +460,7 @@ def _compile_agg(child_nodes, pred_node, schema, input_names, kinds, modes, gb,
     deep_ok = not any(not_emitted(nd) for nd in
                       list(child_nodes) + ([pred_node] if pred_node is not None else []))
     deep_by_dtypes: Dict = {}
+    plan_lock = threading.Lock()  # deep_by_dtypes and deep_buckets, across pool threads
 
     def deep_plan(env):
         """(indices of the children K2 sums, its program): the float sums and
@@ -443,14 +468,15 @@ def _compile_agg(child_nodes, pred_node, schema, input_names, kinds, modes, gb,
         ([], None) when there are none."""
         dtypes = {name: v.dtype for name, (v, _m) in env.items()}
         key = tuple(sorted((k, str(v)) for k, v in dtypes.items()))
-        if key not in deep_by_dtypes:
-            slots = [i for i, (nd, kind) in enumerate(zip(child_nodes, kinds))
-                     if kind in ("sum", "mean")
-                     and fes.lane_dtype(nd, schema, dtypes).is_floating_point]
-            prog = (fes.program(pred_node, [child_nodes[i] for i in slots], schema, dtypes)
-                    if slots else None)
-            deep_by_dtypes[key] = slots, prog
-        return deep_by_dtypes[key]
+        with plan_lock:
+            if key not in deep_by_dtypes:
+                slots = [i for i, (nd, kind) in enumerate(zip(child_nodes, kinds))
+                         if kind in ("sum", "mean")
+                         and fes.lane_dtype(nd, schema, dtypes).is_floating_point]
+                prog = (fes.program(pred_node, [child_nodes[i] for i in slots], schema, dtypes)
+                        if slots else None)
+                deep_by_dtypes[key] = slots, prog
+            return deep_by_dtypes[key]
 
     def run(env, codes, n_dev, n):
         b = codes.shape[0]
@@ -509,9 +535,12 @@ def _compile_agg(child_nodes, pred_node, schema, input_names, kinds, modes, gb,
             outs.append(segment_reduce(v, m, codes, gb, kind))  # min / max
         if deep_sums:
             sums = fes.fused_expr_sums(prog, codes, env, n, gb)
-            if b not in deep_buckets:
+            with plan_lock:
+                first = b not in deep_buckets
                 deep_buckets.add(b)
-                fes.BUILDS += 1
+            if first:
+                with fes.COUNT_LOCK:
+                    fes.BUILDS += 1
             for j, (slot, cnt) in enumerate(deep_sums):
                 outs[slot] = (sums[:, j], cnt > 0, cnt, torch.zeros((), device=codes.device))
         if fused_sums:
@@ -527,7 +556,6 @@ def _compile_agg(child_nodes, pred_node, schema, input_names, kinds, modes, gb,
             outs.append((sel_cnt, first_idx))
         return outs
 
-    _AGG_CACHE[key] = run
     return run
 
 

@@ -55,6 +55,7 @@ tiles are later work.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -70,9 +71,11 @@ from .segment_sums import _MAX_K, BLOCK_ROWS, MAX_GROUPS, masked_segment_sums_pl
 #              reference's DEEP_FUSED_TRACES)
 #   ENTRIES  - wrapper calls, on any device
 #   LAUNCHES - CUDA kernel launches (one per column chunk of <= 32)
+# Pool threads run aggregations at once: every increment holds COUNT_LOCK
 BUILDS = 0
 ENTRIES = 0
 LAUNCHES = 0
+COUNT_LOCK = threading.Lock()
 
 # lane types: uint8 stages as torch.uint8, uint16 in an int32 lane and uint32
 # in an int64 lane (device._UNSIGNED_LANES); in the 32-bit mode nothing else
@@ -512,6 +515,8 @@ class FusedExprSums:
         self._lib: Optional[ctypes.CDLL] = None
         self._pending = None
         self.build_log: Optional[str] = None
+        # start_build and build run once, whichever thread asks first
+        self._lock = threading.RLock()
 
     def host_source(self) -> str:
         """The row function plus a host loop ``fes_rows(cols, n, sel, out)``
@@ -527,13 +532,18 @@ class FusedExprSums:
     def start_build(self) -> Optional[nvcc.Pending]:
         """Start nvcc on the generated source without waiting (``build``
         then waits for it). Returns the pending build, None once loaded."""
-        if self._lib is None and self._pending is None:
-            self._pending = nvcc.start(self.source, "fused_expr_sums")
-        return self._pending
+        with self._lock:
+            if self._lib is None and self._pending is None:
+                self._pending = nvcc.start(self.source, "fused_expr_sums")
+            return self._pending
 
     def build(self) -> ctypes.CDLL:
         """Build (once, cached on disk by source) and load the kernel."""
-        if self._lib is None:
+        if self._lib is not None:
+            return self._lib
+        with self._lock:
+            if self._lib is not None:
+                return self._lib
             self.start_build()
             lib = nvcc.load(nvcc.finish(self._pending))
             self.build_log = self._pending.log
@@ -619,7 +629,8 @@ class FusedExprSums:
                 if rc != 0:
                     raise DaftKernelError("fused_expr_sums kernel launch failed: "
                                        + lib.fused_expr_sums_error_string(rc).decode())
-                LAUNCHES += 1
+                with COUNT_LOCK:
+                    LAUNCHES += 1
                 if part is not out:
                     out[:, c0:c0 + kc] = part
         return out
@@ -693,23 +704,27 @@ const char* fused_expr_sums_error_string(int code) {{
 """
 
 _PROGRAMS: Dict = {}
+_PROGRAMS_LOCK = threading.Lock()
 
 
 def program(pred_node, child_nodes, schema, dtypes: Dict[str, torch.dtype]) -> FusedExprSums:
-    """The deep kernel of this expression set, generated once per process."""
+    """The deep kernel of this expression set, generated once per process
+    (under a lock: pool threads ask for one new program at once)."""
     key = (pred_node._key() if pred_node is not None else None,
            tuple(nd._key() for nd in child_nodes),
            tuple((f.name, f.dtype) for f in schema),
            tuple(sorted((k, str(v)) for k, v in dtypes.items())))
-    prog = _PROGRAMS.get(key)
-    if prog is None:
-        prog = _PROGRAMS[key] = FusedExprSums(pred_node, child_nodes, schema, dtypes)
+    with _PROGRAMS_LOCK:
+        prog = _PROGRAMS.get(key)
+        if prog is None:
+            prog = _PROGRAMS[key] = FusedExprSums(pred_node, child_nodes, schema, dtypes)
     return prog
 
 
 def programs() -> List[FusedExprSums]:
     """Every deep kernel generated in this process so far."""
-    return list(_PROGRAMS.values())
+    with _PROGRAMS_LOCK:
+        return list(_PROGRAMS.values())
 
 
 def fused_expr_sums(prog: FusedExprSums, codes, env, n: int, num_groups: int):
@@ -720,7 +735,8 @@ def fused_expr_sums(prog: FusedExprSums, codes, env, n: int, num_groups: int):
     tensor."""
     global ENTRIES
     prog.check(codes, env, n, num_groups)
-    ENTRIES += 1
+    with COUNT_LOCK:
+        ENTRIES += 1
     if codes.device.type == "cpu":
         return prog.plain(codes, env, n, num_groups)
     if codes.device.type != "cuda":

@@ -32,6 +32,7 @@ the chunk partials, then the Kahan loop in torch.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional
 
 import numpy as np
@@ -51,17 +52,23 @@ LAUNCHES = 0
 ENTRIES = 0
 LAUNCHES_F64 = 0
 ENTRIES_F64 = 0
+# pool threads launch at once: every increment holds COUNT_LOCK
+COUNT_LOCK = threading.Lock()
 BUILD_LOG = ""
 _LIB: Optional[ctypes.CDLL] = None
+# one build and load of the library, whichever thread asks first
+_BUILD_LOCK = threading.Lock()
 
 
 def build() -> ctypes.CDLL:
     """Compile csrc/segment_scatter_sums.cu for sm_90a (once per source,
     command and nvcc version, into kernels/build/) and load it. Raises if
     nvcc fails."""
-    if _LIB is None:
-        finish_build(start_build())
-    return _LIB
+    lib = _LIB
+    if lib is None:
+        with _BUILD_LOCK:
+            lib = _LIB if _LIB is not None else finish_build(start_build())
+    return lib
 
 
 def start_build():
@@ -122,10 +129,11 @@ def scatter_sum_kahan(values, codes, num_segments: int):
     CPU tensor."""
     global ENTRIES, ENTRIES_F64
     _check(values, codes, num_segments)
-    if values.dtype == torch.float64:
-        ENTRIES_F64 += 1
-    else:
-        ENTRIES += 1
+    with COUNT_LOCK:
+        if values.dtype == torch.float64:
+            ENTRIES_F64 += 1
+        else:
+            ENTRIES += 1
     if values.device.type == "cpu":
         return scatter_sum_kahan_plain(values, codes, num_segments)
     if values.device.type != "cuda":
@@ -160,10 +168,11 @@ def _launch(values, codes, num_segments: int):
     if rc != 0:
         raise DaftKernelError("segment_scatter_sums kernel launch failed: "
                            + lib.segment_scatter_sums_error_string(rc).decode())
-    if values.dtype == torch.float64:
-        LAUNCHES_F64 += 1
-    else:
-        LAUNCHES += 1
+    with COUNT_LOCK:
+        if values.dtype == torch.float64:
+            LAUNCHES_F64 += 1
+        else:
+            LAUNCHES += 1
     return out
 
 

@@ -29,6 +29,7 @@ per output above that.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
@@ -56,20 +57,26 @@ _PLAIN_BATCH_ELEMS = 1 << 22  # blocks x groups x columns per plain-version batc
 _SRC = nvcc.CSRC / "masked_segment_sums.cu"
 
 # kernel launches (CUDA only) and wrapper entries (any device): plain ints a
-# run resets and reads to show which path it took
+# run resets and reads to show which path it took. Pool threads launch at
+# once, so every increment holds COUNT_LOCK
 LAUNCHES = 0
 ENTRIES = 0
+COUNT_LOCK = threading.Lock()
 BUILD_LOG = ""
 _LIB: Optional[ctypes.CDLL] = None
+# one build and load of the library, whichever thread asks first
+_BUILD_LOCK = threading.Lock()
 
 
 def build() -> ctypes.CDLL:
     """Compile csrc/masked_segment_sums.cu for sm_90a (once per source,
     command and nvcc version, into kernels/build/) and load it. Raises if
     nvcc fails."""
-    if _LIB is None:
-        finish_build(start_build())
-    return _LIB
+    lib = _LIB
+    if lib is None:
+        with _BUILD_LOCK:
+            lib = _LIB if _LIB is not None else finish_build(start_build())
+    return lib
 
 
 def start_build():
@@ -179,7 +186,8 @@ def masked_segment_sums_padded(codes, mask, vals, num_groups: int):
     version on a CPU tensor."""
     global ENTRIES
     _check(codes, mask, vals, num_groups)
-    ENTRIES += 1
+    with COUNT_LOCK:
+        ENTRIES += 1
     if vals.device.type == "cpu":
         return masked_segment_sums_plain(codes, mask, vals, num_groups)
     if vals.device.type != "cuda":
@@ -215,7 +223,8 @@ def _launch(codes, mask, vals, num_groups: int):
             if rc != 0:
                 raise DaftKernelError("masked_segment_sums kernel launch failed: "
                                    + lib.masked_segment_sums_error_string(rc).decode())
-            LAUNCHES += 1
+            with COUNT_LOCK:
+                LAUNCHES += 1
             if part_out is not out:
                 out[:, c0:c0 + kc] = part_out
     return out

@@ -167,8 +167,7 @@ def _render_planning_line(counters: dict) -> str:
 def _render_streaming_line(counters: dict) -> str:
     """The explain_analyze 'streaming:' line: morsels produced, the
     channels' high water, backpressure stalls, limit short-circuits and
-    time to the first row. Empty when no morsel streamed (always, until the
-    streaming executor of ROADMAP Queue 1, item 7)."""
+    time to the first row. Empty when no morsel streamed."""
     n = counters.get("stream_morsels", 0)
     if not n:
         return ""

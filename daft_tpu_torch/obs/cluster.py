@@ -9,13 +9,13 @@ flowed and the rows emitted, and answers ``daft_tpu_torch.health()
 ``daft_tpu_query_progress_*`` gauges: "is it stuck or slow?" becomes a
 snapshot instead of a guess.
 
-The snapshot's keys are the reference's. Its distributed and streaming
-parts report what the reference reports with those subsystems idle:
-``workers`` is empty and ``dist_tasks``/``tasks_speculated`` are 0 until the
-distributed runner (ROADMAP Queue 1, item 10, ``dist/``), and ``channels``
-holds zeros until the streaming executor (item 7, ``stream/``).
-``tasks_inflight`` stays 0 until the worker pool of parallel maps (item 7,
-``scheduler.py``): the port runs each partition on the consumer's thread.
+The snapshot's keys are the reference's. ``tasks_inflight`` counts the
+query's dispatched, unfinished partition tasks (scheduler.dispatch calls
+``task_started``/``task_finished``) and ``channels`` the morsels and bytes
+queued in the stream channels (stream/channel.py, process-wide). Its
+distributed part reports what the reference reports with that subsystem
+idle: ``workers`` is empty and ``dist_tasks``/``tasks_speculated`` are 0
+until the distributed runner (ROADMAP Queue 1, item 10, ``dist/``).
 
 Waiting for ``dist/`` (item 10): the other half of the reference module,
 the worker telemetry fragments (``TelemetryCollector``, ``build_fragment``,
@@ -33,8 +33,13 @@ from typing import Dict, List, Optional
 __all__ = ["QueryProgress", "register_progress", "unregister_progress",
            "query_progress", "queries_snapshot"]
 
-# the streaming channels' occupancy until stream/ (ROADMAP Queue 1, item 7)
-_CHANNELS_IDLE = {"queued_morsels": 0, "queued_bytes": 0}
+
+def _channel_depths() -> Dict[str, int]:
+    """The stream channels' occupancy (process-wide registry)."""
+    from ..stream.channel import channels_snapshot
+
+    s = channels_snapshot()
+    return {"queued_morsels": s["queued_morsels"], "queued_bytes": s["queued_bytes"]}
 
 
 class QueryProgress:
@@ -42,7 +47,7 @@ class QueryProgress:
     path; the snapshot does the aggregation at read time."""
 
     __slots__ = ("query_id", "stats", "plan_ops", "ops_total", "started",
-                 "_lock", "_ops_done", "rows_emitted")
+                 "_lock", "_ops_done", "rows_emitted", "_tasks_inflight")
 
     def __init__(self, query_id: str, stats, plan_ops: Dict[str, int]):
         self.query_id = query_id
@@ -56,6 +61,17 @@ class QueryProgress:
         # INSTANCES, capped per name at what the plan holds
         self._ops_done: Dict[str, int] = {}
         self.rows_emitted = 0
+        self._tasks_inflight = 0
+
+    def task_started(self) -> None:
+        """A partition task of this query was dispatched."""
+        with self._lock:
+            self._tasks_inflight += 1
+
+    def task_finished(self) -> None:
+        """A dispatched task ended (or was cancelled before it ran)."""
+        with self._lock:
+            self._tasks_inflight = max(0, self._tasks_inflight - 1)
 
     def op_done(self, name: str) -> None:
         """One operator instance's stream is exhausted."""
@@ -73,6 +89,7 @@ class QueryProgress:
             done = sum(min(n, self.plan_ops.get(name, n))
                        for name, n in self._ops_done.items())
             rows_emitted = self.rows_emitted
+            inflight = self._tasks_inflight
         return {
             "query_id": self.query_id,
             "elapsed_s": round(time.monotonic() - self.started, 3),
@@ -81,11 +98,11 @@ class QueryProgress:
             "rows_flowed": sum(snap["op_rows"].values()),
             "bytes_flowed": sum(snap["op_bytes"].values()),
             "rows_emitted": rows_emitted,
-            "tasks_inflight": 0,  # no worker pool until scheduler.py (item 7)
+            "tasks_inflight": inflight,
             "tasks_speculated": counters.get("tasks_speculated", 0),
             "dist_tasks": counters.get("dist_tasks", 0),
             "workers": {},
-            "channels": dict(_CHANNELS_IDLE),
+            "channels": _channel_depths(),
         }
 
 

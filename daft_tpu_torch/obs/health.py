@@ -18,8 +18,6 @@ reference reports while those subsystems are idle, as fixed values:
 
 - ``breakers["collective"]`` reads ``idle`` until the mesh breaker
   (ROADMAP Queue 1, item 8, ``parallel/``);
-- ``scheduler`` (no task in flight) and ``streaming`` (no channel) until
-  ``scheduler.py`` and ``stream/`` (item 7);
 - ``cluster`` until ``dist/``, ``admission`` until ``serve/`` and
   ``persist`` until ``persist/`` (all item 10).
 """
@@ -102,10 +100,20 @@ def breaker_states() -> Dict[str, str]:
     return out
 
 
-# the scheduler's task window and the streaming channels, idle until
-# scheduler.py and stream/ (item 7)
-_SCHEDULER_IDLE = {"inflight_tasks": 0}
-_STREAMING_IDLE = {"active_channels": 0, "queued_morsels": 0, "queued_bytes": 0}
+
+def _scheduler_snapshot() -> dict:
+    """The scheduler's window: dispatched, unfinished partition tasks."""
+    from ..scheduler import inflight_tasks
+
+    return {"inflight_tasks": inflight_tasks()}
+
+
+def _streaming_snapshot() -> dict:
+    """The stream channels' occupancy (process-wide)."""
+    from ..stream.channel import channels_snapshot
+
+    return channels_snapshot()
+
 
 
 _PLAN_CACHE_IDLE = {"entries": 0, "bindings": 0, "bytes": 0, "hits": 0,
@@ -212,12 +220,12 @@ def engine_health() -> dict:
         "unix_time": round(time.time(), 3),
         "breakers": breaker_states(),
         "ledger": MEMORY_LEDGER.snapshot(),
-        "scheduler": dict(_SCHEDULER_IDLE),
+        "scheduler": _scheduler_snapshot(),
         "pools": {"actor_pools": pool_count(),
                   "leaked_threads": leaked_thread_count()},
         "admission": dict(_ADMISSION_IDLE),
         "cluster": _cluster_idle(),
-        "streaming": dict(_STREAMING_IDLE),
+        "streaming": _streaming_snapshot(),
         "batching": _batching_snapshot(),
         "device": _device_snapshot(),
         "queries": queries_snapshot(),
@@ -264,10 +272,10 @@ def refresh_health_gauges(registry=None) -> None:
         led["negative_releases"])
     reg.gauge("daft_tpu_memory_ledger_stream_inflight_bytes",
               "streaming-channel morsel bytes in flight").set(
-        _STREAMING_IDLE["queued_bytes"])
+        led["stream_inflight"])
     reg.gauge("daft_tpu_memory_ledger_exec_inflight_bytes",
               "materialized task outputs parked in the dispatch "
-              "window").set(_SCHEDULER_IDLE["inflight_tasks"])
+              "window").set(led["exec_inflight"])
     reg.gauge("daft_tpu_spill_disk_full_events",
               "ENOSPC spill writes degraded to hold-in-memory").set(
         led["disk_full_events"])
@@ -277,12 +285,12 @@ def refresh_health_gauges(registry=None) -> None:
             _BREAKER_GAUGE.get(st, 0.0))
     reg.gauge("daft_tpu_scheduler_inflight_tasks",
               "partition tasks dispatched, not yet finished").set(
-        _SCHEDULER_IDLE["inflight_tasks"])
+        _scheduler_snapshot()["inflight_tasks"])
     pools, leaked = pool_count(), leaked_thread_count()
     reg.gauge("daft_tpu_actor_pools", "live actor pools").set(pools)
     reg.gauge("daft_tpu_leaked_threads",
               "actor workers that outlived shutdown").set(leaked)
-    strm = _STREAMING_IDLE
+    strm = _streaming_snapshot()
     reg.gauge("daft_tpu_stream_channels",
               "live streaming channels (undrained)").set(
         strm["active_channels"])

@@ -22,11 +22,9 @@ profiler is).
 
 The field names, outcomes and ``RECORD_SCHEMA_VERSION`` are the
 reference's: its ``validate_record`` accepts the port's records. The
-record's ``ledger`` carries the accounts of producers the port does not
-have yet at 0: ``stream_inflight`` and ``exec_inflight`` (ROADMAP Queue 1,
-item 7, ``stream/`` and ``scheduler.py``) and ``dist_inflight`` (item 10,
-``dist/``). The optional ``streaming`` rollup comes with ``stream/``
-(item 7).
+record's ``ledger`` carries ``dist_inflight``, the account of a producer
+the port does not have yet (ROADMAP Queue 1, item 10, ``dist/``), at 0.
+A query that streamed morsels carries the optional ``streaming`` rollup.
 """
 
 from __future__ import annotations
@@ -120,7 +118,7 @@ class QueryLog:
 QUERY_LOG = QueryLog()
 
 # ledger accounts of producers the port does not have yet (module docstring)
-_LEDGER_NOT_YET = {"stream_inflight": 0, "exec_inflight": 0, "dist_inflight": 0}
+_LEDGER_NOT_YET = {"dist_inflight": 0}
 
 
 def plan_signature(root) -> Tuple[str, Dict[str, int]]:
@@ -212,6 +210,16 @@ def build_record(query_id: str, fingerprint: str, plan_ops: Dict[str, int],
         "ledger": ledger,
         "profiled": bool(profiled),
     }
+    if counters.get("stream_morsels"):
+        # the streaming rollup; optional: absent when no morsel streamed
+        rec["streaming"] = {
+            "morsels": counters.get("stream_morsels", 0),
+            "channel_high_water": counters.get("stream_channel_high_water", 0),
+            "backpressure_stalls": counters.get("stream_backpressure_stalls", 0),
+            "backpressure_ms": round(counters.get("stream_backpressure_ns", 0) / 1e6, 3),
+            "short_circuited": counters.get("morsels_short_circuited", 0),
+            "ttfr_ms": round(counters.get("time_to_first_row_ns", 0) / 1e6, 3),
+        }
     if counters.get("batches_formed"):
         # the dynamic-batching rollup; optional: absent when no batch
         # formed, so schema_version 1 records stay valid

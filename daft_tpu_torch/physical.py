@@ -80,18 +80,27 @@ and splits it again. A Write translates to a WriteOp, which writes each
 partition of its input through io/writer.py and yields the manifest of
 the files it wrote.
 
-Left out of this slice: the shuffle's mesh and peer-to-peer legs and its parallel fan-out (so the reference's
-``_subtree_may_yield_unloaded``, which sizes that fan-out's window, has no
-caller here), each of which the reference keeps byte-identical when off;
-the morsel split
-of in-memory sources, which the reference skips on the device path; the
-mesh exchange of the sort-merge join, the worker pool of parallel maps and
-streaming (with the stream adapter of ``BatchedUdfOp``).
+Scheduling. A map op (one that implements ``map_partition``) may run its
+partitions on the query's pool (execution.py ``_parallel_map``) when
+``parallel_safe``; ``device_pipelinable`` says whether its device program
+compiles against its input's schema, where the executor prefers the
+double-buffered sequential driver. ``morsel_streamable`` declares
+``map_partition`` row-local (Project, Filter, FusedMap, BatchedUdf), so
+the morsel pipeline (stream/) may run it per morsel. The hash and random
+shuffles split their input partitions on the pool (``_fanout_stream``,
+behind ``parallel_shuffle_fanout``), the pieces in input order. On the
+host path an in-memory source under an aggregate splits at plan time into
+morsels of ``default_morsel_size`` rows (``_split_morsels``). A Limit
+closes its child stream once satisfied, so a pipeline below stops.
+
+Left out of this slice: the shuffle's mesh and peer-to-peer legs, which
+the reference keeps byte-identical when off, and the mesh exchange of the
+sort-merge join.
 
 UDFs. A map op whose expressions call UDFs with a resource request has it
-checked by the query's accountant and never defers a device resolver
-(``_map_execute``); ``parallel_safe`` says whether its
-partitions could run concurrently (the port runs them in order). A
+checked by the query's accountant and each partition admitted while it
+runs, and never defers a device resolver (``_map_execute``);
+``parallel_safe`` says whether its partitions may run concurrently. A
 projection holding a batch-declared UDF becomes a ``BatchedUdfOp``
 (``_route_batched_udfs``, before the fuse passes): a fusion barrier whose
 execute coalesces partitions through batch/executor.py and re-splits the
@@ -143,10 +152,19 @@ def summarize_exprs(exprs, limit: int = 120) -> str:
 class PhysicalOp:
     """Base: children + a generator-producing execute().
 
-    Ops that are pure per-partition maps implement ``map_partition`` (the
-    host path, (part, ctx) -> part), optionally ``map_partition_dispatch``
-    (the device path) and ``map_partition_declined`` (what runs when the
-    dispatch declined), and run through ``_map_execute``."""
+    Ops that are pure per-partition maps implement ``map_partition``
+    ((part, ctx) -> part), optionally ``map_partition_dispatch`` (the
+    device launch) and ``map_partition_declined`` (what runs when the
+    dispatch declined), and run through ``_map_execute`` or the executor's
+    worker pool."""
+
+    map_partition = None  # a map op's per-partition function
+
+    # True declares map_partition row-local: applying it per morsel and
+    # re-chunking gives the rows of applying it per partition, so the
+    # morsel pipeline (stream/) may run it. Ops that aggregate, reorder or
+    # depend on a partition's position leave it False
+    morsel_streamable = False
 
     def __init__(self, children: List["PhysicalOp"], schema: Schema, num_partitions: int):
         self.children = children
@@ -171,38 +189,51 @@ class PhysicalOp:
         requests and the result cache read them)."""
         return ()
 
-    def _map_execute(self, inputs, ctx):
+    def device_pipelinable(self, ctx) -> bool:
+        """True when this op's device program compiles against its input's
+        schema: the executor then prefers the double-buffered sequential
+        driver to the worker pool (the card runs one partition after
+        another)."""
+        return False
+
+    def _map_execute(self, inputs, ctx, _primed=None):
         """Sequential loop over map_partition with device double-buffering:
         ops that implement map_partition_dispatch launch partition i+1 on the
         card BEFORE partition i's result is fetched back. Output order is
         preserved; a host-path partition first drains the pending one. An op
         whose UDFs request resources has the request checked by the query's
-        accountant (an impossible one raises before any partition runs) and
-        runs each partition to its end before the next."""
+        accountant (an impossible one raises before any partition runs), each
+        partition admitted while it runs, and never defers a resolver.
+        ``_primed`` is the launched resolver of a first partition the caller
+        dispatched while choosing the driver."""
         from .execution import op_resource_request
 
         req = op_resource_request(self)
         if req:
             ctx.accountant.check(req)
-        saw = False
-        pending = None  # deferred resolver of the previous device partition
+        saw = _primed is not None
+        pending = _primed  # deferred resolver of the previous device partition
         for part in inputs[0]:
             saw = True
-            dispatch = None if req else self.map_partition_dispatch(part, ctx)
-            if pending is not None:
-                yield pending()
-                pending = None
-            if dispatch is not None:
-                pending = dispatch
-                continue
-            yield self.map_partition_declined(part, ctx)
+            if req:
+                ctx.accountant.admit(req)
+            try:
+                dispatch = None if req else self.map_partition_dispatch(part, ctx)
+                if pending is not None:
+                    yield pending()
+                    pending = None
+                if dispatch is not None:
+                    pending = dispatch
+                    continue
+                out = self.map_partition_declined(part, ctx)
+            finally:
+                if req:
+                    ctx.accountant.release(req)
+            yield out
         if pending is not None:
             yield pending()
         if not saw:
             yield from self.map_empty(ctx)
-
-    def map_partition(self, part, ctx):
-        raise NotImplementedError
 
     def map_partition_dispatch(self, part, ctx):
         """Optional non-blocking device launch: return a zero-arg resolver,
@@ -275,7 +306,25 @@ class InMemoryOp(PhysicalOp):
         yield from self.parts
 
 
+def _device_compiles(exprs, schema, ctx) -> bool:
+    """Whether ``exprs`` compile for the device layer against ``schema``."""
+    if not ctx.cfg.use_device_kernels:
+        return False
+    from .kernels.device import normalize_and_check
+
+    try:
+        return normalize_and_check(list(exprs), schema) is not None
+    except PORT_FAILURES:
+        raise
+    except Exception:
+        return False
+
+
 class ProjectOp(PhysicalOp):
+    # row-local: per-morsel evaluation and re-chunk equal the partition's
+    # (the pipeline still declines a UDF that is not batch-declared)
+    morsel_streamable = True
+
     def __init__(self, child: PhysicalOp, exprs: List[Expression], schema: Schema):
         super().__init__([child], schema, child.num_partitions)
         self.exprs = exprs
@@ -291,6 +340,9 @@ class ProjectOp(PhysicalOp):
         # straight to the host instead of staging it again
         ctx.stats.bump("host_projections")
         return part.eval_expression_list(self.exprs)
+
+    def device_pipelinable(self, ctx) -> bool:
+        return _device_compiles(self.exprs, self.children[0].schema, ctx)
 
     def _map_exprs(self):
         return self.exprs
@@ -313,7 +365,15 @@ class BatchedUdfOp(PhysicalOp):
 
     ``execute`` coalesces whole partitions under the budget and re-splits to
     the source partition boundaries; ``map_partition`` is the one-partition
-    apply. Both give the rows of the unbatched path."""
+    apply; the morsel pipeline gives each producer a BatchingExecutor of its
+    own and re-splits to the morsel boundaries. All give the rows of the
+    unbatched path."""
+
+    # the batch declaration is a row-locality contract: the morsel contract
+    morsel_streamable = True
+    # the executor runs this op's own execute (no fan-out); the morsel
+    # pipeline lifts its UDF decline for it
+    batch_declared = True
 
     def __init__(self, child: PhysicalOp, exprs: List[Expression], schema: Schema):
         super().__init__([child], schema, child.num_partitions)
@@ -378,6 +438,9 @@ def _route_batched_udfs(op: PhysicalOp) -> PhysicalOp:
 
 
 class FilterOp(PhysicalOp):
+    # row-local: a row's fate depends on its own values only
+    morsel_streamable = True
+
     def __init__(self, child: PhysicalOp, predicate: Expression):
         super().__init__([child], child.schema, child.num_partitions)
         self.predicate = predicate
@@ -393,6 +456,9 @@ class FilterOp(PhysicalOp):
         ctx.stats.bump("host_filters")
         return part.filter([self.predicate])
 
+    def device_pipelinable(self, ctx) -> bool:
+        return _device_compiles([self.predicate], self.children[0].schema, ctx)
+
     def _map_exprs(self):
         return (self.predicate,)
 
@@ -405,7 +471,9 @@ class FilterOp(PhysicalOp):
 
 class LimitOp(PhysicalOp):
     """Streaming global limit: takes partitions until ``limit`` rows are out,
-    then stops reading its input."""
+    then closes its input, so a morsel pipeline below stops its producers
+    at once (``morsels_short_circuited``). Directly over a streamable chain
+    the pipeline takes the limit as its sink and this op never runs."""
 
     def __init__(self, child: PhysicalOp, limit: int):
         super().__init__([child], child.schema, child.num_partitions)
@@ -413,15 +481,18 @@ class LimitOp(PhysicalOp):
 
     def execute(self, inputs, ctx) -> PartStream:
         remaining = self.limit
-        if remaining <= 0:
-            return
-        for part in inputs[0]:
-            if len(part) > remaining:
-                part = part.head(remaining)
-            remaining -= len(part)
-            yield part
-            if remaining <= 0:
-                break
+        src = inputs[0]
+        if remaining > 0:
+            for part in src:
+                if len(part) > remaining:
+                    part = part.head(remaining)
+                remaining -= len(part)
+                yield part
+                if remaining <= 0:
+                    break
+        close = getattr(src, "close", None)
+        if close is not None:
+            close()
 
     def describe(self):
         return f"Limit: {self.limit}"
@@ -556,10 +627,25 @@ class AggregateOp(PhysicalOp):
         self.groupby = groupby
 
     def map_partition(self, part, ctx):
-        return ctx._eval_agg_host(part, self.aggregations, self.groupby or None)
+        return ctx.eval_agg(part, self.aggregations, self.groupby or None)
 
     def map_partition_dispatch(self, part, ctx):
         return ctx.eval_agg_dispatch(part, self.aggregations, self.groupby or None)
+
+    def map_partition_declined(self, part, ctx):
+        # the dispatch already found this partition device-ineligible
+        return ctx._eval_agg_host(part, self.aggregations, self.groupby or None)
+
+    def device_pipelinable(self, ctx) -> bool:
+        return self._agg_compiles(ctx, None)
+
+    def _agg_compiles(self, ctx, predicate) -> bool:
+        if not ctx.cfg.use_device_kernels:
+            return False
+        from .kernels.device_agg import agg_plan_device_compilable
+
+        return agg_plan_device_compilable(self.aggregations, self.children[0].schema,
+                                          predicate=predicate)
 
     def map_empty(self, ctx):
         # a global agg over zero partitions still yields one row (count=0 etc.)
@@ -590,12 +676,19 @@ class FusedFilterAggregateOp(AggregateOp):
         self.predicate = predicate
 
     def map_partition(self, part, ctx):
-        return ctx._eval_agg_host(part, self.aggregations, self.groupby or None,
-                                  predicate=self.predicate)
+        return ctx.eval_agg(part, self.aggregations, self.groupby or None,
+                            predicate=self.predicate)
 
     def map_partition_dispatch(self, part, ctx):
         return ctx.eval_agg_dispatch(part, self.aggregations, self.groupby or None,
                                      predicate=self.predicate)
+
+    def map_partition_declined(self, part, ctx):
+        return ctx._eval_agg_host(part, self.aggregations, self.groupby or None,
+                                  predicate=self.predicate)
+
+    def device_pipelinable(self, ctx) -> bool:
+        return self._agg_compiles(ctx, self.predicate)
 
     def _map_exprs(self):
         return [self.predicate] + list(self.aggregations) + list(self.groupby)
@@ -896,8 +989,8 @@ class ShuffleOp(PhysicalOp):
                                 self.nulls_first, i)
                         exchange_append(min(i, n - 1), piece)
             else:
-                for pi, p in enumerate(src):
-                    saw = True
+                def fanout(p, pi):
+                    # the task is captured before the split loads p
                     src_task = unwrap_source_task(p) if lineage_on else None
                     pieces = (p.partition_by_hash(self.by, n) if self.scheme == "hash"
                               else p.partition_by_random(n, seed=pi))
@@ -905,6 +998,11 @@ class ShuffleOp(PhysicalOp):
                         for i, piece in enumerate(pieces):
                             piece.lineage_recipe = fanout_piece_recipe(
                                 src_task, self.by, self.scheme, n, pi, i)
+                    return pieces
+
+                for pieces in _fanout_stream(src, fanout, ctx,
+                                             _subtree_may_yield_unloaded(self)):
+                    saw = True
                     for i, piece in enumerate(pieces):
                         if comb is None or comb.failed:
                             exchange_append(i, piece)
@@ -990,6 +1088,38 @@ class ShuffleOp(PhysicalOp):
             tags.append(f"fdo-reduce {self.reduce_to}")
         tag = f" <{'+'.join(tags)}>" if tags else ""
         return f"Shuffle[{self.scheme}] -> {self.num}" + (f" by [{by}]" if by else "") + tag
+
+
+def _subtree_may_yield_unloaded(op: PhysicalOp) -> bool:
+    """True when ``op``'s stream can hold unloaded partitions: a ScanOp below
+    it (the map ops pass scan partitions through unread)."""
+    if isinstance(op, ScanOp):
+        return True
+    return any(_subtree_may_yield_unloaded(c) for c in op.children)
+
+
+def _fanout_stream(stream: PartStream, fn, ctx, may_be_unloaded: bool):
+    """The map side of a hash or random shuffle: ``fn(part, index)``'s piece
+    lists in input order. With ``parallel_shuffle_fanout`` and more than one
+    worker, the read and split of partition i+1 run on the pool while
+    partition i's pieces go to their buckets; a stream that may hold
+    unloaded partitions keeps min(4, workers) in flight, so only a few read
+    partitions exist beyond the buckets. The buckets hold what the inline
+    split gives."""
+    if not ctx.cfg.parallel_shuffle_fanout or ctx.num_workers <= 1:
+        for pi, p in enumerate(stream):
+            yield fn(p, pi)
+        return
+    from .scheduler import PartitionTask, dispatch
+
+    window = min(4, ctx.num_workers) if may_be_unloaded else None
+
+    def tasks():
+        for pi, p in enumerate(stream):
+            yield PartitionTask(p, (lambda part, _pi=pi: fn(part, _pi)), None,
+                                "shuffle-fanout", pi)
+
+    yield from dispatch(tasks(), ctx, window=window)
 
 
 def sample_partition_keys(p: MicroPartition, by: List[Expression], num: int,
@@ -1366,7 +1496,7 @@ def translate(plan: LogicalPlan, cfg=None, stats=None) -> PhysicalOp:
         from .context import get_context
 
         cfg = get_context().execution_config
-    out = _translate(plan, cfg)
+    out = _translate(plan, cfg, morsels=False)
     if cfg.dynamic_batching:
         # before the fuse passes: a batch-declared projection becomes its own
         # op (and a fusion barrier), not a piece of a fused map
@@ -1391,15 +1521,47 @@ def translate(plan: LogicalPlan, cfg=None, stats=None) -> PhysicalOp:
     return out
 
 
-def _translate(plan: LogicalPlan, cfg) -> PhysicalOp:
+def _split_morsels(parts: List[MicroPartition], cfg) -> List[MicroPartition]:
+    """On the host path with more than one worker, split each in-memory
+    partition of more than twice ``default_morsel_size`` rows into at most
+    4 * workers zero-copy slices, so that the pool has parallel work even
+    over a one-partition source. The device path keeps whole partitions
+    (one launch over one staged partition, and the stage caches stay)."""
+    from .context import resolve_executor_threads
+
+    if cfg.use_device_kernels:
+        return parts
+    threads = resolve_executor_threads(cfg)
+    if threads <= 1:
+        return parts
+    morsel = max(int(cfg.default_morsel_size), 1)
+    out: List[MicroPartition] = []
+    for p in parts:
+        n = p.num_rows_or_none()
+        if n is None or n <= 2 * morsel:
+            out.append(p)
+            continue
+        k = min(-(-n // morsel), threads * 4)
+        step = -(-n // k)
+        for s in range(0, n, step):
+            out.append(p.slice(s, min(s + step, n)))
+    return out
+
+
+def _translate(plan: LogicalPlan, cfg, morsels: bool = False) -> PhysicalOp:
+    """The recursive translation. ``morsels`` (set under an aggregate, kept
+    through Project and Filter) splits large in-memory sources into morsels
+    (``_split_morsels``): the two-stage aggregate turns them into parallel
+    stage-1 work."""
     if isinstance(plan, InMemorySource):
-        return InMemoryOp(plan.partitions, plan.schema)
+        parts = _split_morsels(plan.partitions, cfg) if morsels else plan.partitions
+        return InMemoryOp(parts, plan.schema)
     if isinstance(plan, ScanSource):
         return ScanOp(plan.tasks, plan.schema)
     if isinstance(plan, Project):
-        return ProjectOp(_translate(plan.input, cfg), plan.exprs, plan.schema)
+        return ProjectOp(_translate(plan.input, cfg, morsels), plan.exprs, plan.schema)
     if isinstance(plan, Filter):
-        return FilterOp(_translate(plan.input, cfg), plan.predicate)
+        return FilterOp(_translate(plan.input, cfg, morsels), plan.predicate)
     if isinstance(plan, Limit):
         return LimitOp(_translate(plan.input, cfg), plan.limit)
     if isinstance(plan, Explode):
@@ -1551,7 +1713,7 @@ def _translate_aggregate(plan: Aggregate, cfg) -> PhysicalOp:
     """One partition: one AggregateOp. More: stage 1 per partition, the
     partials exchanged (hash ShuffleOp on the group keys, GatherOp for a
     global aggregate), stage 2, the final Project with the plan's schema."""
-    child = _translate(plan.input, cfg)
+    child = _translate(plan.input, cfg, morsels=True)
     nparts = child.num_partitions
     if nparts == 1:
         return AggregateOp(child, plan.aggregations, plan.groupby, plan.schema)

@@ -275,6 +275,11 @@ class Profiler:
             return _NOOP
         return _SpanCtx(self, name, op, part, kind, attrs)
 
+    def current(self) -> Optional[Span]:
+        """This thread's innermost open span (None when idle or disarmed)."""
+        st = getattr(self._tl, "stack", None)
+        return st[-1] if st else None
+
     # ------------------------------------------ cross-thread propagation
     def capture(self) -> Optional[int]:
         """A token for the innermost open span of THIS thread (or the

@@ -31,10 +31,12 @@ The ledger also carries the plan cache's, the sub-plan result cache's and
 the pinned model actors' resident bytes (``cache_account`` of
 ``plan_cache_bytes``, ``subplan_cache_bytes`` and ``model_cache_bytes``),
 the scan readahead's in-flight fetches (``prefetch_inflight``,
-io/prefetch.py) and the batching executor's buffered partitions
-(``batch_inflight``, batch/coalesce.py), all outside ``current``. A
-buffer's spill decision charges ``current``, ``prefetch_inflight`` and
-``batch_inflight`` against the budget, as the reference does.
+io/prefetch.py), the batching executor's buffered partitions
+(``batch_inflight``, batch/coalesce.py), the morsels queued in the stream
+channels (``stream_inflight``, stream/channel.py) and the finished task
+outputs parked in the scheduler's dispatch window (``exec_inflight``,
+scheduler.py), all outside ``current``. A buffer's spill decision charges
+``current`` and all four against the budget, as the reference does.
 
 Observability: a spill records a ``spill`` event (``mode`` sync or async)
 and a throttled unspill preload a ``throttle`` event; the async write runs
@@ -130,8 +132,21 @@ class MemoryLedger:
         # the pinned model actors' resident weight bytes (batch/actors.py),
         # a process cache account like plan_cache_bytes
         self.model_cache_bytes = 0
-        # peak of current + prefetch_inflight + batch_inflight: the working
-        # set the ledger sees, which the spill decision holds to the budget
+        # the morsel bytes queued in the stream channels between producers and
+        # the consumer (stream/channel.py), outside `current` for the
+        # prefetch_inflight reason; bounded by the channel capacity times the
+        # producer window
+        self.stream_inflight = 0
+        self.stream_inflight_high_water = 0
+        # the finished map-task outputs parked in the scheduler's dispatch
+        # window behind the head-of-line task (scheduler.dispatch): charged
+        # when a task finishes, released when the consumer pulls it; outside
+        # `current` for the prefetch_inflight reason
+        self.exec_inflight = 0
+        self.exec_inflight_high_water = 0
+        # peak of current + stream_inflight + prefetch_inflight +
+        # exec_inflight + batch_inflight: the working set the ledger sees,
+        # which the spill decision holds to the budget
         self.working_set_high_water = 0
 
     def cache_account(self, account: str, delta: int) -> None:
@@ -151,7 +166,8 @@ class MemoryLedger:
     def _note_working_set_locked(self) -> None:
         self.working_set_high_water = max(
             self.working_set_high_water,
-            self.current + self.prefetch_inflight + self.batch_inflight)
+            self.current + self.stream_inflight + self.prefetch_inflight
+            + self.exec_inflight + self.batch_inflight)
 
     def add(self, n: int) -> None:
         with self._lock:
@@ -183,6 +199,28 @@ class MemoryLedger:
     def prefetch_done(self, n: int) -> None:
         with self._lock:
             self.prefetch_inflight -= min(n, self.prefetch_inflight)
+
+    def stream_started(self, n: int) -> None:
+        with self._lock:
+            self.stream_inflight += n
+            self.stream_inflight_high_water = max(self.stream_inflight_high_water,
+                                                  self.stream_inflight)
+            self._note_working_set_locked()
+
+    def stream_done(self, n: int) -> None:
+        with self._lock:
+            self.stream_inflight -= min(n, self.stream_inflight)
+
+    def exec_started(self, n: int) -> None:
+        with self._lock:
+            self.exec_inflight += n
+            self.exec_inflight_high_water = max(self.exec_inflight_high_water,
+                                                self.exec_inflight)
+            self._note_working_set_locked()
+
+    def exec_done(self, n: int) -> None:
+        with self._lock:
+            self.exec_inflight -= min(n, self.exec_inflight)
 
     def batch_started(self, n: int) -> None:
         with self._lock:
@@ -235,7 +273,8 @@ class MemoryLedger:
                  "spill_write_ns", "unspill_bytes", "unspill_ns", "disk_full_events",
                  "plan_cache_bytes", "subplan_cache_bytes", "prefetch_inflight",
                  "batch_inflight", "batch_inflight_high_water", "model_cache_bytes",
-                 "working_set_high_water")
+                 "stream_inflight", "stream_inflight_high_water", "exec_inflight",
+                 "exec_inflight_high_water", "working_set_high_water")
 
     def reset(self) -> None:
         with self._lock:
@@ -785,11 +824,13 @@ class PartitionBuffer:
 
     def append(self, part: MicroPartition) -> None:
         size = part.size_bytes() or 0
-        # the query's working set: buffered bytes, the scan readahead's
-        # fetches in flight and the batching executor's buffered partitions
-        # eat the same budget
+        # the query's working set: buffered bytes, the stream channels'
+        # morsels, the scan readahead's fetches in flight, the task outputs
+        # parked in the dispatch window and the batching executor's buffered
+        # partitions eat the same budget
         if (self.budget is not None and len(part)
-                and (self.ledger.current + self.ledger.prefetch_inflight
+                and (self.ledger.current + self.ledger.stream_inflight
+                     + self.ledger.prefetch_inflight + self.ledger.exec_inflight
                      + self.ledger.batch_inflight + size > self.budget)):
             spilled = self._try_spill(part, size)
             if spilled is not None:

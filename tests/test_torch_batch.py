@@ -246,7 +246,9 @@ def test_declines_to_the_host_instance():
     _, c = _run(daft_tpu_torch, _declare(daft_tpu_torch, HostScorer, device=True)(
         daft_tpu_torch.col("v")))
     assert c.get("batch_device_applies", 0) == 0 and c.get("batch_device_fallbacks", 0) == 0
-    daft_tpu_torch.set_execution_config(use_device_kernels=False)
+    # streaming off: one executor for the whole query, as the reference's
+    # tests/test_batch.py pins it (a stream gives each producer its own)
+    daft_tpu_torch.set_execution_config(use_device_kernels=False, streaming_execution=False)
     _, c = _run(daft_tpu_torch, _declare(daft_tpu_torch, DeviceScorer, device=True)(
         daft_tpu_torch.col("v")))
     assert c.get("batch_device_applies", 0) == 0 and c.get("batches_formed", 0) == 1

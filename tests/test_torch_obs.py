@@ -14,9 +14,11 @@ against daft_tpu's on the CPU.
   tunes ``executor_threads``.
 
 The differences that stay: ``health()["breakers"]["collective"]`` is a
-fixed ``idle`` until the mesh breaker (item 8), and the scheduler,
-streaming, cluster, admission and persist sections report the reference's
-idle values until their subsystems come (items 7 and 10).
+fixed ``idle`` until the mesh breaker (item 8), and the cluster, admission
+and persist sections report the reference's idle values until their
+subsystems come (item 10). The scheduler and streaming sections, the
+record's ``exec_inflight``/``stream_inflight`` and the ``cancelled``
+outcome read what the reference's read.
 """
 
 import collections
@@ -167,6 +169,39 @@ def test_failed_query_record_as_the_reference():
     assert (got["outcome"], got["error_type"]) == (ref["outcome"], ref["error_type"]) == (
         "error", "ValueError")
     assert got["plan_ops"] == ref["plan_ops"]
+    assert set(got) == set(ref)
+
+
+def test_cancelled_query_record_as_the_reference():
+    """A query cancelled from a second thread records ``cancelled`` with
+    ``QueryCancelledError`` in both packages, its ledger's window accounts
+    at 0."""
+    def run(pkg):
+        holder = {}
+
+        @pkg.udf(return_dtype=pkg.DataType.int64())
+        def cancel_once(c):
+            if not holder.get("done"):
+                holder["done"] = True
+                t = threading.Thread(target=holder["df"].cancel)
+                t.start()
+                t.join()
+            return c.to_pylist()
+
+        df = holder["df"] = _frame(pkg).select(cancel_once(pkg.col("k")))
+        with pytest.raises(sub(pkg, "execution").QueryCancelledError):
+            df.collect()
+        return df.last_query_record()
+
+    ref, got = under_both(run, BASE)
+    from daft_tpu.obs.querylog import validate_record
+
+    assert validate_record(got) == []
+    assert (got["outcome"], got["error_type"]) == (ref["outcome"], ref["error_type"]) == (
+        "cancelled", "QueryCancelledError")
+    assert ({k: got["ledger"][k] for k in ("exec_inflight", "stream_inflight")}
+            == {k: ref["ledger"][k] for k in ("exec_inflight", "stream_inflight")}
+            == {"exec_inflight": 0, "stream_inflight": 0})
     assert set(got) == set(ref)
 
 
@@ -461,6 +496,36 @@ class TestHealth:
         assert h["query_log"]["depth"] >= 1
         assert h["queries_total"] >= 1
         assert h["scheduler"]["inflight_tasks"] == 0
+
+    def test_scheduler_and_streaming_sections_while_tasks_run(self, pkg):
+        # mid-task, the scheduler's window and the query's progress count the
+        # running tasks (the UDF waits for a second one, an event, not a
+        # duration); after the query both read 0
+        _set(pkg, executor_threads=2, streaming_execution=False)
+        seen, two = [], threading.Event()
+        lock = threading.Lock()
+        count = [0]
+
+        @pkg.udf(return_dtype=pkg.DataType.int64(), concurrency=2)
+        class Peek:
+            def __call__(self, s):
+                with lock:
+                    count[0] += 1
+                    if count[0] == 2:
+                        two.set()
+                two.wait(30)
+                h = pkg.health()
+                seen.append((h["scheduler"]["inflight_tasks"],
+                             [q["tasks_inflight"] for q in h["queries"]]))
+                return s.to_pylist()
+
+        df = pkg.from_pydict({"v": list(range(400))}).into_partitions(4)
+        assert df.select(Peek(pkg.col("v")).alias("w")).to_pydict()["w"] == list(range(400))
+        h = pkg.health()
+        assert sub(pkg, "obs.health").validate_health(h) == []
+        assert all(n >= 1 and q and q[0] >= 1 for n, q in seen)
+        assert h["scheduler"]["inflight_tasks"] == 0
+        assert h["streaming"] == {"active_channels": 0, "queued_morsels": 0, "queued_bytes": 0}
 
     def test_health_gauges_in_metrics_text(self, pkg):
         _query(pkg).collect()

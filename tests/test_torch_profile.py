@@ -9,15 +9,13 @@ against daft_tpu's on the CPU.
   the reference's, in the 32-bit mode at ``device="cpu"``; the reference's
   ``validate_profile`` accepts the port's profile, and the port's has no
   orphan span. Both packages run with one executor thread and streaming
-  off (the reference's scheduler and morsel pipeline come with ROADMAP
-  Queue 1, item 7).
+  off, so each span tree is the same whatever the pool's timing.
 - ``explain_analyze``'s counters equal the reference's once times are
   masked, and ``metrics_text()``'s metric names equal the reference's.
 - A profiled query returns the unprofiled run's rows and counters.
-- tests/test_profile.py's cases, run over both packages, but
-  ``test_worker_spans_carry_queue_wait`` (the scheduler's worker tasks,
-  item 7); its background-attribution case runs without the parallel
-  shuffle fan-out and executor threads the port does not have yet.
+- tests/test_profile.py's cases, run over both packages: the background
+  attribution with the pooled shuffle fan-out on two executor threads, and
+  the scheduler's worker spans with their ``queue_wait`` phase.
 """
 
 import collections
@@ -386,7 +384,7 @@ class TestCrossThreadAttribution:
     def test_background_spans_attributed_no_orphans(self, pkg, tmp_path):
         path = _write_parquet_dir(tmp_path)
         _set(pkg, scan_prefetch_depth=2, async_spill_writes=True, unspill_readahead=True,
-             memory_budget_bytes=200_000)
+             parallel_shuffle_fanout=True, executor_threads=2, memory_budget_bytes=200_000)
         col = pkg.col
         df = (pkg.read_parquet(os.path.join(path, "*.parquet")).repartition(4, "k")
               .groupby("k").agg(col("v").sum().alias("s")))
@@ -407,6 +405,16 @@ class TestCrossThreadAttribution:
             assert cur.kind == "op", f"orphan bg span {s!r}"
         assert any(o["background"] for o in qp.ops.values())
 
+    def test_worker_spans_carry_queue_wait(self, pkg):
+        # the scheduler's worker-task spans (streaming off: with it on this
+        # plan shape runs through the morsel pipeline)
+        _set(pkg, executor_threads=2, streaming_execution=False)
+        df = pkg.from_pydict({"v": list(range(4000))}).into_partitions(8)
+        q = df.select((pkg.col("v") * 3).alias("w")).collect(profile=True)
+        worker = [s for s in q.profile().spans()
+                  if s.kind == "op" and s.phases and "queue_wait" in s.phases]
+        assert worker, "a pooled map records queue_wait phases"
+
     def test_shuffle_phase_spans_present(self, pkg):
         col = pkg.col
         df = pkg.from_pydict({"k": list(range(200)), "v": list(range(200))})
@@ -416,9 +424,8 @@ class TestCrossThreadAttribution:
 
     def test_io_wait_total_reconciles(self, pkg, tmp_path):
         path = _write_parquet_dir(tmp_path, nfiles=3)
-        _set(pkg, scan_prefetch_depth=0)  # synchronous reads: a fixed io_wait
-        if pkg is daft_tpu:
-            _set(pkg, executor_threads=1)
+        # synchronous reads on one thread: a fixed io_wait
+        _set(pkg, scan_prefetch_depth=0, executor_threads=1)
         col = pkg.col
         q = pkg.read_parquet(os.path.join(path, "*.parquet")).groupby("k").agg(
             col("v").sum().alias("s")).collect(profile=True)

@@ -412,9 +412,9 @@ def test_snapshot_covers_the_reference_accounts():
     # the accounts of producers the port does not have yet are left out (the
     # sub-plan result cache's came with the scans, the scan readahead's and
     # the working set's with io/prefetch, the batching executor's and the
-    # model actors' with batch/)
-    later = {"stream_inflight", "stream_inflight_high_water", "exec_inflight",
-             "exec_inflight_high_water", "dist_inflight", "dist_inflight_high_water"}
+    # model actors' with batch/, the stream channels' and the dispatch
+    # window's with stream/ and scheduler.py)
+    later = {"dist_inflight", "dist_inflight_high_water"}
     assert mine == ref - later
 
 

@@ -39,14 +39,6 @@ PINNED_3P = {
     # lanes overflow its sentinel and it encodes on the host (the one-
     # partition pin of tests/test_torch_tpch22.py, three times over)
     13: {"device_group_codes": (9, 6)},
-    # the final projection over the 3 joined partitions (7, 3 and 9 rows):
-    # the reference's executor picks a map op's driver by its first
-    # partition, and when that one declines the card (7 rows, under
-    # device_min_rows) the others run through its worker-pool driver's
-    # synchronous projection, which counts no dispatch; the port has one
-    # driver, the pipelined one, so its 9-row partition counts a dispatch.
-    # device_projections and host_projections are equal
-    18: {"device_projection_dispatches": (5, 4)},
 }
 
 

@@ -394,49 +394,71 @@ def test_satisfiable_request_runs_as_the_reference():
     assert got == ref == {"x": [2, 4, 6]}
 
 
-def test_cpu_request_admits_each_partition_one_at_a_time(monkeypatch):
-    """tests/test_admission.py::test_cpu_request_limits_task_concurrency with
-    the difference pinned: the accountant checks the op's request once,
-    and the port runs the 20 partitions one at a time (no pooled fan-out
-    yet), where the reference's pool admits two at once."""
-    from daft_tpu_torch import physical
-    from daft_tpu_torch.execution import ResourceAccountant
+def test_cpu_request_admits_two_partitions_at_once(monkeypatch):
+    """tests/test_admission.py::test_cpu_request_limits_task_concurrency in
+    both packages: on 4 workers the op's partitions fan out to the pool, and
+    a request of half the accountant's CPUs is admitted (each admission
+    checks it; nothing checks it apart) for two of the 20 partitions at
+    once, never more. The first call waits until the second admission is in (an
+    event, not a duration), so the peak of 2 does not depend on timing."""
+    import os
 
-    checks, inflight, peak, parts = [0], [0], [0], [0]
-    orig_check = ResourceAccountant.check
-    lock = threading.Lock()
+    def run(pkg):
+        ex = pkg.execution
+        try:
+            cores = len(os.sched_getaffinity(0))
+        except AttributeError:
+            cores = os.cpu_count() or 1
+        per_task = float(max(cores, 4)) / 2
+        lock = threading.Lock()
+        checks, admits, inflight, peak = [0], [0], [0], [0]
+        two_in = threading.Event()
+        orig_check, orig_admit, orig_release = (ex.ResourceAccountant.check,
+                                                ex.ResourceAccountant.admit,
+                                                ex.ResourceAccountant.release)
 
-    def check(self, req):
-        checks[0] += 1
-        orig_check(self, req)
-
-    def counted(orig):
-        def run(self, part, ctx):
+        def check(self, req):
             with lock:
-                parts[0] += 1
+                checks[0] += 1
+            orig_check(self, req)
+
+        def admit(self, req):
+            orig_admit(self, req)
+            with lock:
+                admits[0] += 1
                 inflight[0] += 1
                 peak[0] = max(peak[0], inflight[0])
-            try:
-                return orig(self, part, ctx)
-            finally:
-                with lock:
-                    inflight[0] -= 1
-        return run
+                if inflight[0] == 2:
+                    two_in.set()
 
-    monkeypatch.setattr(ResourceAccountant, "check", check)
-    for cls in (physical.PhysicalOp, physical.ProjectOp):
-        monkeypatch.setattr(cls, "map_partition_declined", counted(cls.map_partition_declined))
+        def release(self, req):
+            with lock:
+                inflight[0] -= 1
+            orig_release(self, req)
 
-    @daft_tpu_torch.udf(return_dtype=daft_tpu_torch.DataType.int64(), num_cpus=1,
-                        concurrency=4)
-    class Track:
-        def __call__(self, x):
-            return x
+        monkeypatch.setattr(ex.ResourceAccountant, "check", check)
+        monkeypatch.setattr(ex.ResourceAccountant, "admit", admit)
+        monkeypatch.setattr(ex.ResourceAccountant, "release", release)
 
-    df = (daft_tpu_torch.from_pydict({"x": list(range(200))}).repartition(20)
-          .select(Track(daft_tpu_torch.col("x"))))
-    assert sorted(df.to_pydict()["x"]) == list(range(200))
-    assert checks[0] == 1 and parts[0] == 20 and peak[0] == 1
+        @pkg.udf(return_dtype=pkg.DataType.int64(), num_cpus=per_task, concurrency=4)
+        class Track:
+            def __call__(self, x):
+                assert two_in.wait(30), "never two partitions admitted at once"
+                return x
+
+        cfg = pkg.get_context().execution_config
+        old = cfg.executor_threads
+        cfg.executor_threads = 4
+        try:
+            df = (pkg.from_pydict({"x": list(range(200))}).repartition(20)
+                  .select(Track(pkg.col("x"))))
+            got = sorted(df.to_pydict()["x"])
+        finally:
+            cfg.executor_threads = old
+        return got, admits[0], peak[0], checks[0] - admits[0]
+
+    ref, got = both(run)
+    assert ref == got == (list(range(200)), 20, 2, 0)
 
 
 def test_card_request_on_the_card_config_is_admitted(monkeypatch):
