@@ -240,13 +240,14 @@ Every phase runs under the port's defaults: one worker thread per core
 follow the order in which pool threads finish (phase 8, phase 10's
 budgeted counts, phase 16 (c) and (d)) run on one thread (ONE_THREAD), as
 the reference's tests pin them, and so does phase 16 (a), whose checks read
-the sequential driver's spans. The legs that hold a map op's route counters
-to the CPU tests' one-unit-a-partition pins run with streaming off
-(PARTITION_ROUTES: phase 3's single ops and joins, phase 4 at SF1, phase
-5, phase 6's Q1/Q6/Q3/Q5 and phase 7's unsigned projection and filter),
-since in device-morsel mode a chain over an SF1 partition counts a unit a
-morsel; phase 17 holds the streamed runs to the partition path's rows and
-launches.
+the sequential driver's spans. Where a leg holds a map op's route counters
+to the CPU tests' pins (phase 3's single ops and joins, phase 4 at SF1,
+phase 5, phase 6's Q3/Q5, phase 7's unsigned projection and filter), a
+chain over an in-memory partition above the morsel size streams in
+device-morsel mode: its ops count one unit a morsel (morsel_units, one a
+partition on the partition path and in the CPU tests, whose partitions are
+all smaller) and no *_dispatches unit, and the leg holds them, with
+stream_morsels, at those values.
 
 Phases 8-11, phase 15 but its SF1 SQL leg, and phases 16 and 17 run after
 phase 7 and before phase 4, while the 22-query tables are still being
@@ -492,13 +493,24 @@ PLAN_PINS = {"enable_result_cache": False, "history_fdo": False}
 # tests pin them (tests/test_faults.py, tests/torch_parity.py SPILL_BASE),
 # and so does phase 16 (a), whose checks read the sequential driver's spans
 ONE_THREAD = {"executor_threads": 1}
-# the legs that hold a map op's route counters to the CPU tests' pins, one
-# unit a partition (device_fused_maps, device_filters, device_projections,
-# ..., where no CPU test's partition exceeds the morsel size), run with
-# streaming off: in device-morsel mode a chain over an SF1 partition counts
-# one unit a morsel (46 over SF1 lineitem). Phase 17 holds the streamed
-# runs' rows and launches to the partition path's
-PARTITION_ROUTES = {"streaming_execution": False}
+
+
+def morsel_units(rows: int) -> int:
+    """The units a device-pipelinable map op counts over one in-memory
+    partition of ``rows`` rows under the defaults: one a morsel,
+    ceil(rows / morsel_size_rows), where the partition is above the morsel
+    size (device-morsel mode streams the chain), else one (the partition
+    path, as in the CPU tests)."""
+    import daft_tpu_torch as dtt
+
+    m = dtt.ExecutionConfig().morsel_size_rows
+    return -(-rows // m) if rows > m else 1
+
+
+def streamed_morsels(*rows: int) -> int:
+    """stream_morsels of chains over one partition each of ``rows`` rows:
+    the morsels of those above the morsel size (the others do not stream)."""
+    return sum(morsel_units(n) for n in rows if morsel_units(n) > 1)
 
 
 def config(**kw):
@@ -1614,7 +1626,8 @@ def phase_single_ops(ph: Phases, lineitem, card: str) -> dict:
     mask on the card, the compaction on the host), a one-expression
     projection and a distinct of two string columns (the group-codes
     kernel's first rows). Each is driven once with its device counter read
-    from the query's stats, held against pyarrow, and timed warm."""
+    from the query's stats (the filter and the projection stream, one unit
+    a morsel), held against pyarrow, and timed warm."""
     import numpy as np
     import torch
 
@@ -1629,7 +1642,10 @@ def phase_single_ops(ph: Phases, lineitem, card: str) -> dict:
                      "device_distincts"),
     }
     want = single_op_oracles(lineitem)
-    dtt.set_execution_config(config(**PARTITION_ROUTES))
+    units = morsel_units(lineitem.num_rows)
+    expect = {"filter": (units, streamed_morsels(lineitem.num_rows)),
+              "projection": (units, streamed_morsels(lineitem.num_rows)), "distinct": (1, None)}
+    dtt.set_execution_config(config())
     frame = dtt.from_arrow(lineitem).collect()
     out = {}
     for name, (query, counter) in queries.items():
@@ -1647,8 +1663,10 @@ def phase_single_ops(ph: Phases, lineitem, card: str) -> dict:
             ok = list(zip(*(got[k].to_pylist() for k in ("l_returnflag", "l_linestatus")))) \
                 == want["distinct"]
         ph.check(ok, f"SF1 single {name}: matches pyarrow ({got.num_rows} rows)")
-        ph.check(c.get(counter) == 1, f"SF1 single {name}: ran on the card ({counter} "
-                                      f"{c.get(counter)}, counters {c})")
+        n, morsels = expect[name]
+        ph.check(c.get(counter) == n and morsels in (None, c.get("stream_morsels", 0)),
+                 f"SF1 single {name}: ran on the card ({counter} {c.get(counter)}, want {n}"
+                 f"{'' if morsels is None else f', stream_morsels {morsels}'}; counters {c})")
         res = {"cold_s": cold, "out_rows": got.num_rows, "counters": c,
                **warm_median(query, frame, fetch="to_arrow"),
                "rows": lineitem.num_rows, "card": card}
@@ -1660,16 +1678,29 @@ def phase_single_ops(ph: Phases, lineitem, card: str) -> dict:
     return out
 
 
-# the routing of each optimized join query that phase_joins checks at
-# every scale (the reference's plan and counters): every join side pruned,
-# Q3's three chains fused and on the card (customer's string filter through
-# the string-literal lane), Q5's orders chain on the card, its nation chain
-# (25 rows, under device_min_rows) on the host and its pure-selection
-# Projects over customer and lineitem dispatched to the card
-JOIN_ROUTES = {
-    "q3": {"device_fused_maps": 3, "host_filters": 0},
-    "q5": {"device_fused_maps": 1, "device_projection_dispatches": 2},
-}
+def join_routes(name: str, rows: dict) -> dict:
+    """The routing of an optimized join query that phases 3 and 6 hold, over
+    one partition a table of ``rows[table]`` rows: the reference's plan and
+    counters, every join side pruned, Q3's three chains fused and on the
+    card (customer's string filter through the string-literal lane), Q5's
+    orders chain on the card, its nation chain (25 rows, under
+    device_min_rows) on the host and its pure-selection Projects over
+    customer and lineitem on the card, each chain counted one unit a morsel
+    where it streams (morsel_units). A streamed Project is not dispatched
+    by the partition path: device_projection_dispatches counts the others."""
+    u = {k: morsel_units(n) for k, n in rows.items()}
+    if name == "q3":
+        return {"device_fused_maps": u["customer"] + u["orders"] + u["lineitem"],
+                "host_filters": 0,
+                "stream_morsels": streamed_morsels(rows["customer"], rows["orders"],
+                                                   rows["lineitem"])}
+    return {"device_fused_maps": u["orders"],
+            "device_projections": u["customer"] + u["lineitem"] + 2 * u["orders"],
+            "device_projection_dispatches": sum(u[k] == 1 for k in ("customer", "lineitem")),
+            "stream_morsels": streamed_morsels(rows["customer"], rows["orders"],
+                                               rows["lineitem"])}
+
+
 ROUTE_COUNTERS = ("fused_chains", "device_fused_maps", "host_fused_maps", "device_filters",
                   "host_filters", "device_projections", "device_projection_dispatches",
                   "host_projections")
@@ -1794,7 +1825,7 @@ def phase_joins(ph: Phases, scale: float, card: str, profile: bool,
         def run(plan=plan):
             return plan().collect()
 
-        dtt.set_execution_config(config(**PARTITION_ROUTES))
+        dtt.set_execution_config(config())
         module, attr = capture[name]
         real = getattr(module, attr)
 
@@ -1824,9 +1855,10 @@ def phase_joins(ph: Phases, scale: float, card: str, profile: bool,
                         if name == "q3" else launches["k1"] >= 1))
         ph.check(on_card, f"{label}: joins probed on the card ({probes}), the aggregate "
                           f"resident, through its kernel (launches {launches}, counters {c})")
-        route = {k: c.get(k, 0) for k in JOIN_ROUTES[name]}
-        ph.check(route == JOIN_ROUTES[name],
-                 f"{label}: the optimized plan's routing {route} (want {JOIN_ROUTES[name]})")
+        want_route = join_routes(name, {k: v.num_rows for k, v in tables.items()})
+        route = {k: c.get(k, 0) for k in want_route}
+        ph.check(route == want_route,
+                 f"{label}: the optimized plan's routing {route} (want {want_route})")
         res = {"cold_s": cold, "launches": launches,
                "group_codes": "device" if c.get("device_group_codes") else "host",
                "counters": {k: c.get(k, 0) for k in (
@@ -1925,6 +1957,11 @@ TPCH22_X64_AGG_ROUTES = TPCH22_AGG_ROUTES
 # new lanes, held the same way
 TPCH22_LANE_MAPS = {9: (1, 0), 12: (1, 0), 13: (1, 0), 14: (1, 0), 16: (2, 0), 19: (1, 0),
                     22: (1, 0)}
+# the table under each of those device fused chains: at SF1 each counts
+# morsel_units of it (phase 4 holds device_fused_maps to their sum)
+TPCH22_LANE_MAP_TABLES = {9: ("part",), 12: ("lineitem",), 13: ("orders",), 14: ("lineitem",),
+                          16: ("part", "supplier"), 19: ("lineitem",), 22: ("customer",)}
+assert all(len(TPCH22_LANE_MAP_TABLES[q]) == m[0] for q, m in TPCH22_LANE_MAPS.items())
 # warm runs of each of the 22 queries at SF1 (phases 4 and 6): one, so the
 # whole run stays well inside its time limit (two until phase 15 came)
 TPCH22_WARM = 1
@@ -2029,7 +2066,8 @@ def phase_tpch22(ph: Phases, queries, data: dict, card: str, profile: bool) -> d
     declined after launch, the new lanes' filters on the card, and the
     float sums through K1 or the scatter kernel where the CPU tests put
     them on the card, and every aggregate, and the new lanes' fused chains,
-    routed to the card or the host as the CPU tests route them."""
+    routed to the card or the host as the CPU tests route them (a chain over
+    a table above the morsel size counts one unit a morsel)."""
     import torch
 
     import daft_tpu_torch as dtt
@@ -2075,7 +2113,7 @@ def phase_tpch22(ph: Phases, queries, data: dict, card: str, profile: bool) -> d
     del hframes
 
     # the CPU tests' configuration, so that the routing compares with theirs
-    dtt.set_execution_config(config(device_min_rows=8, **PARTITION_ROUTES))
+    dtt.set_execution_config(config(device_min_rows=8))
     frames = tpch22_frames(data, 1)
     rows = {k: v.num_rows for k, v in data.items()}
     warm_by_query = {}
@@ -2103,9 +2141,12 @@ def phase_tpch22(ph: Phases, queries, data: dict, card: str, profile: bool) -> d
                  f"tests route them ({TPCH22_AGG_ROUTES[qn]})")
         if qn in TPCH22_LANE_MAPS:
             maps = (c.get("device_fused_maps", 0), c.get("host_fused_maps", 0))
-            ph.check(maps == TPCH22_LANE_MAPS[qn],
+            want_maps = (sum(morsel_units(rows[t]) for t in TPCH22_LANE_MAP_TABLES[qn]),
+                         TPCH22_LANE_MAPS[qn][1])
+            ph.check(maps == want_maps,
                      f"{label}: (device_fused_maps, host_fused_maps) {maps}, as the CPU "
-                     f"tests route them ({TPCH22_LANE_MAPS[qn]})")
+                     f"tests route them ({TPCH22_LANE_MAPS[qn]}), one unit a morsel over "
+                     f"{'/'.join(TPCH22_LANE_MAP_TABLES[qn])} ({want_maps})")
         if qn in TPCH22_CARD_SUMS:
             ph.check(launches["k1"] + launches["scatter"] >= 1,
                      f"{label}: float sums through K1 or the scatter kernel ({launches})")
@@ -2178,6 +2219,15 @@ LANE_ROUTES = {
     "lower_group": {"device_aggregations": 1, "device_group_codes": 1, "host_sorts": 1},
     "choice_distinct": {"device_projections": 1, "device_distincts": 1, "device_sorts": 1},
     "colcol_filter": {"device_fused_maps": 1, "device_filters": 1, "device_projections": 2},
+}
+# the phase-5 queries with a device map chain over a table (one partition)
+# above the morsel size, the table and the counters of LANE_ROUTES that
+# count one unit a morsel there (morsel_units)
+LANE_STREAMED = {
+    "string_key_join": ("lineitem", ("device_projections",)),
+    "transformed_key_join": ("customer", ("device_projections",)),
+    "choice_distinct": ("lineitem", ("device_projections",)),
+    "colcol_filter": ("lineitem", ("device_fused_maps", "device_filters", "device_projections")),
 }
 # phase-5 queries whose float sums run through K1 (K2 for the deep one)
 LANE_K1 = ("string_key_join", "transformed_key_join", "timestamps", "lower_group")
@@ -2304,8 +2354,7 @@ def phase_lanes(ph: Phases, data: dict, card: str) -> dict:
         def run(query=query, frames=frames):
             return query(frames).collect()
 
-        dtt.set_execution_config(config(device_min_rows=8, use_deep_fusion_kernel=deep,
-                                        **PARTITION_ROUTES))
+        dtt.set_execution_config(config(device_min_rows=8, use_deep_fusion_kernel=deep))
         ss.LAUNCHES = fes.LAUNCHES = scs.LAUNCHES = 0
         t0 = time.perf_counter()
         df = run()
@@ -2322,9 +2371,17 @@ def phase_lanes(ph: Phases, data: dict, card: str) -> dict:
             ok = tpch22_match(lane_rows(got), lane_rows(want))
         ph.check(ok, f"{label}: {got.num_rows} rows match the port's host path, in order")
         routes = {k: c.get(k, 0) for k in LANE_COUNTERS}
-        ph.check(routes == {k: LANE_ROUTES[name].get(k, 0) for k in LANE_COUNTERS},
+        table, per_morsel = LANE_STREAMED.get(name, (None, ()))
+        units = morsel_units(tables[table].num_rows) if table else 1
+        want_routes = {k: LANE_ROUTES[name].get(k, 0) * (units if k in per_morsel else 1)
+                       for k in LANE_COUNTERS}
+        if table:
+            routes["stream_morsels"] = c.get("stream_morsels", 0)
+            want_routes["stream_morsels"] = streamed_morsels(tables[table].num_rows)
+        ph.check(routes == want_routes,
                  f"{label}: routing counters {({k: v for k, v in routes.items() if v})} "
-                 f"as the CPU tests pin them")
+                 f"as the CPU tests pin them"
+                 + (f", one unit a morsel over {table} ({units})" if table else ""))
         if deep:
             ph.check(launches["k2"] >= 1 and launches["k1"] == 0,
                      f"{label}: float sums through K2 ({launches})")
@@ -2411,7 +2468,7 @@ def x64_drive(ph: Phases, name: str, x64: bool, source: dict, want: dict, groups
     from daft_tpu_torch.kernels import segment_sums as ss
 
     query, args, probes = X64_QUERIES[name]
-    dtt.set_execution_config(config(device_x64=x64, **PARTITION_ROUTES))
+    dtt.set_execution_config(config(device_x64=x64))
     frames = [dtt.from_arrow(source[a]).collect() for a in args]
     real = scs.scatter_sum_kahan
 
@@ -2442,8 +2499,9 @@ def x64_drive(ph: Phases, name: str, x64: bool, source: dict, want: dict, groups
                  f"{gap:.3g})")
     on_card = (c.get("device_aggregations", 0) >= 1 and c.get("device_agg_fallbacks", 0) == 0
                and c.get("device_join_probes", 0) == probes)
-    if name in JOIN_ROUTES:
-        on_card = on_card and {k: c.get(k, 0) for k in JOIN_ROUTES[name]} == JOIN_ROUTES[name]
+    if name in JOIN_QUERIES:
+        want_route = join_routes(name, {a: source[a].num_rows for a in args})
+        on_card = on_card and {k: c.get(k, 0) for k in want_route} == want_route
     if x64:  # K1 and K2 never launch in this mode; Q3's sums take the float64 scatter
         on_card = on_card and (launches["k1"], launches["k2"], launches["scatter"]) == (0, 0, 0)
         if name == "q3":
@@ -2624,7 +2682,7 @@ EXCHANGE_COUNTERS = ("device_aggregations", "host_aggregations", "device_agg_fal
                      "device_projections", "host_projections", "shuffles", "exchange_rows",
                      "exchange_bytes", "exchange_precombined_rows", "join_filter_built",
                      "join_filter_probe_rows", "join_filter_rows_pruned",
-                     "join_filter_device_probes")
+                     "join_filter_device_probes", "stream_morsels")
 
 
 class ExchangeClock:
@@ -2798,10 +2856,12 @@ def exchange_items(tables: dict, scale: float, q3_oracle: tuple) -> tuple:
     items["unsigned_projection"] = (
         lambda frames: frames["unsigned"].select((col("u8") + col("u8")).alias("a"),
                                                  (col("u32") * col("u32")).alias("m")),
-        PARTITION_ROUTES, proj_check, {"device_projections": 1, "host_projections": 0})
+        {}, proj_check, {"device_projections": morsel_units(u.num_rows), "host_projections": 0,
+                         "stream_morsels": streamed_morsels(u.num_rows)})
     items["unsigned_filter"] = (lambda frames: frames["unsigned"].where(col("u16") > 25),
-                                PARTITION_ROUTES, table_check(want_filter),
-                                {"device_filters": 1, "host_filters": 0})
+                                {}, table_check(want_filter),
+                                {"device_filters": morsel_units(u.num_rows), "host_filters": 0,
+                                 "stream_morsels": streamed_morsels(u.num_rows)})
     items["unsigned_sort"] = (lambda frames: frames["unsigned"].sort(["u32", "k"]), {},
                               table_check(want_sort), {"device_sorts": 1, "host_sorts": 0})
     items["unsigned_group"] = (
@@ -2886,7 +2946,9 @@ def phase_exchange(ph: Phases, scale: float, tables: dict, q3_oracle: tuple,
     wall (the median share is reported), then once under torch.profiler
     for the device's idle share. In Q3 each Bloom probe the engine made on
     the card is timed again against the host's numpy probe of the same
-    indices (``k10_probe_times``)."""
+    indices (``k10_probe_times``). Past SF1 Q3 also runs cold over fresh
+    frames with streaming off (``partition_cold_s``), beside its streamed
+    cold run."""
     import torch
 
     import daft_tpu_torch as dtt
@@ -2906,13 +2968,18 @@ def phase_exchange(ph: Phases, scale: float, tables: dict, q3_oracle: tuple,
     try:
         for name, (build, overrides, check, routes) in items.items():
             dtt.set_execution_config(config(**overrides))
-            frames = {}
-            for k, v in tables.items():
-                df = dtt.from_arrow(v)
-                if k in ("lineitem", "orders", "customer"):
-                    df = df.into_partitions(EXCHANGE_PARTS)
-                frames[k] = df.collect()
-            frames["lineitem_1"] = dtt.from_arrow(tables["lineitem"]).collect()
+
+            def fresh_frames():
+                frames = {}
+                for k, v in tables.items():
+                    df = dtt.from_arrow(v)
+                    if k in ("lineitem", "orders", "customer"):
+                        df = df.into_partitions(EXCHANGE_PARTS)
+                    frames[k] = df.collect()
+                frames["lineitem_1"] = dtt.from_arrow(tables["lineitem"]).collect()
+                return frames
+
+            frames = fresh_frames()
 
             def run(build=build, frames=frames):
                 return build(frames).collect()
@@ -3000,6 +3067,21 @@ def phase_exchange(ph: Phases, scale: float, tables: dict, q3_oracle: tuple,
                    "plan": physical_plan(build(frames)), "card": card}
             if name == "q3_hash_joins":
                 res["k10_probes"] = k10
+            if name == "q3_hash_joins" and scale > 1.0:
+                # the same cold run over fresh frames with streaming off:
+                # what the morsel pipeline does to the wall at this scale
+                dtt.set_execution_config(config(**overrides, streaming_execution=False))
+                off = fresh_frames()
+                t0 = time.perf_counter()
+                df_off = build(off).collect()
+                got_off = df_off.to_arrow()
+                torch.cuda.synchronize()
+                res["partition_cold_s"] = time.perf_counter() - t0
+                ok_off, detail_off = check(got_off)
+                ph.check(ok_off and df_off.stats.snapshot()["counters"].get("stream_morsels", 0)
+                         == 0, f"{label} with streaming off: matches its oracle ({detail_off})")
+                dtt.set_execution_config(config(**overrides))
+                del off, df_off, got_off
             out[name] = res
             if name == "grouped_agg_combine":
                 out["_agg_rows"] = got
@@ -5787,9 +5869,10 @@ def phase_scheduling(ph: Phases, lineitem, tables: dict, q3_oracle: tuple, card:
     for bit (pyarrow Table.equals) and the oracle's at RTOL; K1 launches,
     device_aggregations and host_aggregations are equal both ways.
     (b) the same deep (K2) with a predicate literal no earlier phase used:
-    the pool's threads ask for one new program at once, and exactly one
-    nvcc build happens (one new library, one new program); the rows equal
-    one thread's bit for bit.
+    the pool's threads ask for one new program at once: at most one nvcc
+    process starts (none where the library is already on disk), one new
+    program is made and every thread's K2 call gets that one object; the
+    rows equal one thread's bit for bit.
     (c) Q1 over SCHED_EVEN_PARTS even partitions: the first accepts, the
     double-buffered driver keeps the stream on the consumer's thread, K1
     launches SCHED_EVEN_PARTS times.
@@ -5808,7 +5891,9 @@ def phase_scheduling(ph: Phases, lineitem, tables: dict, q3_oracle: tuple, card:
     (g) after every query of the phase, exec_inflight and stream_inflight
     read 0.
     The warm walls of (a) at one thread and at the default, and of (d) with
-    streaming on and off, are printed (findings, not claims)."""
+    streaming on and off, are printed (findings, not claims), with a
+    breakdown of one profiled warm run of each of those four (the port's
+    per-op spans and the device's busy time)."""
     import threading
 
     import torch
@@ -5854,10 +5939,28 @@ def phase_scheduling(ph: Phases, lineitem, tables: dict, q3_oracle: tuple, card:
             callers.append((threading.get_ident(), threading.current_thread().name))
         return real_k1(codes, *a, **k)
 
+    programs_used = []  # the program object of each K2 call on the card
+
     def k2_watch(prog, codes, *a, **k):
         if codes.device.type == dev_type:
             callers.append((threading.get_ident(), threading.current_thread().name))
+            programs_used.append(prog)
         return real_k2(prog, codes, *a, **k)
+
+    class CountingSubprocess:
+        """nvcc's ``subprocess`` module, counting the nvcc processes it
+        starts (``Popen``): none where the library is already on disk."""
+
+        def __init__(self, real):
+            self.real = real
+            self.started = []
+
+        def __getattr__(self, attr):
+            return getattr(self.real, attr)
+
+        def Popen(self, args, *a, **k):
+            self.started.append(args)
+            return self.real.Popen(args, *a, **k)
 
     rest = lineitem.num_rows - SCHED_FIRST_ROWS
     step = -(-rest // (SCHED_PARTS - 1))
@@ -5882,17 +5985,22 @@ def phase_scheduling(ph: Phases, lineitem, tables: dict, q3_oracle: tuple, card:
                     # builds it first, under concurrent first use
                     continue
                 callers.clear()
-                sos = set(nvcc.BUILD_DIR.glob("*.so"))
+                programs_used.clear()
                 nprog = len(fes.programs())
-                df, got, cold, launches, c = run(f"(a/b) q1 {kind} {threads}t",
-                                                 q1(skewed, date))
+                counting = nvcc.subprocess = CountingSubprocess(nvcc.subprocess)
+                try:
+                    df, got, cold, launches, c = run(f"(a/b) q1 {kind} {threads}t",
+                                                     q1(skewed, date))
+                finally:
+                    nvcc.subprocess = counting.real
                 cold_callers = list(callers)
                 warm = [run(f"(a/b) q1 {kind} {threads}t warm", q1(skewed, date))[2]
                         for _ in range(2)]
                 res[threads] = {"rows": got, "launches": launches, "cold_s": cold,
                                 "warm_s": warm, "callers": cold_callers,
-                                "new_libraries": len(set(nvcc.BUILD_DIR.glob("*.so")) - sos),
+                                "nvcc_processes": len(counting.started),
                                 "new_programs": len(fes.programs()) - nprog,
+                                "program_objects": len({id(p) for p in programs_used}),
                                 "routes": (c.get("device_aggregations", 0),
                                            c.get("host_aggregations", 0))}
             if deep:
@@ -5915,16 +6023,18 @@ def phase_scheduling(ph: Phases, lineitem, tables: dict, q3_oracle: tuple, card:
                 ok = ok and parity(pool["rows"].to_pydict(), oracle, RTOL)
                 out["q1_rows"] = pool["rows"]
             else:
-                ok = ok and pool["new_libraries"] == 1 and pool["new_programs"] == 1 \
-                    and not nvcc._RUNNING
+                ok = ok and pool["nvcc_processes"] <= 1 and pool["new_programs"] == 1 \
+                    and pool["program_objects"] == 1 and not nvcc._RUNNING
             ph.check(ok, f"{label}: the pool's rows equal one thread's bit for bit"
                          + ("" if deep else f" and the oracle's at rtol {RTOL}")
                          + f", {kernel} launches {pool['launches'][kernel]} and "
                          f"{one['launches'][kernel]}, (device, host) aggregations "
                          f"{pool['routes']} and {one['routes']}, {kernel} called from "
                          f"{len(pool_ids)} pool threads"
-                         + (f", {pool['new_libraries']} new library and "
-                            f"{pool['new_programs']} new program" if deep else ""))
+                         + (f", {pool['nvcc_processes']} nvcc process (at most 1; 0 where "
+                            f"the library was on disk), {pool['new_programs']} new program, "
+                            f"{pool['program_objects']} program object across the threads"
+                            if deep else ""))
             walls = {"one_thread_warm_s": one["warm_s"], "default_warm_s": pool["warm_s"],
                      "one_thread_cold_s": one["cold_s"], "default_cold_s": pool["cold_s"],
                      "pool_threads": len(pool_ids), "launches": pool["launches"], "card": card}
@@ -5983,6 +6093,33 @@ def phase_scheduling(ph: Phases, lineitem, tables: dict, q3_oracle: tuple, card:
                     "stream_morsels": on["morsels"], "launches": on["launches"], "card": card}
         print(f"SF1 sched q3 {shape} " + json.dumps(out[key]), flush=True)
     del q3one
+
+    # where each driver's time goes: one warm run of each under the port's
+    # profiler (per op: wall, self, queue_wait, the device_dispatch phase's
+    # host time, background spans) and torch.profiler (the device's busy
+    # time and idle share); the profiled run's wall includes the spans' cost
+    def breakdown(label, make_df, **kw):
+        dtt.set_execution_config(config(**kw))
+        held = []
+        dev, _ = device_profile(lambda: held.append(make_df().collect(profile=True)), reps=1)
+        prof = held[-1].profile()
+        ops = {name: {"wall_ms": o["wall_ns"] / 1e6, "self_ms": o["self_ns"] / 1e6,
+                      "queue_wait_ms": o["queue_wait_ns"] / 1e6,
+                      "device_dispatch_ms": o["device_ns"] / 1e6,
+                      "partitions": o["partitions"],
+                      "background_ms": {k: v / 1e6 for k, v in o["background"].items()}}
+               for name, o in prof.ops.items()}
+        res = {**dev, "profile_wall_ms": prof.wall_ns / 1e6, "ops": ops, "card": card}
+        out.setdefault("breakdown", {})[label] = res
+        print(f"SF1 sched breakdown {label} " + json.dumps(res), flush=True)
+        held.clear()
+
+    breakdown("q1 composed 8p one thread", lambda: q1(skewed), executor_threads=1)
+    breakdown("q1 composed 8p pool", lambda: q1(skewed))
+    for streaming in (False, True):
+        breakdown(f"q3 hash joins 4p streaming {streaming}",
+                  lambda: q3(q3f["customer"], q3f["orders"], q3f["lineitem"]),
+                  streaming_execution=streaming, broadcast_join_size_bytes_threshold=0)
 
     # (e) a limit over a chain on the card: the morsel sink stops early
     one_frame = dtt.from_arrow(lineitem)

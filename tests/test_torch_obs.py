@@ -36,8 +36,8 @@ import pytest
 
 import daft_tpu
 import daft_tpu_torch
-from torch_parity import (SPILL_BASE, fresh_ledgers_and_faults, restore_port_config,  # noqa: F401
-                          under_both)
+from torch_parity import (SPILL_BASE, actor_pools_down, fresh_ledgers_and_faults,  # noqa: F401
+                          restore_port_config, under_both)
 
 pytestmark = pytest.mark.usefixtures("restore_port_config")
 
@@ -52,6 +52,7 @@ def _clean():
     fresh_ledgers_and_faults()
     yield
     fresh_ledgers_and_faults()
+    actor_pools_down()
 
 
 # ---------------------------------------------------------------------------

@@ -26,8 +26,8 @@ import daft_tpu.spill  # noqa: F401
 import daft_tpu_torch
 import daft_tpu_torch.scheduler  # noqa: F401
 import daft_tpu_torch.spill  # noqa: F401
-from torch_parity import (COUNTERS, fresh_ledgers_and_faults, restore_port_config,  # noqa: F401
-                          run_seq)
+from torch_parity import (COUNTERS, actor_pools_down, fresh_ledgers_and_faults,  # noqa: F401
+                          restore_port_config, run_seq)
 
 N = 10_000
 
@@ -37,6 +37,7 @@ def _fresh():
     fresh_ledgers_and_faults()
     yield
     fresh_ledgers_and_faults()
+    actor_pools_down()
 
 
 def _frame(pkg):

@@ -194,6 +194,7 @@ def test_prefetch_actually_engages(scan_dir):
     for c in both(q, {"scan_prefetch_depth": 2}):
         assert c["prefetch_submitted"] > 0, c
         assert c["prefetch_served"] > 0, c
+    let_pools_go()
 
 
 def test_prefetch_charges_settle(scan_dir):
@@ -202,6 +203,7 @@ def test_prefetch_charges_settle(scan_dir):
 
     assert both(q, {"scan_prefetch_depth": 8}) == (6 * 4000, 6 * 4000)
     assert_ledgers_settled()
+    let_pools_go()
 
 
 def test_prefetch_budget_throttles_not_breaks(scan_dir):

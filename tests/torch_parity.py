@@ -42,6 +42,17 @@ SPILL_COUNTERS = ("spilled_partitions", "spill_write_failures", "unspill_readahe
 SPILL_BASE = {"executor_threads": 1, "async_spill_writes": False}
 
 
+def actor_pools_down() -> None:
+    """Both packages' UDF actor pools and pinned model actors shut down, so
+    that no actor thread outlives the case that made it (the reference's
+    serving tests count every live ``daft-actor-*`` thread as a leak)."""
+    from daft_tpu.actor_pool import shutdown_all as ref_shutdown
+    from daft_tpu_torch.actor_pool import shutdown_all
+
+    ref_shutdown()
+    shutdown_all()
+
+
 def fresh_ledgers_and_faults() -> None:
     """Both packages' process-wide memory ledgers at 0, both fault
     registries disarmed, and both query logs and structured-log rings
