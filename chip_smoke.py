@@ -32,8 +32,9 @@ Phases, each of which fails the run:
      sorted codes and masked rows, with fewer segments than pass 1 has
      owners and with codes outside [0, G); its library route is index_add_
      plus device._kahan_combine;
-  3. drive TPC-H Q1 and Q6 through daft_tpu_torch.from_arrow(...).collect()
-     on the card in the 32-bit device mode, through K1 (the composed route)
+  3. at the first scale, drive TPC-H Q1 and Q6 through
+     daft_tpu_torch.from_arrow(...).collect() on the card in the 32-bit
+     device mode, through K1 (the composed route)
      and through K2 (use_deep_fusion_kernel), and Q1 written with
      with_column through a device-resident plan segment (DeviceSegmentOp),
      with K2 and with K1; at SF1, Q1 and Q6 again over the table cut into 4
@@ -45,8 +46,8 @@ Phases, each of which fails the run:
      device_distincts), held against pyarrow and timed warm; then TPC-H Q3
      and Q5 (optimized: pruned join sides as fused map chains on the card,
      joins through the device probe, the device argsort, Limit) over
-     generate_tables(scale, seed=42), Q3's aggregate through the scatter
-     kernel and Q5's through K1. Hold every result against the pyarrow
+     generate_tables(scale, seed=42) at every scale, Q3's aggregate
+     through the scatter kernel and Q5's through K1. Hold every result against the pyarrow
      oracle of benchmarks/tpch.py at rtol 1e-6 (Q3's top 10 by q3_parity);
      check that each path ran on the card through its kernel (its launch
      count, set to 0 just before the path and read just after, and the
@@ -88,7 +89,7 @@ Phases, each of which fails the run:
      joins, with lineitem, orders and customer cut into 4 partitions: a
      grouped aggregate by l_suppkey (count, max, min) whose shuffle folds
      its stage-1 pieces, and again with hierarchical_exchange_combine off
-     (more exchange_rows, equal rows); a sort on (l_shipdate desc,
+     (more exchange_rows, equal rows); at SF1 a sort on (l_shipdate desc,
      l_orderkey, l_linenumber), range-shuffled and sorted per partition on
      the card; TPC-H Q3 with broadcast_join_size_bytes_threshold=0, so both
      joins co-partition by hash shuffles (8 probes on the card) with the
@@ -234,6 +235,19 @@ Phases, each of which fails the run:
      limit over a streamed chain (short-circuits, time to the first row);
      DataFrame.cancel() from a second thread during Q3; the ledger's window
      accounts at 0 after every query.
+ 18. the mesh runner (needs SF1 in --scales; phase_mesh), over phase 3's SF1
+     lineitem and phase 7's SF1 tables, on default_mesh(8) (8 slots on the
+     card) and default_mesh(): the raw exchange of l_orderkey (each
+     destination's multiset against numpy, two launches bit for bit); the
+     exchange fused with the scatter kernel's segment sum by order (bit for
+     bit across launches, RTOL against numpy float64, exact counts); Q1 over
+     repartition(8) (K1 once a partition, from the exchange's seeded
+     columns), hash-join, broadcast and sort-merge Q3 and, in x64, a global
+     sort and Q1, each through MeshRunner against the oracles and timed warm
+     beside NativeRunner with the exchange's steps, broadcast Q3 also on one
+     slot; collective.exchange armed under broadcast Q3 (the breaker trips
+     once, the rows come back from the host); a
+     one-process nccl group through init_distributed.
 
 Every phase runs under the port's defaults: one worker thread per core
 (executor_threads 0) and the morsel pipeline on. The legs whose held counts
@@ -249,14 +263,15 @@ partition on the partition path and in the CPU tests, whose partitions are
 all smaller) and no *_dispatches unit, and the leg holds them, with
 stream_morsels, at those values.
 
-Phases 8-11, phase 15 but its SF1 SQL leg, and phases 16 and 17 run after
+Phases 8-11, phase 15 but its SF1 SQL leg, and phases 16 to 18 run after
 phase 7 and before phase 4, while the 22-query tables are still being
 generated. Phases 1-10 turn feedback-directed
 planning and the whole-plan result cache off (PLAN_PINS): each times its
-plans as written. Every query of phases 1-7 and 9-17 (but the ids' Q6
+plans as written. Every query of phases 1-7 and 9-18 (but the ids' Q6
 and largest id and the fault cases of phases 10-13 and 16) is held
 to 0 device_attempt_failures, device_breaker_trips, degraded_completions,
-faults_injected, join_filter_errors and every *_fallbacks counter (Phases.watch reads them as collect() returns, and each
+faults_injected, join_filter_errors and every *_fallbacks counter (phase
+18's armed leg aside; Phases.watch reads them as collect() returns, and each
 phase's line says how many queries it read), so that no failure the device
 path caught can hide behind a passing route.
 
@@ -1412,10 +1427,11 @@ def device_profile(run, reps: int) -> tuple:
              "device_events": 0}, kernels)
 
 
-# warm runs of phase 3's timings at SF1; past SF1 they are 2 (phase 15 took
-# the time of the other 3 at SF10, where each Q3 run takes seconds)
+# warm runs of phase 3's timings at SF1; past SF1 one (phases 15 and 18
+# took the time of the others at SF10, where each Q3 and Q5 run takes
+# seconds)
 WARM_RUNS_SF1 = 5
-WARM_RUNS_PAST_SF1 = 2
+WARM_RUNS_PAST_SF1 = 1
 
 
 def warm_runs(scale: float) -> int:
@@ -2780,23 +2796,27 @@ def exchange_items(tables: dict, scale: float, q3_oracle: tuple) -> tuple:
     # Rows with equal keys share a range partition and keep their input
     # order there, and each partition's sort is stable, so the result is
     # pyarrow's stable sort of the whole table, row for row: the same key
-    # order and the same multiset of rows
-    keys = ["l_shipdate", "l_orderkey", "l_linenumber"]
-    want2 = li.take(pc.sort_indices(li, sort_keys=[("l_shipdate", "descending"),
-                                                   ("l_orderkey", "ascending"),
-                                                   ("l_linenumber", "ascending")]))
-    # the port's strings are large_string, its canonical string storage
-    want2 = want2.cast(pa.schema([pa.field(f.name, pa.large_string()) if f.type == pa.string()
-                                  else f for f in want2.schema]))
+    # order and the same multiset of rows. SF1 only: past it the same check
+    # over more rows (a 60 M-row oracle sort and exchange at SF10) cost the
+    # run's time limit, and nothing in it depends on the row count
+    if scale == 1.0:
+        keys = ["l_shipdate", "l_orderkey", "l_linenumber"]
+        want2 = li.take(pc.sort_indices(li, sort_keys=[("l_shipdate", "descending"),
+                                                       ("l_orderkey", "ascending"),
+                                                       ("l_linenumber", "ascending")]))
+        # the port's strings are large_string, its canonical string storage
+        want2 = want2.cast(pa.schema([pa.field(f.name, pa.large_string())
+                                      if f.type == pa.string() else f
+                                      for f in want2.schema]))
 
-    def sort_check(got):
-        same_keys = got.select(keys).equals(want2.select(keys))
-        same_rows = got.num_rows == n and got.equals(want2)
-        return same_keys and same_rows, (f"key order equal {same_keys}, the {n} rows equal "
-                                         f"pyarrow's stable sort {same_rows}")
+        def sort_check(got):
+            same_keys = got.select(keys).equals(want2.select(keys))
+            same_rows = got.num_rows == n and got.equals(want2)
+            return same_keys and same_rows, (f"key order equal {same_keys}, the {n} rows "
+                                             f"equal pyarrow's stable sort {same_rows}")
 
-    items["sort"] = (lambda frames: frames["lineitem"].sort(keys, desc=[True, False, False]),
-                     {}, sort_check, {"device_sorts": p, "host_sorts": 0, "shuffles": 1})
+        items["sort"] = (lambda frames: frames["lineitem"].sort(keys, desc=[True, False, False]),
+                         {}, sort_check, {"device_sorts": p, "host_sorts": 0, "shuffles": 1})
 
     # 3. Q3 over co-partitioned hash joins with the runtime join filter
     want3, groups3 = q3_oracle
@@ -2933,9 +2953,9 @@ def phase_exchange(ph: Phases, scale: float, tables: dict, q3_oracle: tuple,
     """Phase 7: the exchange between partitions on the card, in the 32-bit
     device mode (the default config), over generate_tables(scale, seed=42)
     with lineitem, orders and customer cut into 4 partitions
-    (into_partitions): a sort over the 4 partitions and TPC-H Q3 through
-    co-partitioned hash joins with the runtime join filter (K10 on the
-    card) at every scale; at SF1 also a grouped aggregate whose shuffle
+    (into_partitions): TPC-H Q3 through co-partitioned hash joins with the
+    runtime join filter (K10 on the card) at every scale; at SF1 also a sort
+    over the 4 partitions, a grouped aggregate whose shuffle
     folds its stage-1 pieces (and again with the fold off), a random
     repartition then Q6, and the unsigned lanes (one partition; the uint32
     join in the 64-bit mode).
@@ -6191,6 +6211,384 @@ def phase_scheduling(ph: Phases, lineitem, tables: dict, q3_oracle: tuple, card:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the mesh runner
+# ---------------------------------------------------------------------------
+
+MESH_SLOTS = 8            # default_mesh(8): 8 slots, on one card
+Q1_COLUMNS = ("l_returnflag", "l_linestatus", "l_quantity", "l_extendedprice", "l_discount",
+              "l_tax", "l_shipdate")
+SORT_COLUMNS = ("l_orderkey", "l_linenumber", "l_extendedprice", "l_shipmode")
+
+
+def mesh_exchanges(native: dict) -> int:
+    """The exchanges a mesh run of a plan must make over the mesh: every
+    shuffle the NativeRunner run of the plan made on the host, and two for
+    each sort-merge join that split its sides (one a side)."""
+    return native.get("shuffles", 0) + 2 * native.get("aligned_boundary_shuffles", 0)
+
+
+def q3_smj(customer, orders, lineitem):
+    """Q3 with both joins as sort-merge joins (SortMergeJoinOp)."""
+    from daft_tpu_torch import col
+
+    cutoff = datetime.date(1995, 3, 15)
+    c = customer.where(col("c_mktsegment") == "BUILDING")
+    o = orders.where(col("o_orderdate") < cutoff)
+    l = lineitem.where(col("l_shipdate") > cutoff)
+    return (
+        c.join(o, left_on="c_custkey", right_on="o_custkey", strategy="sort_merge")
+        .join(l, left_on="o_orderkey", right_on="l_orderkey", strategy="sort_merge")
+        .with_column("revenue", col("l_extendedprice") * (1 - col("l_discount")))
+        .groupby("o_orderkey", "o_orderdate", "o_shippriority")
+        .agg(col("revenue").sum().alias("revenue"))
+        .select("o_orderkey", "revenue", "o_orderdate", "o_shippriority")
+        .sort(["revenue", "o_orderdate"], desc=[True, False])
+        .limit(10)
+    )
+
+
+MESH_STEPS = ("bucket", "stage", "scatter", "counts", "unstage")
+
+
+def sync_profiler():
+    """A query Profiler that synchronizes the card as each span of the mesh
+    exchange (``collective.*``) opens and closes, so that each step's span
+    holds its own device work: the breakdown run's, never a timed run's."""
+    import torch
+
+    from daft_tpu_torch.profile import Profiler
+
+    class SyncProfiler(Profiler):
+        def begin(self, name, op=None, part=None, kind="op"):
+            if self.armed and name.startswith("collective."):
+                torch.cuda.synchronize()
+            return super().begin(name, op=op, part=part, kind=kind)
+
+        def end(self, sp):
+            if sp is not None and sp.name.startswith("collective."):
+                torch.cuda.synchronize()
+            super().end(sp)
+
+    return SyncProfiler()
+
+
+def exchange_steps(prof) -> tuple:
+    """(exchanges, {step: ms}) from a profiled run: the exchanges that ran
+    all five steps (``collective.exchange`` spans with a
+    ``collective.unstage`` child), and each step's milliseconds summed over
+    them."""
+    spans = prof.spans_snapshot()
+    top = {s.sid for s in spans if s.name == "collective.exchange"}
+    done = {s.parent for s in spans if s.name == "collective.unstage" and s.parent in top}
+    ms = {k: 0.0 for k in MESH_STEPS}
+    for s in spans:
+        if s.parent in done and s.name.startswith("collective."):
+            ms[s.name.split(".", 1)[1]] += s.dur_ns / 1e6
+    return len(done), ms
+
+
+def phase_mesh(ph: Phases, lineitem, tables: dict, q3_oracle: tuple, card: str) -> dict:
+    """Phase 18: the mesh runner (parallel/) on one card, in the 32-bit mode
+    but where a leg says x64, over phase 3's SF1 lineitem
+    (generate_lineitem_only(1.0, seed=42), Q1's) and phase 7's SF1 tables
+    (generate_tables(1.0, seed=42), whose lineitem has l_orderkey), on
+    default_mesh(8) (8 slots on the card) and default_mesh() (one slot).
+    (a) build_exchange of l_orderkey's rows, cut into 8 source shards and
+    bucketed by l_orderkey % 8: each destination's rows are the multiset of
+    numpy's bucketing, and two launches are equal bit for bit.
+    (b) build_exchange_groupby_sum of l_extendedprice (float32) by
+    l_orderkey's dense rank (one group an order, at most 7 rows a group):
+    the sums of two launches equal bit for bit and within RTOL of numpy's
+    float64 sums of the same float32 values, the counts exact, one
+    scatter-kernel launch a slot.
+    (c) through MeshRunner: Q1 over repartition(8) (stage 1 through K1, one
+    launch a partition, from the columns the exchange seeded), hash-join Q3
+    over 8-partition sides (co-partitioned by the exchange), broadcast Q3
+    (broadcast_replications), also on default_mesh(), sort-merge Q3
+    (device_aligned_smj_exchanges) and, in x64, the global sort of lineitem
+    by (l_orderkey, l_linenumber) and Q1 at RTOL_X64; each against the
+    pyarrow oracles, every exchange of the plan over the mesh (device_shuffles
+    as mesh_exchanges reads NativeRunner's run, no host shuffle), no
+    collective breaker trip and no degraded shuffle. Each is timed warm beside
+    NativeRunner warm on the same partitions (each runner's second run), and
+    a third mesh run, profiled with the card synchronized at each step of
+    every exchange (sync_profiler), breaks the exchange down; broadcast
+    Q3 on one slot and Q1 in x64 run once, held to the exchange count of
+    the same plan's timed leg.
+    (d) collective.exchange armed always with device_breaker_threshold 1:
+    broadcast Q3 still comes back with the unarmed run's rows at RTOL, the
+    breaker trips once and the exchanges go to the host.
+    (e) a one-process nccl group through init_distributed on localhost:
+    global_mesh(), all_to_all_single and all_gather on CUDA tensors, then
+    the group is destroyed."""
+    import socket
+
+    import numpy as np
+    import pyarrow as pa
+    import torch
+
+    import daft_tpu_torch as dtt
+    from benchmarks import tpch
+    from daft_tpu_torch import col, faults
+    from daft_tpu_torch.kernels import fused_expr_sums as fes
+    from daft_tpu_torch.kernels import scatter_sums as scs
+    from daft_tpu_torch.kernels import segment_sums as ss
+    from daft_tpu_torch.parallel import default_mesh
+    from daft_tpu_torch.parallel.collectives import (build_exchange, build_exchange_groupby_sum,
+                                                     exchange_capacity, shard_to_mesh)
+    from daft_tpu_torch.runners import MeshRunner, NativeRunner
+
+    t_phase = time.perf_counter()
+    out = {"k1_launches": 0, "k2_launches": 0, "scatter_launches": 0, "card": card}
+    dtt.set_execution_config(config())
+    mesh8 = default_mesh(MESH_SLOTS)
+    ph.check(mesh8.size == MESH_SLOTS and len({str(d) for d in mesh8.devices})
+             == min(MESH_SLOTS, max(1, torch.cuda.device_count())),
+             f"SF1 mesh: default_mesh({MESH_SLOTS}) has {mesh8.size} slots on "
+             f"{sorted({str(d) for d in mesh8.devices})}")
+
+    # (a) the raw exchange of l_orderkey
+    joined_li = tables["lineitem"]
+    keys = joined_li.column("l_orderkey").to_numpy().astype(np.int64)
+    n, total = MESH_SLOTS, len(keys)
+    r = -(-total // n)
+    vals = np.zeros(n * r, np.int64)
+    vals[:total] = keys
+    vals = vals.reshape(n, r)
+    valid = (np.arange(n * r) < total).reshape(n, r)
+    bucket = (vals % n).astype(np.int32)
+    cap = exchange_capacity([bucket[i][valid[i]] for i in range(n)], [None] * n, n)
+    fn = build_exchange(mesh8, cap)
+    args = (shard_to_mesh(bucket, mesh8), shard_to_mesh(valid, mesh8), shard_to_mesh(vals, mesh8))
+    first, second = fn(*args), fn(*args)
+    same = all(torch.equal(a, b) for f1, f2 in zip(first, second) for a, b in zip(f1, f2))
+    multiset = True
+    for d in range(n):
+        got = torch.sort(first[1][d].reshape(-1)[first[0][d].reshape(-1)]).values.cpu().numpy()
+        multiset = multiset and np.array_equal(got, np.sort(keys[keys % n == d]))
+    ex_ms = cuda_ms(lambda: fn(*args), iters=5)
+    moved = total * (4 + 1 + 8) + n * n * cap * (1 + 8)
+    out["exchange"] = {"rows": total, "capacity": cap, "ms": ex_ms, **bound(moved, 0),
+                       "card": card}
+    ph.check(same and multiset,
+             f"SF1 mesh (a) build_exchange of {total} l_orderkey rows over {n} slots, capacity "
+             f"{cap}: each destination's rows equal numpy's bucketing as a multiset, two "
+             f"launches equal bit for bit; {ex_ms:.3f} ms a launch")
+    del first, second, args
+
+    # (b) the fused exchange and segment sum, one group an order
+    _, codes = np.unique(keys, return_inverse=True)
+    g = int(codes.max()) + 1
+    price = joined_li.column("l_extendedprice").to_numpy().astype(np.float32)
+    cv = np.zeros(n * r, np.int32)
+    cv[:total] = codes
+    cv = cv.reshape(n, r)
+    pv = np.zeros(n * r, np.float32)
+    pv[:total] = price
+    pv = pv.reshape(n, r)
+    gb = (cv % n).astype(np.int32)
+    gcap = exchange_capacity([gb[i][valid[i]] for i in range(n)], [None] * n, n)
+    step = build_exchange_groupby_sum(mesh8, gcap, g)
+    gargs = (shard_to_mesh(gb, mesh8), shard_to_mesh(valid, mesh8), shard_to_mesh(cv, mesh8),
+             shard_to_mesh(pv, mesh8))
+    scs.LAUNCHES = 0
+    s1, c1 = step(*gargs)
+    s2, c2 = step(*gargs)
+    torch.cuda.synchronize()
+    launches_b = scs.LAUNCHES
+    out["scatter_launches"] += launches_b
+    bits = all(same_bits(a, b) for a, b in zip(s1, s2)) and all(
+        torch.equal(a, b) for a, b in zip(c1, c2))
+    idx = np.arange(g)
+    sums = torch.stack(s1).cpu().numpy()[idx % n, idx].astype(np.float64)
+    cnts = torch.stack(c1).cpu().numpy()[idx % n, idx]
+    want = np.bincount(codes, weights=price.astype(np.float64), minlength=g)
+    rel = float(np.max(np.abs(sums - want) / np.maximum(np.abs(want), 1e-30)))
+    gb_ms = cuda_ms(lambda: step(*gargs), iters=3)
+    out["groupby_sum"] = {"groups": g, "capacity": gcap, "ms": gb_ms, "max_rel": rel,
+                          "card": card}
+    ph.check(bits and rel <= RTOL and np.array_equal(cnts, np.bincount(codes, minlength=g))
+             and launches_b == 2 * n,
+             f"SF1 mesh (b) build_exchange_groupby_sum over {g} groups: two launches equal bit "
+             f"for bit, sums within {rel:.2e} of numpy's float64 (RTOL {RTOL}), counts exact, "
+             f"{launches_b} scatter-kernel launches (one a slot a launch); {gb_ms:.3f} ms")
+    del gargs, s1, s2, c1, c2
+
+    # (c) the mesh queries, each against NativeRunner on the same partitions
+    c_t, o_t, l_t = tables["customer"], tables["orders"], tables["lineitem"]
+    want3, groups3 = q3_oracle
+    parts8 = {k: dtt.from_arrow(tables[k]).into_partitions(MESH_SLOTS).collect()
+              for k in ("customer", "orders", "lineitem")}
+    li_q1 = dtt.from_arrow(lineitem.select(list(Q1_COLUMNS))).collect()
+    sort_src = joined_li.select(list(SORT_COLUMNS))
+    li_sort = dtt.from_arrow(sort_src).into_partitions(MESH_SLOTS).collect()
+    oracle1 = tpch.oracle_q1(lineitem)
+    order = pa.compute.sort_indices(sort_src, [("l_orderkey", "ascending"),
+                                               ("l_linenumber", "ascending")])
+    want_sort = sort_src.take(order)
+
+    def check_q1(rtol):
+        return lambda got: parity(got.to_pydict(), oracle1, rtol)
+
+    def check_q3(got):
+        return q3_parity(got.to_pydict(), want3, groups3, RTOL)
+
+    def q3b():
+        return q3(parts8["customer"], parts8["orders"], parts8["lineitem"])
+
+    # name -> (frame, config, mesh (None: default_mesh()), check, twin). A leg
+    # without a twin is timed: a warm mesh run, a profiled one for its
+    # exchange's steps, and a warm NativeRunner run beside them; a leg with
+    # one runs once, held to the exchange count of its twin, an earlier timed
+    # leg of the same plan
+    queries = {
+        "q1": (lambda: q1(li_q1.repartition(MESH_SLOTS)), {}, mesh8, check_q1(RTOL), None),
+        "q3_hash": (q3b, {"broadcast_join_size_bytes_threshold": 0}, mesh8, check_q3, None),
+        "q3_broadcast": (q3b, {}, mesh8, check_q3, None),
+        "q3_broadcast_one_slot": (q3b, {}, None, check_q3, "q3_broadcast"),
+        "q3_smj": (lambda: q3_smj(parts8["customer"], parts8["orders"], parts8["lineitem"]),
+                   {}, mesh8, check_q3, None),
+        "sort_x64": (lambda: li_sort.sort([col("l_orderkey"), col("l_linenumber")]),
+                     {"device_x64": True}, mesh8,
+                     lambda got: got.cast(want_sort.schema).equals(want_sort), None),
+        "q1_x64": (lambda: q1(li_q1.repartition(MESH_SLOTS)), {"device_x64": True}, mesh8,
+                   check_q1(RTOL_X64), "q1"),
+    }
+    ctx = dtt.get_context()
+
+    def run(make_df, runner, kw, profiler=None):
+        dtt.set_execution_config(config(**kw))
+        ctx._runner = runner
+        ss.LAUNCHES = fes.LAUNCHES = scs.LAUNCHES = 0
+        t = time.perf_counter()
+        df = make_df()
+        if profiler is not None:
+            df.stats.profiler = profiler
+        df = df.collect()
+        got = df.to_arrow()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        launches = {"k1": ss.LAUNCHES, "k2": fes.LAUNCHES, "scatter": scs.LAUNCHES}
+        return got, secs, launches, df.stats.snapshot()["counters"]
+
+    unarmed = None
+    exchanges = {}  # each timed leg's plan's exchanges
+    try:
+        for name, (make_df, kw, mesh, check, twin) in queries.items():
+            timed = twin is None
+            runner = MeshRunner(mesh)
+            got, cold, launches, c = run(make_df, runner, kw)
+            for k, v in launches.items():
+                out[f"{k}_launches"] += v
+            warm = native = native_cold = profiled = None
+            steps_n, steps_ms = 0, {}
+            if timed:
+                _, warm, _, _ = run(make_df, runner, kw)
+                prof = sync_profiler()
+                _, profiled, _, _ = run(make_df, runner, kw, profiler=prof)
+                steps_n, steps_ms = exchange_steps(prof)
+                # the plan's exchanges (the cold run's counters), and its
+                # warm time with the host shuffles
+                native_runner = NativeRunner()
+                _, native_cold, _, nc = run(make_df, native_runner, kw)
+                _, native, _, _ = run(make_df, native_runner, kw)
+            want_x = exchanges[name] = mesh_exchanges(nc) if timed else exchanges[twin]
+            routes_ok = (c.get("device_shuffles", 0) == want_x and want_x >= 1
+                         and c.get("shuffles", 0) == 0
+                         and c.get("collective_breaker_trips", 0) == 0
+                         and c.get("degraded_shuffles", 0) == 0
+                         and (not timed or nc.get("device_shuffles", 0) == 0))
+            extra = ""
+            if name == "q1":
+                routes_ok = routes_ok and launches["k1"] == MESH_SLOTS
+                extra = f", K1 launches {launches['k1']} (one a partition)"
+            elif name == "q3_broadcast":
+                unarmed = got
+                routes_ok = routes_ok and c.get("broadcast_replications", 0) >= 1
+                extra = f", broadcast_replications {c.get('broadcast_replications', 0)}"
+            elif name == "q3_smj":
+                routes_ok = routes_ok and c.get("device_aligned_smj_exchanges", 0) == 2
+                extra = (f", device_aligned_smj_exchanges "
+                         f"{c.get('device_aligned_smj_exchanges', 0)}")
+            elif name.endswith("x64"):
+                routes_ok = routes_ok and launches["k1"] == 0 and launches["k2"] == 0
+            routes_ok = routes_ok and (not timed or steps_n == want_x)
+            res = {"mesh_cold_s": cold, "mesh_warm_s": warm, "native_cold_s": native_cold,
+                   "native_warm_s": native, "device_shuffles": c.get("device_shuffles", 0),
+                   "exchange_rows": c.get("exchange_rows", 0), "launches": launches,
+                   "profiled_s": profiled, "exchanges_profiled": steps_n,
+                   "exchange_ms": steps_ms, "card": card}
+            out[name] = res
+            ph.check(check(got) and routes_ok,
+                     f"SF1 mesh (c) {name} on {'default_mesh()' if mesh is None else 'default_mesh(8)'}"
+                     f": rows against the oracle, device_shuffles {res['device_shuffles']} (want "
+                     f"{want_x}), launches {launches}{extra}"
+                     + (f", {steps_n} exchanges profiled; warm {warm:.3f}s against "
+                        f"NativeRunner's warm {native:.3f}s" if timed
+                        else f"; cold {cold:.3f}s"))
+            print(f"SF1 mesh {name} " + json.dumps(res), flush=True)
+
+        # (d) the collective breaker: every exchange fails, the host takes over
+        ph.begin(None)  # the armed leg's own checks read its failure counters
+        faults.arm("collective.exchange", "always")
+        try:
+            got, secs, launches, c = run(q3b, MeshRunner(mesh8),
+                                         {"device_breaker_threshold": 1})
+        finally:
+            faults.disarm()
+        a = got.to_pydict()
+        ph.check(check_q3(got) and parity(a, unarmed.to_pydict(), RTOL)
+                 and c.get("collective_breaker_trips", 0) == 1
+                 and c.get("device_shuffles", 0) == 0 and c.get("degraded_shuffles", 0) >= 1
+                 and c.get("shuffles", 0) == exchanges["q3_broadcast"],
+                 f"SF1 mesh (d) collective.exchange armed, broadcast Q3: its rows equal the "
+                 f"unarmed run's at RTOL and q3_parity, collective_breaker_trips "
+                 f"{c.get('collective_breaker_trips', 0)}, degraded_shuffles "
+                 f"{c.get('degraded_shuffles', 0)}, host shuffles {c.get('shuffles', 0)}, "
+                 f"device_shuffles {c.get('device_shuffles', 0)}")
+        out["k1_launches"] += launches["k1"]
+    finally:
+        ctx._runner = None
+        dtt.set_execution_config(config())
+
+    # (e) a one-process nccl group over torch.distributed
+    from daft_tpu_torch.parallel.multihost import (global_mesh, init_distributed,
+                                                   shutdown_distributed)
+
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    t = time.perf_counter()
+    try:
+        import torch.distributed as dist
+
+        up = init_distributed(f"localhost:{port}", 1, 0)
+        gm = global_mesh()
+        x = torch.arange(8, dtype=torch.int32, device="cuda")
+        y = torch.empty_like(x)
+        dist.all_to_all_single(y, x)
+        gathered = [torch.empty(2, dtype=torch.int64, device="cuda")]
+        dist.all_gather(gathered, torch.tensor([7, 9], dtype=torch.int64, device="cuda"))
+        torch.cuda.synchronize()
+        ok = (up and dist.get_backend() == "nccl" and gm.size == torch.cuda.device_count()
+              and torch.equal(x, y) and gathered[0].tolist() == [7, 9])
+        backend = dist.get_backend()
+    finally:
+        shutdown_distributed()
+    import torch.distributed as dist
+
+    ph.check(ok and not dist.is_initialized(),
+             f"SF1 mesh (e) a one-process {backend} group on localhost: global_mesh() "
+             f"{gm.size} slot(s), all_to_all_single and all_gather on CUDA tensors, destroyed "
+             f"({time.perf_counter() - t:.1f}s)")
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"SF1 mesh phase 18 wall {out['wall_s']:.1f}s ({card})", flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
 def _walk(p):
     yield p
     for c in p.children():
@@ -6272,7 +6670,8 @@ def ab_times(tree: str, runs: int = 15) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scales", default="1,10",
-                    help="comma-separated TPC-H scale factors for the main path")
+                    help="comma-separated TPC-H scale factors: phase 3's Q1/Q6 run at the "
+                         "first, its joins and phase 7 at each")
     ap.add_argument("--profile", action="store_true",
                     help="trace warm Q1/Q6 (1 and 4 partitions), deep Q1, Q3 and Q5 at the "
                          "first scale with "
@@ -6330,19 +6729,25 @@ def main(argv=None) -> int:
         # until phase 3 counts them
         k1_entry["launches"] = k2_entry["launches"] = sc_entry["launches"] = None
         for i, scale in enumerate(scales):
-            if scale not in tables:
-                t0 = time.perf_counter()
-                tables = {scale: tpch.generate_lineitem_only(scale=scale, seed=42)}
-                print(f"SF{scale:g}: {tables[scale].num_rows} rows generated in "
-                      f"{time.perf_counter() - t0:.1f}s", flush=True)
             print(f"elapsed {time.perf_counter() - started:.1f}s: phase 3 at SF{scale:g}",
                   flush=True)
             ph.begin(f"phase 3 at SF{scale:g}")
-            res = phase_main_path(ph, scale, tables[scale], card, args.profile and i == 0)
-            if scale == 1.0:  # the two-stage aggregate over 4 partitions
-                res["k1_launches"] += phase_multi_partition(
-                    ph, tables[scale], card, res, args.profile and i == 0)["k1_launches"]
-                phase_single_ops(ph, tables[scale], card)
+            if i == 0:
+                # Q1/Q6 through K1 and K2 at the first scale alone: a later
+                # scale repeated the same checks over more rows, and its
+                # lineitem's generation, inside the 1200 s limit; the joins
+                # below, whose scatter-kernel shape grows with the scale,
+                # run at every scale
+                if scale not in tables:
+                    t0 = time.perf_counter()
+                    tables = {scale: tpch.generate_lineitem_only(scale=scale, seed=42)}
+                    print(f"SF{scale:g}: {tables[scale].num_rows} rows generated in "
+                          f"{time.perf_counter() - t0:.1f}s", flush=True)
+                res = phase_main_path(ph, scale, tables[scale], card, args.profile)
+                if scale == 1.0:  # the two-stage aggregate over 4 partitions
+                    res["k1_launches"] += phase_multi_partition(
+                        ph, tables[scale], card, res, args.profile)["k1_launches"]
+                    phase_single_ops(ph, tables[scale], card)
             tables = {}  # the join tables of this scale take the memory next
             joins = phase_joins(ph, scale, card, args.profile and i == 0, keep_tables=True)
             xtables = joins.pop("tables")
@@ -6369,7 +6774,7 @@ def main(argv=None) -> int:
                 sc_entry[f"sf{scale:g}_shape"] = joins["scatter_main"]
         if scales:
             faults_out = relational = spill = adapt = scans = prefetch_write = columnar = None
-            sql_udf = observability = scheduling = None
+            sql_udf = observability = scheduling = mesh = None
             if 1.0 in scales:
                 # phases 8-11 read phase 3's and phase 7's SF1 tables alone, so
                 # they run while the 22-query tables are still being generated
@@ -6402,6 +6807,10 @@ def main(argv=None) -> int:
                 ph.begin("phase 17")
                 scheduling = phase_scheduling(ph, sf1_lineitem, join_tables, q3_oracle_sf1,
                                               card)
+                # phase 18 too: phase 3's SF1 lineitem and phase 7's SF1 tables
+                print(f"elapsed {time.perf_counter() - started:.1f}s: phase 18", flush=True)
+                ph.begin("phase 18")
+                mesh = phase_mesh(ph, sf1_lineitem, join_tables, q3_oracle_sf1, card)
             t0 = time.perf_counter()
             data = big.get()
             print(f"SF1: 22-query tables ready {time.perf_counter() - big.started:.1f}s after "
@@ -6449,7 +6858,8 @@ def main(argv=None) -> int:
                 [("faults", faults_out), ("relational", relational), ("spill", spill),
                  ("adapt", adapt), ("scan", scans), ("prefetch_write", prefetch_write),
                  ("columnar", columnar), ("sql_udf", sql_udf),
-                 ("observability", observability), ("scheduling", scheduling)]
+                 ("observability", observability), ("scheduling", scheduling),
+                 ("mesh", mesh)]
                 if faults_out is not None else [])
             for name, ph_out in phase_outs:
                 k1_entry[f"launches_{name}"] = ph_out["k1_launches"]

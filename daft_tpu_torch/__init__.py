@@ -23,6 +23,10 @@ runs its batches on the card.
 ``metrics_text()`` and ``engine_log_tail()`` say where a query spent its
 time and how the engine is doing (profile/, obs/, tracing.py).
 
+``set_runner_mesh()`` (or ``runners.MeshRunner(parallel.default_mesh(8))``)
+runs the shuffles over a mesh of slots (parallel/); ``parallel.init_distributed``
+and ``parallel.global_mesh`` span processes over torch.distributed.
+
 Entry points run on the card (``ExecutionConfig.device == "cuda"``) unless
 the caller asks for the CPU with ``set_execution_config(device="cpu")``.
 """
@@ -30,7 +34,8 @@ the caller asks for the CPU with ``set_execution_config(device="cpu")``.
 from .api import (UDF, batch_udf, engine_log_tail, from_arrow, from_glob_path, from_pandas,
                   from_pydict, from_pylist, health, last_profile, metrics_text, query_log,
                   query_progress, read_csv, read_json, read_parquet, sql_expr, udf)
-from .context import ExecutionConfig, execution_config_from_dict, get_context, set_execution_config
+from .context import (ExecutionConfig, execution_config_from_dict, get_context,
+                      set_execution_config, set_runner, set_runner_mesh, set_runner_native)
 from .dataframe import DataFrame
 from .datatypes import DataType
 from .expressions import Expression, col, interval, lit
@@ -44,7 +49,8 @@ __all__ = [
     "execution_config_from_dict", "from_arrow", "from_glob_path", "from_pandas", "from_pydict",
     "from_pylist", "get_context", "health", "interval", "last_profile", "lit", "metrics_text",
     "query_log", "query_progress", "read_csv", "read_json", "read_parquet",
-    "set_execution_config", "sql", "sql_expr", "udf",
+    "set_execution_config", "set_runner", "set_runner_mesh", "set_runner_native", "sql",
+    "sql_expr", "udf",
 ]
 
 # The sql SUBMODULE shares its name with the sql() entry point: the first

@@ -193,6 +193,8 @@ def try_result_cache(op, ctx, build) -> Optional[Iterator]:
         # under a budget the ledger and the spill govern the working set: a
         # process-pinned prefix would change what the budget asked for
         return None
+    if ctx.partitions_pinned:
+        return None  # a mesh or a multi-process run: partitions may be foreign-owned
     skip = getattr(ctx, "_rc_inner_ops", None)
     if skip is not None and id(op) in skip:
         return None  # an op inside a prefix already being teed above

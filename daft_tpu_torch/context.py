@@ -43,8 +43,13 @@ streaming knobs (``streaming_execution``, ``morsel_size_rows``,
 ``stream_channel_capacity``, ``stream_producer_window``) shape the morsel
 pipeline (stream/).
 
+The runner is NativeRunner unless ``set_runner_mesh()`` (or
+``set_runner("mesh")``, or DAFT_TPU_TORCH_RUNNER=mesh at import) selects
+``MeshRunner`` over ``default_mesh()``; an installed runner
+(``ctx._runner = MeshRunner(mesh)``) is kept until the next ``set_runner``.
+
 Left out: the rest of the planning config (the artifact directory), the
-serving knobs and runner selection (the port has one runner, NativeRunner).
+serving knobs and the distributed runner (ROADMAP Queue 1, item 10).
 """
 
 from __future__ import annotations
@@ -349,6 +354,7 @@ class DaftContext:
         self._runner = None
         # the QueryProfile of the latest profiled collect()
         self._last_profile = None
+        self._runner_name = os.environ.get("DAFT_TPU_TORCH_RUNNER", "native")
         if os.environ.get("DAFT_TPU_TORCH_PROGRESS") == "1":
             from . import tracing
 
@@ -363,10 +369,19 @@ class DaftContext:
 
     def runner(self):
         if self._runner is None:
-            from .runners import NativeRunner
+            from .runners import MeshRunner, NativeRunner
 
-            self._runner = NativeRunner()
+            self._runner = MeshRunner() if self._runner_name == "mesh" else NativeRunner()
         return self._runner
+
+    def set_runner(self, name: str) -> None:
+        """Select the runner by name: ``native`` or ``mesh``."""
+        from .errors import DaftValueError
+
+        if name not in ("native", "mesh"):
+            raise DaftValueError(f"unknown runner {name!r} (the port has native and mesh)")
+        self._runner_name = name
+        self._runner = None
 
     def last_profile(self):
         """The QueryProfile of the latest profiled query in this process
@@ -389,3 +404,17 @@ def set_execution_config(config: Optional[ExecutionConfig] = None, **kwargs) -> 
     base = config if config is not None else ctx.execution_config
     ctx.execution_config = dataclasses.replace(base, **kwargs)
     return ctx
+
+
+def set_runner(name: str) -> DaftContext:
+    ctx = get_context()
+    ctx.set_runner(name)
+    return ctx
+
+
+def set_runner_native() -> DaftContext:
+    return set_runner("native")
+
+
+def set_runner_mesh() -> DaftContext:
+    return set_runner("mesh")

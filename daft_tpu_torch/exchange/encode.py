@@ -163,7 +163,7 @@ def encode_exchange_partition(part: MicroPartition, stats=None,
 
         crc = crc32_table(atbl)
     out = MicroPartition.from_scan_task(
-        EncodedExchangeTask(atbl, part.schema, raw, crc=crc, stats=stats))
+        EncodedExchangeTask(atbl, part.schema, raw, crc=crc, stats=stats)).derived_from(part)
     # the encoded piece decodes to exactly the raw piece, so the raw
     # piece's recipe (if any) re-derives it too
     out.lineage_recipe = part.lineage_recipe

@@ -253,7 +253,8 @@ def prune_partition(part, jf: RuntimeJoinFilter, key_exprs, ctx):
         ctx.stats.bump("join_filter_rows_pruned", before - after)
     if after == before:
         return part
-    return MicroPartition(part.schema, kept) if kept else MicroPartition.empty(part.schema)
+    out = MicroPartition(part.schema, kept) if kept else MicroPartition.empty(part.schema)
+    return out.derived_from(part)
 
 
 class JoinFilterBuilder:

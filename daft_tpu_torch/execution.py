@@ -113,9 +113,17 @@ the query log and hands it to the slow and failed query capture
 (``_record_query``). No observability defect fails the query: each
 degrades to an error log line.
 
+Mesh runs (parallel/mesh_exec.py): ``prepare_broadcast`` is a no-op
+here; the mesh context replicates a broadcast build side's key there, and
+``eval_join_dispatch`` probes each partition against the copy on its own
+device. A map op over a partition that another process owns and has not
+read (``foreign_owned``, a multi-process scan) is deferred onto the
+partition instead of reading its file (``with_pending_op``), and a plan
+segment declines it. Every map output carries its input's
+``owner_process``.
+
 Left out: the dispatch backend of worker processes and its peer
-shuffles (ROADMAP Queue 1, item 10), the mesh hook ``prepare_broadcast``
-and the mesh breaker (item 8).
+shuffles (ROADMAP Queue 1, item 10).
 """
 
 from __future__ import annotations
@@ -514,7 +522,8 @@ class ExecutionContext:
 
     def __init__(self, cfg: ExecutionConfig, stats: Optional[RuntimeStats] = None,
                  deadline: Optional[float] = None,
-                 device_health: Optional[DeviceHealth] = None):
+                 device_health: Optional[DeviceHealth] = None,
+                 collective_health: Optional[DeviceHealth] = None):
         self.cfg = cfg
         self.stats = stats if stats is not None else RuntimeStats()
         if deadline is None and cfg.execution_timeout_s is not None:
@@ -522,6 +531,9 @@ class ExecutionContext:
         self.deadline = deadline
         self.device_health = device_health if device_health is not None else DeviceHealth(
             cfg.device_breaker_threshold, cfg.device_breaker_cooldown_s)
+        # the query's mesh breaker (the runner's, or None): held here so that
+        # it lives as long as the device breaker; the mesh context reads it
+        self.collective_health = collective_health
         from .spill import MEMORY_LEDGER
 
         # every buffer of the query charges and reads this ledger
@@ -680,10 +692,21 @@ class ExecutionContext:
             self._pool.shutdown(wait=True, cancel_futures=True)
             self._pool = None
 
+    # True in a mesh context: partitions are pinned to the mesh's slots and
+    # processes, shuffles go through ``try_device_shuffle``, scans are split
+    # by ``scan_owner``, and the sub-plan cache and the morsel stream decline
+    partitions_pinned = False
+
     def foreign_owned(self, part: MicroPartition) -> bool:
         """True where another process must read ``part`` (the scan
         locality of a multi-process run). One process: never."""
         return False
+
+    def prepare_broadcast(self, part: MicroPartition, on_exprs,
+                          how: str = "inner") -> MicroPartition:
+        """The hook of a mesh context: replicate a broadcast join's build
+        side onto every device once. One device: nothing to do."""
+        return part
 
     def finish_query(self) -> None:
         """Release every buffer's bytes and remove the spill directory."""
@@ -806,13 +829,36 @@ class ExecutionContext:
         resolve = self._launch_projection(part, exprs)
         return None if resolve is None else resolve()
 
+    def _defer_projection(self, part: MicroPartition, exprs) -> MicroPartition:
+        """A foreign-owned unloaded partition: the projection joins its
+        pending ops instead of reading the file (the owner reads it)."""
+        from .schema import Schema
+
+        exprs = list(exprs)
+        schema = Schema([e._node.to_field(part.schema) for e in exprs])
+        return part.with_pending_op(lambda t: t.eval_expression_list(exprs), schema,
+                                    count_preserving=True)
+
+    def _defer_filter(self, part: MicroPartition, predicate) -> MicroPartition:
+        return part.with_pending_op(lambda t: t.filter([predicate]), part.schema,
+                                    count_preserving=False)
+
+    def _defer_fused(self, part: MicroPartition, program) -> MicroPartition:
+        return part.with_pending_op(lambda t: program.run_host(t), program.out_schema,
+                                    count_preserving=program.count_preserving)
+
+    def _deferred(self, part: MicroPartition) -> bool:
+        return self.foreign_owned(part) and not part.is_loaded()
+
     def eval_projection(self, part: MicroPartition, exprs) -> MicroPartition:
         """A projection on the card when eligible, else on the host."""
+        if self._deferred(part):
+            return self._defer_projection(part, exprs)
         if self._device_eligible(part):
             out = self._device_attempt(lambda: self._run_projection(part, exprs))
             if out is not None:
                 self.stats.bump("device_projections")
-                return MicroPartition.from_table(out)
+                return MicroPartition.from_table(out).derived_from(part)
         self.stats.bump("host_projections")
         return part.eval_expression_list(exprs)
 
@@ -821,6 +867,9 @@ class ExecutionContext:
         resolver that fetches the output partition, or None when it is
         declined (the caller then projects on the host). A failure at the
         fetch completes the partition on the host."""
+        if self._deferred(part):
+            deferred = self._defer_projection(part, exprs)
+            return lambda: deferred
         if not self._device_eligible(part):
             return None
         resolve = self._device_attempt(lambda: self._launch_projection(part, exprs), launch=True)
@@ -835,16 +884,20 @@ class ExecutionContext:
             self.stats.bump("host_projections")
             return part.eval_expression_list(exprs)
 
-        return lambda: self._resolve(lambda: MicroPartition.from_table(resolve()), on_host)
+        return lambda: self._resolve(
+            lambda: MicroPartition.from_table(resolve()).derived_from(part), on_host)
 
     @staticmethod
     def _compacted(part: MicroPartition, mask_table) -> MicroPartition:
         """Compact the partition on the host by a fetched filter mask."""
-        return MicroPartition.from_table(part.table().filter_with_mask(mask_table._columns[0]))
+        return MicroPartition.from_table(
+            part.table().filter_with_mask(mask_table._columns[0])).derived_from(part)
 
     def eval_filter(self, part: MicroPartition, predicate) -> MicroPartition:
         """A filter whose mask is computed on the card when eligible (the
         compaction runs on the host), else a host filter."""
+        if self._deferred(part):
+            return self._defer_filter(part, predicate)
         if self._device_eligible(part):
             out = self._device_attempt(lambda: self._run_projection(part, [predicate]))
             if out is not None:
@@ -857,6 +910,9 @@ class ExecutionContext:
         """Launch the device filter mask without blocking; the resolver
         fetches the mask and compacts on the host. Same contract as
         ``eval_projection_dispatch``."""
+        if self._deferred(part):
+            deferred = self._defer_filter(part, predicate)
+            return lambda: deferred
         if not self._device_eligible(part):
             return None
         resolve = self._device_attempt(lambda: self._launch_projection(part, [predicate]),
@@ -947,12 +1003,16 @@ class ExecutionContext:
         so a defect there reaches the caller."""
         if not self._join_eligible(lpart, rpart, left_on, right_on, how):
             return None
-        from .kernels.device_join import device_join_launch
+        from .kernels.device_join import device_join_launch, join_key_replicas
 
+        single = len(left_on) == 1
         launch = self._device_attempt(lambda: device_join_launch(
             lpart.table(), rpart.table(), list(left_on), list(right_on),
             lpart.device_stage_cache(), rpart.device_stage_cache(), how,
-            device=self._device()), launch=True)
+            device=self._device(),
+            left_replicas=join_key_replicas(lpart, left_on[0]) if single else None,
+            right_replicas=join_key_replicas(rpart, right_on[0]) if single else None),
+            launch=True)
         if launch is None:
             return None
         self.stats.bump("device_join_dispatches")
@@ -1046,7 +1106,7 @@ class ExecutionContext:
             self.stats.bump("host_projections", g.n_project_ops)
         if g.n_filter_ops:
             self.stats.bump("host_filters", g.n_filter_ops)
-        return MicroPartition.from_table(program.run_host(part.table()))
+        return MicroPartition.from_table(program.run_host(part.table())).derived_from(part)
 
     def _bump_fused_device(self, program, n: int = 1) -> None:
         g = program.graph
@@ -1059,6 +1119,8 @@ class ExecutionContext:
     def eval_fused(self, part: MicroPartition, program) -> MicroPartition:
         """A fused map chain as ONE device program when eligible, else the
         segmented host pass (a chain with a pinned UDF has no device program)."""
+        if self._deferred(part):
+            return self._defer_fused(part, program)
         if program.device_exprs is not None and self._device_eligible(part):
             def run():
                 out = self._run_projection(part, program.device_exprs)
@@ -1067,7 +1129,7 @@ class ExecutionContext:
             out = self._device_attempt(run)
             if out is not None:
                 self._bump_fused_device(program)
-                return MicroPartition.from_table(out)
+                return MicroPartition.from_table(out).derived_from(part)
         return self._eval_fused_host(part, program)
 
     def eval_fused_dispatch(self, part: MicroPartition, program):
@@ -1078,6 +1140,9 @@ class ExecutionContext:
         pass (``host_fused_maps``). A failure at the fetch takes the host
         pass too (``device_fused_map_fallbacks``). A chain with a pinned UDF
         has no device program and takes the host pass."""
+        if self._deferred(part):
+            deferred = self._defer_fused(part, program)
+            return lambda: deferred
         if program.device_exprs is None or not self._device_eligible(part):
             return None
         resolve = self._device_attempt(
@@ -1093,7 +1158,7 @@ class ExecutionContext:
             return self._eval_fused_host(part, program)
 
         return lambda: self._resolve(lambda: program.assemble_device(resolve()), on_host,
-                                     MicroPartition.from_table)
+                                     lambda t: MicroPartition.from_table(t).derived_from(part))
 
     # ------------------------------------------------------------ plan segments
     def eval_segment_dispatch(self, part: MicroPartition, op):
@@ -1103,7 +1168,7 @@ class ExecutionContext:
         declines, trips the overflow guard or fails (an armed
         ``fuse.segment`` fault among the failures) runs the staged ops and
         is counted as ``segment_fallbacks``."""
-        if not self._device_eligible(part):
+        if self._deferred(part) or not self._device_eligible(part):
             return None
         from .fuse.segment import _proc_bump, run_segment_async
 

@@ -38,6 +38,9 @@ SITES = {
     "scan.read": "each scan-task read attempt (io/scan.py, inside the retry "
                  "loop: a failure retries up to scan_retry_attempts, then the "
                  "reader's error reaches the caller)",
+    "collective.exchange": "each mesh all_to_all shuffle attempt "
+                           "(parallel/mesh_exec.py; a failure counts against the "
+                           "collective breaker and the shuffle takes the host path)",
     "device.kernel": "each device attempt (ExecutionContext._device_attempt: the "
                      "synchronous ones and each asynchronous launch); a failure "
                      "counts against the DeviceHealth breaker and the partition "

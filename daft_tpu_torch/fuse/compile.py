@@ -44,7 +44,11 @@ class FusedProgram:
 
     def __init__(self, graph: FusedGraph, out_schema: Schema):
         self.graph = graph
+        self.out_schema = out_schema
         self.n_masks = len(graph.device_masks)
+        # a chain without a filter keeps a scan's row count through the
+        # deferral of a foreign-owned partition (multi-process scans)
+        self.count_preserving = self.n_masks == 0
 
         aug_fields = list(graph.input_schema)
         host_segments: List[Tuple[List[Expression], Optional[Expression]]] = []

@@ -326,5 +326,6 @@ def pipeline_scan_parts(parts, ctx):
         return parts
     queue = ScanPrefetcher([p.scan_task() for p in local], ctx, depth)
     by_id = {id(p): i for i, p in enumerate(local)}
-    return [p if id(p) not in by_id else MicroPartition.from_scan_task(queue.wrap(by_id[id(p)]))
+    return [p if id(p) not in by_id
+            else MicroPartition.from_scan_task(queue.wrap(by_id[id(p)])).derived_from(p)
             for p in parts]

@@ -25,9 +25,13 @@ joins as an int, never through the joint dictionary. Several keys pack
 into one surrogate lane by exact mixed-radix packing
 (``_pack_composite_keys``, also used by the grouped aggregation). A
 composite key space that overflows the mode's lane (int32, or int64 in the
-64-bit mode) declines to the host join. Left
-out of this slice: the mesh replicas of a broadcast build side
-(``replicate_join_key``, ``join_key_replicas``).
+64-bit mode) declines to the host join.
+
+Mesh replicas (the rest of K7): ``replicate_join_key`` stages a broadcast
+build side's key once and copies it onto each distinct device of the mesh,
+cached on the partition; ``device_join_launch`` then swaps in the copy on the
+other side's device (``left_replicas``/``right_replicas``), so a probe
+neither stages the build side again nor reads it across devices.
 """
 
 from __future__ import annotations
@@ -349,9 +353,49 @@ def _stage_key_pair(ltable, rtable, lkey, rkey, lcache, rcache, device, ls=None,
     return ((_recode(ldc.values, lremap), ldc.valid), (_recode(rdc.values, rremap), rdc.valid))
 
 
+def _device_key(d: torch.device) -> str:
+    """One name per physical device (``cuda`` is the current card)."""
+    d = torch.device(d)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    return str(d)
+
+
+def _replica_cache_key(key_expr):
+    from .device import x64_enabled
+
+    return ("__join_key_replica__", key_expr._node._key(), x64_enabled())
+
+
+def replicate_join_key(part, key_expr, mesh, device) -> bool:
+    """Stage ``key_expr`` over ``part`` once on ``device`` and copy it onto
+    every distinct device of ``mesh``; the copies are cached on the partition
+    by device. True when replicated (an ineligible key: False)."""
+    tbl = part.table()
+    staged = _stage_key(tbl, key_expr, part.device_stage_cache(), torch.device(device))
+    if staged is None:
+        return False
+    vals, valid = staged
+    reps = {}
+    for d in mesh.devices:
+        k = _device_key(d)
+        if k not in reps:
+            reps[k] = (vals.to(d), valid.to(d))
+    part.device_stage_cache()[_replica_cache_key(key_expr)] = reps
+    return True
+
+
+def join_key_replicas(part, key_expr):
+    """The {device: (values, valid)} copies ``replicate_join_key`` cached on
+    ``part``, or None."""
+    if part is None:
+        return None
+    return part.device_stage_cache().get(_replica_cache_key(key_expr))
+
+
 def device_join_launch(left_table, right_table, left_keys, right_keys,
                        left_cache=None, right_cache=None, how: str = "inner",
-                       device="cuda"):
+                       device="cuda", left_replicas=None, right_replicas=None):
     """Stage the keys and LAUNCH the right-build range probe without waiting
     for it; the returned zero-arg resolver makes the duplicate-key decision,
     runs a second-orientation probe if one is needed, and returns
@@ -365,7 +409,10 @@ def device_join_launch(left_table, right_table, left_keys, right_keys,
     Returns None when ineligible: no key, unequal key counts, an empty side,
     a key that is neither an integer or date expression nor a string key,
     unequal lane dtypes, or a composite key space that overflows the mode's
-    lane."""
+    lane.
+
+    A side that carries mesh replicas (``replicate_join_key``; one key only)
+    has the copy on the other side's device swapped in, and is not staged."""
     if not isinstance(left_keys, (list, tuple)):
         left_keys = [left_keys]
     if not isinstance(right_keys, (list, tuple)):
@@ -391,16 +438,24 @@ def device_join_launch(left_table, right_table, left_keys, right_keys,
         return _launch_probe(lv, lm, rv, rm, ln, rn, how)
     left_key, right_key = left_keys[0], right_keys[0]
     lk = _stage_key(left_table, left_key, left_cache, device)
-    if lk is None and not _is_plain_string_key(left_table, left_key):
-        return None  # an ineligible left key: the right side is not staged
-    rk = _stage_key(right_table, right_key, right_cache, device)
-    if lk is None or rk is None:
-        # a string key (or one string side): through the joint dictionary
-        pair = _stage_key_pair(left_table, right_table, left_key, right_key, left_cache,
-                               right_cache, device, ls=lk, rs=rk)
-        if pair is None:
-            return None
-        lk, rk = pair
+    rk = None
+    if lk is not None and right_replicas:
+        # a replica hit: the build side's key is not staged again (the copy
+        # exists, so the key passed the device checks)
+        rk = right_replicas.get(_device_key(lk[0].device))
+    if rk is None:
+        if lk is None and not _is_plain_string_key(left_table, left_key):
+            return None  # an ineligible left key: the right side is not staged
+        rk = _stage_key(right_table, right_key, right_cache, device)
+        if lk is None or rk is None:
+            # a string key (or one string side): through the joint dictionary
+            pair = _stage_key_pair(left_table, right_table, left_key, right_key, left_cache,
+                                   right_cache, device, ls=lk, rs=rk)
+            if pair is None:
+                return None
+            lk, rk = pair
+        elif left_replicas:
+            lk = left_replicas.get(_device_key(rk[0].device), lk)
     (lv, lm), (rv, rm) = lk, rk
     if lv.dtype != rv.dtype:
         return None

@@ -27,8 +27,17 @@ An unloaded partition's task may be a ``PrefetchedScanTask``
 (io/prefetch.py): its read is served from a background fetch where one
 finished, its metadata answers from the wrapped task, and narrowing it
 (``head``, ``select_columns``) narrows the wrapped task and abandons the
-full fetch. Left out of this slice: the deferred op chains and owner
-process of multi-host scans and pickling for worker processes.
+full fetch.
+
+Scan locality of a multi-process run (parallel/): ``owner_process`` names
+the one process whose rows a scan partition contributes, and every
+per-partition transform (a derived table, a narrowed task, the split
+pieces, a scan-task wrapper) carries it through ``derived_from``. A map op
+over a foreign-owned unloaded partition does not read the file:
+``with_pending_op`` appends it to a chain of deferred Table -> Table steps,
+replayed when the partition materializes (so a consumer that does read it
+gets the post-op rows). Left out of this slice: pickling for worker
+processes.
 """
 
 from __future__ import annotations
@@ -43,7 +52,7 @@ from .table import Table
 
 class MicroPartition:
     __slots__ = ("schema", "_tables", "_scan_task", "_stats", "_lock", "_device_cache",
-                 "lineage_recipe")
+                 "lineage_recipe", "owner_process", "_pending", "_count_preserving")
 
     def __init__(self, schema: Schema, tables: Optional[List[Table]] = None,
                  scan_task=None, stats: Optional[TableStats] = None):
@@ -59,6 +68,29 @@ class MicroPartition:
         # stable storage (integrity/lineage.py), or None: the spill layer
         # records it so that a corrupt spill file recomputes
         self.lineage_recipe = None
+        # the process whose rows this partition contributes (multi-process
+        # scans), the deferred map ops of a foreign-owned unloaded partition,
+        # and whether those keep the task's row count
+        self.owner_process: Optional[int] = None
+        self._pending: Optional[List[Any]] = None
+        self._count_preserving = True
+
+    def with_pending_op(self, fn, schema: Schema, count_preserving: bool) -> "MicroPartition":
+        """A map op deferred over an unloaded partition: the same task, with
+        ``fn`` (Table -> Table) replayed at materialization."""
+        out = MicroPartition(schema, scan_task=self._scan_task).derived_from(self)
+        out._pending = list(self._pending or []) + [fn]
+        out._count_preserving = self._count_preserving and count_preserving
+        return out
+
+    def derived_from(self, part: "MicroPartition") -> "MicroPartition":
+        """This partition, made from ``part`` (a transform of its rows, a
+        narrowed or wrapped task, a piece of it), carrying its owner."""
+        self.owner_process = part.owner_process
+        return self
+
+    def _wrap(self, tbl: Table) -> "MicroPartition":
+        return MicroPartition.from_table(tbl).derived_from(self)
 
     def device_stage_cache(self) -> Dict[Any, Any]:
         return self._device_cache
@@ -101,7 +133,11 @@ class MicroPartition:
         chained pieces concatenate once."""
         with self._lock:
             if self._scan_task is not None:
-                self._tables = [self._scan_task.read()]
+                tbl = self._scan_task.read()
+                for fn in self._pending or ():
+                    tbl = fn(tbl)
+                self._pending = None
+                self._tables = [tbl]
                 self._scan_task = None
             if len(self._tables) > 1:
                 self._tables = [Table.concat(self._tables)]
@@ -109,15 +145,19 @@ class MicroPartition:
 
     def chunk_tables(self) -> List[Table]:
         """The partition's chained tables, without concatenating them (an
-        unloaded one reads its task's chunks)."""
+        unloaded one reads its task's chunks; deferred ops, defined over the
+        whole partition, read it as one table)."""
         with self._lock:
             task = self._scan_task
-            if task is not None:
+            if task is None:
+                return list(self._tables)
+            if not self._pending:
                 read_chunks = getattr(task, "read_chunks", None)
                 tbls = list(read_chunks()) if read_chunks is not None else [task.read()]
                 self._tables = [t for t in tbls if len(t)] or [Table.empty(self.schema)]
                 self._scan_task = None
-            return list(self._tables)
+                return list(self._tables)
+        return [self.table()]
 
     def iter_chunk_tables(self) -> Iterator[Table]:
         """The partition's tables, lazily: a loaded one yields its chained
@@ -127,8 +167,8 @@ class MicroPartition:
         with self._lock:
             if self._scan_task is None:
                 return iter(list(self._tables))
-            task = self._scan_task
-        if not hasattr(task, "iter_chunks"):
+            task = None if self._pending else self._scan_task
+        if task is None or not hasattr(task, "iter_chunks"):
             return iter(self.chunk_tables())
         return (t for t in task.iter_chunks() if len(t))
 
@@ -145,6 +185,8 @@ class MicroPartition:
         task = self._scan_task
         if task is None:
             return sum(len(t) for t in self._tables)
+        if not self._count_preserving:
+            return None  # a deferred filter changes the count
         return task.num_rows()
 
     def size_bytes(self) -> Optional[int]:
@@ -152,6 +194,8 @@ class MicroPartition:
         task = self._scan_task
         if task is None:
             return sum(t.size_bytes() for t in self._tables)
+        if self._pending:
+            return None  # deferred ops change the width and the count
         return task.size_bytes()
 
     def __repr__(self) -> str:
@@ -174,27 +218,26 @@ class MicroPartition:
 
     # ------------------------------------------------------------------ compute
     def eval_expression_list(self, exprs) -> "MicroPartition":
-        return MicroPartition.from_table(self.table().eval_expression_list(exprs))
+        return self._wrap(self.table().eval_expression_list(exprs))
 
     def filter(self, predicate) -> "MicroPartition":
-        return MicroPartition.from_table(self.table().filter(predicate))
+        return self._wrap(self.table().filter(predicate))
 
     def sort(self, sort_keys, descending=None, nulls_first=None) -> "MicroPartition":
-        return MicroPartition.from_table(self.table().sort(sort_keys, descending, nulls_first))
+        return self._wrap(self.table().sort(sort_keys, descending, nulls_first))
 
     def agg(self, to_agg, group_by=None) -> "MicroPartition":
-        return MicroPartition.from_table(self.table().agg(to_agg, group_by))
+        return self._wrap(self.table().agg(to_agg, group_by))
 
     def distinct(self, subset=None) -> "MicroPartition":
-        return MicroPartition.from_table(self.table().distinct(subset))
+        return self._wrap(self.table().distinct(subset))
 
     def sample(self, fraction=None, size=None, with_replacement=False,
                seed=None) -> "MicroPartition":
-        return MicroPartition.from_table(
-            self.table().sample(fraction, size, with_replacement, seed))
+        return self._wrap(self.table().sample(fraction, size, with_replacement, seed))
 
     def explode(self, exprs) -> "MicroPartition":
-        return MicroPartition.from_table(self.table().explode(exprs))
+        return self._wrap(self.table().explode(exprs))
 
     def unpivot(self, ids, values, variable_name="variable",
                 value_name="value") -> "MicroPartition":
@@ -213,28 +256,38 @@ class MicroPartition:
     def select_columns(self, names: List[str]) -> "MicroPartition":
         task = self._scan_task
         if task is not None:
+            if self._pending:
+                # the names may exist only in a deferred projection's output
+                return self.with_pending_op(lambda t: t.select_columns(names),
+                                            Schema([self.schema[c] for c in names]),
+                                            count_preserving=True)
             # narrow the task's columns instead of reading every column
             return MicroPartition.from_scan_task(
-                task.with_pushdowns(task.pushdowns.with_columns(list(names))))
-        return MicroPartition.from_table(self.table().select_columns(names))
+                task.with_pushdowns(task.pushdowns.with_columns(list(names)))).derived_from(self)
+        return self._wrap(self.table().select_columns(names))
 
     def cast_to_schema(self, schema: Schema) -> "MicroPartition":
-        return MicroPartition.from_table(self.table().cast_to_schema(schema))
+        return self._wrap(self.table().cast_to_schema(schema))
 
     def take(self, indices) -> "MicroPartition":
-        return MicroPartition.from_table(self.table().take(indices))
+        return self._wrap(self.table().take(indices))
 
     def slice(self, start: int, end: int) -> "MicroPartition":
-        return MicroPartition.from_table(self.table().slice(start, end))
+        return self._wrap(self.table().slice(start, end))
 
     def head(self, n: int) -> "MicroPartition":
         task = self._scan_task
         if task is not None:
+            if self._pending:
+                # a limit must not push below a deferred filter: defer it too
+                return self.with_pending_op(lambda t: t.head(n), self.schema,
+                                            count_preserving=False)
             # narrow the task's limit instead of reading every row
             pd = task.pushdowns
             limit = n if pd.limit is None else min(pd.limit, n)
-            return MicroPartition.from_scan_task(task.with_pushdowns(pd.with_limit(limit)))
-        return MicroPartition.from_table(self.table().head(n))
+            return MicroPartition.from_scan_task(
+                task.with_pushdowns(pd.with_limit(limit))).derived_from(self)
+        return self._wrap(self.table().head(n))
 
     def partition_by_hash(self, exprs, num_partitions: int) -> List["MicroPartition"]:
         """``num_partitions`` partitions by row hash mod n."""
@@ -245,8 +298,7 @@ class MicroPartition:
         """``num_partitions`` partitions by a seeded draw over the rows of the
         whole partition: per chunk, one seed would repeat its draw in every
         chunk."""
-        return [MicroPartition.from_table(t)
-                for t in self.table().partition_by_random(num_partitions, seed)]
+        return [self._wrap(t) for t in self.table().partition_by_random(num_partitions, seed)]
 
     def partition_by_range(self, exprs, boundaries: Table, descending=None,
                            nulls_first=None) -> List["MicroPartition"]:
@@ -262,14 +314,14 @@ class MicroPartition:
         order, with no concat."""
         tabs = self.chunk_tables()
         if len(tabs) == 1:
-            return [MicroPartition.from_table(t) for t in split(tabs[0])]
+            return [self._wrap(t) for t in split(tabs[0])]
         buckets: List[List[Table]] = [[] for _ in range(num)]
         for t in tabs:
             for i, bt in enumerate(split(t)):
                 if len(bt):
                     buckets[i].append(bt)
-        return [MicroPartition(self.schema, bs) if bs else MicroPartition.empty(self.schema)
-                for bs in buckets]
+        return [(MicroPartition(self.schema, bs) if bs else MicroPartition.empty(self.schema))
+                .derived_from(self) for bs in buckets]
 
     def partition_by_value(self, exprs) -> Tuple[List["MicroPartition"], Table]:
         """The rows grouped by exact key values, with the unique keys."""

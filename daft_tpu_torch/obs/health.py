@@ -15,11 +15,8 @@ exports it. The keys, types and gauge names are the reference's: its
 
 The sections of subsystems the port does not have yet report what the
 reference reports while those subsystems are idle, as fixed values:
-
-- ``breakers["collective"]`` reads ``idle`` until the mesh breaker
-  (ROADMAP Queue 1, item 8, ``parallel/``);
-- ``cluster`` until ``dist/``, ``admission`` until ``serve/`` and
-  ``persist`` until ``persist/`` (all item 10).
+``cluster`` until ``dist/``, ``admission`` until ``serve/`` and
+``persist`` until ``persist/`` (all ROADMAP Queue 1, item 10).
 """
 
 from __future__ import annotations
@@ -38,10 +35,6 @@ _lock = threading.Lock()
 # breaker kind -> weakref to the most recently registered DeviceHealth of
 # that kind (per-query objects; a dead ref reads as "idle")
 _breakers: Dict[str, "weakref.ref"] = {}
-
-# the breaker kinds the reference registers per query that the port has not
-# got yet: the mesh breaker (ROADMAP Queue 1, item 8)
-_BREAKERS_NOT_YET = {"collective": "idle"}
 
 # the serving runtime's admission controller, idle until serve/ (item 10)
 _ADMISSION_IDLE = {"slots": 0, "queue_depth": 0, "active_queries": 0,
@@ -93,7 +86,7 @@ def register_breaker(breaker) -> None:
 def breaker_states() -> Dict[str, str]:
     with _lock:
         items = list(_breakers.items())
-    out: Dict[str, str] = dict(_BREAKERS_NOT_YET)
+    out: Dict[str, str] = {}
     for kind, ref in items:
         b = ref()
         out[kind] = b.state if b is not None else "idle"

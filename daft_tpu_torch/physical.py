@@ -93,9 +93,15 @@ host path an in-memory source under an aggregate splits at plan time into
 morsels of ``default_morsel_size`` rows (``_split_morsels``). A Limit
 closes its child stream once satisfied, so a pipeline below stops.
 
-Left out of this slice: the shuffle's mesh and peer-to-peer legs, which
-the reference keeps byte-identical when off, and the mesh exchange of the
-sort-merge join.
+Mesh runs (parallel/mesh_exec.py): under a context whose partitions are
+pinned (``ctx.partitions_pinned``) a hash, random or range shuffle first
+offers its whole input to the slot exchange (a range shuffle samples its
+boundaries before, and the host fallback reuses them); a sort-merge join
+range-splits both sides through one aligned exchange each, the smaller side
+first (``device_aligned_smj_exchanges``); and a scan marks each partition's
+``owner_process`` (``scan_owner``). A broadcast join hands its collected
+build side to ``ctx.prepare_broadcast``. Left out of this slice: the
+shuffle's peer-to-peer leg.
 
 UDFs. A map op whose expressions call UDFs with a resource request has it
 checked by the query's accountant and each partition admitted while it
@@ -274,14 +280,20 @@ class ScanOp(PhysicalOp):
 
     def plan_parts(self, ctx) -> List[MicroPartition]:
         """The scan's unloaded partitions, the pruned tasks counted
-        (``scan_tasks_pruned``) and the rest emitted (``scan_tasks_emitted``)."""
+        (``scan_tasks_pruned``) and the rest emitted (``scan_tasks_emitted``).
+        In a multi-process run, task i's partition is read by process
+        ``ctx.scan_owner(i)`` alone (its index in the task list every
+        process holds alike)."""
         parts = []
-        for task in self.tasks:
+        for i, task in enumerate(self.tasks):
             if task.can_prune():
                 ctx.stats.bump("scan_tasks_pruned")
                 continue
             ctx.stats.bump("scan_tasks_emitted")
-            parts.append(MicroPartition.from_scan_task(task))
+            part = MicroPartition.from_scan_task(task)
+            if ctx.partitions_pinned:
+                part.owner_process = ctx.scan_owner(i)
+            parts.append(part)
         return parts
 
     def execute(self, inputs, ctx) -> PartStream:
@@ -919,6 +931,31 @@ class ShuffleOp(PhysicalOp):
                 obs[1] += max(0, (p.size_bytes() or 0) - (out.size_bytes() or 0))
             yield out
 
+    def _mesh_leg(self, src, ctx, combine):
+        """The mesh leg: the whole input offered to the slot exchange.
+        Returns (the exchanged partitions or None, the drained input, the
+        range boundaries sampled for it or None)."""
+        n = self.num
+        parts = list(src)
+        if not parts:
+            return None, parts, None
+        boundaries = None
+        if self.scheme == "range":
+            # a cheap dtype gate before the sampling; the host fallback reuses
+            # the boundaries
+            from .kernels.device import stageable_dtype
+
+            if all(stageable_dtype(f.dtype) for f in parts[0].schema):
+                samples = [sample_partition_keys(p, self.by, n, ctx.cfg.sample_size_for_sort)
+                           for p in parts]
+                boundaries = boundaries_from_samples(samples, self.by, n, self.descending,
+                                                     self.nulls_first)
+        # the exchange counts exchange_rows/exchange_bytes itself (what it
+        # staged, after the fold)
+        out = ctx.try_device_shuffle(parts, self.by, n, self.scheme, self.descending,
+                                     self.nulls_first, boundaries, combine=combine)
+        return out, parts, boundaries
+
     def execute(self, inputs, ctx) -> PartStream:
         n = self.num
         src = inputs[0]
@@ -927,6 +964,17 @@ class ShuffleOp(PhysicalOp):
             src = self._feed_filter(src, ctx)
         if self.probe_filter is not None and ctx.cfg.runtime_join_filters:
             src = self._prune_stream(src, ctx, obs=fdo_obs)
+        pre_boundaries = None
+        if ctx.partitions_pinned and self.scheme in ("hash", "random", "range"):
+            combine = (self.combine if self.combine is not None
+                       and ctx.cfg.hierarchical_exchange_combine else None)
+            out, parts, pre_boundaries = self._mesh_leg(src, ctx, combine)
+            if not parts:
+                return
+            if out is not None:
+                yield from out
+                return
+            src = iter(parts)
         # partition_buffer() checks the deadline: a pipeline breaker first
         # proves the query still has time
         buckets = [ctx.partition_buffer() for _ in range(n)]
@@ -970,13 +1018,17 @@ class ShuffleOp(PhysicalOp):
                 for p in src:
                     src_task = unwrap_source_task(p) if lineage_on else None
                     src_tasks.append(src_task)
-                    samples.append(sample_partition_keys(p, self.by, n, ctx.cfg.sample_size_for_sort))
+                    if pre_boundaries is None:
+                        samples.append(sample_partition_keys(p, self.by, n,
+                                                             ctx.cfg.sample_size_for_sort))
                     if src_task is not None:
                         # the sampling loaded it: buffered, it re-reads its file
                         p.lineage_recipe = task_recipe(src_task)
                     in_buf.append(p)
                 saw = len(in_buf) > 0
-                if saw:
+                if saw and pre_boundaries is not None:
+                    boundaries = pre_boundaries  # sampled for the mesh leg
+                elif saw:
                     boundaries = boundaries_from_samples(samples, self.by, n, self.descending,
                                                          self.nulls_first)
                 for pi, p in enumerate(in_buf.drain()):
@@ -1327,6 +1379,9 @@ class BroadcastJoinOp(PhysicalOp):
         ctx.check_deadline()  # the join build collects the small side
         with ctx.stats.profiler.span("join.build", kind="phase"):
             small = _one_partition(list(inputs[1]), self.children[1].schema)
+            # a mesh context copies the build key onto every device here, so
+            # each partition's probe reads the copy on its own device
+            small = ctx.prepare_broadcast(small, self.small_on, self.how)
             # the small side is the build side: each streamed big partition
             # is pruned by its filter before the probe
             jf = self._build_small_filter(small, ctx)
@@ -1407,6 +1462,16 @@ class SortMergeJoinOp(PhysicalOp):
         k = len(self.left_on)
         bnds = aligned_boundaries_from_samples([lsamples, rsamples], n)
         ctx.stats.bump("aligned_boundary_shuffles")
+        if ctx.partitions_pinned:
+            outs = self._mesh_exchange(lbuf, rbuf, bnds, ctx, k)
+            if outs is not None:
+                lbuf.release()
+                rbuf.release()
+                ctx.stats.bump("device_aligned_smj_exchanges")
+                for l, r in zip(*outs):
+                    yield l.sort_merge_join(r, self.left_on, self.right_on, self.how,
+                                            self.suffix)
+                return
         lbuckets = [ctx.partition_buffer() for _ in range(n)]
         rbuckets = [ctx.partition_buffer() for _ in range(n)]
         for buf, on, buckets in ((lbuf, self.left_on, lbuckets),
@@ -1423,6 +1488,35 @@ class SortMergeJoinOp(PhysicalOp):
                 self.suffix)
             lb.release()
             rb.release()
+
+    def _mesh_exchange(self, lbuf, rbuf, bnds, ctx, k: int):
+        """Both sides through the mesh's range exchange by the same aligned
+        boundaries, the smaller side first (a decline found only at staging,
+        an int64 past int32 in the 32-bit mode, then costs the cheaper
+        exchange), or None: an empty side, an unloaded input or a column the
+        exchange cannot ship leaves the join to the host split."""
+        from .kernels.device import stageable_dtype
+
+        n = self.num_partitions
+        lparts, rparts = lbuf.parts(), rbuf.parts()
+        lrows = sum(len(p) for p in lparts)
+        rrows = sum(len(p) for p in rparts)
+        if not (lrows > 0 and rrows > 0
+                and all(p.is_loaded() for p in lparts + rparts)
+                and all(stageable_dtype(f.dtype) for f in self.children[0].schema)
+                and all(stageable_dtype(f.dtype) for f in self.children[1].schema)):
+            return None
+        zeros, nf = [False] * k, [None] * k
+        small_left = lrows <= rrows
+        first = (lparts, self.left_on) if small_left else (rparts, self.right_on)
+        second = (rparts, self.right_on) if small_left else (lparts, self.left_on)
+        out1 = ctx.try_device_shuffle(first[0], first[1], n, "range", zeros, nf, bnds)
+        if out1 is None:
+            return None
+        out2 = ctx.try_device_shuffle(second[0], second[1], n, "range", zeros, nf, bnds)
+        if out2 is None:
+            return None
+        return (out1, out2) if small_left else (out2, out1)
 
 
 class CrossJoinOp(PhysicalOp):

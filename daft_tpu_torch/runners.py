@@ -7,12 +7,18 @@ translated (which fuses) with feedback-directed planning live. Under
 ``enable_aqe`` the AdaptivePlanner (adaptive.py) runs the stages under
 joins first and plans the rest from their real sizes.
 
-A query runs under one DeviceHealth breaker and one absolute deadline
-(``execution_timeout_s`` from the start of the run), built once in
-``run_iter`` and handed to every ExecutionContext of the query, each
-adaptive stage's among them: a dead card does not pay the failure
-threshold again per stage, and the stages share one time budget. The
-breaker is registered with ``health()`` (obs/health.py).
+A query runs under one DeviceHealth breaker per kind (the card's and the
+mesh collectives') and one absolute deadline (``execution_timeout_s`` from
+the start of the run), built once in ``run_iter`` and handed to every
+ExecutionContext of the query, each adaptive stage's among them: a dead
+card does not pay the failure threshold again per stage, and the stages
+share one time budget. The breakers are registered with ``health()``
+(obs/health.py).
+
+``MeshRunner`` runs the same plans under a ``MeshExecutionContext``
+(parallel/mesh_exec.py): its shuffles ride the slot exchange of its mesh
+(``default_mesh()`` unless given one, or ``multihost.global_mesh()`` for a
+multi-process cluster).
 
 ``plan_cache_key`` is the exact structural key of a plan: the plan
 cache's binding and the key of ``DataFrame.collect``'s whole-plan result
@@ -20,7 +26,7 @@ cache (``PartitionSetCache``). A scan keys on each task's file, its mtime
 and size, format, pushdowns, schema and options (``_scan_task_key``, also
 the sub-plan result cache's key), so an overwritten file never serves a
 cached plan or result. Left out of this slice: the factory-scan branch of
-the key (io/pyscan), and the mesh and distributed runners.
+the key (io/pyscan), and the distributed runner.
 """
 
 from __future__ import annotations
@@ -207,17 +213,20 @@ class NativeRunner:
         cfg = get_context().execution_config
         stats = stats if stats is not None else RuntimeStats()
         health = DeviceHealth(cfg.device_breaker_threshold, cfg.device_breaker_cooldown_s)
-        # health() reads the latest query's breaker (weakly held: a finished
+        collective = DeviceHealth(cfg.device_breaker_threshold, cfg.device_breaker_cooldown_s,
+                                  kind="collective")
+        # health() reads the latest query's breakers (weakly held: a finished
         # query's breaker reads as idle)
         from .obs.health import register_breaker
 
         register_breaker(health)
+        register_breaker(collective)
         deadline = (None if cfg.execution_timeout_s is None
                     else time.monotonic() + cfg.execution_timeout_s)
 
         def run_plain(p: LogicalPlan, optimized: bool = False) -> Iterator[MicroPartition]:
             _, phys, run_cfg = self.plan_query(p, optimized, stats)
-            ctx = ExecutionContext(run_cfg, stats, deadline=deadline, device_health=health)
+            ctx = self._context(run_cfg, stats, deadline, health, collective)
             return execute_plan(phys, ctx)
 
         if cfg.enable_aqe:
@@ -227,6 +236,11 @@ class NativeRunner:
             return AdaptivePlanner(lambda p: run_plain(p, optimized=True), stats,
                                    cfg=cfg).run(plan)
         return run_plain(plan)
+
+    def _context(self, cfg, stats, deadline, health, collective) -> ExecutionContext:
+        """One ExecutionContext of the query (one per adaptive stage)."""
+        return ExecutionContext(cfg, stats, deadline=deadline, device_health=health,
+                                collective_health=collective)
 
     def plan_query(self, plan: LogicalPlan, optimized: bool = False, stats=None):
         """Feedback-informed planning, served from the process plan cache
@@ -241,3 +255,21 @@ class NativeRunner:
     def optimize_and_translate(self, plan: LogicalPlan, optimized: bool = False, stats=None):
         opt, phys, _ = self.plan_query(plan, optimized=optimized, stats=stats)
         return opt, phys
+
+
+class MeshRunner(NativeRunner):
+    """The same plans, executed under a MeshExecutionContext: shuffles, the
+    sort-merge join's exchange and broadcast replicas ride the mesh
+    (parallel/mesh_exec.py). Plans cache under the runner's name, and mesh
+    plans decline fan-out resizes (adapt/plancache.py, adapt/fdo.py)."""
+
+    name = "mesh"
+
+    def __init__(self, mesh=None):
+        self.mesh = mesh
+
+    def _context(self, cfg, stats, deadline, health, collective) -> ExecutionContext:
+        from .parallel.mesh_exec import MeshExecutionContext
+
+        return MeshExecutionContext(cfg, stats, mesh=self.mesh, deadline=deadline,
+                                    device_health=health, collective_health=collective)

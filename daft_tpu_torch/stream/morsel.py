@@ -29,6 +29,6 @@ def iter_morsels(part: MicroPartition, rows: int) -> Iterator[MicroPartition]:
         n = len(t)
         for s in range(0, n, rows):
             emitted = True
-            yield MicroPartition.from_table(t.slice(s, min(s + rows, n)))
+            yield MicroPartition.from_table(t.slice(s, min(s + rows, n))).derived_from(part)
     if not emitted:
-        yield MicroPartition.empty(part.schema)
+        yield MicroPartition.empty(part.schema).derived_from(part)

@@ -156,6 +156,10 @@ def try_stream(op, ctx, build, trace: bool = True):
         if not (isinstance(src, _InMem)
                 and any((p.num_rows_or_none() or 0) > msz for p in src.parts)):
             return None
+    if ctx.partitions_pinned:
+        # a mesh or a multi-process run: partitions are pinned to slots and
+        # processes, and morsels would read foreign partitions
+        return None
     seg = extract_segment(op, ctx)
     if seg is None:
         return None

@@ -110,8 +110,10 @@ def test_sites_are_the_four_the_port_wires():
     # the spill and encode sites, the fourteenth the plan cache's and the
     # fifteenth the scan's and the sub-plan result cache's, the sixteenth the
     # scan readahead's, the eighteenth the batching coalesce's and the model
-    # actors' load, each wired as the reference wires it
-    assert set(faults.SITES) == {"device.kernel", "fuse.compile", "fuse.segment", "join.filter",
+    # actors' load, the twenty-first the mesh exchange's, each wired as the
+    # reference wires it
+    assert set(faults.SITES) == {"collective.exchange",
+                                 "device.kernel", "fuse.compile", "fuse.segment", "join.filter",
                                  "spill.write", "spill.readback", "spill.corrupt",
                                  "exchange.encode", "plancache.lookup", "scan.read",
                                  "resultcache.lookup", "prefetch.fetch", "batch.coalesce",

@@ -13,10 +13,10 @@ against daft_tpu's on the CPU.
   ``scan_prefetch_depth``, a knob both packages have, where the reference
   tunes ``executor_threads``.
 
-The differences that stay: ``health()["breakers"]["collective"]`` is a
-fixed ``idle`` until the mesh breaker (item 8), and the cluster, admission
-and persist sections report the reference's idle values until their
-subsystems come (item 10). The scheduler and streaming sections, the
+The differences that stay: the cluster, admission and persist sections
+report the reference's idle values until their subsystems come (ROADMAP
+Queue 1, item 10). The collective breaker is built and registered with
+each query beside the device breaker, as in the reference. The scheduler and streaming sections, the
 record's ``exec_inflight``/``stream_inflight`` and the ``cancelled``
 outcome read what the reference's read.
 """
@@ -225,8 +225,8 @@ def test_health_validates_while_a_query_runs_and_after():
     assert running[0]["ops_total"] >= 2 and running[0]["rows_emitted"] > 0
     assert daft_tpu_torch.query_progress(running[0]["query_id"]) is None
     assert set(seen[1]) == set(daft_tpu.health())
-    # the mesh breaker reads idle until ROADMAP Queue 1, item 8
-    assert seen[1]["breakers"]["collective"] == "idle"
+    # the mesh breaker is the query's, registered beside the device breaker
+    assert seen[1]["breakers"]["collective"] == seen[1]["breakers"]["device"]
 
 
 # ---------------------------------------------------------------------------
