@@ -248,6 +248,19 @@ Phases, each of which fails the run:
      slot; collective.exchange armed under broadcast Q3 (the breaker trips
      once, the rows come back from the host); a
      one-process nccl group through init_distributed.
+ 19. object stores, lake tables and Python scan sources around K1 and K2
+     (needs SF1 in --scales; phase_io), over phase 12's file of phase 4's
+     SF1 lineitem (16 columns), linked and never rewritten: a Delta log over it
+     (read_deltalake), an Iceberg table over it whose manifests the port's
+     avro codec wrote (read_iceberg), and the file behind a loopback S3
+     endpoint (LoopbackS3, read_parquet("s3://.../*.parquet")), each with
+     composed Q1 (K1), deep Q1 (K2) and Q6 (K1) against the pyarrow oracle,
+     cold and warm once; the endpoint's bytes for Q1 under the file's size
+     (ranged reads), and Q1 again with io.get armed once (one retry, the
+     same rows); write_deltalake and write_iceberg of Q1's seven columns,
+     each read back through Q1; a ScanOperator of the file's row groups
+     through Q1; IO_BLOBS objects through url.upload and url.download,
+     equal to the bytes put.
 
 Every phase runs under the port's defaults: one worker thread per core
 (executor_threads 0) and the morsel pipeline on. The legs whose held counts
@@ -265,9 +278,11 @@ stream_morsels, at those values.
 
 Phases 8-11, phase 15 but its SF1 SQL leg, and phases 16 to 18 run after
 phase 7 and before phase 4, while the 22-query tables are still being
-generated. Phases 1-10 turn feedback-directed
+generated (BackgroundTables: a process on a core of its own, this
+process's threads on the others until the tables are read); phase 19 runs
+last, after phase 15's SF1 SQL leg. Phases 1-10 turn feedback-directed
 planning and the whole-plan result cache off (PLAN_PINS): each times its
-plans as written. Every query of phases 1-7 and 9-18 (but the ids' Q6
+plans as written. Every query of phases 1-7 and 9-19 (but the ids' Q6
 and largest id and the fault cases of phases 10-13 and 16) is held
 to 0 device_attempt_failures, device_breaker_trips, degraded_completions,
 faults_injected, join_filter_errors and every *_fallbacks counter (phase
@@ -1987,38 +2002,143 @@ TPCH22_COUNTERS = ("device_aggregations", "host_aggregations", "device_agg_fallb
                    "shuffles") + ROUTE_COUNTERS
 
 
-def _generate_into(queue, scale: float, seed: int) -> None:
-    """Target of the background process that generates the TPC-H tables."""
-    from benchmarks import tpch_full
+def _generate_into(queue, out_dir: str, scale: float, seed: int, groups: int) -> None:
+    """Target of the background process: generate the TPC-H tables; write
+    each as an uncompressed arrow IPC file into ``out_dir`` (phases 4-19
+    read them), then as a parquet file of ``groups`` row groups (phase 12's
+    scans, phase 19's lake tables); run the 22 queries through the port's
+    host path over them (phase 4's reference rows, ``host_rows.pickle``);
+    and send one small message with the times (wall clock) at which each
+    step ended, or the error."""
+    import pickle
+    import traceback as tb
 
-    queue.put(tpch_full.generate(scale=scale, seed=seed))
+    try:
+        import pyarrow as pa
+        import pyarrow.parquet as papq
+
+        import daft_tpu_torch as dtt
+        from benchmarks import tpch_full
+
+        tables = tpch_full.generate(scale=scale, seed=seed)
+        times = {"generated_at": time.time()}
+        for name, tbl in tables.items():
+            with pa.OSFile(f"{out_dir}/{name}.arrow", "wb") as sink:
+                with pa.ipc.new_file(sink, tbl.schema) as writer:
+                    writer.write_table(tbl)
+        times["written_at"] = time.time()
+        for name, tbl in tables.items():
+            papq.write_table(tbl, f"{out_dir}/{name}.parquet",
+                             row_group_size=max(1, -(-tbl.num_rows // groups)))
+        times["parquet_at"] = time.time()
+        # phase 4's host path: use_device_kernels off on the CPU, as there
+        dtt.set_execution_config(config(use_device_kernels=False, device="cpu"))
+        queries = tpch22_module()
+        frames = tpch22_frames(tables, 1)
+        host = {qn: tpch22_rows(zip(*queries.QUERIES[qn](frames).to_pydict().values()))
+                for qn in sorted(queries.QUERIES)}
+        with open(f"{out_dir}/host_rows.pickle", "wb") as f:
+            pickle.dump(host, f)
+        times["host_at"] = time.time()
+        queue.put({"names": list(tables), **times})
+    except Exception:  # the parent reads it rather than waiting out its timeout
+        queue.put({"error": tb.format_exc()})
 
 
 class BackgroundTables:
-    """``benchmarks.tpch_full.generate`` in a spawned process, so that its
-    per-row Python loops (about two minutes at SF1) overlap the earlier
-    phases on another core; ``get`` waits for the tables and stops the
-    process, ``stop`` stops it in any case."""
+    """Phase 4's SF1 tables (``benchmarks.tpch_full.generate``), their
+    parquet files and the host path's rows of the 22 queries over them,
+    made by a spawned process while the earlier phases run: its per-row
+    Python loops take about two minutes at SF1. The process runs on a core
+    of its own (the last this process may use) and this process's threads
+    on the others until it is done (``_watch``), so that it never waits on
+    the phases' threads, nor they on it. The tables come back as arrow IPC
+    files in a temporary directory, read in about a second (not pickled
+    through a pipe, which began only when ``get`` read it). ``get`` waits
+    for the process and returns the tables; ``parquet`` and ``host_rows``
+    hold the rest. ``stop`` stops the process in any case and removes the
+    directory."""
 
-    def __init__(self, scale: float, seed: int):
+    def __init__(self, scale: float, seed: int, groups: int):
         import multiprocessing
+        import os
+        import tempfile
+        import threading
 
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_tables_")
         ctx = multiprocessing.get_context("spawn")
         self.queue = ctx.Queue()
-        self.proc = ctx.Process(target=_generate_into, args=(self.queue, scale, seed),
-                                daemon=True)
+        self.proc = ctx.Process(target=_generate_into,
+                                args=(self.queue, self.dir, scale, seed, groups), daemon=True)
         self.started = time.perf_counter()
+        self.started_wall = time.time()
         self.proc.start()
+        self.cores = sorted(os.sched_getaffinity(0))
+        self.pinned = len(self.cores) >= 4
+        if self.pinned:
+            os.sched_setaffinity(self.proc.pid, {self.cores[-1]})
+            self._pin_own_threads(set(self.cores[:-1]))
+        self.msg = None
+        self.done_at = None
+        self._watcher = threading.Thread(target=self._watch, daemon=True)
+        self._watcher.start()
+
+    @staticmethod
+    def _pin_own_threads(cores: set) -> None:
+        """Every thread of this process onto ``cores`` (threads made later
+        inherit their creator's set)."""
+        import os
+
+        for tid in os.listdir("/proc/self/task"):
+            try:
+                os.sched_setaffinity(int(tid), cores)
+            except OSError:  # the thread ended meanwhile
+                pass
+
+    def _watch(self) -> None:
+        """Wait for the process's message; give this process every core
+        back as soon as it comes."""
+        import queue
+
+        try:
+            self.msg = self.queue.get(timeout=1500)
+        except queue.Empty:
+            self.msg = {"error": "the background process sent nothing in 1500 s"}
+        self.done_at = time.perf_counter() - self.started
+        if self.pinned:
+            self._pin_own_threads(set(self.cores))
 
     def get(self, timeout: float = 900.0) -> dict:
-        tables = self.queue.get(timeout=timeout)  # drained before the join
+        import pickle
+
+        import pyarrow as pa
+
+        self._watcher.join(timeout=timeout)
+        msg = self.msg
+        if msg is None or "error" in msg:
+            raise RuntimeError("the background process failed: "
+                               + (msg or {}).get("error", f"no message in {timeout} s"))
         self.proc.join(timeout=60)
+        self.timing = {k[:-3] + "_s": v - self.started_wall
+                       for k, v in msg.items() if k.endswith("_at")}
+        self.timing["done_s"] = self.done_at
+        self.timing["pinned_core"] = self.cores[-1] if self.pinned else None
+        tables = {}
+        for name in msg["names"]:
+            with pa.OSFile(f"{self.dir}/{name}.arrow", "rb") as source:
+                tables[name] = pa.ipc.open_file(source).read_all()
+        self.parquet = {name: f"{self.dir}/{name}.parquet" for name in msg["names"]}
+        with open(f"{self.dir}/host_rows.pickle", "rb") as f:
+            self.host_rows = pickle.load(f)
         return tables
 
     def stop(self) -> None:
+        import shutil
+
         if self.proc.is_alive():
             self.proc.terminate()
             self.proc.join(timeout=30)
+        shutil.rmtree(self.dir, ignore_errors=True)
 
 
 def tpch22_rows(rows, keep_order: bool = False) -> list:
@@ -2067,7 +2187,7 @@ def tpch22_frames(data: dict, nparts: int) -> dict:
     return out
 
 
-def phase_tpch22(ph: Phases, queries, data: dict, card: str, profile: bool) -> dict:
+def phase_tpch22(ph: Phases, queries, data: dict, host: dict, card: str, profile: bool) -> dict:
     """Phase 4: the 22 queries of benchmarks/tpch_queries.py through the
     port on the card, in the 32-bit device mode with device_min_rows=8 (the
     configuration of tests/device32/test_tpch_suite32.py). At SF0.005 (seed
@@ -2077,8 +2197,9 @@ def phase_tpch22(ph: Phases, queries, data: dict, card: str, profile: bool) -> d
     TPCH22_ROUTES_3P says (the CPU tests hold the port to it). At SF1 (seed 7), one partition per table: each driven once
     cold with K1's, K2's and the scatter kernel's launch counts set to 0
     just before and read just after, timed warm (median of 2), held to the
-    port's host path on the same tables (use_device_kernels=False,
-    device="cpu", run explicitly) under the same rule, with no aggregate
+    port's host path on the same tables (``host``: use_device_kernels=False,
+    device="cpu", run by the background process that made the tables,
+    BackgroundTables) under the same rule, with no aggregate
     declined after launch, the new lanes' filters on the card, and the
     float sums through K1 or the scatter kernel where the CPU tests put
     them on the card, and every aggregate, and the new lanes' fused chains,
@@ -2117,18 +2238,8 @@ def phase_tpch22(ph: Phases, queries, data: dict, card: str, profile: bool) -> d
         conn.close()
     del small, frames
 
-    # --- SF1 (``data``), one partition per table, against the port's host path
-    host_cfg = config(use_device_kernels=False, device="cpu")
-    dtt.set_execution_config(host_cfg)
-    hframes = tpch22_frames(data, 1)
-    host = {}
-    t0 = time.perf_counter()
-    for qn in sorted(queries.QUERIES):
-        host[qn] = tpch22_rows(zip(*queries.QUERIES[qn](hframes).to_pydict().values()))
-    print(f"SF1: the host path ran the 22 queries in {time.perf_counter() - t0:.1f}s", flush=True)
-    del hframes
-
-    # the CPU tests' configuration, so that the routing compares with theirs
+    # --- SF1 (``data``), one partition per table, against the port's host
+    # path (``host``); the CPU tests' configuration, so that the routing compares with theirs
     dtt.set_execution_config(config(device_min_rows=8))
     frames = tpch22_frames(data, 1)
     rows = {k: v.num_rows for k, v in data.items()}
@@ -4381,11 +4492,20 @@ class ParquetFiles:
         papq.write_table(table, path, row_group_size=max(1, -(-table.num_rows // groups)))
         return path, time.perf_counter() - t0
 
+    def adopt(self, name: str, path: str) -> None:
+        """A file written elsewhere (its write's time is not known here)."""
+        from concurrent.futures import Future
+
+        job = Future()
+        job.set_result((path, None))
+        self._jobs[name] = job
+
     def path(self, name: str) -> str:
         return self._jobs[name].result()[0]
 
     def write_s(self) -> dict:
-        return {k: round(j.result()[1], 2) for k, j in self._jobs.items() if j.done()}
+        return {k: round(j.result()[1], 2) for k, j in self._jobs.items()
+                if j.done() and j.result()[1] is not None}
 
     def remove(self) -> None:
         import shutil
@@ -5529,6 +5649,7 @@ def phase_sql_sf1(ph: Phases, data: dict, texts: dict, card: str) -> dict:
                  and launches["k1"] == 1,
                  f"{label}: the aggregate on the card through K1 (launches {launches})")
     del li_frame
+    out["oracles"] = {"q1": oracles[1], "q6": oracles[6]}  # phase 19's, over the same rows
     out["wall_s"] = time.perf_counter() - t_phase
     print(f"SF1 SQL phase 15 SF1 leg wall {out['wall_s']:.1f}s ({card})", flush=True)
     return out
@@ -6589,6 +6710,371 @@ def phase_mesh(ph: Phases, lineitem, tables: dict, q3_oracle: tuple, card: str) 
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: object stores, lake tables and Python scan sources
+# ---------------------------------------------------------------------------
+
+IO_BLOBS = 300          # phase 19 (f): objects uploaded and downloaded by url
+Q1_COLUMNS = ("l_returnflag", "l_linestatus", "l_quantity", "l_extendedprice",
+              "l_discount", "l_tax", "l_shipdate")
+
+
+class LoopbackS3:
+    """A small S3 endpoint on 127.0.0.1 at a free port, for phase 19:
+    path-style GET (with Range) and HEAD, ListObjectsV2 in one page, PUT
+    (with put-if-absent), DELETE. An object is bytes or a local file (read
+    at the asked range, so a large file is never held whole). Counts the
+    body bytes it sends (``sent``). ``stop`` shuts it down."""
+
+    def __init__(self):
+        import threading
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+        from urllib.parse import parse_qs, unquote, urlsplit
+
+        self.objects = {}   # (bucket, key) -> bytes, or the path of a local file
+        self.sent = 0
+        lock = threading.Lock()
+        outer = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def _parse(self):
+                u = urlsplit(self.path)
+                bucket, _, key = unquote(u.path).lstrip("/").partition("/")
+                return bucket, key, parse_qs(u.query, keep_blank_values=True)
+
+            def _reply(self, status: int, body: bytes = b"", head: bool = False):
+                self.send_response(status)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                if body and not head:
+                    self.wfile.write(body)
+                    with lock:
+                        outer.sent += len(body)
+
+            def _size(self, obj) -> int:
+                import os
+
+                return os.path.getsize(obj) if isinstance(obj, str) else len(obj)
+
+            def _serve(self, head: bool):
+                bucket, key, q = self._parse()
+                if "list-type" in q:
+                    prefix = q.get("prefix", [""])[0]
+                    items = "".join(
+                        f"<Contents><Key>{k}</Key><Size>{self._size(o)}</Size></Contents>"
+                        for (b, k), o in sorted(outer.objects.items())
+                        if b == bucket and k.startswith(prefix))
+                    return self._reply(200, (
+                        "<?xml version='1.0'?><ListBucketResult><IsTruncated>false"
+                        f"</IsTruncated>{items}</ListBucketResult>").encode())
+                obj = outer.objects.get((bucket, key))
+                if obj is None:
+                    return self._reply(404)
+                size = self._size(obj)
+                lo, hi, status = 0, size, 200
+                rng = self.headers.get("Range")
+                if rng and not head:
+                    a, b = rng.split("=")[1].split("-")
+                    lo, hi, status = int(a), min(int(b) + 1, size), 206
+                if head:
+                    self.send_response(200)
+                    self.send_header("Content-Length", str(size))
+                    self.end_headers()
+                    return
+                if isinstance(obj, str):
+                    with open(obj, "rb") as f:
+                        f.seek(lo)
+                        body = f.read(hi - lo)
+                else:
+                    body = obj[lo:hi]
+                self._reply(status, body)
+
+            def do_GET(self):
+                self._serve(head=False)
+
+            def do_HEAD(self):
+                self._serve(head=True)
+
+            def do_PUT(self):
+                bucket, key, _q = self._parse()
+                body = self.rfile.read(int(self.headers.get("Content-Length") or 0))
+                with lock:
+                    if (self.headers.get("If-None-Match") == "*"
+                            and (bucket, key) in outer.objects):
+                        return self._reply(412)
+                    outer.objects[(bucket, key)] = body
+                self._reply(200)
+
+            def do_DELETE(self):
+                bucket, key, _q = self._parse()
+                with lock:
+                    outer.objects.pop((bucket, key), None)
+                self._reply(204)
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.endpoint = f"http://127.0.0.1:{self.server.server_port}"
+        self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
+        self.thread.start()
+
+    def stop(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(timeout=10)
+
+
+def delta_over(path: str, root: str) -> None:
+    """A Delta table at ``root`` whose one data file is ``path`` (linked,
+    not copied): one JSON commit with its add action, as the reference's
+    tests/test_catalogs.py ``_write_delta`` writes them."""
+    import os
+
+    os.makedirs(f"{root}/_delta_log")
+    os.symlink(path, f"{root}/part-00000.parquet")
+    with open(f"{root}/_delta_log/{0:020d}.json", "w") as f:
+        f.write(json.dumps({"add": {"path": "part-00000.parquet",
+                                    "size": os.path.getsize(path),
+                                    "partitionValues": {}}}) + "\n")
+
+
+def iceberg_over(path: str, root: str) -> None:
+    """An Iceberg v2 table at ``root`` whose one data file is ``path``
+    (linked, not copied): its manifest and manifest list encoded by the
+    port's avro codec, the metadata json and the version hint (the hadoop
+    catalog's layout, as tests/test_catalogs.py ``_build_iceberg`` builds
+    it)."""
+    import os
+
+    import pyarrow.parquet as papq
+
+    from daft_tpu_torch.io.avro import write_avro_file
+    from daft_tpu_torch.io.catalogs import _MANIFEST_ENTRY_SCHEMA, _MANIFEST_LIST_SCHEMA
+
+    for d in ("metadata", "data"):
+        os.makedirs(f"{root}/{d}")
+    os.symlink(path, f"{root}/data/f0.parquet")
+    write_avro_file(f"{root}/metadata/m0.avro", _MANIFEST_ENTRY_SCHEMA, [{
+        "status": 1, "snapshot_id": 1,
+        "data_file": {"content": 0, "file_path": f"file://{root}/data/f0.parquet",
+                      "file_format": "PARQUET", "partition": {},
+                      "record_count": papq.read_metadata(path).num_rows,
+                      "file_size_in_bytes": os.path.getsize(path)}}])
+    write_avro_file(f"{root}/metadata/snap-1.avro", _MANIFEST_LIST_SCHEMA, [{
+        "manifest_path": f"file://{root}/metadata/m0.avro",
+        "manifest_length": os.path.getsize(f"{root}/metadata/m0.avro"),
+        "partition_spec_id": 0, "content": 0, "added_snapshot_id": 1}])
+    meta = {"format-version": 2, "table-uuid": "0", "location": root,
+            "current-snapshot-id": 1,
+            "snapshots": [{"snapshot-id": 1, "timestamp-ms": 0,
+                           "manifest-list": f"file://{root}/metadata/snap-1.avro"}],
+            "schemas": [{"schema-id": 0, "type": "struct", "fields": []}],
+            "current-schema-id": 0, "partition-specs": [{"spec-id": 0, "fields": []}]}
+    with open(f"{root}/metadata/v1.metadata.json", "w") as f:
+        json.dump(meta, f)
+    with open(f"{root}/metadata/version-hint.text", "w") as f:
+        f.write("1")
+
+
+def row_group_operator(path: str):
+    """A ScanOperator whose factories read one row group each of the parquet
+    file at ``path`` (the columns the engine asks for)."""
+    import pyarrow.parquet as papq
+
+    from daft_tpu_torch.io.pyscan import FactoryScanTask, ScanOperator
+    from daft_tpu_torch.schema import Schema
+
+    md = papq.read_metadata(path)
+    schema = Schema.from_arrow(papq.read_schema(path))
+
+    class RowGroups(ScanOperator):
+        def schema(self):
+            return schema
+
+        def can_absorb_select(self):
+            return True
+
+        def to_scan_tasks(self, pushdowns):
+            for i in range(md.num_row_groups):
+                def factory(pd, i=i):
+                    return papq.ParquetFile(path).read_row_group(i, columns=pd.columns)
+
+                yield FactoryScanTask(factory, schema, pushdowns,
+                                      num_rows=md.row_group(i).num_rows,
+                                      size_bytes=md.row_group(i).total_byte_size,
+                                      label=f"{path}#row-group-{i}")
+
+    return RowGroups()
+
+
+def phase_io(ph: Phases, files: ParquetFiles, lineitem, oracles: dict, card: str) -> dict:
+    """Phase 19: object stores, lake tables and Python scan sources around K1
+    and K2, at SF1, over phase 12's file of phase 4's lineitem (``lineitem``:
+    6 M rows, its 16 columns in 8 row groups; linked, never rewritten), Q1's
+    and Q6's oracles given (phase 15's): (a) a Delta log over it read
+    with read_deltalake, (b) an Iceberg table over it whose manifests the
+    port's avro codec wrote, read with read_iceberg, and (c) the file served
+    by a loopback S3 endpoint (LoopbackS3) and read with
+    read_parquet("s3://.../*.parquet"): each with composed Q1 (K1), deep Q1
+    (K2) and Q6 (K1) against the pyarrow oracle at rtol 1e-6, cold and warm
+    once; (c) also holds the bytes the endpoint sent for Q1 under the file's
+    size (ranged reads of 7 of its 16 columns), and reads Q1 again with io.get
+    armed once (one retry, the same rows). (d) write_deltalake and
+    write_iceberg of Q1's seven columns, each read back through Q1; (e) a
+    ScanOperator of the file's row groups through Q1; (f) IO_BLOBS objects
+    put with url.upload to the endpoint and fetched back with url.download,
+    equal to the bytes put. Each query counts K1's, K2's and the scatter
+    kernel's launches from 0 just before it."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as papq
+    import torch
+
+    import daft_tpu_torch as dtt
+    from daft_tpu_torch import col, faults
+    from daft_tpu_torch.io import IO_STATS
+    from daft_tpu_torch.kernels import fused_expr_sums as fes
+    from daft_tpu_torch.kernels import scatter_sums as scs
+    from daft_tpu_torch.kernels import segment_sums as ss
+
+    out = {"k1_launches": 0, "k2_launches": 0, "scatter_launches": 0, "card": card}
+    t_phase = time.perf_counter()
+    li_path = files.path("lineitem")
+    file_bytes = os.path.getsize(li_path)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_io_")
+    s3 = LoopbackS3()
+    saved_env = {k: os.environ.get(k) for k in ("AWS_ENDPOINT_URL", "AWS_ACCESS_KEY_ID",
+                                                "AWS_SECRET_ACCESS_KEY", "AWS_SESSION_TOKEN")}
+    os.environ["AWS_ENDPOINT_URL"] = s3.endpoint  # every s3:// path of the phase goes there
+    for k in ("AWS_ACCESS_KEY_ID", "AWS_SECRET_ACCESS_KEY", "AWS_SESSION_TOKEN"):
+        os.environ.pop(k, None)
+
+    def driven(build):
+        """One driven query: (rows, seconds, launches, counters)."""
+        ss.LAUNCHES = fes.LAUNCHES = scs.LAUNCHES = 0
+        t0 = time.perf_counter()
+        df = build().collect()
+        rows = df.to_pydict()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {"k1": ss.LAUNCHES, "k2": fes.LAUNCHES, "scatter": scs.LAUNCHES}
+        for k, v in launches.items():
+            out[f"{k}_launches"] += v
+        return rows, secs, launches, df.stats.snapshot()["counters"]
+
+    def leg(label: str, build, want: dict, kernel: str, warm: bool = True) -> dict:
+        rows, cold, launches, c = driven(build)
+        ph.check(parity(rows, want, RTOL), f"{label}: matches the pyarrow oracle at rtol {RTOL}")
+        ph.check(launches[kernel] >= 1 and c.get("device_aggregations", 0) >= 1
+                 and c.get("device_agg_fallbacks", 0) == 0,
+                 f"{label}: aggregated on the card through {kernel.upper()} ({launches})")
+        res = {"cold_s": cold, "launches": launches}
+        if warm:
+            rows, res["warm_s"], launches, _ = driven(build)
+            res["warm_launches"] = launches
+            ph.check(parity(rows, want, RTOL), f"{label}: the warm run matches too")
+        print(f"{label} " + json.dumps({**res, "card": card}), flush=True)
+        return res
+
+    one_task = 1 << 40  # scan_tasks_min_size_bytes: the file's row groups in one task
+    try:
+        # --- (a), (b), (c): the same file through three readers
+        delta_over(li_path, f"{tmp}/delta")
+        iceberg_over(li_path, f"{tmp}/iceberg")
+        s3.objects[("lake", "lineitem/part-00000.parquet")] = li_path
+        readers = {
+            "delta": lambda: dtt.read_deltalake(f"{tmp}/delta"),
+            "iceberg": lambda: dtt.read_iceberg(f"{tmp}/iceberg"),
+            "s3": lambda: dtt.read_parquet("s3://lake/lineitem/*.parquet", _split_row_groups=True),
+        }
+        for source, read in readers.items():
+            for name, query, deep in (("q1", q1, False), ("q1", q1, True), ("q6", q6, False)):
+                dtt.set_execution_config(config(use_deep_fusion_kernel=deep,
+                                                scan_tasks_min_size_bytes=one_task))
+                label = f"SF1 io {source} {name} {'deep' if deep else 'composed'}"
+                sent0 = s3.sent
+                IO_STATS.reset()
+                res = leg(label, lambda query=query, read=read: query(read()), oracles[name],
+                          "k2" if deep else "k1")
+                out[label[len("SF1 io "):]] = res
+                if source == "s3" and name == "q1" and not deep:
+                    sent = (s3.sent - sent0) / 2  # a run: the leg ran cold and warm
+                    ph.check(0 < sent < file_bytes and IO_STATS.snapshot()["retries"] == 0,
+                             f"{label}: the endpoint sent {sent / 1e6:.1f} MB a run, under "
+                             f"the file's {file_bytes / 1e6:.1f} MB (ranged reads of "
+                             f"{SCAN_COLUMNS['q1']} of its {lineitem.num_columns} columns), "
+                             f"no retry")
+                    res["sent_bytes"] = sent
+        # io.get armed once under S3 Q1: one retry, the same rows
+        dtt.set_execution_config(config(scan_tasks_min_size_bytes=one_task))
+        IO_STATS.reset()
+        faults.arm("io.get", "first_n", n=1)
+        try:
+            rows, secs, launches, _ = driven(lambda: q1(readers["s3"]()))
+            injected = faults.snapshot()["injected"].get("io.get", 0)
+        finally:
+            faults.disarm()
+        retries = IO_STATS.snapshot()["retries"]
+        ph.check(injected == 1 and retries == 1 and parity(rows, oracles["q1"], RTOL)
+                 and launches["k1"] >= 1,
+                 f"SF1 io s3 q1 with io.get armed once: {retries} retry, the oracle's rows, "
+                 f"K1 launches {launches['k1']} ({secs:.2f}s)")
+
+        # --- (d) the lake writers, each read back through Q1
+        q1_table = lineitem.select(list(Q1_COLUMNS))
+        dtt.set_execution_config(config())
+        for fmt in ("deltalake", "iceberg"):
+            uri = f"{tmp}/written_{fmt}"
+            t0 = time.perf_counter()
+            written = getattr(dtt.from_arrow(q1_table), f"write_{fmt}")(uri).to_pydict()["path"]
+            write_s = time.perf_counter() - t0
+            read = getattr(dtt, f"read_{fmt}")
+            res = leg(f"SF1 io write_{fmt} q1", lambda read=read, uri=uri: q1(read(uri)),
+                      oracles["q1"], "k1")
+            res.update(write_s=write_s, files=len(written))
+            ph.check(len(written) == 1, f"SF1 io write_{fmt}: {len(written)} data file of "
+                                        f"{q1_table.num_rows} rows in {write_s:.2f}s")
+            out[f"write_{fmt}"] = res
+
+        # --- (e) a ScanOperator of the file's row groups
+        op = row_group_operator(li_path)
+        out["scan_operator q1"] = leg("SF1 io scan operator q1",
+                                      lambda: q1(dtt.from_scan_operator(op)), oracles["q1"], "k1")
+
+        # --- (f) url.upload then url.download through the endpoint
+        rng = np.random.RandomState(19)
+        blobs = [rng.bytes(int(n)) for n in rng.randint(512, 4096, IO_BLOBS)]
+        frame = dtt.from_pydict({"data": pa.array(blobs, pa.binary())})
+        t0 = time.perf_counter()
+        paths = frame.select(col("data").url.upload("s3://blobs/up").alias("p")).to_pydict()["p"]
+        up_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = dtt.from_pydict({"u": paths}).select(
+            col("u").url.download().alias("d")).to_pydict()["d"]
+        down_s = time.perf_counter() - t0
+        ph.check(got == blobs and len(set(paths)) == IO_BLOBS,
+                 f"SF1 io url: {IO_BLOBS} objects uploaded ({up_s:.2f}s) and downloaded "
+                 f"({down_s:.2f}s) equal to the bytes put")
+        out["url"] = {"objects": IO_BLOBS, "upload_s": up_s, "download_s": down_s}
+    finally:
+        s3.stop()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"SF1 io phase 19 wall {out['wall_s']:.1f}s, launches K1 {out['k1_launches']} K2 "
+          f"{out['k2_launches']} scatter {out['scatter_launches']} ({card})", flush=True)
+    return out
+
+
 def _walk(p):
     yield p
     for c in p.children():
@@ -6706,7 +7192,7 @@ def main(argv=None) -> int:
         print(f"card: {card}; torch {torch.__version__} CUDA {torch.version.cuda}", flush=True)
         queries = tpch22_module()
         if not args.kernels_only:  # phase 4's SF1 tables, generated meanwhile
-            big = BackgroundTables(1.0, 7)
+            big = BackgroundTables(1.0, 7, SCAN_TPCH_GROUPS)
         ph.begin("phase 1")
         edges = phase_build(ph)
         ph.begin("phase 2")
@@ -6774,7 +7260,7 @@ def main(argv=None) -> int:
                 sc_entry[f"sf{scale:g}_shape"] = joins["scatter_main"]
         if scales:
             faults_out = relational = spill = adapt = scans = prefetch_write = columnar = None
-            sql_udf = observability = scheduling = mesh = None
+            sql_udf = observability = scheduling = mesh = io_out = None
             if 1.0 in scales:
                 # phases 8-11 read phase 3's and phase 7's SF1 tables alone, so
                 # they run while the 22-query tables are still being generated
@@ -6815,13 +7301,15 @@ def main(argv=None) -> int:
             data = big.get()
             print(f"SF1: 22-query tables ready {time.perf_counter() - big.started:.1f}s after "
                   f"the generator started (waited {time.perf_counter() - t0:.1f}s; "
+                  + ", ".join(f"{k} {v:.1f}s" for k, v in big.timing.items() if k != "pinned_core")
+                  + f" after its start, on core {big.timing['pinned_core']}; "
                   + ", ".join(f"{k} {v.num_rows}" for k, v in data.items()) + ")", flush=True)
-            if files is not None:  # phase 12's files, written while phases 4-6 run
-                for name, tbl in data.items():
-                    files.write(name, tbl, SCAN_TPCH_GROUPS)
+            if files is not None:  # phase 12's files, written by the generator's process
+                for name in data:
+                    files.adopt(name, big.parquet[name])
             print(f"elapsed {time.perf_counter() - started:.1f}s: phase 4", flush=True)
             ph.begin("phase 4")
-            t22 = phase_tpch22(ph, queries, data, card, args.profile)
+            t22 = phase_tpch22(ph, queries, data, big.host_rows, card, args.profile)
             print(f"elapsed {time.perf_counter() - started:.1f}s: phase 5", flush=True)
             ph.begin("phase 5")
             lanes = phase_lanes(ph, data, card)
@@ -6852,6 +7340,11 @@ def main(argv=None) -> int:
                 sql_sf1 = phase_sql_sf1(ph, data, queries.SQL, card)
                 for k in ("k1_launches", "k2_launches", "scatter_launches"):
                     sql_udf[k] += sql_sf1[k]
+                # phase 19 reads phase 12's file of phase 4's lineitem, which
+                # the run removes at its end
+                print(f"elapsed {time.perf_counter() - started:.1f}s: phase 19", flush=True)
+                ph.begin("phase 19")
+                io_out = phase_io(ph, files, data["lineitem"], sql_sf1.pop("oracles"), card)
             del data, sf1_lineitem
             phase_outs = [("tpch22", t22), ("lanes", lanes)] + [
                 (f"exchange_sf{sc:g}", ex) for sc, ex in exchange.items()] + (
@@ -6859,7 +7352,7 @@ def main(argv=None) -> int:
                  ("adapt", adapt), ("scan", scans), ("prefetch_write", prefetch_write),
                  ("columnar", columnar), ("sql_udf", sql_udf),
                  ("observability", observability), ("scheduling", scheduling),
-                 ("mesh", mesh)]
+                 ("mesh", mesh), ("io", io_out)]
                 if faults_out is not None else [])
             for name, ph_out in phase_outs:
                 k1_entry[f"launches_{name}"] = ph_out["k1_launches"]

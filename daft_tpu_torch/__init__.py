@@ -7,12 +7,19 @@ the aggregation on the card in the 32-bit device mode. Its float sums go
 through a hand-written CUDA kernel (kernels/segment_sums.py,
 csrc/masked_segment_sums.cu).
 
-``read_parquet``, ``read_csv`` and ``read_json`` scan local files: the
-optimizer pushes columns, filters and limits into the scan tasks, and each
-partition is read when the first operator needs it, with the reads of the
-next ``scan_prefetch_depth`` partitions running ahead in the background.
-``write_parquet``, ``write_csv`` and ``write_json`` write a frame's
-partitions as files and return the manifest of the written paths.
+``read_parquet``, ``read_csv`` and ``read_json`` scan local files and
+object stores (``s3://``, ``gs://``, ``az://``, ``hf://``, ``http(s)://``;
+io/object_store.py): the optimizer pushes columns, filters and limits into
+the scan tasks, and each partition is read when the first operator needs
+it, with the reads of the next ``scan_prefetch_depth`` partitions running
+ahead in the background. ``read_deltalake``, ``read_iceberg``,
+``read_hudi``, ``read_lance``, ``read_sql`` and ``from_scan_operator``
+read lake tables, databases and user-defined sources (io/catalogs.py,
+io/unity.py, io/pyscan.py). ``write_parquet``, ``write_csv`` and
+``write_json`` write a frame's partitions as files, local or remote, and
+return the manifest of the written paths; ``write_deltalake`` and
+``write_iceberg`` commit them to a lake table. ``col(...).url.download()``
+and ``.url.upload(...)`` move bytes between rows and objects.
 
 ``sql`` plans a SQL text onto the DataFrame API; ``udf`` and ``batch_udf``
 make python UDFs, and a batch-declared model class with ``apply_torch``
@@ -31,9 +38,11 @@ Entry points run on the card (``ExecutionConfig.device == "cuda"``) unless
 the caller asks for the CPU with ``set_execution_config(device="cpu")``.
 """
 
-from .api import (UDF, batch_udf, engine_log_tail, from_arrow, from_glob_path, from_pandas,
-                  from_pydict, from_pylist, health, last_profile, metrics_text, query_log,
-                  query_progress, read_csv, read_json, read_parquet, sql_expr, udf)
+from .api import (UDF, batch_udf, engine_log_tail, from_arrow, from_dask_dataframe,
+                  from_glob_path, from_pandas, from_pydict, from_pylist, from_ray_dataset,
+                  from_scan_operator, health, last_profile, metrics_text, query_log,
+                  query_progress, read_csv, read_deltalake, read_hudi, read_iceberg, read_json,
+                  read_lance, read_parquet, read_sql, sql_expr, udf)
 from .context import (ExecutionConfig, execution_config_from_dict, get_context,
                       set_execution_config, set_runner, set_runner_mesh, set_runner_native)
 from .dataframe import DataFrame
@@ -46,10 +55,11 @@ from .table import Table
 __all__ = [
     "DataFrame", "DataType", "ExecutionConfig", "Expression", "Field", "Schema",
     "Series", "Table", "UDF", "batch_udf", "col", "engine_log_tail",
-    "execution_config_from_dict", "from_arrow", "from_glob_path", "from_pandas", "from_pydict",
-    "from_pylist", "get_context", "health", "interval", "last_profile", "lit", "metrics_text",
-    "query_log", "query_progress", "read_csv", "read_json", "read_parquet",
-    "set_execution_config", "set_runner", "set_runner_mesh", "set_runner_native", "sql",
+    "execution_config_from_dict", "from_arrow", "from_dask_dataframe", "from_glob_path",
+    "from_pandas", "from_pydict", "from_pylist", "from_ray_dataset", "from_scan_operator",
+    "get_context", "health", "interval", "last_profile", "lit", "metrics_text",
+    "query_log", "query_progress", "read_csv", "read_deltalake", "read_hudi", "read_iceberg",
+    "read_json", "read_lance", "read_parquet", "read_sql", "set_execution_config", "set_runner", "set_runner_mesh", "set_runner_native", "sql",
     "sql_expr", "udf",
 ]
 
@@ -62,6 +72,10 @@ __all__ = [
 # afterwards keeps the attribute stable, since later imports of the
 # submodule find it in sys.modules and never set the attribute again.
 import importlib as _importlib  # noqa: E402
+
+# registers url.download and url.upload, which SQL and Function callers name
+# before any expression namespace is touched
+from . import multimodal  # noqa: E402,F401
 
 _importlib.import_module(f"{__name__}.sql")
 from .api import sql  # noqa: E402,F401

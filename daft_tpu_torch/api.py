@@ -2,7 +2,12 @@
 daft_tpu/api.py this slice runs): ``from_pydict``, ``from_pylist``,
 ``from_arrow`` and ``from_pandas`` over memory, the file readers
 ``read_parquet``, ``read_csv``, ``read_json`` and ``from_glob_path`` over
-local paths, the SQL front end (``sql``, ``sql_expr``) and the python UDF
+local paths and object-store urls (io/object_store.py), the lake readers
+``read_deltalake`` (a path or a ``UnityCatalogTable``), ``read_iceberg``,
+``read_hudi`` and ``read_lance`` (io/catalogs.py), ``read_sql`` over a
+DB-API connection, ``from_scan_operator`` over a user's ScanOperator
+(io/pyscan.py), ``from_ray_dataset`` and ``from_dask_dataframe`` (each
+raising an ImportError where its package is missing), the SQL front end (``sql``, ``sql_expr``) and the python UDF
 decorators (``udf``, ``batch_udf``, and the ``UDF`` class they make). A
 reader builds a ScanSource of scan tasks (io/scan.py) and reads nothing but
 the first file's schema (and parquet footers) until a query runs.
@@ -14,8 +19,7 @@ of completed executions), ``health`` (the engine-health snapshot),
 ``query_progress`` (running queries) and ``engine_log_tail`` (the structured
 log's newest records).
 
-Left out of this slice: the remote and lake readers, catalogs and the
-serving runtime with its ``shutdown``.
+Left out of this slice: the serving runtime with its ``shutdown``.
 """
 
 from __future__ import annotations
@@ -64,6 +68,32 @@ def from_pandas(df) -> DataFrame:
     import pyarrow as pa
 
     return from_arrow(pa.Table.from_pandas(df))
+
+
+def from_ray_dataset(ds) -> DataFrame:
+    """A DataFrame from a Ray Dataset; needs the optional ``ray`` package."""
+    try:
+        import ray  # noqa: F401
+    except ImportError as e:
+        raise ImportError("from_ray_dataset requires the optional `ray` "
+                          "package, which is not installed") from e
+    import pyarrow as pa
+
+    tables = [ray.get(r) for r in ds.to_arrow_refs()]
+    if not tables:
+        return from_arrow(pa.table({}))
+    return from_arrow(pa.concat_tables(tables) if len(tables) != 1 else tables[0])
+
+
+def from_dask_dataframe(ddf) -> DataFrame:
+    """A DataFrame from a Dask DataFrame; needs the optional ``dask``
+    package."""
+    try:
+        import dask  # noqa: F401
+    except ImportError as e:
+        raise ImportError("from_dask_dataframe requires the optional `dask` "
+                          "package, which is not installed") from e
+    return from_pandas(ddf.compute())
 
 
 def from_glob_path(path: str) -> DataFrame:
@@ -168,6 +198,61 @@ def read_json(path, schema_hints: Optional[Dict[str, DataType]] = None) -> DataF
     schema = _hinted(infer_json_schema(paths[0]), schema_hints)
     return _scan_frame(schema, [ScanTask(p, FileFormat.JSON, schema, Pushdowns(),
                                          size_bytes=file_size(p)) for p in paths])
+
+
+def read_deltalake(table_uri) -> DataFrame:
+    """A Delta Lake table, by replaying its transaction log; ``table_uri``
+    is a path, an object-store uri or a ``UnityCatalogTable``
+    (``io.unity.UnityCatalog.load_table``)."""
+    from .io.catalogs import read_deltalake_scan
+    from .io.unity import UnityCatalogTable
+
+    if isinstance(table_uri, UnityCatalogTable):
+        table_uri = table_uri.table_uri
+    schema, tasks = read_deltalake_scan(table_uri)
+    return DataFrame(ScanSource(schema, tasks))
+
+
+def read_sql(sql: str, conn, params=None) -> DataFrame:
+    """The rows of a SQL query through a DB-API connection, a connection
+    factory, or a sqlite path or ``sqlite://`` url, read in one shot."""
+    from .io.catalogs import read_sql_arrow
+
+    return from_arrow(read_sql_arrow(sql, conn, params))
+
+
+def read_iceberg(table_uri: str, snapshot_id=None) -> DataFrame:
+    """An Iceberg v1/v2 table (its current snapshot, or ``snapshot_id``),
+    by replaying manifest list, manifests and live data files. Copy-on-write
+    tables only."""
+    from .io.catalogs import read_iceberg_scan
+
+    schema, tasks = read_iceberg_scan(table_uri, snapshot_id)
+    return DataFrame(ScanSource(schema, tasks))
+
+
+def read_hudi(table_uri: str) -> DataFrame:
+    """A local Hudi copy-on-write table, by replaying its ``.hoodie``
+    commit timeline."""
+    from .io.catalogs import read_hudi_scan
+
+    schema, tasks = read_hudi_scan(table_uri)
+    return DataFrame(ScanSource(schema, tasks))
+
+
+def read_lance(url: str, storage_options=None) -> DataFrame:
+    """A LanceDB dataset, one scan task a fragment; needs the optional
+    ``lance`` package."""
+    from .io.catalogs import read_lance_scan
+
+    return read_lance_scan(url, storage_options=storage_options)
+
+
+def from_scan_operator(op) -> DataFrame:
+    """A DataFrame over a user-defined ScanOperator (io/pyscan.py)."""
+    from .io.pyscan import from_scan_operator as _fso
+
+    return _fso(op)
 
 
 def sql(query: str, **catalog: DataFrame) -> DataFrame:

@@ -10,9 +10,12 @@ with_monotonically_increasing_id, the aggregation shorthands of DataFrame
 and GroupedDataFrame (sum, mean, min, max, stddev, any_value, count,
 agg_list, agg_concat), collect, explain and the per-query
 ``stats``, over in-memory frames and over the file scans of api.py
-(read_parquet, read_csv, read_json), and the output surface: the writers
-(write_parquet, write_csv, write_json, each returning the manifest of the
-written files), num_partitions, iter_partitions, iter_rows, to_arrow_iter,
+(read_parquet, read_csv, read_json, local or remote) and the lake readers,
+and the output surface: the writers (write_parquet, write_csv, write_json
+to local paths or object-store urls, each returning the manifest of the
+written files; write_iceberg, write_deltalake and write_lance, each
+returning the added files), the Ray and Dask conversions (each raising an
+ImportError where its package is missing), num_partitions, iter_partitions, iter_rows, to_arrow_iter,
 to_pydict, to_pylist, to_arrow, to_pandas, to_table, show and a ``repr``
 that previews a collected frame (``num_preview_rows``) and never runs the
 plan. ``collect(profile=...)`` records a QueryProfile (``profile()``, and
@@ -20,10 +23,9 @@ to a JSON file given a path), ``explain_analyze`` renders the runtime
 stats and the profile's timeline, and ``last_query_record`` is the query
 log's record of the latest execution. ``cancel()`` stops a running
 execution from another thread (``QueryCancelledError``, a ``cancelled``
-record); ``collect`` re-arms the handle. Left out of this slice: the lake
-writers and the Ray and Dask conversions (ROADMAP, Queue 1, item 9), the
-torch datasets and the HTML preview with its viz hooks (item 10) and the
-integrations.
+record); ``collect`` re-arms the handle. Left out of this slice: the
+torch datasets and the HTML preview with its viz hooks (ROADMAP, Queue 1,
+item 10) and the integrations.
 GroupedDataFrame.map_groups runs a python UDF once per group, and a
 python UDF (udf.py) may appear in any expression; SQL texts plan through
 sql.py onto this API, and ``where`` takes a SQL predicate too.
@@ -332,9 +334,6 @@ class DataFrame:
 
     # ------------------------------------------------------------------ writes
     def _write(self, root_dir: str, format: str, compression, partition_cols) -> "DataFrame":
-        from .io.object_store import check_local_path
-
-        check_local_path(root_dir)
         pc = _to_exprs(partition_cols) if partition_cols else None
         return DataFrame(Write(self._plan, root_dir, format, compression, pc)).collect()
 
@@ -349,6 +348,57 @@ class DataFrame:
 
     def write_json(self, root_dir: str, partition_cols=None) -> "DataFrame":
         return self._write(root_dir, "json", None, partition_cols)
+
+    def _lake_write(self, writer, table_uri: str, mode: str) -> "DataFrame":
+        self.collect()
+        added = writer(table_uri, [p.to_arrow() for p in self._result.partitions], mode=mode)
+        from .api import from_pydict
+
+        return from_pydict({"path": added})
+
+    def write_iceberg(self, table_uri: str, mode: str = "append") -> "DataFrame":
+        """Write the frame as an Iceberg v2 snapshot commit (mode: append,
+        overwrite or error); returns a DataFrame of the added file paths."""
+        from .io.catalogs import write_iceberg_table
+
+        return self._lake_write(write_iceberg_table, table_uri, mode)
+
+    def write_deltalake(self, table_uri: str, mode: str = "append") -> "DataFrame":
+        """Write the frame as a Delta Lake commit (mode: append, overwrite or
+        error): the parquet data files land first, then one put-if-absent
+        JSON transaction publishes them. Returns a DataFrame of the added
+        file paths."""
+        from .io.catalogs import write_deltalake_table
+
+        return self._lake_write(write_deltalake_table, table_uri, mode)
+
+    def write_lance(self, table_uri: str, mode: str = "append") -> "DataFrame":
+        """Write the frame as a lance dataset; needs the optional ``lance``
+        package. Returns a DataFrame of the data-file paths."""
+        from .io.catalogs import write_lance_table
+
+        return self._lake_write(write_lance_table, table_uri, mode)
+
+    def to_ray_dataset(self):
+        """A Ray Dataset of the rows; needs ``ray``, which the port does not
+        depend on (the mesh runner is its distributed backend)."""
+        try:
+            import ray.data  # noqa: F401
+        except ImportError as e:
+            raise ImportError(
+                "to_ray_dataset requires ray, which is not installed; "
+                "distributed execution here runs on the mesh runner (MeshRunner)") from e
+        import ray.data as rd
+
+        return rd.from_arrow(self.to_arrow())
+
+    def to_dask_dataframe(self):
+        """A Dask DataFrame of the rows; needs ``dask``."""
+        try:
+            import dask.dataframe as dd
+        except ImportError as e:
+            raise ImportError("to_dask_dataframe requires dask, which is not installed") from e
+        return dd.from_pandas(self.to_pandas(), npartitions=max(self.num_partitions(), 1))
 
     def cancel(self) -> None:
         """Stop this DataFrame's running execution at its next partition

@@ -1269,6 +1269,12 @@ class Expression:
         return ExprFloatNamespace(self)
 
     @property
+    def url(self) -> "ExprUrlNamespace":
+        from .multimodal import ExprUrlNamespace
+
+        return ExprUrlNamespace(self)
+
+    @property
     def partitioning(self) -> "ExprPartitioningNamespace":
         return ExprPartitioningNamespace(self)
 

@@ -35,6 +35,9 @@ from typing import Dict, Optional
 from .errors import DaftTransientError, DaftValueError
 
 SITES = {
+    "io.get": "each object-store read attempt (io/object_store.py IOClient.get, "
+              "inside the retry loop: a failure retries under the client's "
+              "RetryPolicy and counts in IO_STATS.retries)",
     "scan.read": "each scan-task read attempt (io/scan.py, inside the retry "
                  "loop: a failure retries up to scan_retry_attempts, then the "
                  "reader's error reaches the caller)",

@@ -10,14 +10,15 @@ card's answer equals the host's by construction.
 
 Ported families: ``numeric.*``, the hash functions (``hash``, ``murmur3_32``,
 ``minhash``), ``float.*``, ``utf8.*`` (split and extract_all among them),
-``dt.*``, ``list.*``, ``struct.*``, ``map.get``, ``partitioning.*`` and
-``json.query``. The device compiler knows none of the list, struct, map, hash
+``dt.*``, ``list.*``, ``struct.*``, ``map.get``, ``partitioning.*``,
+``json.query`` and ``url.download``/``url.upload`` (registered by
+multimodal.py, which the package imports). The device compiler knows none of the list, struct, map, hash
 and partitioning functions, so an expression holding one declines to the host
 at plan time, as in the reference. The names the reference registers that
 are still to come raise a ValueError that points at ROADMAP.md with their
 queue item: ``utf8.tokenize_encode``/``utf8.tokenize_decode`` (they need the
-BPE tokenizer) and the ``image.``, ``url.``, ``embedding.`` and ``sketch.``
-families (all four in item 10).
+BPE tokenizer) and the ``image.``, ``embedding.`` and ``sketch.`` families
+(all three in item 10).
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ REGISTRY: Dict[str, FunctionSpec] = {}
 # names the reference registers that the port does not have yet, each with
 # the ROADMAP.md Queue 1 item that brings it
 _NOT_PORTED = {"utf8.tokenize_encode": 10, "utf8.tokenize_decode": 10}
-_NOT_PORTED_FAMILIES = {"image.": 10, "url.": 10, "embedding.": 10, "sketch.": 10}
+_NOT_PORTED_FAMILIES = {"image.": 10, "embedding.": 10, "sketch.": 10}
 
 
 def register(name: str, resolve, evaluate) -> None:

@@ -8,8 +8,10 @@ prunes row groups by their footer statistics (``row_group_stats``,
 applies the pushed filter to the decoded rows (``_residual_filter``).
 ``plan_parquet_chunks`` and ``read_parquet_chunk`` read one row group at a
 time and choose the row groups the whole-file read would. The JSON reader
-streams blocks and stops once a limit is met. Local paths only
-(io/object_store.py).
+streams blocks and stops once a limit is met. A remote parquet file reads
+through ``ObjectFile`` (io/object_store.py), so its footer and the chosen
+row groups cost ranged GETs, not a download; a remote CSV or JSON file is
+fetched whole through the client (its schema from a record-aligned prefix).
 """
 
 from __future__ import annotations
@@ -25,7 +27,6 @@ import pyarrow.parquet as papq
 from ..schema import Schema
 from ..stats import ColumnStats, TableStats, filter_may_match
 from ..table import Table
-from .object_store import check_local_path
 from .scan import IO_STATS, Pushdowns
 
 
@@ -79,12 +80,52 @@ def _drop_filter_only_columns(tbl: Table, pushdowns: Pushdowns) -> Table:
 # ---------------------------------------------------------------------------
 
 def open_parquet_file(path: str) -> "papq.ParquetFile":
-    check_local_path(path)
+    """A ParquetFile over a local path or a remote object: a remote one
+    reads through an ObjectFile of its own (ranged GETs of the footer and
+    the selected row groups only, never a full download)."""
+    from .object_store import default_io_client, is_remote_path
+
+    if is_remote_path(path):
+        return papq.ParquetFile(default_io_client().open(path))
     return papq.ParquetFile(path)
 
 
+def open_input_bytes(path: str):
+    """A whole-object file handle for the record formats (CSV, JSON)."""
+    import io as _io
+
+    from .object_store import default_io_client, is_remote_path
+
+    if is_remote_path(path):
+        return _io.BytesIO(default_io_client().get(path))
+    return path
+
+
+def open_prefix_bytes(path: str, nbytes: int = 1 << 20):
+    """A record-aligned PREFIX of the object for schema inference, so a
+    large remote CSV is not downloaded twice (once to infer, once to read).
+    The ranged fetch is cut at its last newline, so the parser never sees a
+    truncated record; an object under ``nbytes`` comes back whole."""
+    import io as _io
+
+    from .object_store import default_io_client, is_remote_path
+
+    if not is_remote_path(path):
+        return path
+    client = default_io_client()
+    size = client.get_size(path)
+    if size <= nbytes:
+        return _io.BytesIO(client.get(path))
+    chunk = client.get(path, (0, nbytes))
+    head, nl, _tail = chunk.rpartition(b"\n")
+    return _io.BytesIO(head + nl if nl else chunk)
+
+
 def file_size(path: str) -> int:
-    check_local_path(path)
+    from .object_store import default_io_client, is_remote_path
+
+    if is_remote_path(path):
+        return default_io_client().get_size(path)
     return os.path.getsize(path)
 
 
@@ -221,7 +262,7 @@ def read_csv_table(path: str, pushdowns: Optional[Pushdowns] = None,
     if schema is not None and pushdowns.columns is not None:
         columns = _project_columns(schema.field_names(), pushdowns)
         convert_opts.include_columns = columns
-    arrow_tbl = pacsv.read_csv(path, read_options=read_opts,
+    arrow_tbl = pacsv.read_csv(open_input_bytes(path), read_options=read_opts,
                                parse_options=parse_opts, convert_options=convert_opts)
     IO_STATS.bump(files_opened=1, bytes_read=arrow_tbl.nbytes, rows_read=arrow_tbl.num_rows,
                   columns_read=arrow_tbl.num_columns)
@@ -244,8 +285,7 @@ def infer_csv_schema(path: str, delimiter: str = ",", has_headers: bool = True,
         block_size=1 << 20,
     )
     parse_opts = pacsv.ParseOptions(delimiter=delimiter)
-    check_local_path(path)
-    with pacsv.open_csv(path, read_options=read_opts, parse_options=parse_opts) as rd:
+    with pacsv.open_csv(open_prefix_bytes(path), read_options=read_opts, parse_options=parse_opts) as rd:
         batch = rd.read_next_batch()
     return Schema.from_arrow(batch.schema)
 
@@ -287,7 +327,7 @@ def read_json_table(path: str, pushdowns: Optional[Pushdowns] = None,
     rows = 0
     parsed = 0
     nbytes = 0
-    with pajson.open_json(path,
+    with pajson.open_json(open_input_bytes(path),
                           parse_options=parse_options) as reader:
         for batch in reader:
             t = Table.from_arrow(pa.Table.from_batches([batch]))
@@ -337,7 +377,6 @@ def read_arrow_ipc_table(path: str, pushdowns: Optional[Pushdowns] = None,
 
 
 def infer_json_schema(path: str, **_kw) -> Schema:
-    check_local_path(path)
     # one block of the file is enough to infer from
-    arrow_tbl = pajson.read_json(path, read_options=pajson.ReadOptions(block_size=1 << 20))
+    arrow_tbl = pajson.read_json(open_prefix_bytes(path), read_options=pajson.ReadOptions(block_size=1 << 20))
     return Schema.from_arrow(arrow_tbl.schema)

@@ -9,7 +9,8 @@ partition reads it on first use, each attempt under the scan retry policy
 fault site. ``MergedScanTask`` reads several small files as one task;
 ``merge_scan_tasks_by_size`` packs them. ``IO_STATS`` counts what the
 readers opened, read and pruned, so tests can see a pushdown reduce IO.
-Local paths only (io/object_store.py).
+A remote path or glob (``s3://``, ``gs://``, ``az://``, ``hf://``, ...)
+expands through the object-store client's listing (io/object_store.py).
 """
 
 from __future__ import annotations
@@ -446,17 +447,23 @@ def merge_scan_tasks_by_size(tasks: Sequence[ScanTask],
 
 
 def glob_paths(path) -> List[str]:
-    """Expand a path, a glob, a directory or a list of them into file paths
-    (local paths only: a remote one raises)."""
+    """Expand a path, a glob, a directory or a list of them into file paths;
+    a remote path or glob expands through the object store's listing."""
     if isinstance(path, (list, tuple)):
         out: List[str] = []
         for p in path:
             out.extend(glob_paths(p))
         return out
     p = str(path)
-    from .object_store import check_local_path
+    from .object_store import is_remote_path
 
-    check_local_path(p)
+    if is_remote_path(p):
+        from .object_store import default_io_client
+
+        metas = default_io_client().glob(p)
+        if not metas:
+            raise DaftNotFoundError(f"{p!r} matched no objects")
+        return [m.path for m in metas]
     if p.startswith("file://"):
         p = p[len("file://"):]
     if os.path.isdir(p):

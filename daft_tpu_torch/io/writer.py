@@ -8,16 +8,18 @@ the written paths, plus the key columns of a hive-partitioned write. File
 names hold a random uuid, so a repeated write never overwrites an earlier
 one.
 
-The port writes local paths only, through ``os`` and pyarrow: a remote
-target raises a ``ValueError`` until the object-store client is ported
-(ROADMAP, Queue 1, item 9). Left out: ``write_parquet_any``, which only the
-lake writers (the same item) call.
+Targets are local paths or object-store urls (``s3://``, ``gs://``, ...):
+every byte goes through ``io.object_store.STORAGE``, so the client that
+serves the reads serves the writes. A local file streams to disk; a remote
+one is encoded into one buffer and put (multipart above the store's
+threshold). ``write_parquet_any`` writes one parquet file either way for
+the lake writers (io/catalogs.py).
 """
 
 from __future__ import annotations
 
+import io
 import json
-import os
 import uuid
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -28,37 +30,60 @@ import pyarrow.parquet as papq
 from ..schema import Field, Schema
 from ..series import Series
 from ..table import Table
-from .object_store import check_local_path
+from .object_store import STORAGE
 
 TARGET_FILE_SIZE_BYTES = 512 * 1024 * 1024
 
 
-def _encode_to(path: str, arrow_tbl: pa.Table, format: str,
+def write_parquet_any(path: str, arrow_tbl: pa.Table) -> int:
+    """ONE parquet file to a local path (streamed to disk) or an object-store
+    url (buffered once, put without a copy); returns the encoded size."""
+    import os
+
+    if STORAGE.is_remote(path):
+        buf = io.BytesIO()
+        papq.write_table(arrow_tbl, buf)
+        view = buf.getbuffer()
+        STORAGE.put(path, view)
+        return len(view)
+    lp = STORAGE._local(path)
+    os.makedirs(os.path.dirname(lp) or ".", exist_ok=True)
+    papq.write_table(arrow_tbl, lp)
+    return os.path.getsize(lp)
+
+
+def _encode_to(sink, arrow_tbl: pa.Table, format: str,
                compression: Optional[str]) -> None:
+    """``sink`` is a path (streamed to disk) or a file-like (buffered)."""
     if format == "parquet":
-        papq.write_table(arrow_tbl, path, compression=compression or "snappy")
+        papq.write_table(arrow_tbl, sink, compression=compression or "snappy")
     elif format == "csv":
-        pacsv.write_csv(arrow_tbl, path)
+        pacsv.write_csv(arrow_tbl, sink)
     elif format == "json":
         cols = arrow_tbl.to_pydict()
         names = list(cols)
         text = "".join(json.dumps(dict(zip(names, row)), default=str) + "\n"
                        for row in (zip(*cols.values()) if names else []))
-        with open(path, "wb") as f:
-            f.write(text.encode())
+        data = text.encode()
+        if isinstance(sink, str):
+            with open(sink, "wb") as f:
+                f.write(data)
+        else:
+            sink.write(data)
     else:
         raise ValueError(f"unknown write format {format!r}")
 
 
-def _local(path: str) -> str:
-    """A local path, without its ``file://`` scheme (the manifest keeps it)."""
-    return path[len("file://"):] if path.startswith("file://") else path
-
-
 def _write_one(arrow_tbl: pa.Table, root: str, format: str,
                compression: Optional[str], idx: int) -> str:
-    path = os.path.join(root, f"{uuid.uuid4().hex[:16]}-{idx}.{format}")
-    _encode_to(_local(path), arrow_tbl, format, compression)
+    path = STORAGE.join(root, f"{uuid.uuid4().hex[:16]}-{idx}.{format}")
+    if STORAGE.is_remote(path):
+        buf = io.BytesIO()
+        _encode_to(buf, arrow_tbl, format, compression)
+        # a view of the buffer, not a copy (a multipart put slices views too)
+        STORAGE.put(path, buf.getbuffer())
+    else:
+        _encode_to(STORAGE._local(path), arrow_tbl, format, compression)
     return path
 
 
@@ -68,8 +93,7 @@ def write_tabular(tbl: Table, root_dir: str, format: str = "parquet",
                   target_file_size: int = TARGET_FILE_SIZE_BYTES) -> Table:
     """Write a table under ``root_dir``; returns the manifest table (a
     ``path`` column, plus the partition key columns when hive-partitioning)."""
-    check_local_path(root_dir)
-    os.makedirs(_local(root_dir), exist_ok=True)
+    STORAGE.makedirs(root_dir)
     paths: List[str] = []
     part_vals: List[Dict[str, Any]] = []
 
@@ -77,9 +101,9 @@ def write_tabular(tbl: Table, root_dir: str, format: str = "parquet",
         parts, uniq = tbl.partition_by_value(list(partition_cols))
         key_names = uniq.column_names
         for part, keyrow in zip(parts, uniq.to_pylist()):
-            subdir = os.path.join(root_dir,
+            subdir = STORAGE.join(root_dir,
                                   *[f"{k}={_hive_value(v)}" for k, v in keyrow.items()])
-            os.makedirs(_local(subdir), exist_ok=True)
+            STORAGE.makedirs(subdir)
             keep = [c for c in part.column_names if c not in key_names] or part.column_names
             body = part.select_columns(keep)
             for i, chunk in enumerate(_split_by_size(body, target_file_size)):

@@ -25,8 +25,11 @@ cache's binding and the key of ``DataFrame.collect``'s whole-plan result
 cache (``PartitionSetCache``). A scan keys on each task's file, its mtime
 and size, format, pushdowns, schema and options (``_scan_task_key``, also
 the sub-plan result cache's key), so an overwritten file never serves a
-cached plan or result. Left out of this slice: the factory-scan branch of
-the key (io/pyscan), and the distributed runner.
+cached plan or result. A task whose path cannot be stat'ed (an
+object-store url) and a ``FactoryScanTask`` (io/pyscan.py, a Python
+callable, whose identity cannot be fingerprinted) make the plan
+uncacheable in all three caches. Left out of this slice: the distributed
+runner.
 """
 
 from __future__ import annotations
@@ -143,8 +146,12 @@ def _scan_task_key(t) -> str:
     """The exact key of one scan task: path, mtime and size, format,
     pushdowns, row groups, partition values, reader options and schema (the
     same file read with another delimiter or schema hint is another key)."""
+    from .io.pyscan import FactoryScanTask
     from .io.scan import MergedScanTask
 
+    if isinstance(t, FactoryScanTask):
+        # two factories sharing a stat-able label must never collide
+        raise _Uncacheable
     if isinstance(t, MergedScanTask):
         # every child's file: the merged task's path is its first child's
         return "+".join(_scan_task_key(c) for c in t.children)

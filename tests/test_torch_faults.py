@@ -110,9 +110,9 @@ def test_sites_are_the_four_the_port_wires():
     # the spill and encode sites, the fourteenth the plan cache's and the
     # fifteenth the scan's and the sub-plan result cache's, the sixteenth the
     # scan readahead's, the eighteenth the batching coalesce's and the model
-    # actors' load, the twenty-first the mesh exchange's, each wired as the
-    # reference wires it
-    assert set(faults.SITES) == {"collective.exchange",
+    # actors' load, the twenty-first the mesh exchange's, the twenty-second
+    # the object store's read, each wired as the reference wires it
+    assert set(faults.SITES) == {"io.get", "collective.exchange",
                                  "device.kernel", "fuse.compile", "fuse.segment", "join.filter",
                                  "spill.write", "spill.readback", "spill.corrupt",
                                  "exchange.encode", "plancache.lookup", "scan.read",

@@ -330,16 +330,39 @@ def test_a_file_url_target_writes_locally(tmp_path):
     assert got == ref == (1, {"a": [1, 2]})
 
 
-def test_a_remote_target_raises(tmp_path):
-    # the port only: the reference would open a connection
-    df = daft_tpu_torch.from_pydict({"a": [1]})
-    for fmt in FORMATS:
-        with pytest.raises(ValueError, match="Queue 1, item 9"):
-            getattr(df, f"write_{fmt}")("s3://bucket/out")
-    from daft_tpu_torch.io.writer import write_tabular
+def test_a_remote_target_raises(tmp_path, monkeypatch):
+    # a remote target goes to the object-store client since ROADMAP Queue 1
+    # item 9 (tests/test_torch_object_store.py writes to a mock store); a
+    # store that refuses the connection raises the reference's transient
+    # error from both packages, after the same retries
+    import socket
 
-    with pytest.raises(ValueError, match="Queue 1, item 9"):
-        write_tabular(daft_tpu_torch.Table.from_pydict({"a": [1]}), "gs://b/o")
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    endpoint = f"http://127.0.0.1:{s.getsockname()[1]}"
+    s.close()
+    monkeypatch.setenv("AWS_ENDPOINT_URL", endpoint)
+    monkeypatch.setenv("GCS_ENDPOINT_URL", endpoint)
+
+    def run(pkg):
+        io_stats = _sub(pkg, "io.scan").IO_STATS
+        io_stats.reset()
+        seen = []
+        df = pkg.from_pydict({"a": [1]})
+        for fmt in FORMATS:
+            with pytest.raises(_sub(pkg, "io.object_store").TransientIOError) as err:
+                getattr(df, f"write_{fmt}")("s3://bucket/out")
+            seen.append(str(err.value).split(":", 1)[0])
+        with pytest.raises(_sub(pkg, "io.object_store").TransientIOError) as err:
+            _sub(pkg, "io.writer").write_tabular(_sub(pkg, "table").Table.from_pydict({"a": [1]}),
+                                                 "gs://b/o")
+        seen.append(str(err.value).split(":", 1)[0])
+        return seen, io_stats.snapshot()["retries"]
+
+    ref, got = both(run)
+    assert got == ref
+    assert got[1] == 4 * (len(FORMATS) + 1)
+    assert all(m.startswith("PUT ") for m in got[0])
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,10 @@ Scenarios:
 - ``four`` (4 processes, 2 slots each): a string shuffle and a grouped
   aggregate against an exact oracle.
 - ``probe``: the raw collectives, ``all_to_all_single`` and ``all_gather``.
+- ``lake`` (2 processes, 4 slots each): the Iceberg table at
+  ``TORCH_MH_LAKE`` read through ``read_iceberg`` and summed by key through
+  the exchange (its rows printed, and the data files each process opened),
+  and a ScanOperator of 4 factory fragments grouped likewise.
 
 Each check prints a marker line the parent reads. The worker imports the
 port and benchmarks/tpch.py's generator and oracles (pyarrow only), never
@@ -249,6 +253,44 @@ def four() -> None:
     done("MULTIHOST4_OK", shuffles=exchanges(coll))
 
 
+def lake() -> None:
+    from daft_tpu_torch.io.pyscan import FactoryScanTask, ScanOperator
+    from daft_tpu_torch.schema import Field, Schema
+    import pyarrow as pa
+
+    mesh = global_mesh(4)
+    use_mesh(mesh)
+    before = files_opened()
+    res = (dtt.read_iceberg(os.environ["TORCH_MH_LAKE"]).repartition(8, "k")
+           .groupby("k").agg(col("v").sum().alias("s")).sort("k")).collect()
+    opened = opened_since(before)
+    assert exchanges(res) >= 1, res.stats.snapshot()
+    print("LAKE_ICEBERG_ROWS " + json.dumps(res.to_pydict()), flush=True)
+    done("LAKE_ICEBERG_OK", opened=opened)
+
+    schema = Schema([Field("a", dtt.DataType.int64()), Field("s", dtt.DataType.string())])
+
+    class Op(ScanOperator):
+        def schema(self):
+            return schema
+
+        def to_scan_tasks(self, pushdowns):
+            for i in range(4):
+                def factory(pd, _i=i):
+                    return pa.table({
+                        "a": pa.array([_i * 25 + j for j in range(25)], pa.int64()),
+                        "s": pa.array([f"r{_i}-{j}" for j in range(25)])})
+
+                yield FactoryScanTask(factory, schema, pushdowns, num_rows=25,
+                                      label=f"frag-{i}")
+
+    res = (dtt.from_scan_operator(Op()).with_column("g", col("a") % 3)
+           .groupby("g").agg(col("a").sum().alias("s")).sort("g")).collect()
+    assert exchanges(res) >= 1, res.stats.snapshot()
+    print("LAKE_FACTORY_ROWS " + json.dumps(res.to_pydict()), flush=True)
+    done("LAKE_FACTORY_OK")
+
+
 def probe() -> None:
     world = dist.get_world_size()
     x = torch.arange(world * 2, dtype=torch.int32) + 100 * pid
@@ -264,6 +306,6 @@ def probe() -> None:
 
 
 try:
-    {"main": main, "four": four, "probe": probe}[scenario]()
+    {"main": main, "four": four, "probe": probe, "lake": lake}[scenario]()
 finally:
     shutdown_distributed()
