@@ -261,6 +261,17 @@ Phases, each of which fails the run:
      each read back through Q1; a ScanOperator of the file's row groups
      through Q1; IO_BLOBS objects through url.upload and url.download,
      equal to the bytes put.
+ 20. the approximate aggregations and the images around K1 (needs SF1 in
+     --scales; phase_sketch_image), over phase 7's SF1 tables: K9 alone at
+     the operands of approx_count_distinct(l_orderkey) by (l_shipmode,
+     l_returnflag), bit for bit against the host registers; the dashboard
+     (Q1's sums through K1 joined to three approximate distinct counts,
+     K9 on every partition) over into_partitions(8) against pyarrow and
+     the host path; approx_percentiles by l_shipmode; the mesh's register
+     merge under MeshRunner; the fault sites device.kernel, collective.sketch
+     and sketch.merge; K11 over 4,096 RGB 256 x 256 images (and RGB16 and
+     RGB32F batches) against its plain version on the CPU; and, where PIL
+     imports, the LAION pipeline over JPEGs served on 127.0.0.1.
 
 Every phase runs under the port's defaults: one worker thread per core
 (executor_threads 0) and the morsel pipeline on. The legs whose held counts
@@ -276,14 +287,15 @@ partition on the partition path and in the CPU tests, whose partitions are
 all smaller) and no *_dispatches unit, and the leg holds them, with
 stream_morsels, at those values.
 
-Phases 8-11, phase 15 but its SF1 SQL leg, and phases 16 to 18 run after
-phase 7 and before phase 4, while the 22-query tables are still being
-generated (BackgroundTables: a process on a core of its own, this
-process's threads on the others until the tables are read); phase 19 runs
+Phases 8-11, phase 15 but its SF1 SQL leg, phases 16 to 18 and phase 20
+run after phase 7 and before phase 4, while the 22-query tables are still
+being generated (BackgroundTables: a process on a core of its own, this
+process's threads on the others until the tables are read; it makes phase
+3's SF10 join tables first, where its temporary directory has room); phase 19 runs
 last, after phase 15's SF1 SQL leg. Phases 1-10 turn feedback-directed
 planning and the whole-plan result cache off (PLAN_PINS): each times its
-plans as written. Every query of phases 1-7 and 9-19 (but the ids' Q6
-and largest id and the fault cases of phases 10-13 and 16) is held
+plans as written. Every query of phases 1-7 and 9-20 (but the ids' Q6
+and largest id and the fault cases of phases 10-13, 16 and 20) is held
 to 0 device_attempt_failures, device_breaker_trips, degraded_completions,
 faults_injected, join_filter_errors and every *_fallbacks counter (phase
 18's armed leg aside; Phases.watch reads them as collect() returns, and each
@@ -1818,7 +1830,7 @@ def join_breakdown(run, reps: int = 3) -> dict:
 
 
 def phase_joins(ph: Phases, scale: float, card: str, profile: bool,
-                keep_tables: bool = False) -> dict:
+                keep_tables: bool = False, tables=None) -> dict:
     """Phase 3, the join path at one scale factor: TPC-H Q3 and Q5 over one
     set of tables (generate_tables(scale, seed=42)), each driven once cold
     with every kernel's launch count set to 0 just before and read just
@@ -1828,7 +1840,8 @@ def phase_joins(ph: Phases, scale: float, card: str, profile: bool,
     version bit for bit at those operands, and the scatter kernel is timed
     there. With ``keep_tables`` the host tables come back as
     ``out["tables"]`` (phases 6 and 7 run Q3 over them) and Q3's oracle as
-    ``out["q3_oracle"]``."""
+    ``out["q3_oracle"]``. ``tables``, when given, are those tables, made
+    elsewhere (BackgroundTables)."""
     import torch
 
     import daft_tpu_torch as dtt
@@ -1838,8 +1851,11 @@ def phase_joins(ph: Phases, scale: float, card: str, profile: bool,
     from daft_tpu_torch.kernels import segment_sums as ss
 
     t0 = time.perf_counter()
-    tables = tpch.generate_tables(scale=scale, seed=42)
-    print(f"SF{scale:g}: tables generated in {time.perf_counter() - t0:.1f}s ("
+    where = "read from the background process"
+    if tables is None:
+        tables = tpch.generate_tables(scale=scale, seed=42)
+        where = "generated"
+    print(f"SF{scale:g}: tables {where} in {time.perf_counter() - t0:.1f}s ("
           + ", ".join(f"{k} {v.num_rows}" for k, v in tables.items()) + ")", flush=True)
     frames = {k: dtt.from_arrow(v).collect() for k, v in tables.items()}
     want = {"q3": tpch.oracle_q3(*[tables[a] for a in JOIN_QUERIES["q3"][1]]),
@@ -2002,30 +2018,45 @@ TPCH22_COUNTERS = ("device_aggregations", "host_aggregations", "device_agg_fallb
                    "shuffles") + ROUTE_COUNTERS
 
 
-def _generate_into(queue, out_dir: str, scale: float, seed: int, groups: int) -> None:
-    """Target of the background process: generate the TPC-H tables; write
-    each as an uncompressed arrow IPC file into ``out_dir`` (phases 4-19
-    read them), then as a parquet file of ``groups`` row groups (phase 12's
-    scans, phase 19's lake tables); run the 22 queries through the port's
-    host path over them (phase 4's reference rows, ``host_rows.pickle``);
-    and send one small message with the times (wall clock) at which each
-    step ended, or the error."""
+def _write_ipc(path: str, tbl) -> None:
+    import pyarrow as pa
+
+    with pa.OSFile(path, "wb") as sink:
+        with pa.ipc.new_file(sink, tbl.schema) as writer:
+            writer.write_table(tbl)
+
+
+def _generate_into(queue, out_dir: str, scale: float, seed: int, groups: int,
+                   join_scales=()) -> None:
+    """Target of the background process: first, for each of
+    ``join_scales``, phase 3's join tables (benchmarks/tpch.generate_tables
+    at that scale, seed 42) as arrow IPC files, each scale announced by a
+    message; then generate the TPC-H tables; write each as an uncompressed
+    arrow IPC file into ``out_dir`` (phases 4-19 read them), then as a
+    parquet file of ``groups`` row groups (phase 12's scans, phase 19's lake
+    tables); run the 22 queries through the port's host path over them
+    (phase 4's reference rows, ``host_rows.pickle``); and send one small
+    message with the times (wall clock) at which each step ended, or the
+    error."""
     import pickle
     import traceback as tb
 
     try:
-        import pyarrow as pa
         import pyarrow.parquet as papq
 
         import daft_tpu_torch as dtt
-        from benchmarks import tpch_full
+        from benchmarks import tpch, tpch_full
 
+        for js in join_scales:
+            joined = tpch.generate_tables(scale=js, seed=42)
+            for name, tbl in joined.items():
+                _write_ipc(f"{out_dir}/join_{js:g}_{name}.arrow", tbl)
+            queue.put({"join_scale": js, "names": list(joined), "at": time.time()})
+            del joined
         tables = tpch_full.generate(scale=scale, seed=seed)
         times = {"generated_at": time.time()}
         for name, tbl in tables.items():
-            with pa.OSFile(f"{out_dir}/{name}.arrow", "wb") as sink:
-                with pa.ipc.new_file(sink, tbl.schema) as writer:
-                    writer.write_table(tbl)
+            _write_ipc(f"{out_dir}/{name}.arrow", tbl)
         times["written_at"] = time.time()
         for name, tbl in tables.items():
             papq.write_table(tbl, f"{out_dir}/{name}.parquet",
@@ -2049,7 +2080,11 @@ class BackgroundTables:
     """Phase 4's SF1 tables (``benchmarks.tpch_full.generate``), their
     parquet files and the host path's rows of the 22 queries over them,
     made by a spawned process while the earlier phases run: its per-row
-    Python loops take about two minutes at SF1. The process runs on a core
+    Python loops take about two minutes at SF1. Before them it makes phase
+    3's join tables of ``join_scales`` (SF10's take about 40 s), which
+    ``join_tables`` reads, and deletes the files of, as soon as they are
+    written (SF10's take about 6.5 GB of the temporary directory, whose
+    free bytes it prints at the start). The process runs on a core
     of its own (the last this process may use) and this process's threads
     on the others until it is done (``_watch``), so that it never waits on
     the phases' threads, nor they on it. The tables come back as arrow IPC
@@ -2059,17 +2094,24 @@ class BackgroundTables:
     hold the rest. ``stop`` stops the process in any case and removes the
     directory."""
 
-    def __init__(self, scale: float, seed: int, groups: int):
+    def __init__(self, scale: float, seed: int, groups: int, join_scales=()):
         import multiprocessing
         import os
+        import shutil
         import tempfile
         import threading
 
         self.dir = tempfile.mkdtemp(prefix="chip_smoke_tables_")
+        print(json.dumps({"tables_dir_free_bytes": shutil.disk_usage(self.dir).free}),
+              flush=True)
+        self.join_scales = list(join_scales)
+        self.joins = {}  # join scale -> its message, once written
+        self.joins_ready = {js: threading.Event() for js in self.join_scales}
         ctx = multiprocessing.get_context("spawn")
         self.queue = ctx.Queue()
         self.proc = ctx.Process(target=_generate_into,
-                                args=(self.queue, self.dir, scale, seed, groups), daemon=True)
+                                args=(self.queue, self.dir, scale, seed, groups,
+                                      self.join_scales), daemon=True)
         self.started = time.perf_counter()
         self.started_wall = time.time()
         self.proc.start()
@@ -2096,17 +2138,50 @@ class BackgroundTables:
                 pass
 
     def _watch(self) -> None:
-        """Wait for the process's message; give this process every core
-        back as soon as it comes."""
+        """Wait for the process's messages (each join scale's, then the
+        last); give this process every core back as soon as the last
+        comes."""
         import queue
 
-        try:
-            self.msg = self.queue.get(timeout=1500)
-        except queue.Empty:
-            self.msg = {"error": "the background process sent nothing in 1500 s"}
+        while True:
+            try:
+                msg = self.queue.get(timeout=1500)
+            except queue.Empty:
+                msg = {"error": "the background process sent nothing in 1500 s"}
+            if "join_scale" in msg:
+                self.joins[msg["join_scale"]] = msg
+                self.joins_ready[msg["join_scale"]].set()
+                continue
+            self.msg = msg
+            break
+        for ev in self.joins_ready.values():  # a failure wakes every waiter
+            ev.set()
         self.done_at = time.perf_counter() - self.started
         if self.pinned:
             self._pin_own_threads(set(self.cores))
+
+    def join_tables(self, scale: float, timeout: float = 600.0):
+        """Phase 3's join tables at ``scale`` from the process (None at a
+        scale it does not make, SF1, whose tables phase 3 generates
+        itself); their files are deleted once read."""
+        import os
+
+        import pyarrow as pa
+
+        if scale not in self.joins_ready:
+            return None
+        self.joins_ready[scale].wait(timeout)
+        msg = self.joins.get(scale)
+        if msg is None:
+            raise RuntimeError("the background process made no SF%g join tables: %s"
+                               % (scale, (self.msg or {}).get("error", f"none in {timeout} s")))
+        tables = {}
+        for name in msg["names"]:
+            path = f"{self.dir}/join_{scale:g}_{name}.arrow"
+            with pa.OSFile(path, "rb") as source:
+                tables[name] = pa.ipc.open_file(source).read_all()
+            os.remove(path)
+        return tables
 
     def get(self, timeout: float = 900.0) -> dict:
         import pickle
@@ -7075,6 +7150,510 @@ def phase_io(ph: Phases, files: ParquetFiles, lineitem, oracles: dict, card: str
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: approximate aggregations (K9, the register merge) and images (K11)
+# ---------------------------------------------------------------------------
+
+SKETCH_PARTS = 8         # phase 20 (b)-(e): into_partitions(8) of SF1 lineitem
+K11_IMAGES = 4096        # phase 20 (f): RGB 256 x 256 images resized to 224 x 224
+K11_PARTS = 4
+K11_PLAIN_IMAGES = 512   # (f)'s subset held against the plain version on the CPU
+LAION_IMAGES = 2048      # phase 20 (g): JPEGs served on 127.0.0.1
+LAION_PLAIN_IMAGES = 256
+H100_FP64_TC_FLOPS = 67e12  # fp64 on the tensor cores, H100 SXM data sheet
+
+
+# an HLL estimate's relative gap to the exact count is held to three standard
+# errors (3 x 1.04/sqrt(16384), 2.44 %): two (1.63 %) is a 95 % band, and SF1's
+# l_orderkey lands past it in both packages (1.88 % by flag and status, 2.05 %
+# globally; the reference's registers are the same bit for bit), as 20 other
+# 64-bit mixes of SF1's l_orderkey, l_partkey and l_suppkey reach up to 1.98 %
+# (tools/hll_spread.py)
+HLL_SIGMAS = 3
+
+
+def _hll_bound(rel_gap: float) -> bool:
+    from daft_tpu_torch.sketch import HLL_STANDARD_ERROR
+
+    return rel_gap <= HLL_SIGMAS * HLL_STANDARD_ERROR
+
+
+def dashboard(frame, col):
+    """Phase 20 (b): per (l_returnflag, l_linestatus) the sums and count of
+    Q1's dashboard joined to the approximate distinct orders, parts and
+    suppliers."""
+    keys = ["l_returnflag", "l_linestatus"]
+    sums = frame.groupby(*keys).agg(col("l_quantity").sum().alias("sum_qty"),
+                                    col("l_extendedprice").sum().alias("sum_price"),
+                                    col("l_quantity").count().alias("count_order"))
+    return sums.join(distincts(frame, col), on=keys).sort(keys)
+
+
+def distincts(frame, col):
+    return frame.groupby("l_returnflag", "l_linestatus").agg(
+        col("l_orderkey").approx_count_distinct().alias("orders"),
+        col("l_partkey").approx_count_distinct().alias("parts"),
+        col("l_suppkey").approx_count_distinct().alias("suppliers"))
+
+
+def phase_sketch_image(ph: Phases, tables: dict, card: str) -> dict:
+    """Phase 20: the approximate aggregations and the images, in the 32-bit
+    mode over phase 7's SF1 tables (generate_tables(1.0, seed=42)), each leg
+    cold and, where it prints a warm time, warm once.
+    (a) K9 alone at the operands of approx_count_distinct(l_orderkey) by
+    (l_shipmode, l_returnflag) (21 groups, 344,064 slots): equal to the host
+    build_grouped_registers bit for bit; CUDA events, 20 launches.
+    (b) the dashboard over into_partitions(8): the sums through K1 (one
+    launch a partition) at RTOL against pyarrow, the distinct side's stage 1
+    all HLL (K9 on every partition, device_sketch_builds 8), its estimates
+    equal to the host path's (use_device_kernels=False) and within
+    HLL_SIGMAS x 1.04/sqrt(16384) of pyarrow's exact count_distinct, the
+    sketch side's exchange_rows at most partitions x groups.
+    (c) approx_percentiles(l_extendedprice, [0.5, 0.9, 0.99]) by l_shipmode
+    over 8 partitions (stage 1 on the host): each group's rank error within
+    1/4096 against numpy's exact ranks, equal to the host path's on one
+    thread (on the pool the host path builds stage 1 a morsel, and a
+    quantile merge of more pieces compresses differently, within its rank
+    error).
+    (d) MeshRunner on default_mesh(8): a global approx_count_distinct of
+    l_orderkey over repartition(8), collective_sketch_merges 1 and the
+    register merge once on the card, equal to NativeRunner's estimate.
+    (e) faults (outside the zero-failure checks): device.kernel armed once
+    at a K9 launch (device_sketch_builds 7, the same estimates),
+    collective.sketch armed (the host merge, the same estimate), sketch.merge
+    armed first_n 1 (DaftTransientError, the ledger back at 0, then the same
+    rows from a fresh run, one injection).
+    (f) K11: 4,096 seeded RGB 256 x 256 images in a FixedShapeImage column
+    over 4 partitions, image.resize(224, 224), then a cast to
+    tensor(uint8, (224, 224, 3)): one K11 launch a partition, the first 512
+    images within one count of the plain version on the CPU; an RGB16
+    variable-shape batch (64 images, one launch each) within one count and
+    an RGB32F fixed batch (256 images, 128 -> 64) within rtol 1e-5 of the
+    CPU; one full chunk (2,048 images) timed by CUDA events.
+    (g) where PIL imports: 2,048 JPEGs (benchmarks/laion.make_jpegs, encoded
+    on a thread of their own from the start of the phase) served on
+    127.0.0.1, url.download -> image.decode(mode="RGB") -> the fixed
+    shape -> resize(224, 224) -> tensor, the first 256 within one count of
+    the same pipeline on the CPU."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import torch
+
+    import daft_tpu_torch as dtt
+    from daft_tpu_torch import DataType, Series, col, faults, multimodal as mm
+    from daft_tpu_torch.errors import DaftTransientError
+    from daft_tpu_torch.kernels import fused_expr_sums as fes
+    from daft_tpu_torch.kernels import scatter_sums as scs
+    from daft_tpu_torch.kernels import segment_sums as ss
+    from daft_tpu_torch.parallel import collectives as coll
+    from daft_tpu_torch.parallel import default_mesh
+    from daft_tpu_torch.runners import MeshRunner, NativeRunner
+    from daft_tpu_torch.sketch import HLL_M, device as k9, hll
+    from daft_tpu_torch.spill import MEMORY_LEDGER
+    from daft_tpu_torch.table import Table, _group_codes
+
+    t_phase = time.perf_counter()
+    out = {"k1_launches": 0, "k2_launches": 0, "scatter_launches": 0, "k9_launches": 0,
+           "k11_launches": 0, "merge_launches": 0, "card": card}
+    dtt.set_execution_config(config())
+    dev = torch.device(dtt.get_context().execution_config.device)
+    li = tables["lineitem"]
+    try:  # (g)'s JPEGs are encoded on a thread of their own while (a)-(f) run
+        import PIL  # noqa: F401
+
+        import concurrent.futures
+
+        from benchmarks import laion
+
+        jpeg_pool = concurrent.futures.ThreadPoolExecutor(1, thread_name_prefix="phase20-jpegs")
+        jpegs = jpeg_pool.submit(laion.make_jpegs, LAION_IMAGES, 256, 0)
+        jpeg_pool.shutdown(wait=False)
+    except ImportError:
+        jpegs = None
+
+    def zero():
+        ss.LAUNCHES = fes.LAUNCHES = scs.LAUNCHES = 0
+        k9.LAUNCHES = mm.LAUNCHES = coll.REGISTER_MERGE_LAUNCHES = 0
+
+    def launches():
+        return {"k1": ss.LAUNCHES, "k2": fes.LAUNCHES, "scatter": scs.LAUNCHES,
+                "k9": k9.LAUNCHES, "k11": mm.LAUNCHES,
+                "merge": coll.REGISTER_MERGE_LAUNCHES}
+
+    def count(launch):
+        for k in ("k1", "k2", "scatter", "k9", "k11", "merge"):
+            out[f"{k}_launches"] += launch[k]
+
+    def run(make_df, **kw):
+        """make_df() collected under config(**kw): (dict, seconds, launches,
+        counters)."""
+        dtt.set_execution_config(config(**kw))
+        zero()
+        t = time.perf_counter()
+        df = make_df().collect()
+        got = df.to_pydict()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        return got, secs, launches(), df.stats.snapshot()["counters"]
+
+    # (a) K9 alone at the operands of the distinct count by ship mode and flag
+    key_tbl = Table.from_arrow(li.select(["l_shipmode", "l_returnflag"]))
+    codes, uniq = _group_codes(key_tbl)
+    g = len(uniq)
+    okey = li.column("l_orderkey")
+    gcodes, idx, rank = hll.scatter_operands(okey, codes)
+    t = time.perf_counter()
+    host = hll.build_grouped_registers(okey, codes, g)
+    plain_s = time.perf_counter() - t
+    total = g * HLL_M
+    seg, rk = k9.stage_operands(gcodes, idx, rank, dev)  # as the engine stages them
+    regs = k9.register_scatter(seg, rk, total)
+    got_regs = regs.cpu().numpy().reshape(g, HLL_M)
+    same = np.array_equal(got_regs, host)
+    k9_ms = cuda_ms(lambda: k9.register_scatter(seg, rk, total), iters=20)
+    # the library call on the same staged operands, with K9's casts
+    lib_ms = cuda_ms(lambda: torch.zeros(total, dtype=torch.int32, device=dev).index_reduce_(
+        0, seg.to(torch.int64), rk.to(torch.int32), "amax").to(torch.uint8), iters=20)
+    n_rows = int(seg.shape[0])
+    k9_entry = {"name": "hll_register_scatter", "route": "torch",
+                "source": "daft_tpu_torch/sketch/device.py",
+                "replaces": "daft_tpu/sketch/device.py:27",
+                "max_abs_err": int(np.abs(got_regs.astype(np.int16) - host).max()),
+                "ms": k9_ms, "plain_ms": plain_s * 1e3,
+                **bound(n_rows * (4 + 1) + total, 0), "library_ms": lib_ms,
+                "rows": n_rows, "groups": g, "slots": total, "card": card}
+    k9_entry["x_bound"] = k9_ms / k9_entry["bound_ms"]
+    ph.check(same and g == 21 and total == 344_064,
+             f"SF1 sketch (a) K9 over {n_rows} rows into {g} groups x {HLL_M} = {total} slots: "
+             f"equal to the host build bit for bit; {k9_ms:.4f} ms a launch against a "
+             f"{k9_entry['bound_ms']:.4f} ms bound (index_reduce_ {lib_ms:.4f} ms, the host "
+             f"build {plain_s * 1e3:.1f} ms)")
+    print("SF1 sketch K9 " + json.dumps(k9_entry), flush=True)
+    del seg, rk, regs, host, got_regs, gcodes, idx, rank, codes
+
+    # (b) the dashboard over 8 partitions: K1 beside K9
+    li8 = dtt.from_arrow(li.select(["l_returnflag", "l_linestatus", "l_quantity",
+                                    "l_extendedprice", "l_orderkey", "l_partkey",
+                                    "l_suppkey", "l_shipmode"])
+                         ).into_partitions(SKETCH_PARTS).collect()
+    keys = ["l_returnflag", "l_linestatus"]
+    exact = li.group_by(keys).aggregate([
+        ("l_quantity", "sum"), ("l_extendedprice", "sum"), ("l_quantity", "count"),
+        ("l_orderkey", "count_distinct"), ("l_partkey", "count_distinct"),
+        ("l_suppkey", "count_distinct")]).sort_by([(k, "ascending") for k in keys]).to_pydict()
+    got, cold, launch, c = run(lambda: dashboard(li8, col))
+    count(launch)
+    _, warm, _, _ = run(lambda: dashboard(li8, col))
+    host_got, host_s, _, hc = run(lambda: dashboard(li8, col), use_device_kernels=False)
+    groups = len(exact["l_returnflag"])
+    sums_ok = (got["l_returnflag"] == exact["l_returnflag"]
+               and got["l_linestatus"] == exact["l_linestatus"]
+               and parity({"q": got["sum_qty"], "p": got["sum_price"]},
+                          {"q": exact["l_quantity_sum"], "p": exact["l_extendedprice_sum"]}, RTOL)
+               and got["count_order"] == exact["l_quantity_count"])
+    gaps = {}
+    for name, src in (("orders", "l_orderkey"), ("parts", "l_partkey"), ("suppliers", "l_suppkey")):
+        want = np.asarray(exact[f"{src}_count_distinct"], dtype=np.float64)
+        gaps[name] = float(np.max(np.abs(np.asarray(got[name], dtype=np.float64) - want) / want))
+    est_equal = all(got[k] == host_got[k] for k in ("orders", "parts", "suppliers"))
+    routes = {"device_sketch_builds": c.get("device_sketch_builds", 0),
+              "device_sketch_fallbacks": c.get("device_sketch_fallbacks", 0),
+              "k1": launch["k1"], "k9": launch["k9"],
+              "host_device_sketch_builds": hc.get("device_sketch_builds", 0)}
+    out["dashboard"] = {"cold_s": cold, "warm_s": warm, "host_path_s": host_s,
+                        "rel_gaps": gaps, "routes": routes, "launches": launch, "card": card}
+    ph.check(sums_ok and est_equal and all(_hll_bound(v) for v in gaps.values())
+             and routes["device_sketch_builds"] == SKETCH_PARTS
+             and routes["device_sketch_fallbacks"] == 0 and launch["k1"] == SKETCH_PARTS
+             and launch["k9"] == 3 * SKETCH_PARTS
+             and routes["host_device_sketch_builds"] == 0,
+             f"SF1 sketch (b) the dashboard over {SKETCH_PARTS} partitions: sums at RTOL "
+             f"against pyarrow, estimates equal to the host path's and within "
+             f"{max(gaps.values()):.4%} of pyarrow's exact count_distinct ({HLL_SIGMAS} "
+             f"standard errors: {HLL_SIGMAS * 1.04 / 128:.4%}), routes {routes}; "
+             f"cold {cold:.3f}s, warm {warm:.3f}s (host path {host_s:.3f}s)")
+    print("SF1 sketch dashboard " + json.dumps(out["dashboard"]), flush=True)
+
+    # (c) approx_percentiles by ship mode, stage 1 on the host
+    qs = [0.5, 0.9, 0.99]
+
+    def pct():
+        return li8.groupby("l_shipmode").agg(
+            col("l_extendedprice").approx_percentiles(qs).alias("p")).sort("l_shipmode")
+
+    pgot, pcold, launch, _ = run(pct)
+    count(launch)
+    _, pwarm, _, _ = run(pct)
+    phost, _, _, _ = run(pct, use_device_kernels=False, **ONE_THREAD)
+    prices = li.column("l_extendedprice").to_numpy()
+    modes = np.asarray(li.column("l_shipmode").to_pylist(), dtype=object)
+    worst = 0.0
+    for m, ests in zip(pgot["l_shipmode"], pgot["p"]):
+        v = np.sort(prices[modes == m])
+        for q, e in zip(qs, ests):
+            worst = max(worst, abs(np.searchsorted(v, e) / len(v) - q))
+    out["percentiles"] = {"cold_s": pcold, "warm_s": pwarm, "worst_rank_error": worst,
+                          "groups": len(pgot["l_shipmode"]), "card": card}
+    ph.check(pgot == phost and worst <= 1.0 / 4096 and len(pgot["l_shipmode"]) == 7,
+             f"SF1 sketch (c) approx_percentiles({qs}) of l_extendedprice by l_shipmode over "
+             f"{SKETCH_PARTS} partitions: equal to the host path's on one thread, the worst "
+             f"rank error "
+             f"{worst * 4096:.3f}/4096; cold {pcold:.3f}s, warm {pwarm:.3f}s")
+
+    # (d) the mesh's register merge
+    ok_frame = dtt.from_arrow(li.select(["l_orderkey"])).collect()
+    ctx = dtt.get_context()
+
+    def global_distinct():
+        return ok_frame.repartition(SKETCH_PARTS).agg(
+            col("l_orderkey").approx_count_distinct().alias("orders"))
+
+    mesh8 = default_mesh(SKETCH_PARTS)
+    try:
+        ctx._runner = MeshRunner(mesh8)
+        mgot, mcold, mlaunch, mc = run(global_distinct)
+        count(mlaunch)
+        _, mwarm, _, _ = run(global_distinct)
+        ctx._runner = NativeRunner()
+        ngot, _, _, _ = run(global_distinct)
+    finally:
+        ctx._runner = None
+    exact_orders = len(pc.unique(li.column("l_orderkey")))
+    mgap = abs(mgot["orders"][0] - exact_orders) / exact_orders
+    out["mesh"] = {"cold_s": mcold, "warm_s": mwarm, "launches": mlaunch,
+                   "collective_sketch_merges": mc.get("collective_sketch_merges", 0),
+                   "device_shuffles": mc.get("device_shuffles", 0), "rel_gap": mgap,
+                   "card": card}
+    ph.check(mgot == ngot and mc.get("collective_sketch_merges", 0) == 1
+             and mlaunch["merge"] == 1 and mlaunch["k9"] == SKETCH_PARTS
+             and mc.get("device_shuffles", 0) == 1 and _hll_bound(mgap),
+             f"SF1 sketch (d) MeshRunner on default_mesh({SKETCH_PARTS}): global "
+             f"approx_count_distinct(l_orderkey) over repartition({SKETCH_PARTS}) "
+             f"{mgot['orders'][0]} equal to NativeRunner's, {mgap:.4%} from the exact "
+             f"{exact_orders}, collective_sketch_merges {out['mesh']['collective_sketch_merges']}, "
+             f"launches {mlaunch}; cold {mcold:.3f}s, warm {mwarm:.3f}s")
+    # the register merge alone, at the mesh's shape (one row a slot)
+    rng = np.random.RandomState(20)
+    rows_np = rng.randint(0, 30, (SKETCH_PARTS, HLL_M)).astype(np.uint8)
+    rows = [torch.from_numpy(r).to(d) for r, d in zip(rows_np, mesh8.devices)]
+    merge = coll.build_register_allmerge(mesh8, HLL_M)
+    merged = merge(rows).cpu().numpy()
+    t = time.perf_counter()
+    want_rows = rows_np.max(axis=0)
+    merge_plain_ms = (time.perf_counter() - t) * 1e3
+    stacked = torch.stack(rows)
+    merge_entry = {"name": "register_allmerge", "route": "torch",
+                   "source": "daft_tpu_torch/parallel/collectives.py",
+                   "replaces": "daft_tpu/parallel/collectives.py:196",
+                   "max_abs_err": int(np.abs(merged.astype(np.int16) - want_rows).max()),
+                   "ms": cuda_ms(lambda: merge(rows), iters=20), "plain_ms": merge_plain_ms,
+                   **bound(SKETCH_PARTS * HLL_M + HLL_M, SKETCH_PARTS * HLL_M),
+                   "library_ms": cuda_ms(lambda: stacked.max(dim=0).values, iters=20),
+                   "slots": SKETCH_PARTS, "card": card}
+    merge_entry["x_bound"] = merge_entry["ms"] / merge_entry["bound_ms"]
+    ph.check(np.array_equal(merged, want_rows),
+             f"SF1 sketch (d) the register merge of {SKETCH_PARTS} rows of {HLL_M}: equal to "
+             f"numpy's max; {merge_entry['ms']:.4f} ms against a "
+             f"{merge_entry['bound_ms']:.6f} ms bound")
+
+    # (e) faults: each site armed, its own counters held
+    ph.begin(None)
+    want_d = {k: got[k] for k in ("orders", "parts", "suppliers")}
+    with faults.inject("device.kernel", "first_n", n=1):
+        fgot, _, flaunch, fc = run(lambda: distincts(li8, col).sort(keys))
+    count(flaunch)
+    ph.check({k: fgot[k] for k in want_d} == want_d
+             and fc.get("device_sketch_builds", 0) == SKETCH_PARTS - 1
+             and fc.get("device_attempt_failures", 0) == 1 and fc.get("faults_injected", 0) == 1,
+             f"SF1 sketch (e) device.kernel armed once: the distinct side's estimates equal "
+             f"(b)'s, device_sketch_builds {fc.get('device_sketch_builds', 0)}, "
+             f"device_attempt_failures {fc.get('device_attempt_failures', 0)}, K9 launches "
+             f"{flaunch['k9']}")
+    try:
+        ctx._runner = MeshRunner(mesh8)
+        with faults.inject("collective.sketch", "always"):
+            cgot, _, claunch, cc = run(global_distinct)
+    finally:
+        ctx._runner = None
+    count(claunch)
+    ph.check(cgot == ngot and cc.get("collective_sketch_merges", 0) == 0
+             and claunch["merge"] == 0,
+             f"SF1 sketch (e) collective.sketch armed: the host merge gives the same estimate "
+             f"{cgot['orders'][0]}, collective_sketch_merges "
+             f"{cc.get('collective_sketch_merges', 0)}")
+    raised = False
+    with faults.inject("sketch.merge", "first_n", n=1):
+        dtt.set_execution_config(config())
+        try:
+            distincts(li8, col).collect()
+        except DaftTransientError:
+            raised = True
+        held = MEMORY_LEDGER.current  # the failed fold's staged pieces released
+        again, _, alaunch, ac = run(lambda: distincts(li8, col))
+        injected = faults.snapshot()["injected"].get("sketch.merge", 0)
+    count(alaunch)
+    order = sorted(range(len(again["orders"])),
+                   key=lambda i: (again["l_returnflag"][i], again["l_linestatus"][i]))
+    xrows = ac.get("exchange_rows", 0)
+    out["dashboard"]["routes"]["sketch_exchange_rows"] = xrows
+    ph.check(raised and {k: [again[k][i] for i in order] for k in want_d} == want_d
+             and injected == 1 and ac.get("device_sketch_builds", 0) == SKETCH_PARTS
+             and xrows <= SKETCH_PARTS * groups and held == 0,
+             f"SF1 sketch (e) sketch.merge armed first_n 1: DaftTransientError "
+             f"{'raised' if raised else 'NOT raised'}, the ledger at {held} after it, a fresh "
+             f"run gives (b)'s estimates "
+             f"with exchange_rows {xrows} (at most partitions x groups, "
+             f"{SKETCH_PARTS * groups}), {injected} injection")
+    ph.begin("phase 20")
+
+    # (f) K11 over 4,096 RGB 256 x 256 images
+    rng = np.random.RandomState(11)
+    side, size = 256, 224
+    per = side * side * 3
+    flat = np.frombuffer(rng.bytes(K11_IMAGES * per), dtype=np.uint8)
+    imgs = flat.reshape(K11_IMAGES, side, side, 3)
+    fsl = pa.FixedSizeListArray.from_arrays(pa.array(flat), per)
+    frame = dtt.from_pydict({"img": Series.from_arrow(
+        fsl, "img", DataType.image("RGB", side, side))}).into_partitions(K11_PARTS).collect()
+
+    def laion_tail(df, src):
+        return (df.select(col(src).image.resize(size, size).alias("r"))
+                .select(col("r").cast(DataType.tensor(DataType.uint8(), (size, size, 3)))
+                        .alias("t")))
+
+    def tensors(d):
+        return np.stack(d["t"]) if isinstance(d["t"], list) else d["t"]
+
+    def run_images(make_df, **kw):
+        dtt.set_execution_config(config(**kw))
+        zero()
+        t = time.perf_counter()
+        df = make_df().collect()
+        arr = df.to_table().get_column("t").to_numpy()
+        torch.cuda.synchronize()
+        return np.stack(arr) if arr.dtype == object else arr, time.perf_counter() - t, launches()
+
+    card_out, fcold, flaunch = run_images(lambda: laion_tail(frame, "img"))
+    count(flaunch)
+    t = time.perf_counter()
+    plain = mm._resize_batch(imgs[:K11_PLAIN_IMAGES], size, size, "cpu")
+    plain_s = time.perf_counter() - t
+    diff = np.abs(card_out[:K11_PLAIN_IMAGES].astype(np.int16) - plain.astype(np.int16))
+    share = float((diff > 0).mean())
+    # RGB16 variable shapes (one launch a row) and RGB32F fixed, card against CPU
+    shapes = [(int(h), int(w)) for h, w in rng.randint(20, 90, (64, 2))]
+    a16 = [rng.randint(0, 65536, (h, w, 3)).astype(np.uint16) for h, w in shapes]
+    s16 = mm.image_series_from_arrays(a16, "i16")
+    a32 = rng.rand(256, 128, 128, 3).astype(np.float32)
+    s32 = Series.from_arrow(pa.FixedSizeListArray.from_arrays(pa.array(a32.reshape(-1)),
+                                                              128 * 128 * 3),
+                            "f32", DataType.image("RGB32F", 128, 128))
+    dtt.set_execution_config(config())
+    zero()
+    r16 = mm.image_series_to_arrays(mm.image_resize(s16, 48, 40))
+    r32 = np.stack(mm.image_series_to_arrays(mm.image_resize(s32, 64, 64)))
+    hb_launch = launches()
+    count(hb_launch)
+    dtt.set_execution_config(config(device="cpu"))
+    c16 = mm.image_series_to_arrays(mm.image_resize(s16, 48, 40))
+    c32 = np.stack(mm.image_series_to_arrays(mm.image_resize(s32, 64, 64)))
+    dtt.set_execution_config(config())
+    d16 = max(int(np.abs(x.astype(np.int64) - y.astype(np.int64)).max()) for x, y in zip(r16, c16))
+    ok32 = bool(np.allclose(r32, c32, rtol=1e-5, atol=1e-6))
+    # one full chunk on the card, its bound, the library call
+    chunk = min(mm._RESIZE_CHUNK, K11_IMAGES)
+    piece = torch.from_numpy(np.require(imgs[:chunk], requirements=["C", "W"])).to(dev)
+    wh = torch.from_numpy(mm._resize_weight_mat(side, size)).to(dev, torch.float64)
+    ww = wh
+    k11_ms = cuda_ms(lambda: mm.resize_chunk(piece, wh, ww, None, 0, 255), iters=3, warmup=1)
+    xf = piece.permute(0, 3, 1, 2).float().contiguous()
+    lib_ms = cuda_ms(lambda: torch.nn.functional.interpolate(
+        xf, size=(size, size), mode="bilinear", antialias=True, align_corners=False),
+        iters=3, warmup=1)
+    # the work the resize needs: each output reads only the nonzero taps of
+    # its weight row (2-3 here), where the dense einsum runs all `side` of
+    # them; the pixels read and written once as uint8
+    taps = int(np.count_nonzero(mm._resize_weight_mat(side, size)))
+    macs = chunk * 3 * (taps * side + size * taps)
+    dense_macs = chunk * 3 * (size * side * side + size * size * side)
+    k11_entry = {"name": "bilinear_resize", "route": "torch",
+                 "source": "daft_tpu_torch/multimodal.py",
+                 "replaces": "daft_tpu/multimodal.py:323",
+                 "max_abs_err": int(diff.max()), "ms": k11_ms, "images": chunk,
+                 "plain_ms": plain_s * 1e3, "plain_images": K11_PLAIN_IMAGES,
+                 **bound(chunk * per + chunk * size * size * 3 + 2 * taps * 4,
+                         2 * macs, H100_FP64_TC_FLOPS),
+                 "library_ms": lib_ms, "taps": taps, "dense_over_needed": dense_macs / macs,
+                 "card": card}
+    k11_entry["x_bound"] = k11_ms / k11_entry["bound_ms"]
+    del piece, xf
+    torch.cuda.empty_cache()
+    out["k11"] = {"cold_s": fcold, "launches": flaunch,
+                  "differing_pixel_share": share, "rgb16_max_diff": d16,
+                  "rgb16_launches": hb_launch["k11"], "card": card}
+    ph.check(card_out.shape == (K11_IMAGES, size, size, 3) and int(diff.max()) <= 1
+             and flaunch["k11"] == K11_PARTS,
+             f"SF1 image (f) {K11_IMAGES} RGB {side}x{side} images over {K11_PARTS} "
+             f"partitions, resize({size}, {size}) then a tensor cast: K11 launches "
+             f"{flaunch['k11']}, the first {K11_PLAIN_IMAGES} within {int(diff.max())} count "
+             f"of the CPU plain version ({share:.3%} of pixels differ); cold {fcold:.3f}s")
+    ph.check(d16 <= 1 and ok32 and hb_launch["k11"] == len(a16) + 1,
+             f"SF1 image (f) RGB16 variable shapes ({len(a16)} images, {hb_launch['k11'] - 1} "
+             f"launches) within {d16} count and RGB32F fixed (256 images, 128 -> 64) within "
+             f"rtol 1e-5 of the CPU")
+    ph.check(k11_ms > 0,
+             f"SF1 image (f) one K11 chunk of {chunk} images: {k11_ms:.3f} ms against a "
+             f"{k11_entry['bound_ms']:.3f} ms bound ({k11_entry['bound_by']}: uint8 in and "
+             f"out, {taps / size:.2f} nonzero taps an output a pass at the fp64 tensor-core "
+             f"rate; the dense einsums do {dense_macs / macs:.0f}x those operations), "
+             f"interpolate(antialias) {lib_ms:.3f} ms")
+    print("SF1 image K11 " + json.dumps(k11_entry), flush=True)
+    del frame, fsl, flat, imgs, card_out, plain
+
+    # (g) the LAION pipeline, where PIL imports
+    print(json.dumps({"pil": jpegs is not None}), flush=True)
+    if jpegs is not None:
+        t = time.perf_counter()
+        blobs = jpegs.result()
+        make_s = time.perf_counter() - t  # the wait for the encoding thread
+        server, urls = laion.serve(blobs)
+        try:
+            def pipeline(u):
+                df = (dtt.from_pydict({"url": u})
+                      .select(col("url").url.download().alias("data"))
+                      .select(col("data").image.decode(mode="RGB").alias("img"))
+                      .select(col("img").cast(DataType.image("RGB", side, side)).alias("f")))
+                return laion_tail(df, "f")
+
+            lgot, lcold, llaunch = run_images(lambda: pipeline(urls))
+            count(llaunch)
+            lplain, _, _ = run_images(lambda: pipeline(urls[:LAION_PLAIN_IMAGES]), device="cpu")
+        finally:
+            laion.shutdown(server)
+            dtt.set_execution_config(config())
+        ldiff = int(np.abs(lgot[:LAION_PLAIN_IMAGES].astype(np.int16)
+                           - lplain.astype(np.int16)).max())
+        out["laion"] = {"images": LAION_IMAGES, "jpeg_wait_s": make_s, "cold_s": lcold,
+                        "launches": llaunch, "max_diff": ldiff, "card": card}
+        ph.check(lgot.shape == (LAION_IMAGES, size, size, 3) and ldiff <= 1
+                 and llaunch["k11"] >= 1,
+                 f"SF1 image (g) the LAION pipeline over {LAION_IMAGES} JPEGs from 127.0.0.1: "
+                 f"the first {LAION_PLAIN_IMAGES} within {ldiff} count of the CPU path, K11 "
+                 f"launches {llaunch['k11']}; cold {lcold:.3f}s")
+    k9_entry["launches"] = out["dashboard"]["launches"]["k9"]
+    k11_entry["launches"] = out["k11"]["launches"]["k11"]
+    merge_entry["launches"] = out["mesh"]["launches"]["merge"]
+    out["entries"] = [k9_entry, k11_entry, merge_entry]
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"SF1 sketch phase 20 wall {out['wall_s']:.1f}s, launches K1 {out['k1_launches']} "
+          f"K9 {out['k9_launches']} K11 {out['k11_launches']} merge {out['merge_launches']} "
+          f"({card})", flush=True)
+    dtt.set_execution_config(config())
+    torch.cuda.empty_cache()
+    return out
+
+
 def _walk(p):
     yield p
     for c in p.children():
@@ -7191,8 +7770,9 @@ def main(argv=None) -> int:
         card = card_line()
         print(f"card: {card}; torch {torch.__version__} CUDA {torch.version.cuda}", flush=True)
         queries = tpch22_module()
-        if not args.kernels_only:  # phase 4's SF1 tables, generated meanwhile
-            big = BackgroundTables(1.0, 7, SCAN_TPCH_GROUPS)
+        if not args.kernels_only:  # phase 4's SF1 tables (and SF10's join tables)
+            big = BackgroundTables(1.0, 7, SCAN_TPCH_GROUPS,
+                                   [float(x) for x in args.scales.split(",") if float(x) != 1.0])
         ph.begin("phase 1")
         edges = phase_build(ph)
         ph.begin("phase 2")
@@ -7235,7 +7815,8 @@ def main(argv=None) -> int:
                         ph, tables[scale], card, res, args.profile)["k1_launches"]
                     phase_single_ops(ph, tables[scale], card)
             tables = {}  # the join tables of this scale take the memory next
-            joins = phase_joins(ph, scale, card, args.profile and i == 0, keep_tables=True)
+            joins = phase_joins(ph, scale, card, args.profile and i == 0, keep_tables=True,
+                                tables=big.join_tables(scale))
             xtables = joins.pop("tables")
             # phase 7 over the same tables, at every scale
             print(f"elapsed {time.perf_counter() - started:.1f}s: phase 7 at SF{scale:g}",
@@ -7260,7 +7841,7 @@ def main(argv=None) -> int:
                 sc_entry[f"sf{scale:g}_shape"] = joins["scatter_main"]
         if scales:
             faults_out = relational = spill = adapt = scans = prefetch_write = columnar = None
-            sql_udf = observability = scheduling = mesh = io_out = None
+            sql_udf = observability = scheduling = mesh = io_out = sketch_image = None
             if 1.0 in scales:
                 # phases 8-11 read phase 3's and phase 7's SF1 tables alone, so
                 # they run while the 22-query tables are still being generated
@@ -7297,6 +7878,10 @@ def main(argv=None) -> int:
                 print(f"elapsed {time.perf_counter() - started:.1f}s: phase 18", flush=True)
                 ph.begin("phase 18")
                 mesh = phase_mesh(ph, sf1_lineitem, join_tables, q3_oracle_sf1, card)
+                # phase 20 too: phase 7's SF1 tables
+                print(f"elapsed {time.perf_counter() - started:.1f}s: phase 20", flush=True)
+                ph.begin("phase 20")
+                sketch_image = phase_sketch_image(ph, join_tables, card)
             t0 = time.perf_counter()
             data = big.get()
             print(f"SF1: 22-query tables ready {time.perf_counter() - big.started:.1f}s after "
@@ -7352,7 +7937,7 @@ def main(argv=None) -> int:
                  ("adapt", adapt), ("scan", scans), ("prefetch_write", prefetch_write),
                  ("columnar", columnar), ("sql_udf", sql_udf),
                  ("observability", observability), ("scheduling", scheduling),
-                 ("mesh", mesh), ("io", io_out)]
+                 ("mesh", mesh), ("io", io_out), ("sketch_image", sketch_image)]
                 if faults_out is not None else [])
             for name, ph_out in phase_outs:
                 k1_entry[f"launches_{name}"] = ph_out["k1_launches"]
@@ -7368,7 +7953,8 @@ def main(argv=None) -> int:
         loaded = sorted(m for m in ("jax", "jaxlib", "flax", "daft_tpu") if m in sys.modules)
         ph.check(not loaded, "no module of JAX or of the JAX package was loaded in this "
                              f"process (loaded: {', '.join(loaded) or 'none'})")
-        kernels = [k1_entry, k2_entry, sc_entry] + ([sc64_entry] if sc64_entry else [])
+        kernels = [k1_entry, k2_entry, sc_entry] + ([sc64_entry] if sc64_entry else []) + (
+            sketch_image["entries"] if sketch_image is not None else [])
         print(json.dumps({"kernels": kernels}), flush=True)
         print(f"chip_smoke: {len(scales)} scale(s) in {time.perf_counter() - started:.1f}s",
               flush=True)

@@ -21,6 +21,13 @@ return the manifest of the written paths; ``write_deltalake`` and
 ``write_iceberg`` commit them to a lake table. ``col(...).url.download()``
 and ``.url.upload(...)`` move bytes between rows and objects.
 
+``approx_count_distinct`` and ``approx_percentiles`` aggregate through
+mergeable sketches (sketch/): over several partitions the exchange ships
+serialized sketches, and the HLL registers build on the card (K9).
+``col(...).image`` decodes, encodes, crops, converts and resizes images
+(multimodal.py; the resize of a fixed-shape column runs on the card, K11),
+and ``col(...).embedding.cosine_distance`` compares embeddings.
+
 ``sql`` plans a SQL text onto the DataFrame API; ``udf`` and ``batch_udf``
 make python UDFs, and a batch-declared model class with ``apply_torch``
 runs its batches on the card.

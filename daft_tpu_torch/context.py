@@ -104,6 +104,11 @@ class ExecutionConfig:
     # aggregate's shuffle through the stage-2 merge as they arrive
     # (exchange/combine.py); only exact merges fold
     hierarchical_exchange_combine: bool = True
+    # approx_count_distinct and approx_percentiles over several partitions
+    # plan as sketch and merge stages whose exchange ships serialized
+    # sketches (daft_tpu_torch/sketch/); False shuffles or gathers the raw
+    # rows instead
+    sketch_aggregations: bool = True
     # query deadline: the runner turns it into one absolute deadline at run
     # start, checked on every partition pull and before a pipeline breaker
     # buffers its input; expiry raises DaftTimeoutError with the partial
@@ -262,6 +267,7 @@ _FROM_REFERENCE = {
     "sample_size_for_sort": "sample_size_for_sort",
     "runtime_join_filters": "runtime_join_filters",
     "hierarchical_exchange_combine": "hierarchical_exchange_combine",
+    "sketch_aggregations": "sketch_aggregations",
     "execution_timeout_s": "execution_timeout_s",
     "device_breaker_threshold": "device_breaker_threshold",
     "device_breaker_cooldown_s": "device_breaker_cooldown_s",

@@ -11,17 +11,20 @@ The fold keeps ONE running partial per bucket and always re-aggregates
 ``[running_partial, new pieces...]`` with the partial's rows first, so the
 groups keep their first-occurrence order: the results equal those with
 ``hierarchical_exchange_combine`` off. Only merges that are exact under any
-regrouping fold: integer and count sums, min, max, and the order-keeping
-concat of list partials. A float sum declines, since folding early changes
-its order of additions.
+regrouping fold: integer and count sums, min, max, the order-keeping
+concat of list partials and the sketch merges (the HLL register max; the
+quantile merge, whose compression keys on the values alone). A float sum
+declines, since folding early changes its order of additions.
 
 The staged pieces live outside the spillable bucket buffers, so they are
 charged to the query's MemoryLedger while staged, and under a byte budget the
 combiner abandons once they pass half the budget (the rest of the budget
 belongs to the buffers, which can spill).
 
-Left out: the sketch merges, which come with ``sketch/`` (ROADMAP.md, Queue
-1, item 10).
+A fold raises what its aggregate raises: a transient merge failure (the
+``sketch.merge`` fault site) reaches the caller, as the same merge after
+the exchange would, and the staged pieces' charge leaves the ledger first
+(the reference's combiner keeps it).
 """
 
 from __future__ import annotations
@@ -36,11 +39,12 @@ from ..micropartition import MicroPartition
 FOLD_EVERY = 16
 
 # stage-2 kinds the fold may apply early: order-insensitive exact merges
-# (min, max), exact accumulations (integer sums; float sums are gated by
-# dtype in combine_spec_applicable) and order-keeping concatenations
-# (concat). any_value declines: which value it picks depends on the shape of
-# its input, so a fold could change the value that survives.
-COMBINABLE_KINDS = {"sum", "min", "max", "concat"}
+# (min, max, the sketch register max), exact accumulations (integer sums;
+# float sums are gated by dtype in combine_spec_applicable) and
+# order-keeping concatenations (concat). any_value declines: which value it
+# picks depends on the shape of its input, so a fold could change the value
+# that survives.
+COMBINABLE_KINDS = {"sum", "min", "max", "concat", "merge_sketch_hll", "merge_sketch_quantile"}
 
 # a fold that keeps more than this share of its input rows is not reducing
 # (near-unique keys): the combiner abandons and hands every piece on raw
@@ -136,7 +140,7 @@ class BucketCombiner:
         staged.append(piece)
         self._charge(bucket, piece)
         if len(staged) >= FOLD_EVERY + 1:
-            folded = self._fold(staged)
+            folded = self._fold_or_release(staged)
             if folded is None:
                 return self._abandon()
             self._release(bucket)
@@ -156,13 +160,23 @@ class BucketCombiner:
             if len(staged) == 1:
                 yield b, staged[0]
                 continue
-            folded = self._fold(staged)
+            folded = self._fold_or_release(staged)
             if folded is None:
                 for p in staged:
                     yield b, p
                 continue
             yield b, folded
         self._staged = {}
+
+    def _fold_or_release(self, staged: List[MicroPartition]) -> Optional[MicroPartition]:
+        """``_fold``; when it raises (a transient merge failure, the
+        ``sketch.merge`` site), every staged piece's charge leaves the
+        ledger before the error reaches the caller."""
+        try:
+            return self._fold(staged)
+        except BaseException:
+            self._abandon()
+            raise
 
     def _fold(self, staged: List[MicroPartition]) -> Optional[MicroPartition]:
         """One host aggregate of the staged pieces, or None when it is not

@@ -11,6 +11,13 @@ overflow guard of an aggregate's resolver (``device_agg_fallbacks``); a
 resident plan segment that declines (``segment_fallbacks``, then the
 staged ops).
 
+An aggregation list of stage-1 ``sketch_hll`` aggregations alone (an
+approx_count_distinct over several partitions) builds its HLL registers
+with K9 on the card (``_sketch_build_device``, sketch/device.py;
+``device_sketch_builds``); its kind gate runs before the breaker or the
+fault site is touched. A failure at the fetch completes the partition on
+the host (``device_sketch_fallbacks``).
+
 Failures. Every device attempt runs under the query's ``DeviceHealth``
 breaker and the ``device.kernel`` fault site (``_device_attempt``), and
 the resolver of a launched attempt fetches under the same catch
@@ -1054,10 +1061,48 @@ class ExecutionContext:
             stage_cache=part.device_stage_cache(), predicate=predicate,
             stats=self.stats, device=self._device())
 
+    def _sketch_build_device(self, part: MicroPartition, aggregations, groupby, predicate):
+        """Stage 1 of an all-``sketch_hll`` aggregation list with K9 (the
+        register scatter, sketch/device.py) on the card: a zero-arg resolver
+        (the scatter already launched) or None, a decline, which leaves the
+        partition to the usual routing. The kind gate runs before the
+        breaker or the fault site is touched, so another kind consumes no
+        probe and no planned fault. The resolver takes one of
+        ``DEVICE_FAILURES`` at the fetch as a breaker failure and completes
+        the partition on the host (``device_sketch_fallbacks``); any other
+        exception reaches the caller."""
+        from .sketch.device import aggs_all_sketch_hll
+
+        if (predicate is not None or not aggs_all_sketch_hll(aggregations)
+                or not self._device_eligible(part)):
+            return None
+
+        def launch():
+            from .sketch.device import hll_build_table_device_launch
+
+            return hll_build_table_device_launch(part.table(), list(aggregations),
+                                                 list(groupby or []), self._device())
+
+        resolve = self._device_attempt(launch, launch=True)
+        if resolve is None:
+            return None
+        self.stats.bump("device_sketch_builds")
+
+        def on_host() -> MicroPartition:
+            self.stats.bump("device_sketch_builds", -1)
+            self.stats.bump("device_sketch_fallbacks")
+            return self._eval_agg_host(part, aggregations, groupby, predicate)
+
+        return lambda: self._resolve(resolve, on_host, MicroPartition.from_table)
+
     def eval_agg(self, part: MicroPartition, aggregations, groupby,
                  predicate=None) -> MicroPartition:
         """The aggregation on the card when eligible, else on the host (a
-        decline of the overflow guard included)."""
+        decline of the overflow guard included). An all-HLL stage 1 builds
+        its registers with K9 first (``device_sketch_builds``)."""
+        fin = self._sketch_build_device(part, aggregations, groupby, predicate)
+        if fin is not None:
+            return fin()
         if self._device_eligible(part):
             def run():
                 resolve = self._launch_agg(part, aggregations, groupby, predicate)
@@ -1075,7 +1120,11 @@ class ExecutionContext:
         resolver that fetches its result, or None when the partition is not
         device-eligible or the plan declines (the caller then runs the host
         path). The resolver completes on the host when the overflow guard
-        declines or the fetch fails (``device_agg_fallbacks``)."""
+        declines or the fetch fails (``device_agg_fallbacks``). An all-HLL
+        stage 1 launches K9 instead (``_sketch_build_device``)."""
+        fin = self._sketch_build_device(part, aggregations, groupby, predicate)
+        if fin is not None:
+            return fin
         if not self._device_eligible(part):
             return None
         resolve = self._device_attempt(

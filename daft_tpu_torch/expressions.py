@@ -12,14 +12,18 @@ Between, IsNull, FillNull, IsIn, IfElse and Function (a call into the
 registry of daft_tpu_torch/functions.py, with the str, dt, float, list,
 struct, map, partitioning and json namespaces and the hash functions),
 ``interval`` literals, and the aggregations sum, mean, count, min, max,
-count_distinct, stddev, skew, any_value, list (``agg_list``) and concat
-(``agg_concat``), and python UDF calls (``PyUdf``, made by udf.py's
-``UDF``, by ``Expression.apply`` and by ``batch_udf``), which are never
-memoized and carry their resource request and batching declaration to the
-planner (``expr_has_udf``, ``expr_has_batch_udf``, ``expr_batch_udfs``,
-``expr_udfs_parallel_safe``). Left out until a later slice: the image, url
-and embedding namespaces and the approximate (sketch) aggregations
-(ROADMAP.md, Queue 1, item 10).
+count_distinct, stddev, skew, any_value, list (``agg_list``), concat
+(``agg_concat``) and the approximate ``approx_count_distinct`` (HyperLogLog)
+and ``approx_percentiles`` (a bounded weighted sample), with the
+planner's sketch-stage kinds (``sketch_hll``, ``sketch_quantile``,
+``merge_sketch_hll``, ``merge_sketch_quantile``, binary columns of
+serialized sketches, daft_tpu_torch/sketch/), and python UDF calls
+(``PyUdf``, made by udf.py's ``UDF``, by ``Expression.apply`` and by
+``batch_udf``), which are never memoized and carry their resource request
+and batching declaration to the planner (``expr_has_udf``,
+``expr_has_batch_udf``, ``expr_batch_udfs``, ``expr_udfs_parallel_safe``).
+The ``image`` and ``url`` namespaces live in multimodal.py, the
+``embedding`` namespace (``cosine_distance``) here.
 """
 
 from __future__ import annotations
@@ -829,7 +833,14 @@ class PyUdf(ExprNode):
 
 
 AGG_KINDS = ("sum", "mean", "min", "max", "count", "count_distinct", "any_value", "list",
-             "concat", "stddev", "skew")
+             "concat", "stddev", "approx_count_distinct", "approx_percentiles", "skew",
+             # the planner's sketch stages (populate_aggregation_stages
+             # decomposes approx_* into them; users never write them)
+             "sketch_hll", "sketch_quantile", "merge_sketch_hll", "merge_sketch_quantile")
+
+
+def _numeric_input(dt: DataType) -> bool:
+    return dt.is_numeric() or dt.is_boolean() or dt.is_null()
 
 
 class AggExpr(ExprNode):
@@ -848,7 +859,7 @@ class AggExpr(ExprNode):
     def to_field(self, schema):
         f = self.child.to_field(schema)
         k = self.kind
-        if k in ("count", "count_distinct"):
+        if k in ("count", "count_distinct", "approx_count_distinct"):
             return Field(f.name, DataType.uint64())
         if k == "sum":
             dt = f.dtype
@@ -863,6 +874,20 @@ class AggExpr(ExprNode):
             return Field(f.name, DataType.list(f.dtype))
         if k == "concat" and not (f.dtype.is_list() or f.dtype.is_string()):
             raise DaftValueError(f"agg_concat needs list/string, got {f.dtype}")
+        if k == "approx_percentiles":
+            if not _numeric_input(f.dtype):
+                raise DaftValueError(
+                    f"approx_percentiles needs a numeric input, got {f.dtype}")
+            if isinstance(self.extra.get("percentiles"), float):
+                return Field(f.name, DataType.float64())
+            return Field(f.name, DataType.list(DataType.float64()))
+        if k == "sketch_quantile" and not _numeric_input(f.dtype):
+            raise DaftValueError(f"sketch_quantile needs a numeric input, got {f.dtype}")
+        if k in ("merge_sketch_hll", "merge_sketch_quantile") and not (
+                f.dtype.is_binary() or f.dtype.is_null()):
+            raise DaftValueError(f"{k} merges serialized sketches (binary), got {f.dtype}")
+        if k in ("sketch_hll", "sketch_quantile", "merge_sketch_hll", "merge_sketch_quantile"):
+            return Field(f.name, DataType.binary())
         return Field(f.name, f.dtype)  # min / max / any_value / concat
 
     def _eval(self, table) -> Series:
@@ -902,6 +927,19 @@ def _eval_agg_on_series(agg: AggExpr, s: Series) -> Series:
         return s.agg_list()
     if k == "concat":
         return s.agg_concat()
+    if k == "approx_count_distinct":
+        return s.approx_count_distinct()
+    if k == "approx_percentiles":
+        return s.approx_percentiles(agg.extra.get("percentiles", 0.5))
+    if k in ("sketch_hll", "merge_sketch_hll"):
+        from .sketch import hll
+
+        return (hll.build_grouped if k == "sketch_hll" else hll.merge_grouped)(s, None, 1)
+    if k in ("sketch_quantile", "merge_sketch_quantile"):
+        from .sketch import quantile
+
+        return (quantile.build_grouped if k == "sketch_quantile"
+                else quantile.merge_grouped)(s, None, 1)
     if k == "skew":
         # numpy's population moments over the non-null values; a constant
         # input gives 0.0, an empty one null
@@ -1243,6 +1281,12 @@ class Expression:
     def agg_concat(self):
         return self._agg("concat")
 
+    def approx_count_distinct(self):
+        return self._agg("approx_count_distinct")
+
+    def approx_percentiles(self, percentiles):
+        return self._agg("approx_percentiles", percentiles=percentiles)
+
     # --- namespaces
     @property
     def str(self) -> "ExprStrNamespace":
@@ -1269,10 +1313,20 @@ class Expression:
         return ExprFloatNamespace(self)
 
     @property
+    def image(self) -> "ExprImageNamespace":
+        from .multimodal import ExprImageNamespace
+
+        return ExprImageNamespace(self)
+
+    @property
     def url(self) -> "ExprUrlNamespace":
         from .multimodal import ExprUrlNamespace
 
         return ExprUrlNamespace(self)
+
+    @property
+    def embedding(self) -> "ExprEmbeddingNamespace":
+        return ExprEmbeddingNamespace(self)
 
     @property
     def partitioning(self) -> "ExprPartitioningNamespace":
@@ -1511,6 +1565,11 @@ class ExprFloatNamespace(_Namespace):
 
     def fill_nan(self, fill):
         return self._fn("float.fill_nan", fill)
+
+
+class ExprEmbeddingNamespace(_Namespace):
+    def cosine_distance(self, other):
+        return self._fn("embedding.cosine_distance", other)
 
 
 class ExprPartitioningNamespace(_Namespace):

@@ -83,6 +83,12 @@ SITES = {
                       "a failure settles the buffered charge and degrades the "
                       "op to the per-partition UDF path, the same rows, never "
                       "a query failure)",
+    "sketch.merge": "each stage-2 sketch merge (the HLL register max or the "
+                    "quantile samples' concat, sketch/hll.py and "
+                    "sketch/quantile.py; the error reaches the caller)",
+    "collective.sketch": "each mesh register-merge collective (the max over the "
+                         "slots, parallel/mesh_exec.py; a failure counts against "
+                         "the collective breaker and the host merge takes over)",
     "actor.load": "each pinned-model actor-pool construction (batch/actors.py; "
                   "a failed model load surfaces as a DaftResourceError naming "
                   "the model, with no half-initialized pool left)",

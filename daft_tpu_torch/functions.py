@@ -11,14 +11,18 @@ card's answer equals the host's by construction.
 Ported families: ``numeric.*``, the hash functions (``hash``, ``murmur3_32``,
 ``minhash``), ``float.*``, ``utf8.*`` (split and extract_all among them),
 ``dt.*``, ``list.*``, ``struct.*``, ``map.get``, ``partitioning.*``,
-``json.query`` and ``url.download``/``url.upload`` (registered by
-multimodal.py, which the package imports). The device compiler knows none of the list, struct, map, hash
-and partitioning functions, so an expression holding one declines to the host
-at plan time, as in the reference. The names the reference registers that
-are still to come raise a ValueError that points at ROADMAP.md with their
-queue item: ``utf8.tokenize_encode``/``utf8.tokenize_decode`` (they need the
-BPE tokenizer) and the ``image.``, ``embedding.`` and ``sketch.`` families
-(all three in item 10).
+``json.query``, ``embedding.cosine_distance`` (float64 on the host), the
+sketch finalizers ``sketch.hll_estimate`` and ``sketch.quantile_estimate``
+(the final projection of a two-stage approximate aggregation, over merged
+binary sketches, daft_tpu_torch/sketch/), and the ``image.*`` and
+``url.download``/``url.upload`` functions (registered by multimodal.py,
+which the package imports). The device compiler knows none of the list,
+struct, map, hash, partitioning, embedding and sketch functions, so an
+expression holding one declines to the host at plan time, as in the
+reference. The names the reference registers that are still to come raise
+a ValueError that points at ROADMAP.md with their queue item:
+``utf8.tokenize_encode``/``utf8.tokenize_decode`` (they need the BPE
+tokenizer, item 10).
 """
 
 from __future__ import annotations
@@ -45,7 +49,7 @@ REGISTRY: Dict[str, FunctionSpec] = {}
 # names the reference registers that the port does not have yet, each with
 # the ROADMAP.md Queue 1 item that brings it
 _NOT_PORTED = {"utf8.tokenize_encode": 10, "utf8.tokenize_decode": 10}
-_NOT_PORTED_FAMILIES = {"image.": 10, "embedding.": 10, "sketch.": 10}
+_NOT_PORTED_FAMILIES: Dict[str, int] = {}
 
 
 def register(name: str, resolve, evaluate) -> None:
@@ -512,6 +516,78 @@ def _minhash(s: Series, num_hashes: int = 64, ngram_size: int = 1, seed: int = 1
 register("minhash",
          lambda *a, num_hashes=64, **k: DataType.fixed_size_list(DataType.uint32(), num_hashes),
          _minhash)
+
+
+# ---------------------------------------------------------------------------
+# embeddings
+# ---------------------------------------------------------------------------
+
+def _cosine_distance(s: Series, other: Series) -> Series:
+    """1 - cos(a, b) a row, in float64 (a one-row ``other`` against every
+    row); a null side gives a null."""
+    a = s.to_numpy()
+    b = other.to_numpy()
+    if a.dtype == object or b.dtype == object:
+        out = []
+        bl = b if len(b) == len(a) else [b[0]] * len(a)
+        for x, y in zip(a, bl):
+            if x is None or y is None:
+                out.append(None)
+            else:
+                x, y = np.asarray(x, dtype=np.float64), np.asarray(y, dtype=np.float64)
+                out.append(1.0 - float(np.dot(x, y) / (np.linalg.norm(x) * np.linalg.norm(y))))
+        return Series.from_pylist(out, s.name, DataType.float64())
+    a = a.astype(np.float64)
+    b = b.astype(np.float64)
+    if b.shape[0] == 1 and a.shape[0] != 1:
+        b = np.broadcast_to(b, a.shape)
+    num = (a * b).sum(axis=1)
+    den = np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        out = 1.0 - num / den
+    return Series.from_arrow(pa.array(out), s.name, DataType.float64())
+
+
+register("embedding.cosine_distance", lambda *a, **k: DataType.float64(), _cosine_distance)
+
+
+# ---------------------------------------------------------------------------
+# sketch finalizers: the final projection of a two-stage approximate
+# aggregation (build, exchange, merge, estimate), over merged binary sketches
+# ---------------------------------------------------------------------------
+
+def _resolve_hll_estimate(*arg_dtypes, **_kw):
+    dt = arg_dtypes[0]
+    if not (dt.is_binary() or dt.is_null()):
+        raise ValueError(f"sketch.hll_estimate needs a binary sketch column, got {dt}")
+    return DataType.uint64()
+
+
+def _hll_estimate(s: Series) -> Series:
+    from .sketch import hll
+
+    return hll.estimate_series(s)
+
+
+register("sketch.hll_estimate", _resolve_hll_estimate, _hll_estimate)
+
+
+def _resolve_quantile_estimate(*arg_dtypes, percentiles=0.5, **_kw):
+    dt = arg_dtypes[0]
+    if not (dt.is_binary() or dt.is_null()):
+        raise ValueError(f"sketch.quantile_estimate needs a binary sketch column, got {dt}")
+    if isinstance(percentiles, float):
+        return DataType.float64()
+    return DataType.list(DataType.float64())
+
+
+def _quantile_estimate(s: Series, percentiles=0.5) -> Series:
+    from .sketch import quantile
+
+    return quantile.estimate_series(s, percentiles)
+
+
+register("sketch.quantile_estimate", _resolve_quantile_estimate, _quantile_estimate)
 
 
 # ---------------------------------------------------------------------------

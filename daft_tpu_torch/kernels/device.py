@@ -7,6 +7,10 @@ daft_tpu/kernels/device.py this slice runs).
   sentinel values in kernels; every kernel threads validity.
 - String columns stage as int32 codes against a SORTED per-partition
   dictionary, so group codes over string keys run on plain int lanes.
+- Embedding and fixed-shape tensor columns of a device inner type, and
+  fixed-shape image columns, stage as 2-D lanes: values [bucket, *shape]
+  (narrowed by the inner type), one validity bit a row. The mesh exchange
+  ships them as it ships the 1-D lanes.
 - An expression tree compiles to one Python closure over
   ``{name: (values, valid)}`` that issues eager torch ops. A comparison of a
   string column with a string literal compares dictionary codes: the
@@ -197,13 +201,23 @@ def float_to_int(v: torch.Tensor, lane: torch.dtype, lo: int, hi: int) -> torch.
     return t.to(lane).masked_fill(over, hi).masked_fill(under, lo)
 
 
+# the 2-D lanes: one row of values a row, [n, *shape] on the device
+_SHAPED_KINDS = (TypeKind.EMBEDDING, TypeKind.FIXED_SHAPE_TENSOR, TypeKind.FIXED_SHAPE_IMAGE)
+
+
 def is_device_dtype(dt: DataType) -> bool:
     """Device-representable in the current mode. Both modes: int64 and
     uint64 (in the 32-bit mode through lossless int32 narrowing, checked per
     column at stage time), float64 (as float32 in the 32-bit mode), dates as
-    int32 days. The 64-bit mode adds the epoch temporals as int64."""
+    int32 days. The 64-bit mode adds the epoch temporals as int64. An
+    embedding or fixed-shape tensor of such an inner type, and any
+    fixed-shape image, stages as a 2-D lane ([n, *shape])."""
     if dt.kind in _EPOCH_KINDS:
         return x64_enabled()
+    if dt.kind == TypeKind.FIXED_SHAPE_IMAGE:
+        return True
+    if dt.kind in (TypeKind.EMBEDDING, TypeKind.FIXED_SHAPE_TENSOR):
+        return is_device_dtype(dt.params[0])
     return (dt.kind in _TORCH_DTYPES or dt.kind in _NARROW_64 or dt.kind in _UNSIGNED_LANES
             or dt.kind == TypeKind.DATE)
 
@@ -268,16 +282,28 @@ class DeviceColumn:
 
 
 def stage_np(s, bucket: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray, int]:
-    """Host-side staging core: (values [bucket], valid [bucket], n)."""
+    """Host-side staging core: (values [bucket, *shape], valid [bucket], n),
+    shared by the one-device path and the mesh exchange. A 2-D lane's rows
+    come from the values behind every row, null rows' included."""
     dt = s.dtype
     if not is_device_dtype(dt):
         raise ValueError(f"{dt} is not device-representable")
     n = len(s)
     b = bucket or size_bucket(n)
     arr = s.to_arrow()
-    vals = _narrow_staged(_physical_np(arr), dt)
-    if b > n:
-        vals = np.concatenate([vals, np.zeros(b - n, dtype=vals.dtype)])
+    if dt.kind in _SHAPED_KINDS:
+        from ..series import _static_shape
+
+        shape = tuple(_static_shape(dt))
+        size = int(np.prod(shape))
+        child = arr.values.slice(arr.offset * size, n * size)
+        vals = _narrow_staged(_physical_np(child).reshape((n,) + shape), dt)
+        if b > n:
+            vals = np.concatenate([vals, np.zeros((b - n,) + shape, vals.dtype)])
+    else:
+        vals = _narrow_staged(_physical_np(arr), dt)
+        if b > n:
+            vals = np.concatenate([vals, np.zeros(b - n, dtype=vals.dtype)])
     return vals, _staged_validity(arr, n, b), n
 
 
@@ -302,7 +328,9 @@ def _narrow_staged(vals: np.ndarray, dt: DataType) -> np.ndarray:
     staging does. float64 rounds to float32. 64-bit mode: no narrowing; a
     uint64 column stages as its int64 bits when every value is below 2**63
     (``_HostStaged`` otherwise). uint16 and uint32 widen to their signed
-    lanes in both modes."""
+    lanes in both modes. A 2-D lane narrows by its inner type."""
+    if dt.kind in (TypeKind.EMBEDDING, TypeKind.FIXED_SHAPE_TENSOR):
+        dt = dt.params[0]
     if dt.kind in _UNSIGNED_LANES:
         return vals.astype(_UNSIGNED_LANES[dt.kind][1], copy=False)
     if x64_enabled():
@@ -372,6 +400,21 @@ def unstage(col: DeviceColumn):
             out = uniq.take(pa.array(codes))
             if not valid.all():
                 out = pc.if_else(pa.array(valid), out, pa.nulls(col.length, out.type))
+        return Series.from_arrow(out, "device", dt)
+    if dt.kind in _SHAPED_KINDS:
+        from ..series import _static_shape
+
+        size = int(np.prod(_static_shape(dt)))
+        value_type = dt.to_arrow().value_type
+        flat = vals.reshape(-1)
+        if pa.types.is_uint64(value_type) and flat.dtype == np.int64:
+            flat = flat.view(np.uint64)
+        flat = pa.array(flat)
+        if flat.type != value_type:
+            flat = flat.cast(value_type)
+        out = pa.FixedSizeListArray.from_arrays(flat, size or 1)
+        if not valid.all():
+            out = pc.if_else(pa.array(valid), out, pa.nulls(col.length, out.type))
         return Series.from_arrow(out, "device", dt)
     storage = dt.to_arrow()
     if pa.types.is_uint64(storage) and vals.dtype == np.int64:

@@ -22,10 +22,17 @@ segment sum: float sums go through the deterministic scatter-sums kernel
 (kernels/scatter_sums.py; float32, or float64 in the 64-bit mode), counts
 are exact integers. No hand-written kernel stands behind the exchange
 itself: every op keeps the contract, and no Pallas kernel lies behind K12.
+
+``build_register_allmerge`` is the sketch subsystem's global merge: the
+slots' HLL register rows reduce by an elementwise max (a stack and an
+``amax`` on the card in one process, an ``all_gather`` and a max across
+processes). A max is exact and order-free, so the merged registers equal
+the host merge's.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -278,5 +285,47 @@ def build_exchange_groupby_sum(mesh: Mesh, capacity: int, num_segments: int):
             cnts.append(torch.bincount(seg.to(torch.int64), minlength=g + 1)[:g]
                         .to(torch.int32))
         return sums, cnts
+
+    return fn
+
+
+# ---------------------------------------------------------------------------
+# the sketch register merge: the global stage 2 of an approx_count_distinct
+# as one elementwise max of the slots' HLL register rows
+# ---------------------------------------------------------------------------
+
+#: register merges launched on a CUDA device (under _MERGE_LOCK)
+REGISTER_MERGE_LAUNCHES = 0
+_MERGE_LOCK = threading.Lock()
+
+
+def build_register_allmerge(mesh: Mesh, m: int):
+    """The register merge for this mesh and register width.
+
+    Returned fn: (rows), a list over this process's slots of [m] uint8
+    tensors, each on its slot's device -> the [m] uint8 elementwise max of
+    every slot's row, on this process's first slot's device. Within one
+    process the rows stack on that device and reduce by a max; across
+    processes each process's max is all-gathered over the cluster's group
+    and reduced again, so every process holds the same row."""
+    import torch.distributed as dist
+
+    home = mesh.devices[mesh.local_indices()[0]]
+
+    def fn(rows: List[torch.Tensor]) -> torch.Tensor:
+        global REGISTER_MERGE_LAUNCHES
+        if any(tuple(r.shape) != (m,) for r in rows):
+            raise ValueError(f"register rows must be [{m}]")
+        merged = torch.stack([r.to(home) for r in rows]).amax(dim=0)
+        if mesh.multiprocess:
+            cdev = comm_device()
+            mine = merged.to(cdev)
+            every = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
+            dist.all_gather(every, mine)
+            merged = torch.stack(every).amax(dim=0).to(home)
+        if home.type == "cuda":
+            with _MERGE_LOCK:
+                REGISTER_MERGE_LAUNCHES += 1
+        return merged
 
     return fn

@@ -44,9 +44,18 @@ child phase spans are the steps: ``collective.bucket`` (the control plane),
 ``collective.stage`` (host staging and the copies onto the slots),
 ``collective.scatter`` (the send slabs and the exchange),
 ``collective.counts`` and ``collective.unstage`` (the pack and the copy
-back). No span synchronizes the card. Left out: the peer transport of a backend without
-cross-process collectives and the sketch register merge (ROADMAP Queue 1,
-item 10).
+back). No span synchronizes the card.
+
+A global ``merge_sketch_hll`` stage (approx_count_distinct over several
+partitions) merges its sketches' registers on the mesh
+(``try_sketch_register_merge``: one register max over the slots,
+collectives.build_register_allmerge; ``collective_sketch_merges``) behind
+the same breaker, with the fault site ``collective.sketch``; a failure
+leaves the merge to the host. Several processes keep the host merge, as the
+reference does.
+
+Left out: the peer transport of a backend without cross-process
+collectives (ROADMAP Queue 1, item 10).
 """
 
 from __future__ import annotations
@@ -578,3 +587,108 @@ class MeshExecutionContext(ExecutionContext):
             return cache[key]
 
         return slab_of
+
+    # ------------------------------------------------------------------
+    # the sketch subsystem: a global stage-2 HLL merge as one register max
+    # over the slots instead of the host merge of the gathered sketches
+    # ------------------------------------------------------------------
+
+    def try_sketch_register_merge(self, regs: np.ndarray) -> Optional[np.ndarray]:
+        """[k, m] uint8 HLL register rows merged into one [m] row by the
+        mesh's register merge (collectives.build_register_allmerge): the
+        rows fold onto the slots (row i onto slot i % n, the surplus by a
+        host max first, as the reference folds them) and the slots reduce
+        by a max. None when not eligible (several processes, no rows), when
+        the collective breaker is open (``degraded_sketch_merges``) or when
+        the merge failed with one of ``COLLECTIVE_FAILURES`` (counted
+        against the breaker and as ``device_attempt_failures``): the
+        caller's host merge takes over. Fault site: ``collective.sketch``."""
+        from .. import faults
+        from .collectives import build_register_allmerge
+
+        n = self.n_devices
+        if self._multiproc or regs.ndim != 2 or regs.shape[0] == 0:
+            # a stage-2 input of several processes is local to each after
+            # the gather: the merge stays within one process, as the
+            # reference's does
+            return None
+        if not self.collective_health.allow(self.stats):
+            self.stats.bump("degraded_sketch_merges")
+            return None
+        try:
+            faults.check("collective.sketch", self.stats)
+            k, m = regs.shape
+            if k > n:
+                pad = (-k) % n
+                regs = np.concatenate([regs, np.zeros((pad, m), np.uint8)])
+                regs = regs.reshape(-1, n, m).max(axis=0)
+            elif k < n:
+                regs = np.concatenate([regs, np.zeros((n - k, m), np.uint8)])
+            rows = self._shard_onto_devices([regs[i] for i in range(n)], list(range(n)))
+            out = build_register_allmerge(self.mesh, m)(rows).cpu().numpy()
+        except COLLECTIVE_FAILURES:
+            self.stats.bump("device_attempt_failures")
+            self.collective_health.record_failure(self.stats)
+            return None
+        self.collective_health.record_success(self.stats)
+        self.stats.bump("collective_sketch_merges")
+        return out
+
+    def _collective_merge_eligible(self, groupby, predicate) -> bool:
+        # no min-rows gate: a stage-2 input holds one sketch row a partition
+        # by design. Several processes decline here, before the partition
+        # materializes and its sketches decode
+        return (not groupby and predicate is None and self.cfg.use_device_kernels
+                and not self._multiproc)
+
+    def eval_agg(self, part, aggregations, groupby, predicate=None):
+        """A global ``merge_sketch_hll`` stage (the gathered stage 2 of a
+        multi-partition approx_count_distinct) merges on the mesh when
+        eligible; everything else takes the base routing."""
+        if self._collective_merge_eligible(groupby, predicate):
+            out = self._sketch_merge_collective(part, aggregations)
+            if out is not None:
+                return out
+        return super().eval_agg(part, aggregations, groupby, predicate=predicate)
+
+    def eval_agg_dispatch(self, part, aggregations, groupby, predicate=None):
+        """As eval_agg; the register merge resolves at once, so its resolver
+        hands back the merged partition."""
+        if self._collective_merge_eligible(groupby, predicate):
+            out = self._sketch_merge_collective(part, aggregations)
+            if out is not None:
+                return lambda: out
+        return super().eval_agg_dispatch(part, aggregations, groupby, predicate=predicate)
+
+    def _sketch_merge_collective(self, part, aggregations) -> Optional[MicroPartition]:
+        """The partition's ``merge_sketch_hll`` aggregations (all of them,
+        else None) through the register merge, one binary sketch column
+        each."""
+        from ..datatypes import DataType
+        from ..expressions import AggExpr, Alias
+        from ..schema import Field, Schema
+        from ..series import Series
+        from ..sketch.hll import binary_to_registers, registers_to_binary
+        from ..table import Table
+
+        nodes = []
+        for e in aggregations:
+            node = e._node
+            while isinstance(node, Alias):
+                node = node.child
+            if not (isinstance(node, AggExpr) and node.kind == "merge_sketch_hll"):
+                return None
+            nodes.append((e.name(), node))
+        if not nodes:
+            return None
+        tbl = part.table()
+        cols, fields = [], []
+        for alias, node in nodes:
+            merged = self.try_sketch_register_merge(
+                binary_to_registers(node.child.evaluate(tbl)))
+            if merged is None:
+                return None
+            cols.append(Series.from_arrow(registers_to_binary(merged[None]), alias,
+                                          DataType.binary()))
+            fields.append(Field(alias, DataType.binary()))
+        return MicroPartition.from_table(Table(Schema(fields), cols))

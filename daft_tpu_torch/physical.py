@@ -127,7 +127,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 from . import faults
 from .errors import PORT_FAILURES
-from .expressions import AggExpr, Alias, Expression, col, lit
+from .expressions import AggExpr, Alias, Expression, Function, col, lit
 from .integrity.lineage import (fanout_piece_recipe, range_piece_recipe, task_recipe,
                                 unwrap_source_task)
 from .logical import (Aggregate, Concat, Distinct, Explode, Filter, InMemorySource, Join, Limit,
@@ -1713,7 +1713,8 @@ def _translate(plan: LogicalPlan, cfg, morsels: bool = False) -> PhysicalOp:
 
 # stage-1 kind -> the stage-2 kind that merges its partials
 _MERGE_KIND = {"sum": "sum", "count": "sum", "min": "min", "max": "max", "list": "concat",
-               "concat": "concat", "any_value": "any_value"}
+               "concat": "concat", "any_value": "any_value",
+               "sketch_hll": "merge_sketch_hll", "sketch_quantile": "merge_sketch_quantile"}
 # kinds that split into partials (count_distinct and skew do not: their
 # per-partition results cannot be merged)
 DECOMPOSABLE = {"sum", "count", "mean", "min", "max", "list", "concat", "any_value", "stddev"}
@@ -1783,14 +1784,32 @@ def populate_aggregation_stages(
             final.append(col(s1(k, child, k)).alias(alias))
         elif k == "any_value":
             final.append(col(s1("any_value", child, "any", dict(node.extra))).alias(alias))
+        elif k == "approx_count_distinct":
+            # the exchange carries HLL registers, never the counted rows
+            ident = s1("sketch_hll", child, "hll")
+            final.append(Expression(Function("sketch.hll_estimate", [col(ident)._node]))
+                         .alias(alias))
+        elif k == "approx_percentiles":
+            ident = s1("sketch_quantile", child, "qsketch")
+            final.append(Expression(Function(
+                "sketch.quantile_estimate", [col(ident)._node],
+                {"percentiles": node.extra.get("percentiles", 0.5)})).alias(alias))
         else:
             raise ValueError(f"aggregation {k!r} is not decomposable")
     return stage1, stage2, final
 
 
-def aggs_decomposable(aggs: List[Expression]) -> bool:
+def aggs_decomposable(aggs: List[Expression], include_sketch: bool = False) -> bool:
+    """Every aggregation splits into partials. With ``include_sketch`` the
+    approximate ones do too, through the sketch subsystem
+    (daft_tpu_torch/sketch/): a mergeable sketch a group in stage 1, the
+    serialized sketches over the exchange, a merge in stage 2 and an
+    estimate in the final projection."""
+    from .sketch import SKETCH_DECOMPOSABLE
+
+    allowed = DECOMPOSABLE | (SKETCH_DECOMPOSABLE if include_sketch else set())
     try:
-        return all(_strip_alias(e).kind in DECOMPOSABLE for e in aggs)
+        return all(_strip_alias(e).kind in allowed for e in aggs)
     except ValueError:
         return False
 
@@ -1811,9 +1830,10 @@ def _translate_aggregate(plan: Aggregate, cfg) -> PhysicalOp:
     nparts = child.num_partitions
     if nparts == 1:
         return AggregateOp(child, plan.aggregations, plan.groupby, plan.schema)
-    if not aggs_decomposable(plan.aggregations):
-        # count_distinct, skew: shuffle the raw rows by key (gather them for
-        # a global aggregate), then aggregate each partition in full
+    if not aggs_decomposable(plan.aggregations, cfg.sketch_aggregations):
+        # count_distinct, skew (and approx_* with sketch_aggregations off):
+        # shuffle the raw rows by key (gather them for a global aggregate),
+        # then aggregate each partition in full
         if plan.groupby:
             shuffled = ShuffleOp(child, "hash", nparts, plan.groupby)
             return AggregateOp(shuffled, plan.aggregations, plan.groupby, plan.schema)

@@ -7,9 +7,17 @@ stages numeric columns as torch tensors (see daft_tpu_torch/kernels/device.py).
 ``Series.hash`` (kernels/host_hash.py, with a stable byte form for python
 objects) and ``murmur3_32`` (kernels/murmur.py) back the hash functions and
 the Iceberg bucket transform; the row hash of the hash shuffle is
-Table.hash_rows, which hashes a table's Arrow columns directly. Left out of
-this slice: the multimodal image casts and the sketch-backed approximate
-aggregations (ROADMAP.md, Queue 1, item 10).
+Table.hash_rows, which hashes a table's Arrow columns directly.
+
+Fixed-shape tensor, embedding and fixed-shape image columns give their
+values to ``to_numpy`` as one [n, *shape] array (an object array of rows
+and Nones where a row is null). An Image column casts to a FixedShapeImage
+of its own shape, channels and pixel type (each mismatch raises a
+ValueError that names it) and back (multimodal.py holds the layouts).
+``approx_count_distinct`` and ``approx_percentiles`` run the sketch
+subsystem's estimators (daft_tpu_torch/sketch/), the same the two-stage
+plan finalizes, so an answer does not depend on how the input was
+partitioned.
 """
 
 from __future__ import annotations
@@ -179,10 +187,28 @@ class Series:
     def to_numpy(self) -> np.ndarray:
         """The values as a numpy array (nulls as NaN in a float column, an
         object array where arrow cannot convert; the object array itself for a
-        python column). The tensor and embedding layouts come with their
-        types (ROADMAP, Queue 1, item 10)."""
+        python column). A fixed-shape tensor, embedding or fixed-shape image
+        column gives [n, *shape], or an object array of rows and Nones when a
+        row is null."""
         if self._arrow is None:
             return self._pyobjs
+        if self._dtype.kind in (TypeKind.FIXED_SHAPE_TENSOR, TypeKind.EMBEDDING,
+                                TypeKind.FIXED_SHAPE_IMAGE):
+            arr = self._arrow
+            shape = _static_shape(self._dtype)
+            size = int(np.prod(shape)) if shape else 1
+            # .values keeps the slots behind null rows (flatten() drops them)
+            child = arr.values.slice(arr.offset * size, len(arr) * size)
+            if child.null_count:
+                child = pc.fill_null(child, np.nan if pa.types.is_floating(child.type) else 0)
+            flat = np.asarray(child).reshape((len(self),) + shape)
+            if arr.null_count:
+                out = np.empty(len(self), dtype=object)
+                valid = np.asarray(pc.is_valid(arr))
+                for i in range(len(self)):
+                    out[i] = flat[i] if valid[i] else None
+                return out
+            return flat
         try:
             return self._arrow.to_numpy(zero_copy_only=False)
         except pa.ArrowInvalid:
@@ -210,6 +236,15 @@ class Series:
         try:
             out = pc.cast(src, options=opts)
         except (pa.ArrowInvalid, pa.ArrowNotImplementedError):
+            if dtype.kind == TypeKind.FIXED_SHAPE_IMAGE and self._dtype.kind == TypeKind.IMAGE:
+                return self._to_fixed_image(dtype)
+            if dtype.kind == TypeKind.IMAGE and self._dtype.kind == TypeKind.FIXED_SHAPE_IMAGE:
+                from .multimodal import image_series_from_arrays, image_series_to_arrays
+
+                arrays = image_series_to_arrays(self)
+                return image_series_from_arrays(arrays, self._name,
+                                                [self._dtype.params[0]] * len(arrays),
+                                                dtype_mode=dtype.params[0])
             if dtype.is_string():
                 out = pa.array([None if v is None else str(v) for v in src.to_pylist()], type=pa.large_string())
             elif dtype.is_temporal() and (self._dtype.is_integer() or self._dtype.is_floating()):
@@ -219,6 +254,33 @@ class Series:
             else:
                 raise
         return Series(self._name, dtype, out)
+
+    def _to_fixed_image(self, dtype: DataType) -> "Series":
+        """An Image column as the FixedShapeImage ``dtype``: every non-null
+        image must have its height and width, its channels and its pixel
+        type."""
+        from .multimodal import (_fixed_image_series, _mode_channels, _mode_np_dtype,
+                                 image_series_to_arrays)
+
+        mode, h, w = dtype.params
+        want_c = _mode_channels(mode)
+        want_np = _mode_np_dtype(mode)
+        arrays = image_series_to_arrays(self)
+        for a in arrays:
+            if a is None:
+                continue
+            if a.shape[:2] != (h, w):
+                raise ValueError(
+                    f"cannot cast image of shape {a.shape} to fixed shape ({h}, {w})")
+            if a.shape[2] != want_c:
+                raise ValueError(
+                    f"cannot cast {a.shape[2]}-channel image to mode {mode!r} "
+                    f"({want_c} channels); convert with image.to_mode first")
+            if a.dtype != want_np:
+                raise ValueError(
+                    f"cannot cast {a.dtype} image pixels to mode {mode!r} "
+                    f"({np.dtype(want_np).name}); convert with image.to_mode first")
+        return _fixed_image_series(arrays, self._name, mode, h, w)
 
     def _require_arrow(self, op: str) -> pa.Array:
         if self._arrow is None:
@@ -689,6 +751,32 @@ class Series:
         flat = self._arrow.flatten()
         offsets = pa.array([0, len(flat)], type=pa.int64())
         return Series(self._name, self._dtype, pa.LargeListArray.from_arrays(offsets, flat))
+
+    def approx_count_distinct(self) -> "Series":
+        """One row: the HyperLogLog estimate of the distinct non-null values
+        (sketch/hll.py, the two-stage plan's estimator)."""
+        from .sketch import hll
+
+        return Series.from_pylist([hll.count_distinct_estimate(self)], self._name,
+                                  DataType.uint64())
+
+    def approx_percentiles(self, percentiles) -> "Series":
+        """One row: the percentiles (a float, or a list for a list) of the
+        numeric values by the quantile sketch (sketch/quantile.py)."""
+        from .sketch import quantile
+
+        out = quantile.percentile_estimate(self, percentiles)
+        if isinstance(percentiles, float):
+            return Series.from_pylist([out], self._name, DataType.float64())
+        return Series.from_pylist([out], self._name, DataType.list(DataType.float64()))
+
+
+def _static_shape(dt: DataType):
+    """The shape of one value of a fixed-shape tensor, embedding or
+    fixed-shape image column."""
+    if dt.kind == TypeKind.EMBEDDING:
+        return (dt.params[1],)
+    return dt.tensor_shape
 
 
 def _python_object_series(name: str, data) -> "Series":

@@ -9,10 +9,10 @@ HAVING, ORDER BY [ASC|DESC] [NULLS FIRST|LAST], LIMIT, aggregates with
 COUNT(*), COUNT(DISTINCT x) and compound aggregate expressions (SUM(x)*2),
 CASE, CAST, BETWEEN, IN, LIKE/ILIKE, IS [NOT] NULL, COALESCE/NULLIF/IF, and
 a scalar function library over the numeric, string and temporal
-namespaces. The function table is the reference's: a function the port
-lacks (APPROX_COUNT_DISTINCT, ROADMAP Queue 1 item 10) raises where the
-query plans. Joins build in the text's FROM order, so a SQL text and its
-DataFrame twin may plan differently.
+namespaces. The function table is the reference's, APPROX_COUNT_DISTINCT
+(the HyperLogLog aggregation) among the aggregates. Joins build in the
+text's FROM order, so a SQL text and its DataFrame twin may plan
+differently.
 """
 
 from __future__ import annotations

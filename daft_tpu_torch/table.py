@@ -14,7 +14,8 @@ this slice: the acero fused filter+aggregate plans and the optional C++
 ``native`` group-code pass (group codes take the numpy route here). The
 grouped aggregation keeps the bincount route (float sums and means, counts)
 and the arrow hash-agg route (sum, mean, count, min, max, count_distinct,
-stddev, list, any_value), and runs the rest (skew, concat, and a kind over a
+stddev, list, any_value), the sketch subsystem's builds, merges and
+estimates (``_sketch_agg_fast``), and runs the rest (skew, concat, and a kind over a
 column arrow does not take) group by group over its rows sorted by group.
 """
 
@@ -667,7 +668,9 @@ class Table:
                     raise DaftValueError(f"aggregation list contains non-aggregation {e!r}")
                 child_s = _broadcast_series(node.child.evaluate(self), n)
                 expected_dt = node.to_field(self.schema).dtype
-                merged = _bincount_agg_fast(node, child_s, codes, num_groups)
+                merged = _sketch_agg_fast(node, child_s, codes, num_groups)
+                if merged is None:
+                    merged = _bincount_agg_fast(node, child_s, codes, num_groups)
                 if merged is None:
                     merged = _hash_agg_fast(node, child_s, codes, num_groups)
                 if merged is None:  # group by group
@@ -816,6 +819,35 @@ def _acero_agg_fn(node: AggExpr):
     if k == "any_value":
         return "first", pc.ScalarAggregateOptions(
             skip_nulls=bool(node.extra.get("ignore_nulls", False)))
+    return None
+
+
+def _sketch_agg_fast(node: AggExpr, child: Series, codes: np.ndarray,
+                     num_groups: int) -> Optional[Series]:
+    """The grouped kernels of the sketch subsystem (daft_tpu_torch/sketch/):
+    the stage kinds (``sketch_*`` build one binary sketch a group,
+    ``merge_sketch_*`` merge serialized sketches) and the one-partition
+    ``approx_*``, which build and estimate in one pass and so give the
+    two-stage plan's estimates. None for every other kind."""
+    k = node.kind
+    if k in ("sketch_hll", "merge_sketch_hll", "approx_count_distinct"):
+        from .sketch import hll
+
+        if k == "sketch_hll":
+            return hll.build_grouped(child, codes, num_groups)
+        if k == "merge_sketch_hll":
+            return hll.merge_grouped(child, codes, num_groups)
+        est = hll.grouped_estimates(child, codes, num_groups)
+        return Series.from_arrow(pa.array(est, type=pa.uint64()), child.name)
+    if k in ("sketch_quantile", "merge_sketch_quantile", "approx_percentiles"):
+        from .sketch import quantile
+
+        if k == "sketch_quantile":
+            return quantile.build_grouped(child, codes, num_groups)
+        if k == "merge_sketch_quantile":
+            return quantile.merge_grouped(child, codes, num_groups)
+        return quantile.estimate_series(quantile.build_grouped(child, codes, num_groups),
+                                        node.extra.get("percentiles", 0.5))
     return None
 
 

@@ -360,11 +360,12 @@ def test_unpicklable_python_object_hash_raises():
 def test_remaining_families_point_at_their_queue_item():
     from daft_tpu_torch.functions import get_function
 
-    for name, item in (("utf8.tokenize_encode", 10), ("utf8.tokenize_decode", 10),
-                       ("image.decode", 10),
-                       ("embedding.cosine_distance", 10), ("sketch.hll_estimate", 10)):
+    for name, item in (("utf8.tokenize_encode", 10), ("utf8.tokenize_decode", 10)):
         with pytest.raises(ValueError, match=f"ROADMAP.md, Queue 1, item {item}"):
             get_function(name)
-    # the url family came with item 9
-    assert get_function("url.download").name == "url.download"
-    assert get_function("url.upload").name == "url.upload"
+    # the url family came with item 9; the image, embedding and sketch
+    # families with item 10's first bullet
+    for name in ("url.download", "url.upload", "image.decode", "image.resize",
+                 "embedding.cosine_distance", "sketch.hll_estimate",
+                 "sketch.quantile_estimate"):
+        assert get_function(name).name == name

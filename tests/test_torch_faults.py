@@ -111,13 +111,14 @@ def test_sites_are_the_four_the_port_wires():
     # fifteenth the scan's and the sub-plan result cache's, the sixteenth the
     # scan readahead's, the eighteenth the batching coalesce's and the model
     # actors' load, the twenty-first the mesh exchange's, the twenty-second
-    # the object store's read, each wired as the reference wires it
+    # the object store's read, the twenty-third the sketch merge's and the
+    # mesh register merge's, each wired as the reference wires it
     assert set(faults.SITES) == {"io.get", "collective.exchange",
                                  "device.kernel", "fuse.compile", "fuse.segment", "join.filter",
                                  "spill.write", "spill.readback", "spill.corrupt",
                                  "exchange.encode", "plancache.lookup", "scan.read",
                                  "resultcache.lookup", "prefetch.fetch", "batch.coalesce",
-                                 "actor.load"}
+                                 "actor.load", "sketch.merge", "collective.sketch"}
     assert set(faults.SITES) <= set(ref_faults.SITES)
 
 

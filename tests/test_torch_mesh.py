@@ -397,10 +397,10 @@ def test_mesh_int64_overflow_declines(x64):
 
 @pytest.mark.parametrize("x64", MODES)
 def test_mesh_embedding_column_empty_destinations(x64):
-    """The reference ships an embedding column over its exchange; the port
-    stages no embedding column on the device, so its exchange declines and
-    the host shuffle gives the same rows (pinned difference)."""
-    outs = []
+    """An embedding column rides the exchange as a 2-D lane in both
+    packages: the shuffled partitions (six of the eight destinations
+    empty) come back with equal rows and one device shuffle each."""
+    outs, shuffles = [], []
     for pkg in (daft_tpu, daft_tpu_torch):
         emb = pa.FixedSizeListArray.from_arrays(pa.array(np.arange(24, dtype=np.float32)), 4)
         s = pkg.Series.from_arrow(emb, "e", pkg.DataType.embedding(pkg.DataType.float32(), 4))
@@ -420,12 +420,11 @@ def test_mesh_embedding_column_empty_destinations(x64):
             ctx = MeshExecutionContext(cfg, mesh=default_mesh(8))
             out = ctx.try_device_shuffle([MicroPartition.from_table(t)], [pkg.col("k")], 8,
                                          "hash")
-            if pkg is daft_tpu_torch:
-                assert out is None
-                out = MicroPartition.from_table(t).partition_by_hash([pkg.col("k")], 8)
         assert out is not None
         outs.append([p.to_pydict() for p in out])
+        shuffles.append(ctx.stats.counters.get("device_shuffles", 0))
     assert outs[0] == outs[1]
+    assert shuffles[0] == shuffles[1] == 1
     assert sum(len(p["k"]) for p in outs[1]) == 6
 
 

@@ -98,6 +98,14 @@ def test_four_process_cluster_string_shuffle():
         assert int(_line(out, f"MULTIHOST4_OK {i}").split("shuffles=")[1]) >= 1
 
 
+def test_two_process_register_allmerge():
+    """The register merge across processes: all_gather of each process's
+    max, then a max (the mesh's routing declines the multi-process case, as
+    the reference's does, so the collective is driven directly)."""
+    for i, out in enumerate(_spawn("sketch", 2)):
+        assert f"SKETCH_MERGE_OK {i}" in out, out
+
+
 def test_raw_cpu_collective_probe():
     """Pinned difference: the raw cross-process collectives run on gloo, where
     the reference's probe is a strict xfail on its jaxlib's CPU gap."""

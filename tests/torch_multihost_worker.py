@@ -13,6 +13,9 @@ Scenarios:
 - ``four`` (4 processes, 2 slots each): a string shuffle and a grouped
   aggregate against an exact oracle.
 - ``probe``: the raw collectives, ``all_to_all_single`` and ``all_gather``.
+- ``sketch`` (2 processes, 4 slots each): ``build_register_allmerge`` over
+  the global mesh, one seeded HLL register row a slot, against the numpy
+  max of all 8 rows.
 - ``lake`` (2 processes, 4 slots each): the Iceberg table at
   ``TORCH_MH_LAKE`` read through ``read_iceberg`` and summed by key through
   the exchange (its rows printed, and the data files each process opened),
@@ -305,7 +308,23 @@ def probe() -> None:
     done("PROBE_OK")
 
 
+def sketch() -> None:
+    from daft_tpu_torch.kernels.sketches import HLL_M
+    from daft_tpu_torch.parallel.collectives import build_register_allmerge
+
+    mesh = global_mesh(4)
+    assert mesh.size == 4 * nproc
+    every = np.random.RandomState(11).randint(0, 40, (mesh.size, HLL_M)).astype(np.uint8)
+    rows = [torch.from_numpy(every[s]).to(mesh.devices[s]) for s in mesh.local_indices()]
+    got = build_register_allmerge(mesh, HLL_M)(rows)
+    assert got.dtype == torch.uint8 and tuple(got.shape) == (HLL_M,)
+    assert np.array_equal(got.cpu().numpy(), every.max(axis=0))
+    # a process's own rows alone do not give it: the max crossed processes
+    assert not np.array_equal(every[mesh.local_indices()].max(axis=0), every.max(axis=0))
+    done("SKETCH_MERGE_OK")
+
+
 try:
-    {"main": main, "four": four, "probe": probe, "lake": lake}[scenario]()
+    {"main": main, "four": four, "probe": probe, "lake": lake, "sketch": sketch}[scenario]()
 finally:
     shutdown_distributed()
