@@ -272,6 +272,17 @@ Phases, each of which fails the run:
      and sketch.merge; K11 over 4,096 RGB 256 x 256 images (and RGB16 and
      RGB32F batches) against its plain version on the CPU; and, where PIL
      imports, the LAION pipeline over JPEGs served on 127.0.0.1.
+ 21. the distributed runner (needs SF1 in --scales; phase_distributed): two
+     worker processes on the card, each with its own CUDA context, run the
+     map tasks of composed and deep Q1 and Q6 over SF1 lineitem as 8 parquet
+     files (the workers read the files), of Q1 over 8 in-memory partitions,
+     of hash-join Q3 over phase 7's SF1 tables (the peer-to-peer exchange)
+     and of Q1 over the files repartitioned on the workers (pieces pulled
+     peer to peer); each query's rows equal NativeRunner's byte for byte,
+     the driver launches no kernel and the workers launch NativeRunner's
+     (their pongs' counts, a line of the phase's own); a worker SIGKILLed
+     mid-query by worker.exec leaves the rows unchanged and respawns; the
+     pool's shutdown leaves no process.
 
 Every phase runs under the port's defaults: one worker thread per core
 (executor_threads 0) and the morsel pipeline on. The legs whose held counts
@@ -287,15 +298,15 @@ partition on the partition path and in the CPU tests, whose partitions are
 all smaller) and no *_dispatches unit, and the leg holds them, with
 stream_morsels, at those values.
 
-Phases 8-11, phase 15 but its SF1 SQL leg, phases 16 to 18 and phase 20
+Phases 8-11, phase 15 but its SF1 SQL leg, phases 16 to 18, 20 and 21
 run after phase 7 and before phase 4, while the 22-query tables are still
 being generated (BackgroundTables: a process on a core of its own, this
 process's threads on the others until the tables are read; it makes phase
 3's SF10 join tables first, where its temporary directory has room); phase 19 runs
 last, after phase 15's SF1 SQL leg. Phases 1-10 turn feedback-directed
 planning and the whole-plan result cache off (PLAN_PINS): each times its
-plans as written. Every query of phases 1-7 and 9-20 (but the ids' Q6
-and largest id and the fault cases of phases 10-13, 16 and 20) is held
+plans as written. Every query of phases 1-7 and 9-21 (but the ids' Q6
+and largest id and the fault cases of phases 10-13, 16, 20 and 21) is held
 to 0 device_attempt_failures, device_breaker_trips, degraded_completions,
 faults_injected, join_filter_errors and every *_fallbacks counter (phase
 18's armed leg aside; Phases.watch reads them as collect() returns, and each
@@ -7654,6 +7665,299 @@ def phase_sketch_image(ph: Phases, tables: dict, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the distributed runner (worker processes on the card)
+# ---------------------------------------------------------------------------
+
+DIST_WORKERS = 2          # phase 21: distributed_workers
+DIST_PARTS = 8            # phase 21: lineitem as 8 parquet files, and (b)'s partitions
+
+
+def _peer_shuffles_dropped() -> int:
+    """The driver's count of peer-hosted shuffles dropped at query ends: one
+    a shuffle that took the peer-to-peer path."""
+    from daft_tpu_torch.dist.peerplane import plane
+
+    return plane().snapshot()["shuffles_dropped_total"]
+
+
+def worker_imports_clean() -> list:
+    """The modules of JAX or of the JAX package a fresh interpreter holds
+    after importing the worker's entry module (an empty list is clean)."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    code = ("import sys, daft_tpu_torch.dist.worker; print(','.join(sorted(m for m in "
+            "('jax', 'jaxlib', 'daft_tpu') if m in sys.modules)))")
+    res = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
+                         text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": root})
+    if res.returncode != 0:
+        return [f"import failed: {res.stderr.strip()[-300:]}"]
+    return [m for m in res.stdout.strip().split(",") if m]
+
+
+def phase_distributed(ph: Phases, lineitem, tables: dict, q3_oracle: tuple,
+                      card: str) -> dict:
+    """Phase 21: the distributed runner (dist/) with DIST_WORKERS worker
+    processes on the card, each holding its own CUDA context and launching
+    K1 and K2 itself, in the 32-bit mode, under the port's defaults but
+    PLAN_PINS. Phase 3's SF1 lineitem (generate_lineitem_only(1.0,
+    seed=42)) is written as DIST_PARTS parquet files, as phase 13 writes
+    them. (a) Q1 composed (K1), Q1 deep (K2) and Q6 over the files, one
+    scan task a file that the workers read themselves, cold and warm; (b)
+    Q1 over the in-memory lineitem (Q1's columns) in DIST_PARTS partitions,
+    which ship as arrow; (c) hash-join Q3 over phase 7's SF1 tables in
+    DIST_PARTS partitions (broadcast_join_size_bytes_threshold 0,
+    runtime_join_filters off, so that its hash exchanges take the
+    peer-to-peer branch), held by q3_parity to the oracle; (c2) Q1 over the
+    files repartitioned by l_extendedprice: the workers split the files and host
+    the pieces, and the stage-1 tasks pull them from each other. Each
+    query's rows equal, to_arrow().equals, NativeRunner's over the same
+    frames in this phase (each timed cold and warm too), with dist_tasks at
+    least the partitions each query ships, dist_local_fallbacks 0, the
+    workers' device_aggregations (folded back through the telemetry
+    fragments) NativeRunner's, the driver's own K1/K2/scatter launches 0
+    and the workers' (from their pongs) NativeRunner's. A profiled Q1
+    breaks dist.remote into submit (to the frame on the wire) and
+    remote_wait (to the reply). (d) Q1 of (a) with worker.exec armed nth 3:
+    a worker holding the card is SIGKILLed, the query's rows equal, one
+    worker_losses, at least one task_redispatches, and the slot respawns.
+    (e) shutdown_worker_pool() leaves no worker process. Prints the spawn's
+    cold time, torch.cuda.mem_get_info() before the spawn and after (d),
+    each query's walls and the transport's bytes. A fresh interpreter that
+    imports the worker's entry module holds no module of JAX or daft_tpu."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    import daft_tpu_torch as dtt
+    from benchmarks import tpch
+    from daft_tpu_torch import col, faults
+    from daft_tpu_torch.dist import supervisor as sup
+    from daft_tpu_torch.kernels import fused_expr_sums as fes
+    from daft_tpu_torch.kernels import scatter_sums as scs
+    from daft_tpu_torch.kernels import segment_sums as ss
+
+    t_phase = time.perf_counter()
+    out = {"k1_launches": 0, "k2_launches": 0, "scatter_launches": 0, "card": card}
+    ctx = dtt.get_context()
+    leaked = worker_imports_clean()
+    ph.check(not leaked, "SF1 dist: a fresh interpreter importing daft_tpu_torch.dist.worker "
+                         f"holds no module of JAX or daft_tpu ({', '.join(leaked) or 'none'})")
+    root = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    try:
+        dtt.set_execution_config(config())
+        ctx.set_runner("native")
+        paths = dtt.from_arrow(lineitem).into_partitions(DIST_PARTS).write_parquet(
+            os.path.join(root, "lineitem")).to_pydict()["path"]
+        li_q1 = dtt.from_arrow(lineitem.select(list(Q1_COLUMNS))).into_partitions(
+            DIST_PARTS).collect()
+        parts8 = {k: dtt.from_arrow(tables[k]).into_partitions(DIST_PARTS).collect()
+                  for k in ("customer", "orders", "lineitem")}
+        want3, groups3 = q3_oracle
+        oracle1 = tpch.oracle_q1(lineitem)
+        want = {"q1": oracle1, "q6": {"revenue": [tpch.oracle_q6(lineitem)]}}
+
+        def files():
+            return dtt.read_parquet(paths)
+
+        scan_kw = {"scan_tasks_min_size_bytes": 1}
+        # name -> (make the query, config, partitions each stage ships at
+        # least, the launches' kernel, the check against the oracle)
+        queries = {
+            "q1_files": (lambda: q1(files()), scan_kw, DIST_PARTS, "k1",
+                         lambda g: parity(g, want["q1"], RTOL)),
+            "q1_deep_files": (lambda: q1(files()), {**scan_kw, "use_deep_fusion_kernel": True},
+                              DIST_PARTS, "k2", lambda g: parity(g, want["q1"], RTOL)),
+            "q6_files": (lambda: q6(files()), scan_kw, DIST_PARTS, "k1",
+                         lambda g: parity(g, want["q6"], RTOL)),
+            "q1_arrow": (lambda: q1(li_q1), {}, DIST_PARTS, "k1",
+                         lambda g: parity(g, want["q1"], RTOL)),
+            "q3_hash": (lambda: q3(parts8["customer"], parts8["orders"], parts8["lineitem"]),
+                        {"broadcast_join_size_bytes_threshold": 0,
+                         "runtime_join_filters": False}, DIST_PARTS, None,
+                        lambda g: q3_parity(g, want3, groups3, RTOL)),
+            # by a column Q1 reads: the optimizers of both packages prune a
+            # repartition key that nothing above the exchange reads
+            "q1_peer_files": (lambda: q1(files().repartition(DIST_PARTS,
+                                                             col("l_extendedprice"))),
+                              scan_kw, DIST_PARTS, "k1",
+                              lambda g: parity(g, want["q1"], RTOL)),
+        }
+
+        def run(make_df, kw, workers, profile=False):
+            dtt.set_execution_config(config(distributed_workers=workers, **kw))
+            ss.LAUNCHES = fes.LAUNCHES = scs.LAUNCHES = 0
+            t0 = time.perf_counter()
+            df = make_df().collect(profile=True) if profile else make_df().collect()
+            got = df.to_arrow()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = {"k1": ss.LAUNCHES, "k2": fes.LAUNCHES, "scatter": scs.LAUNCHES}
+            for k, v in launches.items():
+                out[f"{k}_launches"] += v
+            return df, got, secs, launches, df.stats.snapshot()["counters"]
+
+        # NativeRunner first: its rows, walls, launches and routing
+        native = {}
+        for name, (make_df, kw, _, _, _) in queries.items():
+            _, got, cold, launches, c = run(make_df, kw, 0)
+            _, _, warm, _, _ = run(make_df, kw, 0)
+            native[name] = (got, cold, warm, launches, c)
+
+        # the spawn, cold: DIST_WORKERS interpreters that import the port and
+        # ready the card (worker.ready_device) before their hellos
+        torch.cuda.synchronize()
+        free0, total = torch.cuda.mem_get_info()
+        dtt.set_execution_config(config(distributed_workers=DIST_WORKERS))
+        t0 = time.perf_counter()
+        pool = sup.get_worker_pool(ctx.execution_config)
+        spawn_s = time.perf_counter() - t0
+        free1, _ = torch.cuda.mem_get_info()
+        snap = pool.snapshot()
+        out["spawn"] = {"workers": DIST_WORKERS, "spawn_s": spawn_s,
+                        "free_before_bytes": free0, "free_after_spawn_bytes": free1,
+                        "total_bytes": total, "card": card}
+        print("SF1 dist spawn " + json.dumps(out["spawn"]), flush=True)
+        ph.check(snap["workers_alive"] == DIST_WORKERS and type(ctx.runner()).__name__
+                 == "DistributedRunner",
+                 f"SF1 dist: {snap['workers_alive']} of {DIST_WORKERS} workers up in "
+                 f"{spawn_s:.2f}s, the runner is {type(ctx.runner()).__name__}")
+
+        results = {}
+        for name, (make_df, kw, min_tasks, kernel, check) in queries.items():
+            n_got, n_cold, n_warm, n_launches, nc = native[name]
+            before = pool.kernel_launches()
+            bytes0 = pool.snapshot()["driver_payload_bytes_total"]
+            peer0 = _peer_shuffles_dropped()
+            df, got, cold, launches, c = run(make_df, kw, DIST_WORKERS)
+            after = pool.kernel_launches()
+            wire = pool.snapshot()["driver_payload_bytes_total"] - bytes0
+            peer = _peer_shuffles_dropped() - peer0
+            _, got_w, warm, _, _ = run(make_df, kw, DIST_WORKERS)
+            worker_launches = {k: sum(after.get(w, {}).get(k, 0) - before.get(w, {}).get(k, 0)
+                                      for w in after) for k in ("k1", "k2", "scatter")}
+            rows = got.to_pydict()
+            label = f"SF1 dist {name}"
+            ph.check(got.equals(n_got) and got_w.equals(n_got) and check(rows),
+                     f"{label}: cold and warm rows equal NativeRunner's (to_arrow().equals) "
+                     f"and the oracle's")
+            ph.check(c.get("dist_tasks", 0) >= min_tasks
+                     and c.get("dist_local_fallbacks", 0) == 0,
+                     f"{label}: dist_tasks {c.get('dist_tasks', 0)} (>= {min_tasks}), "
+                     f"dist_local_fallbacks {c.get('dist_local_fallbacks', 0)}")
+            ph.check(launches == {"k1": 0, "k2": 0, "scatter": 0}
+                     and worker_launches == n_launches
+                     and c.get("device_aggregations", 0) == nc.get("device_aggregations", 0)
+                     and (kernel is None or worker_launches[kernel] >= 1),
+                     f"{label}: the driver launched {launches}, the workers {worker_launches} "
+                     f"(NativeRunner {n_launches}); device_aggregations "
+                     f"{c.get('device_aggregations', 0)} folded back from the workers "
+                     f"(NativeRunner {nc.get('device_aggregations', 0)})")
+            if name in ("q3_hash", "q1_peer_files"):
+                ph.check(peer >= 1, f"{label}: {peer} exchange(s) took the peer-to-peer path")
+            if name == "q1_peer_files":
+                ph.check(c.get("peer_fetches", 0) >= 1,
+                         f"{label}: the stage-1 tasks pulled {c.get('peer_fetches', 0)} pieces "
+                         f"({c.get('peer_bytes_fetched', 0)} bytes) from the workers hosting "
+                         f"them")
+            results[name] = {"cold_s": cold, "warm_s": warm, "native_cold_s": n_cold,
+                             "native_warm_s": n_warm, "dist_tasks": c.get("dist_tasks", 0),
+                             "driver_bytes": wire, "peer_shuffles": peer,
+                             "peer_fetches": c.get("peer_fetches", 0),
+                             "telemetry_merged": c.get("telemetry_merged", 0),
+                             "worker_launches": worker_launches, "card": card}
+            print(f"{label} " + json.dumps(results[name]), flush=True)
+            del df
+        out["queries"] = results
+
+        # a profiled Q1: dist.remote's split
+        df, got, _, _, _ = run(queries["q1_files"][0], scan_kw, DIST_WORKERS, profile=True)
+        spans = [s for s in df.stats.profiler.spans_snapshot() if s.name == "dist.remote"]
+        split = {k: sum((s.phases or {}).get(k, 0) for s in spans) / 1e6
+                 for k in ("submit", "remote_wait")}
+        wall = sum(s.dur_ns for s in spans) / 1e6
+        worker_task = sum(s.dur_ns for s in df.stats.profiler.spans_snapshot()
+                          if s.name == "worker.task") / 1e6
+        out["remote_split"] = {"tasks": len(spans), "dist_remote_ms": wall,
+                               "submit_ms": split["submit"], "remote_wait_ms":
+                               split["remote_wait"], "worker_task_ms": worker_task,
+                               "card": card}
+        print("SF1 dist remote split " + json.dumps(out["remote_split"]), flush=True)
+        ph.check(len(spans) >= DIST_PARTS and got.equals(native["q1_files"][0])
+                 and split["remote_wait"] > 0 and worker_task > 0,
+                 f"SF1 dist profiled Q1: {len(spans)} dist.remote spans, submit "
+                 f"{split['submit']:.2f} ms, remote_wait {split['remote_wait']:.2f} ms, the "
+                 f"workers' spliced worker.task spans {worker_task:.2f} ms")
+        del df
+
+        # (d) a worker SIGKILLed while it holds the card
+        ph.begin(None)  # the armed leg injects a fault: its own checks read it
+        make_df, kw = queries["q1_files"][0], queries["q1_files"][1]
+        pids0 = dict(pool.worker_pids())
+        faults.arm("worker.exec", "nth", n=3)
+        try:
+            df, got, secs, launches, c = run(make_df, kw, DIST_WORKERS)
+        finally:
+            faults.disarm()
+        rec = df.last_query_record()
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline and pool.snapshot()["workers_alive"] < DIST_WORKERS:
+            time.sleep(0.1)
+        snap = pool.snapshot()
+        pids1 = dict(pool.worker_pids())
+        ph.check(got.equals(native["q1_files"][0])
+                 and rec["events"].get("worker_losses", 0) == 1
+                 and rec["events"].get("task_redispatches", 0) >= 1,
+                 f"SF1 dist (d) worker.exec nth 3: the rows equal NativeRunner's, "
+                 f"worker_losses {rec['events'].get('worker_losses', 0)}, task_redispatches "
+                 f"{rec['events'].get('task_redispatches', 0)}, {secs:.2f}s")
+        ph.check(snap["workers_alive"] == DIST_WORKERS and snap["restarts_used"] >= 1
+                 and pids1 != pids0,
+                 f"SF1 dist (d): the slot respawned ({snap['workers_alive']} alive, "
+                 f"restarts_used {snap['restarts_used']}, pids {pids0} -> {pids1})")
+        # past one more heartbeat deadline: the respawn ran beside the
+        # supervision, so no live worker missed its pings meanwhile
+        time.sleep(ctx.execution_config.worker_heartbeat_timeout_s + 1.0)
+        losses = pool.snapshot()["worker_losses_total"]
+        ph.check(losses == 1 and pool.snapshot()["workers_alive"] == DIST_WORKERS,
+                 f"SF1 dist (d): worker_losses_total {losses} in the phase (the one SIGKILL): no "
+                 f"worker missed its heartbeat deadline while the slot respawned")
+        torch.cuda.synchronize()
+        free2, _ = torch.cuda.mem_get_info()
+        out["kill"] = {"wall_s": secs, "free_after_d_bytes": free2,
+                       "worker_losses": rec["events"].get("worker_losses", 0),
+                       "task_redispatches": rec["events"].get("task_redispatches", 0),
+                       "card": card}
+        print("SF1 dist kill " + json.dumps(out["kill"]), flush=True)
+        del df
+        ph.begin("phase 21")
+
+        # (e) the pool's shutdown
+        out["transport_bytes"] = pool.snapshot()["driver_payload_bytes_total"]
+        sup.shutdown_worker_pool()
+        live = sup.live_worker_process_count()
+        ph.check(live == 0, f"SF1 dist (e): {live} worker processes after "
+                            f"shutdown_worker_pool() (transport {out['transport_bytes']} bytes "
+                            f"through the driver in the phase)")
+    finally:
+        faults.disarm()
+        sup.shutdown_worker_pool()
+        ctx.set_runner("native")
+        dtt.set_execution_config(config())
+        shutil.rmtree(root, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"SF1 dist phase 21 wall {out['wall_s']:.1f}s, driver launches K1 "
+          f"{out['k1_launches']} K2 {out['k2_launches']} scatter {out['scatter_launches']}; "
+          "worker launches " + json.dumps({n: r["worker_launches"] for n, r in
+                                          out["queries"].items()}) + f" ({card})", flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
 def _walk(p):
     yield p
     for c in p.children():
@@ -7842,6 +8146,7 @@ def main(argv=None) -> int:
         if scales:
             faults_out = relational = spill = adapt = scans = prefetch_write = columnar = None
             sql_udf = observability = scheduling = mesh = io_out = sketch_image = None
+            distributed = None
             if 1.0 in scales:
                 # phases 8-11 read phase 3's and phase 7's SF1 tables alone, so
                 # they run while the 22-query tables are still being generated
@@ -7882,6 +8187,11 @@ def main(argv=None) -> int:
                 print(f"elapsed {time.perf_counter() - started:.1f}s: phase 20", flush=True)
                 ph.begin("phase 20")
                 sketch_image = phase_sketch_image(ph, join_tables, card)
+                # phase 21 too: phase 3's SF1 lineitem and phase 7's SF1 tables
+                print(f"elapsed {time.perf_counter() - started:.1f}s: phase 21", flush=True)
+                ph.begin("phase 21")
+                distributed = phase_distributed(ph, sf1_lineitem, join_tables, q3_oracle_sf1,
+                                                card)
             t0 = time.perf_counter()
             data = big.get()
             print(f"SF1: 22-query tables ready {time.perf_counter() - big.started:.1f}s after "
@@ -7937,7 +8247,8 @@ def main(argv=None) -> int:
                  ("adapt", adapt), ("scan", scans), ("prefetch_write", prefetch_write),
                  ("columnar", columnar), ("sql_udf", sql_udf),
                  ("observability", observability), ("scheduling", scheduling),
-                 ("mesh", mesh), ("io", io_out), ("sketch_image", sketch_image)]
+                 ("mesh", mesh), ("io", io_out), ("sketch_image", sketch_image),
+                 ("distributed", distributed)]
                 if faults_out is not None else [])
             for name, ph_out in phase_outs:
                 k1_entry[f"launches_{name}"] = ph_out["k1_launches"]

@@ -40,6 +40,9 @@ time and how the engine is doing (profile/, obs/, tracing.py).
 ``set_runner_mesh()`` (or ``runners.MeshRunner(parallel.default_mesh(8))``)
 runs the shuffles over a mesh of slots (parallel/); ``parallel.init_distributed``
 and ``parallel.global_mesh`` span processes over torch.distributed.
+``set_execution_config(distributed_workers=N)`` runs the map tasks on N
+supervised worker processes (dist/, ``DistributedRunner``), each on the
+config's device.
 
 Entry points run on the card (``ExecutionConfig.device == "cuda"``) unless
 the caller asks for the CPU with ``set_execution_config(device="cpu")``.

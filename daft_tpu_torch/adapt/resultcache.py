@@ -195,6 +195,11 @@ def try_result_cache(op, ctx, build) -> Optional[Iterator]:
         return None
     if ctx.partitions_pinned:
         return None  # a mesh or a multi-process run: partitions may be foreign-owned
+    if getattr(ctx, "dist_backend", None) is not None:
+        # the distributed runner: the workers read their scan tasks
+        # themselves, and replaying a driver-pinned prefix would pull the
+        # whole scan back into the driver
+        return None
     skip = getattr(ctx, "_rc_inner_ops", None)
     if skip is not None and id(op) in skip:
         return None  # an op inside a prefix already being teed above

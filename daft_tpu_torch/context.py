@@ -43,13 +43,27 @@ streaming knobs (``streaming_execution``, ``morsel_size_rows``,
 ``stream_channel_capacity``, ``stream_producer_window``) shape the morsel
 pipeline (stream/).
 
+The distributed knobs take the reference's defaults:
+``distributed_workers`` (0: off) sizes the pool of worker processes
+(dist/), ``worker_heartbeat_interval_s``/``_timeout_s``,
+``worker_spawn_timeout_s``, ``worker_restart_budget`` and
+``dist_task_max_attempts`` bound its supervision, ``cluster_telemetry``
+folds the workers' telemetry into the query, ``peer_shuffle`` keeps
+shuffle pieces on the workers, ``distributed_workers_min``/``_max`` with
+``elastic_*`` scale it, ``worker_drain_grace_s``/``_timeout_s`` bound a
+drain, and the ``speculat*`` knobs duplicate straggling tasks. Each worker
+runs under this config's ``device``.
+
 The runner is NativeRunner unless ``set_runner_mesh()`` (or
 ``set_runner("mesh")``, or DAFT_TPU_TORCH_RUNNER=mesh at import) selects
-``MeshRunner`` over ``default_mesh()``; an installed runner
+``MeshRunner`` over ``default_mesh()``, or ``set_runner("distributed")``
+(or DAFT_TPU_TORCH_RUNNER=distributed) the ``DistributedRunner``;
+``distributed_workers > 0`` alone also selects it while the runner is
+native, and 0 goes back. An installed runner
 (``ctx._runner = MeshRunner(mesh)``) is kept until the next ``set_runner``.
 
-Left out: the rest of the planning config (the artifact directory), the
-serving knobs and the distributed runner (ROADMAP Queue 1, item 10).
+Left out: the rest of the planning config (the artifact directory) and the
+serving knobs (ROADMAP Queue 1, item 10).
 """
 
 from __future__ import annotations
@@ -253,6 +267,50 @@ class ExecutionConfig:
     # diagnostics_keep_last stay
     diagnostics_dir: Optional[str] = None
     diagnostics_keep_last: int = 20
+    # the distributed runner (dist/): worker processes the map-class
+    # partition tasks ship to over the checksummed socket transport. 0 is
+    # off; N spawns N workers, each with a carved share of the memory budget
+    # (memory_budget_bytes // (N + 1), the driver keeps one share), each
+    # running its tasks on this config's device. The rows equal
+    # NativeRunner's at every N
+    distributed_workers: int = 0
+    # the driver pings every worker at this interval and declares one dead
+    # when no pong came within the timeout: its in-flight tasks re-dispatch
+    worker_heartbeat_interval_s: float = 0.5
+    worker_heartbeat_timeout_s: float = 5.0
+    # spawn-to-handshake deadline of one worker process
+    worker_spawn_timeout_s: float = 60.0
+    # worker respawns the pool may spend in its lifetime (initial spawns are
+    # free); spent, the pool degrades to in-process execution
+    worker_restart_budget: int = 8
+    # dispatch attempts of one task across worker losses: a task that kills
+    # every worker it touches fails its query with a DaftError naming it
+    dist_task_max_attempts: int = 4
+    # workers piggyback a bounded telemetry fragment (spans, counter deltas,
+    # log tail) on every reply, merged into the query (obs/cluster.py)
+    cluster_telemetry: bool = True
+    # hash and random shuffles fan out on the workers, which host their
+    # pieces; a reduce bucket is a map of piece locations pulled peer to
+    # peer (dist/peerplane.py). The rows equal those with it off
+    peer_shuffle: bool = True
+    # the elastic pool: with both bounds set the live worker count scales
+    # inside [min, max]; unset keeps the fixed-size pool
+    distributed_workers_min: Optional[int] = None
+    distributed_workers_max: Optional[int] = None
+    elastic_scale_interval_s: float = 0.5
+    elastic_idle_scale_down_s: float = 10.0
+    # a draining worker takes no task but serves its pieces for the grace
+    # window; one whose task outlives the timeout is killed and the task
+    # re-dispatches
+    worker_drain_grace_s: float = 2.0
+    worker_drain_timeout_s: float = 10.0
+    # a remote task past speculation_quantile_factor x its op's p75 task
+    # wall (at least speculation_min_s) gets a duplicate on another worker;
+    # the first result wins, at most speculation_max_inflight at once
+    speculative_execution: bool = True
+    speculation_quantile_factor: float = 3.0
+    speculation_min_s: float = 1.0
+    speculation_max_inflight: int = 2
 
 
 # daft_tpu ExecutionConfig field (or "jax_enable_x64") -> port field
@@ -314,6 +372,24 @@ _FROM_REFERENCE = {
     "slow_query_threshold_s": "slow_query_threshold_s",
     "diagnostics_dir": "diagnostics_dir",
     "diagnostics_keep_last": "diagnostics_keep_last",
+    "distributed_workers": "distributed_workers",
+    "worker_heartbeat_interval_s": "worker_heartbeat_interval_s",
+    "worker_heartbeat_timeout_s": "worker_heartbeat_timeout_s",
+    "worker_spawn_timeout_s": "worker_spawn_timeout_s",
+    "worker_restart_budget": "worker_restart_budget",
+    "dist_task_max_attempts": "dist_task_max_attempts",
+    "cluster_telemetry": "cluster_telemetry",
+    "peer_shuffle": "peer_shuffle",
+    "distributed_workers_min": "distributed_workers_min",
+    "distributed_workers_max": "distributed_workers_max",
+    "elastic_scale_interval_s": "elastic_scale_interval_s",
+    "elastic_idle_scale_down_s": "elastic_idle_scale_down_s",
+    "worker_drain_grace_s": "worker_drain_grace_s",
+    "worker_drain_timeout_s": "worker_drain_timeout_s",
+    "speculative_execution": "speculative_execution",
+    "speculation_quantile_factor": "speculation_quantile_factor",
+    "speculation_min_s": "speculation_min_s",
+    "speculation_max_inflight": "speculation_max_inflight",
     "jax_enable_x64": "device_x64",
 }
 
@@ -374,18 +450,35 @@ class DaftContext:
             return cls._instance
 
     def runner(self):
-        if self._runner is None:
-            from .runners import MeshRunner, NativeRunner
+        from .runners import MeshRunner, NativeRunner
 
-            self._runner = MeshRunner() if self._runner_name == "mesh" else NativeRunner()
+        if self._runner is None:
+            if self._runner_name == "mesh":
+                self._runner = MeshRunner()
+            elif self._runner_name == "distributed":
+                from .dist.runner import DistributedRunner
+
+                self._runner = DistributedRunner()
+            else:
+                self._runner = NativeRunner()
+        if self._runner_name == "native":
+            # distributed_workers alone turns the distributed runner on and
+            # off; an installed runner (a mesh, a test's own) is kept
+            dw = self.execution_config.distributed_workers
+            if dw > 0 and type(self._runner) is NativeRunner:
+                from .dist.runner import DistributedRunner
+
+                self._runner = DistributedRunner()
+            elif dw == 0 and type(self._runner).__name__ == "DistributedRunner":
+                self._runner = NativeRunner()
         return self._runner
 
     def set_runner(self, name: str) -> None:
-        """Select the runner by name: ``native`` or ``mesh``."""
+        """Select the runner by name: ``native``, ``mesh`` or ``distributed``."""
         from .errors import DaftValueError
 
-        if name not in ("native", "mesh"):
-            raise DaftValueError(f"unknown runner {name!r} (the port has native and mesh)")
+        if name not in ("native", "mesh", "distributed"):
+            raise DaftValueError(f"unknown runner {name!r}")
         self._runner_name = name
         self._runner = None
 

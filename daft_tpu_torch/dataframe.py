@@ -381,13 +381,15 @@ class DataFrame:
 
     def to_ray_dataset(self):
         """A Ray Dataset of the rows; needs ``ray``, which the port does not
-        depend on (the mesh runner is its distributed backend)."""
+        depend on (its distributed backends are the mesh runner and the
+        runner of worker processes, dist/)."""
         try:
             import ray.data  # noqa: F401
         except ImportError as e:
             raise ImportError(
                 "to_ray_dataset requires ray, which is not installed; "
-                "distributed execution here runs on the mesh runner (MeshRunner)") from e
+                "distributed execution here runs on the mesh runner (MeshRunner) or on "
+                "worker processes (distributed_workers)") from e
         import ray.data as rd
 
         return rd.from_arrow(self.to_arrow())

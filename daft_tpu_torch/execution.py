@@ -129,8 +129,13 @@ partition instead of reading its file (``with_pending_op``), and a plan
 segment declines it. Every map output carries its input's
 ``owner_process``.
 
-Left out: the dispatch backend of worker processes and its peer
-shuffles (ROADMAP Queue 1, item 10).
+The distributed runner (dist/) attaches a dispatch backend
+(``dist_backend``, its WorkerPool): map partitions then run through
+``_parallel_map`` on worker processes, the device-pipelinable ones among
+them (each worker launches the kernels itself), and the pool covers the
+fleet (``num_workers``). Shuffles whose pieces stay on the workers
+(``register_peer_shuffle``) are dropped at ``finish_query``, after the root
+outputs were made local.
 """
 
 from __future__ import annotations
@@ -562,6 +567,18 @@ class ExecutionContext:
         # generator is out of reach (an op above it raised, and the
         # traceback keeps its suspended frame and its producers alive)
         self._active_streams: dict = {}
+        # the dispatch backend of map-class partition tasks
+        # (scheduler.DispatchBackend): None is the in-process pool; the
+        # DistributedRunner attaches its WorkerPool
+        self.dist_backend = None
+        # shuffle ids whose pieces live on the workers (dist/peerplane.py):
+        # finish_query drops them fleet-wide, once every root output has been
+        # made local (_rooted)
+        self._peer_shuffles: set = set()
+
+    def register_peer_shuffle(self, sid: int) -> None:
+        """Record a peer-hosted shuffle, dropped when the query finishes."""
+        self._peer_shuffles.add(sid)
 
     def check_deadline(self) -> None:
         """Raise DaftTimeoutError, carrying the stats so far, once the
@@ -623,10 +640,14 @@ class ExecutionContext:
     def num_workers(self) -> int:
         """The query's worker count (``resolve_executor_threads``): more than
         one runs map partitions, shuffle fan-outs and stream producers at
-        once."""
+        once. Under a distributed backend it covers the whole fleet and one
+        more: a remote task holds a pool thread for its round trip."""
         from .context import resolve_executor_threads
 
-        return resolve_executor_threads(self.cfg)
+        n = resolve_executor_threads(self.cfg)
+        if self.dist_backend is not None:
+            n = max(n, self.dist_backend.capacity() + 1)
+        return n
 
     def register_stream(self, shutdown) -> object:
         """Track a running stream segment's shutdown for the teardown; the
@@ -716,13 +737,22 @@ class ExecutionContext:
         return part
 
     def finish_query(self) -> None:
-        """Release every buffer's bytes and remove the spill directory."""
+        """Release every buffer's bytes, remove the spill directory and drop
+        the query's peer-hosted shuffle pieces on every worker."""
         for b in self._buffers:
             b.release()
         self._buffers.clear()
         if self._spill_scope is not None:
             self._spill_scope.cleanup()
             self._spill_scope = None
+        if self._peer_shuffles:
+            sids, self._peer_shuffles = list(self._peer_shuffles), set()
+            drop = getattr(self.dist_backend, "drop_shuffles", None)
+            if drop is not None:
+                try:
+                    drop(sids)
+                except Exception:
+                    pass  # the pool mid-teardown: workers free them at exit
 
     # ------------------------------------------------------- breaker gates
     def _device_allowed(self) -> bool:
@@ -1386,13 +1416,19 @@ def execute_plan(root: PhysicalOp, ctx: ExecutionContext) -> Iterator[MicroParti
         if pipe is not None:
             return pipe
         child_streams = [build(c) for c in op.children]
-        if getattr(op, "batch_declared", False):
+        if getattr(op, "batch_declared", False) and ctx.dist_backend is None:
             # a batch-declared UDF op coalesces across partitions itself: a
-            # fan-out would pin each batch to one partition
+            # fan-out would pin each batch to one partition. Under a
+            # distributed backend it falls through: the workers run its
+            # map_partition and host the model actors in their processes
             return _traced(op, op.execute(child_streams, ctx), ctx)
         if (parallel and op.map_partition is not None and len(child_streams) == 1
                 and op.parallel_safe()):
-            if op.device_pipelinable(ctx) and not op_resource_request(op):
+            # under a distributed backend the workers run the device path
+            # themselves (each launches K1 and K2 on its own context), so
+            # every map partition ships through the fan-out
+            if (op.device_pipelinable(ctx) and not op_resource_request(op)
+                    and ctx.dist_backend is None):
                 # the card runs one partition after another: the first
                 # partition's dispatch picks the double-buffered driver, or
                 # the fan-out when it declines
@@ -1430,6 +1466,13 @@ def _rooted(stream: Iterator[MicroPartition], ctx: ExecutionContext, root: Physi
                 part = next(it, _DONE)
             if part is _DONE:
                 break
+            if ctx._peer_shuffles:
+                # a root output over peer-hosted pieces must not outlive
+                # them: made local before finish_query drops the shuffles
+                from .dist.peerplane import ensure_local
+
+                with obs_log.query_context(query_id):
+                    ensure_local(part)
             n = len(part)
             if n:
                 rows_out += n
@@ -1531,10 +1574,11 @@ def _parallel_map(op: PhysicalOp, child: Iterator[MicroPartition],
     name = op.name()
     req = op_resource_request(op)
 
-    def run_one(part):
-        out, dt = run_map_task(op, part, ctx)
-        n = out.num_rows_or_none()
-        rows = n if n is not None else 0
+    def run_one(part, seq=0):
+        out, rows, dt = run_map_task(op, part, ctx, name, seq)
+        if rows is None:
+            n = out.num_rows_or_none()
+            rows = n if n is not None else 0
         ctx.stats.record_op(name, rows, dt, _part_bytes(out))
         prof = ctx.stats.profiler
         if prof.armed:
@@ -1549,7 +1593,7 @@ def _parallel_map(op: PhysicalOp, child: Iterator[MicroPartition],
         nonlocal saw_any
         for i, part in enumerate(child):
             saw_any = True
-            yield PartitionTask(part, run_one, req, name, i)
+            yield PartitionTask(part, lambda p, _i=i: run_one(p, _i), req, name, i)
 
     for out in dispatch(tasks(), ctx):
         n = out.num_rows_or_none()

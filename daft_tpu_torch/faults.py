@@ -17,6 +17,9 @@ Plans are deterministic: ``always`` / ``first_n`` / ``nth`` fire by call
 count; ``rate`` hashes (seed, site, call#), so one seed gives one failure
 sequence on every run.
 
+``arm_from_env`` arms the plans a parent process put in
+``DAFT_TPU_TORCH_DIST_FAULT_SPEC``, in a distributed worker at its start.
+
 A fired fault counts as ``faults_injected`` on the query's stats, records a
 ``fault_injected`` event in a profiled query and a ``fault:<site>`` instant
 in an armed chrome trace.
@@ -92,6 +95,41 @@ SITES = {
     "actor.load": "each pinned-model actor-pool construction (batch/actors.py; "
                   "a failed model load surfaces as a DaftResourceError naming "
                   "the model, with no half-initialized pool left)",
+    "worker.spawn": "each distributed-worker process spawn attempt "
+                    "(dist/supervisor.py; a failure consumes restart budget "
+                    "and the pool degrades, never hangs)",
+    "worker.exec": "each task dispatch to a distributed worker "
+                   "(dist/supervisor.py; an injected fault SIGKILLs the target "
+                   "worker, the deterministic kill-a-worker-mid-query hook, and "
+                   "the task re-dispatches to a surviving worker)",
+    "worker.heartbeat": "each supervision-loop heartbeat check of one worker "
+                        "(dist/supervisor.py; an injected fault reads as a "
+                        "missed deadline: the worker is declared dead and its "
+                        "in-flight tasks re-dispatch)",
+    "worker.task": "each task execution on a distributed worker "
+                   "(dist/worker.py; armable per worker through "
+                   "DAFT_TPU_TORCH_DIST_FAULT_SPEC: a delay_s plan slows the "
+                   "worker instead of failing it, the straggler hook behind "
+                   "speculative execution)",
+    "worker.drain": "each graceful worker drain request (dist/supervisor.py; "
+                    "an injected fault degrades the drain to the SIGKILL and "
+                    "re-dispatch path, never a hung quiesce)",
+    "transport.send": "each framed send on the worker transport "
+                      "(dist/transport.py; a failed send marks the connection "
+                      "dead and the supervision layer re-dispatches)",
+    "transport.corrupt": "each checksummed transport frame send "
+                         "(dist/transport.py; an injected fault flips a real "
+                         "bit in the payload after its crc was computed: the "
+                         "receiver's verify raises DaftCorruptionError and the "
+                         "supervision layer re-dispatches)",
+    "telemetry.fragment": "each worker telemetry-fragment merge in the driver "
+                          "(obs/cluster.py; an injected fault drops the "
+                          "fragment: telemetry_dropped counts it, the task's "
+                          "result is untouched and nothing re-dispatches)",
+    "peer.fetch": "each peer-shuffle piece fetch at the read site "
+                  "(dist/peerplane.py; an injected fault reads as a dead peer: "
+                  "the fetcher recomputes the lost piece from its lineage "
+                  "recipe, peer_refetches)",
 }
 
 
@@ -225,6 +263,47 @@ def check(site: str, stats=None) -> None:
         time.sleep(plan.delay_s)
         return
     raise plan.exc(plan.message or f"injected fault at {site} (call #{call_no})")
+
+
+# set by a parent process before it spawns workers, so that fault plans
+# cross the process boundary (module-global plans do not): a JSON object, or
+# a list of them, with site/mode/n/rate/seed/delay_s and an optional
+# worker_id that scopes the plan to one worker slot
+ENV_FAULT_SPEC = "DAFT_TPU_TORCH_DIST_FAULT_SPEC"
+
+
+def arm_from_env(worker_id: Optional[int] = None) -> int:
+    """Arm the plans of :data:`ENV_FAULT_SPEC` (the distributed worker's
+    entry point calls this at startup). Returns how many were armed; a
+    malformed spec arms nothing, so that a spec never crashes a worker."""
+    import json
+    import os
+
+    raw = os.environ.get(ENV_FAULT_SPEC)
+    if not raw:
+        return 0
+    try:
+        specs = json.loads(raw)
+    except ValueError:
+        return 0
+    if isinstance(specs, dict):
+        specs = [specs]
+    armed = 0
+    for spec in specs:
+        if not isinstance(spec, dict) or "site" not in spec:
+            continue
+        target = spec.get("worker_id")
+        if target is not None and worker_id is not None and int(target) != int(worker_id):
+            continue
+        try:
+            arm(spec["site"], spec.get("mode", "always"),
+                n=int(spec.get("n", 1)), rate=float(spec.get("rate", 0.0)),
+                seed=int(spec.get("seed", 0)),
+                delay_s=float(spec.get("delay_s", 0.0)))
+            armed += 1
+        except Exception:
+            continue
+    return armed
 
 
 def snapshot() -> dict:

@@ -151,6 +151,18 @@ class FusedMapOp(PhysicalOp):
         self._recorded_for = None  # the RuntimeStats of the query that recorded
         self._record_lock = threading.Lock()
 
+    # per-process coordination state, not the program: a FusedMapOp shipped
+    # to a distributed worker records against that process's stats
+    def __getstate__(self):
+        state = dict(self.__dict__)
+        state.pop("_record_lock", None)
+        state["_recorded_for"] = None
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._record_lock = threading.Lock()
+
     def _record(self, ctx) -> None:
         with self._record_lock:
             if self._recorded_for is ctx.stats:

@@ -247,6 +247,25 @@ class DeviceSegmentOp(PhysicalOp):
         self._resident_for = None  # ... and residency
         self._record_lock = threading.Lock()  # pool threads run partitions at once
 
+    # per-process coordination state, not the program, as in FusedMapOp; the
+    # retained staged ops ship without the plan below them (the dispatch
+    # backend strips this op's own children the same way)
+    def __getstate__(self):
+        import copy
+
+        state = dict(self.__dict__)
+        state.pop("_record_lock", None)
+        state["_recorded_for"] = state["_resident_for"] = None
+        for k in ("map_op", "agg_op"):
+            op = copy.copy(state[k])
+            op.children = []
+            state[k] = op
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._record_lock = threading.Lock()
+
     def _record(self, ctx) -> None:
         """Once per query: the fusion counters the staged plan would have
         bumped, so counters read the same with residency on or off."""

@@ -36,8 +36,14 @@ pieces, a scan-task wrapper) carries it through ``derived_from``. A map op
 over a foreign-owned unloaded partition does not read the file:
 ``with_pending_op`` appends it to a chain of deferred Table -> Table steps,
 replayed when the partition materializes (so a consumer that does read it
-gets the post-op rows). Left out of this slice: pickling for worker
-processes.
+gets the post-op rows).
+
+Pickling (the distributed runner's transport, dist/): a loaded partition
+ships its tables, an unloaded one its scan task (the worker reads the file
+itself; a readahead wrapper ships the task it wraps). A deferred chain of
+ops is made of closures, so such a partition loads first (the dispatch
+backend declines it anyway). The staged columns of ``device_stage_cache``
+never ship: they are tensors of this process's card.
 """
 
 from __future__ import annotations
@@ -94,6 +100,31 @@ class MicroPartition:
 
     def device_stage_cache(self) -> Dict[Any, Any]:
         return self._device_cache
+
+    # ------------------------------------------------------------- pickling
+    def __getstate__(self):
+        with self._lock:
+            if self._scan_task is None:
+                return {"schema": self.schema, "tables": list(self._tables),
+                        "stats": self._stats, "owner": self.owner_process}
+            if not self._pending:
+                task = self._scan_task
+                return {"schema": self.schema, "scan_task": getattr(task, "_task", task),
+                        "stats": self._stats, "owner": self.owner_process}
+        return {"schema": self.schema, "tables": [self.table()], "stats": self._stats,
+                "owner": self.owner_process}
+
+    def __setstate__(self, state):
+        self.schema = state["schema"]
+        self._tables = state.get("tables")
+        self._scan_task = state.get("scan_task")
+        self._stats = state.get("stats")
+        self._lock = threading.Lock()
+        self._device_cache = {}
+        self.lineage_recipe = None
+        self.owner_process = state.get("owner")
+        self._pending = None
+        self._count_preserving = True
 
     # ------------------------------------------------------------------ ctors
     @staticmethod

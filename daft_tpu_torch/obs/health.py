@@ -1,6 +1,6 @@
 """Engine health snapshot: breakers, ledger, pools, plan cache, batching,
-device residency, running queries and the query log (the port's copy of
-daft_tpu/obs/health.py).
+device residency, the distributed runner's cluster, running queries and the
+query log (the port's copy of daft_tpu/obs/health.py).
 
 ``daft_tpu_torch.health()`` returns one JSON-able dict that answers "is
 the engine healthy now?" without running a query: the circuit breaker of
@@ -13,10 +13,14 @@ registry (``refresh_health_gauges``), so ``daft_tpu_torch.metrics_text()``
 exports it. The keys, types and gauge names are the reference's: its
 ``validate_health`` accepts the port's snapshot.
 
-The sections of subsystems the port does not have yet report what the
-reference reports while those subsystems are idle, as fixed values:
-``cluster`` until ``dist/``, ``admission`` until ``serve/`` and
-``persist`` until ``persist/`` (all ROADMAP Queue 1, item 10).
+The ``cluster`` section is the live WorkerPool's snapshot (dist/supervisor.py,
+registered weakly by the pool as it starts), its workers, tasks, restarts,
+peer-shuffle plane and elastic controller; without a pool (or once it shut
+down) it is the idle shape the reference reports. The sections of
+subsystems the port does not have yet report what the reference reports
+while those subsystems are idle, as fixed values: ``admission`` until
+``serve/`` and ``persist`` until ``persist/`` (both ROADMAP Queue 1,
+item 10).
 """
 
 from __future__ import annotations
@@ -27,7 +31,8 @@ import weakref
 from typing import Dict, List, Optional
 
 __all__ = ["HEALTH_SCHEMA_VERSION", "engine_health", "register_breaker",
-           "breaker_states", "refresh_health_gauges", "validate_health"]
+           "register_cluster", "breaker_states", "admission_state",
+           "cluster_state", "refresh_health_gauges", "validate_health"]
 
 HEALTH_SCHEMA_VERSION = 1
 
@@ -42,7 +47,7 @@ _ADMISSION_IDLE = {"slots": 0, "queue_depth": 0, "active_queries": 0,
                    "shed_total": 0, "draining": False}
 
 # the distributed runner's pool, its peer-shuffle plane and its elastic
-# controller, idle until dist/ (item 10)
+# controller while no pool is up
 _PEER_IDLE = {"pieces_hosted": 0, "piece_bytes_hosted": 0,
               "pieces_stored_total": 0, "pieces_served_total": 0,
               "peer_bytes_served_total": 0, "pieces_fetched_total": 0,
@@ -67,9 +72,40 @@ _CLUSTER_IDLE = {"workers": 0, "workers_alive": 0, "workers_restarting": 0,
                  "elastic": dict(_ELASTIC_IDLE),
                  "degraded": False, "worker_detail": {}}
 
+# the latest WorkerPool (weakly held: a dead or shut pool reads as idle)
+_cluster: Optional["weakref.ref"] = None
+
+
 def _cluster_idle() -> dict:
     return {**_CLUSTER_IDLE, "peer_plane": dict(_PEER_IDLE),
             "elastic": dict(_ELASTIC_IDLE), "worker_detail": {}}
+
+
+def register_cluster(pool) -> None:
+    """Track the latest distributed WorkerPool (weakly), so that health()
+    answers its worker, task and restart state without a reference."""
+    global _cluster
+    with _lock:
+        _cluster = weakref.ref(pool)
+
+
+def cluster_state() -> dict:
+    """The live pool's snapshot, or the idle shape."""
+    with _lock:
+        ref = _cluster
+    pool = ref() if ref is not None else None
+    if pool is None or getattr(pool, "_closed", False):
+        return _cluster_idle()
+    try:
+        return pool.snapshot()
+    except Exception:
+        return _cluster_idle()  # the pool mid-teardown
+
+
+def admission_state() -> dict:
+    """The serving runtime's admission controller: idle until serve/ (the
+    elastic pool controller reads its queue depth as demand)."""
+    return dict(_ADMISSION_IDLE)
 
 
 # breaker state -> gauge value (0 healthy .. 2 open)
@@ -217,7 +253,7 @@ def engine_health() -> dict:
         "pools": {"actor_pools": pool_count(),
                   "leaked_threads": leaked_thread_count()},
         "admission": dict(_ADMISSION_IDLE),
-        "cluster": _cluster_idle(),
+        "cluster": cluster_state(),
         "streaming": _streaming_snapshot(),
         "batching": _batching_snapshot(),
         "device": _device_snapshot(),
@@ -336,7 +372,7 @@ def refresh_health_gauges(registry=None) -> None:
     reg.gauge("daft_tpu_device_hbm_resident_high_water_bytes",
               "largest resident intermediate env of any segment").set(
         dev["hbm_resident_bytes_high_water"])
-    clu = _cluster_idle()
+    clu = cluster_state()
     reg.gauge("daft_tpu_cluster_workers_alive",
               "distributed workers currently serving tasks").set(
         clu["workers_alive"])

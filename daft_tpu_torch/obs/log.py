@@ -18,9 +18,8 @@ scan prefetches, unspill readaheads, actor-pool batches) captures
 through ``query_context``. A line emitted from any of those threads
 carries the query that caused the work.
 
-Left out: ``inject``, which relays a worker process's records into the
-coordinating process's ring; its one caller is the telemetry merge of the
-distributed runner (ROADMAP Queue 1, item 10, ``dist/``).
+``inject`` relays a worker process's records into the driver's ring as
+recorded (the telemetry merge of the distributed runner, obs/cluster.py).
 """
 
 from __future__ import annotations
@@ -36,7 +35,7 @@ from typing import Callable, Deque, Dict, List, Optional
 
 __all__ = ["EngineLogger", "get_logger", "current_query_id", "query_context",
            "tail", "clear", "set_ring_cap", "dropped_records", "ring_size",
-           "log_to_file", "close_file", "add_sink", "remove_sink",
+           "log_to_file", "close_file", "inject", "add_sink", "remove_sink",
            "DEFAULT_RING_CAP"]
 
 # bounded record ring: a record is a small dict, so the worst-case buffer
@@ -208,6 +207,15 @@ def dropped_records() -> int:
 def ring_size() -> int:
     with _lock:
         return len(_ring)
+
+
+def inject(rec: dict) -> None:
+    """Publish a finished record to the ring, the sinks and the JSON-lines
+    file as recorded: the telemetry merge relays worker-process records
+    through here, with their timestamp, level and query id intact. Not
+    forwarded to stdlib logging: the record already went through the
+    worker's, and forwarding it again would double every worker line."""
+    _publish(rec, logging.getLogger("daft_tpu_torch.obs"))
 
 
 def add_sink(fn: Callable[[dict], None]) -> None:

@@ -22,9 +22,9 @@ profiler is).
 
 The field names, outcomes and ``RECORD_SCHEMA_VERSION`` are the
 reference's: its ``validate_record`` accepts the port's records. The
-record's ``ledger`` carries ``dist_inflight``, the account of a producer
-the port does not have yet (ROADMAP Queue 1, item 10, ``dist/``), at 0.
-A query that streamed morsels carries the optional ``streaming`` rollup.
+record's ``ledger`` carries ``dist_inflight``, the payload bytes of tasks
+still out on distributed workers (dist/supervisor.py). A query that
+streamed morsels carries the optional ``streaming`` rollup.
 """
 
 from __future__ import annotations
@@ -117,9 +117,6 @@ class QueryLog:
 
 QUERY_LOG = QueryLog()
 
-# ledger accounts of producers the port does not have yet (module docstring)
-_LEDGER_NOT_YET = {"dist_inflight": 0}
-
 
 def plan_signature(root) -> Tuple[str, Dict[str, int]]:
     """(fingerprint, op-name counts) for a physical plan — computed once
@@ -173,7 +170,7 @@ def build_record(query_id: str, fingerprint: str, plan_ops: Dict[str, int],
     try:
         from ..spill import MEMORY_LEDGER
 
-        led = {**_LEDGER_NOT_YET, **MEMORY_LEDGER.snapshot()}
+        led = MEMORY_LEDGER.snapshot()
         ledger = {k: led[k] for k in (
             "current", "high_water", "spilled_bytes", "spilled_partitions",
             "prefetch_inflight", "async_spill_inflight", "stream_inflight",

@@ -54,8 +54,12 @@ the same breaker, with the fault site ``collective.sketch``; a failure
 leaves the merge to the host. Several processes keep the host merge, as the
 reference does.
 
-Left out: the peer transport of a backend without cross-process
-collectives (ROADMAP Queue 1, item 10).
+Across processes, a failed exchange or an open collective breaker takes
+the host transport of dist/peer.py (``_transport_shuffle``,
+``transport_shuffles``): each process contributes the partitions it owns to
+one allgather over TCP and buckets the whole input as the host shuffle
+does. One process falls to the host shuffle, as before. With ``gloo`` the
+collective exchange works, so the transport engages only after a failure.
 """
 
 from __future__ import annotations
@@ -294,7 +298,8 @@ class MeshExecutionContext(ExecutionContext):
 
         if not self.collective_health.allow(self.stats):
             self.stats.bump("degraded_shuffles")
-            return None
+            return self._try_transport_shuffle(parts, by, num, scheme, descending,
+                                               nulls_first, boundaries)
         try:
             faults.check("collective.exchange", self.stats)
             # staging, exchange and unstage are one phase on the timeline
@@ -304,12 +309,89 @@ class MeshExecutionContext(ExecutionContext):
         except COLLECTIVE_FAILURES:
             self.stats.bump("device_attempt_failures")
             self.collective_health.record_failure(self.stats)
-            return None
+            # several processes still have dist/peer.py's host transport;
+            # one process falls to the host shuffle
+            return self._try_transport_shuffle(parts, by, num, scheme, descending,
+                                               nulls_first, boundaries)
         if out is None:
             self.collective_health.release_probe()
         else:
             self.collective_health.record_success(self.stats)
         return out
+
+    def _try_transport_shuffle(self, parts, by, num, scheme, descending, nulls_first,
+                               boundaries) -> Optional[List[MicroPartition]]:
+        """The transport exchange of a multi-process mesh, or None (the host
+        shuffle takes over): one process, or the transport itself failed.
+        Never raises."""
+        if not self._multiproc:
+            return None
+        try:
+            return self._transport_shuffle(parts, by, num, scheme, descending,
+                                           nulls_first, boundaries)
+        except Exception as e:
+            from ..obs.log import get_logger
+
+            get_logger("mesh").warning("transport_shuffle_failed", error=repr(e))
+            return None
+
+    def _transport_shuffle(self, parts, by, num, scheme, descending, nulls_first,
+                           boundaries) -> Optional[List[MicroPartition]]:
+        """The exchange over dist/peer.py's allgather: each process reads only
+        the partitions it owns (the same rule as the collective exchange, so
+        that replicated in-memory inputs count once and foreign scan
+        partitions stay unread), allgathers them pickled, and every process
+        rebuilds the whole input and buckets it as the host shuffle does
+        (piece i of every partition, in partition order). None without a
+        peer group or for a scheme it cannot serve."""
+        import pickle
+
+        from ..dist.peer import get_peer_group
+
+        if scheme not in ("hash", "random", "range"):
+            return None
+        if scheme == "range" and boundaries is None:
+            return None
+        peer = get_peer_group()
+        if peer is None:
+            return None
+        nproc = dist.get_world_size()
+        me = my_rank()
+        local = []
+        sent_rows = sent_bytes = 0
+        for i, p in enumerate(parts):
+            owner = p.owner_process if p.owner_process is not None else i % nproc
+            if owner == me:
+                t = p.table()
+                local.append((i, t))
+                sent_rows += len(t)
+                sent_bytes += t.size_bytes()
+        datas = peer.allgather(pickle.dumps(local, protocol=pickle.HIGHEST_PROTOCOL))
+        full = {}
+        for d in datas:
+            for i, t in pickle.loads(d):
+                full[i] = t
+        schema = parts[0].schema
+        buckets: List[List[MicroPartition]] = [[] for _ in range(num)]
+        for pi in range(len(parts)):
+            t = full.get(pi)
+            mp = MicroPartition.from_table(t) if t is not None else MicroPartition.empty(schema)
+            if scheme == "hash":
+                pieces = mp.partition_by_hash(by, num)
+            elif scheme == "random":
+                pieces = mp.partition_by_random(num, seed=pi)
+            else:
+                pieces = mp.partition_by_range(by, boundaries, descending, nulls_first)
+            for i, piece in enumerate(pieces):
+                if len(piece):
+                    buckets[min(i, num - 1)].append(piece)
+        self.stats.bump("transport_shuffles")
+        if sent_rows:
+            self.stats.bump("exchange_rows", sent_rows)
+        if sent_bytes:
+            self.stats.bump("exchange_bytes", sent_bytes)
+        return [MicroPartition.concat(b) if b else MicroPartition.empty(schema)
+                for b in buckets]
 
     def _seed_key_device(self, dev: torch.device) -> str:
         """The device string a staged column on ``dev`` is cached under: the

@@ -108,6 +108,9 @@ def shutdown_distributed() -> None:
         dist.destroy_process_group()
     _INITIALIZED[0] = False
     _CLUSTER[0] = None
+    from ..dist.peer import reset_peer_group
+
+    reset_peer_group()
 
 
 def local_devices() -> List[torch.device]:

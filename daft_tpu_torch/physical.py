@@ -123,7 +123,7 @@ partition and pivots it on the host.
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 from . import faults
 from .errors import PORT_FAILURES
@@ -849,7 +849,12 @@ class ShuffleOp(PhysicalOp):
     bucket (``exchange_payload_encoding``; ``exchange_pieces_encoded``,
     ``exchange_bytes_encodable``, ``exchange_bytes_encoded``), bucket i+1
     preloads its spilled pieces while bucket i merges, and each bucket is
-    released once yielded."""
+    released once yielded.
+
+    Under the distributed runner a hash or random exchange without a join
+    filter or a fold runs peer to peer (``_peer_execute``, behind
+    ``peer_shuffle``): the workers split the sources and host the pieces,
+    and each output is a map of piece locations (dist/peerplane.py)."""
 
     filter_feed = None    # JoinFilterSlot this build-side exchange populates
     probe_filter = None   # JoinFilterSlot whose sealed filter prunes here
@@ -931,6 +936,109 @@ class ShuffleOp(PhysicalOp):
                 obs[1] += max(0, (p.size_bytes() or 0) - (out.size_bytes() or 0))
             yield out
 
+    def _peer_execute(self, stream, ctx, n, fdo_obs, backend) -> PartStream:
+        """The peer-to-peer exchange: each source partition ships to a worker
+        as a fan-out task (the split runs there and the pieces stay on that
+        worker's piece server) and each reduce output is a PeerPieceTask, an
+        unloaded task whose payload is a map of piece locations, pulled from
+        the peers by whichever process materializes it. The driver moves
+        plan metadata and location maps only.
+
+        A source without a lineage recipe (a loaded or derived partition, or
+        ``lineage_recomputation`` off) splits here: a peer hosting pieces
+        that cannot be recomputed would turn its death into a failed query,
+        and the driver holds these bytes already. A worker declining a
+        fan-out splits that source here too; its pieces ride inline in the
+        map, and the reader concatenates entries in source order either
+        way. A peer dying after its fan-out is the reader's problem:
+        PeerPieceTask recomputes the lost piece from its source."""
+        from .dist.peerplane import PeerPieceTask, PieceRef
+
+        lineage_on = ctx.cfg.lineage_recomputation
+        integrity = ctx.cfg.partition_integrity
+        sid = backend.new_shuffle_id()
+        ctx.register_peer_shuffle(sid)
+        token = backend.peer_token()
+        sources: Dict[int, Any] = {}
+        entries: List[List[Any]] = [[] for _ in range(n)]
+        saw = False
+
+        def account(rows, nbytes):
+            if rows:
+                ctx.stats.bump("exchange_rows", rows)
+            if nbytes:
+                ctx.stats.bump("exchange_bytes", nbytes)
+            if fdo_obs is not None:
+                fdo_obs[0] += rows or 0
+                fdo_obs[1] += nbytes or 0
+
+        with ctx.stats.profiler.span("shuffle.fanout", kind="phase"):
+            pool = ctx.pool()
+            pending = []
+            for pi, p in enumerate(stream):
+                saw = True
+                # captured before shipping: the recipe recomputes every piece
+                # this source produces
+                src_task = unwrap_source_task(p) if lineage_on else None
+                if src_task is not None:
+                    sources[pi] = src_task
+                    spec = {"sid": sid, "src": pi, "scheme": self.scheme, "num": n,
+                            "seed": pi, "by": self.by, "crc": integrity}
+                    pending.append((pi, p, pool.submit(
+                        backend.execute_fanout, p, spec, ctx, f"shuffle.{self.scheme}", pi)))
+                else:
+                    pending.append((pi, p, None))
+            for pi, p, fut in pending:
+                res = fut.result() if fut is not None else None
+                if res is None:
+                    pieces = (p.partition_by_hash(self.by, n) if self.scheme == "hash"
+                              else p.partition_by_random(n, seed=pi))
+                    src_task = sources.get(pi)
+                    for i, piece in enumerate(pieces):
+                        nrows = piece.num_rows_or_none() or 0
+                        if not nrows:
+                            continue
+                        if src_task is not None:
+                            piece.lineage_recipe = fanout_piece_recipe(
+                                src_task, self.by, self.scheme, n, pi, i)
+                        account(nrows, piece.size_bytes() or 0)
+                        entries[i].append(piece)
+                else:
+                    wid, (host, port), metas = res
+                    for (i, rows, nbytes, crc) in metas:
+                        account(rows, nbytes)
+                        entries[i].append(PieceRef(wid, host, port, sid, i, pi, rows,
+                                                   nbytes, crc))
+        if fdo_obs is not None and saw:
+            ctx.stats.fdo_observe(self.fdo_obs_key, fdo_obs[0], fdo_obs[1])
+        if not saw:
+            return
+        ctx.stats.bump("shuffles")
+        split = (self.by, self.scheme, n)
+
+        def emit(refs):
+            if not refs:
+                return MicroPartition.empty(self.schema)
+            # only the sources this bucket's remote pieces need ride along
+            # (inline pieces carry their own recipe)
+            need = {e.src for e in refs if isinstance(e, PieceRef)}
+            task = PeerPieceTask(self.schema, refs, token, split,
+                                 {s: sources[s] for s in need if s in sources},
+                                 checksum=integrity, stats=ctx.stats)
+            return MicroPartition.from_scan_task(task)
+
+        k = self.reduce_to if self.reduce_to is not None and 0 < self.reduce_to < n else None
+        if k is None:
+            for i in range(n):
+                yield emit(entries[i])
+            return
+        groups: List[List[int]] = [[] for _ in range(k)]
+        for i in range(n):
+            groups[i * k // n].append(i)
+        ctx.stats.bump("fdo_reduced_partitions", n - k)
+        for idxs in groups:
+            yield emit([e for i in idxs for e in entries[i]])
+
     def _mesh_leg(self, src, ctx, combine):
         """The mesh leg: the whole input offered to the slot exchange.
         Returns (the exchanged partitions or None, the drained input, the
@@ -975,6 +1083,20 @@ class ShuffleOp(PhysicalOp):
                 yield from out
                 return
             src = iter(parts)
+        # the peer-to-peer path (dist/peerplane.py): a hash or random exchange
+        # on a worker pool that serves pieces fans out on the workers, and
+        # each reduce bucket is a map of piece locations. The join filter's
+        # feed and prune and the fold keep the star path: each is defined
+        # over pieces the driver holds
+        backend = getattr(ctx, "dist_backend", None)
+        if (backend is not None and self.scheme in ("hash", "random")
+                and self.filter_feed is None and self.probe_filter is None
+                and not (self.combine is not None and ctx.cfg.hierarchical_exchange_combine)
+                and ctx.cfg.peer_shuffle
+                and getattr(backend, "execute_fanout", None) is not None
+                and backend.peer_ready()):
+            yield from self._peer_execute(src, ctx, n, fdo_obs, backend)
+            return
         # partition_buffer() checks the deadline: a pipeline breaker first
         # proves the query still has time
         buckets = [ctx.partition_buffer() for _ in range(n)]

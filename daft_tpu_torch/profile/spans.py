@@ -46,9 +46,9 @@ Buffers are bounded: past ``max_spans``/``max_events`` new entries are
 dropped and counted (``dropped_spans``/``dropped_events``): a pathological
 query degrades its own profile, never the process.
 
-Left out: ``Profiler.splice``, which adopts a worker process's recorded
-subtree; its one caller is the telemetry merge of the distributed runner
-(ROADMAP Queue 1, item 10, ``dist/``).
+``Profiler.splice`` adopts a worker process's recorded subtree (the
+telemetry merge of the distributed runner, obs/cluster.py): the worker's
+spans land under the driver's ``dist.remote`` span on a ``worker-N`` lane.
 """
 
 from __future__ import annotations
@@ -310,6 +310,60 @@ class Profiler:
         else:
             with self._lock:
                 self._unattributed[key] = self._unattributed.get(key, 0) + ns
+
+    # --------------------------------------------- cross-process splicing
+    def splice(self, spans: List[dict], events: List[dict],
+               parent: Optional[int], offset_ns: int,
+               thread: Optional[str] = None) -> int:
+        """Adopt a remote profiler's recorded subtree (span/event dicts
+        from a worker telemetry fragment, obs/cluster.py): span ids are
+        remapped into this profiler's sequence, intra-fragment parent
+        links are preserved, fragment roots re-parent to ``parent`` (the
+        driver-side span that caused the dispatch), and every timestamp
+        shifts by ``offset_ns`` (the two processes' perf_counter clocks
+        are unrelated). ``thread`` overrides the recorded thread name —
+        the chrome trace renders one lane per worker process from it.
+
+        Remote ``op`` spans are demoted to ``bg``: the driver's own op
+        span already covers the remote wall, and a second op-kind span
+        would double-count the per-op rollup. Buffer caps apply (overflow
+        counts into ``dropped_spans``/``dropped_events``). Returns the
+        number of spans adopted."""
+        if not self.armed:
+            return 0
+        adopted = 0
+        with self._lock:
+            budget = self.max_spans - len(self._spans)
+            if budget < len(spans):
+                self.dropped_spans += len(spans) - max(0, budget)
+                spans = spans[:max(0, budget)]
+            # two passes: spans arrive in END order (children before their
+            # parents), so the id map must exist before links resolve
+            idmap = {d["id"]: next(self._seq) for d in spans}
+            for d in spans:
+                kind = d.get("kind", "bg")
+                sp = Span(idmap[d["id"]],
+                          idmap.get(d.get("parent"), parent),
+                          d["name"], d.get("op"), d.get("part"),
+                          "bg" if kind == "op" else kind,
+                          thread or d.get("thread", "remote"),
+                          int(d["t0_ns"]) + offset_ns)
+                sp.dur_ns = int(d.get("dur_ns", 0))
+                if d.get("phases"):
+                    sp.phases = dict(d["phases"])
+                if d.get("attrs"):
+                    sp.attrs = dict(d["attrs"])
+                self._spans.append(sp)
+                adopted += 1
+            for ev in events:
+                if len(self._events) >= self.max_events:
+                    self.dropped_events += 1
+                    continue
+                self._events.append({
+                    "t_ns": int(ev.get("t_ns", 0)) + offset_ns,
+                    "kind": str(ev.get("kind", "remote")),
+                    "attrs": dict(ev.get("attrs") or {})})
+        return adopted
 
     # ------------------------------------------------------------ events
     def event(self, kind: str, /, **attrs) -> None:

@@ -28,8 +28,9 @@ the sub-plan result cache's key), so an overwritten file never serves a
 cached plan or result. A task whose path cannot be stat'ed (an
 object-store url) and a ``FactoryScanTask`` (io/pyscan.py, a Python
 callable, whose identity cannot be fingerprinted) make the plan
-uncacheable in all three caches. Left out of this slice: the distributed
-runner.
+uncacheable in all three caches. The distributed runner
+(dist/runner.py) is a NativeRunner whose contexts carry the worker pool as
+their dispatch backend.
 """
 
 from __future__ import annotations

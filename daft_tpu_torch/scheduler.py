@@ -1,5 +1,6 @@
-"""Partition-task scheduling: explicit tasks and a bounded dispatch loop
-(the port's copy of daft_tpu/scheduler.py, in-process only).
+"""Partition-task scheduling: explicit tasks, a bounded dispatch loop and
+the dispatch backend of worker processes (the port's copy of
+daft_tpu/scheduler.py).
 
 A ``PartitionTask`` is one partition, the function to run on it and the
 resource request the query's accountant admits first. ``dispatch`` runs
@@ -30,9 +31,12 @@ stream producer: the scan readahead (io/prefetch.py) stands down there,
 since the dispatch window already overlaps the workers' reads, and
 ``io_wait_ns`` keeps meaning the time the consumer's thread waited.
 
-Left out: the dispatch backend of worker processes (``DispatchBackend``,
-the ``dist.remote`` span), which comes with the distributed runner
-(ROADMAP Queue 1, item 10).
+``run_map_task`` runs one map partition. Under the distributed runner the
+context carries a dispatch backend (``DispatchBackend``: dist/supervisor.py's
+WorkerPool), and the task ships to a worker process from inside the pool
+thread that runs it, so the dispatch window, the retries, the deadline and
+cancellation hold as in-process; the round trip is a ``dist.remote`` phase
+span. A task the backend declines runs here.
 """
 
 from __future__ import annotations
@@ -83,13 +87,66 @@ def _result_bytes(out) -> int:
     return sum(p.size_bytes() or 0 for p in parts if p.is_loaded())
 
 
-def run_map_task(op, part, ctx):
-    """One map partition on this thread (in-process; the reference's dispatch
-    backend of worker processes comes with item 10): the output and the
-    map's wall time in ns."""
+class DispatchBackend:
+    """Where a map-class partition task's work runs. The default is the
+    in-process pool; an object of this shape on
+    ``ExecutionContext.dist_backend`` (dist/supervisor.WorkerPool) routes
+    eligible tasks to worker processes instead, through the same dispatch
+    window, retries, deadline and cancellation, since the backend call
+    happens inside the task function the in-process pool runs."""
+
+    def capacity(self) -> int:
+        """Concurrent tasks the backend can absorb."""
+        raise NotImplementedError
+
+    def try_execute(self, op, part, ctx, op_name: str, seq: int):
+        """Run one map task remotely: ``(out, rows, wall_ns)``, or None when
+        the task is ineligible or the backend degraded (the caller runs it
+        in-process). Raises the task's terminal error. A backend may read a
+        placement hint from the partition (a peer-backed shuffle partition
+        prefers the workers hosting its pieces); any ready worker stays a
+        legal target."""
+        raise NotImplementedError
+
+    # The peer-shuffle extension (dist/peerplane.py), optional: ShuffleOp
+    # probes for these and keeps the star path without them.
+    #   execute_fanout(part, spec, ctx, op_name, seq)
+    #       -> (wid, (host, port), metas) | None
+    #   peer_ready() -> bool      any ready worker serving pieces?
+    #   new_shuffle_id() -> int   scopes the piece keys of one shuffle
+    #   peer_token() -> str       the transport token of peer fetches
+    #   drop_shuffles(sids)       the fleet-wide piece drop at query end
+
+
+def run_map_task(op, part, ctx, op_name: str, seq: int):
+    """One map partition: through the context's dispatch backend where there
+    is one and it takes the task, else on this thread. Returns ``(out, rows,
+    wall_ns)``: ``rows`` is the worker's row count on the remote path (None
+    in-process) and ``wall_ns`` the work's own time (the worker's measure
+    remotely).
+
+    The remote path runs under a ``dist.remote`` phase span of the driver:
+    the backend stamps its submit -> sent -> reply split on it and splices
+    the worker's telemetry under it, so the remote queue and transport time
+    shows even when a worker's fragment is lost."""
+    backend = getattr(ctx, "dist_backend", None)
+    if backend is not None:
+        prof = ctx.stats.profiler
+        sp = prof.begin("dist.remote", op=op_name, part=seq, kind="phase") if prof.armed else None
+        try:
+            res = backend.try_execute(op, part, ctx, op_name, seq)
+        except BaseException:
+            if sp is not None:
+                prof.end(sp)  # a remote error is still a remote execution
+            raise
+        if sp is not None:
+            # a decline was no remote execution: the span closes unrecorded
+            (prof.end if res is not None else prof.cancel)(sp)
+        if res is not None:
+            return res
     t0 = time.perf_counter_ns()
     out = op.map_partition(part, ctx)
-    return out, time.perf_counter_ns() - t0
+    return out, None, time.perf_counter_ns() - t0
 
 
 def run_retrying(fn, ctx, op_name: str, seq: int):

@@ -61,6 +61,19 @@ class Series:
         self._arrow = arrow
         self._pyobjs = pyobjs  # numpy object array when dtype is python
 
+    # pickling (the distributed runner's transport): arrow pickles a sliced
+    # array with its parent's whole buffers, so a slice ships compacted
+    def __getstate__(self):
+        arr = self._arrow
+        total = getattr(arr, "get_total_buffer_size", None)
+        if total is not None and total() > arr.nbytes:
+            arr = (pa.concat_arrays([arr]) if isinstance(arr, pa.Array)
+                   else pa.chunked_array([pa.concat_arrays([c]) for c in arr.chunks], arr.type))
+        return (self._name, self._dtype, arr, self._pyobjs)
+
+    def __setstate__(self, state):
+        self._name, self._dtype, self._arrow, self._pyobjs = state
+
     # ------------------------------------------------------------------ ctors
     @staticmethod
     def from_arrow(arr, name: str = "arrow_series", dtype: Optional[DataType] = None) -> "Series":

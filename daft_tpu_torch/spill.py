@@ -138,6 +138,11 @@ class MemoryLedger:
         # producer window
         self.stream_inflight = 0
         self.stream_inflight_high_water = 0
+        # the payload bytes of tasks shipped to distributed workers and not
+        # answered yet (dist/supervisor.py): the driver still holds them.
+        # Outside `current` for the prefetch_inflight reason
+        self.dist_inflight = 0
+        self.dist_inflight_high_water = 0
         # the finished map-task outputs parked in the scheduler's dispatch
         # window behind the head-of-line task (scheduler.dispatch): charged
         # when a task finishes, released when the consumer pulls it; outside
@@ -222,6 +227,16 @@ class MemoryLedger:
         with self._lock:
             self.exec_inflight -= min(n, self.exec_inflight)
 
+    def dist_started(self, n: int) -> None:
+        with self._lock:
+            self.dist_inflight += n
+            self.dist_inflight_high_water = max(self.dist_inflight_high_water,
+                                                self.dist_inflight)
+
+    def dist_done(self, n: int) -> None:
+        with self._lock:
+            self.dist_inflight -= min(n, self.dist_inflight)
+
     def batch_started(self, n: int) -> None:
         with self._lock:
             self.batch_inflight += n
@@ -274,7 +289,8 @@ class MemoryLedger:
                  "plan_cache_bytes", "subplan_cache_bytes", "prefetch_inflight",
                  "batch_inflight", "batch_inflight_high_water", "model_cache_bytes",
                  "stream_inflight", "stream_inflight_high_water", "exec_inflight",
-                 "exec_inflight_high_water", "working_set_high_water")
+                 "exec_inflight_high_water", "dist_inflight", "dist_inflight_high_water",
+                 "working_set_high_water")
 
     def reset(self) -> None:
         with self._lock:

@@ -160,6 +160,11 @@ def try_stream(op, ctx, build, trace: bool = True):
         # a mesh or a multi-process run: partitions are pinned to slots and
         # processes, and morsels would read foreign partitions
         return None
+    if getattr(ctx, "dist_backend", None) is not None:
+        # the distributed runner ships map work to worker processes a
+        # partition at a time: morsel channels here would keep it in the
+        # driver
+        return None
     seg = extract_segment(op, ctx)
     if seg is None:
         return None

@@ -79,6 +79,15 @@ class Table:
         # the depth counter must not race across them.
         self._memo_by_thread: Dict[int, list] = {}
 
+    # pickling (the distributed runner's transport): the schema and the
+    # columns; the evaluation memo is this process's
+    def __getstate__(self):
+        return (self.schema, self._columns)
+
+    def __setstate__(self, state):
+        self.schema, self._columns = state
+        self._memo_by_thread = {}
+
     @property
     def _eval_memo(self) -> Optional[Dict[Tuple, Series]]:
         state = self._memo_by_thread.get(threading.get_ident())

@@ -112,13 +112,18 @@ def test_sites_are_the_four_the_port_wires():
     # scan readahead's, the eighteenth the batching coalesce's and the model
     # actors' load, the twenty-first the mesh exchange's, the twenty-second
     # the object store's read, the twenty-third the sketch merge's and the
-    # mesh register merge's, each wired as the reference wires it
+    # mesh register merge's, the twenty-fourth the distributed runner's
+    # (worker.*, transport.*, telemetry.fragment, peer.fetch), each wired as
+    # the reference wires it
     assert set(faults.SITES) == {"io.get", "collective.exchange",
                                  "device.kernel", "fuse.compile", "fuse.segment", "join.filter",
                                  "spill.write", "spill.readback", "spill.corrupt",
                                  "exchange.encode", "plancache.lookup", "scan.read",
                                  "resultcache.lookup", "prefetch.fetch", "batch.coalesce",
-                                 "actor.load", "sketch.merge", "collective.sketch"}
+                                 "actor.load", "sketch.merge", "collective.sketch",
+                                 "worker.spawn", "worker.exec", "worker.heartbeat",
+                                 "worker.task", "worker.drain", "transport.send",
+                                 "transport.corrupt", "telemetry.fragment", "peer.fetch"}
     assert set(faults.SITES) <= set(ref_faults.SITES)
 
 

@@ -768,8 +768,10 @@ def test_set_runner_mesh_selects_the_mesh_runner():
         df = daft_tpu_torch.from_pydict({"k": [1, 2, 3] * 10}).repartition(
             8, daft_tpu_torch.col("k")).collect()
         assert df.stats.snapshot()["counters"]["device_shuffles"] == 1
+        # "distributed" names the runner of worker processes (dist/); an
+        # unknown name raises
         with pytest.raises(ValueError):
-            daft_tpu_torch.set_runner("distributed")
+            daft_tpu_torch.set_runner("ray")
     finally:
         daft_tpu_torch.set_runner_native()
     assert type(daft_tpu_torch.get_context().runner()) is NativeRunner

@@ -111,3 +111,27 @@ def test_raw_cpu_collective_probe():
     the reference's probe is a strict xfail on its jaxlib's CPU gap."""
     for i, out in enumerate(_spawn("probe", 2)):
         assert f"PROBE_OK {i}" in out, out
+
+
+def test_two_process_transport_shuffle_after_a_collective_failure():
+    """The mesh's host transport (dist/peer.py) between two gloo processes:
+    with collective.exchange armed on both, a repartition takes the transport
+    (transport_shuffles 1, no collective and no host shuffle), every process
+    holds the same 8 partitions, and each holds the rows of the reference's
+    partition of the same index over the same rows."""
+    import numpy as np
+
+    import daft_tpu
+
+    outs = _spawn("transport", 2)
+    parts = []
+    for i, out in enumerate(outs):
+        assert f"TRANSPORT_OK {i} transport_shuffles=1" in out, out
+        parts.append(json.loads(_line(out, "TRANSPORT_ROWS ").split(" ", 1)[1]))
+    assert parts[0] == parts[1]
+    rng = np.random.RandomState(5)
+    k = rng.randint(0, 50, 6000).astype(np.int64)
+    v = rng.randint(0, 1000, 6000).astype(np.int64)
+    want = [p.to_pydict() for p in daft_tpu.from_pydict({"k": k, "v": v}).repartition(
+        8, "k").collect().iter_partitions()]
+    assert parts[0] == want

@@ -13,9 +13,11 @@ against daft_tpu's on the CPU.
   ``scan_prefetch_depth``, a knob both packages have, where the reference
   tunes ``executor_threads``.
 
-The differences that stay: the cluster, admission and persist sections
-report the reference's idle values until their subsystems come (ROADMAP
-Queue 1, item 10). The collective breaker is built and registered with
+The differences that stay: the admission and persist sections report the
+reference's idle values until their subsystems come (ROADMAP Queue 1,
+item 10). The cluster section is the live pool's since the distributed
+runner (tests/test_torch_dist_runner.py holds it under a pool); without one
+it equals the reference's idle section. The collective breaker is built and registered with
 each query beside the device breaker, as in the reference. The scheduler and streaming sections, the
 record's ``exec_inflight``/``stream_inflight`` and the ``cancelled``
 outcome read what the reference's read.
@@ -225,6 +227,8 @@ def test_health_validates_while_a_query_runs_and_after():
     assert running[0]["ops_total"] >= 2 and running[0]["rows_emitted"] > 0
     assert daft_tpu_torch.query_progress(running[0]["query_id"]) is None
     assert set(seen[1]) == set(daft_tpu.health())
+    # no pool is up: the cluster section is the reference's idle one
+    assert seen[1]["cluster"] == daft_tpu.health()["cluster"]
     # the mesh breaker is the query's, registered beside the device breaker
     assert seen[1]["breakers"]["collective"] == seen[1]["breakers"]["device"]
 

@@ -409,12 +409,12 @@ def test_double_release_clamps_and_counts():
 def test_snapshot_covers_the_reference_accounts():
     mine = set(MemoryLedger().snapshot())
     ref = set(REF_LEDGER.snapshot())
-    # the accounts of producers the port does not have yet are left out (the
-    # sub-plan result cache's came with the scans, the scan readahead's and
-    # the working set's with io/prefetch, the batching executor's and the
-    # model actors' with batch/, the stream channels' and the dispatch
-    # window's with stream/ and scheduler.py)
-    later = {"dist_inflight", "dist_inflight_high_water"}
+    # every account of the reference is the port's since the distributed
+    # runner brought dist_inflight (the sub-plan result cache's came with the
+    # scans, the scan readahead's and the working set's with io/prefetch, the
+    # batching executor's and the model actors' with batch/, the stream
+    # channels' and the dispatch window's with stream/ and scheduler.py)
+    later = set()
     assert mine == ref - later
 
 

@@ -16,6 +16,10 @@ Scenarios:
 - ``sketch`` (2 processes, 4 slots each): ``build_register_allmerge`` over
   the global mesh, one seeded HLL register row a slot, against the numpy
   max of all 8 rows.
+- ``transport`` (2 processes, 4 slots each): ``collective.exchange`` armed
+  on every process, so that the exchange of a grouped sum over a
+  repartition takes dist/peer.py's host transport (``transport_shuffles``);
+  its rows printed for the parent to hold against the reference's.
 - ``lake`` (2 processes, 4 slots each): the Iceberg table at
   ``TORCH_MH_LAKE`` read through ``read_iceberg`` and summed by key through
   the exchange (its rows printed, and the data files each process opened),
@@ -228,6 +232,27 @@ def main() -> None:
     done("MULTIHOST_STRINGPAYLOAD_OK")
 
 
+def transport() -> None:
+    from daft_tpu_torch import faults
+
+    use_mesh(global_mesh(4))
+    rng = np.random.RandomState(5)  # the same rows on every process
+    k = rng.randint(0, 50, 6000).astype(np.int64)
+    v = rng.randint(0, 1000, 6000).astype(np.int64)
+    faults.arm("collective.exchange", "always")
+    try:
+        res = dtt.from_pydict({"k": k, "v": v}).repartition(8, "k").collect()
+    finally:
+        faults.disarm()
+    c = res.stats.snapshot()["counters"]
+    assert c.get("transport_shuffles", 0) == 1, c
+    assert c.get("device_shuffles", 0) == 0 and c.get("shuffles", 0) == 0, c
+    parts = [p.to_pydict() for p in res.iter_partitions()]
+    assert len(parts) == 8
+    done("TRANSPORT_OK", transport_shuffles=c["transport_shuffles"])
+    print("TRANSPORT_ROWS " + json.dumps(parts), flush=True)
+
+
 def four() -> None:
     mesh = global_mesh(2)
     assert mesh.size == 2 * nproc
@@ -325,6 +350,7 @@ def sketch() -> None:
 
 
 try:
-    {"main": main, "four": four, "probe": probe, "lake": lake, "sketch": sketch}[scenario]()
+    {"main": main, "four": four, "probe": probe, "lake": lake, "sketch": sketch,
+     "transport": transport}[scenario]()
 finally:
     shutdown_distributed()
